@@ -1,0 +1,64 @@
+"""The port imports neither JAX nor the JAX package, so a host with a GPU
+needs no JAX install: every module of sparse_coding_tpu_torch (and
+chip_smoke.py) imports in a subprocess whose meta-path blocks jax, flax,
+optax and sparse_coding_tpu, and a source scan finds no such import."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "sparse_coding_tpu_torch"
+
+_CHILD = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "sparse_coding_tpu")
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+import sparse_coding_tpu_torch as port
+
+names = [m.name for m in pkgutil.walk_packages(port.__path__,
+                                                port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print(len(names))
+"""
+
+_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|sparse_coding_tpu)\b"
+    r"(?!_torch)", re.MULTILINE)
+_DYNAMIC = re.compile(
+    r"(?:import_module|__import__)\(\s*['\"](jax|flax|optax|"
+    r"sparse_coding_tpu)(?!_torch)")
+
+
+def test_port_imports_under_a_jax_blocker():
+    from conftest import stripped_cpu_subprocess_env
+
+    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env=stripped_cpu_subprocess_env())
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert int(out.stdout.split()[-1]) >= 20
+
+
+def test_source_scan_finds_no_jax_import():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) >= 20
+    for path in files:
+        text = path.read_text()
+        assert not _IMPORT.search(text), path
+        assert not _DYNAMIC.search(text), path
