@@ -4,30 +4,38 @@ NVIDIA GPU. Imports nothing of JAX and nothing of the JAX package.
 
 Phases — any failure raises, and the script exits non-zero with no result:
 
-1. card: name and power limit (nvidia-smi), then every CUDA kernel is
+1. card: name and power limit (nvidia-smi), then all six CUDA kernels are
    built from ``sparse_coding_tpu_torch/ops/csrc`` (one nvcc per source,
-   all started together);
-2. kernels: each kernel (sae_tied_fwd, sae_tied_bwd, sae_tied_adam_vjp) and
-   each of the four tied contracts (K1 fused_tied_sae_grads, K2
-   fused_tied_sae_train_step, K3 tiled_tied_sae_grads, K4
-   fused_tied_adam_vjp_update) is held against its plain PyTorch version
-   on the same inputs on the card, at the main path's shapes and at two
-   small odd shapes; each kernel and its plain version are timed at the
-   main path's shapes;
-3. main path: a synthetic activation store (d=512) is written with the
-   port's ChunkWriter, then ``basic_l1_sweep`` trains 32 tied SAEs (an L1
-   grid, ratio 4, batch 2048) for one epoch (208 steps, metrics at steps
-   100 and 200) on the default kernel path ``train_step_tiled``, with
-   every launch count zeroed just before and read just after; the logged
-   losses must be finite, eval.json must order the L1 grid, and the
-   artifacts must load;
-4. reference: the same epoch from the same init in the same batch order
-   on the autodiff path (plain PyTorch, no kernel); each member's logged
-   single-batch mse must match the main path's;
-5. other paths: a few steps each of all four kernel paths through
-   ``Ensemble`` (counts zeroed before each), held against the autodiff
-   path from the same init on the same batches;
-6. summary: one ``{"kernels": [...]}`` line, the card's name and power
+   all started together), with their ptxas register and spill lines;
+2. kernels: each kernel (sae_tied_fwd, sae_tied_bwd, sae_tied_adam_vjp,
+   sae_untied_fwd, sae_untied_bwd, sae_untied_adam_vjp) and each contract
+   (K1 fused_tied_sae_grads, K2 fused_tied_sae_train_step, K3
+   tiled_tied_sae_grads, K4 fused_tied_adam_vjp_update, K5
+   fused_untied_sae_grads, K6 fused_adam_vjp_update, K7
+   tiled_untied_sae_grads, and K1/K3 with the masked family's coef_mask)
+   is held against its plain PyTorch version on the same inputs on the
+   card, at the main path's shapes and at small odd shapes up to the
+   kernels' widest d (768); each kernel and its plain version are timed at
+   the main path's shapes;
+3. tied main path: a synthetic activation store (d=512) is written with
+   the port's ChunkWriter, then ``basic_l1_sweep`` trains 32 tied SAEs (an
+   L1 grid, ratio 4, batch 2048) for one epoch (208 steps, metrics at
+   steps 100 and 200) on the default kernel path ``train_step_tiled``,
+   with every launch count zeroed just before and read just after; the
+   logged losses must be finite, eval.json must order the L1 grid, and
+   the artifacts must load; then the same epoch from the same init in the
+   same batch order on the autodiff path (plain PyTorch, no kernel): each
+   member's logged single-batch mse must match the main path's;
+4. untied main path: the same on ``basic_l1_sweep(tied=False)`` — 32
+   untied SAEs on ``train_step_tiled``, whose kernels must each launch
+   once per step while the tied ones do not launch;
+5. untied reference: that epoch replayed on autodiff, as in phase 3;
+6. other paths: a few steps each of the four tied and the four untied
+   kernel paths through ``Ensemble`` (counts zeroed before each), and of
+   the masked-tied family's two paths at the dictionary-ratio shape (7
+   members of ratios 0.5–32 padded to 16,384 features), each held against
+   the autodiff path from the same init on the same batches;
+7. summary: one ``{"kernels": [...]}`` line, the card's name and power
    limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card;
@@ -53,36 +61,72 @@ import torch
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# main path: Pythia-70M residual width, ratio 4, a 32-member L1 grid
+# main paths: Pythia-70M residual width, ratio 4, a 32-member L1 grid
 D, RATIO, N_MEMBERS, BATCH = 512, 4, 32, 2048
 N_FEATS = D * RATIO
 ROWS_PER_CHUNK = 16 * BATCH
 # one epoch of 13 chunks = 208 steps: basic_l1_sweep logs every 100 steps,
-# so the main path logs at steps 100 and 200
+# so the main paths log at steps 100 and 200
 N_CHUNKS = 13
 SEED, LR = 0, 1e-3
 DEV = "cuda"
+# the dictionary-ratio experiment (JAX train/experiments.py
+# dict_ratio_experiment): one masked-tied bucket of mixed dictionary sizes
+MASKED_RATIOS = (0.5, 1, 2, 4, 8, 16, 32)
+MASKED_L1 = 8.577e-4
 
 # tolerances of kernel vs plain version, both fp32 on the card. Float
 # outputs: |Δ|max <= RTOL·max|ref|. The two sides sum in different orders
 # (blocked SIMT loops vs cuBLAS), ~1e-6 relative; a pre-activation within
 # rounding of 0 can flip its ReLU mask on one side, which moves that
-# feature's dW row by |dpre·x| and its activity count by 1 — so dW-like
-# outputs carry a looser bound and activity a count bound.
+# feature's weight-grad row by |dpre·x| and its activity count by 1 — so
+# grad-like outputs carry a looser bound and activity a count bound.
 RTOL_EXACT = 1e-5     # r, losses, the Adam epilogue on identical inputs
-RTOL_GRAD = 1e-3      # dW, db and everything Adam computes from them
+RTOL_GRAD = 1e-3      # dW/dE/dWn, db and everything Adam computes from them
 ACT_COUNT_TOL = 8     # activity: mask flips per (member, feature)
 RTOL_PATH_LOSS = 1e-4  # per-step losses of a kernel path vs autodiff
-# A kernel path's encoder vs autodiff's after a few steps from a fresh
-# init, as ‖ΔE‖/‖E‖: Adam's first steps move each element by about
-# ±lr·sign(g), so an element whose gradient lies within rounding of 0 can
-# step the other way (2·lr) on one side — a handful among 33.5M elements.
+# A kernel path's weights vs autodiff's after a few steps from a fresh
+# init, as ‖ΔW‖/‖W‖ (the encoder, and the untied decoder): Adam's first
+# steps move each element by about ±lr·sign(g), so an element whose
+# gradient lies within rounding of 0 can step the other way (2·lr) on one
+# side — a handful among tens of millions of elements.
 REL_FRO_PATH = 1e-4
-# The main path's logged single-batch mse vs the autodiff reference's at
+# A main path's logged single-batch mse vs the autodiff reference's at
 # the same step, |Δ|/mse per member: 100–200 Adam steps grow the paths'
-# rounding differences (phase 5's 1e-5-level gaps after 3 steps), but a
+# rounding differences (phase 6's 1e-5-level gaps after 3 steps), but a
 # kernel fault moves the mse far more than this.
 RTOL_REFERENCE_MSE = 1e-2
+
+KERNEL_META = {
+    "sae_tied_fwd": {
+        "source": "sparse_coding_tpu_torch/ops/csrc/sae_tied_fwd.cu",
+        "replaces": "sparse_coding_tpu/ops/fused_sae_tiled.py:344",
+        "contracts": ["K1", "K2", "K3"]},
+    "sae_tied_bwd": {
+        "source": "sparse_coding_tpu_torch/ops/csrc/sae_tied_bwd.cu",
+        "replaces": "sparse_coding_tpu/ops/fused_sae_tiled.py:387",
+        "contracts": ["K1", "K2", "K3"]},
+    "sae_tied_adam_vjp": {
+        "source": "sparse_coding_tpu_torch/ops/csrc/sae_tied_adam_vjp.cu",
+        "replaces": "sparse_coding_tpu/ops/fused_sae.py:1053",
+        "contracts": ["K2", "K4"]},
+    "sae_untied_fwd": {
+        "source": "sparse_coding_tpu_torch/ops/csrc/sae_untied_fwd.cu",
+        "replaces": "sparse_coding_tpu/ops/fused_sae_tiled.py:501",
+        "contracts": ["K5", "K7"]},
+    "sae_untied_bwd": {
+        "source": "sparse_coding_tpu_torch/ops/csrc/sae_untied_bwd.cu",
+        "replaces": "sparse_coding_tpu/ops/fused_sae_tiled.py:504",
+        "contracts": ["K5", "K7"]},
+    "sae_untied_adam_vjp": {
+        "source": "sparse_coding_tpu_torch/ops/csrc/sae_untied_adam_vjp.cu",
+        "replaces": "sparse_coding_tpu/ops/fused_sae.py:930",
+        "contracts": ["K6"]},
+}
+TIED_KERNELS = ("sae_tied_fwd", "sae_tied_bwd", "sae_tied_adam_vjp")
+UNTIED_KERNELS = ("sae_untied_fwd", "sae_untied_bwd", "sae_untied_adam_vjp")
+# outputs that count ReLU masks: a flipped mask moves them by a count
+MASK_COUNTS = ("activity", "l0")
 
 
 def log(msg: str) -> None:
@@ -137,41 +181,71 @@ def compare(label: str, got, ref, rtol: float, atol: float = 0.0) -> dict:
             "tol": bound}
 
 
+def is_mask_count(field: str) -> bool:
+    return field.split("_masked")[0] in MASK_COUNTS
+
+
 # --- phase 2: kernels --------------------------------------------------------
 
 def make_inputs(gen: torch.Generator, n_members: int, batch: int,
                 n_feats: int, d: int, x=None) -> dict:
-    """Kernel inputs on the card: glorot dictionaries, small biases, an L1
-    grid, and a mid-training Adam state (so an update is not just the
-    sign of the gradient, which a rounding-level gradient could flip)."""
+    """Kernel inputs on the card: glorot encoders and decoders, small
+    biases, an L1 grid, a masked-tied coefficient mask of mixed sizes, and
+    mid-training Adam states (so an update is not just the sign of the
+    gradient, which a rounding-level gradient could flip)."""
     dev = torch.device(DEV)
     lim = math.sqrt(6.0 / (n_feats + d))
-    e = (torch.rand((n_members, n_feats, d), generator=gen) * 2 - 1) * lim
+    big = (n_members, n_feats, d)
+    glorot = lambda: (torch.rand(big, generator=gen) * 2 - 1) * lim
     if x is None:
         x = torch.randn((batch, d), generator=gen) / math.sqrt(d)
     g_scale = 1e-4
-    mu = torch.randn((n_members, n_feats, d), generator=gen) * g_scale
-    nu = (torch.rand((n_members, n_feats, d), generator=gen) + 0.5) \
+    grad = lambda: torch.randn(big, generator=gen) * g_scale
+    second = lambda shape: (torch.rand(shape, generator=gen) + 0.5) \
         * g_scale ** 2
     count = torch.full((n_members,), 100, dtype=torch.int32)
     b1, b2 = 0.9, 0.999
     c = count.float() + 1
-    return {
-        "e": e.to(dev), "x": x.to(dev).float().contiguous(),
+    # member m keeps the first n / (1 + m % 4) features
+    sizes = n_feats // (1 + torch.arange(n_members) % 4)
+    inp = {
+        "e": glorot(), "x": x.float(),
         "bias": (torch.rand((n_members, n_feats), generator=gen) - 0.5)
-        .mul(0.02).to(dev),
-        "alphas": torch.logspace(-4, -2, n_members).to(dev),
-        "dw": (torch.randn((n_members, n_feats, d), generator=gen) * g_scale)
-        .to(dev),
-        "mu": mu.to(dev), "nu": nu.to(dev),
-        "mu_b": (torch.randn((n_members, n_feats), generator=gen) * g_scale)
-        .to(dev),
-        "nu_b": ((torch.rand((n_members, n_feats), generator=gen) + 0.5)
-                 * g_scale ** 2).to(dev),
-        "lrs": torch.full((n_members,), 1e-3).to(dev),
-        "bc1": (1.0 - torch.tensor(b1) ** c).to(dev),
-        "bc2": (1.0 - torch.tensor(b2) ** c).to(dev),
+        .mul(0.02),
+        "alphas": torch.logspace(-4, -2, n_members),
+        "dw": grad(), "mu": grad(), "nu": second(big),
+        "mu_b": torch.randn((n_members, n_feats), generator=gen) * g_scale,
+        "nu_b": second((n_members, n_feats)),
+        "lrs": torch.full((n_members,), 1e-3),
+        "bc1": 1.0 - torch.tensor(b1) ** c,
+        "bc2": 1.0 - torch.tensor(b2) ** c,
+        "dec": glorot(), "dwn": grad(), "mu_d": grad(), "nu_d": second(big),
+        "cm": (torch.arange(n_feats)[None, :] < sizes[:, None]).float(),
     }
+    return {k: v.to(dev).contiguous() for k, v in inp.items()}
+
+
+def bwd_pairs(got, ref, grads: tuple, suffix: str = "") -> dict:
+    """The comparisons of one backward kernel's outputs (weight grads, db,
+    activity, loss4)."""
+    k = len(grads)
+    pairs = {g + suffix: (got[i], ref[i], RTOL_GRAD, 0.0)
+             for i, g in enumerate(grads)}
+    pairs.update({
+        "db" + suffix: (got[k], ref[k], RTOL_GRAD, 0.0),
+        "activity" + suffix: (got[k + 1], ref[k + 1], 0.0, ACT_COUNT_TOL),
+        "loss4" + suffix: (got[k + 2][:, :2], ref[k + 2][:, :2], RTOL_EXACT,
+                           0.0),
+        "l0" + suffix: (got[k + 2][:, 2], ref[k + 2][:, 2], RTOL_GRAD, 0.0),
+        "grad_sq" + suffix: (got[k + 2][:, 3], ref[k + 2][:, 3], RTOL_GRAD,
+                             0.0)})
+    return pairs
+
+
+def loss_pairs(got_l, ref_l) -> dict:
+    return {f"loss_{k}": (got_l[k], ref_l[k],
+                          RTOL_GRAD if k == "l0" else RTOL_EXACT, 0.0)
+            for k in ("mse", "l1", "l0")}
 
 
 def check_kernels(inp: dict, tag: str) -> dict:
@@ -179,7 +253,8 @@ def check_kernels(inp: dict, tag: str) -> dict:
     from sparse_coding_tpu_torch.ops import fused_sae as fs
     from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
 
-    e, x, bias, al = inp["e"], inp["x"], inp["bias"], inp["alphas"]
+    e, dec, x, bias, al, cm = (inp[k] for k in ("e", "dec", "x", "bias",
+                                                 "alphas", "cm"))
     batch = x.shape[0]
     out = {}
 
@@ -189,25 +264,24 @@ def check_kernels(inp: dict, tag: str) -> dict:
             errs[field] = compare(f"{tag}:{name}.{field}", got, ref, rtol,
                                   atol)
         out[name] = errs
-        worst = max(v["max_rel_err"] for v in errs.values())
-        detail = ", ".join("%s %.1e" % (k, v["max_abs_err"])
-                           for k, v in errs.items())
-        log(f"  {tag} {name}: ok, worst rel err {worst:.2e} ({detail})")
+        worst = max(v["max_rel_err"] for k, v in errs.items()
+                    if not is_mask_count(k))
+        log(f"  {tag} {name}: ok, worst rel err {worst:.2e}")
 
-    r = ft.sae_tied_fwd(e, bias, x)
+    # tied fwd/bwd, unmasked and with the masked family's coef_mask; the
+    # bwd kernel and its plain version get the SAME residual
     r_ref = ft.sae_tied_fwd_plain(e, bias, x)
-    cmp("sae_tied_fwd", {"r": (r, r_ref, RTOL_EXACT, 0.0)})
-
-    # the bwd kernel and its plain version get the SAME residual
-    got = ft.sae_tied_bwd(e, bias, al, x, r_ref)
-    ref = ft.sae_tied_bwd_plain(e, bias, al, x, r_ref)
+    rm_ref = ft.sae_tied_fwd_plain(e, bias, x, cm)
+    cmp("sae_tied_fwd", {
+        "r": (ft.sae_tied_fwd(e, bias, x), r_ref, RTOL_EXACT, 0.0),
+        "r_masked": (ft.sae_tied_fwd(e, bias, x, cm), rm_ref, RTOL_EXACT,
+                     0.0)})
     cmp("sae_tied_bwd", {
-        "dw": (got[0], ref[0], RTOL_GRAD, 0.0),
-        "db": (got[1], ref[1], RTOL_GRAD, 0.0),
-        "activity": (got[2], ref[2], 0.0, ACT_COUNT_TOL),
-        "loss4": (got[3][:, :2], ref[3][:, :2], RTOL_EXACT, 0.0),
-        "l0": (got[3][:, 2], ref[3][:, 2], RTOL_GRAD, 0.0),
-        "grad_sq": (got[3][:, 3], ref[3][:, 3], RTOL_GRAD, 0.0)})
+        **bwd_pairs(ft.sae_tied_bwd(e, bias, al, x, r_ref),
+                    ft.sae_tied_bwd_plain(e, bias, al, x, r_ref), ("dw",)),
+        **bwd_pairs(ft.sae_tied_bwd(e, bias, al, x, rm_ref, cm),
+                    ft.sae_tied_bwd_plain(e, bias, al, x, rm_ref, cm),
+                    ("dw",), "_masked")})
 
     args = (e, inp["dw"], inp["mu"], inp["nu"], inp["lrs"], inp["bc1"],
             inp["bc2"])
@@ -216,29 +290,36 @@ def check_kernels(inp: dict, tag: str) -> dict:
     got = fs.sae_tied_adam_vjp(*args, **bias_grp)
     ref = fs.sae_tied_adam_vjp_plain(*args, **bias_grp)
     cmp("sae_tied_adam_vjp", {
-        "e": (got[0], ref[0], RTOL_EXACT, 0.0),
-        "mu": (got[1], ref[1], RTOL_EXACT, 0.0),
-        "nu": (got[2], ref[2], RTOL_EXACT, 0.0),
-        "un_sq": (got[3], ref[3], RTOL_EXACT, 0.0),
-        "bias": (got[4][0], ref[4][0], RTOL_EXACT, 0.0),
-        "mu_b": (got[4][1], ref[4][1], RTOL_EXACT, 0.0),
-        "nu_b": (got[4][2], ref[4][2], RTOL_EXACT, 0.0)})
+        **{n: (g, rf, RTOL_EXACT, 0.0) for n, g, rf in zip(
+            ("e", "mu", "nu", "un_sq"), got[:4], ref[:4])},
+        **{n: (g, rf, RTOL_EXACT, 0.0) for n, g, rf in zip(
+            ("bias", "mu_b", "nu_b"), got[4], ref[4])}})
 
-    def loss_pairs(got_l, ref_l):
-        return {f"loss_{k}": (got_l[k], ref_l[k],
-                              RTOL_GRAD if k == "l0" else RTOL_EXACT, 0.0)
-                for k in ("mse", "l1", "l0")}
+    # untied fwd/bwd/adam_vjp
+    ru_ref = ft.sae_untied_fwd_plain(e, dec, bias, x)
+    cmp("sae_untied_fwd", {
+        "r": (ft.sae_untied_fwd(e, dec, bias, x), ru_ref, RTOL_EXACT, 0.0)})
+    cmp("sae_untied_bwd", bwd_pairs(
+        ft.sae_untied_bwd(e, dec, bias, al, x, ru_ref),
+        ft.sae_untied_bwd_plain(e, dec, bias, al, x, ru_ref), ("de", "dwn")))
+    uargs = (e, inp["dw"], inp["mu"], inp["nu"], dec, inp["dwn"],
+             inp["mu_d"], inp["nu_d"], inp["lrs"], inp["bc1"], inp["bc2"])
+    unames = ("e", "mu_e", "nu_e", "d", "mu_d", "nu_d", "un_sq")
+    cmp("sae_untied_adam_vjp", {
+        n: (g, rf, RTOL_EXACT, 0.0) for n, g, rf in zip(
+            unames, fs.sae_untied_adam_vjp(*uargs),
+            fs.sae_untied_adam_vjp_plain(*uargs))})
 
-    # K1: fused_tied_sae_grads
-    got = fs.fused_tied_sae_grads(e, bias, al, x)
-    ref = fs.fused_tied_sae_grads_plain(e, bias, al, x)
-    cmp("K1 fused_tied_sae_grads", {
-        **loss_pairs(got[0], ref[0]),
-        "dw": (got[1], ref[1], RTOL_GRAD, 0.0),
-        "db": (got[2], ref[2], RTOL_GRAD, 0.0),
-        "activity": (got[3], ref[3], 0.0, ACT_COUNT_TOL)})
+    # the contracts
+    for mask, sfx in ((None, ""), (cm, " masked")):
+        got = fs.fused_tied_sae_grads(e, bias, al, x, coef_mask=mask)
+        ref = fs.fused_tied_sae_grads_plain(e, bias, al, x, coef_mask=mask)
+        cmp("K1 fused_tied_sae_grads" + sfx, {
+            **loss_pairs(got[0], ref[0]),
+            "dw": (got[1], ref[1], RTOL_GRAD, 0.0),
+            "db": (got[2], ref[2], RTOL_GRAD, 0.0),
+            "activity": (got[3], ref[3], 0.0, ACT_COUNT_TOL)})
 
-    # K2: fused_tied_sae_train_step
     k2 = (e, bias, inp["mu"], inp["nu"], inp["mu_b"], inp["nu_b"], al,
           inp["lrs"], inp["bc1"], inp["bc2"], x)
     got = fs.fused_tied_sae_train_step(*k2)
@@ -250,50 +331,94 @@ def check_kernels(inp: dict, tag: str) -> dict:
            for n, g, rf in zip(names, got[1:7], ref[1:7])},
         "activity": (got[7], ref[7], 0.0, ACT_COUNT_TOL)})
 
-    # K3: tiled_tied_sae_grads
     bt = 256 if batch % 256 == 0 else 32
     ftile = 256 if e.shape[1] % 256 == 0 else 32
-    got = ft.tiled_tied_sae_grads(e, bias, al, x, bt, ftile)
-    ref = ft.tiled_tied_sae_grads_plain(e, bias, al, x, bt, ftile)
-    cmp("K3 tiled_tied_sae_grads", {
-        **loss_pairs(got[0], ref[0]),
-        "dw": (got[1], ref[1], RTOL_GRAD, 0.0),
-        "db": (got[2], ref[2], RTOL_GRAD, 0.0),
-        "activity": (got[3], ref[3], 0.0, ACT_COUNT_TOL),
-        "grad_sq": (got[4], ref[4], RTOL_GRAD, 0.0)})
+    for mask, sfx in ((None, ""), (cm, " masked")):
+        got = ft.tiled_tied_sae_grads(e, bias, al, x, bt, ftile,
+                                      coef_mask=mask)
+        ref = ft.tiled_tied_sae_grads_plain(e, bias, al, x, bt, ftile,
+                                            coef_mask=mask)
+        cmp("K3 tiled_tied_sae_grads" + sfx, {
+            **loss_pairs(got[0], ref[0]),
+            "dw": (got[1], ref[1], RTOL_GRAD, 0.0),
+            "db": (got[2], ref[2], RTOL_GRAD, 0.0),
+            "activity": (got[3], ref[3], 0.0, ACT_COUNT_TOL),
+            "grad_sq": (got[4], ref[4], RTOL_GRAD, 0.0)})
 
-    # K4: fused_tied_adam_vjp_update
     got = fs.fused_tied_adam_vjp_update(*args, ftile=32)
     ref = fs.fused_tied_adam_vjp_update_plain(*args, ftile=32)
     cmp("K4 fused_tied_adam_vjp_update", {
         n: (g, rf, RTOL_EXACT, 0.0)
         for n, g, rf in zip(("e", "mu", "nu", "un_sq"), got, ref)})
+
+    got = fs.fused_untied_sae_grads(e, dec, bias, al, x)
+    ref = fs.fused_untied_sae_grads_plain(e, dec, bias, al, x)
+    cmp("K5 fused_untied_sae_grads", {
+        **loss_pairs(got[0], ref[0]),
+        **{n: (g, rf, RTOL_GRAD, 0.0)
+           for n, g, rf in zip(("de", "dwn", "db"), got[1:4], ref[1:4])},
+        "activity": (got[4], ref[4], 0.0, ACT_COUNT_TOL)})
+
+    cmp("K6 fused_adam_vjp_update", {
+        n: (g, rf, RTOL_EXACT, 0.0) for n, g, rf in zip(
+            unames, fs.fused_adam_vjp_update(*uargs, ftile=32),
+            fs.fused_adam_vjp_update_plain(*uargs, ftile=32))})
+
+    got = ft.tiled_untied_sae_grads(e, dec, bias, al, x, bt, ftile)
+    ref = ft.tiled_untied_sae_grads_plain(e, dec, bias, al, x, bt, ftile)
+    cmp("K7 tiled_untied_sae_grads", {
+        **loss_pairs(got[0], ref[0]),
+        **{n: (g, rf, RTOL_GRAD, 0.0)
+           for n, g, rf in zip(("de", "dwn", "db"), got[1:4], ref[1:4])},
+        "activity": (got[4], ref[4], 0.0, ACT_COUNT_TOL),
+        "grad_sq": (got[5], ref[5], RTOL_GRAD, 0.0)})
     sync()
     return out
 
 
-def bounds(inp: dict, nnz: int) -> dict:
+def active_codes(inp: dict) -> dict:
+    """The number of active (member, row, feature) codes of each family's
+    forward on ``inp`` — what the sparse products of its kernels need."""
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    e, dec, x, bias, al = (inp[k] for k in ("e", "dec", "x", "bias",
+                                             "alphas"))
+    tied = ft.sae_tied_bwd_plain(e, bias, al, x,
+                                 ft.sae_tied_fwd_plain(e, bias, x))[2]
+    untied = ft.sae_untied_bwd_plain(
+        e, dec, bias, al, x, ft.sae_untied_fwd_plain(e, dec, bias, x))[3]
+    return {"tied": int(tied.sum()), "untied": int(untied.sum())}
+
+
+def bounds(inp: dict, nnz: dict) -> dict:
     """Least time the card could take for each kernel's work on ``inp``:
     max(bytes / HBM rate, fp32 ops / fp32 peak). Each input is read once
     and each output written once; the codes are sparse, so the products
-    that involve them count only this data's ``nnz`` active (member, row,
-    feature) triples."""
+    that involve them count only this data's active (member, row,
+    feature) codes (``nnz``, per family)."""
     n_m, n, d = inp["e"].shape
     b = inp["x"].shape[0]
     f4 = 4
+    big = n_m * n * d
     enc = 2.0 * n_m * b * n * d  # pre = x·Wᵀ, dense
-    act = 2.0 * nnz * d          # one product over the active codes
+    act = {k: 2.0 * v * d for k, v in nnz.items()}  # one product, active
     work = {
         "sae_tied_fwd": (
-            enc + act + n_m * n * d * 3,
-            f4 * (b * d + n_m * n * d + n_m * n + n_m * b * d)),
+            enc + act["tied"] + big * 3,
+            f4 * (b * d + big + n_m * n + n_m * b * d)),
         "sae_tied_bwd": (
-            enc + 3 * act + n_m * n * d * 3,
-            f4 * (b * d + 2 * n_m * b * d + 2 * n_m * n * d + 3 * n_m * n
-                  + n_m)),
+            enc + 3 * act["tied"] + big * 3,
+            f4 * (b * d + 2 * n_m * b * d + 2 * big + 3 * n_m * n + n_m)),
         "sae_tied_adam_vjp": (
-            24.0 * n_m * n * d,
-            f4 * (7 * n_m * n * d + 3 * n_m)),
+            24.0 * big, f4 * (7 * big + 3 * n_m)),
+        "sae_untied_fwd": (
+            enc + act["untied"] + big * 3,
+            f4 * (b * d + 2 * big + n_m * n + n_m * b * d)),
+        "sae_untied_bwd": (
+            enc + 3 * act["untied"] + big * 3,
+            f4 * (b * d + 2 * n_m * b * d + 4 * big + 3 * n_m * n + n_m)),
+        "sae_untied_adam_vjp": (
+            36.0 * big, f4 * (14 * big + 3 * n_m)),
     }
     out = {}
     for name, (ops, nbytes) in work.items():
@@ -308,10 +433,14 @@ def time_kernels(inp: dict) -> dict:
     from sparse_coding_tpu_torch.ops import fused_sae as fs
     from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
 
-    e, x, bias, al = inp["e"], inp["x"], inp["bias"], inp["alphas"]
+    e, dec, x, bias, al = (inp[k] for k in ("e", "dec", "x", "bias",
+                                             "alphas"))
     r = ft.sae_tied_fwd_plain(e, bias, x)
+    ru = ft.sae_untied_fwd_plain(e, dec, bias, x)
     adam = (e, inp["dw"], inp["mu"], inp["nu"], inp["lrs"], inp["bc1"],
             inp["bc2"])
+    uadam = (e, inp["dw"], inp["mu"], inp["nu"], dec, inp["dwn"],
+             inp["mu_d"], inp["nu_d"], inp["lrs"], inp["bc1"], inp["bc2"])
     pairs = {
         "sae_tied_fwd": (lambda: ft.sae_tied_fwd(e, bias, x),
                          lambda: ft.sae_tied_fwd_plain(e, bias, x), 5),
@@ -319,6 +448,15 @@ def time_kernels(inp: dict) -> dict:
                          lambda: ft.sae_tied_bwd_plain(e, bias, al, x, r), 5),
         "sae_tied_adam_vjp": (lambda: fs.sae_tied_adam_vjp(*adam),
                               lambda: fs.sae_tied_adam_vjp_plain(*adam), 20),
+        "sae_untied_fwd": (
+            lambda: ft.sae_untied_fwd(e, dec, bias, x),
+            lambda: ft.sae_untied_fwd_plain(e, dec, bias, x), 5),
+        "sae_untied_bwd": (
+            lambda: ft.sae_untied_bwd(e, dec, bias, al, x, ru),
+            lambda: ft.sae_untied_bwd_plain(e, dec, bias, al, x, ru), 5),
+        "sae_untied_adam_vjp": (
+            lambda: fs.sae_untied_adam_vjp(*uadam),
+            lambda: fs.sae_untied_adam_vjp_plain(*uadam), 20),
     }
     out = {}
     for name, (kern, plain, iters) in pairs.items():
@@ -335,7 +473,7 @@ def time_kernels(inp: dict) -> dict:
     return out
 
 
-# --- phase 3: main path ------------------------------------------------------
+# --- phases 3-5: main paths and their autodiff references ---------------------
 
 def write_store(folder: Path, n_rows: int, seed: int) -> None:
     """Synthetic activations with the repo's generator, written by the
@@ -358,7 +496,8 @@ def read_metrics(path: Path) -> list[dict]:
     return [json.loads(line) for line in path.read_text().splitlines()]
 
 
-def main_path(store: Path, out_dir: Path, l1_values, n_steps: int) -> dict:
+def main_path(store: Path, out_dir: Path, l1_values, n_steps: int,
+              tied: bool) -> dict:
     from sparse_coding_tpu_torch.ops import _build
     from sparse_coding_tpu_torch.train.basic_sweep import basic_l1_sweep
     from sparse_coding_tpu_torch.utils.artifacts import load_learned_dicts
@@ -368,16 +507,18 @@ def main_path(store: Path, out_dir: Path, l1_values, n_steps: int) -> dict:
     t0 = time.perf_counter()
     dicts = basic_l1_sweep(store, out_dir, l1_values, dict_ratio=RATIO,
                            batch_size=BATCH, lr=LR, n_epochs=1, seed=SEED,
-                           device=DEV)
+                           tied=tied, device=DEV)
     sync()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    log(f"  basic_l1_sweep: {wall:.2f} s wall, launches {launches}")
-    for name in _build.KERNELS:
-        if launches[name] != n_steps:
-            raise AssertionError(f"{name}: {launches[name]} launches on "
-                                 f"the main path, expected one per step "
-                                 f"({n_steps})")
+    log(f"  basic_l1_sweep(tied={tied}): {wall:.2f} s wall, launches "
+        f"{launches}")
+    ours = TIED_KERNELS if tied else UNTIED_KERNELS
+    want = {name: n_steps if name in ours else 0 for name in _build.KERNELS}
+    if launches != want:
+        raise AssertionError(f"launches on the main path {launches}, "
+                             f"expected {want} (one per step of this "
+                             "family's kernels, none of the other's)")
 
     recs = read_metrics(out_dir / "metrics.jsonl")
     if [r["step"] for r in recs] != list(range(100, n_steps + 1, 100)):
@@ -414,10 +555,13 @@ def main_path(store: Path, out_dir: Path, l1_values, n_steps: int) -> dict:
     loaded = load_learned_dicts(out_dir / "epoch_0" / "learned_dicts.pkl")
     if len(loaded) != len(l1_values) or len(dicts) != len(l1_values):
         raise AssertionError("learned_dicts.pkl: wrong member count")
+    cls = "TiedSAE" if tied else "UntiedSAE"
     for ld, _ in loaded:
         w = ld.get_learned_dict()
-        if tuple(w.shape) != (N_FEATS, D) or not torch.isfinite(w).all():
-            raise AssertionError(f"learned dict {tuple(w.shape)}")
+        if (type(ld).__name__ != cls or tuple(w.shape) != (N_FEATS, D)
+                or not torch.isfinite(w).all()):
+            raise AssertionError(f"learned dict {type(ld).__name__} "
+                                 f"{tuple(w.shape)}")
     log(f"  eval.json: fvu {evals[0]['fvu']:.4f} (l1 {l1_values[0]:.1e}) .. "
         f"{evals[-1]['fvu']:.4f} (l1 {l1_values[-1]:.1e}); l0 "
         f"{evals[0]['l0']:.1f} .. {evals[-1]['l0']:.1f}")
@@ -425,9 +569,7 @@ def main_path(store: Path, out_dir: Path, l1_values, n_steps: int) -> dict:
             "steps": n_steps, "mse": mse, "eval": evals}
 
 
-# --- phase 4: the main path's epoch on autodiff ------------------------------
-
-def reference_epoch(store: Path, l1_values, main: dict) -> dict:
+def reference_epoch(store: Path, l1_values, main: dict, tied: bool) -> dict:
     """basic_l1_sweep's epoch again — the same member inits, the same
     batch order — on the autodiff path, which launches no kernel. Each
     member's single-batch mse at the main path's logged steps must match
@@ -435,14 +577,17 @@ def reference_epoch(store: Path, l1_values, main: dict) -> dict:
     from sparse_coding_tpu_torch.data.chunk_store import device_prefetch
     from sparse_coding_tpu_torch.data.shard_store import open_store
     from sparse_coding_tpu_torch.ensemble import Ensemble
-    from sparse_coding_tpu_torch.models.sae import FunctionalTiedSAE
+    from sparse_coding_tpu_torch.models.sae import (
+        FunctionalSAE,
+        FunctionalTiedSAE,
+    )
     from sparse_coding_tpu_torch.ops import _build
 
+    sig = FunctionalTiedSAE if tied else FunctionalSAE
     gen = torch.Generator().manual_seed(SEED)
-    members = [FunctionalTiedSAE.init(gen, D, N_FEATS, l1_alpha=float(l1))
+    members = [sig.init(gen, D, N_FEATS, l1_alpha=float(l1))
                for l1 in l1_values]
-    ens = Ensemble(members, FunctionalTiedSAE, lr=LR, use_fused=False,
-                   device=DEV)
+    ens = Ensemble(members, sig, lr=LR, use_fused=False, device=DEV)
     batches = open_store(store).epoch(BATCH, np.random.default_rng(SEED))
     _build.reset_launches()
     mse, step = {}, 0
@@ -470,81 +615,91 @@ def reference_epoch(store: Path, l1_values, main: dict) -> dict:
     return {"mse": mse, "mse_max_rel_diff": max(rel), "rose": rose}
 
 
-# --- phase 5: every kernel path vs autodiff -----------------------------------
+# --- phase 6: every kernel path vs autodiff -----------------------------------
 
-EXPECTED_LAUNCHES = {
-    "two_stage": {"sae_tied_fwd": 1, "sae_tied_bwd": 1,
-                  "sae_tied_adam_vjp": 0},
-    "train_step": {"sae_tied_fwd": 1, "sae_tied_bwd": 1,
-                   "sae_tied_adam_vjp": 1},
-    "two_stage_tiled": {"sae_tied_fwd": 1, "sae_tied_bwd": 1,
-                        "sae_tied_adam_vjp": 0},
-    "train_step_tiled": {"sae_tied_fwd": 1, "sae_tied_bwd": 1,
-                         "sae_tied_adam_vjp": 1},
+# launches per step of each (family, path): (fwd, bwd, adam_vjp) of the
+# family's kernels — the masked family rides the tied ones
+PATH_LAUNCHES = {
+    "two_stage": (1, 1, 0), "train_step": (1, 1, 1),
+    "two_stage_tiled": (1, 1, 0), "train_step_tiled": (1, 1, 1),
 }
+
+
+def family_members(family: str, l1_values):
+    """A fresh init of the family's bucket (the same numbers every call):
+    the main path's shape, or for the masked family the dictionary-ratio
+    shape."""
+    from sparse_coding_tpu_torch.models.sae import (
+        FunctionalMaskedTiedSAE,
+        FunctionalSAE,
+        FunctionalTiedSAE,
+    )
+
+    g = torch.Generator().manual_seed(1)
+    if family == "masked_tied":
+        sizes = [int(D * r) for r in MASKED_RATIOS]
+        return FunctionalMaskedTiedSAE, [
+            FunctionalMaskedTiedSAE.init(g, D, n, max(sizes),
+                                         l1_alpha=MASKED_L1)
+            for n in sizes]
+    sig = FunctionalTiedSAE if family == "tied" else FunctionalSAE
+    return sig, [sig.init(g, D, N_FEATS, l1_alpha=float(l1))
+                 for l1 in l1_values]
 
 
 def other_paths(batches: list, l1_values) -> dict:
     from sparse_coding_tpu_torch.ensemble import Ensemble
-    from sparse_coding_tpu_torch.models.sae import FunctionalTiedSAE
     from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.ops.roofline import FAMILY_PATHS
 
-    def members():
-        g = torch.Generator().manual_seed(1)
-        return [FunctionalTiedSAE.init(g, D, N_FEATS, l1_alpha=float(l1))
-                for l1 in l1_values]
-
-    ref = Ensemble(members(), FunctionalTiedSAE, lr=LR, use_fused=False,
-                   device=DEV)
-    ref_losses = [ref.step_batch(b).losses["loss"] for b in batches]
     out = {}
-    for path, expected in EXPECTED_LAUNCHES.items():
-        ens = Ensemble(members(), FunctionalTiedSAE, lr=LR,
-                       fused_path=path, device=DEV)
-        _build.reset_launches()
-        losses = [ens.step_batch(b).losses["loss"] for b in batches]
-        sync()
-        launches = dict(_build.LAUNCHES)
-        want = {k: v * len(batches) for k, v in expected.items()}
-        if launches != want or ens.fused_path != path:
-            raise AssertionError(f"{path}: launches {launches}, expected "
-                                 f"{want} (resolved {ens.fused_path})")
-        errs = [compare(f"{path}: step {i} loss", got, want_l,
-                        RTOL_PATH_LOSS)
-                for i, (got, want_l) in enumerate(zip(losses, ref_losses))]
-        p, pr = ens.state.params["encoder"], ref.state.params["encoder"]
-        rel_fro = float(torch.linalg.vector_norm(p - pr)
-                        / torch.linalg.vector_norm(pr))
-        if not rel_fro <= REL_FRO_PATH:
-            raise AssertionError(f"{path}: encoder drifted from autodiff, "
-                                 f"relative Frobenius {rel_fro:.2e}")
-        worst = max(e["max_rel_err"] for e in errs)
-        out[path] = {"launches": launches, "loss_max_rel_err": worst,
-                     "encoder_rel_fro": rel_fro}
-        log(f"  {path}: launches {launches}; vs autodiff: loss rel err "
-            f"{worst:.2e}, encoder relative Frobenius {rel_fro:.2e}")
+    for family in ("tied", "untied", "masked_tied"):
+        sig, members = family_members(family, l1_values)
+        ref = Ensemble(members, sig, lr=LR, use_fused=False, device=DEV)
+        ref_losses = [ref.step_batch(b).losses["loss"] for b in batches]
+        kernels = UNTIED_KERNELS if family == "untied" else TIED_KERNELS
+        weights = ("encoder", "decoder") if family == "untied" \
+            else ("encoder",)
+        for path in FAMILY_PATHS[family]:
+            sig, members = family_members(family, l1_values)
+            ens = Ensemble(members, sig, lr=LR, fused_path=path, device=DEV)
+            _build.reset_launches()
+            losses = [ens.step_batch(b).losses["loss"] for b in batches]
+            sync()
+            launches = dict(_build.LAUNCHES)
+            want = {k: 0 for k in _build.KERNELS}
+            want.update({k: n * len(batches)
+                         for k, n in zip(kernels, PATH_LAUNCHES[path])})
+            label = f"{family} {path}"
+            if launches != want or ens.fused_path != path:
+                raise AssertionError(f"{label}: launches {launches}, "
+                                     f"expected {want} (resolved "
+                                     f"{ens.fused_path})")
+            errs = [compare(f"{label}: step {i} loss", got, want_l,
+                            RTOL_PATH_LOSS)
+                    for i, (got, want_l) in enumerate(zip(losses,
+                                                          ref_losses))]
+            rel_fro = {}
+            for w in weights:
+                p, pr = ens.state.params[w], ref.state.params[w]
+                rel_fro[w] = float(torch.linalg.vector_norm(p - pr)
+                                   / torch.linalg.vector_norm(pr))
+                if not rel_fro[w] <= REL_FRO_PATH:
+                    raise AssertionError(f"{label}: {w} drifted from "
+                                         f"autodiff, relative Frobenius "
+                                         f"{rel_fro[w]:.2e}")
+            worst = max(e["max_rel_err"] for e in errs)
+            out[label] = {"launches": launches, "loss_max_rel_err": worst,
+                          "rel_fro": rel_fro}
+            log(f"  {label}: launches {launches}; vs autodiff: loss rel err "
+                f"{worst:.2e}, relative Frobenius "
+                + ", ".join(f"{w} {v:.2e}" for w, v in rel_fro.items()))
+        del ref, ens
+        torch.cuda.empty_cache()
     return out
 
 
 # --- main --------------------------------------------------------------------
-
-MASK_COUNTS = ("activity", "l0")
-
-KERNEL_META = {
-    "sae_tied_fwd": {
-        "source": "sparse_coding_tpu_torch/ops/csrc/sae_tied_fwd.cu",
-        "replaces": "sparse_coding_tpu/ops/fused_sae_tiled.py:344",
-        "contracts": ["K1", "K2", "K3"]},
-    "sae_tied_bwd": {
-        "source": "sparse_coding_tpu_torch/ops/csrc/sae_tied_bwd.cu",
-        "replaces": "sparse_coding_tpu/ops/fused_sae_tiled.py:387",
-        "contracts": ["K1", "K2", "K3"]},
-    "sae_tied_adam_vjp": {
-        "source": "sparse_coding_tpu_torch/ops/csrc/sae_tied_adam_vjp.cu",
-        "replaces": "sparse_coding_tpu/ops/fused_sae.py:1053",
-        "contracts": ["K2", "K4"]},
-}
-
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -583,34 +738,42 @@ def main() -> int:
         x_main = torch.as_tensor(ChunkStore(store).load_chunk(0)[:BATCH])
         checks = {}
         for tag, shape in (("small", (3, 96, 96, 40)),
-                           ("wide", (2, 64, 64, 600))):
+                           ("wide", (2, 64, 64, 600)),
+                           ("widest", (2, 64, 64, 768))):
             checks[tag] = check_kernels(make_inputs(g, *shape), tag)
         main_inp = make_inputs(g, N_MEMBERS, BATCH, N_FEATS, D, x=x_main)
         checks["main"] = check_kernels(main_inp, "main")
         report["checks"] = checks
-        from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
-
-        nnz = int(ft.sae_tied_bwd_plain(
-            main_inp["e"], main_inp["bias"], main_inp["alphas"],
-            main_inp["x"], ft.sae_tied_fwd_plain(
-                main_inp["e"], main_inp["bias"], main_inp["x"]))[2].sum())
+        nnz = active_codes(main_inp)
         timing = time_kernels(main_inp)
         bnd = bounds(main_inp, nnz)
         report["active_codes"] = nnz
         del main_inp
+        torch.cuda.empty_cache()
+        log(f"  phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
-        log(f"phase 3: main path — basic_l1_sweep, {N_MEMBERS} members, "
-            f"d={D}, n={N_FEATS}, batch {BATCH}, {n_steps} steps, "
-            "train_step_tiled")
         l1_values = [float(v) for v in np.logspace(-4, -2, N_MEMBERS)]
-        report["main_path"] = main_path(store, Path(tmp) / "out", l1_values,
-                                        n_steps)
+        for tied, phase in ((True, 3), (False, 4)):
+            family = "tied" if tied else "untied"
+            log(f"phase {phase}: {family} main path — basic_l1_sweep, "
+                f"{N_MEMBERS} members, d={D}, n={N_FEATS}, batch {BATCH}, "
+                f"{n_steps} steps, train_step_tiled")
+            main = main_path(store, Path(tmp) / f"out_{family}", l1_values,
+                             n_steps, tied)
+            report[f"main_path_{family}"] = main
+            kernels = TIED_KERNELS if tied else UNTIED_KERNELS
+            step_ms = 1e3 * BATCH / main["acts_per_s"]
+            shares = {k: timing[k]["ms"] / step_ms for k in kernels}
+            main["step_ms"], main["kernel_share"] = step_ms, shares
+            log(f"  {step_ms:.2f} ms per step; kernel shares "
+                + ", ".join(f"{k} {100 * v:.1f}%" for k, v in shares.items()))
+            log(f"phase {phase if tied else 5}: the {family} main path's "
+                "epoch on autodiff")
+            report[f"reference_{family}"] = reference_epoch(
+                store, l1_values, main, tied)
+            log(f"  done at {time.perf_counter() - t_start:.1f} s")
 
-        log("phase 4: the main path's epoch on autodiff")
-        report["reference"] = reference_epoch(store, l1_values,
-                                              report["main_path"])
-
-        log("phase 5: every kernel path vs autodiff")
+        log("phase 6: every kernel path vs autodiff")
         cs = ChunkStore(store).load_chunk(1)
         batches = [torch.as_tensor(cs[i * BATCH:(i + 1) * BATCH]).to(DEV)
                    for i in range(3)]
@@ -622,15 +785,17 @@ def main() -> int:
         # (activity per feature, l0 per row) apart — there a flipped mask
         # moves a count by 1, not a value by rounding
         checked = checks["main"][name]
-        errs = {k: v for k, v in checked.items() if k not in MASK_COUNTS}
+        errs = {k: v for k, v in checked.items() if not is_mask_count(k)}
+        family = "tied" if name in TIED_KERNELS else "untied"
         kernels.append({
             "name": name, "route": "cuda", **{
                 k: KERNEL_META[name][k] for k in ("source", "replaces")},
-            "launches": report["main_path"]["launches"][name],
+            "launches": report[f"main_path_{family}"]["launches"][name],
             "max_abs_err": max(v["max_abs_err"] for v in errs.values()),
             "max_rel_err": max(v["max_rel_err"] for v in errs.values()),
-            "mask_count_abs_err": {k: checked[k]["max_abs_err"]
-                                   for k in MASK_COUNTS if k in checked},
+            "mask_count_abs_err": {k: v["max_abs_err"]
+                                   for k, v in checked.items()
+                                   if is_mask_count(k)},
             "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
             "bound_ms": bnd[name]["bound_ms"],
             "bound_by": bnd[name]["bound_by"],

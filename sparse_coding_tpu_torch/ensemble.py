@@ -1,16 +1,19 @@
 """The ensemble training engine (the JAX package's ``ensemble.py`` for the
-tied family, single device).
+tied, masked-tied and untied families, single device).
 
 One bucket of N same-shape members is stacked along a leading member axis.
 A step takes one [B, d] batch shared by every member and runs either
 
 - the autodiff reference path (``make_train_step``: ``torch.func.vmap`` of
   ``grad`` over the members, then Adam), or
-- one of the four tied kernel paths, whose labels are the JAX package's
-  ``KERNEL_PATHS``: ``two_stage`` (K1 grads, Adam in torch),
+- one of the kernel paths, whose labels are the JAX package's
+  ``KERNEL_PATHS``. Tied: ``two_stage`` (K1 grads, Adam in torch),
   ``train_step`` (K2 whole step), ``two_stage_tiled`` (K3 grads, Adam in
   torch) and ``train_step_tiled`` (K3 grads + K4 Adam/VJP epilogue, the
-  default on the card).
+  default on the card). Untied: ``two_stage`` (K5), ``train_step`` (K5 +
+  K6), ``two_stage_tiled`` (K7) and ``train_step_tiled`` (K7 + K6, the
+  default). Masked-tied: ``two_stage`` and ``two_stage_tiled`` (K1/K3 with
+  the bucket's ``coef_mask``; the default is the tiled one).
 
 Adam is optax's ``scale_by_adam`` with eps_root=0, exactly: per-member
 count [N] int32 with a saturating increment, bias corrections
@@ -151,11 +154,16 @@ def _stamp_inputs_finite(aux: AuxData, batch: Tensor) -> AuxData:
 
 
 def _fused_aux(losses: dict, activity: Tensor) -> AuxData:
-    """AuxData of the fused paths, with the autodiff path's loss keys."""
-    return AuxData(
-        losses={"loss": losses["mse"] + losses["l1"],
-                "l_reconstruction": losses["mse"], "l_l1": losses["l1"]},
-        l0=losses["l0"], feat_activity=activity.to(torch.int32))
+    """AuxData of the fused paths, with the autodiff path's loss keys. An
+    untied bucket's "bias_decay" entry is folded into the total and
+    reported as "l_bias_decay"."""
+    total = losses["mse"] + losses["l1"]
+    fields = {"l_reconstruction": losses["mse"], "l_l1": losses["l1"]}
+    if "bias_decay" in losses:
+        total = total + losses["bias_decay"]
+        fields["l_bias_decay"] = losses["bias_decay"]
+    return AuxData(losses={"loss": total, **fields}, l0=losses["l0"],
+                   feat_activity=activity.to(torch.int32))
 
 
 def _finish(state: EnsembleState, params, mu, nu, count, aux: AuxData,
@@ -238,24 +246,57 @@ def make_fused_step(producer: Callable, adam_hypers, sentinel: bool = True
 
 
 def _tied_producer(compute_dtype):
+    """K1 for tied and masked-tied buckets (a masked bucket's coef_mask
+    rides into the kernels); the untiled grads leave the grad norm to the
+    step."""
     from sparse_coding_tpu_torch.ops.fused_sae import (
         fused_tied_sae_loss_and_grads)
 
     def producer(params, buffers, batch):
         return (*fused_tied_sae_loss_and_grads(
-            params, buffers["l1_alpha"], batch,
-            compute_dtype=compute_dtype), None)
+            params, buffers["l1_alpha"], batch, compute_dtype=compute_dtype,
+            coef_mask=buffers.get("coef_mask")), None)
 
     return producer
 
 
 def _tied_tiled_producer(compute_dtype):
+    """K3 for tied and masked-tied buckets, with the kernel grad norm."""
     from sparse_coding_tpu_torch.ops.fused_sae_tiled import (
         fused_tied_sae_tiled_loss_and_grads)
 
     def producer(params, buffers, batch):
         return fused_tied_sae_tiled_loss_and_grads(
-            params, buffers["l1_alpha"], batch, compute_dtype=compute_dtype)
+            params, buffers["l1_alpha"], batch, compute_dtype=compute_dtype,
+            coef_mask=buffers.get("coef_mask"))
+
+    return producer
+
+
+def _untied_producer(compute_dtype):
+    """K5 for untied buckets; the bias-decay terms are added after the
+    kernels, once per member, and the grad norm is left to the step."""
+    from sparse_coding_tpu_torch.ops.fused_sae import (
+        fused_untied_sae_loss_and_grads)
+
+    def producer(params, buffers, batch):
+        return (*fused_untied_sae_loss_and_grads(
+            params, buffers["l1_alpha"], buffers["bias_decay"], batch,
+            compute_dtype=compute_dtype), None)
+
+    return producer
+
+
+def _untied_tiled_producer(compute_dtype):
+    """K7 for untied buckets, with the kernel grad norm (before the bias
+    decay and the decoder's normalization VJP)."""
+    from sparse_coding_tpu_torch.ops.fused_sae_tiled import (
+        fused_untied_sae_tiled_loss_and_grads)
+
+    def producer(params, buffers, batch):
+        return fused_untied_sae_tiled_loss_and_grads(
+            params, buffers["l1_alpha"], buffers["bias_decay"], batch,
+            compute_dtype=compute_dtype)
 
     return producer
 
@@ -292,6 +333,65 @@ def make_fullfused_tied_step(adam_hypers, compute_dtype="float32",
                        {"encoder": mu_e, "encoder_bias": mu_b},
                        {"encoder": nu_e, "encoder_bias": nu_b}, count_inc,
                        _fused_aux(losses, act), batch, sentinel, (un,), un)
+
+    return step
+
+
+def make_fullfused_untied_step(adam_hypers, compute_dtype="float32",
+                               sentinel: bool = True,
+                               tiled: bool = False) -> Step:
+    """Untied whole-step paths: the grads kernels — K5
+    (``fused_untied_sae_grads``, path ``train_step``) or, ``tiled``, K7
+    (``tiled_untied_sae_grads``, path ``train_step_tiled``) — then K6, the
+    Adam/normalization-VJP epilogue on E and D; the bias decay (added
+    after the kernels, once per member) and the bias Adam step in torch.
+    The update norm √(un_sq + Σ(Δbias)²) comes out of K6's epilogue; it
+    stands in for the grad norm on ``train_step``, while
+    ``train_step_tiled`` reports the kernel grad norm, as in the JAX
+    package."""
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.ops.fused_sae import (
+        fused_adam_vjp_update,
+        fused_untied_sae_grads,
+        untied_bias_decay_terms,
+    )
+    from sparse_coding_tpu_torch.ops.fused_sae_tiled import (
+        prepare_tiled_batch, tiled_untied_sae_grads)
+
+    b1, b2, eps = adam_hypers
+
+    def step(state: EnsembleState, batch: Tensor):
+        p, mu, nu = state.params, state.mu, state.nu
+        e, dec, bias = p["encoder"], p["decoder"], p["encoder_bias"]
+        alphas = state.buffers["l1_alpha"]
+        kbatch, bt, ft = prepare_tiled_batch(batch, e.shape[1], None, None)
+        count_inc = safe_increment(state.count)
+        bc1, bc2 = bias_corrections(count_inc, b1, b2)
+        if tiled:
+            losses, de, dwn, db, act, grad_sq = tiled_untied_sae_grads(
+                e, dec, bias, alphas, kbatch, batch_tile=bt, feat_tile=ft,
+                compute_dtype=compute_dtype)
+        else:
+            losses, de, dwn, db, act = fused_untied_sae_grads(
+                e, dec, bias, alphas, kbatch, batch_tile=bt,
+                compute_dtype=compute_dtype)
+        losses["bias_decay"], db = untied_bias_decay_terms(
+            bias, state.buffers["bias_decay"], db)
+        e2, mu_e, nu_e, d2, mu_d, nu_d, un_sq = fused_adam_vjp_update(
+            e, de, mu["encoder"], nu["encoder"], dec, dwn, mu["decoder"],
+            nu["decoder"], state.lrs, bc1, bc2, ftile=_build.FEAT_TILE,
+            b1=b1, b2=b2, eps=eps)
+        bias2, mu_b, nu_b = _bias_adam_update(
+            bias, db, mu["encoder_bias"], nu["encoder_bias"], state.lrs,
+            bc1, bc2, b1, b2, eps)
+        un = torch.sqrt(un_sq + torch.sum(torch.square(bias2 - bias), dim=-1))
+        gn = torch.sqrt(grad_sq) if tiled else un
+        return _finish(
+            state, {"encoder": e2, "encoder_bias": bias2, "decoder": d2},
+            {"encoder": mu_e, "encoder_bias": mu_b, "decoder": mu_d},
+            {"encoder": nu_e, "encoder_bias": nu_b, "decoder": nu_d},
+            count_inc, _fused_aux(losses, act), batch, sentinel, (gn, un),
+            gn)
 
     return step
 
@@ -337,14 +437,18 @@ def make_fullfused_tiled_step(adam_hypers, compute_dtype="float32",
 
 
 def can_use_fused_tied_step(sig: Any, members) -> bool:
-    """Kernel-path preconditions: a plain tied SAE with exactly the
-    {encoder, encoder_bias} params, identity centering and zero bias
-    decay on every member."""
-    if getattr(sig, "signature_name", None) != "tied_sae":
+    """Kernel-path preconditions of the tied kernels: a plain tied SAE
+    with exactly the {encoder, encoder_bias} params, identity centering
+    and zero bias decay on every member; or a masked-tied SAE with its
+    coef_mask (its loss has no centering or bias-decay term to gate on)."""
+    name = getattr(sig, "signature_name", None)
+    if name not in ("tied_sae", "masked_tied_sae"):
         return False
-    params0, _ = members[0]
+    params0, buffers0 = members[0]
     if set(params0) != {"encoder", "encoder_bias"}:
         return False
+    if name == "masked_tied_sae":
+        return "coef_mask" in buffers0
     d = _host(params0["encoder"]).shape[1]
     for _, b in members:
         if float(np.max(np.abs(_host(b.get("bias_decay", 0.0))))) != 0.0:
@@ -354,6 +458,18 @@ def can_use_fused_tied_step(sig: Any, members) -> bool:
                 and np.allclose(_host(b["center_scale"]), 1.0)):
             return False
     return True
+
+
+def can_use_fused_untied_step(sig: Any, members) -> bool:
+    """Kernel-path preconditions of the untied kernels: the plain "sae"
+    signature with exactly the params the kernels compute grads for and
+    the l1_alpha and bias_decay buffers. bias_decay needs no value gate:
+    its term lives outside the kernels."""
+    if getattr(sig, "signature_name", None) != "sae":
+        return False
+    params0, buffers0 = members[0]
+    return (set(params0) == {"encoder", "encoder_bias", "decoder"}
+            and {"l1_alpha", "bias_decay"} <= set(buffers0))
 
 
 def _host(v) -> np.ndarray:
@@ -375,10 +491,13 @@ class Ensemble:
     ``members`` are ``(params, buffers)`` pairs from ``sig.init`` (tensors
     or numpy arrays). ``device=None`` means ``cuda`` and raises without a
     card; tests pass ``device="cpu"``, where every kernel wrapper runs its
-    plain version. ``fused_path`` pins one of ``KERNEL_PATHS``; left None,
-    an eligible tied bucket runs ``train_step_tiled``. On the card an
-    eligible bucket whose shape the kernels do not take raises; it trains
-    on autodiff only with ``use_fused=False``."""
+    plain version. A bucket is eligible for the kernels as one of three
+    families — tied, untied or masked-tied — and otherwise trains on
+    autodiff. ``fused_path`` pins one of the family's ``KERNEL_PATHS``;
+    left None, a tied or untied bucket runs ``train_step_tiled`` and a
+    masked one ``two_stage_tiled``. On the card an eligible bucket whose
+    shape the kernels do not take raises; it trains on autodiff only with
+    ``use_fused=False``."""
 
     def __init__(
         self,
@@ -444,15 +563,23 @@ class Ensemble:
 
         self._standard_step = make_train_step(sig, self._adam_hypers,
                                               statics0, self.sentinel)
-        eligible = (use_fused is not False
-                    and can_use_fused_tied_step(sig, members))
-        if use_fused is True and not eligible:
+        family = None
+        if use_fused is not False:
+            if can_use_fused_tied_step(sig, members):
+                family = ("masked_tied" if self.sig_name == "masked_tied_sae"
+                          else "tied")
+            elif can_use_fused_untied_step(sig, members):
+                family = "untied"
+        if use_fused is True and family is None:
             raise ValueError("use_fused=True requires an identity-centered "
-                             "tied_sae bucket with zero bias_decay")
-        if fused_path is not None and not eligible:
-            raise ValueError(f"fused_path={fused_path!r} but no kernel path "
-                             "is eligible for this bucket")
-        self._fused_family = "tied" if eligible else None
+                             "tied_sae bucket with zero bias_decay, a "
+                             "masked_tied_sae bucket or a plain sae bucket")
+        if fused_path is not None:
+            if family is None:
+                raise ValueError(f"fused_path={fused_path!r} but no kernel "
+                                 "path is eligible for this bucket")
+            roofline.check_path(family, fused_path)
+        self._fused_family = family
         self._fused_disabled = use_fused is False
         self._fused_explicit = use_fused is True
         self._forced_fused_path = fused_path
@@ -485,10 +612,16 @@ class Ensemble:
         fn = self._steps.get(path)
         if fn is None:
             h, cd, s = self._adam_hypers, self._compute_dtype, self.sentinel
+            untied = self._fused_family == "untied"
             if path == "two_stage":
-                fn = make_fused_step(_tied_producer(cd), h, s)
+                fn = make_fused_step((_untied_producer if untied
+                                      else _tied_producer)(cd), h, s)
             elif path == "two_stage_tiled":
-                fn = make_fused_step(_tied_tiled_producer(cd), h, s)
+                fn = make_fused_step((_untied_tiled_producer if untied
+                                      else _tied_tiled_producer)(cd), h, s)
+            elif untied:
+                fn = make_fullfused_untied_step(
+                    h, cd, s, tiled=path == "train_step_tiled")
             elif path == "train_step":
                 fn = make_fullfused_tied_step(h, cd, s)
             else:
@@ -498,9 +631,9 @@ class Ensemble:
 
     def _resolve_step(self, batch_size: int) -> None:
         """Pick the program for this batch size (re-resolved only when the
-        size changes) and count the resolution. An eligible tied bucket
-        whose shape the kernels do not take trains on autodiff only on
-        the CPU; on the card, or with a forced path, it raises."""
+        size changes) and count the resolution. An eligible bucket whose
+        shape the kernels do not take trains on autodiff only on the CPU;
+        on the card, or with a forced path, it raises."""
         if batch_size == self._resolved_batch:
             return
         enc = self.state.params.get("encoder")
@@ -508,7 +641,7 @@ class Ensemble:
             batch=batch_size, n_feats=int(enc.shape[1]),
             d=int(enc.shape[2]), family=self._fused_family,
             forced_path=self._forced_fused_path)
-        if plan.path is None and self._fused_family == "tied" and (
+        if plan.path is None and self._fused_family is not None and (
                 self._forced_fused_path or self._fused_explicit
                 or self.device.type == "cuda"):
             raise ValueError(

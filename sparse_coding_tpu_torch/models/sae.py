@@ -1,10 +1,11 @@
-"""Trainable SAE families: the tied and untied SAEs of the JAX package's
-``models/sae.py``, as plain functions over dicts of tensors.
+"""Trainable SAE families: the tied, untied and masked-tied SAEs of the
+JAX package's ``models/sae.py``, as plain functions over dicts of tensors.
 
 Members use the JAX layout: ``encoder [n, d]``, ``encoder_bias [n]`` (and
-``decoder [n, d]`` untied); buffers ``l1_alpha``, ``bias_decay`` (0-d)
-and, for the tied SAE, the identity-centering ``center_rot [d, d]``,
-``center_trans [d]``, ``center_scale [d]``. ``loss`` is written so
+``decoder [n, d]`` untied); buffers ``l1_alpha``, ``bias_decay`` (0-d),
+for the tied SAE the identity-centering ``center_rot [d, d]``,
+``center_trans [d]``, ``center_scale [d]``, and for the masked-tied SAE
+``dict_size`` (0-d int32) and ``coef_mask [n_stack]`` (bool). ``loss`` is written so
 ``torch.func.vmap`` + ``grad`` can run it over a stacked member axis (the
 ensemble's autodiff reference path).
 """
@@ -161,3 +162,47 @@ class FunctionalTiedSAE:
                           centering_rot=buffers["center_rot"],
                           centering_trans=buffers["center_trans"],
                           centering_scale=buffers["center_scale"])
+
+
+@register("masked_tied_sae")
+class FunctionalMaskedTiedSAE:
+    """Tied SAE padded to ``n_components_stack`` rows with a coefficient
+    mask, so members of different dictionary sizes share one bucket.
+    ``coef_mask`` is True for the ACTIVE coefficients."""
+
+    @staticmethod
+    def init(generator: torch.Generator, activation_size: int,
+             n_dict_components: int, n_components_stack: int,
+             l1_alpha: float, bias_decay: float = 0.0, dtype=torch.float32,
+             device="cpu"):
+        params = {
+            "encoder": _glorot(generator,
+                               (n_components_stack, activation_size), dtype),
+            "encoder_bias": torch.zeros((n_components_stack,), dtype=dtype),
+        }
+        buffers = {
+            "l1_alpha": torch.tensor(l1_alpha, dtype=dtype),
+            "bias_decay": torch.tensor(bias_decay, dtype=dtype),
+            "dict_size": torch.tensor(n_dict_components, dtype=torch.int32),
+            "coef_mask": torch.arange(n_components_stack) < n_dict_components,
+        }
+        return _to(params, buffers, device)
+
+    @staticmethod
+    def loss(params, buffers, batch):
+        dictionary = _normalize(params["encoder"])
+        c = torch.relu(batch @ dictionary.T + params["encoder_bias"])
+        c = torch.where(buffers["coef_mask"], c, 0.0)
+        x_hat = c @ dictionary
+        l_reconstruction = _mse(x_hat, batch)
+        l_l1 = buffers["l1_alpha"] * _l1(c)
+        total = l_reconstruction + l_l1
+        return total, make_aux(
+            {"loss": total, "l_reconstruction": l_reconstruction,
+             "l_l1": l_l1}, c)
+
+    @staticmethod
+    def to_learned_dict(params, buffers) -> ld.TiedSAE:
+        n = int(buffers["dict_size"])
+        return ld.TiedSAE(dictionary=params["encoder"][:n],
+                          encoder_bias=params["encoder_bias"][:n])

@@ -21,7 +21,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-KERNELS = ("sae_tied_fwd", "sae_tied_bwd", "sae_tied_adam_vjp")
+KERNELS = ("sae_tied_fwd", "sae_tied_bwd", "sae_tied_adam_vjp",
+           "sae_untied_fwd", "sae_untied_bwd", "sae_untied_adam_vjp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -29,13 +30,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 ARGTYPES = {
-    # x, E, b, r, N, B, n, d, stream
-    "sae_tied_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, r, E, b, alphas, dw, db, act, part, N, B, n, d, coef, stream
-    "sae_tied_bwd": [_P] * 9 + [_I] * 4 + [_F, _P],
+    # x, E, b, coef_mask (or null), r, N, B, n, d, stream
+    "sae_tied_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    # x, r, E, b, coef_mask (or null), alphas, dw, db, act, part, N, B, n,
+    # d, coef, stream
+    "sae_tied_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
     # E, dW, mu, nu, lrs, bc1, bc2, E2, mu2, nu2, un_part, bias, db, mub,
     # nub, bias2, mub2, nub2, N, n, d, b1, omb1, b2, omb2, eps, stream
     "sae_tied_adam_vjp": [_P] * 18 + [_I] * 3 + [_F] * 5 + [_P],
+    # x, E, D, b, r, N, B, n, d, stream
+    "sae_untied_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    # x, r, E, D, b, alphas, dE, dWn, db, act, part, N, B, n, d, coef,
+    # stream
+    "sae_untied_bwd": [_P] * 11 + [_I] * 4 + [_F, _P],
+    # E, dE, muE, nuE, D, dWn, muD, nuD, lrs, bc1, bc2, E2, muE2, nuE2, D2,
+    # muD2, nuD2, un_part, N, n, d, b1, omb1, b2, omb2, eps, stream
+    "sae_untied_adam_vjp": [_P] * 18 + [_I] * 3 + [_F] * 5 + [_P],
 }
 
 # Launch counts, one plain integer per kernel: each wrapper adds one where
@@ -50,6 +60,7 @@ _lock = threading.Lock()
 # feature count must divide by these, and d must not exceed MAX_D.
 BATCH_TILE = 32
 FEAT_TILE = 32
+UNTIED_FEAT_TILE = 16  # the untied backward's tile (two weight tiles)
 ADAM_ROWS = 8
 MAX_D = 768
 

@@ -1,4 +1,4 @@
-// Shared constants and helpers of the tied-SAE kernels (sm_90a, fp32 SIMT).
+// Shared constants and helpers of the SAE kernels (sm_90a, fp32 SIMT).
 //
 // The Python wrappers (ops/fused_sae_tiled.py, ops/fused_sae.py) mirror
 // these constants; they check every shape against them before a launch.
@@ -11,6 +11,8 @@ constexpr int kThreads = 256;             // threads per block, every kernel
 constexpr int kWarps = kThreads / 32;
 constexpr int kFwdBatchTile = 32;         // rows of x one forward block owns
 constexpr int kFeatTile = 32;             // dictionary rows per feature tile
+constexpr int kUntiedFeatTile = 16;       // rows per tile of the untied bwd,
+                                          // which holds two weight tiles
 constexpr int kBwdBatchTile = 16;         // rows of x per backward loop step
 constexpr int kAdamRows = kWarps;         // dictionary rows per adam block
 constexpr int kMaxD = 3 * kThreads;       // widest d the fwd/bwd kernels take
@@ -61,16 +63,16 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
   }
 }
 
-// Load a [kFeatTile, d] dictionary tile and row-normalize it in place:
+// Load a [rows, d] dictionary tile and row-normalize it in place:
 // w = e / max(||e||, 1e-8), the formula of the Pallas kernels'
-// _normalize_tile. `nrm` holds kFeatTile floats.
+// _normalize_tile. `nrm` holds `rows` floats.
 __device__ __forceinline__ void load_normalized_tile(float* ws, float* nrm,
                                                      const float* __restrict__ src,
-                                                     int d, int ld) {
+                                                     int rows, int d, int ld) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  load_tile(ws, src, kFeatTile, d, ld);
+  load_tile(ws, src, rows, d, ld);
   __syncthreads();
-  for (int row = warp; row < kFeatTile; row += kWarps) {
+  for (int row = warp; row < rows; row += kWarps) {
     float s = 0.f;
     for (int j = lane; j < d; j += 32) {
       const float v = ws[row * ld + j];
@@ -80,7 +82,7 @@ __device__ __forceinline__ void load_normalized_tile(float* ws, float* nrm,
     if (lane == 0) nrm[row] = clipped_norm(s);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < kFeatTile * d; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * d; i += kThreads) {
     const int r = i / d;
     ws[r * ld + (i - r * d)] /= nrm[r];
   }

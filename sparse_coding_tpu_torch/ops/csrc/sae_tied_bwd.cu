@@ -5,7 +5,9 @@
 // Replaces: sparse_coding_tpu/ops/fused_sae_tiled.py::_bwd_call (the Pallas
 // _bwd_kernel, tied=True).
 //
-//   pre = x W_f^T + b_f, c = relu(pre), mask = [pre > 0]
+//   pre = x W_f^T + b_f, c = cm_f relu(pre), mask = cm_f [pre > 0]
+//   (cm [N, n] the masked family's 0/1 coefficient mask, or nullptr for
+//   all ones: the Pallas kernel's masked=True branch)
 //   dpre = (coef * r W_f^T + alpha/B) * mask,   coef = 2/(B*d)
 //   dW_f = dpre^T x + coef * c^T r,  db_f = sum_b dpre,  act_f = sum_b mask
 //   partials per (member, feature tile): [mse (feature tile 0 only), l1, l0,
@@ -34,6 +36,7 @@ template <int NC>
 __global__ void __launch_bounds__(kThreads)
 bwd_kernel(const float* __restrict__ x, const float* __restrict__ r,
            const float* __restrict__ E, const float* __restrict__ bias,
+           const float* __restrict__ cmask,
            const float* __restrict__ alphas, float* __restrict__ dw,
            float* __restrict__ db, float* __restrict__ act,
            float* __restrict__ part, int B, int n, int d, int ld, float coef) {
@@ -55,7 +58,8 @@ bwd_kernel(const float* __restrict__ x, const float* __restrict__ r,
   const float alpha_over_b = alpha / batch_f;
   const float* rm = r + (size_t)m * B * d;
 
-  load_normalized_tile(ws, nrm, E + ((size_t)m * n + f0) * d, d, ld);
+  load_normalized_tile(ws, nrm, E + ((size_t)m * n + f0) * d, kFeatTile, d,
+                       ld);
 
   float g[kFeatTile][NC];
 #pragma unroll
@@ -68,6 +72,10 @@ bwd_kernel(const float* __restrict__ x, const float* __restrict__ r,
   const int row = tid >> 4, cp = tid & 15;
   const float bb0 = bias[(size_t)m * n + f0 + 2 * cp];
   const float bb1 = bias[(size_t)m * n + f0 + 2 * cp + 1];
+  // times 1 is exact (NaN stays NaN), so the unmasked case needs no branch
+  const float cm0 = cmask == nullptr ? 1.f : cmask[(size_t)m * n + f0 + 2 * cp];
+  const float cm1 =
+      cmask == nullptr ? 1.f : cmask[(size_t)m * n + f0 + 2 * cp + 1];
   const float* wa = ws + (2 * cp) * ld;
   const float* wb = wa + ld;
 
@@ -95,11 +103,12 @@ bwd_kernel(const float* __restrict__ x, const float* __restrict__ r,
     }
     p0 += bb0;
     p1 += bb1;
-    const float m0 = p0 > 0.f ? 1.f : 0.f, m1 = p1 > 0.f ? 1.f : 0.f;
+    const float m0 = (p0 > 0.f ? 1.f : 0.f) * cm0;
+    const float m1 = (p1 > 0.f ? 1.f : 0.f) * cm1;
     float* c0 = cs + row * kFeatTile + 2 * cp;
     float* d0 = ps + row * kFeatTile + 2 * cp;
-    c0[0] = relu_keep_nan(p0);
-    c0[1] = relu_keep_nan(p1);
+    c0[0] = relu_keep_nan(p0) * cm0;
+    c0[1] = relu_keep_nan(p1) * cm1;
     d0[0] = (coef * q0 + alpha_over_b) * m0;
     d0[1] = (coef * q1 + alpha_over_b) * m1;
     __syncthreads();
@@ -109,7 +118,8 @@ bwd_kernel(const float* __restrict__ x, const float* __restrict__ r,
         const float cv = cs[i * kFeatTile + tid];
         db_acc += ps[i * kFeatTile + tid];
         c_acc += cv;
-        act_acc += cv > 0.f ? 1.f : 0.f;  // c > 0 exactly where pre > 0
+        // c > 0 exactly where mask = 1 (pre > 0 and, masked, cm = 1)
+        act_acc += cv > 0.f ? 1.f : 0.f;
       }
     }
 
@@ -169,7 +179,8 @@ bwd_kernel(const float* __restrict__ x, const float* __restrict__ r,
 
 template <int NC>
 cudaError_t launch(const float* x, const float* r, const float* E,
-                   const float* b, const float* alphas, float* dw, float* db,
+                   const float* b, const float* cm, const float* alphas,
+                   float* dw, float* db,
                    float* act, float* part, int N, int B, int n, int d,
                    float coef, cudaStream_t stream) {
   const int ld = padded_ld(d);
@@ -181,18 +192,20 @@ cudaError_t launch(const float* x, const float* r, const float* E,
   if (err != cudaSuccess) return err;
   const dim3 grid(n / kFeatTile, N);
   bwd_kernel<NC><<<grid, kThreads, smem, stream>>>(
-      x, r, E, b, alphas, dw, db, act, part, B, n, d, ld, coef);
+      x, r, E, b, cm, alphas, dw, db, act, part, B, n, d, ld, coef);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x [B, d], r [N, B, d], E [N, n, d], b [N, n], alphas [N] ->
+// x [B, d], r [N, B, d], E [N, n, d], b [N, n], cm [N, n] or nullptr,
+// alphas [N] ->
 // dw [N, n, d], db [N, n], act [N, n], part [N, n/32, 4]; all fp32,
 // contiguous. coef = 2/(B*d) as fp32. Needs B % 32 == 0, n % 32 == 0,
 // 1 <= d <= 768. Returns the launch's cudaError_t.
 extern "C" int sae_tied_bwd(const float* x, const float* r, const float* E,
-                            const float* b, const float* alphas, float* dw,
+                            const float* b, const float* cm,
+                            const float* alphas, float* dw,
                             float* db, float* act, float* part, int N, int B,
                             int n, int d, float coef, void* stream) {
   if (B % kFwdBatchTile || n % kFeatTile || d < 1 || d > kMaxD || N < 1)
@@ -200,13 +213,13 @@ extern "C" int sae_tied_bwd(const float* x, const float* r, const float* E,
   cudaStream_t s = (cudaStream_t)stream;
   switch ((d + kThreads - 1) / kThreads) {
     case 1:
-      return (int)launch<1>(x, r, E, b, alphas, dw, db, act, part, N, B, n, d,
-                            coef, s);
+      return (int)launch<1>(x, r, E, b, cm, alphas, dw, db, act, part, N, B,
+                            n, d, coef, s);
     case 2:
-      return (int)launch<2>(x, r, E, b, alphas, dw, db, act, part, N, B, n, d,
-                            coef, s);
+      return (int)launch<2>(x, r, E, b, cm, alphas, dw, db, act, part, N, B,
+                            n, d, coef, s);
     default:
-      return (int)launch<3>(x, r, E, b, alphas, dw, db, act, part, N, B, n, d,
-                            coef, s);
+      return (int)launch<3>(x, r, E, b, cm, alphas, dw, db, act, part, N, B,
+                            n, d, coef, s);
   }
 }

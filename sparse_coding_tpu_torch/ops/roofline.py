@@ -1,14 +1,17 @@
 """Kernel-path choice for the card (subset of the JAX package's
 ``ops/roofline.py``).
 
-The four path labels are the JAX package's, so port results stay
-comparable with the reference. The JAX package ranks paths with a TPU
-VMEM admission model; that model is not ported (rebuilding it for Hopper's
-shared memory and registers is later work). On the card every path rides
-the same fixed-tile kernels, so the chooser is simple: the default is
-``train_step_tiled`` (the fewest passes over the [N, n, d] state),
-``fused_path`` forces any of the four, and a shape the kernels' blocking
-does not take resolves to no path (the Ensemble raises on the card).
+The four path labels and the paths each bucket family has are the JAX
+package's, so port results stay comparable with the reference. The JAX
+package ranks paths with a TPU VMEM admission model; that model is not
+ported (rebuilding it for Hopper's shared memory and registers is later
+work). On the card every path rides the same fixed-tile kernels, so the
+chooser is simple: the tied and untied families default to
+``train_step_tiled`` (the fewest passes over the [N, n, d] state), the
+masked family to ``two_stage_tiled`` (its ``coef_mask`` rides the
+two-stage kernels only), ``fused_path`` forces any path the family has,
+and a shape the kernels' blocking does not take resolves to no path (the
+Ensemble raises on the card).
 """
 
 from __future__ import annotations
@@ -20,7 +23,14 @@ from sparse_coding_tpu_torch.ops import _build
 
 KERNEL_PATHS = ("train_step", "train_step_tiled", "two_stage",
                 "two_stage_tiled")
-DEFAULT_PATH = "train_step_tiled"
+# the paths each bucket family has, and the one it runs unless forced
+FAMILY_PATHS = {
+    "tied": KERNEL_PATHS,
+    "untied": KERNEL_PATHS,
+    "masked_tied": ("two_stage", "two_stage_tiled"),
+}
+DEFAULT_PATHS = {"tied": "train_step_tiled", "untied": "train_step_tiled",
+                 "masked_tied": "two_stage_tiled"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,15 +50,26 @@ def model_flops_per_activation(n_members: int, n_feats: int, d: int) -> float:
     return 12.0 * float(n_feats) * float(d) * float(n_members)
 
 
-def choose_plan(*, batch: int, n_feats: int, d: int, family: Optional[str],
-                forced_path: Optional[str] = None) -> KernelPlan:
-    """The path the next step runs. ``family`` is "tied" for an eligible
-    bucket, anything else resolves to autodiff."""
-    if family != "tied":
-        return KernelPlan(None, reason="family_ineligible")
-    path = forced_path or DEFAULT_PATH
+def check_path(family: str, path: str) -> None:
+    """Raise ValueError unless ``family`` has kernel path ``path``."""
     if path not in KERNEL_PATHS:
         raise ValueError(f"unknown kernel path {path!r}")
+    if path not in FAMILY_PATHS[family]:
+        raise ValueError(
+            f"fused_path={path!r}: the {family} family has no such path "
+            f"(it has {FAMILY_PATHS[family]}; the masked family's coef_mask "
+            "rides the two-stage kernels only)")
+
+
+def choose_plan(*, batch: int, n_feats: int, d: int, family: Optional[str],
+                forced_path: Optional[str] = None) -> KernelPlan:
+    """The path the next step runs. ``family`` is "tied", "untied" or
+    "masked_tied" for an eligible bucket; anything else resolves to
+    autodiff."""
+    if family not in FAMILY_PATHS:
+        return KernelPlan(None, reason="family_ineligible")
+    path = forced_path or DEFAULT_PATHS[family]
+    check_path(family, path)
     if (batch % _build.BATCH_TILE or n_feats % _build.FEAT_TILE
             or d > _build.MAX_D):
         return KernelPlan(None, reason=(f"forced_unfit:{forced_path}"

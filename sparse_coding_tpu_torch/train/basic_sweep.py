@@ -1,8 +1,10 @@
 """Minimal single-device L1 sweep over a directory of activation chunks —
 the port of the JAX package's ``train/basic_sweep.py``, its "minimum
-end-to-end slice": one tied-SAE ensemble over an l1 grid, fed from a
-ChunkStore through device prefetch, saving learned dicts + FVU/L0 per
-epoch.
+end-to-end slice": one SAE ensemble over an l1 grid — tied
+(``FunctionalTiedSAE``) or, with ``tied=False``, untied
+(``FunctionalSAE``) — fed from a ChunkStore through device prefetch,
+saving learned dicts + FVU/L0 per epoch. On the card either family trains
+on its kernels (``train_step_tiled``).
 
 Same epoch order as the JAX sweep (``np.random.default_rng(seed)``) and
 the same ``epoch_<i>/learned_dicts.pkl`` + ``eval.json`` artifacts. The

@@ -14,7 +14,15 @@ from sparse_coding_tpu_torch.ensemble import EnsembleState, split_buffers
 
 
 def _tensor(v, device) -> torch.Tensor:
-    return torch.as_tensor(np.array(v), device=device)
+    """A numpy leaf as a tensor of the dtype the port keeps: floating
+    leaves become float32, integer leaves int32, and bool stays bool (the
+    masked family's ``coef_mask``)."""
+    a = np.array(v)
+    if np.issubdtype(a.dtype, np.floating):
+        a = a.astype(np.float32)
+    elif np.issubdtype(a.dtype, np.integer):
+        a = a.astype(np.int32)
+    return torch.as_tensor(a, device=device)
 
 
 def members_from_numpy(members: Sequence[tuple[dict, dict]],
@@ -35,9 +43,9 @@ def state_from_numpy(*, params: dict, buffers: dict, mu: dict, nu: dict,
                      sig_name: str = "", device="cpu") -> EnsembleState:
     """A stacked JAX ensemble state (params/buffers/moments keyed alike,
     each [N, ...]; optax's per-member ``count`` [N]; ``lrs`` [N]; ``live``
-    [N] bool) → the port's :class:`EnsembleState`."""
-    conv = lambda tree: {k: _tensor(v, device).to(torch.float32)
-                         for k, v in tree.items()}
+    [N] bool) → the port's :class:`EnsembleState`. Every leaf keeps its
+    kind (see :func:`_tensor`)."""
+    conv = lambda tree: {k: _tensor(v, device) for k, v in tree.items()}
     n = int(np.asarray(lrs).shape[0])
     live_t: Optional[torch.Tensor] = (
         torch.ones((n,), dtype=torch.bool, device=device) if live is None

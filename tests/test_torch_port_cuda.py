@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card, each held against its plain
-PyTorch version on the same inputs. Card only: every test carries the
+"""The port's CUDA kernels on the card (the tied kernels with and without
+the masked family's coef_mask, and the untied ones), each held against its
+plain PyTorch version on the same inputs. Card only: every test carries the
 ``cuda`` marker and skips without a card. This file imports no JAX (the
 card's host has none), so it runs there on its own:
 
@@ -21,7 +22,9 @@ from sparse_coding_tpu_torch.ops import _build
 from sparse_coding_tpu_torch.ops import fused_sae as fs
 from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
 
-SHAPES = [(3, 96, 96, 40), (2, 64, 64, 300), (2, 32, 64, 600)]
+SHAPES = [(3, 96, 96, 40), (2, 64, 64, 300), (2, 32, 64, 600),
+          (2, 32, 64, 768)]
+FAMILIES = ["tied", "masked_tied", "untied"]
 
 
 @pytest.fixture
@@ -37,6 +40,11 @@ def _inputs(card, n_m, b, n, d, seed=0):
     t = lambda *s: torch.randn(s, generator=g)
     return {
         "e": ((torch.rand((n_m, n, d), generator=g) * 2 - 1) * lim).to(card),
+        "dec": ((torch.rand((n_m, n, d), generator=g) * 2 - 1) * lim)
+        .to(card),
+        # mixed dictionary sizes: member i keeps its first n/(i+1) features
+        "cm": (torch.arange(n)[None, :]
+               < (n // torch.arange(1, n_m + 1))[:, None]).float().to(card),
         "bias": (t(n_m, n) * 0.01).to(card),
         "alphas": torch.logspace(-3, -1, n_m).to(card),
         "x": t(b, d).to(card),
@@ -54,22 +62,55 @@ def _close(got, ref, rtol):
     assert err <= rtol * float(ref.abs().max()), err
 
 
+def _fwd_bwd(i, family, plain=False):
+    """(fwd, bwd) of the family as closures over ``i``: the kernels'
+    wrappers, or their plain versions."""
+    e, bias, al, x = i["e"], i["bias"], i["alphas"], i["x"]
+    if family == "untied":
+        fwd, bwd = ((ft.sae_untied_fwd_plain, ft.sae_untied_bwd_plain)
+                    if plain else (ft.sae_untied_fwd, ft.sae_untied_bwd))
+        return (lambda: fwd(e, i["dec"], bias, x),
+                lambda r: bwd(e, i["dec"], bias, al, x, r))
+    cm = i["cm"] if family == "masked_tied" else None
+    fwd, bwd = ((ft.sae_tied_fwd_plain, ft.sae_tied_bwd_plain) if plain
+                else (ft.sae_tied_fwd, ft.sae_tied_bwd))
+    return (lambda: fwd(e, bias, x, cm),
+            lambda r: bwd(e, bias, al, x, r, cm))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
-def test_fwd_and_bwd_kernels_match_plain(card, shape):
+def test_fwd_and_bwd_kernels_match_plain(card, shape, family):
     i = _inputs(card, *shape)
+    kfwd, kbwd = _fwd_bwd(i, family)
+    pfwd, pbwd = _fwd_bwd(i, family, plain=True)
     _build.reset_launches()
-    r = ft.sae_tied_fwd(i["e"], i["bias"], i["x"])
-    _close(r, ft.sae_tied_fwd_plain(i["e"], i["bias"], i["x"]), 1e-5)
-    got = ft.sae_tied_bwd(i["e"], i["bias"], i["alphas"], i["x"], r)
-    ref = ft.sae_tied_bwd_plain(i["e"], i["bias"], i["alphas"], i["x"], r)
+    r = kfwd()
+    _close(r, pfwd(), 1e-5)
+    got, ref = kbwd(r), pbwd(r)
     torch.cuda.synchronize()
-    _close(got[0], ref[0], 1e-3)
-    _close(got[1], ref[1], 1e-3)
-    assert torch.equal(got[2], ref[2])
-    _close(got[3], ref[3], 1e-4)
-    assert _build.LAUNCHES["sae_tied_fwd"] == 1
-    assert _build.LAUNCHES["sae_tied_bwd"] == 1
+    for g, rf in zip(got[:-2], ref[:-2]):  # the weight grads, db
+        _close(g, rf, 1e-3)
+    assert torch.equal(got[-2], ref[-2])
+    _close(got[-1], ref[-1], 1e-4)
+    prefix = "sae_untied" if family == "untied" else "sae_tied"
+    assert _build.LAUNCHES[f"{prefix}_fwd"] == 1
+    assert _build.LAUNCHES[f"{prefix}_bwd"] == 1
+
+
+@pytest.mark.cuda
+def test_untied_adam_vjp_kernel_matches_plain(card):
+    i = _inputs(card, 3, 32, 96, 200)
+    args = [i[k] for k in ("e", "dw", "mu", "nu", "dec")]
+    args += [i["dw"].flip(0).contiguous(), i["mu"].flip(0).contiguous(),
+             i["nu"].flip(0).contiguous()]
+    args += [i[k] for k in ("lrs", "bc1", "bc2")]
+    got = fs.sae_untied_adam_vjp(*args)
+    ref = fs.sae_untied_adam_vjp_plain(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        _close(g, r, 1e-5)
 
 
 @pytest.mark.cuda
@@ -92,15 +133,24 @@ def test_adam_vjp_kernel_matches_plain(card, with_bias):
 
 
 @pytest.mark.cuda
-def test_nan_propagates_through_the_kernels(card):
+@pytest.mark.parametrize("family", FAMILIES)
+def test_nan_propagates_through_the_kernels(card, family):
     """A NaN row must reach the losses (the sentinel keys on them): the
-    kernels' ReLU and norm clip keep NaN, as torch.relu and clamp do."""
+    kernels' ReLU and norm clip keep NaN, as torch.relu and clamp do —
+    through the raw encoder and the normalized decoder alike."""
     i = _inputs(card, 2, 64, 64, 40)
     i["e"][1, 5, 0] = float("nan")
-    r = ft.sae_tied_fwd(i["e"], i["bias"], i["x"])
-    loss4 = ft.sae_tied_bwd(i["e"], i["bias"], i["alphas"], i["x"], r)[3]
+    if family == "masked_tied":
+        i["cm"][1, 5] = 1.0  # the NaN row is an active one
+    if family == "untied":
+        i["dec"][0, 7, 3] = float("nan")
+    fwd, bwd = _fwd_bwd(i, family)
+    loss4 = bwd(fwd())[-1]
     torch.cuda.synchronize()
-    assert torch.isfinite(loss4[0]).all()
+    if family == "untied":  # both members hold a NaN
+        assert not torch.isfinite(loss4[0, :2]).all()
+    else:
+        assert torch.isfinite(loss4[0]).all()
     assert not torch.isfinite(loss4[1, :2]).all()
 
 
@@ -109,6 +159,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     i = _inputs(card, 2, 64, 64, 40)
     with pytest.raises(ValueError, match="CUDA kernel needs"):
         ft.sae_tied_fwd(i["e"], i["bias"], i["x"][:48])
+    with pytest.raises(ValueError, match="CUDA kernel needs"):
+        ft.sae_untied_fwd(i["e"], i["dec"], i["bias"], i["x"][:48])
+    with pytest.raises(ValueError, match="float32"):
+        ft.sae_tied_fwd(i["e"], i["bias"], i["x"], i["cm"].bool())
+    with pytest.raises(ValueError, match="split between"):
+        ft.sae_untied_bwd(i["e"], i["dec"], i["bias"], i["alphas"], i["x"],
+                          torch.zeros((2, 64, 40)))
     with pytest.raises(ValueError, match="not contiguous"):
         ft.sae_tied_fwd(i["e"], i["bias"], i["x"].t().contiguous().t())
     with pytest.raises(ValueError, match="float32"):
@@ -118,22 +175,25 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
 
 
 @pytest.mark.cuda
-def test_ensemble_refuses_a_shape_the_kernels_do_not_take(card):
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "untied"])
+def test_ensemble_refuses_a_shape_the_kernels_do_not_take(card, tied):
     """On the card an eligible bucket at d=1024 (above the kernels' limit)
     raises at its first step; with use_fused=False it trains on autodiff
     and launches no kernel."""
     from sparse_coding_tpu_torch.ensemble import Ensemble
-    from sparse_coding_tpu_torch.models.sae import FunctionalTiedSAE
+    from sparse_coding_tpu_torch.models.sae import (
+        FunctionalSAE,
+        FunctionalTiedSAE,
+    )
 
+    sig = FunctionalTiedSAE if tied else FunctionalSAE
     g = torch.Generator().manual_seed(0)
-    members = [FunctionalTiedSAE.init(g, 1024, 64, l1_alpha=l1)
-               for l1 in (1e-3, 1e-2)]
+    members = [sig.init(g, 1024, 64, l1_alpha=l1) for l1 in (1e-3, 1e-2)]
     x = torch.randn((64, 1024), generator=g).to(card)
     with pytest.raises(ValueError, match="do not take"):
-        Ensemble(members, FunctionalTiedSAE, device=card).step_batch(x)
+        Ensemble(members, sig, device=card).step_batch(x)
     _build.reset_launches()
-    aux = Ensemble(members, FunctionalTiedSAE, device=card,
-                   use_fused=False).step_batch(x)
+    aux = Ensemble(members, sig, device=card, use_fused=False).step_batch(x)
     torch.cuda.synchronize()
     assert torch.isfinite(aux.losses["loss"]).all()
     assert all(v == 0 for v in _build.LAUNCHES.values())

@@ -1,5 +1,6 @@
 """The port's ensemble engine (sparse_coding_tpu_torch/ensemble.py) against
-the JAX package's Ensemble, step for step.
+the JAX package's Ensemble, step for step, for the tied, untied and
+masked-tied families.
 
 Both sides start from the same state — the JAX Ensemble's, carried across
 with utils/carry.state_from_numpy after two warm-up steps, so the Adam
@@ -21,16 +22,22 @@ import numpy as np
 import pytest
 import torch
 
+from sparse_coding_tpu import ensemble as jensemble
 from sparse_coding_tpu.ensemble import Ensemble as JaxEnsemble
-from sparse_coding_tpu.ensemble import can_use_fused_tied_step as jax_eligible
+from sparse_coding_tpu.models.sae import FunctionalMaskedTiedSAE as JaxMasked
 from sparse_coding_tpu.models.sae import FunctionalSAE as JaxSAE
 from sparse_coding_tpu.models.sae import FunctionalTiedSAE as JaxTiedSAE
 from sparse_coding_tpu_torch.ensemble import (
     Ensemble,
     can_use_fused_tied_step,
+    can_use_fused_untied_step,
     safe_increment,
 )
-from sparse_coding_tpu_torch.models.sae import FunctionalSAE, FunctionalTiedSAE
+from sparse_coding_tpu_torch.models.sae import (
+    FunctionalMaskedTiedSAE,
+    FunctionalSAE,
+    FunctionalTiedSAE,
+)
 from sparse_coding_tpu_torch.utils.carry import (
     members_from_numpy,
     state_from_numpy,
@@ -43,6 +50,7 @@ from torch_port_helpers import (
     N_FEATS,
     N_MEMBERS,
     batches,
+    dict_sizes,
 )
 
 LRS = [1e-3, 2e-3, 3e-3]
@@ -53,19 +61,43 @@ N_STEPS = 20
 
 PATHS = [None, "two_stage", "train_step", "two_stage_tiled",
          "train_step_tiled"]
+MASKED_PATHS = [None, "two_stage", "two_stage_tiled"]
+# (JAX signature, port signature) of each family; the untied members carry
+# a bias decay (the term its kernel paths add outside the kernels), the
+# masked ones mixed dictionary sizes padded to N_FEATS
+SIGS = {"tied": (JaxTiedSAE, FunctionalTiedSAE),
+        "untied": (JaxSAE, FunctionalSAE),
+        "masked_tied": (JaxMasked, FunctionalMaskedTiedSAE)}
+INIT_KW = {"tied": {}, "untied": {"bias_decay": 0.01}, "masked_tied": {}}
+# every kernel path of each family, and autodiff; the tied cases keep
+# their bare path ids
+TRAJECTORIES = ([("tied", p) for p in PATHS]
+                + [("untied", p) for p in PATHS]
+                + [("masked_tied", p) for p in MASKED_PATHS])
 
 
-def _jax_members(sig=JaxTiedSAE, seed=0, **kw):
+def _traj_id(case):
+    family, path = case
+    label = path or "autodiff"
+    return label if family == "tied" else f"{family}-{label}"
+
+
+def _jax_members(family="tied", seed=0, **kw):
+    sig = SIGS[family][0]
     keys = jax.random.split(jax.random.PRNGKey(seed), N_MEMBERS)
+    if family == "masked_tied":
+        return [sig.init(k, D, n, N_FEATS, l1_alpha=l1, **kw)
+                for k, n, l1 in zip(keys, dict_sizes(), L1S)]
     return [sig.init(k, D, N_FEATS, l1_alpha=l1, **kw)
             for k, l1 in zip(keys, L1S)]
 
 
-def _pair(path, sig=JaxTiedSAE, port_sig=FunctionalTiedSAE, **init_kw):
+def _pair(path, family="tied", **init_kw):
     """A JAX Ensemble on ``path`` (None = autodiff) and the port's twin,
     built from the same members. Only the JAX side takes tiles: the
     port's kernels block at their own fixed tiles."""
-    jmembers = _jax_members(sig, **init_kw)
+    sig, port_sig = SIGS[family]
+    jmembers = _jax_members(family, **init_kw)
     fused = {} if path is None else dict(fused_path=path)
     tiles = {} if path is None else dict(fused_batch_tile=BATCH_TILE)
     if path in ("two_stage_tiled", "train_step_tiled"):
@@ -118,13 +150,17 @@ def _assert_aux_close(ja, ta, what):
                                **PARAM_TOL, err_msg=f"{what}: grad_norm")
 
 
-@pytest.mark.parametrize("path", PATHS, ids=lambda p: p or "autodiff")
-def test_trajectory_and_sentinel_match_jax(path):
-    """20 steps on each of the four kernel paths and on autodiff track the
-    JAX Ensemble; then a NaN l1 coefficient makes member 1's step
-    non-finite and the quarantine bit freezes member 2 — both sides freeze
-    exactly those members, bit for bit, and keep training the rest."""
-    jens, tens = _pair(path)
+@pytest.mark.parametrize("case", TRAJECTORIES, ids=_traj_id)
+def test_trajectory_and_sentinel_match_jax(case):
+    """20 steps on each kernel path of each family, and on autodiff, track
+    the JAX Ensemble — losses, activity, the sentinel's grad norm (each
+    path's own: the kernel grad norm on the tiled paths, the update norm
+    on the whole-step ones), params and moments; then a NaN l1
+    coefficient makes member 1's step non-finite and the quarantine bit
+    freezes member 2 — both sides freeze exactly those members, bit for
+    bit, and keep training the rest."""
+    family, path = case
+    jens, tens = _pair(path, family, **INIT_KW[family])
     data = batches(seed=1, n=N_STEPS + 6)
     for b in data[:2]:
         jens.step_batch(jax.numpy.asarray(b))
@@ -164,18 +200,6 @@ def test_trajectory_and_sentinel_match_jax(path):
     _assert_states_close(jens, tens, "after the sentinel steps")
 
 
-def test_untied_autodiff_trajectory_matches_jax():
-    """The autodiff reference path is signature-generic: the untied SAE
-    (with a bias decay) tracks the JAX autodiff path too."""
-    jens, tens = _pair(None, sig=JaxSAE, port_sig=FunctionalSAE,
-                       bias_decay=0.01)
-    for b in batches(seed=2, n=5):
-        ja = jens.step_batch(jax.numpy.asarray(b))
-        ta = tens.step_batch(torch.from_numpy(b))
-        _assert_aux_close(ja, ta, "untied")
-    _assert_states_close(jens, tens, "untied")
-
-
 def test_no_card_means_the_entry_point_raises():
     """device=None means cuda: without a card the constructor raises and
     never falls back to the CPU."""
@@ -196,28 +220,60 @@ def test_unported_options_raise():
         Ensemble(members, FunctionalTiedSAE, device="cpu", fused_path="fast")
 
 
-@pytest.mark.parametrize("case", ["identity", "bias_decay", "centered"])
+@pytest.mark.parametrize("path", ["train_step", "train_step_tiled"])
+def test_forced_whole_step_on_a_masked_bucket_raises(path):
+    """The masked family's coef_mask rides the two-stage kernels only: a
+    forced whole-step path raises on both sides."""
+    jmembers = _jax_members("masked_tied")
+    with pytest.raises(ValueError, match=f"fused_path='{path}'"):
+        JaxEnsemble(jmembers, JaxMasked, fused_interpret=True,
+                    fused_path=path)
+    with pytest.raises(ValueError, match="two-stage kernels only"):
+        Ensemble(members_from_numpy(jax.device_get(jmembers)),
+                 FunctionalMaskedTiedSAE, device="cpu", fused_path=path)
+
+
+ELIGIBILITY = {
+    "identity": ("tied", {}),
+    "bias_decay": ("tied", {"bias_decay": 0.01}),
+    "centered": ("tied", {"translation": jax.numpy.full((D,), 0.5)}),
+    "untied": ("untied", {}),
+    "untied_bias_decay": ("untied", {"bias_decay": 0.01}),
+    "masked_tied": ("masked_tied", {}),
+}
+
+
+@pytest.mark.parametrize("case", list(ELIGIBILITY))
 def test_kernel_path_eligibility_matches_jax(case):
-    """can_use_fused_tied_step: identity centering and zero bias_decay, as
-    in the JAX package; an ineligible bucket trains on autodiff (a
-    counted resolution) and refuses a forced kernel path."""
-    kw = {}
-    if case == "bias_decay":
-        kw["bias_decay"] = 0.01
-    elif case == "centered":
-        kw["translation"] = jax.numpy.full((D,), 0.5)
-    jmembers = _jax_members(**kw)
+    """The kernel-path gates agree with the JAX package's: a tied bucket
+    needs identity centering and zero bias_decay; an untied bucket takes
+    any bias_decay; a masked bucket needs its coef_mask. Both sides pick
+    the same family. An ineligible bucket trains on autodiff (a counted
+    resolution) and refuses a forced kernel path; an eligible one runs its
+    family's default path."""
+    family, kw = ELIGIBILITY[case]
+    sig, port_sig = SIGS[family]
+    jmembers = _jax_members(family, **kw)
     members = members_from_numpy(jax.device_get(jmembers))
-    want = jax_eligible(JaxTiedSAE, jmembers, interpret=True)
-    assert can_use_fused_tied_step(FunctionalTiedSAE, members) == want
-    assert want == (case == "identity")
-    ens = Ensemble(members, FunctionalTiedSAE, device="cpu")
+    for jgate, gate in ((jensemble.can_use_fused_tied_step,
+                         can_use_fused_tied_step),
+                        (jensemble.can_use_fused_untied_step,
+                         can_use_fused_untied_step)):
+        assert gate(port_sig, members) == jgate(sig, jmembers,
+                                                interpret=True)
+    jens = JaxEnsemble(jmembers, sig, fused_interpret=True, donate=False)
+    ens = Ensemble(members, port_sig, device="cpu")
+    assert ens._fused_family == jens._fused_family
+    eligible = case not in ("bias_decay", "centered")
+    assert (ens._fused_family is not None) == eligible
     ens.step_batch(torch.from_numpy(batches(seed=3, n=1)[0]))
-    assert ens.fused_path == ("train_step_tiled" if want else None)
-    if not want:
+    default = "two_stage_tiled" if family == "masked_tied" \
+        else "train_step_tiled"
+    assert ens.fused_path == (default if eligible else None)
+    if not eligible:
         assert ens.path_resolved == {("autodiff", "family_ineligible"): 1}
         with pytest.raises(ValueError, match="no kernel path"):
-            Ensemble(members, FunctionalTiedSAE, device="cpu",
+            Ensemble(members, port_sig, device="cpu",
                      fused_path="two_stage")
 
 
@@ -236,30 +292,47 @@ def test_path_resolution_is_counted_per_batch_size():
     assert off.path_resolved == {("autodiff", "fused_disabled"): 1}
 
 
-@pytest.mark.parametrize("d,batch", [(1024, 64), (D, 100)],
-                         ids=["d1024", "batch100"])
-def test_unfit_shape_raises_on_the_card(d, batch):
-    """On the card, an eligible tied bucket whose shape the kernels do not
-    take (d above their limit, a batch the 32-row tile does not divide)
-    raises instead of training on autodiff; use_fused=False is the way to
-    autodiff there. A forced path raises on the CPU too. The card's
-    resolution is checked here on a CPU-built bucket whose device is set
-    to cuda: resolving a step reads shapes only."""
+UNFIT = [("tied", 1024, 64), ("tied", D, 100), ("untied", 1024, 64),
+         ("untied", D, 100), ("masked_tied", 1024, 64)]
+
+
+def _unfit_id(case):
+    family, d, batch = case
+    label = "d1024" if d == 1024 else f"batch{batch}"
+    return label if family == "tied" else f"{family}-{label}"
+
+
+def _port_members(family, d):
     g = torch.Generator().manual_seed(0)
-    members = [FunctionalTiedSAE.init(g, d, N_FEATS, l1_alpha=l1)
-               for l1 in L1S]
-    ens = Ensemble(members, FunctionalTiedSAE, device="cpu")
+    sig = SIGS[family][1]
+    if family == "masked_tied":
+        return [sig.init(g, d, n, N_FEATS, l1_alpha=l1)
+                for n, l1 in zip(dict_sizes(), L1S)]
+    return [sig.init(g, d, N_FEATS, l1_alpha=l1) for l1 in L1S]
+
+
+@pytest.mark.parametrize("case", UNFIT, ids=_unfit_id)
+def test_unfit_shape_raises_on_the_card(case):
+    """On the card, an eligible bucket of any family whose shape the
+    kernels do not take (d above their limit, a batch the 32-row tile does
+    not divide) raises instead of training on autodiff; use_fused=False is
+    the way to autodiff there. A forced path raises on the CPU too. The
+    card's resolution is checked here on a CPU-built bucket whose device
+    is set to cuda: resolving a step reads shapes only."""
+    family, d, batch = case
+    sig = SIGS[family][1]
+    members = _port_members(family, d)
+    ens = Ensemble(members, sig, device="cpu")
     ens._resolve_step(batch)  # the CPU trains it on autodiff
     assert ens.path_resolved == {("autodiff", "no_admissible_tile"): 1}
-    card = Ensemble(members, FunctionalTiedSAE, device="cpu")
+    card = Ensemble(members, sig, device="cpu")
     card.device = torch.device("cuda")
     with pytest.raises(ValueError, match="do not take"):
         card._resolve_step(batch)
-    forced = Ensemble(members, FunctionalTiedSAE, device="cpu",
-                      fused_path="two_stage")
+    forced = Ensemble(members, sig, device="cpu", fused_path="two_stage")
     with pytest.raises(ValueError, match="do not take"):
         forced._resolve_step(batch)
-    off = Ensemble(members, FunctionalTiedSAE, device="cpu", use_fused=False)
+    off = Ensemble(members, sig, device="cpu", use_fused=False)
     off.device = torch.device("cuda")
     off._resolve_step(batch)
     assert off.path_resolved == {("autodiff", "fused_disabled"): 1}
@@ -279,19 +352,57 @@ def test_run_steps_equals_a_step_batch_loop():
         assert torch.equal(a.state.params[k], b.state.params[k])
 
 
-def test_learned_dicts_match_jax_export():
-    jens, tens = _pair("train_step_tiled")
+EXPORT_FIELDS = {
+    "tied": ("TiedSAE", ("dictionary", "encoder_bias", "centering_rot",
+                         "centering_trans", "centering_scale")),
+    "untied": ("UntiedSAE", ("encoder", "encoder_bias", "dictionary")),
+    "masked_tied": ("TiedSAE", ("dictionary", "encoder_bias")),
+}
+
+
+@pytest.mark.parametrize("family", list(EXPORT_FIELDS))
+def test_learned_dicts_match_jax_export(family):
+    """to_learned_dicts gives the JAX package's classes and fields, bit
+    for bit; a masked member's dictionary is sliced to its dict_size."""
+    path = "two_stage_tiled" if family == "masked_tied" \
+        else "train_step_tiled"
+    jens, tens = _pair(path, family)
     _carry(jens, tens)
-    for (jd, td) in zip(jens.to_learned_dicts(), tens.to_learned_dicts()):
-        assert type(jd).__name__ == type(td).__name__ == "TiedSAE"
-        for f in ("dictionary", "encoder_bias", "centering_rot",
-                  "centering_trans", "centering_scale"):
+    cls, fields = EXPORT_FIELDS[family]
+    x = batches(seed=6, n=1)[0]
+    for i, (jd, td) in enumerate(zip(jens.to_learned_dicts(),
+                                     tens.to_learned_dicts())):
+        assert type(jd).__name__ == type(td).__name__ == cls
+        for f in fields:
             np.testing.assert_array_equal(getattr(td, f).numpy(),
                                           np.asarray(getattr(jd, f)))
-        x = batches(seed=6, n=1)[0]
+        if family == "masked_tied":
+            assert tuple(td.dictionary.shape) == (dict_sizes()[i], D)
         np.testing.assert_allclose(td.predict(torch.from_numpy(x)).numpy(),
                                    np.asarray(jd.predict(x)), rtol=1e-5,
                                    atol=1e-6)
+
+
+def test_carry_keeps_buffer_dtypes():
+    """A masked-tied JAX state carried across keeps its buffers' kinds:
+    coef_mask stays bool and dict_size int32 (floats become float32), in
+    the stacked state and in the members; the carried bucket then steps
+    like the JAX one."""
+    jens, tens = _pair("two_stage_tiled", "masked_tied")
+    _carry(jens, tens)
+    buf = tens.state.buffers
+    assert buf["coef_mask"].dtype == torch.bool
+    assert buf["dict_size"].dtype == torch.int32
+    assert buf["l1_alpha"].dtype == torch.float32
+    np.testing.assert_array_equal(buf["coef_mask"].numpy(),
+                                  jax.device_get(jens.state.buffers)
+                                  ["coef_mask"])
+    members = members_from_numpy(jax.device_get(_jax_members("masked_tied")))
+    assert members[0][1]["coef_mask"].dtype == torch.bool
+    assert members[0][1]["dict_size"].dtype == torch.int32
+    b = batches(seed=7, n=1)[0]
+    _assert_aux_close(jens.step_batch(jax.numpy.asarray(b)),
+                      tens.step_batch(torch.from_numpy(b)), "carried")
 
 
 def test_safe_increment_saturates_like_optax():

@@ -1,31 +1,32 @@
-"""The port's tied-SAE ops (sparse_coding_tpu_torch/ops) against the JAX
-package on the same numpy inputs.
+"""The port's SAE ops (sparse_coding_tpu_torch/ops) against the JAX package
+on the same numpy inputs, for the tied, masked-tied and untied families.
 
 The JAX side runs its Pallas kernels in interpret mode on the CPU, as
 tests/test_fused_kernel.py and tests/test_fused_tiled.py do; the port's
 side runs the plain PyTorch version of each CUDA kernel, which is what its
 wrappers do for CPU tensors. Tolerances, unless a test says otherwise:
 
-- losses and the Adam epilogue: rtol 1e-5 — the same f32 formulas, summed
+- losses and the Adam epilogues: rtol 1e-5 — the same f32 formulas, summed
   in a different order (XLA vs torch CPU matmuls), agree to a few ulps of
   the row sums;
 - the residual r = x̂ − x: rtol 1e-5 plus atol 2e-6 — the subtraction
   cancels, so a small r carries the absolute rounding of |x| ~ 1;
-- gradients (dW, db, dE, grad_sq): rtol 2e-4, atol 1e-6 — the JAX
+- gradients (dW, dE, dWn, db, grad_sq): rtol 2e-4, atol 1e-6 — the JAX
   package's own fused-vs-autodiff bound (tests/test_fused_tiled.py);
 - activity counts: exact — at these shapes no pre-activation lies within
   rounding of 0, so both sides see the same ReLU masks.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from sparse_coding_tpu.models.sae import FunctionalTiedSAE as JaxTiedSAE
+from sparse_coding_tpu.models import sae as jsae
 from sparse_coding_tpu.ops import fused_sae as jfs
 from sparse_coding_tpu.ops import fused_sae_tiled as jft
-from sparse_coding_tpu_torch.models.sae import FunctionalTiedSAE
+from sparse_coding_tpu_torch.models import sae as tsae
 from sparse_coding_tpu_torch.ops import _build
 from sparse_coding_tpu_torch.ops import fused_sae as fs
 from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
@@ -36,6 +37,12 @@ LOSS_TOL = dict(rtol=1e-5, atol=1e-7)
 GRAD_TOL = dict(rtol=2e-4, atol=1e-6)
 RESID_TOL = dict(rtol=1e-5, atol=2e-6)
 
+FAMILIES = ["tied", "masked_tied", "untied"]
+# the producers' cases: the untied family with and without a bias decay
+PRODUCER_CASES = [("tied", 0.0), ("masked_tied", 0.0), ("untied", 0.0),
+                  ("untied", 0.01)]
+PRODUCER_IDS = ["tied", "masked_tied", "untied", "untied_bias_decay"]
+
 
 @pytest.fixture(scope="module")
 def inp():
@@ -44,6 +51,10 @@ def inp():
 
 def _t(a):
     return torch.from_numpy(np.array(a))
+
+
+def _j(a):
+    return jnp.asarray(a)
 
 
 def _close(got, ref, tol, what):
@@ -56,67 +67,145 @@ def _close_losses(got, ref):
         _close(got[k], ref[k], LOSS_TOL, f"loss {k}")
 
 
-def test_sae_tied_fwd_plain_matches_pallas_forward(inp):
-    """The fwd kernel's contract: r = x̂ − x, x̂ from the Pallas forward
-    (_fwd_call) and the residual pass after it."""
+def _mask(inp, family):
+    """The family's coef_mask: bool [N, n] when masked, else None."""
+    return inp["coef_mask"] if family == "masked_tied" else None
+
+
+def _fmask(inp, family):
+    """The kernels' form of the mask: float32 [N, n], or None."""
+    m = _mask(inp, family)
+    return None if m is None else m.astype(np.float32)
+
+
+def _port_resid(inp, family):
+    e, bias, x = _t(inp["e"]), _t(inp["bias"]), _t(inp["x"])
+    if family == "untied":
+        return ft.sae_untied_fwd_plain(e, _t(inp["dec"]), bias, x)
+    m = _fmask(inp, family)
+    return ft.sae_tied_fwd_plain(e, bias, x,
+                                 None if m is None else _t(m))
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_sae_tied_fwd_plain_matches_pallas_forward(inp, family):
+    """The fwd kernels' contract: r = x̂ − x, x̂ from the Pallas forward
+    (_fwd_call, tied=True with and without the coef_mask, and tied=False)
+    and the residual pass after it."""
     n_m, n_f, _ = inp["e"].shape
-    xhat = jft._fwd_call(jnp.asarray(inp["e"]), None,
-                         jnp.asarray(inp["bias"]).reshape(n_m, 1, n_f), None,
-                         jnp.asarray(inp["x"]), BATCH_TILE, FEAT_TILE, True,
-                         "float32")
-    r = ft.sae_tied_fwd_plain(_t(inp["e"]), _t(inp["bias"]), _t(inp["x"]))
-    _close(r, np.asarray(xhat) - inp["x"][None], RESID_TOL, "residual")
+    m = _fmask(inp, family)
+    xhat = jft._fwd_call(
+        _j(inp["e"]), _j(inp["dec"]) if family == "untied" else None,
+        _j(inp["bias"]).reshape(n_m, 1, n_f),
+        None if m is None else _j(m).reshape(n_m, 1, n_f), _j(inp["x"]),
+        BATCH_TILE, FEAT_TILE, True, "float32")
+    _close(_port_resid(inp, family), np.asarray(xhat) - inp["x"][None],
+           RESID_TOL, "residual")
 
 
-def test_sae_tied_bwd_plain_matches_pallas_backward(inp):
-    """The bwd kernel's contract (_bwd_call), fed the same residual."""
+@pytest.mark.parametrize("family", FAMILIES)
+def test_sae_tied_bwd_plain_matches_pallas_backward(inp, family):
+    """The bwd kernels' contract (_bwd_call), fed the same residual."""
     n_m, n_f, _ = inp["e"].shape
     b = inp["x"].shape[0]
-    resid = np.asarray(ft.sae_tied_fwd_plain(_t(inp["e"]), _t(inp["bias"]),
-                                             _t(inp["x"])))
-    dw, db, act, loss4 = jft._bwd_call(
-        jnp.asarray(inp["alphas"]), jnp.asarray(inp["e"]), None,
-        jnp.asarray(inp["bias"]).reshape(n_m, 1, n_f), None,
-        jnp.asarray(inp["x"]), jnp.asarray(resid), BATCH_TILE, FEAT_TILE,
-        True, b, "float32")
-    got = ft.sae_tied_bwd_plain(_t(inp["e"]), _t(inp["bias"]),
-                                _t(inp["alphas"]), _t(inp["x"]), _t(resid))
-    _close(got[0], dw, GRAD_TOL, "dW")
-    _close(got[1], np.asarray(db).reshape(n_m, n_f), GRAD_TOL, "db")
-    np.testing.assert_array_equal(np.asarray(got[2]),
-                                  np.asarray(act).reshape(n_m, n_f))
-    loss4 = np.asarray(loss4).reshape(n_m, 4)
-    _close(got[3][:, :3], loss4[:, :3], LOSS_TOL, "mse/l1/l0")
-    _close(got[3][:, 3], loss4[:, 3], GRAD_TOL, "grad_sq")
+    untied = family == "untied"
+    resid = np.asarray(_port_resid(inp, family))
+    m = _fmask(inp, family)
+    ref = jft._bwd_call(
+        _j(inp["alphas"]), _j(inp["e"]), _j(inp["dec"]) if untied else None,
+        _j(inp["bias"]).reshape(n_m, 1, n_f),
+        None if m is None else _j(m).reshape(n_m, 1, n_f), _j(inp["x"]),
+        _j(resid), BATCH_TILE, FEAT_TILE, True, b, "float32")
+    args = [_t(inp[k]) for k in ("e", "bias", "alphas", "x")]
+    if untied:
+        got = ft.sae_untied_bwd_plain(args[0], _t(inp["dec"]), *args[1:],
+                                      _t(resid))
+        names = ("dE", "dWn")
+    else:
+        got = ft.sae_tied_bwd_plain(*args, _t(resid),
+                                    None if m is None else _t(m))
+        names = ("dW",)
+    for i, name in enumerate(names):
+        _close(got[i], ref[i], GRAD_TOL, name)
+    k = len(names)
+    _close(got[k], np.asarray(ref[k]).reshape(n_m, n_f), GRAD_TOL, "db")
+    np.testing.assert_array_equal(np.asarray(got[k + 1]),
+                                  np.asarray(ref[k + 1]).reshape(n_m, n_f))
+    loss4 = np.asarray(ref[k + 2]).reshape(n_m, 4)
+    _close(got[k + 2][:, :3], loss4[:, :3], LOSS_TOL, "mse/l1/l0")
+    _close(got[k + 2][:, 3], loss4[:, 3], GRAD_TOL, "grad_sq")
 
 
-def test_k1_fused_tied_sae_grads(inp):
-    ref = jfs.fused_tied_sae_grads(
-        jnp.asarray(inp["e"]), jnp.asarray(inp["bias"]),
-        jnp.asarray(inp["alphas"]), jnp.asarray(inp["x"]),
-        batch_tile=BATCH_TILE, interpret=True)
-    got = fs.fused_tied_sae_grads_plain(
-        _t(inp["e"]), _t(inp["bias"]), _t(inp["alphas"]), _t(inp["x"]),
-        batch_tile=BATCH_TILE)
+@pytest.mark.parametrize("family", FAMILIES)
+def test_k1_fused_tied_sae_grads(inp, family):
+    """K1 (fused_tied_sae_grads, with and without coef_mask) and K5
+    (fused_untied_sae_grads) through the plain versions."""
+    e, bias, al, x = (inp[k] for k in ("e", "bias", "alphas", "x"))
+    if family == "untied":
+        ref = jfs.fused_untied_sae_grads(
+            _j(e), _j(inp["dec"]), _j(bias), _j(al), _j(x),
+            batch_tile=BATCH_TILE, interpret=True)
+        got = fs.fused_untied_sae_grads_plain(
+            _t(e), _t(inp["dec"]), _t(bias), _t(al), _t(x),
+            batch_tile=BATCH_TILE)
+        names = ("dE", "dWn", "db")
+    else:
+        m = _mask(inp, family)
+        ref = jfs.fused_tied_sae_grads(
+            _j(e), _j(bias), _j(al), _j(x), batch_tile=BATCH_TILE,
+            interpret=True, coef_mask=None if m is None else _j(m))
+        got = fs.fused_tied_sae_grads_plain(
+            _t(e), _t(bias), _t(al), _t(x), batch_tile=BATCH_TILE,
+            coef_mask=None if m is None else _t(m))
+        names = ("dW", "db")
     _close_losses(got[0], ref[0])
-    _close(got[1], ref[1], GRAD_TOL, "dW")
-    _close(got[2], ref[2], GRAD_TOL, "db")
-    np.testing.assert_array_equal(np.asarray(got[3]), np.asarray(ref[3]))
+    for i, name in enumerate(names, start=1):
+        _close(got[i], ref[i], GRAD_TOL, name)
+    np.testing.assert_array_equal(np.asarray(got[-1]), np.asarray(ref[-1]))
 
 
-def test_k1_producer_chains_the_normalization_vjp(inp):
-    """fused_tied_sae_loss_and_grads: grads wrt the RAW params."""
-    params = {"encoder": inp["e"], "encoder_bias": inp["bias"]}
-    ref = jfs.fused_tied_sae_loss_and_grads(
-        {k: jnp.asarray(v) for k, v in params.items()},
-        jnp.asarray(inp["alphas"]), jnp.asarray(inp["x"]),
-        batch_tile=BATCH_TILE, interpret=True)
-    got = fs.fused_tied_sae_loss_and_grads(
-        {k: _t(v) for k, v in params.items()}, _t(inp["alphas"]),
-        _t(inp["x"]), batch_tile=BATCH_TILE)
+def _params(inp, family):
+    p = {"encoder": inp["e"], "encoder_bias": inp["bias"]}
+    if family == "untied":
+        p["decoder"] = inp["dec"]
+    return p
+
+
+def _producer_args(inp, family, bias_decay, to):
+    """(params, then the producer's positional args, kwargs) on one side
+    (``to`` = _j or _t)."""
+    params = {k: to(v) for k, v in _params(inp, family).items()}
+    args = [params, to(inp["alphas"])]
+    kw = {}
+    if family == "untied":
+        args.append(to(np.full(inp["alphas"].shape, bias_decay, np.float32)))
+    elif family == "masked_tied":
+        kw["coef_mask"] = to(inp["coef_mask"])
+    return args + [to(inp["x"])], kw
+
+
+@pytest.mark.parametrize("family,bias_decay", PRODUCER_CASES,
+                         ids=PRODUCER_IDS)
+def test_k1_producer_chains_the_normalization_vjp(inp, family, bias_decay):
+    """The two-stage producers (K1 fused_tied_sae_loss_and_grads, masked
+    too; K5 fused_untied_sae_loss_and_grads with its bias decay): losses
+    and grads wrt the RAW params, the normalization VJP chained."""
+    jf = (jfs.fused_untied_sae_loss_and_grads if family == "untied"
+          else jfs.fused_tied_sae_loss_and_grads)
+    tf = (fs.fused_untied_sae_loss_and_grads if family == "untied"
+          else fs.fused_tied_sae_loss_and_grads)
+    jargs, jkw = _producer_args(inp, family, bias_decay, _j)
+    targs, tkw = _producer_args(inp, family, bias_decay, _t)
+    ref = jf(*jargs, batch_tile=BATCH_TILE, interpret=True, **jkw)
+    got = tf(*targs, batch_tile=BATCH_TILE, **tkw)
     _close_losses(got[0], ref[0])
-    for k in params:
+    assert set(got[0]) == set(ref[0])
+    if family == "untied":
+        _close(got[0]["bias_decay"], ref[0]["bias_decay"], LOSS_TOL,
+               "bias_decay")
+    for k in jargs[0]:
         _close(got[1][k], ref[1][k], GRAD_TOL, k)
+    np.testing.assert_array_equal(np.asarray(got[2]), np.asarray(ref[2]))
 
 
 def test_k2_fused_tied_sae_train_step(inp):
@@ -136,46 +225,77 @@ def test_k2_fused_tied_sae_train_step(inp):
     np.testing.assert_array_equal(np.asarray(got[7]), np.asarray(ref[7]))
 
 
-def test_k3_tiled_tied_sae_grads(inp):
-    ref = jft.tiled_tied_sae_grads(
-        jnp.asarray(inp["e"]), jnp.asarray(inp["bias"]),
-        jnp.asarray(inp["alphas"]), jnp.asarray(inp["x"]),
-        batch_tile=BATCH_TILE, feat_tile=FEAT_TILE, interpret=True)
-    got = ft.tiled_tied_sae_grads_plain(
-        _t(inp["e"]), _t(inp["bias"]), _t(inp["alphas"]), _t(inp["x"]),
-        BATCH_TILE, FEAT_TILE)
+@pytest.mark.parametrize("family", FAMILIES)
+def test_k3_tiled_tied_sae_grads(inp, family):
+    """K3 (tiled_tied_sae_grads, with and without coef_mask) and K7
+    (tiled_untied_sae_grads), the kernel-grad norm included."""
+    e, bias, al, x = (inp[k] for k in ("e", "bias", "alphas", "x"))
+    tiles = dict(batch_tile=BATCH_TILE, feat_tile=FEAT_TILE)
+    if family == "untied":
+        ref = jft.tiled_untied_sae_grads(
+            _j(e), _j(inp["dec"]), _j(bias), _j(al), _j(x), interpret=True,
+            **tiles)
+        got = ft.tiled_untied_sae_grads_plain(
+            _t(e), _t(inp["dec"]), _t(bias), _t(al), _t(x), **tiles)
+        names = ("dE", "dWn", "db")
+    else:
+        m = _mask(inp, family)
+        ref = jft.tiled_tied_sae_grads(
+            _j(e), _j(bias), _j(al), _j(x), interpret=True,
+            coef_mask=None if m is None else _j(m), **tiles)
+        got = ft.tiled_tied_sae_grads_plain(
+            _t(e), _t(bias), _t(al), _t(x),
+            coef_mask=None if m is None else _t(m), **tiles)
+        names = ("dW", "db")
     _close_losses(got[0], ref[0])
-    _close(got[1], ref[1], GRAD_TOL, "dW")
-    _close(got[2], ref[2], GRAD_TOL, "db")
-    np.testing.assert_array_equal(np.asarray(got[3]), np.asarray(ref[3]))
-    _close(got[4], ref[4], GRAD_TOL, "grad_sq (kernel-grad norm, pre-VJP)")
+    for i, name in enumerate(names, start=1):
+        _close(got[i], ref[i], GRAD_TOL, name)
+    np.testing.assert_array_equal(np.asarray(got[-2]), np.asarray(ref[-2]))
+    _close(got[-1], ref[-1], GRAD_TOL, "grad_sq (kernel-grad norm, pre-VJP)")
 
 
-def test_k3_producer_reports_the_kernel_grad_norm(inp):
-    """The tiled producer's 4th output is √grad_sq of the kernel grads
-    (before the normalization VJP), as in the JAX package."""
-    params = {"encoder": inp["e"], "encoder_bias": inp["bias"]}
-    ref = jft.fused_tied_sae_tiled_loss_and_grads(
-        {k: jnp.asarray(v) for k, v in params.items()},
-        jnp.asarray(inp["alphas"]), jnp.asarray(inp["x"]),
-        batch_tile=BATCH_TILE, feat_tile=FEAT_TILE, interpret=True)
-    got = ft.fused_tied_sae_tiled_loss_and_grads(
-        {k: _t(v) for k, v in params.items()}, _t(inp["alphas"]),
-        _t(inp["x"]), batch_tile=BATCH_TILE, feat_tile=FEAT_TILE)
-    for k in params:
+@pytest.mark.parametrize("family,bias_decay", PRODUCER_CASES,
+                         ids=PRODUCER_IDS)
+def test_k3_producer_reports_the_kernel_grad_norm(inp, family, bias_decay):
+    """The tiled producers' 4th output is √grad_sq of the kernel grads
+    (before the normalization VJP and, untied, before the bias decay), as
+    in the JAX package."""
+    jf = (jft.fused_untied_sae_tiled_loss_and_grads if family == "untied"
+          else jft.fused_tied_sae_tiled_loss_and_grads)
+    tf = (ft.fused_untied_sae_tiled_loss_and_grads if family == "untied"
+          else ft.fused_tied_sae_tiled_loss_and_grads)
+    jargs, jkw = _producer_args(inp, family, bias_decay, _j)
+    targs, tkw = _producer_args(inp, family, bias_decay, _t)
+    tiles = dict(batch_tile=BATCH_TILE, feat_tile=FEAT_TILE)
+    ref = jf(*jargs, interpret=True, **tiles, **jkw)
+    got = tf(*targs, **tiles, **tkw)
+    _close_losses(got[0], ref[0])
+    for k in jargs[0]:
         _close(got[1][k], ref[1][k], GRAD_TOL, k)
     _close(got[3], ref[3], GRAD_TOL, "gnorm")
 
 
-def test_k4_fused_tied_adam_vjp_update(inp):
+@pytest.mark.parametrize("family", ["tied", "untied"])
+def test_k4_fused_tied_adam_vjp_update(inp, family):
+    """K4 fused_tied_adam_vjp_update and K6 fused_adam_vjp_update
+    (un_sq included) through the plain versions."""
     b1, b2, eps = ADAM
-    keys = ("e", "dw", "mu", "nu", "lrs", "bc1", "bc2")
-    ref = jfs.fused_tied_adam_vjp_update(
-        *(jnp.asarray(inp[k]) for k in keys), ftile=FEAT_TILE,
-        interpret=True, b1=b1, b2=b2, eps=eps)
-    got = fs.fused_tied_adam_vjp_update_plain(
-        *(_t(inp[k]) for k in keys), ftile=FEAT_TILE, b1=b1, b2=b2, eps=eps)
-    for name, g, r in zip(("E'", "mu'", "nu'", "un_sq"), got, ref):
+    if family == "untied":
+        keys = ("e", "dw", "mu", "nu", "dec", "dwn", "mu_d", "nu_d", "lrs",
+                "bc1", "bc2")
+        jf, tf = jfs.fused_adam_vjp_update, fs.fused_adam_vjp_update_plain
+        names = ("E'", "mu_E'", "nu_E'", "D'", "mu_D'", "nu_D'", "un_sq")
+    else:
+        keys = ("e", "dw", "mu", "nu", "lrs", "bc1", "bc2")
+        jf, tf = (jfs.fused_tied_adam_vjp_update,
+                  fs.fused_tied_adam_vjp_update_plain)
+        names = ("E'", "mu'", "nu'", "un_sq")
+    ref = jf(*(_j(inp[k]) for k in keys), ftile=FEAT_TILE, interpret=True,
+             b1=b1, b2=b2, eps=eps)
+    got = tf(*(_t(inp[k]) for k in keys), ftile=FEAT_TILE, b1=b1, b2=b2,
+             eps=eps)
+    assert len(got) == len(ref) == len(names)
+    for name, g, r in zip(names, got, ref):
         _close(g, r, LOSS_TOL, name)
 
 
@@ -209,31 +329,60 @@ def test_normalize_with_vjp(inp):
     _close(got, ref, LOSS_TOL, "dE")
 
 
-def test_tied_sae_loss_and_autograd_match_jax_grad(inp):
-    """FunctionalTiedSAE.loss and its autograd grads vs jax.grad, with a
-    non-identity centering and a nonzero bias decay (the terms the kernel
-    paths do not take)."""
-    import jax
+@pytest.mark.parametrize("bias_decay", [0.0, 0.01])
+def test_untied_bias_decay_terms(inp, bias_decay):
+    """The decay loss bd·√(Σb² + 1e-16) and its gradient folded into db,
+    including a member whose bias is all zero (the safe norm's finite
+    gradient there)."""
+    bias = inp["bias"].copy()
+    bias[1] = 0.0
+    bds = np.array([bias_decay, 0.02, 0.0], np.float32)
+    ref = jfs.untied_bias_decay_terms(_j(bias), _j(bds), _j(inp["mu_b"]))
+    got = fs.untied_bias_decay_terms(_t(bias), _t(bds), _t(inp["mu_b"]))
+    _close(got[0], ref[0], LOSS_TOL, "decay loss")
+    _close(got[1], ref[1], LOSS_TOL, "db + decay grad")
+    assert np.isfinite(np.asarray(got[1])).all()
 
+
+def _loss_case(inp, family):
+    """(JAX signature, port signature, one member's params, buffers) with
+    the terms the kernel paths do not take where the family has them: a
+    non-identity centering and a bias decay (tied), a bias decay
+    (untied); masked, a mask that leaves half the features active."""
     rs = np.random.default_rng(1)
     d = inp["e"].shape[2]
-    params = {"encoder": inp["e"][0], "encoder_bias": inp["bias"][0]}
-    q, _ = np.linalg.qr(rs.normal(size=(d, d)))
-    buffers = {"l1_alpha": np.float32(3e-3), "bias_decay": np.float32(0.01),
-               "center_rot": q.astype(np.float32),
-               "center_trans": rs.normal(size=d).astype(np.float32),
-               "center_scale": rs.uniform(0.5, 2, d).astype(np.float32)}
+    params = {k: v[0] for k, v in _params(inp, family).items()}
+    buffers = {"l1_alpha": np.float32(3e-3), "bias_decay": np.float32(0.01)}
+    if family == "tied":
+        q, _ = np.linalg.qr(rs.normal(size=(d, d)))
+        buffers.update(center_rot=q.astype(np.float32),
+                       center_trans=rs.normal(size=d).astype(np.float32),
+                       center_scale=rs.uniform(0.5, 2, d).astype(np.float32))
+        return jsae.FunctionalTiedSAE, tsae.FunctionalTiedSAE, params, buffers
+    if family == "untied":
+        return jsae.FunctionalSAE, tsae.FunctionalSAE, params, buffers
+    n = inp["e"].shape[1]
+    buffers.update(dict_size=np.int32(n // 2),
+                   coef_mask=np.arange(n) < n // 2)
+    return (jsae.FunctionalMaskedTiedSAE, tsae.FunctionalMaskedTiedSAE,
+            params, buffers)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_tied_sae_loss_and_autograd_match_jax_grad(inp, family):
+    """Each family's ``loss`` and its autograd grads vs jax.grad."""
+    jsig, tsig, params, buffers = _loss_case(inp, family)
     x = inp["x"]
     (ref_loss, ref_aux), ref_grads = jax.value_and_grad(
-        JaxTiedSAE.loss, has_aux=True)(
-        {k: jnp.asarray(v) for k, v in params.items()},
-        {k: jnp.asarray(v) for k, v in buffers.items()}, jnp.asarray(x))
+        jsig.loss, has_aux=True)(
+        {k: _j(v) for k, v in params.items()},
+        {k: _j(v) for k, v in buffers.items()}, _j(x))
     tp = {k: _t(v).requires_grad_(True) for k, v in params.items()}
-    loss, aux = FunctionalTiedSAE.loss(
-        tp, {k: _t(v) for k, v in buffers.items()}, _t(x))
+    loss, aux = tsig.loss(tp, {k: _t(v) for k, v in buffers.items()}, _t(x))
     loss.backward()
     _close(loss.detach(), ref_loss, LOSS_TOL, "loss")
-    for k in ("loss", "l_reconstruction", "l_l1"):
+    assert set(aux.losses) == set(ref_aux.losses)
+    for k in aux.losses:
         _close(aux.losses[k].detach(), ref_aux.losses[k], LOSS_TOL, k)
     _close(aux.l0, ref_aux.l0, LOSS_TOL, "l0")
     np.testing.assert_array_equal(np.asarray(aux.feat_activity),
@@ -247,17 +396,30 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch(inp):
     never touches the launch counts; mixed devices or a CPU tensor handed
     to the CUDA checks raise."""
     _build.reset_launches()
-    e, bias, al, x = (_t(inp[k]) for k in ("e", "bias", "alphas", "x"))
-    r = ft.sae_tied_fwd(e, bias, x)
-    torch.testing.assert_close(r, ft.sae_tied_fwd_plain(e, bias, x),
-                               rtol=0, atol=0)
-    got = ft.sae_tied_bwd(e, bias, al, x, r)
-    for g, p in zip(got, ft.sae_tied_bwd_plain(e, bias, al, x, r)):
-        torch.testing.assert_close(g, p, rtol=0, atol=0)
+    e, dec, bias, al, x = (_t(inp[k]) for k in ("e", "dec", "bias",
+                                                 "alphas", "x"))
+    cm = _t(inp["coef_mask"].astype(np.float32))
+    exact = lambda g, p: torch.testing.assert_close(g, p, rtol=0, atol=0)
+    for mask in (None, cm):
+        r = ft.sae_tied_fwd(e, bias, x, mask)
+        exact(r, ft.sae_tied_fwd_plain(e, bias, x, mask))
+        for g, p in zip(ft.sae_tied_bwd(e, bias, al, x, r, mask),
+                        ft.sae_tied_bwd_plain(e, bias, al, x, r, mask)):
+            exact(g, p)
+    r = ft.sae_untied_fwd(e, dec, bias, x)
+    exact(r, ft.sae_untied_fwd_plain(e, dec, bias, x))
+    for g, p in zip(ft.sae_untied_bwd(e, dec, bias, al, x, r),
+                    ft.sae_untied_bwd_plain(e, dec, bias, al, x, r)):
+        exact(g, p)
     adam = [_t(inp[k]) for k in ("e", "dw", "mu", "nu", "lrs", "bc1", "bc2")]
     for g, p in zip(fs.sae_tied_adam_vjp(*adam)[:4],
                     fs.sae_tied_adam_vjp_plain(*adam)[:4]):
-        torch.testing.assert_close(g, p, rtol=0, atol=0)
+        exact(g, p)
+    uadam = [_t(inp[k]) for k in ("e", "dw", "mu", "nu", "dec", "dwn",
+                                  "mu_d", "nu_d", "lrs", "bc1", "bc2")]
+    for g, p in zip(fs.sae_untied_adam_vjp(*uadam),
+                    fs.sae_untied_adam_vjp_plain(*uadam)):
+        exact(g, p)
     assert all(v == 0 for v in _build.LAUNCHES.values())
     with pytest.raises(ValueError, match="not cuda"):
         _build.check_cuda_tensors("sae_tied_fwd", x=x)
@@ -266,41 +428,64 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch(inp):
 
 
 def test_shape_contract_raises(inp):
-    """The JAX divisibility contract (batch % bt, n % ft) raises
-    ValueError, as prepare_tiled_batch does; so do the kernels' own tile
-    limits and the unported options."""
-    e, bias, al, x = (_t(inp[k]) for k in ("e", "bias", "alphas", "x"))
+    """The JAX divisibility contract (batch % bt, n % ft, n % ftile)
+    raises ValueError, as prepare_tiled_batch does; so do the kernels' own
+    tile limits, mismatched operands and the unported options."""
+    e, dec, bias, al, x = (_t(inp[k]) for k in ("e", "dec", "bias",
+                                                 "alphas", "x"))
     with pytest.raises(ValueError, match="must be 0"):
         ft.tiled_tied_sae_grads(e, bias, al, x, batch_tile=48, feat_tile=16)
+    with pytest.raises(ValueError, match="must be 0"):
+        ft.tiled_untied_sae_grads(e, dec, bias, al, x, batch_tile=32,
+                                  feat_tile=24)
     with pytest.raises(ValueError, match="tile pair"):
         ft.prepare_tiled_batch(x[:100], e.shape[1], None, None)
     with pytest.raises(ValueError, match="CUDA kernel needs"):
         _build.check_kernel_shape("sae_tied_fwd", 100, 64, 32)
     with pytest.raises(ValueError, match="CUDA kernel needs"):
-        _build.check_kernel_shape("sae_tied_fwd", 128, 64, _build.MAX_D + 1)
+        _build.check_kernel_shape("sae_untied_bwd", 128, 64,
+                                  _build.MAX_D + 1)
+    with pytest.raises(ValueError, match="decoder must be"):
+        ft.sae_untied_fwd(e, dec[:, :32], bias, x)
+    with pytest.raises(ValueError, match="coef_mask must be"):
+        ft.sae_tied_fwd(e, bias, x, torch.ones(3, 32))
+    uadam = [_t(inp[k]) for k in ("e", "dw", "mu", "nu", "dec", "dwn",
+                                  "mu_d", "nu_d", "lrs", "bc1", "bc2")]
+    with pytest.raises(ValueError, match="ftile"):
+        fs.fused_adam_vjp_update(*uadam, ftile=48)
     with pytest.raises(NotImplementedError):
         fs.fused_tied_sae_grads(e, bias, al, x, compute_dtype="bfloat16")
     with pytest.raises(NotImplementedError):
-        fs.fused_tied_sae_grads(e, bias, al, x, coef_mask=torch.ones(3, 64))
+        fs.fused_untied_sae_grads(e, dec, bias, al, x, total_batch=256)
 
 
 def test_roofline_paths_and_flop_model():
-    """The port keeps the JAX package's four path labels and FLOP model;
-    the card's chooser defaults to train_step_tiled, honours a forced
-    path, and resolves unfit shapes to autodiff with a reason."""
+    """The port keeps the JAX package's four path labels, the paths each
+    family has, and its FLOP model; the card's chooser defaults to
+    train_step_tiled (masked: two_stage_tiled), honours a forced path,
+    refuses one the family lacks, and resolves unfit shapes to autodiff
+    with a reason."""
     from sparse_coding_tpu.ops import roofline as jroof
 
     assert set(roofline.KERNEL_PATHS) == set(jroof.KERNEL_PATHS)
+    assert {f: set(p) for f, p in roofline.FAMILY_PATHS.items()} == \
+        {f: set(p) for f, p in jroof.FAMILY_PATHS.items()}
     assert roofline.model_flops_per_activation(32, 2048, 512) == \
         jroof.model_flops_per_activation(32, 2048, 512)
-    plan = roofline.choose_plan(batch=2048, n_feats=2048, d=512,
-                                family="tied")
-    assert (plan.path, plan.reason) == ("train_step_tiled", "default")
-    for path in roofline.KERNEL_PATHS:
-        assert roofline.choose_plan(batch=2048, n_feats=2048, d=512,
-                                    family="tied",
-                                    forced_path=path).path == path
+    shape = dict(batch=2048, n_feats=2048, d=512)
+    for family, default in (("tied", "train_step_tiled"),
+                            ("untied", "train_step_tiled"),
+                            ("masked_tied", "two_stage_tiled")):
+        plan = roofline.choose_plan(**shape, family=family)
+        assert (plan.path, plan.reason) == (default, "default")
+        for path in roofline.FAMILY_PATHS[family]:
+            assert roofline.choose_plan(**shape, family=family,
+                                        forced_path=path).path == path
+    for path in ("train_step", "train_step_tiled"):
+        with pytest.raises(ValueError, match="two-stage kernels only"):
+            roofline.choose_plan(**shape, family="masked_tied",
+                                 forced_path=path)
     assert roofline.choose_plan(batch=100, n_feats=2048, d=512,
-                                family="tied").path is None
-    assert roofline.choose_plan(batch=2048, n_feats=2048, d=512,
-                                family=None).reason == "family_ineligible"
+                                family="untied").path is None
+    assert roofline.choose_plan(**shape, family=None).reason == \
+        "family_ineligible"

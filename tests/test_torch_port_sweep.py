@@ -1,6 +1,7 @@
 """The port's end-to-end slice, ``train/basic_sweep.py::basic_l1_sweep``,
-against the JAX package's on one tiny activation store, plus the modules
-it leans on: config, metrics and the synthetic generator."""
+against the JAX package's on one tiny activation store — tied and, with
+``tied=False``, untied — plus the modules it leans on: config, metrics
+and the synthetic generator."""
 
 import dataclasses
 import json
@@ -28,46 +29,60 @@ L1_VALUES = [1e-4, 1e-3, 1e-2]
 # Per-member final metrics of the two sweeps. The inits differ (a
 # torch.Generator vs jax.random), everything else — store, epoch order,
 # L1 grid, Adam, step count — is the same. Across port seeds 0-3 on this
-# store the members' FVU lay within 0.011 and L0 within 4.5% of the JAX
-# run's, so the band is FVU ± 0.03 absolute and L0 ± 10%.
+# store the members' FVU lay within 0.011 and L0 within 4.6% of the JAX
+# run's, tied and untied alike, so the band is FVU ± 0.03 absolute and
+# L0 ± 10%.
 FVU_BAND, L0_BAND = 0.03, 0.10
+# the learned-dict class each family exports, and one field of [n, d]
+EXPORTS = {True: ("TiedSAE", "dictionary"), False: ("UntiedSAE", "encoder")}
 
 
 @pytest.fixture(scope="module")
-def sweeps(tmp_path_factory):
-    """One store (JAX writer), one sweep on each side: 224 steps each, so
-    both log at steps 100 and 200."""
+def store(tmp_path_factory):
+    """One tiny activation store (JAX writer) that every sweep reads."""
     root = tmp_path_factory.mktemp("sweep")
     w = JaxChunkWriter(root / "store", D, chunk_size_gb=2048 * D * 2 / 2**30,
                        dtype="float16")
     for b in batches(seed=0, n=112, batch=128, d=D):
         w.add(b)
     w.finalize()
-    kw = dict(dict_ratio=RATIO, batch_size=BATCH, lr=3e-3, seed=0)
-    jd = jax_sweep(root / "store", root / "jax", L1_VALUES, **kw)
-    td = basic_l1_sweep(root / "store", root / "torch", L1_VALUES,
+    return root
+
+
+@pytest.fixture(scope="module", params=[True, False],
+                ids=["tied", "untied"])
+def sweeps(store, request):
+    """One sweep of the family on each side: 224 steps each, so both log
+    at steps 100 and 200."""
+    root = store / ("tied" if request.param else "untied")
+    kw = dict(dict_ratio=RATIO, batch_size=BATCH, lr=3e-3, seed=0,
+              tied=request.param)
+    jd = jax_sweep(store / "store", root / "jax", L1_VALUES, **kw)
+    td = basic_l1_sweep(store / "store", root / "torch", L1_VALUES,
                         device="cpu", **kw)
-    return root, jd, td
+    return root, jd, td, request.param
 
 
 def test_sweep_artifacts_cross_load(sweeps):
     """Each side's epoch_0/learned_dicts.pkl loads with the other's
     load_learned_dicts, same class, shapes and hyperparams."""
-    root, jd, td = sweeps
+    root, jd, td, tied = sweeps
+    cls, field = EXPORTS[tied]
     port_in_jax = jax_load_learned_dicts(root / "torch/epoch_0/learned_dicts.pkl")
     jax_in_port = load_learned_dicts(root / "jax/epoch_0/learned_dicts.pkl")
     assert len(port_in_jax) == len(jax_in_port) == len(L1_VALUES)
     for (a, ha), (b, hb) in zip(port_in_jax, jax_in_port):
-        assert type(a).__name__ == type(b).__name__ == "TiedSAE"
+        assert type(a).__name__ == type(b).__name__ == cls
         assert ha.keys() == hb.keys()
-        assert np.asarray(a.dictionary).shape == tuple(b.dictionary.shape)
+        assert np.asarray(getattr(a, field)).shape == \
+            tuple(getattr(b, field).shape) == (int(D * RATIO), D)
     assert [h for _, h in jd] == [h for _, h in td]
 
 
 def test_sweep_eval_json_keys_and_band(sweeps):
     """eval.json has the same records; per-member FVU and L0 lie within
     the stated band of the JAX run (different inits, same training)."""
-    root, _, _ = sweeps
+    root = sweeps[0]
     je = json.loads((root / "jax/epoch_0/eval.json").read_text())
     te = json.loads((root / "torch/epoch_0/eval.json").read_text())
     assert [set(r) for r in te] == [set(r) for r in je]
@@ -79,7 +94,7 @@ def test_sweep_eval_json_keys_and_band(sweeps):
 
 
 def test_sweep_metrics_log(sweeps):
-    root, _, _ = sweeps
+    root = sweeps[0]
     recs = [json.loads(line) for line in
             (root / "torch/metrics.jsonl").read_text().splitlines()]
     assert [r["step"] for r in recs] == [100, 200]

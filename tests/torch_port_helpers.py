@@ -15,7 +15,9 @@ ADAM = (0.9, 0.999, 1e-8)
 def kernel_inputs(seed: int = 0, n_members: int = N_MEMBERS, d: int = D,
                   n_feats: int = N_FEATS, batch: int = BATCH) -> dict:
     """Raw dictionaries (glorot scale), small biases, an L1 grid, a batch,
-    a kernel-side dW, and a mid-training Adam state (count 7), all f32."""
+    a kernel-side dW, and a mid-training Adam state (count 7), all f32;
+    then the untied decoder with its dWn and moments, and a masked-tied
+    coefficient mask (bool)."""
     rs = np.random.default_rng(seed)
     f32 = lambda a: np.asarray(a, np.float32)
     lim = np.sqrt(6.0 / (n_feats + d))
@@ -34,7 +36,21 @@ def kernel_inputs(seed: int = 0, n_members: int = N_MEMBERS, d: int = D,
         "lrs": f32(np.linspace(1e-3, 3e-3, n_members)),
         "bc1": f32(1.0 - np.float32(b1) ** count_inc.astype(np.float32)),
         "bc2": f32(1.0 - np.float32(b2) ** count_inc.astype(np.float32)),
+        # untied: a raw decoder, its kernel-side dWn and its Adam moments
+        "dec": f32(rs.uniform(-lim, lim, (n_members, n_feats, d))),
+        "dwn": f32(rs.normal(size=(n_members, n_feats, d)) * 1e-3),
+        "mu_d": f32(rs.normal(size=(n_members, n_feats, d)) * 1e-3),
+        "nu_d": f32(rs.uniform(0.5, 1.5, (n_members, n_feats, d)) * 1e-6),
+        # masked-tied: mixed dictionary sizes padded to n_feats
+        "coef_mask": (np.arange(n_feats)[None, :]
+                      < np.resize(dict_sizes(n_feats), n_members)[:, None]),
     }
+
+
+def dict_sizes(n_stack: int = N_FEATS) -> list[int]:
+    """The masked-tied members' dictionary sizes: a quarter, a half and
+    all of the padded stack."""
+    return [n_stack // 4, n_stack // 2, n_stack]
 
 
 def batches(seed: int, n: int, batch: int = BATCH, d: int = D) -> np.ndarray:
