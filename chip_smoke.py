@@ -4,11 +4,13 @@ NVIDIA GPU. Imports nothing of JAX and nothing of the JAX package.
 
 Phases — any failure raises, and the script exits non-zero with no result:
 
-1. card: name and power limit (nvidia-smi), then all six CUDA kernels are
-   built from ``sparse_coding_tpu_torch/ops/csrc`` (one nvcc per source,
-   all started together), with their ptxas register and spill lines;
-2. kernels: each kernel (sae_tied_fwd, sae_tied_bwd, sae_tied_adam_vjp,
-   sae_untied_fwd, sae_untied_bwd, sae_untied_adam_vjp) and each contract
+1. card: name and power limit (nvidia-smi), then all eight CUDA kernels
+   are built from ``sparse_coding_tpu_torch/ops/csrc`` (one nvcc per
+   source, all started together), with their ptxas register and spill
+   lines;
+2. kernels: each ensemble kernel (sae_tied_fwd, sae_tied_bwd,
+   sae_tied_adam_vjp, sae_untied_fwd, sae_untied_bwd, sae_untied_adam_vjp)
+   and each contract
    (K1 fused_tied_sae_grads, K2 fused_tied_sae_train_step, K3
    tiled_tied_sae_grads, K4 fused_tied_adam_vjp_update, K5
    fused_untied_sae_grads, K6 fused_adam_vjp_update, K7
@@ -35,8 +37,20 @@ Phases — any failure raises, and the script exits non-zero with no result:
    the masked-tied family's two paths at the dictionary-ratio shape (7
    members of ratios 0.5–32 padded to 16,384 features), each held against
    the autodiff path from the same init on the same batches;
-7. summary: one ``{"kernels": [...]}`` line, the card's name and power
+7. big-SAE main path: ``train_big_sae`` at ``BigSAEArgs``' defaults (d=1024,
+   16,384 features, batch 65,536; depth cut to 2 epochs of a 4-chunk
+   synthetic store = 16 steps, resurrection every 8) on its kernels
+   (``big_sae_fwd``/``big_sae_bwd``, once per step; counts zeroed just
+   before), its activations/s over steps 2–16, the same run replayed on
+   autodiff, 3 steps of the kernel and autodiff steps side by side,
+   resurrection of 20 marked features on the card vs on the CPU, and the
+   export's FVU on held-out rows;
+8. summary: one ``{"kernels": [...]}`` line, the card's name and power
    limit, and the last line ``{"ok": true, "device": {...}}``.
+
+Phase 2 also holds ``big_sae_fwd``/``big_sae_bwd`` against their plain
+versions at the big-SAE shape and at small odd shapes up to their widest
+d (1024).
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card;
 ``--report PATH`` also writes every measurement as JSON).
@@ -122,11 +136,49 @@ KERNEL_META = {
         "source": "sparse_coding_tpu_torch/ops/csrc/sae_untied_adam_vjp.cu",
         "replaces": "sparse_coding_tpu/ops/fused_sae.py:930",
         "contracts": ["K6"]},
+    "big_sae_fwd": {
+        "source": "sparse_coding_tpu_torch/ops/csrc/big_sae_fwd.cu",
+        "replaces": "sparse_coding_tpu/ops/fused_big_sae.py:214",
+        "contracts": ["K8"]},
+    "big_sae_bwd": {
+        "source": "sparse_coding_tpu_torch/ops/csrc/big_sae_bwd.cu",
+        "replaces": "sparse_coding_tpu/ops/fused_big_sae.py:253",
+        "contracts": ["K9"]},
 }
 TIED_KERNELS = ("sae_tied_fwd", "sae_tied_bwd", "sae_tied_adam_vjp")
 UNTIED_KERNELS = ("sae_untied_fwd", "sae_untied_bwd", "sae_untied_adam_vjp")
+BIG_KERNELS = ("big_sae_fwd", "big_sae_bwd")
+
+# the giant single SAE at config.BigSAEArgs' defaults; depth is the only
+# cut: 2 epochs of a 4-chunk store (131,072 rows a chunk) = 16 steps, with
+# resurrection every 8 instead of 500
+BIG_D, BIG_N, BIG_BATCH, BIG_L1, BIG_LR = 1024, 16384, 65536, 1e-3, 1e-3
+BIG_GT = 4096  # ground-truth features of its synthetic store
+BIG_CHUNK_ROWS, BIG_CHUNKS, BIG_EPOCHS, BIG_RESURRECT = 2 * BIG_BATCH, 4, 2, 8
+BIG_STEPS = BIG_EPOCHS * BIG_CHUNKS * BIG_CHUNK_ROWS // BIG_BATCH
+BIG_SMALL_SHAPES = ((32, 64, 40), (64, 64, 128), (32, 96, 640),
+                    (64, 32, 1024))  # (batch, n_feats, d)
+BIG_N_DEAD = 20
+# big_sae_bwd's l0 is a count over B·n codes: a pre-activation within
+# rounding of 0 (the two sides sum its 1024 products in other orders) can
+# flip its mask — at most one flip per million codes is allowed
+BIG_L0_FLIPS_PER_CODE = 1e-6
+# The kernel path's 16-step run vs its autodiff replay (same init, batches
+# and resurrection steps), ‖ΔW‖/‖W‖ per leaf after 16 Adam steps: the two
+# paths' gradients differ by rounding (~1e-6), and Adam's early steps are
+# ±lr·sign(g), so an element whose gradient lies within rounding of 0 can
+# step the other way; a kernel fault moves whole rows.
+REL_FRO_BIG_REPLAY = 1e-3
+# c_totals over 8 steps (sums of 65,536 codes per step in other orders)
+# and the worst-loss buffer (per-row MSEs of slightly different weights)
+# just before each resurrection
+RTOL_BIG_CTOTALS = 1e-3
+RTOL_BIG_WORST = 1e-4
+# the kernel step vs the autodiff step side by side from one init: the
+# per-step metrics (the JAX package's own fused-vs-autodiff bound)
+RTOL_BIG_STEP = 1e-4
 # outputs that count ReLU masks: a flipped mask moves them by a count
-MASK_COUNTS = ("activity", "l0")
+MASK_COUNTS = ("activity", "l0", "l0_untied", "l0_tied")
 
 
 def log(msg: str) -> None:
@@ -699,6 +751,442 @@ def other_paths(batches: list, l1_values) -> dict:
     return out
 
 
+# --- the giant single SAE: kernels (phase 2) and main path (phase 7) ----------
+
+def write_big_store(folder: Path, seed: int):
+    """The big SAE's synthetic store (d=1024, bfloat16 on disk, 4 chunks of
+    131,072 rows), written by the port's ChunkWriter. Returns the generator
+    and its torch.Generator, which go on to draw held-out rows."""
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkWriter
+    from sparse_coding_tpu_torch.data.synthetic import RandomDatasetGenerator
+
+    g = torch.Generator(DEV).manual_seed(seed)
+    gen = RandomDatasetGenerator.create(g, BIG_D, BIG_GT, 32, 0.999)
+    w = ChunkWriter(folder, BIG_D,
+                    chunk_size_gb=BIG_CHUNK_ROWS * BIG_D * 2 / 2**30,
+                    dtype="bfloat16")
+    if w.rows_per_chunk != BIG_CHUNK_ROWS:
+        raise AssertionError(f"rows per chunk {w.rows_per_chunk}")
+    n_rows = BIG_CHUNKS * BIG_CHUNK_ROWS
+    for lo in range(0, n_rows, 8192):
+        w.add(gen.batch(g, min(8192, n_rows - lo)))
+    if w.finalize() != BIG_CHUNKS:
+        raise AssertionError("big store: wrong chunk count")
+    return gen, g
+
+
+def big_params(gen: torch.Generator, n: int, d: int) -> dict:
+    """Big-SAE params on the card as init_big_sae draws them (a unit
+    dictionary, an N(0, 1) encoder), with small thresholds and a centre so
+    that every term of the kernels' math is non-zero."""
+    from sparse_coding_tpu_torch.train.big_sae import init_big_sae
+
+    p = init_big_sae(gen, d, n, BIG_L1, device=DEV)[0].params
+    p["threshold"] = (torch.randn((n,), generator=gen) * 0.1).to(DEV)
+    p["centering"] = (torch.randn((d,), generator=gen) * 0.05).to(DEV)
+    return p
+
+
+def check_big_kernels(p: dict, x: torch.Tensor, tag: str) -> dict:
+    """big_sae_fwd and big_sae_bwd against their plain versions; the
+    backward with the untied residual x̂ − x and the tied one x̂ + ctr − x."""
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    xc = (x - p["centering"]).contiguous()
+    alpha = torch.tensor(BIG_L1, device=DEV)
+    xhat_ref = fb.big_sae_forward_plain(p, xc)
+    out = {"big_sae_fwd": {"xhat": compare(
+        f"{tag}:big_sae_fwd.xhat", fb.big_sae_forward(p, xc), xhat_ref,
+        RTOL_EXACT)}}
+    errs = {}
+    for kind, r in (("untied", xhat_ref - x),
+                    ("tied", xhat_ref + p["centering"] - x)):
+        r = r.contiguous()
+        got = fb.big_sae_backward(p, alpha, xc, r)
+        ref = fb.big_sae_backward_plain(p, alpha, xc, r)
+        for i, field in enumerate(("de", "dwn", "dt", "dctr", "c_totals")):
+            errs[f"{field}_{kind}"] = compare(
+                f"{tag}:big_sae_bwd.{field} ({kind} r)", got[i], ref[i],
+                RTOL_GRAD)
+        errs[f"l1_{kind}"] = compare(f"{tag}:big_sae_bwd.l1 ({kind} r)",
+                                     got[5][0], ref[5][0], RTOL_EXACT)
+        flips = BIG_L0_FLIPS_PER_CODE * x.shape[0] * p["dict"].shape[0]
+        errs[f"l0_{kind}"] = compare(f"{tag}:big_sae_bwd.l0 ({kind} r)",
+                                     got[5][1], ref[5][1], 0.0,
+                                     max(1.0, flips))
+        del got, ref
+    out["big_sae_bwd"] = errs
+    sync()
+    for name, e in out.items():
+        worst = max(v["max_rel_err"] for k, v in e.items()
+                    if not is_mask_count(k))
+        log(f"  {tag} {name}: ok, worst rel err {worst:.2e}")
+    return out
+
+
+def big_bounds(b: int, n: int, d: int, nnz: int) -> dict:
+    """Least time for each big-SAE kernel's work: the encode product is
+    dense, the products over the codes count this data's ``nnz`` active
+    (row, feature) codes; each input is read once, each output written
+    once."""
+    f4 = 4
+    enc, act = 2.0 * b * n * d, 2.0 * nnz * d
+    work = {
+        "big_sae_fwd": (enc + act + 2.0 * b * n,
+                        f4 * (2 * b * d + 2 * n * d + n)),
+        # pre (dense), then r·Wnᵀ, xcᵀ·dpre and cᵀ·r over the active codes
+        "big_sae_bwd": (enc + 3 * act + 6.0 * b * n,
+                        f4 * (2 * b * d + 4 * n * d + 3 * n + d + 3)),
+    }
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+        out[name] = {"bound_ms": 1e3 * max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes", "flops": ops, "bytes": nbytes}
+    return out
+
+
+def time_big_kernels(p: dict, x: torch.Tensor) -> dict:
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    xc = (x - p["centering"]).contiguous()
+    r = (fb.big_sae_forward_plain(p, xc) - x).contiguous()
+    alpha = torch.tensor(BIG_L1, device=DEV)
+    pairs = {
+        "big_sae_fwd": (lambda: fb.big_sae_forward(p, xc),
+                        lambda: fb.big_sae_forward_plain(p, xc)),
+        "big_sae_bwd": (lambda: fb.big_sae_backward(p, alpha, xc, r),
+                        lambda: fb.big_sae_backward_plain(p, alpha, xc, r)),
+    }
+    out = {}
+    for name, (kern, plain) in pairs.items():
+        # short windows (a backward is about a second): plain, kernel,
+        # kernel, plain
+        p1 = time_ms(plain, 3)
+        k1 = time_ms(kern, 3)
+        k2 = time_ms(kern, 3)
+        p2 = time_ms(plain, 3)
+        out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                     "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
+                     "library_ms": None}
+        log(f"  {name}: kernel {min(k1, k2):.2f} ms, plain "
+            f"{min(p1, p2):.2f} ms")
+        torch.cuda.empty_cache()
+    return out
+
+
+def big_phase2(store: Path, g: torch.Generator) -> dict:
+    """Phase 2's big-SAE part: small odd shapes, then the main shape (the
+    store's first batch) — checks, active codes, bounds and times."""
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+
+    checks = {}
+    for b, n, d in BIG_SMALL_SHAPES:
+        x = torch.randn((b, d), generator=g).to(DEV)
+        checks[f"big {b}x{n}x{d}"] = check_big_kernels(big_params(g, n, d),
+                                                       x, f"big d={d}")
+    x = torch.as_tensor(ChunkStore(store).load_chunk(0)[:BIG_BATCH]).to(DEV)
+    p = big_params(g, BIG_N, BIG_D)
+    checks["main"] = check_big_kernels(p, x, "big main")
+    torch.cuda.empty_cache()
+    xc = x - p["centering"]
+    nnz = int(((xc @ p["encoder"] + p["threshold"]) > 0).sum())
+    del xc
+    torch.cuda.empty_cache()
+    log(f"  big main shape: {nnz} of {BIG_BATCH * BIG_N} codes active "
+        f"({100 * nnz / (BIG_BATCH * BIG_N):.1f}%)")
+    timing = time_big_kernels(p, x)
+    return {"checks": checks, "active_codes": nnz, "timing": timing,
+            "bounds": big_bounds(BIG_BATCH, BIG_N, BIG_D, nnz)}
+
+
+def _big_snapshot(state) -> dict:
+    return {"step": int(state.step), "c_totals": state.c_totals.cpu(),
+            "worst_losses": state.worst_losses.cpu(),
+            "n_dead": int((state.c_totals == 0).sum())}
+
+
+def big_main_path(store: Path, out_dir: Path) -> dict:
+    """train_big_sae through its entry point on the card. Its step function
+    is wrapped to record a CUDA event after each step and keep the step's
+    metrics (on the card: the wrapper adds no synchronization), so
+    activations/s over steps 2–16 is the device-timeline time from the
+    end of step 1 to the end of step 16, which includes any wait for data;
+    resurrection is wrapped to keep the c_totals and worst losses it
+    consumed. Neither wrapper changes what runs."""
+    from sparse_coding_tpu_torch.config import BigSAEArgs
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.train import big_sae as bs
+
+    events, metrics, snaps = [], [], []
+    real_make, real_resurrect = bs.make_big_sae_step, bs.resurrect_dead_features
+
+    def make(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def timed(state, batch):
+            state, m = step(state, batch)
+            done = torch.cuda.Event(enable_timing=True)
+            done.record()
+            events.append(done)
+            metrics.append(m)
+            return state, m
+        return timed
+
+    def resurrect(state):
+        snaps.append(_big_snapshot(state))
+        return real_resurrect(state)
+
+    cfg = BigSAEArgs(activation_dim=BIG_D, n_feats=BIG_N,
+                     batch_size=BIG_BATCH, l1_alpha=BIG_L1, lr=BIG_LR,
+                     dataset_folder=str(store), output_folder=str(out_dir),
+                     n_epochs=BIG_EPOCHS, resurrect_every=BIG_RESURRECT,
+                     seed=SEED)
+    bs.make_big_sae_step, bs.resurrect_dead_features = make, resurrect
+    try:
+        _build.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        state = bs.train_big_sae(cfg, device=DEV)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    finally:
+        bs.make_big_sae_step, bs.resurrect_dead_features = (real_make,
+                                                            real_resurrect)
+    want = {k: BIG_STEPS if k in BIG_KERNELS else 0 for k in _build.KERNELS}
+    if launches != want or len(events) != BIG_STEPS:
+        raise AssertionError(f"big-SAE main path: {len(events)} steps, "
+                             f"launches {launches}, expected {want}")
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    if [s["step"] for s in snaps] != list(range(BIG_RESURRECT, BIG_STEPS + 1,
+                                                BIG_RESURRECT)):
+        raise AssertionError(f"resurrections at {[s['step'] for s in snaps]}")
+    bad = [i for i, m in enumerate(metrics)
+           if not all(math.isfinite(v) for v in m.values())]
+    if bad:
+        raise AssertionError(f"non-finite metrics at steps {bad}")
+    window_s = events[0].elapsed_time(events[-1]) / 1e3
+    acts_per_s = (BIG_STEPS - 1) * BIG_BATCH / window_s
+    log(f"  train_big_sae: {wall:.2f} s wall, launches {launches}; "
+        f"{acts_per_s:.0f} acts/s over steps 2-{BIG_STEPS} (data loading "
+        f"included, {1e3 * BIG_BATCH / acts_per_s:.1f} ms a step); loss "
+        f"{metrics[0]['loss']:.4g} -> {metrics[-1]['loss']:.4g}, l0 "
+        f"{metrics[0]['l0']:.1f} -> {metrics[-1]['l0']:.1f}; n_dead at "
+        f"resurrection {[s['n_dead'] for s in snaps]}")
+    return {"state": state, "wall_s": wall, "launches": launches,
+            "acts_per_s": acts_per_s, "metrics": metrics, "snaps": snaps,
+            "step_ms": 1e3 * BIG_BATCH / acts_per_s}
+
+
+def rel_fro(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def big_reference(store: Path, main: dict) -> dict:
+    """The main path's 16 steps again — same seed, init, store, rng and
+    batch order, resurrection at the same steps — on the autodiff step,
+    which launches no kernel. Final params, and c_totals and the worst
+    losses just before each resurrection, must match the main path's."""
+    from sparse_coding_tpu_torch.data.chunk_store import device_prefetch
+    from sparse_coding_tpu_torch.data.shard_store import open_store
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.train import big_sae as bs
+
+    state, opt, l1 = bs.init_big_sae(torch.Generator().manual_seed(SEED),
+                                     BIG_D, BIG_N, BIG_L1, lr=BIG_LR,
+                                     device=DEV)
+    step = bs.make_big_sae_step(opt, l1, use_fused=False)
+    store_ = open_store(store, quarantine_corrupt=True)
+    rng = np.random.default_rng(SEED)
+    _build.reset_launches()
+    n, snaps, losses = 0, [], []
+    for _ in range(BIG_EPOCHS):
+        for batch in device_prefetch(store_.epoch(BIG_BATCH, rng), DEV):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            n += 1
+            if n % BIG_RESURRECT == 0:
+                snaps.append(_big_snapshot(state))
+                state, _ = bs.resurrect_dead_features(state)
+    sync()
+    if n != BIG_STEPS or any(_build.LAUNCHES.values()):
+        raise AssertionError(f"big reference: {n} steps, launches "
+                             f"{_build.LAUNCHES}")
+    fro = {k: rel_fro(main["state"].params[k], state.params[k])
+           for k in bs.PARAM_NAMES}
+    for k, v in fro.items():
+        if not v <= REL_FRO_BIG_REPLAY:
+            raise AssertionError(f"big main path: {k} is {v:.2e} (relative "
+                                 "Frobenius) from its autodiff replay")
+    errs = {}
+    for got, want in zip(main["snaps"], snaps):
+        s = want["step"]
+        if got["n_dead"] != want["n_dead"]:
+            raise AssertionError(f"step {s}: n_dead {got['n_dead']} vs "
+                                 f"{want['n_dead']} on autodiff")
+        errs[f"c_totals@{s}"] = compare(f"big replay c_totals@{s}",
+                                        got["c_totals"], want["c_totals"],
+                                        RTOL_BIG_CTOTALS)
+        errs[f"worst_losses@{s}"] = compare(
+            f"big replay worst_losses@{s}", got["worst_losses"],
+            want["worst_losses"], RTOL_BIG_WORST)
+    loss_rel = max(abs(a["loss"] - b) / abs(b)
+                   for a, b in zip(main["metrics"], losses))
+    log(f"  autodiff replay of {n} steps: relative Frobenius "
+        + ", ".join(f"{k} {v:.2e}" for k, v in fro.items())
+        + "; c_totals/worst losses before resurrection "
+        + ", ".join(f"{k} {v['max_rel_err']:.2e}" for k, v in errs.items())
+        + f"; per-step loss max rel diff {loss_rel:.2e} (logged, not "
+        "bounded)")
+    del state
+    torch.cuda.empty_cache()
+    return {"rel_fro": fro, "buffers": errs, "loss_max_rel_diff": loss_rel}
+
+
+def big_side_by_side(store: Path) -> dict:
+    """From one fresh init, the kernel step and the autodiff step on the
+    store's first 3 batches; per-step metrics within RTOL_BIG_STEP."""
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.train import big_sae as bs
+
+    cs = ChunkStore(store)
+    rows = [cs.load_chunk(0)[:BIG_BATCH], cs.load_chunk(0)[BIG_BATCH:],
+            cs.load_chunk(1)[:BIG_BATCH]]
+    batches = [torch.as_tensor(r).to(DEV) for r in rows]
+    out = {}
+    states = {}
+    for fused in (True, False):
+        state, opt, l1 = bs.init_big_sae(torch.Generator().manual_seed(1),
+                                         BIG_D, BIG_N, BIG_L1, lr=BIG_LR,
+                                         device=DEV)
+        step = bs.make_big_sae_step(opt, l1, use_fused=fused)
+        _build.reset_launches()
+        ms = []
+        for b in batches:
+            state, m = step(state, b)
+            ms.append(m)
+        sync()
+        n_k = 3 if fused else 0
+        if (_build.LAUNCHES["big_sae_fwd"], _build.LAUNCHES["big_sae_bwd"]) \
+                != (n_k, n_k):
+            raise AssertionError(f"side by side (use_fused={fused}): "
+                                 f"launches {_build.LAUNCHES}")
+        out[fused] = ms
+        states[fused] = state
+    errs = {f"step {i} {k}": compare(f"big side by side step {i} {k}",
+                                     out[True][i][k], out[False][i][k],
+                                     RTOL_BIG_STEP)
+            for i in range(len(batches)) for k in out[True][i]}
+    fro = {k: rel_fro(states[True].params[k], states[False].params[k])
+           for k in bs.PARAM_NAMES}
+    worst = max(e["max_rel_err"] for e in errs.values())
+    log(f"  3 steps, kernels vs autodiff from one init: metrics max rel err "
+        f"{worst:.2e}; relative Frobenius "
+        + ", ".join(f"{k} {v:.2e}" for k, v in fro.items()))
+    del states, out
+    torch.cuda.empty_cache()
+    return {"metrics_max_rel_err": worst, "rel_fro": fro}
+
+
+def big_resurrection(state, batch: torch.Tensor) -> dict:
+    """Mark BIG_N_DEAD features dead on the trained state (after one more
+    kernel step refills the worst-example buffer): resurrection on the card
+    must revive exactly those and match the same call on a CPU copy."""
+    from sparse_coding_tpu_torch.train import big_sae as bs
+
+    step = bs.make_big_sae_step(bs.BigSAEAdam(BIG_LR),
+                                torch.tensor(BIG_L1, device=DEV))
+    state, _ = step(state, batch)
+    dead = torch.zeros(BIG_N, dtype=torch.bool)
+    dead[torch.randperm(BIG_N, generator=torch.Generator().manual_seed(2))
+         [:BIG_N_DEAD]] = True
+    state = state.replace(c_totals=torch.where(
+        dead.to(DEV), 0.0, state.c_totals + 1.0))
+    cpu = state.replace(**{
+        f: {k: v.cpu() for k, v in getattr(state, f).items()}
+        for f in ("params", "mu", "nu")}, **{
+        f: getattr(state, f).cpu() for f in (
+            "count", "c_totals", "worst_losses", "worst_vectors", "step")})
+    got, n_dead = bs.resurrect_dead_features(state)
+    want, n_dead_cpu = bs.resurrect_dead_features(cpu)
+    sync()
+    enc_old, enc = state.params["encoder"].cpu(), got.params["encoder"].cpu()
+    changed = (enc != enc_old).any(dim=0)
+    if int(n_dead) != BIG_N_DEAD or int(n_dead_cpu) != BIG_N_DEAD \
+            or not torch.equal(changed, dead):
+        raise AssertionError(f"resurrection: n_dead {int(n_dead)} (CPU "
+                             f"{int(n_dead_cpu)}), revived "
+                             f"{int(changed.sum())} columns, "
+                             f"{int((changed & dead).sum())} of them marked")
+    errs = {"encoder": compare("resurrection encoder vs CPU", enc,
+                               want.params["encoder"], RTOL_EXACT)}
+    for k in bs.PARAM_NAMES:
+        for f in ("mu", "nu"):
+            errs[f"{f}_{k}"] = compare(f"resurrection {f}[{k}] vs CPU",
+                                       getattr(got, f)[k].cpu(),
+                                       getattr(want, f)[k], 0.0)
+    dead_dev = dead.to(DEV)
+    if (float(got.mu["encoder"][:, dead_dev].abs().max()) != 0.0
+            or float(got.nu["dict"][dead_dev].abs().max()) != 0.0
+            or float(got.c_totals.abs().max()) != 0.0):
+        raise AssertionError("resurrection left moments or c_totals")
+    log(f"  resurrection on the card: revived exactly the {BIG_N_DEAD} "
+        f"marked features; encoder vs CPU max rel err "
+        f"{errs['encoder']['max_rel_err']:.2e}; moments equal")
+    return {"n_dead": int(n_dead), "encoder_max_rel_err":
+            errs["encoder"]["max_rel_err"]}
+
+
+def big_export(state, held_out: torch.Tensor) -> dict:
+    """The exported BigSAEDict on held-out rows: a finite FVU that equals
+    the training objective's mse over the rows' variance (the kernels'
+    loss on the same rows), beside the FVU of the fresh init."""
+    from sparse_coding_tpu_torch.metrics.core import (
+        fraction_variance_unexplained,
+    )
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+    from sparse_coding_tpu_torch.train import big_sae as bs
+
+    ld = bs.to_learned_dict(state)
+    fvu = float(fraction_variance_unexplained(ld, held_out))
+    _, aux, _ = fb.fused_big_sae_loss_and_grads(state.params, held_out,
+                                                BIG_L1, state.tied)
+    var = float(torch.mean(torch.square(held_out - held_out.mean(dim=0))))
+    objective = float(aux["mse"]) / var
+    init = bs.init_big_sae(torch.Generator().manual_seed(SEED), BIG_D, BIG_N,
+                           BIG_L1, device=DEV)[0]
+    fvu_init = float(fraction_variance_unexplained(bs.to_learned_dict(init),
+                                                   held_out))
+    log(f"  export on {held_out.shape[0]} held-out rows: FVU {fvu:.6g} "
+        f"(the objective's {objective:.6g}); the init's FVU {fvu_init:.6g}")
+    if not (math.isfinite(fvu) and abs(fvu - objective) <= RTOL_EXACT * 10
+            * abs(objective)):
+        raise AssertionError(f"export FVU {fvu} vs the objective's "
+                             f"{objective}")
+    return {"fvu": fvu, "fvu_objective": objective, "fvu_init": fvu_init}
+
+
+def big_main_phase(store: Path, tmp: Path, held_out: torch.Tensor) -> dict:
+    main = big_main_path(store, tmp / "big_out")
+    out = {k: v for k, v in main.items() if k not in ("state", "snaps")}
+    out["reference"] = big_reference(store, main)
+    out["side_by_side"] = big_side_by_side(store)
+    state = main.pop("state")
+    out["export"] = big_export(state, held_out)
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+
+    batch = torch.as_tensor(ChunkStore(store).load_chunk(2)[:BIG_BATCH]).to(
+        DEV)
+    out["resurrection"] = big_resurrection(state, batch)
+    del state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 # --- main --------------------------------------------------------------------
 
 def main() -> int:
@@ -750,6 +1238,11 @@ def main() -> int:
         report["active_codes"] = nnz
         del main_inp
         torch.cuda.empty_cache()
+        big_store = Path(tmp) / "big_store"
+        big_gen, big_g = write_big_store(big_store, seed=SEED)
+        held_out = big_gen.batch(big_g, 8192)
+        big = big_phase2(big_store, g)
+        report["big_kernels"] = big
         log(f"  phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
         l1_values = [float(v) for v in np.logspace(-4, -2, N_MEMBERS)]
@@ -778,19 +1271,45 @@ def main() -> int:
         batches = [torch.as_tensor(cs[i * BATCH:(i + 1) * BATCH]).to(DEV)
                    for i in range(3)]
         report["other_paths"] = other_paths(batches, l1_values)
+        log(f"  done at {time.perf_counter() - t_start:.1f} s")
 
+        from sparse_coding_tpu_torch.config import BigSAEArgs
+
+        dflt = BigSAEArgs()
+        if (BIG_D, BIG_N, BIG_BATCH, BIG_L1, BIG_LR) != (
+                dflt.activation_dim, dflt.n_feats, dflt.batch_size,
+                dflt.l1_alpha, dflt.lr):
+            raise AssertionError("the big-SAE main path must run at "
+                                 "BigSAEArgs' default widths")
+        log(f"phase 7: big-SAE main path — train_big_sae, d={BIG_D}, "
+            f"n_feats={BIG_N}, batch {BIG_BATCH}, {BIG_STEPS} steps, "
+            f"resurrection every {BIG_RESURRECT}")
+        report["big_main"] = big_main_phase(big_store, Path(tmp), held_out)
+        step_ms = report["big_main"]["step_ms"]
+        shares = {k: big["timing"][k]["ms"] / step_ms for k in BIG_KERNELS}
+        report["big_main"]["kernel_share"] = shares
+        log(f"  {step_ms:.1f} ms per step; kernel shares "
+            + ", ".join(f"{k} {100 * v:.1f}%" for k, v in shares.items()))
+
+    timing.update(big["timing"])
+    bnd.update(big["bounds"])
     kernels = []
     for name in _build.KERNELS:
         # the float outputs' error; the outputs that count ReLU masks
-        # (activity per feature, l0 per row) apart — there a flipped mask
-        # moves a count by 1, not a value by rounding
-        checked = checks["main"][name]
+        # (activity per feature, l0) apart — there a flipped mask moves a
+        # count by 1, not a value by rounding
+        if name in BIG_KERNELS:
+            checked = big["checks"]["main"][name]
+            launches = report["big_main"]["launches"][name]
+        else:
+            checked = checks["main"][name]
+            family = "tied" if name in TIED_KERNELS else "untied"
+            launches = report[f"main_path_{family}"]["launches"][name]
         errs = {k: v for k, v in checked.items() if not is_mask_count(k)}
-        family = "tied" if name in TIED_KERNELS else "untied"
         kernels.append({
             "name": name, "route": "cuda", **{
                 k: KERNEL_META[name][k] for k in ("source", "replaces")},
-            "launches": report[f"main_path_{family}"]["launches"][name],
+            "launches": launches,
             "max_abs_err": max(v["max_abs_err"] for v in errs.values()),
             "max_rel_err": max(v["max_rel_err"] for v in errs.values()),
             "mask_count_abs_err": {k: v["max_abs_err"]

@@ -1,6 +1,7 @@
 """Typed config/flag system: the port's copy of the JAX package's
-``config.py`` (``BaseArgs``, ``DataArgs``, ``EnsembleArgs``) with the same
-fields and defaults, so a config file or command line drives either side.
+``config.py`` (``BaseArgs``, ``DataArgs``, ``EnsembleArgs``,
+``BigSAEArgs``) with the same fields and defaults, so a config file or
+command line drives either side.
 Fields the port does not run yet (meshes, orbax, profiling, the guardian)
 are kept so configs stay interchangeable; the entry points that would read
 them raise where they are set to something the port cannot do."""
@@ -142,3 +143,27 @@ class EnsembleArgs(BaseArgs):
     fused_batch_tile: Optional[int] = None
     fused_feat_tile: Optional[int] = None
     fused_interpret: bool = False
+
+
+@dataclass
+class BigSAEArgs(BaseArgs):
+    """Large single-SAE trainer (``train/big_sae.py``): big batch,
+    dead-feature resurrection."""
+
+    activation_dim: int = 1024
+    n_feats: int = 16384
+    l1_alpha: float = 1e-3
+    lr: float = 1e-3
+    batch_size: int = 65536
+    dataset_folder: str = "activation_data"
+    output_folder: str = "big_sae_output"
+    n_chunks: int = 10
+    n_epochs: int = 1
+    dead_feature_window: int = 100  # steps with no activation => dead
+    resurrect_every: int = 500
+    mesh_data: int = 1
+    seed: int = 0
+    # steps per window (a Python loop in the port); resurrection and
+    # logging run at window boundaries, so the effective interval rounds
+    # up to a multiple of scan_steps
+    scan_steps: int = 1

@@ -9,6 +9,12 @@ atomically — with ``activation_dim``, ``dtype``, ``n_chunks``,
 ``(batch_size, np.random.default_rng(seed))`` yields the same batch
 sequence on both sides.
 
+``ChunkStore(quarantine_corrupt=True)`` trains through corrupt chunks:
+``epoch`` skips one with a single warning and records it in the durable
+quarantine ledger (``data/ledger.py``), which the next open reads, so a
+known-bad chunk is never read again. Without it ``epoch`` raises, and
+``load_chunk`` always raises.
+
 ``device_prefetch`` keeps the card fed: pinned host buffers copied with
 ``non_blocking=True`` on a side CUDA stream, so batch i+1 crosses PCIe
 while batch i computes.
@@ -17,6 +23,7 @@ while batch i computes.
 from __future__ import annotations
 
 import json
+import logging
 from collections import deque
 from pathlib import Path
 from typing import Iterable, Iterator, Optional
@@ -24,6 +31,10 @@ from typing import Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from sparse_coding_tpu_torch.data.ledger import (
+    load_quarantine,
+    record_quarantine,
+)
 from sparse_coding_tpu_torch.resilience.atomic import (
     atomic_save_npy,
     atomic_write_text,
@@ -31,6 +42,7 @@ from sparse_coding_tpu_torch.resilience.atomic import (
 from sparse_coding_tpu_torch.resilience.manifest import array_sha256
 
 _DTYPES = ("float16", "float32", "bfloat16")
+logger = logging.getLogger(__name__)
 
 
 def _to_bf16_bits(arr: np.ndarray) -> np.ndarray:
@@ -134,11 +146,13 @@ class ChunkWriter:
 
 class ChunkStore:
     """Reader over a flat chunk folder: digest- and finite-checked loads,
-    shuffled epochs. Quarantine of corrupt chunks and native readahead
-    are later work; a corrupt chunk raises :class:`ChunkCorruptionError`."""
+    shuffled epochs. A corrupt chunk raises :class:`ChunkCorruptionError`
+    from ``load_chunk``; ``epoch`` skips it instead when
+    ``quarantine_corrupt`` is set. Native readahead is later work."""
 
-    def __init__(self, folder: str | Path, verify_digests: bool = True,
-                 verify_finite: bool = True):
+    def __init__(self, folder: str | Path, quarantine_corrupt: bool = False,
+                 verify_digests: bool = True, verify_finite: bool = True):
+        self.quarantine_corrupt = bool(quarantine_corrupt)
         self.folder = Path(folder)
         meta_path = self.folder / "meta.json"
         self.meta = (json.loads(meta_path.read_text())
@@ -153,6 +167,8 @@ class ChunkStore:
         self.verify_digests = verify_digests
         self.verify_finite = verify_finite
         self._verified: set[int] = set()
+        # chunks a previous process proved corrupt are known at open
+        self.quarantined: set[int] = set(load_quarantine(self.folder))
         first = np.load(self._paths[min(self._paths)], mmap_mode="r")
         self.activation_dim = int(first.shape[-1])
 
@@ -204,12 +220,41 @@ class ChunkStore:
     def epoch(self, batch_size: int, rng: np.random.Generator,
               n_repetitions: int = 1, dtype=np.float32) -> Iterator[np.ndarray]:
         """Batches over all chunks, chunk order shuffled per repetition —
-        the same rng draws, in the same order, as the JAX store."""
+        the same rng draws, in the same order, as the JAX store. With
+        ``quarantine_corrupt`` a corrupt or ledger-known chunk is skipped
+        (and draws nothing from ``rng``, as in the JAX store)."""
         order = np.concatenate([rng.permutation(self.n_chunks)
                                 for _ in range(n_repetitions)])
         for ci in order:
-            yield from shuffled_batches(self.load_chunk(int(ci), dtype),
-                                        batch_size, rng)
+            ci = int(ci)
+            if self.quarantine_corrupt and ci in self.quarantined:
+                continue
+            try:
+                chunk = self.load_chunk(ci, dtype)
+            except ChunkCorruptionError as e:
+                if not self.quarantine_corrupt:
+                    raise
+                self._quarantine(e)
+                continue
+            yield from shuffled_batches(chunk, batch_size, rng)
+
+    def _quarantine(self, err: ChunkCorruptionError) -> None:
+        """Warn about a corrupt chunk and record it in the ledger, once. A
+        failed ledger write (read-only store, full disk) loses only the
+        durability: the in-memory set still protects this process."""
+        if err.chunk_index in self.quarantined:
+            return
+        logger.warning("quarantining corrupt chunk %d (%s): %s — skipping "
+                       "it for the rest of this run", err.chunk_index,
+                       err.path, err.reason)
+        self.quarantined.add(err.chunk_index)
+        try:
+            record_quarantine(self.folder, err.chunk_index, err.reason,
+                              Path(err.path).name)
+        except OSError as write_err:
+            logger.warning("quarantine ledger write failed for chunk %d "
+                           "(%s): the quarantine holds in memory only",
+                           err.chunk_index, write_err)
 
 
 def shuffled_batches(chunk: np.ndarray, batch_size: int,

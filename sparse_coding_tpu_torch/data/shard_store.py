@@ -11,8 +11,10 @@ MANIFEST_NAME = "manifest.json"
 
 
 def open_store(folder: str | Path, **kwargs) -> ChunkStore:
-    """Open a flat chunk folder. A store-level ``manifest.json`` marks the
-    sharded layout, whose reader is not ported yet."""
+    """Open a flat chunk folder; ``kwargs`` go to :class:`ChunkStore`
+    (``quarantine_corrupt=True`` trains through corrupt chunks). A
+    store-level ``manifest.json`` marks the sharded layout, whose reader
+    is not ported yet."""
     folder = Path(folder)
     if (folder / MANIFEST_NAME).exists():
         raise NotImplementedError(

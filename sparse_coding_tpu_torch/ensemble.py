@@ -92,9 +92,11 @@ def safe_increment(count: Tensor) -> Tensor:
 
 def bias_corrections(count_inc: Tensor, b1: float, b2: float):
     """[N] (1 − b1^count, 1 − b2^count) in float32, as the JAX engine
-    precomputes them for the kernels."""
+    precomputes them for the kernels. The bases are filled on the device:
+    a ``torch.tensor`` from a Python float would be a blocking host→device
+    copy, which synchronizes the host with the card every step."""
     c = count_inc.to(torch.float32)
-    one = lambda b: torch.tensor(b, dtype=torch.float32, device=c.device)
+    one = lambda b: torch.full((), b, dtype=torch.float32, device=c.device)
     return 1.0 - torch.pow(one(b1), c), 1.0 - torch.pow(one(b2), c)
 
 

@@ -22,7 +22,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 KERNELS = ("sae_tied_fwd", "sae_tied_bwd", "sae_tied_adam_vjp",
-           "sae_untied_fwd", "sae_untied_bwd", "sae_untied_adam_vjp")
+           "sae_untied_fwd", "sae_untied_bwd", "sae_untied_adam_vjp",
+           "big_sae_fwd", "big_sae_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +47,11 @@ ARGTYPES = {
     # E, dE, muE, nuE, D, dWn, muD, nuD, lrs, bc1, bc2, E2, muE2, nuE2, D2,
     # muD2, nuD2, un_part, N, n, d, b1, omb1, b2, omb2, eps, stream
     "sae_untied_adam_vjp": [_P] * 18 + [_I] * 3 + [_F] * 5 + [_P],
+    # xc, E [d, n], Wn, t, xhat, B, n, d, stream
+    "big_sae_fwd": [_P] * 5 + [_I] * 3 + [_P],
+    # xc, r, E [d, n], Wn, t, alpha, dE, dWn, dt, c_totals, dctr_part,
+    # scal_part, B, n, d, coef, stream
+    "big_sae_bwd": [_P] * 12 + [_I] * 3 + [_F, _P],
 }
 
 # Launch counts, one plain integer per kernel: each wrapper adds one where
@@ -63,6 +69,13 @@ FEAT_TILE = 32
 UNTIED_FEAT_TILE = 16  # the untied backward's tile (two weight tiles)
 ADAM_ROWS = 8
 MAX_D = 768
+# The big-SAE kernels' blocking: the forward owns 32-row batch tiles and
+# walks 32-feature tiles; the backward owns 16-feature tiles and walks the
+# batch 8 rows at a time, streaming rows so that d may reach 1024.
+BIG_BATCH_TILE = 32
+BIG_FEAT_TILE = 32
+BIG_BWD_FEAT_TILE = 16
+BIG_MAX_D = 1024
 
 
 def check_cuda_tensors(name: str, **tensors) -> None:
@@ -88,6 +101,16 @@ def check_kernel_shape(name: str, batch: int, n_feats: int, d: int) -> None:
         raise ValueError(
             f"{name}: the CUDA kernel needs batch % {BATCH_TILE} == 0, "
             f"n_feats % {FEAT_TILE} == 0 and 1 <= d <= {MAX_D}; got "
+            f"batch={batch}, n_feats={n_feats}, d={d}")
+
+
+def check_big_shape(name: str, batch: int, n_feats: int, d: int) -> None:
+    """Raise ValueError for a shape the big-SAE kernels do not take."""
+    if (batch % BIG_BATCH_TILE or n_feats % BIG_FEAT_TILE
+            or not 1 <= d <= BIG_MAX_D):
+        raise ValueError(
+            f"{name}: the CUDA kernel needs batch % {BIG_BATCH_TILE} == 0, "
+            f"n_feats % {BIG_FEAT_TILE} == 0 and 1 <= d <= {BIG_MAX_D}; got "
             f"batch={batch}, n_feats={n_feats}, d={d}")
 
 

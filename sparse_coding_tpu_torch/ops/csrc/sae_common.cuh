@@ -1,7 +1,8 @@
 // Shared constants and helpers of the SAE kernels (sm_90a, fp32 SIMT).
 //
-// The Python wrappers (ops/fused_sae_tiled.py, ops/fused_sae.py) mirror
-// these constants; they check every shape against them before a launch.
+// The Python wrappers (ops/fused_sae_tiled.py, ops/fused_sae.py,
+// ops/fused_big_sae.py) mirror these constants (ops/_build.py); they check
+// every shape against them before a launch.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -17,6 +18,15 @@ constexpr int kBwdBatchTile = 16;         // rows of x per backward loop step
 constexpr int kAdamRows = kWarps;         // dictionary rows per adam block
 constexpr int kMaxD = 3 * kThreads;       // widest d the fwd/bwd kernels take
 constexpr float kNormEps = 1e-8f;         // row norms are clipped, not +eps
+
+// The giant single SAE's kernels (big_sae_fwd, big_sae_bwd) stream rows
+// through shared memory instead of holding whole [rows, d] tiles, so they
+// reach d = 1024.
+constexpr int kBigMaxD = 4 * kThreads;    // widest d the big-SAE kernels take
+constexpr int kBigBatchTile = 32;         // rows of xc one forward block owns
+constexpr int kBigFeatTile = 32;          // features per forward tile
+constexpr int kBigBwdFeatTile = 16;       // features one backward block owns
+constexpr int kBigBwdRows = 8;            // batch rows per backward loop step
 
 // Shared-memory row stride: odd, so 32 lanes walking one column of 32
 // different rows hit 32 different banks.
@@ -60,6 +70,18 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
   for (int i = threadIdx.x; i < rows * d; i += kThreads) {
     const int r = i / d;
     dst[r * ld + (i - r * d)] = src[i];
+  }
+}
+
+// Copy a [rows, cols] window of a row-major global matrix whose rows are
+// src_ld floats apart into shared memory (row stride dst_ld).
+__device__ __forceinline__ void load_window(float* dst, const float* __restrict__ src,
+                                            int rows, int cols, size_t src_ld,
+                                            int dst_ld) {
+  for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
+    const int r = i / cols;
+    const int c = i - r * cols;
+    dst[r * dst_ld + c] = src[(size_t)r * src_ld + c];
   }
 }
 

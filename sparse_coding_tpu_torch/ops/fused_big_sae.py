@@ -1,0 +1,234 @@
+"""Fused train-step kernels for the giant single SAE: the counterpart of the
+JAX package's ``ops/fused_big_sae.py`` (K8 ``big_sae_forward``, K9
+``big_sae_backward``).
+
+At the trainer's shape (batch 65,536, n_feats 16,384) the [batch, n_feats]
+code matrix is 4 GiB in fp32, and autodiff materializes it more than once.
+Two hand-written Hopper kernels (``ops/csrc``) never store it:
+
+- ``big_sae_fwd`` — x̂ = relu(xc·E + t)·Wn, one block per batch tile
+  looping over every feature tile in a fixed order;
+- ``big_sae_bwd`` — one block per feature tile loops over the whole batch
+  in a fixed order, recomputing the code tiles and accumulating dE, dWn,
+  dt, c_totals (activation mass Σ_b c) and the l1/l0 sums; the
+  encode-side centering grad −Σ_b Σ_f dpre·E[:, f] is formed per block as
+  −E[:, tile]·dt[tile] and the blocks' partials are summed here in a fixed
+  order.
+
+Layouts are the JAX package's at every public function: E is [d, n] (the
+kernels read it with its own row stride n), the dictionary [n, d], and the
+decoder the kernels take is the row-normalized Wn = D / ‖D‖ (no clip, as
+in the JAX function), formed here in torch.
+
+Everything cheap or O(B·d) stays in torch, as in the JAX package: the
+centering subtract, the residual (plus the tied centering), the
+per-example MSEs, the normalization VJP and the tied decode-centering
+gradient. Each kernel has a plain PyTorch version beside it; a wrapper
+takes it only for CPU tensors, and on CUDA tensors launches its kernel or
+raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sparse_coding_tpu_torch.ops import _build
+from sparse_coding_tpu_torch.ops.fused_sae import normalize_with_vjp
+from sparse_coding_tpu_torch.ops.fused_sae_tiled import (
+    _check_tiles,
+    _check_unported,
+    _on_cpu,
+)
+
+
+def pick_big_sae_tiles(batch: int, n_feats: int, d: int,
+                       compute_itemsize: int = 4
+                       ) -> Optional[tuple[int, int]]:
+    """The (batch_tile, feat_tile) the CUDA kernels block at when they take
+    the shape, else None (the caller uses autodiff). The kernels take any
+    1 <= d <= 1024 with batch and n_feats multiples of 32; only float32
+    compute is ported."""
+    if compute_itemsize != 4:
+        return None
+    if (batch % _build.BIG_BATCH_TILE or n_feats % _build.BIG_FEAT_TILE
+            or not 1 <= d <= _build.BIG_MAX_D):
+        return None
+    return _build.BIG_BATCH_TILE, _build.BIG_FEAT_TILE
+
+
+def normalized_dict(dictionary: torch.Tensor) -> torch.Tensor:
+    """Wn = D / ‖D‖_row, unclipped, as the JAX kernels' wrappers form it."""
+    return dictionary / torch.linalg.vector_norm(dictionary, dim=-1,
+                                                 keepdim=True)
+
+
+def _shapes(params: dict, xc: torch.Tensor) -> tuple[int, int, int]:
+    n, d = params["dict"].shape
+    if tuple(params["encoder"].shape) != (d, n):
+        raise ValueError(f"encoder must be {(d, n)}, got "
+                         f"{tuple(params['encoder'].shape)}")
+    if tuple(params["threshold"].shape) != (n,):
+        raise ValueError(f"threshold must be {(n,)}, got "
+                         f"{tuple(params['threshold'].shape)}")
+    if xc.dim() != 2 or xc.shape[1] != d:
+        raise ValueError(f"xc must be [B, {d}], got {tuple(xc.shape)}")
+    return xc.shape[0], n, d
+
+
+def _kernel_checks(name: str, b: int, n: int, d: int, **tensors) -> None:
+    _build.check_cuda_tensors(name, **tensors)
+    _build.check_big_shape(name, b, n, d)
+
+
+def _tiles(b, n, batch_tile, feat_tile):
+    if batch_tile is not None and feat_tile is not None:
+        _check_tiles(b, n, batch_tile, feat_tile)
+
+
+# --- big_sae_fwd (K8) ---------------------------------------------------------
+
+def big_sae_forward_plain(params: dict, xc: torch.Tensor) -> torch.Tensor:
+    """x̂ [B, d] = relu(xc·E + t)·Wn, materializing the codes."""
+    c = torch.relu(xc @ params["encoder"] + params["threshold"])
+    return c @ normalized_dict(params["dict"])
+
+
+def big_sae_forward(params: dict, xc: torch.Tensor,
+                    batch_tile: Optional[int] = None,
+                    feat_tile: Optional[int] = None,
+                    compute_dtype: str = "float32") -> torch.Tensor:
+    """x̂ = relu(xc·E + t)·Wn without materializing the codes (K8). ``params``
+    holds the raw big-SAE params (dict/encoder/threshold); xc is
+    pre-centered. ``batch_tile``/``feat_tile`` keep the JAX divisibility
+    contract; the CUDA kernel blocks at its own tiles. CUDA: launches
+    ``big_sae_fwd``."""
+    b, n, d = _shapes(params, xc)
+    _check_unported(None, b, compute_dtype)
+    _tiles(b, n, batch_tile, feat_tile)
+    e, t = params["encoder"], params["threshold"]
+    if _on_cpu("big_sae_fwd", xc, e, t, params["dict"]):
+        return big_sae_forward_plain(params, xc)
+    wn = normalized_dict(params["dict"])
+    _kernel_checks("big_sae_fwd", b, n, d, xc=xc, encoder=e, wn=wn,
+                   threshold=t)
+    xhat = torch.empty((b, d), dtype=torch.float32, device=xc.device)
+    _build.launch("big_sae_fwd", xc.data_ptr(), e.data_ptr(), wn.data_ptr(),
+                  t.data_ptr(), xhat.data_ptr(), b, n, d,
+                  _build.stream_ptr(xc))
+    return xhat
+
+
+# --- big_sae_bwd (K9) ---------------------------------------------------------
+
+def big_sae_backward_plain(params: dict, alpha: torch.Tensor,
+                           xc: torch.Tensor, r: torch.Tensor):
+    """(dE [d, n] wrt the raw encoder, dWn [n, d] wrt the normalized
+    dictionary, dt [n], dctr_enc [d] = −Σ_b dpre·Eᵀ, c_totals [n] = Σ_b c,
+    [l1, l0] sums [2]) from the residual r = x̂ − x, materializing the
+    codes. dpre = (coef·r·Wnᵀ + α/B) ⊙ [pre > 0], coef = 2/(B·d)."""
+    b, d = xc.shape
+    e = params["encoder"]
+    wn = normalized_dict(params["dict"])
+    pre = xc @ e + params["threshold"]
+    c = torch.relu(pre)
+    mask = (pre > 0.0).to(torch.float32)
+    coef = 2.0 / (b * d)
+    dpre = (coef * (r @ wn.T) + alpha / b) * mask
+    de = xc.T @ dpre
+    dwn = coef * (c.T @ r)
+    dt = dpre.sum(dim=0)
+    dctr = -(dpre @ e.T).sum(dim=0)
+    scal = torch.stack([c.sum(), mask.sum()])
+    return de, dwn, dt, dctr, c.sum(dim=0), scal
+
+
+def big_sae_backward(params: dict, alpha: torch.Tensor, xc: torch.Tensor,
+                     r: torch.Tensor, batch_tile: Optional[int] = None,
+                     feat_tile: Optional[int] = None,
+                     total_batch: Optional[int] = None,
+                     compute_dtype: str = "float32"):
+    """All parameter grads plus c_totals and the l1/l0 sums in one pass,
+    codes recomputed per tile (K9); see :func:`big_sae_backward_plain`.
+    CUDA: launches ``big_sae_bwd``; its per-feature-tile partials (the
+    centering grad, l1, l0) are summed here in a fixed order."""
+    b, n, d = _shapes(params, xc)
+    _check_unported(total_batch, b, compute_dtype)
+    _tiles(b, n, batch_tile, feat_tile)
+    if tuple(r.shape) != (b, d):
+        raise ValueError(f"r must be {(b, d)}, got {tuple(r.shape)}")
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=xc.device)
+    e, t = params["encoder"], params["threshold"]
+    if _on_cpu("big_sae_bwd", xc, r, e, t, params["dict"], alpha):
+        return big_sae_backward_plain(params, alpha, xc, r)
+    wn = normalized_dict(params["dict"])
+    alpha = alpha.reshape(1).contiguous()
+    _kernel_checks("big_sae_bwd", b, n, d, xc=xc, r=r, encoder=e, wn=wn,
+                   threshold=t, alpha=alpha)
+    kw = {"dtype": torch.float32, "device": xc.device}
+    de = torch.empty((d, n), **kw)
+    dwn = torch.empty((n, d), **kw)
+    dt = torch.empty((n,), **kw)
+    c_totals = torch.empty((n,), **kw)
+    tiles = n // _build.BIG_BWD_FEAT_TILE
+    dctr_part = torch.empty((tiles, d), **kw)
+    scal_part = torch.empty((tiles, 2), **kw)
+    coef = float(np.float32(2.0 / (b * d)))
+    _build.launch("big_sae_bwd", xc.data_ptr(), r.data_ptr(), e.data_ptr(),
+                  wn.data_ptr(), t.data_ptr(), alpha.data_ptr(),
+                  de.data_ptr(), dwn.data_ptr(), dt.data_ptr(),
+                  c_totals.data_ptr(), dctr_part.data_ptr(),
+                  scal_part.data_ptr(), b, n, d, coef,
+                  _build.stream_ptr(xc))
+    return (de, dwn, dt, dctr_part.sum(dim=0), c_totals,
+            scal_part.sum(dim=0))
+
+
+# --- the loss-and-grads contract ----------------------------------------------
+
+def fused_big_sae_loss_and_grads(params: dict, batch: torch.Tensor,
+                                 l1_alpha, tied: bool,
+                                 batch_tile: Optional[int] = None,
+                                 feat_tile: Optional[int] = None,
+                                 total_batch: Optional[int] = None,
+                                 compute_dtype: str = "float32"):
+    """Drop-in replacement for autograd of ``train/big_sae.py::_sae_loss``:
+    (loss, aux, grads), aux = {"mse", "sparsity", "c_totals_delta",
+    "mse_losses", "l0_mean"}, grads wrt the RAW params {dict, encoder,
+    threshold, centering}. Raises ValueError for a shape the kernels do
+    not take (even on the CPU, as the JAX function does)."""
+    b, d = batch.shape
+    n = params["dict"].shape[0]
+    _check_unported(total_batch, b, compute_dtype)
+    if batch_tile is None or feat_tile is None:
+        tiles = pick_big_sae_tiles(b, n, d)
+        if tiles is None:
+            raise ValueError(
+                f"no kernel tiles for batch={b} n_feats={n} d={d} (the "
+                f"kernels need batch and n_feats multiples of "
+                f"{_build.BIG_BATCH_TILE} and 1 <= d <= {_build.BIG_MAX_D}); "
+                "use the autodiff path")
+        batch_tile, feat_tile = tiles
+    batch = batch.to(torch.float32).contiguous()
+    alpha = torch.as_tensor(l1_alpha, dtype=torch.float32,
+                            device=batch.device)
+    xc = (batch - params["centering"]).contiguous()
+    x_hat = big_sae_forward(params, xc, batch_tile, feat_tile)
+    if tied:
+        x_hat = x_hat + params["centering"]
+    resid = (x_hat - batch).contiguous()  # r in the kernel math
+    mse_losses = torch.mean(torch.square(resid), dim=-1)  # per example
+    mse = torch.sum(torch.square(resid)) / (b * d)
+
+    de, dwn, dt, dctr_enc, c_totals, scal = big_sae_backward(
+        params, alpha, xc, resid, batch_tile, feat_tile)
+    sparsity = alpha * scal[0] / b
+    loss = mse + sparsity
+    dctr = dctr_enc + (2.0 / (b * d)) * resid.sum(dim=0) if tied else dctr_enc
+    grads = {"dict": normalize_with_vjp(params["dict"], dwn),
+             "encoder": de, "threshold": dt, "centering": dctr}
+    aux = {"mse": mse, "sparsity": sparsity, "c_totals_delta": c_totals,
+           "mse_losses": mse_losses, "l0_mean": scal[1] / b}
+    return loss, aux, grads

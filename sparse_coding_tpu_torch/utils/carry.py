@@ -1,7 +1,7 @@
 """Carry members and whole training states across from numpy — e.g. the
-JAX package's ``FunctionalTiedSAE.init`` members or a ``device_get`` of
-its ``EnsembleState`` — so the port and the reference start from the same
-numbers and compute the same trajectory."""
+JAX package's ``FunctionalTiedSAE.init`` members, or a ``device_get`` of
+its ``EnsembleState`` or ``BigSAEState`` — so the port and the reference
+start from the same numbers and compute the same trajectory."""
 
 from __future__ import annotations
 
@@ -58,3 +58,22 @@ def state_from_numpy(*, params: dict, buffers: dict, mu: dict, nu: dict,
                              device=device),
         live=live_t, static_buffers=tuple(static_buffers),
         sig_name=sig_name)
+
+
+def big_state_from_numpy(*, params: dict, mu: dict, nu: dict, count,
+                         c_totals, worst_losses, worst_vectors, step=0,
+                         tied: bool = False, device="cpu"):
+    """A JAX ``BigSAEState``'s leaves as numpy (params and optax's Adam
+    ``mu``/``nu`` keyed alike, the scalar ``count``, the tracking buffers,
+    ``step``) → the port's :class:`~sparse_coding_tpu_torch.train.big_sae.BigSAEState`."""
+    from sparse_coding_tpu_torch.train.big_sae import BigSAEState
+
+    conv = lambda tree: {k: _tensor(v, device) for k, v in tree.items()}
+    scalar = lambda v: torch.as_tensor(int(np.asarray(v)), dtype=torch.int32,
+                                       device=device)
+    return BigSAEState(
+        params=conv(params), count=scalar(count), mu=conv(mu), nu=conv(nu),
+        c_totals=_tensor(c_totals, device),
+        worst_losses=_tensor(worst_losses, device),
+        worst_vectors=_tensor(worst_vectors, device), step=scalar(step),
+        tied=bool(tied))

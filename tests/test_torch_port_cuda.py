@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card (the tied kernels with and without
-the masked family's coef_mask, and the untied ones), each held against its
+the masked family's coef_mask, the untied ones, and the giant single
+SAE's pair), each held against its
 plain PyTorch version on the same inputs. Card only: every test carries the
 ``cuda`` marker and skips without a card. This file imports no JAX (the
 card's host has none), so it runs there on its own:
@@ -197,3 +198,82 @@ def test_ensemble_refuses_a_shape_the_kernels_do_not_take(card, tied):
     torch.cuda.synchronize()
     assert torch.isfinite(aux.losses["loss"]).all()
     assert all(v == 0 for v in _build.LAUNCHES.values())
+
+
+# --- the giant single SAE's kernels (big_sae_fwd, big_sae_bwd) ----------------
+
+BIG_SHAPES = [(32, 32, 40), (64, 64, 128), (32, 96, 300), (64, 32, 640),
+              (32, 64, 1024)]
+
+
+def _big_inputs(card, b, n, d, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    params = {"dict": torch.randn((n, d), generator=g),
+              "encoder": torch.randn((d, n), generator=g) / math.sqrt(d),
+              "threshold": torch.randn((n,), generator=g) * 0.1,
+              "centering": torch.randn((d,), generator=g) * 0.1}
+    x = torch.randn((b, d), generator=g)
+    return {k: v.to(card) for k, v in params.items()}, x.to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BIG_SHAPES, ids=str)
+def test_big_sae_kernels_match_plain(card, shape):
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    p, x = _big_inputs(card, *shape)
+    xc = (x - p["centering"]).contiguous()
+    alpha = torch.tensor(3e-3, device=card)
+    _build.reset_launches()
+    xhat = fb.big_sae_forward(p, xc)
+    ref = fb.big_sae_forward_plain(p, xc)
+    _close(xhat, ref, 1e-5)
+    r = (ref - x).contiguous()
+    got = fb.big_sae_backward(p, alpha, xc, r)
+    want = fb.big_sae_backward_plain(p, alpha, xc, r)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:5], want[:5]):  # dE, dWn, dt, dctr, c_totals
+        _close(g, w, 1e-3)
+    _close(got[5][:1], want[5][:1], 1e-5)  # l1
+    assert torch.equal(got[5][1], want[5][1])  # l0: no mask flips here
+    assert _build.LAUNCHES["big_sae_fwd"] == 1
+    assert _build.LAUNCHES["big_sae_bwd"] == 1
+
+
+@pytest.mark.cuda
+def test_big_sae_nan_propagates(card):
+    """A NaN in the encoder reaches x-hat and the l1 sum, as through
+    torch.relu (the kernels' ReLU keeps NaN)."""
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    p, x = _big_inputs(card, 32, 32, 40)
+    p["encoder"][3, 5] = float("nan")
+    xhat = fb.big_sae_forward(p, x)
+    scal = fb.big_sae_backward(p, torch.tensor(1e-3, device=card), x,
+                               (xhat.nan_to_num() - x).contiguous())[5]
+    torch.cuda.synchronize()
+    assert torch.isnan(xhat).any()
+    assert torch.isnan(scal[0]) and torch.isfinite(scal[1])
+
+
+@pytest.mark.cuda
+def test_big_sae_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    p, x = _big_inputs(card, 64, 64, 40)
+    alpha = torch.tensor(1e-3, device=card)
+    with pytest.raises(ValueError, match="CUDA kernel needs"):
+        fb.big_sae_forward(p, x[:48])
+    wide, xw = _big_inputs(card, 32, 32, 1032)
+    with pytest.raises(ValueError, match="CUDA kernel needs"):
+        fb.big_sae_forward(wide, xw)
+    with pytest.raises(ValueError, match="CUDA kernel needs"):
+        fb.big_sae_backward(wide, alpha, xw, xw)
+    with pytest.raises(ValueError, match="split between"):
+        fb.big_sae_backward(p, alpha, x, x.cpu())
+    with pytest.raises(ValueError, match="not contiguous"):
+        fb.big_sae_forward(p, x.t().contiguous().t())
+    with pytest.raises(ValueError, match="float32"):
+        fb.big_sae_forward(p, x.half())
+    with pytest.raises(ValueError, match="no kernel tiles"):
+        fb.fused_big_sae_loss_and_grads(p, x[:48], 1e-3, False)

@@ -103,6 +103,29 @@ def test_corrupt_chunk_is_a_typed_error(tmp_path):
         jcs.ChunkStore(tmp_path).load_chunk(1)
 
 
+@pytest.mark.parametrize("payload", [
+    {"version": 1, "chunks": {"3": {"reason": "x", "file": "3.npy"}}},
+    {"b": [1, 2.5, None], "a": {"z": "é", "y": True}},
+    {"payload_sha256": "stale", "k": 0}], ids=["ledger", "mixed", "stale"])
+def test_payload_digest_matches_jax(payload):
+    """embed_payload_digest gives the JAX package's digest on the same
+    payload, so a ledger written by either side verifies on the other."""
+    from sparse_coding_tpu.resilience import manifest as jman
+    from sparse_coding_tpu_torch.resilience import manifest as tman
+
+    got, want = tman.embed_payload_digest(payload), jman.embed_payload_digest(
+        payload)
+    assert got == want and json.dumps(got) == json.dumps(want)
+    assert tman.check_payload_digest(want) == jman.check_payload_digest(got)
+    assert tman.check_payload_digest(got) == "ok"
+    tampered = dict(got, extra=1)
+    assert (tman.check_payload_digest(tampered)
+            == jman.check_payload_digest(tampered) == "mismatch")
+    body = {k: v for k, v in got.items() if k != tman.PAYLOAD_DIGEST_KEY}
+    assert tman.check_payload_digest(body) == "absent"
+    assert tman.check_payload_digest([1]) == "mismatch"
+
+
 def test_open_store_takes_the_flat_layout_only(tmp_path):
     _write(tcs, tmp_path, "float16", False)
     assert open_store(tmp_path).n_chunks == 4

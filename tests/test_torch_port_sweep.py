@@ -111,7 +111,7 @@ def test_sweep_without_a_card_raises(tmp_path):
         basic_l1_sweep(tmp_path, tmp_path / "out", L1_VALUES)
 
 
-@pytest.mark.parametrize("cls", ["DataArgs", "EnsembleArgs"])
+@pytest.mark.parametrize("cls", ["DataArgs", "EnsembleArgs", "BigSAEArgs"])
 def test_config_matches_jax(cls):
     """Same fields, defaults and CLI parsing as the JAX package's."""
     j, t = getattr(jconfig, cls), getattr(tconfig, cls)
@@ -123,6 +123,9 @@ def test_config_matches_jax(cls):
     if cls == "EnsembleArgs":
         argv += ["--batch_size", "512", "--fused_path", "two_stage",
                  "--tied_ae", "true", "--lr", "3e-4"]
+    if cls == "BigSAEArgs":
+        argv += ["--n_feats", "4096", "--l1_alpha", "3e-4",
+                 "--resurrect_every", "0", "--scan_steps", "4"]
     assert t.from_cli(argv).to_dict() == j.from_cli(argv).to_dict()
 
 
