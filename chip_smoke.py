@@ -49,8 +49,14 @@ Phases — any failure raises, and the script exits non-zero with no result:
    limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds ``big_sae_fwd``/``big_sae_bwd`` against their plain
-versions at the big-SAE shape and at small odd shapes up to their widest
-d (1024).
+versions at the big-SAE shape, at small odd shapes up to their widest d
+(1024) and at a batch that ``big_sae_bwd`` takes in three chunks (the
+last one short). At the big-SAE shape it checks that two ``big_sae_bwd``
+calls give the same bits, records one call's peak memory beside the plain
+version's, and times each of its launches (the four products, the
+per-feature sums, dctr) on one chunk. ``big_sae_bwd`` counts one launch
+per call of the K9 contract; its own launches count under
+``_build.BWD_PARTS`` (once per batch chunk; dctr once per call).
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card;
 ``--report PATH`` also writes every measurement as JSON).
@@ -158,6 +164,12 @@ BIG_CHUNK_ROWS, BIG_CHUNKS, BIG_EPOCHS, BIG_RESURRECT = 2 * BIG_BATCH, 4, 2, 8
 BIG_STEPS = BIG_EPOCHS * BIG_CHUNKS * BIG_CHUNK_ROWS // BIG_BATCH
 BIG_SMALL_SHAPES = ((32, 64, 40), (64, 64, 128), (32, 96, 640),
                     (64, 32, 1024))  # (batch, n_feats, d)
+# big_sae_bwd runs the batch in chunks of 8,192 rows at 16,384 features
+# (its 1 GiB workspace): this batch takes 8,192 + 8,192 + 4,096
+BIG_CHUNK_SHAPE = (20480, BIG_N, BIG_D)
+# a big_sae_bwd call may allocate its outputs, the normalized dictionary
+# and its workspace, plus the caching allocator's rounding
+BIG_BWD_MEM_SLACK = 8 * 2**20
 BIG_N_DEAD = 20
 # big_sae_bwd's l0 is a count over B·n codes: a pre-activation within
 # rounding of 0 (the two sides sum its 1024 products in other orders) can
@@ -566,7 +578,7 @@ def main_path(store: Path, out_dir: Path, l1_values, n_steps: int,
     log(f"  basic_l1_sweep(tied={tied}): {wall:.2f} s wall, launches "
         f"{launches}")
     ours = TIED_KERNELS if tied else UNTIED_KERNELS
-    want = {name: n_steps if name in ours else 0 for name in _build.KERNELS}
+    want = {name: n_steps if name in ours else 0 for name in _build.LAUNCHES}
     if launches != want:
         raise AssertionError(f"launches on the main path {launches}, "
                              f"expected {want} (one per step of this "
@@ -719,7 +731,7 @@ def other_paths(batches: list, l1_values) -> dict:
             losses = [ens.step_batch(b).losses["loss"] for b in batches]
             sync()
             launches = dict(_build.LAUNCHES)
-            want = {k: 0 for k in _build.KERNELS}
+            want = {k: 0 for k in _build.LAUNCHES}
             want.update({k: n * len(batches)
                          for k, n in zip(kernels, PATH_LAUNCHES[path])})
             label = f"{family} {path}"
@@ -876,9 +888,115 @@ def time_big_kernels(p: dict, x: torch.Tensor) -> dict:
     return out
 
 
+def big_launches(steps: int) -> dict:
+    """Every launch count after ``steps`` big-SAE kernel steps: one
+    big_sae_fwd and one big_sae_bwd call a step, each K9 launch once per
+    batch chunk (dctr once a call), nothing else."""
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    n_chunks = len(fb.bwd_chunks(BIG_BATCH, BIG_N))
+    want = {k: 0 for k in _build.LAUNCHES}
+    want.update({k: steps for k in BIG_KERNELS})
+    want.update({k: steps if k == "big_sae_bwd_dctr" else steps * n_chunks
+                 for k in _build.BWD_PARTS})
+    return want
+
+
+def peak_bytes(fn) -> int:
+    """Device memory ``fn`` allocates at its peak above what was
+    allocated before it (max_memory_allocated after a reset)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    torch.cuda.empty_cache()
+    return peak
+
+
+def big_bwd_extras(p: dict, x: torch.Tensor) -> dict:
+    """big_sae_bwd at the main shape: two calls give the same bits; the
+    peak memory of one call beside the plain version's (the kernel's must
+    stay within its outputs, Wn and the workspace cap); and each of its
+    launches timed alone on the first chunk (CUDA events, 5 launches)."""
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    xc = (x - p["centering"]).contiguous()
+    r = (fb.big_sae_forward_plain(p, xc) - x).contiguous()
+    alpha = torch.tensor(BIG_L1, device=DEV)
+    b, d = xc.shape
+    n = p["dict"].shape[0]
+    first = fb.big_sae_backward(p, alpha, xc, r)
+    again = fb.big_sae_backward(p, alpha, xc, r)
+    same = [torch.equal(u, v) for u, v in zip(first, again)]
+    del first, again
+    if not all(same):
+        raise AssertionError(f"big_sae_bwd: two calls differ ({same})")
+    rows = fb.bwd_chunk_rows(b, n)
+    allowed = 4 * (2 * rows * n + 3 * n * d + 3 * n + d + 2) \
+        + BIG_BWD_MEM_SLACK
+    mem = {"kernel": peak_bytes(lambda: fb.big_sae_backward(p, alpha, xc,
+                                                            r)),
+           "plain": peak_bytes(lambda: fb.big_sae_backward_plain(p, alpha,
+                                                                 xc, r)),
+           "kernel_allowed": allowed}
+    log(f"  big_sae_bwd: two calls bit-identical; peak memory of one call "
+        f"{mem['kernel'] / 2**20:.1f} MiB (allowed {allowed / 2**20:.1f}: "
+        f"outputs, Wn, workspace {2 * rows * n * 4 / 2**20:.0f} MiB), plain "
+        f"{mem['plain'] / 2**20:.1f} MiB")
+    if mem["kernel"] > allowed:
+        raise AssertionError(f"big_sae_bwd allocated {mem['kernel']} bytes "
+                             f"at its peak (> {allowed})")
+
+    xk, rk = xc[:rows], r[:rows]
+    e, t = p["encoder"], p["threshold"]
+    wn = fb.normalized_dict(p["dict"])
+    al = alpha.reshape(1)
+    kw = {"dtype": torch.float32, "device": DEV}
+    c, g_ = torch.empty((rows, n), **kw), torch.empty((rows, n), **kw)
+    de, dwn = torch.empty((d, n), **kw), torch.empty((n, d), **kw)
+    dt, ct, l0f = (torch.zeros((n,), **kw) for _ in range(3))
+    dctr, scal = torch.empty((d,), **kw), torch.empty((2,), **kw)
+    coef = float(np.float32(2.0 / (b * d)))
+    gemm = 2.0 * rows * n * d
+    parts = {  # launch, FLOPs; in the order one chunk runs them
+        "big_sae_bwd_codes": (lambda: fb.bwd_codes(xk, e, t, c), gemm),
+        "big_sae_bwd_dpre": (
+            lambda: fb.bwd_dpre(rk, wn, c, al, g_, b, coef), gemm),
+        "big_sae_bwd_de": (lambda: fb.bwd_de(xk, g_, de, True), gemm),
+        "big_sae_bwd_dwn": (
+            lambda: fb.bwd_dwn(c, rk, dwn, True, False, coef), gemm),
+        "big_sae_bwd_sums": (
+            lambda: fb.bwd_sums(c, g_, rows, dt, ct, l0f, True), 0.0),
+        "big_sae_bwd_dctr": (
+            lambda: fb.bwd_dctr(e, dt, ct, l0f, dctr, scal), 2.0 * n * d),
+    }
+    times = {}
+    for name, (fn, flops) in parts.items():
+        ms = time_ms(fn, 5)
+        times[name] = {"ms": ms, "tflops": flops / ms / 1e9}
+        log(f"  {name} ({rows} rows): {ms:.3f} ms"
+            + (f", {flops / ms / 1e9:.1f} TFLOP/s" if flops else ""))
+    n_chunks = len(fb.bwd_chunks(b, n))
+    per_call = n_chunks * sum(v["ms"] for k, v in times.items()
+                              if k != "big_sae_bwd_dctr") \
+        + times["big_sae_bwd_dctr"]["ms"]
+    log(f"  {n_chunks} chunks: the launches sum to {per_call:.2f} ms a call")
+    del c, g_, de, dwn
+    torch.cuda.empty_cache()
+    return {"bit_identical": True, "peak_bytes": mem, "chunk_rows": rows,
+            "chunks": n_chunks, "parts": times, "parts_sum_ms": per_call}
+
+
 def big_phase2(store: Path, g: torch.Generator) -> dict:
-    """Phase 2's big-SAE part: small odd shapes, then the main shape (the
-    store's first batch) — checks, active codes, bounds and times."""
+    """Phase 2's big-SAE part: small odd shapes, the main shape (the
+    store's first batch) and a batch of several K9 chunks — checks; then
+    at the main shape K9's repeat, memory and per-launch times, the
+    active codes, bounds and times."""
     from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
 
     checks = {}
@@ -890,6 +1008,12 @@ def big_phase2(store: Path, g: torch.Generator) -> dict:
     p = big_params(g, BIG_N, BIG_D)
     checks["main"] = check_big_kernels(p, x, "big main")
     torch.cuda.empty_cache()
+    b, n, d = BIG_CHUNK_SHAPE
+    checks[f"big {b}x{n}x{d}"] = check_big_kernels(
+        big_params(g, n, d), torch.randn((b, d), generator=g).to(DEV),
+        "big chunks")
+    torch.cuda.empty_cache()
+    extras = big_bwd_extras(p, x)
     xc = x - p["centering"]
     nnz = int(((xc @ p["encoder"] + p["threshold"]) > 0).sum())
     del xc
@@ -898,7 +1022,8 @@ def big_phase2(store: Path, g: torch.Generator) -> dict:
         f"({100 * nnz / (BIG_BATCH * BIG_N):.1f}%)")
     timing = time_big_kernels(p, x)
     return {"checks": checks, "active_codes": nnz, "timing": timing,
-            "bounds": big_bounds(BIG_BATCH, BIG_N, BIG_D, nnz)}
+            "bounds": big_bounds(BIG_BATCH, BIG_N, BIG_D, nnz),
+            "bwd": extras}
 
 
 def _big_snapshot(state) -> dict:
@@ -955,7 +1080,7 @@ def big_main_path(store: Path, out_dir: Path) -> dict:
     finally:
         bs.make_big_sae_step, bs.resurrect_dead_features = (real_make,
                                                             real_resurrect)
-    want = {k: BIG_STEPS if k in BIG_KERNELS else 0 for k in _build.KERNELS}
+    want = big_launches(BIG_STEPS)
     if launches != want or len(events) != BIG_STEPS:
         raise AssertionError(f"big-SAE main path: {len(events)} steps, "
                              f"launches {launches}, expected {want}")
@@ -1211,7 +1336,8 @@ def main() -> int:
     log(f"  built {list(_build.KERNELS)} in {report['build_s']:.1f} s")
     for name in _build.KERNELS:
         for line in (out / f"{name}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry function" in line):
                 log(f"  ptxas {name}: {line.strip()}")
 
     log("phase 2: kernels vs plain versions")
@@ -1320,6 +1446,11 @@ def main() -> int:
             "bound_by": bnd[name]["bound_by"],
             "library_ms": timing[name]["library_ms"],
             "contracts": KERNEL_META[name]["contracts"]})
+        if name == "big_sae_bwd":
+            kernels[-1]["parts"] = {
+                k: {"launches": report["big_main"]["launches"][k],
+                    "ms": v["ms"]}
+                for k, v in big["bwd"]["parts"].items()}
     report["kernels"] = kernels
     report["timing"] = timing
     report["bounds"] = bnd

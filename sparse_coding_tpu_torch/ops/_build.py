@@ -49,15 +49,33 @@ ARGTYPES = {
     "sae_untied_adam_vjp": [_P] * 18 + [_I] * 3 + [_F] * 5 + [_P],
     # xc, E [d, n], Wn, t, xhat, B, n, d, stream
     "big_sae_fwd": [_P] * 5 + [_I] * 3 + [_P],
-    # xc, r, E [d, n], Wn, t, alpha, dE, dWn, dt, c_totals, dctr_part,
-    # scal_part, B, n, d, coef, stream
-    "big_sae_bwd": [_P] * 12 + [_I] * 3 + [_F, _P],
+    # K9's launches, one batch chunk at a time (csrc/big_sae_bwd.cu):
+    # xc, E [d, n], t, C, rows, n, d, stream
+    "big_sae_bwd_codes": [_P] * 4 + [_I] * 3 + [_P],
+    # r, Wn, C, alpha, G, rows, n, d, B, coef, stream
+    "big_sae_bwd_dpre": [_P] * 5 + [_I] * 4 + [_F, _P],
+    # xc, G, dE, rows, n, d, first, stream
+    "big_sae_bwd_de": [_P] * 3 + [_I] * 4 + [_P],
+    # C, r, dWn, rows, n, d, first, last, coef, stream
+    "big_sae_bwd_dwn": [_P] * 3 + [_I] * 5 + [_F, _P],
+    # C, G, dt, c_totals, l0f, rows, n, first, stream
+    "big_sae_bwd_sums": [_P] * 5 + [_I] * 3 + [_P],
+    # E, dt, c_totals, l0f, dctr, scal, n, d, stream
+    "big_sae_bwd_dctr": [_P] * 6 + [_I] * 2 + [_P],
 }
+# The library of each entry point: its own name, or for K9's launches the
+# big_sae_bwd library.
+BWD_PARTS = tuple(name for name in ARGTYPES if name.startswith("big_sae_bwd_"))
+LIBRARY_OF = {name: ("big_sae_bwd" if name in BWD_PARTS else name)
+              for name in ARGTYPES}
 
-# Launch counts, one plain integer per kernel: each wrapper adds one where
-# it launches its kernel and nowhere else, so a run can show that the main
-# path went through the kernels. reset_launches() zeroes them.
-LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+# Launch counts, one plain integer per kernel and per K9 launch: each
+# wrapper adds one where it launches its kernel and nowhere else, so a run
+# can show that the main path went through the kernels. "big_sae_bwd"
+# counts calls of the K9 contract (fused_big_sae.big_sae_backward), each of
+# which launches the BWD_PARTS once per batch chunk (dctr once).
+# reset_launches() zeroes them.
+LAUNCHES: dict[str, int] = {name: 0 for name in (*KERNELS, *BWD_PARTS)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -70,11 +88,10 @@ UNTIED_FEAT_TILE = 16  # the untied backward's tile (two weight tiles)
 ADAM_ROWS = 8
 MAX_D = 768
 # The big-SAE kernels' blocking: the forward owns 32-row batch tiles and
-# walks 32-feature tiles; the backward owns 16-feature tiles and walks the
-# batch 8 rows at a time, streaming rows so that d may reach 1024.
+# walks 32-feature tiles, streaming rows so that d may reach 1024; the
+# backward's batch chunks are multiples of BIG_BATCH_TILE rows.
 BIG_BATCH_TILE = 32
 BIG_FEAT_TILE = 32
-BIG_BWD_FEAT_TILE = 16
 BIG_MAX_D = 1024
 
 
@@ -180,29 +197,30 @@ def build_all() -> Path:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, building all of them first if
-    needed. Every C entry point returns its cudaError_t as an int."""
+    """The loaded library of one kernel source, building all of them
+    first if needed. Every C entry point returns its cudaError_t as an
+    int."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             out = build_all()
             for kname in KERNELS:
                 if kname not in _libs:
-                    loaded = ctypes.CDLL(str(out / f"lib{kname}.so"))
-                    fn = getattr(loaded, kname)
-                    fn.argtypes = ARGTYPES[kname]
-                    fn.restype = ctypes.c_int
-                    _libs[kname] = loaded
+                    _libs[kname] = ctypes.CDLL(str(out / f"lib{kname}.so"))
+            for entry, kname in LIBRARY_OF.items():
+                fn = getattr(_libs[kname], entry)
+                fn.argtypes = ARGTYPES[entry]
+                fn.restype = ctypes.c_int
             lib = _libs[name]
         return lib
 
 
 def launch(name: str, *args) -> None:
-    """Call one kernel's C entry point, raise on a non-zero cudaError_t,
-    and count the launch. A refused launch (too much shared memory, a bad
-    configuration) shows only here: torch.cuda.synchronize() would not
-    report it."""
-    rc = getattr(library(name), name)(*args)
+    """Call one C entry point (a kernel's, or one of BWD_PARTS), raise on
+    a non-zero cudaError_t, and count the launch. A refused launch (too
+    much shared memory, a bad configuration) shows only here:
+    torch.cuda.synchronize() would not report it."""
+    rc = getattr(library(LIBRARY_OF[name]), name)(*args)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     LAUNCHES[name] += 1

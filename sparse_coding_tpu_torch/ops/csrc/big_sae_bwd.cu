@@ -1,238 +1,282 @@
 // big_sae_bwd — backward of the giant single SAE: every parameter grad,
-// the dead-feature tracker's activation mass and the l1/l0 sums in one
-// pass, with the [B, n] codes recomputed per tile and never stored.
+// the dead-feature tracker's activation mass and the l1/l0 sums, with the
+// [B, n] codes never stored whole.
 //
-// Replaces: sparse_coding_tpu/ops/fused_big_sae.py::big_sae_backward (the
-// Pallas _bwd_kernel).
+// Replaces: sparse_coding_tpu/ops/fused_big_sae.py:253 big_sae_backward
+// (the Pallas _bwd_kernel, pallas_call at :298).
 //
-//   pre = xc E_f + t_f (E [d, n] RAW), c = relu(pre), mask = [pre > 0]
-//   dpre = (coef * r . Wn_f + alpha/B) * mask,   coef = 2/(B*d)
-//   dE[:, f] = xc^T dpre,  dWn_f = coef * c^T r,  dt_f = sum_b dpre,
-//   c_totals_f = sum_b c,  l1 = sum c,  l0 = sum mask
+//   pre = xc E + t (E [d, n] RAW), c = relu(pre), mask = [pre > 0]
+//   dpre = (coef * r Wn^T + alpha/B) * mask,   coef = 2/(B*d)
+//   dE = xc^T dpre,  dWn = coef * c^T r,  dt = sum_b dpre,
+//   c_totals = sum_b c,  l1 = sum c,  l0 = sum mask
 //   dctr_enc = -sum_b sum_f dpre[b, f] E[:, f] = -E dt
 //
 // The last line is the TPU kernel's fifth product (a [Bt, Ft] x [Ft, d]
 // product per grid step, summed over the batch) reordered: since
-// sum_b dpre[b, f] = dt_f, each block writes -E[:, tile] dt[tile] from its
-// own finished dt in its epilogue. Same function, summed in another order,
-// and B*n*d fewer multiply-adds.
+// sum_b dpre[b, f] = dt_f, it is one matvec after the last chunk. Same
+// function, summed in another order, and B*n*d fewer multiply-adds.
 //
-// Bound on an H100: operations. 8*B*n*d fp32 FLOPs dense (pre recomputed,
-// r.Wn^T, and the two weight-grad products) against (2*B*d + 2*n*d + n +
-// 2*n*d + 2*n + d)*4 bytes; at the trainer's shape (B=65536, n=16384,
-// d=1024) that is 8.8 TFLOP = 131 ms at the 67 TFLOP/s fp32 peak vs about
-// 1 GB = 0.3 ms at 3.35 TB/s. Two of the four products need only the
-// active codes; chip_smoke.py counts those.
+// Bound on an H100: operations. 8*B*n*d fp32 FLOPs dense (pre, r Wn^T and
+// the two weight-grad products) against (2*B*d + 4*n*d + 3*n + d)*4 bytes;
+// at the trainer's shape (B=65536, n=16384, d=1024) that is 8.8 TFLOP =
+// 131 ms at the 67 TFLOP/s fp32 peak vs about 0.8 GB = 0.25 ms at 3.35 TB/s.
+// Two of the four products need only the active codes (about half);
+// chip_smoke.py counts those, which puts the bound at about 82 ms.
 //
-// Design: one block owns one 16-feature tile and loops over the whole
-// batch, 8 rows a step, in a fixed order, so dE/dWn/dt/c_totals
-// accumulate in registers with no atomics. The encoder slice E[:, tile]
-// (64 KB at d=1024) and the Wn rows (64 KB) stay in shared memory for the
-// whole loop; the xc and r rows stream through 8 at a time (32 KB each) —
-// the ensemble kernels' 16- and 32-row tiles would not fit beside the two
-// weight tiles at d=1024 (193 KB in all, of the 227 KB a block may use).
-// Each step, two threads share one (row, feature) pair and each sums half
-// of d (the even and the odd columns, which keeps the shared-memory banks
-// distinct) for both pre and r.Wn^T, joined by one shuffle; then every
-// thread adds the step's rank-8 updates to its dE and dWn columns
-// (2 x 16 x NC accumulators). Cross-block values — the centering grad and
-// l1/l0 — go to per-feature-tile partial buffers the wrapper sums in a
-// fixed order.
+// Design: why chunked products. The TPU kernel keeps one batch tile's
+// codes in VMEM and accumulates dE and dWn over batch tiles. An SM has
+// 227 KB, not VMEM's megabytes, and holding dE[:, tile] and dWn[tile] in
+// registers across the whole batch capped a feature tile at 16 at d=1024
+// and sent the whole batch through every block (7 TFLOP/s on an H100).
+// Here the codes of one batch CHUNK of Bc rows live in a bounded
+// device-memory workspace (C and G = dpre, 2*Bc*n*4 bytes; the wrapper caps
+// it at 1 GiB, Bc = 8192 at the trainer's shape), and the four products
+// become large ordinary GEMMs that a register-tiled kernel (sgemm_simt.cuh)
+// runs near the fp32 FMA rate. Per chunk, in order on one stream:
+//   codes: C = relu(xc_k E + t)                       (NN, [Bc,d] x [d,n])
+//   dpre:  G = (coef * r_k Wn^T + alpha/B) * [C > 0]   (NT, [Bc,d] x [n,d]^T)
+//   de:    dE (+)= xc_k^T G                           (TN, [d,Bc] x [Bc,n])
+//   dwn:   dWn (+)= C^T r_k, times coef on the last chunk (TN)
+//   sums:  dt (+)= sum_b G, c_totals (+)= sum_b C, l0 per feature (+)=
+//          count(C > 0)
+// and after the last chunk, dctr: -E dt as a matvec, with l1 = sum c_totals
+// and l0 = sum of the per-feature counts (in double, fixed order).
+// [C > 0] is exactly [pre > 0]: a NaN pre gives a NaN C, and both are false.
+// Every sum runs in a fixed order (one thread per output element over a
+// chunk, chunks in order; fixed warp orders in sums and dctr), with no
+// atomics, so two calls give the same bits.
 #include "sae_common.cuh"
+#include "sgemm_simt.cuh"
 
 namespace {
 
-using namespace sae;
+using sgemm::Operand;
+using sgemm::aligned16;
+using sgemm::load4;
+using sgemm::store4;
 
-constexpr int kFt = kBigBwdFeatTile;
-constexpr int kRows = kBigBwdRows;
-static_assert(2 * kRows * kFt == kThreads,
-              "two threads per (batch row, feature) pair");
-static_assert(kFt * 2 == 32, "one warp holds one row's 16 features x 2 halves");
-
-// Row stride of the Wn rows in shared memory: = 2 (mod 32), so 16 rows x
-// 2 neighbouring columns fall in 32 different banks.
-__host__ __device__ inline int wn_ld(int d) { return (d + 31) / 32 * 32 + 2; }
-
-template <int NC>
-__global__ void __launch_bounds__(kThreads)
-bwd_kernel(const float* __restrict__ xc, const float* __restrict__ r,
-           const float* __restrict__ E, const float* __restrict__ Wn,
-           const float* __restrict__ t, const float* __restrict__ alpha,
-           float* __restrict__ dE, float* __restrict__ dWn,
-           float* __restrict__ dt, float* __restrict__ c_totals,
-           float* __restrict__ dctr_part, float* __restrict__ scal_part,
-           int B, int n, int d, int ld, int wld, float coef) {
-  extern __shared__ float smem[];
-  float* es = smem;                  // [d][kFt]    E[:, f0:f0+16]
-  float* ws = es + d * kFt;          // [kFt][wld]  Wn rows f0..f0+15
-  float* xs = ws + kFt * wld;        // [kRows][ld] this step's xc rows
-  float* rs = xs + kRows * ld;       // [kRows][ld] this step's r rows
-  float* cs = rs + kRows * ld;       // [kRows][kFt] codes
-  float* ps = cs + kRows * kFt;      // [kRows][kFt] dpre
-  float* fs = ps + kRows * kFt;      // [3][kFt] dt, c sums, mask counts
-
-  const int tid = threadIdx.x;
-  const int ft = blockIdx.x;
-  const int f0 = ft * kFt;
-  const float alpha_over_b = alpha[0] / (float)B;
-
-  load_window(es, E + f0, d, kFt, (size_t)n, kFt);  // published by the
-  load_tile(ws, Wn + (size_t)f0 * d, kFt, d, wld);  // loop's first sync
-
-  float ge[kFt][NC], gw[kFt][NC];
+// C = relu_keep_nan(acc + t[n])
+struct CodesEpi {
+  const float* t;
+  float* c;
+  int ld;
+  bool vec;
+  __device__ void operator()(int m, int n, int N, float (&v)[4]) const {
+    float tv[4];
+    load4(t, 0, vec, 0, n, N, tv);
 #pragma unroll
-  for (int f = 0; f < kFt; ++f)
+    for (int e = 0; e < 4; ++e) v[e] = sae::relu_keep_nan(v[e] + tv[e]);
+    store4(c, ld, vec, m, n, N, v);
+  }
+};
+
+// G = (coef * acc + alpha/B) * [C > 0], the operations of the plain version
+// in its order (no contraction into an FMA)
+struct DpreEpi {
+  const float* c;
+  const float* alpha;
+  float* g;
+  int ld;
+  bool vec;
+  float coef;
+  float total_b;
+  __device__ void operator()(int m, int n, int N, float (&v)[4]) const {
+    float cv[4];
+    load4(c, ld, vec, m, n, N, cv);
+    const float ab = alpha[0] / total_b;
 #pragma unroll
-    for (int k = 0; k < NC; ++k) ge[f][k] = gw[f][k] = 0.f;
-  float dt_acc = 0.f, c_acc = 0.f, l0_acc = 0.f;
+    for (int e = 0; e < 4; ++e)
+      v[e] = __fmul_rn(__fadd_rn(__fmul_rn(coef, v[e]), ab),
+                       cv[e] > 0.f ? 1.f : 0.f);
+    store4(g, ld, vec, m, n, N, v);
+  }
+};
 
-  // pair ownership: warp -> batch row of the step, lane -> feature
-  // (lane & 15) and half (lane >> 4: the even or the odd columns)
-  const int row = tid >> 5, fo = tid & 15, half = (tid >> 4) & 1;
-  const float tb = t[f0 + fo];
-  const float* er = es + fo;         // E[j, f0 + fo] = er[j * kFt]
-  const float* wr = ws + fo * wld;
+// out = (first ? 0 : out) + acc, then times `scale` on the last chunk
+struct AccumEpi {
+  float* o;
+  int ld;
+  bool vec;
+  bool first;
+  bool last;
+  float scale;
+  __device__ void operator()(int m, int n, int N, float (&v)[4]) const {
+    if (!first) {
+      float old[4];
+      load4(o, ld, vec, m, n, N, old);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = old[e] + v[e];
+    }
+    if (last) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = __fmul_rn(scale, v[e]);
+    }
+    store4(o, ld, vec, m, n, N, v);
+  }
+};
 
-  for (int b0 = 0; b0 < B; b0 += kRows) {
-    __syncthreads();  // the previous step's reads of xs/rs/cs/ps are done
-    load_tile(xs, xc + (size_t)b0 * d, kRows, d, ld);
-    load_tile(rs, r + (size_t)b0 * d, kRows, d, ld);
-    __syncthreads();
+constexpr int kSumWarps = sae::kWarps;
 
-    const float* xr = xs + row * ld;
-    const float* rr = rs + row * ld;
-    float p = 0.f, q = 0.f;
+// One block per 32 features: warp w sums rows w, w+8, ... of the chunk in
+// order, then warps 0..7 are added in order.
+__global__ void __launch_bounds__(sae::kThreads)
+sums_kernel(const float* __restrict__ C, const float* __restrict__ G,
+            int rows, int n, bool first, float* __restrict__ dt,
+            float* __restrict__ c_totals, float* __restrict__ l0f) {
+  __shared__ float part[3][kSumWarps][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int f = blockIdx.x * 32 + lane;
+  float sg = 0.f, sc = 0.f, cnt = 0.f;
 #pragma unroll 4
-    for (int j = half; j < d; j += 2) {
-      p += xr[j] * er[j * kFt];
-      q += rr[j] * wr[j];
-    }
-    p += __shfl_xor_sync(0xffffffffu, p, 16);
-    q += __shfl_xor_sync(0xffffffffu, q, 16);
-    if (half == 0) {
-      const float pre = p + tb;
-      const float mk = pre > 0.f ? 1.f : 0.f;
-      cs[row * kFt + fo] = relu_keep_nan(pre);
-      ps[row * kFt + fo] = (coef * q + alpha_over_b) * mk;
-    }
-    __syncthreads();
-
-    if (tid < kFt) {
-      for (int i = 0; i < kRows; ++i) {
-        const float cv = cs[i * kFt + tid];
-        dt_acc += ps[i * kFt + tid];
-        c_acc += cv;
-        l0_acc += cv > 0.f ? 1.f : 0.f;  // c > 0 exactly where pre > 0
-      }
-    }
-
-    for (int i = 0; i < kRows; ++i) {
-      float xv[NC], rv[NC];
-#pragma unroll
-      for (int k = 0; k < NC; ++k) {
-        const int col = tid + k * kThreads;
-        xv[k] = col < d ? xs[i * ld + col] : 0.f;
-        rv[k] = col < d ? rs[i * ld + col] : 0.f;
-      }
-#pragma unroll
-      for (int f = 0; f < kFt; ++f) {
-        const float dp = ps[i * kFt + f];
-        const float cv = cs[i * kFt + f];
-#pragma unroll
-        for (int k = 0; k < NC; ++k) {
-          ge[f][k] += dp * xv[k];
-          gw[f][k] += cv * rv[k];
-        }
-      }
-    }
+  for (int b = w; b < rows; b += kSumWarps) {
+    const float cv = C[(size_t)b * n + f];
+    sg += G[(size_t)b * n + f];
+    sc += cv;
+    cnt += cv > 0.f ? 1.f : 0.f;
   }
-
-  // epilogue: the finished tiles (dE is a column slice of the [d, n]
-  // matrix, dWn a row slice of [n, d]), then the per-tile partials
-  if (tid < kFt) {
-    fs[tid] = dt_acc;
-    fs[kFt + tid] = c_acc;
-    fs[2 * kFt + tid] = l0_acc;
-    dt[f0 + tid] = dt_acc;
-    c_totals[f0 + tid] = c_acc;
-  }
-#pragma unroll
-  for (int f = 0; f < kFt; ++f)
-#pragma unroll
-    for (int k = 0; k < NC; ++k) {
-      const int col = tid + k * kThreads;
-      if (col < d) {
-        dE[(size_t)col * n + f0 + f] = ge[f][k];
-        dWn[(size_t)(f0 + f) * d + col] = coef * gw[f][k];
-      }
+  part[0][w][lane] = sg;
+  part[1][w][lane] = sc;
+  part[2][w][lane] = cnt;
+  __syncthreads();
+  if (w == 0) {
+    float a = 0.f, c = 0.f, k = 0.f;
+    for (int i = 0; i < kSumWarps; ++i) {
+      a += part[0][i][lane];
+      c += part[1][i][lane];
+      k += part[2][i][lane];
     }
-  __syncthreads();  // fs is published
-  for (int j = tid; j < d; j += kThreads) {
-    float s = 0.f;
-#pragma unroll
-    for (int f = 0; f < kFt; ++f) s += es[j * kFt + f] * fs[f];
-    dctr_part[(size_t)ft * d + j] = -s;
-  }
-  if (tid == 0) {
-    float l1 = 0.f, l0 = 0.f;
-    for (int f = 0; f < kFt; ++f) {
-      l1 += fs[kFt + f];
-      l0 += fs[2 * kFt + f];
+    if (!first) {
+      a = dt[f] + a;
+      c = c_totals[f] + c;
+      k = l0f[f] + k;
     }
-    scal_part[2 * ft] = l1;
-    scal_part[2 * ft + 1] = l0;
+    dt[f] = a;
+    c_totals[f] = c;
+    l0f[f] = k;
   }
 }
 
-template <int NC>
-cudaError_t launch(const float* xc, const float* r, const float* E,
-                   const float* Wn, const float* t, const float* alpha,
-                   float* dE, float* dWn, float* dt, float* c_totals,
-                   float* dctr_part, float* scal_part, int B, int n, int d,
-                   float coef, cudaStream_t stream) {
-  const int ld = padded_ld(d);
-  const int wld = wn_ld(d);
-  const size_t smem = sizeof(float) *
-      ((size_t)d * kFt + (size_t)kFt * wld + 2 * (size_t)kRows * ld +
-       2 * kRows * kFt + 3 * kFt);
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  bwd_kernel<NC><<<n / kFt, kThreads, smem, stream>>>(
-      xc, r, E, Wn, t, alpha, dE, dWn, dt, c_totals, dctr_part, scal_part, B,
-      n, d, ld, wld, coef);
-  return cudaGetLastError();
+// Fixed-order block sum (xor tree in each warp, then warps 0..7 in order);
+// valid in thread 0.
+template <class T>
+__device__ T block_sum(T v, T* scratch) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  T s = 0;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < sae::kWarps; ++w) s += scratch[w];
+  return s;
+}
+
+// Blocks 0..d-1: dctr[j] = -sum_f E[j, f] dt[f]. Block d: l1 = sum_f
+// c_totals[f] and l0 = sum_f l0f[f], in double.
+__global__ void __launch_bounds__(sae::kThreads)
+dctr_kernel(const float* __restrict__ E, const float* __restrict__ dt,
+            const float* __restrict__ c_totals, const float* __restrict__ l0f,
+            int n, int d, float* __restrict__ dctr, float* __restrict__ scal) {
+  __shared__ float fs[sae::kWarps];
+  __shared__ double ds[2][sae::kWarps];
+  const int j = blockIdx.x;
+  if (j < d) {
+    const float* row = E + (size_t)j * n;
+    float s = 0.f;
+    for (int f = threadIdx.x; f < n; f += sae::kThreads) s += row[f] * dt[f];
+    s = block_sum(s, fs);
+    if (threadIdx.x == 0) dctr[j] = -s;
+  } else {
+    double l1 = 0.0, l0 = 0.0;
+    for (int f = threadIdx.x; f < n; f += sae::kThreads) {
+      l1 += c_totals[f];
+      l0 += l0f[f];
+    }
+    l1 = block_sum(l1, ds[0]);
+    l0 = block_sum(l0, ds[1]);
+    if (threadIdx.x == 0) {
+      scal[0] = (float)l1;
+      scal[1] = (float)l0;
+    }
+  }
+}
+
+bool chunk_ok(int rows, int n, int d) {
+  return rows >= 1 && rows % sae::kBigBatchTile == 0 && n >= 1 &&
+         n % sae::kBigFeatTile == 0 && d >= 1 && d <= sae::kBigMaxD;
 }
 
 }  // namespace
 
-// xc [B, d], r [B, d], E [d, n] raw encoder, Wn [n, d] row-normalized,
-// t [n], alpha [1] -> dE [d, n], dWn [n, d], dt [n], c_totals [n],
-// dctr_part [n/16, d], scal_part [n/16, 2]; all fp32, contiguous.
-// coef = 2/(B*d) as fp32. Needs B % 32 == 0, n % 32 == 0, 1 <= d <= 1024
-// (the forward's contract). Returns the launch's cudaError_t.
-extern "C" int big_sae_bwd(const float* xc, const float* r, const float* E,
-                           const float* Wn, const float* t,
-                           const float* alpha, float* dE, float* dWn,
-                           float* dt, float* c_totals, float* dctr_part,
-                           float* scal_part, int B, int n, int d, float coef,
-                           void* stream) {
-  if (B % kBigBatchTile || n % kBigFeatTile || d < 1 || d > kBigMaxD || B < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch ((d + kThreads - 1) / kThreads) {
-    case 1:
-      return (int)launch<1>(xc, r, E, Wn, t, alpha, dE, dWn, dt, c_totals,
-                            dctr_part, scal_part, B, n, d, coef, s);
-    case 2:
-      return (int)launch<2>(xc, r, E, Wn, t, alpha, dE, dWn, dt, c_totals,
-                            dctr_part, scal_part, B, n, d, coef, s);
-    case 3:
-      return (int)launch<3>(xc, r, E, Wn, t, alpha, dE, dWn, dt, c_totals,
-                            dctr_part, scal_part, B, n, d, coef, s);
-    default:
-      return (int)launch<4>(xc, r, E, Wn, t, alpha, dE, dWn, dt, c_totals,
-                            dctr_part, scal_part, B, n, d, coef, s);
-  }
+// Every entry point takes fp32, contiguous, row-major tensors and launches
+// on `stream`; it returns the launch's cudaError_t. One chunk is `rows`
+// consecutive batch rows (a multiple of 32); xc and r point at its first
+// row. C and G are the [rows, n] workspace. B is the whole batch.
+
+// C [rows, n] = relu(xc [rows, d] . E [d, n] + t [n])
+extern "C" int big_sae_bwd_codes(const float* xc, const float* E,
+                                 const float* t, float* C, int rows, int n,
+                                 int d, void* stream) {
+  if (!chunk_ok(rows, n, d)) return (int)cudaErrorInvalidValue;
+  const CodesEpi epi{t, C, n, aligned16(t, 0, n) && aligned16(C, n, n)};
+  return (int)sgemm::run<true, false>(Operand{xc, d, false},
+                                      Operand{E, n, aligned16(E, n, n)},
+                                      rows, n, d, epi, (cudaStream_t)stream);
+}
+
+// G [rows, n] = (coef * r [rows, d] . Wn [n, d]^T + alpha[0] / B) * [C > 0]
+extern "C" int big_sae_bwd_dpre(const float* r, const float* Wn,
+                                const float* C, const float* alpha, float* G,
+                                int rows, int n, int d, int B, float coef,
+                                void* stream) {
+  if (!chunk_ok(rows, n, d) || B < rows) return (int)cudaErrorInvalidValue;
+  const DpreEpi epi{C, alpha, G, n,
+                    aligned16(C, n, n) && aligned16(G, n, n), coef, (float)B};
+  return (int)sgemm::run<true, true>(Operand{r, d, false},
+                                     Operand{Wn, d, false}, rows, n, d, epi,
+                                     (cudaStream_t)stream);
+}
+
+// dE [d, n] = (first ? 0 : dE) + xc [rows, d]^T . G [rows, n]
+extern "C" int big_sae_bwd_de(const float* xc, const float* G, float* dE,
+                              int rows, int n, int d, int first,
+                              void* stream) {
+  if (!chunk_ok(rows, n, d)) return (int)cudaErrorInvalidValue;
+  const AccumEpi epi{dE, n, aligned16(dE, n, n), first != 0, false, 1.f};
+  return (int)sgemm::run<false, false>(Operand{xc, d, aligned16(xc, d, d)},
+                                       Operand{G, n, aligned16(G, n, n)}, d,
+                                       n, rows, epi, (cudaStream_t)stream);
+}
+
+// dWn [n, d] = (first ? 0 : dWn) + C [rows, n]^T . r [rows, d], times coef
+// when `last`
+extern "C" int big_sae_bwd_dwn(const float* C, const float* r, float* dWn,
+                               int rows, int n, int d, int first, int last,
+                               float coef, void* stream) {
+  if (!chunk_ok(rows, n, d)) return (int)cudaErrorInvalidValue;
+  const AccumEpi epi{dWn, d, aligned16(dWn, d, d), first != 0, last != 0,
+                     coef};
+  return (int)sgemm::run<false, false>(Operand{C, n, aligned16(C, n, n)},
+                                       Operand{r, d, aligned16(r, d, d)}, n,
+                                       d, rows, epi, (cudaStream_t)stream);
+}
+
+// dt [n] (+)= sum_b G, c_totals [n] (+)= sum_b C, l0f [n] (+)= count(C > 0)
+extern "C" int big_sae_bwd_sums(const float* C, const float* G, float* dt,
+                                float* c_totals, float* l0f, int rows, int n,
+                                int first, void* stream) {
+  if (!chunk_ok(rows, n, 1)) return (int)cudaErrorInvalidValue;
+  sums_kernel<<<n / 32, sae::kThreads, 0, (cudaStream_t)stream>>>(
+      C, G, rows, n, first != 0, dt, c_totals, l0f);
+  return (int)cudaGetLastError();
+}
+
+// dctr [d] = -E [d, n] . dt [n]; scal [2] = (sum c_totals, sum l0f)
+extern "C" int big_sae_bwd_dctr(const float* E, const float* dt,
+                                const float* c_totals, const float* l0f,
+                                float* dctr, float* scal, int n, int d,
+                                void* stream) {
+  if (!chunk_ok(sae::kBigBatchTile, n, d)) return (int)cudaErrorInvalidValue;
+  dctr_kernel<<<d + 1, sae::kThreads, 0, (cudaStream_t)stream>>>(
+      E, dt, c_totals, l0f, n, d, dctr, scal);
+  return (int)cudaGetLastError();
 }

@@ -19,14 +19,13 @@ constexpr int kAdamRows = kWarps;         // dictionary rows per adam block
 constexpr int kMaxD = 3 * kThreads;       // widest d the fwd/bwd kernels take
 constexpr float kNormEps = 1e-8f;         // row norms are clipped, not +eps
 
-// The giant single SAE's kernels (big_sae_fwd, big_sae_bwd) stream rows
-// through shared memory instead of holding whole [rows, d] tiles, so they
-// reach d = 1024.
+// The giant single SAE's kernels: the forward streams rows through shared
+// memory instead of holding whole [rows, d] tiles, and the backward runs
+// chunked products (sgemm_simt.cuh), so they reach d = 1024.
 constexpr int kBigMaxD = 4 * kThreads;    // widest d the big-SAE kernels take
-constexpr int kBigBatchTile = 32;         // rows of xc one forward block owns
+constexpr int kBigBatchTile = 32;         // rows of xc one forward block owns;
+                                          // the backward's chunks are multiples
 constexpr int kBigFeatTile = 32;          // features per forward tile
-constexpr int kBigBwdFeatTile = 16;       // features one backward block owns
-constexpr int kBigBwdRows = 8;            // batch rows per backward loop step
 
 // Shared-memory row stride: odd, so 32 lanes walking one column of 32
 // different rows hit 32 different banks.

@@ -8,12 +8,15 @@ Two hand-written Hopper kernels (``ops/csrc``) never store it:
 
 - ``big_sae_fwd`` — x̂ = relu(xc·E + t)·Wn, one block per batch tile
   looping over every feature tile in a fixed order;
-- ``big_sae_bwd`` — one block per feature tile loops over the whole batch
-  in a fixed order, recomputing the code tiles and accumulating dE, dWn,
-  dt, c_totals (activation mass Σ_b c) and the l1/l0 sums; the
-  encode-side centering grad −Σ_b Σ_f dpre·E[:, f] is formed per block as
-  −E[:, tile]·dt[tile] and the blocks' partials are summed here in a fixed
-  order.
+- ``big_sae_bwd`` — the batch in chunks of at most ``bwd_chunk_rows``
+  rows, in order: per chunk, four hand-written fp32 products with fused
+  epilogues write the chunk's codes C and dpre G into a workspace capped
+  at ``BWD_WORKSPACE_BYTES`` (1 GiB) and add the chunk's share into dE and
+  dWn, and a reduction adds its per-feature sums into dt, c_totals
+  (activation mass Σ_b c) and the l0 counts; after the last chunk a
+  matvec forms the encode-side centering grad −Σ_b Σ_f dpre·E[:, f] as
+  −E·dt, with the l1/l0 sums. The CPU runs the same chunk schedule in
+  plain torch.
 
 Layouts are the JAX package's at every public function: E is [d, n] (the
 kernels read it with its own row stride n), the dictionary [n, d], and the
@@ -145,15 +148,104 @@ def big_sae_backward_plain(params: dict, alpha: torch.Tensor,
     return de, dwn, dt, dctr, c.sum(dim=0), scal
 
 
+# K9 walks the batch in chunks whose codes C and dpre G ([rows, n] fp32
+# each) fit this workspace; the whole [B, n] codes are never formed.
+BWD_WORKSPACE_BYTES = 2**30
+
+
+def bwd_chunk_rows(batch: int, n_feats: int) -> int:
+    """Rows per K9 chunk: the largest multiple of 32 whose two [rows, n]
+    fp32 workspaces fit BWD_WORKSPACE_BYTES (at least 32, at most the
+    batch). 8,192 at the trainer's shape (n = 16,384)."""
+    rows = BWD_WORKSPACE_BYTES // (2 * 4 * n_feats) // 32 * 32
+    return max(32, min(rows, batch))
+
+
+def bwd_chunks(batch: int, n_feats: int) -> list[tuple[int, int]]:
+    """K9's batch chunks [lo, hi), in the order they are summed; the last
+    may be shorter."""
+    rows = bwd_chunk_rows(batch, n_feats)
+    return [(lo, min(lo + rows, batch)) for lo in range(0, batch, rows)]
+
+
+def _backward_chunked_plain(e, wn, t, alpha, xc, r):
+    """K9's chunk schedule in plain torch (the CPU twin of the kernels):
+    the same chunks, each chunk's products and sums added in order."""
+    b, d = xc.shape
+    coef = 2.0 / (b * d)
+    acc = None
+    for lo, hi in bwd_chunks(b, e.shape[1]):
+        xk, rk = xc[lo:hi], r[lo:hi]
+        c = torch.relu(xk @ e + t)
+        mask = (c > 0.0).to(torch.float32)  # = [pre > 0], NaN included
+        g = (coef * (rk @ wn.T) + alpha / b) * mask
+        part = (xk.T @ g, c.T @ rk, g.sum(dim=0), c.sum(dim=0),
+                mask.sum(dim=0))
+        acc = part if acc is None else tuple(a + p for a, p in zip(acc, part))
+    de, dwn, dt, c_totals, l0 = acc
+    scal = torch.stack([c_totals.double().sum(), l0.double().sum()])
+    return (de, coef * dwn, dt, -(e @ dt), c_totals, scal.to(torch.float32))
+
+
+def bwd_codes(xk, e, t, c) -> None:
+    """C [rows, n] = relu(xk·E + t) into the workspace ``c``."""
+    rows, d = xk.shape
+    _build.launch("big_sae_bwd_codes", xk.data_ptr(), e.data_ptr(),
+                  t.data_ptr(), c.data_ptr(), rows, e.shape[1], d,
+                  _build.stream_ptr(xk))
+
+
+def bwd_dpre(rk, wn, c, alpha, g, batch: int, coef: float) -> None:
+    """G [rows, n] = (coef·rk·Wnᵀ + α/B)·[C > 0] into the workspace ``g``."""
+    rows, d = rk.shape
+    _build.launch("big_sae_bwd_dpre", rk.data_ptr(), wn.data_ptr(),
+                  c.data_ptr(), alpha.data_ptr(), g.data_ptr(), rows,
+                  wn.shape[0], d, batch, coef, _build.stream_ptr(rk))
+
+
+def bwd_de(xk, g, de, first: bool) -> None:
+    """dE = (0 if first else dE) + xkᵀ·G."""
+    rows, d = xk.shape
+    _build.launch("big_sae_bwd_de", xk.data_ptr(), g.data_ptr(),
+                  de.data_ptr(), rows, de.shape[1], d, int(first),
+                  _build.stream_ptr(xk))
+
+
+def bwd_dwn(c, rk, dwn, first: bool, last: bool, coef: float) -> None:
+    """dWn = (0 if first else dWn) + Cᵀ·rk, times coef when last."""
+    rows, d = rk.shape
+    _build.launch("big_sae_bwd_dwn", c.data_ptr(), rk.data_ptr(),
+                  dwn.data_ptr(), rows, dwn.shape[0], d, int(first),
+                  int(last), coef, _build.stream_ptr(rk))
+
+
+def bwd_sums(c, g, rows: int, dt, c_totals, l0f, first: bool) -> None:
+    """dt, c_totals and the per-feature l0 counts (+)= the column sums of
+    the first ``rows`` rows of G, C and [C > 0]."""
+    _build.launch("big_sae_bwd_sums", c.data_ptr(), g.data_ptr(),
+                  dt.data_ptr(), c_totals.data_ptr(), l0f.data_ptr(), rows,
+                  dt.shape[0], int(first), _build.stream_ptr(dt))
+
+
+def bwd_dctr(e, dt, c_totals, l0f, dctr, scal) -> None:
+    """dctr = −E·dt; scal = (Σ c_totals, Σ l0f)."""
+    d, n = e.shape
+    _build.launch("big_sae_bwd_dctr", e.data_ptr(), dt.data_ptr(),
+                  c_totals.data_ptr(), l0f.data_ptr(), dctr.data_ptr(),
+                  scal.data_ptr(), n, d, _build.stream_ptr(e))
+
+
 def big_sae_backward(params: dict, alpha: torch.Tensor, xc: torch.Tensor,
                      r: torch.Tensor, batch_tile: Optional[int] = None,
                      feat_tile: Optional[int] = None,
                      total_batch: Optional[int] = None,
                      compute_dtype: str = "float32"):
-    """All parameter grads plus c_totals and the l1/l0 sums in one pass,
-    codes recomputed per tile (K9); see :func:`big_sae_backward_plain`.
-    CUDA: launches ``big_sae_bwd``; its per-feature-tile partials (the
-    centering grad, l1, l0) are summed here in a fixed order."""
+    """All parameter grads plus c_totals and the l1/l0 sums, the codes
+    recomputed one batch chunk at a time (K9); see
+    :func:`big_sae_backward_plain` for the outputs. CUDA: per chunk the
+    launches ``bwd_codes``, ``bwd_dpre``, ``bwd_de``, ``bwd_dwn``,
+    ``bwd_sums`` in order, then ``bwd_dctr``; counts one ``big_sae_bwd``
+    call. CPU: the same chunk schedule in plain torch."""
     b, n, d = _shapes(params, xc)
     _check_unported(total_batch, b, compute_dtype)
     _tiles(b, n, batch_tile, feat_tile)
@@ -162,7 +254,8 @@ def big_sae_backward(params: dict, alpha: torch.Tensor, xc: torch.Tensor,
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=xc.device)
     e, t = params["encoder"], params["threshold"]
     if _on_cpu("big_sae_bwd", xc, r, e, t, params["dict"], alpha):
-        return big_sae_backward_plain(params, alpha, xc, r)
+        return _backward_chunked_plain(e, normalized_dict(params["dict"]), t,
+                                       alpha, xc, r)
     wn = normalized_dict(params["dict"])
     alpha = alpha.reshape(1).contiguous()
     _kernel_checks("big_sae_bwd", b, n, d, xc=xc, r=r, encoder=e, wn=wn,
@@ -172,18 +265,24 @@ def big_sae_backward(params: dict, alpha: torch.Tensor, xc: torch.Tensor,
     dwn = torch.empty((n, d), **kw)
     dt = torch.empty((n,), **kw)
     c_totals = torch.empty((n,), **kw)
-    tiles = n // _build.BIG_BWD_FEAT_TILE
-    dctr_part = torch.empty((tiles, d), **kw)
-    scal_part = torch.empty((tiles, 2), **kw)
+    l0f = torch.empty((n,), **kw)
+    dctr = torch.empty((d,), **kw)
+    scal = torch.empty((2,), **kw)
+    ws = torch.empty((2, bwd_chunk_rows(b, n), n), **kw)
+    c, g = ws[0], ws[1]
     coef = float(np.float32(2.0 / (b * d)))
-    _build.launch("big_sae_bwd", xc.data_ptr(), r.data_ptr(), e.data_ptr(),
-                  wn.data_ptr(), t.data_ptr(), alpha.data_ptr(),
-                  de.data_ptr(), dwn.data_ptr(), dt.data_ptr(),
-                  c_totals.data_ptr(), dctr_part.data_ptr(),
-                  scal_part.data_ptr(), b, n, d, coef,
-                  _build.stream_ptr(xc))
-    return (de, dwn, dt, dctr_part.sum(dim=0), c_totals,
-            scal_part.sum(dim=0))
+    chunks = bwd_chunks(b, n)
+    for i, (lo, hi) in enumerate(chunks):
+        first, last = i == 0, i == len(chunks) - 1
+        xk, rk = xc[lo:hi], r[lo:hi]
+        bwd_codes(xk, e, t, c)
+        bwd_dpre(rk, wn, c, alpha, g, b, coef)
+        bwd_de(xk, g, de, first)
+        bwd_dwn(c, rk, dwn, first, last, coef)
+        bwd_sums(c, g, hi - lo, dt, c_totals, l0f, first)
+    bwd_dctr(e, dt, c_totals, l0f, dctr, scal)
+    _build.LAUNCHES["big_sae_bwd"] += 1
+    return de, dwn, dt, dctr, c_totals, scal
 
 
 # --- the loss-and-grads contract ----------------------------------------------

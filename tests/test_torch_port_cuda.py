@@ -238,6 +238,46 @@ def test_big_sae_kernels_match_plain(card, shape):
     assert torch.equal(got[5][1], want[5][1])  # l0: no mask flips here
     assert _build.LAUNCHES["big_sae_fwd"] == 1
     assert _build.LAUNCHES["big_sae_bwd"] == 1
+    # one chunk at these shapes: each of K9's launches once
+    assert all(_build.LAUNCHES[k] == 1 for k in _build.BWD_PARTS)
+
+
+# (batch, n_feats, d, rows per chunk): several chunks, the last one short,
+# d a multiple of 4 (16-byte copies) or not (4-byte copies)
+BIG_CHUNK_CASES = [(224, 64, 300, 96), (160, 96, 37, 64),
+                   (96, 160, 1024, 64), (288, 32, 129, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BIG_CHUNK_CASES, ids=str)
+def test_big_sae_backward_chunks_match_plain(card, monkeypatch, case):
+    """K9 with the workspace cap lowered so the batch splits into chunks
+    (the last one short) against the unchunked plain version; two calls
+    give the same bits; each launch runs once per chunk."""
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    b, n, d, rows = case
+    monkeypatch.setattr(fb, "BWD_WORKSPACE_BYTES", 2 * 4 * n * rows)
+    n_chunks = len(fb.bwd_chunks(b, n))
+    assert n_chunks >= 2 and b % rows
+    p, x = _big_inputs(card, b, n, d, seed=1)
+    xc = (x - p["centering"]).contiguous()
+    r = (fb.big_sae_forward_plain(p, xc) - x).contiguous()
+    alpha = torch.tensor(3e-3, device=card)
+    _build.reset_launches()
+    got = fb.big_sae_backward(p, alpha, xc, r)
+    again = fb.big_sae_backward(p, alpha, xc, r)
+    want = fb.big_sae_backward_plain(p, alpha, xc, r)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:5], want[:5]):
+        _close(g, w, 1e-3)
+    _close(got[5][:1], want[5][:1], 1e-5)
+    assert torch.equal(got[5][1], want[5][1])
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert _build.LAUNCHES["big_sae_bwd"] == 2
+    assert _build.LAUNCHES["big_sae_bwd_dctr"] == 2
+    assert all(_build.LAUNCHES[k] == 2 * n_chunks
+               for k in _build.BWD_PARTS if k != "big_sae_bwd_dctr")
 
 
 @pytest.mark.cuda
