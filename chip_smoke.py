@@ -7,7 +7,8 @@ Phases — any failure raises, and the script exits non-zero with no result:
 1. card: name and power limit (nvidia-smi), then all eight CUDA kernels
    are built from ``sparse_coding_tpu_torch/ops/csrc`` (one nvcc per
    source, all started together), with their ptxas register and spill
-   lines;
+   lines — every instantiation of the GEMM template among them, where any
+   spill fails the run;
 2. kernels: each ensemble kernel (sae_tied_fwd, sae_tied_bwd,
    sae_tied_adam_vjp, sae_untied_fwd, sae_untied_bwd, sae_untied_adam_vjp)
    and each contract
@@ -48,14 +49,21 @@ Phases — any failure raises, and the script exits non-zero with no result:
 8. summary: one ``{"kernels": [...]}`` line, the card's name and power
    limit, and the last line ``{"ok": true, "device": {...}}``.
 
-Phase 2 also holds ``big_sae_fwd``/``big_sae_bwd`` against their plain
-versions at the big-SAE shape, at small odd shapes up to their widest d
-(1024) and at a batch that ``big_sae_bwd`` takes in three chunks (the
-last one short). At the big-SAE shape it checks that two ``big_sae_bwd``
-calls give the same bits, records one call's peak memory beside the plain
-version's, and times each of its launches (the four products, the
-per-feature sums, dctr) on one chunk. ``big_sae_bwd`` counts one launch
-per call of the K9 contract; its own launches count under
+Phase 2 also holds ``sae_untied_bwd`` against its plain version at the
+ratio-16 width (n = 8,192, which its 1 GiB workspace takes in 4 chunks
+of 8 members), and at the main shape checks that two calls give the same
+bits, records one call's peak memory beside the plain version's and
+times each of its launches. It holds ``big_sae_fwd``/``big_sae_bwd``
+against their plain versions at the big-SAE shape, at small odd shapes up
+to their widest d (1024) and at a batch that ``big_sae_bwd`` takes in
+three chunks (the last one short); at the big-SAE shape it checks K9's
+repeat and memory the same way and times each of its launches on one
+chunk.
+
+The two chunked backwards count their launches in two families:
+``sae_untied_bwd`` and ``big_sae_bwd`` count calls of their contracts;
+their own launches count under ``_build.UNTIED_BWD_PARTS`` (norms and
+loss once per call, the products and the sums once per chunk) and
 ``_build.BWD_PARTS`` (once per batch chunk; dctr once per call).
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card;
@@ -67,6 +75,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -170,6 +179,14 @@ BIG_CHUNK_SHAPE = (20480, BIG_N, BIG_D)
 # a big_sae_bwd call may allocate its outputs, the normalized dictionary
 # and its workspace, plus the caching allocator's rounding
 BIG_BWD_MEM_SLACK = 8 * 2**20
+# the untied backward at the ratio-16 width: 32 members x 8,192 features,
+# 4 chunks of 8 members in the 1 GiB workspace
+RATIO16_SHAPE = (N_MEMBERS, BATCH, 16 * D, D)  # (members, batch, n, d)
+RATIO16_CHUNKS = 4
+# a sae_untied_bwd call may allocate its outputs, the decoder's row norms,
+# the per-feature c sums, its workspace and the loss pass's scratch, plus
+# the caching allocator's rounding
+UNTIED_BWD_MEM_SLACK = 8 * 2**20
 BIG_N_DEAD = 20
 # big_sae_bwd's l0 is a count over B·n codes: a pre-activation within
 # rounding of 0 (the two sides sum its 1024 products in other orders) can
@@ -537,6 +554,134 @@ def time_kernels(inp: dict) -> dict:
     return out
 
 
+def untied_part_launches(calls: int, shape=(N_MEMBERS, BATCH, N_FEATS)
+                         ) -> dict:
+    """The untied backward's part launches over ``calls`` calls at
+    ``shape`` (members, batch, n): norms and loss once a call, the products
+    and the sums once per chunk."""
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    n_chunks = len(ft.untied_bwd_chunks(*shape))
+    once = ("sae_untied_bwd_norms", "sae_untied_bwd_loss")
+    return {k: calls * (1 if k in once else n_chunks)
+            for k in _build.UNTIED_BWD_PARTS}
+
+
+def check_untied_ratio16(gen: torch.Generator, x: torch.Tensor) -> dict:
+    """sae_untied_bwd against its plain version at the ratio-16 width,
+    which the real 1 GiB workspace takes in RATIO16_CHUNKS member chunks;
+    the launches must show them."""
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    n_m, b, n, d = RATIO16_SHAPE
+    chunks = ft.untied_bwd_chunks(n_m, b, n)
+    if len(chunks) != RATIO16_CHUNKS:
+        raise AssertionError(f"ratio 16: chunks {chunks}")
+    lim = math.sqrt(6.0 / (n + d))
+    glorot = lambda: ((torch.rand((n_m, n, d), generator=gen) * 2 - 1)
+                      * lim).to(DEV)
+    e, dec = glorot(), glorot()
+    bias = ((torch.rand((n_m, n), generator=gen) - 0.5) * 0.02).to(DEV)
+    al = torch.logspace(-4, -2, n_m).to(DEV)
+    r = ft.sae_untied_fwd_plain(e, dec, bias, x).contiguous()
+    _build.reset_launches()
+    got = ft.sae_untied_bwd(e, dec, bias, al, x, r)
+    sync()
+    launches = {k: _build.LAUNCHES[k] for k in _build.UNTIED_BWD_PARTS}
+    if launches != untied_part_launches(1, (n_m, b, n)):
+        raise AssertionError(f"ratio 16: launches {launches}")
+    ref = ft.sae_untied_bwd_plain(e, dec, bias, al, x, r)
+    errs = {field: compare(f"ratio16:sae_untied_bwd.{field}", g, rf, rtol,
+                           atol)
+            for field, (g, rf, rtol, atol) in bwd_pairs(
+                got, ref, ("de", "dwn")).items()}
+    worst = max(v["max_rel_err"] for k, v in errs.items()
+                if not is_mask_count(k))
+    log(f"  ratio16 sae_untied_bwd ({n_m}x{b}x{n}x{d}, {len(chunks)} "
+        f"chunks): ok, worst rel err {worst:.2e}")
+    del e, dec, r, got, ref
+    torch.cuda.empty_cache()
+    return {"sae_untied_bwd": errs, "chunks": len(chunks)}
+
+
+def untied_bwd_extras(inp: dict) -> dict:
+    """sae_untied_bwd at the main shape: two calls give the same bits; one
+    call's peak memory beside the plain version's (the kernel's must stay
+    within its outputs, the row norms, the workspace and the stated
+    slack); and each of its launches timed alone (CUDA events, 5
+    launches), with the products' TFLOP/s."""
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    e, dec, x, bias, al = (inp[k] for k in ("e", "dec", "x", "bias",
+                                             "alphas"))
+    n_m, n, d = e.shape
+    b = x.shape[0]
+    ru = ft.sae_untied_fwd_plain(e, dec, bias, x).contiguous()
+    args = (e, dec, bias, al, x, ru)
+    first = ft.sae_untied_bwd(*args)
+    again = ft.sae_untied_bwd(*args)
+    same = [torch.equal(u, v) for u, v in zip(first, again)]
+    del first, again
+    if not all(same):
+        raise AssertionError(f"sae_untied_bwd: two calls differ ({same})")
+    chunks = ft.untied_bwd_chunks(n_m, b, n)
+    ws = 2 * max((mh - ml) * (bh - bl) for ml, mh, bl, bh in chunks) * n
+    allowed = 4 * (2 * n_m * n * d + 4 * n_m * n + 4 * n_m + ws) \
+        + UNTIED_BWD_MEM_SLACK
+    mem = {"kernel": peak_bytes(lambda: ft.sae_untied_bwd(*args)),
+           "plain": peak_bytes(lambda: ft.sae_untied_bwd_plain(*args)),
+           "kernel_allowed": allowed}
+    log(f"  sae_untied_bwd: two calls bit-identical; peak memory of one "
+        f"call {mem['kernel'] / 2**20:.1f} MiB (allowed "
+        f"{allowed / 2**20:.1f}: outputs, norms, workspace "
+        f"{ws * 4 / 2**20:.0f} MiB), plain {mem['plain'] / 2**20:.1f} MiB")
+    if mem["kernel"] > allowed:
+        raise AssertionError(f"sae_untied_bwd allocated {mem['kernel']} "
+                             f"bytes at its peak (> {allowed})")
+
+    if len(chunks) != 1:
+        raise AssertionError(f"main shape: chunks {chunks}")
+    kw = {"dtype": torch.float32, "device": DEV}
+    c, g_ = (torch.empty((n_m, b, n), **kw) for _ in range(2))
+    de, dwn = (torch.empty((n_m, n, d), **kw) for _ in range(2))
+    db, act, csum, nrm = (torch.empty((n_m, n), **kw) for _ in range(4))
+    part = torch.empty((n_m, ft.UNTIED_LOSS_SLICES, 2), **kw)
+    loss4 = torch.empty((n_m, 4), **kw)
+    coef = float(np.float32(2.0 / (b * d)))
+    gemm = 2.0 * n_m * b * n * d
+    parts = {  # launch, FLOPs; in the order a call runs them
+        "sae_untied_bwd_norms": (lambda: ft.untied_bwd_norms(dec, nrm), 0.0),
+        "sae_untied_bwd_codes": (
+            lambda: ft.untied_bwd_codes(x, e, bias, c), gemm),
+        "sae_untied_bwd_dpre": (
+            lambda: ft.untied_bwd_dpre(ru, dec, nrm, c, al, g_, b, coef),
+            gemm),
+        "sae_untied_bwd_de": (lambda: ft.untied_bwd_de(x, g_, de, True),
+                              gemm),
+        "sae_untied_bwd_dwn": (
+            lambda: ft.untied_bwd_dwn(c, ru, dwn, b, True, True, coef), gemm),
+        "sae_untied_bwd_sums": (
+            lambda: ft.untied_bwd_sums(c, g_, b, db, act, csum, True), 0.0),
+        "sae_untied_bwd_loss": (
+            lambda: ft.untied_bwd_loss(ru, de, dwn, db, act, csum, al, part,
+                                       loss4), 0.0),
+    }
+    times = {}
+    for name, (fn, flops) in parts.items():
+        ms = time_ms(fn, 5)
+        times[name] = {"ms": ms, "tflops": flops / ms / 1e9}
+        log(f"  {name}: {ms:.3f} ms"
+            + (f", {flops / ms / 1e9:.1f} TFLOP/s" if flops else ""))
+    per_call = sum(v["ms"] for v in times.values())
+    log(f"  one chunk: the launches sum to {per_call:.2f} ms a call")
+    del c, g_, de, dwn
+    torch.cuda.empty_cache()
+    return {"bit_identical": True, "peak_bytes": mem, "chunks": len(chunks),
+            "parts": times, "parts_sum_ms": per_call}
+
+
 # --- phases 3-5: main paths and their autodiff references ---------------------
 
 def write_store(folder: Path, n_rows: int, seed: int) -> None:
@@ -579,10 +724,13 @@ def main_path(store: Path, out_dir: Path, l1_values, n_steps: int,
         f"{launches}")
     ours = TIED_KERNELS if tied else UNTIED_KERNELS
     want = {name: n_steps if name in ours else 0 for name in _build.LAUNCHES}
+    if not tied:
+        want.update(untied_part_launches(n_steps))
     if launches != want:
         raise AssertionError(f"launches on the main path {launches}, "
                              f"expected {want} (one per step of this "
-                             "family's kernels, none of the other's)")
+                             "family's kernels and the untied backward's "
+                             "parts per chunk, none of the other's)")
 
     recs = read_metrics(out_dir / "metrics.jsonl")
     if [r["step"] for r in recs] != list(range(100, n_steps + 1, 100)):
@@ -734,6 +882,9 @@ def other_paths(batches: list, l1_values) -> dict:
             want = {k: 0 for k in _build.LAUNCHES}
             want.update({k: n * len(batches)
                          for k, n in zip(kernels, PATH_LAUNCHES[path])})
+            if family == "untied":
+                want.update(untied_part_launches(
+                    PATH_LAUNCHES[path][1] * len(batches)))
             label = f"{family} {path}"
             if launches != want or ens.fused_path != path:
                 raise AssertionError(f"{label}: launches {launches}, "
@@ -1334,11 +1485,21 @@ def main() -> int:
     out = _build.build_all()
     report["build_s"] = time.perf_counter() - t0
     log(f"  built {list(_build.KERNELS)} in {report['build_s']:.1f} s")
+    spills, entry = [], ""
     for name in _build.KERNELS:
         for line in (out / f"{name}.log").read_text().splitlines():
             if ("registers" in line or "spill" in line
                     or "Compiling entry function" in line):
                 log(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if (m and (int(m.group(1)) or int(m.group(2)))
+                    and "sgemm_kernel" in entry):
+                spills.append(f"{name}: {entry.strip()}: {line.strip()}")
+    if spills:
+        raise AssertionError(f"ptxas spilled in the GEMM template: {spills}")
 
     log("phase 2: kernels vs plain versions")
     g = torch.Generator().manual_seed(0)
@@ -1358,12 +1519,17 @@ def main() -> int:
         main_inp = make_inputs(g, N_MEMBERS, BATCH, N_FEATS, D, x=x_main)
         checks["main"] = check_kernels(main_inp, "main")
         report["checks"] = checks
+        untied = untied_bwd_extras(main_inp)
+        report["untied_bwd"] = untied
         nnz = active_codes(main_inp)
         timing = time_kernels(main_inp)
         bnd = bounds(main_inp, nnz)
         report["active_codes"] = nnz
         del main_inp
         torch.cuda.empty_cache()
+        checks["ratio16"] = check_untied_ratio16(
+            torch.Generator().manual_seed(16),
+            x_main.to(DEV, torch.float32).contiguous())
         big_store = Path(tmp) / "big_store"
         big_gen, big_g = write_big_store(big_store, seed=SEED)
         held_out = big_gen.batch(big_g, 8192)
@@ -1451,6 +1617,11 @@ def main() -> int:
                 k: {"launches": report["big_main"]["launches"][k],
                     "ms": v["ms"]}
                 for k, v in big["bwd"]["parts"].items()}
+        if name == "sae_untied_bwd":
+            kernels[-1]["parts"] = {
+                k: {"launches": report["main_path_untied"]["launches"][k],
+                    "ms": v["ms"]}
+                for k, v in untied["parts"].items()}
     report["kernels"] = kernels
     report["timing"] = timing
     report["bounds"] = bnd

@@ -41,9 +41,6 @@ ARGTYPES = {
     "sae_tied_adam_vjp": [_P] * 18 + [_I] * 3 + [_F] * 5 + [_P],
     # x, E, D, b, r, N, B, n, d, stream
     "sae_untied_fwd": [_P] * 5 + [_I] * 4 + [_P],
-    # x, r, E, D, b, alphas, dE, dWn, db, act, part, N, B, n, d, coef,
-    # stream
-    "sae_untied_bwd": [_P] * 11 + [_I] * 4 + [_F, _P],
     # E, dE, muE, nuE, D, dWn, muD, nuD, lrs, bc1, bc2, E2, muE2, nuE2, D2,
     # muD2, nuD2, un_part, N, n, d, b1, omb1, b2, omb2, eps, stream
     "sae_untied_adam_vjp": [_P] * 18 + [_I] * 3 + [_F] * 5 + [_P],
@@ -62,20 +59,46 @@ ARGTYPES = {
     "big_sae_bwd_sums": [_P] * 5 + [_I] * 3 + [_P],
     # E, dt, c_totals, l0f, dctr, scal, n, d, stream
     "big_sae_bwd_dctr": [_P] * 6 + [_I] * 2 + [_P],
+    # the untied backward's launches (csrc/sae_untied_bwd.cu), a chunk of
+    # Z members x rows batch rows at a time:
+    # D, nrm, rows, d, stream (once a call)
+    "sae_untied_bwd_norms": [_P] * 2 + [_I] * 2 + [_P],
+    # x, E, b, C, Z, rows, n, d, stream
+    "sae_untied_bwd_codes": [_P] * 4 + [_I] * 4 + [_P],
+    # r, D, nrm, C, alphas, G, Z, rows, n, d, B, coef, stream
+    "sae_untied_bwd_dpre": [_P] * 6 + [_I] * 5 + [_F, _P],
+    # x, G, dE, Z, rows, n, d, first, stream
+    "sae_untied_bwd_de": [_P] * 3 + [_I] * 5 + [_P],
+    # C, r, dWn, Z, rows, n, d, B, first, last, coef, stream
+    "sae_untied_bwd_dwn": [_P] * 3 + [_I] * 7 + [_F, _P],
+    # C, G, db, act, csum, Z, rows, n, first, stream
+    "sae_untied_bwd_sums": [_P] * 5 + [_I] * 4 + [_P],
+    # r, dE, dWn, db, act, csum, alphas, part, loss4, N, B, n, d, P, stream
+    # (once a call)
+    "sae_untied_bwd_loss": [_P] * 9 + [_I] * 5 + [_P],
 }
-# The library of each entry point: its own name, or for K9's launches the
-# big_sae_bwd library.
+# The library of each entry point: its own name, or for the launches of a
+# chunked backward the library of its kernel — K9's parts big_sae_bwd's,
+# the untied backward's parts sae_untied_bwd's.
 BWD_PARTS = tuple(name for name in ARGTYPES if name.startswith("big_sae_bwd_"))
-LIBRARY_OF = {name: ("big_sae_bwd" if name in BWD_PARTS else name)
+UNTIED_BWD_PARTS = tuple(name for name in ARGTYPES
+                         if name.startswith("sae_untied_bwd_"))
+LIBRARY_OF = {name: ("big_sae_bwd" if name in BWD_PARTS
+                     else "sae_untied_bwd" if name in UNTIED_BWD_PARTS
+                     else name)
               for name in ARGTYPES}
 
-# Launch counts, one plain integer per kernel and per K9 launch: each
-# wrapper adds one where it launches its kernel and nowhere else, so a run
-# can show that the main path went through the kernels. "big_sae_bwd"
-# counts calls of the K9 contract (fused_big_sae.big_sae_backward), each of
-# which launches the BWD_PARTS once per batch chunk (dctr once).
-# reset_launches() zeroes them.
-LAUNCHES: dict[str, int] = {name: 0 for name in (*KERNELS, *BWD_PARTS)}
+# Launch counts, one plain integer per kernel and per launch of a chunked
+# backward: each wrapper adds one where it launches its kernel and nowhere
+# else, so a run can show that the main path went through the kernels.
+# "big_sae_bwd" counts calls of the K9 contract
+# (fused_big_sae.big_sae_backward), each of which launches the BWD_PARTS
+# once per batch chunk (dctr once); "sae_untied_bwd" counts calls of
+# fused_sae_tiled.sae_untied_bwd, each of which launches the
+# UNTIED_BWD_PARTS once per chunk (norms and loss once). reset_launches()
+# zeroes them.
+LAUNCHES: dict[str, int] = {name: 0 for name in (*KERNELS, *BWD_PARTS,
+                                                 *UNTIED_BWD_PARTS)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -84,7 +107,6 @@ _lock = threading.Lock()
 # feature count must divide by these, and d must not exceed MAX_D.
 BATCH_TILE = 32
 FEAT_TILE = 32
-UNTIED_FEAT_TILE = 16  # the untied backward's tile (two weight tiles)
 ADAM_ROWS = 8
 MAX_D = 768
 # The big-SAE kernels' blocking: the forward owns 32-row batch tiles and
@@ -216,7 +238,8 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def launch(name: str, *args) -> None:
-    """Call one C entry point (a kernel's, or one of BWD_PARTS), raise on
+    """Call one C entry point (a kernel's, or one of a chunked backward's
+    parts: BWD_PARTS, UNTIED_BWD_PARTS), raise on
     a non-zero cudaError_t, and count the launch. A refused launch (too
     much shared memory, a bad configuration) shows only here:
     torch.cuda.synchronize() would not report it."""

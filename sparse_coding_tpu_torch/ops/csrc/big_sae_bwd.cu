@@ -50,6 +50,7 @@
 
 namespace {
 
+using sgemm::AccumEpi;
 using sgemm::Operand;
 using sgemm::aligned16;
 using sgemm::load4;
@@ -61,7 +62,7 @@ struct CodesEpi {
   float* c;
   int ld;
   bool vec;
-  __device__ void operator()(int m, int n, int N, float (&v)[4]) const {
+  __device__ void operator()(int, int m, int n, int N, float (&v)[4]) const {
     float tv[4];
     load4(t, 0, vec, 0, n, N, tv);
 #pragma unroll
@@ -80,7 +81,7 @@ struct DpreEpi {
   bool vec;
   float coef;
   float total_b;
-  __device__ void operator()(int m, int n, int N, float (&v)[4]) const {
+  __device__ void operator()(int, int m, int n, int N, float (&v)[4]) const {
     float cv[4];
     load4(c, ld, vec, m, n, N, cv);
     const float ab = alpha[0] / total_b;
@@ -89,29 +90,6 @@ struct DpreEpi {
       v[e] = __fmul_rn(__fadd_rn(__fmul_rn(coef, v[e]), ab),
                        cv[e] > 0.f ? 1.f : 0.f);
     store4(g, ld, vec, m, n, N, v);
-  }
-};
-
-// out = (first ? 0 : out) + acc, then times `scale` on the last chunk
-struct AccumEpi {
-  float* o;
-  int ld;
-  bool vec;
-  bool first;
-  bool last;
-  float scale;
-  __device__ void operator()(int m, int n, int N, float (&v)[4]) const {
-    if (!first) {
-      float old[4];
-      load4(o, ld, vec, m, n, N, old);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = old[e] + v[e];
-    }
-    if (last) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = __fmul_rn(scale, v[e]);
-    }
-    store4(o, ld, vec, m, n, N, v);
   }
 };
 
@@ -156,20 +134,6 @@ sums_kernel(const float* __restrict__ C, const float* __restrict__ G,
   }
 }
 
-// Fixed-order block sum (xor tree in each warp, then warps 0..7 in order);
-// valid in thread 0.
-template <class T>
-__device__ T block_sum(T v, T* scratch) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  T s = 0;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < sae::kWarps; ++w) s += scratch[w];
-  return s;
-}
-
 // Blocks 0..d-1: dctr[j] = -sum_f E[j, f] dt[f]. Block d: l1 = sum_f
 // c_totals[f] and l0 = sum_f l0f[f], in double.
 __global__ void __launch_bounds__(sae::kThreads)
@@ -183,7 +147,7 @@ dctr_kernel(const float* __restrict__ E, const float* __restrict__ dt,
     const float* row = E + (size_t)j * n;
     float s = 0.f;
     for (int f = threadIdx.x; f < n; f += sae::kThreads) s += row[f] * dt[f];
-    s = block_sum(s, fs);
+    s = sae::block_sum(s, fs);
     if (threadIdx.x == 0) dctr[j] = -s;
   } else {
     double l1 = 0.0, l0 = 0.0;
@@ -191,8 +155,8 @@ dctr_kernel(const float* __restrict__ E, const float* __restrict__ dt,
       l1 += c_totals[f];
       l0 += l0f[f];
     }
-    l1 = block_sum(l1, ds[0]);
-    l0 = block_sum(l0, ds[1]);
+    l1 = sae::block_sum(l1, ds[0]);
+    l0 = sae::block_sum(l0, ds[1]);
     if (threadIdx.x == 0) {
       scal[0] = (float)l1;
       scal[1] = (float)l0;
@@ -241,7 +205,7 @@ extern "C" int big_sae_bwd_de(const float* xc, const float* G, float* dE,
                               int rows, int n, int d, int first,
                               void* stream) {
   if (!chunk_ok(rows, n, d)) return (int)cudaErrorInvalidValue;
-  const AccumEpi epi{dE, n, aligned16(dE, n, n), first != 0, false, 1.f};
+  const AccumEpi epi{dE, n, 0, aligned16(dE, n, n), first != 0, false, 1.f};
   return (int)sgemm::run<false, false>(Operand{xc, d, aligned16(xc, d, d)},
                                        Operand{G, n, aligned16(G, n, n)}, d,
                                        n, rows, epi, (cudaStream_t)stream);
@@ -253,7 +217,7 @@ extern "C" int big_sae_bwd_dwn(const float* C, const float* r, float* dWn,
                                int rows, int n, int d, int first, int last,
                                float coef, void* stream) {
   if (!chunk_ok(rows, n, d)) return (int)cudaErrorInvalidValue;
-  const AccumEpi epi{dWn, d, aligned16(dWn, d, d), first != 0, last != 0,
+  const AccumEpi epi{dWn, d, 0, aligned16(dWn, d, d), first != 0, last != 0,
                      coef};
   return (int)sgemm::run<false, false>(Operand{C, n, aligned16(C, n, n)},
                                        Operand{r, d, aligned16(r, d, d)}, n,

@@ -12,9 +12,7 @@ constexpr int kThreads = 256;             // threads per block, every kernel
 constexpr int kWarps = kThreads / 32;
 constexpr int kFwdBatchTile = 32;         // rows of x one forward block owns
 constexpr int kFeatTile = 32;             // dictionary rows per feature tile
-constexpr int kUntiedFeatTile = 16;       // rows per tile of the untied bwd,
-                                          // which holds two weight tiles
-constexpr int kBwdBatchTile = 16;         // rows of x per backward loop step
+constexpr int kBwdBatchTile = 16;         // rows of x per tied bwd loop step
 constexpr int kAdamRows = kWarps;         // dictionary rows per adam block
 constexpr int kMaxD = 3 * kThreads;       // widest d the fwd/bwd kernels take
 constexpr float kNormEps = 1e-8f;         // row norms are clipped, not +eps
@@ -37,14 +35,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Fixed-order block sum (xor tree in each warp, then warps 0..7 in order);
-// the result is valid in thread 0. `scratch` holds kWarps floats.
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-  v = warp_sum(v);
+// Fixed-order block sum (xor tree in each warp, then warps 0..7 in order)
+// of floats or doubles; the result is valid in thread 0. `scratch` holds
+// kWarps values.
+template <class T>
+__device__ __forceinline__ T block_sum(T v, T* scratch) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   __syncthreads();  // a previous call may still be reading scratch
   if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
   __syncthreads();
-  float s = 0.f;
+  T s = 0;
   if (threadIdx.x == 0) {
     for (int w = 0; w < kWarps; ++w) s += scratch[w];
   }

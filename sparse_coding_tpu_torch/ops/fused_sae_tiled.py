@@ -8,10 +8,16 @@ Four hand-written Hopper kernels (``ops/csrc``) carry it:
   inside one block per (member, batch tile), with the residual
   r = x-hat − x as its epilogue, so the codes never reach device memory
   and no separate residual pass runs;
-- ``sae_tied_bwd`` / ``sae_untied_bwd`` — one block per (member, feature
-  tile) loops over the batch in a fixed order, recomputing the code tiles
-  and accumulating the weight grads, db, activity, the loss partials and
-  the sentinel's grad sum of squares.
+- ``sae_tied_bwd`` — one block per (member, feature tile) loops over the
+  batch in a fixed order, recomputing the code tiles and accumulating the
+  weight grads, db, activity, the loss partials and the sentinel's grad
+  sum of squares;
+- ``sae_untied_bwd`` — the members in chunks whose codes C and dpre G fit
+  a workspace capped at ``UNTIED_BWD_WORKSPACE_BYTES`` (1 GiB; a member
+  too large for it alone runs in batch chunks, added in order): per chunk
+  four member-batched fp32 products with fused epilogues (C, G, dE, dWn)
+  and the per-feature sums; then the loss terms and the sentinel's grad
+  sum of squares. The CPU runs the same chunk schedule in plain torch.
 
 The tied pair takes an optional ``coef_mask`` [N, n] (0/1, float32): the
 masked family's coefficient mask, multiplied into the codes and the ReLU
@@ -19,8 +25,9 @@ mask. The untied pair encodes with the RAW encoder and decodes with the
 row-normalized decoder.
 
 Each kernel has a plain PyTorch version beside it (``*_plain``). A wrapper
-takes the plain version only for CPU tensors; on CUDA tensors it launches
-its kernel or raises. The tiled paths' reported grad norm is the
+takes the plain version (the untied backward: its chunk schedule in plain
+torch) only for CPU tensors; on CUDA tensors it launches its kernel or
+raises. The tiled paths' reported grad norm is the
 KERNEL-grad norm, taken before the normalization VJP and, untied, before
 the bias decay — the same quantity the JAX package reports.
 """
@@ -249,35 +256,185 @@ def sae_untied_bwd_plain(encoder: torch.Tensor, decoder: torch.Tensor,
     return de, dwn, db, mask.sum(dim=1), loss4
 
 
+# The untied backward keeps the codes C and dpre G of one chunk — Z members
+# x rows batch rows, [Z, rows, n] fp32 each — in a device workspace of at
+# most this many bytes; the whole [N, B, n] codes are never formed.
+UNTIED_BWD_WORKSPACE_BYTES = 2**30
+# Slices a member's loss reductions are split into (a fixed number, so the
+# order of every sum depends on the shape alone).
+UNTIED_LOSS_SLICES = 16
+
+
+def untied_bwd_chunks(n_members: int, batch: int,
+                      n_feats: int) -> list[tuple[int, int, int, int]]:
+    """The untied backward's chunks (m_lo, m_hi, b_lo, b_hi), in the order
+    they run: whole members, as many a chunk as UNTIED_BWD_WORKSPACE_BYTES
+    holds (the last chunk may hold fewer); a member whose C and G alone
+    exceed it runs in batch chunks of the largest multiple of 32 rows that
+    fits (the last may be shorter), added in order. All 32 members in one
+    chunk at the canonical shape (B = n = 2048), 8 a chunk at n = 8192."""
+    member_bytes = 2 * 4 * batch * n_feats
+    if member_bytes <= UNTIED_BWD_WORKSPACE_BYTES:
+        z = min(n_members, UNTIED_BWD_WORKSPACE_BYTES // member_bytes)
+        return [(m, min(m + z, n_members), 0, batch)
+                for m in range(0, n_members, z)]
+    rows = max(32, UNTIED_BWD_WORKSPACE_BYTES // (2 * 4 * n_feats) // 32 * 32)
+    return [(m, m + 1, lo, min(lo + rows, batch)) for m in range(n_members)
+            for lo in range(0, batch, rows)]
+
+
+def _untied_bwd_chunked_plain(encoder, decoder, bias, alphas, batch, resid):
+    """The kernels' chunk schedule in plain torch (the CPU twin of
+    :func:`sae_untied_bwd`): per chunk the codes, dpre — the decoder's
+    clipped row norms divided out of the finished dot products, as the
+    kernel does —, the two weight-grad products and the per-feature sums,
+    the batch chunks of a member added in order; then the loss terms, with
+    l1 and l0 as double sums of the per-feature sums."""
+    n_members, n_feats, d = encoder.shape
+    b = batch.shape[0]
+    coef = 2.0 / (b * d)
+    nrm = torch.clamp(torch.linalg.vector_norm(decoder, dim=-1), min=_EPS)
+    de, dwn = torch.empty_like(encoder), torch.empty_like(encoder)
+    sums = encoder.new_empty((3, n_members, n_feats))  # db, act, Σ_b c
+    for m_lo, m_hi, b_lo, b_hi in untied_bwd_chunks(n_members, b, n_feats):
+        ms = slice(m_lo, m_hi)
+        xk, rk = batch[b_lo:b_hi], resid[ms, b_lo:b_hi]
+        c = torch.relu(torch.matmul(xk, encoder[ms].transpose(1, 2))
+                       + bias[ms, None, :])
+        mask = (c > 0.0).to(torch.float32)  # = [pre > 0], NaN included
+        q = torch.matmul(rk, decoder[ms].transpose(1, 2)) / nrm[ms, None, :]
+        g = (coef * q + (alphas[ms] / b)[:, None, None]) * mask
+        part = (torch.matmul(g.transpose(1, 2), xk),
+                torch.matmul(c.transpose(1, 2), rk),
+                torch.stack([g.sum(dim=1), mask.sum(dim=1), c.sum(dim=1)]))
+        if b_lo == 0:
+            de[ms], dwn[ms], sums[:, ms] = part
+        else:
+            de[ms] += part[0]
+            dwn[ms] += part[1]
+            sums[:, ms] += part[2]
+    dwn = coef * dwn
+    db, act, csum = sums
+    loss4 = torch.stack([
+        (resid * resid).sum(dim=(1, 2)) / (b * d),
+        alphas * csum.double().sum(dim=1).float() / b,
+        act.double().sum(dim=1).float() / b,
+        (de * de).sum(dim=(1, 2)) + (dwn * dwn).sum(dim=(1, 2))
+        + (db * db).sum(dim=1)], dim=1)
+    return de, dwn, db, act, loss4
+
+
+# The launches of the untied backward (csrc/sae_untied_bwd.cu), one helper
+# each. A chunk's operands are slices at its first member (and row): the
+# residual slice keeps the whole batch's member stride.
+
+def untied_bwd_norms(decoder, nrm) -> None:
+    """nrm [N, n] = max(‖D_f‖, 1e-8) for every decoder row."""
+    _build.launch("sae_untied_bwd_norms", decoder.data_ptr(), nrm.data_ptr(),
+                  nrm.numel(), decoder.shape[-1], _build.stream_ptr(nrm))
+
+
+def untied_bwd_codes(xk, encoder, bias, c) -> None:
+    """C [Z, rows, n] = relu(xk·Eᵀ + b) into the workspace ``c``, for the
+    Z members of ``encoder`` [Z, n, d]."""
+    z, n, d = encoder.shape
+    _build.launch("sae_untied_bwd_codes", xk.data_ptr(), encoder.data_ptr(),
+                  bias.data_ptr(), c.data_ptr(), z, xk.shape[0], n, d,
+                  _build.stream_ptr(xk))
+
+
+def untied_bwd_dpre(rk, decoder, nrm, c, alphas, g, batch: int,
+                    coef: float) -> None:
+    """G [Z, rows, n] = (coef·(rk·Dᵀ)/nrm + α/B)·[C > 0] into ``g``; rk is
+    the [Z, rows, d] slice of the [N, B, d] residual."""
+    z, rows, d = rk.shape
+    _build.launch("sae_untied_bwd_dpre", rk.data_ptr(), decoder.data_ptr(),
+                  nrm.data_ptr(), c.data_ptr(), alphas.data_ptr(),
+                  g.data_ptr(), z, rows, decoder.shape[1], d, batch, coef,
+                  _build.stream_ptr(rk))
+
+
+def untied_bwd_de(xk, g, de, first: bool) -> None:
+    """dE [Z, n, d] = (0 if first else dE) + Gᵀ·xk."""
+    z, n, d = de.shape
+    _build.launch("sae_untied_bwd_de", xk.data_ptr(), g.data_ptr(),
+                  de.data_ptr(), z, xk.shape[0], n, d, int(first),
+                  _build.stream_ptr(xk))
+
+
+def untied_bwd_dwn(c, rk, dwn, batch: int, first: bool, last: bool,
+                   coef: float) -> None:
+    """dWn [Z, n, d] = (0 if first else dWn) + Cᵀ·rk, times coef when
+    last."""
+    z, rows, d = rk.shape
+    _build.launch("sae_untied_bwd_dwn", c.data_ptr(), rk.data_ptr(),
+                  dwn.data_ptr(), z, rows, dwn.shape[1], d, batch,
+                  int(first), int(last), coef, _build.stream_ptr(rk))
+
+
+def untied_bwd_sums(c, g, rows: int, db, act, csum, first: bool) -> None:
+    """db, act, csum [Z, n] (+)= the column sums of G, [C > 0] and C over
+    the chunk's ``rows`` rows."""
+    z, n = db.shape
+    _build.launch("sae_untied_bwd_sums", c.data_ptr(), g.data_ptr(),
+                  db.data_ptr(), act.data_ptr(), csum.data_ptr(), z, rows, n,
+                  int(first), _build.stream_ptr(db))
+
+
+def untied_bwd_loss(resid, de, dwn, db, act, csum, alphas, part,
+                    loss4) -> None:
+    """loss4 [N, 4] from the residual and the finished grads and sums;
+    ``part`` is an [N, slices, 2] scratch."""
+    n_members, b, d = resid.shape
+    _build.launch("sae_untied_bwd_loss", resid.data_ptr(), de.data_ptr(),
+                  dwn.data_ptr(), db.data_ptr(), act.data_ptr(),
+                  csum.data_ptr(), alphas.data_ptr(), part.data_ptr(),
+                  loss4.data_ptr(), n_members, b, de.shape[1], d,
+                  part.shape[1], _build.stream_ptr(resid))
+
+
 def sae_untied_bwd(encoder: torch.Tensor, decoder: torch.Tensor,
                    bias: torch.Tensor, alphas: torch.Tensor,
                    batch: torch.Tensor, resid: torch.Tensor):
-    """See :func:`sae_untied_bwd_plain`. CUDA: launches
-    ``sae_untied_bwd``; its per-(member, 16-row feature tile) loss partials
-    are summed here in a fixed order."""
+    """See :func:`sae_untied_bwd_plain` for the outputs. CUDA: the decoder's
+    row norms, then per chunk of :func:`untied_bwd_chunks` the launches
+    ``untied_bwd_codes``, ``_dpre``, ``_de``, ``_dwn``, ``_sums`` in order,
+    then ``untied_bwd_loss``; counts one ``sae_untied_bwd`` call. CPU: the
+    same chunk schedule in plain torch."""
     n_members, n_feats, d, b = _untied_shapes(encoder, decoder, bias, batch)
     _bwd_checks(n_members, b, d, alphas, resid)
     if _on_cpu("sae_untied_bwd", encoder, decoder, bias, alphas, batch,
                resid):
-        return sae_untied_bwd_plain(encoder, decoder, bias, alphas, batch,
-                                    resid)
+        return _untied_bwd_chunked_plain(encoder, decoder, bias, alphas,
+                                         batch, resid)
     _kernel_tensors("sae_untied_bwd", b, n_feats, d, encoder=encoder,
                     decoder=decoder, bias=bias, alphas=alphas, batch=batch,
                     resid=resid)
     kw = {"dtype": torch.float32, "device": batch.device}
     de = torch.empty((n_members, n_feats, d), **kw)
     dwn = torch.empty((n_members, n_feats, d), **kw)
-    db = torch.empty((n_members, n_feats), **kw)
-    act = torch.empty((n_members, n_feats), **kw)
-    part = torch.empty((n_members, n_feats // _build.UNTIED_FEAT_TILE, 4),
-                       **kw)
+    db, act, csum, nrm = (torch.empty((n_members, n_feats), **kw)
+                          for _ in range(4))
+    loss4 = torch.empty((n_members, 4), **kw)
+    part = torch.empty((n_members, UNTIED_LOSS_SLICES, 2), **kw)
+    chunks = untied_bwd_chunks(n_members, b, n_feats)
+    ws = torch.empty((2, max((mh - ml) * (bh - bl) for ml, mh, bl, bh
+                             in chunks) * n_feats), **kw)
+    c, g = ws[0], ws[1]
     coef = float(np.float32(2.0 / (b * d)))
-    _build.launch("sae_untied_bwd", batch.data_ptr(), resid.data_ptr(),
-                  encoder.data_ptr(), decoder.data_ptr(), bias.data_ptr(),
-                  alphas.data_ptr(), de.data_ptr(), dwn.data_ptr(),
-                  db.data_ptr(), act.data_ptr(), part.data_ptr(), n_members,
-                  b, n_feats, d, coef, _build.stream_ptr(batch))
-    return de, dwn, db, act, part.sum(dim=1)
+    untied_bwd_norms(decoder, nrm)
+    for m_lo, m_hi, b_lo, b_hi in chunks:
+        ms = slice(m_lo, m_hi)
+        first, last = b_lo == 0, b_hi == b
+        xk, rk = batch[b_lo:b_hi], resid[ms, b_lo:b_hi]
+        untied_bwd_codes(xk, encoder[ms], bias[ms], c)
+        untied_bwd_dpre(rk, decoder[ms], nrm[ms], c, alphas[ms], g, b, coef)
+        untied_bwd_de(xk, g, de[ms], first)
+        untied_bwd_dwn(c, rk, dwn[ms], b, first, last, coef)
+        untied_bwd_sums(c, g, b_hi - b_lo, db[ms], act[ms], csum[ms], first)
+    untied_bwd_loss(resid, de, dwn, db, act, csum, alphas, part, loss4)
+    _build.LAUNCHES["sae_untied_bwd"] += 1
+    return de, dwn, db, act, loss4
 
 
 # --- K3 and K7 contracts ------------------------------------------------------

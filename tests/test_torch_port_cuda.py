@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card (the tied kernels with and without
-the masked family's coef_mask, the untied ones, and the giant single
-SAE's pair), each held against its
+the masked family's coef_mask, the untied ones — the backward also in
+several chunks —, and the giant single SAE's pair), each held against its
 plain PyTorch version on the same inputs. Card only: every test carries the
 ``cuda`` marker and skips without a card. This file imports no JAX (the
 card's host has none), so it runs there on its own:
@@ -198,6 +198,68 @@ def test_ensemble_refuses_a_shape_the_kernels_do_not_take(card, tied):
     torch.cuda.synchronize()
     assert torch.isfinite(aux.losses["loss"]).all()
     assert all(v == 0 for v in _build.LAUNCHES.values())
+
+
+# --- the untied backward's chunked launches (sae_untied_bwd) ------------------
+
+def _untied_bwd_args(card, n_m, b, n, d, seed=0):
+    i = _inputs(card, n_m, b, n, d, seed=seed)
+    r = ft.sae_untied_fwd_plain(i["e"], i["dec"], i["bias"], i["x"])
+    return i["e"], i["dec"], i["bias"], i["alphas"], i["x"], r.contiguous()
+
+
+def _check_untied_bwd(args, n_chunks):
+    """Two sae_untied_bwd calls against the plain version: weight grads and
+    db rtol 1e-3, activity exact, mse/l1/l0 rtol 1e-5 (torch on the card
+    divides by a scalar as a multiply by its reciprocal, the kernel
+    divides), grad_sq rtol 1e-3; the two calls bitwise; each part launched
+    once per chunk (norms and loss once a call)."""
+    _build.reset_launches()
+    got = ft.sae_untied_bwd(*args)
+    again = ft.sae_untied_bwd(*args)
+    want = ft.sae_untied_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:3], want[:3]):  # dE, dWn, db
+        _close(g, w, 1e-3)
+    assert torch.equal(got[3], want[3])
+    for k, rtol in enumerate((1e-5, 1e-5, 1e-5, 1e-3)):
+        _close(got[4][:, k], want[4][:, k], rtol)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    once = ("sae_untied_bwd_norms", "sae_untied_bwd_loss")
+    assert _build.LAUNCHES["sae_untied_bwd"] == 2
+    assert all(_build.LAUNCHES[k] == 2 * (1 if k in once else n_chunks)
+               for k in _build.UNTIED_BWD_PARTS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 64, 96, 40), (4, 96, 64, 300),
+                                   (3, 32, 64, 600), (3, 64, 32, 768)],
+                         ids=str)
+def test_untied_bwd_matches_plain(card, shape):
+    """One chunk of every member (N >= 3, distinct alphas) at d = 40, 300,
+    600 and 768."""
+    _check_untied_bwd(_untied_bwd_args(card, *shape), 1)
+
+
+# (members, batch, n_feats, d, members a chunk, rows a chunk) -> chunks:
+# whole members a chunk (the last holds fewer), or one member's batch in
+# chunks (the last shorter); d a multiple of 4 (16-byte copies) or not
+UNTIED_CHUNK_CASES = [(5, 64, 96, 300, 2, 64), (3, 32, 64, 768, 2, 32),
+                      (3, 160, 64, 40, 1, 64), (3, 96, 32, 37, 1, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", UNTIED_CHUNK_CASES, ids=str)
+def test_untied_bwd_chunks_match_plain(card, monkeypatch, case):
+    """sae_untied_bwd with the workspace cap lowered so that the members,
+    or one member's batch, split into chunks."""
+    n_m, b, n, d, z, rows = case
+    monkeypatch.setattr(ft, "UNTIED_BWD_WORKSPACE_BYTES", 2 * 4 * n * z * rows)
+    chunks = ft.untied_bwd_chunks(n_m, b, n)
+    assert len(chunks) >= 2
+    assert any(mh - ml < z or bh - bl < rows for ml, mh, bl, bh in chunks)
+    _check_untied_bwd(_untied_bwd_args(card, n_m, b, n, d, seed=2),
+                      len(chunks))
 
 
 # --- the giant single SAE's kernels (big_sae_fwd, big_sae_bwd) ----------------

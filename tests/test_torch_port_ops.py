@@ -392,7 +392,9 @@ def test_tied_sae_loss_and_autograd_match_jax_grad(inp, family):
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch(inp):
-    """On CPU tensors every wrapper returns its plain version's result and
+    """On CPU tensors every wrapper returns its plain version's result (the
+    untied backward: its chunk schedule in plain torch, which
+    tests/test_torch_port_untied_bwd_chunks.py holds against JAX) and
     never touches the launch counts; mixed devices or a CPU tensor handed
     to the CUDA checks raise."""
     _build.reset_launches()
@@ -409,7 +411,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch(inp):
     r = ft.sae_untied_fwd(e, dec, bias, x)
     exact(r, ft.sae_untied_fwd_plain(e, dec, bias, x))
     for g, p in zip(ft.sae_untied_bwd(e, dec, bias, al, x, r),
-                    ft.sae_untied_bwd_plain(e, dec, bias, al, x, r)):
+                    ft._untied_bwd_chunked_plain(e, dec, bias, al, x, r)):
         exact(g, p)
     adam = [_t(inp[k]) for k in ("e", "dw", "mu", "nu", "lrs", "bc1", "bc2")]
     for g, p in zip(fs.sae_tied_adam_vjp(*adam)[:4],
