@@ -7,8 +7,9 @@ Phases — any failure raises, and the script exits non-zero with no result:
 1. card: name and power limit (nvidia-smi), then all eight CUDA kernels
    are built from ``sparse_coding_tpu_torch/ops/csrc`` (one nvcc per
    source, all started together), with their ptxas register and spill
-   lines — every instantiation of the GEMM template among them, where any
-   spill fails the run;
+   lines — every instantiation of the GEMM template among them (in
+   big_sae_bwd, sae_untied_fwd and sae_untied_bwd), where any spill fails
+   the run;
 2. kernels: each ensemble kernel (sae_tied_fwd, sae_tied_bwd,
    sae_tied_adam_vjp, sae_untied_fwd, sae_untied_bwd, sae_untied_adam_vjp)
    and each contract
@@ -49,21 +50,24 @@ Phases — any failure raises, and the script exits non-zero with no result:
 8. summary: one ``{"kernels": [...]}`` line, the card's name and power
    limit, and the last line ``{"ok": true, "device": {...}}``.
 
-Phase 2 also holds ``sae_untied_bwd`` against its plain version at the
-ratio-16 width (n = 8,192, which its 1 GiB workspace takes in 4 chunks
-of 8 members), and at the main shape checks that two calls give the same
-bits, records one call's peak memory beside the plain version's and
-times each of its launches. It holds ``big_sae_fwd``/``big_sae_bwd``
+Phase 2 also holds ``sae_untied_fwd`` and ``sae_untied_bwd`` against
+their plain versions at the ratio-16 width (n = 8,192, which their 1 GiB
+workspaces take in 2 chunks of 16 members and 4 chunks of 8), and at the
+main shape (the forward at ratio 16 too) checks that two calls give the
+same bits, records one call's peak memory beside the plain version's and
+times each of their launches. It holds ``big_sae_fwd``/``big_sae_bwd``
 against their plain versions at the big-SAE shape, at small odd shapes up
 to their widest d (1024) and at a batch that ``big_sae_bwd`` takes in
 three chunks (the last one short); at the big-SAE shape it checks K9's
 repeat and memory the same way and times each of its launches on one
 chunk.
 
-The two chunked backwards count their launches in two families:
-``sae_untied_bwd`` and ``big_sae_bwd`` count calls of their contracts;
-their own launches count under ``_build.UNTIED_BWD_PARTS`` (norms and
-loss once per call, the products and the sums once per chunk) and
+The three chunked kernels count their launches in two families:
+``sae_untied_fwd``, ``sae_untied_bwd`` and ``big_sae_bwd`` count calls of
+their contracts; their own launches count under
+``_build.UNTIED_FWD_PARTS`` (norms once per call, the codes and decode
+products once per chunk), ``_build.UNTIED_BWD_PARTS`` (norms and loss once
+per call, the products and the sums once per chunk) and
 ``_build.BWD_PARTS`` (once per batch chunk; dctr once per call).
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card;
@@ -176,17 +180,15 @@ BIG_SMALL_SHAPES = ((32, 64, 40), (64, 64, 128), (32, 96, 640),
 # big_sae_bwd runs the batch in chunks of 8,192 rows at 16,384 features
 # (its 1 GiB workspace): this batch takes 8,192 + 8,192 + 4,096
 BIG_CHUNK_SHAPE = (20480, BIG_N, BIG_D)
-# a big_sae_bwd call may allocate its outputs, the normalized dictionary
-# and its workspace, plus the caching allocator's rounding
-BIG_BWD_MEM_SLACK = 8 * 2**20
-# the untied backward at the ratio-16 width: 32 members x 8,192 features,
-# 4 chunks of 8 members in the 1 GiB workspace
+# the untied pair at the ratio-16 width: 32 members x 8,192 features,
+# 2 chunks of 16 members in the forward's 1 GiB workspace, 4 chunks of 8
+# in the backward's
 RATIO16_SHAPE = (N_MEMBERS, BATCH, 16 * D, D)  # (members, batch, n, d)
+RATIO16_FWD_CHUNKS = 2
 RATIO16_CHUNKS = 4
-# a sae_untied_bwd call may allocate its outputs, the decoder's row norms,
-# the per-feature c sums, its workspace and the loss pass's scratch, plus
-# the caching allocator's rounding
-UNTIED_BWD_MEM_SLACK = 8 * 2**20
+# a chunked kernel's call may allocate the buffers its allowance lists
+# (repeat_and_memory) plus this much for the caching allocator's rounding
+MEM_SLACK = 8 * 2**20
 BIG_N_DEAD = 20
 # big_sae_bwd's l0 is a count over B·n codes: a pre-activation within
 # rounding of 0 (the two sides sum its 1024 products in other orders) can
@@ -556,28 +558,123 @@ def time_kernels(inp: dict) -> dict:
 
 def untied_part_launches(calls: int, shape=(N_MEMBERS, BATCH, N_FEATS)
                          ) -> dict:
-    """The untied backward's part launches over ``calls`` calls at
-    ``shape`` (members, batch, n): norms and loss once a call, the products
-    and the sums once per chunk."""
+    """The untied forward's and backward's part launches over ``calls``
+    calls of each at ``shape`` (members, batch, n): the norms (and the
+    backward's loss) once a call, the products (and the backward's sums)
+    once per chunk of each kernel's schedule."""
     from sparse_coding_tpu_torch.ops import _build
     from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
 
-    n_chunks = len(ft.untied_bwd_chunks(*shape))
-    once = ("sae_untied_bwd_norms", "sae_untied_bwd_loss")
-    return {k: calls * (1 if k in once else n_chunks)
-            for k in _build.UNTIED_BWD_PARTS}
+    once = ("sae_untied_fwd_norms", "sae_untied_bwd_norms",
+            "sae_untied_bwd_loss")
+    out = {}
+    for parts, chunks in ((_build.UNTIED_FWD_PARTS, ft.untied_fwd_chunks),
+                          (_build.UNTIED_BWD_PARTS, ft.untied_bwd_chunks)):
+        n_chunks = len(chunks(*shape))
+        out.update({k: calls * (1 if k in once else n_chunks)
+                    for k in parts})
+    return out
+
+
+def time_parts(parts: dict, note: str = "") -> dict:
+    """Each launch of ``parts`` ({name: (launch, FLOPs)}) timed alone
+    (CUDA events, 5 launches), with the products' TFLOP/s."""
+    times = {}
+    for name, (fn, flops) in parts.items():
+        ms = time_ms(fn, 5)
+        times[name] = {"ms": ms, "tflops": flops / ms / 1e9}
+        log(f"  {name}{note}: {ms:.3f} ms"
+            + (f", {flops / ms / 1e9:.1f} TFLOP/s" if flops else ""))
+    return times
+
+
+def repeat_and_memory(label: str, call, plain, allowed: int,
+                      what: str) -> dict:
+    """Two calls of ``call`` give the same bits, and one call's peak memory
+    stays within ``allowed`` bytes (the buffers ``what`` lists) plus
+    MEM_SLACK; the plain version's peak is recorded beside it."""
+    first, again = call(), call()
+    if isinstance(first, torch.Tensor):
+        first, again = (first,), (again,)
+    same = [torch.equal(u, v) for u, v in zip(first, again)]
+    del first, again
+    if not all(same):
+        raise AssertionError(f"{label}: two calls differ ({same})")
+    allowed += MEM_SLACK
+    mem = {"kernel": peak_bytes(call), "plain": peak_bytes(plain),
+           "kernel_allowed": allowed}
+    log(f"  {label}: two calls bit-identical; peak memory of one call "
+        f"{mem['kernel'] / 2**20:.1f} MiB (allowed {allowed / 2**20:.1f}: "
+        f"{what}), plain {mem['plain'] / 2**20:.1f} MiB")
+    if mem["kernel"] > allowed:
+        raise AssertionError(f"{label} allocated {mem['kernel']} bytes at "
+                             f"its peak (> {allowed})")
+    return {"bit_identical": True, "peak_bytes": mem}
+
+
+def untied_fwd_repeat_and_memory(e, dec, bias, x, tag: str) -> dict:
+    """:func:`repeat_and_memory` of sae_untied_fwd on these inputs, allowed
+    its output, the normalized decoder and its workspace."""
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    n_m, n, d = e.shape
+    b = x.shape[0]
+    chunks = ft.untied_fwd_chunks(n_m, b, n)
+    ws = max((mh - ml) * (bh - bl) for ml, mh, bl, bh in chunks) * n
+    out = repeat_and_memory(
+        f"{tag} sae_untied_fwd ({len(chunks)} chunks)",
+        lambda: ft.sae_untied_fwd(e, dec, bias, x),
+        lambda: ft.sae_untied_fwd_plain(e, dec, bias, x),
+        4 * (n_m * b * d + n_m * n * d + ws),
+        f"output, Wn, workspace {ws * 4 / 2**20:.0f} MiB")
+    return {**out, "chunks": len(chunks)}
+
+
+def untied_fwd_extras(inp: dict) -> dict:
+    """sae_untied_fwd at the main shape: the repeat and memory checks of
+    :func:`untied_fwd_repeat_and_memory`, and each of its launches timed
+    alone on its one chunk."""
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    e, dec, x, bias = (inp[k] for k in ("e", "dec", "x", "bias"))
+    n_m, n, d = e.shape
+    b = x.shape[0]
+    out = untied_fwd_repeat_and_memory(e, dec, bias, x, "main")
+    if out["chunks"] != 1:
+        raise AssertionError(f"main shape: forward chunks {out['chunks']}")
+    kw = {"dtype": torch.float32, "device": DEV}
+    wn = torch.empty((n_m, n, d), **kw)
+    ct = torch.empty((n_m * n * b,), **kw)
+    r = torch.empty((n_m, b, d), **kw)
+    gemm = 2.0 * n_m * b * n * d
+    times = time_parts({  # launch, FLOPs; in the order a call runs them
+        "sae_untied_fwd_norms": (lambda: ft.untied_fwd_norms(dec, wn), 0.0),
+        "sae_untied_fwd_codes": (
+            lambda: ft.untied_fwd_codes(x, e, bias, ct), gemm),
+        "sae_untied_fwd_decode": (
+            lambda: ft.untied_fwd_decode(ct, wn, x, r, b), gemm),
+    })
+    per_call = sum(v["ms"] for v in times.values())
+    log(f"  one chunk: the forward's launches sum to {per_call:.2f} ms a "
+        "call")
+    del wn, ct, r
+    torch.cuda.empty_cache()
+    return {**out, "parts": times, "parts_sum_ms": per_call}
 
 
 def check_untied_ratio16(gen: torch.Generator, x: torch.Tensor) -> dict:
-    """sae_untied_bwd against its plain version at the ratio-16 width,
-    which the real 1 GiB workspace takes in RATIO16_CHUNKS member chunks;
-    the launches must show them."""
+    """The untied pair against its plain versions at the ratio-16 width,
+    which the real 1 GiB workspaces take in RATIO16_FWD_CHUNKS (forward)
+    and RATIO16_CHUNKS (backward) member chunks; the launches must show
+    them. The forward's residual feeds both backwards; the forward also
+    repeats bitwise and stays within its memory allowance."""
     from sparse_coding_tpu_torch.ops import _build
     from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
 
     n_m, b, n, d = RATIO16_SHAPE
-    chunks = ft.untied_bwd_chunks(n_m, b, n)
-    if len(chunks) != RATIO16_CHUNKS:
+    chunks = {"fwd": len(ft.untied_fwd_chunks(n_m, b, n)),
+              "bwd": len(ft.untied_bwd_chunks(n_m, b, n))}
+    if chunks != {"fwd": RATIO16_FWD_CHUNKS, "bwd": RATIO16_CHUNKS}:
         raise AssertionError(f"ratio 16: chunks {chunks}")
     lim = math.sqrt(6.0 / (n + d))
     glorot = lambda: ((torch.rand((n_m, n, d), generator=gen) * 2 - 1)
@@ -585,13 +682,19 @@ def check_untied_ratio16(gen: torch.Generator, x: torch.Tensor) -> dict:
     e, dec = glorot(), glorot()
     bias = ((torch.rand((n_m, n), generator=gen) - 0.5) * 0.02).to(DEV)
     al = torch.logspace(-4, -2, n_m).to(DEV)
-    r = ft.sae_untied_fwd_plain(e, dec, bias, x).contiguous()
     _build.reset_launches()
+    r = ft.sae_untied_fwd(e, dec, bias, x)
     got = ft.sae_untied_bwd(e, dec, bias, al, x, r)
     sync()
-    launches = {k: _build.LAUNCHES[k] for k in _build.UNTIED_BWD_PARTS}
-    if launches != untied_part_launches(1, (n_m, b, n)):
-        raise AssertionError(f"ratio 16: launches {launches}")
+    want = untied_part_launches(1, (n_m, b, n))
+    launches = {k: _build.LAUNCHES[k] for k in want}
+    if launches != want:
+        raise AssertionError(f"ratio 16: launches {launches}, expected "
+                             f"{want}")
+    r_err = compare("ratio16:sae_untied_fwd.r", r,
+                    ft.sae_untied_fwd_plain(e, dec, bias, x), RTOL_EXACT)
+    log(f"  ratio16 sae_untied_fwd ({n_m}x{b}x{n}x{d}, {chunks['fwd']} "
+        f"chunks): ok, rel err {r_err['max_rel_err']:.2e}")
     ref = ft.sae_untied_bwd_plain(e, dec, bias, al, x, r)
     errs = {field: compare(f"ratio16:sae_untied_bwd.{field}", g, rf, rtol,
                            atol)
@@ -599,11 +702,15 @@ def check_untied_ratio16(gen: torch.Generator, x: torch.Tensor) -> dict:
                 got, ref, ("de", "dwn")).items()}
     worst = max(v["max_rel_err"] for k, v in errs.items()
                 if not is_mask_count(k))
-    log(f"  ratio16 sae_untied_bwd ({n_m}x{b}x{n}x{d}, {len(chunks)} "
+    log(f"  ratio16 sae_untied_bwd ({n_m}x{b}x{n}x{d}, {chunks['bwd']} "
         f"chunks): ok, worst rel err {worst:.2e}")
-    del e, dec, r, got, ref
+    del r, got, ref
     torch.cuda.empty_cache()
-    return {"sae_untied_bwd": errs, "chunks": len(chunks)}
+    fwd = untied_fwd_repeat_and_memory(e, dec, bias, x, "ratio16")
+    del e, dec
+    torch.cuda.empty_cache()
+    return {"sae_untied_fwd": {"r": r_err, **fwd}, "sae_untied_bwd": errs,
+            "chunks": chunks}
 
 
 def untied_bwd_extras(inp: dict) -> dict:
@@ -620,26 +727,13 @@ def untied_bwd_extras(inp: dict) -> dict:
     b = x.shape[0]
     ru = ft.sae_untied_fwd_plain(e, dec, bias, x).contiguous()
     args = (e, dec, bias, al, x, ru)
-    first = ft.sae_untied_bwd(*args)
-    again = ft.sae_untied_bwd(*args)
-    same = [torch.equal(u, v) for u, v in zip(first, again)]
-    del first, again
-    if not all(same):
-        raise AssertionError(f"sae_untied_bwd: two calls differ ({same})")
     chunks = ft.untied_bwd_chunks(n_m, b, n)
     ws = 2 * max((mh - ml) * (bh - bl) for ml, mh, bl, bh in chunks) * n
-    allowed = 4 * (2 * n_m * n * d + 4 * n_m * n + 4 * n_m + ws) \
-        + UNTIED_BWD_MEM_SLACK
-    mem = {"kernel": peak_bytes(lambda: ft.sae_untied_bwd(*args)),
-           "plain": peak_bytes(lambda: ft.sae_untied_bwd_plain(*args)),
-           "kernel_allowed": allowed}
-    log(f"  sae_untied_bwd: two calls bit-identical; peak memory of one "
-        f"call {mem['kernel'] / 2**20:.1f} MiB (allowed "
-        f"{allowed / 2**20:.1f}: outputs, norms, workspace "
-        f"{ws * 4 / 2**20:.0f} MiB), plain {mem['plain'] / 2**20:.1f} MiB")
-    if mem["kernel"] > allowed:
-        raise AssertionError(f"sae_untied_bwd allocated {mem['kernel']} "
-                             f"bytes at its peak (> {allowed})")
+    out = repeat_and_memory(
+        "sae_untied_bwd", lambda: ft.sae_untied_bwd(*args),
+        lambda: ft.sae_untied_bwd_plain(*args),
+        4 * (2 * n_m * n * d + 4 * n_m * n + 4 * n_m + ws),
+        f"outputs, norms, workspace {ws * 4 / 2**20:.0f} MiB")
 
     if len(chunks) != 1:
         raise AssertionError(f"main shape: chunks {chunks}")
@@ -668,18 +762,14 @@ def untied_bwd_extras(inp: dict) -> dict:
             lambda: ft.untied_bwd_loss(ru, de, dwn, db, act, csum, al, part,
                                        loss4), 0.0),
     }
-    times = {}
-    for name, (fn, flops) in parts.items():
-        ms = time_ms(fn, 5)
-        times[name] = {"ms": ms, "tflops": flops / ms / 1e9}
-        log(f"  {name}: {ms:.3f} ms"
-            + (f", {flops / ms / 1e9:.1f} TFLOP/s" if flops else ""))
+    times = time_parts(parts)
     per_call = sum(v["ms"] for v in times.values())
-    log(f"  one chunk: the launches sum to {per_call:.2f} ms a call")
+    log(f"  one chunk: the backward's launches sum to {per_call:.2f} ms a "
+        "call")
     del c, g_, de, dwn
     torch.cuda.empty_cache()
-    return {"bit_identical": True, "peak_bytes": mem, "chunks": len(chunks),
-            "parts": times, "parts_sum_ms": per_call}
+    return {**out, "chunks": len(chunks), "parts": times,
+            "parts_sum_ms": per_call}
 
 
 # --- phases 3-5: main paths and their autodiff references ---------------------
@@ -1081,27 +1171,12 @@ def big_bwd_extras(p: dict, x: torch.Tensor) -> dict:
     alpha = torch.tensor(BIG_L1, device=DEV)
     b, d = xc.shape
     n = p["dict"].shape[0]
-    first = fb.big_sae_backward(p, alpha, xc, r)
-    again = fb.big_sae_backward(p, alpha, xc, r)
-    same = [torch.equal(u, v) for u, v in zip(first, again)]
-    del first, again
-    if not all(same):
-        raise AssertionError(f"big_sae_bwd: two calls differ ({same})")
     rows = fb.bwd_chunk_rows(b, n)
-    allowed = 4 * (2 * rows * n + 3 * n * d + 3 * n + d + 2) \
-        + BIG_BWD_MEM_SLACK
-    mem = {"kernel": peak_bytes(lambda: fb.big_sae_backward(p, alpha, xc,
-                                                            r)),
-           "plain": peak_bytes(lambda: fb.big_sae_backward_plain(p, alpha,
-                                                                 xc, r)),
-           "kernel_allowed": allowed}
-    log(f"  big_sae_bwd: two calls bit-identical; peak memory of one call "
-        f"{mem['kernel'] / 2**20:.1f} MiB (allowed {allowed / 2**20:.1f}: "
-        f"outputs, Wn, workspace {2 * rows * n * 4 / 2**20:.0f} MiB), plain "
-        f"{mem['plain'] / 2**20:.1f} MiB")
-    if mem["kernel"] > allowed:
-        raise AssertionError(f"big_sae_bwd allocated {mem['kernel']} bytes "
-                             f"at its peak (> {allowed})")
+    out = repeat_and_memory(
+        "big_sae_bwd", lambda: fb.big_sae_backward(p, alpha, xc, r),
+        lambda: fb.big_sae_backward_plain(p, alpha, xc, r),
+        4 * (2 * rows * n + 3 * n * d + 3 * n + d + 2),
+        f"outputs, Wn, workspace {2 * rows * n * 4 / 2**20:.0f} MiB")
 
     xk, rk = xc[:rows], r[:rows]
     e, t = p["encoder"], p["threshold"]
@@ -1126,12 +1201,7 @@ def big_bwd_extras(p: dict, x: torch.Tensor) -> dict:
         "big_sae_bwd_dctr": (
             lambda: fb.bwd_dctr(e, dt, ct, l0f, dctr, scal), 2.0 * n * d),
     }
-    times = {}
-    for name, (fn, flops) in parts.items():
-        ms = time_ms(fn, 5)
-        times[name] = {"ms": ms, "tflops": flops / ms / 1e9}
-        log(f"  {name} ({rows} rows): {ms:.3f} ms"
-            + (f", {flops / ms / 1e9:.1f} TFLOP/s" if flops else ""))
+    times = time_parts(parts, f" ({rows} rows)")
     n_chunks = len(fb.bwd_chunks(b, n))
     per_call = n_chunks * sum(v["ms"] for k, v in times.items()
                               if k != "big_sae_bwd_dctr") \
@@ -1139,8 +1209,8 @@ def big_bwd_extras(p: dict, x: torch.Tensor) -> dict:
     log(f"  {n_chunks} chunks: the launches sum to {per_call:.2f} ms a call")
     del c, g_, de, dwn
     torch.cuda.empty_cache()
-    return {"bit_identical": True, "peak_bytes": mem, "chunk_rows": rows,
-            "chunks": n_chunks, "parts": times, "parts_sum_ms": per_call}
+    return {**out, "chunk_rows": rows, "chunks": n_chunks, "parts": times,
+            "parts_sum_ms": per_call}
 
 
 def big_phase2(store: Path, g: torch.Generator) -> dict:
@@ -1486,6 +1556,7 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     log(f"  built {list(_build.KERNELS)} in {report['build_s']:.1f} s")
     spills, entry = [], ""
+    gemms = {name: 0 for name in _build.KERNELS}
     for name in _build.KERNELS:
         for line in (out / f"{name}.log").read_text().splitlines():
             if ("registers" in line or "spill" in line
@@ -1493,6 +1564,7 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
             if "Compiling entry function" in line:
                 entry = line
+                gemms[name] += "sgemm_kernel" in line
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
             if (m and (int(m.group(1)) or int(m.group(2)))
@@ -1500,6 +1572,10 @@ def main() -> int:
                 spills.append(f"{name}: {entry.strip()}: {line.strip()}")
     if spills:
         raise AssertionError(f"ptxas spilled in the GEMM template: {spills}")
+    gemms = {k: v for k, v in gemms.items() if v}
+    log(f"  GEMM template instantiations, no spills: {gemms}")
+    if set(gemms) != {"big_sae_bwd", "sae_untied_fwd", "sae_untied_bwd"}:
+        raise AssertionError(f"GEMM template instantiations in {gemms}")
 
     log("phase 2: kernels vs plain versions")
     g = torch.Generator().manual_seed(0)
@@ -1519,6 +1595,8 @@ def main() -> int:
         main_inp = make_inputs(g, N_MEMBERS, BATCH, N_FEATS, D, x=x_main)
         checks["main"] = check_kernels(main_inp, "main")
         report["checks"] = checks
+        untied_fwd = untied_fwd_extras(main_inp)
+        report["untied_fwd"] = untied_fwd
         untied = untied_bwd_extras(main_inp)
         report["untied_bwd"] = untied
         nnz = active_codes(main_inp)
@@ -1617,11 +1695,12 @@ def main() -> int:
                 k: {"launches": report["big_main"]["launches"][k],
                     "ms": v["ms"]}
                 for k, v in big["bwd"]["parts"].items()}
-        if name == "sae_untied_bwd":
+        if name in ("sae_untied_fwd", "sae_untied_bwd"):
+            parts = (untied_fwd if name == "sae_untied_fwd" else untied)
             kernels[-1]["parts"] = {
                 k: {"launches": report["main_path_untied"]["launches"][k],
                     "ms": v["ms"]}
-                for k, v in untied["parts"].items()}
+                for k, v in parts["parts"].items()}
     report["kernels"] = kernels
     report["timing"] = timing
     report["bounds"] = bnd

@@ -1,20 +1,21 @@
 #!/usr/bin/env python3
-"""Time the port's two chunked backward kernels on one CUDA card and print
-one JSON line.
+"""Time the port's three chunked kernels, launch by launch, on one CUDA card
+and print one JSON line.
 
 - K9 (``big_sae_bwd``): each of its launches on one 8,192-row chunk at the
   big-SAE shape (d=1024, n=16,384), the size of one chunk of its 1 GiB
   workspace;
-- the untied backward (``sae_untied_bwd``): one whole call at the
-  canonical ensemble shape (32 members, batch 2048, n=2048, d=512), and
-  each of its launches where the checkout has them.
+- the untied backward (``sae_untied_bwd``) and forward
+  (``sae_untied_fwd``): one whole call of each at the canonical ensemble
+  shape (32 members, batch 2048, n=2048, d=512), and each of their
+  launches where the checkout has them.
 
 Times are CUDA-event means over ``--iters`` launches after one warm-up.
 The kernels of the checkout in the working directory are built and timed,
 so two checkouts compare in one session by running this script from each
 root in turns (A, B, B, A):
 
-    (cd parent && python3 /path/to/scripts/time_bwd_parts.py)
+    (cd parent && python3 /path/to/scripts/time_kernel_parts.py)
 """
 
 from __future__ import annotations
@@ -82,8 +83,23 @@ def untied(g: torch.Generator, iters: int) -> dict:
     al = torch.logspace(-4, -2, n_m, device="cuda")
     x = torch.randn((b, d), generator=g, **kw) / math.sqrt(d)
     r = ft.sae_untied_fwd_plain(e, dec, bias, x).contiguous()
-    out = {"sae_untied_bwd": time_ms(
+    out = {"sae_untied_fwd": time_ms(
+        lambda: ft.sae_untied_fwd(e, dec, bias, x), iters),
+        "sae_untied_bwd": time_ms(
         lambda: ft.sae_untied_bwd(e, dec, bias, al, x, r), iters)}
+    if hasattr(ft, "untied_fwd_chunks"):
+        wn = torch.empty((n_m, n, d), **kw)
+        ct = torch.empty((n_m * n * b,), **kw)
+        rf = torch.empty((n_m, b, d), **kw)
+        fwd_parts = {
+            "sae_untied_fwd_norms": lambda: ft.untied_fwd_norms(dec, wn),
+            "sae_untied_fwd_codes": lambda: ft.untied_fwd_codes(x, e, bias,
+                                                                ct),
+            "sae_untied_fwd_decode": lambda: ft.untied_fwd_decode(
+                ct, wn, x, rf, b),
+        }
+        out.update({k: time_ms(fn, iters) for k, fn in fwd_parts.items()})
+        del wn, ct, rf
     if not hasattr(ft, "untied_bwd_chunks"):
         return out
     c, gw = (torch.empty((n_m, b, n), **kw) for _ in range(2))
@@ -114,7 +130,7 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args()
     if not torch.cuda.is_available():
-        print("time_bwd_parts: no CUDA device is available", file=sys.stderr)
+        print("time_kernel_parts: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.getcwd())
     from sparse_coding_tpu_torch.ops import _build

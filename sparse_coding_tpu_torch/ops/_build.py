@@ -39,8 +39,6 @@ ARGTYPES = {
     # E, dW, mu, nu, lrs, bc1, bc2, E2, mu2, nu2, un_part, bias, db, mub,
     # nub, bias2, mub2, nub2, N, n, d, b1, omb1, b2, omb2, eps, stream
     "sae_tied_adam_vjp": [_P] * 18 + [_I] * 3 + [_F] * 5 + [_P],
-    # x, E, D, b, r, N, B, n, d, stream
-    "sae_untied_fwd": [_P] * 5 + [_I] * 4 + [_P],
     # E, dE, muE, nuE, D, dWn, muD, nuD, lrs, bc1, bc2, E2, muE2, nuE2, D2,
     # muD2, nuD2, un_part, N, n, d, b1, omb1, b2, omb2, eps, stream
     "sae_untied_adam_vjp": [_P] * 18 + [_I] * 3 + [_F] * 5 + [_P],
@@ -59,6 +57,14 @@ ARGTYPES = {
     "big_sae_bwd_sums": [_P] * 5 + [_I] * 3 + [_P],
     # E, dt, c_totals, l0f, dctr, scal, n, d, stream
     "big_sae_bwd_dctr": [_P] * 6 + [_I] * 2 + [_P],
+    # the untied forward's launches (csrc/sae_untied_fwd.cu), a chunk of
+    # Z members x rows batch rows at a time:
+    # D, Wn, rows, d, stream (once a call)
+    "sae_untied_fwd_norms": [_P] * 2 + [_I] * 2 + [_P],
+    # x, E, b, Ct, Z, rows, n, d, stream
+    "sae_untied_fwd_codes": [_P] * 4 + [_I] * 4 + [_P],
+    # Ct, Wn, x, r, Z, rows, n, d, B, stream
+    "sae_untied_fwd_decode": [_P] * 4 + [_I] * 5 + [_P],
     # the untied backward's launches (csrc/sae_untied_bwd.cu), a chunk of
     # Z members x rows batch rows at a time:
     # D, nrm, rows, d, stream (once a call)
@@ -78,26 +84,31 @@ ARGTYPES = {
     "sae_untied_bwd_loss": [_P] * 9 + [_I] * 5 + [_P],
 }
 # The library of each entry point: its own name, or for the launches of a
-# chunked backward the library of its kernel — K9's parts big_sae_bwd's,
-# the untied backward's parts sae_untied_bwd's.
+# chunked kernel the library of that kernel — K9's parts big_sae_bwd's,
+# the untied forward's and backward's parts sae_untied_fwd's and
+# sae_untied_bwd's.
 BWD_PARTS = tuple(name for name in ARGTYPES if name.startswith("big_sae_bwd_"))
+UNTIED_FWD_PARTS = tuple(name for name in ARGTYPES
+                         if name.startswith("sae_untied_fwd_"))
 UNTIED_BWD_PARTS = tuple(name for name in ARGTYPES
                          if name.startswith("sae_untied_bwd_"))
-LIBRARY_OF = {name: ("big_sae_bwd" if name in BWD_PARTS
-                     else "sae_untied_bwd" if name in UNTIED_BWD_PARTS
-                     else name)
+_PARTS = {"big_sae_bwd": BWD_PARTS, "sae_untied_fwd": UNTIED_FWD_PARTS,
+          "sae_untied_bwd": UNTIED_BWD_PARTS}
+LIBRARY_OF = {name: next((lib for lib, parts in _PARTS.items()
+                          if name in parts), name)
               for name in ARGTYPES}
 
 # Launch counts, one plain integer per kernel and per launch of a chunked
-# backward: each wrapper adds one where it launches its kernel and nowhere
+# kernel: each wrapper adds one where it launches its kernel and nowhere
 # else, so a run can show that the main path went through the kernels.
 # "big_sae_bwd" counts calls of the K9 contract
 # (fused_big_sae.big_sae_backward), each of which launches the BWD_PARTS
-# once per batch chunk (dctr once); "sae_untied_bwd" counts calls of
-# fused_sae_tiled.sae_untied_bwd, each of which launches the
-# UNTIED_BWD_PARTS once per chunk (norms and loss once). reset_launches()
-# zeroes them.
+# once per batch chunk (dctr once); "sae_untied_fwd" and "sae_untied_bwd"
+# count calls of fused_sae_tiled.sae_untied_fwd and sae_untied_bwd, which
+# launch the UNTIED_FWD_PARTS and UNTIED_BWD_PARTS once per chunk (the
+# norms, and the backward's loss, once). reset_launches() zeroes them.
 LAUNCHES: dict[str, int] = {name: 0 for name in (*KERNELS, *BWD_PARTS,
+                                                 *UNTIED_FWD_PARTS,
                                                  *UNTIED_BWD_PARTS)}
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -238,8 +249,8 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def launch(name: str, *args) -> None:
-    """Call one C entry point (a kernel's, or one of a chunked backward's
-    parts: BWD_PARTS, UNTIED_BWD_PARTS), raise on
+    """Call one C entry point (a kernel's, or one of a chunked kernel's
+    parts: BWD_PARTS, UNTIED_FWD_PARTS, UNTIED_BWD_PARTS), raise on
     a non-zero cudaError_t, and count the launch. A refused launch (too
     much shared memory, a bad configuration) shows only here:
     torch.cuda.synchronize() would not report it."""

@@ -52,8 +52,7 @@
 // Every sum runs in a fixed order (one thread per output element over a
 // chunk, chunks in order; fixed warp and slice orders in sums and loss),
 // with no atomics, so two calls give the same bits.
-#include "sae_common.cuh"
-#include "sgemm_simt.cuh"
+#include "sae_untied_common.cuh"
 
 namespace {
 
@@ -62,23 +61,8 @@ using sgemm::Operand;
 using sgemm::aligned16;
 using sgemm::load4;
 using sgemm::store4;
-
-// C[z] = relu_keep_nan(acc + b[z][f])
-struct CodesEpi {
-  const float* b;
-  float* c;
-  int n;
-  size_t cz;
-  bool vec;
-  __device__ void operator()(int z, int m, int f, int N,
-                             float (&v)[4]) const {
-    float bv[4];
-    load4(b + (size_t)z * n, 0, vec, 0, f, N, bv);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) v[e] = sae::relu_keep_nan(v[e] + bv[e]);
-    store4(c + z * cz, n, vec, m, f, N, v);
-  }
-};
+using sae::CodesEpi;
+using sae::untied_chunk_ok;
 
 // G[z] = (coef * (acc / nrm[z][f]) + alpha[z]/B) * [C[z] > 0], the plain
 // version's operations in its order (no contraction into an FMA)
@@ -106,20 +90,6 @@ struct DpreEpi {
     store4(g + z * cz, n, vec, m, f, N, v);
   }
 };
-
-// One warp per dictionary row: nrm = max(sqrt(sum D^2), 1e-8), NaN kept.
-__global__ void __launch_bounds__(sae::kThreads)
-norms_kernel(const float* __restrict__ D, int rows, int d,
-             float* __restrict__ nrm) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * sae::kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const float* p = D + (size_t)row * d;
-  float s = 0.f;
-  for (int j = lane; j < d; j += 32) s += p[j] * p[j];
-  s = sae::warp_sum(s);
-  if (lane == 0) nrm[row] = sae::clipped_norm(s);
-}
 
 // Block (32 features, member z): warp w sums rows w, w+8, ... of the
 // chunk in order, then warps 0..7 are added in order; the first chunk of
@@ -225,12 +195,6 @@ loss_final_kernel(const float* __restrict__ part,
   }
 }
 
-bool chunk_ok(int Z, int rows, int n, int d) {
-  return Z >= 1 && Z <= 65535 && rows >= 1 &&
-         rows % sae::kFwdBatchTile == 0 && n >= 1 &&
-         n % sae::kFeatTile == 0 && d >= 1 && d <= sae::kMaxD;
-}
-
 }  // namespace
 
 // Every entry point takes fp32, contiguous, row-major tensors and launches
@@ -244,20 +208,18 @@ bool chunk_ok(int Z, int rows, int n, int d) {
 // nrm [rows] = max(||D [rows, d] row||, 1e-8)
 extern "C" int sae_untied_bwd_norms(const float* D, float* nrm, int rows,
                                     int d, void* stream) {
-  if (rows < 1 || d < 1 || d > sae::kMaxD) return (int)cudaErrorInvalidValue;
-  norms_kernel<<<(rows + sae::kWarps - 1) / sae::kWarps, sae::kThreads, 0,
-                 (cudaStream_t)stream>>>(D, rows, d, nrm);
-  return (int)cudaGetLastError();
+  return (int)sae::launch_row_norms(D, rows, d, nrm, nullptr,
+                                    (cudaStream_t)stream);
 }
 
 // C [Z, rows, n] = relu(x [rows, d] . E [Z, n, d]^T + b [Z, n])
 extern "C" int sae_untied_bwd_codes(const float* x, const float* E,
                                     const float* b, float* C, int Z,
                                     int rows, int n, int d, void* stream) {
-  if (!chunk_ok(Z, rows, n, d)) return (int)cudaErrorInvalidValue;
+  if (!untied_chunk_ok(Z, rows, n, d)) return (int)cudaErrorInvalidValue;
   const size_t cz = (size_t)rows * n;
-  const CodesEpi epi{b, C, n, cz,
-                     aligned16(b, n, n, n) && aligned16(C, n, n, cz)};
+  const CodesEpi<false> epi{b, C, n, n, cz,
+                            aligned16(b, n, n, n) && aligned16(C, n, n, cz)};
   return (int)sgemm::run<true, true>(
       Operand{x, d, false, 0}, Operand{E, d, false, (size_t)n * d}, rows, n,
       d, epi, (cudaStream_t)stream, Z);
@@ -270,7 +232,8 @@ extern "C" int sae_untied_bwd_dpre(const float* r, const float* D,
                                    const float* alphas, float* G, int Z,
                                    int rows, int n, int d, int B, float coef,
                                    void* stream) {
-  if (!chunk_ok(Z, rows, n, d) || B < rows) return (int)cudaErrorInvalidValue;
+  if (!untied_chunk_ok(Z, rows, n, d) || B < rows)
+    return (int)cudaErrorInvalidValue;
   const size_t cz = (size_t)rows * n;
   const DpreEpi epi{C, nrm, alphas, G, n, cz,
                     aligned16(C, n, n, cz) && aligned16(G, n, n, cz) &&
@@ -286,7 +249,7 @@ extern "C" int sae_untied_bwd_dpre(const float* r, const float* D,
 extern "C" int sae_untied_bwd_de(const float* x, const float* G, float* dE,
                                  int Z, int rows, int n, int d, int first,
                                  void* stream) {
-  if (!chunk_ok(Z, rows, n, d)) return (int)cudaErrorInvalidValue;
+  if (!untied_chunk_ok(Z, rows, n, d)) return (int)cudaErrorInvalidValue;
   const size_t cz = (size_t)rows * n, wz = (size_t)n * d;
   const AccumEpi epi{dE, d, wz, aligned16(dE, d, d, wz), first != 0, false,
                      1.f};
@@ -302,7 +265,8 @@ extern "C" int sae_untied_bwd_dwn(const float* C, const float* r,
                                   float* dWn, int Z, int rows, int n, int d,
                                   int B, int first, int last, float coef,
                                   void* stream) {
-  if (!chunk_ok(Z, rows, n, d) || B < rows) return (int)cudaErrorInvalidValue;
+  if (!untied_chunk_ok(Z, rows, n, d) || B < rows)
+    return (int)cudaErrorInvalidValue;
   const size_t cz = (size_t)rows * n, wz = (size_t)n * d,
                rz = (size_t)B * d;
   const AccumEpi epi{dWn, d, wz, aligned16(dWn, d, d, wz), first != 0,
@@ -317,7 +281,7 @@ extern "C" int sae_untied_bwd_dwn(const float* C, const float* r,
 extern "C" int sae_untied_bwd_sums(const float* C, const float* G, float* db,
                                    float* act, float* csum, int Z, int rows,
                                    int n, int first, void* stream) {
-  if (!chunk_ok(Z, rows, n, 1)) return (int)cudaErrorInvalidValue;
+  if (!untied_chunk_ok(Z, rows, n, 1)) return (int)cudaErrorInvalidValue;
   sums_kernel<<<dim3(n / 32, Z), sae::kThreads, 0, (cudaStream_t)stream>>>(
       C, G, rows, n, first != 0, db, act, csum);
   return (int)cudaGetLastError();
@@ -332,7 +296,7 @@ extern "C" int sae_untied_bwd_loss(const float* r, const float* dE,
                                    const float* alphas, float* part,
                                    float* loss4, int N, int B, int n, int d,
                                    int P, void* stream) {
-  if (!chunk_ok(N, B, n, d) || P < 1 || P > 65535)
+  if (!untied_chunk_ok(N, B, n, d) || P < 1 || P > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   loss_part_kernel<<<dim3(P, N), sae::kThreads, 0, s>>>(r, dE, dWn, db, B, n,

@@ -1,5 +1,5 @@
-// sae_untied_fwd — forward of the feature-tiled untied SAE, with the
-// residual as its epilogue.
+// sae_untied_fwd — forward of the untied SAE ensemble, with the residual as
+// its epilogue.
 //
 // Replaces: sparse_coding_tpu/ops/fused_sae_tiled.py::_fwd_call (the Pallas
 // _fwd_kernel, tied=False) AND the XLA residual pass after it
@@ -17,141 +17,101 @@
 // for a given run counts those (chip_smoke.py). Tensor cores are out:
 // TF32 would break compute_dtype="float32".
 //
-// Design: the tied forward's, with two weight tiles per feature tile. One
-// block owns one (member, 32-row batch tile) and loops over ALL feature
-// tiles, so the x-hat sum has a fixed order and needs no atomics. Per
-// feature tile the block loads the 32 raw encoder rows, forms the [32, 32]
-// code tile (2x2 outputs per thread), then loads the 32 decoder rows into
-// the SAME shared buffer, normalizes them there (clip, as _normalize_tile)
-// and accumulates x-hat in registers (each thread owns columns tid,
-// tid+256, ... of all 32 rows). Reusing the buffer keeps shared memory at
-// the tied kernel's size (~197 KB at d=768). Simple SIMT; wgmma/TMA are
-// later work.
-#include "sae_common.cuh"
+// Design: two member-batched products on the register-tiled template
+// (sgemm_simt.cuh, grid z = member), as in the untied backward. A one-pass
+// kernel — one block per (member, 32-row batch tile) walking every feature
+// tile — reads one shared-memory word per multiply-add and is bound by it.
+// Here the codes of whole members live in a device workspace (Z*rows*n
+// floats for Z members of `rows` rows; the wrapper caps it at 1 GiB, which
+// holds all 32 members at the canonical shape), and per call, in order on
+// one stream:
+//   norms:  Wn = D / max(||D||_row, 1e-8) into an [N, n, d] scratch (once)
+//   per chunk of Z members x rows batch rows:
+//     codes:  C^T[z] = relu(E_z . x_k^T + b_z), [n, rows]          (NT)
+//     decode: r_z[rows] = C^T[z]^T . Wn_z - x_k                    (TN)
+// The codes are stored feature-major (C^T) so that the decode's A operand
+// is contiguous along its rows (the batch) and, like Wn, loads through
+// 16-byte cp.async; stored [rows, n] it would be contiguous along k and
+// load through the 4-byte transposing copies, which ran the backward's
+// products at 34-36 TFLOP/s against 42-43 (H100 SXM, 700 W).
+// Wn is written once (128 MiB at the canonical shape) so that the decode
+// rounds as the plain version does: each element of D / ||D|| first, then
+// the dot products. A chunk holds whole members while their codes fit the
+// cap; a member whose codes alone exceed it runs in row chunks, which write
+// disjoint rows of r, so nothing is added across chunks.
+// Order: one thread sums each output over k in order, with no atomics, so
+// two calls give the same bits. NaN survives the ReLU and the norm clip.
+#include "sae_untied_common.cuh"
 
 namespace {
 
-using namespace sae;
+using sgemm::Operand;
+using sgemm::aligned16;
+using sgemm::load4;
+using sgemm::store4;
 
-template <int NC>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const float* __restrict__ x, const float* __restrict__ E,
-           const float* __restrict__ D, const float* __restrict__ bias,
-           float* __restrict__ r, int B, int n, int d, int ld) {
-  extern __shared__ float smem[];
-  float* xs = smem;                                // [kFwdBatchTile][ld]
-  float* ws = xs + kFwdBatchTile * ld;             // [kFeatTile][ld]: E, then Wn
-  float* cs = ws + kFeatTile * ld;                 // [kFwdBatchTile][kFeatTile]
-  float* nrm = cs + kFwdBatchTile * kFeatTile;     // [kFeatTile]
-
-  const int tid = threadIdx.x;
-  const int m = blockIdx.y;
-  const int b0 = blockIdx.x * kFwdBatchTile;
-  const float* Em = E + (size_t)m * n * d;
-  const float* Dm = D + (size_t)m * n * d;
-  const float* bm = bias + (size_t)m * n;
-
-  load_tile(xs, x + (size_t)b0 * d, kFwdBatchTile, d, ld);
-
-  float acc[kFwdBatchTile][NC];
+// r[z] = acc - x: x [rows, d] shared by every member, r's members rz
+// elements apart, both with row stride ld
+struct ResidEpi {
+  const float* x;
+  float* r;
+  int ld;
+  size_t rz;
+  bool vec;
+  __device__ void operator()(int z, int m, int n, int N,
+                             float (&v)[4]) const {
+    float xv[4];
+    load4(x, ld, vec, m, n, N, xv);
 #pragma unroll
-  for (int i = 0; i < kFwdBatchTile; ++i)
-#pragma unroll
-    for (int k = 0; k < NC; ++k) acc[i][k] = 0.f;
-
-  // code-tile ownership: rows 2rp, 2rp+1 x features 2cp, 2cp+1
-  const int rp = tid >> 4, cp = tid & 15;
-  const float* xa = xs + (2 * rp) * ld;
-  const float* xb = xa + ld;
-  const float* wa = ws + (2 * cp) * ld;
-  const float* wb = wa + ld;
-
-  for (int f0 = 0; f0 < n; f0 += kFeatTile) {
-    __syncthreads();  // every read of the previous tile's ws/cs is done
-    load_tile(ws, Em + (size_t)f0 * d, kFeatTile, d, ld);  // raw encoder
-    __syncthreads();
-
-    float p00 = 0.f, p01 = 0.f, p10 = 0.f, p11 = 0.f;
-    for (int j = 0; j < d; ++j) {
-      const float a0 = xa[j], a1 = xb[j], w0 = wa[j], w1 = wb[j];
-      p00 += a0 * w0;
-      p01 += a0 * w1;
-      p10 += a1 * w0;
-      p11 += a1 * w1;
-    }
-    const float bb0 = bm[f0 + 2 * cp], bb1 = bm[f0 + 2 * cp + 1];
-    float* c0 = cs + (2 * rp) * kFeatTile + 2 * cp;
-    c0[0] = relu_keep_nan(p00 + bb0);
-    c0[1] = relu_keep_nan(p01 + bb1);
-    c0[kFeatTile] = relu_keep_nan(p10 + bb0);
-    c0[kFeatTile + 1] = relu_keep_nan(p11 + bb1);
-    __syncthreads();  // every read of the encoder tile is done
-
-    // the decoder tile takes the encoder tile's place (its syncs also
-    // publish the code tile)
-    load_normalized_tile(ws, nrm, Dm + (size_t)f0 * d, kFeatTile, d, ld);
-
-#pragma unroll 4
-    for (int f = 0; f < kFeatTile; ++f) {
-      float w[NC];
-#pragma unroll
-      for (int k = 0; k < NC; ++k) {
-        const int col = tid + k * kThreads;
-        w[k] = col < d ? ws[f * ld + col] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kFwdBatchTile; ++i) {
-        const float cv = cs[i * kFeatTile + f];
-#pragma unroll
-        for (int k = 0; k < NC; ++k) acc[i][k] += cv * w[k];
-      }
-    }
+    for (int e = 0; e < 4; ++e) v[e] = __fsub_rn(v[e], xv[e]);
+    store4(r + z * rz, ld, vec, m, n, N, v);
   }
-
-  // epilogue: the residual, written once (the XLA pass it replaces read
-  // x-hat and x and wrote r)
-  float* rm = r + ((size_t)m * B + b0) * d;
-#pragma unroll
-  for (int i = 0; i < kFwdBatchTile; ++i)
-#pragma unroll
-    for (int k = 0; k < NC; ++k) {
-      const int col = tid + k * kThreads;
-      if (col < d) rm[(size_t)i * d + col] = acc[i][k] - xs[i * ld + col];
-    }
-}
-
-template <int NC>
-cudaError_t launch(const float* x, const float* E, const float* D,
-                   const float* b, float* r, int N, int B, int n, int d,
-                   cudaStream_t stream) {
-  const int ld = padded_ld(d);
-  const size_t smem = sizeof(float) *
-      ((size_t)(kFwdBatchTile + kFeatTile) * ld +
-       kFwdBatchTile * kFeatTile + kFeatTile);
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B / kFwdBatchTile, N);
-  fwd_kernel<NC><<<grid, kThreads, smem, stream>>>(x, E, D, b, r, B, n, d,
-                                                    ld);
-  return cudaGetLastError();
-}
+};
 
 }  // namespace
 
-// x [B, d], E [N, n, d] raw encoder, D [N, n, d] raw decoder, b [N, n] ->
-// r [N, B, d]; all fp32, contiguous. Needs B % 32 == 0, n % 32 == 0,
-// 1 <= d <= 768 (checked by the wrapper, and again here). Returns the
-// launch's cudaError_t.
-extern "C" int sae_untied_fwd(const float* x, const float* E, const float* D,
-                              const float* b, float* r, int N, int B, int n,
-                              int d, void* stream) {
-  if (B % kFwdBatchTile || n % kFeatTile || d < 1 || d > kMaxD || N < 1)
+// Every entry point takes fp32, contiguous, row-major tensors and launches
+// on `stream`; it returns the launch's cudaError_t. A chunk is Z
+// consecutive members and `rows` consecutive batch rows (a multiple of
+// 32): x and r point at its first row (of its first member), E, Wn and b
+// at its first member. r's members are B*d floats apart (B is the whole
+// batch). Ct is the [Z, n, rows] workspace.
+
+// Wn [rows, d] = D / max(||D [rows, d] row||, 1e-8)
+extern "C" int sae_untied_fwd_norms(const float* D, float* Wn, int rows,
+                                    int d, void* stream) {
+  return (int)sae::launch_row_norms(D, rows, d, nullptr, Wn,
+                                    (cudaStream_t)stream);
+}
+
+// Ct [Z, n, rows] = relu(E [Z, n, d] . x [rows, d]^T + b [Z, n])
+extern "C" int sae_untied_fwd_codes(const float* x, const float* E,
+                                    const float* b, float* Ct, int Z,
+                                    int rows, int n, int d, void* stream) {
+  if (!sae::untied_chunk_ok(Z, rows, n, d))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch ((d + kThreads - 1) / kThreads) {
-    case 1: return (int)launch<1>(x, E, D, b, r, N, B, n, d, s);
-    case 2: return (int)launch<2>(x, E, D, b, r, N, B, n, d, s);
-    default: return (int)launch<3>(x, E, D, b, r, N, B, n, d, s);
-  }
+  const size_t cz = (size_t)n * rows;
+  const sae::CodesEpi<true> epi{b, Ct, n, rows, cz,
+                                aligned16(Ct, rows, rows, cz)};
+  return (int)sgemm::run<true, true>(
+      Operand{E, d, false, (size_t)n * d}, Operand{x, d, false, 0}, n, rows,
+      d, epi, (cudaStream_t)stream, Z);
+}
+
+// r [Z, rows, d] (members B*d apart) = Ct [Z, n, rows]^T . Wn [Z, n, d]
+// - x [rows, d]
+extern "C" int sae_untied_fwd_decode(const float* Ct, const float* Wn,
+                                     const float* x, float* r, int Z,
+                                     int rows, int n, int d, int B,
+                                     void* stream) {
+  if (!sae::untied_chunk_ok(Z, rows, n, d) || B < rows)
+    return (int)cudaErrorInvalidValue;
+  const size_t cz = (size_t)n * rows, wz = (size_t)n * d,
+               rz = (size_t)B * d;
+  const ResidEpi epi{x, r, d, rz,
+                     aligned16(r, d, d, rz) && aligned16(x, d, d)};
+  return (int)sgemm::run<false, false>(
+      Operand{Ct, rows, aligned16(Ct, rows, rows, cz), cz},
+      Operand{Wn, d, aligned16(Wn, d, d, wz), wz}, rows, d, n, epi,
+      (cudaStream_t)stream, Z);
 }

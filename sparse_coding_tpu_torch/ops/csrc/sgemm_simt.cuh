@@ -29,7 +29,7 @@
 // past operand 0 (zs = 0: one operand shared by every z), and the
 // epilogue is told z. count = 1 launches an instantiation without the
 // batch offsets (Batched = false): they cost the products whose operands
-// load through 4-byte copies 3.5-7% (scripts/time_bwd_parts.py, H100 SXM at
+// load through 4-byte copies 3.5-7% (scripts/time_kernel_parts.py, H100 SXM at
 // 700 W), which a single product need not pay. The sums are the same in
 // either, in the same order.
 #pragma once

@@ -4,20 +4,24 @@ family's ``coef_mask``, and K7 ``tiled_untied_sae_grads``).
 
 Four hand-written Hopper kernels (``ops/csrc``) carry it:
 
-- ``sae_tied_fwd`` / ``sae_untied_fwd`` — x-hat summed over feature tiles
-  inside one block per (member, batch tile), with the residual
-  r = x-hat − x as its epilogue, so the codes never reach device memory
-  and no separate residual pass runs;
+- ``sae_tied_fwd`` — x-hat summed over feature tiles inside one block per
+  (member, batch tile), with the residual r = x-hat − x as its epilogue,
+  so the codes never reach device memory and no separate residual pass
+  runs;
 - ``sae_tied_bwd`` — one block per (member, feature tile) loops over the
   batch in a fixed order, recomputing the code tiles and accumulating the
   weight grads, db, activity, the loss partials and the sentinel's grad
   sum of squares;
+- ``sae_untied_fwd`` — the normalized decoder written once, then the
+  members in chunks whose codes (stored feature-major) fit a workspace
+  capped at ``UNTIED_WORKSPACE_BYTES`` (1 GiB; a member too large for
+  it alone runs in row chunks): per chunk two member-batched fp32 products,
+  the codes and the decode with the residual as its epilogue;
 - ``sae_untied_bwd`` — the members in chunks whose codes C and dpre G fit
-  a workspace capped at ``UNTIED_BWD_WORKSPACE_BYTES`` (1 GiB; a member
-  too large for it alone runs in batch chunks, added in order): per chunk
-  four member-batched fp32 products with fused epilogues (C, G, dE, dWn)
-  and the per-feature sums; then the loss terms and the sentinel's grad
-  sum of squares. The CPU runs the same chunk schedule in plain torch.
+  a workspace under the same cap (a member too large for it alone runs in
+  batch chunks, added in order): per chunk four member-batched fp32
+  products with fused epilogues (C, G, dE, dWn) and the per-feature sums;
+  then the loss terms and the sentinel's grad sum of squares.
 
 The tied pair takes an optional ``coef_mask`` [N, n] (0/1, float32): the
 masked family's coefficient mask, multiplied into the codes and the ReLU
@@ -27,8 +31,7 @@ row-normalized decoder.
 Each kernel has a plain PyTorch version beside it (``*_plain``). A wrapper
 takes the plain version (the untied backward: its chunk schedule in plain
 torch) only for CPU tensors; on CUDA tensors it launches its kernel or
-raises. The tiled paths' reported grad norm is the
-KERNEL-grad norm, taken before the normalization VJP and, untied, before
+raises. The tiled paths' reported grad norm is the KERNEL-grad norm, taken before the normalization VJP and, untied, before
 the bias decay — the same quantity the JAX package reports.
 """
 
@@ -211,20 +214,99 @@ def sae_untied_fwd_plain(encoder: torch.Tensor, decoder: torch.Tensor,
     return torch.matmul(c, _normalize_rows(decoder)) - batch
 
 
+# The untied kernels keep the codes of one chunk — Z members x rows batch
+# rows: the forward's Cᵀ [Z, n, rows] fp32, the backward's C and dpre G
+# [Z, rows, n] fp32 each — in a device workspace of at most this many
+# bytes; the whole [N, B, n] codes are never formed.
+UNTIED_WORKSPACE_BYTES = 2**30
+
+
+def _member_chunks(n_members: int, batch: int, n_feats: int,
+                   code_bytes: int, cap: int
+                   ) -> list[tuple[int, int, int, int]]:
+    """Chunks (m_lo, m_hi, b_lo, b_hi) of a workspace of ``code_bytes`` a
+    (member, row, feature) capped at ``cap``: whole members, as many a
+    chunk as fit (the last chunk may hold fewer); a member too large alone
+    in row chunks of the largest multiple of 32 rows that fits (at least
+    32; the last may be shorter)."""
+    member_bytes = code_bytes * batch * n_feats
+    if member_bytes <= cap:
+        z = min(n_members, cap // member_bytes)
+        return [(m, min(m + z, n_members), 0, batch)
+                for m in range(0, n_members, z)]
+    rows = max(32, cap // (code_bytes * n_feats) // 32 * 32)
+    return [(m, m + 1, lo, min(lo + rows, batch)) for m in range(n_members)
+            for lo in range(0, batch, rows)]
+
+
+def untied_fwd_chunks(n_members: int, batch: int,
+                      n_feats: int) -> list[tuple[int, int, int, int]]:
+    """The untied forward's chunks (m_lo, m_hi, b_lo, b_hi), in the order
+    they run: whole members, as many a chunk as UNTIED_WORKSPACE_BYTES
+    holds (the last chunk may hold fewer); a member whose codes alone
+    exceed it runs in row chunks of the largest multiple of 32 rows that
+    fits (the last may be shorter), each writing its own rows of r. All 32
+    members in one chunk at the canonical shape (B = n = 2048), 16 a chunk
+    at n = 8192."""
+    return _member_chunks(n_members, batch, n_feats, 4,
+                          UNTIED_WORKSPACE_BYTES)
+
+
+# The launches of the untied forward (csrc/sae_untied_fwd.cu), one helper
+# each. A chunk's operands are slices at its first member (and row): the
+# residual slice keeps the whole batch's member stride.
+
+def untied_fwd_norms(decoder, wn) -> None:
+    """wn [N, n, d] = D / max(‖D_f‖, 1e-8) for every decoder row."""
+    _build.launch("sae_untied_fwd_norms", decoder.data_ptr(), wn.data_ptr(),
+                  decoder.numel() // decoder.shape[-1], decoder.shape[-1],
+                  _build.stream_ptr(wn))
+
+
+def untied_fwd_codes(xk, encoder, bias, ct) -> None:
+    """Cᵀ [Z, n, rows] = relu(E·xkᵀ + b) into the workspace ``ct``, for the
+    Z members of ``encoder`` [Z, n, d]."""
+    z, n, d = encoder.shape
+    _build.launch("sae_untied_fwd_codes", xk.data_ptr(), encoder.data_ptr(),
+                  bias.data_ptr(), ct.data_ptr(), z, xk.shape[0], n, d,
+                  _build.stream_ptr(xk))
+
+
+def untied_fwd_decode(ct, wn, xk, rk, batch: int) -> None:
+    """rk = Cᵀᵀ·Wn − xk into ``rk``, the [Z, rows, d] slice of the
+    [N, B, d] residual, for the Z members of ``wn`` [Z, n, d]."""
+    z, n, d = wn.shape
+    _build.launch("sae_untied_fwd_decode", ct.data_ptr(), wn.data_ptr(),
+                  xk.data_ptr(), rk.data_ptr(), z, xk.shape[0], n, d, batch,
+                  _build.stream_ptr(xk))
+
+
 def sae_untied_fwd(encoder: torch.Tensor, decoder: torch.Tensor,
                    bias: torch.Tensor, batch: torch.Tensor) -> torch.Tensor:
-    """See :func:`sae_untied_fwd_plain`. CUDA: launches
-    ``sae_untied_fwd``."""
+    """See :func:`sae_untied_fwd_plain`. CUDA: the normalized decoder, then
+    per chunk of :func:`untied_fwd_chunks` the launches
+    ``untied_fwd_codes`` and ``untied_fwd_decode``; counts one
+    ``sae_untied_fwd`` call. CPU: the plain version (the chunks write
+    disjoint rows of r and sum nothing across one another, so their
+    schedule leaves nothing for a plain twin to mirror)."""
     n_members, n_feats, d, b = _untied_shapes(encoder, decoder, bias, batch)
     if _on_cpu("sae_untied_fwd", encoder, decoder, bias, batch):
         return sae_untied_fwd_plain(encoder, decoder, bias, batch)
     _kernel_tensors("sae_untied_fwd", b, n_feats, d, encoder=encoder,
                     decoder=decoder, bias=bias, batch=batch)
-    r = torch.empty((n_members, b, d), dtype=torch.float32,
-                    device=batch.device)
-    _build.launch("sae_untied_fwd", batch.data_ptr(), encoder.data_ptr(),
-                  decoder.data_ptr(), bias.data_ptr(), r.data_ptr(),
-                  n_members, b, n_feats, d, _build.stream_ptr(batch))
+    kw = {"dtype": torch.float32, "device": batch.device}
+    r = torch.empty((n_members, b, d), **kw)
+    wn = torch.empty((n_members, n_feats, d), **kw)
+    chunks = untied_fwd_chunks(n_members, b, n_feats)
+    ct = torch.empty((max((mh - ml) * (bh - bl) for ml, mh, bl, bh
+                          in chunks) * n_feats,), **kw)
+    untied_fwd_norms(decoder, wn)
+    for m_lo, m_hi, b_lo, b_hi in chunks:
+        ms = slice(m_lo, m_hi)
+        xk = batch[b_lo:b_hi]
+        untied_fwd_codes(xk, encoder[ms], bias[ms], ct)
+        untied_fwd_decode(ct, wn[ms], xk, r[ms, b_lo:b_hi], b)
+    _build.LAUNCHES["sae_untied_fwd"] += 1
     return r
 
 
@@ -256,10 +338,6 @@ def sae_untied_bwd_plain(encoder: torch.Tensor, decoder: torch.Tensor,
     return de, dwn, db, mask.sum(dim=1), loss4
 
 
-# The untied backward keeps the codes C and dpre G of one chunk — Z members
-# x rows batch rows, [Z, rows, n] fp32 each — in a device workspace of at
-# most this many bytes; the whole [N, B, n] codes are never formed.
-UNTIED_BWD_WORKSPACE_BYTES = 2**30
 # Slices a member's loss reductions are split into (a fixed number, so the
 # order of every sum depends on the shape alone).
 UNTIED_LOSS_SLICES = 16
@@ -268,19 +346,13 @@ UNTIED_LOSS_SLICES = 16
 def untied_bwd_chunks(n_members: int, batch: int,
                       n_feats: int) -> list[tuple[int, int, int, int]]:
     """The untied backward's chunks (m_lo, m_hi, b_lo, b_hi), in the order
-    they run: whole members, as many a chunk as UNTIED_BWD_WORKSPACE_BYTES
+    they run: whole members, as many a chunk as UNTIED_WORKSPACE_BYTES
     holds (the last chunk may hold fewer); a member whose C and G alone
     exceed it runs in batch chunks of the largest multiple of 32 rows that
     fits (the last may be shorter), added in order. All 32 members in one
     chunk at the canonical shape (B = n = 2048), 8 a chunk at n = 8192."""
-    member_bytes = 2 * 4 * batch * n_feats
-    if member_bytes <= UNTIED_BWD_WORKSPACE_BYTES:
-        z = min(n_members, UNTIED_BWD_WORKSPACE_BYTES // member_bytes)
-        return [(m, min(m + z, n_members), 0, batch)
-                for m in range(0, n_members, z)]
-    rows = max(32, UNTIED_BWD_WORKSPACE_BYTES // (2 * 4 * n_feats) // 32 * 32)
-    return [(m, m + 1, lo, min(lo + rows, batch)) for m in range(n_members)
-            for lo in range(0, batch, rows)]
+    return _member_chunks(n_members, batch, n_feats, 2 * 4,
+                          UNTIED_WORKSPACE_BYTES)
 
 
 def _untied_bwd_chunked_plain(encoder, decoder, bias, alphas, batch, resid):

@@ -1,9 +1,9 @@
 """The port's CUDA kernels on the card (the tied kernels with and without
-the masked family's coef_mask, the untied ones — the backward also in
-several chunks —, and the giant single SAE's pair), each held against its
-plain PyTorch version on the same inputs. Card only: every test carries the
-``cuda`` marker and skips without a card. This file imports no JAX (the
-card's host has none), so it runs there on its own:
+the masked family's coef_mask, the untied ones — the forward and the
+backward also in several chunks —, and the giant single SAE's pair), each
+held against its plain PyTorch version on the same inputs. Card only:
+every test carries the ``cuda`` marker and skips without a card. This file
+imports no JAX (the card's host has none), so it runs there on its own:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_port_cuda.py
@@ -200,6 +200,56 @@ def test_ensemble_refuses_a_shape_the_kernels_do_not_take(card, tied):
     assert all(v == 0 for v in _build.LAUNCHES.values())
 
 
+# --- the untied forward's chunked launches (sae_untied_fwd) -------------------
+
+def _check_untied_fwd(i, n_chunks):
+    """Two sae_untied_fwd calls against the plain version (rtol 1e-5 of
+    max|ref|), bitwise equal to each other; norms launched once a call,
+    codes and decode once per chunk."""
+    args = (i["e"], i["dec"], i["bias"], i["x"])
+    _build.reset_launches()
+    got = ft.sae_untied_fwd(*args)
+    again = ft.sae_untied_fwd(*args)
+    want = ft.sae_untied_fwd_plain(*args)
+    torch.cuda.synchronize()
+    _close(got, want, 1e-5)
+    assert torch.equal(got, again)
+    assert _build.LAUNCHES["sae_untied_fwd"] == 2
+    assert {k: _build.LAUNCHES[k] for k in _build.UNTIED_FWD_PARTS} == {
+        k: 2 * (1 if k == "sae_untied_fwd_norms" else n_chunks)
+        for k in _build.UNTIED_FWD_PARTS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 64, 96, 37), (4, 96, 64, 40),
+                                   (5, 32, 64, 600), (3, 64, 32, 768)],
+                         ids=str)
+def test_untied_fwd_matches_plain(card, shape):
+    """One chunk of every member (N = 3-5) at d = 37 (no 16-byte copies
+    of Wn, x or r), 40, 600 and 768."""
+    _check_untied_fwd(_inputs(card, *shape, seed=1), 1)
+
+
+# (members, batch, n_feats, d, members a chunk, rows a chunk): whole
+# members a chunk (the last holds fewer), or one member's batch in row
+# chunks (the last shorter); d a multiple of 4 or not
+UNTIED_FWD_CHUNK_CASES = [(5, 64, 96, 300, 2, 64), (3, 32, 64, 768, 2, 32),
+                          (3, 160, 64, 40, 1, 64), (3, 96, 32, 37, 1, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", UNTIED_FWD_CHUNK_CASES, ids=str)
+def test_untied_fwd_chunks_match_plain(card, monkeypatch, case):
+    """sae_untied_fwd with the workspace cap lowered so that the members,
+    or one member's batch, split into chunks."""
+    n_m, b, n, d, z, rows = case
+    monkeypatch.setattr(ft, "UNTIED_WORKSPACE_BYTES", 4 * n * z * rows)
+    chunks = ft.untied_fwd_chunks(n_m, b, n)
+    assert len(chunks) >= 2
+    assert any(mh - ml < z or bh - bl < rows for ml, mh, bl, bh in chunks)
+    _check_untied_fwd(_inputs(card, n_m, b, n, d, seed=3), len(chunks))
+
+
 # --- the untied backward's chunked launches (sae_untied_bwd) ------------------
 
 def _untied_bwd_args(card, n_m, b, n, d, seed=0):
@@ -254,7 +304,7 @@ def test_untied_bwd_chunks_match_plain(card, monkeypatch, case):
     """sae_untied_bwd with the workspace cap lowered so that the members,
     or one member's batch, split into chunks."""
     n_m, b, n, d, z, rows = case
-    monkeypatch.setattr(ft, "UNTIED_BWD_WORKSPACE_BYTES", 2 * 4 * n * z * rows)
+    monkeypatch.setattr(ft, "UNTIED_WORKSPACE_BYTES", 2 * 4 * n * z * rows)
     chunks = ft.untied_bwd_chunks(n_m, b, n)
     assert len(chunks) >= 2
     assert any(mh - ml < z or bh - bl < rows for ml, mh, bl, bh in chunks)
