@@ -8,8 +8,8 @@ Phases — any failure raises, and the script exits non-zero with no result:
    are built from ``sparse_coding_tpu_torch/ops/csrc`` (one nvcc per
    source, all started together), with their ptxas register and spill
    lines — every instantiation of the GEMM template among them (in
-   big_sae_bwd, sae_untied_fwd and sae_untied_bwd), where any spill fails
-   the run;
+   big_sae_bwd, sae_tied_bwd, sae_untied_fwd and sae_untied_bwd), where
+   any spill fails the run;
 2. kernels: each ensemble kernel (sae_tied_fwd, sae_tied_bwd,
    sae_tied_adam_vjp, sae_untied_fwd, sae_untied_bwd, sae_untied_adam_vjp)
    and each contract
@@ -50,25 +50,34 @@ Phases — any failure raises, and the script exits non-zero with no result:
 8. summary: one ``{"kernels": [...]}`` line, the card's name and power
    limit, and the last line ``{"ok": true, "device": {...}}``.
 
-Phase 2 also holds ``sae_untied_fwd`` and ``sae_untied_bwd`` against
-their plain versions at the ratio-16 width (n = 8,192, which their 1 GiB
-workspaces take in 2 chunks of 16 members and 4 chunks of 8), and at the
-main shape (the forward at ratio 16 too) checks that two calls give the
-same bits, records one call's peak memory beside the plain version's and
-times each of their launches. It holds ``big_sae_fwd``/``big_sae_bwd``
-against their plain versions at the big-SAE shape, at small odd shapes up
-to their widest d (1024) and at a batch that ``big_sae_bwd`` takes in
-three chunks (the last one short); at the big-SAE shape it checks K9's
-repeat and memory the same way and times each of its launches on one
-chunk.
+Phase 2 also holds ``sae_tied_bwd``, ``sae_untied_fwd`` and
+``sae_untied_bwd`` against their plain versions at the ratio-16 width
+(n = 8,192, which their 1 GiB workspaces take in 4 chunks of 8 members,
+2 chunks of 16 and 4 chunks of 8; the tied backward with and without a
+coef_mask), and at the main shape (the tied backward and the untied
+forward at ratio 16 too) checks that two calls give the same bits,
+records one call's peak memory beside the plain version's and times each
+of their launches. At ratio 16 (and at the main shape too) the tied
+backward's ReLU mask flips are counted against the plain version's masks
+(``tied_bwd_flips``): at most one per million codes, each within 1e-2 of
+the sums' rounding bound of 0, and its dW and db held against the plain
+version within rtol 1e-3 on every feature with no flip and, with each
+flip's terms moved to the kernel's side, on every feature. It holds
+``big_sae_fwd``/``big_sae_bwd`` against their plain versions at the
+big-SAE shape, at small odd shapes up to their widest d (1024) and at a
+batch that ``big_sae_bwd`` takes in three chunks (the last one short); at
+the big-SAE shape it checks K9's repeat and memory the same way and times
+each of its launches on one chunk.
 
-The three chunked kernels count their launches in two families:
-``sae_untied_fwd``, ``sae_untied_bwd`` and ``big_sae_bwd`` count calls of
-their contracts; their own launches count under
+The four chunked kernels count their launches in two families:
+``sae_tied_bwd``, ``sae_untied_fwd``, ``sae_untied_bwd`` and
+``big_sae_bwd`` count calls of their contracts; their own launches count
+under ``_build.TIED_BWD_PARTS`` and ``_build.UNTIED_BWD_PARTS`` (norms and
+loss once per call, the products and the sums once per chunk),
 ``_build.UNTIED_FWD_PARTS`` (norms once per call, the codes and decode
-products once per chunk), ``_build.UNTIED_BWD_PARTS`` (norms and loss once
-per call, the products and the sums once per chunk) and
-``_build.BWD_PARTS`` (once per batch chunk; dctr once per call).
+products once per chunk) and ``_build.BWD_PARTS`` (once per batch chunk;
+dctr once per call). The masked family's shape (7 members of 16,384
+features) takes the tied backward in 2 member chunks (4 + 3).
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card;
 ``--report PATH`` also writes every measurement as JSON).
@@ -180,9 +189,9 @@ BIG_SMALL_SHAPES = ((32, 64, 40), (64, 64, 128), (32, 96, 640),
 # big_sae_bwd runs the batch in chunks of 8,192 rows at 16,384 features
 # (its 1 GiB workspace): this batch takes 8,192 + 8,192 + 4,096
 BIG_CHUNK_SHAPE = (20480, BIG_N, BIG_D)
-# the untied pair at the ratio-16 width: 32 members x 8,192 features,
-# 2 chunks of 16 members in the forward's 1 GiB workspace, 4 chunks of 8
-# in the backward's
+# the chunked kernels at the ratio-16 width: 32 members x 8,192 features,
+# 2 chunks of 16 members in the untied forward's 1 GiB workspace, 4 chunks
+# of 8 in the backwards'
 RATIO16_SHAPE = (N_MEMBERS, BATCH, 16 * D, D)  # (members, batch, n, d)
 RATIO16_FWD_CHUNKS = 2
 RATIO16_CHUNKS = 4
@@ -190,10 +199,14 @@ RATIO16_CHUNKS = 4
 # (repeat_and_memory) plus this much for the caching allocator's rounding
 MEM_SLACK = 8 * 2**20
 BIG_N_DEAD = 20
-# big_sae_bwd's l0 is a count over B·n codes: a pre-activation within
-# rounding of 0 (the two sides sum its 1024 products in other orders) can
-# flip its mask — at most one flip per million codes is allowed
-BIG_L0_FLIPS_PER_CODE = 1e-6
+# ReLU mask flips: a pre-activation within rounding of 0 (the two sides
+# sum its d products in other orders) can flip its mask — at most one flip
+# per million codes is allowed (big_sae_bwd's l0, a count over B·n codes;
+# sae_tied_bwd's masks, tied_bwd_flips), and a tied flip must lie within
+# this share of the sums' worst-case rounding bound of 0 (the flips seen
+# on the H100 lie within 1e-4 of it)
+FLIPS_PER_CODE = 1e-6
+FLIP_BOUND_SHARE = 1e-2
 # The kernel path's 16-step run vs its autodiff replay (same init, batches
 # and resurrection steps), ‖ΔW‖/‖W‖ per leaf after 16 Adam steps: the two
 # paths' gradients differ by rounding (~1e-6), and Adam's early steps are
@@ -556,20 +569,24 @@ def time_kernels(inp: dict) -> dict:
     return out
 
 
-def untied_part_launches(calls: int, shape=(N_MEMBERS, BATCH, N_FEATS)
-                         ) -> dict:
-    """The untied forward's and backward's part launches over ``calls``
+def part_launches(tied: bool, calls: int,
+                  shape=(N_MEMBERS, BATCH, N_FEATS)) -> dict:
+    """The part launches of a family's chunked kernels — the tied
+    backward's, or the untied forward's and backward's — over ``calls``
     calls of each at ``shape`` (members, batch, n): the norms (and the
-    backward's loss) once a call, the products (and the backward's sums)
+    backwards' loss) once a call, the products (and the backwards' sums)
     once per chunk of each kernel's schedule."""
     from sparse_coding_tpu_torch.ops import _build
     from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
 
-    once = ("sae_untied_fwd_norms", "sae_untied_bwd_norms",
+    once = ("sae_tied_bwd_norms", "sae_tied_bwd_loss",
+            "sae_untied_fwd_norms", "sae_untied_bwd_norms",
             "sae_untied_bwd_loss")
+    kernels = (((_build.TIED_BWD_PARTS, ft.bwd_chunks),) if tied else
+               ((_build.UNTIED_FWD_PARTS, ft.untied_fwd_chunks),
+                (_build.UNTIED_BWD_PARTS, ft.bwd_chunks)))
     out = {}
-    for parts, chunks in ((_build.UNTIED_FWD_PARTS, ft.untied_fwd_chunks),
-                          (_build.UNTIED_BWD_PARTS, ft.untied_bwd_chunks)):
+    for parts, chunks in kernels:
         n_chunks = len(chunks(*shape))
         out.update({k: calls * (1 if k in once else n_chunks)
                     for k in parts})
@@ -637,43 +654,33 @@ def untied_fwd_extras(inp: dict) -> dict:
     from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
 
     e, dec, x, bias = (inp[k] for k in ("e", "dec", "x", "bias"))
-    n_m, n, d = e.shape
-    b = x.shape[0]
     out = untied_fwd_repeat_and_memory(e, dec, bias, x, "main")
     if out["chunks"] != 1:
         raise AssertionError(f"main shape: forward chunks {out['chunks']}")
-    kw = {"dtype": torch.float32, "device": DEV}
-    wn = torch.empty((n_m, n, d), **kw)
-    ct = torch.empty((n_m * n * b,), **kw)
-    r = torch.empty((n_m, b, d), **kw)
-    gemm = 2.0 * n_m * b * n * d
-    times = time_parts({  # launch, FLOPs; in the order a call runs them
-        "sae_untied_fwd_norms": (lambda: ft.untied_fwd_norms(dec, wn), 0.0),
-        "sae_untied_fwd_codes": (
-            lambda: ft.untied_fwd_codes(x, e, bias, ct), gemm),
-        "sae_untied_fwd_decode": (
-            lambda: ft.untied_fwd_decode(ct, wn, x, r, b), gemm),
-    })
+    times = time_parts(ft.one_chunk_launches("sae_untied_fwd", e, bias, x,
+                                             decoder=dec))
     per_call = sum(v["ms"] for v in times.values())
     log(f"  one chunk: the forward's launches sum to {per_call:.2f} ms a "
         "call")
-    del wn, ct, r
     torch.cuda.empty_cache()
     return {**out, "parts": times, "parts_sum_ms": per_call}
 
 
-def check_untied_ratio16(gen: torch.Generator, x: torch.Tensor) -> dict:
-    """The untied pair against its plain versions at the ratio-16 width,
-    which the real 1 GiB workspaces take in RATIO16_FWD_CHUNKS (forward)
-    and RATIO16_CHUNKS (backward) member chunks; the launches must show
-    them. The forward's residual feeds both backwards; the forward also
-    repeats bitwise and stays within its memory allowance."""
+def check_ratio16(gen: torch.Generator, x: torch.Tensor) -> dict:
+    """The chunked ensemble kernels against their plain versions at the
+    ratio-16 width, which the real 1 GiB workspaces take in
+    RATIO16_FWD_CHUNKS (untied forward) and RATIO16_CHUNKS (backwards)
+    member chunks; the launches must show them. The untied forward's
+    residual feeds both untied backwards; the tied backward and its plain
+    version get the plain tied forward's residual, with and without a
+    coef_mask. The untied forward and the tied backward also repeat
+    bitwise and stay within their memory allowances."""
     from sparse_coding_tpu_torch.ops import _build
     from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
 
     n_m, b, n, d = RATIO16_SHAPE
     chunks = {"fwd": len(ft.untied_fwd_chunks(n_m, b, n)),
-              "bwd": len(ft.untied_bwd_chunks(n_m, b, n))}
+              "bwd": len(ft.bwd_chunks(n_m, b, n))}
     if chunks != {"fwd": RATIO16_FWD_CHUNKS, "bwd": RATIO16_CHUNKS}:
         raise AssertionError(f"ratio 16: chunks {chunks}")
     lim = math.sqrt(6.0 / (n + d))
@@ -686,7 +693,7 @@ def check_untied_ratio16(gen: torch.Generator, x: torch.Tensor) -> dict:
     r = ft.sae_untied_fwd(e, dec, bias, x)
     got = ft.sae_untied_bwd(e, dec, bias, al, x, r)
     sync()
-    want = untied_part_launches(1, (n_m, b, n))
+    want = part_launches(False, 1, (n_m, b, n))
     launches = {k: _build.LAUNCHES[k] for k in want}
     if launches != want:
         raise AssertionError(f"ratio 16: launches {launches}, expected "
@@ -707,10 +714,189 @@ def check_untied_ratio16(gen: torch.Generator, x: torch.Tensor) -> dict:
     del r, got, ref
     torch.cuda.empty_cache()
     fwd = untied_fwd_repeat_and_memory(e, dec, bias, x, "ratio16")
-    del e, dec
+    del dec
+    torch.cuda.empty_cache()
+
+    # member m keeps the first n / (1 + m % 4) features, as make_inputs
+    cm = (torch.arange(n)[None, :]
+          < (n // (1 + torch.arange(n_m) % 4))[:, None]).float().to(DEV)
+    tied = {}
+    for mask, sfx in ((None, ""), (cm, "_masked")):
+        rt = ft.sae_tied_fwd_plain(e, bias, x, mask)
+        _build.reset_launches()
+        got = ft.sae_tied_bwd(e, bias, al, x, rt, mask)
+        sync()
+        want = part_launches(True, 1, (n_m, b, n))
+        launches = {k: _build.LAUNCHES[k] for k in want}
+        if launches != want:
+            raise AssertionError(f"ratio 16: tied launches {launches}, "
+                                 f"expected {want}")
+        ref = ft.sae_tied_bwd_plain(e, bias, al, x, rt, mask)
+        # dW and db row by row in tied_bwd_flips, the rest here
+        pairs = bwd_pairs(got, ref, ("dw",), sfx)
+        del pairs["dw" + sfx], pairs["db" + sfx]
+        errs_t = {field: compare(f"ratio16:sae_tied_bwd.{field}", g, rf,
+                                 rtol, atol)
+                  for field, (g, rf, rtol, atol) in pairs.items()}
+        worst = max(v["max_rel_err"] for k, v in errs_t.items()
+                    if not is_mask_count(k))
+        log(f"  ratio16 sae_tied_bwd{sfx} ({n_m}x{b}x{n}x{d}, "
+            f"{chunks['bwd']} chunks): ok, worst rel err {worst:.2e} "
+            "(activity, losses)")
+        flips = tied_bwd_flips(e, bias, al, x, rt, mask, got, ref,
+                               f"ratio16{sfx}")
+        tied.update({**errs_t, f"flips{sfx}": flips})
+        del got, ref
+        torch.cuda.empty_cache()
+        if mask is None:
+            tied_mem = tied_bwd_repeat_and_memory(e, bias, al, x, rt, None,
+                                                  "ratio16")
+        del rt
+        torch.cuda.empty_cache()
+    del e
     torch.cuda.empty_cache()
     return {"sae_untied_fwd": {"r": r_err, **fwd}, "sae_untied_bwd": errs,
-            "chunks": chunks}
+            "sae_tied_bwd": {**tied, **tied_mem}, "chunks": chunks}
+
+
+def tied_bwd_flips(e, bias, al, x, r, cm, got, ref, tag: str) -> dict:
+    """sae_tied_bwd's dW and db (``got``) against the plain version's
+    (``ref``), with its ReLU mask flips counted and bounded. A
+    pre-activation within rounding of 0 can land on the other side of 0 in
+    the kernel, whose sums run in another order than cuBLAS's: a flip,
+    which moves that feature's dW row by dpre·x and its db by dpre — more
+    than RTOL_GRAD of max|dW| when it hits a high-alpha member among the
+    537M codes at the ratio-16 width. The kernel's masks come from its
+    codes launch on these inputs (the launch the call makes, on its own Ŵ).
+    Checked:
+
+    - at most FLIPS_PER_CODE flips per code (at least one allowed);
+    - each flip within FLIP_BOUND_SHARE of the rounding bound of 0: each
+      side's pre-activation is within (d+1)·2⁻²⁴·S of the exact one,
+      S = Σ_j|x_j·ŵ_j| + |b|, and the two sides' Ŵ differ by as much
+      again, so 3·(d+1)·2⁻²⁴·S;
+    - dW and db of every (member, feature) with no flip against the plain
+      version within RTOL_GRAD;
+    - dW and db of every (member, feature) against the plain version with
+      each flipped code's terms moved to the kernel's side (±dpre·x_b and
+      coef·Δc·r_b in its dW row, ±dpre in its db) within RTOL_GRAD.
+
+    The codes launch runs once more on the plain version's Ŵ (torch's row
+    norms), and its flips are counted beside the kernel's: if they vanish,
+    the flips come from the norm pass; if not, from the products' order."""
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    n_m, n, d = e.shape
+    b = x.shape[0]
+    w = e / torch.clamp(torch.linalg.vector_norm(e, dim=-1, keepdim=True),
+                        min=1e-8)
+    pre = torch.matmul(x, w.transpose(1, 2)) + bias[:, None, :]
+    want = pre > 0
+    if cm is not None:
+        want &= cm[:, None, :] > 0
+    w_k = torch.empty_like(e)
+    c_k = torch.empty((n_m, b, n), dtype=torch.float32, device=DEV)
+    ft.tied_bwd_norms(e, w_k)
+    w_diff = int((w_k != w).sum())
+    ft.tied_bwd_codes(x, w_k, bias, cm, c_k)
+    mm, bb, ff = ((c_k > 0) != want).nonzero().unbind(1)
+    c_flip = c_k[mm, bb, ff]
+    ft.tied_bwd_codes(x, w, bias, cm, c_k)
+    torch_w_flips = int(((c_k > 0) != want).sum())
+    del c_k, w_k, want
+    flips = len(mm)
+    allowed = max(1.0, FLIPS_PER_CODE * n_m * b * n)
+    s = (x[bb].abs() * w[mm, ff].abs()).sum(dim=1) + bias[mm, ff].abs()
+    p_flip = pre[mm, bb, ff]
+    del pre
+    ratio = p_flip.abs() / (3 * (d + 1) * 2.0**-24 * s)
+    worst = float(ratio.max()) if flips else 0.0
+    log(f"  {tag} sae_tied_bwd: {flips} ReLU mask flips of {n_m * b * n} "
+        f"(allowed {allowed:.0f}), the farthest from 0 at {worst:.2e} of "
+        f"its rounding bound (allowed {FLIP_BOUND_SHARE}); on torch's Ŵ "
+        f"{torch_w_flips} flips (the kernel's Ŵ differs from torch's in "
+        f"{w_diff} of {n_m * n * d} elements)")
+    if flips > allowed:
+        raise AssertionError(f"{tag}: sae_tied_bwd flipped {flips} ReLU "
+                             f"masks (> {allowed:.0f})")
+    if not worst <= FLIP_BOUND_SHARE:
+        raise AssertionError(f"{tag}: sae_tied_bwd flipped a ReLU mask "
+                             f"{worst:.2e} of the rounding bound from 0 "
+                             f"(> {FLIP_BOUND_SHARE})")
+    clean = torch.ones((n_m, n), dtype=torch.bool, device=DEV)
+    clean[mm, ff] = False
+    errs = {f"{f}_no_flip": compare(
+        f"{tag}:sae_tied_bwd.{f} (features with no flip)", g[clean],
+        rf[clean], RTOL_GRAD) for f, g, rf in (("dw", got[0], ref[0]),
+                                               ("db", got[1], ref[1]))}
+    # the kernel's side of each flip: +1 where only the kernel's mask is
+    # set, −1 where only the plain version's is
+    sign = (c_flip > 0).float() * 2 - 1
+    coef = 2.0 / (b * d)
+    g_flip = (coef * (r[mm, bb] * w[mm, ff]).sum(dim=1) + al[mm] / b) * sign
+    dc = c_flip - torch.relu(p_flip)
+    dw = ref[0].clone().index_put_(
+        (mm, ff), g_flip[:, None] * x[bb] + (coef * dc)[:, None] * r[mm, bb],
+        accumulate=True)
+    db = ref[1].clone().index_put_((mm, ff), g_flip, accumulate=True)
+    errs.update({f"{f}_flips_moved": compare(
+        f"{tag}:sae_tied_bwd.{f} (the flips' terms moved)", g, rf, RTOL_GRAD)
+        for f, g, rf in (("dw", got[0], dw), ("db", got[1], db))})
+    del dw, db, clean
+    torch.cuda.empty_cache()
+    log(f"  {tag} sae_tied_bwd vs the plain version: with no flip dW "
+        f"{errs['dw_no_flip']['max_rel_err']:.2e}, db "
+        f"{errs['db_no_flip']['max_rel_err']:.2e}; with the flips' terms "
+        f"moved dW {errs['dw_flips_moved']['max_rel_err']:.2e}, db "
+        f"{errs['db_flips_moved']['max_rel_err']:.2e}")
+    return {"count": flips, "allowed": allowed, "worst_of_bound": worst,
+            "torch_w_flips": torch_w_flips, "w_elements_differing": w_diff,
+            **errs}
+
+
+def tied_bwd_repeat_and_memory(e, bias, al, x, r, cm, tag: str) -> dict:
+    """:func:`repeat_and_memory` of sae_tied_bwd on these inputs, allowed
+    its outputs, the normalized dictionary, the per-feature sums and its
+    workspace."""
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    n_m, n, d = e.shape
+    b = x.shape[0]
+    chunks = ft.bwd_chunks(n_m, b, n)
+    ws = 2 * max((mh - ml) * (bh - bl) for ml, mh, bl, bh in chunks) * n
+    args = (e, bias, al, x, r, cm)
+    out = repeat_and_memory(
+        f"{tag} sae_tied_bwd ({len(chunks)} chunks)",
+        lambda: ft.sae_tied_bwd(*args),
+        lambda: ft.sae_tied_bwd_plain(*args),
+        4 * (2 * n_m * n * d + 3 * n_m * n + 4 * n_m + ws),
+        f"outputs, W, sums, workspace {ws * 4 / 2**20:.0f} MiB")
+    return {**out, "chunks": len(chunks)}
+
+
+def tied_bwd_extras(inp: dict) -> dict:
+    """sae_tied_bwd at the main shape: the repeat and memory checks of
+    :func:`tied_bwd_repeat_and_memory`, and each of its launches timed
+    alone on its one chunk (CUDA events, 5 launches), with the products'
+    TFLOP/s."""
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    e, x, bias, al = (inp[k] for k in ("e", "x", "bias", "alphas"))
+    r = ft.sae_tied_fwd_plain(e, bias, x).contiguous()
+    out = tied_bwd_repeat_and_memory(e, bias, al, x, r, None, "main")
+    out["flips"] = tied_bwd_flips(
+        e, bias, al, x, r, None, ft.sae_tied_bwd(e, bias, al, x, r),
+        ft.sae_tied_bwd_plain(e, bias, al, x, r), "main")
+    if out["chunks"] != 1:
+        raise AssertionError(f"main shape: tied backward chunks "
+                             f"{out['chunks']}")
+    times = time_parts(ft.one_chunk_launches("sae_tied_bwd", e, bias, x,
+                                             alphas=al, resid=r))
+    per_call = sum(v["ms"] for v in times.values())
+    log(f"  one chunk: the tied backward's launches sum to {per_call:.2f} "
+        "ms a call")
+    torch.cuda.empty_cache()
+    return {**out, "parts": times, "parts_sum_ms": per_call}
 
 
 def untied_bwd_extras(inp: dict) -> dict:
@@ -727,7 +913,7 @@ def untied_bwd_extras(inp: dict) -> dict:
     b = x.shape[0]
     ru = ft.sae_untied_fwd_plain(e, dec, bias, x).contiguous()
     args = (e, dec, bias, al, x, ru)
-    chunks = ft.untied_bwd_chunks(n_m, b, n)
+    chunks = ft.bwd_chunks(n_m, b, n)
     ws = 2 * max((mh - ml) * (bh - bl) for ml, mh, bl, bh in chunks) * n
     out = repeat_and_memory(
         "sae_untied_bwd", lambda: ft.sae_untied_bwd(*args),
@@ -737,36 +923,11 @@ def untied_bwd_extras(inp: dict) -> dict:
 
     if len(chunks) != 1:
         raise AssertionError(f"main shape: chunks {chunks}")
-    kw = {"dtype": torch.float32, "device": DEV}
-    c, g_ = (torch.empty((n_m, b, n), **kw) for _ in range(2))
-    de, dwn = (torch.empty((n_m, n, d), **kw) for _ in range(2))
-    db, act, csum, nrm = (torch.empty((n_m, n), **kw) for _ in range(4))
-    part = torch.empty((n_m, ft.UNTIED_LOSS_SLICES, 2), **kw)
-    loss4 = torch.empty((n_m, 4), **kw)
-    coef = float(np.float32(2.0 / (b * d)))
-    gemm = 2.0 * n_m * b * n * d
-    parts = {  # launch, FLOPs; in the order a call runs them
-        "sae_untied_bwd_norms": (lambda: ft.untied_bwd_norms(dec, nrm), 0.0),
-        "sae_untied_bwd_codes": (
-            lambda: ft.untied_bwd_codes(x, e, bias, c), gemm),
-        "sae_untied_bwd_dpre": (
-            lambda: ft.untied_bwd_dpre(ru, dec, nrm, c, al, g_, b, coef),
-            gemm),
-        "sae_untied_bwd_de": (lambda: ft.untied_bwd_de(x, g_, de, True),
-                              gemm),
-        "sae_untied_bwd_dwn": (
-            lambda: ft.untied_bwd_dwn(c, ru, dwn, b, True, True, coef), gemm),
-        "sae_untied_bwd_sums": (
-            lambda: ft.untied_bwd_sums(c, g_, b, db, act, csum, True), 0.0),
-        "sae_untied_bwd_loss": (
-            lambda: ft.untied_bwd_loss(ru, de, dwn, db, act, csum, al, part,
-                                       loss4), 0.0),
-    }
-    times = time_parts(parts)
+    times = time_parts(ft.one_chunk_launches(
+        "sae_untied_bwd", e, bias, x, decoder=dec, alphas=al, resid=ru))
     per_call = sum(v["ms"] for v in times.values())
     log(f"  one chunk: the backward's launches sum to {per_call:.2f} ms a "
         "call")
-    del c, g_, de, dwn
     torch.cuda.empty_cache()
     return {**out, "chunks": len(chunks), "parts": times,
             "parts_sum_ms": per_call}
@@ -814,12 +975,11 @@ def main_path(store: Path, out_dir: Path, l1_values, n_steps: int,
         f"{launches}")
     ours = TIED_KERNELS if tied else UNTIED_KERNELS
     want = {name: n_steps if name in ours else 0 for name in _build.LAUNCHES}
-    if not tied:
-        want.update(untied_part_launches(n_steps))
+    want.update(part_launches(tied, n_steps))
     if launches != want:
         raise AssertionError(f"launches on the main path {launches}, "
                              f"expected {want} (one per step of this "
-                             "family's kernels and the untied backward's "
+                             "family's kernels and its chunked kernels' "
                              "parts per chunk, none of the other's)")
 
     recs = read_metrics(out_dir / "metrics.jsonl")
@@ -972,9 +1132,10 @@ def other_paths(batches: list, l1_values) -> dict:
             want = {k: 0 for k in _build.LAUNCHES}
             want.update({k: n * len(batches)
                          for k, n in zip(kernels, PATH_LAUNCHES[path])})
-            if family == "untied":
-                want.update(untied_part_launches(
-                    PATH_LAUNCHES[path][1] * len(batches)))
+            n_m, n_f = ens.state.params["encoder"].shape[:2]
+            want.update(part_launches(
+                family != "untied", PATH_LAUNCHES[path][1] * len(batches),
+                (n_m, BATCH, n_f)))
             label = f"{family} {path}"
             if launches != want or ens.fused_path != path:
                 raise AssertionError(f"{label}: launches {launches}, "
@@ -1063,7 +1224,7 @@ def check_big_kernels(p: dict, x: torch.Tensor, tag: str) -> dict:
                 RTOL_GRAD)
         errs[f"l1_{kind}"] = compare(f"{tag}:big_sae_bwd.l1 ({kind} r)",
                                      got[5][0], ref[5][0], RTOL_EXACT)
-        flips = BIG_L0_FLIPS_PER_CODE * x.shape[0] * p["dict"].shape[0]
+        flips = FLIPS_PER_CODE * x.shape[0] * p["dict"].shape[0]
         errs[f"l0_{kind}"] = compare(f"{tag}:big_sae_bwd.l0 ({kind} r)",
                                      got[5][1], ref[5][1], 0.0,
                                      max(1.0, flips))
@@ -1574,7 +1735,8 @@ def main() -> int:
         raise AssertionError(f"ptxas spilled in the GEMM template: {spills}")
     gemms = {k: v for k, v in gemms.items() if v}
     log(f"  GEMM template instantiations, no spills: {gemms}")
-    if set(gemms) != {"big_sae_bwd", "sae_untied_fwd", "sae_untied_bwd"}:
+    if set(gemms) != {"big_sae_bwd", "sae_tied_bwd", "sae_untied_fwd",
+                      "sae_untied_bwd"}:
         raise AssertionError(f"GEMM template instantiations in {gemms}")
 
     log("phase 2: kernels vs plain versions")
@@ -1595,6 +1757,8 @@ def main() -> int:
         main_inp = make_inputs(g, N_MEMBERS, BATCH, N_FEATS, D, x=x_main)
         checks["main"] = check_kernels(main_inp, "main")
         report["checks"] = checks
+        tied_bwd = tied_bwd_extras(main_inp)
+        report["tied_bwd"] = tied_bwd
         untied_fwd = untied_fwd_extras(main_inp)
         report["untied_fwd"] = untied_fwd
         untied = untied_bwd_extras(main_inp)
@@ -1605,7 +1769,7 @@ def main() -> int:
         report["active_codes"] = nnz
         del main_inp
         torch.cuda.empty_cache()
-        checks["ratio16"] = check_untied_ratio16(
+        checks["ratio16"] = check_ratio16(
             torch.Generator().manual_seed(16),
             x_main.to(DEV, torch.float32).contiguous())
         big_store = Path(tmp) / "big_store"
@@ -1695,10 +1859,14 @@ def main() -> int:
                 k: {"launches": report["big_main"]["launches"][k],
                     "ms": v["ms"]}
                 for k, v in big["bwd"]["parts"].items()}
-        if name in ("sae_untied_fwd", "sae_untied_bwd"):
-            parts = (untied_fwd if name == "sae_untied_fwd" else untied)
+        chunked = {"sae_tied_bwd": (tied_bwd, "tied"),
+                   "sae_untied_fwd": (untied_fwd, "untied"),
+                   "sae_untied_bwd": (untied, "untied")}
+        if name in chunked:
+            parts, family = chunked[name]
             kernels[-1]["parts"] = {
-                k: {"launches": report["main_path_untied"]["launches"][k],
+                k: {"launches":
+                    report[f"main_path_{family}"]["launches"][k],
                     "ms": v["ms"]}
                 for k, v in parts["parts"].items()}
     report["kernels"] = kernels

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Time the port's three chunked kernels, launch by launch, on one CUDA card
-and print one JSON line.
+"""Time the port's chunked kernels, launch by launch, on one CUDA card and
+print one JSON line.
 
 - K9 (``big_sae_bwd``): each of its launches on one 8,192-row chunk at the
   big-SAE shape (d=1024, n=16,384), the size of one chunk of its 1 GiB
   workspace;
-- the untied backward (``sae_untied_bwd``) and forward
-  (``sae_untied_fwd``): one whole call of each at the canonical ensemble
-  shape (32 members, batch 2048, n=2048, d=512), and each of their
-  launches where the checkout has them.
+- the tied backward (``sae_tied_bwd``), and the untied forward
+  (``sae_untied_fwd``) and backward (``sae_untied_bwd``): one whole call
+  of each at the canonical ensemble shape (32 members, batch 2048, n=2048,
+  d=512), and each of their launches where the checkout lists them
+  (``fused_sae_tiled.one_chunk_launches``; a checkout without it gets the
+  whole calls only).
 
 Times are CUDA-event means over ``--iters`` launches after one warm-up.
 The kernels of the checkout in the working directory are built and timed,
@@ -71,9 +73,9 @@ def k9_parts(g: torch.Generator, iters: int) -> dict:
     return {k: time_ms(fn, iters) for k, fn in parts.items()}
 
 
-def untied(g: torch.Generator, iters: int) -> dict:
-    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
-
+def ensemble_inputs(g: torch.Generator):
+    """The canonical ensemble shape's inputs: encoder and decoder (glorot),
+    bias, an L1 grid and a batch."""
     n_m, b, n, d = 32, 2048, 2048, 512
     kw = {"dtype": torch.float32, "device": "cuda"}
     lim = math.sqrt(6.0 / (n + d))
@@ -82,46 +84,35 @@ def untied(g: torch.Generator, iters: int) -> dict:
     bias = (torch.rand((n_m, n), generator=g, **kw) - 0.5) * 0.02
     al = torch.logspace(-4, -2, n_m, device="cuda")
     x = torch.randn((b, d), generator=g, **kw) / math.sqrt(d)
-    r = ft.sae_untied_fwd_plain(e, dec, bias, x).contiguous()
-    out = {"sae_untied_fwd": time_ms(
-        lambda: ft.sae_untied_fwd(e, dec, bias, x), iters),
-        "sae_untied_bwd": time_ms(
-        lambda: ft.sae_untied_bwd(e, dec, bias, al, x, r), iters)}
-    if hasattr(ft, "untied_fwd_chunks"):
-        wn = torch.empty((n_m, n, d), **kw)
-        ct = torch.empty((n_m * n * b,), **kw)
-        rf = torch.empty((n_m, b, d), **kw)
-        fwd_parts = {
-            "sae_untied_fwd_norms": lambda: ft.untied_fwd_norms(dec, wn),
-            "sae_untied_fwd_codes": lambda: ft.untied_fwd_codes(x, e, bias,
-                                                                ct),
-            "sae_untied_fwd_decode": lambda: ft.untied_fwd_decode(
-                ct, wn, x, rf, b),
-        }
-        out.update({k: time_ms(fn, iters) for k, fn in fwd_parts.items()})
-        del wn, ct, rf
-    if not hasattr(ft, "untied_bwd_chunks"):
-        return out
-    c, gw = (torch.empty((n_m, b, n), **kw) for _ in range(2))
-    de, dwn = (torch.empty((n_m, n, d), **kw) for _ in range(2))
-    db, act, csum, nrm = (torch.empty((n_m, n), **kw) for _ in range(4))
-    part = torch.empty((n_m, ft.UNTIED_LOSS_SLICES, 2), **kw)
-    loss4 = torch.empty((n_m, 4), **kw)
-    coef = float(np.float32(2.0 / (b * d)))
-    parts = {
-        "sae_untied_bwd_norms": lambda: ft.untied_bwd_norms(dec, nrm),
-        "sae_untied_bwd_codes": lambda: ft.untied_bwd_codes(x, e, bias, c),
-        "sae_untied_bwd_dpre": lambda: ft.untied_bwd_dpre(
-            r, dec, nrm, c, al, gw, b, coef),
-        "sae_untied_bwd_de": lambda: ft.untied_bwd_de(x, gw, de, True),
-        "sae_untied_bwd_dwn": lambda: ft.untied_bwd_dwn(c, r, dwn, b, True,
-                                                        True, coef),
-        "sae_untied_bwd_sums": lambda: ft.untied_bwd_sums(c, gw, b, db, act,
-                                                          csum, True),
-        "sae_untied_bwd_loss": lambda: ft.untied_bwd_loss(
-            r, de, dwn, db, act, csum, al, part, loss4),
+    return e, dec, bias, al, x
+
+
+def ensemble(g: torch.Generator, iters: int) -> dict:
+    """One whole call of each chunked ensemble kernel at the canonical
+    shape, then each of its launches where the checkout lists them
+    (``one_chunk_launches``)."""
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    e, dec, bias, al, x = ensemble_inputs(g)
+    rt = ft.sae_tied_fwd_plain(e, bias, x).contiguous()
+    ru = ft.sae_untied_fwd_plain(e, dec, bias, x).contiguous()
+    calls = {
+        "sae_tied_bwd": (lambda: ft.sae_tied_bwd(e, bias, al, x, rt),
+                         {"alphas": al, "resid": rt}),
+        "sae_untied_fwd": (lambda: ft.sae_untied_fwd(e, dec, bias, x),
+                           {"decoder": dec}),
+        "sae_untied_bwd": (lambda: ft.sae_untied_bwd(e, dec, bias, al, x,
+                                                     ru),
+                           {"decoder": dec, "alphas": al, "resid": ru}),
     }
-    out.update({k: time_ms(fn, iters) for k, fn in parts.items()})
+    out = {}
+    for name, (call, inputs) in calls.items():
+        out[name] = time_ms(call, iters)
+        if hasattr(ft, "one_chunk_launches"):
+            parts = ft.one_chunk_launches(name, e, bias, x, **inputs)
+            out.update({k: time_ms(fn, iters)
+                        for k, (fn, _) in parts.items()})
+            del parts
     return out
 
 
@@ -143,7 +134,7 @@ def main() -> int:
     g = torch.Generator("cuda").manual_seed(0)
     print(json.dumps({"tree": os.getcwd(), "card": card,
                       "k9": k9_parts(g, args.iters),
-                      "untied": untied(g, args.iters)}))
+                      "ensemble": ensemble(g, args.iters)}))
     return 0
 
 

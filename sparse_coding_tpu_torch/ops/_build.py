@@ -33,9 +33,6 @@ _F = ctypes.c_float
 ARGTYPES = {
     # x, E, b, coef_mask (or null), r, N, B, n, d, stream
     "sae_tied_fwd": [_P] * 5 + [_I] * 4 + [_P],
-    # x, r, E, b, coef_mask (or null), alphas, dw, db, act, part, N, B, n,
-    # d, coef, stream
-    "sae_tied_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
     # E, dW, mu, nu, lrs, bc1, bc2, E2, mu2, nu2, un_part, bias, db, mub,
     # nub, bias2, mub2, nub2, N, n, d, b1, omb1, b2, omb2, eps, stream
     "sae_tied_adam_vjp": [_P] * 18 + [_I] * 3 + [_F] * 5 + [_P],
@@ -82,18 +79,38 @@ ARGTYPES = {
     # r, dE, dWn, db, act, csum, alphas, part, loss4, N, B, n, d, P, stream
     # (once a call)
     "sae_untied_bwd_loss": [_P] * 9 + [_I] * 5 + [_P],
+    # the tied backward's launches (csrc/sae_tied_bwd.cu), a chunk of Z
+    # members x rows batch rows at a time:
+    # E, W, rows, d, stream (once a call)
+    "sae_tied_bwd_norms": [_P] * 2 + [_I] * 2 + [_P],
+    # x, W, b, coef_mask (or null), C, Z, rows, n, d, stream
+    "sae_tied_bwd_codes": [_P] * 5 + [_I] * 4 + [_P],
+    # r, W, C, alphas, G, Z, rows, n, d, B, coef, stream
+    "sae_tied_bwd_dpre": [_P] * 5 + [_I] * 5 + [_F, _P],
+    # x, G, dW, Z, rows, n, d, first, stream
+    "sae_tied_bwd_dwx": [_P] * 3 + [_I] * 5 + [_P],
+    # C, r, dW, Z, rows, n, d, B, coef, stream
+    "sae_tied_bwd_dwr": [_P] * 3 + [_I] * 5 + [_F, _P],
+    # C, G, db, act, csum, Z, rows, n, first, stream
+    "sae_tied_bwd_sums": [_P] * 5 + [_I] * 4 + [_P],
+    # r, dW, db, act, csum, alphas, part, loss4, N, B, n, d, P, stream
+    # (once a call)
+    "sae_tied_bwd_loss": [_P] * 8 + [_I] * 5 + [_P],
 }
 # The library of each entry point: its own name, or for the launches of a
 # chunked kernel the library of that kernel — K9's parts big_sae_bwd's,
 # the untied forward's and backward's parts sae_untied_fwd's and
-# sae_untied_bwd's.
+# sae_untied_bwd's, the tied backward's parts sae_tied_bwd's.
 BWD_PARTS = tuple(name for name in ARGTYPES if name.startswith("big_sae_bwd_"))
 UNTIED_FWD_PARTS = tuple(name for name in ARGTYPES
                          if name.startswith("sae_untied_fwd_"))
 UNTIED_BWD_PARTS = tuple(name for name in ARGTYPES
                          if name.startswith("sae_untied_bwd_"))
+TIED_BWD_PARTS = tuple(name for name in ARGTYPES
+                       if name.startswith("sae_tied_bwd_"))
 _PARTS = {"big_sae_bwd": BWD_PARTS, "sae_untied_fwd": UNTIED_FWD_PARTS,
-          "sae_untied_bwd": UNTIED_BWD_PARTS}
+          "sae_untied_bwd": UNTIED_BWD_PARTS,
+          "sae_tied_bwd": TIED_BWD_PARTS}
 LIBRARY_OF = {name: next((lib for lib, parts in _PARTS.items()
                           if name in parts), name)
               for name in ARGTYPES}
@@ -103,13 +120,15 @@ LIBRARY_OF = {name: next((lib for lib, parts in _PARTS.items()
 # else, so a run can show that the main path went through the kernels.
 # "big_sae_bwd" counts calls of the K9 contract
 # (fused_big_sae.big_sae_backward), each of which launches the BWD_PARTS
-# once per batch chunk (dctr once); "sae_untied_fwd" and "sae_untied_bwd"
-# count calls of fused_sae_tiled.sae_untied_fwd and sae_untied_bwd, which
-# launch the UNTIED_FWD_PARTS and UNTIED_BWD_PARTS once per chunk (the
-# norms, and the backward's loss, once). reset_launches() zeroes them.
+# once per batch chunk (dctr once); "sae_untied_fwd", "sae_untied_bwd"
+# and "sae_tied_bwd" count calls of fused_sae_tiled.sae_untied_fwd,
+# sae_untied_bwd and sae_tied_bwd, which launch the UNTIED_FWD_PARTS,
+# UNTIED_BWD_PARTS and TIED_BWD_PARTS once per chunk (the norms, and the
+# backwards' loss, once). reset_launches() zeroes them.
 LAUNCHES: dict[str, int] = {name: 0 for name in (*KERNELS, *BWD_PARTS,
                                                  *UNTIED_FWD_PARTS,
-                                                 *UNTIED_BWD_PARTS)}
+                                                 *UNTIED_BWD_PARTS,
+                                                 *TIED_BWD_PARTS)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -250,9 +269,9 @@ def library(name: str) -> ctypes.CDLL:
 
 def launch(name: str, *args) -> None:
     """Call one C entry point (a kernel's, or one of a chunked kernel's
-    parts: BWD_PARTS, UNTIED_FWD_PARTS, UNTIED_BWD_PARTS), raise on
-    a non-zero cudaError_t, and count the launch. A refused launch (too
-    much shared memory, a bad configuration) shows only here:
+    parts: BWD_PARTS, UNTIED_FWD_PARTS, UNTIED_BWD_PARTS, TIED_BWD_PARTS),
+    raise on a non-zero cudaError_t, and count the launch. A refused
+    launch (too much shared memory, a bad configuration) shows only here:
     torch.cuda.synchronize() would not report it."""
     rc = getattr(library(LIBRARY_OF[name]), name)(*args)
     if rc != 0:

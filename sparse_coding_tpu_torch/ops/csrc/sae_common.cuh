@@ -12,7 +12,6 @@ constexpr int kThreads = 256;             // threads per block, every kernel
 constexpr int kWarps = kThreads / 32;
 constexpr int kFwdBatchTile = 32;         // rows of x one forward block owns
 constexpr int kFeatTile = 32;             // dictionary rows per feature tile
-constexpr int kBwdBatchTile = 16;         // rows of x per tied bwd loop step
 constexpr int kAdamRows = kWarps;         // dictionary rows per adam block
 constexpr int kMaxD = 3 * kThreads;       // widest d the fwd/bwd kernels take
 constexpr float kNormEps = 1e-8f;         // row norms are clipped, not +eps

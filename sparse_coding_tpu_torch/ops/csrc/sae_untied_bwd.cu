@@ -52,7 +52,7 @@
 // Every sum runs in a fixed order (one thread per output element over a
 // chunk, chunks in order; fixed warp and slice orders in sums and loss),
 // with no atomics, so two calls give the same bits.
-#include "sae_untied_common.cuh"
+#include "sae_chunked.cuh"
 
 namespace {
 
@@ -62,7 +62,7 @@ using sgemm::aligned16;
 using sgemm::load4;
 using sgemm::store4;
 using sae::CodesEpi;
-using sae::untied_chunk_ok;
+using sae::chunk_ok;
 
 // G[z] = (coef * (acc / nrm[z][f]) + alpha[z]/B) * [C[z] > 0], the plain
 // version's operations in its order (no contraction into an FMA)
@@ -91,110 +91,6 @@ struct DpreEpi {
   }
 };
 
-// Block (32 features, member z): warp w sums rows w, w+8, ... of the
-// chunk in order, then warps 0..7 are added in order; the first chunk of
-// a member writes, later ones add.
-__global__ void __launch_bounds__(sae::kThreads)
-sums_kernel(const float* __restrict__ C, const float* __restrict__ G,
-            int rows, int n, bool first, float* __restrict__ db,
-            float* __restrict__ act, float* __restrict__ csum) {
-  __shared__ float part[3][sae::kWarps][32];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int f = blockIdx.x * 32 + lane;
-  const size_t off = (size_t)blockIdx.y * rows * n;
-  float sg = 0.f, sc = 0.f, cnt = 0.f;
-#pragma unroll 4
-  for (int b = w; b < rows; b += sae::kWarps) {
-    const float cv = C[off + (size_t)b * n + f];
-    sg += G[off + (size_t)b * n + f];
-    sc += cv;
-    cnt += cv > 0.f ? 1.f : 0.f;
-  }
-  part[0][w][lane] = sg;
-  part[1][w][lane] = sc;
-  part[2][w][lane] = cnt;
-  __syncthreads();
-  if (w == 0) {
-    float a = 0.f, c = 0.f, k = 0.f;
-    for (int i = 0; i < sae::kWarps; ++i) {
-      a += part[0][i][lane];
-      c += part[1][i][lane];
-      k += part[2][i][lane];
-    }
-    const size_t o = (size_t)blockIdx.y * n + f;
-    if (!first) {
-      a = db[o] + a;
-      c = csum[o] + c;
-      k = act[o] + k;
-    }
-    db[o] = a;
-    csum[o] = c;
-    act[o] = k;
-  }
-}
-
-// Block (slice p of P, member m): part[m][p] = (sum r^2, sum dE^2 + dWn^2
-// + db^2) over the slice's share of each array.
-__global__ void __launch_bounds__(sae::kThreads)
-loss_part_kernel(const float* __restrict__ r, const float* __restrict__ dE,
-                 const float* __restrict__ dWn, const float* __restrict__ db,
-                 int B, int n, int d, float* __restrict__ part) {
-  __shared__ float red[sae::kWarps];
-  const int p = blockIdx.x, P = gridDim.x, m = blockIdx.y;
-  const size_t len_r = (size_t)B * d, len_w = (size_t)n * d;
-  const float* rm = r + m * len_r;
-  const float* em = dE + m * len_w;
-  const float* wm = dWn + m * len_w;
-  const float* bm = db + (size_t)m * n;
-  float sr = 0.f, sg = 0.f;
-  for (size_t i = len_r * p / P + threadIdx.x; i < len_r * (p + 1) / P;
-       i += sae::kThreads)
-    sr += rm[i] * rm[i];
-  for (size_t i = len_w * p / P + threadIdx.x; i < len_w * (p + 1) / P;
-       i += sae::kThreads)
-    sg += em[i] * em[i] + wm[i] * wm[i];
-  for (int i = n * p / P + threadIdx.x; i < n * (p + 1) / P;
-       i += sae::kThreads)
-    sg += bm[i] * bm[i];
-  sr = sae::block_sum(sr, red);
-  sg = sae::block_sum(sg, red);
-  if (threadIdx.x == 0) {
-    part[((size_t)m * P + p) * 2] = sr;
-    part[((size_t)m * P + p) * 2 + 1] = sg;
-  }
-}
-
-// Block m: the member's loss4 from its P slices (in order) and its
-// per-feature c sums and counts (double sums).
-__global__ void __launch_bounds__(sae::kThreads)
-loss_final_kernel(const float* __restrict__ part,
-                  const float* __restrict__ csum,
-                  const float* __restrict__ act,
-                  const float* __restrict__ alphas, int P, int B, int n,
-                  int d, float* __restrict__ loss4) {
-  __shared__ double red[2][sae::kWarps];
-  const int m = blockIdx.x;
-  double l1 = 0.0, l0 = 0.0;
-  for (int f = threadIdx.x; f < n; f += sae::kThreads) {
-    l1 += csum[(size_t)m * n + f];
-    l0 += act[(size_t)m * n + f];
-  }
-  l1 = sae::block_sum(l1, red[0]);
-  l0 = sae::block_sum(l0, red[1]);
-  if (threadIdx.x == 0) {
-    float sr = 0.f, sg = 0.f;
-    for (int p = 0; p < P; ++p) {
-      sr += part[((size_t)m * P + p) * 2];
-      sg += part[((size_t)m * P + p) * 2 + 1];
-    }
-    const float batch_f = (float)B;
-    loss4[m * 4] = sr / (float)((long long)B * d);
-    loss4[m * 4 + 1] = alphas[m] * (float)l1 / batch_f;
-    loss4[m * 4 + 2] = (float)l0 / batch_f;
-    loss4[m * 4 + 3] = sg;
-  }
-}
-
 }  // namespace
 
 // Every entry point takes fp32, contiguous, row-major tensors and launches
@@ -216,7 +112,7 @@ extern "C" int sae_untied_bwd_norms(const float* D, float* nrm, int rows,
 extern "C" int sae_untied_bwd_codes(const float* x, const float* E,
                                     const float* b, float* C, int Z,
                                     int rows, int n, int d, void* stream) {
-  if (!untied_chunk_ok(Z, rows, n, d)) return (int)cudaErrorInvalidValue;
+  if (!chunk_ok(Z, rows, n, d)) return (int)cudaErrorInvalidValue;
   const size_t cz = (size_t)rows * n;
   const CodesEpi<false> epi{b, C, n, n, cz,
                             aligned16(b, n, n, n) && aligned16(C, n, n, cz)};
@@ -232,7 +128,7 @@ extern "C" int sae_untied_bwd_dpre(const float* r, const float* D,
                                    const float* alphas, float* G, int Z,
                                    int rows, int n, int d, int B, float coef,
                                    void* stream) {
-  if (!untied_chunk_ok(Z, rows, n, d) || B < rows)
+  if (!chunk_ok(Z, rows, n, d) || B < rows)
     return (int)cudaErrorInvalidValue;
   const size_t cz = (size_t)rows * n;
   const DpreEpi epi{C, nrm, alphas, G, n, cz,
@@ -249,7 +145,7 @@ extern "C" int sae_untied_bwd_dpre(const float* r, const float* D,
 extern "C" int sae_untied_bwd_de(const float* x, const float* G, float* dE,
                                  int Z, int rows, int n, int d, int first,
                                  void* stream) {
-  if (!untied_chunk_ok(Z, rows, n, d)) return (int)cudaErrorInvalidValue;
+  if (!chunk_ok(Z, rows, n, d)) return (int)cudaErrorInvalidValue;
   const size_t cz = (size_t)rows * n, wz = (size_t)n * d;
   const AccumEpi epi{dE, d, wz, aligned16(dE, d, d, wz), first != 0, false,
                      1.f};
@@ -265,7 +161,7 @@ extern "C" int sae_untied_bwd_dwn(const float* C, const float* r,
                                   float* dWn, int Z, int rows, int n, int d,
                                   int B, int first, int last, float coef,
                                   void* stream) {
-  if (!untied_chunk_ok(Z, rows, n, d) || B < rows)
+  if (!chunk_ok(Z, rows, n, d) || B < rows)
     return (int)cudaErrorInvalidValue;
   const size_t cz = (size_t)rows * n, wz = (size_t)n * d,
                rz = (size_t)B * d;
@@ -281,10 +177,8 @@ extern "C" int sae_untied_bwd_dwn(const float* C, const float* r,
 extern "C" int sae_untied_bwd_sums(const float* C, const float* G, float* db,
                                    float* act, float* csum, int Z, int rows,
                                    int n, int first, void* stream) {
-  if (!untied_chunk_ok(Z, rows, n, 1)) return (int)cudaErrorInvalidValue;
-  sums_kernel<<<dim3(n / 32, Z), sae::kThreads, 0, (cudaStream_t)stream>>>(
-      C, G, rows, n, first != 0, db, act, csum);
-  return (int)cudaGetLastError();
+  return (int)sae::launch_sums(C, G, db, act, csum, Z, rows, n, first != 0,
+                               (cudaStream_t)stream);
 }
 
 // loss4 [N, 4] of every member from r [N, B, d], the finished dE, dWn
@@ -296,14 +190,6 @@ extern "C" int sae_untied_bwd_loss(const float* r, const float* dE,
                                    const float* alphas, float* part,
                                    float* loss4, int N, int B, int n, int d,
                                    int P, void* stream) {
-  if (!untied_chunk_ok(N, B, n, d) || P < 1 || P > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  loss_part_kernel<<<dim3(P, N), sae::kThreads, 0, s>>>(r, dE, dWn, db, B, n,
-                                                        d, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  loss_final_kernel<<<N, sae::kThreads, 0, s>>>(part, csum, act, alphas, P, B,
-                                                n, d, loss4);
-  return (int)cudaGetLastError();
+  return (int)sae::launch_loss(r, dE, dWn, db, act, csum, alphas, part, loss4,
+                               N, B, n, d, P, (cudaStream_t)stream);
 }

@@ -41,7 +41,7 @@
 // disjoint rows of r, so nothing is added across chunks.
 // Order: one thread sums each output over k in order, with no atomics, so
 // two calls give the same bits. NaN survives the ReLU and the norm clip.
-#include "sae_untied_common.cuh"
+#include "sae_chunked.cuh"
 
 namespace {
 
@@ -88,7 +88,7 @@ extern "C" int sae_untied_fwd_norms(const float* D, float* Wn, int rows,
 extern "C" int sae_untied_fwd_codes(const float* x, const float* E,
                                     const float* b, float* Ct, int Z,
                                     int rows, int n, int d, void* stream) {
-  if (!sae::untied_chunk_ok(Z, rows, n, d))
+  if (!sae::chunk_ok(Z, rows, n, d))
     return (int)cudaErrorInvalidValue;
   const size_t cz = (size_t)n * rows;
   const sae::CodesEpi<true> epi{b, Ct, n, rows, cz,
@@ -104,7 +104,7 @@ extern "C" int sae_untied_fwd_decode(const float* Ct, const float* Wn,
                                      const float* x, float* r, int Z,
                                      int rows, int n, int d, int B,
                                      void* stream) {
-  if (!sae::untied_chunk_ok(Z, rows, n, d) || B < rows)
+  if (!sae::chunk_ok(Z, rows, n, d) || B < rows)
     return (int)cudaErrorInvalidValue;
   const size_t cz = (size_t)n * rows, wz = (size_t)n * d,
                rz = (size_t)B * d;

@@ -173,6 +173,27 @@ struct AccumEpi {
   }
 };
 
+// An epilogue that adds a scaled product to an output written before it:
+// out[z] = out[z] + scale * acc, the product rounded times scale first (no
+// contraction into an FMA), as torch rounds a + scale * (A·B).
+struct AddScaledEpi {
+  float* o;
+  int ld;
+  size_t zs;
+  bool vec;
+  float scale;
+  __device__ void operator()(int z, int m, int n, int N,
+                             float (&v)[4]) const {
+    float* oz = o + z * zs;
+    float old[4];
+    load4(oz, ld, vec, m, n, N, old);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = __fadd_rn(old[e], __fmul_rn(scale, v[e]));
+    store4(oz, ld, vec, m, n, N, v);
+  }
+};
+
 // Epi: a functor with
 //   __device__ void operator()(int z, int m, int n, int N,
 //                              float (&v)[4]) const

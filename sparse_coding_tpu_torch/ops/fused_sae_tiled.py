@@ -8,20 +8,21 @@ Four hand-written Hopper kernels (``ops/csrc``) carry it:
   (member, batch tile), with the residual r = x-hat − x as its epilogue,
   so the codes never reach device memory and no separate residual pass
   runs;
-- ``sae_tied_bwd`` — one block per (member, feature tile) loops over the
-  batch in a fixed order, recomputing the code tiles and accumulating the
-  weight grads, db, activity, the loss partials and the sentinel's grad
-  sum of squares;
+- ``sae_tied_bwd`` — the normalized dictionary written once, then the
+  members in chunks whose codes C and dpre G fit a workspace capped at
+  ``WORKSPACE_BYTES`` (1 GiB; a member too large for it alone runs in
+  batch chunks, added in order): per chunk four member-batched fp32
+  products with fused epilogues (C, G, then dW = Gᵀx + coef·Cᵀr) and the
+  per-feature sums; then the loss terms and the sentinel's grad sum of
+  squares;
 - ``sae_untied_fwd`` — the normalized decoder written once, then the
   members in chunks whose codes (stored feature-major) fit a workspace
-  capped at ``UNTIED_WORKSPACE_BYTES`` (1 GiB; a member too large for
-  it alone runs in row chunks): per chunk two member-batched fp32 products,
-  the codes and the decode with the residual as its epilogue;
-- ``sae_untied_bwd`` — the members in chunks whose codes C and dpre G fit
-  a workspace under the same cap (a member too large for it alone runs in
-  batch chunks, added in order): per chunk four member-batched fp32
-  products with fused epilogues (C, G, dE, dWn) and the per-feature sums;
-  then the loss terms and the sentinel's grad sum of squares.
+  under the same cap (a member too large for it alone runs in row
+  chunks): per chunk two member-batched fp32 products, the codes and the
+  decode with the residual as its epilogue;
+- ``sae_untied_bwd`` — ``sae_tied_bwd``'s schedule with two weights: the
+  codes from the raw encoder, dpre through the normalized decoder, and
+  two weight-grad products (dE, dWn).
 
 The tied pair takes an optional ``coef_mask`` [N, n] (0/1, float32): the
 masked family's coefficient mask, multiplied into the codes and the ReLU
@@ -31,8 +32,9 @@ row-normalized decoder.
 Each kernel has a plain PyTorch version beside it (``*_plain``). A wrapper
 takes the plain version (the untied backward: its chunk schedule in plain
 torch) only for CPU tensors; on CUDA tensors it launches its kernel or
-raises. The tiled paths' reported grad norm is the KERNEL-grad norm, taken before the normalization VJP and, untied, before
-the bias decay — the same quantity the JAX package reports.
+raises. The tiled paths' reported grad norm is the KERNEL-grad norm, taken
+before the normalization VJP and, untied, before the bias decay — the
+same quantity the JAX package reports.
 """
 
 from __future__ import annotations
@@ -104,6 +106,49 @@ def _kernel_tensors(name, b, n_feats, d, **tensors) -> None:
     _build.check_kernel_shape(name, b, n_feats, d)
 
 
+# --- the chunked kernels' workspace ------------------------------------------
+
+# The chunked kernels keep the codes of one chunk — Z members x rows batch
+# rows: the untied forward's Cᵀ [Z, n, rows] fp32, the backwards' C and
+# dpre G [Z, rows, n] fp32 each — in a device workspace of at most this
+# many bytes; the whole [N, B, n] codes are never formed.
+WORKSPACE_BYTES = 2**30
+# Slices a member's loss reductions are split into in the backwards (a
+# fixed number, so the order of every sum depends on the shape alone).
+LOSS_SLICES = 16
+
+
+def _member_chunks(n_members: int, batch: int, n_feats: int,
+                   code_bytes: int, cap: int
+                   ) -> list[tuple[int, int, int, int]]:
+    """Chunks (m_lo, m_hi, b_lo, b_hi) of a workspace of ``code_bytes`` a
+    (member, row, feature) capped at ``cap``: whole members, as many a
+    chunk as fit (the last chunk may hold fewer); a member too large alone
+    in row chunks of the largest multiple of 32 rows that fits (at least
+    32; the last may be shorter)."""
+    member_bytes = code_bytes * batch * n_feats
+    if member_bytes <= cap:
+        z = min(n_members, cap // member_bytes)
+        return [(m, min(m + z, n_members), 0, batch)
+                for m in range(0, n_members, z)]
+    rows = max(32, cap // (code_bytes * n_feats) // 32 * 32)
+    return [(m, m + 1, lo, min(lo + rows, batch)) for m in range(n_members)
+            for lo in range(0, batch, rows)]
+
+
+def bwd_chunks(n_members: int, batch: int,
+               n_feats: int) -> list[tuple[int, int, int, int]]:
+    """The chunks (m_lo, m_hi, b_lo, b_hi) of both backwards
+    (sae_tied_bwd, sae_untied_bwd), in the order they run: whole members,
+    as many a chunk as WORKSPACE_BYTES holds of their C and G (the last
+    chunk may hold fewer); a member whose C and G alone exceed it runs in
+    batch chunks of the largest multiple of 32 rows that fits (the last
+    may be shorter), added in order. All 32 members in one chunk at the
+    canonical shape (B = n = 2048), 8 a chunk at n = 8192, 4 a chunk at
+    the masked family's n = 16,384."""
+    return _member_chunks(n_members, batch, n_feats, 2 * 4, WORKSPACE_BYTES)
+
+
 # --- sae_tied_fwd (K3a + the residual pass; masked too) -----------------------
 
 def sae_tied_fwd_plain(encoder: torch.Tensor, bias: torch.Tensor,
@@ -171,13 +216,80 @@ def sae_tied_bwd_plain(encoder: torch.Tensor, bias: torch.Tensor,
     return dw, db, mask.sum(dim=1), loss4
 
 
+# The launches of the tied backward (csrc/sae_tied_bwd.cu), one helper
+# each. A chunk's operands are slices at its first member (and row): the
+# residual slice keeps the whole batch's member stride.
+
+def tied_bwd_norms(encoder, w) -> None:
+    """w [N, n, d] = E / max(‖E_f‖, 1e-8) for every dictionary row."""
+    _build.launch("sae_tied_bwd_norms", encoder.data_ptr(), w.data_ptr(),
+                  encoder.numel() // encoder.shape[-1], encoder.shape[-1],
+                  _build.stream_ptr(w))
+
+
+def tied_bwd_codes(xk, w, bias, coef_mask, c) -> None:
+    """C [Z, rows, n] = cm·relu(xk·Ŵᵀ + b) into the workspace ``c``, for
+    the Z members of ``w`` [Z, n, d]; ``coef_mask`` [Z, n] or None."""
+    z, n, d = w.shape
+    _build.launch("sae_tied_bwd_codes", xk.data_ptr(), w.data_ptr(),
+                  bias.data_ptr(), _mask_arg(coef_mask), c.data_ptr(), z,
+                  xk.shape[0], n, d, _build.stream_ptr(xk))
+
+
+def tied_bwd_dpre(rk, w, c, alphas, g, batch: int, coef: float) -> None:
+    """G [Z, rows, n] = (coef·(rk·Ŵᵀ) + α/B)·[C > 0] into ``g``; rk is the
+    [Z, rows, d] slice of the [N, B, d] residual."""
+    z, rows, d = rk.shape
+    _build.launch("sae_tied_bwd_dpre", rk.data_ptr(), w.data_ptr(),
+                  c.data_ptr(), alphas.data_ptr(), g.data_ptr(), z, rows,
+                  w.shape[1], d, batch, coef, _build.stream_ptr(rk))
+
+
+def tied_bwd_dwx(xk, g, dw, first: bool) -> None:
+    """dW [Z, n, d] = (0 if first else dW) + Gᵀ·xk."""
+    z, n, d = dw.shape
+    _build.launch("sae_tied_bwd_dwx", xk.data_ptr(), g.data_ptr(),
+                  dw.data_ptr(), z, xk.shape[0], n, d, int(first),
+                  _build.stream_ptr(xk))
+
+
+def tied_bwd_dwr(c, rk, dw, batch: int, coef: float) -> None:
+    """dW [Z, n, d] = dW + coef·(Cᵀ·rk)."""
+    z, rows, d = rk.shape
+    _build.launch("sae_tied_bwd_dwr", c.data_ptr(), rk.data_ptr(),
+                  dw.data_ptr(), z, rows, dw.shape[1], d, batch, coef,
+                  _build.stream_ptr(rk))
+
+
+def tied_bwd_sums(c, g, rows: int, db, act, csum, first: bool) -> None:
+    """db, act, csum [Z, n] (+)= the column sums of G, [C > 0] and C over
+    the chunk's ``rows`` rows."""
+    z, n = db.shape
+    _build.launch("sae_tied_bwd_sums", c.data_ptr(), g.data_ptr(),
+                  db.data_ptr(), act.data_ptr(), csum.data_ptr(), z, rows, n,
+                  int(first), _build.stream_ptr(db))
+
+
+def tied_bwd_loss(resid, dw, db, act, csum, alphas, part, loss4) -> None:
+    """loss4 [N, 4] from the residual and the finished grads and sums;
+    ``part`` is an [N, slices, 2] scratch."""
+    n_members, b, d = resid.shape
+    _build.launch("sae_tied_bwd_loss", resid.data_ptr(), dw.data_ptr(),
+                  db.data_ptr(), act.data_ptr(), csum.data_ptr(),
+                  alphas.data_ptr(), part.data_ptr(), loss4.data_ptr(),
+                  n_members, b, dw.shape[1], d, part.shape[1],
+                  _build.stream_ptr(resid))
+
+
 def sae_tied_bwd(encoder: torch.Tensor, bias: torch.Tensor,
                  alphas: torch.Tensor, batch: torch.Tensor,
                  resid: torch.Tensor,
                  coef_mask: Optional[torch.Tensor] = None):
-    """See :func:`sae_tied_bwd_plain`. CUDA: launches ``sae_tied_bwd``;
-    its per-(member, feature tile) loss partials are summed here in a
-    fixed order."""
+    """See :func:`sae_tied_bwd_plain` for the outputs. CUDA: the normalized
+    dictionary, then per chunk of :func:`bwd_chunks` the launches
+    ``tied_bwd_codes``, ``_dpre``, ``_dwx``, ``_dwr``, ``_sums`` in order,
+    then ``tied_bwd_loss``; counts one ``sae_tied_bwd`` call. CPU: the
+    plain version."""
     n_members, n_feats, d, b = _tied_shapes(encoder, bias, batch)
     _bwd_checks(n_members, b, d, alphas, resid)
     _check_vec("coef_mask", coef_mask, (n_members, n_feats))
@@ -190,16 +302,30 @@ def sae_tied_bwd(encoder: torch.Tensor, bias: torch.Tensor,
                     coef_mask=coef_mask)
     kw = {"dtype": torch.float32, "device": batch.device}
     dw = torch.empty((n_members, n_feats, d), **kw)
-    db = torch.empty((n_members, n_feats), **kw)
-    act = torch.empty((n_members, n_feats), **kw)
-    part = torch.empty((n_members, n_feats // _build.FEAT_TILE, 4), **kw)
+    w = torch.empty((n_members, n_feats, d), **kw)
+    db, act, csum = (torch.empty((n_members, n_feats), **kw)
+                     for _ in range(3))
+    loss4 = torch.empty((n_members, 4), **kw)
+    part = torch.empty((n_members, LOSS_SLICES, 2), **kw)
+    chunks = bwd_chunks(n_members, b, n_feats)
+    ws = torch.empty((2, max((mh - ml) * (bh - bl) for ml, mh, bl, bh
+                             in chunks) * n_feats), **kw)
+    c, g = ws[0], ws[1]
     coef = float(np.float32(2.0 / (b * d)))
-    _build.launch("sae_tied_bwd", batch.data_ptr(), resid.data_ptr(),
-                  encoder.data_ptr(), bias.data_ptr(), _mask_arg(coef_mask),
-                  alphas.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                  act.data_ptr(), part.data_ptr(), n_members, b, n_feats, d,
-                  coef, _build.stream_ptr(batch))
-    return dw, db, act, part.sum(dim=1)
+    tied_bwd_norms(encoder, w)
+    for m_lo, m_hi, b_lo, b_hi in chunks:
+        ms = slice(m_lo, m_hi)
+        xk, rk = batch[b_lo:b_hi], resid[ms, b_lo:b_hi]
+        cm = None if coef_mask is None else coef_mask[ms]
+        tied_bwd_codes(xk, w[ms], bias[ms], cm, c)
+        tied_bwd_dpre(rk, w[ms], c, alphas[ms], g, b, coef)
+        tied_bwd_dwx(xk, g, dw[ms], b_lo == 0)
+        tied_bwd_dwr(c, rk, dw[ms], b, coef)
+        tied_bwd_sums(c, g, b_hi - b_lo, db[ms], act[ms], csum[ms],
+                      b_lo == 0)
+    tied_bwd_loss(resid, dw, db, act, csum, alphas, part, loss4)
+    _build.LAUNCHES["sae_tied_bwd"] += 1
+    return dw, db, act, loss4
 
 
 # --- sae_untied_fwd (K5/K7 forward + the residual pass) -----------------------
@@ -214,42 +340,15 @@ def sae_untied_fwd_plain(encoder: torch.Tensor, decoder: torch.Tensor,
     return torch.matmul(c, _normalize_rows(decoder)) - batch
 
 
-# The untied kernels keep the codes of one chunk — Z members x rows batch
-# rows: the forward's Cᵀ [Z, n, rows] fp32, the backward's C and dpre G
-# [Z, rows, n] fp32 each — in a device workspace of at most this many
-# bytes; the whole [N, B, n] codes are never formed.
-UNTIED_WORKSPACE_BYTES = 2**30
-
-
-def _member_chunks(n_members: int, batch: int, n_feats: int,
-                   code_bytes: int, cap: int
-                   ) -> list[tuple[int, int, int, int]]:
-    """Chunks (m_lo, m_hi, b_lo, b_hi) of a workspace of ``code_bytes`` a
-    (member, row, feature) capped at ``cap``: whole members, as many a
-    chunk as fit (the last chunk may hold fewer); a member too large alone
-    in row chunks of the largest multiple of 32 rows that fits (at least
-    32; the last may be shorter)."""
-    member_bytes = code_bytes * batch * n_feats
-    if member_bytes <= cap:
-        z = min(n_members, cap // member_bytes)
-        return [(m, min(m + z, n_members), 0, batch)
-                for m in range(0, n_members, z)]
-    rows = max(32, cap // (code_bytes * n_feats) // 32 * 32)
-    return [(m, m + 1, lo, min(lo + rows, batch)) for m in range(n_members)
-            for lo in range(0, batch, rows)]
-
-
 def untied_fwd_chunks(n_members: int, batch: int,
                       n_feats: int) -> list[tuple[int, int, int, int]]:
     """The untied forward's chunks (m_lo, m_hi, b_lo, b_hi), in the order
-    they run: whole members, as many a chunk as UNTIED_WORKSPACE_BYTES
-    holds (the last chunk may hold fewer); a member whose codes alone
-    exceed it runs in row chunks of the largest multiple of 32 rows that
-    fits (the last may be shorter), each writing its own rows of r. All 32
-    members in one chunk at the canonical shape (B = n = 2048), 16 a chunk
-    at n = 8192."""
-    return _member_chunks(n_members, batch, n_feats, 4,
-                          UNTIED_WORKSPACE_BYTES)
+    they run: whole members, as many a chunk as WORKSPACE_BYTES holds (the
+    last chunk may hold fewer); a member whose codes alone exceed it runs
+    in row chunks of the largest multiple of 32 rows that fits (the last
+    may be shorter), each writing its own rows of r. All 32 members in one
+    chunk at the canonical shape (B = n = 2048), 16 a chunk at n = 8192."""
+    return _member_chunks(n_members, batch, n_feats, 4, WORKSPACE_BYTES)
 
 
 # The launches of the untied forward (csrc/sae_untied_fwd.cu), one helper
@@ -338,23 +437,6 @@ def sae_untied_bwd_plain(encoder: torch.Tensor, decoder: torch.Tensor,
     return de, dwn, db, mask.sum(dim=1), loss4
 
 
-# Slices a member's loss reductions are split into (a fixed number, so the
-# order of every sum depends on the shape alone).
-UNTIED_LOSS_SLICES = 16
-
-
-def untied_bwd_chunks(n_members: int, batch: int,
-                      n_feats: int) -> list[tuple[int, int, int, int]]:
-    """The untied backward's chunks (m_lo, m_hi, b_lo, b_hi), in the order
-    they run: whole members, as many a chunk as UNTIED_WORKSPACE_BYTES
-    holds (the last chunk may hold fewer); a member whose C and G alone
-    exceed it runs in batch chunks of the largest multiple of 32 rows that
-    fits (the last may be shorter), added in order. All 32 members in one
-    chunk at the canonical shape (B = n = 2048), 8 a chunk at n = 8192."""
-    return _member_chunks(n_members, batch, n_feats, 2 * 4,
-                          UNTIED_WORKSPACE_BYTES)
-
-
 def _untied_bwd_chunked_plain(encoder, decoder, bias, alphas, batch, resid):
     """The kernels' chunk schedule in plain torch (the CPU twin of
     :func:`sae_untied_bwd`): per chunk the codes, dpre — the decoder's
@@ -368,7 +450,7 @@ def _untied_bwd_chunked_plain(encoder, decoder, bias, alphas, batch, resid):
     nrm = torch.clamp(torch.linalg.vector_norm(decoder, dim=-1), min=_EPS)
     de, dwn = torch.empty_like(encoder), torch.empty_like(encoder)
     sums = encoder.new_empty((3, n_members, n_feats))  # db, act, Σ_b c
-    for m_lo, m_hi, b_lo, b_hi in untied_bwd_chunks(n_members, b, n_feats):
+    for m_lo, m_hi, b_lo, b_hi in bwd_chunks(n_members, b, n_feats):
         ms = slice(m_lo, m_hi)
         xk, rk = batch[b_lo:b_hi], resid[ms, b_lo:b_hi]
         c = torch.relu(torch.matmul(xk, encoder[ms].transpose(1, 2))
@@ -469,7 +551,7 @@ def sae_untied_bwd(encoder: torch.Tensor, decoder: torch.Tensor,
                    bias: torch.Tensor, alphas: torch.Tensor,
                    batch: torch.Tensor, resid: torch.Tensor):
     """See :func:`sae_untied_bwd_plain` for the outputs. CUDA: the decoder's
-    row norms, then per chunk of :func:`untied_bwd_chunks` the launches
+    row norms, then per chunk of :func:`bwd_chunks` the launches
     ``untied_bwd_codes``, ``_dpre``, ``_de``, ``_dwn``, ``_sums`` in order,
     then ``untied_bwd_loss``; counts one ``sae_untied_bwd`` call. CPU: the
     same chunk schedule in plain torch."""
@@ -488,8 +570,8 @@ def sae_untied_bwd(encoder: torch.Tensor, decoder: torch.Tensor,
     db, act, csum, nrm = (torch.empty((n_members, n_feats), **kw)
                           for _ in range(4))
     loss4 = torch.empty((n_members, 4), **kw)
-    part = torch.empty((n_members, UNTIED_LOSS_SLICES, 2), **kw)
-    chunks = untied_bwd_chunks(n_members, b, n_feats)
+    part = torch.empty((n_members, LOSS_SLICES, 2), **kw)
+    chunks = bwd_chunks(n_members, b, n_feats)
     ws = torch.empty((2, max((mh - ml) * (bh - bl) for ml, mh, bl, bh
                              in chunks) * n_feats), **kw)
     c, g = ws[0], ws[1]
@@ -507,6 +589,82 @@ def sae_untied_bwd(encoder: torch.Tensor, decoder: torch.Tensor,
     untied_bwd_loss(resid, de, dwn, db, act, csum, alphas, part, loss4)
     _build.LAUNCHES["sae_untied_bwd"] += 1
     return de, dwn, db, act, loss4
+
+
+# --- the chunked kernels' launches, one by one -------------------------------
+
+def one_chunk_launches(kernel: str, encoder: torch.Tensor, bias: torch.Tensor,
+                       batch: torch.Tensor, *,
+                       decoder: Optional[torch.Tensor] = None,
+                       alphas: Optional[torch.Tensor] = None,
+                       resid: Optional[torch.Tensor] = None) -> dict:
+    """{part: (launch, FLOPs)} for every launch of the chunked kernel
+    ``kernel`` (``sae_tied_bwd``, ``sae_untied_fwd`` or ``sae_untied_bwd``),
+    in the order a call runs them, on one chunk holding every member and
+    batch row of these CUDA inputs; the outputs and the workspace are
+    allocated here (a chunk's worth: 2·N·B·n floats for a backward). Each
+    launch writes only its own buffers, so any one of them can be timed
+    alone once the earlier ones have run. FLOPs counts the products'
+    multiply-adds twice, 0 for the norm, sums and loss passes. The
+    untied forward takes ``decoder``; the backwards ``alphas`` and
+    ``resid``, the untied one ``decoder`` too."""
+    n_m, n, d = encoder.shape
+    b = batch.shape[0]
+    kw = {"dtype": torch.float32, "device": batch.device}
+    full = lambda: torch.empty((n_m, n, d), **kw)
+    gemm = 2.0 * n_m * b * n * d
+    if kernel == "sae_untied_fwd":
+        wn, ct = full(), torch.empty((n_m * n * b,), **kw)
+        r = torch.empty((n_m, b, d), **kw)
+        return {
+            "sae_untied_fwd_norms": (lambda: untied_fwd_norms(decoder, wn),
+                                     0.0),
+            "sae_untied_fwd_codes": (
+                lambda: untied_fwd_codes(batch, encoder, bias, ct), gemm),
+            "sae_untied_fwd_decode": (
+                lambda: untied_fwd_decode(ct, wn, batch, r, b), gemm)}
+    c, g = (torch.empty((n_m, b, n), **kw) for _ in range(2))
+    db, act, csum = (torch.empty((n_m, n), **kw) for _ in range(3))
+    part = torch.empty((n_m, LOSS_SLICES, 2), **kw)
+    loss4 = torch.empty((n_m, 4), **kw)
+    coef = float(np.float32(2.0 / (b * d)))
+    if kernel == "sae_tied_bwd":
+        w, dw = full(), full()
+        return {
+            "sae_tied_bwd_norms": (lambda: tied_bwd_norms(encoder, w), 0.0),
+            "sae_tied_bwd_codes": (
+                lambda: tied_bwd_codes(batch, w, bias, None, c), gemm),
+            "sae_tied_bwd_dpre": (
+                lambda: tied_bwd_dpre(resid, w, c, alphas, g, b, coef), gemm),
+            "sae_tied_bwd_dwx": (lambda: tied_bwd_dwx(batch, g, dw, True),
+                                 gemm),
+            "sae_tied_bwd_dwr": (
+                lambda: tied_bwd_dwr(c, resid, dw, b, coef), gemm),
+            "sae_tied_bwd_sums": (
+                lambda: tied_bwd_sums(c, g, b, db, act, csum, True), 0.0),
+            "sae_tied_bwd_loss": (
+                lambda: tied_bwd_loss(resid, dw, db, act, csum, alphas, part,
+                                      loss4), 0.0)}
+    if kernel != "sae_untied_bwd":
+        raise ValueError(f"{kernel} is not a chunked ensemble kernel")
+    de, dwn = full(), full()
+    nrm = torch.empty((n_m, n), **kw)
+    return {
+        "sae_untied_bwd_norms": (lambda: untied_bwd_norms(decoder, nrm), 0.0),
+        "sae_untied_bwd_codes": (
+            lambda: untied_bwd_codes(batch, encoder, bias, c), gemm),
+        "sae_untied_bwd_dpre": (
+            lambda: untied_bwd_dpre(resid, decoder, nrm, c, alphas, g, b,
+                                    coef), gemm),
+        "sae_untied_bwd_de": (lambda: untied_bwd_de(batch, g, de, True),
+                              gemm),
+        "sae_untied_bwd_dwn": (
+            lambda: untied_bwd_dwn(c, resid, dwn, b, True, True, coef), gemm),
+        "sae_untied_bwd_sums": (
+            lambda: untied_bwd_sums(c, g, b, db, act, csum, True), 0.0),
+        "sae_untied_bwd_loss": (
+            lambda: untied_bwd_loss(resid, de, dwn, db, act, csum, alphas,
+                                    part, loss4), 0.0)}
 
 
 # --- K3 and K7 contracts ------------------------------------------------------

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card (the tied kernels with and without
-the masked family's coef_mask, the untied ones — the forward and the
-backward also in several chunks —, and the giant single SAE's pair), each
+the masked family's coef_mask, the untied ones — the three chunked
+kernels, the tied backward and the untied forward and backward, also in
+several chunks —, and the giant single SAE's pair), each
 held against its plain PyTorch version on the same inputs. Card only:
 every test carries the ``cuda`` marker and skips without a card. This file
 imports no JAX (the card's host has none), so it runs there on its own:
@@ -243,7 +244,7 @@ def test_untied_fwd_chunks_match_plain(card, monkeypatch, case):
     """sae_untied_fwd with the workspace cap lowered so that the members,
     or one member's batch, split into chunks."""
     n_m, b, n, d, z, rows = case
-    monkeypatch.setattr(ft, "UNTIED_WORKSPACE_BYTES", 4 * n * z * rows)
+    monkeypatch.setattr(ft, "WORKSPACE_BYTES", 4 * n * z * rows)
     chunks = ft.untied_fwd_chunks(n_m, b, n)
     assert len(chunks) >= 2
     assert any(mh - ml < z or bh - bl < rows for ml, mh, bl, bh in chunks)
@@ -304,12 +305,96 @@ def test_untied_bwd_chunks_match_plain(card, monkeypatch, case):
     """sae_untied_bwd with the workspace cap lowered so that the members,
     or one member's batch, split into chunks."""
     n_m, b, n, d, z, rows = case
-    monkeypatch.setattr(ft, "UNTIED_WORKSPACE_BYTES", 2 * 4 * n * z * rows)
-    chunks = ft.untied_bwd_chunks(n_m, b, n)
+    monkeypatch.setattr(ft, "WORKSPACE_BYTES", 2 * 4 * n * z * rows)
+    chunks = ft.bwd_chunks(n_m, b, n)
     assert len(chunks) >= 2
     assert any(mh - ml < z or bh - bl < rows for ml, mh, bl, bh in chunks)
     _check_untied_bwd(_untied_bwd_args(card, n_m, b, n, d, seed=2),
                       len(chunks))
+
+
+# --- the tied backward's chunked launches (sae_tied_bwd) ----------------------
+
+def _tied_bwd_args(card, n_m, b, n, d, masked, seed=0):
+    i = _inputs(card, n_m, b, n, d, seed=seed)
+    cm = i["cm"] if masked else None
+    r = ft.sae_tied_fwd_plain(i["e"], i["bias"], i["x"], cm)
+    return i["e"], i["bias"], i["alphas"], i["x"], r.contiguous(), cm
+
+
+def _check_tied_bwd(args, n_chunks):
+    """Two sae_tied_bwd calls against the plain version: dW and db rtol
+    1e-3, activity exact, mse/l1/l0 rtol 1e-5, grad_sq rtol 1e-3; the two
+    calls bitwise; each part launched once per chunk (norms and loss once
+    a call)."""
+    _build.reset_launches()
+    got = ft.sae_tied_bwd(*args)
+    again = ft.sae_tied_bwd(*args)
+    want = ft.sae_tied_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:2], want[:2]):  # dW, db
+        _close(g, w, 1e-3)
+    assert torch.equal(got[2], want[2])
+    for k, rtol in enumerate((1e-5, 1e-5, 1e-5, 1e-3)):
+        _close(got[3][:, k], want[3][:, k], rtol)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    once = ("sae_tied_bwd_norms", "sae_tied_bwd_loss")
+    assert _build.LAUNCHES["sae_tied_bwd"] == 2
+    assert {k: _build.LAUNCHES[k] for k in _build.TIED_BWD_PARTS} == {
+        k: 2 * (1 if k in once else n_chunks) for k in _build.TIED_BWD_PARTS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["tied", "masked"])
+@pytest.mark.parametrize("shape", [(3, 64, 96, 37), (4, 96, 64, 40),
+                                   (3, 32, 64, 600), (3, 64, 32, 768)],
+                         ids=str)
+def test_tied_bwd_matches_plain(card, shape, masked):
+    """One chunk of every member (N >= 3, distinct alphas) at d = 37 (no
+    16-byte copies of x, r or dW), 40, 600 and 768, with and without the
+    masked family's coef_mask."""
+    _check_tied_bwd(_tied_bwd_args(card, *shape, masked), 1)
+
+
+# (members, batch, n_feats, d, members a chunk, rows a chunk): whole
+# members a chunk (the last holds fewer), or one member's batch in row
+# chunks (the last shorter); d a multiple of 4 or not
+TIED_CHUNK_CASES = [(5, 64, 96, 300, 2, 64), (3, 32, 64, 768, 2, 32),
+                    (3, 160, 64, 40, 1, 64), (3, 96, 32, 37, 1, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["tied", "masked"])
+@pytest.mark.parametrize("case", TIED_CHUNK_CASES, ids=str)
+def test_tied_bwd_chunks_match_plain(card, monkeypatch, case, masked):
+    """sae_tied_bwd with the workspace cap lowered so that the members, or
+    one member's batch, split into chunks."""
+    n_m, b, n, d, z, rows = case
+    monkeypatch.setattr(ft, "WORKSPACE_BYTES", 2 * 4 * n * z * rows)
+    chunks = ft.bwd_chunks(n_m, b, n)
+    assert len(chunks) >= 2
+    assert any(mh - ml < z or bh - bl < rows for ml, mh, bl, bh in chunks)
+    _check_tied_bwd(_tied_bwd_args(card, n_m, b, n, d, masked, seed=4),
+                    len(chunks))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["tied", "masked"])
+def test_tied_bwd_nan_propagates_through_row_chunks(card, monkeypatch,
+                                                    masked):
+    """A NaN in one member's dictionary row reaches that member's losses
+    and grad sum of squares, and only that member's, when each member's
+    batch runs in row chunks."""
+    monkeypatch.setattr(ft, "WORKSPACE_BYTES", 2 * 4 * 64 * 32)
+    e, bias, al, x, r, cm = _tied_bwd_args(card, 2, 96, 64, 40, masked)
+    e[1, 5, 0] = float("nan")
+    if masked:
+        cm[1, 5] = 1.0  # the NaN row is an active one
+    assert len(ft.bwd_chunks(2, 96, 64)) == 6
+    loss4 = ft.sae_tied_bwd(e, bias, al, x, r, cm)[-1]
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss4[0]).all()
+    assert not torch.isfinite(loss4[1, [1, 3]]).any()
 
 
 # --- the giant single SAE's kernels (big_sae_fwd, big_sae_bwd) ----------------

@@ -391,6 +391,39 @@ def test_tied_sae_loss_and_autograd_match_jax_grad(inp, family):
         _close(tp[k].grad, ref_grads[k], GRAD_TOL, f"grad {k}")
 
 
+CHUNKED = {  # kernel -> (its parts, the parts that are products)
+    "sae_tied_bwd": (_build.TIED_BWD_PARTS, ("codes", "dpre", "dwx", "dwr")),
+    "sae_untied_fwd": (_build.UNTIED_FWD_PARTS, ("codes", "decode")),
+    "sae_untied_bwd": (_build.UNTIED_BWD_PARTS,
+                       ("codes", "dpre", "de", "dwn")),
+}
+
+
+@pytest.mark.parametrize("kernel", list(CHUNKED))
+def test_one_chunk_launches_name_every_part_in_order(inp, kernel):
+    """one_chunk_launches (what chip_smoke.py and
+    scripts/time_kernel_parts.py time launch by launch) lists each part of
+    a chunked kernel once, in the order of its _build tuple, with
+    2·N·B·n·d FLOPs for a product and 0 for the other passes; building
+    the list launches nothing, and another kernel's name raises."""
+    _build.reset_launches()
+    e, dec, bias, al, x = (_t(inp[k]) for k in ("e", "dec", "bias",
+                                                 "alphas", "x"))
+    n_m, n, d = e.shape
+    b = x.shape[0]
+    r = torch.zeros((n_m, b, d))
+    got = ft.one_chunk_launches(kernel, e, bias, x, decoder=dec, alphas=al,
+                                resid=r)
+    parts, products = CHUNKED[kernel]
+    assert tuple(got) == parts
+    gemm = 2.0 * n_m * b * n * d
+    assert {k: f for k, (_, f) in got.items()} == {
+        k: gemm if k[len(kernel) + 1:] in products else 0.0 for k in parts}
+    assert all(v == 0 for v in _build.LAUNCHES.values())
+    with pytest.raises(ValueError, match="not a chunked"):
+        ft.one_chunk_launches("big_sae_bwd", e, bias, x)
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch(inp):
     """On CPU tensors every wrapper returns its plain version's result (the
     untied backward: its chunk schedule in plain torch, which

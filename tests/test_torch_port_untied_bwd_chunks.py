@@ -1,7 +1,7 @@
 """The untied backward's chunk schedule on the CPU. ``sae_untied_bwd`` on
 CPU tensors runs the kernels' schedule in plain torch: whole members a
 chunk while their codes and dpre fit the workspace cap
-``UNTIED_WORKSPACE_BYTES``, else one member's batch in chunks added in
+``WORKSPACE_BYTES``, else one member's batch in chunks added in
 order. Held against the JAX ``tiled_untied_sae_grads`` (Pallas interpret
 mode) on the same numpy inputs, with the cap lowered so that (a) five
 members split into chunks of two, the last holding one, and (b) one
@@ -40,8 +40,8 @@ def _inputs(n_m, b, n, d):
 @pytest.mark.parametrize("case", list(CASES), ids=str)
 def test_chunked_untied_bwd_matches_jax(monkeypatch, case, d):
     n_m, b, n, z, rows = case
-    monkeypatch.setattr(ft, "UNTIED_WORKSPACE_BYTES", 2 * 4 * n * z * rows)
-    chunks = ft.untied_bwd_chunks(n_m, b, n)
+    monkeypatch.setattr(ft, "WORKSPACE_BYTES", 2 * 4 * n * z * rows)
+    chunks = ft.bwd_chunks(n_m, b, n)
     assert [(mh - ml, bh - bl) for ml, mh, bl, bh in chunks] == CASES[case]
     inp = _inputs(n_m, b, n, d)
     names = ("e", "dec", "bias", "alphas", "x")
@@ -89,8 +89,8 @@ def test_schedule_covers_every_member_and_row_once_in_order(monkeypatch,
     every (member, row) once in (member, row) order; each chunk's C and G
     fit the cap unless one 32-row chunk of one member does not."""
     n_m, b, n, cap = case
-    monkeypatch.setattr(ft, "UNTIED_WORKSPACE_BYTES", cap)
-    chunks = ft.untied_bwd_chunks(n_m, b, n)
+    monkeypatch.setattr(ft, "WORKSPACE_BYTES", cap)
+    chunks = ft.bwd_chunks(n_m, b, n)
     assert chunks == SCHEDULES[case]
     visited = [(m, row) for ml, mh, bl, bh in chunks
                for m in range(ml, mh) for row in range(bl, bh)]

@@ -1,6 +1,6 @@
 """The untied forward's chunk schedule, and its contract on the CPU.
 On CUDA tensors ``sae_untied_fwd`` runs whole members a chunk while their
-codes fit the workspace cap ``UNTIED_WORKSPACE_BYTES``, else one member's
+codes fit the workspace cap ``WORKSPACE_BYTES``, else one member's
 batch in row chunks, each writing its own rows of the residual; the
 schedule is checked here with the cap lowered. The chunks sum nothing
 across one another, so on CPU tensors the wrapper takes the plain version,
@@ -62,7 +62,7 @@ def test_fwd_schedule_covers_every_member_and_row_once_in_order(
     every (member, row) once in (member, row) order; each chunk's codes
     fit the cap unless one 32-row chunk of one member does not."""
     n_m, b, n, cap = case
-    monkeypatch.setattr(ft, "UNTIED_WORKSPACE_BYTES", cap)
+    monkeypatch.setattr(ft, "WORKSPACE_BYTES", cap)
     chunks = ft.untied_fwd_chunks(n_m, b, n)
     assert chunks == SCHEDULES[case]
     visited = [(m, row) for ml, mh, bl, bh in chunks
