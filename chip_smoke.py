@@ -8,8 +8,8 @@ Phases — any failure raises, and the script exits non-zero with no result:
    are built from ``sparse_coding_tpu_torch/ops/csrc`` (one nvcc per
    source, all started together), with their ptxas register and spill
    lines — every instantiation of the GEMM template among them (in
-   big_sae_bwd, sae_tied_bwd, sae_untied_fwd and sae_untied_bwd), where
-   any spill fails the run;
+   big_sae_fwd, big_sae_bwd, sae_tied_fwd, sae_tied_bwd, sae_untied_fwd
+   and sae_untied_bwd), where any spill fails the run;
 2. kernels: each ensemble kernel (sae_tied_fwd, sae_tied_bwd,
    sae_tied_adam_vjp, sae_untied_fwd, sae_untied_bwd, sae_untied_adam_vjp)
    and each contract
@@ -50,14 +50,14 @@ Phases — any failure raises, and the script exits non-zero with no result:
 8. summary: one ``{"kernels": [...]}`` line, the card's name and power
    limit, and the last line ``{"ok": true, "device": {...}}``.
 
-Phase 2 also holds ``sae_tied_bwd``, ``sae_untied_fwd`` and
-``sae_untied_bwd`` against their plain versions at the ratio-16 width
-(n = 8,192, which their 1 GiB workspaces take in 4 chunks of 8 members,
-2 chunks of 16 and 4 chunks of 8; the tied backward with and without a
-coef_mask), and at the main shape (the tied backward and the untied
-forward at ratio 16 too) checks that two calls give the same bits,
-records one call's peak memory beside the plain version's and times each
-of their launches. At ratio 16 (and at the main shape too) the tied
+Phase 2 also holds the four chunked ensemble kernels against their plain
+versions at the ratio-16 width (n = 8,192, which their 1 GiB workspaces
+take in 2 chunks of 16 members for the forwards and 4 chunks of 8 for
+the backwards; the tied pair with and without a coef_mask), and at the
+main shape (the forwards and the tied backward at ratio 16 too, the tied
+forward with and without a coef_mask) checks that two calls give the
+same bits, records one call's peak memory beside the plain version's and
+times each of their launches. At ratio 16 (and at the main shape too) the tied
 backward's ReLU mask flips are counted against the plain version's masks
 (``tied_bwd_flips``): at most one per million codes, each within 1e-2 of
 the sums' rounding bound of 0, and its dW and db held against the plain
@@ -65,19 +65,21 @@ version within rtol 1e-3 on every feature with no flip and, with each
 flip's terms moved to the kernel's side, on every feature. It holds
 ``big_sae_fwd``/``big_sae_bwd`` against their plain versions at the
 big-SAE shape, at small odd shapes up to their widest d (1024) and at a
-batch that ``big_sae_bwd`` takes in three chunks (the last one short); at
-the big-SAE shape it checks K9's repeat and memory the same way and times
-each of its launches on one chunk.
+batch that both take in several chunks (the last one short: 3 for K8, 5
+for K9); at the big-SAE shape it checks K8's and K9's repeat and memory
+the same way and times each of their launches on one chunk.
 
-The four chunked kernels count their launches in two families:
-``sae_tied_bwd``, ``sae_untied_fwd``, ``sae_untied_bwd`` and
-``big_sae_bwd`` count calls of their contracts; their own launches count
-under ``_build.TIED_BWD_PARTS`` and ``_build.UNTIED_BWD_PARTS`` (norms and
-loss once per call, the products and the sums once per chunk),
+The six chunked kernels count their launches in two families:
+``big_sae_fwd``, ``big_sae_bwd``, ``sae_tied_fwd``, ``sae_tied_bwd``,
+``sae_untied_fwd`` and ``sae_untied_bwd`` count calls of their
+contracts; their own launches count under ``_build.TIED_BWD_PARTS`` and
+``_build.UNTIED_BWD_PARTS`` (norms and loss once per call, the products
+and the sums once per chunk), ``_build.TIED_FWD_PARTS`` and
 ``_build.UNTIED_FWD_PARTS`` (norms once per call, the codes and decode
-products once per chunk) and ``_build.BWD_PARTS`` (once per batch chunk;
-dctr once per call). The masked family's shape (7 members of 16,384
-features) takes the tied backward in 2 member chunks (4 + 3).
+products once per chunk), ``_build.BIG_FWD_PARTS`` (once per batch
+chunk) and ``_build.BWD_PARTS`` (once per batch chunk; dctr once per
+call). The masked family's shape (7 members of 16,384 features) takes
+the tied forward in one member chunk and the tied backward in 2 (4 + 3).
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card;
 ``--report PATH`` also writes every measurement as JSON).
@@ -186,12 +188,14 @@ BIG_CHUNK_ROWS, BIG_CHUNKS, BIG_EPOCHS, BIG_RESURRECT = 2 * BIG_BATCH, 4, 2, 8
 BIG_STEPS = BIG_EPOCHS * BIG_CHUNKS * BIG_CHUNK_ROWS // BIG_BATCH
 BIG_SMALL_SHAPES = ((32, 64, 40), (64, 64, 128), (32, 96, 640),
                     (64, 32, 1024))  # (batch, n_feats, d)
-# big_sae_bwd runs the batch in chunks of 8,192 rows at 16,384 features
-# (its 1 GiB workspace): this batch takes 8,192 + 8,192 + 4,096
-BIG_CHUNK_SHAPE = (20480, BIG_N, BIG_D)
+# the big-SAE kernels run the batch in chunks under one 1 GiB workspace
+# cap: 16,384 rows at 16,384 features for big_sae_fwd, 8,192 for
+# big_sae_bwd; this batch takes 16,384 + 16,384 + 4,096 and
+# 4 x 8,192 + 4,096
+BIG_CHUNK_SHAPE = (36864, BIG_N, BIG_D)
 # the chunked kernels at the ratio-16 width: 32 members x 8,192 features,
-# 2 chunks of 16 members in the untied forward's 1 GiB workspace, 4 chunks
-# of 8 in the backwards'
+# 2 chunks of 16 members in the forwards' 1 GiB workspace, 4 chunks of 8
+# in the backwards'
 RATIO16_SHAPE = (N_MEMBERS, BATCH, 16 * D, D)  # (members, batch, n, d)
 RATIO16_FWD_CHUNKS = 2
 RATIO16_CHUNKS = 4
@@ -571,19 +575,19 @@ def time_kernels(inp: dict) -> dict:
 
 def part_launches(tied: bool, calls: int,
                   shape=(N_MEMBERS, BATCH, N_FEATS)) -> dict:
-    """The part launches of a family's chunked kernels — the tied
-    backward's, or the untied forward's and backward's — over ``calls``
-    calls of each at ``shape`` (members, batch, n): the norms (and the
-    backwards' loss) once a call, the products (and the backwards' sums)
-    once per chunk of each kernel's schedule."""
+    """The part launches of a family's chunked kernels — its forward's and
+    backward's — over ``calls`` calls of each at ``shape`` (members, batch,
+    n): the norms (and the backwards' loss) once a call, the products (and
+    the backwards' sums) once per chunk of each kernel's schedule."""
     from sparse_coding_tpu_torch.ops import _build
     from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
 
-    once = ("sae_tied_bwd_norms", "sae_tied_bwd_loss",
+    once = ("sae_tied_fwd_norms", "sae_tied_bwd_norms", "sae_tied_bwd_loss",
             "sae_untied_fwd_norms", "sae_untied_bwd_norms",
             "sae_untied_bwd_loss")
-    kernels = (((_build.TIED_BWD_PARTS, ft.bwd_chunks),) if tied else
-               ((_build.UNTIED_FWD_PARTS, ft.untied_fwd_chunks),
+    kernels = (((_build.TIED_FWD_PARTS, ft.fwd_chunks),
+                (_build.TIED_BWD_PARTS, ft.bwd_chunks)) if tied else
+               ((_build.UNTIED_FWD_PARTS, ft.fwd_chunks),
                 (_build.UNTIED_BWD_PARTS, ft.bwd_chunks)))
     out = {}
     for parts, chunks in kernels:
@@ -629,39 +633,51 @@ def repeat_and_memory(label: str, call, plain, allowed: int,
     return {"bit_identical": True, "peak_bytes": mem}
 
 
-def untied_fwd_repeat_and_memory(e, dec, bias, x, tag: str) -> dict:
-    """:func:`repeat_and_memory` of sae_untied_fwd on these inputs, allowed
-    its output, the normalized decoder and its workspace."""
+def fwd_repeat_and_memory(e, bias, x, tag: str, dec=None, cm=None) -> dict:
+    """:func:`repeat_and_memory` of a forward on these inputs — the untied
+    one given ``dec``, else the tied one (with ``cm``, if given) —, allowed
+    its output, the normalized dictionary (Ŵ or Wn) and its workspace."""
     from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
 
     n_m, n, d = e.shape
     b = x.shape[0]
-    chunks = ft.untied_fwd_chunks(n_m, b, n)
+    chunks = ft.fwd_chunks(n_m, b, n)
     ws = max((mh - ml) * (bh - bl) for ml, mh, bl, bh in chunks) * n
+    if dec is None:
+        name = "sae_tied_fwd" + ("" if cm is None else " masked")
+        call = lambda: ft.sae_tied_fwd(e, bias, x, cm)
+        plain = lambda: ft.sae_tied_fwd_plain(e, bias, x, cm)
+    else:
+        name = "sae_untied_fwd"
+        call = lambda: ft.sae_untied_fwd(e, dec, bias, x)
+        plain = lambda: ft.sae_untied_fwd_plain(e, dec, bias, x)
     out = repeat_and_memory(
-        f"{tag} sae_untied_fwd ({len(chunks)} chunks)",
-        lambda: ft.sae_untied_fwd(e, dec, bias, x),
-        lambda: ft.sae_untied_fwd_plain(e, dec, bias, x),
+        f"{tag} {name} ({len(chunks)} chunks)", call, plain,
         4 * (n_m * b * d + n_m * n * d + ws),
-        f"output, Wn, workspace {ws * 4 / 2**20:.0f} MiB")
+        f"output, {'Wn' if dec is not None else 'Ŵ'}, workspace "
+        f"{ws * 4 / 2**20:.0f} MiB")
     return {**out, "chunks": len(chunks)}
 
 
-def untied_fwd_extras(inp: dict) -> dict:
-    """sae_untied_fwd at the main shape: the repeat and memory checks of
-    :func:`untied_fwd_repeat_and_memory`, and each of its launches timed
-    alone on its one chunk."""
+def fwd_extras(inp: dict, tied: bool) -> dict:
+    """A forward at the main shape: the repeat and memory checks of
+    :func:`fwd_repeat_and_memory` (the tied one with and without the
+    coef_mask), and each of its launches timed alone on its one chunk."""
     from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
 
-    e, dec, x, bias = (inp[k] for k in ("e", "dec", "x", "bias"))
-    out = untied_fwd_repeat_and_memory(e, dec, bias, x, "main")
+    e, dec, x, bias, cm = (inp[k] for k in ("e", "dec", "x", "bias", "cm"))
+    if tied:
+        out = fwd_repeat_and_memory(e, bias, x, "main")
+        out["masked"] = fwd_repeat_and_memory(e, bias, x, "main", cm=cm)
+        name = "sae_tied_fwd"
+    else:
+        out = fwd_repeat_and_memory(e, bias, x, "main", dec=dec)
+        name = "sae_untied_fwd"
     if out["chunks"] != 1:
-        raise AssertionError(f"main shape: forward chunks {out['chunks']}")
-    times = time_parts(ft.one_chunk_launches("sae_untied_fwd", e, bias, x,
-                                             decoder=dec))
+        raise AssertionError(f"main shape: {name} chunks {out['chunks']}")
+    times = time_parts(ft.one_chunk_launches(name, e, bias, x, decoder=dec))
     per_call = sum(v["ms"] for v in times.values())
-    log(f"  one chunk: the forward's launches sum to {per_call:.2f} ms a "
-        "call")
+    log(f"  one chunk: {name}'s launches sum to {per_call:.2f} ms a call")
     torch.cuda.empty_cache()
     return {**out, "parts": times, "parts_sum_ms": per_call}
 
@@ -669,17 +685,18 @@ def untied_fwd_extras(inp: dict) -> dict:
 def check_ratio16(gen: torch.Generator, x: torch.Tensor) -> dict:
     """The chunked ensemble kernels against their plain versions at the
     ratio-16 width, which the real 1 GiB workspaces take in
-    RATIO16_FWD_CHUNKS (untied forward) and RATIO16_CHUNKS (backwards)
-    member chunks; the launches must show them. The untied forward's
-    residual feeds both untied backwards; the tied backward and its plain
-    version get the plain tied forward's residual, with and without a
-    coef_mask. The untied forward and the tied backward also repeat
-    bitwise and stay within their memory allowances."""
+    RATIO16_FWD_CHUNKS (forwards) and RATIO16_CHUNKS (backwards) member
+    chunks; the launches must show them. The untied forward's residual
+    feeds both untied backwards; the tied backward and its plain version
+    get the plain tied forward's residual, with and without a coef_mask.
+    The forwards (the tied one with and without a coef_mask) and the tied
+    backward also repeat bitwise and stay within their memory
+    allowances."""
     from sparse_coding_tpu_torch.ops import _build
     from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
 
     n_m, b, n, d = RATIO16_SHAPE
-    chunks = {"fwd": len(ft.untied_fwd_chunks(n_m, b, n)),
+    chunks = {"fwd": len(ft.fwd_chunks(n_m, b, n)),
               "bwd": len(ft.bwd_chunks(n_m, b, n))}
     if chunks != {"fwd": RATIO16_FWD_CHUNKS, "bwd": RATIO16_CHUNKS}:
         raise AssertionError(f"ratio 16: chunks {chunks}")
@@ -713,17 +730,18 @@ def check_ratio16(gen: torch.Generator, x: torch.Tensor) -> dict:
         f"chunks): ok, worst rel err {worst:.2e}")
     del r, got, ref
     torch.cuda.empty_cache()
-    fwd = untied_fwd_repeat_and_memory(e, dec, bias, x, "ratio16")
+    fwd = fwd_repeat_and_memory(e, bias, x, "ratio16", dec=dec)
     del dec
     torch.cuda.empty_cache()
 
     # member m keeps the first n / (1 + m % 4) features, as make_inputs
     cm = (torch.arange(n)[None, :]
           < (n // (1 + torch.arange(n_m) % 4))[:, None]).float().to(DEV)
-    tied = {}
+    tied, tied_fwd = {}, {}
     for mask, sfx in ((None, ""), (cm, "_masked")):
         rt = ft.sae_tied_fwd_plain(e, bias, x, mask)
         _build.reset_launches()
+        rk = ft.sae_tied_fwd(e, bias, x, mask)
         got = ft.sae_tied_bwd(e, bias, al, x, rt, mask)
         sync()
         want = part_launches(True, 1, (n_m, b, n))
@@ -731,6 +749,14 @@ def check_ratio16(gen: torch.Generator, x: torch.Tensor) -> dict:
         if launches != want:
             raise AssertionError(f"ratio 16: tied launches {launches}, "
                                  f"expected {want}")
+        tied_fwd[f"r{sfx}"] = compare(f"ratio16:sae_tied_fwd.r{sfx}", rk,
+                                      rt, RTOL_EXACT)
+        log(f"  ratio16 sae_tied_fwd{sfx} ({n_m}x{b}x{n}x{d}, "
+            f"{chunks['fwd']} chunks): ok, rel err "
+            f"{tied_fwd[f'r{sfx}']['max_rel_err']:.2e}")
+        del rk
+        tied_fwd[f"repeat_memory{sfx}"] = fwd_repeat_and_memory(
+            e, bias, x, "ratio16", cm=mask)
         ref = ft.sae_tied_bwd_plain(e, bias, al, x, rt, mask)
         # dW and db row by row in tied_bwd_flips, the rest here
         pairs = bwd_pairs(got, ref, ("dw",), sfx)
@@ -756,7 +782,8 @@ def check_ratio16(gen: torch.Generator, x: torch.Tensor) -> dict:
     del e
     torch.cuda.empty_cache()
     return {"sae_untied_fwd": {"r": r_err, **fwd}, "sae_untied_bwd": errs,
-            "sae_tied_bwd": {**tied, **tied_mem}, "chunks": chunks}
+            "sae_tied_fwd": tied_fwd, "sae_tied_bwd": {**tied, **tied_mem},
+            "chunks": chunks}
 
 
 def tied_bwd_flips(e, bias, al, x, r, cm, got, ref, tag: str) -> dict:
@@ -1290,17 +1317,22 @@ def time_big_kernels(p: dict, x: torch.Tensor) -> dict:
     return out
 
 
-def big_launches(steps: int) -> dict:
-    """Every launch count after ``steps`` big-SAE kernel steps: one
-    big_sae_fwd and one big_sae_bwd call a step, each K9 launch once per
-    batch chunk (dctr once a call), nothing else."""
+def big_launches(steps: int, batch: int = BIG_BATCH,
+                 calls: tuple = (1, 1)) -> dict:
+    """Every launch count after ``steps`` big-SAE kernel steps of ``calls``
+    big_sae_fwd and big_sae_bwd calls each at (batch, BIG_N): each K8 and
+    K9 launch once per batch chunk of its kernel (dctr once a call),
+    nothing else."""
     from sparse_coding_tpu_torch.ops import _build
     from sparse_coding_tpu_torch.ops import fused_big_sae as fb
 
-    n_chunks = len(fb.bwd_chunks(BIG_BATCH, BIG_N))
+    fwd, bwd = (steps * c for c in calls)
+    n_fwd = len(fb.fwd_chunks(batch, BIG_N))
+    n_bwd = len(fb.bwd_chunks(batch, BIG_N))
     want = {k: 0 for k in _build.LAUNCHES}
-    want.update({k: steps for k in BIG_KERNELS})
-    want.update({k: steps if k == "big_sae_bwd_dctr" else steps * n_chunks
+    want.update({"big_sae_fwd": fwd, "big_sae_bwd": bwd})
+    want.update({k: fwd * n_fwd for k in _build.BIG_FWD_PARTS})
+    want.update({k: bwd if k == "big_sae_bwd_dctr" else bwd * n_bwd
                  for k in _build.BWD_PARTS})
     return want
 
@@ -1320,66 +1352,58 @@ def peak_bytes(fn) -> int:
     return peak
 
 
-def big_bwd_extras(p: dict, x: torch.Tensor) -> dict:
-    """big_sae_bwd at the main shape: two calls give the same bits; the
-    peak memory of one call beside the plain version's (the kernel's must
-    stay within its outputs, Wn and the workspace cap); and each of its
-    launches timed alone on the first chunk (CUDA events, 5 launches)."""
+def big_extras(p: dict, x: torch.Tensor, kernel: str) -> dict:
+    """big_sae_fwd or big_sae_bwd at the main shape: two calls give the
+    same bits; the peak memory of one call beside the plain version's (the
+    kernel's must stay within its outputs, Wn and the workspace cap); and
+    each of its launches timed alone on the first chunk (CUDA events, 5
+    launches; fused_big_sae.one_chunk_launches)."""
     from sparse_coding_tpu_torch.ops import fused_big_sae as fb
 
     xc = (x - p["centering"]).contiguous()
-    r = (fb.big_sae_forward_plain(p, xc) - x).contiguous()
-    alpha = torch.tensor(BIG_L1, device=DEV)
     b, d = xc.shape
     n = p["dict"].shape[0]
-    rows = fb.bwd_chunk_rows(b, n)
-    out = repeat_and_memory(
-        "big_sae_bwd", lambda: fb.big_sae_backward(p, alpha, xc, r),
-        lambda: fb.big_sae_backward_plain(p, alpha, xc, r),
-        4 * (2 * rows * n + 3 * n * d + 3 * n + d + 2),
-        f"outputs, Wn, workspace {2 * rows * n * 4 / 2**20:.0f} MiB")
-
-    xk, rk = xc[:rows], r[:rows]
-    e, t = p["encoder"], p["threshold"]
-    wn = fb.normalized_dict(p["dict"])
-    al = alpha.reshape(1)
-    kw = {"dtype": torch.float32, "device": DEV}
-    c, g_ = torch.empty((rows, n), **kw), torch.empty((rows, n), **kw)
-    de, dwn = torch.empty((d, n), **kw), torch.empty((n, d), **kw)
-    dt, ct, l0f = (torch.zeros((n,), **kw) for _ in range(3))
-    dctr, scal = torch.empty((d,), **kw), torch.empty((2,), **kw)
-    coef = float(np.float32(2.0 / (b * d)))
-    gemm = 2.0 * rows * n * d
-    parts = {  # launch, FLOPs; in the order one chunk runs them
-        "big_sae_bwd_codes": (lambda: fb.bwd_codes(xk, e, t, c), gemm),
-        "big_sae_bwd_dpre": (
-            lambda: fb.bwd_dpre(rk, wn, c, al, g_, b, coef), gemm),
-        "big_sae_bwd_de": (lambda: fb.bwd_de(xk, g_, de, True), gemm),
-        "big_sae_bwd_dwn": (
-            lambda: fb.bwd_dwn(c, rk, dwn, True, False, coef), gemm),
-        "big_sae_bwd_sums": (
-            lambda: fb.bwd_sums(c, g_, rows, dt, ct, l0f, True), 0.0),
-        "big_sae_bwd_dctr": (
-            lambda: fb.bwd_dctr(e, dt, ct, l0f, dctr, scal), 2.0 * n * d),
-    }
-    times = time_parts(parts, f" ({rows} rows)")
-    n_chunks = len(fb.bwd_chunks(b, n))
-    per_call = n_chunks * sum(v["ms"] for k, v in times.items()
-                              if k != "big_sae_bwd_dctr") \
-        + times["big_sae_bwd_dctr"]["ms"]
-    log(f"  {n_chunks} chunks: the launches sum to {per_call:.2f} ms a call")
-    del c, g_, de, dwn
+    if kernel == "big_sae_fwd":
+        r = alpha = None
+        rows, chunks = fb.fwd_chunk_rows(b, n), fb.fwd_chunks(b, n)
+        ws = rows * n
+        out = repeat_and_memory(
+            kernel, lambda: fb.big_sae_forward(p, xc),
+            lambda: fb.big_sae_forward_plain(p, xc),
+            4 * (b * d + n * d + ws),
+            f"output, Wn, workspace {ws * 4 / 2**20:.0f} MiB")
+    else:
+        r = (fb.big_sae_forward_plain(p, xc) - x).contiguous()
+        alpha = torch.tensor(BIG_L1, device=DEV)
+        rows, chunks = fb.bwd_chunk_rows(b, n), fb.bwd_chunks(b, n)
+        ws = 2 * rows * n
+        out = repeat_and_memory(
+            kernel, lambda: fb.big_sae_backward(p, alpha, xc, r),
+            lambda: fb.big_sae_backward_plain(p, alpha, xc, r),
+            4 * (ws + 3 * n * d + 3 * n + d + 2),
+            f"outputs, Wn, workspace {ws * 4 / 2**20:.0f} MiB")
+    times = time_parts(fb.one_chunk_launches(kernel, p, xc, r, alpha),
+                       f" ({rows} rows)")
+    per_call = len(chunks) * sum(v["ms"] for k, v in times.items()
+                                 if k != "big_sae_bwd_dctr") \
+        + times.get("big_sae_bwd_dctr", {"ms": 0.0})["ms"]
+    log(f"  {len(chunks)} chunks: {kernel}'s launches sum to "
+        f"{per_call:.2f} ms a call")
+    del xc, r
     torch.cuda.empty_cache()
-    return {**out, "chunk_rows": rows, "chunks": n_chunks, "parts": times,
+    return {**out, "chunk_rows": rows, "chunks": len(chunks), "parts": times,
             "parts_sum_ms": per_call}
 
 
 def big_phase2(store: Path, g: torch.Generator) -> dict:
     """Phase 2's big-SAE part: small odd shapes, the main shape (the
-    store's first batch) and a batch of several K9 chunks — checks; then
-    at the main shape K9's repeat, memory and per-launch times, the
-    active codes, bounds and times."""
+    store's first batch) and a batch of several K8 and K9 chunks —
+    checks, the last with its launch counts; then at the main shape K8's
+    and K9's repeat, memory and per-launch times, the active codes,
+    bounds and times."""
     from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
 
     checks = {}
     for b, n, d in BIG_SMALL_SHAPES:
@@ -1391,11 +1415,18 @@ def big_phase2(store: Path, g: torch.Generator) -> dict:
     checks["main"] = check_big_kernels(p, x, "big main")
     torch.cuda.empty_cache()
     b, n, d = BIG_CHUNK_SHAPE
+    _build.reset_launches()
     checks[f"big {b}x{n}x{d}"] = check_big_kernels(
         big_params(g, n, d), torch.randn((b, d), generator=g).to(DEV),
         "big chunks")
+    want = big_launches(1, b, (1, 2))
+    if dict(_build.LAUNCHES) != want:
+        raise AssertionError(f"big chunks: launches {dict(_build.LAUNCHES)}, "
+                             f"expected {want}")
+    log(f"  big chunks: {len(fb.fwd_chunks(b, n))} big_sae_fwd chunks, "
+        f"{len(fb.bwd_chunks(b, n))} big_sae_bwd chunks")
     torch.cuda.empty_cache()
-    extras = big_bwd_extras(p, x)
+    extras = {k: big_extras(p, x, k) for k in BIG_KERNELS}
     xc = x - p["centering"]
     nnz = int(((xc @ p["encoder"] + p["threshold"]) > 0).sum())
     del xc
@@ -1405,7 +1436,7 @@ def big_phase2(store: Path, g: torch.Generator) -> dict:
     timing = time_big_kernels(p, x)
     return {"checks": checks, "active_codes": nnz, "timing": timing,
             "bounds": big_bounds(BIG_BATCH, BIG_N, BIG_D, nnz),
-            "bwd": extras}
+            "extras": extras}
 
 
 def _big_snapshot(state) -> dict:
@@ -1496,7 +1527,10 @@ def big_reference(store: Path, main: dict) -> dict:
     """The main path's 16 steps again — same seed, init, store, rng and
     batch order, resurrection at the same steps — on the autodiff step,
     which launches no kernel. Final params, and c_totals and the worst
-    losses just before each resurrection, must match the main path's."""
+    losses just before each resurrection, must match the main path's. Its
+    steps are timed as the main path's are: a CUDA event after each step
+    (no added synchronization; the losses are read after the last step),
+    activations/s over steps 2–16 on the device timeline."""
     from sparse_coding_tpu_torch.data.chunk_store import device_prefetch
     from sparse_coding_tpu_torch.data.shard_store import open_store
     from sparse_coding_tpu_torch.ops import _build
@@ -1509,19 +1543,26 @@ def big_reference(store: Path, main: dict) -> dict:
     store_ = open_store(store, quarantine_corrupt=True)
     rng = np.random.default_rng(SEED)
     _build.reset_launches()
-    n, snaps, losses = 0, [], []
+    n, snaps, losses, events = 0, [], [], []
     for _ in range(BIG_EPOCHS):
         for batch in device_prefetch(store_.epoch(BIG_BATCH, rng), DEV):
             state, m = step(state, batch)
-            losses.append(float(m["loss"]))
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            losses.append(m["loss"])
             n += 1
             if n % BIG_RESURRECT == 0:
                 snaps.append(_big_snapshot(state))
                 state, _ = bs.resurrect_dead_features(state)
     sync()
+    losses = [float(v) for v in losses]
     if n != BIG_STEPS or any(_build.LAUNCHES.values()):
         raise AssertionError(f"big reference: {n} steps, launches "
                              f"{_build.LAUNCHES}")
+    step_ms = events[0].elapsed_time(events[-1]) / (n - 1)
+    log(f"  autodiff replay: {1e3 * BIG_BATCH / step_ms:.0f} acts/s over "
+        f"steps 2-{n} ({step_ms:.1f} ms a step; kernel path "
+        f"{main['step_ms']:.1f})")
     fro = {k: rel_fro(main["state"].params[k], state.params[k])
            for k in bs.PARAM_NAMES}
     for k, v in fro.items():
@@ -1550,7 +1591,8 @@ def big_reference(store: Path, main: dict) -> dict:
         "bounded)")
     del state
     torch.cuda.empty_cache()
-    return {"rel_fro": fro, "buffers": errs, "loss_max_rel_diff": loss_rel}
+    return {"rel_fro": fro, "buffers": errs, "loss_max_rel_diff": loss_rel,
+            "step_ms": step_ms, "acts_per_s": 1e3 * BIG_BATCH / step_ms}
 
 
 def big_side_by_side(store: Path) -> dict:
@@ -1735,8 +1777,8 @@ def main() -> int:
         raise AssertionError(f"ptxas spilled in the GEMM template: {spills}")
     gemms = {k: v for k, v in gemms.items() if v}
     log(f"  GEMM template instantiations, no spills: {gemms}")
-    if set(gemms) != {"big_sae_bwd", "sae_tied_bwd", "sae_untied_fwd",
-                      "sae_untied_bwd"}:
+    if set(gemms) != {"big_sae_fwd", "big_sae_bwd", "sae_tied_fwd",
+                      "sae_tied_bwd", "sae_untied_fwd", "sae_untied_bwd"}:
         raise AssertionError(f"GEMM template instantiations in {gemms}")
 
     log("phase 2: kernels vs plain versions")
@@ -1757,9 +1799,11 @@ def main() -> int:
         main_inp = make_inputs(g, N_MEMBERS, BATCH, N_FEATS, D, x=x_main)
         checks["main"] = check_kernels(main_inp, "main")
         report["checks"] = checks
+        tied_fwd = fwd_extras(main_inp, tied=True)
+        report["tied_fwd"] = tied_fwd
         tied_bwd = tied_bwd_extras(main_inp)
         report["tied_bwd"] = tied_bwd
-        untied_fwd = untied_fwd_extras(main_inp)
+        untied_fwd = fwd_extras(main_inp, tied=False)
         report["untied_fwd"] = untied_fwd
         untied = untied_bwd_extras(main_inp)
         report["untied_bwd"] = untied
@@ -1822,8 +1866,14 @@ def main() -> int:
         step_ms = report["big_main"]["step_ms"]
         shares = {k: big["timing"][k]["ms"] / step_ms for k in BIG_KERNELS}
         report["big_main"]["kernel_share"] = shares
+        pair = {k: sum(big["timing"][n][k] for n in BIG_KERNELS)
+                for k in ("ms", "plain_ms")}
+        report["big_main"]["kernel_pair_ms"] = pair
         log(f"  {step_ms:.1f} ms per step; kernel shares "
-            + ", ".join(f"{k} {100 * v:.1f}%" for k, v in shares.items()))
+            + ", ".join(f"{k} {100 * v:.1f}%" for k, v in shares.items())
+            + f"; kernel pair {pair['ms']:.1f} ms vs plain pair "
+            f"{pair['plain_ms']:.1f} ms; autodiff step "
+            f"{report['big_main']['reference']['step_ms']:.1f} ms")
 
     timing.update(big["timing"])
     bnd.update(big["bounds"])
@@ -1854,12 +1904,13 @@ def main() -> int:
             "bound_by": bnd[name]["bound_by"],
             "library_ms": timing[name]["library_ms"],
             "contracts": KERNEL_META[name]["contracts"]})
-        if name == "big_sae_bwd":
+        if name in BIG_KERNELS:
             kernels[-1]["parts"] = {
                 k: {"launches": report["big_main"]["launches"][k],
                     "ms": v["ms"]}
-                for k, v in big["bwd"]["parts"].items()}
-        chunked = {"sae_tied_bwd": (tied_bwd, "tied"),
+                for k, v in big["extras"][name]["parts"].items()}
+        chunked = {"sae_tied_fwd": (tied_fwd, "tied"),
+                   "sae_tied_bwd": (tied_bwd, "tied"),
                    "sae_untied_fwd": (untied_fwd, "untied"),
                    "sae_untied_bwd": (untied, "untied")}
         if name in chunked:

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Time the port's chunked kernels, launch by launch, on one CUDA card and
-print one JSON line.
+"""Time the port's chunked kernels, whole calls and launch by launch, on
+one CUDA card and print one JSON line.
 
-- K9 (``big_sae_bwd``): each of its launches on one 8,192-row chunk at the
-  big-SAE shape (d=1024, n=16,384), the size of one chunk of its 1 GiB
-  workspace;
-- the tied backward (``sae_tied_bwd``), and the untied forward
-  (``sae_untied_fwd``) and backward (``sae_untied_bwd``): one whole call
-  of each at the canonical ensemble shape (32 members, batch 2048, n=2048,
-  d=512), and each of their launches where the checkout lists them
-  (``fused_sae_tiled.one_chunk_launches``; a checkout without it gets the
-  whole calls only).
+- K8 (``big_sae_fwd``) and K9 (``big_sae_bwd``): one whole call of each at
+  the big-SAE shape (batch 65,536, n=16,384, d=1024), and each of their
+  launches on the first chunk of its 1 GiB workspace (16,384 and 8,192
+  rows) where the checkout lists them (``fused_big_sae.one_chunk_launches``;
+  a checkout without it gets the whole calls only);
+- the tied and untied forwards and backwards (``sae_tied_fwd``,
+  ``sae_tied_bwd``, ``sae_untied_fwd``, ``sae_untied_bwd``): one whole
+  call of each at the canonical ensemble shape (32 members, batch 2048,
+  n=2048, d=512), and each of their launches where the checkout lists them
+  (``fused_sae_tiled.one_chunk_launches``, for the kernels whose parts
+  the checkout's ``_build.LAUNCHES`` counts; else the whole calls only).
 
 Times are CUDA-event means over ``--iters`` launches after one warm-up.
 The kernels of the checkout in the working directory are built and timed,
@@ -46,31 +48,35 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def k9_parts(g: torch.Generator, iters: int) -> dict:
+def big(g: torch.Generator, iters: int) -> dict:
+    """One whole call of K8 and of K9 at the big-SAE shape, then each of its
+    launches where the checkout lists them (``one_chunk_launches``)."""
     from sparse_coding_tpu_torch.ops import fused_big_sae as fb
 
-    rows, n, d, batch = 8192, 16384, 1024, 65536
+    b, n, d = 65536, 16384, 1024
     kw = {"dtype": torch.float32, "device": "cuda"}
-    xk = torch.randn((rows, d), generator=g, **kw)
-    rk = torch.randn((rows, d), generator=g, **kw) * 0.1
-    e = torch.randn((d, n), generator=g, **kw) / math.sqrt(d)
-    t = torch.randn((n,), generator=g, **kw) * 0.1
-    wn = fb.normalized_dict(torch.randn((n, d), generator=g, **kw))
-    al = torch.full((1,), 1e-3, **kw)
-    c, gw = torch.empty((rows, n), **kw), torch.empty((rows, n), **kw)
-    de, dwn = torch.empty((d, n), **kw), torch.empty((n, d), **kw)
-    dt, ct, l0f = (torch.zeros((n,), **kw) for _ in range(3))
-    coef = float(np.float32(2.0 / (batch * d)))
-    parts = {
-        "big_sae_bwd_codes": lambda: fb.bwd_codes(xk, e, t, c),
-        "big_sae_bwd_dpre": lambda: fb.bwd_dpre(rk, wn, c, al, gw, batch,
-                                                coef),
-        "big_sae_bwd_de": lambda: fb.bwd_de(xk, gw, de, True),
-        "big_sae_bwd_dwn": lambda: fb.bwd_dwn(c, rk, dwn, True, False, coef),
-        "big_sae_bwd_sums": lambda: fb.bwd_sums(c, gw, rows, dt, ct, l0f,
-                                                True),
+    p = {"dict": torch.randn((n, d), generator=g, **kw),
+         "encoder": torch.randn((d, n), generator=g, **kw) / math.sqrt(d),
+         "threshold": torch.randn((n,), generator=g, **kw) * 0.1,
+         "centering": torch.zeros((d,), **kw)}
+    xc = torch.randn((b, d), generator=g, **kw)
+    r = torch.randn((b, d), generator=g, **kw) * 0.1
+    al = torch.tensor(1e-3, **kw)
+    calls = {
+        "big_sae_fwd": (lambda: fb.big_sae_forward(p, xc), {}),
+        "big_sae_bwd": (lambda: fb.big_sae_backward(p, al, xc, r),
+                        {"r": r, "alpha": al}),
     }
-    return {k: time_ms(fn, iters) for k, fn in parts.items()}
+    out = {}
+    for name, (call, inputs) in calls.items():
+        out[name] = time_ms(call, iters)
+        if hasattr(fb, "one_chunk_launches"):
+            parts = fb.one_chunk_launches(name, p, xc, **inputs)
+            out.update({k: time_ms(fn, iters)
+                        for k, (fn, _) in parts.items()})
+            del parts
+        torch.cuda.empty_cache()
+    return out
 
 
 def ensemble_inputs(g: torch.Generator):
@@ -91,12 +97,14 @@ def ensemble(g: torch.Generator, iters: int) -> dict:
     """One whole call of each chunked ensemble kernel at the canonical
     shape, then each of its launches where the checkout lists them
     (``one_chunk_launches``)."""
+    from sparse_coding_tpu_torch.ops import _build
     from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
 
     e, dec, bias, al, x = ensemble_inputs(g)
     rt = ft.sae_tied_fwd_plain(e, bias, x).contiguous()
     ru = ft.sae_untied_fwd_plain(e, dec, bias, x).contiguous()
     calls = {
+        "sae_tied_fwd": (lambda: ft.sae_tied_fwd(e, bias, x), {}),
         "sae_tied_bwd": (lambda: ft.sae_tied_bwd(e, bias, al, x, rt),
                          {"alphas": al, "resid": rt}),
         "sae_untied_fwd": (lambda: ft.sae_untied_fwd(e, dec, bias, x),
@@ -108,7 +116,8 @@ def ensemble(g: torch.Generator, iters: int) -> dict:
     out = {}
     for name, (call, inputs) in calls.items():
         out[name] = time_ms(call, iters)
-        if hasattr(ft, "one_chunk_launches"):
+        if (hasattr(ft, "one_chunk_launches")
+                and f"{name}_codes" in _build.LAUNCHES):
             parts = ft.one_chunk_launches(name, e, bias, x, **inputs)
             out.update({k: time_ms(fn, iters)
                         for k, (fn, _) in parts.items()})
@@ -133,7 +142,7 @@ def main() -> int:
         text=True, timeout=60).stdout.strip().splitlines()[0]
     g = torch.Generator("cuda").manual_seed(0)
     print(json.dumps({"tree": os.getcwd(), "card": card,
-                      "k9": k9_parts(g, args.iters),
+                      "big": big(g, args.iters),
                       "ensemble": ensemble(g, args.iters)}))
     return 0
 

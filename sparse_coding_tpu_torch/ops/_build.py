@@ -31,16 +31,25 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 ARGTYPES = {
-    # x, E, b, coef_mask (or null), r, N, B, n, d, stream
-    "sae_tied_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    # the tied forward's launches (csrc/sae_tied_fwd.cu), a chunk of Z
+    # members x rows batch rows at a time:
+    # E, W, rows, d, stream (once a call)
+    "sae_tied_fwd_norms": [_P] * 2 + [_I] * 2 + [_P],
+    # x, W, b, coef_mask (or null), Ct, Z, rows, n, d, stream
+    "sae_tied_fwd_codes": [_P] * 5 + [_I] * 4 + [_P],
+    # Ct, W, x, r, Z, rows, n, d, B, stream
+    "sae_tied_fwd_decode": [_P] * 4 + [_I] * 5 + [_P],
     # E, dW, mu, nu, lrs, bc1, bc2, E2, mu2, nu2, un_part, bias, db, mub,
     # nub, bias2, mub2, nub2, N, n, d, b1, omb1, b2, omb2, eps, stream
     "sae_tied_adam_vjp": [_P] * 18 + [_I] * 3 + [_F] * 5 + [_P],
     # E, dE, muE, nuE, D, dWn, muD, nuD, lrs, bc1, bc2, E2, muE2, nuE2, D2,
     # muD2, nuD2, un_part, N, n, d, b1, omb1, b2, omb2, eps, stream
     "sae_untied_adam_vjp": [_P] * 18 + [_I] * 3 + [_F] * 5 + [_P],
-    # xc, E [d, n], Wn, t, xhat, B, n, d, stream
-    "big_sae_fwd": [_P] * 5 + [_I] * 3 + [_P],
+    # K8's launches, one batch chunk at a time (csrc/big_sae_fwd.cu):
+    # xc, E [d, n], t, Ct, rows, n, d, stream
+    "big_sae_fwd_codes": [_P] * 4 + [_I] * 3 + [_P],
+    # Ct, Wn, xhat, rows, n, d, stream
+    "big_sae_fwd_decode": [_P] * 3 + [_I] * 3 + [_P],
     # K9's launches, one batch chunk at a time (csrc/big_sae_bwd.cu):
     # xc, E [d, n], t, C, rows, n, d, stream
     "big_sae_bwd_codes": [_P] * 4 + [_I] * 3 + [_P],
@@ -97,20 +106,24 @@ ARGTYPES = {
     # (once a call)
     "sae_tied_bwd_loss": [_P] * 8 + [_I] * 5 + [_P],
 }
-# The library of each entry point: its own name, or for the launches of a
-# chunked kernel the library of that kernel — K9's parts big_sae_bwd's,
-# the untied forward's and backward's parts sae_untied_fwd's and
-# sae_untied_bwd's, the tied backward's parts sae_tied_bwd's.
+# The library of each entry point: the chunked kernel's whose launch it
+# is — K8's parts big_sae_fwd's, K9's big_sae_bwd's, and each ensemble
+# kernel's parts (named after it) its own — or its own name.
+BIG_FWD_PARTS = tuple(name for name in ARGTYPES
+                      if name.startswith("big_sae_fwd_"))
 BWD_PARTS = tuple(name for name in ARGTYPES if name.startswith("big_sae_bwd_"))
+TIED_FWD_PARTS = tuple(name for name in ARGTYPES
+                       if name.startswith("sae_tied_fwd_"))
+TIED_BWD_PARTS = tuple(name for name in ARGTYPES
+                       if name.startswith("sae_tied_bwd_"))
 UNTIED_FWD_PARTS = tuple(name for name in ARGTYPES
                          if name.startswith("sae_untied_fwd_"))
 UNTIED_BWD_PARTS = tuple(name for name in ARGTYPES
                          if name.startswith("sae_untied_bwd_"))
-TIED_BWD_PARTS = tuple(name for name in ARGTYPES
-                       if name.startswith("sae_tied_bwd_"))
-_PARTS = {"big_sae_bwd": BWD_PARTS, "sae_untied_fwd": UNTIED_FWD_PARTS,
-          "sae_untied_bwd": UNTIED_BWD_PARTS,
-          "sae_tied_bwd": TIED_BWD_PARTS}
+_PARTS = {"big_sae_fwd": BIG_FWD_PARTS, "big_sae_bwd": BWD_PARTS,
+          "sae_tied_fwd": TIED_FWD_PARTS, "sae_tied_bwd": TIED_BWD_PARTS,
+          "sae_untied_fwd": UNTIED_FWD_PARTS,
+          "sae_untied_bwd": UNTIED_BWD_PARTS}
 LIBRARY_OF = {name: next((lib for lib, parts in _PARTS.items()
                           if name in parts), name)
               for name in ARGTYPES}
@@ -118,30 +131,27 @@ LIBRARY_OF = {name: next((lib for lib, parts in _PARTS.items()
 # Launch counts, one plain integer per kernel and per launch of a chunked
 # kernel: each wrapper adds one where it launches its kernel and nowhere
 # else, so a run can show that the main path went through the kernels.
-# "big_sae_bwd" counts calls of the K9 contract
-# (fused_big_sae.big_sae_backward), each of which launches the BWD_PARTS
-# once per batch chunk (dctr once); "sae_untied_fwd", "sae_untied_bwd"
-# and "sae_tied_bwd" count calls of fused_sae_tiled.sae_untied_fwd,
-# sae_untied_bwd and sae_tied_bwd, which launch the UNTIED_FWD_PARTS,
-# UNTIED_BWD_PARTS and TIED_BWD_PARTS once per chunk (the norms, and the
-# backwards' loss, once). reset_launches() zeroes them.
-LAUNCHES: dict[str, int] = {name: 0 for name in (*KERNELS, *BWD_PARTS,
-                                                 *UNTIED_FWD_PARTS,
-                                                 *UNTIED_BWD_PARTS,
-                                                 *TIED_BWD_PARTS)}
+# The six chunked kernels (big_sae_fwd, big_sae_bwd, sae_tied_fwd,
+# sae_tied_bwd, sae_untied_fwd, sae_untied_bwd) count calls of their
+# contracts under their own names (fused_big_sae.big_sae_forward and
+# big_sae_backward; fused_sae_tiled.sae_tied_fwd, ...), each of which
+# launches its parts (_PARTS) once per chunk — the norm passes, the
+# backwards' loss and K9's dctr once a call. reset_launches() zeroes
+# them.
+LAUNCHES: dict[str, int] = {name: 0 for name in (
+    *KERNELS, *(part for parts in _PARTS.values() for part in parts))}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
-# The kernels' fixed blocking (csrc/sae_common.cuh): the batch and the
-# feature count must divide by these, and d must not exceed MAX_D.
+# The kernels' shape contract (csrc/sae_common.cuh): the batch and the
+# feature count must divide by these (a chunk's rows are multiples of the
+# batch tile), and d must not exceed MAX_D (the ensemble kernels) or
+# BIG_MAX_D (the big-SAE kernels).
 BATCH_TILE = 32
 FEAT_TILE = 32
 ADAM_ROWS = 8
 MAX_D = 768
-# The big-SAE kernels' blocking: the forward owns 32-row batch tiles and
-# walks 32-feature tiles, streaming rows so that d may reach 1024; the
-# backward's batch chunks are multiples of BIG_BATCH_TILE rows.
 BIG_BATCH_TILE = 32
 BIG_FEAT_TILE = 32
 BIG_MAX_D = 1024
@@ -269,7 +279,8 @@ def library(name: str) -> ctypes.CDLL:
 
 def launch(name: str, *args) -> None:
     """Call one C entry point (a kernel's, or one of a chunked kernel's
-    parts: BWD_PARTS, UNTIED_FWD_PARTS, UNTIED_BWD_PARTS, TIED_BWD_PARTS),
+    parts: BIG_FWD_PARTS, BWD_PARTS, TIED_FWD_PARTS, TIED_BWD_PARTS,
+    UNTIED_FWD_PARTS, UNTIED_BWD_PARTS),
     raise on a non-zero cudaError_t, and count the launch. A refused
     launch (too much shared memory, a bad configuration) shows only here:
     torch.cuda.synchronize() would not report it."""

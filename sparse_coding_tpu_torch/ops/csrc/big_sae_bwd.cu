@@ -55,6 +55,7 @@ using sgemm::Operand;
 using sgemm::aligned16;
 using sgemm::load4;
 using sgemm::store4;
+using sae::big_chunk_ok;
 
 // C = relu_keep_nan(acc + t[n])
 struct CodesEpi {
@@ -164,11 +165,6 @@ dctr_kernel(const float* __restrict__ E, const float* __restrict__ dt,
   }
 }
 
-bool chunk_ok(int rows, int n, int d) {
-  return rows >= 1 && rows % sae::kBigBatchTile == 0 && n >= 1 &&
-         n % sae::kBigFeatTile == 0 && d >= 1 && d <= sae::kBigMaxD;
-}
-
 }  // namespace
 
 // Every entry point takes fp32, contiguous, row-major tensors and launches
@@ -180,7 +176,7 @@ bool chunk_ok(int rows, int n, int d) {
 extern "C" int big_sae_bwd_codes(const float* xc, const float* E,
                                  const float* t, float* C, int rows, int n,
                                  int d, void* stream) {
-  if (!chunk_ok(rows, n, d)) return (int)cudaErrorInvalidValue;
+  if (!big_chunk_ok(rows, n, d)) return (int)cudaErrorInvalidValue;
   const CodesEpi epi{t, C, n, aligned16(t, 0, n) && aligned16(C, n, n)};
   return (int)sgemm::run<true, false>(Operand{xc, d, false},
                                       Operand{E, n, aligned16(E, n, n)},
@@ -192,7 +188,7 @@ extern "C" int big_sae_bwd_dpre(const float* r, const float* Wn,
                                 const float* C, const float* alpha, float* G,
                                 int rows, int n, int d, int B, float coef,
                                 void* stream) {
-  if (!chunk_ok(rows, n, d) || B < rows) return (int)cudaErrorInvalidValue;
+  if (!big_chunk_ok(rows, n, d) || B < rows) return (int)cudaErrorInvalidValue;
   const DpreEpi epi{C, alpha, G, n,
                     aligned16(C, n, n) && aligned16(G, n, n), coef, (float)B};
   return (int)sgemm::run<true, true>(Operand{r, d, false},
@@ -204,7 +200,7 @@ extern "C" int big_sae_bwd_dpre(const float* r, const float* Wn,
 extern "C" int big_sae_bwd_de(const float* xc, const float* G, float* dE,
                               int rows, int n, int d, int first,
                               void* stream) {
-  if (!chunk_ok(rows, n, d)) return (int)cudaErrorInvalidValue;
+  if (!big_chunk_ok(rows, n, d)) return (int)cudaErrorInvalidValue;
   const AccumEpi epi{dE, n, 0, aligned16(dE, n, n), first != 0, false, 1.f};
   return (int)sgemm::run<false, false>(Operand{xc, d, aligned16(xc, d, d)},
                                        Operand{G, n, aligned16(G, n, n)}, d,
@@ -216,7 +212,7 @@ extern "C" int big_sae_bwd_de(const float* xc, const float* G, float* dE,
 extern "C" int big_sae_bwd_dwn(const float* C, const float* r, float* dWn,
                                int rows, int n, int d, int first, int last,
                                float coef, void* stream) {
-  if (!chunk_ok(rows, n, d)) return (int)cudaErrorInvalidValue;
+  if (!big_chunk_ok(rows, n, d)) return (int)cudaErrorInvalidValue;
   const AccumEpi epi{dWn, d, 0, aligned16(dWn, d, d), first != 0, last != 0,
                      coef};
   return (int)sgemm::run<false, false>(Operand{C, n, aligned16(C, n, n)},
@@ -228,7 +224,7 @@ extern "C" int big_sae_bwd_dwn(const float* C, const float* r, float* dWn,
 extern "C" int big_sae_bwd_sums(const float* C, const float* G, float* dt,
                                 float* c_totals, float* l0f, int rows, int n,
                                 int first, void* stream) {
-  if (!chunk_ok(rows, n, 1)) return (int)cudaErrorInvalidValue;
+  if (!big_chunk_ok(rows, n, 1)) return (int)cudaErrorInvalidValue;
   sums_kernel<<<n / 32, sae::kThreads, 0, (cudaStream_t)stream>>>(
       C, G, rows, n, first != 0, dt, c_totals, l0f);
   return (int)cudaGetLastError();
@@ -239,7 +235,7 @@ extern "C" int big_sae_bwd_dctr(const float* E, const float* dt,
                                 const float* c_totals, const float* l0f,
                                 float* dctr, float* scal, int n, int d,
                                 void* stream) {
-  if (!chunk_ok(sae::kBigBatchTile, n, d)) return (int)cudaErrorInvalidValue;
+  if (!big_chunk_ok(sae::kBatchTile, n, d)) return (int)cudaErrorInvalidValue;
   dctr_kernel<<<d + 1, sae::kThreads, 0, (cudaStream_t)stream>>>(
       E, dt, c_totals, l0f, n, d, dctr, scal);
   return (int)cudaGetLastError();

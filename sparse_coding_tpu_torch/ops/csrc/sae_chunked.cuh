@@ -1,9 +1,10 @@
-// Pieces the chunked ensemble kernels share — the untied forward
-// (sae_untied_fwd.cu) and the two backwards (sae_untied_bwd.cu,
-// sae_tied_bwd.cu), whose products run on the GEMM template
-// (sgemm_simt.cuh) with the members on the grid's z: the row-norm pass,
-// the codes epilogue, the per-feature sums of a chunk's codes and dpre,
-// and the loss terms.
+// Pieces the chunked kernels share — the two ensemble forwards
+// (sae_tied_fwd.cu, sae_untied_fwd.cu, through sae_fwd.cuh), the two
+// ensemble backwards (sae_tied_bwd.cu, sae_untied_bwd.cu) and the big
+// SAE's forward (big_sae_fwd.cu), whose products run on the GEMM template
+// (sgemm_simt.cuh), the ensembles' with the members on the grid's z: the
+// row-norm pass, the codes and residual epilogues, the per-feature sums of
+// a chunk's codes and dpre, and the loss terms.
 #pragma once
 #include "sae_common.cuh"
 #include "sgemm_simt.cuh"
@@ -45,34 +46,39 @@ inline cudaError_t launch_row_norms(const float* D, int rows, int d,
 // mask is given: the masked tied family's), stored at c + z*cz with row
 // stride ld.
 // FeatMajor = false: the product's rows are batch rows and its columns
-// features (C [rows, n]), so the bias runs along the 4 columns.
+// features (C [rows, n]), so the bias and mask run along the 4 columns.
 // FeatMajor = true: its rows are features and its columns batch rows
-// (Cᵀ [n, rows]), so one bias value serves the 4. vec: 16-byte bias and
-// mask loads (row-major only) and stores.
+// (Cᵀ [n, rows]), so one bias and one mask value serve the 4. vec:
+// 16-byte bias and mask loads (row-major only) and stores.
 template <bool FeatMajor>
 struct CodesEpi {
   const float* b;  // [Z, n]
   float* c;
-  int n;           // features: the bias's member stride
+  int n;           // features: the bias's and the mask's member stride
   int ld;
   size_t cz;
   bool vec;
   const float* cm = nullptr;  // [Z, n] 0/1, or null for all ones
+  // the 4 outputs' values of a per-feature [Z, n] vector p
+  __device__ void feat4(const float* p, int z, int m, int col, int N,
+                        float (&v)[4]) const {
+    if constexpr (FeatMajor) {
+      const float pm = p[(size_t)z * n + m];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = pm;
+    } else {
+      sgemm::load4(p + (size_t)z * n, 0, vec, 0, col, N, v);
+    }
+  }
   __device__ void operator()(int z, int m, int col, int N,
                              float (&v)[4]) const {
     float bv[4];
-    if constexpr (FeatMajor) {
-      const float bm = b[(size_t)z * n + m];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) bv[e] = bm;
-    } else {
-      sgemm::load4(b + (size_t)z * n, 0, vec, 0, col, N, bv);
-    }
+    feat4(b, z, m, col, N, bv);
 #pragma unroll
     for (int e = 0; e < 4; ++e) v[e] = relu_keep_nan(v[e] + bv[e]);
     if (cm != nullptr) {
       float mv[4];
-      sgemm::load4(cm + (size_t)z * n, 0, vec, 0, col, N, mv);
+      feat4(cm, z, m, col, N, mv);
 #pragma unroll
       for (int e = 0; e < 4; ++e) v[e] = __fmul_rn(v[e], mv[e]);
     }
@@ -80,10 +86,29 @@ struct CodesEpi {
   }
 };
 
-// The chunk shapes the chunked kernels take: Z members of `rows` batch
-// rows (a multiple of 32), n features (a multiple of 32), 1 <= d <= 768.
+// r[z] = acc - x: x [rows, d] shared by every member, r's members rz
+// elements apart, both with row stride ld
+struct ResidEpi {
+  const float* x;
+  float* r;
+  int ld;
+  size_t rz;
+  bool vec;
+  __device__ void operator()(int z, int m, int n, int N,
+                             float (&v)[4]) const {
+    float xv[4];
+    sgemm::load4(x, ld, vec, m, n, N, xv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = __fsub_rn(v[e], xv[e]);
+    sgemm::store4(r + z * rz, ld, vec, m, n, N, v);
+  }
+};
+
+// The chunk shapes the chunked ensemble kernels take: Z members of `rows`
+// batch rows (a multiple of 32), n features (a multiple of 32),
+// 1 <= d <= 768.
 inline bool chunk_ok(int Z, int rows, int n, int d) {
-  return Z >= 1 && Z <= 65535 && rows >= 1 && rows % kFwdBatchTile == 0 &&
+  return Z >= 1 && Z <= 65535 && rows >= 1 && rows % kBatchTile == 0 &&
          n >= 1 && n % kFeatTile == 0 && d >= 1 && d <= kMaxD;
 }
 

@@ -39,36 +39,11 @@
 // the dot products. A chunk holds whole members while their codes fit the
 // cap; a member whose codes alone exceed it runs in row chunks, which write
 // disjoint rows of r, so nothing is added across chunks.
+// The two products are sae_tied_fwd.cu's (sae_fwd.cuh), with the raw
+// E in the codes and no mask.
 // Order: one thread sums each output over k in order, with no atomics, so
 // two calls give the same bits. NaN survives the ReLU and the norm clip.
-#include "sae_chunked.cuh"
-
-namespace {
-
-using sgemm::Operand;
-using sgemm::aligned16;
-using sgemm::load4;
-using sgemm::store4;
-
-// r[z] = acc - x: x [rows, d] shared by every member, r's members rz
-// elements apart, both with row stride ld
-struct ResidEpi {
-  const float* x;
-  float* r;
-  int ld;
-  size_t rz;
-  bool vec;
-  __device__ void operator()(int z, int m, int n, int N,
-                             float (&v)[4]) const {
-    float xv[4];
-    load4(x, ld, vec, m, n, N, xv);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) v[e] = __fsub_rn(v[e], xv[e]);
-    store4(r + z * rz, ld, vec, m, n, N, v);
-  }
-};
-
-}  // namespace
+#include "sae_fwd.cuh"
 
 // Every entry point takes fp32, contiguous, row-major tensors and launches
 // on `stream`; it returns the launch's cudaError_t. A chunk is Z
@@ -88,14 +63,8 @@ extern "C" int sae_untied_fwd_norms(const float* D, float* Wn, int rows,
 extern "C" int sae_untied_fwd_codes(const float* x, const float* E,
                                     const float* b, float* Ct, int Z,
                                     int rows, int n, int d, void* stream) {
-  if (!sae::chunk_ok(Z, rows, n, d))
-    return (int)cudaErrorInvalidValue;
-  const size_t cz = (size_t)n * rows;
-  const sae::CodesEpi<true> epi{b, Ct, n, rows, cz,
-                                aligned16(Ct, rows, rows, cz)};
-  return (int)sgemm::run<true, true>(
-      Operand{E, d, false, (size_t)n * d}, Operand{x, d, false, 0}, n, rows,
-      d, epi, (cudaStream_t)stream, Z);
+  return (int)sae::launch_fwd_codes(x, E, b, nullptr, Ct, Z, rows, n, d,
+                                    (cudaStream_t)stream);
 }
 
 // r [Z, rows, d] (members B*d apart) = Ct [Z, n, rows]^T . Wn [Z, n, d]
@@ -104,14 +73,6 @@ extern "C" int sae_untied_fwd_decode(const float* Ct, const float* Wn,
                                      const float* x, float* r, int Z,
                                      int rows, int n, int d, int B,
                                      void* stream) {
-  if (!sae::chunk_ok(Z, rows, n, d) || B < rows)
-    return (int)cudaErrorInvalidValue;
-  const size_t cz = (size_t)n * rows, wz = (size_t)n * d,
-               rz = (size_t)B * d;
-  const ResidEpi epi{x, r, d, rz,
-                     aligned16(r, d, d, rz) && aligned16(x, d, d)};
-  return (int)sgemm::run<false, false>(
-      Operand{Ct, rows, aligned16(Ct, rows, rows, cz), cz},
-      Operand{Wn, d, aligned16(Wn, d, d, wz), wz}, rows, d, n, epi,
-      (cudaStream_t)stream, Z);
+  return (int)sae::launch_fwd_decode(Ct, Wn, x, r, Z, rows, n, d, B,
+                                     (cudaStream_t)stream);
 }

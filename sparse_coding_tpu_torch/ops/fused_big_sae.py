@@ -4,19 +4,20 @@ JAX package's ``ops/fused_big_sae.py`` (K8 ``big_sae_forward``, K9
 
 At the trainer's shape (batch 65,536, n_feats 16,384) the [batch, n_feats]
 code matrix is 4 GiB in fp32, and autodiff materializes it more than once.
-Two hand-written Hopper kernels (``ops/csrc``) never store it:
+Two hand-written Hopper kernels (``ops/csrc``) never store it whole: both
+walk the batch in chunks whose codes fit a workspace capped at
+``WORKSPACE_BYTES`` (1 GiB), in order, each chunk's work done by
+hand-written fp32 products with fused epilogues.
 
-- ``big_sae_fwd`` — x̂ = relu(xc·E + t)·Wn, one block per batch tile
-  looping over every feature tile in a fixed order;
-- ``big_sae_bwd`` — the batch in chunks of at most ``bwd_chunk_rows``
-  rows, in order: per chunk, four hand-written fp32 products with fused
-  epilogues write the chunk's codes C and dpre G into a workspace capped
-  at ``BWD_WORKSPACE_BYTES`` (1 GiB) and add the chunk's share into dE and
-  dWn, and a reduction adds its per-feature sums into dt, c_totals
-  (activation mass Σ_b c) and the l0 counts; after the last chunk a
-  matvec forms the encode-side centering grad −Σ_b Σ_f dpre·E[:, f] as
-  −E·dt, with the l1/l0 sums. The CPU runs the same chunk schedule in
-  plain torch.
+- ``big_sae_fwd`` — x̂ = relu(xc·E + t)·Wn, per chunk of at most
+  ``fwd_chunk_rows`` rows: the chunk's codes Cᵀ (feature-major), then its
+  rows of x̂ = Cᵀᵀ·Wn;
+- ``big_sae_bwd`` — per chunk of at most ``bwd_chunk_rows`` rows: the
+  chunk's codes C and dpre G, its share added into dE and dWn, and a
+  reduction that adds its per-feature sums into dt, c_totals (activation
+  mass Σ_b c) and the l0 counts; after the last chunk a matvec forms the
+  encode-side centering grad −Σ_b Σ_f dpre·E[:, f] as −E·dt, with the
+  l1/l0 sums. The CPU runs the same chunk schedule in plain torch.
 
 Layouts are the JAX package's at every public function: E is [d, n] (the
 kernels read it with its own row stride n), the dictionary [n, d], and the
@@ -91,12 +92,71 @@ def _tiles(b, n, batch_tile, feat_tile):
         _check_tiles(b, n, batch_tile, feat_tile)
 
 
+# --- the chunk schedules ------------------------------------------------------
+
+# K8 and K9 walk the batch in chunks whose codes — K8's Cᵀ [n, rows] fp32,
+# K9's C and dpre G [rows, n] fp32 each — fit this workspace; the whole
+# [B, n] codes are never formed.
+WORKSPACE_BYTES = 2**30
+
+
+def _chunk_rows(batch: int, n_feats: int, code_bytes: int) -> int:
+    rows = WORKSPACE_BYTES // (code_bytes * n_feats) // 32 * 32
+    return max(32, min(rows, batch))
+
+
+def _row_chunks(batch: int, rows: int) -> list[tuple[int, int]]:
+    return [(lo, min(lo + rows, batch)) for lo in range(0, batch, rows)]
+
+
+def fwd_chunk_rows(batch: int, n_feats: int) -> int:
+    """Rows per K8 chunk: the largest multiple of 32 whose [n, rows] fp32
+    codes fit WORKSPACE_BYTES (at least 32, at most the batch). 16,384 at
+    the trainer's shape (n = 16,384)."""
+    return _chunk_rows(batch, n_feats, 4)
+
+
+def fwd_chunks(batch: int, n_feats: int) -> list[tuple[int, int]]:
+    """K8's batch chunks [lo, hi), in the order they run; the last may be
+    shorter. Each writes its own rows of x̂."""
+    return _row_chunks(batch, fwd_chunk_rows(batch, n_feats))
+
+
+def bwd_chunk_rows(batch: int, n_feats: int) -> int:
+    """Rows per K9 chunk: the largest multiple of 32 whose two [rows, n]
+    fp32 workspaces fit WORKSPACE_BYTES (at least 32, at most the batch).
+    8,192 at the trainer's shape (n = 16,384)."""
+    return _chunk_rows(batch, n_feats, 2 * 4)
+
+
+def bwd_chunks(batch: int, n_feats: int) -> list[tuple[int, int]]:
+    """K9's batch chunks [lo, hi), in the order they are summed; the last
+    may be shorter."""
+    return _row_chunks(batch, bwd_chunk_rows(batch, n_feats))
+
+
 # --- big_sae_fwd (K8) ---------------------------------------------------------
 
 def big_sae_forward_plain(params: dict, xc: torch.Tensor) -> torch.Tensor:
     """x̂ [B, d] = relu(xc·E + t)·Wn, materializing the codes."""
     c = torch.relu(xc @ params["encoder"] + params["threshold"])
     return c @ normalized_dict(params["dict"])
+
+
+def fwd_codes(xk, e, t, ct) -> None:
+    """Cᵀ [n, rows] = relu(Eᵀ·xkᵀ + t) into the workspace ``ct``."""
+    rows, d = xk.shape
+    _build.launch("big_sae_fwd_codes", xk.data_ptr(), e.data_ptr(),
+                  t.data_ptr(), ct.data_ptr(), rows, e.shape[1], d,
+                  _build.stream_ptr(xk))
+
+
+def fwd_decode(ct, wn, xhat_k) -> None:
+    """x̂k [rows, d] = Cᵀᵀ·Wn into ``xhat_k``, the chunk's rows of x̂."""
+    rows, d = xhat_k.shape
+    _build.launch("big_sae_fwd_decode", ct.data_ptr(), wn.data_ptr(),
+                  xhat_k.data_ptr(), rows, wn.shape[0], d,
+                  _build.stream_ptr(xhat_k))
 
 
 def big_sae_forward(params: dict, xc: torch.Tensor,
@@ -106,8 +166,11 @@ def big_sae_forward(params: dict, xc: torch.Tensor,
     """x̂ = relu(xc·E + t)·Wn without materializing the codes (K8). ``params``
     holds the raw big-SAE params (dict/encoder/threshold); xc is
     pre-centered. ``batch_tile``/``feat_tile`` keep the JAX divisibility
-    contract; the CUDA kernel blocks at its own tiles. CUDA: launches
-    ``big_sae_fwd``."""
+    contract; the CUDA kernels block at their own tiles. CUDA: per chunk of
+    :func:`fwd_chunks` the launches ``fwd_codes`` and ``fwd_decode``;
+    counts one ``big_sae_fwd`` call. CPU: the plain version (the chunks
+    write disjoint rows of x̂ and sum nothing across one another, so their
+    schedule leaves nothing for a plain twin to mirror)."""
     b, n, d = _shapes(params, xc)
     _check_unported(None, b, compute_dtype)
     _tiles(b, n, batch_tile, feat_tile)
@@ -118,9 +181,12 @@ def big_sae_forward(params: dict, xc: torch.Tensor,
     _kernel_checks("big_sae_fwd", b, n, d, xc=xc, encoder=e, wn=wn,
                    threshold=t)
     xhat = torch.empty((b, d), dtype=torch.float32, device=xc.device)
-    _build.launch("big_sae_fwd", xc.data_ptr(), e.data_ptr(), wn.data_ptr(),
-                  t.data_ptr(), xhat.data_ptr(), b, n, d,
-                  _build.stream_ptr(xc))
+    ct = torch.empty((fwd_chunk_rows(b, n) * n,), dtype=torch.float32,
+                     device=xc.device)
+    for lo, hi in fwd_chunks(b, n):
+        fwd_codes(xc[lo:hi], e, t, ct)
+        fwd_decode(ct, wn, xhat[lo:hi])
+    _build.LAUNCHES["big_sae_fwd"] += 1
     return xhat
 
 
@@ -146,26 +212,6 @@ def big_sae_backward_plain(params: dict, alpha: torch.Tensor,
     dctr = -(dpre @ e.T).sum(dim=0)
     scal = torch.stack([c.sum(), mask.sum()])
     return de, dwn, dt, dctr, c.sum(dim=0), scal
-
-
-# K9 walks the batch in chunks whose codes C and dpre G ([rows, n] fp32
-# each) fit this workspace; the whole [B, n] codes are never formed.
-BWD_WORKSPACE_BYTES = 2**30
-
-
-def bwd_chunk_rows(batch: int, n_feats: int) -> int:
-    """Rows per K9 chunk: the largest multiple of 32 whose two [rows, n]
-    fp32 workspaces fit BWD_WORKSPACE_BYTES (at least 32, at most the
-    batch). 8,192 at the trainer's shape (n = 16,384)."""
-    rows = BWD_WORKSPACE_BYTES // (2 * 4 * n_feats) // 32 * 32
-    return max(32, min(rows, batch))
-
-
-def bwd_chunks(batch: int, n_feats: int) -> list[tuple[int, int]]:
-    """K9's batch chunks [lo, hi), in the order they are summed; the last
-    may be shorter."""
-    rows = bwd_chunk_rows(batch, n_feats)
-    return [(lo, min(lo + rows, batch)) for lo in range(0, batch, rows)]
 
 
 def _backward_chunked_plain(e, wn, t, alpha, xc, r):
@@ -283,6 +329,53 @@ def big_sae_backward(params: dict, alpha: torch.Tensor, xc: torch.Tensor,
     bwd_dctr(e, dt, c_totals, l0f, dctr, scal)
     _build.LAUNCHES["big_sae_bwd"] += 1
     return de, dwn, dt, dctr, c_totals, scal
+
+
+# --- the chunked kernels' launches, one by one -------------------------------
+
+def one_chunk_launches(kernel: str, params: dict, xc: torch.Tensor,
+                       r: Optional[torch.Tensor] = None,
+                       alpha: Optional[torch.Tensor] = None) -> dict:
+    """{part: (launch, FLOPs)} for every launch of ``kernel``
+    (``big_sae_fwd`` or ``big_sae_bwd``), in the order a call runs them, on
+    the first chunk of its schedule over these CUDA inputs (xc [B, d], and
+    for the backward the residual r [B, d] and alpha); the outputs and the
+    chunk's workspace are allocated here. Each launch writes only its own
+    buffers, so any one of them can be timed alone once the earlier ones
+    have run. FLOPs counts the products' multiply-adds twice (dctr's
+    matvec too), 0 for the sums."""
+    b, n, d = _shapes(params, xc)
+    e, t = params["encoder"], params["threshold"]
+    wn = normalized_dict(params["dict"])
+    kw = {"dtype": torch.float32, "device": xc.device}
+    if kernel == "big_sae_fwd":
+        rows = fwd_chunk_rows(b, n)
+        xk, gemm = xc[:rows], 2.0 * rows * n * d
+        ct, xhat = torch.empty((n * rows,), **kw), torch.empty((rows, d), **kw)
+        return {"big_sae_fwd_codes": (lambda: fwd_codes(xk, e, t, ct), gemm),
+                "big_sae_fwd_decode": (lambda: fwd_decode(ct, wn, xhat),
+                                       gemm)}
+    if kernel != "big_sae_bwd":
+        raise ValueError(f"{kernel} is not a chunked big-SAE kernel")
+    rows = bwd_chunk_rows(b, n)
+    xk, rk, gemm = xc[:rows], r[:rows], 2.0 * rows * n * d
+    al = torch.as_tensor(alpha, **kw).reshape(1)
+    c, g = torch.empty((rows, n), **kw), torch.empty((rows, n), **kw)
+    de, dwn = torch.empty((d, n), **kw), torch.empty((n, d), **kw)
+    dt, c_totals, l0f = (torch.zeros((n,), **kw) for _ in range(3))
+    dctr, scal = torch.empty((d,), **kw), torch.empty((2,), **kw)
+    coef = float(np.float32(2.0 / (b * d)))
+    return {
+        "big_sae_bwd_codes": (lambda: bwd_codes(xk, e, t, c), gemm),
+        "big_sae_bwd_dpre": (lambda: bwd_dpre(rk, wn, c, al, g, b, coef),
+                             gemm),
+        "big_sae_bwd_de": (lambda: bwd_de(xk, g, de, True), gemm),
+        "big_sae_bwd_dwn": (
+            lambda: bwd_dwn(c, rk, dwn, True, False, coef), gemm),
+        "big_sae_bwd_sums": (
+            lambda: bwd_sums(c, g, rows, dt, c_totals, l0f, True), 0.0),
+        "big_sae_bwd_dctr": (
+            lambda: bwd_dctr(e, dt, c_totals, l0f, dctr, scal), 2.0 * n * d)}
 
 
 # --- the loss-and-grads contract ----------------------------------------------

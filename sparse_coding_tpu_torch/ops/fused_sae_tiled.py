@@ -4,22 +4,21 @@ family's ``coef_mask``, and K7 ``tiled_untied_sae_grads``).
 
 Four hand-written Hopper kernels (``ops/csrc``) carry it:
 
-- ``sae_tied_fwd`` — x-hat summed over feature tiles inside one block per
-  (member, batch tile), with the residual r = x-hat − x as its epilogue,
-  so the codes never reach device memory and no separate residual pass
+- ``sae_tied_fwd`` — the normalized dictionary written once, then the
+  members in chunks whose codes (stored feature-major, times the
+  coefficient mask) fit a workspace capped at ``WORKSPACE_BYTES`` (1 GiB;
+  a member too large for it alone runs in row chunks): per chunk two
+  member-batched fp32 products, the codes and the decode with the
+  residual r = x-hat − x as its epilogue, so no separate residual pass
   runs;
 - ``sae_tied_bwd`` — the normalized dictionary written once, then the
-  members in chunks whose codes C and dpre G fit a workspace capped at
-  ``WORKSPACE_BYTES`` (1 GiB; a member too large for it alone runs in
-  batch chunks, added in order): per chunk four member-batched fp32
-  products with fused epilogues (C, G, then dW = Gᵀx + coef·Cᵀr) and the
-  per-feature sums; then the loss terms and the sentinel's grad sum of
-  squares;
-- ``sae_untied_fwd`` — the normalized decoder written once, then the
-  members in chunks whose codes (stored feature-major) fit a workspace
-  under the same cap (a member too large for it alone runs in row
-  chunks): per chunk two member-batched fp32 products, the codes and the
-  decode with the residual as its epilogue;
+  members in chunks whose codes C and dpre G fit a workspace under the
+  same cap (a member too large for it alone runs in batch chunks, added
+  in order): per chunk four member-batched fp32 products with fused
+  epilogues (C, G, then dW = Gᵀx + coef·Cᵀr) and the per-feature sums;
+  then the loss terms and the sentinel's grad sum of squares;
+- ``sae_untied_fwd`` — ``sae_tied_fwd``'s schedule with the codes from the
+  raw encoder and the decode through the normalized decoder;
 - ``sae_untied_bwd`` — ``sae_tied_bwd``'s schedule with two weights: the
   codes from the raw encoder, dpre through the normalized decoder, and
   two weight-grad products (dE, dWn).
@@ -109,9 +108,9 @@ def _kernel_tensors(name, b, n_feats, d, **tensors) -> None:
 # --- the chunked kernels' workspace ------------------------------------------
 
 # The chunked kernels keep the codes of one chunk — Z members x rows batch
-# rows: the untied forward's Cᵀ [Z, n, rows] fp32, the backwards' C and
-# dpre G [Z, rows, n] fp32 each — in a device workspace of at most this
-# many bytes; the whole [N, B, n] codes are never formed.
+# rows: the forwards' Cᵀ [Z, n, rows] fp32, the backwards' C and dpre G
+# [Z, rows, n] fp32 each — in a device workspace of at most this many
+# bytes; the whole [N, B, n] codes are never formed.
 WORKSPACE_BYTES = 2**30
 # Slices a member's loss reductions are split into in the backwards (a
 # fixed number, so the order of every sum depends on the shape alone).
@@ -149,6 +148,41 @@ def bwd_chunks(n_members: int, batch: int,
     return _member_chunks(n_members, batch, n_feats, 2 * 4, WORKSPACE_BYTES)
 
 
+def fwd_chunks(n_members: int, batch: int,
+               n_feats: int) -> list[tuple[int, int, int, int]]:
+    """The chunks (m_lo, m_hi, b_lo, b_hi) of both forwards (sae_tied_fwd,
+    sae_untied_fwd), in the order they run: whole members, as many a chunk
+    as WORKSPACE_BYTES holds of their codes (the last chunk may hold
+    fewer); a member whose codes alone exceed it runs in row chunks of the
+    largest multiple of 32 rows that fits (the last may be shorter), each
+    writing its own rows of r. All 32 members in one chunk at the canonical
+    shape (B = n = 2048), 16 a chunk at n = 8192, and the masked family's 7
+    members of n = 16,384 in one."""
+    return _member_chunks(n_members, batch, n_feats, 4, WORKSPACE_BYTES)
+
+
+def _chunked_fwd(kernel: str, n_members: int, n_feats: int,
+                 batch: torch.Tensor, codes, decode) -> torch.Tensor:
+    """A forward's chunk loop on the card: per chunk of :func:`fwd_chunks`,
+    ``codes(ms, xk, ct)`` then ``decode(ms, xk, ct, rk)`` for the member
+    slice ``ms``, the chunk's rows ``xk`` of the batch, the workspace
+    ``ct`` and the chunk's [Z, rows, d] slice ``rk`` of the residual; then
+    one call of ``kernel`` counted. Returns r [N, B, d]."""
+    b, d = batch.shape
+    kw = {"dtype": torch.float32, "device": batch.device}
+    r = torch.empty((n_members, b, d), **kw)
+    chunks = fwd_chunks(n_members, b, n_feats)
+    ct = torch.empty((max((mh - ml) * (bh - bl) for ml, mh, bl, bh
+                          in chunks) * n_feats,), **kw)
+    for m_lo, m_hi, b_lo, b_hi in chunks:
+        ms = slice(m_lo, m_hi)
+        xk = batch[b_lo:b_hi]
+        codes(ms, xk, ct)
+        decode(ms, xk, ct, r[ms, b_lo:b_hi])
+    _build.LAUNCHES[kernel] += 1
+    return r
+
+
 # --- sae_tied_fwd (K3a + the residual pass; masked too) -----------------------
 
 def sae_tied_fwd_plain(encoder: torch.Tensor, bias: torch.Tensor,
@@ -164,11 +198,44 @@ def sae_tied_fwd_plain(encoder: torch.Tensor, bias: torch.Tensor,
     return torch.matmul(c, w) - batch
 
 
+# The launches of the tied forward (csrc/sae_tied_fwd.cu), one helper
+# each. A chunk's operands are slices at its first member (and row): the
+# residual slice keeps the whole batch's member stride.
+
+def tied_fwd_norms(encoder, w) -> None:
+    """w [N, n, d] = E / max(‖E_f‖, 1e-8) for every dictionary row."""
+    _build.launch("sae_tied_fwd_norms", encoder.data_ptr(), w.data_ptr(),
+                  encoder.numel() // encoder.shape[-1], encoder.shape[-1],
+                  _build.stream_ptr(w))
+
+
+def tied_fwd_codes(xk, w, bias, coef_mask, ct) -> None:
+    """Cᵀ [Z, n, rows] = cm·relu(Ŵ·xkᵀ + b) into the workspace ``ct``, for
+    the Z members of ``w`` [Z, n, d]; ``coef_mask`` [Z, n] or None."""
+    z, n, d = w.shape
+    _build.launch("sae_tied_fwd_codes", xk.data_ptr(), w.data_ptr(),
+                  bias.data_ptr(), _mask_arg(coef_mask), ct.data_ptr(), z,
+                  xk.shape[0], n, d, _build.stream_ptr(xk))
+
+
+def tied_fwd_decode(ct, w, xk, rk, batch: int) -> None:
+    """rk = Cᵀᵀ·Ŵ − xk into ``rk``, the [Z, rows, d] slice of the
+    [N, B, d] residual, for the Z members of ``w`` [Z, n, d]."""
+    z, n, d = w.shape
+    _build.launch("sae_tied_fwd_decode", ct.data_ptr(), w.data_ptr(),
+                  xk.data_ptr(), rk.data_ptr(), z, xk.shape[0], n, d, batch,
+                  _build.stream_ptr(xk))
+
+
 def sae_tied_fwd(encoder: torch.Tensor, bias: torch.Tensor,
                  batch: torch.Tensor,
                  coef_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The residual r = x̂ − x [N, B, d] of every member; see
-    :func:`sae_tied_fwd_plain`. CUDA: launches ``sae_tied_fwd``."""
+    :func:`sae_tied_fwd_plain`. CUDA: the normalized dictionary, then per
+    chunk of :func:`fwd_chunks` the launches ``tied_fwd_codes`` and
+    ``tied_fwd_decode``; counts one ``sae_tied_fwd`` call. CPU: the plain
+    version (the chunks write disjoint rows of r and sum nothing across one
+    another)."""
     n_members, n_feats, d, b = _tied_shapes(encoder, bias, batch)
     _check_vec("coef_mask", coef_mask, (n_members, n_feats))
     extra = () if coef_mask is None else (coef_mask,)
@@ -176,12 +243,14 @@ def sae_tied_fwd(encoder: torch.Tensor, bias: torch.Tensor,
         return sae_tied_fwd_plain(encoder, bias, batch, coef_mask)
     _kernel_tensors("sae_tied_fwd", b, n_feats, d, encoder=encoder,
                     bias=bias, batch=batch, coef_mask=coef_mask)
-    r = torch.empty((n_members, b, d), dtype=torch.float32,
-                    device=batch.device)
-    _build.launch("sae_tied_fwd", batch.data_ptr(), encoder.data_ptr(),
-                  bias.data_ptr(), _mask_arg(coef_mask), r.data_ptr(),
-                  n_members, b, n_feats, d, _build.stream_ptr(batch))
-    return r
+    w = torch.empty_like(encoder)
+    tied_fwd_norms(encoder, w)
+    return _chunked_fwd(
+        "sae_tied_fwd", n_members, n_feats, batch,
+        lambda ms, xk, ct: tied_fwd_codes(
+            xk, w[ms], bias[ms],
+            None if coef_mask is None else coef_mask[ms], ct),
+        lambda ms, xk, ct, rk: tied_fwd_decode(ct, w[ms], xk, rk, b))
 
 
 # --- sae_tied_bwd (K3b; masked too) -------------------------------------------
@@ -340,17 +409,6 @@ def sae_untied_fwd_plain(encoder: torch.Tensor, decoder: torch.Tensor,
     return torch.matmul(c, _normalize_rows(decoder)) - batch
 
 
-def untied_fwd_chunks(n_members: int, batch: int,
-                      n_feats: int) -> list[tuple[int, int, int, int]]:
-    """The untied forward's chunks (m_lo, m_hi, b_lo, b_hi), in the order
-    they run: whole members, as many a chunk as WORKSPACE_BYTES holds (the
-    last chunk may hold fewer); a member whose codes alone exceed it runs
-    in row chunks of the largest multiple of 32 rows that fits (the last
-    may be shorter), each writing its own rows of r. All 32 members in one
-    chunk at the canonical shape (B = n = 2048), 16 a chunk at n = 8192."""
-    return _member_chunks(n_members, batch, n_feats, 4, WORKSPACE_BYTES)
-
-
 # The launches of the untied forward (csrc/sae_untied_fwd.cu), one helper
 # each. A chunk's operands are slices at its first member (and row): the
 # residual slice keeps the whole batch's member stride.
@@ -383,30 +441,22 @@ def untied_fwd_decode(ct, wn, xk, rk, batch: int) -> None:
 def sae_untied_fwd(encoder: torch.Tensor, decoder: torch.Tensor,
                    bias: torch.Tensor, batch: torch.Tensor) -> torch.Tensor:
     """See :func:`sae_untied_fwd_plain`. CUDA: the normalized decoder, then
-    per chunk of :func:`untied_fwd_chunks` the launches
-    ``untied_fwd_codes`` and ``untied_fwd_decode``; counts one
-    ``sae_untied_fwd`` call. CPU: the plain version (the chunks write
-    disjoint rows of r and sum nothing across one another, so their
-    schedule leaves nothing for a plain twin to mirror)."""
+    per chunk of :func:`fwd_chunks` the launches ``untied_fwd_codes`` and
+    ``untied_fwd_decode``; counts one ``sae_untied_fwd`` call. CPU: the
+    plain version (the chunks write disjoint rows of r and sum nothing
+    across one another, so their schedule leaves nothing for a plain twin
+    to mirror)."""
     n_members, n_feats, d, b = _untied_shapes(encoder, decoder, bias, batch)
     if _on_cpu("sae_untied_fwd", encoder, decoder, bias, batch):
         return sae_untied_fwd_plain(encoder, decoder, bias, batch)
     _kernel_tensors("sae_untied_fwd", b, n_feats, d, encoder=encoder,
                     decoder=decoder, bias=bias, batch=batch)
-    kw = {"dtype": torch.float32, "device": batch.device}
-    r = torch.empty((n_members, b, d), **kw)
-    wn = torch.empty((n_members, n_feats, d), **kw)
-    chunks = untied_fwd_chunks(n_members, b, n_feats)
-    ct = torch.empty((max((mh - ml) * (bh - bl) for ml, mh, bl, bh
-                          in chunks) * n_feats,), **kw)
+    wn = torch.empty_like(decoder)
     untied_fwd_norms(decoder, wn)
-    for m_lo, m_hi, b_lo, b_hi in chunks:
-        ms = slice(m_lo, m_hi)
-        xk = batch[b_lo:b_hi]
-        untied_fwd_codes(xk, encoder[ms], bias[ms], ct)
-        untied_fwd_decode(ct, wn[ms], xk, r[ms, b_lo:b_hi], b)
-    _build.LAUNCHES["sae_untied_fwd"] += 1
-    return r
+    return _chunked_fwd(
+        "sae_untied_fwd", n_members, n_feats, batch,
+        lambda ms, xk, ct: untied_fwd_codes(xk, encoder[ms], bias[ms], ct),
+        lambda ms, xk, ct, rk: untied_fwd_decode(ct, wn[ms], xk, rk, b))
 
 
 # --- sae_untied_bwd (K5/K7 backward) ------------------------------------------
@@ -599,7 +649,8 @@ def one_chunk_launches(kernel: str, encoder: torch.Tensor, bias: torch.Tensor,
                        alphas: Optional[torch.Tensor] = None,
                        resid: Optional[torch.Tensor] = None) -> dict:
     """{part: (launch, FLOPs)} for every launch of the chunked kernel
-    ``kernel`` (``sae_tied_bwd``, ``sae_untied_fwd`` or ``sae_untied_bwd``),
+    ``kernel`` (``sae_tied_fwd``, ``sae_tied_bwd``, ``sae_untied_fwd`` or
+    ``sae_untied_bwd``),
     in the order a call runs them, on one chunk holding every member and
     batch row of these CUDA inputs; the outputs and the workspace are
     allocated here (a chunk's worth: 2·N·B·n floats for a backward). Each
@@ -607,15 +658,24 @@ def one_chunk_launches(kernel: str, encoder: torch.Tensor, bias: torch.Tensor,
     alone once the earlier ones have run. FLOPs counts the products'
     multiply-adds twice, 0 for the norm, sums and loss passes. The
     untied forward takes ``decoder``; the backwards ``alphas`` and
-    ``resid``, the untied one ``decoder`` too."""
+    ``resid``, the untied one ``decoder`` too. The tied kernels run
+    without a coef_mask here."""
     n_m, n, d = encoder.shape
     b = batch.shape[0]
     kw = {"dtype": torch.float32, "device": batch.device}
     full = lambda: torch.empty((n_m, n, d), **kw)
     gemm = 2.0 * n_m * b * n * d
-    if kernel == "sae_untied_fwd":
+    if kernel in ("sae_tied_fwd", "sae_untied_fwd"):
         wn, ct = full(), torch.empty((n_m * n * b,), **kw)
         r = torch.empty((n_m, b, d), **kw)
+        if kernel == "sae_tied_fwd":
+            return {
+                "sae_tied_fwd_norms": (lambda: tied_fwd_norms(encoder, wn),
+                                       0.0),
+                "sae_tied_fwd_codes": (
+                    lambda: tied_fwd_codes(batch, wn, bias, None, ct), gemm),
+                "sae_tied_fwd_decode": (
+                    lambda: tied_fwd_decode(ct, wn, batch, r, b), gemm)}
         return {
             "sae_untied_fwd_norms": (lambda: untied_fwd_norms(decoder, wn),
                                      0.0),

@@ -1,6 +1,6 @@
 """K9's chunk schedule on the CPU. ``big_sae_backward`` on CPU tensors runs
 the kernels' schedule in plain torch: the batch in chunks of
-``bwd_chunk_rows`` rows (the workspace cap ``BWD_WORKSPACE_BYTES``), each
+``bwd_chunk_rows`` rows (the workspace cap ``WORKSPACE_BYTES``), each
 chunk's products and sums added in order. Held against the JAX
 ``big_sae_backward`` (Pallas interpret mode) with the cap lowered so the
 batch splits into several chunks, one of them short, for the untied and
@@ -49,7 +49,7 @@ def _inputs(b, n, d, tied, seed=0):
 @pytest.mark.parametrize("case", list(CASES), ids=str)
 def test_chunked_backward_matches_jax(monkeypatch, case, tied):
     b, n, d, rows = case
-    monkeypatch.setattr(tfb, "BWD_WORKSPACE_BYTES", 2 * 4 * n * rows)
+    monkeypatch.setattr(tfb, "WORKSPACE_BYTES", 2 * 4 * n * rows)
     chunks = tfb.bwd_chunks(b, n)
     assert [hi - lo for lo, hi in chunks] == CASES[case]
     p, xc, r = _inputs(b, n, d, tied)
@@ -81,9 +81,9 @@ def test_chunk_rows_at_the_trainers_shape(monkeypatch):
     b, n = cfg.batch_size, cfg.n_feats
     rows = tfb.bwd_chunk_rows(b, n)
     assert rows == 8192
-    assert 2 * rows * n * 4 == tfb.BWD_WORKSPACE_BYTES == 2**30
+    assert 2 * rows * n * 4 == tfb.WORKSPACE_BYTES == 2**30
     assert tfb.bwd_chunks(b, n) == [(lo, lo + 8192)
                                     for lo in range(0, b, 8192)]
     assert tfb.bwd_chunk_rows(64, n) == 64
-    monkeypatch.setattr(tfb, "BWD_WORKSPACE_BYTES", 1024)
+    monkeypatch.setattr(tfb, "WORKSPACE_BYTES", 1024)
     assert tfb.bwd_chunk_rows(b, n) == 32

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card (the tied kernels with and without
-the masked family's coef_mask, the untied ones — the three chunked
-kernels, the tied backward and the untied forward and backward, also in
-several chunks —, and the giant single SAE's pair), each
-held against its plain PyTorch version on the same inputs. Card only:
+the masked family's coef_mask, the untied ones — the four chunked
+ensemble kernels, the tied and untied forwards and backwards, also in
+several chunks —, and the giant single SAE's pair, also in several
+chunks), each held against its plain PyTorch version on the same
+inputs. Card only:
 every test carries the ``cuda`` marker and skips without a card. This file
 imports no JAX (the card's host has none), so it runs there on its own:
 
@@ -201,34 +202,55 @@ def test_ensemble_refuses_a_shape_the_kernels_do_not_take(card, tied):
     assert all(v == 0 for v in _build.LAUNCHES.values())
 
 
-# --- the untied forward's chunked launches (sae_untied_fwd) -------------------
+# --- the forwards' chunked launches (sae_tied_fwd, sae_untied_fwd) ------------
 
-def _check_untied_fwd(i, n_chunks):
-    """Two sae_untied_fwd calls against the plain version (rtol 1e-5 of
-    max|ref|), bitwise equal to each other; norms launched once a call,
-    codes and decode once per chunk."""
-    args = (i["e"], i["dec"], i["bias"], i["x"])
+def _check_fwd(kernel, fwd, plain, n_chunks):
+    """Two calls of a forward's wrapper ``fwd`` against its plain version
+    (rtol 1e-5 of max|ref|), bitwise equal to each other; the norms
+    launched once a call, codes and decode once per chunk."""
     _build.reset_launches()
-    got = ft.sae_untied_fwd(*args)
-    again = ft.sae_untied_fwd(*args)
-    want = ft.sae_untied_fwd_plain(*args)
+    got, again, want = fwd(), fwd(), plain()
     torch.cuda.synchronize()
     _close(got, want, 1e-5)
     assert torch.equal(got, again)
-    assert _build.LAUNCHES["sae_untied_fwd"] == 2
-    assert {k: _build.LAUNCHES[k] for k in _build.UNTIED_FWD_PARTS} == {
-        k: 2 * (1 if k == "sae_untied_fwd_norms" else n_chunks)
-        for k in _build.UNTIED_FWD_PARTS}
+    parts = [k for k in _build.LAUNCHES if k.startswith(kernel + "_")]
+    assert len(parts) == 3
+    assert _build.LAUNCHES[kernel] == 2
+    assert {k: _build.LAUNCHES[k] for k in parts} == {
+        k: 2 * (1 if k == kernel + "_norms" else n_chunks) for k in parts}
+
+
+def _check_untied_fwd(i, n_chunks):
+    args = (i["e"], i["dec"], i["bias"], i["x"])
+    _check_fwd("sae_untied_fwd", lambda: ft.sae_untied_fwd(*args),
+               lambda: ft.sae_untied_fwd_plain(*args), n_chunks)
+
+
+def _check_tied_fwd(i, masked, n_chunks):
+    args = (i["e"], i["bias"], i["x"], i["cm"] if masked else None)
+    _check_fwd("sae_tied_fwd", lambda: ft.sae_tied_fwd(*args),
+               lambda: ft.sae_tied_fwd_plain(*args), n_chunks)
+
+
+FWD_SHAPES = [(3, 64, 96, 37), (4, 96, 64, 40), (5, 32, 64, 600),
+              (3, 64, 32, 768)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 64, 96, 37), (4, 96, 64, 40),
-                                   (5, 32, 64, 600), (3, 64, 32, 768)],
-                         ids=str)
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=str)
 def test_untied_fwd_matches_plain(card, shape):
     """One chunk of every member (N = 3-5) at d = 37 (no 16-byte copies
     of Wn, x or r), 40, 600 and 768."""
     _check_untied_fwd(_inputs(card, *shape, seed=1), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["tied", "masked"])
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=str)
+def test_tied_fwd_matches_plain(card, shape, masked):
+    """One chunk of every member at d = 37, 40, 600 and 768, with and
+    without the masked family's coef_mask."""
+    _check_tied_fwd(_inputs(card, *shape, seed=1), masked, 1)
 
 
 # (members, batch, n_feats, d, members a chunk, rows a chunk): whole
@@ -238,17 +260,70 @@ UNTIED_FWD_CHUNK_CASES = [(5, 64, 96, 300, 2, 64), (3, 32, 64, 768, 2, 32),
                           (3, 160, 64, 40, 1, 64), (3, 96, 32, 37, 1, 64)]
 
 
+def _fwd_chunk_case(monkeypatch, case):
+    """Lower the cap so the case's members, or one member's batch, split
+    into chunks, one of them short; returns the chunk count."""
+    n_m, b, n, _, z, rows = case
+    monkeypatch.setattr(ft, "WORKSPACE_BYTES", 4 * n * z * rows)
+    chunks = ft.fwd_chunks(n_m, b, n)
+    assert len(chunks) >= 2
+    assert any(mh - ml < z or bh - bl < rows for ml, mh, bl, bh in chunks)
+    return len(chunks)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", UNTIED_FWD_CHUNK_CASES, ids=str)
 def test_untied_fwd_chunks_match_plain(card, monkeypatch, case):
     """sae_untied_fwd with the workspace cap lowered so that the members,
     or one member's batch, split into chunks."""
-    n_m, b, n, d, z, rows = case
-    monkeypatch.setattr(ft, "WORKSPACE_BYTES", 4 * n * z * rows)
-    chunks = ft.untied_fwd_chunks(n_m, b, n)
-    assert len(chunks) >= 2
-    assert any(mh - ml < z or bh - bl < rows for ml, mh, bl, bh in chunks)
-    _check_untied_fwd(_inputs(card, n_m, b, n, d, seed=3), len(chunks))
+    n_chunks = _fwd_chunk_case(monkeypatch, case)
+    _check_untied_fwd(_inputs(card, *case[:4], seed=3), n_chunks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["tied", "masked"])
+@pytest.mark.parametrize("case", UNTIED_FWD_CHUNK_CASES, ids=str)
+def test_tied_fwd_chunks_match_plain(card, monkeypatch, case, masked):
+    """sae_tied_fwd with the workspace cap lowered so that the members, or
+    one member's batch, split into chunks, with and without a coef_mask."""
+    n_chunks = _fwd_chunk_case(monkeypatch, case)
+    _check_tied_fwd(_inputs(card, *case[:4], seed=3), masked, n_chunks)
+
+
+@pytest.mark.cuda
+def test_tied_fwd_coef_mask_in_member_chunks(card, monkeypatch):
+    """The coefficient mask of the feature-major codes is the feature's
+    (the product's row), in every member chunk: four members of 32
+    features and 96 rows in chunks of two members, member z keeping its
+    first 32/(z+1) features, against the plain version; and each member's
+    x̂ = r + x is the decode of its kept features alone."""
+    monkeypatch.setattr(ft, "WORKSPACE_BYTES", 4 * 32 * 96 * 2)
+    assert len(ft.fwd_chunks(4, 96, 32)) == 2
+    i = _inputs(card, 4, 96, 32, 40, seed=5)
+    _check_tied_fwd(i, True, 2)
+    r = ft.sae_tied_fwd(i["e"], i["bias"], i["x"], i["cm"])
+    for z in range(4):
+        keep = int(i["cm"][z].sum())
+        assert keep == 32 // (z + 1)
+        sub = ft.sae_tied_fwd_plain(i["e"][z:z + 1, :keep].contiguous(),
+                                    i["bias"][z:z + 1, :keep].contiguous(),
+                                    i["x"])
+        _close(r[z:z + 1], sub, 1e-5)
+
+
+@pytest.mark.cuda
+def test_tied_fwd_nan_propagates_through_member_chunks(card, monkeypatch):
+    """A NaN in one member's dictionary row reaches every row of that
+    member's residual, and no other member's, when the members run in
+    separate chunks."""
+    monkeypatch.setattr(ft, "WORKSPACE_BYTES", 4 * 64 * 96)
+    i = _inputs(card, 2, 96, 64, 40)
+    i["e"][1, 5, 0] = float("nan")
+    assert len(ft.fwd_chunks(2, 96, 64)) == 2
+    r = ft.sae_tied_fwd(i["e"], i["bias"], i["x"])
+    torch.cuda.synchronize()
+    assert torch.isfinite(r[0]).all()
+    assert torch.isnan(r[1]).all()
 
 
 # --- the untied backward's chunked launches (sae_untied_bwd) ------------------
@@ -435,8 +510,42 @@ def test_big_sae_kernels_match_plain(card, shape):
     assert torch.equal(got[5][1], want[5][1])  # l0: no mask flips here
     assert _build.LAUNCHES["big_sae_fwd"] == 1
     assert _build.LAUNCHES["big_sae_bwd"] == 1
-    # one chunk at these shapes: each of K9's launches once
-    assert all(_build.LAUNCHES[k] == 1 for k in _build.BWD_PARTS)
+    # one chunk at these shapes: each of K8's and K9's launches once
+    assert all(_build.LAUNCHES[k] == 1
+               for k in (*_build.BIG_FWD_PARTS, *_build.BWD_PARTS))
+
+
+# (batch, n_feats, d, rows per chunk): 1, 2 and 3 chunks, the last one
+# short where there are several; d = 1024, and d not a multiple of 4
+# (4-byte copies of Wn and x̂)
+BIG_FWD_CHUNK_CASES = [(64, 32, 129, 64), (96, 160, 1024, 64),
+                       (160, 96, 37, 64), (96, 64, 300, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BIG_FWD_CHUNK_CASES, ids=str)
+def test_big_sae_forward_chunks_match_plain(card, monkeypatch, case):
+    """K8 with the workspace cap lowered so the batch splits into chunks
+    against the plain version (rtol 1e-5 of max|ref|); two calls give the
+    same bits; each launch runs once per chunk."""
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    b, n, d, rows = case
+    monkeypatch.setattr(fb, "WORKSPACE_BYTES", 4 * n * rows)
+    chunks = fb.fwd_chunks(b, n)
+    assert len(chunks) == -(-b // rows)
+    p, x = _big_inputs(card, b, n, d, seed=2)
+    xc = (x - p["centering"]).contiguous()
+    _build.reset_launches()
+    got = fb.big_sae_forward(p, xc)
+    again = fb.big_sae_forward(p, xc)
+    want = fb.big_sae_forward_plain(p, xc)
+    torch.cuda.synchronize()
+    _close(got, want, 1e-5)
+    assert torch.equal(got, again)
+    assert _build.LAUNCHES["big_sae_fwd"] == 2
+    assert all(_build.LAUNCHES[k] == 2 * len(chunks)
+               for k in _build.BIG_FWD_PARTS)
 
 
 # (batch, n_feats, d, rows per chunk): several chunks, the last one short,
@@ -454,7 +563,7 @@ def test_big_sae_backward_chunks_match_plain(card, monkeypatch, case):
     from sparse_coding_tpu_torch.ops import fused_big_sae as fb
 
     b, n, d, rows = case
-    monkeypatch.setattr(fb, "BWD_WORKSPACE_BYTES", 2 * 4 * n * rows)
+    monkeypatch.setattr(fb, "WORKSPACE_BYTES", 2 * 4 * n * rows)
     n_chunks = len(fb.bwd_chunks(b, n))
     assert n_chunks >= 2 and b % rows
     p, x = _big_inputs(card, b, n, d, seed=1)
@@ -478,18 +587,22 @@ def test_big_sae_backward_chunks_match_plain(card, monkeypatch, case):
 
 
 @pytest.mark.cuda
-def test_big_sae_nan_propagates(card):
+def test_big_sae_nan_propagates(card, monkeypatch):
     """A NaN in the encoder reaches x-hat and the l1 sum, as through
-    torch.relu (the kernels' ReLU keeps NaN)."""
+    torch.relu (the kernels' ReLU keeps NaN): with the cap lowered so both
+    kernels run the batch in 3 chunks, every element of x-hat is NaN (each
+    row's code of that feature is)."""
     from sparse_coding_tpu_torch.ops import fused_big_sae as fb
 
-    p, x = _big_inputs(card, 32, 32, 40)
+    monkeypatch.setattr(fb, "WORKSPACE_BYTES", 4 * 32 * 32)
+    p, x = _big_inputs(card, 96, 32, 40)
+    assert len(fb.fwd_chunks(96, 32)) == len(fb.bwd_chunks(96, 32)) == 3
     p["encoder"][3, 5] = float("nan")
     xhat = fb.big_sae_forward(p, x)
     scal = fb.big_sae_backward(p, torch.tensor(1e-3, device=card), x,
                                (xhat.nan_to_num() - x).contiguous())[5]
     torch.cuda.synchronize()
-    assert torch.isnan(xhat).any()
+    assert torch.isnan(xhat).all()
     assert torch.isnan(scal[0]) and torch.isfinite(scal[1])
 
 

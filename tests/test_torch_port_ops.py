@@ -392,6 +392,7 @@ def test_tied_sae_loss_and_autograd_match_jax_grad(inp, family):
 
 
 CHUNKED = {  # kernel -> (its parts, the parts that are products)
+    "sae_tied_fwd": (_build.TIED_FWD_PARTS, ("codes", "decode")),
     "sae_tied_bwd": (_build.TIED_BWD_PARTS, ("codes", "dpre", "dwx", "dwr")),
     "sae_untied_fwd": (_build.UNTIED_FWD_PARTS, ("codes", "decode")),
     "sae_untied_bwd": (_build.UNTIED_BWD_PARTS,

@@ -63,7 +63,7 @@ def test_fwd_schedule_covers_every_member_and_row_once_in_order(
     fit the cap unless one 32-row chunk of one member does not."""
     n_m, b, n, cap = case
     monkeypatch.setattr(ft, "WORKSPACE_BYTES", cap)
-    chunks = ft.untied_fwd_chunks(n_m, b, n)
+    chunks = ft.fwd_chunks(n_m, b, n)
     assert chunks == SCHEDULES[case]
     visited = [(m, row) for ml, mh, bl, bh in chunks
                for m in range(ml, mh) for row in range(bl, bh)]
