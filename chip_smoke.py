@@ -47,7 +47,28 @@ Phases — any failure raises, and the script exits non-zero with no result:
    autodiff, 3 steps of the kernel and autodiff steps side by side,
    resurrection of 20 marked features on the card vs on the CPU, and the
    export's FVU on held-out rows;
-8. summary: one ``{"kernels": [...]}`` line, the card's name and power
+8. the full sweep (``train/sweep.py``) through its CLI, ``main``:
+   ``tied_vs_not`` at the main paths' width (16 tied and 16 untied
+   members over ``DEFAULT_L1_RANGE``, batch 2048) over a 6-chunk store
+   (96 steps), a checkpoint set every chunk; (a) every kernel of both
+   families launches once per step (counts zeroed just before) and the
+   logged losses are finite; (b) a child SIGKILLed by
+   ``SPARSE_CODING_CRASH_PLAN`` at ``sweep.chunk`` (hit 3), then at
+   ``ckpt.swap`` (hit 3), resumed with ``--resume true``, ends with
+   learned dicts and a checkpoint set bitwise equal to (a)'s; (c) a child
+   SIGTERMed mid-run exits 0 (``SweepPreempted``) and resumes bitwise;
+   (d) the guardian drill ``sweep.anomaly`` member=3 freezes and tags
+   tied member 3 and leaves every other member bitwise (a)'s; (e) a NaN
+   batch rolls back and replays bitwise equal to a run over the store
+   with that chunk quarantined; (f) ``dict_ratio`` 2 chunks at the
+   masked shape on its kernels; (g) the sweep on autodiff: each member's
+   final logged loss within 1e-2 of (a)'s; (h) the same sweep with
+   ``--train_dtype bfloat16`` (half-width batches to the card) ends
+   bitwise equal to (a) — the store is bfloat16 on disk. Measured: the
+   sweep's
+   activations/s, the checkpoint seconds per chunk, the resume time and
+   the probe's ``train.mfu``;
+9. summary: one ``{"kernels": [...]}`` line, the card's name and power
    limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds the four chunked ensemble kernels against their plain
@@ -1736,6 +1757,388 @@ def big_main_phase(store: Path, tmp: Path, held_out: torch.Tensor) -> dict:
     return out
 
 
+# --- phase 8: the full sweep (train/sweep.py) ------------------------------
+
+# the sweep's CLI on the canonical width (Pythia-70M, d=512, ratio 4,
+# batch 2048): tied_vs_not over DEFAULT_L1_RANGE (16 members each), a
+# 6-chunk store = 96 steps, a checkpoint set every chunk; depth is the only
+# cut
+SWEEP_CHUNKS, SWEEP_MEMBERS = 6, 16
+SWEEP_STEPS = SWEEP_CHUNKS * ROWS_PER_CHUNK // BATCH
+SWEEP_DICT_RATIO_CHUNKS = 2
+
+
+def sweep_args(store: Path, out: Path, *extra: str) -> list[str]:
+    return ["--experiment", "tied_vs_not", "--dataset_folder", str(store),
+            "--output_folder", str(out), "--batch_size", str(BATCH),
+            "--learned_dict_ratio", str(RATIO), "--lr", str(LR),
+            "--seed", str(SEED), "--n_chunks", str(SWEEP_CHUNKS),
+            "--checkpoint_every_chunks", "1", "--image_metrics_every", "none",
+            "--log_every", str(ROWS_PER_CHUNK // BATCH), *extra]
+
+
+def sweep_in_process(args: list[str], obs_dir: Path, fault=None) -> float:
+    """``train.sweep.main(args)`` in this process, its events to
+    ``obs_dir``, with an optional fault plan; returns the wall seconds."""
+    import contextlib
+    import io
+
+    from sparse_coding_tpu_torch import obs
+    from sparse_coding_tpu_torch.resilience import faults
+    from sparse_coding_tpu_torch.train import sweep as tsweep
+
+    sink = obs.EventSink(obs_dir / "events.jsonl")
+    prev_sink, prev_reg = obs.configure_sink(sink), obs.set_registry(
+        obs.Registry())
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), faults.inject(*(fault or ())):
+            tsweep.main(args)
+        sync()
+    finally:
+        obs.set_registry(prev_reg)
+        obs.configure_sink(prev_sink)
+        sink.close()
+    return time.perf_counter() - t0
+
+
+def sweep_subprocess(args: list[str], obs_dir: Path, crash_plan: str = "",
+                     sigterm_when: Path = None) -> subprocess.CompletedProcess:
+    """``python -m sparse_coding_tpu_torch.train.sweep`` in a child, with
+    an optional crash plan; ``sigterm_when``: SIGTERM the child once that
+    file exists."""
+    import os
+    import signal
+
+    env = dict(os.environ, SPARSE_CODING_OBS_DIR=str(obs_dir))
+    env.pop("SPARSE_CODING_FAULT_PLAN", None)
+    env.pop("SPARSE_CODING_CRASH_PLAN", None)
+    if crash_plan:
+        env["SPARSE_CODING_CRASH_PLAN"] = crash_plan
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sparse_coding_tpu_torch.train.sweep", *args],
+        cwd=Path(__file__).resolve().parent, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        if sigterm_when is not None:
+            while proc.poll() is None and not sigterm_when.exists():
+                time.sleep(0.05)
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return subprocess.CompletedProcess(proc.args, proc.returncode, stdout,
+                                       stderr)
+
+
+def logged_steps(out: Path) -> dict[int, dict]:
+    """metrics.jsonl's records merged by step (the sweep logs one record
+    per entry at each log step)."""
+    merged: dict[int, dict] = {}
+    for rec in read_metrics(out / "metrics.jsonl"):
+        merged.setdefault(rec["step"], {}).update(rec)
+    return merged
+
+
+def read_events(obs_dir: Path) -> list[dict]:
+    from sparse_coding_tpu_torch.obs import read_events as read
+
+    return [e for path in sorted(obs_dir.glob("*.jsonl")) for e in read(path)]
+
+
+def final_dicts(out: Path, name: str, ci: int = SWEEP_CHUNKS - 1) -> list:
+    from sparse_coding_tpu_torch.utils.artifacts import load_learned_dicts
+
+    return load_learned_dicts(out / f"_{ci}" / f"{name}_learned_dicts.pkl")
+
+
+def dicts_equal(a: list, b: list, skip=()) -> list[int]:
+    """Indices of the members whose exported tensors differ (bitwise)."""
+    bad = []
+    for i, ((la, _), (lb, _)) in enumerate(zip(a, b)):
+        if i in skip:
+            continue
+        for f in ("encoder", "encoder_bias", "dictionary"):
+            if hasattr(la, f) and not torch.equal(getattr(la, f),
+                                                  getattr(lb, f)):
+                bad.append(i)
+                break
+    return bad
+
+
+def assert_bitwise_run(out: Path, ref: Path, what: str) -> None:
+    """Final learned dicts and the final checkpoint set bitwise equal."""
+    for name in ("tied", "untied"):
+        bad = dicts_equal(final_dicts(out, name), final_dicts(ref, name))
+        if bad:
+            raise AssertionError(f"{what}: {name} members {bad} differ from "
+                                 "the uninterrupted run's")
+        for suffix in (".tensors", ".tensors.meta.json"):
+            f = f"{name}_0{suffix}"
+            if (out / "ckpt" / f).read_bytes() != (ref / "ckpt" / f).read_bytes():
+                raise AssertionError(f"{what}: ckpt/{f} differs from the "
+                                     "uninterrupted run's")
+
+
+def sweep_numbers(events: list[dict]) -> dict:
+    """Activations/s from the sweep.chunk spans (rows over the chunk's
+    training wall, through the chunk-boundary sync), checkpoint seconds
+    per chunk, and the probe's samples."""
+    chunks = [e for e in events if e.get("span") == "sweep.chunk"]
+    ckpts = [e for e in events if e.get("span") == "sweep.checkpoint"]
+    later = chunks[1:] or chunks
+    samples = [e for e in events if e.get("kind") == "perf.sample"]
+    metrics = [e for e in events if e.get("kind") == "metrics"]
+    gauges = metrics[-1]["registry"]["gauges"] if metrics else {}
+    return {
+        "chunks": len(chunks),
+        "acts_per_s": sum(e["rows"] for e in later)
+        / sum(e["train_s"] for e in later),
+        "acts_per_s_first_chunk": chunks[0]["rows"] / chunks[0]["train_s"],
+        "timer_acts_per_s": [e["acts_per_sec"] for e in chunks],
+        "chunk_s": [e["dur_s"] for e in chunks],
+        "ckpt_s": [e["dur_s"] for e in ckpts],
+        "ckpt_bytes": ckpts[0]["bytes"] if ckpts else 0,
+        "probe_samples": [{k: e.get(k) for k in ("device_s", "mfu", "path")}
+                          for e in samples],
+        "train_mfu": gauges.get("train.mfu", {}).get("value"),
+    }
+
+
+def sweep_phase(store: Path, tmp: Path) -> dict:
+    """Phase 8 — the full sweep through its CLI: (a) the kernels launch
+    once per step and the logged losses are finite; (b) SIGKILL at
+    sweep.chunk (hit 3), then at ckpt.swap (hit 3), and --resume true end
+    bitwise equal to the uninterrupted run; (c) SIGTERM mid-run exits
+    cleanly and resumes bitwise; (d) the member=3 drill freezes tied
+    member 3 and leaves every other member bitwise; (e) a NaN batch rolls
+    back and replays bitwise the run over the store with that chunk
+    quarantined; (f) dict_ratio at the masked shape on its kernels; (g)
+    the same sweep on autodiff agrees with the kernel run; (h) bfloat16
+    training runs on the kernels."""
+    import shutil
+
+    from sparse_coding_tpu_torch.data.ledger import (
+        load_quarantine,
+        record_quarantine,
+    )
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.resilience.faults import FaultSpec
+
+    rep: dict = {}
+    steps_per_chunk = ROWS_PER_CHUNK // BATCH
+
+    # (a) the uninterrupted run, launches counted
+    out_a = tmp / "sweep_a"
+    _build.reset_launches()
+    wall = sweep_in_process(sweep_args(store, out_a), tmp / "obs_a")
+    launches = dict(_build.LAUNCHES)
+    shape = (SWEEP_MEMBERS, BATCH, N_FEATS)
+    want = {k: SWEEP_STEPS if k in TIED_KERNELS + UNTIED_KERNELS else 0
+            for k in _build.LAUNCHES}
+    want.update(part_launches(True, SWEEP_STEPS, shape))
+    want.update(part_launches(False, SWEEP_STEPS, shape))
+    if launches != want:
+        raise AssertionError(f"(a) launches {launches}, expected {want}")
+    logged = logged_steps(out_a)
+    if list(logged) != list(range(steps_per_chunk, SWEEP_STEPS + 1,
+                                  steps_per_chunk)) or not all(
+            f"{n}/loss_mean" in r for r in logged.values()
+            for n in ("tied", "untied")):
+        raise AssertionError(f"(a) logged steps {list(logged)}")
+    bad = [(step, k) for step, r in logged.items() for k, v in r.items()
+           if isinstance(v, float) and not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"(a) non-finite logged values {bad[:5]}")
+    nums = sweep_numbers(read_events(tmp / "obs_a"))
+    rep["a"] = {"wall_s": wall, "launches": launches, **nums}
+    log(f"  (a) tied_vs_not, {SWEEP_STEPS} steps in {wall:.1f} s: each "
+        f"kernel {SWEEP_STEPS} launches; {nums['acts_per_s']:.0f} acts/s "
+        f"(chunks 2-{SWEEP_CHUNKS}, both ensembles, rows over training "
+        f"wall); checkpoint set {nums['ckpt_bytes'] / 2**30:.2f} GiB in "
+        f"{np.mean(nums['ckpt_s']):.2f} s a chunk (min "
+        f"{min(nums['ckpt_s']):.2f}, max {max(nums['ckpt_s']):.2f}); "
+        f"train.mfu {nums['train_mfu']} over {len(nums['probe_samples'])} "
+        "probe samples")
+
+    # (b) SIGKILL at a crash barrier, then --resume true
+    rep["b"] = {}
+    for site in ("sweep.chunk", "ckpt.swap"):
+        out = tmp / f"sweep_b_{site}"
+        killed = sweep_subprocess(sweep_args(store, out), tmp / f"obs_b_{site}",
+                                  crash_plan=f"{site}:nth=3")
+        if killed.returncode != -9 or f"SIGKILL at site {site!r}" not in \
+                killed.stderr:
+            raise AssertionError(f"(b) {site}: rc {killed.returncode}\n"
+                                 f"{killed.stderr[-3000:]}")
+        obs_r = tmp / f"obs_b_{site}_resume"
+        t0 = time.perf_counter()
+        resumed = sweep_subprocess(sweep_args(store, out, "--resume", "true"),
+                                   obs_r)
+        wall = time.perf_counter() - t0
+        if resumed.returncode != 0:
+            raise AssertionError(f"(b) {site} resume: rc "
+                                 f"{resumed.returncode}\n"
+                                 f"{resumed.stderr[-3000:]}")
+        assert_bitwise_run(out, out_a, f"(b) {site}")
+        ev = read_events(obs_r)
+        resume_s = [e["dur_s"] for e in ev if e.get("span") == "sweep.resume"]
+        done = [e["chunks_done"] for e in ev if e.get("span") == "sweep.resume"]
+        rep["b"][site] = {"resume_s": resume_s[0], "chunks_done": done[0],
+                          "resumed_wall_s": wall}
+        log(f"  (b) SIGKILL at {site} hit 3, resumed from chunk {done[0]} "
+            f"(restore {resume_s[0]:.2f} s; the resumed process "
+            f"{wall:.1f} s wall): bitwise equal to (a)")
+        shutil.rmtree(out)
+
+    # (c) SIGTERM once the first checkpoint set exists
+    out = tmp / "sweep_c"
+    pre = sweep_subprocess(sweep_args(store, out), tmp / "obs_c",
+                           sigterm_when=out / "ckpt" / "untied_0.tensors.meta.json")
+    m = re.search(r"checkpointed after chunk (\d+)", pre.stdout)
+    if pre.returncode != 0 or m is None or not 0 < int(m.group(1)) < \
+            SWEEP_CHUNKS:
+        raise AssertionError(f"(c) SIGTERM: rc {pre.returncode}, stdout "
+                             f"{pre.stdout[-500:]}\n{pre.stderr[-3000:]}")
+    resumed = sweep_subprocess(sweep_args(store, out, "--resume", "true"),
+                               tmp / "obs_c_resume")
+    if resumed.returncode != 0:
+        raise AssertionError(f"(c) resume: {resumed.stderr[-3000:]}")
+    assert_bitwise_run(out, out_a, "(c) SIGTERM")
+    rep["c"] = {"preempted_after": int(m.group(1))}
+    log(f"  (c) SIGTERM: SweepPreempted after chunk {m.group(1)}, exit 0; "
+        "resumed bitwise equal to (a)")
+    shutil.rmtree(out)
+
+    # (d) the member drill: tied member 3's loss scale poisoned at batch 3
+    out = tmp / "sweep_d"
+    sweep_in_process(sweep_args(store, out), tmp / "obs_d", fault=[FaultSpec(
+        site="sweep.anomaly", nth=3, error="RuntimeError",
+        message="member=3")])
+    ledger = json.loads((out / "guardian.json").read_text())
+    tied = final_dicts(out, "tied")
+    if (list(ledger["members"]) != ["tied/tied/3"] or ledger["rollbacks"]
+            or [i for i, (_, h) in enumerate(tied) if h.get("diverged")]
+            != [3]):
+        raise AssertionError(f"(d) ledger {ledger}")
+    bad = {n: dicts_equal(final_dicts(out, n), final_dicts(out_a, n),
+                          skip=(3,) if n == "tied" else ())
+           for n in ("tied", "untied")}
+    if any(bad.values()):
+        raise AssertionError(f"(d) members other than tied 3 moved: {bad}")
+    rep["d"] = {"quarantined": list(ledger["members"])}
+    log("  (d) member=3 drill: tied member 3 frozen, ledgered and tagged "
+        "diverged; the other 31 members bitwise equal to (a)")
+    shutil.rmtree(out)
+
+    # (e) a NaN batch in chunk position 1 (batch 24 of 16 a chunk)
+    st_e = tmp / "store_e"
+    shutil.copytree(store, st_e)
+    out = tmp / "sweep_e"
+    sweep_in_process(sweep_args(st_e, out), tmp / "obs_e", fault=[FaultSpec(
+        site="sweep.anomaly", nth=steps_per_chunk + 8, mode="nan")])
+    ledger = json.loads((out / "guardian.json").read_text())
+    bad_chunks = list(load_quarantine(st_e))
+    if (len(bad_chunks) != 1 or ledger["members"]
+            or list(ledger["rollbacks"]) != ["chunk[1]"]):
+        raise AssertionError(f"(e) ledger {ledger}, quarantined {bad_chunks}")
+    st_g = tmp / "store_g"
+    shutil.copytree(store, st_g)
+    record_quarantine(st_g, bad_chunks[0], "pre-quarantined",
+                      f"{bad_chunks[0]}.npy")
+    out_g = tmp / "sweep_g"
+    sweep_in_process(sweep_args(st_g, out_g), tmp / "obs_g")
+    rollback = [e for e in read_events(tmp / "obs_e")
+                if e.get("span") == "guardian.rollback"]
+    bad = {n: dicts_equal(final_dicts(out, n), final_dicts(out_g, n))
+           for n in ("tied", "untied")}
+    if any(bad.values()) or len(rollback) != 1:
+        raise AssertionError(f"(e) members {bad} differ from the run over "
+                             f"the pre-quarantined store; rollbacks "
+                             f"{rollback}")
+    rep["e"] = {"chunk": bad_chunks[0], "rollback_s": rollback[0]["dur_s"]}
+    log(f"  (e) NaN drill: one rollback ({rollback[0]['dur_s']:.2f} s) to "
+        f"the chunk-1 set, chunk {bad_chunks[0]} quarantined; final dicts "
+        "bitwise equal to the run over the pre-quarantined store")
+    for path in (out, out_g, st_e, st_g):
+        shutil.rmtree(path)
+
+    # (f) dict_ratio at the masked shape on its kernels (two_stage_tiled)
+    out = tmp / "sweep_f"
+    args = sweep_args(store, out, "--n_chunks", str(SWEEP_DICT_RATIO_CHUNKS))
+    args[args.index("tied_vs_not")] = "dict_ratio"
+    _build.reset_launches()
+    wall = sweep_in_process(args, tmp / "obs_f")
+    launches = dict(_build.LAUNCHES)
+    steps = SWEEP_DICT_RATIO_CHUNKS * steps_per_chunk
+    main_counts = {k: launches[k] for k in _build.KERNELS}
+    want = {k: steps if k in ("sae_tied_fwd", "sae_tied_bwd") else 0
+            for k in _build.KERNELS}
+    parts = {k: launches[k] for k in _build.TIED_FWD_PARTS
+             + _build.TIED_BWD_PARTS}
+    if main_counts != want or not all(parts.values()):
+        raise AssertionError(f"(f) launches {launches}")
+    recs = [r for r in read_metrics(out / "metrics.jsonl")
+            if "dict_ratio/loss_mean" in r]
+    if not recs or not all(math.isfinite(v) for r in recs for v in r.values()
+                           if isinstance(v, float)):
+        raise AssertionError(f"(f) logged {recs}")
+    evals = json.loads((out / f"_{SWEEP_DICT_RATIO_CHUNKS - 1}"
+                        / "dict_ratio_eval.json").read_text())
+    if [e["dict_ratio"] for e in evals] != list(MASKED_RATIOS):
+        raise AssertionError(f"(f) ratios {[e['dict_ratio'] for e in evals]}")
+    rep["f"] = {"wall_s": wall, "launches": main_counts, "parts": parts,
+                "eval": evals}
+    log(f"  (f) dict_ratio ({len(MASKED_RATIOS)} members, n_stack "
+        f"{int(D * max(MASKED_RATIOS))}), {steps} steps in {wall:.1f} s on "
+        f"sae_tied_fwd/bwd ({steps} launches each); fvu "
+        f"{evals[0]['fvu']:.3f} (ratio {MASKED_RATIOS[0]}) .. "
+        f"{evals[-1]['fvu']:.3f} (ratio {MASKED_RATIOS[-1]})")
+    shutil.rmtree(out)
+
+    # (g) the same sweep on autodiff
+    out = tmp / "sweep_auto"
+    _build.reset_launches()
+    wall = sweep_in_process(sweep_args(store, out, "--use_fused", "off"),
+                            tmp / "obs_auto")
+    if any(_build.LAUNCHES.values()):
+        raise AssertionError(f"(g) autodiff launched {_build.LAUNCHES}")
+    ka, ra = logged_steps(out_a)[SWEEP_STEPS], logged_steps(out)[SWEEP_STEPS]
+    keys = [k for k in ka if k.endswith("/loss")]
+    rel = max(abs(ka[k] - ra[k]) / abs(ra[k]) for k in keys)
+    auto = sweep_numbers(read_events(tmp / "obs_auto"))
+    rep["g"] = {"wall_s": wall, "max_rel_loss_diff": rel,
+                "acts_per_s": auto["acts_per_s"], "members": len(keys)}
+    log(f"  (g) autodiff: final logged loss of each of {len(keys)} members "
+        f"within {rel:.2e} of the kernel run's (bound "
+        f"{RTOL_REFERENCE_MSE}); {auto['acts_per_s']:.0f} acts/s")
+    if not (len(keys) == 2 * SWEEP_MEMBERS and rel <= RTOL_REFERENCE_MSE):
+        raise AssertionError(f"(g) autodiff vs kernels: {rel:.2e} over "
+                             f"{len(keys)} members")
+    shutil.rmtree(out)
+
+    # (h) bfloat16 batches from disk to the card, promoted there: the
+    # store is bfloat16 on disk, so the promoted batches are (a)'s exactly
+    out = tmp / "sweep_bf16"
+    _build.reset_launches()
+    sweep_in_process(sweep_args(store, out, "--train_dtype", "bfloat16"),
+                     tmp / "obs_bf16")
+    counts = {k: _build.LAUNCHES[k] for k in TIED_KERNELS + UNTIED_KERNELS}
+    if set(counts.values()) != {SWEEP_STEPS}:
+        raise AssertionError(f"(h) launches {counts}")
+    assert_bitwise_run(out, out_a, "(h) train_dtype bfloat16")
+    rep["h"] = {"launches": counts}
+    log(f"  (h) train_dtype bfloat16 (half-width batches to the card): each "
+        f"kernel {SWEEP_STEPS} launches; bitwise equal to (a)")
+    shutil.rmtree(out)
+    shutil.rmtree(out_a)
+    return rep
+
+
 # --- main --------------------------------------------------------------------
 
 def main() -> int:
@@ -1874,6 +2277,15 @@ def main() -> int:
             + f"; kernel pair {pair['ms']:.1f} ms vs plain pair "
             f"{pair['plain_ms']:.1f} ms; autodiff step "
             f"{report['big_main']['reference']['step_ms']:.1f} ms")
+        log(f"  done at {time.perf_counter() - t_start:.1f} s")
+
+        log(f"phase 8: the full sweep — train.sweep main, tied_vs_not, "
+            f"{SWEEP_MEMBERS}+{SWEEP_MEMBERS} members, d={D}, n={N_FEATS}, "
+            f"batch {BATCH}, {SWEEP_CHUNKS} chunks, a checkpoint each")
+        sweep_store = Path(tmp) / "sweep_store"
+        write_store(sweep_store, SWEEP_CHUNKS * ROWS_PER_CHUNK, seed=SEED + 8)
+        report["sweep"] = sweep_phase(sweep_store, Path(tmp))
+        log(f"  done at {time.perf_counter() - t_start:.1f} s")
 
     timing.update(big["timing"])
     bnd.update(big["bounds"])

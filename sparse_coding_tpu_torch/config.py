@@ -1,10 +1,11 @@
 """Typed config/flag system: the port's copy of the JAX package's
 ``config.py`` (``BaseArgs``, ``DataArgs``, ``EnsembleArgs``,
-``BigSAEArgs``) with the same fields and defaults, so a config file or
-command line drives either side.
-Fields the port does not run yet (meshes, orbax, profiling, the guardian)
-are kept so configs stay interchangeable; the entry points that would read
-them raise where they are set to something the port cannot do."""
+``SyntheticEnsembleArgs``, ``BigSAEArgs``) with the same fields and
+defaults, so a config file or command line drives either side.
+Fields the port does not run yet (meshes, the orbax backend, trace
+capture through ``profile_steps``, wandb) are kept so configs stay
+interchangeable; the entry points that would read them raise where they
+are set to something the port cannot do, naming the ROADMAP.md item."""
 
 from __future__ import annotations
 
@@ -143,6 +144,20 @@ class EnsembleArgs(BaseArgs):
     fused_batch_tile: Optional[int] = None
     fused_feat_tile: Optional[int] = None
     fused_interpret: bool = False
+
+
+@dataclass
+class SyntheticEnsembleArgs(EnsembleArgs):
+    """A sweep over synthetic data (``train/sweep.py::
+    init_synthetic_dataset`` writes it to ``dataset_folder``)."""
+
+    n_ground_truth_features: int = 512
+    activation_dim: int = 256
+    feature_prob_decay: float = 0.99
+    feature_num_nonzero: int = 5
+    correlated_components: bool = False
+    noise_magnitude_scale: float = 0.0
+    dataset_size: int = 200_000
 
 
 @dataclass

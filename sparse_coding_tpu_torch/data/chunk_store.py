@@ -10,10 +10,21 @@ atomically — with ``activation_dim``, ``dtype``, ``n_chunks``,
 sequence on both sides.
 
 ``ChunkStore(quarantine_corrupt=True)`` trains through corrupt chunks:
-``epoch`` skips one with a single warning and records it in the durable
-quarantine ledger (``data/ledger.py``), which the next open reads, so a
-known-bad chunk is never read again. Without it ``epoch`` raises, and
-``load_chunk`` always raises.
+``chunk_reader`` yields None in a corrupt chunk's position (``epoch``
+skips it) with a single warning and records it in the durable quarantine
+ledger (``data/ledger.py``), which the next open reads, so a known-bad
+chunk is never read again. Without it they raise, and ``load_chunk``
+always raises.
+
+``load_chunk(i, dtype=torch.bfloat16)`` (the sweep's
+``train_dtype="bfloat16"``) returns a bfloat16 host tensor: numpy has no
+bfloat16, and the batches keep half width through the host→device copy.
+Every other dtype gives a numpy array.
+
+Fault sites ``chunk.read`` (every load, the raw payload) and
+``chunk.write`` (every flush, inside a bounded retry); crash barriers
+``chunk.flushed`` (a chunk durable) and ``store.finalize`` (every chunk
+durable, meta.json not yet written).
 
 ``device_prefetch`` keeps the card fed: pinned host buffers copied with
 ``non_blocking=True`` on a side CUDA stream, so batch i+1 crosses PCIe
@@ -35,14 +46,40 @@ from sparse_coding_tpu_torch.data.ledger import (
     load_quarantine,
     record_quarantine,
 )
+from sparse_coding_tpu_torch.resilience import lease
 from sparse_coding_tpu_torch.resilience.atomic import (
     atomic_save_npy,
     atomic_write_text,
 )
+from sparse_coding_tpu_torch.resilience.crash import (
+    crash_barrier,
+    register_crash_site,
+)
+# the error's home is resilience/errors.py; importing it from here works too
+from sparse_coding_tpu_torch.resilience.errors import ChunkCorruptionError
+from sparse_coding_tpu_torch.resilience.faults import (
+    fault_point,
+    register_fault_site,
+)
 from sparse_coding_tpu_torch.resilience.manifest import array_sha256
+from sparse_coding_tpu_torch.resilience.retry import retry_io
+
+__all__ = ["ChunkCorruptionError", "ChunkStore", "ChunkWriter",
+           "device_prefetch", "shuffled_batches", "window_stacks"]
 
 _DTYPES = ("float16", "float32", "bfloat16")
 logger = logging.getLogger(__name__)
+
+register_fault_site("chunk.read", "ChunkStore.load_chunk — every chunk load")
+register_fault_site("chunk.write",
+                    "ChunkWriter._write — every chunk flush (inside the "
+                    "bounded-retry scope)")
+register_crash_site("chunk.flushed",
+                    "ChunkWriter._write — a chunk file + digest just became "
+                    "durable; the next instruction never runs")
+register_crash_site("store.finalize",
+                    "ChunkWriter.finalize — all chunks durable, meta.json "
+                    "(the completeness marker) not yet written")
 
 
 def _to_bf16_bits(arr: np.ndarray) -> np.ndarray:
@@ -56,13 +93,8 @@ def _from_bf16_bits(bits: np.ndarray) -> np.ndarray:
     return t.view(torch.bfloat16).to(torch.float32).numpy()
 
 
-class ChunkCorruptionError(ValueError):
-    """A chunk failed its integrity check (digest mismatch, non-finite
-    rows, or an unreadable file)."""
-
-    def __init__(self, chunk_index: int, path: Path, reason: str):
-        super().__init__(f"chunk {chunk_index} ({path}): {reason}")
-        self.chunk_index, self.path, self.reason = chunk_index, path, reason
+# transient I/O errors on a chunk write or read get this many tries
+IO_RETRIES = 3
 
 
 class ChunkWriter:
@@ -115,9 +147,19 @@ class ChunkWriter:
                 self._center_mean = f32.mean(axis=0)
             arr = self._decoded(self._encode(arr)) - self._center_mean
         out = self._encode(arr)
-        atomic_save_npy(self.folder / f"{self.chunk_index}.npy", out)
+        path = self.folder / f"{self.chunk_index}.npy"
+
+        def _write_once():
+            fault_point("chunk.write")
+            atomic_save_npy(path, out)
+
+        # tmp+fsync+rename never leaves a torn chunk at the final name;
+        # a transient I/O error gets a bounded retry
+        retry_io(_write_once, attempts=IO_RETRIES)
         self._digests[str(self.chunk_index)] = array_sha256(out)
         self.chunk_index += 1
+        lease.beat()  # a durable chunk is a harvest's unit of progress
+        crash_barrier("chunk.flushed")
 
     def _decoded(self, raw: np.ndarray) -> np.ndarray:
         if self.dtype == "bfloat16":
@@ -140,15 +182,19 @@ class ChunkWriter:
                 "chunk_digests": dict(self._digests),
                 **({"center_format": "subtracted-v2"} if centered else {})}
         meta.update(metadata or {})
+        # a kill here leaves every chunk durable and no meta.json: a
+        # visibly incomplete store
+        crash_barrier("store.finalize")
         atomic_write_text(self.folder / "meta.json", json.dumps(meta, indent=2))
         return self.chunk_index
 
 
 class ChunkStore:
     """Reader over a flat chunk folder: digest- and finite-checked loads,
-    shuffled epochs. A corrupt chunk raises :class:`ChunkCorruptionError`
-    from ``load_chunk``; ``epoch`` skips it instead when
-    ``quarantine_corrupt`` is set. Native readahead is later work."""
+    shuffled batches. A corrupt chunk raises :class:`ChunkCorruptionError`
+    from ``load_chunk``; ``chunk_reader`` and ``epoch`` skip it instead
+    when ``quarantine_corrupt`` is set. Native readahead is later work
+    (ROADMAP queue 1, item 2)."""
 
     def __init__(self, folder: str | Path, quarantine_corrupt: bool = False,
                  verify_digests: bool = True, verify_finite: bool = True):
@@ -181,62 +227,102 @@ class ChunkStore:
         path = self.folder / "center.npy"
         return np.load(path) if path.exists() else None
 
-    def load_chunk(self, i: int, dtype=np.float32) -> np.ndarray:
+    def _path(self, i: int) -> Path:
+        """Chunk ``i``'s file; a missing one is typed corruption."""
         path = self._paths.get(int(i))
         if path is None:
             raise ChunkCorruptionError(int(i), self.folder / f"{i}.npy",
                                        "chunk file missing")
-        try:
-            raw = np.load(path)
-        except (ValueError, EOFError) as e:
-            raise ChunkCorruptionError(int(i), path,
-                                       f"unreadable npy: {e}") from e
-        if int(i) not in self._verified:
+        return path
+
+    def load_chunk(self, i: int, dtype=np.float32):
+        """Chunk ``i`` decoded to ``dtype`` (a numpy array, or a bfloat16
+        tensor for ``torch.bfloat16``). Transient I/O errors get a bounded
+        retry; corruption raises at once."""
+        path = self._path(i)
+
+        def _load_once():
+            try:
+                raw = np.load(path)
+            except (ValueError, EOFError) as e:
+                raise ChunkCorruptionError(int(i), path,
+                                           f"unreadable npy: {e}") from e
+            return self._finish_raw(int(i), raw, dtype, path)
+
+        return retry_io(_load_once, attempts=IO_RETRIES)
+
+    def _finish_raw(self, i: int, raw: np.ndarray, dtype, path: Path):
+        """The one integrity gate: the digest meta.json recorded, then the
+        decode (bfloat16 bit patterns need meta.json's word), then the
+        finite check — each verified once per chunk per process."""
+        raw = fault_point("chunk.read", raw)
+        if i not in self._verified:
             expected = (self.meta.get("chunk_digests") or {}).get(str(i))
             if self.verify_digests and expected is not None:
                 got = array_sha256(raw)
                 if got != expected:
                     raise ChunkCorruptionError(
-                        int(i), path, f"content digest mismatch "
+                        i, path, f"content digest mismatch "
                         f"({got[:12]}… != {expected[:12]}…)")
-        if raw.dtype == np.uint16:
-            if self.meta.get("dtype") != "bfloat16":
-                raise ValueError(f"{path} holds uint16 (bfloat16 bit "
-                                 "patterns) but meta.json lacks "
-                                 "dtype=bfloat16")
-            out = _from_bf16_bits(raw)
+        if raw.dtype == np.uint16 and self.meta.get("dtype") != "bfloat16":
+            raise ValueError(f"{path} holds uint16 (bfloat16 bit "
+                             "patterns) but meta.json lacks "
+                             "dtype=bfloat16")
+        if dtype is torch.bfloat16:
+            out = (torch.from_numpy(raw.view(np.int16)).view(torch.bfloat16)
+                   if raw.dtype == np.uint16 else
+                   torch.from_numpy(raw.astype(np.float32)).to(
+                       torch.bfloat16))
+            finite = lambda: bool(torch.isfinite(out).all())
         else:
-            out = raw.astype(np.float32)
-        if self.verify_finite and int(i) not in self._verified:
-            if not np.isfinite(out).all():
-                raise ChunkCorruptionError(int(i), path,
-                                           "non-finite values in decoded rows")
-        self._verified.add(int(i))
-        return out.astype(dtype, copy=False)
+            out = (_from_bf16_bits(raw) if raw.dtype == np.uint16
+                   else raw.astype(np.float32))
+            finite = lambda: bool(np.isfinite(out).all())
+        if self.verify_finite and i not in self._verified and not finite():
+            raise ChunkCorruptionError(i, path,
+                                       "non-finite values in decoded rows")
+        self._verified.add(i)
+        return out if dtype is torch.bfloat16 else out.astype(dtype, copy=False)
 
     def chunk_mean(self, i: int = 0) -> np.ndarray:
         return self.load_chunk(i).mean(axis=0)
 
+    def batches(self, chunk, batch_size: int, rng: np.random.Generator,
+                drop_last: bool = True) -> Iterator:
+        """Shuffled fixed-size batches of an in-RAM chunk."""
+        return shuffled_batches(chunk, batch_size, rng, drop_last)
+
+    def chunk_reader(self, indices, dtype=np.float32) -> Iterator:
+        """In-RAM chunks for ``indices``, in order. With
+        ``quarantine_corrupt`` a corrupt or ledger-known chunk yields None
+        in its position (one warning, one ledger entry), so positional
+        consumers stay aligned with ``indices``."""
+        for ci in indices:
+            ci = int(ci)
+            if self.quarantine_corrupt and ci in self.quarantined:
+                chunk = None
+            else:
+                try:
+                    chunk = self.load_chunk(ci, dtype)
+                except ChunkCorruptionError as e:
+                    if not self.quarantine_corrupt:
+                        raise
+                    self._quarantine(e)
+                    chunk = None
+            lease.beat()  # a delivered position is reader progress
+            yield chunk
+
     def epoch(self, batch_size: int, rng: np.random.Generator,
-              n_repetitions: int = 1, dtype=np.float32) -> Iterator[np.ndarray]:
+              n_repetitions: int = 1, dtype=np.float32) -> Iterator:
         """Batches over all chunks, chunk order shuffled per repetition —
         the same rng draws, in the same order, as the JAX store. With
         ``quarantine_corrupt`` a corrupt or ledger-known chunk is skipped
         (and draws nothing from ``rng``, as in the JAX store)."""
         order = np.concatenate([rng.permutation(self.n_chunks)
                                 for _ in range(n_repetitions)])
-        for ci in order:
-            ci = int(ci)
-            if self.quarantine_corrupt and ci in self.quarantined:
-                continue
-            try:
-                chunk = self.load_chunk(ci, dtype)
-            except ChunkCorruptionError as e:
-                if not self.quarantine_corrupt:
-                    raise
-                self._quarantine(e)
-                continue
-            yield from shuffled_batches(chunk, batch_size, rng)
+        for chunk in self.chunk_reader(order, dtype):
+            if chunk is not None:
+                yield from self.batches(chunk, batch_size, rng)
 
     def _quarantine(self, err: ChunkCorruptionError) -> None:
         """Warn about a corrupt chunk and record it in the ledger, once. A
@@ -257,31 +343,40 @@ class ChunkStore:
                            err.chunk_index, write_err)
 
 
-def shuffled_batches(chunk: np.ndarray, batch_size: int,
-                     rng: np.random.Generator,
-                     drop_last: bool = True) -> Iterator[np.ndarray]:
-    """Shuffled fixed-size batches over an in-RAM array."""
+def shuffled_batches(chunk, batch_size: int, rng: np.random.Generator,
+                     drop_last: bool = True) -> Iterator:
+    """Shuffled fixed-size batches of an in-RAM array or host tensor."""
     n = chunk.shape[0]
     perm = rng.permutation(n)
+    if isinstance(chunk, torch.Tensor):
+        perm = torch.from_numpy(perm)
     end = n - (n % batch_size) if drop_last else n
     for lo in range(0, end, batch_size):
         yield chunk[perm[lo:lo + batch_size]]
 
 
-def window_stacks(batches: Iterable[np.ndarray], k: int) -> Iterator[np.ndarray]:
+def window_stacks(batches: Iterable, k: int) -> Iterator:
     """Group [B, d] host batches into [K, B, d] stacks; the final short
     window flushes with however many batches remain."""
-    buf: list[np.ndarray] = []
+    stack = lambda bs: (torch.stack(bs) if isinstance(bs[0], torch.Tensor)
+                        else np.stack(bs))
+    buf: list = []
     for b in batches:
         buf.append(b)
         if len(buf) == k:
-            yield np.stack(buf)
+            yield stack(buf)
             buf = []
     if buf:
-        yield np.stack(buf)
+        yield stack(buf)
 
 
-def device_prefetch(batches: Iterable[np.ndarray], device,
+def _host_tensor(b) -> torch.Tensor:
+    if isinstance(b, torch.Tensor):
+        return b.contiguous()
+    return torch.from_numpy(np.ascontiguousarray(b))
+
+
+def device_prefetch(batches: Iterable, device,
                     buffer_size: int = 2) -> Iterator[torch.Tensor]:
     """Host → device pipeline. On CUDA: each batch is staged in pinned host
     memory and copied with ``non_blocking=True`` on a side stream, up to
@@ -290,14 +385,14 @@ def device_prefetch(batches: Iterable[np.ndarray], device,
     device = torch.device(device)
     if device.type != "cuda":
         for b in batches:
-            yield torch.as_tensor(np.ascontiguousarray(b), device=device)
+            yield _host_tensor(b).to(device)
         return
     side = torch.cuda.Stream(device)
     pending: deque = deque()
     it = iter(batches)
 
     def submit(b) -> None:
-        host = torch.from_numpy(np.ascontiguousarray(b)).pin_memory()
+        host = _host_tensor(b).pin_memory()
         with torch.cuda.stream(side):
             dev = host.to(device, non_blocking=True)
             done = torch.cuda.Event()

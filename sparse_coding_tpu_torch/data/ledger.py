@@ -7,8 +7,9 @@ change and loaded when a ``ChunkStore`` opens, so a fresh process starts
 already knowing which chunks are bad. Entries hold the failure ``reason``
 and the chunk's file NAME (never an absolute path), and the payload embeds
 its own digest; keys are sorted, so the same entries give byte-identical
-files on either side. The JAX package's fault site on the rewrite
-(``ledger.write``) waits for the port's fault layer.
+files on either side. The rewrite carries the fault site
+``ledger.write``: ``ChunkStore._quarantine`` degrades to an in-memory
+quarantine when it fails.
 """
 
 from __future__ import annotations
@@ -18,12 +19,21 @@ from pathlib import Path
 
 from sparse_coding_tpu_torch.resilience.atomic import atomic_write_text
 from sparse_coding_tpu_torch.resilience.errors import LedgerCorruptionError
+from sparse_coding_tpu_torch.resilience.faults import (
+    fault_point,
+    register_fault_site,
+)
 from sparse_coding_tpu_torch.resilience.manifest import (
     check_payload_digest,
     embed_payload_digest,
 )
 
 LEDGER_NAME = "quarantine.json"
+
+register_fault_site("ledger.write",
+                    "durable quarantine-ledger rewrite (data/ledger.py "
+                    "record_quarantine) — ChunkStore._quarantine degrades "
+                    "to in-memory-only on failure")
 
 
 def ledger_path(folder: str | Path) -> Path:
@@ -79,4 +89,5 @@ def _rewrite(folder: Path, entries: dict[int, dict]) -> None:
     payload = embed_payload_digest(
         {"version": 1,
          "chunks": {str(k): entries[k] for k in sorted(entries)}})
+    fault_point("ledger.write")
     atomic_write_text(path, json.dumps(payload, indent=2, sort_keys=True))

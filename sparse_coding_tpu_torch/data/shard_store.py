@@ -20,5 +20,20 @@ def open_store(folder: str | Path, **kwargs) -> ChunkStore:
         raise NotImplementedError(
             f"{folder} is a sharded store (manifest.json); the sharded "
             "reader waits for a later slice of the port (ROADMAP.md "
-            "queue 1)")
+            "queue 1, item 2)")
     return ChunkStore(folder, **kwargs)
+
+
+def first_sound_chunk(store) -> int:
+    """Index of the first chunk the store can deliver: ledger-quarantined
+    positions are skipped, so one-chunk consumers (sweep centering, eval
+    batches) ride a scrub-repaired store. Raises when every chunk is
+    quarantined."""
+    quarantined = getattr(store, "quarantined", None) or set()
+    try:
+        return next(i for i in range(store.n_chunks)
+                    if i not in quarantined)
+    except StopIteration:
+        raise RuntimeError(
+            f"{getattr(store, 'folder', store)}: every chunk is "
+            "quarantined — nothing sound to read") from None

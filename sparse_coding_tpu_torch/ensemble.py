@@ -661,8 +661,13 @@ class Ensemble:
 
     def step_batch(self, batch) -> AuxData:
         """One training step on a [batch, d] slab shared by every member.
-        Returns stacked per-member aux."""
+        Returns stacked per-member aux. A half-width batch (bfloat16 from
+        the store) is promoted to float32 on the device, as the JAX step
+        promotes against its f32 params: only the input's precision
+        drops, never the accumulation's."""
         batch = _as_tensor(batch, self.device)
+        if batch.dtype != torch.float32:
+            batch = batch.to(torch.float32)
         self._resolve_step(int(batch.shape[0]))
         self.state, aux = self._step_fn(self.state, batch)
         return aux
@@ -677,6 +682,22 @@ class Ensemble:
                     for k in auxes[0].losses},
             **{f.name: stack([getattr(a, f.name) for a in auxes])
                for f in dataclasses.fields(AuxData) if f.name != "losses"})
+
+    def step_cost(self, batch_rows: int):
+        """The :class:`~sparse_coding_tpu_torch.obs.perf.StepCost` of one
+        step at ``batch_rows`` on the resolved path: the model flops of
+        the shared FLOP model (``roofline.model_flops_per_activation``,
+        required flops, whichever path ran them). The port has no Hopper
+        roofline model yet, so no prediction rides along."""
+        from sparse_coding_tpu_torch.obs.perf import StepCost
+
+        enc = self.state.params.get("encoder")
+        path = self.fused_path or "autodiff"
+        if enc is None or enc.dim() != 3:
+            return StepCost(path=path, activations=int(batch_rows))
+        flops = roofline.model_flops_per_activation(
+            self.n_members, int(enc.shape[1]), int(enc.shape[2])) * batch_rows
+        return StepCost(flops=flops, path=path, activations=int(batch_rows))
 
     def unstack(self) -> list[tuple[dict, dict]]:
         """Per-member (params, buffers incl. statics) as CPU tensors."""

@@ -1,1 +1,2 @@
-"""Durable-write helpers the port's store and artifacts need."""
+"""Resilience layer: durable writes, digests, typed errors, fault and
+crash injection, bounded retry, preemption and lease heartbeats."""

@@ -1,6 +1,7 @@
-"""Content digests for durable artifacts: chunk digests and the payload
-digest small JSON ledgers embed (the port's subset of the JAX package's
-``resilience/manifest.py``, byte-identical in what it computes)."""
+"""Content digests for durable artifacts: chunk and checkpoint digests and
+the payload digest small JSON ledgers embed (the port's subset of the JAX
+package's ``resilience/manifest.py``, byte-identical in what it
+computes)."""
 
 from __future__ import annotations
 
@@ -13,6 +14,10 @@ import numpy as np
 # of its own payload: the sha256 of ``json.dumps(body, sort_keys=True)``
 # over every OTHER key. A digest-less payload stays loadable, unverified.
 PAYLOAD_DIGEST_KEY = "payload_sha256"
+
+
+def bytes_sha256(data: bytes) -> str:
+    return hashlib.sha256(data).hexdigest()
 
 
 def array_sha256(arr) -> str:

@@ -1,0 +1,644 @@
+"""The full sweep (the port's copy of the JAX package's
+``train/sweep.py``, single device).
+
+Flow, as in the JAX package (the reference's big_sweep.py:298-386):
+  1. the dataset: an existing chunk store, or synthetic data written to
+     disk (``SyntheticEnsembleArgs``);
+  2. ``ensemble_init_fn(cfg, mesh, device=...)`` →
+     ``[(Ensemble, member_hyperparams, name)]`` (``train/experiments.py``);
+  3. the chunk order, shuffled once per repetition from
+     ``np.random.default_rng(cfg.seed)``, the batches from the same rng;
+     optional centering on the first sound chunk's mean;
+  4. per chunk: shuffled batches through every ensemble, each on its
+     kernel path (the same resolution as ``basic_l1_sweep``), the
+     guardian's per-window combine and its chunk-boundary ladder;
+  5. a full-state checkpoint set every ``checkpoint_every_chunks``
+     chunks, staged and swapped in by renames, the previous set kept as
+     ``ckpt_prev/``; exact resume (``resume=True``) and SIGTERM
+     preemption (``SweepPreempted``) continue bitwise;
+  6. learned dicts and quick evals at chunk counts {7, 15, 31, ...} (or
+     every ``save_every_chunks``) and at the end.
+
+The entry point runs on the card; ``device="cpu"`` (``--device cpu``)
+runs the kernels' plain versions on the CPU. What the port cannot do yet
+raises, naming its ROADMAP.md queue-1 item: meshes and the orbax backend
+(item 11), ``profile_steps > 0`` and wandb (item 14), EnsembleGroup
+buckets (item 8) and sharded stores (item 2). The executable-cache warm
+start of the JAX sweep has no counterpart yet (item 13).
+
+Run: ``python -m sparse_coding_tpu_torch.train.sweep --experiment
+tied_vs_not --dataset_folder DIR --output_folder DIR [--resume true]
+[--device cpu] [config flags]``. ``SPARSE_CODING_CRASH_PLAN`` and
+``SPARSE_CODING_FAULT_PLAN`` drive the crash barriers and fault sites;
+``SPARSE_CODING_OBS_DIR`` collects the spans and metrics.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import shutil
+from pathlib import Path
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from sparse_coding_tpu_torch import obs, resolve_device
+from sparse_coding_tpu_torch.config import (
+    EnsembleArgs,
+    SyntheticEnsembleArgs,
+    _parse_value,
+)
+from sparse_coding_tpu_torch.data.chunk_store import (
+    ChunkStore,
+    ChunkWriter,
+    device_prefetch,
+    window_stacks,
+)
+from sparse_coding_tpu_torch.data.ingest import chunk_stream
+from sparse_coding_tpu_torch.data.shard_store import (
+    first_sound_chunk,
+    open_store,
+)
+from sparse_coding_tpu_torch.ensemble import Ensemble
+from sparse_coding_tpu_torch.metrics.core import (
+    fraction_variance_unexplained,
+    mean_l0,
+    mean_nonzero_activations,
+    mmcs_from_list,
+)
+from sparse_coding_tpu_torch.obs.perf import synchronize
+from sparse_coding_tpu_torch.resilience import lease
+from sparse_coding_tpu_torch.resilience.atomic import (
+    atomic_save_npy,
+    atomic_write_text,
+)
+from sparse_coding_tpu_torch.resilience.crash import (
+    crash_barrier,
+    register_crash_site,
+)
+from sparse_coding_tpu_torch.resilience.errors import (
+    CheckpointCorruptionError,
+)
+from sparse_coding_tpu_torch.resilience.preempt import (
+    PreemptionGuard,
+    SweepPreempted,
+)
+from sparse_coding_tpu_torch.train.guardian import Guardian, GuardianRollback
+from sparse_coding_tpu_torch.utils.artifacts import save_learned_dicts
+from sparse_coding_tpu_torch.utils.checkpoint import (
+    SUFFIX,
+    restore_ensemble,
+    save_ensemble,
+)
+from sparse_coding_tpu_torch.utils.logging import (
+    MetricsLogger,
+    make_hyperparam_name,
+)
+from sparse_coding_tpu_torch.utils.profiling import StepTimer
+
+logger_mod = logging.getLogger(__name__)
+
+register_crash_site("sweep.chunk",
+                    "end of one sweep chunk's train+checkpoint+artifact "
+                    "block (train/sweep.py)")
+register_crash_site("ckpt.swap",
+                    "mid checkpoint-set swap: old set renamed to "
+                    "ckpt_prev/, new set not yet renamed in "
+                    "(_swap_in_checkpoint_set)")
+
+# ensemble_init_fn(cfg, mesh, device=...) -> [(Ensemble, hypers, name)]
+EnsembleInitFn = Callable[..., list[tuple[Ensemble, list[dict], str]]]
+
+
+def init_synthetic_dataset(cfg: SyntheticEnsembleArgs) -> ChunkStore:
+    """Write a synthetic dataset to chunk files (float16 on disk), or open
+    the one already there. The generator is the port's, seeded from
+    ``cfg.seed``; its numbers differ from ``jax.random``'s."""
+    from sparse_coding_tpu_torch.data.synthetic import RandomDatasetGenerator
+
+    folder = Path(cfg.dataset_folder)
+    if (folder / "meta.json").exists():
+        return ChunkStore(folder)
+    gen = RandomDatasetGenerator.create(
+        torch.Generator().manual_seed(cfg.seed), cfg.activation_dim,
+        cfg.n_ground_truth_features, cfg.feature_num_nonzero,
+        cfg.feature_prob_decay, correlated=cfg.correlated_components)
+    writer = ChunkWriter(folder, cfg.activation_dim,
+                         chunk_size_gb=max(cfg.dataset_size * cfg.activation_dim
+                                           * 2 / cfg.n_chunks / 2**30, 1e-6),
+                         dtype="float16")
+    g = torch.Generator().manual_seed(cfg.seed + 1)
+    remaining = cfg.dataset_size
+    while remaining > 0:
+        n = min(remaining, 65536)
+        writer.add(gen.batch(g, n))
+        remaining -= n
+    writer.finalize({"synthetic": True})
+    atomic_save_npy(folder / "ground_truth_feats.npy", gen.feats.numpy())
+    return ChunkStore(folder)
+
+
+def _member_names(hypers: Sequence[dict], n_members: int) -> list[str]:
+    """Unique per-member stream names from the hyperparameters; colliding
+    names get an index suffix so log streams never merge."""
+    names = []
+    for i in range(n_members):
+        name = f"member{i}"
+        if i < len(hypers):
+            scalars = {k: v for k, v in hypers[i].items()
+                       if isinstance(v, (int, float)) and not isinstance(v, bool)}
+            if scalars:
+                name = make_hyperparam_name(scalars)
+        names.append(name)
+    return [f"{name}_{i}" if names.count(name) > 1 else name
+            for i, name in enumerate(names)]
+
+
+def _check_supported(cfg: EnsembleArgs, mesh) -> None:
+    """Raise on what the port cannot do yet, naming its ROADMAP item."""
+    if mesh is not None or cfg.mesh_data > 1 or cfg.mesh_model > 1:
+        raise NotImplementedError(
+            "meshes (mesh_data/mesh_model > 1) wait for the multi-GPU slice "
+            "(ROADMAP.md queue 1, item 11)")
+    if cfg.checkpoint_backend == "orbax":
+        raise NotImplementedError(
+            "checkpoint_backend='orbax' (sharded per-host writes) waits for "
+            "the multi-GPU slice (ROADMAP.md queue 1, item 11); 'msgpack' "
+            "selects the port's single-host checkpoints")
+    if cfg.checkpoint_backend != "msgpack":
+        raise ValueError(f"checkpoint_backend must be 'msgpack' or 'orbax', "
+                         f"got {cfg.checkpoint_backend!r}")
+    if cfg.profile_steps > 0:
+        raise NotImplementedError(
+            "profile_steps > 0 needs trace capture (obs/trace.py), not "
+            "ported yet (ROADMAP.md queue 1, item 14)")
+    if cfg.use_wandb:
+        raise NotImplementedError(
+            "wandb logging is not ported (ROADMAP.md queue 1, item 14); "
+            "metrics go to metrics.jsonl")
+    if cfg.train_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"train_dtype must be 'float32' or 'bfloat16', got "
+                         f"{cfg.train_dtype!r}")
+
+
+def _swap_in_checkpoint_set(out_dir: Path, staging: Path) -> None:
+    """Rename-swap a complete staged checkpoint set into ckpt/. The old
+    set stays as ckpt_prev/: it covers a crash at any instant of the swap
+    and later corruption of ckpt/ (``resume_sweep_state`` falls back to
+    it), at the cost of one more set on disk."""
+    ckpt_dir = out_dir / "ckpt"
+    prev = out_dir / "ckpt_prev"
+    with obs.span("sweep.ckpt_swap"):
+        if ckpt_dir.exists():
+            shutil.rmtree(prev, ignore_errors=True)
+            ckpt_dir.rename(prev)
+        # the swap's worst instant: ckpt/ is gone, the new set not yet
+        # named in — a kill here must leave resume falling back to
+        # ckpt_prev/
+        crash_barrier("ckpt.swap")
+        staging.rename(ckpt_dir)
+
+
+def _subtract_center(chunk, center: np.ndarray):
+    """Center a decoded chunk in place, in its own dtype: the mean is cast
+    down rather than the chunk up, so a bfloat16 chunk stays half width."""
+    if isinstance(chunk, torch.Tensor):
+        return chunk.sub_(torch.from_numpy(center).to(chunk.dtype))
+    chunk -= center.astype(chunk.dtype)
+    return chunk
+
+
+def sweep(
+    ensemble_init_fn: EnsembleInitFn,
+    cfg: EnsembleArgs,
+    store: Optional[ChunkStore] = None,
+    mesh=None,
+    log_every: int = 100,
+    image_metrics_every: Optional[int] = 10,
+    resume: bool = False,
+    device=None,
+) -> dict[str, list]:
+    """Run the sweep; returns ``{name: [(LearnedDict, hyperparams), ...]}``.
+
+    ``cfg.n_chunks`` limits the chunks per repetition. ``resume=True``
+    restores every ensemble and the batch rng from the newest complete
+    checkpoint set and skips the chunks it covers. ``device=None`` runs on
+    the card and raises without one."""
+    _check_supported(cfg, mesh)
+    dev = resolve_device(device)
+    out_dir = Path(cfg.output_folder)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cfg.save(out_dir / "config.json")
+
+    if store is None:
+        if isinstance(cfg, SyntheticEnsembleArgs):
+            store = init_synthetic_dataset(cfg)
+        else:
+            # a scrub-repaired store must train through its holes
+            store = open_store(cfg.dataset_folder, quarantine_corrupt=True)
+
+    ensembles = ensemble_init_fn(cfg, mesh, device=dev)
+    for ens, _, name in ensembles:
+        if not isinstance(ens, Ensemble):
+            raise NotImplementedError(
+                f"entry {name!r} is a {type(ens).__name__}; EnsembleGroup "
+                "buckets are not ported (ROADMAP.md queue 1, item 8)")
+    member_names = [_member_names(hypers, len(hypers))
+                    for _, hypers, _ in ensembles]
+    logger = MetricsLogger(out_dir, run_name=out_dir.name)
+
+    guardian: Optional[Guardian] = None
+    if cfg.guardian:
+        guardian = Guardian(out_dir, ensembles, member_names,
+                            member_fraction=cfg.guardian_member_fraction,
+                            rollback_budget=cfg.guardian_rollback_budget,
+                            fresh=not resume)
+        # a chunk the guardian quarantines must replay as a positional hole
+        store.quarantine_corrupt = True
+
+    rng = np.random.default_rng(cfg.seed)
+    n_chunks = min(cfg.n_chunks, store.n_chunks)
+    chunk_order = np.concatenate([rng.permutation(n_chunks)
+                                  for _ in range(cfg.n_repetitions)])
+    # the rollback target when an incident lands before the first set
+    rng0_state = rng.bit_generator.state
+
+    chunks_done = 0
+    if resume:
+        t0 = obs.monotime()
+        chunks_done, rng_state = resume_sweep_state(ensembles, out_dir)
+        if rng_state is not None:
+            rng.bit_generator.state = rng_state
+        if guardian is not None:
+            # a restored checkpoint predates the quarantines it resumes past
+            guardian.refreeze()
+        obs.record_span("sweep.resume", obs.monotime() - t0,
+                        chunks_done=chunks_done)
+
+    center = None
+    if cfg.center_activations:
+        # the reference centers on chunk 0; over a scrub-repaired store
+        # the first sound chunk stands in
+        center = store.chunk_mean(first_sound_chunk(store))
+
+    # bfloat16 keeps activations half width from disk through the
+    # host→device copy; the step promotes them to float32 on the device
+    train_dtype = (torch.bfloat16 if cfg.train_dtype == "bfloat16"
+                   else np.float32)
+    if cfg.save_every_chunks:
+        save_points = set(range(cfg.save_every_chunks - 1, len(chunk_order),
+                                cfg.save_every_chunks))
+    else:
+        save_points = {2**k - 1 for k in range(3, 10)}
+    step = last_log = 0
+    # scan_steps > 1: windows of K steps through run_steps
+    scan_k = max(1, int(cfg.scan_steps))
+    timer = StepTimer(warmup=3 if scan_k == 1 else 1)
+    # every Nth window is bracketed by syncs → train.mfu (obs/perf.py)
+    perf_probe = (obs.DeviceStepProbe("train", every=cfg.perf_probe_every,
+                                      device=dev)
+                  if cfg.perf_probe_every > 0 else None)
+    # the JAX sweep's executable-cache warm start has no counterpart yet
+    # (ROADMAP.md queue 1, item 13)
+
+    def _open_reader(from_chunk: int):
+        """(positions, reader) from ``from_chunk`` to the end; re-opened
+        after a rollback, with the quarantined chunk now a hole."""
+        positions = list(range(from_chunk, len(chunk_order)))
+        return positions, chunk_stream(
+            store, [int(chunk_order[ci]) for ci in positions],
+            dtype=train_dtype, streams=cfg.ingest_streams or None)
+
+    def _reinit_states() -> None:
+        """The rollback target before any checkpoint set exists: the init
+        is a function of cfg.seed (or of carried inits), so a fresh
+        ensemble_init_fn reproduces the chunk-0 state bitwise."""
+        for (e_old, _, _), (e_new, _, _) in zip(
+                ensembles, ensemble_init_fn(cfg, mesh, device=dev)):
+            e_old.state = e_new.state
+
+    todo, reader = _open_reader(chunks_done)
+    # SIGTERM sets a flag polled at chunk boundaries: the chunk finishes,
+    # a checkpoint set is forced, and SweepPreempted propagates
+    preempt = PreemptionGuard()
+    preempt.__enter__()  # paired in the finally (keeps the loop unindented)
+    try:
+        # one pass is the whole sweep; a guardian rollback restores the
+        # last-good set and replays with the offending chunk quarantined
+        while True:
+            try:
+                for ci, chunk in zip(todo, reader):
+                    # a fresh throughput window per chunk: checkpoint and
+                    # artifact time must not dilute the training rate
+                    timer.reset()
+                    t_chunk = obs.monotime()
+                    rows = 0
+                    if chunk is not None and center is not None:
+                        chunk = _subtract_center(chunk, center)
+                    # a quarantined chunk (None) trains nothing, but the
+                    # boundary bookkeeping below still runs at this ci
+                    batches = (iter(()) if chunk is None
+                               else store.batches(chunk, cfg.batch_size, rng))
+                    if guardian is not None:
+                        # fault site sweep.anomaly: the divergence drills
+                        batches = map(guardian.inject_anomaly, batches)
+                    if scan_k > 1:
+                        batches = window_stacks(batches, scan_k)
+                    for batch in device_prefetch(batches, dev):
+                        k_steps = batch.shape[0] if scan_k > 1 else 1
+                        n_rows = batch.shape[-2] * k_steps
+                        step += k_steps
+                        rows += n_rows
+                        do_log = step - last_log >= log_every
+                        if do_log:
+                            last_log = step
+                        # log windows sync mid-window: never sampled
+                        sample_perf = (perf_probe is not None and not do_log
+                                       and perf_probe.should_sample())
+                        if sample_perf:
+                            synchronize(dev)
+                            t_perf = obs.monotime()
+                        for ens_idx, (ensemble, hypers, name) in enumerate(
+                                ensembles):
+                            aux = (ensemble.run_steps(batch) if scan_k > 1
+                                   else ensemble.step_batch(batch))
+                            if guardian is not None:
+                                guardian.observe(ens_idx, name, aux)
+                            if do_log:
+                                _log_window(logger, step, ens_idx, name, aux,
+                                            scan_k > 1, member_names[ens_idx],
+                                            guardian)
+                        if sample_perf:
+                            synchronize(dev)
+                            perf_probe.record(
+                                obs.monotime() - t_perf,
+                                cost=obs.combine_costs(
+                                    [e.step_cost(batch.shape[-2])
+                                     for e, _, _ in ensembles]),
+                                steps=k_steps)
+                        timer.tick(n_rows)
+                        lease.beat()  # a finished window is progress
+                        if do_log:
+                            logger.log({"activations_per_sec":
+                                        timer.items_per_sec}, step=step)
+                    # the guardian's one host sync per chunk, before the
+                    # checkpoint, so a poisoned chunk's state is never
+                    # checkpointed
+                    if guardian is not None:
+                        guardian.check_boundary(ci, int(chunk_order[ci]),
+                                                store)
+                    synchronize(dev)
+                    train_s = obs.monotime() - t_chunk
+                    last_chunk = ci == len(chunk_order) - 1
+                    cadence = cfg.checkpoint_every_chunks
+                    # sampled once per boundary; a signal landing later is
+                    # honored at the next one
+                    preempted = preempt.requested
+                    if ((cadence > 0 and (ci + 1) % cadence == 0)
+                            or last_chunk or preempted):
+                        _save_checkpoint_set(ensembles, out_dir, ci + 1,
+                                             rng.bit_generator.state)
+                    if (ci in save_points or last_chunk) and chunk is not None:
+                        _save_artifacts(
+                            ensembles, out_dir / f"_{ci}", chunk, logger,
+                            image_metrics=image_metrics_every is not None
+                            and (ci + 1) % image_metrics_every == 0,
+                            guardian=guardian, device=dev)
+                    # chunk telemetry before the barrier: a kill there
+                    # leaves the span as durable as the chunk's artifacts
+                    snap = timer.snapshot()
+                    timer.publish(prefix="sweep")
+                    obs.record_span("sweep.chunk", obs.monotime() - t_chunk,
+                                    index=ci, chunk=int(chunk_order[ci]),
+                                    steps=snap["steps"], rows=rows,
+                                    train_s=round(train_s, 6),
+                                    acts_per_sec=round(snap["items_per_sec"],
+                                                       1))
+                    obs.flush_metrics()
+                    # one chunk's train+checkpoint+artifact block is durable:
+                    # the crash-resume unit
+                    crash_barrier("sweep.chunk")
+                    if preempted and not last_chunk:
+                        raise SweepPreempted(ci + 1)
+            except GuardianRollback as rollback:
+                # the incident and the chunk quarantine are durable; close
+                # the stream, restore the last-good state, replay
+                reader.close()
+
+                def _restore():
+                    done, rng_state = resume_sweep_state(ensembles, out_dir)
+                    if done == 0 and rng_state is None:
+                        _reinit_states()
+                        rng_state = rng0_state
+                    return done, rng_state
+
+                chunks_done, rng_state = guardian.rollback_restore(_restore)
+                if rng_state is not None:
+                    rng.bit_generator.state = rng_state
+                logger_mod.warning(
+                    "guardian rollback (%s at %s): resuming from chunk %d "
+                    "with chunk %d quarantined", rollback.incident,
+                    rollback.site, chunks_done, rollback.chunk_index)
+                todo, reader = _open_reader(chunks_done)
+                continue
+            break
+    finally:
+        preempt.__exit__(None, None, None)
+        reader.close()
+        logger.close()
+    result = {}
+    for ensemble, hypers, name in ensembles:
+        tagged = list(zip(ensemble.to_learned_dicts(), hypers))
+        if guardian is not None:
+            # quarantined members ship tagged diverged=True, as every
+            # artifact does
+            tagged = guardian.tag_hypers(name, tagged)
+        result[name] = tagged
+    return result
+
+
+def _log_window(logger: MetricsLogger, step: int, ens_idx: int, name: str,
+                aux, stacked: bool, names: Sequence[str],
+                guardian: Optional[Guardian]) -> None:
+    """One metrics line for an entry: the window's last step, aggregates
+    over the live members (a quarantined member's NaN loss must not poison
+    them; its own stream still logs) and per-member streams."""
+    last = (lambda v: v[-1]) if stacked else (lambda v: v)
+    losses = last(aux.losses["loss"]).detach().cpu().numpy()
+    l0 = last(aux.l0).detach().float().cpu().numpy()
+    mask = np.ones(len(losses), np.bool_)
+    if guardian is not None:
+        mask[guardian.dead_indices(ens_idx, name)] = False
+    rec = {}
+    if mask.any():
+        rec = {f"{name}/loss_mean": float(np.mean(losses[mask])),
+               f"{name}/loss_max": float(np.max(losses[mask])),
+               f"{name}/l0_mean": float(np.mean(l0[mask]))}
+    if not mask.all():
+        rec[f"{name}/quarantined"] = int((~mask).sum())
+    for mi, (loss_i, l0_i) in enumerate(zip(losses, l0)):
+        member = names[mi] if mi < len(names) else f"member{mi}"
+        rec[f"{name}/{member}/loss"] = float(loss_i)
+        rec[f"{name}/{member}/l0"] = float(l0_i)
+    logger.log(rec, step=step)
+
+
+def _save_checkpoint_set(ensembles, out_dir: Path, chunks_done: int,
+                         rng_state: dict) -> None:
+    """Write every ensemble's state to a staging directory, then swap the
+    complete set in: a crash mid-save never leaves ensembles at mixed
+    chunks_done. The rng state lets the data stream resume exactly."""
+    t0 = obs.monotime()
+    staging = out_dir / "ckpt_staging"
+    shutil.rmtree(staging, ignore_errors=True)
+    extra = {"chunks_done": chunks_done, "rng_state": rng_state}
+    for ensemble, _, name in ensembles:
+        save_ensemble(ensemble, staging / f"{name}_0{SUFFIX}", extra=extra)
+    nbytes = sum(p.stat().st_size for p in staging.iterdir())
+    _swap_in_checkpoint_set(out_dir, staging)
+    obs.record_span("sweep.checkpoint", obs.monotime() - t0,
+                    chunks_done=chunks_done, bytes=nbytes)
+
+
+def _save_artifacts(ensembles, folder: Path, chunk, logger: MetricsLogger,
+                    image_metrics: bool = False, guardian=None,
+                    device="cpu") -> None:
+    """Learned dicts and quick evals. Quarantined members are tagged
+    ``diverged=True``, skipped by the evals and left out of the image
+    panels: a NaN dictionary must never poison an eval."""
+    folder.mkdir(parents=True, exist_ok=True)
+    sel = np.random.default_rng(0).permutation(chunk.shape[0])[:4096]
+    # evals run in float32 even when training streams bfloat16
+    rows = (chunk[torch.from_numpy(sel)] if isinstance(chunk, torch.Tensor)
+            else torch.from_numpy(np.ascontiguousarray(chunk[sel])))
+    eval_batch = rows.to(device=device, dtype=torch.float32)
+    for ensemble, hypers, name in ensembles:
+        tagged = list(zip(ensemble.to_learned_dicts(), hypers))
+        if guardian is not None:
+            tagged = guardian.tag_hypers(name, tagged)
+        save_learned_dicts(tagged, folder / f"{name}_learned_dicts.pkl")
+        evals, live = [], []
+        for di, (ld, hyper) in enumerate(tagged):
+            scalars = {k: v for k, v in hyper.items()
+                       if isinstance(v, (int, float, str))}
+            if hyper.get("diverged"):
+                evals.append({**scalars, "skipped": True})
+                continue
+            ld = ld.to(device)
+            live.append((di, ld))
+            evals.append({**scalars,
+                          "fvu": float(fraction_variance_unexplained(
+                              ld, eval_batch)),
+                          "l0": float(mean_l0(ld, eval_batch))})
+        atomic_write_text(folder / f"{name}_eval.json",
+                          json.dumps(evals, indent=2))
+        if image_metrics:
+            # the MMCS grid and per-dict sparsity histograms (the
+            # reference's wandb image panels, as files)
+            from sparse_coding_tpu_torch.plotting.helpers import plot_hist
+
+            if len(live) > 1:
+                grid = mmcs_from_list([ld for _, ld in live[:8]])
+                atomic_save_npy(folder / f"{name}_mmcs_grid.npy",
+                                grid.numpy())
+            for di, ld in live:
+                freqs = mean_nonzero_activations(ld, eval_batch)
+                plot_hist(torch.log10(torch.clamp(freqs, min=1e-6)),
+                          x_label="log10 firing frequency",
+                          y_label="features",
+                          save_path=folder / f"{name}_{di}_sparsity_hist.png")
+
+
+def _restore_checkpoint_set(
+        targets: Sequence[tuple[Ensemble, Path]]) -> tuple[int, Optional[dict]]:
+    chunks_done: Optional[int] = None
+    rng_state = None
+    for ens, path in targets:
+        meta = restore_ensemble(ens, path)
+        done = int(meta.get("chunks_done", 0))
+        if chunks_done is None or done < chunks_done:
+            chunks_done = done
+            rng_state = meta.get("rng_state", rng_state)
+    return (chunks_done or 0), rng_state
+
+
+def resume_sweep_state(ensembles: Sequence[tuple[Ensemble, list, str]],
+                       out_dir: str | Path) -> tuple[int, Optional[dict]]:
+    """Restore every ensemble from the newest complete checkpoint set;
+    returns (chunks_done, the batch rng's bit-generator state), or (0,
+    None) without a set. ``ckpt/`` only ever holds a consistent set;
+    ``ckpt_prev/`` covers a crash inside the swap and a corrupt
+    ``ckpt/``: a set failing its digests raises
+    :class:`CheckpointCorruptionError` and the older set is tried. Only
+    when every present set is corrupt does the error propagate — never a
+    silent restart from scratch. min(chunks_done) over the set guards
+    against an ensemble skipping a chunk it never trained on."""
+    out_dir = Path(out_dir)
+    last_err: Optional[CheckpointCorruptionError] = None
+    for ckpt_dir in (out_dir / "ckpt", out_dir / "ckpt_prev"):
+        if not ckpt_dir.exists():
+            continue
+        targets = [(ens, ckpt_dir / f"{name}_0{SUFFIX}")
+                   for ens, _, name in ensembles]
+        if not all(path.exists() for _, path in targets):
+            continue  # incomplete set: fall through to the older one
+        try:
+            return _restore_checkpoint_set(targets)
+        except CheckpointCorruptionError as e:
+            last_err = e
+            logger_mod.warning(
+                "checkpoint set %s is corrupt (%s); falling back to the "
+                "previous set", ckpt_dir.name, e)
+    if last_err is not None:
+        raise last_err
+    return 0, None
+
+
+def main(argv=None) -> None:
+    """CLI: ``python -m sparse_coding_tpu_torch.train.sweep --experiment
+    dense_l1_range --dataset_folder chunks/ --output_folder out/`` plus the
+    sweep flags ``--synthetic``, ``--resume``, ``--device`` (default: the
+    card), ``--log_every`` and ``--image_metrics_every`` (``none`` turns
+    the image panels off) and any config flag."""
+    import argparse
+    import sys
+
+    from sparse_coding_tpu_torch.train.experiments import EXPERIMENTS
+
+    argv_list = list(argv) if argv is not None else sys.argv[1:]
+    if "-h" in argv_list or "--help" in argv_list:
+        print(f"sweep flags: --experiment {{{','.join(sorted(EXPERIMENTS))}}} "
+              "--synthetic BOOL --resume BOOL --device DEV --log_every N "
+              "--image_metrics_every N|none\nconfig flags:")
+    parser = argparse.ArgumentParser(add_help=False)
+    parser.add_argument("--experiment", default="dense_l1_range",
+                        choices=sorted(EXPERIMENTS))
+    parser.add_argument("--synthetic", default="false")
+    parser.add_argument("--resume", default="false")
+    parser.add_argument("--device", default=None)
+    parser.add_argument("--log_every", type=int, default=100)
+    parser.add_argument("--image_metrics_every", default="10")
+    ns, rest = parser.parse_known_args(argv_list)
+
+    synthetic = _parse_value(ns.synthetic, bool)
+    cfg = (SyntheticEnsembleArgs if synthetic else EnsembleArgs).from_cli(rest)
+    every = (None if ns.image_metrics_every.lower() == "none"
+             else int(ns.image_metrics_every))
+    try:
+        result = sweep(EXPERIMENTS[ns.experiment], cfg,
+                       resume=_parse_value(ns.resume, bool),
+                       device=ns.device, log_every=ns.log_every,
+                       image_metrics_every=every)
+    except SweepPreempted as e:
+        # a SIGTERM shutdown is a success: the state is durable, and
+        # --resume true continues bitwise
+        print(f"sweep: {e}")
+        return
+    for name, dicts in result.items():
+        print(f"{name}: {len(dicts)} dicts -> {cfg.output_folder}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,194 @@
+"""Full-state checkpoints for exact resume (the port's counterpart of the
+JAX package's ``utils/checkpoint.py``).
+
+A checkpoint is an ensemble's whole training state — params, buffers,
+Adam mu/nu/count, lrs, step and live mask — in the port's own tensor-file
+format (``<name>.tensors``; flax msgpack is not on the card's host, and
+cross-loading with the JAX package is not a goal), plus a JSON sidecar
+``<name>.tensors.meta.json`` with the payload's sha256 and the caller's
+extras (the sweep's data cursor: ``chunks_done`` and the numpy
+``rng_state``).
+
+The tensor file is ``MAGIC``, the header's length (8 bytes, little
+endian), a JSON header listing each leaf's key, dtype, shape and offset,
+then the leaves' raw little-endian C-order bytes in header order. Its
+bytes depend only on the state, so two equal states give equal files.
+
+Hardening, as in the JAX package: payload and sidecar are written
+atomically (tmp + fsync + rename; sidecar last, so its digest certifies
+the payload beside it; the payload is streamed and hashed as it is
+written, never joined in memory), fault sites ``ckpt.save`` and ``ckpt.restore``
+cover both paths, and a digest mismatch or a payload that does not load
+raises :class:`CheckpointCorruptionError`, which
+``train/sweep.py::resume_sweep_state`` falls back from.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import struct
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sparse_coding_tpu_torch.ensemble import Ensemble
+from sparse_coding_tpu_torch.resilience.atomic import (
+    atomic_write_text,
+    fsync_dir,
+)
+from sparse_coding_tpu_torch.resilience.errors import (
+    CheckpointCorruptionError,
+)
+from sparse_coding_tpu_torch.resilience.faults import (
+    fault_point,
+    register_fault_site,
+)
+from sparse_coding_tpu_torch.resilience.manifest import bytes_sha256
+
+SUFFIX = ".tensors"
+MAGIC = b"SCTENSOR"
+_HEADER_LEN = struct.Struct("<Q")
+_DTYPES = {torch.float32: "float32", torch.int32: "int32",
+           torch.bool: "bool", torch.int64: "int64"}  # what a state holds
+
+register_fault_site("ckpt.save", "checkpoint save (utils/checkpoint.py)")
+register_fault_site("ckpt.restore", "checkpoint restore (utils/checkpoint.py)")
+
+
+def _leaves(state) -> dict[str, torch.Tensor]:
+    """The state's tensors under flat keys, in a fixed order."""
+    out = {}
+    for tree in ("params", "buffers", "mu", "nu"):
+        for k, v in getattr(state, tree).items():
+            out[f"{tree}/{k}"] = v
+    out.update(count=state.count, lrs=state.lrs, step=state.step)
+    if state.live is not None:
+        out["live"] = state.live
+    return out
+
+
+def _host_arrays(leaves: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    return {k: t.detach().cpu().contiguous().numpy()
+            for k, t in leaves.items()}
+
+
+def _header(arrays: dict[str, np.ndarray]) -> bytes:
+    entries, offset = [], 0
+    for key, a in arrays.items():
+        entries.append({"key": key, "dtype": a.dtype.name,
+                        "shape": list(a.shape), "offset": offset})
+        offset += a.nbytes
+    head = json.dumps({"format": 1, "leaves": entries},
+                      separators=(",", ":")).encode()
+    return MAGIC + _HEADER_LEN.pack(len(head)) + head
+
+
+def _write_payload(path: Path, arrays: dict[str, np.ndarray]) -> tuple:
+    """Stream the tensor file to ``path`` atomically (tmp + fsync +
+    rename), hashing as it writes: no copy of the state is joined in
+    memory. Returns (sha256 hex digest, bytes written)."""
+    digest = hashlib.sha256()
+    tmp = path.parent / f".{path.name}.tmp.{os.getpid()}"
+    size = 0
+    try:
+        with open(tmp, "wb") as f:
+            for part in (_header(arrays), *arrays.values()):
+                view = memoryview(part).cast("B")
+                digest.update(view)
+                f.write(view)
+                size += view.nbytes
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        tmp.unlink(missing_ok=True)
+        raise
+    fsync_dir(path.parent)
+    return digest.hexdigest(), size
+
+
+def _decode(payload) -> dict[str, np.ndarray]:
+    payload = memoryview(payload)
+    if bytes(payload[:len(MAGIC)]) != MAGIC:
+        raise ValueError("not a tensor file (bad magic)")
+    at = len(MAGIC) + _HEADER_LEN.size
+    (n,) = _HEADER_LEN.unpack(payload[len(MAGIC):at])
+    head = json.loads(bytes(payload[at:at + n]))
+    base = at + n
+    out = {}
+    for leaf in head["leaves"]:
+        dt = np.dtype(leaf["dtype"])
+        count = int(np.prod(leaf["shape"], dtype=np.int64))
+        arr = np.frombuffer(payload, dtype=dt, count=count,
+                            offset=base + int(leaf["offset"]))
+        out[leaf["key"]] = arr.reshape(leaf["shape"])
+    return out
+
+
+def _meta_path(path: Path) -> Path:
+    return path.with_suffix(path.suffix + ".meta.json")
+
+
+def save_ensemble(ens: Ensemble, path: str | Path,
+                  extra: Optional[dict] = None) -> None:
+    """Write ``ens``'s full state to ``path`` and its sidecar."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    state = ens.state
+    arrays = _host_arrays(_leaves(state))
+    fault_point("ckpt.save")
+    sha, size = _write_payload(path, arrays)
+    meta = {"sig_name": state.sig_name,
+            "static_buffers": [list(kv) for kv in state.static_buffers],
+            "payload_sha256": sha, "payload_bytes": size,
+            **(extra or {})}
+    # the sidecar last: its digest certifies the payload beside it
+    atomic_write_text(_meta_path(path),
+                      json.dumps(meta, indent=2, default=str))
+
+
+def restore_ensemble(ens: Ensemble, path: str | Path) -> dict:
+    """Load a checkpoint into a freshly built Ensemble of the same shape,
+    in place; returns the sidecar (with the caller's extras). A state
+    saved without a live mask restores with every member live."""
+    path = Path(path)
+    fault_point("ckpt.restore")
+    meta_path = _meta_path(path)
+    meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
+    # a writable buffer: the restored tensors share it, no further copy
+    payload = bytearray(path.stat().st_size)
+    with open(path, "rb") as f:
+        f.readinto(payload)
+    want = meta.get("payload_sha256")
+    if want is not None and bytes_sha256(payload) != want:
+        raise CheckpointCorruptionError(
+            path, "payload sha256 does not match the sidecar manifest")
+    template = _leaves(ens.state)
+    try:
+        arrays = _decode(payload)
+        loaded = {}
+        for key, t in template.items():
+            if key == "live" and key not in arrays:
+                loaded[key] = torch.ones_like(t)
+                continue
+            a = arrays[key]
+            if tuple(a.shape) != tuple(t.shape) or a.dtype != np.dtype(
+                    _DTYPES[t.dtype]):
+                raise ValueError(f"{key}: {a.dtype}{list(a.shape)} where "
+                                 f"the ensemble holds {t.dtype}"
+                                 f"{list(t.shape)}")
+            loaded[key] = torch.from_numpy(a).to(t.device)
+    except (ValueError, KeyError, TypeError, struct.error) as e:
+        raise CheckpointCorruptionError(
+            path, f"payload does not load: {e}") from e
+    tree = lambda name: {k.split("/", 1)[1]: v for k, v in loaded.items()
+                         if k.startswith(name + "/")}
+    ens.state = ens.state.replace(
+        params=tree("params"), buffers=tree("buffers"), mu=tree("mu"),
+        nu=tree("nu"), count=loaded["count"], lrs=loaded["lrs"],
+        step=loaded["step"], live=loaded.get("live"))
+    return meta

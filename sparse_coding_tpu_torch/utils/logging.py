@@ -1,6 +1,6 @@
 """Run metrics logging: one JSON object per line in
-``<output_folder>/metrics.jsonl`` (wandb and the obs event sink are later
-work)."""
+``<output_folder>/metrics.jsonl`` (wandb is ROADMAP.md queue 1, item 14;
+spans and events go to the obs sink, ``obs/sink.py``)."""
 
 from __future__ import annotations
 
@@ -44,3 +44,10 @@ class MetricsLogger:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def make_hyperparam_name(hyperparams: dict[str, Any]) -> str:
+    """A stable stream name from hyperparameters (sorted keys; floats as
+    ``%.2e``), the JAX package's naming."""
+    return "_".join(f"{k}{v:.2e}" if isinstance(v, float) else f"{k}{v}"
+                    for k, v in sorted(hyperparams.items()))

@@ -111,7 +111,8 @@ def test_sweep_without_a_card_raises(tmp_path):
         basic_l1_sweep(tmp_path, tmp_path / "out", L1_VALUES)
 
 
-@pytest.mark.parametrize("cls", ["DataArgs", "EnsembleArgs", "BigSAEArgs"])
+@pytest.mark.parametrize("cls", ["DataArgs", "EnsembleArgs",
+                                 "SyntheticEnsembleArgs", "BigSAEArgs"])
 def test_config_matches_jax(cls):
     """Same fields, defaults and CLI parsing as the JAX package's."""
     j, t = getattr(jconfig, cls), getattr(tconfig, cls)
@@ -120,9 +121,12 @@ def test_config_matches_jax(cls):
     assert list(tf) == list(jf)
     assert t().to_dict() == j().to_dict()
     argv = ["--seed", "3", "--dataset_folder", "acts"]
-    if cls == "EnsembleArgs":
+    if cls in ("EnsembleArgs", "SyntheticEnsembleArgs"):
         argv += ["--batch_size", "512", "--fused_path", "two_stage",
                  "--tied_ae", "true", "--lr", "3e-4"]
+    if cls == "SyntheticEnsembleArgs":
+        argv += ["--dataset_size", "4096", "--correlated_components", "true",
+                 "--feature_prob_decay", "0.95"]
     if cls == "BigSAEArgs":
         argv += ["--n_feats", "4096", "--l1_alpha", "3e-4",
                  "--resurrect_every", "0", "--scan_steps", "4"]
