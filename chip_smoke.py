@@ -68,7 +68,23 @@ Phases — any failure raises, and the script exits non-zero with no result:
    sweep's
    activations/s, the checkpoint seconds per chunk, the resume time and
    the probe's ``train.mfu``;
-9. summary: one ``{"kernels": [...]}`` line, the card's name and power
+9. the full sweep's host I/O: phase 8's store re-sharded into 3 + 3
+   chunks (``data/shard_store.py``) and ``--checkpoint_backend orbax``
+   (the deferred swap, ``utils/orbax_ckpt.py``) at phase 8's shape; (a)
+   each kernel launches once per step and the learned dicts, eval.json
+   and final ``ckpt/`` files are bitwise phase 8 (a)'s msgpack run over
+   the flat store; (b) a child SIGKILLed at ``sweep.chunk`` hit 3, while
+   the chunk-3 set is being written, leaves chunk 2's set in ``ckpt/``
+   and resumes from it bitwise; (c) a child SIGTERMed mid-run exits 0
+   with its issued set swapped in and resumes bitwise; (d) a
+   ``SPARSE_CODING_FAULT_PLAN`` error at ``ckpt.save`` on the second set
+   fails the child with the typed error and leaves the first set in
+   ``ckpt/``; (e) measured beside phase 8's run: acts/s, chunk wall, the
+   set's time in the sweep (issue), the wait before each swap, the
+   workers' writes, the read path that served the chunks (native or
+   np.load) and the host→device stage; (f) both backends over 4 chunks of
+   262,144 rows, bitwise equal to each other, their chunk walls measured;
+10. summary: one ``{"kernels": [...]}`` line, the card's name and power
    limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds the four chunked ensemble kernels against their plain
@@ -983,7 +999,8 @@ def untied_bwd_extras(inp: dict) -> dict:
 
 # --- phases 3-5: main paths and their autodiff references ---------------------
 
-def write_store(folder: Path, n_rows: int, seed: int) -> None:
+def write_store(folder: Path, n_rows: int, seed: int,
+                rows_per_chunk: int = ROWS_PER_CHUNK) -> None:
     """Synthetic activations with the repo's generator, written by the
     port's ChunkWriter (bfloat16 on disk, as harvests write them)."""
     from sparse_coding_tpu_torch.data.chunk_store import ChunkWriter
@@ -991,9 +1008,9 @@ def write_store(folder: Path, n_rows: int, seed: int) -> None:
 
     g = torch.Generator(DEV).manual_seed(seed)
     gen = RandomDatasetGenerator.create(g, D, 2 * N_FEATS, 32, 0.999)
-    w = ChunkWriter(folder, D, chunk_size_gb=ROWS_PER_CHUNK * D * 2 / 2**30,
+    w = ChunkWriter(folder, D, chunk_size_gb=rows_per_chunk * D * 2 / 2**30,
                     dtype="bfloat16")
-    if w.rows_per_chunk != ROWS_PER_CHUNK:
+    if w.rows_per_chunk != rows_per_chunk:
         raise AssertionError(f"rows per chunk {w.rows_per_chunk}")
     for lo in range(0, n_rows, 8192):
         w.add(gen.batch(g, min(8192, n_rows - lo)))
@@ -1804,10 +1821,11 @@ def sweep_in_process(args: list[str], obs_dir: Path, fault=None) -> float:
 
 
 def sweep_subprocess(args: list[str], obs_dir: Path, crash_plan: str = "",
-                     sigterm_when: Path = None) -> subprocess.CompletedProcess:
+                     sigterm_when: Path = None,
+                     fault_plan: str = "") -> subprocess.CompletedProcess:
     """``python -m sparse_coding_tpu_torch.train.sweep`` in a child, with
-    an optional crash plan; ``sigterm_when``: SIGTERM the child once that
-    file exists."""
+    an optional crash or fault plan; ``sigterm_when``: SIGTERM the child
+    once that file exists."""
     import os
     import signal
 
@@ -1816,6 +1834,8 @@ def sweep_subprocess(args: list[str], obs_dir: Path, crash_plan: str = "",
     env.pop("SPARSE_CODING_CRASH_PLAN", None)
     if crash_plan:
         env["SPARSE_CODING_CRASH_PLAN"] = crash_plan
+    if fault_plan:
+        env["SPARSE_CODING_FAULT_PLAN"] = fault_plan
     proc = subprocess.Popen(
         [sys.executable, "-m", "sparse_coding_tpu_torch.train.sweep", *args],
         cwd=Path(__file__).resolve().parent, env=env, text=True,
@@ -1871,12 +1891,16 @@ def dicts_equal(a: list, b: list, skip=()) -> list[int]:
 
 
 def assert_bitwise_run(out: Path, ref: Path, what: str) -> None:
-    """Final learned dicts and the final checkpoint set bitwise equal."""
+    """Final learned dicts, evals and checkpoint set bitwise equal."""
     for name in ("tied", "untied"):
         bad = dicts_equal(final_dicts(out, name), final_dicts(ref, name))
         if bad:
             raise AssertionError(f"{what}: {name} members {bad} differ from "
                                  "the uninterrupted run's")
+        f = Path(f"_{SWEEP_CHUNKS - 1}") / f"{name}_eval.json"
+        if (out / f).read_bytes() != (ref / f).read_bytes():
+            raise AssertionError(f"{what}: {f} differs from the "
+                                 "uninterrupted run's")
         for suffix in (".tensors", ".tensors.meta.json"):
             f = f"{name}_0{suffix}"
             if (out / "ckpt" / f).read_bytes() != (ref / "ckpt" / f).read_bytes():
@@ -1909,6 +1933,20 @@ def sweep_numbers(events: list[dict]) -> dict:
     }
 
 
+def sweep_launches() -> dict:
+    """Every launch count of one tied_vs_not sweep: each kernel of both
+    families once per step, their parts per their schedules, K8/K9
+    none."""
+    from sparse_coding_tpu_torch.ops import _build
+
+    shape = (SWEEP_MEMBERS, BATCH, N_FEATS)
+    want = {k: SWEEP_STEPS if k in TIED_KERNELS + UNTIED_KERNELS else 0
+            for k in _build.LAUNCHES}
+    want.update(part_launches(True, SWEEP_STEPS, shape))
+    want.update(part_launches(False, SWEEP_STEPS, shape))
+    return want
+
+
 def sweep_phase(store: Path, tmp: Path) -> dict:
     """Phase 8 — the full sweep through its CLI: (a) the kernels launch
     once per step and the logged losses are finite; (b) SIGKILL at
@@ -1919,7 +1957,8 @@ def sweep_phase(store: Path, tmp: Path) -> dict:
     back and replays bitwise the run over the store with that chunk
     quarantined; (f) dict_ratio at the masked shape on its kernels; (g)
     the same sweep on autodiff agrees with the kernel run; (h) bfloat16
-    training runs on the kernels."""
+    training runs on the kernels. (a)'s output stays for phase 9, in
+    ``rep["a"]["out"]``."""
     import shutil
 
     from sparse_coding_tpu_torch.data.ledger import (
@@ -1937,11 +1976,7 @@ def sweep_phase(store: Path, tmp: Path) -> dict:
     _build.reset_launches()
     wall = sweep_in_process(sweep_args(store, out_a), tmp / "obs_a")
     launches = dict(_build.LAUNCHES)
-    shape = (SWEEP_MEMBERS, BATCH, N_FEATS)
-    want = {k: SWEEP_STEPS if k in TIED_KERNELS + UNTIED_KERNELS else 0
-            for k in _build.LAUNCHES}
-    want.update(part_launches(True, SWEEP_STEPS, shape))
-    want.update(part_launches(False, SWEEP_STEPS, shape))
+    want = sweep_launches()
     if launches != want:
         raise AssertionError(f"(a) launches {launches}, expected {want}")
     logged = logged_steps(out_a)
@@ -1955,7 +1990,8 @@ def sweep_phase(store: Path, tmp: Path) -> dict:
     if bad:
         raise AssertionError(f"(a) non-finite logged values {bad[:5]}")
     nums = sweep_numbers(read_events(tmp / "obs_a"))
-    rep["a"] = {"wall_s": wall, "launches": launches, **nums}
+    rep["a"] = {"wall_s": wall, "launches": launches, "out": str(out_a),
+                **nums, "host_io": host_io_numbers(read_events(tmp / "obs_a"))}
     log(f"  (a) tied_vs_not, {SWEEP_STEPS} steps in {wall:.1f} s: each "
         f"kernel {SWEEP_STEPS} launches; {nums['acts_per_s']:.0f} acts/s "
         f"(chunks 2-{SWEEP_CHUNKS}, both ensembles, rows over training "
@@ -2135,7 +2171,230 @@ def sweep_phase(store: Path, tmp: Path) -> dict:
     log(f"  (h) train_dtype bfloat16 (half-width batches to the card): each "
         f"kernel {SWEEP_STEPS} launches; bitwise equal to (a)")
     shutil.rmtree(out)
+    return rep
+
+
+# --- phase 9: the full sweep's host I/O ---------------------------------------
+
+# phase 8's store re-sharded into 3 + 3 chunks; the longer chunk of the
+# overlap measurement: 262,144 rows = 128 steps, 4 chunks
+SHARDS = (3, 3)
+LONG_ROWS_PER_CHUNK, LONG_CHUNKS = 8 * ROWS_PER_CHUNK, 4
+
+
+def reshard(flat: Path, root: Path, sizes) -> Path:
+    """A flat store's chunks, in order, as a sealed sharded store of
+    ``sizes`` chunks a shard (the port's ``write_shard_digest`` and
+    ``build_store_manifest``): the chunk files are copied, each shard's
+    meta.json keeps the flat meta's fields with its digests renumbered."""
+    import shutil
+
+    from sparse_coding_tpu_torch.data.shard_store import (
+        build_store_manifest,
+        shard_name,
+        write_shard_digest,
+    )
+
+    meta = json.loads((flat / "meta.json").read_text())
+    start = 0
+    for si, n in enumerate(sizes):
+        d = root / shard_name(si)
+        d.mkdir(parents=True)
+        for li in range(n):
+            shutil.copyfile(flat / f"{start + li}.npy", d / f"{li}.npy")
+        shard_meta = dict(meta, n_chunks=n, chunk_digests={
+            str(li): meta["chunk_digests"][str(start + li)]
+            for li in range(n)})
+        (d / "meta.json").write_text(json.dumps(shard_meta, indent=2))
+        write_shard_digest(d)
+        start += n
+    build_store_manifest(root, expect_shards=len(sizes))
+    return root
+
+
+def host_io_numbers(events: list[dict]) -> dict:
+    """A sweep's host I/O from its obs events: each chunk's wall and
+    training time, each checkpoint set's time in the sweep (the whole
+    write under msgpack, the issue under orbax), the waits before the
+    swaps, the workers' writes, the host→device stage and the read path
+    that served the chunks."""
+    spans = lambda name: [e for e in events if e.get("span") == name]
+    chunks = spans("sweep.chunk")
+    later = chunks[1:] or chunks
+    metrics = [e for e in events if e.get("kind") == "metrics"]
+    counters = metrics[-1]["registry"]["counters"] if metrics else {}
+    transfer = spans("ingest.transfer")
+    return {
+        "acts_per_s": sum(e["rows"] for e in later)
+        / sum(e["train_s"] for e in later),
+        "chunk_s": [e["dur_s"] for e in chunks],
+        "train_s": [e["train_s"] for e in chunks],
+        "ckpt_s": [e["dur_s"] for e in spans("sweep.checkpoint")],
+        "wait_s": [e["dur_s"] for e in spans("sweep.ckpt_wait")],
+        "write_s": [e["dur_s"] for e in spans("ckpt.write")],
+        "write_bytes": [e.get("bytes") for e in spans("ckpt.write")],
+        "reads": {k.split("path=")[1].rstrip("}"): v
+                  for k, v in counters.items()
+                  if k.startswith("data.chunk_reads")},
+        "decode_s": [e["dur_s"] for e in spans("ingest.decode")],
+        "transfer": [{"batches": e["batches"], "wait_s": e["dur_s"]}
+                     for e in transfer],
+    }
+
+
+def io_line(n: dict) -> str:
+    mean = lambda v: float(np.mean(v)) if v else float("nan")
+    return (f"{n['acts_per_s']:.0f} acts/s (chunks 2-{len(n['chunk_s'])}); "
+            f"chunk wall {mean(n['chunk_s'][1:]):.2f} s "
+            f"(train {mean(n['train_s'][1:]):.2f}); set in the sweep "
+            f"{mean(n['ckpt_s']):.3f} s, wait before swap "
+            f"{mean(n['wait_s']):.3f} s, worker write "
+            f"{mean(n['write_s']):.3f} s; reads {n['reads']}; transfer "
+            f"{sum(t['batches'] for t in n['transfer'])} batches, "
+            f"{sum(t['wait_s'] for t in n['transfer']):.3f} s host wait")
+
+
+def host_io_phase(flat: Path, tmp: Path, ref: Path, card: str,
+                  flat_io: dict) -> dict:
+    """Phase 9 — the orbax backend (deferred swap) over a 2-shard store,
+    at phase 8's shape and CLI: (a) bitwise equal to phase 8 (a)'s
+    msgpack run over the flat store, each kernel once per step; (b) a
+    SIGKILL at sweep.chunk hit 3, while the chunk-3 set is being written,
+    resumes from chunk 2 and ends bitwise; (c) SIGTERM: exit 0 with the
+    issued set swapped in, then a bitwise resume; (d) a ckpt.save fault
+    in a worker fails the child with the typed error and leaves the
+    first set in ckpt/; (e) the measurements; (f) both backends at a
+    longer chunk (4 of 262,144 rows), bitwise equal to each other."""
+    import shutil
+
+    from sparse_coding_tpu_torch.ops import _build
+
+    rep: dict = {}
+    orbax = ("--checkpoint_backend", "orbax")
+    store = reshard(flat, tmp / "sweep_store_sharded", SHARDS)
+
+    def chunks_done(ckpt_dir: Path) -> int:
+        return json.loads((ckpt_dir / "untied_0.tensors.meta.json")
+                          .read_text())["chunks_done"]
+
+    # (a) in this process, for the launch counts
+    out_a = tmp / "io_a"
+    _build.reset_launches()
+    wall = sweep_in_process(sweep_args(store, out_a, *orbax), tmp / "obs9_a")
+    launches = dict(_build.LAUNCHES)
+    if launches != sweep_launches():
+        raise AssertionError(f"(a) launches {launches}")
+    assert_bitwise_run(out_a, ref, "(a) orbax over 2 shards")
+    nums = host_io_numbers(read_events(tmp / "obs9_a"))
+    if (len(nums["wait_s"]) != SWEEP_CHUNKS
+            or len(nums["write_s"]) != 2 * SWEEP_CHUNKS
+            or sum(nums["reads"].values()) != SWEEP_CHUNKS):
+        raise AssertionError(f"(a) spans and reads {nums}")
+    rep["a"] = {"wall_s": wall, "launches": launches, **nums}
+    log(f"  (a) orbax over {len(SHARDS)} shards {SHARDS}: each kernel "
+        f"{SWEEP_STEPS} launches; learned dicts, eval.json and ckpt/ "
+        f"bitwise equal to phase 8 (a)'s msgpack run over the flat store")
     shutil.rmtree(out_a)
+
+    # (b) SIGKILL while the chunk-3 set is issued and not yet swapped in
+    out = tmp / "io_b"
+    killed = sweep_subprocess(sweep_args(store, out, *orbax), tmp / "obs9_b",
+                              crash_plan="sweep.chunk:nth=3")
+    if (killed.returncode != -9
+            or "SIGKILL at site 'sweep.chunk'" not in killed.stderr):
+        raise AssertionError(f"(b) rc {killed.returncode}\n"
+                             f"{killed.stderr[-3000:]}")
+    on_disk, staged = chunks_done(out / "ckpt"), (out / "ckpt_staging").exists()
+    if on_disk != 2 or not staged:
+        raise AssertionError(f"(b) ckpt/ at chunk {on_disk}, staging "
+                             f"{staged}")
+    resumed = sweep_subprocess(sweep_args(store, out, *orbax, "--resume",
+                                          "true"), tmp / "obs9_b_resume")
+    if resumed.returncode != 0:
+        raise AssertionError(f"(b) resume: {resumed.stderr[-3000:]}")
+    done = [e["chunks_done"] for e in read_events(tmp / "obs9_b_resume")
+            if e.get("span") == "sweep.resume"]
+    if done != [2]:
+        raise AssertionError(f"(b) resumed from {done}")
+    assert_bitwise_run(out, ref, "(b) kill while a set is written")
+    rep["b"] = {"ckpt_chunks_done": on_disk, "resumed_from": done[0]}
+    log("  (b) SIGKILL at sweep.chunk hit 3 with the chunk-3 set issued, "
+        "not swapped in: ckpt/ held chunk 2's set, resumed from chunk 2, "
+        "bitwise equal to phase 8 (a)")
+    shutil.rmtree(out)
+
+    # (c) SIGTERM once the first set is swapped in
+    out = tmp / "io_c"
+    pre = sweep_subprocess(sweep_args(store, out, *orbax), tmp / "obs9_c",
+                           sigterm_when=out / "ckpt" / "untied_0.tensors.meta.json")
+    m = re.search(r"checkpointed after chunk (\d+)", pre.stdout)
+    if pre.returncode != 0 or m is None:
+        raise AssertionError(f"(c) SIGTERM: rc {pre.returncode}, stdout "
+                             f"{pre.stdout[-500:]}\n{pre.stderr[-3000:]}")
+    after = int(m.group(1))
+    if (chunks_done(out / "ckpt") != after
+            or (out / "ckpt_staging").exists()):
+        raise AssertionError(f"(c) preempted after chunk {after}, ckpt/ at "
+                             f"{chunks_done(out / 'ckpt')}")
+    resumed = sweep_subprocess(sweep_args(store, out, *orbax, "--resume",
+                                          "true"), tmp / "obs9_c_resume")
+    if resumed.returncode != 0:
+        raise AssertionError(f"(c) resume: {resumed.stderr[-3000:]}")
+    assert_bitwise_run(out, ref, "(c) SIGTERM")
+    rep["c"] = {"preempted_after": after}
+    log(f"  (c) SIGTERM: SweepPreempted after chunk {after} with that set "
+        "swapped in on the way out, exit 0; resumed bitwise equal to "
+        "phase 8 (a)")
+    shutil.rmtree(out)
+
+    # (d) the second set's first write fails in its worker
+    out = tmp / "io_d"
+    failed = sweep_subprocess(sweep_args(store, out, *orbax), tmp / "obs9_d",
+                              fault_plan="ckpt.save:nth=3")
+    if (failed.returncode in (0, -9) or "site=ckpt.save" not in failed.stderr
+            or chunks_done(out / "ckpt") != 1):
+        raise AssertionError(f"(d) rc {failed.returncode}, ckpt/ at "
+                             f"{chunks_done(out / 'ckpt')}\n"
+                             f"{failed.stderr[-3000:]}")
+    error = failed.stderr.strip().splitlines()[-1]
+    rep["d"] = {"returncode": failed.returncode, "error": error}
+    log(f"  (d) ckpt.save fault in a worker (set 2): exit "
+        f"{failed.returncode}, {error!r}; ckpt/ kept the chunk-1 set")
+    shutil.rmtree(out)
+
+    # (e) the measurements, beside phase 8's msgpack run over the flat store
+    log(f"  (e) {card}")
+    log(f"      msgpack, flat (phase 8 (a)): {io_line(flat_io)}")
+    log(f"      orbax, {len(SHARDS)} shards: {io_line(nums)}")
+
+    # (f) a longer chunk under each backend
+    long_store = tmp / "long_store"
+    write_store(long_store, LONG_CHUNKS * LONG_ROWS_PER_CHUNK, SEED + 9,
+                rows_per_chunk=LONG_ROWS_PER_CHUNK)
+    rep["f"] = {}
+    for backend in ("msgpack", "orbax"):
+        out = tmp / f"io_f_{backend}"
+        sweep_in_process(sweep_args(long_store, out, "--checkpoint_backend",
+                                    backend, "--log_every",
+                                    str(LONG_ROWS_PER_CHUNK // BATCH)),
+                         tmp / f"obs9_f_{backend}")
+        rep["f"][backend] = host_io_numbers(
+            read_events(tmp / f"obs9_f_{backend}"))
+        log(f"  (f) {LONG_CHUNKS} chunks of {LONG_ROWS_PER_CHUNK:,} rows, "
+            f"{backend}: {io_line(rep['f'][backend])}")
+    a, b = tmp / "io_f_msgpack", tmp / "io_f_orbax"
+    for name in ("tied", "untied"):
+        bad = dicts_equal(final_dicts(a, name, LONG_CHUNKS - 1),
+                          final_dicts(b, name, LONG_CHUNKS - 1))
+        for suffix in (".tensors", ".tensors.meta.json"):
+            f = Path("ckpt") / f"{name}_0{suffix}"
+            if (a / f).read_bytes() != (b / f).read_bytes():
+                bad.append(str(f))
+        if bad:
+            raise AssertionError(f"(f) {name}: the backends differ at {bad}")
+    log("  (f) the two backends' learned dicts and ckpt/ bitwise equal")
+    for path in (a, b, long_store, store):
+        shutil.rmtree(path)
     return rep
 
 
@@ -2285,6 +2544,14 @@ def main() -> int:
         sweep_store = Path(tmp) / "sweep_store"
         write_store(sweep_store, SWEEP_CHUNKS * ROWS_PER_CHUNK, seed=SEED + 8)
         report["sweep"] = sweep_phase(sweep_store, Path(tmp))
+        log(f"  done at {time.perf_counter() - t_start:.1f} s")
+
+        log(f"phase 9: the full sweep's host I/O — the orbax backend "
+            f"(deferred swap) over a {len(SHARDS)}-shard store, phase 8's "
+            "shape")
+        ref = Path(report["sweep"]["a"]["out"])
+        report["host_io"] = host_io_phase(sweep_store, Path(tmp), ref, card,
+                                          report["sweep"]["a"]["host_io"])
         log(f"  done at {time.perf_counter() - t_start:.1f} s")
 
     timing.update(big["timing"])

@@ -2,8 +2,8 @@
 ``config.py`` (``BaseArgs``, ``DataArgs``, ``EnsembleArgs``,
 ``SyntheticEnsembleArgs``, ``BigSAEArgs``) with the same fields and
 defaults, so a config file or command line drives either side.
-Fields the port does not run yet (meshes, the orbax backend, trace
-capture through ``profile_steps``, wandb) are kept so configs stay
+Fields the port does not run yet (meshes, trace capture through
+``profile_steps``, wandb) are kept so configs stay
 interchangeable; the entry points that would read them raise where they
 are set to something the port cannot do, naming the ROADMAP.md item."""
 

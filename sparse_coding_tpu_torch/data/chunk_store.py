@@ -26,25 +26,40 @@ Fault sites ``chunk.read`` (every load, the raw payload) and
 ``chunk.flushed`` (a chunk durable) and ``store.finalize`` (every chunk
 durable, meta.json not yet written).
 
-``device_prefetch`` keeps the card fed: pinned host buffers copied with
-``non_blocking=True`` on a side CUDA stream, so batch i+1 crosses PCIe
-while batch i computes.
+Reads go through the native chunk-IO library (``data/native_io.py``, the
+repository's ``native/chunkio.cpp``): ``load_chunk`` reads with threaded
+``pread`` when the process has more than one core, and the serial
+``chunk_reader`` reads the next chunk on background threads while the
+current one trains. Without the library both read with ``np.load``, the
+same bytes. The counter ``data.chunk_reads`` (labelled ``path=native``,
+``prefetch`` or ``numpy``) records which path served each read.
+
+``device_prefetch`` is ``data/ingest.py::device_batches``, the
+host→device stage.
 """
 
 from __future__ import annotations
 
 import json
 import logging
-from collections import deque
 from pathlib import Path
 from typing import Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
+from sparse_coding_tpu_torch import obs
+from sparse_coding_tpu_torch.data.ingest import (
+    device_batches as device_prefetch,
+)
 from sparse_coding_tpu_torch.data.ledger import (
     load_quarantine,
     record_quarantine,
+)
+from sparse_coding_tpu_torch.data.native_io import (
+    DEFAULT_THREADS,
+    NativePrefetcher,
+    read_npy_native,
 )
 from sparse_coding_tpu_torch.resilience import lease
 from sparse_coding_tpu_torch.resilience.atomic import (
@@ -70,7 +85,9 @@ __all__ = ["ChunkCorruptionError", "ChunkStore", "ChunkWriter",
 _DTYPES = ("float16", "float32", "bfloat16")
 logger = logging.getLogger(__name__)
 
-register_fault_site("chunk.read", "ChunkStore.load_chunk — every chunk load")
+register_fault_site("chunk.read",
+                    "ChunkStore._finish_raw — every chunk load, the native, "
+                    "prefetched and numpy reads alike")
 register_fault_site("chunk.write",
                     "ChunkWriter._write — every chunk flush (inside the "
                     "bounded-retry scope)")
@@ -95,6 +112,10 @@ def _from_bf16_bits(bits: np.ndarray) -> np.ndarray:
 
 # transient I/O errors on a chunk write or read get this many tries
 IO_RETRIES = 3
+
+
+def _count_read(path: str) -> None:
+    obs.counter("data.chunk_reads", path=path).inc()
 
 
 class ChunkWriter:
@@ -193,8 +214,9 @@ class ChunkStore:
     """Reader over a flat chunk folder: digest- and finite-checked loads,
     shuffled batches. A corrupt chunk raises :class:`ChunkCorruptionError`
     from ``load_chunk``; ``chunk_reader`` and ``epoch`` skip it instead
-    when ``quarantine_corrupt`` is set. Native readahead is later work
-    (ROADMAP queue 1, item 2)."""
+    when ``quarantine_corrupt`` is set. A store whose every chunk file a
+    scrub moved aside still opens when meta.json declares it: its
+    positions read as quarantined."""
 
     def __init__(self, folder: str | Path, quarantine_corrupt: bool = False,
                  verify_digests: bool = True, verify_finite: bool = True):
@@ -205,9 +227,9 @@ class ChunkStore:
                      if meta_path.exists() else {})
         self._paths = {int(p.stem): p for p in self.folder.glob("*.npy")
                        if p.stem.isdigit()}
-        if not self._paths:
-            raise FileNotFoundError(f"no .npy chunks in {self.folder}")
         declared = self.meta.get("n_chunks")
+        if not self._paths and declared is None:
+            raise FileNotFoundError(f"no .npy chunks in {self.folder}")
         self._n_chunks = (int(declared) if declared is not None
                           else max(self._paths) + 1)
         self.verify_digests = verify_digests
@@ -215,8 +237,11 @@ class ChunkStore:
         self._verified: set[int] = set()
         # chunks a previous process proved corrupt are known at open
         self.quarantined: set[int] = set(load_quarantine(self.folder))
-        first = np.load(self._paths[min(self._paths)], mmap_mode="r")
-        self.activation_dim = int(first.shape[-1])
+        if self._paths:
+            first = np.load(self._paths[min(self._paths)], mmap_mode="r")
+            self.activation_dim = int(first.shape[-1])
+        else:  # every file moved aside: the meta that admitted us
+            self.activation_dim = int(self.meta["activation_dim"])
 
     @property
     def n_chunks(self) -> int:
@@ -243,11 +268,19 @@ class ChunkStore:
 
         def _load_once():
             try:
-                raw = np.load(path)
+                # threaded pread only pays with cores to spread over; on
+                # one core the native layer's value is chunk_reader's
+                # background readahead
+                raw = read_npy_native(path) if DEFAULT_THREADS > 1 else None
+                via = "native"
+                if raw is None:  # no library, one core, or a short read
+                    raw, via = np.load(path), "numpy"
             except (ValueError, EOFError) as e:
                 raise ChunkCorruptionError(int(i), path,
                                            f"unreadable npy: {e}") from e
-            return self._finish_raw(int(i), raw, dtype, path)
+            out = self._finish_raw(int(i), raw, dtype, path)
+            _count_read(via)
+            return out
 
         return retry_io(_load_once, attempts=IO_RETRIES)
 
@@ -293,24 +326,65 @@ class ChunkStore:
         return shuffled_batches(chunk, batch_size, rng, drop_last)
 
     def chunk_reader(self, indices, dtype=np.float32) -> Iterator:
-        """In-RAM chunks for ``indices``, in order. With
+        """In-RAM chunks for ``indices``, in order, the next chunk's file
+        read on native background threads while the caller trains on the
+        current one (at most two chunks in host RAM). With
         ``quarantine_corrupt`` a corrupt or ledger-known chunk yields None
         in its position (one warning, one ledger entry), so positional
         consumers stay aligned with ``indices``."""
-        for ci in indices:
-            ci = int(ci)
+        indices = [int(i) for i in indices]
+        prefetcher = NativePrefetcher()
+
+        def start(ci: int) -> bool:
+            # never prefetch a ledger-known chunk; a bad header degrades
+            # to the foreground read, which types the failure
             if self.quarantine_corrupt and ci in self.quarantined:
-                chunk = None
-            else:
-                try:
-                    chunk = self.load_chunk(ci, dtype)
-                except ChunkCorruptionError as e:
-                    if not self.quarantine_corrupt:
-                        raise
-                    self._quarantine(e)
+                return False
+            try:
+                return prefetcher.start(self._path(ci))
+            except (ChunkCorruptionError, ValueError, EOFError, OSError):
+                return False
+
+        try:
+            prefetching = start(indices[0]) if indices else False
+            for pos, ci in enumerate(indices):
+                raw = prefetcher.wait() if prefetching else None
+                if self.quarantine_corrupt and ci in self.quarantined:
                     chunk = None
-            lease.beat()  # a delivered position is reader progress
-            yield chunk
+                else:
+                    try:
+                        chunk = self._load_prefetched(ci, raw, dtype)
+                    except ChunkCorruptionError as e:
+                        if not self.quarantine_corrupt:
+                            raise
+                        self._quarantine(e)
+                        chunk = None
+                raw = None  # decoded: drop the on-disk buffer (RAM bound)
+                if pos + 1 < len(indices):
+                    prefetching = start(indices[pos + 1])
+                lease.beat()  # a delivered position is reader progress
+                yield chunk
+        finally:
+            # an early exit must not leak the read in flight
+            prefetcher.cancel()
+
+    # the foreground single-stream reader: data/ingest.py's chunk_stream
+    # takes it for streams <= 1 and degrades to it
+    serial_chunk_reader = chunk_reader
+
+    def _load_prefetched(self, ci: int, raw: Optional[np.ndarray], dtype):
+        """Chunk ``ci`` from its prefetched bytes, or from a foreground
+        load when there are none (short read, no library, bad header)."""
+        if raw is None:
+            return self.load_chunk(ci, dtype)
+        try:
+            out = self._finish_raw(ci, raw, dtype, self._path(ci))
+        except OSError:
+            # a transient failure on the prefetched buffer: re-read
+            # through load_chunk's bounded retry
+            return self.load_chunk(ci, dtype)
+        _count_read("prefetch")
+        return out
 
     def epoch(self, batch_size: int, rng: np.random.Generator,
               n_repetitions: int = 1, dtype=np.float32) -> Iterator:
@@ -368,47 +442,3 @@ def window_stacks(batches: Iterable, k: int) -> Iterator:
             buf = []
     if buf:
         yield stack(buf)
-
-
-def _host_tensor(b) -> torch.Tensor:
-    if isinstance(b, torch.Tensor):
-        return b.contiguous()
-    return torch.from_numpy(np.ascontiguousarray(b))
-
-
-def device_prefetch(batches: Iterable, device,
-                    buffer_size: int = 2) -> Iterator[torch.Tensor]:
-    """Host → device pipeline. On CUDA: each batch is staged in pinned host
-    memory and copied with ``non_blocking=True`` on a side stream, up to
-    ``buffer_size`` copies in flight; the consumer's stream waits on the
-    copy's event before it sees the tensor. On the CPU: plain tensors."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        for b in batches:
-            yield _host_tensor(b).to(device)
-        return
-    side = torch.cuda.Stream(device)
-    pending: deque = deque()
-    it = iter(batches)
-
-    def submit(b) -> None:
-        host = _host_tensor(b).pin_memory()
-        with torch.cuda.stream(side):
-            dev = host.to(device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(side)
-        pending.append((dev, done))
-
-    for b in it:
-        submit(b)
-        if len(pending) >= buffer_size:
-            break
-    while pending:
-        dev, done = pending.popleft()
-        compute = torch.cuda.current_stream(device)
-        compute.wait_event(done)
-        dev.record_stream(compute)
-        nxt = next(it, None)
-        if nxt is not None:
-            submit(nxt)
-        yield dev

@@ -1,6 +1,6 @@
-"""Fault-tolerant multi-stream chunk decode (the port's copy of the JAX
-package's ``data/ingest.py::chunk_stream``; its ``device_batches`` is the
-port's ``data/chunk_store.py::device_prefetch``).
+"""Fault-tolerant async ingest: multi-stream chunk decode and the
+host→device stage (the port's copy of the JAX package's
+``data/ingest.py``).
 
 :func:`chunk_stream` delivers chunks in order with up to ``streams``
 decodes in flight on pool threads, each one ``store.load_chunk`` (digest,
@@ -10,8 +10,18 @@ chunks yield None in position. A stream worker that dies for another
 reason (an injected ``ingest.decode`` error, a failing thread) degrades
 the rest of the sequence to the foreground single-stream reader: the
 epoch completes with identical data and ``ingest.degraded`` counts the
-incident. The consumer beats the lease at every delivered chunk, on the
-main thread, so a wedged decode stops the beats.
+incident. A store without its own serial reader (the sharded store) gets
+the generic foreground loop.
+
+:func:`device_batches` (``data/chunk_store.py::device_prefetch`` is the
+same function) is the host→device stage: pinned host buffers copied with
+``non_blocking=True`` on a side CUDA stream, ``buffer_size`` copies in
+flight, each behind fault site ``ingest.transfer`` under a bounded retry,
+and one ``ingest.transfer`` span per drained stream with the batch count
+and the host-side wait (staging and dispatch, not the copy on the wire).
+
+The consumer beats the lease at every delivered chunk and every staged
+batch, on the main thread, so a wedged decode or transfer stops the beats.
 """
 
 from __future__ import annotations
@@ -20,7 +30,7 @@ import logging
 import os
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Optional
+from typing import Iterable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -32,6 +42,7 @@ from sparse_coding_tpu_torch.resilience.faults import (
     fault_point,
     register_fault_site,
 )
+from sparse_coding_tpu_torch.resilience.retry import retry_io
 
 logger = logging.getLogger(__name__)
 
@@ -41,6 +52,9 @@ register_fault_site("ingest.decode",
                     "as payload; an injected error kills the stream and "
                     "forces the single-stream path, an injected nan or "
                     "corrupt payload must fail the finite gate")
+register_fault_site("ingest.transfer",
+                    "host->device batch transfer — inside device_batches' "
+                    "bounded-retry scope (data/ingest.py)")
 
 
 def default_streams(chunk_nbytes: Optional[int] = None) -> int:
@@ -81,15 +95,36 @@ def _finite(chunk) -> bool:
 
 
 def _serial_chunks(store, indices, dtype) -> Iterator:
-    """The foreground single-stream path: the store's own reader, with an
-    ``ingest.decode`` span per delivered chunk."""
-    it = store.chunk_reader(indices, dtype)
+    """The foreground single-stream path, with an ``ingest.decode`` span
+    per delivered chunk: the store's own serial reader where it has one,
+    else a generic loop with the same contract (positional Nones, a lease
+    beat per position)."""
+    serial = getattr(store, "serial_chunk_reader", None)
+    if serial is not None:
+        it = serial(indices, dtype)
+        for ci in indices:
+            t0 = obs.monotime()
+            chunk = next(it, None)
+            if chunk is not None:
+                obs.record_span("ingest.decode", obs.monotime() - t0,
+                                chunk=int(ci), rows=int(chunk.shape[0]))
+            yield chunk
+        return
     for ci in indices:
-        t0 = obs.monotime()
-        chunk = next(it, None)
-        if chunk is not None:
-            obs.record_span("ingest.decode", obs.monotime() - t0,
-                            chunk=int(ci), rows=int(chunk.shape[0]))
+        ci = int(ci)
+        chunk = None
+        if not (store.quarantine_corrupt and ci in store.quarantined):
+            t0 = obs.monotime()
+            try:
+                chunk = store.load_chunk(ci, dtype)
+            except ChunkCorruptionError as e:
+                if not store.quarantine_corrupt:
+                    raise
+                store._quarantine(e)
+            if chunk is not None:
+                obs.record_span("ingest.decode", obs.monotime() - t0,
+                                chunk=ci, rows=int(chunk.shape[0]))
+        lease.beat()
         yield chunk
 
 
@@ -175,3 +210,68 @@ def chunk_stream(store, indices, dtype=np.float32,
     finally:
         # an early exit must not leave decodes working for nobody
         pool.shutdown(wait=False, cancel_futures=True)
+
+
+def _host_tensor(b) -> torch.Tensor:
+    if isinstance(b, torch.Tensor):
+        return b.contiguous()
+    return torch.from_numpy(np.ascontiguousarray(b))
+
+
+def device_batches(batches: Iterable, device,
+                   buffer_size: int = 2) -> Iterator[torch.Tensor]:
+    """Host → device stage: batch i+1 is copied while batch i computes.
+    On CUDA each batch is staged in pinned host memory and copied with
+    ``non_blocking=True`` on a side stream, up to ``buffer_size`` copies
+    in flight; the consumer's stream waits on the copy's event before it
+    sees the tensor. On the CPU the batches pass as tensors. Every
+    transfer sits behind fault site ``ingest.transfer`` with a bounded
+    retry, every staged batch beats the lease, and one ``ingest.transfer``
+    span per drained stream records the batch count and the host-side
+    wait."""
+    device = torch.device(device)
+    side = torch.cuda.Stream(device) if device.type == "cuda" else None
+    stage = {"batches": 0, "wait_s": 0.0}
+
+    def put(b):
+        t0 = obs.monotime()
+        host = _host_tensor(b)
+
+        def _put_once():
+            fault_point("ingest.transfer")
+            if side is None:
+                return host.to(device), None
+            pinned = host.pin_memory()
+            with torch.cuda.stream(side):
+                dev = pinned.to(device, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(side)
+            return dev, done
+
+        out = retry_io(_put_once, attempts=3)
+        stage["wait_s"] += obs.monotime() - t0
+        stage["batches"] += 1
+        lease.beat()
+        return out
+
+    pending: deque = deque()
+    it = iter(batches)
+    try:
+        for b in it:
+            pending.append(put(b))
+            if len(pending) >= buffer_size:
+                break
+        while pending:
+            dev, done = pending.popleft()
+            if done is not None:
+                compute = torch.cuda.current_stream(device)
+                compute.wait_event(done)
+                dev.record_stream(compute)
+            nxt = next(it, None)
+            if nxt is not None:
+                pending.append(put(nxt))
+            yield dev
+    finally:
+        if stage["batches"]:
+            obs.record_span("ingest.transfer", stage["wait_s"],
+                            batches=stage["batches"])

@@ -14,17 +14,25 @@ Flow, as in the JAX package (the reference's big_sweep.py:298-386):
      guardian's per-window combine and its chunk-boundary ladder;
   5. a full-state checkpoint set every ``checkpoint_every_chunks``
      chunks, staged and swapped in by renames, the previous set kept as
-     ``ckpt_prev/``; exact resume (``resume=True``) and SIGTERM
-     preemption (``SweepPreempted``) continue bitwise;
+     ``ckpt_prev/``. ``checkpoint_backend="msgpack"`` writes the set and
+     swaps it in at once; ``"orbax"`` (``utils/orbax_ckpt.py``) snapshots
+     it to host memory, writes it on worker threads while the next chunk
+     trains, and swaps it in at the next round (or when the sweep ends,
+     preemption and crashes included) — so a kill while a set is being
+     written resumes from the set before it. Both write the same files;
+     exact resume (``resume=True``) and SIGTERM preemption
+     (``SweepPreempted``) continue bitwise;
   6. learned dicts and quick evals at chunk counts {7, 15, 31, ...} (or
      every ``save_every_chunks``) and at the end.
 
-The entry point runs on the card; ``device="cpu"`` (``--device cpu``)
-runs the kernels' plain versions on the CPU. What the port cannot do yet
-raises, naming its ROADMAP.md queue-1 item: meshes and the orbax backend
-(item 11), ``profile_steps > 0`` and wandb (item 14), EnsembleGroup
-buckets (item 8) and sharded stores (item 2). The executable-cache warm
-start of the JAX sweep has no counterpart yet (item 13).
+The store is flat or sharded (``data/shard_store.py::open_store``). The
+entry point runs on the card; ``device="cpu"`` (``--device cpu``) runs
+the kernels' plain versions on the CPU. What the port cannot do yet
+raises, naming its ROADMAP.md queue-1 item: meshes, and with them the
+orbax backend's per-host sharded writes (item 11), ``profile_steps > 0``
+and wandb (item 14) and EnsembleGroup buckets (item 8). The
+executable-cache warm start of the JAX sweep has no counterpart yet
+(item 13).
 
 Run: ``python -m sparse_coding_tpu_torch.train.sweep --experiment
 tied_vs_not --dataset_folder DIR --output_folder DIR [--resume true]
@@ -88,13 +96,16 @@ from sparse_coding_tpu_torch.resilience.preempt import (
 from sparse_coding_tpu_torch.train.guardian import Guardian, GuardianRollback
 from sparse_coding_tpu_torch.utils.artifacts import save_learned_dicts
 from sparse_coding_tpu_torch.utils.checkpoint import (
-    SUFFIX,
     restore_ensemble,
     save_ensemble,
 )
 from sparse_coding_tpu_torch.utils.logging import (
     MetricsLogger,
     make_hyperparam_name,
+)
+from sparse_coding_tpu_torch.utils.orbax_ckpt import (
+    AsyncEnsembleCheckpointer,
+    checkpoint_path,
 )
 from sparse_coding_tpu_torch.utils.profiling import StepTimer
 
@@ -160,14 +171,10 @@ def _check_supported(cfg: EnsembleArgs, mesh) -> None:
     """Raise on what the port cannot do yet, naming its ROADMAP item."""
     if mesh is not None or cfg.mesh_data > 1 or cfg.mesh_model > 1:
         raise NotImplementedError(
-            "meshes (mesh_data/mesh_model > 1) wait for the multi-GPU slice "
-            "(ROADMAP.md queue 1, item 11)")
-    if cfg.checkpoint_backend == "orbax":
-        raise NotImplementedError(
-            "checkpoint_backend='orbax' (sharded per-host writes) waits for "
-            "the multi-GPU slice (ROADMAP.md queue 1, item 11); 'msgpack' "
-            "selects the port's single-host checkpoints")
-    if cfg.checkpoint_backend != "msgpack":
+            "meshes (mesh_data/mesh_model > 1), and with them the orbax "
+            "backend's per-host sharded writes, wait for the multi-GPU "
+            "slice (ROADMAP.md queue 1, item 11)")
+    if cfg.checkpoint_backend not in ("msgpack", "orbax"):
         raise ValueError(f"checkpoint_backend must be 'msgpack' or 'orbax', "
                          f"got {cfg.checkpoint_backend!r}")
     if cfg.profile_steps > 0:
@@ -319,6 +326,22 @@ def sweep(
                 ensembles, ensemble_init_fn(cfg, mesh, device=dev)):
             e_old.state = e_new.state
 
+    ckptr = (AsyncEnsembleCheckpointer()
+             if cfg.checkpoint_backend == "orbax" else None)
+    # orbax: a fully issued set whose swap waits for the next round (or
+    # the finally), so its writes overlap the next chunk's training
+    pending_staging: Optional[Path] = None
+
+    def _swap_pending() -> None:
+        """Wait for the issued set's writes, then swap it in. The set is
+        dropped first: after a failed write it is never swapped in, nor
+        waited on again."""
+        nonlocal pending_staging
+        staged, pending_staging = pending_staging, None
+        with obs.span("sweep.ckpt_wait"):
+            ckptr.wait()
+        _swap_in_checkpoint_set(out_dir, staged)
+
     todo, reader = _open_reader(chunks_done)
     # SIGTERM sets a flag polled at chunk boundaries: the chunk finishes,
     # a checkpoint set is forced, and SweepPreempted propagates
@@ -398,8 +421,16 @@ def sweep(
                     preempted = preempt.requested
                     if ((cadence > 0 and (ci + 1) % cadence == 0)
                             or last_chunk or preempted):
+                        if pending_staging is not None:
+                            # the last round's writes overlapped this
+                            # chunk's training
+                            _swap_pending()
                         _save_checkpoint_set(ensembles, out_dir, ci + 1,
-                                             rng.bit_generator.state)
+                                             rng.bit_generator.state, ckptr)
+                        if ckptr is not None:
+                            # fully issued; a crash mid-issue leaves it
+                            # unset, and the staged set is discarded
+                            pending_staging = out_dir / "ckpt_staging"
                     if (ci in save_points or last_chunk) and chunk is not None:
                         _save_artifacts(
                             ensembles, out_dir / f"_{ci}", chunk, logger,
@@ -424,8 +455,11 @@ def sweep(
                         raise SweepPreempted(ci + 1)
             except GuardianRollback as rollback:
                 # the incident and the chunk quarantine are durable; close
-                # the stream, restore the last-good state, replay
+                # the stream, make a fully issued set current (it is the
+                # newest last-good state), restore it, replay
                 reader.close()
+                if pending_staging is not None:
+                    _swap_pending()
 
                 def _restore():
                     done, rng_state = resume_sweep_state(ensembles, out_dir)
@@ -447,7 +481,15 @@ def sweep(
     finally:
         preempt.__exit__(None, None, None)
         reader.close()
-        logger.close()
+        try:
+            if pending_staging is not None:
+                # a fully issued set reflects completed training: swapped
+                # in on a clean exit, on SweepPreempted and on a crash
+                _swap_pending()
+        finally:
+            logger.close()
+            if ckptr is not None:
+                ckptr.close()  # no write outlives the run
     result = {}
     for ensemble, hypers, name in ensembles:
         tagged = list(zip(ensemble.to_learned_dicts(), hypers))
@@ -486,20 +528,33 @@ def _log_window(logger: MetricsLogger, step: int, ens_idx: int, name: str,
 
 
 def _save_checkpoint_set(ensembles, out_dir: Path, chunks_done: int,
-                         rng_state: dict) -> None:
-    """Write every ensemble's state to a staging directory, then swap the
-    complete set in: a crash mid-save never leaves ensembles at mixed
-    chunks_done. The rng state lets the data stream resume exactly."""
+                         rng_state: dict,
+                         ckptr: Optional[AsyncEnsembleCheckpointer] = None
+                         ) -> None:
+    """Write every ensemble's state to a staging directory, so a crash
+    mid-save never leaves ensembles at mixed chunks_done; the rng state
+    lets the data stream resume exactly. Without ``ckptr`` (msgpack) the
+    complete set is swapped in here; with it (orbax) the set is only
+    issued — its writes go on in the background and the caller swaps it
+    in once they are durable. The span records the write, or the issue."""
     t0 = obs.monotime()
     staging = out_dir / "ckpt_staging"
     shutil.rmtree(staging, ignore_errors=True)
     extra = {"chunks_done": chunks_done, "rng_state": rng_state}
     for ensemble, _, name in ensembles:
-        save_ensemble(ensemble, staging / f"{name}_0{SUFFIX}", extra=extra)
+        path = checkpoint_path(staging, f"{name}_0")
+        if ckptr is None:
+            save_ensemble(ensemble, path, extra=extra)
+        else:
+            ckptr.save(ensemble, path, extra=extra)
+    if ckptr is not None:
+        obs.record_span("sweep.checkpoint", obs.monotime() - t0,
+                        chunks_done=chunks_done, backend="orbax")
+        return
     nbytes = sum(p.stat().st_size for p in staging.iterdir())
     _swap_in_checkpoint_set(out_dir, staging)
     obs.record_span("sweep.checkpoint", obs.monotime() - t0,
-                    chunks_done=chunks_done, bytes=nbytes)
+                    chunks_done=chunks_done, bytes=nbytes, backend="msgpack")
 
 
 def _save_artifacts(ensembles, folder: Path, chunk, logger: MetricsLogger,
@@ -580,7 +635,7 @@ def resume_sweep_state(ensembles: Sequence[tuple[Ensemble, list, str]],
     for ckpt_dir in (out_dir / "ckpt", out_dir / "ckpt_prev"):
         if not ckpt_dir.exists():
             continue
-        targets = [(ens, ckpt_dir / f"{name}_0{SUFFIX}")
+        targets = [(ens, checkpoint_path(ckpt_dir, f"{name}_0"))
                    for ens, _, name in ensembles]
         if not all(path.exists() for _, path in targets):
             continue  # incomplete set: fall through to the older one

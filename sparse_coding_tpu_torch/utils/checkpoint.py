@@ -133,22 +133,34 @@ def _meta_path(path: Path) -> Path:
     return path.with_suffix(path.suffix + ".meta.json")
 
 
+def _state_meta(state) -> dict:
+    return {"sig_name": state.sig_name,
+            "static_buffers": [list(kv) for kv in state.static_buffers]}
+
+
+def _write_checkpoint(path: Path, arrays: dict[str, np.ndarray],
+                      state_meta: dict, extra: Optional[dict]) -> int:
+    """Write a state's host arrays as the tensor file, then its sidecar;
+    returns the payload's bytes. Both backends write through here
+    (``utils/orbax_ckpt.py`` on its worker threads)."""
+    fault_point("ckpt.save")
+    sha, size = _write_payload(path, arrays)
+    meta = {**state_meta, "payload_sha256": sha, "payload_bytes": size,
+            **(extra or {})}
+    # the sidecar last: its digest certifies the payload beside it
+    atomic_write_text(_meta_path(path),
+                      json.dumps(meta, indent=2, default=str))
+    return size
+
+
 def save_ensemble(ens: Ensemble, path: str | Path,
                   extra: Optional[dict] = None) -> None:
     """Write ``ens``'s full state to ``path`` and its sidecar."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     state = ens.state
-    arrays = _host_arrays(_leaves(state))
-    fault_point("ckpt.save")
-    sha, size = _write_payload(path, arrays)
-    meta = {"sig_name": state.sig_name,
-            "static_buffers": [list(kv) for kv in state.static_buffers],
-            "payload_sha256": sha, "payload_bytes": size,
-            **(extra or {})}
-    # the sidecar last: its digest certifies the payload beside it
-    atomic_write_text(_meta_path(path),
-                      json.dumps(meta, indent=2, default=str))
+    _write_checkpoint(path, _host_arrays(_leaves(state)), _state_meta(state),
+                      extra)
 
 
 def restore_ensemble(ens: Ensemble, path: str | Path) -> dict:

@@ -127,10 +127,17 @@ def test_payload_digest_matches_jax(payload):
 
 
 def test_open_store_takes_the_flat_layout_only(tmp_path):
+    """A folder without manifest.json opens as a flat store; one with a
+    manifest is taken for a sharded store (its reader's tests are in
+    tests/test_torch_port_shard_store.py), so a manifest listing no
+    shards raises the typed layout error."""
+    from sparse_coding_tpu_torch.data.shard_store import ShardLayoutError
+
     _write(tcs, tmp_path, "float16", False)
-    assert open_store(tmp_path).n_chunks == 4
+    store = open_store(tmp_path)
+    assert isinstance(store, tcs.ChunkStore) and store.n_chunks == 4
     (tmp_path / "manifest.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(ShardLayoutError, match="sharded store"):
         open_store(tmp_path)
 
 

@@ -234,7 +234,8 @@ def test_main_without_a_card_raises(store, tmp_path):
 
 @pytest.mark.parametrize("over, match", [
     ({"mesh_data": 2}, "item 11"),
-    ({"checkpoint_backend": "orbax"}, "item 11"),
+    ({"checkpoint_backend": "orbax", "mesh_model": 2},
+     "orbax backend's per-host sharded writes.*item 11"),
     ({"profile_steps": 3}, "item 14"),
     ({"use_wandb": True}, "item 14"),
 ], ids=["mesh", "orbax", "profile", "wandb"])
@@ -247,6 +248,11 @@ def test_deferred_options_raise_naming_their_item(store, tmp_path, over,
 
 
 def test_unported_experiments_and_sharded_stores_raise(store, tmp_path):
+    """Unported experiments raise naming their item. Sharded stores open
+    now (tests/test_torch_port_shard_store.py sweeps over one): a folder
+    whose manifest.json lists no shards raises the typed layout error."""
+    from sparse_coding_tpu_torch.data.shard_store import ShardLayoutError
+
     cfg = EnsembleArgs(output_folder=str(tmp_path / "o"),
                        dataset_folder=str(store))
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -254,7 +260,7 @@ def test_unported_experiments_and_sharded_stores_raise(store, tmp_path):
     sharded = tmp_path / "sharded"
     sharded.mkdir()
     (sharded / "manifest.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(ShardLayoutError, match="lists no shards"):
         tsweep.sweep(texp.dense_l1_range_experiment,
                      cfg.replace(dataset_folder=str(sharded)), device="cpu")
 

@@ -412,18 +412,20 @@ def test_sigkill_then_resume_is_bitwise(store, tmp_path, uninterrupted,
 
 
 def _preempting_store(folder, on_load, at=2):
-    """A store whose ``at``-th chunk load calls ``on_load`` (the chunk is
-    then in flight, as a signal landing mid-chunk would find it)."""
+    """A store whose ``at``-th chunk decode calls ``on_load`` (the chunk is
+    then in flight, as a signal landing mid-chunk would find it).
+    ``_finish_raw`` is the gate every read goes through: foreground or
+    prefetched, native or np.load."""
     s = tcs.ChunkStore(folder, quarantine_corrupt=True)
-    real, calls = s.load_chunk, []
+    real, calls = s._finish_raw, []
 
-    def load_chunk(i, dtype=np.float32):
+    def finish_raw(i, raw, dtype, path):
         calls.append(i)
         if len(calls) == at:
             on_load()
-        return real(i, dtype)
+        return real(i, raw, dtype, path)
 
-    s.load_chunk = load_chunk
+    s._finish_raw = finish_raw
     return s
 
 
