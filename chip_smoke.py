@@ -7,9 +7,10 @@ Phases — any failure raises, and the script exits non-zero with no result:
 1. card: name and power limit (nvidia-smi), then all eight CUDA kernels
    are built from ``sparse_coding_tpu_torch/ops/csrc`` (one nvcc per
    source, all started together), with their ptxas register and spill
-   lines — every instantiation of the GEMM template among them (in
+   lines — every instantiation of the fp32 GEMM template among them (in
    big_sae_fwd, big_sae_bwd, sae_tied_fwd, sae_tied_bwd, sae_untied_fwd
-   and sae_untied_bwd), where any spill fails the run;
+   and sae_untied_bwd) and of the bf16 tensor-core one (in the four
+   ensemble forwards and backwards), where any spill fails the run;
 2. kernels: each ensemble kernel (sae_tied_fwd, sae_tied_bwd,
    sae_tied_adam_vjp, sae_untied_fwd, sae_untied_bwd, sae_untied_adam_vjp)
    and each contract
@@ -84,7 +85,25 @@ Phases — any failure raises, and the script exits non-zero with no result:
    workers' writes, the read path that served the chunks (native or
    np.load) and the host→device stage; (f) both backends over 4 chunks of
    262,144 rows, bitwise equal to each other, their chunk walls measured;
-10. summary: one ``{"kernels": [...]}`` line, the card's name and power
+10. bf16 compute (``fused_compute_dtype="bfloat16"``,
+   ``fused_moments_dtype="bfloat16"``): (a) each bf16 form of the four
+   chunked ensemble kernels against its plain bf16 version at small odd
+   shapes (d=40, 600, 768), the main shape and ratio 16, with fp32 and
+   bf16 batches and the coef_mask, within RTOL_BF16, its ReLU mask flips
+   capped (one per million codes), and two calls bit-identical; (b) the
+   two Adam epilogues with bf16 moments against their plain versions;
+   (c) bench.py's five bf16 variants through ``Ensemble``, tied and
+   untied, one epoch (208 steps) each: each bf16 form launches once a
+   step and no fp32 forward or backward does, the losses are finite and
+   each member's mse stays within RTOL_BF16_MSE of the fp32 kernel
+   path's from the same init on the same batches; (d) each bf16 form
+   and its launches timed beside its plain version, the step's ms and
+   acts/s beside the fp32 path's; (e) the bf16 forms join the kernels
+   line; (f) the paths bench.py's variants leave out (the tiled ones,
+   bf16 moments on ``train_step_tiled``, the masked family's two), three
+   steps each with bf16 batches: each bf16 form once a step, finite
+   losses;
+11. summary: one ``{"kernels": [...]}`` line, the card's name and power
    limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds the four chunked ensemble kernels against their plain
@@ -595,9 +614,14 @@ def time_kernels(inp: dict) -> dict:
             lambda: fs.sae_untied_adam_vjp(*uadam),
             lambda: fs.sae_untied_adam_vjp_plain(*uadam), 20),
     }
+    return time_pairs(pairs)
+
+
+def time_pairs(pairs: dict) -> dict:
+    """Each {name: (kernel, plain, iters)} timed in turns — plain, kernel,
+    kernel, plain — keeping the faster window of each."""
     out = {}
     for name, (kern, plain, iters) in pairs.items():
-        # in turns: plain, kernel, kernel, plain
         p1 = time_ms(plain, iters)
         k1 = time_ms(kern, iters)
         k2 = time_ms(kern, iters)
@@ -2398,6 +2422,514 @@ def host_io_phase(flat: Path, tmp: Path, ref: Path, card: str,
     return rep
 
 
+# --- phase 10: bf16 compute on the ensemble kernels ---------------------------
+
+# Published H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12
+BF16 = "bfloat16"
+# the bf16 forms (compute_dtype="bfloat16"; the Adam epilogues with
+# fused_moments_dtype="bfloat16"), each with the fp32 kernel it extends
+BF16_FORMS = {f"{k}_bf16": k for k in (*TIED_KERNELS, *UNTIED_KERNELS)}
+BF16_SMALL_SHAPES = ((3, 96, 96, 40), (2, 64, 64, 600), (2, 64, 64, 768))
+# a bf16 form against its plain bf16 version on the card, |Δ|max against
+# RTOL_BF16·max|ref|: the two sides round the same operands at the same
+# points and add exact products in fp32 in other orders (tensor-core
+# k16 steps vs cuBLAS); a code, dpre or moment within that rounding of a
+# bf16 rounding boundary rounds to the neighbouring bf16 on one side,
+# which moves its terms by 2⁻⁸ of themselves. ReLU mask flips are counted
+# and capped (FLIPS_PER_CODE) and the weight grads held on the features
+# without one.
+RTOL_BF16 = 1e-3
+# the bench.py variants with bf16 compute (bench.py:586-605): (path,
+# batch dtype, moments dtype)
+BENCH_BF16_VARIANTS = (
+    ("train_step", "float32", "float32"),
+    ("two_stage", "float32", "float32"),
+    ("two_stage", "bfloat16", "float32"),
+    ("train_step", "bfloat16", "float32"),
+    ("train_step", "bfloat16", "bfloat16"),
+)
+# each member's single-batch mse on a bf16 variant against the fp32
+# kernel path's from the same init on the same batches, |Δ|/mse at steps
+# 100 and 200 and the last: bf16 rounds every product's operands, so the
+# two trajectories are the same optimization with other numbers
+RTOL_BF16_MSE = 2e-2
+
+
+def bf16_fwd_check(inp: dict, tied: bool, tag: str, x_dtypes=("float32",
+                                                               "bfloat16")
+                   ) -> dict:
+    """A bf16 forward (the tied one with and without the coef_mask) against
+    its plain bf16 version, with fp32 and bf16 batches."""
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    e, dec, x, bias, cm = (inp[k] for k in ("e", "dec", "x", "bias", "cm"))
+    out = {}
+    for xd in x_dtypes:
+        xx = x if xd == "float32" else x.to(torch.bfloat16)
+        masks = ((None, ""), (cm, "_masked")) if tied else ((None, ""),)
+        for mask, sfx in masks:
+            if tied:
+                got = ft.sae_tied_fwd(e, bias, xx, mask, BF16)
+                ref = ft.sae_tied_fwd_plain(e, bias, xx, mask, BF16)
+            else:
+                got = ft.sae_untied_fwd(e, dec, bias, xx, BF16)
+                ref = ft.sae_untied_fwd_plain(e, dec, bias, xx, BF16)
+            name = f"r_x{xd}{sfx}"
+            out[name] = compare(f"{tag}:{'sae_tied_fwd_bf16' if tied else 'sae_untied_fwd_bf16'}.{name}",
+                                got, ref, RTOL_BF16)
+    worst = max(v["max_rel_err"] for v in out.values())
+    log(f"  {tag} {'sae_tied_fwd_bf16' if tied else 'sae_untied_fwd_bf16'}: "
+        f"ok ({', '.join(out)}), worst rel err {worst:.2e}")
+    return out
+
+
+def bf16_bwd_check(inp: dict, tied: bool, tag: str, cm=None,
+                   x_dtype: str = "float32") -> dict:
+    """A bf16 backward against its plain bf16 version on the same residual:
+    its ReLU mask flips (the kernel's masks from its codes launch on its
+    own rounded operands, against the plain version's) at most
+    FLIPS_PER_CODE a code; dW (dE, dWn) and db within RTOL_BF16 on every
+    (member, feature) without a flip; activity within the flips; losses and
+    grad_sq within RTOL_BF16."""
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    e, dec, x, bias, al = (inp[k] for k in ("e", "dec", "x", "bias",
+                                             "alphas"))
+    if x_dtype == "bfloat16":
+        x = x.to(torch.bfloat16)
+    n_m, n, d = e.shape
+    b = x.shape[0]
+    rnd = lambda t: t.to(torch.bfloat16).to(torch.float32)
+    xf = x.to(torch.float32)
+    if tied:
+        r = ft.sae_tied_fwd_plain(e, bias, x, cm, BF16).contiguous()
+        got = ft.sae_tied_bwd(e, bias, al, x, r, cm, BF16)
+        ref = ft.sae_tied_bwd_plain(e, bias, al, x, r, cm, BF16)
+        grads = ("dw",)
+        w_plain = rnd(e / torch.clamp(torch.linalg.vector_norm(
+            e, dim=-1, keepdim=True), min=1e-8))
+        kernel = "sae_tied_bwd_bf16"
+    else:
+        r = ft.sae_untied_fwd_plain(e, dec, bias, x, BF16).contiguous()
+        got = ft.sae_untied_bwd(e, dec, bias, al, x, r, BF16)
+        ref = ft.sae_untied_bwd_plain(e, dec, bias, al, x, r, BF16)
+        grads = ("de", "dwn")
+        w_plain = rnd(e)
+        kernel = "sae_untied_bwd_bf16"
+    # the masks: the kernel's codes launch on its own bf16 operands
+    xb = x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)
+    c_k = torch.empty((n_m, b, n), dtype=torch.float32, device=DEV)
+    cb = torch.empty((n_m, b, n), dtype=torch.bfloat16, device=DEV)
+    if tied:
+        wb = torch.empty(e.shape, dtype=torch.bfloat16, device=DEV)
+        ft.tied_bwd_bf16_norms(e, wb)
+        ft.tied_bwd_bf16_codes(xb, wb, bias, cm, c_k, cb)
+    else:
+        ft.untied_bwd_bf16_codes(xb, e.to(torch.bfloat16), bias, c_k, cb)
+    del cb
+    pre = torch.matmul(rnd(xf), w_plain.transpose(1, 2)) + bias[:, None, :]
+    want = pre > 0
+    del pre
+    if cm is not None:
+        want &= cm[:, None, :] > 0
+    flip = (c_k > 0) != want
+    del c_k, want
+    count = int(flip.sum())
+    allowed = max(1.0, FLIPS_PER_CODE * n_m * b * n)
+    if count > allowed:
+        raise AssertionError(f"{tag}: {kernel} flipped {count} ReLU masks "
+                             f"(> {allowed:.0f})")
+    clean = ~flip.any(dim=1)  # [N, n]: features with no flip in any row
+    flips_per_feature = flip.sum(dim=1).float()
+    del flip
+    k = len(grads)
+    errs = {}
+    for i, g in enumerate(grads):
+        errs[f"{g}_no_flip"] = compare(f"{tag}:{kernel}.{g} (no flip)",
+                                       got[i][clean], ref[i][clean],
+                                       RTOL_BF16)
+    errs["db_no_flip"] = compare(f"{tag}:{kernel}.db (no flip)",
+                                 got[k][clean], ref[k][clean], RTOL_BF16)
+    act_err = float((got[k + 1] - ref[k + 1]).abs().sub(
+        flips_per_feature).max())
+    if act_err > 0:
+        raise AssertionError(f"{tag}: {kernel} activity off by more than "
+                             "its flips")
+    errs["loss4"] = compare(f"{tag}:{kernel}.loss4", got[k + 2],
+                            ref[k + 2], RTOL_BF16)
+    worst = max(v["max_rel_err"] for v in errs.values())
+    log(f"  {tag} {kernel} (x {x_dtype}{', masked' if cm is not None else ''}"
+        f"): ok, {count} ReLU mask flips of {n_m * b * n} (allowed "
+        f"{allowed:.0f}), worst rel err {worst:.2e}")
+    return {**errs, "flips": count, "flips_allowed": allowed}
+
+
+def bf16_adam_check(inp: dict, tag: str) -> dict:
+    """The two Adam epilogues with bf16 moments against their plain
+    versions: params and the update norm within RTOL_EXACT, each bf16
+    moment within one bf16 ulp of the plain one (at most 2⁻⁷ of it: bf16
+    keeps 8 significant bits) plus RTOL_EXACT of max|ref| (the fp32
+    moment, a few ulps apart on the two sides — the normalization VJP's
+    row sums run in other orders, and cancel where dW is nearly radial —,
+    may round to a neighbouring bf16)."""
+    from sparse_coding_tpu_torch.ops import fused_sae as fs
+
+    h = lambda k: inp[k].to(torch.bfloat16)
+    e, dec = inp["e"], inp["dec"]
+    tied_args = (e, inp["dw"], h("mu"), h("nu"), inp["lrs"], inp["bc1"],
+                 inp["bc2"])
+    bias_grp = dict(bias=inp["bias"], db=inp["dw"][:, :, 0].contiguous(),
+                    mu_b=inp["mu_b"], nu_b=inp["nu_b"])
+    unt_args = (e, inp["dw"], h("mu"), h("nu"), dec, inp["dwn"], h("mu_d"),
+                h("nu_d"), inp["lrs"], inp["bc1"], inp["bc2"])
+    out = {}
+
+    def moment(label, g, rf):
+        if g.dtype != torch.bfloat16:
+            raise AssertionError(f"{label}: {g.dtype}")
+        gf, rff = g.float(), rf.float()
+        err = ((gf - rff).abs() - rff.abs() * 2.0**-7
+               - RTOL_EXACT * rff.abs().max()).max()
+        if not err <= 0:
+            raise AssertionError(f"{label}: more than one bf16 ulp (and "
+                                 f"{RTOL_EXACT} of max|ref|) off")
+        return {"max_abs_err": float((g.float() - rf.float()).abs().max()),
+                "max_rel_err": 0.0, "tol": "one bf16 ulp"}
+
+    got = fs.sae_tied_adam_vjp(*tied_args, **bias_grp)
+    ref = fs.sae_tied_adam_vjp_plain(*tied_args, **bias_grp)
+    out["sae_tied_adam_vjp_bf16"] = {
+        "e": compare(f"{tag}:tied adam.e", got[0], ref[0], RTOL_EXACT),
+        "mu": moment(f"{tag}:tied adam.mu", got[1], ref[1]),
+        "nu": moment(f"{tag}:tied adam.nu", got[2], ref[2]),
+        "un_sq": compare(f"{tag}:tied adam.un_sq", got[3], ref[3],
+                         RTOL_EXACT),
+        **{n: compare(f"{tag}:tied adam.{n}", g, rf, RTOL_EXACT)
+           for n, g, rf in zip(("bias", "mu_b", "nu_b"), got[4], ref[4])}}
+    got = fs.sae_untied_adam_vjp(*unt_args)
+    ref = fs.sae_untied_adam_vjp_plain(*unt_args)
+    names = ("e", "mu_e", "nu_e", "d", "mu_d", "nu_d", "un_sq")
+    out["sae_untied_adam_vjp_bf16"] = {
+        n: (moment(f"{tag}:untied adam.{n}", g, rf) if n[:2] in ("mu", "nu")
+            else compare(f"{tag}:untied adam.{n}", g, rf, RTOL_EXACT))
+        for n, g, rf in zip(names, got, ref)}
+    for name, errs in out.items():
+        worst = max(v["max_rel_err"] for v in errs.values())
+        log(f"  {tag} {name}: ok, worst rel err {worst:.2e}, bf16 moments "
+            "within one ulp")
+    return out
+
+
+def bf16_repeat(inp: dict) -> dict:
+    """Each bf16 form called twice on the same inputs gives the same
+    bits."""
+    from sparse_coding_tpu_torch.ops import fused_sae as fs
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    e, dec, x, bias, al, cm = (inp[k] for k in ("e", "dec", "x", "bias",
+                                                 "alphas", "cm"))
+    r = ft.sae_tied_fwd_plain(e, bias, x, None, BF16).contiguous()
+    ru = ft.sae_untied_fwd_plain(e, dec, bias, x, BF16).contiguous()
+    h = lambda k: inp[k].to(torch.bfloat16)
+    calls = {
+        "sae_tied_fwd_bf16": lambda: ft.sae_tied_fwd(e, bias, x, cm, BF16),
+        "sae_tied_bwd_bf16": lambda: ft.sae_tied_bwd(e, bias, al, x, r, None,
+                                                     BF16),
+        "sae_untied_fwd_bf16": lambda: ft.sae_untied_fwd(e, dec, bias, x,
+                                                         BF16),
+        "sae_untied_bwd_bf16": lambda: ft.sae_untied_bwd(e, dec, bias, al, x,
+                                                         ru, BF16),
+        "sae_tied_adam_vjp_bf16": lambda: fs.sae_tied_adam_vjp(
+            e, inp["dw"], h("mu"), h("nu"), inp["lrs"], inp["bc1"],
+            inp["bc2"])[:4],
+        "sae_untied_adam_vjp_bf16": lambda: fs.sae_untied_adam_vjp(
+            e, inp["dw"], h("mu"), h("nu"), dec, inp["dwn"], h("mu_d"),
+            h("nu_d"), inp["lrs"], inp["bc1"], inp["bc2"]),
+    }
+    for name, call in calls.items():
+        first, again = call(), call()
+        if isinstance(first, torch.Tensor):
+            first, again = (first,), (again,)
+        if not all(torch.equal(u, v) for u, v in zip(first, again)):
+            raise AssertionError(f"{name}: two calls differ")
+        del first, again
+    log(f"  main: two calls bit-identical: {', '.join(calls)}")
+    return {name: True for name in calls}
+
+
+def bf16_bounds(inp: dict, nnz: dict) -> dict:
+    """Least time the card could take for each bf16 form's work on ``inp``:
+    max(bytes once / HBM rate, ops / peak), the products' operations at the
+    dense bf16 tensor-core peak (989 TFLOP/s) counting active codes as the
+    fp32 rows do, the Adam epilogues' elementwise fp32 ones at 67 TFLOP/s;
+    the fp32 batch and residual read as fp32, bf16 moments as 2 bytes."""
+    n_m, n, d = inp["e"].shape
+    b = inp["x"].shape[0]
+    f4 = 4
+    big = n_m * n * d
+    enc = 2.0 * n_m * b * n * d
+    act = {k: 2.0 * v * d for k, v in nnz.items()}
+    work = {
+        "sae_tied_fwd_bf16": (enc + act["tied"], big * 3, f4 * (
+            b * d + big + n_m * n + n_m * b * d)),
+        "sae_tied_bwd_bf16": (enc + 3 * act["tied"], big * 3, f4 * (
+            b * d + 2 * n_m * b * d + 2 * big + 3 * n_m * n + n_m)),
+        "sae_untied_fwd_bf16": (enc + act["untied"], big * 3, f4 * (
+            b * d + 2 * big + n_m * n + n_m * b * d)),
+        "sae_untied_bwd_bf16": (enc + 3 * act["untied"], big * 3, f4 * (
+            b * d + 2 * n_m * b * d + 4 * big + 3 * n_m * n + n_m)),
+        "sae_tied_adam_vjp_bf16": (0.0, 24.0 * big, 20 * big + f4 * 3 * n_m),
+        "sae_untied_adam_vjp_bf16": (0.0, 36.0 * big,
+                                     40 * big + f4 * 3 * n_m),
+    }
+    out = {}
+    for name, (mma_ops, simt_ops, nbytes) in work.items():
+        t_ops = mma_ops / PEAK_BF16_FLOPS + simt_ops / PEAK_FP32_FLOPS
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        out[name] = {"bound_ms": 1e3 * max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes", "flops": mma_ops + simt_ops,
+                     "bytes": nbytes}
+    return out
+
+
+def bf16_time_kernels(inp: dict) -> dict:
+    """Each bf16 form and its plain bf16 version at the main shape, in
+    turns (plain, kernel, kernel, plain), and the four chunked forms'
+    launches each timed alone on one chunk."""
+    from sparse_coding_tpu_torch.ops import fused_sae as fs
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    e, dec, x, bias, al = (inp[k] for k in ("e", "dec", "x", "bias",
+                                             "alphas"))
+    r = ft.sae_tied_fwd_plain(e, bias, x, None, BF16).contiguous()
+    ru = ft.sae_untied_fwd_plain(e, dec, bias, x, BF16).contiguous()
+    h = lambda k: inp[k].to(torch.bfloat16)
+    adam = (e, inp["dw"], h("mu"), h("nu"), inp["lrs"], inp["bc1"],
+            inp["bc2"])
+    uadam = (e, inp["dw"], h("mu"), h("nu"), dec, inp["dwn"], h("mu_d"),
+             h("nu_d"), inp["lrs"], inp["bc1"], inp["bc2"])
+    pairs = {
+        "sae_tied_fwd_bf16": (
+            lambda: ft.sae_tied_fwd(e, bias, x, None, BF16),
+            lambda: ft.sae_tied_fwd_plain(e, bias, x, None, BF16), 10),
+        "sae_tied_bwd_bf16": (
+            lambda: ft.sae_tied_bwd(e, bias, al, x, r, None, BF16),
+            lambda: ft.sae_tied_bwd_plain(e, bias, al, x, r, None, BF16), 5),
+        "sae_tied_adam_vjp_bf16": (lambda: fs.sae_tied_adam_vjp(*adam),
+                                   lambda: fs.sae_tied_adam_vjp_plain(*adam),
+                                   20),
+        "sae_untied_fwd_bf16": (
+            lambda: ft.sae_untied_fwd(e, dec, bias, x, BF16),
+            lambda: ft.sae_untied_fwd_plain(e, dec, bias, x, BF16), 10),
+        "sae_untied_bwd_bf16": (
+            lambda: ft.sae_untied_bwd(e, dec, bias, al, x, ru, BF16),
+            lambda: ft.sae_untied_bwd_plain(e, dec, bias, al, x, ru, BF16),
+            5),
+        "sae_untied_adam_vjp_bf16": (
+            lambda: fs.sae_untied_adam_vjp(*uadam),
+            lambda: fs.sae_untied_adam_vjp_plain(*uadam), 20),
+    }
+    out = time_pairs(pairs)
+    for name, extra in (("sae_tied_fwd_bf16", {}),
+                        ("sae_untied_fwd_bf16", {"decoder": dec}),
+                        ("sae_tied_bwd_bf16", {"alphas": al, "resid": r}),
+                        ("sae_untied_bwd_bf16", {"decoder": dec, "alphas": al,
+                                                 "resid": ru})):
+        parts = ft.one_chunk_launches_bf16(name, e, bias, x, **extra)
+        out[name]["parts"] = time_parts(parts)
+        del parts
+        torch.cuda.empty_cache()
+    return out
+
+
+def bf16_ensemble_variants(batches: list, l1_values) -> dict:
+    """bench.py's five bf16 variants (BENCH_BF16_VARIANTS) through
+    ``Ensemble``, tied and untied, one epoch of the synthetic store each,
+    beside the fp32 kernel path (train_step) from the same init on the
+    same batches: launch counts zeroed before and read after — each bf16
+    form once a step, no fp32 forward or backward —, finite losses, each
+    member's mse within RTOL_BF16_MSE of the fp32 run's at steps 100 and
+    200 and the last; the step's device time (CUDA events around the
+    epoch, after one warm-up step on its own init) and acts/s."""
+    from sparse_coding_tpu_torch.ensemble import Ensemble
+    from sparse_coding_tpu_torch.ops import _build
+
+    n_steps = len(batches)
+    at = sorted({min(99, n_steps - 1), min(199, n_steps - 1), n_steps - 1})
+    out = {}
+    for family in ("tied", "untied"):
+        kernels = TIED_KERNELS if family == "tied" else UNTIED_KERNELS
+        fwd, bwd, adam = kernels
+
+        def run(path, batch_dtype, moments, compute):
+            sig, members = family_members(family, l1_values)
+            opts = {} if compute == "float32" else dict(
+                fused_compute_dtype=BF16, fused_moments_dtype=moments)
+            ens = Ensemble(members, sig, lr=LR, fused_path=path, device=DEV,
+                           **opts)
+            data = [bb.to(torch.bfloat16) if batch_dtype == BF16 else bb
+                    for bb in batches]
+            warm_sig, warm_members = family_members(family, l1_values)
+            warm = Ensemble(warm_members, warm_sig, lr=LR, fused_path=path,
+                            device=DEV, **opts)
+            warm.step_batch(data[0])
+            del warm
+            sync()
+            _build.reset_launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            mse = [ens.step_batch(bb).losses["l_reconstruction"]
+                   for bb in data]
+            end.record()
+            end.synchronize()
+            launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+            step_ms = start.elapsed_time(end) / n_steps
+            mse = torch.stack(mse)
+            if not bool(torch.isfinite(mse).all()):
+                raise AssertionError(f"{family} {path}: non-finite losses")
+            return ens, mse, launches, step_ms
+
+        _, ref_mse, ref_launches, ref_ms = run("train_step", "float32",
+                                               "float32", "float32")
+        label = f"{family} fp32 train_step"
+        out[label] = {"step_ms": ref_ms, "acts_per_s": 1e3 * BATCH / ref_ms,
+                      "launches": ref_launches}
+        log(f"  {label}: {ref_ms:.3f} ms a step, "
+            f"{1e3 * BATCH / ref_ms:,.0f} acts/s")
+        for path, batch_dtype, moments in BENCH_BF16_VARIANTS:
+            ens, mse, launches, step_ms = run(path, batch_dtype, moments,
+                                              BF16)
+            label = (f"{family} bf16 {path}, {batch_dtype} batch, "
+                     f"{moments} moments")
+            want = {f"{fwd}_bf16": n_steps, f"{bwd}_bf16": n_steps}
+            if path == "train_step":
+                want[adam + ("_bf16" if moments == BF16 else "")] = n_steps
+            got = {k: launches.get(k, 0) for k in (
+                *want, fwd, bwd, adam, f"{adam}_bf16")}
+            want = {k: want.get(k, 0) for k in got}
+            if got != want:
+                raise AssertionError(f"{label}: launches {got}, expected "
+                                     f"{want}")
+            for k in ("encoder", "decoder"):
+                if k in ens.state.mu and ens.state.mu[k].dtype != (
+                        torch.bfloat16 if moments == BF16 else torch.float32):
+                    raise AssertionError(f"{label}: {k} moments "
+                                         f"{ens.state.mu[k].dtype}")
+            rel = ((mse[at] - ref_mse[at]).abs() / ref_mse[at]).max()
+            if not float(rel) <= RTOL_BF16_MSE:
+                raise AssertionError(f"{label}: mse {float(rel):.2e} from "
+                                     "the fp32 kernel path's")
+            out[label] = {"step_ms": step_ms,
+                          "acts_per_s": 1e3 * BATCH / step_ms,
+                          "launches": launches,
+                          "mse_max_rel_vs_fp32": float(rel)}
+            log(f"  {label}: {step_ms:.3f} ms a step, "
+                f"{1e3 * BATCH / step_ms:,.0f} acts/s; launches {got}; "
+                f"mse vs fp32 within {float(rel):.2e}")
+            del ens
+            torch.cuda.empty_cache()
+    return out
+
+
+def bf16_other_paths(batches: list, l1_values) -> dict:
+    """The kernel paths bench.py's variants leave out, under bf16 compute
+    with bf16 batches: the two tiled paths of the tied and untied families
+    (train_step_tiled with bf16 moments too) and the masked family's two
+    paths, a few steps each; each bf16 form once a step, no fp32 forward
+    or backward, finite losses."""
+    from sparse_coding_tpu_torch.ensemble import Ensemble
+    from sparse_coding_tpu_torch.ops import _build
+
+    cases = [("tied", "two_stage_tiled", "float32"),
+             ("tied", "train_step_tiled", BF16),
+             ("untied", "two_stage_tiled", "float32"),
+             ("untied", "train_step_tiled", BF16),
+             ("masked_tied", "two_stage", "float32"),
+             ("masked_tied", "two_stage_tiled", "float32")]
+    out = {}
+    for family, path, moments in cases:
+        fwd, bwd, adam = UNTIED_KERNELS if family == "untied" \
+            else TIED_KERNELS
+        sig, members = family_members(family, l1_values)
+        ens = Ensemble(members, sig, lr=LR, fused_path=path, device=DEV,
+                       fused_compute_dtype=BF16, fused_moments_dtype=moments)
+        _build.reset_launches()
+        losses = torch.stack([ens.step_batch(b.to(torch.bfloat16))
+                              .losses["loss"] for b in batches])
+        sync()
+        n = len(batches)
+        want = {f"{fwd}_bf16": n, f"{bwd}_bf16": n, fwd: 0, bwd: 0}
+        if path.startswith("train_step"):
+            want[adam + ("_bf16" if moments == BF16 else "")] = n
+        got = {k: _build.LAUNCHES[k] for k in want}
+        label = f"{family} bf16 {path}, {moments} moments"
+        if got != want or ens.fused_path != path:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"{label}: non-finite losses")
+        out[label] = {"launches": got, "losses": losses.tolist()}
+        log(f"  {label}: {n} steps, launches {got}, finite losses")
+        del ens
+        torch.cuda.empty_cache()
+    return out
+
+
+def bf16_phase(x_main: torch.Tensor, batches: list, l1_values,
+               g: torch.Generator) -> dict:
+    """Phase 10: the bf16 forms against their plain versions (small odd
+    shapes, the main shape, ratio 16; fp32 and bf16 batches; the masked
+    family's coef_mask), the Adam epilogues with bf16 moments, two calls
+    bit-identical; bench.py's bf16 variants through Ensemble; the timings
+    and bounds for the kernels line."""
+    report = {"checks": {}}
+    for shape in BF16_SMALL_SHAPES:
+        tag = "bf16 small " + "x".join(map(str, shape))
+        inp = make_inputs(g, *shape)
+        checks = {"tied_fwd": bf16_fwd_check(inp, True, tag),
+                  "untied_fwd": bf16_fwd_check(inp, False, tag)}
+        for xd in ("float32", "bfloat16"):
+            checks[f"tied_bwd_x{xd}"] = bf16_bwd_check(inp, True, tag,
+                                                       x_dtype=xd)
+            checks[f"tied_bwd_masked_x{xd}"] = bf16_bwd_check(
+                inp, True, tag, cm=inp["cm"], x_dtype=xd)
+            checks[f"untied_bwd_x{xd}"] = bf16_bwd_check(inp, False, tag,
+                                                         x_dtype=xd)
+        checks["adam"] = bf16_adam_check(inp, tag)
+        report["checks"][tag] = checks
+    inp = make_inputs(g, N_MEMBERS, BATCH, N_FEATS, D, x=x_main)
+    tag = "bf16 main"
+    checks = {"tied_fwd": bf16_fwd_check(inp, True, tag),
+              "untied_fwd": bf16_fwd_check(inp, False, tag),
+              "tied_bwd": bf16_bwd_check(inp, True, tag),
+              "tied_bwd_masked": bf16_bwd_check(inp, True, tag, cm=inp["cm"]),
+              "untied_bwd": bf16_bwd_check(inp, False, tag,
+                                           x_dtype="bfloat16"),
+              "adam": bf16_adam_check(inp, tag),
+              "repeat": bf16_repeat(inp)}
+    report["checks"]["main"] = checks
+    nnz = active_codes(inp)
+    report["bounds"] = bf16_bounds(inp, nnz)
+    report["timing"] = bf16_time_kernels(inp)
+    del inp
+    torch.cuda.empty_cache()
+    n_m, b, n, d = RATIO16_SHAPE
+    inp = make_inputs(g, n_m, b, n, d)
+    tag = "bf16 ratio16"
+    report["checks"]["ratio16"] = {
+        "tied_fwd": bf16_fwd_check(inp, True, tag, ("float32",)),
+        "untied_fwd": bf16_fwd_check(inp, False, tag, ("bfloat16",)),
+        "tied_bwd_masked": bf16_bwd_check(inp, True, tag, cm=inp["cm"]),
+        "untied_bwd": bf16_bwd_check(inp, False, tag)}
+    del inp
+    torch.cuda.empty_cache()
+    report["ensemble"] = bf16_ensemble_variants(batches, l1_values)
+    report["other_paths"] = bf16_other_paths(batches[:3], l1_values)
+    return report
+
+
 # --- main --------------------------------------------------------------------
 
 def main() -> int:
@@ -2422,6 +2954,7 @@ def main() -> int:
     log(f"  built {list(_build.KERNELS)} in {report['build_s']:.1f} s")
     spills, entry = [], ""
     gemms = {name: 0 for name in _build.KERNELS}
+    bgemms = {name: 0 for name in _build.KERNELS}
     for name in _build.KERNELS:
         for line in (out / f"{name}.log").read_text().splitlines():
             if ("registers" in line or "spill" in line
@@ -2430,18 +2963,26 @@ def main() -> int:
             if "Compiling entry function" in line:
                 entry = line
                 gemms[name] += "sgemm_kernel" in line
+                bgemms[name] += "bgemm_kernel" in line
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
             if (m and (int(m.group(1)) or int(m.group(2)))
-                    and "sgemm_kernel" in entry):
+                    and ("sgemm_kernel" in entry or "bgemm_kernel" in entry)):
                 spills.append(f"{name}: {entry.strip()}: {line.strip()}")
     if spills:
-        raise AssertionError(f"ptxas spilled in the GEMM template: {spills}")
+        raise AssertionError(f"ptxas spilled in a GEMM template: {spills}")
     gemms = {k: v for k, v in gemms.items() if v}
-    log(f"  GEMM template instantiations, no spills: {gemms}")
+    bgemms = {k: v for k, v in bgemms.items() if v}
+    log(f"  GEMM template instantiations, no spills: fp32 {gemms}; bf16 "
+        f"tensor-core {bgemms}")
     if set(gemms) != {"big_sae_fwd", "big_sae_bwd", "sae_tied_fwd",
                       "sae_tied_bwd", "sae_untied_fwd", "sae_untied_bwd"}:
         raise AssertionError(f"GEMM template instantiations in {gemms}")
+    if set(bgemms) != {"sae_tied_fwd", "sae_tied_bwd", "sae_untied_fwd",
+                       "sae_untied_bwd"}:
+        raise AssertionError(f"bf16 GEMM template instantiations in "
+                             f"{bgemms}")
+    report["bf16_gemm_instantiations"] = bgemms
 
     log("phase 2: kernels vs plain versions")
     g = torch.Generator().manual_seed(0)
@@ -2554,6 +3095,22 @@ def main() -> int:
                                           report["sweep"]["a"]["host_io"])
         log(f"  done at {time.perf_counter() - t_start:.1f} s")
 
+        log(f"phase 10: bf16 compute — the bf16 forms vs their plain "
+            f"versions; bench.py's {len(BENCH_BF16_VARIANTS)} bf16 variants "
+            f"through Ensemble, tied and untied, {n_steps} steps each")
+        cs_main = ChunkStore(store)
+        epoch = []
+        for ci in range(N_CHUNKS):
+            chunk = torch.as_tensor(cs_main.load_chunk(ci)).to(DEV)
+            epoch += [chunk[i * BATCH:(i + 1) * BATCH]
+                      for i in range(ROWS_PER_CHUNK // BATCH)]
+        report["bf16"] = bf16_phase(x_main.to(DEV, torch.float32).contiguous(),
+                                    epoch, l1_values,
+                                    torch.Generator().manual_seed(10))
+        del epoch
+        torch.cuda.empty_cache()
+        log(f"  done at {time.perf_counter() - t_start:.1f} s")
+
     timing.update(big["timing"])
     bnd.update(big["bounds"])
     kernels = []
@@ -2599,6 +3156,43 @@ def main() -> int:
                     report[f"main_path_{family}"]["launches"][k],
                     "ms": v["ms"]}
                 for k, v in parts["parts"].items()}
+    bf = report["bf16"]
+    main_bf = bf["checks"]["main"]
+    errs_of = {"sae_tied_fwd_bf16": main_bf["tied_fwd"],
+               "sae_tied_bwd_bf16": {**main_bf["tied_bwd"],
+                                     **main_bf["tied_bwd_masked"]},
+               "sae_untied_fwd_bf16": main_bf["untied_fwd"],
+               "sae_untied_bwd_bf16": main_bf["untied_bwd"],
+               "sae_tied_adam_vjp_bf16":
+                   main_bf["adam"]["sae_tied_adam_vjp_bf16"],
+               "sae_untied_adam_vjp_bf16":
+                   main_bf["adam"]["sae_untied_adam_vjp_bf16"]}
+    for name, base in BF16_FORMS.items():
+        # launches: bench.py's last bf16 variant (train_step, bf16 batches
+        # and moments), which runs all three of the family's forms
+        family = "tied" if name.startswith("sae_tied") else "untied"
+        run = bf["ensemble"][f"{family} bf16 train_step, bfloat16 batch, "
+                             "bfloat16 moments"]
+        errs = [v for v in errs_of[name].values() if isinstance(v, dict)]
+        t = bf["timing"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": KERNEL_META[base]["source"],
+            "replaces": KERNEL_META[base]["replaces"],
+            "launches": run["launches"].get(name, 0),
+            "max_abs_err": max(v["max_abs_err"] for v in errs),
+            "max_rel_err": max(v["max_rel_err"] for v in errs),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": bf["bounds"][name]["bound_ms"],
+            "bound_by": bf["bounds"][name]["bound_by"],
+            "library_ms": t["library_ms"],
+            "contracts": KERNEL_META[base]["contracts"],
+            "compute": "bf16 operands, fp32 accumulation"
+            if "adam" not in name else "bf16 moments, fp32 update"})
+        if "parts" in t:
+            kernels[-1]["parts"] = {
+                k: {"launches": run["launches"].get(k, 0), "ms": v["ms"]}
+                for k, v in t["parts"].items()}
     report["kernels"] = kernels
     report["timing"] = timing
     report["bounds"] = bnd

@@ -318,7 +318,7 @@ def make_fullfused_tied_step(adam_hypers, compute_dtype="float32",
     def step(state: EnsembleState, batch: Tensor):
         p, mu, nu = state.params, state.mu, state.nu
         kbatch, bt, _ = prepare_tiled_batch(batch, p["encoder"].shape[1],
-                                            None, None)
+                                            None, None, compute_dtype)
         count_inc = safe_increment(state.count)
         bc1, bc2 = bias_corrections(count_inc, b1, b2)
         losses, e2, bias2, mu_e, nu_e, mu_b, nu_b, act = (
@@ -366,7 +366,8 @@ def make_fullfused_untied_step(adam_hypers, compute_dtype="float32",
         p, mu, nu = state.params, state.mu, state.nu
         e, dec, bias = p["encoder"], p["decoder"], p["encoder_bias"]
         alphas = state.buffers["l1_alpha"]
-        kbatch, bt, ft = prepare_tiled_batch(batch, e.shape[1], None, None)
+        kbatch, bt, ft = prepare_tiled_batch(batch, e.shape[1], None, None,
+                                             compute_dtype)
         count_inc = safe_increment(state.count)
         bc1, bc2 = bias_corrections(count_inc, b1, b2)
         if tiled:
@@ -415,7 +416,8 @@ def make_fullfused_tiled_step(adam_hypers, compute_dtype="float32",
     def step(state: EnsembleState, batch: Tensor):
         p, mu, nu = state.params, state.mu, state.nu
         e, bias = p["encoder"], p["encoder_bias"]
-        kbatch, bt, ft = prepare_tiled_batch(batch, e.shape[1], None, None)
+        kbatch, bt, ft = prepare_tiled_batch(batch, e.shape[1], None, None,
+                                             compute_dtype)
         count_inc = safe_increment(state.count)
         bc1, bc2 = bias_corrections(count_inc, b1, b2)
         losses, dw, db, act, grad_sq = tiled_tied_sae_grads(
@@ -499,7 +501,11 @@ class Ensemble:
     left None, a tied or untied bucket runs ``train_step_tiled`` and a
     masked one ``two_stage_tiled``. On the card an eligible bucket whose
     shape the kernels do not take raises; it trains on autodiff only with
-    ``use_fused=False``."""
+    ``use_fused=False``. ``fused_compute_dtype="bfloat16"`` runs the
+    kernels' bf16 forms (bf16 dot operands, fp32 accumulation; the
+    autodiff path stays fp32); ``fused_moments_dtype="bfloat16"`` (with a
+    whole-step ``fused_path``) stores the encoder and decoder Adam moments
+    in bf16, as the JAX engine does."""
 
     def __init__(
         self,
@@ -519,14 +525,25 @@ class Ensemble:
         if fused_path not in (None, *KERNEL_PATHS):
             raise ValueError(f"fused_path must be None or one of "
                              f"{KERNEL_PATHS}, got {fused_path!r}")
-        if fused_compute_dtype != "float32":
+        if fused_moments_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"fused_moments_dtype must be 'float32' or 'bfloat16', got "
+                f"{fused_moments_dtype!r}")
+        if (fused_moments_dtype != "float32"
+                and fused_path not in ("train_step", "train_step_tiled")):
+            raise ValueError(
+                "fused_moments_dtype='bfloat16' requires "
+                "fused_path='train_step' or 'train_step_tiled': only the "
+                "whole-step kernels carry "
+                "moments through VMEM (the win is their halved HBM traffic),"
+                " and an auto-mode path flip would silently change the "
+                "optimizer-state dtype mid-run. It is an opt-in DEVIATION "
+                "from exact optax/torchopt parity (~8-bit moment mantissas; "
+                "update math stays f32).")
+        if fused_compute_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(
-                f"fused_compute_dtype={fused_compute_dtype!r}: only float32 "
-                "is ported")
-        if fused_moments_dtype != "float32":
-            raise NotImplementedError(
-                f"fused_moments_dtype={fused_moments_dtype!r}: only float32 "
-                "is ported")
+                f"fused_compute_dtype={fused_compute_dtype!r}: the kernels "
+                "take 'float32' or 'bfloat16'")
         if fused_path is not None and use_fused is False:
             raise ValueError("fused_path requires use_fused=True or 'auto'")
         if not members:
@@ -554,10 +571,18 @@ class Ensemble:
         if tuple(lrs.shape) != (n,):
             raise ValueError(f"lr must be scalar or length-{n}, got shape "
                              f"{tuple(lrs.shape)}")
+        # fused_moments_dtype="bfloat16": half-width storage for the
+        # dictionary-weight moment leaves only, selected BY NAME (encoder
+        # and decoder, as the JAX engine selects them); bias moments stay
+        # fp32. The whole-step kernels read them widened and store them
+        # rounded (ops/fused_sae.py).
+        moment = lambda k, v: torch.zeros_like(
+            v, dtype=torch.bfloat16 if fused_moments_dtype == "bfloat16"
+            and k in ("encoder", "decoder") else v.dtype)
         self.state = EnsembleState(
             params=params, buffers=buffers,
-            mu={k: torch.zeros_like(v) for k, v in params.items()},
-            nu={k: torch.zeros_like(v) for k, v in params.items()},
+            mu={k: moment(k, v) for k, v in params.items()},
+            nu={k: moment(k, v) for k, v in params.items()},
             count=torch.zeros((n,), dtype=torch.int32, device=dev),
             lrs=lrs, step=torch.zeros((), dtype=torch.int32, device=dev),
             live=torch.ones((n,), dtype=torch.bool, device=dev),
@@ -664,11 +689,16 @@ class Ensemble:
         Returns stacked per-member aux. A half-width batch (bfloat16 from
         the store) is promoted to float32 on the device, as the JAX step
         promotes against its f32 params: only the input's precision
-        drops, never the accumulation's."""
+        drops, never the accumulation's. Under bf16 compute on a kernel
+        path a bfloat16 batch stays bfloat16: the bf16 kernels take it as
+        their dot operand, with no fp32 copy on the card, and its fp32
+        value (exact) in the residual."""
         batch = _as_tensor(batch, self.device)
-        if batch.dtype != torch.float32:
-            batch = batch.to(torch.float32)
         self._resolve_step(int(batch.shape[0]))
+        if batch.dtype != torch.float32 and not (
+                batch.dtype == torch.bfloat16 and self.fused_path is not None
+                and self._compute_dtype == "bfloat16"):
+            batch = batch.to(torch.float32)
         self.state, aux = self._step_fn(self.state, batch)
         return aux
 

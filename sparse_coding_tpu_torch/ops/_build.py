@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 ARGTYPES = {
     # the tied forward's launches (csrc/sae_tied_fwd.cu), a chunk of Z
     # members x rows batch rows at a time:
@@ -105,28 +106,110 @@ ARGTYPES = {
     # r, dW, db, act, csum, alphas, part, loss4, N, B, n, d, P, stream
     # (once a call)
     "sae_tied_bwd_loss": [_P] * 8 + [_I] * 5 + [_P],
+    # the bf16 forms (compute_dtype="bfloat16"), in the same libraries:
+    # the tied forward's (csrc/sae_tied_fwd.cu):
+    # src, dst, count, stream (the fp32 batch, once a call)
+    "sae_tied_fwd_bf16_round": [_P] * 2 + [_LL, _P],
+    # E, Wb, rows, d, stream (once a call)
+    "sae_tied_fwd_bf16_norms": [_P] * 2 + [_I] * 2 + [_P],
+    # xb, Wb, b, coef_mask (or null), Ctb, Z, rows, n, d, stream
+    "sae_tied_fwd_bf16_codes": [_P] * 5 + [_I] * 4 + [_P],
+    # Ctb, Wb, x, x_bf16, r, Z, rows, n, d, B, stream
+    "sae_tied_fwd_bf16_decode": [_P] * 3 + [_I, _P] + [_I] * 5 + [_P],
+    # the untied forward's (csrc/sae_untied_fwd.cu): src, dst, count,
+    # stream (the fp32 batch and the raw encoder, once a call each)
+    "sae_untied_fwd_bf16_round": [_P] * 2 + [_LL, _P],
+    # D, Wnb, rows, d, stream (once a call)
+    "sae_untied_fwd_bf16_norms": [_P] * 2 + [_I] * 2 + [_P],
+    # xb, Eb, b, Ctb, Z, rows, n, d, stream
+    "sae_untied_fwd_bf16_codes": [_P] * 4 + [_I] * 4 + [_P],
+    # Ctb, Wnb, x, x_bf16, r, Z, rows, n, d, B, stream
+    "sae_untied_fwd_bf16_decode": [_P] * 3 + [_I, _P] + [_I] * 5 + [_P],
+    # the tied backward's (csrc/sae_tied_bwd.cu): src, dst, count, stream
+    # (the fp32 batch and the residual, once a call each)
+    "sae_tied_bwd_bf16_round": [_P] * 2 + [_LL, _P],
+    # E, Wb, rows, d, stream (once a call)
+    "sae_tied_bwd_bf16_norms": [_P] * 2 + [_I] * 2 + [_P],
+    # xb, Wb, b, coef_mask (or null), C, Cb, Z, rows, n, d, stream
+    "sae_tied_bwd_bf16_codes": [_P] * 6 + [_I] * 4 + [_P],
+    # rb, Wb, C, alphas, G, Gb, Z, rows, n, d, B, coef, stream
+    "sae_tied_bwd_bf16_dpre": [_P] * 6 + [_I] * 5 + [_F, _P],
+    # xb, Gb, dW, Z, rows, n, d, first, stream
+    "sae_tied_bwd_bf16_dwx": [_P] * 3 + [_I] * 5 + [_P],
+    # Cb, rb, dW, Z, rows, n, d, B, coef, stream
+    "sae_tied_bwd_bf16_dwr": [_P] * 3 + [_I] * 5 + [_F, _P],
+    # C, G, db, act, csum, Z, rows, n, first, stream
+    "sae_tied_bwd_bf16_sums": [_P] * 5 + [_I] * 4 + [_P],
+    # r, dW, db, act, csum, alphas, part, loss4, N, B, n, d, P, stream
+    "sae_tied_bwd_bf16_loss": [_P] * 8 + [_I] * 5 + [_P],
+    # the untied backward's (csrc/sae_untied_bwd.cu): src, dst, count,
+    # stream (the fp32 batch, the raw encoder and the residual)
+    "sae_untied_bwd_bf16_round": [_P] * 2 + [_LL, _P],
+    # D, Wnb, rows, d, stream (once a call)
+    "sae_untied_bwd_bf16_norms": [_P] * 2 + [_I] * 2 + [_P],
+    # xb, Eb, b, C, Cb, Z, rows, n, d, stream
+    "sae_untied_bwd_bf16_codes": [_P] * 5 + [_I] * 4 + [_P],
+    # rb, Wnb, C, alphas, G, Gb, Z, rows, n, d, B, coef, stream
+    "sae_untied_bwd_bf16_dpre": [_P] * 6 + [_I] * 5 + [_F, _P],
+    # xb, Gb, dE, Z, rows, n, d, first, stream
+    "sae_untied_bwd_bf16_de": [_P] * 3 + [_I] * 5 + [_P],
+    # Cb, rb, dWn, Z, rows, n, d, B, first, last, coef, stream
+    "sae_untied_bwd_bf16_dwn": [_P] * 3 + [_I] * 7 + [_F, _P],
+    # C, G, db, act, csum, Z, rows, n, first, stream
+    "sae_untied_bwd_bf16_sums": [_P] * 5 + [_I] * 4 + [_P],
+    # r, dE, dWn, db, act, csum, alphas, part, loss4, N, B, n, d, P, stream
+    "sae_untied_bwd_bf16_loss": [_P] * 9 + [_I] * 5 + [_P],
+    # the Adam epilogues with bf16 moments (fused_moments_dtype=
+    # "bfloat16"): the fp32 ones' arguments, mu/nu in and out bf16
+    "sae_tied_adam_vjp_bf16": [_P] * 18 + [_I] * 3 + [_F] * 5 + [_P],
+    "sae_untied_adam_vjp_bf16": [_P] * 18 + [_I] * 3 + [_F] * 5 + [_P],
 }
+# The bf16 forms, each named after its kernel with "_bf16" (bf16 compute
+# for the four chunked ensemble kernels, bf16 moments for the two Adam
+# epilogues), and the library that holds it: its fp32 kernel's.
+BF16_FORMS = {f"{name}_bf16": name for name in (
+    "sae_tied_fwd", "sae_tied_bwd", "sae_untied_fwd", "sae_untied_bwd",
+    "sae_tied_adam_vjp", "sae_untied_adam_vjp")}
+
+
+def _parts(kernel: str) -> tuple[str, ...]:
+    """The entry points of a chunked kernel (or bf16 form): the names that
+    start with its own, less those of its bf16 form."""
+    return tuple(name for name in ARGTYPES
+                 if name.startswith(kernel + "_")
+                 and not name.startswith(kernel + "_bf16_"))
+
+
 # The library of each entry point: the chunked kernel's whose launch it
 # is — K8's parts big_sae_fwd's, K9's big_sae_bwd's, and each ensemble
-# kernel's parts (named after it) its own — or its own name.
-BIG_FWD_PARTS = tuple(name for name in ARGTYPES
-                      if name.startswith("big_sae_fwd_"))
-BWD_PARTS = tuple(name for name in ARGTYPES if name.startswith("big_sae_bwd_"))
-TIED_FWD_PARTS = tuple(name for name in ARGTYPES
-                       if name.startswith("sae_tied_fwd_"))
-TIED_BWD_PARTS = tuple(name for name in ARGTYPES
-                       if name.startswith("sae_tied_bwd_"))
-UNTIED_FWD_PARTS = tuple(name for name in ARGTYPES
-                         if name.startswith("sae_untied_fwd_"))
-UNTIED_BWD_PARTS = tuple(name for name in ARGTYPES
-                         if name.startswith("sae_untied_bwd_"))
+# kernel's parts (named after it, the bf16 form's too) its own — or its
+# own name.
+BIG_FWD_PARTS = _parts("big_sae_fwd")
+BWD_PARTS = _parts("big_sae_bwd")
+TIED_FWD_PARTS = _parts("sae_tied_fwd")
+TIED_BWD_PARTS = _parts("sae_tied_bwd")
+UNTIED_FWD_PARTS = _parts("sae_untied_fwd")
+UNTIED_BWD_PARTS = _parts("sae_untied_bwd")
+TIED_FWD_BF16_PARTS = _parts("sae_tied_fwd_bf16")
+TIED_BWD_BF16_PARTS = _parts("sae_tied_bwd_bf16")
+UNTIED_FWD_BF16_PARTS = _parts("sae_untied_fwd_bf16")
+UNTIED_BWD_BF16_PARTS = _parts("sae_untied_bwd_bf16")
 _PARTS = {"big_sae_fwd": BIG_FWD_PARTS, "big_sae_bwd": BWD_PARTS,
           "sae_tied_fwd": TIED_FWD_PARTS, "sae_tied_bwd": TIED_BWD_PARTS,
           "sae_untied_fwd": UNTIED_FWD_PARTS,
-          "sae_untied_bwd": UNTIED_BWD_PARTS}
-LIBRARY_OF = {name: next((lib for lib, parts in _PARTS.items()
-                          if name in parts), name)
-              for name in ARGTYPES}
+          "sae_untied_bwd": UNTIED_BWD_PARTS,
+          "sae_tied_fwd_bf16": TIED_FWD_BF16_PARTS,
+          "sae_tied_bwd_bf16": TIED_BWD_BF16_PARTS,
+          "sae_untied_fwd_bf16": UNTIED_FWD_BF16_PARTS,
+          "sae_untied_bwd_bf16": UNTIED_BWD_BF16_PARTS}
+
+
+def _library(name: str) -> str:
+    kernel = next((k for k, parts in _PARTS.items() if name in parts), name)
+    return BF16_FORMS.get(kernel, kernel)
+
+
+LIBRARY_OF = {name: _library(name) for name in ARGTYPES}
 
 # Launch counts, one plain integer per kernel and per launch of a chunked
 # kernel: each wrapper adds one where it launches its kernel and nowhere
@@ -136,10 +219,12 @@ LIBRARY_OF = {name: next((lib for lib, parts in _PARTS.items()
 # contracts under their own names (fused_big_sae.big_sae_forward and
 # big_sae_backward; fused_sae_tiled.sae_tied_fwd, ...), each of which
 # launches its parts (_PARTS) once per chunk — the norm passes, the
-# backwards' loss and K9's dctr once a call. reset_launches() zeroes
-# them.
+# backwards' loss and K9's dctr once a call. The bf16 forms count under
+# their own names (BF16_FORMS), the chunked ones' calls and parts as
+# theirs. reset_launches() zeroes them.
 LAUNCHES: dict[str, int] = {name: 0 for name in (
-    *KERNELS, *(part for parts in _PARTS.values() for part in parts))}
+    *KERNELS, *BF16_FORMS,
+    *(part for parts in _PARTS.values() for part in parts))}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -152,19 +237,24 @@ BATCH_TILE = 32
 FEAT_TILE = 32
 ADAM_ROWS = 8
 MAX_D = 768
+# the bf16 forms' tensor-core product copies 8 bf16 values at a time along
+# every operand's contiguous dimension, d among them
+BF16_D_MULTIPLE = 8
 BIG_BATCH_TILE = 32
 BIG_FEAT_TILE = 32
 BIG_MAX_D = 1024
 
 
-def check_cuda_tensors(name: str, **tensors) -> None:
+def check_cuda_tensors(name: str, bf16_ok: tuple = (), **tensors) -> None:
     """Raise unless every tensor is a contiguous float32 tensor on one
-    CUDA device — all the kernels take."""
+    CUDA device — all the kernels take — or, for the arguments named in
+    ``bf16_ok``, a bfloat16 one."""
     devices = set()
     for arg, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {arg} is on {t.device}, not cuda")
-        if t.dtype != torch.float32:
+        if t.dtype != torch.float32 and not (
+                arg in bf16_ok and t.dtype == torch.bfloat16):
             raise ValueError(f"{name}: {arg} is {t.dtype}, not float32")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} is not contiguous")
@@ -173,14 +263,20 @@ def check_cuda_tensors(name: str, **tensors) -> None:
         raise ValueError(f"{name}: tensors on several devices {devices}")
 
 
-def check_kernel_shape(name: str, batch: int, n_feats: int, d: int) -> None:
+def check_kernel_shape(name: str, batch: int, n_feats: int, d: int,
+                       compute_dtype: str = "float32") -> None:
     """Raise ValueError for a shape the fwd/bwd kernels' blocking does not
-    take (the plain versions take any shape)."""
+    take (the plain versions take any shape); the bf16 forms also need
+    d % BF16_D_MULTIPLE == 0."""
     if batch % BATCH_TILE or n_feats % FEAT_TILE or not 1 <= d <= MAX_D:
         raise ValueError(
             f"{name}: the CUDA kernel needs batch % {BATCH_TILE} == 0, "
             f"n_feats % {FEAT_TILE} == 0 and 1 <= d <= {MAX_D}; got "
             f"batch={batch}, n_feats={n_feats}, d={d}")
+    if compute_dtype == "bfloat16" and d % BF16_D_MULTIPLE:
+        raise ValueError(
+            f"{name}: the bf16 CUDA kernel needs d % {BF16_D_MULTIPLE} == 0; "
+            f"got d={d}")
 
 
 def check_big_shape(name: str, batch: int, n_feats: int, d: int) -> None:
@@ -280,7 +376,7 @@ def library(name: str) -> ctypes.CDLL:
 def launch(name: str, *args) -> None:
     """Call one C entry point (a kernel's, or one of a chunked kernel's
     parts: BIG_FWD_PARTS, BWD_PARTS, TIED_FWD_PARTS, TIED_BWD_PARTS,
-    UNTIED_FWD_PARTS, UNTIED_BWD_PARTS),
+    UNTIED_FWD_PARTS, UNTIED_BWD_PARTS and the bf16 forms' *_BF16_PARTS),
     raise on a non-zero cudaError_t, and count the launch. A refused
     launch (too much shared memory, a bad configuration) shows only here:
     torch.cuda.synchronize() would not report it."""

@@ -4,19 +4,104 @@
 // SAE's forward (big_sae_fwd.cu), whose products run on the GEMM template
 // (sgemm_simt.cuh), the ensembles' with the members on the grid's z: the
 // row-norm pass, the codes and residual epilogues, the per-feature sums of
-// a chunk's codes and dpre, and the loss terms.
+// a chunk's codes and dpre, and the loss terms. The bf16-compute forms of
+// the ensemble kernels (on bgemm_mma.cuh) take the same pieces with their
+// bf16 stores: the norm pass's bf16 dictionary, the codes epilogue's bf16
+// codes, the dpre epilogue's bf16 copy of dpre, the residual epilogue's
+// bf16 batch, and a rounding pass (x, E, r).
 #pragma once
+#include <cuda_bf16.h>
+
 #include "sae_common.cuh"
 #include "sgemm_simt.cuh"
 
 namespace sae {
 
+using bf16 = __nv_bfloat16;
+
+// 4 values at (m, n..n+3) of a row-major bf16 matrix, widened to fp32
+// (exact); columns at or past N read as 0. vec: one aligned 8-byte load.
+__device__ __forceinline__ void load4(const bf16* p, int ld, bool vec, int m,
+                                      int n, int N, float (&v)[4]) {
+  const bf16* q = p + (size_t)m * ld + n;
+  if (vec) {
+    const uint2 u = *reinterpret_cast<const uint2*>(q);
+    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+    v[0] = __low2float(lo), v[1] = __high2float(lo);
+    v[2] = __low2float(hi), v[3] = __high2float(hi);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = n + e < N ? __bfloat162float(q[e]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load4(const float* p, int ld, bool vec, int m,
+                                      int n, int N, float (&v)[4]) {
+  sgemm::load4(p, ld, vec, m, n, N, v);
+}
+
+// 4 values stored at (m, n..n+3) of a row-major bf16 matrix, each rounded
+// to nearest even (__float2bfloat16_rn, as torch's and jnp's casts round;
+// NaN stays NaN); columns at or past N are not written. vec: one aligned
+// 8-byte store.
+__device__ __forceinline__ void store4(bf16* p, int ld, bool vec, int m,
+                                       int n, int N, const float (&v)[4]) {
+  bf16* q = p + (size_t)m * ld + n;
+  if (vec) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 u;
+    u.x = *reinterpret_cast<unsigned*>(&lo);
+    u.y = *reinterpret_cast<unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(q) = u;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (n + e < N) q[e] = __float2bfloat16_rn(v[e]);
+  }
+}
+
+__device__ __forceinline__ void store4(float* p, int ld, bool vec, int m,
+                                       int n, int N, const float (&v)[4]) {
+  sgemm::store4(p, ld, vec, m, n, N, v);
+}
+
+// 8-byte alignment of a bf16 matrix's 4-element groups (base, row stride
+// and member stride)
+inline bool aligned8(const void* p, int ld, int extent, size_t zs = 0) {
+  return ((uintptr_t)p & 7) == 0 && ld % 4 == 0 && extent % 4 == 0 &&
+         zs % 4 == 0;
+}
+
+// dst[i] = bf16(src[i]), rounded to nearest even: the JAX package's
+// .astype(bfloat16) of a dot operand (the batch, the raw untied encoder,
+// the residual)
+static __global__ void __launch_bounds__(kThreads)
+round_bf16_kernel(const float* __restrict__ src, bf16* __restrict__ dst,
+                  long long count) {
+  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
+       i < count; i += (long long)gridDim.x * kThreads)
+    dst[i] = __float2bfloat16_rn(src[i]);
+}
+
+inline cudaError_t launch_round(const float* src, bf16* dst, long long count,
+                                cudaStream_t stream) {
+  if (count < 1) return cudaErrorInvalidValue;
+  const long long blocks = (count + kThreads - 1) / kThreads;
+  round_bf16_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), kThreads, 0,
+                      stream>>>(src, dst, count);
+  return cudaGetLastError();
+}
+
 // One warp per dictionary row: nv = max(sqrt(sum D^2), 1e-8), NaN kept,
 // written to nrm[row] and/or Wn's row as D / nv (element by element, as
-// torch's D / clamp(norm) rounds); either output may be null.
+// torch's D / clamp(norm) rounds) and/or that row rounded to bf16 (the
+// bf16 forms' dot operand); any output may be null.
 static __global__ void __launch_bounds__(kThreads)
 row_norms_kernel(const float* __restrict__ D, int rows, int d,
-                 float* __restrict__ nrm, float* __restrict__ wn) {
+                 float* __restrict__ nrm, float* __restrict__ wn,
+                 bf16* __restrict__ wnb) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
@@ -30,14 +115,20 @@ row_norms_kernel(const float* __restrict__ D, int rows, int d,
     float* q = wn + (size_t)row * d;
     for (int j = lane; j < d; j += 32) q[j] = __fdiv_rn(p[j], nv);
   }
+  if (wnb != nullptr) {
+    bf16* q = wnb + (size_t)row * d;
+    for (int j = lane; j < d; j += 32)
+      q[j] = __float2bfloat16_rn(__fdiv_rn(p[j], nv));
+  }
 }
 
 inline cudaError_t launch_row_norms(const float* D, int rows, int d,
                                     float* nrm, float* wn,
-                                    cudaStream_t stream) {
+                                    cudaStream_t stream,
+                                    bf16* wnb = nullptr) {
   if (rows < 1 || d < 1 || d > kMaxD) return cudaErrorInvalidValue;
   row_norms_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-      D, rows, d, nrm, wn);
+      D, rows, d, nrm, wn, wnb);
   return cudaGetLastError();
 }
 
@@ -49,7 +140,9 @@ inline cudaError_t launch_row_norms(const float* D, int rows, int d,
 // features (C [rows, n]), so the bias and mask run along the 4 columns.
 // FeatMajor = true: its rows are features and its columns batch rows
 // (Cᵀ [n, rows]), so one bias and one mask value serve the 4. vec:
-// 16-byte bias and mask loads (row-major only) and stores.
+// 16-byte bias and mask loads (row-major only) and stores (8-byte for the
+// bf16 copy). Either store may be null: c the fp32 codes, cb their bf16
+// rounding (the bf16 forms' dot operand), at the same offsets.
 template <bool FeatMajor>
 struct CodesEpi {
   const float* b;  // [Z, n]
@@ -59,6 +152,7 @@ struct CodesEpi {
   size_t cz;
   bool vec;
   const float* cm = nullptr;  // [Z, n] 0/1, or null for all ones
+  bf16* cb = nullptr;
   // the 4 outputs' values of a per-feature [Z, n] vector p
   __device__ void feat4(const float* p, int z, int m, int col, int N,
                         float (&v)[4]) const {
@@ -82,14 +176,17 @@ struct CodesEpi {
 #pragma unroll
       for (int e = 0; e < 4; ++e) v[e] = __fmul_rn(v[e], mv[e]);
     }
-    sgemm::store4(c + z * cz, ld, vec, m, col, N, v);
+    if (c != nullptr) store4(c + z * cz, ld, vec, m, col, N, v);
+    if (cb != nullptr) store4(cb + z * cz, ld, vec, m, col, N, v);
   }
 };
 
-// r[z] = acc - x: x [rows, d] shared by every member, r's members rz
-// elements apart, both with row stride ld
-struct ResidEpi {
-  const float* x;
+// r[z] = acc - x: x [rows, d] shared by every member (fp32, or a bf16
+// batch widened exactly), r's members rz elements apart, both with row
+// stride ld
+template <class TX>
+struct ResidEpiOf {
+  const TX* x;
   float* r;
   int ld;
   size_t rz;
@@ -97,10 +194,41 @@ struct ResidEpi {
   __device__ void operator()(int z, int m, int n, int N,
                              float (&v)[4]) const {
     float xv[4];
-    sgemm::load4(x, ld, vec, m, n, N, xv);
+    load4(x, ld, vec, m, n, N, xv);
 #pragma unroll
     for (int e = 0; e < 4; ++e) v[e] = __fsub_rn(v[e], xv[e]);
     sgemm::store4(r + z * rz, ld, vec, m, n, N, v);
+  }
+};
+using ResidEpi = ResidEpiOf<float>;
+
+// dpre from the scaled dot products r . W^T of the tied backward and of
+// the bf16 forms of both backwards: G[z] = (coef * acc + alpha[z]/B) *
+// [C[z] > 0], the plain version's operations in its order (no
+// contraction into an FMA), stored fp32 (for db) and, where gb is set,
+// rounded to bf16 (the bf16 weight-grad products' operand); C is the fp32
+// codes, [C > 0] exactly cm [pre > 0].
+struct ScaledDpreEpi {
+  const float* c;
+  const float* alpha;
+  float* g;
+  bf16* gb;
+  int n;
+  size_t cz;
+  bool vec;
+  float coef;
+  float total_b;
+  __device__ void operator()(int z, int m, int f, int N,
+                             float (&v)[4]) const {
+    float cv[4];
+    load4(c + z * cz, n, vec, m, f, N, cv);
+    const float ab = alpha[z] / total_b;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = __fmul_rn(__fadd_rn(__fmul_rn(coef, v[e]), ab),
+                       cv[e] > 0.f ? 1.f : 0.f);
+    store4(g + z * cz, n, vec, m, f, N, v);
+    if (gb != nullptr) store4(gb + z * cz, n, vec, m, f, N, v);
   }
 };
 
@@ -110,6 +238,13 @@ struct ResidEpi {
 inline bool chunk_ok(int Z, int rows, int n, int d) {
   return Z >= 1 && Z <= 65535 && rows >= 1 && rows % kBatchTile == 0 &&
          n >= 1 && n % kFeatTile == 0 && d >= 1 && d <= kMaxD;
+}
+
+// The bf16 forms' chunk shapes: chunk_ok's, and d a multiple of 8 (the
+// tensor-core product copies 8 bf16 values at a time along every
+// operand's contiguous dimension, d among them).
+inline bool chunk_ok_bf16(int Z, int rows, int n, int d) {
+  return chunk_ok(Z, rows, n, d) && d % kBf16DMultiple == 0;
 }
 
 // Block (32 features, member z): warp w sums rows w, w+8, ... of the

@@ -4,6 +4,7 @@
 // ops/fused_big_sae.py) mirror these constants (ops/_build.py); they check
 // every shape against them before a launch.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace sae {
@@ -17,6 +18,7 @@ constexpr int kAdamRows = kWarps;         // dictionary rows per adam block
 constexpr int kMaxD = 3 * kThreads;       // widest d the ensemble kernels take
 constexpr int kBigMaxD = 4 * kThreads;    // widest d the big-SAE kernels take
 constexpr float kNormEps = 1e-8f;         // row norms are clipped, not +eps
+constexpr int kBf16DMultiple = 8;         // the bf16 forms' d divides by this
 
 // The big-SAE kernels' chunk shapes: `rows` batch rows (a multiple of 32),
 // n features (a multiple of 32), 1 <= d <= 1024.
@@ -52,6 +54,21 @@ __device__ __forceinline__ T block_sum(T v, T* scratch) {
 // (fmaxf would turn a NaN into 0 and hide it from the sentinel).
 __device__ __forceinline__ float relu_keep_nan(float p) {
   return (p > 0.f || p != p) ? p : 0.f;
+}
+
+// Adam moments as stored: fp32, or bf16 (fused_moments_dtype="bfloat16":
+// read widened, updated in fp32, stored rounded to nearest even).
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <class T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
 // max(sqrt(sum_sq), 1e-8) that keeps NaN, as jnp.clip and torch.clamp do.

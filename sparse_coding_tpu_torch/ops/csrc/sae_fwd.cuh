@@ -3,6 +3,7 @@
 // sae_chunked.cuh so that the libraries which launch neither product do
 // not compile them.
 #pragma once
+#include "bgemm_mma.cuh"
 #include "sae_chunked.cuh"
 
 namespace sae {
@@ -42,6 +43,54 @@ inline cudaError_t launch_fwd_decode(const float* Ct, const float* Wn,
       sgemm::Operand{Ct, rows, sgemm::aligned16(Ct, rows, rows, cz), cz},
       sgemm::Operand{Wn, d, sgemm::aligned16(Wn, d, d, wz), wz}, rows, d, n,
       epi, stream, Z);
+}
+
+// The bf16 forms of the two products (compute_dtype="bfloat16", on the
+// tensor-core template bgemm_mma.cuh): the same chunk, with x, W and Wn
+// bf16 (the forward's batch rounded, or a bf16 batch as it came; the
+// normalized dictionary rounded by the norm pass) and the codes rounded to
+// bf16 by the codes epilogue into Ctb — the decode's operand, as the JAX
+// package's x̂ = c.astype(bf16) · W. The decode's residual subtracts the
+// batch in fp32: x is the fp32 batch, or the bf16 one widened (exact).
+inline cudaError_t launch_fwd_codes_bf16(const bf16* x, const bf16* W,
+                                         const float* b, const float* cm,
+                                         bf16* Ctb, int Z, int rows, int n,
+                                         int d, cudaStream_t stream) {
+  if (!chunk_ok_bf16(Z, rows, n, d)) return cudaErrorInvalidValue;
+  const size_t cz = (size_t)n * rows;
+  const CodesEpi<true> epi{b, nullptr, n, rows, cz,
+                           aligned8(Ctb, rows, rows, cz), cm, Ctb};
+  return bgemm::run<true, true>(bgemm::Operand{W, d, (size_t)n * d},
+                                bgemm::Operand{x, d, 0}, n, rows, d, epi,
+                                stream, Z);
+}
+
+template <class TX>
+inline cudaError_t launch_fwd_decode_bf16(const bf16* Ctb, const bf16* Wn,
+                                          const TX* x, float* r, int Z,
+                                          int rows, int n, int d, int B,
+                                          cudaStream_t stream) {
+  if (!chunk_ok_bf16(Z, rows, n, d) || B < rows)
+    return cudaErrorInvalidValue;
+  const size_t cz = (size_t)n * rows, wz = (size_t)n * d,
+               rz = (size_t)B * d;
+  const ResidEpiOf<TX> epi{x, r, d, rz,
+                           sgemm::aligned16(r, d, d, rz) &&
+                               ((uintptr_t)x & 15) == 0};
+  return bgemm::run<false, false>(bgemm::Operand{Ctb, rows, cz},
+                                  bgemm::Operand{Wn, d, wz}, rows, d, n, epi,
+                                  stream, Z);
+}
+
+// Ctb, Wn and x as the C entry points take them: x fp32 or, x_bf16, bf16
+inline cudaError_t launch_fwd_decode_bf16(const bf16* Ctb, const bf16* Wn,
+                                          const void* x, int x_bf16,
+                                          float* r, int Z, int rows, int n,
+                                          int d, int B, cudaStream_t stream) {
+  return x_bf16 ? launch_fwd_decode_bf16(Ctb, Wn, (const bf16*)x, r, Z, rows,
+                                         n, d, B, stream)
+                : launch_fwd_decode_bf16(Ctb, Wn, (const float*)x, r, Z,
+                                         rows, n, d, B, stream);
 }
 
 }  // namespace sae

@@ -24,18 +24,26 @@
 // re-reads E and dW from L1, so device memory sees each tensor once.
 // The per-member update sum of squares lands as fixed-order per-block
 // partials ([N, n/8]) that the wrapper sums in a fixed order.
+//
+// bf16 moments (sae_tied_adam_vjp_bf16, fused_moments_dtype="bfloat16"):
+// mu and nu are read as bf16 and widened, updated in fp32, and stored
+// rounded; the update uses this step's fp32 moments, not the rounded ones
+// (sparse_coding_tpu/ops/fused_sae.py _tied_train_kernel, _update). The
+// bias moments stay fp32. Bound: (3*4 + 4*2)*N*n*d bytes = 0.67 GB =
+// 0.20 ms at the canonical shape.
 #include "sae_common.cuh"
 
 namespace {
 
 using namespace sae;
 
+template <class TM>
 __global__ void __launch_bounds__(kThreads)
 adam_vjp_kernel(const float* __restrict__ E, const float* __restrict__ dW,
-                const float* __restrict__ mu, const float* __restrict__ nu,
+                const TM* __restrict__ mu, const TM* __restrict__ nu,
                 const float* __restrict__ lrs, const float* __restrict__ bc1s,
                 const float* __restrict__ bc2s, float* __restrict__ E2,
-                float* __restrict__ mu2, float* __restrict__ nu2,
+                TM* __restrict__ mu2, TM* __restrict__ nu2,
                 float* __restrict__ un_part,
                 const float* __restrict__ bias, const float* __restrict__ db,
                 const float* __restrict__ mub, const float* __restrict__ nub,
@@ -64,12 +72,12 @@ adam_vjp_kernel(const float* __restrict__ E, const float* __restrict__ dW,
     const float e = E[off + j];
     const float w = e / norm;
     const float g = (dW[off + j] - w * rad) / norm;
-    const float m1 = b1 * mu[off + j] + omb1 * g;
-    const float v1 = b2 * nu[off + j] + omb2 * g * g;
+    const float m1 = b1 * widen(mu[off + j]) + omb1 * g;
+    const float v1 = b2 * widen(nu[off + j]) + omb2 * g * g;
     const float u = -lr * (m1 / bc1) / (sqrtf(v1 / bc2) + eps);
     E2[off + j] = e + u;
-    mu2[off + j] = m1;
-    nu2[off + j] = v1;
+    mu2[off + j] = narrow<TM>(m1);
+    nu2[off + j] = narrow<TM>(v1);
     u_sq += u * u;
   }
 
@@ -94,6 +102,23 @@ adam_vjp_kernel(const float* __restrict__ E, const float* __restrict__ dW,
 // all [N, n]) is all null or all set. All fp32, contiguous; n % 8 == 0.
 // omb1/omb2 are (1 - b1)/(1 - b2) rounded to fp32 by the caller, as the
 // Pallas kernels' weak-typed Python constants are. Returns cudaError_t.
+template <class TM>
+static int launch(const float* E, const float* dW, const TM* mu,
+                  const TM* nu, const float* lrs, const float* bc1,
+                  const float* bc2, float* E2, TM* mu2, TM* nu2,
+                  float* un_part, const float* bias, const float* db,
+                  const float* mub, const float* nub, float* bias2,
+                  float* mub2, float* nub2, int N, int n, int d, float b1,
+                  float omb1, float b2, float omb2, float eps,
+                  void* stream) {
+  if (n % kAdamRows || d < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid(n / kAdamRows, N);
+  adam_vjp_kernel<TM><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      E, dW, mu, nu, lrs, bc1, bc2, E2, mu2, nu2, un_part, bias, db, mub, nub,
+      bias2, mub2, nub2, n, d, b1, omb1, b2, omb2, eps);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int sae_tied_adam_vjp(
     const float* E, const float* dW, const float* mu, const float* nu,
     const float* lrs, const float* bc1, const float* bc2, float* E2,
@@ -101,10 +126,21 @@ extern "C" int sae_tied_adam_vjp(
     const float* db, const float* mub, const float* nub, float* bias2,
     float* mub2, float* nub2, int N, int n, int d, float b1, float omb1,
     float b2, float omb2, float eps, void* stream) {
-  if (n % kAdamRows || d < 1 || N < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid(n / kAdamRows, N);
-  adam_vjp_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      E, dW, mu, nu, lrs, bc1, bc2, E2, mu2, nu2, un_part, bias, db, mub, nub,
-      bias2, mub2, nub2, n, d, b1, omb1, b2, omb2, eps);
-  return (int)cudaGetLastError();
+  return launch(E, dW, mu, nu, lrs, bc1, bc2, E2, mu2, nu2, un_part, bias,
+                db, mub, nub, bias2, mub2, nub2, N, n, d, b1, omb1, b2, omb2,
+                eps, stream);
+}
+
+// The same with mu, nu, mu2 and nu2 bf16 (the bias group stays fp32).
+extern "C" int sae_tied_adam_vjp_bf16(
+    const float* E, const float* dW, const __nv_bfloat16* mu,
+    const __nv_bfloat16* nu, const float* lrs, const float* bc1,
+    const float* bc2, float* E2, __nv_bfloat16* mu2, __nv_bfloat16* nu2,
+    float* un_part, const float* bias, const float* db, const float* mub,
+    const float* nub, float* bias2, float* mub2, float* nub2, int N, int n,
+    int d, float b1, float omb1, float b2, float omb2, float eps,
+    void* stream) {
+  return launch(E, dW, mu, nu, lrs, bc1, bc2, E2, mu2, nu2, un_part, bias,
+                db, mub, nub, bias2, mub2, nub2, N, n, d, b1, omb1, b2, omb2,
+                eps, stream);
 }

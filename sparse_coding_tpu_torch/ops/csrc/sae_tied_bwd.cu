@@ -56,7 +56,17 @@
 // Every sum runs in a fixed order (one thread per output element over a
 // chunk, chunks in order; fixed warp and slice orders in sums and loss),
 // with no atomics, so two calls give the same bits.
-#include "sae_chunked.cuh"
+//
+// The bf16-compute form (sae_tied_bwd_bf16_*, compute_dtype="bfloat16"):
+// the same schedule with its products on the tensor-core template
+// (sae_bwd_bf16.cuh), with the JAX package's casts (fused_sae_tiled.py
+// _bwd_kernel): x and r rounded to bf16 once a call (a bf16 batch as it
+// comes), Ŵ normalized in fp32 then rounded by the norm pass, the codes
+// and dpre stored fp32 (for the sums and masks) and rounded (for dwx and
+// dwr). Bound: 8*N*B*n*d bf16 FLOPs at 989 TFLOP/s = 0.56 ms at the
+// canonical shape against 0.39 GB = 0.12 ms; 12 bytes a code in the
+// workspace, so the canonical shape runs in chunks of 21 and 11 members.
+#include "sae_bwd_bf16.cuh"
 
 namespace {
 
@@ -64,33 +74,7 @@ using sgemm::AccumEpi;
 using sgemm::AddScaledEpi;
 using sgemm::Operand;
 using sgemm::aligned16;
-using sgemm::load4;
-using sgemm::store4;
 using sae::chunk_ok;
-
-// G[z] = (coef * acc + alpha[z]/B) * [C[z] > 0], the plain version's
-// operations in its order (no contraction into an FMA)
-struct TiedDpreEpi {
-  const float* c;
-  const float* alpha;
-  float* g;
-  int n;
-  size_t cz;
-  bool vec;
-  float coef;
-  float total_b;
-  __device__ void operator()(int z, int m, int f, int N,
-                             float (&v)[4]) const {
-    float cv[4];
-    load4(c + z * cz, n, vec, m, f, N, cv);
-    const float ab = alpha[z] / total_b;
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      v[e] = __fmul_rn(__fadd_rn(__fmul_rn(coef, v[e]), ab),
-                       cv[e] > 0.f ? 1.f : 0.f);
-    store4(g + z * cz, n, vec, m, f, N, v);
-  }
-};
 
 }  // namespace
 
@@ -134,9 +118,10 @@ extern "C" int sae_tied_bwd_dpre(const float* r, const float* W,
   if (!chunk_ok(Z, rows, n, d) || B < rows)
     return (int)cudaErrorInvalidValue;
   const size_t cz = (size_t)rows * n;
-  const TiedDpreEpi epi{C, alphas, G, n, cz,
-                        aligned16(C, n, n, cz) && aligned16(G, n, n, cz),
-                        coef, (float)B};
+  const sae::ScaledDpreEpi epi{C, alphas, G, nullptr, n, cz,
+                               aligned16(C, n, n, cz) &&
+                                   aligned16(G, n, n, cz),
+                               coef, (float)B};
   return (int)sgemm::run<true, true>(
       Operand{r, d, false, (size_t)B * d},
       Operand{W, d, false, (size_t)n * d}, rows, n, d, epi,
@@ -189,6 +174,91 @@ extern "C" int sae_tied_bwd_loss(const float* r, const float* dW,
                                  const float* csum, const float* alphas,
                                  float* part, float* loss4, int N, int B,
                                  int n, int d, int P, void* stream) {
+  return (int)sae::launch_loss(r, dW, nullptr, db, act, csum, alphas, part,
+                               loss4, N, B, n, d, P, (cudaStream_t)stream);
+}
+
+// The bf16 form's entry points: the launches above with bf16 dot operands
+// (xb, rb, Wb, and the workspace's Cb and Gb beside the fp32 C and G); the
+// sums and the loss read the fp32 values.
+
+// dst [count] = bf16(src): the fp32 batch's and the residual's dot operands
+extern "C" int sae_tied_bwd_bf16_round(const float* src, sae::bf16* dst,
+                                       long long count, void* stream) {
+  return (int)sae::launch_round(src, dst, count, (cudaStream_t)stream);
+}
+
+// Wb [rows, d] = bf16(E / max(||E [rows, d] row||, 1e-8))
+extern "C" int sae_tied_bwd_bf16_norms(const float* E, sae::bf16* Wb,
+                                       int rows, int d, void* stream) {
+  return (int)sae::launch_row_norms(E, rows, d, nullptr, nullptr,
+                                    (cudaStream_t)stream, Wb);
+}
+
+// C [Z, rows, n] = cm [Z, n] * relu(xb [rows, d] . Wb [Z, n, d]^T + b),
+// and Cb = bf16(C) (cm null: all ones)
+extern "C" int sae_tied_bwd_bf16_codes(const sae::bf16* xb,
+                                       const sae::bf16* Wb, const float* b,
+                                       const float* cm, float* C,
+                                       sae::bf16* Cb, int Z, int rows, int n,
+                                       int d, void* stream) {
+  return (int)sae::launch_bwd_codes_bf16(xb, Wb, b, cm, C, Cb, Z, rows, n, d,
+                                         (cudaStream_t)stream);
+}
+
+// G [Z, rows, n] = (coef * (rb . Wb^T) + alphas / B) * [C > 0] and
+// Gb = bf16(G), per member z: rb [rows, d] (members B*d apart)
+extern "C" int sae_tied_bwd_bf16_dpre(const sae::bf16* rb,
+                                      const sae::bf16* Wb, const float* C,
+                                      const float* alphas, float* G,
+                                      sae::bf16* Gb, int Z, int rows, int n,
+                                      int d, int B, float coef,
+                                      void* stream) {
+  return (int)sae::launch_bwd_dpre_bf16(rb, Wb, C, alphas, G, Gb, Z, rows, n,
+                                        d, B, coef, (cudaStream_t)stream);
+}
+
+// dW [Z, n, d] = (first ? 0 : dW) + Gb [Z, rows, n]^T . xb [rows, d]
+extern "C" int sae_tied_bwd_bf16_dwx(const sae::bf16* xb,
+                                     const sae::bf16* Gb, float* dW, int Z,
+                                     int rows, int n, int d, int first,
+                                     void* stream) {
+  const size_t wz = (size_t)n * d;
+  const AccumEpi epi{dW, d, wz, aligned16(dW, d, d, wz), first != 0, false,
+                     1.f};
+  return (int)sae::launch_bwd_wgrad_bf16(Gb, xb, 0, epi, Z, rows, n, d,
+                                         (cudaStream_t)stream);
+}
+
+// dW [Z, n, d] = dW + coef * (Cb [Z, rows, n]^T . rb [rows, d]) (members
+// B*d apart)
+extern "C" int sae_tied_bwd_bf16_dwr(const sae::bf16* Cb,
+                                     const sae::bf16* rb, float* dW, int Z,
+                                     int rows, int n, int d, int B,
+                                     float coef, void* stream) {
+  if (B < rows) return (int)cudaErrorInvalidValue;
+  const size_t wz = (size_t)n * d;
+  const AddScaledEpi epi{dW, d, wz, aligned16(dW, d, d, wz), coef};
+  return (int)sae::launch_bwd_wgrad_bf16(Cb, rb, (size_t)B * d, epi, Z, rows,
+                                         n, d, (cudaStream_t)stream);
+}
+
+// db, act, csum [Z, n] (+)= the column sums of G, [C > 0] and C (fp32)
+extern "C" int sae_tied_bwd_bf16_sums(const float* C, const float* G,
+                                      float* db, float* act, float* csum,
+                                      int Z, int rows, int n, int first,
+                                      void* stream) {
+  return (int)sae::launch_sums(C, G, db, act, csum, Z, rows, n, first != 0,
+                               (cudaStream_t)stream);
+}
+
+// loss4 [N, 4] as sae_tied_bwd_loss (the fp32 residual, grads and sums)
+extern "C" int sae_tied_bwd_bf16_loss(const float* r, const float* dW,
+                                      const float* db, const float* act,
+                                      const float* csum, const float* alphas,
+                                      float* part, float* loss4, int N,
+                                      int B, int n, int d, int P,
+                                      void* stream) {
   return (int)sae::launch_loss(r, dW, nullptr, db, act, csum, alphas, part,
                                loss4, N, B, n, d, P, (cudaStream_t)stream);
 }

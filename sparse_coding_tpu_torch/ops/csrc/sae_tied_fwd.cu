@@ -42,6 +42,16 @@
 // Order: one thread sums each output over k in order, with no atomics, so
 // two calls give the same bits. NaN survives the ReLU and the norm clip
 // (times a 0 mask too).
+//
+// The bf16-compute form (sae_tied_fwd_bf16_*, compute_dtype="bfloat16"):
+// the same schedule on the tensor-core template (bgemm_mma.cuh), with the
+// JAX package's casts (fused_sae_tiled.py _fwd_kernel): x rounded to bf16
+// (a bf16 batch as it comes), Ŵ normalized in fp32 then rounded, the codes
+// rounded before the decode; fp32 accumulation, ReLU, mask and residual.
+// Bound: 4*N*B*n*d bf16 FLOPs at 989 TFLOP/s = 0.28 ms at the canonical
+// shape, against (B*d + N*n*d + N*n + N*B*d)*4 bytes = 0.04 ms; its
+// codes take 2 bytes a code in the workspace (all 32 members in one
+// chunk up to n = 8,192).
 #include "sae_fwd.cuh"
 
 // Every entry point takes fp32, contiguous, row-major tensors and launches
@@ -75,4 +85,41 @@ extern "C" int sae_tied_fwd_decode(const float* Ct, const float* W,
                                    int n, int d, int B, void* stream) {
   return (int)sae::launch_fwd_decode(Ct, W, x, r, Z, rows, n, d, B,
                                      (cudaStream_t)stream);
+}
+
+// The bf16 form's entry points: the same launches with bf16 dot operands
+// (x, W, the codes Ctb [Z, n, rows]); r stays fp32.
+
+// dst [count] = bf16(src): the fp32 batch's dot operand
+extern "C" int sae_tied_fwd_bf16_round(const float* src, sae::bf16* dst,
+                                       long long count, void* stream) {
+  return (int)sae::launch_round(src, dst, count, (cudaStream_t)stream);
+}
+
+// Wb [rows, d] = bf16(E / max(||E [rows, d] row||, 1e-8))
+extern "C" int sae_tied_fwd_bf16_norms(const float* E, sae::bf16* Wb,
+                                       int rows, int d, void* stream) {
+  return (int)sae::launch_row_norms(E, rows, d, nullptr, nullptr,
+                                    (cudaStream_t)stream, Wb);
+}
+
+// Ctb [Z, n, rows] = bf16(cm [Z, n] * relu(Wb [Z, n, d] . xb [rows, d]^T
+// + b [Z, n])) (cm null: all ones)
+extern "C" int sae_tied_fwd_bf16_codes(const sae::bf16* xb,
+                                       const sae::bf16* Wb, const float* b,
+                                       const float* cm, sae::bf16* Ctb, int Z,
+                                       int rows, int n, int d, void* stream) {
+  return (int)sae::launch_fwd_codes_bf16(xb, Wb, b, cm, Ctb, Z, rows, n, d,
+                                         (cudaStream_t)stream);
+}
+
+// r [Z, rows, d] (members B*d apart) = Ctb^T . Wb - x, x [rows, d] fp32
+// or (x_bf16) bf16
+extern "C" int sae_tied_fwd_bf16_decode(const sae::bf16* Ctb,
+                                        const sae::bf16* Wb, const void* x,
+                                        int x_bf16, float* r, int Z,
+                                        int rows, int n, int d, int B,
+                                        void* stream) {
+  return (int)sae::launch_fwd_decode_bf16(Ctb, Wb, x, x_bf16, r, Z, rows, n,
+                                          d, B, (cudaStream_t)stream);
 }

@@ -26,6 +26,12 @@
 // sees each tensor once. The per-member update sum of squares lands as
 // fixed-order per-block partials ([N, n/8]) that the wrapper sums in a
 // fixed order.
+//
+// bf16 moments (sae_untied_adam_vjp_bf16, fused_moments_dtype="bfloat16"):
+// the encoder's and decoder's mu and nu are read as bf16 and widened,
+// updated in fp32, and stored rounded; each update uses this step's fp32
+// moments (sparse_coding_tpu/ops/fused_sae.py _adam_vjp_kernel). Bound:
+// (6*4 + 8*2)*N*n*d bytes = 1.34 GB = 0.40 ms at the canonical shape.
 #include "sae_common.cuh"
 
 namespace {
@@ -39,10 +45,11 @@ struct AdamHypers {
 // One row of Adam over d elements for this lane's columns; returns the
 // lane's sum of u^2. With `vjp` the gradient is the normalization VJP of g
 // against the row p (clipped row norm `norm`, radial term `rad`).
+template <class TM>
 __device__ __forceinline__ float adam_row(
     const float* __restrict__ p, const float* __restrict__ g,
-    const float* __restrict__ mu, const float* __restrict__ nu,
-    float* __restrict__ p2, float* __restrict__ mu2, float* __restrict__ nu2,
+    const TM* __restrict__ mu, const TM* __restrict__ nu,
+    float* __restrict__ p2, TM* __restrict__ mu2, TM* __restrict__ nu2,
     int d, const AdamHypers& h, bool vjp, float norm, float rad) {
   const int lane = threadIdx.x & 31;
   float u_sq = 0.f;
@@ -50,27 +57,28 @@ __device__ __forceinline__ float adam_row(
     const float pv = p[j];
     float gv = g[j];
     if (vjp) gv = (gv - (pv / norm) * rad) / norm;
-    const float m1 = h.b1 * mu[j] + h.omb1 * gv;
-    const float v1 = h.b2 * nu[j] + h.omb2 * gv * gv;
+    const float m1 = h.b1 * widen(mu[j]) + h.omb1 * gv;
+    const float v1 = h.b2 * widen(nu[j]) + h.omb2 * gv * gv;
     const float u = -h.lr * (m1 / h.bc1) / (sqrtf(v1 / h.bc2) + h.eps);
     p2[j] = pv + u;
-    mu2[j] = m1;
-    nu2[j] = v1;
+    mu2[j] = narrow<TM>(m1);
+    nu2[j] = narrow<TM>(v1);
     u_sq += u * u;
   }
   return u_sq;
 }
 
+template <class TM>
 __global__ void __launch_bounds__(kThreads)
 adam_vjp_kernel(const float* __restrict__ E, const float* __restrict__ dE,
-                const float* __restrict__ muE, const float* __restrict__ nuE,
+                const TM* __restrict__ muE, const TM* __restrict__ nuE,
                 const float* __restrict__ D, const float* __restrict__ dWn,
-                const float* __restrict__ muD, const float* __restrict__ nuD,
+                const TM* __restrict__ muD, const TM* __restrict__ nuD,
                 const float* __restrict__ lrs, const float* __restrict__ bc1s,
                 const float* __restrict__ bc2s, float* __restrict__ E2,
-                float* __restrict__ muE2, float* __restrict__ nuE2,
-                float* __restrict__ D2, float* __restrict__ muD2,
-                float* __restrict__ nuD2, float* __restrict__ un_part, int n,
+                TM* __restrict__ muE2, TM* __restrict__ nuE2,
+                float* __restrict__ D2, TM* __restrict__ muD2,
+                TM* __restrict__ nuD2, float* __restrict__ un_part, int n,
                 int d, float b1, float omb1, float b2, float omb2, float eps) {
   __shared__ float red[kWarps];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -107,6 +115,22 @@ adam_vjp_kernel(const float* __restrict__ E, const float* __restrict__ dE,
 // contiguous; n % 8 == 0. omb1/omb2 are (1 - b1)/(1 - b2) rounded to fp32
 // by the caller, as the Pallas kernel's weak-typed Python constants are.
 // Returns the launch's cudaError_t.
+template <class TM>
+static int launch(const float* E, const float* dE, const TM* muE,
+                  const TM* nuE, const float* D, const float* dWn,
+                  const TM* muD, const TM* nuD, const float* lrs,
+                  const float* bc1, const float* bc2, float* E2, TM* muE2,
+                  TM* nuE2, float* D2, TM* muD2, TM* nuD2, float* un_part,
+                  int N, int n, int d, float b1, float omb1, float b2,
+                  float omb2, float eps, void* stream) {
+  if (n % kAdamRows || d < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid(n / kAdamRows, N);
+  adam_vjp_kernel<TM><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      E, dE, muE, nuE, D, dWn, muD, nuD, lrs, bc1, bc2, E2, muE2, nuE2, D2,
+      muD2, nuD2, un_part, n, d, b1, omb1, b2, omb2, eps);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int sae_untied_adam_vjp(
     const float* E, const float* dE, const float* muE, const float* nuE,
     const float* D, const float* dWn, const float* muD, const float* nuD,
@@ -114,10 +138,21 @@ extern "C" int sae_untied_adam_vjp(
     float* muE2, float* nuE2, float* D2, float* muD2, float* nuD2,
     float* un_part, int N, int n, int d, float b1, float omb1, float b2,
     float omb2, float eps, void* stream) {
-  if (n % kAdamRows || d < 1 || N < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid(n / kAdamRows, N);
-  adam_vjp_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      E, dE, muE, nuE, D, dWn, muD, nuD, lrs, bc1, bc2, E2, muE2, nuE2, D2,
-      muD2, nuD2, un_part, n, d, b1, omb1, b2, omb2, eps);
-  return (int)cudaGetLastError();
+  return launch(E, dE, muE, nuE, D, dWn, muD, nuD, lrs, bc1, bc2, E2, muE2,
+                nuE2, D2, muD2, nuD2, un_part, N, n, d, b1, omb1, b2, omb2,
+                eps, stream);
+}
+
+// The same with the four moments in and out bf16.
+extern "C" int sae_untied_adam_vjp_bf16(
+    const float* E, const float* dE, const __nv_bfloat16* muE,
+    const __nv_bfloat16* nuE, const float* D, const float* dWn,
+    const __nv_bfloat16* muD, const __nv_bfloat16* nuD, const float* lrs,
+    const float* bc1, const float* bc2, float* E2, __nv_bfloat16* muE2,
+    __nv_bfloat16* nuE2, float* D2, __nv_bfloat16* muD2,
+    __nv_bfloat16* nuD2, float* un_part, int N, int n, int d, float b1,
+    float omb1, float b2, float omb2, float eps, void* stream) {
+  return launch(E, dE, muE, nuE, D, dWn, muD, nuD, lrs, bc1, bc2, E2, muE2,
+                nuE2, D2, muD2, nuD2, un_part, N, n, d, b1, omb1, b2, omb2,
+                eps, stream);
 }

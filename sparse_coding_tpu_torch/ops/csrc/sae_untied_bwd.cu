@@ -52,7 +52,17 @@
 // Every sum runs in a fixed order (one thread per output element over a
 // chunk, chunks in order; fixed warp and slice orders in sums and loss),
 // with no atomics, so two calls give the same bits.
-#include "sae_chunked.cuh"
+//
+// The bf16-compute form (sae_untied_bwd_bf16_*, compute_dtype="bfloat16"):
+// the same schedule with its products on the tensor-core template
+// (sae_bwd_bf16.cuh), with the JAX package's casts (fused_sae_tiled.py
+// _bwd_kernel, tied=False): x, the raw E and r rounded to bf16 once a call
+// (a bf16 batch as it comes), the decoder normalized in fp32 and rounded
+// by the norm pass into Wnb — dpre's operand, so no norm is divided out
+// here —, the codes and dpre stored fp32 (for the sums and masks) and
+// rounded (for de and dwn). Bound: 0.56 ms of bf16 FLOPs at the canonical
+// shape against 0.2 ms of bytes; 12 bytes a code in the workspace.
+#include "sae_bwd_bf16.cuh"
 
 namespace {
 
@@ -190,6 +200,94 @@ extern "C" int sae_untied_bwd_loss(const float* r, const float* dE,
                                    const float* alphas, float* part,
                                    float* loss4, int N, int B, int n, int d,
                                    int P, void* stream) {
+  return (int)sae::launch_loss(r, dE, dWn, db, act, csum, alphas, part, loss4,
+                               N, B, n, d, P, (cudaStream_t)stream);
+}
+
+// The bf16 form's entry points: the launches above with bf16 dot operands
+// (xb, Eb, rb, Wnb, and the workspace's Cb and Gb beside the fp32 C and
+// G); the sums and the loss read the fp32 values.
+
+// dst [count] = bf16(src): the fp32 batch's, the raw encoder's and the
+// residual's dot operands
+extern "C" int sae_untied_bwd_bf16_round(const float* src, sae::bf16* dst,
+                                         long long count, void* stream) {
+  return (int)sae::launch_round(src, dst, count, (cudaStream_t)stream);
+}
+
+// Wnb [rows, d] = bf16(D / max(||D [rows, d] row||, 1e-8))
+extern "C" int sae_untied_bwd_bf16_norms(const float* D, sae::bf16* Wnb,
+                                         int rows, int d, void* stream) {
+  return (int)sae::launch_row_norms(D, rows, d, nullptr, nullptr,
+                                    (cudaStream_t)stream, Wnb);
+}
+
+// C [Z, rows, n] = relu(xb [rows, d] . Eb [Z, n, d]^T + b [Z, n]), and
+// Cb = bf16(C)
+extern "C" int sae_untied_bwd_bf16_codes(const sae::bf16* xb,
+                                         const sae::bf16* Eb, const float* b,
+                                         float* C, sae::bf16* Cb, int Z,
+                                         int rows, int n, int d,
+                                         void* stream) {
+  return (int)sae::launch_bwd_codes_bf16(xb, Eb, b, nullptr, C, Cb, Z, rows,
+                                         n, d, (cudaStream_t)stream);
+}
+
+// G [Z, rows, n] = (coef * (rb . Wnb^T) + alphas / B) * [C > 0] and
+// Gb = bf16(G), per member z: rb [rows, d] (members B*d apart)
+extern "C" int sae_untied_bwd_bf16_dpre(const sae::bf16* rb,
+                                        const sae::bf16* Wnb, const float* C,
+                                        const float* alphas, float* G,
+                                        sae::bf16* Gb, int Z, int rows, int n,
+                                        int d, int B, float coef,
+                                        void* stream) {
+  return (int)sae::launch_bwd_dpre_bf16(rb, Wnb, C, alphas, G, Gb, Z, rows,
+                                        n, d, B, coef, (cudaStream_t)stream);
+}
+
+// dE [Z, n, d] = (first ? 0 : dE) + Gb [Z, rows, n]^T . xb [rows, d]
+extern "C" int sae_untied_bwd_bf16_de(const sae::bf16* xb,
+                                      const sae::bf16* Gb, float* dE, int Z,
+                                      int rows, int n, int d, int first,
+                                      void* stream) {
+  const size_t wz = (size_t)n * d;
+  const AccumEpi epi{dE, d, wz, aligned16(dE, d, d, wz), first != 0, false,
+                     1.f};
+  return (int)sae::launch_bwd_wgrad_bf16(Gb, xb, 0, epi, Z, rows, n, d,
+                                         (cudaStream_t)stream);
+}
+
+// dWn [Z, n, d] = (first ? 0 : dWn) + Cb [Z, rows, n]^T . rb [rows, d]
+// (members B*d apart), times coef when `last`
+extern "C" int sae_untied_bwd_bf16_dwn(const sae::bf16* Cb,
+                                       const sae::bf16* rb, float* dWn,
+                                       int Z, int rows, int n, int d, int B,
+                                       int first, int last, float coef,
+                                       void* stream) {
+  if (B < rows) return (int)cudaErrorInvalidValue;
+  const size_t wz = (size_t)n * d;
+  const AccumEpi epi{dWn, d, wz, aligned16(dWn, d, d, wz), first != 0,
+                     last != 0, coef};
+  return (int)sae::launch_bwd_wgrad_bf16(Cb, rb, (size_t)B * d, epi, Z, rows,
+                                         n, d, (cudaStream_t)stream);
+}
+
+// db, act, csum [Z, n] (+)= the column sums of G, [C > 0] and C (fp32)
+extern "C" int sae_untied_bwd_bf16_sums(const float* C, const float* G,
+                                        float* db, float* act, float* csum,
+                                        int Z, int rows, int n, int first,
+                                        void* stream) {
+  return (int)sae::launch_sums(C, G, db, act, csum, Z, rows, n, first != 0,
+                               (cudaStream_t)stream);
+}
+
+// loss4 [N, 4] as sae_untied_bwd_loss (the fp32 residual, grads and sums)
+extern "C" int sae_untied_bwd_bf16_loss(const float* r, const float* dE,
+                                        const float* dWn, const float* db,
+                                        const float* act, const float* csum,
+                                        const float* alphas, float* part,
+                                        float* loss4, int N, int B, int n,
+                                        int d, int P, void* stream) {
   return (int)sae::launch_loss(r, dE, dWn, db, act, csum, alphas, part, loss4,
                                N, B, n, d, P, (cudaStream_t)stream);
 }

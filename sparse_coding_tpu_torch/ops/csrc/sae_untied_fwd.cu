@@ -43,6 +43,14 @@
 // E in the codes and no mask.
 // Order: one thread sums each output over k in order, with no atomics, so
 // two calls give the same bits. NaN survives the ReLU and the norm clip.
+//
+// The bf16-compute form (sae_untied_fwd_bf16_*, compute_dtype="bfloat16"):
+// the same schedule on the tensor-core template (bgemm_mma.cuh), with the
+// JAX package's casts (fused_sae_tiled.py _fwd_kernel, tied=False): x and
+// the raw E rounded to bf16 (a bf16 batch as it comes), Wn normalized in
+// fp32 then rounded, the codes rounded before the decode; fp32
+// accumulation, ReLU and residual. Bound as sae_tied_fwd.cu's bf16 form
+// (0.28 ms of bf16 FLOPs at the canonical shape, against 0.12 ms of bytes).
 #include "sae_fwd.cuh"
 
 // Every entry point takes fp32, contiguous, row-major tensors and launches
@@ -75,4 +83,41 @@ extern "C" int sae_untied_fwd_decode(const float* Ct, const float* Wn,
                                      void* stream) {
   return (int)sae::launch_fwd_decode(Ct, Wn, x, r, Z, rows, n, d, B,
                                      (cudaStream_t)stream);
+}
+
+// The bf16 form's entry points: the same launches with bf16 dot operands
+// (x, E, Wn, the codes Ctb [Z, n, rows]); r stays fp32.
+
+// dst [count] = bf16(src): the fp32 batch's and the raw encoder's dot
+// operands
+extern "C" int sae_untied_fwd_bf16_round(const float* src, sae::bf16* dst,
+                                         long long count, void* stream) {
+  return (int)sae::launch_round(src, dst, count, (cudaStream_t)stream);
+}
+
+// Wnb [rows, d] = bf16(D / max(||D [rows, d] row||, 1e-8))
+extern "C" int sae_untied_fwd_bf16_norms(const float* D, sae::bf16* Wnb,
+                                         int rows, int d, void* stream) {
+  return (int)sae::launch_row_norms(D, rows, d, nullptr, nullptr,
+                                    (cudaStream_t)stream, Wnb);
+}
+
+// Ctb [Z, n, rows] = bf16(relu(Eb [Z, n, d] . xb [rows, d]^T + b [Z, n]))
+extern "C" int sae_untied_fwd_bf16_codes(const sae::bf16* xb,
+                                         const sae::bf16* Eb, const float* b,
+                                         sae::bf16* Ctb, int Z, int rows,
+                                         int n, int d, void* stream) {
+  return (int)sae::launch_fwd_codes_bf16(xb, Eb, b, nullptr, Ctb, Z, rows, n,
+                                         d, (cudaStream_t)stream);
+}
+
+// r [Z, rows, d] (members B*d apart) = Ctb^T . Wnb - x, x [rows, d] fp32
+// or (x_bf16) bf16
+extern "C" int sae_untied_fwd_bf16_decode(const sae::bf16* Ctb,
+                                          const sae::bf16* Wnb,
+                                          const void* x, int x_bf16,
+                                          float* r, int Z, int rows, int n,
+                                          int d, int B, void* stream) {
+  return (int)sae::launch_fwd_decode_bf16(Ctb, Wnb, x, x_bf16, r, Z, rows,
+                                          n, d, B, (cudaStream_t)stream);
 }

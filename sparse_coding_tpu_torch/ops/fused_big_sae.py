@@ -48,6 +48,13 @@ from sparse_coding_tpu_torch.ops.fused_sae_tiled import (
 )
 
 
+def _check_big_dtype(total_batch, batch_rows, compute_dtype) -> None:
+    """K8/K9 take fp32 compute only; their bf16 forms are a later slice."""
+    _check_unported(total_batch, batch_rows, compute_dtype,
+                    ported=("float32",),
+                    later="bf16 in K8/K9 is ROADMAP.md queue 1, item 16")
+
+
 def pick_big_sae_tiles(batch: int, n_feats: int, d: int,
                        compute_itemsize: int = 4
                        ) -> Optional[tuple[int, int]]:
@@ -172,7 +179,7 @@ def big_sae_forward(params: dict, xc: torch.Tensor,
     write disjoint rows of x̂ and sum nothing across one another, so their
     schedule leaves nothing for a plain twin to mirror)."""
     b, n, d = _shapes(params, xc)
-    _check_unported(None, b, compute_dtype)
+    _check_big_dtype(None, b, compute_dtype)
     _tiles(b, n, batch_tile, feat_tile)
     e, t = params["encoder"], params["threshold"]
     if _on_cpu("big_sae_fwd", xc, e, t, params["dict"]):
@@ -293,7 +300,7 @@ def big_sae_backward(params: dict, alpha: torch.Tensor, xc: torch.Tensor,
     ``bwd_sums`` in order, then ``bwd_dctr``; counts one ``big_sae_bwd``
     call. CPU: the same chunk schedule in plain torch."""
     b, n, d = _shapes(params, xc)
-    _check_unported(total_batch, b, compute_dtype)
+    _check_big_dtype(total_batch, b, compute_dtype)
     _tiles(b, n, batch_tile, feat_tile)
     if tuple(r.shape) != (b, d):
         raise ValueError(f"r must be {(b, d)}, got {tuple(r.shape)}")
@@ -393,7 +400,7 @@ def fused_big_sae_loss_and_grads(params: dict, batch: torch.Tensor,
     not take (even on the CPU, as the JAX function does)."""
     b, d = batch.shape
     n = params["dict"].shape[0]
-    _check_unported(total_batch, b, compute_dtype)
+    _check_big_dtype(total_batch, b, compute_dtype)
     if batch_tile is None or feat_tile is None:
         tiles = pick_big_sae_tiles(b, n, d)
         if tiles is None:

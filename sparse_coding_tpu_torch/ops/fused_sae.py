@@ -21,6 +21,14 @@ Every kernel and contract has a plain PyTorch version beside it; a wrapper
 takes the plain version only for CPU tensors. Adam is optax's
 ``scale_by_adam`` with eps_root=0 exactly as the kernels write it (never
 torch.optim.Adam's rearranged form).
+
+``compute_dtype="bfloat16"`` reaches the bf16 forms of the forward and
+backward kernels (``fused_sae_tiled``). Moments stored bf16 (the engine's
+``fused_moments_dtype="bfloat16"``, encoder and decoder leaves) take the
+epilogues' bf16 forms, ``sae_tied_adam_vjp_bf16`` and
+``sae_untied_adam_vjp_bf16``: read widened, updated in fp32, stored
+rounded, and the update uses this step's fp32 moments, as the JAX kernels
+do (``fused_sae.py`` ``_tied_train_kernel``, ``_adam_vjp_kernel``).
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch
 
 from sparse_coding_tpu_torch.ops import _build
 from sparse_coding_tpu_torch.ops.fused_sae_tiled import (
+    _BF16,
     _check_unported,
     _float_mask,
     _losses,
@@ -65,17 +74,28 @@ def normalize_with_vjp(e: torch.Tensor, dw: torch.Tensor,
 
 # --- sae_tied_adam_vjp (K4, and K2's update epilogue) -------------------------
 
+def _moments(name: str, mu: torch.Tensor, nu: torch.Tensor) -> bool:
+    """True for bf16-stored moments (the epilogue's bf16 form), False for
+    fp32 ones; raises on a mix or any other dtype."""
+    if mu.dtype != nu.dtype or mu.dtype not in (torch.float32, _BF16):
+        raise ValueError(f"{name}: moments must both be float32 or both "
+                         f"bfloat16, got {mu.dtype} and {nu.dtype}")
+    return mu.dtype == _BF16
+
+
 def sae_tied_adam_vjp_plain(encoder, dw, mu, nu, lrs, bc1, bc2,
                             b1: float = 0.9, b2: float = 0.999,
                             eps: float = 1e-8, bias=None, db=None,
                             mu_b=None, nu_b=None):
     """Normalization VJP + exact optax Adam on E; with the bias group also
     Adam on the bias. Returns (E', μ', ν', un_sq [N], bias_out) where
-    bias_out is None or (b', μ_b', ν_b')."""
+    bias_out is None or (b', μ_b', ν_b'). Moments stored bf16 are widened,
+    updated in fp32 and returned rounded; the update takes the fp32
+    ones."""
     de = normalize_with_vjp(encoder, dw)
     col = lambda v: v[:, None, None]
-    mu2 = b1 * mu + (1.0 - b1) * de
-    nu2 = b2 * nu + (1.0 - b2) * de * de
+    mu2 = b1 * mu.to(torch.float32) + (1.0 - b1) * de
+    nu2 = b2 * nu.to(torch.float32) + (1.0 - b2) * de * de
     u = -col(lrs) * (mu2 / col(bc1)) / (torch.sqrt(nu2 / col(bc2)) + eps)
     bias_out = None
     if bias is not None:
@@ -84,16 +104,18 @@ def sae_tied_adam_vjp_plain(encoder, dw, mu, nu, lrs, bc1, bc2,
         bias2 = bias - lrs[:, None] * (mub2 / bc1[:, None]) / (
             torch.sqrt(nub2 / bc2[:, None]) + eps)
         bias_out = (bias2, mub2, nub2)
-    return encoder + u, mu2, nu2, (u * u).sum(dim=(1, 2)), bias_out
+    return (encoder + u, mu2.to(mu.dtype), nu2.to(nu.dtype),
+            (u * u).sum(dim=(1, 2)), bias_out)
 
 
 def sae_tied_adam_vjp(encoder, dw, mu, nu, lrs, bc1, bc2,
                       b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                       bias=None, db=None, mu_b=None, nu_b=None):
     """See :func:`sae_tied_adam_vjp_plain`. CUDA: launches
-    ``sae_tied_adam_vjp``; the per-block update partials are summed here
-    in a fixed order."""
+    ``sae_tied_adam_vjp`` (bf16 moments: ``sae_tied_adam_vjp_bf16``); the
+    per-block update partials are summed here in a fixed order."""
     n_members, n_feats, d = encoder.shape
+    bf16_moments = _moments("sae_tied_adam_vjp", mu, nu)
     group = (bias, db, mu_b, nu_b)
     if any(t is None for t in group) and not all(t is None for t in group):
         raise ValueError("bias, db, mu_b and nu_b go together")
@@ -113,11 +135,14 @@ def sae_tied_adam_vjp(encoder, dw, mu, nu, lrs, bc1, bc2,
     if _on_cpu("sae_tied_adam_vjp", *tensors.values()):
         return sae_tied_adam_vjp_plain(encoder, dw, mu, nu, lrs, bc1, bc2,
                                        b1, b2, eps, bias, db, mu_b, nu_b)
-    _build.check_cuda_tensors("sae_tied_adam_vjp", **tensors)
+    _build.check_cuda_tensors("sae_tied_adam_vjp",
+                              bf16_ok=("mu", "nu") if bf16_moments else (),
+                              **tensors)
     if n_feats % _build.ADAM_ROWS:
         raise ValueError(f"sae_tied_adam_vjp: n_feats % {_build.ADAM_ROWS} "
                          "must be 0")
-    e2, mu2, nu2 = (torch.empty_like(encoder) for _ in range(3))
+    e2, mu2, nu2 = (torch.empty_like(encoder), torch.empty_like(mu),
+                    torch.empty_like(nu))
     part = torch.empty((n_members, n_feats // _build.ADAM_ROWS),
                        dtype=torch.float32, device=encoder.device)
     bias_out = None
@@ -126,8 +151,10 @@ def sae_tied_adam_vjp(encoder, dw, mu, nu, lrs, bc1, bc2,
         bias_out = tuple(torch.empty_like(bias) for _ in range(3))
         ptrs = [t.data_ptr() for t in (bias, db, mu_b, nu_b, *bias_out)]
     f32 = lambda v: float(np.float32(v))
-    _build.launch("sae_tied_adam_vjp", *(t.data_ptr() for t in (
-        encoder, dw, mu, nu, lrs, bc1, bc2, e2, mu2, nu2, part)), *ptrs,
+    _build.launch(
+        "sae_tied_adam_vjp_bf16" if bf16_moments else "sae_tied_adam_vjp",
+        *(t.data_ptr() for t in (
+            encoder, dw, mu, nu, lrs, bc1, bc2, e2, mu2, nu2, part)), *ptrs,
         n_members, n_feats, d, f32(b1), f32(1.0 - b1), f32(b2),
         f32(1.0 - b2), f32(eps), _build.stream_ptr(encoder))
     return e2, mu2, nu2, part.sum(dim=1), bias_out
@@ -176,7 +203,8 @@ def _grads(fwd, bwd, encoder, bias, alphas, batch, batch_tile, total_batch,
     _check_batch_tile(b, batch_tile, total_batch, compute_dtype)
     cm = _float_mask(coef_mask)
     dw, db, act, loss4 = bwd(encoder, bias, alphas, batch,
-                             fwd(encoder, bias, batch, cm), cm)
+                             fwd(encoder, bias, batch, cm, compute_dtype), cm,
+                             compute_dtype)
     return _losses(loss4), dw, db, act
 
 
@@ -210,7 +238,8 @@ def fused_tied_sae_loss_and_grads(params_stacked: dict, alphas, batch,
     """Two-stage producer for tied (and masked-tied) buckets: (losses,
     grads wrt the raw params {encoder, encoder_bias}, activity)."""
     e = params_stacked["encoder"]
-    batch, bt, _ = prepare_tiled_batch(batch, e.shape[1], batch_tile, None)
+    batch, bt, _ = prepare_tiled_batch(batch, e.shape[1], batch_tile, None,
+                                       compute_dtype)
     losses, dw, db, activity = fused_tied_sae_grads(
         e, params_stacked["encoder_bias"], alphas, batch, batch_tile=bt,
         total_batch=total_batch, compute_dtype=compute_dtype,
@@ -264,8 +293,9 @@ def _untied_grads(fwd, bwd, encoder, decoder, bias, alphas, batch,
                   batch_tile, total_batch, compute_dtype):
     _, _, _, b = _untied_shapes(encoder, decoder, bias, batch)
     _check_batch_tile(b, batch_tile, total_batch, compute_dtype)
-    de, dwn, db, act, loss4 = bwd(encoder, decoder, bias, alphas, batch,
-                                  fwd(encoder, decoder, bias, batch))
+    de, dwn, db, act, loss4 = bwd(
+        encoder, decoder, bias, alphas, batch,
+        fwd(encoder, decoder, bias, batch, compute_dtype), compute_dtype)
     return _losses(loss4), de, dwn, db, act
 
 
@@ -312,7 +342,8 @@ def fused_untied_sae_loss_and_grads(params_stacked: dict, alphas,
     exact."""
     e, dec = params_stacked["encoder"], params_stacked["decoder"]
     bias = params_stacked["encoder_bias"]
-    batch, bt, _ = prepare_tiled_batch(batch, e.shape[1], batch_tile, None)
+    batch, bt, _ = prepare_tiled_batch(batch, e.shape[1], batch_tile, None,
+                                       compute_dtype)
     losses, de, dwn, db, activity = fused_untied_sae_grads(
         e, dec, bias, alphas, batch, batch_tile=bt, total_batch=total_batch,
         compute_dtype=compute_dtype)
@@ -328,14 +359,16 @@ def sae_untied_adam_vjp_plain(encoder, de, mu_e, nu_e, decoder, dwn, mu_d,
                               b2: float = 0.999, eps: float = 1e-8):
     """Exact optax Adam on the raw encoder; the normalization VJP, then
     Adam, on the raw decoder. Returns (E', μ_E', ν_E', D', μ_D', ν_D',
-    un_sq [N] = Σu_E² + Σu_D²)."""
+    un_sq [N] = Σu_E² + Σu_D²). Moments stored bf16 are widened, updated
+    in fp32 and returned rounded; each update takes the fp32 ones."""
     col = lambda v: v[:, None, None]
 
     def adam(p, g, mu, nu):
-        mu2 = b1 * mu + (1.0 - b1) * g
-        nu2 = b2 * nu + (1.0 - b2) * g * g
+        mu2 = b1 * mu.to(torch.float32) + (1.0 - b1) * g
+        nu2 = b2 * nu.to(torch.float32) + (1.0 - b2) * g * g
         u = -col(lrs) * (mu2 / col(bc1)) / (torch.sqrt(nu2 / col(bc2)) + eps)
-        return p + u, mu2, nu2, (u * u).sum(dim=(1, 2))
+        return (p + u, mu2.to(mu.dtype), nu2.to(nu.dtype),
+                (u * u).sum(dim=(1, 2)))
 
     e2, mu_e2, nu_e2, ue = adam(encoder, de, mu_e, nu_e)
     d2, mu_d2, nu_d2, ud = adam(decoder, normalize_with_vjp(decoder, dwn),
@@ -347,9 +380,13 @@ def sae_untied_adam_vjp(encoder, de, mu_e, nu_e, decoder, dwn, mu_d, nu_d,
                         lrs, bc1, bc2, b1: float = 0.9, b2: float = 0.999,
                         eps: float = 1e-8):
     """See :func:`sae_untied_adam_vjp_plain`. CUDA: launches
-    ``sae_untied_adam_vjp``; the per-block update partials are summed here
-    in a fixed order."""
+    ``sae_untied_adam_vjp`` (bf16 moments: ``sae_untied_adam_vjp_bf16``);
+    the per-block update partials are summed here in a fixed order."""
     n_members, n_feats, d = encoder.shape
+    bf16_moments = _moments("sae_untied_adam_vjp", mu_e, nu_e)
+    if _moments("sae_untied_adam_vjp", mu_d, nu_d) != bf16_moments:
+        raise ValueError("sae_untied_adam_vjp: the encoder's and decoder's "
+                         "moments must share one dtype")
     mats = dict(encoder=encoder, de=de, mu_e=mu_e, nu_e=nu_e,
                 decoder=decoder, dwn=dwn, mu_d=mu_d, nu_d=nu_d)
     for name, t in mats.items():
@@ -363,16 +400,22 @@ def sae_untied_adam_vjp(encoder, de, mu_e, nu_e, decoder, dwn, mu_d, nu_d,
         return sae_untied_adam_vjp_plain(encoder, de, mu_e, nu_e, decoder,
                                          dwn, mu_d, nu_d, lrs, bc1, bc2, b1,
                                          b2, eps)
-    _build.check_cuda_tensors("sae_untied_adam_vjp", **mats, **vecs)
+    _build.check_cuda_tensors(
+        "sae_untied_adam_vjp",
+        bf16_ok=("mu_e", "nu_e", "mu_d", "nu_d") if bf16_moments else (),
+        **mats, **vecs)
     if n_feats % _build.ADAM_ROWS:
         raise ValueError(f"sae_untied_adam_vjp: n_feats % "
                          f"{_build.ADAM_ROWS} must be 0")
-    outs = tuple(torch.empty_like(encoder) for _ in range(6))
+    outs = tuple(torch.empty_like(t) for t in (encoder, mu_e, nu_e, decoder,
+                                               mu_d, nu_d))
     part = torch.empty((n_members, n_feats // _build.ADAM_ROWS),
                        dtype=torch.float32, device=encoder.device)
     f32 = lambda v: float(np.float32(v))
-    _build.launch("sae_untied_adam_vjp", *(t.data_ptr() for t in (
-        *mats.values(), lrs, bc1, bc2, *outs, part)), n_members, n_feats, d,
+    _build.launch(
+        "sae_untied_adam_vjp_bf16" if bf16_moments else "sae_untied_adam_vjp",
+        *(t.data_ptr() for t in (*mats.values(), lrs, bc1, bc2, *outs,
+                                 part)), n_members, n_feats, d,
         f32(b1), f32(1.0 - b1), f32(b2), f32(1.0 - b2), f32(eps),
         _build.stream_ptr(encoder))
     return (*outs, part.sum(dim=1))

@@ -28,10 +28,24 @@ masked family's coefficient mask, multiplied into the codes and the ReLU
 mask. The untied pair encodes with the RAW encoder and decodes with the
 row-normalized decoder.
 
+``compute_dtype="bfloat16"`` (the JAX package's bf16 compute) takes each
+kernel's bf16 form (``<kernel>_bf16``): the same schedule with its products
+on bf16 tensor cores (``csrc/bgemm_mma.cuh``, fp32 accumulation) and the
+JAX package's casts — x (a bf16 batch as it comes), the normalized
+dictionary or decoder (normalized in fp32 first), the raw untied encoder,
+the codes, r and dpre rounded to bf16 where they enter a product; ReLU,
+masks, the residual, the sums, db and the loss stay fp32. On the card it
+runs those kernels or raises, never the fp32 ones.
+
 Each kernel has a plain PyTorch version beside it (``*_plain``). A wrapper
 takes the plain version (the untied backward: its chunk schedule in plain
 torch) only for CPU tensors; on CUDA tensors it launches its kernel or
-raises. The tiled paths' reported grad norm is the KERNEL-grad norm, taken
+raises. A plain version's bf16 compute rounds each operand to bf16 and back
+(``_rounding``) and multiplies in fp32: the products of two bf16 values are
+exact in fp32, so it sums what a bf16 dot with fp32 accumulation sums, on
+the CPU and on the card alike (a bf16 ``torch.matmul`` would not: cuBLAS
+may reduce in reduced precision, and the CPU's bf16 matmul is another
+algorithm). The tiled paths' reported grad norm is the KERNEL-grad norm, taken
 before the normalization VJP and, untied, before the bias decay — the
 same quantity the JAX package reports.
 """
@@ -46,6 +60,18 @@ import torch
 from sparse_coding_tpu_torch.ops import _build
 
 _EPS = 1e-8
+# the compute dtypes the ensemble kernels take: fp32, or bf16 dot operands
+# with fp32 accumulation
+COMPUTE_DTYPES = ("float32", "bfloat16")
+_BF16 = torch.bfloat16
+
+
+def _rounding(compute_dtype: str):
+    """The JAX package's ``.astype(compute_dtype)`` of a dot operand, kept
+    in fp32: a round to bf16 (nearest even) and back, or nothing."""
+    if compute_dtype == "bfloat16":
+        return lambda t: t.to(_BF16).to(torch.float32)
+    return lambda t: t
 
 
 def _normalize_rows(e: torch.Tensor) -> torch.Tensor:
@@ -99,19 +125,48 @@ def _mask_arg(coef_mask: Optional[torch.Tensor]):
     return None if coef_mask is None else coef_mask.data_ptr()
 
 
-def _kernel_tensors(name, b, n_feats, d, **tensors) -> None:
+def _kernel_tensors(name, b, n_feats, d, compute_dtype="float32",
+                    **tensors) -> None:
+    """The kernels' checks: every tensor fp32 on one card (the batch may be
+    bf16 under bf16 compute) and a shape the kernel takes."""
     _build.check_cuda_tensors(
-        name, **{k: v for k, v in tensors.items() if v is not None})
-    _build.check_kernel_shape(name, b, n_feats, d)
+        name, bf16_ok=("batch",) if compute_dtype == "bfloat16" else (),
+        **{k: v for k, v in tensors.items() if v is not None})
+    _build.check_kernel_shape(name, b, n_feats, d, compute_dtype)
+
+
+def _check_compute_dtype(compute_dtype: str) -> None:
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise NotImplementedError(
+            f"compute_dtype={compute_dtype!r}: the ensemble kernels take "
+            f"{' or '.join(COMPUTE_DTYPES)}")
+
+
+def bf16_operand(t: torch.Tensor, round_entry: str) -> torch.Tensor:
+    """``t`` as a bf16 dot operand on the card: a bf16 tensor as it is, an
+    fp32 one rounded to nearest even by the kernel library's rounding pass
+    ``round_entry`` (one launch)."""
+    if t.dtype == _BF16:
+        return t
+    out = torch.empty(t.shape, dtype=_BF16, device=t.device)
+    _build.launch(round_entry, t.data_ptr(), out.data_ptr(), t.numel(),
+                  _build.stream_ptr(t))
+    return out
 
 
 # --- the chunked kernels' workspace ------------------------------------------
 
 # The chunked kernels keep the codes of one chunk — Z members x rows batch
-# rows: the forwards' Cᵀ [Z, n, rows] fp32, the backwards' C and dpre G
-# [Z, rows, n] fp32 each — in a device workspace of at most this many
-# bytes; the whole [N, B, n] codes are never formed.
+# rows: the forwards' Cᵀ [Z, n, rows] fp32 (bf16 forms: bf16), the
+# backwards' C and dpre G [Z, rows, n] fp32 each (bf16 forms: and their
+# bf16 roundings) — in a device workspace of at most this many bytes; the
+# whole [N, B, n] codes are never formed.
 WORKSPACE_BYTES = 2**30
+# bytes a (member, row, feature) code takes in each workspace, by compute
+# dtype: the bf16 forward stores only the bf16 codes, the bf16 backward
+# the fp32 C and G (the sums and masks) beside their bf16 roundings
+FWD_CODE_BYTES = {"float32": 4, "bfloat16": 2}
+BWD_CODE_BYTES = {"float32": 8, "bfloat16": 12}
 # Slices a member's loss reductions are split into in the backwards (a
 # fixed number, so the order of every sum depends on the shape alone).
 LOSS_SLICES = 16
@@ -135,50 +190,60 @@ def _member_chunks(n_members: int, batch: int, n_feats: int,
             for lo in range(0, batch, rows)]
 
 
-def bwd_chunks(n_members: int, batch: int,
-               n_feats: int) -> list[tuple[int, int, int, int]]:
+def bwd_chunks(n_members: int, batch: int, n_feats: int,
+               compute_dtype: str = "float32"
+               ) -> list[tuple[int, int, int, int]]:
     """The chunks (m_lo, m_hi, b_lo, b_hi) of both backwards
-    (sae_tied_bwd, sae_untied_bwd), in the order they run: whole members,
-    as many a chunk as WORKSPACE_BYTES holds of their C and G (the last
-    chunk may hold fewer); a member whose C and G alone exceed it runs in
-    batch chunks of the largest multiple of 32 rows that fits (the last
-    may be shorter), added in order. All 32 members in one chunk at the
-    canonical shape (B = n = 2048), 8 a chunk at n = 8192, 4 a chunk at
-    the masked family's n = 16,384."""
-    return _member_chunks(n_members, batch, n_feats, 2 * 4, WORKSPACE_BYTES)
+    (sae_tied_bwd, sae_untied_bwd, and their bf16 forms), in the order they
+    run: whole members, as many a chunk as WORKSPACE_BYTES holds of their C
+    and G (BWD_CODE_BYTES a code; the last chunk may hold fewer); a member
+    whose C and G alone exceed it runs in batch chunks of the largest
+    multiple of 32 rows that fits (the last may be shorter), added in
+    order. fp32: all 32 members in one chunk at the canonical shape (B = n
+    = 2048), 8 a chunk at n = 8192, 4 a chunk at the masked family's n =
+    16,384. bf16: 21 + 11 members at the canonical shape, 5 a chunk at n =
+    8192."""
+    return _member_chunks(n_members, batch, n_feats,
+                          BWD_CODE_BYTES[compute_dtype], WORKSPACE_BYTES)
 
 
-def fwd_chunks(n_members: int, batch: int,
-               n_feats: int) -> list[tuple[int, int, int, int]]:
+def fwd_chunks(n_members: int, batch: int, n_feats: int,
+               compute_dtype: str = "float32"
+               ) -> list[tuple[int, int, int, int]]:
     """The chunks (m_lo, m_hi, b_lo, b_hi) of both forwards (sae_tied_fwd,
-    sae_untied_fwd), in the order they run: whole members, as many a chunk
-    as WORKSPACE_BYTES holds of their codes (the last chunk may hold
-    fewer); a member whose codes alone exceed it runs in row chunks of the
-    largest multiple of 32 rows that fits (the last may be shorter), each
-    writing its own rows of r. All 32 members in one chunk at the canonical
-    shape (B = n = 2048), 16 a chunk at n = 8192, and the masked family's 7
-    members of n = 16,384 in one."""
-    return _member_chunks(n_members, batch, n_feats, 4, WORKSPACE_BYTES)
+    sae_untied_fwd, and their bf16 forms), in the order they run: whole
+    members, as many a chunk as WORKSPACE_BYTES holds of their codes
+    (FWD_CODE_BYTES a code; the last chunk may hold fewer); a member whose
+    codes alone exceed it runs in row chunks of the largest multiple of 32
+    rows that fits (the last may be shorter), each writing its own rows of
+    r. fp32: all 32 members in one chunk at the canonical shape (B = n =
+    2048), 16 a chunk at n = 8192, and the masked family's 7 members of n =
+    16,384 in one. bf16: all 32 in one chunk at n = 8192 too."""
+    return _member_chunks(n_members, batch, n_feats,
+                          FWD_CODE_BYTES[compute_dtype], WORKSPACE_BYTES)
 
 
 def _chunked_fwd(kernel: str, n_members: int, n_feats: int,
-                 batch: torch.Tensor, codes, decode) -> torch.Tensor:
+                 batch: torch.Tensor, codes, decode,
+                 compute_dtype: str = "float32") -> torch.Tensor:
     """A forward's chunk loop on the card: per chunk of :func:`fwd_chunks`,
-    ``codes(ms, xk, ct)`` then ``decode(ms, xk, ct, rk)`` for the member
-    slice ``ms``, the chunk's rows ``xk`` of the batch, the workspace
-    ``ct`` and the chunk's [Z, rows, d] slice ``rk`` of the residual; then
-    one call of ``kernel`` counted. Returns r [N, B, d]."""
+    ``codes(ms, rs, ct)`` then ``decode(ms, rs, ct, rk)`` for the member
+    slice ``ms``, the chunk's row slice ``rs`` of the batch, the workspace
+    ``ct`` (fp32, or bf16 for a bf16 form) and the chunk's [Z, rows, d]
+    slice ``rk`` of the residual; then one call of ``kernel`` counted.
+    Returns r [N, B, d] (fp32)."""
     b, d = batch.shape
-    kw = {"dtype": torch.float32, "device": batch.device}
-    r = torch.empty((n_members, b, d), **kw)
-    chunks = fwd_chunks(n_members, b, n_feats)
+    r = torch.empty((n_members, b, d), dtype=torch.float32,
+                    device=batch.device)
+    chunks = fwd_chunks(n_members, b, n_feats, compute_dtype)
     ct = torch.empty((max((mh - ml) * (bh - bl) for ml, mh, bl, bh
-                          in chunks) * n_feats,), **kw)
+                          in chunks) * n_feats,),
+                     dtype=_BF16 if compute_dtype == "bfloat16"
+                     else torch.float32, device=batch.device)
     for m_lo, m_hi, b_lo, b_hi in chunks:
-        ms = slice(m_lo, m_hi)
-        xk = batch[b_lo:b_hi]
-        codes(ms, xk, ct)
-        decode(ms, xk, ct, r[ms, b_lo:b_hi])
+        ms, rs = slice(m_lo, m_hi), slice(b_lo, b_hi)
+        codes(ms, rs, ct)
+        decode(ms, rs, ct, r[ms, rs])
     _build.LAUNCHES[kernel] += 1
     return r
 
@@ -187,15 +252,20 @@ def _chunked_fwd(kernel: str, n_members: int, n_feats: int,
 
 def sae_tied_fwd_plain(encoder: torch.Tensor, bias: torch.Tensor,
                        batch: torch.Tensor,
-                       coef_mask: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       coef_mask: Optional[torch.Tensor] = None,
+                       compute_dtype: str = "float32") -> torch.Tensor:
     """r [N, B, d] = (cm ⊙ relu(x Ŵᵀ + b)) Ŵ − x per member,
-    Ŵ = E / ‖E‖_row; cm = 1 without a coef_mask."""
-    w = _normalize_rows(encoder)
-    c = torch.relu(torch.matmul(batch, w.transpose(1, 2)) + bias[:, None, :])
+    Ŵ = E / ‖E‖_row; cm = 1 without a coef_mask. bf16 compute rounds x, Ŵ
+    and the codes where they enter a product; x − in r is the fp32 batch
+    (a bf16 batch widened, exact)."""
+    rnd = _rounding(compute_dtype)
+    xb = batch.to(torch.float32)
+    w = rnd(_normalize_rows(encoder))
+    c = torch.relu(torch.matmul(rnd(xb), w.transpose(1, 2))
+                   + bias[:, None, :])
     if coef_mask is not None:
         c = c * coef_mask[:, None, :]
-    return torch.matmul(c, w) - batch
+    return torch.matmul(rnd(c), w) - xb
 
 
 # The launches of the tied forward (csrc/sae_tied_fwd.cu), one helper
@@ -227,30 +297,74 @@ def tied_fwd_decode(ct, w, xk, rk, batch: int) -> None:
                   _build.stream_ptr(xk))
 
 
+def tied_fwd_bf16_norms(encoder, wb) -> None:
+    """wb [N, n, d] = bf16(E / max(‖E_f‖, 1e-8)) for every dictionary row
+    (the bf16 form's)."""
+    _build.launch("sae_tied_fwd_bf16_norms", encoder.data_ptr(),
+                  wb.data_ptr(), encoder.numel() // encoder.shape[-1],
+                  encoder.shape[-1], _build.stream_ptr(wb))
+
+
+def tied_fwd_bf16_codes(xbk, wb, bias, coef_mask, ctb) -> None:
+    """Cᵀ [Z, n, rows] = bf16(cm·relu(Ŵb·xbkᵀ + b)) into the bf16
+    workspace ``ctb``, for the Z members of ``wb`` [Z, n, d] (bf16)."""
+    z, n, d = wb.shape
+    _build.launch("sae_tied_fwd_bf16_codes", xbk.data_ptr(), wb.data_ptr(),
+                  bias.data_ptr(), _mask_arg(coef_mask), ctb.data_ptr(), z,
+                  xbk.shape[0], n, d, _build.stream_ptr(xbk))
+
+
+def tied_fwd_bf16_decode(ctb, wb, xk, rk, batch: int) -> None:
+    """rk = Cᵀᵀ·Ŵb − xk into ``rk`` (fp32), the [Z, rows, d] slice of the
+    [N, B, d] residual; ``xk`` the batch's rows, fp32 or bf16."""
+    z, n, d = wb.shape
+    _build.launch("sae_tied_fwd_bf16_decode", ctb.data_ptr(), wb.data_ptr(),
+                  xk.data_ptr(), int(xk.dtype == _BF16), rk.data_ptr(), z,
+                  xk.shape[0], n, d, batch, _build.stream_ptr(xk))
+
+
 def sae_tied_fwd(encoder: torch.Tensor, bias: torch.Tensor,
                  batch: torch.Tensor,
-                 coef_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 coef_mask: Optional[torch.Tensor] = None,
+                 compute_dtype: str = "float32") -> torch.Tensor:
     """The residual r = x̂ − x [N, B, d] of every member; see
     :func:`sae_tied_fwd_plain`. CUDA: the normalized dictionary, then per
     chunk of :func:`fwd_chunks` the launches ``tied_fwd_codes`` and
-    ``tied_fwd_decode``; counts one ``sae_tied_fwd`` call. CPU: the plain
-    version (the chunks write disjoint rows of r and sum nothing across one
-    another)."""
+    ``tied_fwd_decode``; counts one ``sae_tied_fwd`` call. bf16 compute:
+    the bf16 form, ``sae_tied_fwd_bf16`` (the fp32 batch rounded once,
+    ``tied_fwd_bf16_norms``, then ``_codes`` and ``_decode`` per chunk).
+    CPU: the plain version (the chunks write disjoint rows of r and sum
+    nothing across one another)."""
     n_members, n_feats, d, b = _tied_shapes(encoder, bias, batch)
+    _check_compute_dtype(compute_dtype)
     _check_vec("coef_mask", coef_mask, (n_members, n_feats))
     extra = () if coef_mask is None else (coef_mask,)
     if _on_cpu("sae_tied_fwd", encoder, bias, batch, *extra):
-        return sae_tied_fwd_plain(encoder, bias, batch, coef_mask)
-    _kernel_tensors("sae_tied_fwd", b, n_feats, d, encoder=encoder,
-                    bias=bias, batch=batch, coef_mask=coef_mask)
+        return sae_tied_fwd_plain(encoder, bias, batch, coef_mask,
+                                  compute_dtype)
+    _kernel_tensors("sae_tied_fwd", b, n_feats, d, compute_dtype,
+                    encoder=encoder, bias=bias, batch=batch,
+                    coef_mask=coef_mask)
+    cm = (lambda ms: None) if coef_mask is None else (
+        lambda ms: coef_mask[ms])
+    if compute_dtype == "bfloat16":
+        xb = bf16_operand(batch, "sae_tied_fwd_bf16_round")
+        wb = torch.empty(encoder.shape, dtype=_BF16, device=encoder.device)
+        tied_fwd_bf16_norms(encoder, wb)
+        return _chunked_fwd(
+            "sae_tied_fwd_bf16", n_members, n_feats, batch,
+            lambda ms, rs, ct: tied_fwd_bf16_codes(xb[rs], wb[ms], bias[ms],
+                                                   cm(ms), ct),
+            lambda ms, rs, ct, rk: tied_fwd_bf16_decode(ct, wb[ms],
+                                                        batch[rs], rk, b),
+            compute_dtype)
     w = torch.empty_like(encoder)
     tied_fwd_norms(encoder, w)
     return _chunked_fwd(
         "sae_tied_fwd", n_members, n_feats, batch,
-        lambda ms, xk, ct: tied_fwd_codes(
-            xk, w[ms], bias[ms],
-            None if coef_mask is None else coef_mask[ms], ct),
-        lambda ms, xk, ct, rk: tied_fwd_decode(ct, w[ms], xk, rk, b))
+        lambda ms, rs, ct: tied_fwd_codes(batch[rs], w[ms], bias[ms], cm(ms),
+                                          ct),
+        lambda ms, rs, ct, rk: tied_fwd_decode(ct, w[ms], batch[rs], rk, b))
 
 
 # --- sae_tied_bwd (K3b; masked too) -------------------------------------------
@@ -258,24 +372,31 @@ def sae_tied_fwd(encoder: torch.Tensor, bias: torch.Tensor,
 def sae_tied_bwd_plain(encoder: torch.Tensor, bias: torch.Tensor,
                        alphas: torch.Tensor, batch: torch.Tensor,
                        resid: torch.Tensor,
-                       coef_mask: Optional[torch.Tensor] = None):
+                       coef_mask: Optional[torch.Tensor] = None,
+                       compute_dtype: str = "float32"):
     """Exact tied-SAE grads from the residual: (dW [N, n, d] wrt the
     normalized W, db [N, n], activity [N, n] float, loss4 [N, 4] =
     [mse, l1, l0, ΣdW² + Σdb²]). A coef_mask multiplies the codes and the
-    ReLU mask, so only active coefficients count."""
+    ReLU mask, so only active coefficients count. bf16 compute rounds x, Ŵ,
+    r, the codes and dpre where they enter a product; the masks, sums and
+    loss take the fp32 values."""
+    rnd = _rounding(compute_dtype)
     b, d = batch.shape
-    w = _normalize_rows(encoder)
-    pre = torch.matmul(batch, w.transpose(1, 2)) + bias[:, None, :]
+    xb = batch.to(torch.float32)
+    xc = rnd(xb)
+    w = rnd(_normalize_rows(encoder))
+    pre = torch.matmul(xc, w.transpose(1, 2)) + bias[:, None, :]
     c = torch.relu(pre)
     mask = (pre > 0.0).to(torch.float32)
     if coef_mask is not None:
         c = c * coef_mask[:, None, :]
         mask = mask * coef_mask[:, None, :]
     coef = 2.0 / (b * d)
-    dpre = (coef * torch.matmul(resid, w.transpose(1, 2))
+    rc = rnd(resid)
+    dpre = (coef * torch.matmul(rc, w.transpose(1, 2))
             + (alphas / b)[:, None, None]) * mask
-    dw = (torch.matmul(dpre.transpose(1, 2), batch)
-          + coef * torch.matmul(c.transpose(1, 2), resid))
+    dw = (torch.matmul(rnd(dpre).transpose(1, 2), xc)
+          + coef * torch.matmul(rnd(c).transpose(1, 2), rc))
     db = dpre.sum(dim=1)
     loss4 = torch.stack([
         (resid * resid).sum(dim=(1, 2)) / (b * d),
@@ -350,35 +471,108 @@ def tied_bwd_loss(resid, dw, db, act, csum, alphas, part, loss4) -> None:
                   _build.stream_ptr(resid))
 
 
+# The bf16 form's launches (the same library): C and G fp32 beside their
+# bf16 roundings Cb and Gb in the workspace; xb, rb and Ŵb bf16.
+
+def tied_bwd_bf16_norms(encoder, wb) -> None:
+    """wb [N, n, d] = bf16(E / max(‖E_f‖, 1e-8)) for every dictionary
+    row."""
+    _build.launch("sae_tied_bwd_bf16_norms", encoder.data_ptr(),
+                  wb.data_ptr(), encoder.numel() // encoder.shape[-1],
+                  encoder.shape[-1], _build.stream_ptr(wb))
+
+
+def tied_bwd_bf16_codes(xbk, wb, bias, coef_mask, c, cb) -> None:
+    """C [Z, rows, n] = cm·relu(xbk·Ŵbᵀ + b) into ``c`` and bf16(C) into
+    ``cb``, for the Z members of ``wb`` [Z, n, d]."""
+    z, n, d = wb.shape
+    _build.launch("sae_tied_bwd_bf16_codes", xbk.data_ptr(), wb.data_ptr(),
+                  bias.data_ptr(), _mask_arg(coef_mask), c.data_ptr(),
+                  cb.data_ptr(), z, xbk.shape[0], n, d,
+                  _build.stream_ptr(xbk))
+
+
+def tied_bwd_bf16_dpre(rbk, wb, c, alphas, g, gb, batch: int,
+                       coef: float) -> None:
+    """G [Z, rows, n] = (coef·(rbk·Ŵbᵀ) + α/B)·[C > 0] into ``g`` and
+    bf16(G) into ``gb``; rbk is the [Z, rows, d] slice of the bf16
+    residual."""
+    z, rows, d = rbk.shape
+    _build.launch("sae_tied_bwd_bf16_dpre", rbk.data_ptr(), wb.data_ptr(),
+                  c.data_ptr(), alphas.data_ptr(), g.data_ptr(),
+                  gb.data_ptr(), z, rows, wb.shape[1], d, batch, coef,
+                  _build.stream_ptr(rbk))
+
+
+def tied_bwd_bf16_dwx(xbk, gb, dw, first: bool) -> None:
+    """dW [Z, n, d] = (0 if first else dW) + Gbᵀ·xbk."""
+    z, n, d = dw.shape
+    _build.launch("sae_tied_bwd_bf16_dwx", xbk.data_ptr(), gb.data_ptr(),
+                  dw.data_ptr(), z, xbk.shape[0], n, d, int(first),
+                  _build.stream_ptr(xbk))
+
+
+def tied_bwd_bf16_dwr(cb, rbk, dw, batch: int, coef: float) -> None:
+    """dW [Z, n, d] = dW + coef·(Cbᵀ·rbk)."""
+    z, rows, d = rbk.shape
+    _build.launch("sae_tied_bwd_bf16_dwr", cb.data_ptr(), rbk.data_ptr(),
+                  dw.data_ptr(), z, rows, dw.shape[1], d, batch, coef,
+                  _build.stream_ptr(rbk))
+
+
+def _bwd_outputs(n_members, n_feats, d, n_weight_grads, device):
+    """A backward's fp32 outputs and scratch: ``n_weight_grads`` [N, n, d]
+    buffers (its weight grads, and the tied fp32 form's normalized
+    dictionary), db, act, csum [N, n], loss4 [N, 4] and the loss slices
+    [N, P, 2]."""
+    kw = {"dtype": torch.float32, "device": device}
+    grads = [torch.empty((n_members, n_feats, d), **kw)
+             for _ in range(n_weight_grads)]
+    db, act, csum = (torch.empty((n_members, n_feats), **kw)
+                     for _ in range(3))
+    return (grads, db, act, csum, torch.empty((n_members, 4), **kw),
+            torch.empty((n_members, LOSS_SLICES, 2), **kw))
+
+
+def _bf16_workspace(chunks, n_feats: int, device):
+    """The bf16 backwards' workspace: (C, G) fp32 and (Cb, Gb) bf16, each
+    a chunk's [Z, rows, n] (BWD_CODE_BYTES["bfloat16"] a code)."""
+    size = max((mh - ml) * (bh - bl) for ml, mh, bl, bh in chunks) * n_feats
+    return (torch.empty((2, size), dtype=torch.float32, device=device),
+            torch.empty((2, size), dtype=_BF16, device=device))
+
+
 def sae_tied_bwd(encoder: torch.Tensor, bias: torch.Tensor,
                  alphas: torch.Tensor, batch: torch.Tensor,
                  resid: torch.Tensor,
-                 coef_mask: Optional[torch.Tensor] = None):
+                 coef_mask: Optional[torch.Tensor] = None,
+                 compute_dtype: str = "float32"):
     """See :func:`sae_tied_bwd_plain` for the outputs. CUDA: the normalized
     dictionary, then per chunk of :func:`bwd_chunks` the launches
     ``tied_bwd_codes``, ``_dpre``, ``_dwx``, ``_dwr``, ``_sums`` in order,
-    then ``tied_bwd_loss``; counts one ``sae_tied_bwd`` call. CPU: the
-    plain version."""
+    then ``tied_bwd_loss``; counts one ``sae_tied_bwd`` call. bf16 compute:
+    the bf16 form, ``sae_tied_bwd_bf16`` (the fp32 batch and the residual
+    rounded once, then its norms, the five chunk launches and the loss).
+    CPU: the plain version."""
     n_members, n_feats, d, b = _tied_shapes(encoder, bias, batch)
+    _check_compute_dtype(compute_dtype)
     _bwd_checks(n_members, b, d, alphas, resid)
     _check_vec("coef_mask", coef_mask, (n_members, n_feats))
     extra = () if coef_mask is None else (coef_mask,)
     if _on_cpu("sae_tied_bwd", encoder, bias, alphas, batch, resid, *extra):
         return sae_tied_bwd_plain(encoder, bias, alphas, batch, resid,
-                                  coef_mask)
-    _kernel_tensors("sae_tied_bwd", b, n_feats, d, encoder=encoder,
-                    bias=bias, alphas=alphas, batch=batch, resid=resid,
-                    coef_mask=coef_mask)
-    kw = {"dtype": torch.float32, "device": batch.device}
-    dw = torch.empty((n_members, n_feats, d), **kw)
-    w = torch.empty((n_members, n_feats, d), **kw)
-    db, act, csum = (torch.empty((n_members, n_feats), **kw)
-                     for _ in range(3))
-    loss4 = torch.empty((n_members, 4), **kw)
-    part = torch.empty((n_members, LOSS_SLICES, 2), **kw)
+                                  coef_mask, compute_dtype)
+    _kernel_tensors("sae_tied_bwd", b, n_feats, d, compute_dtype,
+                    encoder=encoder, bias=bias, alphas=alphas, batch=batch,
+                    resid=resid, coef_mask=coef_mask)
+    if compute_dtype == "bfloat16":
+        return _tied_bwd_bf16(encoder, bias, alphas, batch, resid, coef_mask)
+    (dw, w), db, act, csum, loss4, part = _bwd_outputs(
+        n_members, n_feats, d, 2, batch.device)
     chunks = bwd_chunks(n_members, b, n_feats)
     ws = torch.empty((2, max((mh - ml) * (bh - bl) for ml, mh, bl, bh
-                             in chunks) * n_feats), **kw)
+                             in chunks) * n_feats), dtype=torch.float32,
+                     device=batch.device)
     c, g = ws[0], ws[1]
     coef = float(np.float32(2.0 / (b * d)))
     tied_bwd_norms(encoder, w)
@@ -397,16 +591,52 @@ def sae_tied_bwd(encoder: torch.Tensor, bias: torch.Tensor,
     return dw, db, act, loss4
 
 
+def _tied_bwd_bf16(encoder, bias, alphas, batch, resid, coef_mask):
+    """The bf16 form of :func:`sae_tied_bwd` on the card."""
+    n_members, n_feats, d = encoder.shape
+    b = batch.shape[0]
+    (dw,), db, act, csum, loss4, part = _bwd_outputs(
+        n_members, n_feats, d, 1, batch.device)
+    xb = bf16_operand(batch, "sae_tied_bwd_bf16_round")
+    rb = bf16_operand(resid, "sae_tied_bwd_bf16_round")
+    wb = torch.empty(encoder.shape, dtype=_BF16, device=encoder.device)
+    chunks = bwd_chunks(n_members, b, n_feats, "bfloat16")
+    (c, g), (cb, gb) = _bf16_workspace(chunks, n_feats, batch.device)
+    coef = float(np.float32(2.0 / (b * d)))
+    tied_bwd_bf16_norms(encoder, wb)
+    for m_lo, m_hi, b_lo, b_hi in chunks:
+        ms, rs = slice(m_lo, m_hi), slice(b_lo, b_hi)
+        cm = None if coef_mask is None else coef_mask[ms]
+        tied_bwd_bf16_codes(xb[rs], wb[ms], bias[ms], cm, c, cb)
+        tied_bwd_bf16_dpre(rb[ms, rs], wb[ms], c, alphas[ms], g, gb, b, coef)
+        tied_bwd_bf16_dwx(xb[rs], gb, dw[ms], b_lo == 0)
+        tied_bwd_bf16_dwr(cb, rb[ms, rs], dw[ms], b, coef)
+        _build.launch("sae_tied_bwd_bf16_sums", c.data_ptr(), g.data_ptr(),
+                      db[ms].data_ptr(), act[ms].data_ptr(),
+                      csum[ms].data_ptr(), m_hi - m_lo, b_hi - b_lo,
+                      n_feats, int(b_lo == 0), _build.stream_ptr(db))
+    _build.launch("sae_tied_bwd_bf16_loss", resid.data_ptr(), dw.data_ptr(),
+                  db.data_ptr(), act.data_ptr(), csum.data_ptr(),
+                  alphas.data_ptr(), part.data_ptr(), loss4.data_ptr(),
+                  n_members, b, n_feats, d, LOSS_SLICES,
+                  _build.stream_ptr(resid))
+    _build.LAUNCHES["sae_tied_bwd_bf16"] += 1
+    return dw, db, act, loss4
+
+
 # --- sae_untied_fwd (K5/K7 forward + the residual pass) -----------------------
 
 def sae_untied_fwd_plain(encoder: torch.Tensor, decoder: torch.Tensor,
-                         bias: torch.Tensor,
-                         batch: torch.Tensor) -> torch.Tensor:
+                         bias: torch.Tensor, batch: torch.Tensor,
+                         compute_dtype: str = "float32") -> torch.Tensor:
     """r [N, B, d] = relu(x Eᵀ + b) Wn − x per member: E the RAW encoder,
-    Wn = D / ‖D‖_row."""
-    c = torch.relu(torch.matmul(batch, encoder.transpose(1, 2))
+    Wn = D / ‖D‖_row. bf16 compute rounds x, E, Wn and the codes where they
+    enter a product."""
+    rnd = _rounding(compute_dtype)
+    xb = batch.to(torch.float32)
+    c = torch.relu(torch.matmul(rnd(xb), rnd(encoder).transpose(1, 2))
                    + bias[:, None, :])
-    return torch.matmul(c, _normalize_rows(decoder)) - batch
+    return torch.matmul(rnd(c), rnd(_normalize_rows(decoder))) - xb
 
 
 # The launches of the untied forward (csrc/sae_untied_fwd.cu), one helper
@@ -438,45 +668,98 @@ def untied_fwd_decode(ct, wn, xk, rk, batch: int) -> None:
                   _build.stream_ptr(xk))
 
 
+def untied_fwd_bf16_norms(decoder, wnb) -> None:
+    """wnb [N, n, d] = bf16(D / max(‖D_f‖, 1e-8)) for every decoder row
+    (the bf16 form's)."""
+    _build.launch("sae_untied_fwd_bf16_norms", decoder.data_ptr(),
+                  wnb.data_ptr(), decoder.numel() // decoder.shape[-1],
+                  decoder.shape[-1], _build.stream_ptr(wnb))
+
+
+def untied_fwd_bf16_codes(xbk, eb, bias, ctb) -> None:
+    """Cᵀ [Z, n, rows] = bf16(relu(Eb·xbkᵀ + b)) into the bf16 workspace
+    ``ctb``, for the Z members of ``eb`` [Z, n, d] (the raw encoder,
+    bf16)."""
+    z, n, d = eb.shape
+    _build.launch("sae_untied_fwd_bf16_codes", xbk.data_ptr(), eb.data_ptr(),
+                  bias.data_ptr(), ctb.data_ptr(), z, xbk.shape[0], n, d,
+                  _build.stream_ptr(xbk))
+
+
+def untied_fwd_bf16_decode(ctb, wnb, xk, rk, batch: int) -> None:
+    """rk = Cᵀᵀ·Wnb − xk into ``rk`` (fp32), the [Z, rows, d] slice of the
+    [N, B, d] residual; ``xk`` the batch's rows, fp32 or bf16."""
+    z, n, d = wnb.shape
+    _build.launch("sae_untied_fwd_bf16_decode", ctb.data_ptr(),
+                  wnb.data_ptr(), xk.data_ptr(), int(xk.dtype == _BF16),
+                  rk.data_ptr(), z, xk.shape[0], n, d, batch,
+                  _build.stream_ptr(xk))
+
+
 def sae_untied_fwd(encoder: torch.Tensor, decoder: torch.Tensor,
-                   bias: torch.Tensor, batch: torch.Tensor) -> torch.Tensor:
+                   bias: torch.Tensor, batch: torch.Tensor,
+                   compute_dtype: str = "float32") -> torch.Tensor:
     """See :func:`sae_untied_fwd_plain`. CUDA: the normalized decoder, then
     per chunk of :func:`fwd_chunks` the launches ``untied_fwd_codes`` and
-    ``untied_fwd_decode``; counts one ``sae_untied_fwd`` call. CPU: the
-    plain version (the chunks write disjoint rows of r and sum nothing
-    across one another, so their schedule leaves nothing for a plain twin
-    to mirror)."""
+    ``untied_fwd_decode``; counts one ``sae_untied_fwd`` call. bf16
+    compute: the bf16 form, ``sae_untied_fwd_bf16`` (the fp32 batch and the
+    raw encoder rounded once, ``untied_fwd_bf16_norms``, then ``_codes``
+    and ``_decode`` per chunk). CPU: the plain version (the chunks write
+    disjoint rows of r and sum nothing across one another, so their
+    schedule leaves nothing for a plain twin to mirror)."""
     n_members, n_feats, d, b = _untied_shapes(encoder, decoder, bias, batch)
+    _check_compute_dtype(compute_dtype)
     if _on_cpu("sae_untied_fwd", encoder, decoder, bias, batch):
-        return sae_untied_fwd_plain(encoder, decoder, bias, batch)
-    _kernel_tensors("sae_untied_fwd", b, n_feats, d, encoder=encoder,
-                    decoder=decoder, bias=bias, batch=batch)
+        return sae_untied_fwd_plain(encoder, decoder, bias, batch,
+                                    compute_dtype)
+    _kernel_tensors("sae_untied_fwd", b, n_feats, d, compute_dtype,
+                    encoder=encoder, decoder=decoder, bias=bias, batch=batch)
+    if compute_dtype == "bfloat16":
+        xb = bf16_operand(batch, "sae_untied_fwd_bf16_round")
+        eb = bf16_operand(encoder, "sae_untied_fwd_bf16_round")
+        wnb = torch.empty(decoder.shape, dtype=_BF16, device=decoder.device)
+        untied_fwd_bf16_norms(decoder, wnb)
+        return _chunked_fwd(
+            "sae_untied_fwd_bf16", n_members, n_feats, batch,
+            lambda ms, rs, ct: untied_fwd_bf16_codes(xb[rs], eb[ms],
+                                                     bias[ms], ct),
+            lambda ms, rs, ct, rk: untied_fwd_bf16_decode(
+                ct, wnb[ms], batch[rs], rk, b),
+            compute_dtype)
     wn = torch.empty_like(decoder)
     untied_fwd_norms(decoder, wn)
     return _chunked_fwd(
         "sae_untied_fwd", n_members, n_feats, batch,
-        lambda ms, xk, ct: untied_fwd_codes(xk, encoder[ms], bias[ms], ct),
-        lambda ms, xk, ct, rk: untied_fwd_decode(ct, wn[ms], xk, rk, b))
+        lambda ms, rs, ct: untied_fwd_codes(batch[rs], encoder[ms], bias[ms],
+                                            ct),
+        lambda ms, rs, ct, rk: untied_fwd_decode(ct, wn[ms], batch[rs], rk,
+                                                 b))
 
 
 # --- sae_untied_bwd (K5/K7 backward) ------------------------------------------
 
 def sae_untied_bwd_plain(encoder: torch.Tensor, decoder: torch.Tensor,
                          bias: torch.Tensor, alphas: torch.Tensor,
-                         batch: torch.Tensor, resid: torch.Tensor):
+                         batch: torch.Tensor, resid: torch.Tensor,
+                         compute_dtype: str = "float32"):
     """Exact untied-SAE grads from the residual: (dE [N, n, d] wrt the raw
     encoder, dWn [N, n, d] wrt the normalized decoder, db [N, n], activity
-    [N, n] float, loss4 [N, 4] = [mse, l1, l0, ΣdE² + ΣdWn² + Σdb²])."""
+    [N, n] float, loss4 [N, 4] = [mse, l1, l0, ΣdE² + ΣdWn² + Σdb²]). bf16
+    compute rounds x, E, Wn, r, the codes and dpre where they enter a
+    product."""
+    rnd = _rounding(compute_dtype)
     b, d = batch.shape
-    wn = _normalize_rows(decoder)
-    pre = torch.matmul(batch, encoder.transpose(1, 2)) + bias[:, None, :]
+    xc = rnd(batch.to(torch.float32))
+    wn = rnd(_normalize_rows(decoder))
+    pre = torch.matmul(xc, rnd(encoder).transpose(1, 2)) + bias[:, None, :]
     c = torch.relu(pre)
     mask = (pre > 0.0).to(torch.float32)
     coef = 2.0 / (b * d)
-    dpre = (coef * torch.matmul(resid, wn.transpose(1, 2))
+    rc = rnd(resid)
+    dpre = (coef * torch.matmul(rc, wn.transpose(1, 2))
             + (alphas / b)[:, None, None]) * mask
-    de = torch.matmul(dpre.transpose(1, 2), batch)
-    dwn = coef * torch.matmul(c.transpose(1, 2), resid)
+    de = torch.matmul(rnd(dpre).transpose(1, 2), xc)
+    dwn = coef * torch.matmul(rnd(c).transpose(1, 2), rc)
     db = dpre.sum(dim=1)
     loss4 = torch.stack([
         (resid * resid).sum(dim=(1, 2)) / (b * d),
@@ -487,29 +770,40 @@ def sae_untied_bwd_plain(encoder: torch.Tensor, decoder: torch.Tensor,
     return de, dwn, db, mask.sum(dim=1), loss4
 
 
-def _untied_bwd_chunked_plain(encoder, decoder, bias, alphas, batch, resid):
+def _untied_bwd_chunked_plain(encoder, decoder, bias, alphas, batch, resid,
+                              compute_dtype="float32"):
     """The kernels' chunk schedule in plain torch (the CPU twin of
-    :func:`sae_untied_bwd`): per chunk the codes, dpre — the decoder's
-    clipped row norms divided out of the finished dot products, as the
-    kernel does —, the two weight-grad products and the per-feature sums,
-    the batch chunks of a member added in order; then the loss terms, with
-    l1 and l0 as double sums of the per-feature sums."""
+    :func:`sae_untied_bwd`): per chunk the codes, dpre — fp32: the
+    decoder's clipped row norms divided out of the finished dot products,
+    as the kernel does; bf16: against the rounded normalized decoder, as
+    the bf16 form does —, the two weight-grad products and the per-feature
+    sums, the batch chunks of a member added in order; then the loss terms,
+    with l1 and l0 as double sums of the per-feature sums."""
+    rnd = _rounding(compute_dtype)
     n_members, n_feats, d = encoder.shape
     b = batch.shape[0]
     coef = 2.0 / (b * d)
-    nrm = torch.clamp(torch.linalg.vector_norm(decoder, dim=-1), min=_EPS)
+    xc, rc, enc = rnd(batch.to(torch.float32)), rnd(resid), rnd(encoder)
+    if compute_dtype == "bfloat16":
+        wn = rnd(_normalize_rows(decoder))
+        dots = lambda ms, rk: torch.matmul(rk, wn[ms].transpose(1, 2))
+    else:
+        nrm = torch.clamp(torch.linalg.vector_norm(decoder, dim=-1),
+                          min=_EPS)
+        dots = lambda ms, rk: (torch.matmul(rk, decoder[ms].transpose(1, 2))
+                               / nrm[ms, None, :])
     de, dwn = torch.empty_like(encoder), torch.empty_like(encoder)
     sums = encoder.new_empty((3, n_members, n_feats))  # db, act, Σ_b c
-    for m_lo, m_hi, b_lo, b_hi in bwd_chunks(n_members, b, n_feats):
+    for m_lo, m_hi, b_lo, b_hi in bwd_chunks(n_members, b, n_feats,
+                                             compute_dtype):
         ms = slice(m_lo, m_hi)
-        xk, rk = batch[b_lo:b_hi], resid[ms, b_lo:b_hi]
-        c = torch.relu(torch.matmul(xk, encoder[ms].transpose(1, 2))
+        xk, rk = xc[b_lo:b_hi], rc[ms, b_lo:b_hi]
+        c = torch.relu(torch.matmul(xk, enc[ms].transpose(1, 2))
                        + bias[ms, None, :])
         mask = (c > 0.0).to(torch.float32)  # = [pre > 0], NaN included
-        q = torch.matmul(rk, decoder[ms].transpose(1, 2)) / nrm[ms, None, :]
-        g = (coef * q + (alphas[ms] / b)[:, None, None]) * mask
-        part = (torch.matmul(g.transpose(1, 2), xk),
-                torch.matmul(c.transpose(1, 2), rk),
+        g = (coef * dots(ms, rk) + (alphas[ms] / b)[:, None, None]) * mask
+        part = (torch.matmul(rnd(g).transpose(1, 2), xk),
+                torch.matmul(rnd(c).transpose(1, 2), rk),
                 torch.stack([g.sum(dim=1), mask.sum(dim=1), c.sum(dim=1)]))
         if b_lo == 0:
             de[ms], dwn[ms], sums[:, ms] = part
@@ -597,33 +891,120 @@ def untied_bwd_loss(resid, de, dwn, db, act, csum, alphas, part,
                   part.shape[1], _build.stream_ptr(resid))
 
 
+def untied_bwd_bf16_norms(decoder, wnb) -> None:
+    """wnb [N, n, d] = bf16(D / max(‖D_f‖, 1e-8)) for every decoder row
+    (the bf16 form's: dpre's operand)."""
+    _build.launch("sae_untied_bwd_bf16_norms", decoder.data_ptr(),
+                  wnb.data_ptr(), decoder.numel() // decoder.shape[-1],
+                  decoder.shape[-1], _build.stream_ptr(wnb))
+
+
+def untied_bwd_bf16_codes(xbk, eb, bias, c, cb) -> None:
+    """C [Z, rows, n] = relu(xbk·Ebᵀ + b) into ``c`` and bf16(C) into
+    ``cb``, for the Z members of ``eb`` [Z, n, d] (the raw encoder,
+    bf16)."""
+    z, n, d = eb.shape
+    _build.launch("sae_untied_bwd_bf16_codes", xbk.data_ptr(), eb.data_ptr(),
+                  bias.data_ptr(), c.data_ptr(), cb.data_ptr(), z,
+                  xbk.shape[0], n, d, _build.stream_ptr(xbk))
+
+
+def untied_bwd_bf16_dpre(rbk, wnb, c, alphas, g, gb, batch: int,
+                         coef: float) -> None:
+    """G [Z, rows, n] = (coef·(rbk·Wnbᵀ) + α/B)·[C > 0] into ``g`` and
+    bf16(G) into ``gb``."""
+    z, rows, d = rbk.shape
+    _build.launch("sae_untied_bwd_bf16_dpre", rbk.data_ptr(),
+                  wnb.data_ptr(), c.data_ptr(), alphas.data_ptr(),
+                  g.data_ptr(), gb.data_ptr(), z, rows, wnb.shape[1], d,
+                  batch, coef, _build.stream_ptr(rbk))
+
+
+def untied_bwd_bf16_de(xbk, gb, de, first: bool) -> None:
+    """dE [Z, n, d] = (0 if first else dE) + Gbᵀ·xbk."""
+    z, n, d = de.shape
+    _build.launch("sae_untied_bwd_bf16_de", xbk.data_ptr(), gb.data_ptr(),
+                  de.data_ptr(), z, xbk.shape[0], n, d, int(first),
+                  _build.stream_ptr(xbk))
+
+
+def untied_bwd_bf16_dwn(cb, rbk, dwn, batch: int, first: bool, last: bool,
+                        coef: float) -> None:
+    """dWn [Z, n, d] = (0 if first else dWn) + Cbᵀ·rbk, times coef when
+    last."""
+    z, rows, d = rbk.shape
+    _build.launch("sae_untied_bwd_bf16_dwn", cb.data_ptr(), rbk.data_ptr(),
+                  dwn.data_ptr(), z, rows, dwn.shape[1], d, batch,
+                  int(first), int(last), coef, _build.stream_ptr(rbk))
+
+
+def _untied_bwd_bf16(encoder, decoder, bias, alphas, batch, resid):
+    """The bf16 form of :func:`sae_untied_bwd` on the card."""
+    n_members, n_feats, d = encoder.shape
+    b = batch.shape[0]
+    (de, dwn), db, act, csum, loss4, part = _bwd_outputs(
+        n_members, n_feats, d, 2, batch.device)
+    xb = bf16_operand(batch, "sae_untied_bwd_bf16_round")
+    eb = bf16_operand(encoder, "sae_untied_bwd_bf16_round")
+    rb = bf16_operand(resid, "sae_untied_bwd_bf16_round")
+    wnb = torch.empty(decoder.shape, dtype=_BF16, device=decoder.device)
+    chunks = bwd_chunks(n_members, b, n_feats, "bfloat16")
+    (c, g), (cb, gb) = _bf16_workspace(chunks, n_feats, batch.device)
+    coef = float(np.float32(2.0 / (b * d)))
+    untied_bwd_bf16_norms(decoder, wnb)
+    for m_lo, m_hi, b_lo, b_hi in chunks:
+        ms, rs = slice(m_lo, m_hi), slice(b_lo, b_hi)
+        first, last = b_lo == 0, b_hi == b
+        untied_bwd_bf16_codes(xb[rs], eb[ms], bias[ms], c, cb)
+        untied_bwd_bf16_dpre(rb[ms, rs], wnb[ms], c, alphas[ms], g, gb, b,
+                             coef)
+        untied_bwd_bf16_de(xb[rs], gb, de[ms], first)
+        untied_bwd_bf16_dwn(cb, rb[ms, rs], dwn[ms], b, first, last, coef)
+        _build.launch("sae_untied_bwd_bf16_sums", c.data_ptr(), g.data_ptr(),
+                      db[ms].data_ptr(), act[ms].data_ptr(),
+                      csum[ms].data_ptr(), m_hi - m_lo, b_hi - b_lo,
+                      n_feats, int(first), _build.stream_ptr(db))
+    _build.launch("sae_untied_bwd_bf16_loss", resid.data_ptr(),
+                  de.data_ptr(), dwn.data_ptr(), db.data_ptr(),
+                  act.data_ptr(), csum.data_ptr(), alphas.data_ptr(),
+                  part.data_ptr(), loss4.data_ptr(), n_members, b, n_feats,
+                  d, LOSS_SLICES, _build.stream_ptr(resid))
+    _build.LAUNCHES["sae_untied_bwd_bf16"] += 1
+    return de, dwn, db, act, loss4
+
+
 def sae_untied_bwd(encoder: torch.Tensor, decoder: torch.Tensor,
                    bias: torch.Tensor, alphas: torch.Tensor,
-                   batch: torch.Tensor, resid: torch.Tensor):
+                   batch: torch.Tensor, resid: torch.Tensor,
+                   compute_dtype: str = "float32"):
     """See :func:`sae_untied_bwd_plain` for the outputs. CUDA: the decoder's
     row norms, then per chunk of :func:`bwd_chunks` the launches
     ``untied_bwd_codes``, ``_dpre``, ``_de``, ``_dwn``, ``_sums`` in order,
-    then ``untied_bwd_loss``; counts one ``sae_untied_bwd`` call. CPU: the
-    same chunk schedule in plain torch."""
+    then ``untied_bwd_loss``; counts one ``sae_untied_bwd`` call. bf16
+    compute: the bf16 form, ``sae_untied_bwd_bf16`` (the fp32 batch, the
+    raw encoder and the residual rounded once, the rounded normalized
+    decoder, the five chunk launches and the loss). CPU: the same chunk
+    schedule in plain torch."""
     n_members, n_feats, d, b = _untied_shapes(encoder, decoder, bias, batch)
+    _check_compute_dtype(compute_dtype)
     _bwd_checks(n_members, b, d, alphas, resid)
     if _on_cpu("sae_untied_bwd", encoder, decoder, bias, alphas, batch,
                resid):
         return _untied_bwd_chunked_plain(encoder, decoder, bias, alphas,
-                                         batch, resid)
-    _kernel_tensors("sae_untied_bwd", b, n_feats, d, encoder=encoder,
-                    decoder=decoder, bias=bias, alphas=alphas, batch=batch,
-                    resid=resid)
-    kw = {"dtype": torch.float32, "device": batch.device}
-    de = torch.empty((n_members, n_feats, d), **kw)
-    dwn = torch.empty((n_members, n_feats, d), **kw)
-    db, act, csum, nrm = (torch.empty((n_members, n_feats), **kw)
-                          for _ in range(4))
-    loss4 = torch.empty((n_members, 4), **kw)
-    part = torch.empty((n_members, LOSS_SLICES, 2), **kw)
+                                         batch, resid, compute_dtype)
+    _kernel_tensors("sae_untied_bwd", b, n_feats, d, compute_dtype,
+                    encoder=encoder, decoder=decoder, bias=bias,
+                    alphas=alphas, batch=batch, resid=resid)
+    if compute_dtype == "bfloat16":
+        return _untied_bwd_bf16(encoder, decoder, bias, alphas, batch, resid)
+    (de, dwn), db, act, csum, loss4, part = _bwd_outputs(
+        n_members, n_feats, d, 2, batch.device)
+    nrm = torch.empty((n_members, n_feats), dtype=torch.float32,
+                      device=batch.device)
     chunks = bwd_chunks(n_members, b, n_feats)
     ws = torch.empty((2, max((mh - ml) * (bh - bl) for ml, mh, bl, bh
-                             in chunks) * n_feats), **kw)
+                             in chunks) * n_feats), dtype=torch.float32,
+                     device=batch.device)
     c, g = ws[0], ws[1]
     coef = float(np.float32(2.0 / (b * d)))
     untied_bwd_norms(decoder, nrm)
@@ -727,15 +1108,110 @@ def one_chunk_launches(kernel: str, encoder: torch.Tensor, bias: torch.Tensor,
                                     part, loss4), 0.0)}
 
 
+def one_chunk_launches_bf16(kernel: str, encoder: torch.Tensor,
+                            bias: torch.Tensor, batch: torch.Tensor, *,
+                            decoder: Optional[torch.Tensor] = None,
+                            alphas: Optional[torch.Tensor] = None,
+                            resid: Optional[torch.Tensor] = None) -> dict:
+    """:func:`one_chunk_launches` for the bf16 forms (``sae_tied_fwd_bf16``,
+    ``sae_tied_bwd_bf16``, ``sae_untied_fwd_bf16``, ``sae_untied_bwd_bf16``):
+    {part: (launch, FLOPs)} on one chunk of every member and row, in the
+    order a call runs them. The first, ``<kernel>_round``, runs all of the
+    call's roundings to bf16 (the fp32 batch; the raw untied encoder; a
+    backward's residual); the products read what it wrote."""
+    n_m, n, d = encoder.shape
+    b = batch.shape[0]
+    dev = batch.device
+    bf = lambda *shape: torch.empty(shape, dtype=_BF16, device=dev)
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    gemm = 2.0 * n_m * b * n * d
+    tied = kernel.startswith("sae_tied_")
+    fwd = kernel in ("sae_tied_fwd_bf16", "sae_untied_fwd_bf16")
+    if not fwd and kernel not in ("sae_tied_bwd_bf16", "sae_untied_bwd_bf16"):
+        raise ValueError(f"{kernel} is not a chunked ensemble kernel's bf16 "
+                         "form")
+    rounded = []  # (fp32 source, bf16 copy) of each rounding of a call
+    copy = lambda t: (t if t.dtype == _BF16 else
+                      rounded.append((t, bf(*t.shape))) or rounded[-1][1])
+    xb = copy(batch)
+    eb = None if tied else copy(encoder)
+    rb = None if fwd else copy(resid)
+
+    def round_all():
+        for src, dst in rounded:
+            _build.launch(f"{kernel}_round", src.data_ptr(), dst.data_ptr(),
+                          src.numel(), _build.stream_ptr(src))
+
+    wb = bf(n_m, n, d)
+    src = encoder if tied else decoder
+    parts = {f"{kernel}_round": (round_all, 0.0), f"{kernel}_norms": (
+        lambda: _build.launch(f"{kernel}_norms", src.data_ptr(),
+                              wb.data_ptr(), n_m * n, d,
+                              _build.stream_ptr(wb)), 0.0)}
+    if fwd:
+        ct, r = bf(n_m * n * b), f32(n_m, b, d)
+        decode = tied_fwd_bf16_decode if tied else untied_fwd_bf16_decode
+        parts[f"{kernel}_codes"] = (
+            (lambda: tied_fwd_bf16_codes(xb, wb, bias, None, ct)) if tied
+            else (lambda: untied_fwd_bf16_codes(xb, eb, bias, ct)), gemm)
+        parts[f"{kernel}_decode"] = (lambda: decode(ct, wb, batch, r, b),
+                                     gemm)
+        return parts
+    c, g, cb, gb = f32(n_m, b, n), f32(n_m, b, n), bf(n_m, b, n), bf(n_m, b, n)
+    (w1, *w2), db, act, csum, loss4, part = _bwd_outputs(
+        n_m, n, d, 1 if tied else 2, dev)
+    coef = float(np.float32(2.0 / (b * d)))
+    if tied:
+        parts.update({
+            f"{kernel}_codes": (
+                lambda: tied_bwd_bf16_codes(xb, wb, bias, None, c, cb), gemm),
+            f"{kernel}_dpre": (
+                lambda: tied_bwd_bf16_dpre(rb, wb, c, alphas, g, gb, b, coef),
+                gemm),
+            f"{kernel}_dwx": (lambda: tied_bwd_bf16_dwx(xb, gb, w1, True),
+                              gemm),
+            f"{kernel}_dwr": (
+                lambda: tied_bwd_bf16_dwr(cb, rb, w1, b, coef), gemm)})
+    else:
+        parts.update({
+            f"{kernel}_codes": (
+                lambda: untied_bwd_bf16_codes(xb, eb, bias, c, cb), gemm),
+            f"{kernel}_dpre": (
+                lambda: untied_bwd_bf16_dpre(rb, wb, c, alphas, g, gb, b,
+                                             coef), gemm),
+            f"{kernel}_de": (lambda: untied_bwd_bf16_de(xb, gb, w1, True),
+                             gemm),
+            f"{kernel}_dwn": (
+                lambda: untied_bwd_bf16_dwn(cb, rb, w2[0], b, True, True,
+                                            coef), gemm)})
+    grads = (w1.data_ptr(), *(t.data_ptr() for t in w2))
+    parts[f"{kernel}_sums"] = (lambda: _build.launch(
+        f"{kernel}_sums", c.data_ptr(), g.data_ptr(), db.data_ptr(),
+        act.data_ptr(), csum.data_ptr(), n_m, b, n, 1,
+        _build.stream_ptr(db)), 0.0)
+    parts[f"{kernel}_loss"] = (lambda: _build.launch(
+        f"{kernel}_loss", resid.data_ptr(), *grads, db.data_ptr(),
+        act.data_ptr(), csum.data_ptr(), alphas.data_ptr(), part.data_ptr(),
+        loss4.data_ptr(), n_m, b, n, d, LOSS_SLICES,
+        _build.stream_ptr(resid)), 0.0)
+    return parts
+
+
 # --- K3 and K7 contracts ------------------------------------------------------
 
-def _check_unported(total_batch, batch_rows, compute_dtype):
-    if compute_dtype != "float32":
+def _check_unported(total_batch, batch_rows, compute_dtype,
+                    ported=COMPUTE_DTYPES, later: str = ""):
+    """Raise NotImplementedError for a compute dtype outside ``ported``
+    (``later`` names the ROADMAP item that ports it) and for data-sharded
+    calls (total_batch != batch), which wait for the multi-GPU slice."""
+    if compute_dtype not in ported:
         raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: only float32 is ported")
+            f"compute_dtype={compute_dtype!r}: these kernels take "
+            f"{' or '.join(ported)}" + (f"; {later}" if later else ""))
     if total_batch is not None and total_batch != batch_rows:
-        raise NotImplementedError("total_batch != batch (data-sharded "
-                                  "calls) waits for the multi-GPU slice")
+        raise NotImplementedError(
+            "total_batch != batch (data-sharded calls) waits for the "
+            "multi-GPU slice (ROADMAP.md queue 1, item 11)")
 
 
 def _check_tiles(b, n_feats, batch_tile, feat_tile):
@@ -760,8 +1236,9 @@ def _tiled_grads(fwd, bwd, encoder, bias, alphas, batch, batch_tile,
     _check_unported(total_batch, b, compute_dtype)
     _check_tiles(b, n_feats, batch_tile, feat_tile)
     cm = _float_mask(coef_mask)
-    resid = fwd(encoder, bias, batch, cm)
-    dw, db, act, loss4 = bwd(encoder, bias, alphas, batch, resid, cm)
+    resid = fwd(encoder, bias, batch, cm, compute_dtype)
+    dw, db, act, loss4 = bwd(encoder, bias, alphas, batch, resid, cm,
+                             compute_dtype)
     return _losses(loss4), dw, db, act, loss4[:, 3]
 
 
@@ -797,9 +1274,9 @@ def _tiled_untied_grads(fwd, bwd, encoder, decoder, bias, alphas, batch,
     _, n_feats, _, b = _untied_shapes(encoder, decoder, bias, batch)
     _check_unported(total_batch, b, compute_dtype)
     _check_tiles(b, n_feats, batch_tile, feat_tile)
-    resid = fwd(encoder, decoder, bias, batch)
+    resid = fwd(encoder, decoder, bias, batch, compute_dtype)
     de, dwn, db, act, loss4 = bwd(encoder, decoder, bias, alphas, batch,
-                                  resid)
+                                  resid, compute_dtype)
     return _losses(loss4), de, dwn, db, act, loss4[:, 3]
 
 
@@ -830,13 +1307,18 @@ def tiled_untied_sae_grads_plain(encoder, decoder, bias, alphas, batch,
 # --- producer-level wrappers (ensemble entry points) -------------------------
 
 def prepare_tiled_batch(batch: torch.Tensor, n_feats: int,
-                        batch_tile: Optional[int], feat_tile: Optional[int]
+                        batch_tile: Optional[int], feat_tile: Optional[int],
+                        compute_dtype: str = "float32"
                         ) -> tuple[torch.Tensor, int, int]:
-    """The kernels' input contract: a contiguous float32 batch (every
-    other dtype is cast; half-width streams are later work) and a (batch,
-    feature) tile pair — the kernels' own tiles unless the caller pins
-    one — that divides both axes."""
-    batch = batch.to(torch.float32).contiguous()
+    """The kernels' input contract: a contiguous batch — a bf16 one as it
+    is under bf16 compute (the products read it directly, and its fp32
+    value, exact, feeds r), float32 otherwise (every other dtype is cast;
+    the fp32 kernels read fp32) — and a (batch, feature) tile pair — the
+    kernels' own tiles unless the caller pins one — that divides both
+    axes."""
+    if not (compute_dtype == "bfloat16" and batch.dtype == _BF16):
+        batch = batch.to(torch.float32)
+    batch = batch.contiguous()
     bt = batch_tile or _build.BATCH_TILE
     ft = feat_tile or _build.FEAT_TILE
     if batch.shape[0] % bt or n_feats % ft:
@@ -859,7 +1341,7 @@ def fused_tied_sae_tiled_loss_and_grads(
 
     e = params_stacked["encoder"]
     batch, bt, ft = prepare_tiled_batch(batch, e.shape[1], batch_tile,
-                                        feat_tile)
+                                        feat_tile, compute_dtype)
     losses, dw, db, activity, grad_sq = tiled_tied_sae_grads(
         e, params_stacked["encoder_bias"], alphas, batch, batch_tile=bt,
         feat_tile=ft, total_batch=total_batch, compute_dtype=compute_dtype,
@@ -886,7 +1368,7 @@ def fused_untied_sae_tiled_loss_and_grads(
     e, dec = params_stacked["encoder"], params_stacked["decoder"]
     bias = params_stacked["encoder_bias"]
     batch, bt, ft = prepare_tiled_batch(batch, e.shape[1], batch_tile,
-                                        feat_tile)
+                                        feat_tile, compute_dtype)
     losses, de, dwn, db, activity, grad_sq = tiled_untied_sae_grads(
         e, dec, bias, alphas, batch, batch_tile=bt, feat_tile=ft,
         total_batch=total_batch, compute_dtype=compute_dtype)

@@ -15,9 +15,14 @@ from sparse_coding_tpu_torch.ensemble import EnsembleState, split_buffers
 
 def _tensor(v, device) -> torch.Tensor:
     """A numpy leaf as a tensor of the dtype the port keeps: floating
-    leaves become float32, integer leaves int32, and bool stays bool (the
-    masked family's ``coef_mask``)."""
+    leaves become float32, integer leaves int32, bool stays bool (the
+    masked family's ``coef_mask``) and bfloat16 stays bfloat16 (the
+    half-width Adam moments of ``fused_moments_dtype="bfloat16"``; numpy
+    has no bfloat16 of its own, so the bits go across as int16)."""
     a = np.array(v)
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.view(np.int16), device=device).view(
+            torch.bfloat16)
     if np.issubdtype(a.dtype, np.floating):
         a = a.astype(np.float32)
     elif np.issubdtype(a.dtype, np.integer):

@@ -53,7 +53,33 @@ SUFFIX = ".tensors"
 MAGIC = b"SCTENSOR"
 _HEADER_LEN = struct.Struct("<Q")
 _DTYPES = {torch.float32: "float32", torch.int32: "int32",
-           torch.bool: "bool", torch.int64: "int64"}  # what a state holds
+           torch.bool: "bool", torch.int64: "int64",
+           torch.bfloat16: "bfloat16"}  # what a state holds
+# numpy has no bfloat16: a bf16 leaf crosses to the host as its 16-bit
+# patterns, in a uint16 dtype tagged so that the header names it
+_BF16_BITS = np.dtype(np.uint16, metadata={"dtype": "bfloat16"})
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A host tensor's numpy view, bf16 as its tagged bit patterns."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_BF16_BITS)
+    return t.numpy()
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    return (a.dtype.metadata or {}).get("dtype", a.dtype.name)
+
+
+def _np_dtype(name: str) -> np.dtype:
+    return _BF16_BITS if name == "bfloat16" else np.dtype(name)
+
+
+def _from_host(a: np.ndarray) -> torch.Tensor:
+    """The tensor of a decoded leaf (bf16 from its bit patterns)."""
+    if _dtype_name(a) == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 register_fault_site("ckpt.save", "checkpoint save (utils/checkpoint.py)")
 register_fault_site("ckpt.restore", "checkpoint restore (utils/checkpoint.py)")
@@ -72,14 +98,14 @@ def _leaves(state) -> dict[str, torch.Tensor]:
 
 
 def _host_arrays(leaves: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
-    return {k: t.detach().cpu().contiguous().numpy()
+    return {k: host_array(t.detach().cpu().contiguous())
             for k, t in leaves.items()}
 
 
 def _header(arrays: dict[str, np.ndarray]) -> bytes:
     entries, offset = [], 0
     for key, a in arrays.items():
-        entries.append({"key": key, "dtype": a.dtype.name,
+        entries.append({"key": key, "dtype": _dtype_name(a),
                         "shape": list(a.shape), "offset": offset})
         offset += a.nbytes
     head = json.dumps({"format": 1, "leaves": entries},
@@ -121,7 +147,7 @@ def _decode(payload) -> dict[str, np.ndarray]:
     base = at + n
     out = {}
     for leaf in head["leaves"]:
-        dt = np.dtype(leaf["dtype"])
+        dt = _np_dtype(leaf["dtype"])
         count = int(np.prod(leaf["shape"], dtype=np.int64))
         arr = np.frombuffer(payload, dtype=dt, count=count,
                             offset=base + int(leaf["offset"]))
@@ -188,12 +214,12 @@ def restore_ensemble(ens: Ensemble, path: str | Path) -> dict:
                 loaded[key] = torch.ones_like(t)
                 continue
             a = arrays[key]
-            if tuple(a.shape) != tuple(t.shape) or a.dtype != np.dtype(
-                    _DTYPES[t.dtype]):
-                raise ValueError(f"{key}: {a.dtype}{list(a.shape)} where "
-                                 f"the ensemble holds {t.dtype}"
+            if (tuple(a.shape) != tuple(t.shape)
+                    or _dtype_name(a) != _DTYPES[t.dtype]):
+                raise ValueError(f"{key}: {_dtype_name(a)}{list(a.shape)} "
+                                 f"where the ensemble holds {t.dtype}"
                                  f"{list(t.shape)}")
-            loaded[key] = torch.from_numpy(a).to(t.device)
+            loaded[key] = _from_host(a).to(t.device)
     except (ValueError, KeyError, TypeError, struct.error) as e:
         raise CheckpointCorruptionError(
             path, f"payload does not load: {e}") from e

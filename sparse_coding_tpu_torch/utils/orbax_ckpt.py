@@ -44,6 +44,7 @@ from sparse_coding_tpu_torch.utils.checkpoint import (
     _leaves,
     _state_meta,
     _write_checkpoint,
+    host_array,
     restore_ensemble,
 )
 
@@ -79,7 +80,7 @@ def _snapshot(leaves: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
         host[key] = buf
     if stream is not None:
         stream.synchronize()
-    return {key: buf.numpy() for key, buf in host.items()}
+    return {key: host_array(buf) for key, buf in host.items()}
 
 
 def _write(path: Path, arrays: dict[str, np.ndarray], state_meta: dict,

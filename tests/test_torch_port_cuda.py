@@ -213,7 +213,7 @@ def _check_fwd(kernel, fwd, plain, n_chunks):
     torch.cuda.synchronize()
     _close(got, want, 1e-5)
     assert torch.equal(got, again)
-    parts = [k for k in _build.LAUNCHES if k.startswith(kernel + "_")]
+    parts = list(_build._PARTS[kernel])
     assert len(parts) == 3
     assert _build.LAUNCHES[kernel] == 2
     assert {k: _build.LAUNCHES[k] for k in parts} == {
@@ -627,3 +627,142 @@ def test_big_sae_wrappers_refuse_what_the_kernels_do_not_take(card):
         fb.big_sae_forward(p, x.half())
     with pytest.raises(ValueError, match="no kernel tiles"):
         fb.fused_big_sae_loss_and_grads(p, x[:48], 1e-3, False)
+
+
+# --- the bf16 forms (compute_dtype="bfloat16", bf16 Adam moments) -------------
+# Each against its plain bf16 version (the same operands rounded at the same
+# points, fp32 products summed in another order): rtol 1e-3 of max|ref| —
+# a code or dpre within that rounding of a bf16 rounding boundary rounds to
+# the neighbouring bf16 on one side (chip_smoke.py's RTOL_BF16) — and
+# activity exact at these shapes.
+
+BF16 = "bfloat16"
+BF16_SHAPES = [(3, 96, 96, 40), (2, 64, 64, 600), (2, 32, 64, 768)]
+
+
+def _bf16_fwd_bwd(i, family, plain=False, x=None):
+    e, bias, al = i["e"], i["bias"], i["alphas"]
+    x = i["x"] if x is None else x
+    if family == "untied":
+        fwd, bwd = ((ft.sae_untied_fwd_plain, ft.sae_untied_bwd_plain)
+                    if plain else (ft.sae_untied_fwd, ft.sae_untied_bwd))
+        return (lambda: fwd(e, i["dec"], bias, x, BF16),
+                lambda r: bwd(e, i["dec"], bias, al, x, r, BF16))
+    cm = i["cm"] if family == "masked_tied" else None
+    fwd, bwd = ((ft.sae_tied_fwd_plain, ft.sae_tied_bwd_plain) if plain
+                else (ft.sae_tied_fwd, ft.sae_tied_bwd))
+    return (lambda: fwd(e, bias, x, cm, BF16),
+            lambda r: bwd(e, bias, al, x, r, cm, BF16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("shape", BF16_SHAPES, ids=str)
+def test_bf16_fwd_and_bwd_kernels_match_plain(card, shape, family,
+                                              batch_dtype):
+    """The bf16 forms of the forwards and backwards against their plain
+    bf16 versions, with fp32 and bf16 batches; each form launches once a
+    call and no fp32 form launches; two calls give the same bits."""
+    i = _inputs(card, *shape)
+    x = i["x"] if batch_dtype == "float32" else i["x"].to(torch.bfloat16)
+    kfwd, kbwd = _bf16_fwd_bwd(i, family, x=x)
+    pfwd, pbwd = _bf16_fwd_bwd(i, family, plain=True, x=x)
+    _build.reset_launches()
+    r = kfwd()
+    got = kbwd(r)
+    torch.cuda.synchronize()
+    base = "sae_untied" if family == "untied" else "sae_tied"
+    assert _build.LAUNCHES[f"{base}_fwd_bf16"] == 1
+    assert _build.LAUNCHES[f"{base}_bwd_bf16"] == 1
+    assert _build.LAUNCHES[f"{base}_fwd"] == _build.LAUNCHES[f"{base}_bwd"] == 0
+    _close(r, pfwd(), 1e-3)
+    ref = pbwd(r)
+    k = len(got) - 3
+    for g, rf in zip(got[:k + 1], ref[:k + 1]):
+        _close(g, rf, 1e-3)
+    assert torch.equal(got[k + 1], ref[k + 1])
+    _close(got[k + 2], ref[k + 2], 1e-3)
+    again = kbwd(kfwd())
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+# (members, batch, n, d, members a chunk, rows a chunk) under a lowered
+# workspace cap: member chunks, and row chunks of one member
+BF16_CHUNK_CASES = [(5, 64, 96, 304, 2, 64), (3, 32, 64, 768, 2, 32),
+                    (3, 160, 64, 40, 1, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "untied"])
+@pytest.mark.parametrize("case", BF16_CHUNK_CASES, ids=str)
+def test_bf16_bwd_chunks_match_plain(card, monkeypatch, tied, case):
+    """The bf16 backwards in several member and row chunks (the workspace
+    cap lowered; 12 bytes a code) against their plain bf16 versions, each
+    part launched once a chunk (the rounding passes, norms and loss once
+    a call)."""
+    n_m, b, n, d, z, rows = case
+    monkeypatch.setattr(ft, "WORKSPACE_BYTES", 12 * n * z * rows)
+    chunks = ft.bwd_chunks(n_m, b, n, BF16)
+    assert len(chunks) >= 2
+    i = _inputs(card, n_m, b, n, d, seed=2)
+    family = "tied" if tied else "untied"
+    kfwd, kbwd = _bf16_fwd_bwd(i, family)
+    pfwd, pbwd = _bf16_fwd_bwd(i, family, plain=True)
+    r = pfwd()
+    _build.reset_launches()
+    got = kbwd(r)
+    torch.cuda.synchronize()
+    ref = pbwd(r)
+    k = len(got) - 3
+    for g, rf in zip(got[:k + 1], ref[:k + 1]):
+        _close(g, rf, 1e-3)
+    assert torch.equal(got[k + 1], ref[k + 1])
+    parts = _build.TIED_BWD_BF16_PARTS if tied else _build.UNTIED_BWD_BF16_PARTS
+    rounds = 2 if tied else 3  # x and r (and the raw untied encoder)
+    once = {p: 1 for p in parts if p.endswith(("_norms", "_loss"))}
+    want = {p: once.get(p, len(chunks)) for p in parts}
+    want[parts[0]] = rounds
+    assert {p: _build.LAUNCHES[p] for p in parts} == want
+
+
+@pytest.mark.cuda
+def test_bf16_moment_epilogues_match_plain(card):
+    """The Adam epilogues with bf16 moments against their plain versions:
+    params within rtol 1e-5, each moment within one bf16 ulp (at most 2⁻⁷
+    of it) plus 1e-5 of max|ref| (the fp32 moments a few ulps apart may
+    round to neighbouring bf16 values), the moments returned bf16."""
+    i = _inputs(card, 3, 64, 96, 40)
+    h = lambda t: t.to(torch.bfloat16)
+    args = (i["e"], i["dw"], h(i["mu"]), h(i["nu"]), i["lrs"], i["bc1"],
+            i["bc2"])
+    uargs = (i["e"], i["dw"], h(i["mu"]), h(i["nu"]), i["dec"], i["dw"],
+             h(i["mu"]), h(i["nu"]), i["lrs"], i["bc1"], i["bc2"])
+    _build.reset_launches()
+    got = fs.sae_tied_adam_vjp(*args)
+    ugot = fs.sae_untied_adam_vjp(*uargs)
+    assert _build.LAUNCHES["sae_tied_adam_vjp_bf16"] == 1
+    assert _build.LAUNCHES["sae_untied_adam_vjp_bf16"] == 1
+    assert _build.LAUNCHES["sae_tied_adam_vjp"] == 0
+    for g, rf in ((got[:4], fs.sae_tied_adam_vjp_plain(*args)[:4]),
+                  (ugot, fs.sae_untied_adam_vjp_plain(*uargs))):
+        for a, b in zip(g, rf):
+            assert a.dtype == b.dtype
+            if a.dtype == torch.bfloat16:
+                bound = (b.float().abs() * 2.0**-7
+                         + 1e-5 * float(b.float().abs().max()))
+                assert bool(((a.float() - b.float()).abs() <= bound).all())
+            else:
+                _close(a, b, 1e-5)
+
+
+@pytest.mark.cuda
+def test_bf16_forms_refuse_what_they_do_not_take(card):
+    """d must divide by 8 under bf16 compute (ValueError before any
+    launch), and the moments must share one dtype."""
+    i = _inputs(card, 2, 64, 64, 36)
+    with pytest.raises(ValueError, match="d % 8"):
+        ft.sae_tied_fwd(i["e"], i["bias"], i["x"], None, BF16)
+    with pytest.raises(ValueError, match="moments must"):
+        fs.sae_tied_adam_vjp(i["e"], i["dw"], i["mu"].to(torch.bfloat16),
+                             i["nu"], i["lrs"], i["bc1"], i["bc2"])

@@ -211,13 +211,74 @@ def test_no_card_means_the_entry_point_raises():
 
 
 def test_unported_options_raise():
+    """An option value the port has no kernels for raises: a compute dtype
+    other than float32 or bfloat16 (bfloat16 is ported:
+    test_bf16_trajectory_and_sentinel_match_jax and
+    tests/test_torch_port_bf16.py), a moments dtype other than those two
+    (the JAX package's ValueError), an unknown path."""
     members = members_from_numpy(jax.device_get(_jax_members()))
-    for kw in (dict(fused_compute_dtype="bfloat16"),
-               dict(fused_moments_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
-            Ensemble(members, FunctionalTiedSAE, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="float16"):
+        Ensemble(members, FunctionalTiedSAE, device="cpu",
+                 fused_compute_dtype="float16")
+    with pytest.raises(ValueError, match="must be 'float32' or 'bfloat16'"):
+        Ensemble(members, FunctionalTiedSAE, device="cpu",
+                 fused_moments_dtype="float16", fused_path="train_step")
     with pytest.raises(ValueError, match="fused_path must be"):
         Ensemble(members, FunctionalTiedSAE, device="cpu", fused_path="fast")
+
+
+BF16_OPTS = dict(fused_compute_dtype="bfloat16",
+                 fused_moments_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("family", ["tied", "untied"])
+def test_bf16_trajectory_and_sentinel_match_jax(family):
+    """The bf16 options, which raised before they were ported, on the
+    default path (train_step_tiled) with bf16 batches: 6 steps track the
+    JAX Ensemble (losses rtol 1e-4, params within 1e-3 of max|ref| —
+    tests/test_torch_port_bf16.py states these bounds), the encoder and
+    decoder moments stay bf16; then the sentinel freezes a NaN member and
+    a quarantined one bit for bit, bf16 moments included."""
+    jm = _jax_members(family, **INIT_KW[family])
+    jens = JaxEnsemble(jm, SIGS[family][0], lr=LRS, donate=False,
+                       use_fused=True, fused_interpret=True,
+                       fused_path="train_step_tiled",
+                       fused_batch_tile=BATCH_TILE,
+                       fused_feat_tile=FEAT_TILE, **BF16_OPTS)
+    tens = Ensemble(members_from_numpy(jax.device_get(jm)), SIGS[family][1],
+                    lr=LRS, device="cpu", use_fused=True,
+                    fused_path="train_step_tiled", **BF16_OPTS)
+    data = batches(seed=1, n=8)
+    half = lambda b: jax.numpy.asarray(b).astype(jax.numpy.bfloat16)
+    for i, b in enumerate(data[:6]):
+        ja = jens.step_batch(half(b))
+        ta = tens.step_batch(torch.from_numpy(
+            np.array(half(b).astype(np.float32))).to(torch.bfloat16))
+        np.testing.assert_allclose(ta.losses["loss"].numpy(),
+                                   np.asarray(ja.losses["loss"]), rtol=1e-4,
+                                   err_msg=f"step {i}")
+    s = jax.device_get(jens.state)
+    for k, v in tens.state.params.items():
+        err = np.abs(v.numpy() - s.params[k]).max()
+        assert err <= 1e-3 * np.abs(s.params[k]).max(), k
+        want = torch.bfloat16 if k in ("encoder", "decoder") else torch.float32
+        assert tens.state.mu[k].dtype == tens.state.nu[k].dtype == want, k
+
+    alphas = tens.state.buffers["l1_alpha"].clone()
+    alphas[1] = float("nan")
+    tens.state = tens.state.replace(
+        buffers={**tens.state.buffers, "l1_alpha": alphas})
+    tens.freeze_members([2])
+    before = {t: {k: v.clone() for k, v in getattr(tens.state, t).items()}
+              for t in ("params", "mu", "nu")}
+    for b in data[6:]:
+        ta = tens.step_batch(torch.from_numpy(b).to(torch.bfloat16))
+    np.testing.assert_array_equal(ta.finite.numpy(), [True, False, True])
+    for t, tree in before.items():
+        for k, v in getattr(tens.state, t).items():
+            for m in (1, 2):
+                assert torch.equal(v[m], tree[k][m]), (t, k, m)
+            assert not torch.equal(v[0], tree[k][0]), (t, k)
 
 
 @pytest.mark.parametrize("path", ["train_step", "train_step_tiled"])

@@ -54,7 +54,17 @@ def _reads(registry) -> dict:
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16-bits"])
-def test_read_npy_native_equals_np_load(tmp_path, dtype):
+def test_read_npy_native_equals_np_load(tmp_path, monkeypatch, dtype):
+    """The port's reader against np.load and the JAX package's reader,
+    bitwise. The JAX reader runs on the library the port built from the
+    same native/chunkio.cpp: its own loader compiles straight into
+    native/libchunkio.so, which another test process may be writing at
+    the same moment, and a half-written library leaves that process
+    without a reader for good. Pointed at a finished build, the JAX
+    module's get_lib loads it with its own argtypes and builds nothing."""
+    monkeypatch.setattr(jnio, "_LIB_PATH", tnio.library_path())
+    monkeypatch.setattr(jnio, "_lib", None)
+    monkeypatch.setattr(jnio, "_lib_failed", False)
     x = np.random.default_rng(1).normal(size=(1000, 24)).astype(np.float32)
     arr = (tcs._to_bf16_bits(x) if dtype == "bfloat16-bits"
            else x.astype(dtype))
@@ -64,6 +74,7 @@ def test_read_npy_native_equals_np_load(tmp_path, dtype):
     ref = np.load(path)
     assert got.dtype == ref.dtype and got.shape == ref.shape
     assert got.tobytes() == ref.tobytes()
+    assert jnio.get_lib() is not None
     assert got.tobytes() == jnio.read_npy_native(path).tobytes()
 
 

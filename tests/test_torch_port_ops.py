@@ -425,6 +425,74 @@ def test_one_chunk_launches_name_every_part_in_order(inp, kernel):
         ft.one_chunk_launches("big_sae_bwd", e, bias, x)
 
 
+@pytest.mark.parametrize("tiled", [False, True], ids=["k1_k5", "k3_k7"])
+@pytest.mark.parametrize("family,bias_decay", PRODUCER_CASES,
+                         ids=PRODUCER_IDS)
+def test_bf16_compute_producers_match_jax(inp, family, bias_decay, tiled):
+    """compute_dtype="bfloat16", which raised before it was ported, through
+    the producers the ensemble calls (two-stage and tiled, the
+    normalization VJP and the untied bias decay chained): losses rtol 1e-4
+    and grads wrt the raw params within 1e-3 of max|ref| of the JAX
+    producers in interpret mode (tests/test_torch_port_bf16.py states these
+    bounds; worst seen here 1.2e-5, losses 4.7e-7)."""
+    if tiled:
+        jf = (jft.fused_untied_sae_tiled_loss_and_grads if family == "untied"
+              else jft.fused_tied_sae_tiled_loss_and_grads)
+        tf = (ft.fused_untied_sae_tiled_loss_and_grads if family == "untied"
+              else ft.fused_tied_sae_tiled_loss_and_grads)
+        tiles = dict(batch_tile=BATCH_TILE, feat_tile=FEAT_TILE)
+    else:
+        jf = (jfs.fused_untied_sae_loss_and_grads if family == "untied"
+              else jfs.fused_tied_sae_loss_and_grads)
+        tf = (fs.fused_untied_sae_loss_and_grads if family == "untied"
+              else fs.fused_tied_sae_loss_and_grads)
+        tiles = dict(batch_tile=BATCH_TILE)
+    jargs, jkw = _producer_args(inp, family, bias_decay, _j)
+    targs, tkw = _producer_args(inp, family, bias_decay, _t)
+    ref = jf(*jargs, interpret=True, compute_dtype="bfloat16", **tiles,
+             **jkw)
+    got = tf(*targs, compute_dtype="bfloat16", **tiles, **tkw)
+    for k in ref[0]:
+        _close(got[0][k], ref[0][k], dict(rtol=1e-4), f"loss {k}")
+    for k in jargs[0]:
+        g, r = np.asarray(got[1][k]), np.asarray(ref[1][k])
+        assert np.abs(g - r).max() <= 1e-3 * np.abs(r).max(), k
+    np.testing.assert_array_equal(np.asarray(got[2]), np.asarray(ref[2]))
+
+
+BF16_FORMS = {
+    "sae_tied_fwd_bf16": ("codes", "decode"),
+    "sae_untied_fwd_bf16": ("codes", "decode"),
+    "sae_tied_bwd_bf16": ("codes", "dpre", "dwx", "dwr"),
+    "sae_untied_bwd_bf16": ("codes", "dpre", "de", "dwn"),
+}
+
+
+@pytest.mark.parametrize("kernel", list(BF16_FORMS))
+def test_one_chunk_launches_bf16_name_every_part_in_order(inp, kernel):
+    """one_chunk_launches_bf16 lists each part of a bf16 form once, in the
+    order of its _build tuple (the call's roundings first), with 2·N·B·n·d
+    FLOPs for a product and 0 for the other passes; building the list
+    launches nothing, and another kernel's name raises."""
+    _build.reset_launches()
+    e, dec, bias, al, x = (_t(inp[k]) for k in ("e", "dec", "bias",
+                                                 "alphas", "x"))
+    n_m, n, d = e.shape
+    b = x.shape[0]
+    got = ft.one_chunk_launches_bf16(kernel, e, bias, x, decoder=dec,
+                                     alphas=al, resid=torch.zeros((n_m, b, d)))
+    parts = _build._PARTS[kernel]
+    assert tuple(got) == parts and parts[0] == f"{kernel}_round"
+    gemm = 2.0 * n_m * b * n * d
+    assert {k: f for k, (_, f) in got.items()} == {
+        k: gemm if k[len(kernel) + 1:] in BF16_FORMS[kernel] else 0.0
+        for k in parts}
+    assert all(v == 0 for v in _build.LAUNCHES.values())
+    assert _build.LIBRARY_OF[parts[0]] == kernel[:-len("_bf16")]
+    with pytest.raises(ValueError, match="not a chunked"):
+        ft.one_chunk_launches_bf16("sae_tied_fwd", e, bias, x)
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch(inp):
     """On CPU tensors every wrapper returns its plain version's result (the
     untied backward: its chunk schedule in plain torch, which
@@ -490,9 +558,12 @@ def test_shape_contract_raises(inp):
     with pytest.raises(ValueError, match="ftile"):
         fs.fused_adam_vjp_update(*uadam, ftile=48)
     with pytest.raises(NotImplementedError):
-        fs.fused_tied_sae_grads(e, bias, al, x, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError):
+        fs.fused_tied_sae_grads(e, bias, al, x, compute_dtype="float16")
+    with pytest.raises(NotImplementedError, match="item 11"):
         fs.fused_untied_sae_grads(e, dec, bias, al, x, total_batch=256)
+    with pytest.raises(ValueError, match="d % 8"):
+        _build.check_kernel_shape("sae_tied_fwd", 128, 64, 36, "bfloat16")
+    _build.check_kernel_shape("sae_tied_fwd", 128, 64, 36)
 
 
 def test_roofline_paths_and_flop_model():
