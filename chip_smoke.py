@@ -9,8 +9,8 @@ Phases — any failure raises, and the script exits non-zero with no result:
    source, all started together), with their ptxas register and spill
    lines — every instantiation of the fp32 GEMM template among them (in
    big_sae_fwd, big_sae_bwd, sae_tied_fwd, sae_tied_bwd, sae_untied_fwd
-   and sae_untied_bwd) and of the bf16 tensor-core one (in the four
-   ensemble forwards and backwards), where any spill fails the run;
+   and sae_untied_bwd) and of the bf16 tensor-core one (in the same six),
+   where any spill fails the run;
 2. kernels: each ensemble kernel (sae_tied_fwd, sae_tied_bwd,
    sae_tied_adam_vjp, sae_untied_fwd, sae_untied_bwd, sae_untied_adam_vjp)
    and each contract
@@ -103,7 +103,28 @@ Phases — any failure raises, and the script exits non-zero with no result:
    bf16 moments on ``train_step_tiled``, the masked family's two), three
    steps each with bf16 batches: each bf16 form once a step, finite
    losses;
-11. summary: one ``{"kernels": [...]}`` line, the card's name and power
+11. bf16 compute in the big SAE (``make_big_sae_step(
+   fused_compute_dtype="bfloat16")``): (a) ``big_sae_fwd_bf16`` and
+   ``big_sae_bwd_bf16`` against their plain bf16 versions at d=40, 128,
+   640, 1024, a batch of several chunks under a lowered cap and under the
+   real one, and the main shape (phase 7's first batch), the untied and
+   the tied residual: the kernel's ReLU mask flips (counted against the
+   plain version's masks) at most one per million codes, dE within
+   RTOL_BF16 on the features without a flip, x̂, dWn, dt, dctr and
+   c_totals on all, l1 within RTOL_EXACT, l0 within the flips; two calls
+   bit-identical, peak memory beside the plain versions'; (b)
+   phase 7's 16 steps (same init, store, batch order, resurrection every
+   8) through ``make_big_sae_step(use_fused=True)`` in fp32 and in bf16:
+   each bf16 form once a step and no fp32 big-SAE kernel, finite losses,
+   each within RTOL_BIG_BF16_LOSS of the fp32 run's; (c) the JAX
+   package's ``bench_big_sae`` variants (autodiff, fused, fused_bf16) at
+   d=1024, n=16,384, batch 16,384 (15 iterations) and at the capacity
+   shape n=131,072 (5), activations/s from synced windows — an
+   out-of-memory error on autodiff is that variant's result; (d) each
+   bf16 form and each of its launches timed beside its plain version, the
+   bf16 step's ms and acts/s beside the fp32 step's; (e) the two forms
+   join the kernels line;
+12. summary: one ``{"kernels": [...]}`` line, the card's name and power
    limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds the four chunked ensemble kernels against their plain
@@ -2930,6 +2951,380 @@ def bf16_phase(x_main: torch.Tensor, batches: list, l1_values,
     return report
 
 
+# --- phase 11: bf16 compute in the big SAE ------------------------------------
+
+BIG_BF16_FORMS = {"big_sae_fwd_bf16": "big_sae_fwd",
+                  "big_sae_bwd_bf16": "big_sae_bwd"}
+# a batch of several K9 chunks with the workspace cap lowered to 64 rows
+# (12 bytes a code): 4 x 64 + 32
+BIG_BF16_LOWERED = (288, 64, 128, 64)  # (batch, n_feats, d, rows)
+# the JAX package's bench_big_sae variants (bench_suite.py:177-228):
+# (suite, d, n_feats, batch, iterations)
+BENCH_BIG_SHAPES = (("big_sae_train", 1024, 16384, 16384, 15),
+                    ("big_sae_train_capacity", 1024, 131072, 16384, 5))
+BENCH_BIG_VARIANTS = (("autodiff", {"use_fused": False}),
+                      ("fused", {"use_fused": True}),
+                      ("fused_bf16", {"use_fused": True,
+                                      "fused_compute_dtype": BF16}))
+# each step's loss on the bf16 kernels against the fp32 kernels' from the
+# same init on the same batches, |Δ|/loss: the JAX package's own
+# bf16-versus-f32 bound (tests/test_fused_big_sae.py:151-172)
+RTOL_BIG_BF16_LOSS = 2e-2
+
+
+def big_bf16_check(p: dict, x: torch.Tensor, tag: str) -> dict:
+    """big_sae_fwd_bf16 and big_sae_bwd_bf16 against their plain bf16
+    versions, the backward with the untied and the tied residual. The
+    kernel's ReLU masks (its codes launch over the whole batch: each code
+    is one thread's fixed-order sum, whatever the chunk) are counted
+    against the plain version's: at most FLIPS_PER_CODE a code. A flip at
+    (b, f) moves dE[:, f] by xc[b]·dpre[b, f], about 1e-3 of max|dE| at
+    these shapes, and everything else by far less (c is about 0 there; dt,
+    dctr and c_totals sum dpre of the size α/B); so dE is held on the
+    features without a flip, x̂, dWn, dt, dctr and c_totals on all, within
+    RTOL_BF16 of max|ref|; l1 within RTOL_EXACT; l0 within the flips."""
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    xc = (x - p["centering"]).contiguous()
+    alpha = torch.tensor(BIG_L1, device=DEV)
+    b, n = x.shape[0], p["dict"].shape[0]
+    rnd = lambda t: t.to(torch.bfloat16)
+    c = torch.empty((b, n), dtype=torch.float32, device=DEV)
+    cb = torch.empty((b, n), dtype=torch.bfloat16, device=DEV)
+    fb.bwd_bf16_codes(rnd(xc), rnd(p["encoder"]), p["threshold"], c, cb)
+    del cb
+    flip = (c > 0) != ((rnd(xc).float() @ rnd(p["encoder"]).float()
+                        + p["threshold"]) > 0)
+    del c
+    flips = int(flip.sum())
+    clean = ~flip.any(dim=0)  # [n]: features with no flip in any row
+    del flip
+    allowed = max(1.0, FLIPS_PER_CODE * b * n)
+    if flips > allowed:
+        raise AssertionError(f"{tag}: big_sae_bwd_bf16 flipped {flips} ReLU "
+                             f"masks (> {allowed:.0f})")
+    xhat_ref = fb.big_sae_forward_plain(p, xc, BF16)
+    out = {"big_sae_fwd_bf16": {"xhat": compare(
+        f"{tag}:big_sae_fwd_bf16.xhat",
+        fb.big_sae_forward(p, xc, compute_dtype=BF16), xhat_ref, RTOL_BF16)}}
+    errs = {}
+    for kind, r in (("untied", xhat_ref - x),
+                    ("tied", xhat_ref + p["centering"] - x)):
+        r = r.contiguous()
+        got = fb.big_sae_backward(p, alpha, xc, r, compute_dtype=BF16)
+        ref = fb.big_sae_backward_plain(p, alpha, xc, r, BF16)
+        errs[f"de_no_flip_{kind}"] = compare(
+            f"{tag}:big_sae_bwd_bf16.de ({kind} r, no flip)",
+            got[0][:, clean], ref[0][:, clean], RTOL_BF16)
+        for i, field in enumerate(("dwn", "dt", "dctr", "c_totals"), 1):
+            errs[f"{field}_{kind}"] = compare(
+                f"{tag}:big_sae_bwd_bf16.{field} ({kind} r)", got[i], ref[i],
+                RTOL_BF16)
+        errs[f"l1_{kind}"] = compare(f"{tag}:big_sae_bwd_bf16.l1 ({kind} r)",
+                                     got[5][0], ref[5][0], RTOL_EXACT)
+        errs[f"l0_{kind}"] = compare(f"{tag}:big_sae_bwd_bf16.l0 ({kind} r)",
+                                     got[5][1], ref[5][1], 0.0,
+                                     max(float(flips), 0.5))
+        del got, ref
+    errs.update(flips=flips, flips_allowed=allowed,
+                features_with_flips=int((~clean).sum()))
+    out["big_sae_bwd_bf16"] = errs
+    del xhat_ref, xc
+    sync()
+    torch.cuda.empty_cache()
+    for name, e in out.items():
+        worst = max(v["max_rel_err"] for k, v in e.items()
+                    if isinstance(v, dict) and not is_mask_count(k))
+        log(f"  {tag} {name}: ok, worst rel err {worst:.2e}"
+            + (f"; {flips} ReLU mask flips of {b * n} codes (allowed "
+               f"{allowed:.0f})" if name == "big_sae_bwd_bf16" else ""))
+    return out
+
+
+def big_bf16_launches(steps: int, batch: int = BIG_BATCH,
+                      n: int = BIG_N) -> dict:
+    """Every launch count after ``steps`` big-SAE steps on the bf16 forms at
+    (batch, n): each form once a step, its rounding passes once per rounded
+    tensor (xc, E, Wn; and r), its chunk launches once per chunk of its
+    bf16 schedule, dctr once; nothing else."""
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    n_fwd = len(fb.fwd_chunks(batch, n, BF16))
+    n_bwd = len(fb.bwd_chunks(batch, n, BF16))
+    want = {k: 0 for k in _build.LAUNCHES}
+    want.update({k: steps for k in BIG_BF16_FORMS})
+    want.update({k: steps * n_fwd for k in _build.BIG_FWD_BF16_PARTS})
+    want.update({k: steps * n_bwd for k in _build.BWD_BF16_PARTS})
+    want.update({"big_sae_fwd_bf16_round": 3 * steps,
+                 "big_sae_bwd_bf16_round": 4 * steps,
+                 "big_sae_bwd_bf16_dctr": steps})
+    return want
+
+
+def big_bf16_bounds(b: int, n: int, d: int, nnz: int) -> dict:
+    """Least time for each bf16 form's work, counted as the fp32 rows count
+    it (big_bounds: the encode product dense, the products over the codes
+    over this data's ``nnz`` active codes, each fp32 input read once and
+    each output written once), the products at the dense bf16 tensor-core
+    peak and the elementwise work at the fp32 one."""
+    fp32 = big_bounds(b, n, d, nnz)
+    enc, act = 2.0 * b * n * d, 2.0 * nnz * d
+    work = {"big_sae_fwd_bf16": (enc + act, 2.0 * b * n,
+                                 fp32["big_sae_fwd"]["bytes"]),
+            "big_sae_bwd_bf16": (enc + 3 * act, 6.0 * b * n,
+                                 fp32["big_sae_bwd"]["bytes"])}
+    out = {}
+    for name, (mma_ops, simt_ops, nbytes) in work.items():
+        t_ops = mma_ops / PEAK_BF16_FLOPS + simt_ops / PEAK_FP32_FLOPS
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        out[name] = {"bound_ms": 1e3 * max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes", "flops": mma_ops + simt_ops,
+                     "bytes": nbytes}
+    return out
+
+
+def big_bf16_extras(p: dict, x: torch.Tensor) -> dict:
+    """At the main shape: each bf16 form twice gives the same bits, one
+    call's peak memory beside its plain version's (the form's within its
+    outputs, Wn, the bf16 operands and its workspace), each form timed
+    beside its plain version in turns, and each of its launches timed alone
+    on the first chunk (fused_big_sae.one_chunk_launches)."""
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    xc = (x - p["centering"]).contiguous()
+    b, d = xc.shape
+    n = p["dict"].shape[0]
+    r = (fb.big_sae_forward_plain(p, xc, BF16) - x).contiguous()
+    alpha = torch.tensor(BIG_L1, device=DEV)
+    fwd_ws = 2 * fb.fwd_chunk_rows(b, n, BF16) * n
+    bwd_ws = 12 * fb.bwd_chunk_rows(b, n, BF16) * n
+    calls = {
+        "big_sae_fwd_bf16": (
+            lambda: fb.big_sae_forward(p, xc, compute_dtype=BF16),
+            lambda: fb.big_sae_forward_plain(p, xc, BF16),
+            4 * (b * d + n * d) + 2 * (b * d + 2 * n * d) + fwd_ws,
+            f"output, Wn, bf16 xc/E/Wn, workspace {fwd_ws / 2**20:.0f} MiB",
+            fb.fwd_chunks(b, n, BF16)),
+        "big_sae_bwd_bf16": (
+            lambda: fb.big_sae_backward(p, alpha, xc, r, compute_dtype=BF16),
+            lambda: fb.big_sae_backward_plain(p, alpha, xc, r, BF16),
+            4 * (3 * n * d + 4 * n + d + 2) + 2 * (2 * b * d + 2 * n * d)
+            + bwd_ws,
+            f"outputs, Wn, bf16 xc/E/Wn/r, workspace {bwd_ws / 2**20:.0f} "
+            "MiB", fb.bwd_chunks(b, n, BF16))}
+    out = {}
+    for name, (call, plain, allowed, what, chunks) in calls.items():
+        out[name] = repeat_and_memory(name, call, plain, allowed, what)
+        torch.cuda.empty_cache()
+        out[name].update(time_pairs({name: (call, plain, 3)})[name],
+                         chunks=len(chunks))
+        torch.cuda.empty_cache()
+        parts = time_parts(fb.one_chunk_launches(name, p, xc, r, alpha),
+                           f" ({chunks[0][1]} rows)")
+        once = (f"{name}_round", "big_sae_bwd_bf16_dctr")
+        per_call = sum(v["ms"] * (1 if k in once else len(chunks))
+                       for k, v in parts.items())
+        log(f"  {len(chunks)} chunks: {name}'s launches sum to "
+            f"{per_call:.2f} ms a call")
+        out[name].update({"parts": parts, "parts_sum_ms": per_call})
+        torch.cuda.empty_cache()
+    del xc, r
+    torch.cuda.empty_cache()
+    return out
+
+
+def big_bf16_steps(store: Path) -> dict:
+    """Phase 7's 16 steps — same seed, init, store, batch order and
+    resurrection every 8 — through make_big_sae_step(use_fused=True) in
+    fp32 and then with fused_compute_dtype="bfloat16": the bf16 run
+    launches each bf16 form once a step and nothing else (counts zeroed
+    just before, read just after), its losses are finite and each within
+    RTOL_BIG_BF16_LOSS of the fp32 run's; each run's step time on the
+    device timeline (CUDA events after each step, steps 2-16)."""
+    from sparse_coding_tpu_torch.data.chunk_store import device_prefetch
+    from sparse_coding_tpu_torch.data.shard_store import open_store
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.train import big_sae as bs
+
+    runs = {}
+    for compute in ("float32", BF16):
+        state, opt, l1 = bs.init_big_sae(torch.Generator().manual_seed(SEED),
+                                         BIG_D, BIG_N, BIG_L1, lr=BIG_LR,
+                                         device=DEV)
+        step = bs.make_big_sae_step(opt, l1, use_fused=True,
+                                    fused_compute_dtype=compute)
+        store_ = open_store(store, quarantine_corrupt=True)
+        rng = np.random.default_rng(SEED)
+        losses, events, n = [], [], 0
+        sync()
+        _build.reset_launches()
+        for _ in range(BIG_EPOCHS):
+            for batch in device_prefetch(store_.epoch(BIG_BATCH, rng), DEV):
+                state, m = step(state, batch)
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+                losses.append(m["loss"])
+                n += 1
+                if n % BIG_RESURRECT == 0:
+                    state, _ = bs.resurrect_dead_features(state)
+        sync()
+        launches = dict(_build.LAUNCHES)
+        step_ms = events[0].elapsed_time(events[-1]) / (n - 1)
+        runs[compute] = {"losses": [float(v) for v in losses],
+                         "launches": launches, "step_ms": step_ms,
+                         "acts_per_s": 1e3 * BIG_BATCH / step_ms}
+        del state, step
+        torch.cuda.empty_cache()
+    want = big_bf16_launches(BIG_STEPS)
+    if n != BIG_STEPS or runs[BF16]["launches"] != want:
+        raise AssertionError(f"bf16 big-SAE steps: {n} steps, launches "
+                             f"{runs[BF16]['launches']}, expected {want}")
+    if runs["float32"]["launches"] != big_launches(BIG_STEPS):
+        raise AssertionError(f"fp32 big-SAE steps: launches "
+                             f"{runs['float32']['launches']}")
+    ref, got = runs["float32"]["losses"], runs[BF16]["losses"]
+    if not all(math.isfinite(v) for v in got):
+        raise AssertionError(f"bf16 big-SAE steps: non-finite losses {got}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+    if not rel <= RTOL_BIG_BF16_LOSS:
+        raise AssertionError(f"bf16 big-SAE steps: a loss {rel:.2e} from the "
+                             "fp32 kernels'")
+    f32, bf = runs["float32"], runs[BF16]
+    ran = {k: v for k, v in bf["launches"].items() if v}
+    log(f"  {BIG_STEPS} steps on the bf16 forms: {bf['step_ms']:.1f} ms a "
+        f"step, {bf['acts_per_s']:,.0f} acts/s, against the fp32 kernels' "
+        f"{f32['step_ms']:.1f} ms ({f32['acts_per_s']:,.0f} acts/s); loss "
+        f"{got[0]:.4g} -> {got[-1]:.4g}, within {rel:.2e} of fp32's each "
+        f"step; launches {ran}")
+    return {"runs": runs, "loss_max_rel_vs_fp32": rel}
+
+
+def bench_big_variants() -> dict:
+    """The JAX package's bench_big_sae (bench_suite.py:177-228) through the
+    port's make_big_sae_step: autodiff, the fp32 kernels and the bf16
+    kernels at d=1024, n=16,384, batch 16,384 (15 iterations) and at the
+    capacity shape n=131,072 (5), each from init_big_sae(seed 0) on one
+    random batch; activations/s over a window that ends in a read of the
+    loss (2 warm-up steps first), as bench_suite's _timed does. An
+    out-of-memory error on autodiff is that variant's result, as there; a
+    kernel variant's failure is never caught. The kernel variants must
+    launch their kernels once a step."""
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.train import big_sae as bs
+
+    out = {}
+    for suite, d, n, batch, iters in BENCH_BIG_SHAPES:
+        data = torch.randn((batch, d), generator=torch.Generator(DEV)
+                           .manual_seed(1), device=DEV)
+        for name, kwargs in BENCH_BIG_VARIANTS:
+            label = f"{suite} {name}"
+            state, opt, l1 = bs.init_big_sae(torch.Generator().manual_seed(0),
+                                             d, n, 1e-3, n_worst=1024,
+                                             device=DEV)
+            step = bs.make_big_sae_step(opt, l1, **kwargs)
+            _build.reset_launches()
+            try:
+                for _ in range(2):
+                    state, m = step(state, data)
+                float(m["loss"])
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    state, m = step(state, data)
+                loss = float(m["loss"])
+                seconds = time.perf_counter() - t0
+            except torch.cuda.OutOfMemoryError as e:
+                if kwargs["use_fused"]:
+                    raise
+                del state, step
+                torch.cuda.empty_cache()
+                out[label] = {"acts_per_s": 0.0, "failed": repr(e)[:160]}
+                log(f"  {label} (d={d}, n={n}, batch {batch}): out of "
+                    f"memory — {repr(e)[:120]}")
+                continue
+            kernels = ({"big_sae_fwd_bf16", "big_sae_bwd_bf16"}
+                       if kwargs.get("fused_compute_dtype") == BF16
+                       else {"big_sae_fwd", "big_sae_bwd"}
+                       if kwargs["use_fused"] else set())
+            calls = {k: v for k, v in _build.LAUNCHES.items()
+                     if v and k in (*BIG_KERNELS, *BIG_BF16_FORMS)}
+            if calls != {k: iters + 2 for k in kernels}:
+                raise AssertionError(f"{label}: launches {calls}")
+            if not math.isfinite(loss):
+                raise AssertionError(f"{label}: loss {loss}")
+            rate = iters * batch / seconds
+            out[label] = {"acts_per_s": rate, "ms": 1e3 * seconds / iters,
+                          "loss": loss, "d": d, "n_feats": n, "batch": batch}
+            log(f"  {label} (d={d}, n={n}, batch {batch}): {rate:,.0f} "
+                f"acts/s, {1e3 * seconds / iters:.1f} ms a step")
+            del state, step
+            torch.cuda.empty_cache()
+        del data
+        torch.cuda.empty_cache()
+    return out
+
+
+def big_bf16_phase(big_store: Path, g: torch.Generator) -> dict:
+    """Phase 11: the big SAE's bf16 forms against their plain bf16 versions
+    (small shapes up to d=1024, a batch of several chunks under a lowered
+    cap and under the real one, the main shape with its ReLU mask flips
+    counted), their repeat, memory and times; 16 steps of the bf16 step
+    beside the fp32 one; bench_suite's big-SAE variants."""
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    checks = {}
+    for b, n, d in BIG_SMALL_SHAPES:
+        x = torch.randn((b, d), generator=g).to(DEV)
+        checks[f"big bf16 {b}x{n}x{d}"] = big_bf16_check(
+            big_params(g, n, d), x, f"big bf16 d={d}")
+    b, n, d, rows = BIG_BF16_LOWERED
+    cap = fb.WORKSPACE_BYTES
+    fb.WORKSPACE_BYTES = 12 * n * rows
+    try:
+        _build.reset_launches()
+        checks["lowered cap"] = big_bf16_check(
+            big_params(g, n, d), torch.randn((b, d), generator=g).to(DEV),
+            "big bf16 lowered cap")
+        # one forward, two backwards (untied and tied r), and the codes
+        # launch over the whole batch that counts the ReLU flips
+        want = big_bf16_launches(1, b, n)
+        want.update({k: 2 * v for k, v in want.items()
+                     if k.startswith("big_sae_bwd_bf16")})
+        want["big_sae_bwd_bf16_codes"] += 1
+        if dict(_build.LAUNCHES) != want:
+            raise AssertionError(f"big bf16 lowered cap: launches "
+                                 f"{dict(_build.LAUNCHES)}, expected {want}")
+        log(f"  big bf16 lowered cap: {len(fb.bwd_chunks(b, n, BF16))} "
+            "big_sae_bwd_bf16 chunks")
+    finally:
+        fb.WORKSPACE_BYTES = cap
+    b, n, d = BIG_CHUNK_SHAPE
+    checks[f"big bf16 {b}x{n}x{d}"] = big_bf16_check(
+        big_params(g, n, d), torch.randn((b, d), generator=g).to(DEV),
+        "big bf16 chunks")
+    log(f"  big bf16 chunks: {len(fb.fwd_chunks(b, n, BF16))} "
+        f"big_sae_fwd_bf16 chunks, {len(fb.bwd_chunks(b, n, BF16))} "
+        "big_sae_bwd_bf16 chunks")
+    x = torch.as_tensor(ChunkStore(big_store).load_chunk(0)[:BIG_BATCH]).to(
+        DEV)
+    p = big_params(g, BIG_N, BIG_D)
+    checks["main"] = big_bf16_check(p, x, "big bf16 main")
+    extras = big_bf16_extras(p, x)
+    xc = x - p["centering"]
+    rnd = lambda t: t.to(torch.bfloat16).float()
+    nnz = int(((rnd(xc) @ rnd(p["encoder"]) + p["threshold"]) > 0).sum())
+    del xc, x, p
+    torch.cuda.empty_cache()
+    report = {"checks": checks, "extras": extras, "active_codes": nnz,
+              "bounds": big_bf16_bounds(BIG_BATCH, BIG_N, BIG_D, nnz)}
+    report["steps"] = big_bf16_steps(big_store)
+    report["bench"] = bench_big_variants()
+    return report
+
+
 # --- main --------------------------------------------------------------------
 
 def main() -> int:
@@ -2979,7 +3374,7 @@ def main() -> int:
                       "sae_tied_bwd", "sae_untied_fwd", "sae_untied_bwd"}:
         raise AssertionError(f"GEMM template instantiations in {gemms}")
     if set(bgemms) != {"sae_tied_fwd", "sae_tied_bwd", "sae_untied_fwd",
-                       "sae_untied_bwd"}:
+                       "sae_untied_bwd", "big_sae_fwd", "big_sae_bwd"}:
         raise AssertionError(f"bf16 GEMM template instantiations in "
                              f"{bgemms}")
     report["bf16_gemm_instantiations"] = bgemms
@@ -3111,6 +3506,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"  done at {time.perf_counter() - t_start:.1f} s")
 
+        log(f"phase 11: bf16 compute in the big SAE — the bf16 forms vs their "
+            f"plain versions; {BIG_STEPS} bf16 steps at d={BIG_D}, "
+            f"n_feats={BIG_N}, batch {BIG_BATCH} beside the fp32 kernels'; "
+            "bench_suite's big-SAE variants")
+        report["big_bf16"] = big_bf16_phase(big_store,
+                                            torch.Generator().manual_seed(11))
+        log(f"  done at {time.perf_counter() - t_start:.1f} s")
+
     timing.update(big["timing"])
     bnd.update(big["bounds"])
     kernels = []
@@ -3193,6 +3596,28 @@ def main() -> int:
             kernels[-1]["parts"] = {
                 k: {"launches": run["launches"].get(k, 0), "ms": v["ms"]}
                 for k, v in t["parts"].items()}
+    bb = report["big_bf16"]
+    bf_run = bb["steps"]["runs"][BF16]["launches"]
+    for name, base in BIG_BF16_FORMS.items():
+        # launches: phase 11's 16 steps on the bf16 forms
+        errs = [v for k, v in bb["checks"]["main"][name].items()
+                if isinstance(v, dict) and not is_mask_count(k)]
+        t = bb["extras"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": KERNEL_META[base]["source"],
+            "replaces": KERNEL_META[base]["replaces"],
+            "launches": bf_run[name],
+            "max_abs_err": max(v["max_abs_err"] for v in errs),
+            "max_rel_err": max(v["max_rel_err"] for v in errs),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": bb["bounds"][name]["bound_ms"],
+            "bound_by": bb["bounds"][name]["bound_by"],
+            "library_ms": t["library_ms"],
+            "contracts": KERNEL_META[base]["contracts"],
+            "compute": "bf16 operands, fp32 accumulation",
+            "parts": {k: {"launches": bf_run[k], "ms": v["ms"]}
+                      for k, v in t["parts"].items()}})
     report["kernels"] = kernels
     report["timing"] = timing
     report["bounds"] = bnd

@@ -64,6 +64,28 @@ ARGTYPES = {
     "big_sae_bwd_sums": [_P] * 5 + [_I] * 3 + [_P],
     # E, dt, c_totals, l0f, dctr, scal, n, d, stream
     "big_sae_bwd_dctr": [_P] * 6 + [_I] * 2 + [_P],
+    # K8's bf16 form (csrc/big_sae_fwd.cu):
+    # src, dst, count, stream (xc, E and Wn, once a call each)
+    "big_sae_fwd_bf16_round": [_P] * 2 + [_LL, _P],
+    # xb, Eb [d, n], t, Ctb, rows, n, d, stream
+    "big_sae_fwd_bf16_codes": [_P] * 4 + [_I] * 3 + [_P],
+    # Ctb, Wnb, xhat, rows, n, d, stream
+    "big_sae_fwd_bf16_decode": [_P] * 3 + [_I] * 3 + [_P],
+    # K9's bf16 form (csrc/big_sae_bwd.cu):
+    # src, dst, count, stream (xc, E, Wn and r, once a call each)
+    "big_sae_bwd_bf16_round": [_P] * 2 + [_LL, _P],
+    # xb, Eb [d, n], t, C, Cb, rows, n, d, stream
+    "big_sae_bwd_bf16_codes": [_P] * 5 + [_I] * 3 + [_P],
+    # rb, Wnb, C, alpha, G, Gb, rows, n, d, B, coef, stream
+    "big_sae_bwd_bf16_dpre": [_P] * 6 + [_I] * 4 + [_F, _P],
+    # xb, Gb, dE, rows, n, d, first, stream
+    "big_sae_bwd_bf16_de": [_P] * 3 + [_I] * 4 + [_P],
+    # Cb, rb, dWn, rows, n, d, first, last, coef, stream
+    "big_sae_bwd_bf16_dwn": [_P] * 3 + [_I] * 5 + [_F, _P],
+    # C, G, Gb, dt, dtb, c_totals, l0f, rows, n, first, stream
+    "big_sae_bwd_bf16_sums": [_P] * 7 + [_I] * 3 + [_P],
+    # Eb, dtb, c_totals, l0f, dctr, scal, n, d, stream (once a call)
+    "big_sae_bwd_bf16_dctr": [_P] * 6 + [_I] * 2 + [_P],
     # the untied forward's launches (csrc/sae_untied_fwd.cu), a chunk of
     # Z members x rows batch rows at a time:
     # D, Wn, rows, d, stream (once a call)
@@ -165,11 +187,12 @@ ARGTYPES = {
     "sae_untied_adam_vjp_bf16": [_P] * 18 + [_I] * 3 + [_F] * 5 + [_P],
 }
 # The bf16 forms, each named after its kernel with "_bf16" (bf16 compute
-# for the four chunked ensemble kernels, bf16 moments for the two Adam
-# epilogues), and the library that holds it: its fp32 kernel's.
+# for the six chunked kernels, bf16 moments for the two Adam epilogues),
+# and the library that holds it: its fp32 kernel's.
 BF16_FORMS = {f"{name}_bf16": name for name in (
     "sae_tied_fwd", "sae_tied_bwd", "sae_untied_fwd", "sae_untied_bwd",
-    "sae_tied_adam_vjp", "sae_untied_adam_vjp")}
+    "sae_tied_adam_vjp", "sae_untied_adam_vjp", "big_sae_fwd",
+    "big_sae_bwd")}
 
 
 def _parts(kernel: str) -> tuple[str, ...]:
@@ -194,7 +217,11 @@ TIED_FWD_BF16_PARTS = _parts("sae_tied_fwd_bf16")
 TIED_BWD_BF16_PARTS = _parts("sae_tied_bwd_bf16")
 UNTIED_FWD_BF16_PARTS = _parts("sae_untied_fwd_bf16")
 UNTIED_BWD_BF16_PARTS = _parts("sae_untied_bwd_bf16")
+BIG_FWD_BF16_PARTS = _parts("big_sae_fwd_bf16")
+BWD_BF16_PARTS = _parts("big_sae_bwd_bf16")
 _PARTS = {"big_sae_fwd": BIG_FWD_PARTS, "big_sae_bwd": BWD_PARTS,
+          "big_sae_fwd_bf16": BIG_FWD_BF16_PARTS,
+          "big_sae_bwd_bf16": BWD_BF16_PARTS,
           "sae_tied_fwd": TIED_FWD_PARTS, "sae_tied_bwd": TIED_BWD_PARTS,
           "sae_untied_fwd": UNTIED_FWD_PARTS,
           "sae_untied_bwd": UNTIED_BWD_PARTS,
@@ -221,7 +248,8 @@ LIBRARY_OF = {name: _library(name) for name in ARGTYPES}
 # launches its parts (_PARTS) once per chunk — the norm passes, the
 # backwards' loss and K9's dctr once a call. The bf16 forms count under
 # their own names (BF16_FORMS), the chunked ones' calls and parts as
-# theirs. reset_launches() zeroes them.
+# theirs (the rounding passes once per rounded tensor of a call).
+# reset_launches() zeroes them.
 LAUNCHES: dict[str, int] = {name: 0 for name in (
     *KERNELS, *BF16_FORMS,
     *(part for parts in _PARTS.values() for part in parts))}
@@ -279,14 +307,20 @@ def check_kernel_shape(name: str, batch: int, n_feats: int, d: int,
             f"got d={d}")
 
 
-def check_big_shape(name: str, batch: int, n_feats: int, d: int) -> None:
-    """Raise ValueError for a shape the big-SAE kernels do not take."""
+def check_big_shape(name: str, batch: int, n_feats: int, d: int,
+                    compute_dtype: str = "float32") -> None:
+    """Raise ValueError for a shape the big-SAE kernels do not take; their
+    bf16 forms also need d % BF16_D_MULTIPLE == 0."""
     if (batch % BIG_BATCH_TILE or n_feats % BIG_FEAT_TILE
             or not 1 <= d <= BIG_MAX_D):
         raise ValueError(
             f"{name}: the CUDA kernel needs batch % {BIG_BATCH_TILE} == 0, "
             f"n_feats % {BIG_FEAT_TILE} == 0 and 1 <= d <= {BIG_MAX_D}; got "
             f"batch={batch}, n_feats={n_feats}, d={d}")
+    if compute_dtype == "bfloat16" and d % BF16_D_MULTIPLE:
+        raise ValueError(
+            f"{name}: the bf16 CUDA kernel needs d % {BF16_D_MULTIPLE} == 0; "
+            f"got d={d}")
 
 
 def stream_ptr(t: torch.Tensor) -> int:

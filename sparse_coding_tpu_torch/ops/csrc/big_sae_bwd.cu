@@ -45,8 +45,23 @@
 // Every sum runs in a fixed order (one thread per output element over a
 // chunk, chunks in order; fixed warp orders in sums and dctr), with no
 // atomics, so two calls give the same bits.
-#include "sae_common.cuh"
-#include "sgemm_simt.cuh"
+//
+// The bf16-compute form (big_sae_bwd_bf16_*, compute_dtype="bfloat16"):
+// the same schedule with the four products on the tensor-core template
+// (bgemm_mma.cuh) and the JAX package's casts (fused_big_sae.py
+// _bwd_kernel): xc, the raw E and r rounded to bf16 once a call, Wn
+// normalized in fp32 (by the wrapper) then rounded; the codes C and dpre G
+// stored fp32 — dt, c_totals, l1, l0 and the masks are fp32 sums and tests
+// of fp32 values, as there — beside their bf16 roundings Cb and Gb, which
+// de and dwn read (12 bytes a code: 5,440 rows a chunk at the trainer's
+// shape, 13 chunks). The reordering of dctr above no longer holds: the JAX
+// kernel sums the ROUNDED dpre against the rounded E, so the sums pass also
+// forms dtb = sum_b bf16(G) and dctr = -bf16(E) dtb. Bound: 8*B*n*d bf16
+// FLOPs, three of the products only over the active codes, at 989 TFLOP/s
+// plus the sums, about 5.7 ms at the trainer's shape, against 0.8 GB of
+// bytes = 0.25 ms.
+#include "bgemm_mma.cuh"
+#include "sae_chunked.cuh"
 
 namespace {
 
@@ -97,57 +112,68 @@ struct DpreEpi {
 constexpr int kSumWarps = sae::kWarps;
 
 // One block per 32 features: warp w sums rows w, w+8, ... of the chunk in
-// order, then warps 0..7 are added in order.
+// order, then warps 0..7 are added in order. Rounded (the bf16 form): also
+// dtb (+)= the column sums of the chunk's bf16 dpre Gb, widened exactly.
+template <bool Rounded>
 __global__ void __launch_bounds__(sae::kThreads)
 sums_kernel(const float* __restrict__ C, const float* __restrict__ G,
-            int rows, int n, bool first, float* __restrict__ dt,
+            const sae::bf16* __restrict__ Gb, int rows, int n, bool first,
+            float* __restrict__ dt, float* __restrict__ dtb,
             float* __restrict__ c_totals, float* __restrict__ l0f) {
-  __shared__ float part[3][kSumWarps][32];
+  __shared__ float part[Rounded ? 4 : 3][kSumWarps][32];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int f = blockIdx.x * 32 + lane;
-  float sg = 0.f, sc = 0.f, cnt = 0.f;
+  float sg = 0.f, sc = 0.f, cnt = 0.f, sgb = 0.f;
 #pragma unroll 4
   for (int b = w; b < rows; b += kSumWarps) {
     const float cv = C[(size_t)b * n + f];
     sg += G[(size_t)b * n + f];
     sc += cv;
     cnt += cv > 0.f ? 1.f : 0.f;
+    if constexpr (Rounded) sgb += __bfloat162float(Gb[(size_t)b * n + f]);
   }
   part[0][w][lane] = sg;
   part[1][w][lane] = sc;
   part[2][w][lane] = cnt;
+  if constexpr (Rounded) part[3][w][lane] = sgb;
   __syncthreads();
   if (w == 0) {
-    float a = 0.f, c = 0.f, k = 0.f;
+    float a = 0.f, c = 0.f, k = 0.f, ab = 0.f;
     for (int i = 0; i < kSumWarps; ++i) {
       a += part[0][i][lane];
       c += part[1][i][lane];
       k += part[2][i][lane];
+      if constexpr (Rounded) ab += part[3][i][lane];
     }
     if (!first) {
       a = dt[f] + a;
       c = c_totals[f] + c;
       k = l0f[f] + k;
+      if constexpr (Rounded) ab = dtb[f] + ab;
     }
     dt[f] = a;
     c_totals[f] = c;
     l0f[f] = k;
+    if constexpr (Rounded) dtb[f] = ab;
   }
 }
 
-// Blocks 0..d-1: dctr[j] = -sum_f E[j, f] dt[f]. Block d: l1 = sum_f
-// c_totals[f] and l0 = sum_f l0f[f], in double.
+// Blocks 0..d-1: dctr[j] = -sum_f E[j, f] dt[f] (E fp32, or bf16 widened
+// exactly). Block d: l1 = sum_f c_totals[f] and l0 = sum_f l0f[f], in
+// double.
+template <class TE>
 __global__ void __launch_bounds__(sae::kThreads)
-dctr_kernel(const float* __restrict__ E, const float* __restrict__ dt,
+dctr_kernel(const TE* __restrict__ E, const float* __restrict__ dt,
             const float* __restrict__ c_totals, const float* __restrict__ l0f,
             int n, int d, float* __restrict__ dctr, float* __restrict__ scal) {
   __shared__ float fs[sae::kWarps];
   __shared__ double ds[2][sae::kWarps];
   const int j = blockIdx.x;
   if (j < d) {
-    const float* row = E + (size_t)j * n;
+    const TE* row = E + (size_t)j * n;
     float s = 0.f;
-    for (int f = threadIdx.x; f < n; f += sae::kThreads) s += row[f] * dt[f];
+    for (int f = threadIdx.x; f < n; f += sae::kThreads)
+      s += sae::widen(row[f]) * dt[f];
     s = sae::block_sum(s, fs);
     if (threadIdx.x == 0) dctr[j] = -s;
   } else {
@@ -225,8 +251,8 @@ extern "C" int big_sae_bwd_sums(const float* C, const float* G, float* dt,
                                 float* c_totals, float* l0f, int rows, int n,
                                 int first, void* stream) {
   if (!big_chunk_ok(rows, n, 1)) return (int)cudaErrorInvalidValue;
-  sums_kernel<<<n / 32, sae::kThreads, 0, (cudaStream_t)stream>>>(
-      C, G, rows, n, first != 0, dt, c_totals, l0f);
+  sums_kernel<false><<<n / 32, sae::kThreads, 0, (cudaStream_t)stream>>>(
+      C, G, nullptr, rows, n, first != 0, dt, nullptr, c_totals, l0f);
   return (int)cudaGetLastError();
 }
 
@@ -238,5 +264,100 @@ extern "C" int big_sae_bwd_dctr(const float* E, const float* dt,
   if (!big_chunk_ok(sae::kBatchTile, n, d)) return (int)cudaErrorInvalidValue;
   dctr_kernel<<<d + 1, sae::kThreads, 0, (cudaStream_t)stream>>>(
       E, dt, c_totals, l0f, n, d, dctr, scal);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 form's entry points: the launches above with bf16 dot operands
+// (xb, Eb [d, n], rb, Wnb [n, d], and the workspace's Cb and Gb beside the
+// fp32 C and G); the sums read the fp32 values and Gb. d must be a
+// multiple of 8 (16-byte copies along it).
+
+// dst [count] = bf16(src): the centered batch's, the raw encoder's, the
+// normalized dictionary's and the residual's dot operands
+extern "C" int big_sae_bwd_bf16_round(const float* src, sae::bf16* dst,
+                                      long long count, void* stream) {
+  return (int)sae::launch_round(src, dst, count, (cudaStream_t)stream);
+}
+
+// C [rows, n] = relu(xb [rows, d] . Eb [d, n] + t [n]), and Cb = bf16(C)
+extern "C" int big_sae_bwd_bf16_codes(const sae::bf16* xb,
+                                      const sae::bf16* Eb, const float* t,
+                                      float* C, sae::bf16* Cb, int rows,
+                                      int n, int d, void* stream) {
+  if (!sae::big_chunk_ok_bf16(rows, n, d)) return (int)cudaErrorInvalidValue;
+  const sae::CodesEpi<false> epi{
+      t, C, n, n, 0,
+      aligned16(t, 0, n) && aligned16(C, n, n) && sae::aligned8(Cb, n, n),
+      nullptr, Cb};
+  return (int)bgemm::run<true, false>(bgemm::Operand{xb, d, 0},
+                                      bgemm::Operand{Eb, n, 0}, rows, n, d,
+                                      epi, (cudaStream_t)stream);
+}
+
+// G [rows, n] = (coef * rb [rows, d] . Wnb [n, d]^T + alpha[0] / B)
+// * [C > 0], and Gb = bf16(G)
+extern "C" int big_sae_bwd_bf16_dpre(const sae::bf16* rb,
+                                     const sae::bf16* Wnb, const float* C,
+                                     const float* alpha, float* G,
+                                     sae::bf16* Gb, int rows, int n, int d,
+                                     int B, float coef, void* stream) {
+  if (!sae::big_chunk_ok_bf16(rows, n, d) || B < rows)
+    return (int)cudaErrorInvalidValue;
+  const sae::ScaledDpreEpi epi{
+      C, alpha, G, Gb, n, 0,
+      aligned16(C, n, n) && aligned16(G, n, n) && sae::aligned8(Gb, n, n),
+      coef, (float)B};
+  return (int)bgemm::run<true, true>(bgemm::Operand{rb, d, 0},
+                                     bgemm::Operand{Wnb, d, 0}, rows, n, d,
+                                     epi, (cudaStream_t)stream);
+}
+
+// dE [d, n] = (first ? 0 : dE) + xb [rows, d]^T . Gb [rows, n]
+extern "C" int big_sae_bwd_bf16_de(const sae::bf16* xb, const sae::bf16* Gb,
+                                   float* dE, int rows, int n, int d,
+                                   int first, void* stream) {
+  if (!sae::big_chunk_ok_bf16(rows, n, d)) return (int)cudaErrorInvalidValue;
+  const AccumEpi epi{dE, n, 0, aligned16(dE, n, n), first != 0, false, 1.f};
+  return (int)bgemm::run<false, false>(bgemm::Operand{xb, d, 0},
+                                       bgemm::Operand{Gb, n, 0}, d, n, rows,
+                                       epi, (cudaStream_t)stream);
+}
+
+// dWn [n, d] = (first ? 0 : dWn) + Cb [rows, n]^T . rb [rows, d], times
+// coef when `last`
+extern "C" int big_sae_bwd_bf16_dwn(const sae::bf16* Cb, const sae::bf16* rb,
+                                    float* dWn, int rows, int n, int d,
+                                    int first, int last, float coef,
+                                    void* stream) {
+  if (!sae::big_chunk_ok_bf16(rows, n, d)) return (int)cudaErrorInvalidValue;
+  const AccumEpi epi{dWn, d, 0, aligned16(dWn, d, d), first != 0, last != 0,
+                     coef};
+  return (int)bgemm::run<false, false>(bgemm::Operand{Cb, n, 0},
+                                       bgemm::Operand{rb, d, 0}, n, d, rows,
+                                       epi, (cudaStream_t)stream);
+}
+
+// dt [n] (+)= sum_b G, dtb [n] (+)= sum_b Gb, c_totals [n] (+)= sum_b C,
+// l0f [n] (+)= count(C > 0)
+extern "C" int big_sae_bwd_bf16_sums(const float* C, const float* G,
+                                     const sae::bf16* Gb, float* dt,
+                                     float* dtb, float* c_totals, float* l0f,
+                                     int rows, int n, int first,
+                                     void* stream) {
+  if (!big_chunk_ok(rows, n, 1)) return (int)cudaErrorInvalidValue;
+  sums_kernel<true><<<n / 32, sae::kThreads, 0, (cudaStream_t)stream>>>(
+      C, G, Gb, rows, n, first != 0, dt, dtb, c_totals, l0f);
+  return (int)cudaGetLastError();
+}
+
+// dctr [d] = -Eb [d, n] . dtb [n]; scal [2] = (sum c_totals, sum l0f)
+extern "C" int big_sae_bwd_bf16_dctr(const sae::bf16* Eb, const float* dtb,
+                                     const float* c_totals, const float* l0f,
+                                     float* dctr, float* scal, int n, int d,
+                                     void* stream) {
+  if (!sae::big_chunk_ok_bf16(sae::kBatchTile, n, d))
+    return (int)cudaErrorInvalidValue;
+  dctr_kernel<<<d + 1, sae::kThreads, 0, (cudaStream_t)stream>>>(
+      Eb, dtb, c_totals, l0f, n, d, dctr, scal);
   return (int)cudaGetLastError();
 }

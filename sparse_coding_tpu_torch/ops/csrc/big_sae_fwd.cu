@@ -34,6 +34,19 @@
 // chunks write disjoint rows of x-hat, so nothing is added across them.
 // Order: one thread sums each output over k in order, with no atomics, so
 // two calls give the same bits. NaN survives the ReLU.
+//
+// The bf16-compute form (big_sae_fwd_bf16_*, compute_dtype="bfloat16"):
+// the same schedule with both products on the tensor-core template
+// (bgemm_mma.cuh) and the JAX package's casts (fused_big_sae.py
+// _fwd_kernel): xc and the raw E rounded to bf16 once a call, Wn
+// normalized in fp32 (by the wrapper) then rounded, the codes rounded by
+// the codes epilogue into Ctb [n, rows] — the decode's operand, as the JAX
+// package's c.astype(bf16) . Wn; fp32 accumulation and ReLU. A bf16 code
+// takes 2 bytes, so a chunk holds twice the rows (32,768 at the trainer's
+// shape: 2 chunks). Bound: 4*B*n*d bf16 FLOPs (the decode's only over the
+// active codes) at 989 TFLOP/s, about 3.4 ms at the trainer's shape with
+// half the codes active, against 0.67 GB of bytes = 0.2 ms.
+#include "bgemm_mma.cuh"
 #include "sae_chunked.cuh"
 
 using sgemm::Operand;
@@ -67,4 +80,40 @@ extern "C" int big_sae_fwd_decode(const float* Ct, const float* Wn,
       Operand{Ct, rows, aligned16(Ct, rows, rows)},
       Operand{Wn, d, aligned16(Wn, d, d)}, rows, d, n, epi,
       (cudaStream_t)stream);
+}
+
+// The bf16 form's entry points: the same launches with bf16 dot operands
+// (xb, Eb [d, n], Wnb [n, d] and the codes Ctb [n, rows]); x-hat stays
+// fp32. d must be a multiple of 8 (16-byte copies along it).
+
+// dst [count] = bf16(src): the centered batch's, the raw encoder's and
+// the normalized dictionary's dot operands
+extern "C" int big_sae_fwd_bf16_round(const float* src, sae::bf16* dst,
+                                      long long count, void* stream) {
+  return (int)sae::launch_round(src, dst, count, (cudaStream_t)stream);
+}
+
+// Ctb [n, rows] = bf16(relu(Eb [d, n]^T . xb [rows, d]^T + t [n]))
+extern "C" int big_sae_fwd_bf16_codes(const sae::bf16* xb,
+                                      const sae::bf16* Eb, const float* t,
+                                      sae::bf16* Ctb, int rows, int n, int d,
+                                      void* stream) {
+  if (!sae::big_chunk_ok_bf16(rows, n, d)) return (int)cudaErrorInvalidValue;
+  const sae::CodesEpi<true> epi{t, nullptr, n, rows, 0,
+                                sae::aligned8(Ctb, rows, rows), nullptr, Ctb};
+  return (int)bgemm::run<false, true>(bgemm::Operand{Eb, n, 0},
+                                      bgemm::Operand{xb, d, 0}, n, rows, d,
+                                      epi, (cudaStream_t)stream);
+}
+
+// xhat [rows, d] = Ctb [n, rows]^T . Wnb [n, d]
+extern "C" int big_sae_fwd_bf16_decode(const sae::bf16* Ctb,
+                                       const sae::bf16* Wnb, float* xhat,
+                                       int rows, int n, int d, void* stream) {
+  if (!sae::big_chunk_ok_bf16(rows, n, d)) return (int)cudaErrorInvalidValue;
+  const sgemm::AccumEpi epi{xhat, d, 0, aligned16(xhat, d, d), true, false,
+                            1.f};
+  return (int)bgemm::run<false, false>(bgemm::Operand{Ctb, rows, 0},
+                                       bgemm::Operand{Wnb, d, 0}, rows, d, n,
+                                       epi, (cudaStream_t)stream);
 }

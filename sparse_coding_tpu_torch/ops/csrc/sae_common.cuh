@@ -27,6 +27,13 @@ inline bool big_chunk_ok(int rows, int n, int d) {
          n % kFeatTile == 0 && d >= 1 && d <= kBigMaxD;
 }
 
+// The big-SAE kernels' bf16 forms: big_chunk_ok's shapes with d a multiple
+// of 8 (the tensor-core product copies 8 bf16 values at a time along every
+// operand's contiguous dimension, d among them).
+inline bool big_chunk_ok_bf16(int rows, int n, int d) {
+  return big_chunk_ok(rows, n, d) && d % kBf16DMultiple == 0;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

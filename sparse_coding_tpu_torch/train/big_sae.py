@@ -167,7 +167,11 @@ def make_big_sae_step(optimizer: BigSAEAdam, l1_alpha, mesh=None,
     ``FUSED_AUTO_CODES_BYTES``, else autodiff — chosen by shape, never as
     a fallback on failure; on the CPU "auto" is autodiff. True takes the
     kernels (their plain versions on the CPU) and raises ValueError for a
-    shape they do not take; False is always autodiff."""
+    shape they do not take; False is always autodiff.
+
+    fused_compute_dtype: "float32", or "bfloat16" for the kernels' bf16
+    forms (bf16 dot operands, fp32 accumulation; they also need d % 8 ==
+    0), as the JAX step's option; autodiff stays fp32."""
     from sparse_coding_tpu_torch.ops.fused_big_sae import (
         fused_big_sae_loss_and_grads,
         pick_big_sae_tiles,
@@ -180,10 +184,13 @@ def make_big_sae_step(optimizer: BigSAEAdam, l1_alpha, mesh=None,
     if use_fused not in (True, False, "auto"):
         raise ValueError(f"use_fused must be True, False or 'auto', got "
                          f"{use_fused!r}")
-    if fused_compute_dtype != "float32":
+    if fused_compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
-            f"fused_compute_dtype={fused_compute_dtype!r}: only float32 is "
-            "ported")
+            f"fused_compute_dtype={fused_compute_dtype!r}: the big-SAE "
+            "kernels take float32 or bfloat16")
+    # the same derivation the kernels' own tile pick uses, so the gate and
+    # the inner admission never disagree (as the JAX step)
+    compute_itemsize = 2 if fused_compute_dtype == "bfloat16" else 4
     lr = float(optimizer.lr)
 
     def step(state: BigSAEState, batch: Tensor):
@@ -192,18 +199,20 @@ def make_big_sae_step(optimizer: BigSAEAdam, l1_alpha, mesh=None,
         on_card = batch.device.type == "cuda"
         fused_possible = (use_fused is not False
                           and (on_card or use_fused is True)
-                          and pick_big_sae_tiles(b, n, d) is not None)
+                          and pick_big_sae_tiles(
+                              b, n, d, compute_itemsize) is not None)
         if use_fused is True and not fused_possible:
             raise ValueError(
                 f"use_fused=True but the big-SAE kernels do not take batch="
                 f"{b}, n={n}, d={d} (batch and n must be multiples of 32, "
-                "1 <= d <= 1024)")
+                "1 <= d <= 1024, and d % 8 == 0 under bf16 compute)")
         codes_itemsize = torch.promote_types(
             batch.dtype, state.params["dict"].dtype).itemsize
         if fused_auto_choice(use_fused, fused_possible, b, n,
                              codes_itemsize):
             loss, aux, grads = fused_big_sae_loss_and_grads(
-                state.params, batch, l1_alpha, state.tied)
+                state.params, batch, l1_alpha, state.tied,
+                compute_dtype=fused_compute_dtype)
         else:
             loss, aux, grads = _autodiff_loss_and_grads(
                 state.params, batch, l1_alpha, state.tied)

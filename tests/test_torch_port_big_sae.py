@@ -250,7 +250,7 @@ def test_gating(monkeypatch):
         tbs.make_big_sae_step(tbs.BigSAEAdam(1e-3), L1, mesh=object())
     with pytest.raises(NotImplementedError):
         tfb.fused_big_sae_loss_and_grads(state.params, x, L1, False,
-                                         compute_dtype="bfloat16")
+                                         compute_dtype="float16")
     with pytest.raises(NotImplementedError):
         tfb.fused_big_sae_loss_and_grads(state.params, x, L1, False,
                                          total_batch=2 * B)

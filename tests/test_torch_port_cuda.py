@@ -2,8 +2,8 @@
 the masked family's coef_mask, the untied ones — the four chunked
 ensemble kernels, the tied and untied forwards and backwards, also in
 several chunks —, and the giant single SAE's pair, also in several
-chunks), each held against its plain PyTorch version on the same
-inputs. Card only:
+chunks; and their bf16 forms), each held against its plain PyTorch
+version on the same inputs. Card only:
 every test carries the ``cuda`` marker and skips without a card. This file
 imports no JAX (the card's host has none), so it runs there on its own:
 
@@ -766,3 +766,108 @@ def test_bf16_forms_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="moments must"):
         fs.sae_tied_adam_vjp(i["e"], i["dw"], i["mu"].to(torch.bfloat16),
                              i["nu"], i["lrs"], i["bc1"], i["bc2"])
+
+
+# --- the giant single SAE's bf16 forms (big_sae_fwd_bf16, big_sae_bwd_bf16) ---
+# Each against its plain bf16 version on the same card inputs: rtol 1e-3 of
+# max|ref| (a code or dpre within a summation-order rounding of a bf16
+# rounding boundary rounds to the neighbouring bf16 on one side), the l1
+# sum rtol 1e-5, l0 exact at these shapes (no pre-activation within
+# rounding of 0).
+
+BIG_BF16_SHAPES = [s for s in BIG_SHAPES if s[2] % 8 == 0]
+# (batch, n_feats, d, rows per K9 chunk): several chunks, the last one
+# short; K8 in the chunks its 2-byte codes take under the same cap
+BIG_BF16_CHUNK_CASES = [(224, 64, 296, 96), (160, 96, 40, 64),
+                        (96, 160, 1024, 64), (288, 32, 128, 128)]
+
+
+def _big_bf16_check(fb, p, xc, r, got_fwd, got_bwd):
+    _close(got_fwd, fb.big_sae_forward_plain(p, xc, BF16), 1e-3)
+    want = fb.big_sae_backward_plain(p, torch.tensor(3e-3, device=xc.device),
+                                     xc, r, BF16)
+    for g, w in zip(got_bwd[:5], want[:5]):  # dE, dWn, dt, dctr, c_totals
+        _close(g, w, 1e-3)
+    _close(got_bwd[5][:1], want[5][:1], 1e-5)
+    assert torch.equal(got_bwd[5][1], want[5][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BIG_BF16_SHAPES, ids=str)
+def test_big_sae_bf16_kernels_match_plain(card, shape):
+    """K8's and K9's bf16 forms against their plain bf16 versions; each
+    form launches once a call and no fp32 big-SAE kernel does; two calls
+    give the same bits."""
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    p, x = _big_inputs(card, *shape)
+    xc = (x - p["centering"]).contiguous()
+    alpha = torch.tensor(3e-3, device=card)
+    r = (fb.big_sae_forward_plain(p, xc, BF16) - x).contiguous()
+    _build.reset_launches()
+    xhat = fb.big_sae_forward(p, xc, compute_dtype=BF16)
+    got = fb.big_sae_backward(p, alpha, xc, r, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["big_sae_fwd_bf16"] == 1
+    assert _build.LAUNCHES["big_sae_bwd_bf16"] == 1
+    assert all(_build.LAUNCHES[k] == 0 for k in (
+        "big_sae_fwd", "big_sae_bwd", *_build.BIG_FWD_PARTS,
+        *_build.BWD_PARTS))
+    _big_bf16_check(fb, p, xc, r, xhat, got)
+    again = fb.big_sae_backward(p, alpha, xc, r, compute_dtype=BF16)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert torch.equal(xhat, fb.big_sae_forward(p, xc, compute_dtype=BF16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BIG_BF16_CHUNK_CASES, ids=str)
+def test_big_sae_bf16_chunks_match_plain(card, monkeypatch, case):
+    """Both bf16 forms with the workspace cap lowered so the batch splits
+    into chunks (the last one short) against the unchunked plain bf16
+    versions; each part launches once a chunk, the rounding passes once per
+    rounded tensor (xc, E, Wn; and r) and dctr once a call; two calls give
+    the same bits."""
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    b, n, d, rows = case
+    monkeypatch.setattr(fb, "WORKSPACE_BYTES", 12 * n * rows)
+    n_fwd, n_bwd = len(fb.fwd_chunks(b, n, BF16)), len(fb.bwd_chunks(b, n, BF16))
+    assert n_bwd >= 2 and b % rows
+    p, x = _big_inputs(card, b, n, d, seed=3)
+    xc = (x - p["centering"]).contiguous()
+    r = (fb.big_sae_forward_plain(p, xc, BF16) - x).contiguous()
+    alpha = torch.tensor(3e-3, device=card)
+    _build.reset_launches()
+    xhat = fb.big_sae_forward(p, xc, compute_dtype=BF16)
+    got = fb.big_sae_backward(p, alpha, xc, r, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    want = {k: n_fwd for k in _build.BIG_FWD_BF16_PARTS}
+    want["big_sae_fwd_bf16_round"] = 3
+    want.update({k: n_bwd for k in _build.BWD_BF16_PARTS})
+    want.update({"big_sae_bwd_bf16_round": 4, "big_sae_bwd_bf16_dctr": 1})
+    assert {k: _build.LAUNCHES[k] for k in want} == want
+    _big_bf16_check(fb, p, xc, r, xhat, got)
+    again = fb.big_sae_backward(p, alpha, xc, r, compute_dtype=BF16)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_big_sae_bf16_forms_refuse_what_they_do_not_take(card):
+    """Under bf16 compute d must divide by 8 (ValueError before any launch),
+    and the kernels take fp32 inputs only, as the fp32 forms."""
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    p, x = _big_inputs(card, 64, 64, 36)
+    alpha = torch.tensor(1e-3, device=card)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="d % 8"):
+        fb.big_sae_forward(p, x, compute_dtype=BF16)
+    with pytest.raises(ValueError, match="d % 8"):
+        fb.big_sae_backward(p, alpha, x, x, compute_dtype=BF16)
+    with pytest.raises(ValueError, match="no kernel tiles"):
+        fb.fused_big_sae_loss_and_grads(p, x, 1e-3, False,
+                                        compute_dtype=BF16)
+    assert not any(_build.LAUNCHES.values())
+    p, x = _big_inputs(card, 64, 64, 40)
+    with pytest.raises(ValueError, match="float32"):
+        fb.big_sae_forward(p, x.to(torch.bfloat16), compute_dtype=BF16)
