@@ -124,7 +124,35 @@ Phases — any failure raises, and the script exits non-zero with no result:
    bf16 form and each of its launches timed beside its plain version, the
    bf16 step's ms and acts/s beside the fp32 step's; (e) the two forms
    join the kernels line;
-12. summary: one ``{"kernels": [...]}`` line, the card's name and power
+12. the model zoo (the rest of slice 1 and the sweep's group
+   experiments): (a) the JAX package's recovery gate
+   (``tests/test_synthetic_recovery.py``: d=64, 96 true features, three
+   192-atom tied dicts, batch 512, 2000 steps, lr 3e-3) through
+   ``Ensemble``'s default path — the tied kernels, once a step — with
+   best representedness > 0.9 and lowest FVU < 0.15; then
+   ``basic_l1_sweep`` at the main shape over a ``SparseMixDataset`` store
+   (3 chunks of 32,768 rows at d=512) on ``train_step_tiled``, its dicts'
+   ``mmcs_to_fixed``, representedness and ``hungarian_mcs`` against the
+   ground truth, and ``n_ever_active`` and ``calc_moments_streaming``
+   over the store on the card against the same scans on the CPU (counts
+   equal, moments within RTOL_MOMENTS); (b) the seven group experiments
+   (``topk``, ``residual_denoising``, ``centered_l1_range``,
+   ``reverse_l1_range``, ``positive_l1_range``, ``semilinear_l1_range``,
+   ``rica``) through the sweep's CLI over 2 chunks of phase 8's store:
+   their ``learned_dicts.pkl`` loads, every member's logged loss is
+   finite, acts/s over the second chunk; and each experiment's entries
+   at the full width (two grid points) three steps on the card against
+   the CPU from one init (losses within RTOL_PATH_LOSS, weights within
+   REL_FRO_PATH — LISTA's on the features whose shrinkage never flipped
+   between the two, the flips counted and capped); (c) ``topk`` (six
+   buckets) SIGKILLed mid-swap of its second checkpoint set and resumed,
+   bitwise (b)'s run; (d)
+   ``export_reference_learned_dicts`` of (a)'s and (b)'s exportable dicts
+   and ``load_reference_learned_dicts`` back on the card: equal fields,
+   encode within RTOL_INTEROP (a TopK dict's selection may flip where two
+   scores lie within a rounding: at most one code per million), the other
+   classes refused;
+13. summary: one ``{"kernels": [...]}`` line, the card's name and power
    limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds the four chunked ensemble kernels against their plain
@@ -3327,6 +3355,540 @@ def big_bf16_phase(big_store: Path, g: torch.Generator) -> dict:
 
 # --- main --------------------------------------------------------------------
 
+# -- phase 12: the model zoo, the metrics and the reference interop ----------
+
+RECOVERY_STEPS, RECOVERY_L1S = 2000, (3e-4, 1e-3, 3e-3)
+# SparseMixDataset store of phase 12 (a): d=512, its ground truth and noise
+MIX_GT, MIX_NONZERO, MIX_DECAY, MIX_NOISE, MIX_CHUNKS = 1024, 32, 0.999, \
+    0.01, 3
+GROUP_EXPERIMENTS = ("topk", "residual_denoising", "centered_l1_range",
+                     "reverse_l1_range", "positive_l1_range",
+                     "semilinear_l1_range", "rica")
+GROUP_CHUNKS, GROUP_SIDE_STEPS = 2, 3
+# LISTA's whole weights, card vs CPU after GROUP_SIDE_STEPS steps, as
+# ‖Δ‖/‖W‖. Phase 6's REL_FRO_PATH does not hold: after the first step
+# 3-105 of its 6.3M elements went the other way and the rest already
+# read 5.7e-5-3.0e-4 (many gradients lie near Adam's eps, where the
+# update follows their rounding); by the second step the shrinkage flips
+# reach over half the features. scripts/lista_card_vs_cpu.py, seeds 0-7,
+# on an H100 80GB HBM3 at 700 W: 3.40e-4 to 6.25e-4, first-step flips 0-7.
+REL_FRO_LISTA = 2e-3
+# reference round trip: the loaded dict's encode of one batch
+RTOL_INTEROP = 1e-6
+RTOL_MOMENTS = 1e-4
+
+
+def recovery_gate() -> dict:
+    """(a) the JAX package's recovery gate (tests/test_synthetic_recovery.py
+    test_dictionary_recovery_gate) on the card: d=64, 96 true features,
+    192-atom tied dicts at three L1 values, batch 512, 2000 steps, lr
+    3e-3, through Ensemble's default use_fused — the tied kernels."""
+    from sparse_coding_tpu_torch.data.synthetic import RandomDatasetGenerator
+    from sparse_coding_tpu_torch.ensemble import Ensemble
+    from sparse_coding_tpu_torch.metrics.core import (
+        fraction_variance_unexplained,
+        representedness,
+    )
+    from sparse_coding_tpu_torch.models.sae import FunctionalTiedSAE
+    from sparse_coding_tpu_torch.ops import _build
+
+    d, n_true = 64, 96
+    g = torch.Generator(DEV).manual_seed(SEED)
+    gen = RandomDatasetGenerator.create(g, d, n_true, 5, 0.99)
+    gi = torch.Generator().manual_seed(SEED)
+    members = [FunctionalTiedSAE.init(gi, d, 2 * n_true, l1_alpha=l1)
+               for l1 in RECOVERY_L1S]
+    ens = Ensemble(members, FunctionalTiedSAE, lr=3e-3, device=DEV)
+    _build.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(RECOVERY_STEPS):
+        ens.step_batch(gen.batch(g, 512))
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {k: _build.LAUNCHES[k] for k in TIED_KERNELS}
+    if ens.path_resolved != {("train_step_tiled", "default"): 1} or any(
+            v != RECOVERY_STEPS for v in launches.values()):
+        raise AssertionError(f"(a) recovery: path {ens.path_resolved}, "
+                             f"launches {launches}")
+    dicts = ens.to_learned_dicts()
+    eval_batch = gen.batch(g, 2048)
+    rep_ = [float(representedness(gen.feats, ld.to(DEV)).mean())
+            for ld in dicts]
+    fvus = [float(fraction_variance_unexplained(ld.to(DEV), eval_batch))
+            for ld in dicts]
+    if not (max(rep_) > 0.9 and min(fvus) < 0.15):
+        raise AssertionError(f"(a) recovery gate: representedness {rep_}, "
+                             f"FVU {fvus}")
+    log(f"  (a) recovery gate on train_step_tiled ({RECOVERY_STEPS} launches "
+        f"of each tied kernel, {wall:.1f} s): representedness "
+        f"{[round(r, 4) for r in rep_]} (> 0.9), FVU "
+        f"{[round(f, 4) for f in fvus]} (< 0.15)")
+    return {"wall_s": wall, "launches": launches,
+            "path_resolved": {f"{k[0]}:{k[1]}": v
+                              for k, v in ens.path_resolved.items()},
+            "representedness": rep_, "fvu": fvus, "dicts": dicts}
+
+
+def write_mix_store(folder: Path):
+    """A SparseMixDataset store at d=512 (correlated codes over MIX_GT
+    true features plus noise), bfloat16 on disk; returns its generator."""
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkWriter
+    from sparse_coding_tpu_torch.data.synthetic import SparseMixDataset
+
+    g = torch.Generator(DEV).manual_seed(SEED + 12)
+    gen = SparseMixDataset.create(g, D, MIX_GT, MIX_NONZERO, MIX_DECAY,
+                                  MIX_NOISE)
+    w = ChunkWriter(folder, D, chunk_size_gb=ROWS_PER_CHUNK * D * 2 / 2**30,
+                    dtype="bfloat16")
+    n_rows = MIX_CHUNKS * ROWS_PER_CHUNK
+    for lo in range(0, n_rows, 8192):
+        w.add(gen.batch(g, min(8192, n_rows - lo)))
+    w.finalize({"synthetic": "SparseMixDataset"})
+    return gen
+
+
+def mix_sweep_and_metrics(tmp: Path) -> dict:
+    """(a) basic_l1_sweep at the canonical shape over a SparseMixDataset
+    store, the metrics against its ground truth, and the streaming scans
+    over the store on the card against the same scans on the CPU."""
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+    from sparse_coding_tpu_torch.metrics.core import (
+        calc_moments_streaming,
+        hungarian_mcs,
+        mmcs_to_fixed,
+        n_ever_active,
+        representedness,
+    )
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.train.basic_sweep import basic_l1_sweep
+
+    store = tmp / "mix_store"
+    gen = write_mix_store(store)
+    steps = MIX_CHUNKS * ROWS_PER_CHUNK // BATCH
+    l1_values = [float(v) for v in np.logspace(-4, -2, N_MEMBERS)]
+    _build.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    dicts = basic_l1_sweep(store, tmp / "mix_out", l1_values,
+                           dict_ratio=RATIO, batch_size=BATCH, lr=LR,
+                           n_epochs=1, seed=SEED, device=DEV)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {k: _build.LAUNCHES[k] for k in TIED_KERNELS}
+    if any(v != steps for v in launches.values()):
+        raise AssertionError(f"(a) mix sweep launches {launches}, want "
+                             f"{steps} each")
+    truth = gen.feats
+    metrics = []
+    for ld, _ in dicts:
+        ld = ld.to(DEV)
+        metrics.append({
+            "mmcs_to_fixed": float(mmcs_to_fixed(ld, truth)),
+            "representedness": float(representedness(truth, ld).mean())})
+    best = max(range(N_MEMBERS), key=lambda i: metrics[i]["representedness"])
+    # the assignment runs on the host (scipy), a second or so a member:
+    # every eighth member and the best
+    for i in sorted({*range(0, N_MEMBERS, 8), best}):
+        metrics[i]["hungarian_mcs"] = float(hungarian_mcs(
+            truth, dicts[i][0].get_learned_dict().to(DEV)).mean())
+    for m in metrics:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"(a) non-finite metrics {m}")
+    probe = dicts[N_MEMBERS // 2][0]
+    card_store, cpu_store = ChunkStore(store), ChunkStore(store)
+    timed = {}
+    for side, ld, st in (("card", probe.to(DEV), card_store),
+                         ("cpu", probe.to("cpu"), cpu_store)):
+        sync()
+        t0 = time.perf_counter()
+        n_active = n_ever_active(ld, st, batch_size=BATCH)
+        sync()
+        t1 = time.perf_counter()
+        moments = [t.cpu() for t in calc_moments_streaming(
+            ld, st, batch_size=BATCH)]
+        sync()
+        timed[side] = {"n_ever_active": n_active, "moments": moments,
+                       "n_ever_active_s": t1 - t0,
+                       "moments_s": time.perf_counter() - t1}
+    if timed["card"]["n_ever_active"] != timed["cpu"]["n_ever_active"]:
+        raise AssertionError(f"(a) n_ever_active card "
+                             f"{timed['card']['n_ever_active']} vs CPU "
+                             f"{timed['cpu']['n_ever_active']}")
+    names = ("times_active", "mean", "var", "skew", "kurtosis", "m4")
+    moment_err = {}
+    for name, a, b in zip(names, timed["card"]["moments"],
+                          timed["cpu"]["moments"]):
+        moment_err[name] = compare(f"moments {name}", a, b, RTOL_MOMENTS)
+    log(f"  (a) SparseMixDataset store ({MIX_CHUNKS} chunks of "
+        f"{ROWS_PER_CHUNK} rows, {MIX_GT} true features): basic_l1_sweep "
+        f"{N_MEMBERS} members, {steps} steps on train_step_tiled "
+        f"({launches}) in {wall:.1f} s; best member {best}: mmcs_to_fixed "
+        f"{metrics[best]['mmcs_to_fixed']:.4f}, representedness "
+        f"{metrics[best]['representedness']:.4f}, hungarian_mcs "
+        f"{metrics[best]['hungarian_mcs']:.4f}; member {N_MEMBERS // 2}: "
+        f"n_ever_active {timed['card']['n_ever_active']} (card "
+        f"{timed['card']['n_ever_active_s']:.2f} s, CPU "
+        f"{timed['cpu']['n_ever_active_s']:.2f} s, equal), "
+        f"calc_moments_streaming card {timed['card']['moments_s']:.2f} s, "
+        f"CPU {timed['cpu']['moments_s']:.2f} s, within rtol {RTOL_MOMENTS}")
+    return {"wall_s": wall, "launches": launches, "steps": steps,
+            "metrics": metrics, "best_member": best,
+            "generator": {"activation_dim": D, "n_sparse_components": MIX_GT,
+                          "feature_num_nonzero": MIX_NONZERO,
+                          "feature_prob_decay": MIX_DECAY,
+                          "noise_magnitude_scale": MIX_NOISE,
+                          "rows": MIX_CHUNKS * ROWS_PER_CHUNK},
+            "streaming": {side: {k: v for k, v in t.items()
+                                 if k != "moments"}
+                          for side, t in timed.items()},
+            "moment_err": moment_err, "dicts": dicts}
+
+
+def group_args(experiment: str, store: Path, out: Path, *extra) -> list:
+    args = sweep_args(store, out, "--n_chunks", str(GROUP_CHUNKS), *extra)
+    args[args.index("tied_vs_not")] = experiment
+    return args
+
+
+def small_grid(experiment: str) -> dict:
+    """The first two points of each experiment's default grid, at full
+    width: the card-against-CPU steps."""
+    if experiment == "topk":
+        return {"ks": (4, 8)}
+    if experiment in ("residual_denoising", "rica"):
+        grid = list(np.logspace(-4, -2, 8))[:2]
+    else:
+        from sparse_coding_tpu_torch.train.experiments import DEFAULT_L1_RANGE
+
+        grid = DEFAULT_L1_RANGE[:2]
+    return {"sparsity_range" if experiment == "rica" else "l1_range": grid}
+
+
+def lista_masks(ens, batch: torch.Tensor) -> torch.Tensor:
+    """[members, layers, rows, features] bool, on the CPU: which codes
+    pass a LISTA bucket's shrinkage (|r| > θ) at each unrolled layer, on
+    the bucket's own device and parameters."""
+    from sparse_coding_tpu_torch.models.learned_dict import normalize_rows
+    from sparse_coding_tpu_torch.models.lista import _lista_step
+
+    p = ens.state.params
+    out = []
+    with torch.no_grad():
+        for m in range(ens.n_members):
+            dictionary = normalize_rows(p["decoder"][m])
+            y = x = batch @ dictionary.T
+            layers = []
+            for i in range(p["encoder_layers/W"].shape[1]):
+                layer = {k: p[f"encoder_layers/{k}"][m, i]
+                         for k in ("W", "theta", "rho")}
+                r = y + (batch - y @ dictionary) @ layer["W"].T
+                layers.append((r.abs() > layer["theta"]).cpu())
+                y, x = _lista_step(layer, y, batch, x, dictionary)
+            out.append(torch.stack(layers))
+    return torch.stack(out)
+
+
+# the feature axis of each LISTA leaf that has one (rho has none)
+LISTA_FEATURE_AXIS = {"decoder": 1, "encoder_layers/W": 2,
+                      "encoder_layers/theta": 2}
+
+
+def lista_side_check(name: str, ge, ce, g_masks, c_masks, g_first,
+                     c_first) -> dict:
+    """A LISTA bucket, card against CPU. The shrinkage flips are counted
+    from each side's masks before each step, at every layer: a code
+    within rounding of its threshold θ passes on one side only. The first
+    step's (both sides from the same parameters: rounding alone) are
+    capped at FLIPS_PER_CODE. After the first step, the elements whose
+    Adam update went the other way (2·lr apart: a gradient within
+    rounding of 0) are counted, and the rest read. The whole weights
+    after the last step, every leaf's elements together, are held within
+    REL_FRO_LISTA; the features with no flip at any step are read apart
+    (the gap does not stay on the flipped features: the steps that went
+    the other way reach every feature through the shared dictionary)."""
+    flipped = [g != c for g, c in zip(g_masks, c_masks)]
+    by_step = [int(f.sum()) for f in flipped]
+    # [members, features]: a flip at any step, layer or row
+    keep = ~torch.stack([f.any(dim=2).any(dim=1) for f in flipped]).any(0)
+    kept, every, opposite, first_rest = {}, {}, {}, {}
+    for k, v in ge.state.params.items():
+        a, b = v.detach().cpu(), ce.state.params[k].detach().cpu()
+        every[k] = (a.reshape(-1), b.reshape(-1))
+        axis = LISTA_FEATURE_AXIS.get(k)
+        if axis is not None:
+            a, b = a.movedim(axis, 1)[keep], b.movedim(axis, 1)[keep]
+        kept[k] = (a.reshape(-1), b.reshape(-1))
+        other = (g_first[k] - c_first[k]).abs() > LR
+        opposite[k] = int(other.sum())
+        first_rest[k] = rel_fro(g_first[k][~other], c_first[k][~other])
+    together = lambda pairs: rel_fro(torch.cat([a for a, _ in pairs]),
+                                     torch.cat([b for _, b in pairs]))
+    whole = together(every.values())
+    allowed = max(1, int(FLIPS_PER_CODE * flipped[0].numel()))
+    return {"bucket": name, "flips_by_step": by_step,
+            "codes": flipped[0].numel(), "flips_allowed": allowed,
+            "flipped_features": int((~keep).sum()),
+            "features": int(keep.numel()),
+            "first_step_opposite": opposite,
+            "first_step_rest": first_rest,
+            "rel_fro": whole, "rel_fro_bound": REL_FRO_LISTA,
+            "rel_fro_leaves": {k: rel_fro(a, b)
+                               for k, (a, b) in every.items()},
+            "rel_fro_unflipped": together(kept.values()),
+            "failed": by_step[0] > allowed or not whole <= REL_FRO_LISTA}
+
+
+def card_vs_cpu_steps(experiment: str, store: Path, batches,
+                      seed: int = SEED) -> dict:
+    """The experiment's entries from one init on the card and on the CPU,
+    GROUP_SIDE_STEPS steps on the same batches: per-step losses within
+    RTOL_PATH_LOSS; each bucket's whole weights (every leaf's elements
+    together) within REL_FRO_PATH of the CPU's, a LISTA bucket's within
+    REL_FRO_LISTA, its flips counted (``lista_side_check``). The centered
+    experiment fits its whitening on the card and hands it to the CPU."""
+    from sparse_coding_tpu_torch.config import EnsembleArgs
+    from sparse_coding_tpu_torch.train.experiments import EXPERIMENTS
+
+    cfg = EnsembleArgs(dataset_folder=str(store), batch_size=BATCH, lr=LR,
+                       learned_dict_ratio=RATIO, seed=seed)
+    is_lista = lambda name: name.startswith("lista_denoising_sae")
+    sides = {}
+    grid = small_grid(experiment)
+    for dev in (DEV, "cpu"):
+        entries = EXPERIMENTS[experiment](cfg, None, device=dev, **grid)
+        if experiment == "centered_l1_range" and "centering" not in grid:
+            # the CPU takes the card's whitening (fitted on the card, as
+            # the CLI does): 1/√λ would carry two fits' rounding into
+            # every member's buffers
+            b = entries[0][0].state.buffers
+            grid["centering"] = tuple(
+                b[k][0].cpu().numpy()
+                for k in ("center_trans", "center_rot", "center_scale"))
+        buckets = [(sub or name, e) for ent, _, name in entries
+                   for sub, e in ent.buckets()]
+        losses = {name: [] for name, _ in buckets}
+        masks = {name: [] for name, _ in buckets if is_lista(name)}
+        first = {}
+        for b in batches:
+            b = b.to(dev)
+            for name, e in buckets:
+                if name in masks:
+                    masks[name].append(lista_masks(e, b))
+                losses[name].append(e.step_batch(b).losses["loss"].cpu())
+                if name in masks and name not in first:
+                    first[name] = {k: v.detach().cpu().clone()
+                                   for k, v in e.state.params.items()}
+        sides[dev] = (buckets, losses, masks, first)
+    (gb, gl, gm, gf), (cb, cl, cm, cf) = sides[DEV], sides["cpu"]
+    worst_loss, worst_fro = 0.0, None
+    leaves, lista = {}, []
+    for (name, ge), (_, ce) in zip(gb, cb):
+        if ge.fused_path is not None:
+            raise AssertionError(f"(b) {experiment}/{name} on "
+                                 f"{ge.fused_path}: these families train on "
+                                 "autodiff")
+        for a, b in zip(gl[name], cl[name]):
+            err = float((a - b).abs().max() / b.abs().max())
+            worst_loss = max(worst_loss, err)
+        for k, v in ge.state.params.items():
+            leaves[f"{name}/{k}"] = rel_fro(v.cpu(), ce.state.params[k])
+        if is_lista(name):
+            lista.append(lista_side_check(name, ge, ce, gm[name], cm[name],
+                                          gf[name], cf[name]))
+            continue
+        flat = lambda e: torch.cat([v.detach().cpu().reshape(-1)
+                                    for v in e.state.params.values()])
+        worst_fro = max(worst_fro or 0.0, rel_fro(flat(ge), flat(ce)))
+    failed = (worst_loss > RTOL_PATH_LOSS
+              or (worst_fro is not None and not worst_fro <= REL_FRO_PATH)
+              or any(c["failed"] for c in lista))
+    return {"loss_rel_err": worst_loss, "rel_fro": worst_fro,
+            "rel_fro_bound": REL_FRO_PATH, "rel_fro_leaves": leaves,
+            "lista": lista, "buckets": [name for name, _ in gb],
+            "failed": failed}
+
+
+def group_experiments(store: Path, tmp: Path) -> dict:
+    """(b) the seven group experiments through the CLI over 2 chunks of
+    phase 8's store: artifacts that load, finite member losses, acts/s
+    over the second chunk; and card against CPU for three steps."""
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+    from sparse_coding_tpu_torch.utils.artifacts import load_learned_dicts
+
+    chunk = torch.as_tensor(ChunkStore(store).load_chunk(0))
+    batches = [chunk[i * BATCH:(i + 1) * BATCH].float()
+               for i in range(GROUP_SIDE_STEPS)]
+    rep = {}
+    for exp in GROUP_EXPERIMENTS:
+        out = tmp / f"group_{exp}"
+        wall = sweep_in_process(group_args(exp, store, out),
+                                tmp / f"obs_{exp}")
+        dicts = load_learned_dicts(out / f"_{GROUP_CHUNKS - 1}"
+                                   / f"{exp}_learned_dicts.pkl")
+        losses = [v for r in read_metrics(out / "metrics.jsonl")
+                  for k, v in r.items() if k.endswith("/loss")]
+        if not dicts or not losses or not all(
+                math.isfinite(v) for v in losses):
+            raise AssertionError(f"(b) {exp}: {len(dicts)} dicts, losses "
+                                 f"{losses[:8]}")
+        chunks = [e for e in read_events(tmp / f"obs_{exp}")
+                  if e.get("span") == "sweep.chunk"]
+        acts = chunks[-1]["rows"] / chunks[-1]["train_s"]
+        side = card_vs_cpu_steps(exp, store, batches)
+        rep[exp] = {"wall_s": wall, "n_dicts": len(dicts),
+                    "classes": sorted({type(d).__name__ for d, _ in dicts}),
+                    "acts_per_s_chunk2": acts, "out": str(out), **side}
+        log(f"  (b) {exp}: {len(dicts)} dicts "
+            f"({', '.join(rep[exp]['classes'])}), {wall:.1f} s, "
+            f"{acts:.0f} acts/s over chunk 2; card vs CPU "
+            f"{GROUP_SIDE_STEPS} steps: losses {side['loss_rel_err']:.1e}"
+            + (f", weights {side['rel_fro']:.1e} (bound "
+               f"{side['rel_fro_bound']})" if side["rel_fro"] is not None
+               else "")
+            + "".join(f"; {c['bucket']}: weights {c['rel_fro']:.2e} "
+                      f"(bound {c['rel_fro_bound']}), {c['flips_by_step']} "
+                      f"shrinkage flips by step of {c['codes']} codes a step"
+                      f" (cap {c['flips_allowed']} on the first), "
+                      f"{sum(c['first_step_opposite'].values())} elements "
+                      "stepped the other way at the first"
+                      for c in side["lista"]))
+    bad = {exp: r for exp, r in rep.items() if r["failed"]}
+    if bad:
+        raise AssertionError(f"(b) card vs CPU beyond RTOL_PATH_LOSS or the "
+                             f"weights' bound: {bad}")
+    return rep
+
+
+def topk_kill_and_resume(store: Path, tmp: Path, ref: Path) -> dict:
+    """(c) topk (six buckets) killed mid-swap of the second chunk's
+    checkpoint set, then resumed: dicts and ckpt/ bitwise (b)'s run."""
+    out = tmp / "group_topk_killed"
+    args = group_args("topk", store, out)
+    killed = sweep_subprocess(args, tmp / "obs_topk_killed",
+                              crash_plan="ckpt.swap:nth=2")
+    if killed.returncode != -9 or "SIGKILL at site 'ckpt.swap'" not in \
+            killed.stderr:
+        raise AssertionError(f"(c) topk kill: rc {killed.returncode}\n"
+                             f"{killed.stderr[-3000:]}")
+    t0 = time.perf_counter()
+    sweep_in_process(args + ["--resume", "true"], tmp / "obs_topk_resume")
+    resume_s = time.perf_counter() - t0
+    names = sorted(p.name for p in (ref / "ckpt").iterdir())
+    if [n for n in names if n.endswith(".tensors")] != [
+            f"topk_{j}.tensors" for j in range(6)]:
+        raise AssertionError(f"(c) checkpoint files {names}")
+    if sorted(p.name for p in (out / "ckpt").iterdir()) != names:
+        raise AssertionError("(c) the resumed run's ckpt/ holds other files")
+    for name in names:
+        if (out / "ckpt" / name).read_bytes() != \
+                (ref / "ckpt" / name).read_bytes():
+            raise AssertionError(f"(c) ckpt/{name} differs")
+    for name in ("topk_learned_dicts.pkl", "topk_eval.json"):
+        f = Path(f"_{GROUP_CHUNKS - 1}") / name
+        if (out / f).read_bytes() != (ref / f).read_bytes():
+            raise AssertionError(f"(c) {f} differs")
+    log(f"  (c) topk killed at ckpt.swap hit 2, resumed in {resume_s:.1f} s: "
+        f"six buckets' dicts and ckpt/ bitwise the uninterrupted run's")
+    return {"resume_s": resume_s, "files": names}
+
+
+def reference_round_trip(tmp: Path, pairs) -> dict:
+    """(d) export_reference_learned_dicts of each exportable dict, then
+    load_reference_learned_dicts on the card: equal fields, encode within
+    RTOL_INTEROP; the classes the reference cannot hold raise."""
+    from sparse_coding_tpu_torch.utils.ref_interop import (
+        export_reference_learned_dicts,
+        load_reference_learned_dicts,
+    )
+
+    exportable = ("UntiedSAE", "TiedSAE", "TiedCenteredSAE", "ReverseSAE",
+                  "TopKLearnedDict")
+    g = torch.Generator().manual_seed(12)
+    ok = [(ld, h) for ld, h in pairs if type(ld).__name__ in exportable]
+    refused = []
+    for ld, h in pairs:
+        if type(ld).__name__ not in exportable:
+            try:
+                export_reference_learned_dicts([(ld, h)], tmp / "no.pt")
+            except NotImplementedError:
+                refused.append(type(ld).__name__)
+                continue
+            raise AssertionError(f"(d) {type(ld).__name__} exported")
+    path = tmp / "exported_learned_dicts.pt"
+    export_reference_learned_dicts(ok, path)
+    back = load_reference_learned_dicts(path, device=DEV)
+    worst, flips = 0.0, 0
+    for (ld, h), (bd, bh) in zip(ok, back):
+        ld = ld.to(DEV)
+        # the loader drops a do-nothing centering buffer (None)
+        d = ld.get_learned_dict().shape[-1]
+        trivial = {"centering_rot": torch.eye(d, device=DEV),
+                   "centering_trans": torch.zeros(d, device=DEV),
+                   "centering_scale": torch.ones(d, device=DEV)}
+        compare(f"(d) {type(ld).__name__} dictionary", bd.get_learned_dict(),
+                ld.get_learned_dict(), RTOL_INTEROP)
+        for f in ("encoder_bias", *trivial, "k"):
+            a = getattr(ld, f, None)
+            if a is None:
+                continue
+            b = getattr(bd, f)
+            if not isinstance(a, torch.Tensor):
+                if a != b:
+                    raise AssertionError(f"(d) {f}: {a} != {b}")
+                continue
+            compare(f"(d) {type(ld).__name__}.{f}",
+                    trivial[f] if b is None else b, a, 0.0)
+        xd = torch.randn(BATCH, d, generator=g).to(DEV)
+        want = ld.encode(ld.center(xd))
+        got = bd.encode(bd.center(xd))
+        # the reference stores a TopK dict normalized, and its encode
+        # normalizes again: a score within a rounding of the k-th largest
+        # can change places with it (a selection flip, two codes)
+        flipped = (got != 0) != (want != 0)
+        n_flips = int(flipped.sum())
+        flips = max(flips, n_flips)
+        if n_flips > FLIPS_PER_CODE * want.numel():
+            raise AssertionError(f"(d) {type(ld).__name__}: {n_flips} codes "
+                                 "change sides of the selection")
+        keep = ~flipped.any(dim=-1, keepdim=True)
+        err = float(((got - want) * keep).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+        worst = max(worst, err)
+    if worst > RTOL_INTEROP:
+        raise AssertionError(f"(d) encode after the round trip {worst:.2e}")
+    log(f"  (d) reference round trip: {len(ok)} dicts exported and loaded "
+        f"back on the card (classes "
+        f"{sorted({type(d).__name__ for d, _ in ok})}), encode within "
+        f"{worst:.1e} ({flips} selection flips at most in a dict); refused "
+        f"as in the JAX exporter: {sorted(set(refused))}")
+    return {"exported": len(ok), "encode_rel_err": worst,
+            "max_selection_flips": flips, "refused": sorted(set(refused))}
+
+
+def zoo_phase(sweep_store: Path, tmp: Path) -> dict:
+    """Phase 12 — the rest of slice 1 and the sweep's group experiments:
+    (a) the recovery gate on the tied kernels and the metrics over a
+    SparseMixDataset store; (b) the seven group experiments through the
+    CLI, card against CPU; (c) a kill and resume of topk; (d) the
+    reference round trip."""
+    from sparse_coding_tpu_torch.utils.artifacts import load_learned_dicts
+
+    rep = {"recovery": recovery_gate()}
+    rep["mix"] = mix_sweep_and_metrics(tmp)
+    rep["groups"] = group_experiments(sweep_store, tmp)
+    rep["topk_resume"] = topk_kill_and_resume(
+        sweep_store, tmp, Path(rep["groups"]["topk"]["out"]))
+    pairs = ([(d, {"phase": "recovery"}) for d in rep["recovery"]["dicts"]]
+             + rep["mix"]["dicts"])
+    for exp, r in rep["groups"].items():
+        pairs += load_learned_dicts(Path(r["out"]) / f"_{GROUP_CHUNKS - 1}"
+                                    / f"{exp}_learned_dicts.pkl")
+    rep["interop"] = reference_round_trip(tmp, pairs)
+    del rep["recovery"]["dicts"], rep["mix"]["dicts"]
+    return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=Path, default=None,
@@ -3512,6 +4074,14 @@ def main() -> int:
             "bench_suite's big-SAE variants")
         report["big_bf16"] = big_bf16_phase(big_store,
                                             torch.Generator().manual_seed(11))
+        log(f"  done at {time.perf_counter() - t_start:.1f} s")
+
+        log(f"phase 12: the model zoo — the recovery gate on the tied "
+            f"kernels, basic_l1_sweep over a SparseMixDataset store and its "
+            f"metrics; the {len(GROUP_EXPERIMENTS)} group experiments through "
+            f"the CLI ({GROUP_CHUNKS} chunks each), card vs CPU; a topk kill "
+            "and resume; the reference round trip")
+        report["zoo"] = zoo_phase(sweep_store, Path(tmp))
         log(f"  done at {time.perf_counter() - t_start:.1f} s")
 
     timing.update(big["timing"])

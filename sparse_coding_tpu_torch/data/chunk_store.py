@@ -36,6 +36,11 @@ same bytes. The counter ``data.chunk_reads`` (labelled ``path=native``,
 
 ``device_prefetch`` is ``data/ingest.py::device_batches``, the
 host→device stage.
+
+A folder of the reference's torch-saved ``<i>.pt`` chunks opens too
+(``format="pt"``, read through ``utils/ref_interop.py::read_pt_chunk``,
+finite-checked, without native readahead); ``import_reference_chunks``
+converts one to ``.npy`` chunks when read throughput matters.
 """
 
 from __future__ import annotations
@@ -225,11 +230,17 @@ class ChunkStore:
         meta_path = self.folder / "meta.json"
         self.meta = (json.loads(meta_path.read_text())
                      if meta_path.exists() else {})
+        self.format = "npy"
         self._paths = {int(p.stem): p for p in self.folder.glob("*.npy")
                        if p.stem.isdigit()}
+        if not self._paths:
+            pt = {int(p.stem): p for p in self.folder.glob("*.pt")
+                  if p.stem.isdigit()}
+            if pt:
+                self._paths, self.format = pt, "pt"
         declared = self.meta.get("n_chunks")
         if not self._paths and declared is None:
-            raise FileNotFoundError(f"no .npy chunks in {self.folder}")
+            raise FileNotFoundError(f"no .npy or .pt chunks in {self.folder}")
         self._n_chunks = (int(declared) if declared is not None
                           else max(self._paths) + 1)
         self.verify_digests = verify_digests
@@ -237,11 +248,21 @@ class ChunkStore:
         self._verified: set[int] = set()
         # chunks a previous process proved corrupt are known at open
         self.quarantined: set[int] = set(load_quarantine(self.folder))
-        if self._paths:
+        if not self._paths or (self.format == "pt"
+                               and "activation_dim" in self.meta):
+            # every file moved aside: the meta that admitted us
+            self.activation_dim = int(self.meta["activation_dim"])
+        elif self.format == "pt":
+            from sparse_coding_tpu_torch.utils.ref_interop import (
+                read_pt_chunk,
+            )
+
+            # the on-disk dtype, no float32 copy, just for the width
+            self.activation_dim = int(read_pt_chunk(
+                self._paths[min(self._paths)], dtype=np.float16).shape[-1])
+        else:
             first = np.load(self._paths[min(self._paths)], mmap_mode="r")
             self.activation_dim = int(first.shape[-1])
-        else:  # every file moved aside: the meta that admitted us
-            self.activation_dim = int(self.meta["activation_dim"])
 
     @property
     def n_chunks(self) -> int:
@@ -265,6 +286,8 @@ class ChunkStore:
         tensor for ``torch.bfloat16``). Transient I/O errors get a bounded
         retry; corruption raises at once."""
         path = self._path(i)
+        if self.format == "pt":
+            return self._load_pt(int(i), path, dtype)
 
         def _load_once():
             try:
@@ -283,6 +306,22 @@ class ChunkStore:
             return out
 
         return retry_io(_load_once, attempts=IO_RETRIES)
+
+    def _load_pt(self, i: int, path: Path, dtype):
+        """A reference ``.pt`` chunk: it carries no digest, so the finite
+        check is the one corruption it can show."""
+        from sparse_coding_tpu_torch.utils.ref_interop import read_pt_chunk
+
+        arr = read_pt_chunk(path)
+        if self.verify_finite and i not in self._verified \
+                and not np.isfinite(arr).all():
+            raise ChunkCorruptionError(i, path,
+                                       "non-finite values in decoded rows")
+        self._verified.add(i)
+        _count_read("numpy")
+        if dtype is torch.bfloat16:
+            return torch.from_numpy(arr).to(torch.bfloat16)
+        return arr.astype(dtype, copy=False)
 
     def _finish_raw(self, i: int, raw: np.ndarray, dtype, path: Path):
         """The one integrity gate: the digest meta.json recorded, then the
@@ -338,7 +377,8 @@ class ChunkStore:
         def start(ci: int) -> bool:
             # never prefetch a ledger-known chunk; a bad header degrades
             # to the foreground read, which types the failure
-            if self.quarantine_corrupt and ci in self.quarantined:
+            if self.format == "pt" or (self.quarantine_corrupt
+                                       and ci in self.quarantined):
                 return False
             try:
                 return prefetcher.start(self._path(ci))

@@ -1,9 +1,11 @@
 """Synthetic sparse-dictionary data (the JAX package's
-``data/synthetic.py::RandomDatasetGenerator``).
+``data/synthetic.py``: ``RandomDatasetGenerator`` and
+``SparseMixDataset``).
 
 A unit-norm ground-truth dictionary, sparse codes with geometric-decay
 inclusion probabilities (optionally correlated through a Gaussian
-copula), data = (codes · strengths) @ feats. Batches are drawn on the
+copula), data = (codes · strengths) @ feats; ``SparseMixDataset`` adds
+multivariate-normal noise. Batches are drawn on the
 generator's device from an explicit ``torch.Generator``; the numbers differ
 from ``jax.random``'s for the same seed, the distribution does not.
 """
@@ -25,15 +27,31 @@ def generate_rand_feats(generator: torch.Generator, feat_dim: int,
     return feats / torch.linalg.vector_norm(feats, dim=-1, keepdim=True)
 
 
-def generate_corr_matrix(generator: torch.Generator, num_feats: int,
-                         device="cpu") -> torch.Tensor:
-    """Random symmetric matrix shifted to be positive definite."""
-    m = torch.rand((num_feats, num_feats), generator=generator, device=device)
+def corr_from_uniform(m: torch.Tensor) -> torch.Tensor:
+    """A square matrix of uniform draws → the correlation matrix: its
+    symmetric part, shifted by 1.001·|λ_min| when that is negative. The
+    deterministic half of :func:`generate_corr_matrix`."""
     m = (m + m.T) / 2.0
     min_eig = torch.linalg.eigvalsh(m).min()
     if min_eig < 0:
-        m = m - 1.001 * min_eig * torch.eye(num_feats, device=device)
+        m = m - 1.001 * min_eig * torch.eye(m.shape[0], dtype=m.dtype,
+                                            device=m.device)
     return m
+
+
+def generate_corr_matrix(generator: torch.Generator, num_feats: int,
+                         device="cpu") -> torch.Tensor:
+    """Random symmetric matrix shifted to be positive definite."""
+    return corr_from_uniform(torch.rand((num_feats, num_feats),
+                                        generator=generator, device=device))
+
+
+def noise_batch(generator: torch.Generator, noise_chol: torch.Tensor,
+                scale: float, batch_size: int) -> torch.Tensor:
+    """Multivariate-normal noise: scale · (z @ Lᵀ), z standard normal."""
+    z = torch.randn((batch_size, noise_chol.shape[0]), generator=generator,
+                    device=noise_chol.device, dtype=noise_chol.dtype)
+    return scale * (z @ noise_chol.T)
 
 
 @dataclasses.dataclass
@@ -95,3 +113,42 @@ class RandomDatasetGenerator:
 
     def batch(self, generator: torch.Generator, batch_size: int) -> torch.Tensor:
         return self.batch_with_codes(generator, batch_size)[1]
+
+
+@dataclasses.dataclass
+class SparseMixDataset:
+    """Correlated sparse codes plus covariance noise: data = the
+    correlated generator's batch + ``noise_magnitude_scale`` · N(0, Σ),
+    Σ the identity unless ``noise_covariance`` is given."""
+
+    base: RandomDatasetGenerator
+    noise_chol: torch.Tensor  # [d, d]
+    noise_magnitude_scale: float = 0.0
+
+    @classmethod
+    def create(cls, generator: torch.Generator, activation_dim: int,
+               n_sparse_components: int, feature_num_nonzero: int,
+               feature_prob_decay: float, noise_magnitude_scale: float,
+               noise_covariance: Optional[torch.Tensor] = None
+               ) -> "SparseMixDataset":
+        base = RandomDatasetGenerator.create(
+            generator, activation_dim, n_sparse_components,
+            feature_num_nonzero, feature_prob_decay, correlated=True)
+        device = generator.device
+        noise_chol = (torch.eye(activation_dim, device=device)
+                      if noise_covariance is None else
+                      torch.linalg.cholesky(torch.as_tensor(
+                          noise_covariance, dtype=torch.float32,
+                          device=device)))
+        return cls(base=base, noise_chol=noise_chol,
+                   noise_magnitude_scale=float(noise_magnitude_scale))
+
+    @property
+    def feats(self) -> torch.Tensor:
+        return self.base.feats
+
+    def batch(self, generator: torch.Generator,
+              batch_size: int) -> torch.Tensor:
+        sparse = self.base.batch(generator, batch_size)
+        return sparse + noise_batch(generator, self.noise_chol,
+                                    self.noise_magnitude_scale, batch_size)

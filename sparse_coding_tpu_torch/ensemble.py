@@ -1,5 +1,6 @@
-"""The ensemble training engine (the JAX package's ``ensemble.py`` for the
-tied, masked-tied and untied families, single device).
+"""The ensemble training engine (the JAX package's ``ensemble.py``,
+single device): ``Ensemble`` for one bucket, ``EnsembleGroup`` for members
+split into buckets by their static buffers.
 
 One bucket of N same-shape members is stacked along a leading member axis.
 A step takes one [B, d] batch shared by every member and runs either
@@ -14,6 +15,12 @@ A step takes one [B, d] batch shared by every member and runs either
   K6), ``two_stage_tiled`` (K7) and ``train_step_tiled`` (K7 + K6, the
   default). Masked-tied: ``two_stage`` and ``two_stage_tiled`` (K1/K3 with
   the bucket's ``coef_mask``; the default is the tiled one).
+
+Any other family (TopK, LISTA, RICA, the positive, semilinear, reverse,
+thresholding and tied-centered SAEs, a tied SAE with a non-identity
+centering) trains on the autodiff path. Params may nest one level of
+dicts (LISTA's stacked ``encoder_layers``): the state holds them under
+flat ``"outer/inner"`` keys, and the signature sees the nesting.
 
 Adam is optax's ``scale_by_adam`` with eps_root=0, exactly: per-member
 count [N] int32 with a saturating increment, bias corrections
@@ -35,6 +42,7 @@ from sparse_coding_tpu_torch import resolve_device
 from sparse_coding_tpu_torch.models.signatures import AuxData
 from sparse_coding_tpu_torch.ops import roofline
 from sparse_coding_tpu_torch.ops.roofline import KERNEL_PATHS
+from sparse_coding_tpu_torch.utils.tree import flatten_tree, unflatten_tree
 
 Tensor = torch.Tensor
 _STATIC_TYPES = (int, float, bool, str, type(None))
@@ -198,7 +206,7 @@ def make_train_step(sig: Any, adam_hypers: tuple[float, float, float],
     b1, b2, eps = adam_hypers
 
     def member_loss(p, b, x):
-        loss, aux = sig.loss(p, merge_buffers(b, statics), x)
+        loss, aux = sig.loss(unflatten_tree(p), merge_buffers(b, statics), x)
         return loss, (aux.losses, aux.l0, aux.feat_activity)
 
     grad_fn = torch.func.vmap(
@@ -560,8 +568,9 @@ class Ensemble:
             raise ValueError("members with differing static buffers cannot "
                              "share a bucket")
         dev = self.device
-        params = {k: torch.stack([_as_tensor(p[k], dev) for p, _ in members])
-                  for k in members[0][0]}
+        flat = [flatten_tree(p) for p, _ in members]
+        params = {k: torch.stack([_as_tensor(p[k], dev) for p in flat])
+                  for k in flat[0]}
         buffers = {k: torch.stack([_as_tensor(a[k], dev) for a, _ in split])
                    for k in split[0][0]}
         n = len(members)
@@ -663,17 +672,20 @@ class Ensemble:
         on the card, or with a forced path, it raises."""
         if batch_size == self._resolved_batch:
             return
-        enc = self.state.params.get("encoder")
+        if self._fused_family is None:
+            n_feats = d = 0  # no kernel shape, maybe no encoder
+        else:
+            _, n_feats, d = (int(n) for n in
+                             self.state.params["encoder"].shape)
         plan = roofline.choose_plan(
-            batch=batch_size, n_feats=int(enc.shape[1]),
-            d=int(enc.shape[2]), family=self._fused_family,
-            forced_path=self._forced_fused_path)
+            batch=batch_size, n_feats=n_feats, d=d,
+            family=self._fused_family, forced_path=self._forced_fused_path)
         if plan.path is None and self._fused_family is not None and (
                 self._forced_fused_path or self._fused_explicit
                 or self.device.type == "cuda"):
             raise ValueError(
                 f"the kernels do not take batch={batch_size}, "
-                f"n_feats={enc.shape[1]}, d={enc.shape[2]} ({plan.reason}); "
+                f"n_feats={n_feats}, d={d} ({plan.reason}); "
                 "pass use_fused=False to train this bucket on autodiff")
         self._step_fn = (self._standard_step if plan.path is None
                          else self._step_for_path(plan.path))
@@ -730,13 +742,78 @@ class Ensemble:
         return StepCost(flops=flops, path=path, activations=int(batch_rows))
 
     def unstack(self) -> list[tuple[dict, dict]]:
-        """Per-member (params, buffers incl. statics) as CPU tensors."""
+        """Per-member (params, buffers incl. statics) as CPU tensors, the
+        params in the signature's nesting."""
         params = {k: v.cpu() for k, v in self.state.params.items()}
         buffers = {k: v.cpu() for k, v in self.state.buffers.items()}
-        return [({k: v[i] for k, v in params.items()},
+        return [(unflatten_tree({k: v[i] for k, v in params.items()}),
                  merge_buffers({k: v[i] for k, v in buffers.items()},
                                self.state.static_buffers))
                 for i in range(self.n_members)]
 
     def to_learned_dicts(self) -> list:
         return [self.sig.to_learned_dict(p, b) for p, b in self.unstack()]
+
+    def buckets(self) -> list[tuple[str, "Ensemble"]]:
+        """``[(bucket name, Ensemble)]``, as :meth:`EnsembleGroup.buckets`:
+        one unnamed bucket, itself (the sweep names it after its
+        entry)."""
+        return [("", self)]
+
+
+def bucket_name(sig: Any, statics: StaticBuffers) -> str:
+    """The JAX package's bucket name: the signature's name, then each
+    static buffer as ``{key}{value}`` (``topk_k4``)."""
+    name = getattr(sig, "signature_name", sig.__name__)
+    return name + ("_" + "_".join(f"{k}{v}" for k, v in statics)
+                   if statics else "")
+
+
+class EnsembleGroup:
+    """Buckets trained together on one data stream. Members are bucketed
+    by their static buffers, in order of first appearance; each bucket is
+    its own :class:`Ensemble` (TopK members with k = 4, 8, 16 form three),
+    and the card queues every bucket's step without waiting."""
+
+    def __init__(self, ensembles: dict[str, Ensemble]):
+        self.ensembles = dict(ensembles)
+
+    @classmethod
+    def build(cls, sig: Any, member_inits: Sequence[tuple[dict, dict]],
+              lr: float = 1e-3, **ensemble_kwargs) -> "EnsembleGroup":
+        """Bucket ``member_inits`` by static buffers and build one
+        Ensemble per bucket (``ensemble_kwargs`` go to each)."""
+        buckets: dict[StaticBuffers, list] = {}
+        for member in member_inits:
+            buckets.setdefault(split_buffers(member[1])[1], []).append(member)
+        return cls({bucket_name(sig, statics): Ensemble(members, sig, lr=lr,
+                                                        **ensemble_kwargs)
+                    for statics, members in buckets.items()})
+
+    def step_batch(self, batch) -> dict[str, AuxData]:
+        return {name: ens.step_batch(batch)
+                for name, ens in self.ensembles.items()}
+
+    def run_steps(self, batches) -> dict[str, AuxData]:
+        """K steps per bucket over one [K, B, d] stack."""
+        return {name: ens.run_steps(batches)
+                for name, ens in self.ensembles.items()}
+
+    def step_cost(self, batch_rows: int):
+        """The buckets' step costs combined (``obs.combine_costs``)."""
+        from sparse_coding_tpu_torch.obs.perf import combine_costs
+
+        return combine_costs([ens.step_cost(batch_rows)
+                              for ens in self.ensembles.values()])
+
+    def to_learned_dicts(self) -> dict[str, list]:
+        return {name: ens.to_learned_dicts()
+                for name, ens in self.ensembles.items()}
+
+    def buckets(self) -> list[tuple[str, Ensemble]]:
+        """``[(bucket name, Ensemble)]`` in insertion order."""
+        return list(self.ensembles.items())
+
+
+# what a sweep entry trains: ``buckets()`` walks either kind
+EnsembleLike = Ensemble | EnsembleGroup

@@ -1,4 +1,39 @@
-"""Trainable signatures and inference dictionaries (tied, untied and
-masked-tied SAEs)."""
+"""Trainable signatures and inference dictionaries. Importing the package
+registers every ported family under its JAX signature name (the
+``ica``, ``nmf``, ``direct_coef`` and ``combination`` families are not
+ported yet)."""
 
 from sparse_coding_tpu_torch.models import learned_dict, sae, signatures  # noqa: F401
+from sparse_coding_tpu_torch.models import (  # noqa: F401
+    lista,
+    pca,
+    positive,
+    rica,
+    semilinear,
+    topk,
+)
+from sparse_coding_tpu_torch.models.learned_dict import (  # noqa: F401
+    AddedNoise,
+    Identity,
+    IdentityPositive,
+    IdentityReLU,
+    LearnedDict,
+    RandomDict,
+    ReverseSAE,
+    Rotation,
+    TiedCenteredSAE,
+    TiedSAE,
+    TopKLearnedDict,
+    UntiedSAE,
+)
+from sparse_coding_tpu_torch.models.sae import (  # noqa: F401
+    FunctionalMaskedSAE,
+    FunctionalMaskedTiedSAE,
+    FunctionalReverseSAE,
+    FunctionalSAE,
+    FunctionalThresholdingSAE,
+    FunctionalTiedCenteredSAE,
+    FunctionalTiedSAE,
+    ThresholdingSAE,
+)
+from sparse_coding_tpu_torch.models.topk import TopKEncoder  # noqa: F401

@@ -58,3 +58,7 @@ def register(name: str):
 
 def get_signature(name: str) -> type:
     return _REGISTRY[name]
+
+
+def signature_names() -> list[str]:
+    return sorted(_REGISTRY)

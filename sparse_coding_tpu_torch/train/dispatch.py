@@ -3,7 +3,8 @@ port's copy of the JAX package's ``train/dispatch.py``, the API of the
 reference's ``dispatch_job_on_chunk`` / ``dispatch_lite`` /
 ``collect_lite``). The reference forks a process per GPU; here each
 ensemble's step is queued on the card without blocking the host, so
-interleaving the step calls keeps every ensemble on one device busy."""
+interleaving the step calls keeps every ensemble on one device busy. An
+``EnsembleGroup`` steps every bucket; its last aux is a dict by bucket."""
 
 from __future__ import annotations
 
@@ -16,14 +17,14 @@ from sparse_coding_tpu_torch.data.chunk_store import (
     device_prefetch,
     shuffled_batches,
 )
-from sparse_coding_tpu_torch.ensemble import Ensemble
+from sparse_coding_tpu_torch.ensemble import EnsembleLike
 
 
-def _queue_chunk(ensembles: Sequence[Ensemble], chunk, batch_size: int,
+def _queue_chunk(ensembles: Sequence[EnsembleLike], chunk, batch_size: int,
                  seed: int, progress=None) -> dict[str, Any]:
     rng = np.random.default_rng(seed)
     total = chunk.shape[0] // batch_size
-    device = ensembles[0].device if ensembles else "cpu"
+    device = ensembles[0].buckets()[0][1].device if ensembles else "cpu"
     last_aux: dict[str, Any] = {}
     for i, batch in enumerate(device_prefetch(
             shuffled_batches(chunk, batch_size, rng), device)):
@@ -34,7 +35,7 @@ def _queue_chunk(ensembles: Sequence[Ensemble], chunk, batch_size: int,
     return last_aux
 
 
-def dispatch_job_on_chunk(ensembles: Sequence[Ensemble], chunk,
+def dispatch_job_on_chunk(ensembles: Sequence[EnsembleLike], chunk,
                           batch_size: int = 1024, seed: int = 0,
                           progress: Optional[Callable[[int, int], None]]
                           = None) -> dict[str, Any]:
@@ -52,13 +53,14 @@ class LiteJob:
         self.last_aux = last_aux
 
     def collect(self):
-        for ens in self.ensembles:
-            if ens.device.type == "cuda":
-                torch.cuda.synchronize(ens.device)
+        for e in self.ensembles:
+            for _, ens in e.buckets():
+                if ens.device.type == "cuda":
+                    torch.cuda.synchronize(ens.device)
         return self.last_aux
 
 
-def dispatch_lite(ensembles: Sequence[Ensemble], chunk,
+def dispatch_lite(ensembles: Sequence[EnsembleLike], chunk,
                   batch_size: int = 1024, seed: int = 0) -> LiteJob:
     """Queue a full chunk pass without waiting (the card works while the
     host e.g. loads the next chunk)."""

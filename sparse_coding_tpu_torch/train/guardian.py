@@ -118,8 +118,9 @@ def _combine(acc, finite, grad_norm, inputs_finite):
 class Guardian:
     """Host-side divergence bookkeeping for one sweep run.
 
-    ``ensembles`` is the sweep's ``[(Ensemble, hypers, name)]``;
-    ``member_names`` the per-entry stream names (the ledger's readable
+    ``ensembles`` is the sweep's ``[(Ensemble | EnsembleGroup, hypers,
+    name)]``; a group's members are keyed by bucket, as in the JAX
+    guardian. ``member_names`` the per-entry stream names (the ledger's readable
     ``member`` field). State lives in ``<out_dir>/guardian.json``,
     written atomically with sorted keys and no clock fields, so an
     interrupted and resumed incident leaves a ledger byte-identical to an
@@ -190,9 +191,9 @@ class Guardian:
             return batch
 
     def _poison_member(self, index: int) -> None:
-        """Member ``index`` of the first sweep entry; out of range is a
-        plan bug and fails loudly."""
-        ens = self.ensembles[0][0]
+        """Member ``index`` of the first bucket of the first sweep entry;
+        out of range is a plan bug and fails loudly."""
+        ens = self.ensembles[0][0].buckets()[0][1]
         if not 0 <= int(index) < ens.n_members:
             raise ValueError(
                 f"sweep.anomaly drill names member={index} but the first "
@@ -296,18 +297,22 @@ class Guardian:
             frozen.append(key)
         # freeze before the durable write: even a failed ledger write
         # leaves this process protected
-        by_entry: dict[int, list[int]] = {}
-        for ens_idx, _, i, _ in newly:
-            by_entry.setdefault(ens_idx, []).append(i)
-        for ens_idx, idxs in by_entry.items():
-            self.ensembles[ens_idx][0].freeze_members(idxs)
+        by_bucket: dict[tuple[int, str], list[int]] = {}
+        for ens_idx, sub, i, _ in newly:
+            by_bucket.setdefault((ens_idx, sub), []).append(i)
+        for (ens_idx, sub), idxs in by_bucket.items():
+            entry, _, entry_name = self.ensembles[ens_idx]
+            for bucket, ens in entry.buckets():
+                if (bucket or entry_name) == (sub or entry_name):
+                    ens.freeze_members(idxs)
         self._write()
         obs.counter("guardian.members_quarantined").inc(len(newly))
         obs.emit_event("guardian.incident", incident="member-divergence",
                        members=frozen, chunk=chunk_index, pos=chunk_pos)
 
     def _dead_fraction(self) -> float:
-        total = sum(e.n_members for e, _, _ in self.ensembles)
+        total = sum(ens.n_members for e, _, _ in self.ensembles
+                    for _, ens in e.buckets())
         return len(self._state["members"]) / max(1, total)
 
     def _escalate(self, chunk_pos: int, chunk_index: int, incident: str,
@@ -372,18 +377,35 @@ class Guardian:
         re-initialized) state predates the freeze."""
         for info in self._state["members"].values():
             for e, _, name in self.ensembles:
-                if name == info["entry"]:
-                    e.freeze_members([info["index"]])
+                if name != info["entry"]:
+                    continue
+                for bucket, ens in e.buckets():
+                    if (bucket or name) == info["bucket"]:
+                        ens.freeze_members([info["index"]])
 
     # -- artifact hygiene -----------------------------------------------------
+
+    def diverged_flat(self, entry_name: str) -> dict[int, dict]:
+        """Flat member index → ledger info for one entry, in the order the
+        sweep flattens a group's dicts (buckets in insertion order)."""
+        out: dict[int, dict] = {}
+        for e, _, name in self.ensembles:
+            if name != entry_name:
+                continue
+            offset = 0
+            for bucket, ens in e.buckets():
+                for info in self._state["members"].values():
+                    if info["entry"] == name and \
+                            info["bucket"] == (bucket or name):
+                        out[offset + info["index"]] = info
+                offset += ens.n_members
+        return out
 
     def tag_hypers(self, entry_name: str,
                    tagged: Sequence[tuple]) -> list[tuple]:
         """[(dict, hyper)] with quarantined members' hypers carrying
         ``diverged=True`` and the ledger's reason."""
-        diverged = {info["index"]: info
-                    for info in self._state["members"].values()
-                    if info["entry"] == entry_name}
+        diverged = self.diverged_flat(entry_name)
         return [(ld, {**hyper, "diverged": True,
                       "diverged_reason": diverged[i]["reason"]}
                  if i in diverged else hyper)

@@ -5,7 +5,10 @@ Flow, as in the JAX package (the reference's big_sweep.py:298-386):
   1. the dataset: an existing chunk store, or synthetic data written to
      disk (``SyntheticEnsembleArgs``);
   2. ``ensemble_init_fn(cfg, mesh, device=...)`` →
-     ``[(Ensemble, member_hyperparams, name)]`` (``train/experiments.py``);
+     ``[(Ensemble | EnsembleGroup, member_hyperparams, name)]``
+     (``train/experiments.py``); a group's buckets train, log
+     (``{bucket}/...`` keys), checkpoint (``{name}_{j}``) and quarantine
+     one by one, and its dicts flatten in bucket order;
   3. the chunk order, shuffled once per repetition from
      ``np.random.default_rng(cfg.seed)``, the batches from the same rng;
      optional centering on the first sound chunk's mean;
@@ -30,9 +33,8 @@ entry point runs on the card; ``device="cpu"`` (``--device cpu``) runs
 the kernels' plain versions on the CPU. What the port cannot do yet
 raises, naming its ROADMAP.md queue-1 item: meshes, and with them the
 orbax backend's per-host sharded writes (item 11), ``profile_steps > 0``
-and wandb (item 14) and EnsembleGroup buckets (item 8). The
-executable-cache warm start of the JAX sweep has no counterpart yet
-(item 13).
+and wandb (item 14). The executable-cache warm start of the JAX sweep
+has no counterpart yet (item 13).
 
 Run: ``python -m sparse_coding_tpu_torch.train.sweep --experiment
 tied_vs_not --dataset_folder DIR --output_folder DIR [--resume true]
@@ -69,7 +71,11 @@ from sparse_coding_tpu_torch.data.shard_store import (
     first_sound_chunk,
     open_store,
 )
-from sparse_coding_tpu_torch.ensemble import Ensemble
+from sparse_coding_tpu_torch.ensemble import (
+    Ensemble,
+    EnsembleGroup,
+    EnsembleLike,
+)
 from sparse_coding_tpu_torch.metrics.core import (
     fraction_variance_unexplained,
     mean_l0,
@@ -119,8 +125,14 @@ register_crash_site("ckpt.swap",
                     "ckpt_prev/, new set not yet renamed in "
                     "(_swap_in_checkpoint_set)")
 
-# ensemble_init_fn(cfg, mesh, device=...) -> [(Ensemble, hypers, name)]
-EnsembleInitFn = Callable[..., list[tuple[Ensemble, list[dict], str]]]
+# ensemble_init_fn(cfg, mesh, device=...) -> [(EnsembleLike, hypers, name)]
+EnsembleInitFn = Callable[..., list[tuple[EnsembleLike, list[dict], str]]]
+
+
+def _flat_dicts(e: EnsembleLike) -> list:
+    """Every member's LearnedDict, a group's buckets in insertion order
+    (the order of its hyperparameters)."""
+    return [d for _, ens in e.buckets() for d in ens.to_learned_dicts()]
 
 
 def init_synthetic_dataset(cfg: SyntheticEnsembleArgs) -> ChunkStore:
@@ -247,11 +259,6 @@ def sweep(
             store = open_store(cfg.dataset_folder, quarantine_corrupt=True)
 
     ensembles = ensemble_init_fn(cfg, mesh, device=dev)
-    for ens, _, name in ensembles:
-        if not isinstance(ens, Ensemble):
-            raise NotImplementedError(
-                f"entry {name!r} is a {type(ens).__name__}; EnsembleGroup "
-                "buckets are not ported (ROADMAP.md queue 1, item 8)")
     member_names = [_member_names(hypers, len(hypers))
                     for _, hypers, _ in ensembles]
     logger = MetricsLogger(out_dir, run_name=out_dir.name)
@@ -324,7 +331,9 @@ def sweep(
         ensemble_init_fn reproduces the chunk-0 state bitwise."""
         for (e_old, _, _), (e_new, _, _) in zip(
                 ensembles, ensemble_init_fn(cfg, mesh, device=dev)):
-            e_old.state = e_new.state
+            for (_, s_old), (_, s_new) in zip(e_old.buckets(),
+                                              e_new.buckets()):
+                s_old.state = s_new.state
 
     ckptr = (AsyncEnsembleCheckpointer()
              if cfg.checkpoint_backend == "orbax" else None)
@@ -387,12 +396,25 @@ def sweep(
                                 ensembles):
                             aux = (ensemble.run_steps(batch) if scan_k > 1
                                    else ensemble.step_batch(batch))
-                            if guardian is not None:
-                                guardian.observe(ens_idx, name, aux)
-                            if do_log:
-                                _log_window(logger, step, ens_idx, name, aux,
-                                            scan_k > 1, member_names[ens_idx],
-                                            guardian)
+                            is_group = isinstance(ensemble, EnsembleGroup)
+                            # (bucket name, aux): a plain entry observes
+                            # and logs under its own name
+                            items = (list(aux.items()) if is_group
+                                     else [(name, aux)])
+                            for sub_name, sub_aux in items:
+                                if guardian is not None:
+                                    guardian.observe(ens_idx, sub_name,
+                                                     sub_aux)
+                                if do_log:
+                                    # a group's streams are positional:
+                                    # its hypers do not align with
+                                    # bucket-local indices
+                                    _log_window(
+                                        logger, step, ens_idx, sub_name,
+                                        sub_aux, scan_k > 1,
+                                        [] if is_group
+                                        else member_names[ens_idx],
+                                        guardian)
                         if sample_perf:
                             synchronize(dev)
                             perf_probe.record(
@@ -492,7 +514,7 @@ def sweep(
                 ckptr.close()  # no write outlives the run
     result = {}
     for ensemble, hypers, name in ensembles:
-        tagged = list(zip(ensemble.to_learned_dicts(), hypers))
+        tagged = list(zip(_flat_dicts(ensemble), hypers))
         if guardian is not None:
             # quarantined members ship tagged diverged=True, as every
             # artifact does
@@ -504,9 +526,10 @@ def sweep(
 def _log_window(logger: MetricsLogger, step: int, ens_idx: int, name: str,
                 aux, stacked: bool, names: Sequence[str],
                 guardian: Optional[Guardian]) -> None:
-    """One metrics line for an entry: the window's last step, aggregates
-    over the live members (a quarantined member's NaN loss must not poison
-    them; its own stream still logs) and per-member streams."""
+    """One metrics line for an entry or a group's bucket (``name``): the
+    window's last step, aggregates over the live members (a quarantined
+    member's NaN loss must not poison them; its own stream still logs)
+    and per-member streams (``member{i}`` past ``names``)."""
     last = (lambda v: v[-1]) if stacked else (lambda v: v)
     losses = last(aux.losses["loss"]).detach().cpu().numpy()
     l0 = last(aux.l0).detach().float().cpu().numpy()
@@ -542,11 +565,13 @@ def _save_checkpoint_set(ensembles, out_dir: Path, chunks_done: int,
     shutil.rmtree(staging, ignore_errors=True)
     extra = {"chunks_done": chunks_done, "rng_state": rng_state}
     for ensemble, _, name in ensembles:
-        path = checkpoint_path(staging, f"{name}_0")
-        if ckptr is None:
-            save_ensemble(ensemble, path, extra=extra)
-        else:
-            ckptr.save(ensemble, path, extra=extra)
+        # one file a bucket: {name}_{j}, j in the group's bucket order
+        for j, (_, sub) in enumerate(ensemble.buckets()):
+            path = checkpoint_path(staging, f"{name}_{j}")
+            if ckptr is None:
+                save_ensemble(sub, path, extra=extra)
+            else:
+                ckptr.save(sub, path, extra=extra)
     if ckptr is not None:
         obs.record_span("sweep.checkpoint", obs.monotime() - t0,
                         chunks_done=chunks_done, backend="orbax")
@@ -570,7 +595,7 @@ def _save_artifacts(ensembles, folder: Path, chunk, logger: MetricsLogger,
             else torch.from_numpy(np.ascontiguousarray(chunk[sel])))
     eval_batch = rows.to(device=device, dtype=torch.float32)
     for ensemble, hypers, name in ensembles:
-        tagged = list(zip(ensemble.to_learned_dicts(), hypers))
+        tagged = list(zip(_flat_dicts(ensemble), hypers))
         if guardian is not None:
             tagged = guardian.tag_hypers(name, tagged)
         save_learned_dicts(tagged, folder / f"{name}_learned_dicts.pkl")
@@ -619,7 +644,7 @@ def _restore_checkpoint_set(
     return (chunks_done or 0), rng_state
 
 
-def resume_sweep_state(ensembles: Sequence[tuple[Ensemble, list, str]],
+def resume_sweep_state(ensembles: Sequence[tuple[EnsembleLike, list, str]],
                        out_dir: str | Path) -> tuple[int, Optional[dict]]:
     """Restore every ensemble from the newest complete checkpoint set;
     returns (chunks_done, the batch rng's bit-generator state), or (0,
@@ -635,8 +660,9 @@ def resume_sweep_state(ensembles: Sequence[tuple[Ensemble, list, str]],
     for ckpt_dir in (out_dir / "ckpt", out_dir / "ckpt_prev"):
         if not ckpt_dir.exists():
             continue
-        targets = [(ens, checkpoint_path(ckpt_dir, f"{name}_0"))
-                   for ens, _, name in ensembles]
+        targets = [(sub, checkpoint_path(ckpt_dir, f"{name}_{j}"))
+                   for ens, _, name in ensembles
+                   for j, (_, sub) in enumerate(ens.buckets())]
         if not all(path.exists() for _, path in targets):
             continue  # incomplete set: fall through to the older one
         try:

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from sparse_coding_tpu_torch.ensemble import EnsembleState, split_buffers
+from sparse_coding_tpu_torch.utils.tree import flatten_tree, map_tree
 
 
 def _tensor(v, device) -> torch.Tensor:
@@ -32,14 +33,14 @@ def _tensor(v, device) -> torch.Tensor:
 
 def members_from_numpy(members: Sequence[tuple[dict, dict]],
                        device="cpu") -> list[tuple[dict, dict]]:
-    """[(params, buffers)] of numpy arrays → the port's members (tensors;
-    plain Python scalars stay static buffers)."""
+    """[(params, buffers)] of numpy arrays → the port's members (tensors,
+    nested params kept nested; plain Python scalars stay static
+    buffers)."""
     out = []
     for params, buffers in members:
         arrays, statics = split_buffers(dict(buffers))
-        out.append(({k: _tensor(v, device) for k, v in params.items()},
-                    {**{k: _tensor(v, device) for k, v in arrays.items()},
-                     **dict(statics)}))
+        conv = lambda tree: map_tree(lambda v: _tensor(v, device), tree)
+        out.append((conv(params), {**conv(arrays), **dict(statics)}))
     return out
 
 
@@ -48,9 +49,10 @@ def state_from_numpy(*, params: dict, buffers: dict, mu: dict, nu: dict,
                      sig_name: str = "", device="cpu") -> EnsembleState:
     """A stacked JAX ensemble state (params/buffers/moments keyed alike,
     each [N, ...]; optax's per-member ``count`` [N]; ``lrs`` [N]; ``live``
-    [N] bool) → the port's :class:`EnsembleState`. Every leaf keeps its
-    kind (see :func:`_tensor`)."""
-    conv = lambda tree: {k: _tensor(v, device) for k, v in tree.items()}
+    [N] bool) → the port's :class:`EnsembleState`, nested params under
+    flat keys. Every leaf keeps its kind (see :func:`_tensor`)."""
+    conv = lambda tree: {k: _tensor(v, device)
+                         for k, v in flatten_tree(tree).items()}
     n = int(np.asarray(lrs).shape[0])
     live_t: Optional[torch.Tensor] = (
         torch.ones((n,), dtype=torch.bool, device=device) if live is None

@@ -21,6 +21,10 @@ written, never joined in memory), fault sites ``ckpt.save`` and ``ckpt.restore``
 cover both paths, and a digest mismatch or a payload that does not load
 raises :class:`CheckpointCorruptionError`, which
 ``train/sweep.py::resume_sweep_state`` falls back from.
+
+``save_pytree``/``restore_pytree`` write any tree of tensors, arrays and
+scalars in the same tensor-file format, beside a ``.sha256`` sidecar;
+the template given to the restore decides the nesting.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from sparse_coding_tpu_torch.resilience.faults import (
     register_fault_site,
 )
 from sparse_coding_tpu_torch.resilience.manifest import bytes_sha256
+from sparse_coding_tpu_torch.utils.tree import flatten_tree, unflatten_like
 
 SUFFIX = ".tensors"
 MAGIC = b"SCTENSOR"
@@ -230,3 +235,59 @@ def restore_ensemble(ens: Ensemble, path: str | Path) -> dict:
         nu=tree("nu"), count=loaded["count"], lrs=loaded["lrs"],
         step=loaded["step"], live=loaded.get("live"))
     return meta
+
+
+def _leaf_array(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return host_array(v.detach().cpu().contiguous())
+    return np.ascontiguousarray(np.asarray(v))
+
+
+def _like(template, a: np.ndarray):
+    """A decoded leaf in the template leaf's kind: a tensor on its device,
+    a numpy array, or a Python scalar."""
+    if isinstance(template, torch.Tensor):
+        return _from_host(a.copy()).to(template.device)
+    if isinstance(template, np.ndarray):
+        return a.copy()
+    return type(template)(a.item())
+
+
+def _sha_path(path: Path) -> Path:
+    return path.with_suffix(path.suffix + ".sha256")
+
+
+def save_pytree(tree, path: str | Path) -> None:
+    """Write a tree of tensors, arrays and scalars (nested dicts, lists,
+    tuples) as a tensor file with a ``.sha256`` sidecar, both atomic.
+    Fault site ``ckpt.save``."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    arrays = {k: _leaf_array(v) for k, v in flatten_tree(tree).items()
+              if v is not None}
+    fault_point("ckpt.save")
+    sha, _ = _write_payload(path, arrays)
+    atomic_write_text(_sha_path(path), sha)
+
+
+def restore_pytree(template, path: str | Path):
+    """The tree :func:`save_pytree` wrote, in ``template``'s nesting and
+    leaf kinds. A payload that fails its ``.sha256`` sidecar, or does not
+    decode to the template's leaves, raises
+    :class:`CheckpointCorruptionError`. Fault site ``ckpt.restore``."""
+    path = Path(path)
+    fault_point("ckpt.restore")
+    payload = path.read_bytes()
+    sha_path = _sha_path(path)
+    if sha_path.exists() and \
+            bytes_sha256(payload) != sha_path.read_text().strip():
+        raise CheckpointCorruptionError(
+            path, "payload sha256 does not match the .sha256 sidecar")
+    try:
+        arrays = _decode(payload)
+        loaded = {k: None if t is None else _like(t, arrays[k])
+                  for k, t in flatten_tree(template).items()}
+    except (ValueError, KeyError, TypeError, struct.error) as e:
+        raise CheckpointCorruptionError(
+            path, f"payload does not load: {e}") from e
+    return unflatten_like(template, loaded)

@@ -871,3 +871,154 @@ def test_big_sae_bf16_forms_refuse_what_they_do_not_take(card):
     p, x = _big_inputs(card, 64, 64, 40)
     with pytest.raises(ValueError, match="float32"):
         fb.big_sae_forward(p, x.to(torch.bfloat16), compute_dtype=BF16)
+
+
+# -- the model zoo's families and PCA on the card --------------------------------
+
+
+def _zoo_members():
+    """(name, signature, two members) for every family that trains on
+    autodiff; members drawn on the CPU from one generator."""
+    from sparse_coding_tpu_torch.models import (
+        lista,
+        positive,
+        rica,
+        sae,
+        semilinear,
+        topk,
+    )
+
+    d, n = 64, 128
+    g = torch.Generator().manual_seed(0)
+    rot = torch.linalg.qr(torch.randn(d, d, generator=g))[0]
+    specs = [
+        ("tied_centered", sae.FunctionalTiedCenteredSAE,
+         lambda l1: sae.FunctionalTiedCenteredSAE.init(g, d, n, l1)),
+        ("thresholding", sae.FunctionalThresholdingSAE,
+         lambda l1: sae.FunctionalThresholdingSAE.init(g, d, n, l1)),
+        ("masked_untied", sae.FunctionalMaskedSAE,
+         lambda l1: sae.FunctionalMaskedSAE.init(g, d, 96, n, l1)),
+        ("reverse", sae.FunctionalReverseSAE,
+         lambda l1: sae.FunctionalReverseSAE.init(g, d, n, l1)),
+        ("centered_tied", sae.FunctionalTiedSAE,
+         lambda l1: sae.FunctionalTiedSAE.init(
+             g, d, n, l1, rotation=rot, translation=torch.full((d,), 0.1),
+             scaling=torch.full((d,), 2.0))),
+        ("topk", topk.TopKEncoder,
+         lambda l1: topk.TopKEncoder.init(g, d, n, k=8)),
+        ("lista", lista.FunctionalLISTADenoisingSAE,
+         lambda l1: lista.FunctionalLISTADenoisingSAE.init(g, d, n, l1)),
+        ("residual", lista.FunctionalResidualDenoisingSAE,
+         lambda l1: lista.FunctionalResidualDenoisingSAE.init(g, d, n, l1)),
+        ("positive", positive.FunctionalPositiveTiedSAE,
+         lambda l1: positive.FunctionalPositiveTiedSAE.init(g, d, n, l1)),
+        ("semilinear", semilinear.SemiLinearSAE,
+         lambda l1: semilinear.SemiLinearSAE.init(g, d, n, l1)),
+        ("rica", rica.RICA, lambda l1: rica.RICA.init(g, d, n, l1 * 10)),
+    ]
+    return [(name, sig, [make(1e-3), make(4e-3)])
+            for name, sig, make in specs]
+
+
+@pytest.mark.cuda
+def test_group_step_on_the_card_matches_the_cpu(card):
+    """One step of each family's group on the card against the same step
+    on the CPU: losses rtol 1e-4; each updated leaf within 1e-4 of its
+    norm (chip_smoke phase 6's bound: Adam's first step is ±lr·sign(g), so
+    a gradient within rounding of 0 may step the other way). A centered
+    tied bucket resolves to autodiff as an ineligible family on the card,
+    not as a shape the kernels refuse."""
+    from sparse_coding_tpu_torch.ensemble import EnsembleGroup
+
+    x = torch.randn(256, 64, generator=torch.Generator().manual_seed(1))
+    for name, sig, members in _zoo_members():
+        out = {}
+        for dev in ("cpu", card):
+            group = EnsembleGroup.build(sig, members, lr=1e-3, device=dev)
+            aux = group.step_batch(x.to(dev))
+            out[str(dev)] = (group, aux)
+        (gc, ac), (gg, ag) = out["cpu"], out[str(card)]
+        assert list(gg.ensembles) == list(gc.ensembles)
+        for bucket, ens in gg.ensembles.items():
+            assert ens.fused_path is None
+            assert ens.path_resolved == {("autodiff", "family_ineligible"): 1}
+            _close(ag[bucket].losses["loss"].cpu(),
+                   ac[bucket].losses["loss"], 1e-4)
+            for k, v in ens.state.params.items():
+                ref = gc.ensembles[bucket].state.params[k]
+                err = float(torch.linalg.vector_norm(v.cpu() - ref))
+                assert err <= 1e-4 * float(torch.linalg.vector_norm(ref)), \
+                    (name, k, err)
+
+
+@pytest.mark.cuda
+def test_batched_pca_on_the_card_matches_float64_eigh(card):
+    """BatchedPCA on the card: its eigh against a float64 numpy eigh of
+    the same (its own fp32) covariance — eigenvalues and rotᵀ·diag(λ)·rot
+    within 1e-5 of the largest eigenvalue, the fp32 solver's rounding —
+    and that covariance and mean against float64 sums over the same rows,
+    within 5e-4 of the largest eigenvalue: each entry is an fp32 sum of
+    4096 products a batch, merged over 8 batches (a sum of K terms may
+    round by K·2⁻²⁴ = 2.4e-4 of its size)."""
+    import numpy as np
+
+    from sparse_coding_tpu_torch.models.pca import BatchedPCA
+
+    g = torch.Generator().manual_seed(2)
+    d = 512
+    mix = torch.randn(d, d, generator=g) * torch.linspace(0.1, 2.0, d)
+    acts = torch.randn(32768, d, generator=g) @ mix + 0.3
+    pca = BatchedPCA(d, device=card)
+    for lo in range(0, acts.shape[0], 4096):
+        pca.train_batch(acts[lo:lo + 4096].to(card))
+    lam, vec = (t.double().cpu().numpy() for t in pca.get_pca())
+    cov32 = pca.state.cov.double().cpu().numpy()
+    cov32 = (cov32 + cov32.T) / 2
+    ref_lam, _ = np.linalg.eigh(cov32)
+    solver = 1e-5 * np.abs(ref_lam).max()
+    np.testing.assert_allclose(lam, ref_lam, atol=solver)
+    np.testing.assert_allclose(vec @ np.diag(lam) @ vec.T, cov32,
+                               atol=solver)
+    x = acts.double().numpy()
+    sums = 5e-4 * np.abs(ref_lam).max()
+    np.testing.assert_allclose(cov32, np.cov(x.T, bias=True), atol=sums)
+    np.testing.assert_allclose(pca.get_mean().cpu().numpy(), x.mean(axis=0),
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_pca_defaults_to_the_card(card, tmp_path, monkeypatch):
+    """BatchedPCA, PCAState.create and fit_pca with no device run on the
+    card, and centered_l1_range with no device fits its whitening there
+    (the sweep CLI's path)."""
+    import numpy as np
+
+    from sparse_coding_tpu_torch.config import EnsembleArgs
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkWriter
+    from sparse_coding_tpu_torch.models import pca as tpca
+    from sparse_coding_tpu_torch.train.experiments import (
+        centered_l1_range_experiment,
+    )
+
+    d = 32
+    acts = np.random.default_rng(3).normal(size=(1024, d)).astype(np.float32)
+    assert tpca.BatchedPCA(d).state.cov.device.type == "cuda"
+    assert tpca.PCAState.create(d).mean.device.type == "cuda"
+    assert tpca.fit_pca(acts, batch_size=256).cov.device.type == "cuda"
+    writer = ChunkWriter(tmp_path / "store", d, chunk_size_gb=512 * d * 4
+                         / 2**30, dtype="float32")
+    writer.add(acts)
+    writer.finalize()
+    seen = []
+    train_batch = tpca.BatchedPCA.train_batch
+
+    def record(self, a):
+        seen.append(self.state.cov.device.type)
+        train_batch(self, a)
+
+    monkeypatch.setattr(tpca.BatchedPCA, "train_batch", record)
+    cfg = EnsembleArgs(dataset_folder=str(tmp_path / "store"),
+                       batch_size=128, learned_dict_ratio=2.0)
+    (ens, _, _), = centered_l1_range_experiment(cfg, l1_range=[1e-3])
+    assert seen == ["cuda"]
+    assert ens.device.type == "cuda"

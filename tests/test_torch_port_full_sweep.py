@@ -248,15 +248,21 @@ def test_deferred_options_raise_naming_their_item(store, tmp_path, over,
 
 
 def test_unported_experiments_and_sharded_stores_raise(store, tmp_path):
-    """Unported experiments raise naming their item. Sharded stores open
-    now (tests/test_torch_port_shard_store.py sweeps over one): a folder
-    whose manifest.json lists no shards raises the typed layout error."""
+    """Every JAX experiment has a port counterpart; what the sweep still
+    lacks raises naming its ROADMAP item (meshes, item 11; trace capture,
+    item 14). Sharded stores open now (tests/test_torch_port_shard_store.py
+    sweeps over one): a folder whose manifest.json lists no shards raises
+    the typed layout error."""
     from sparse_coding_tpu_torch.data.shard_store import ShardLayoutError
 
+    assert set(texp.EXPERIMENTS) == set(jexp.EXPERIMENTS)
     cfg = EnsembleArgs(output_folder=str(tmp_path / "o"),
                        dataset_folder=str(store))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsweep.sweep(texp.EXPERIMENTS["topk"], cfg, device="cpu")
+    for over, item in (({"mesh_model": 2}, "item 11"),
+                       ({"profile_steps": 2}, "item 14")):
+        with pytest.raises(NotImplementedError, match=item):
+            tsweep.sweep(texp.EXPERIMENTS["topk"], cfg.replace(**over),
+                         device="cpu")
     sharded = tmp_path / "sharded"
     sharded.mkdir()
     (sharded / "manifest.json").write_text("{}")

@@ -34,8 +34,14 @@ for name in names:
 importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
+
+# the modules of the model zoo, the metrics and the reference interop
+ZOO = ("models.lista", "models.pca", "models.positive", "models.rica",
+       "models.semilinear", "models.topk", "metrics.core",
+       "utils.ref_interop", "utils.checkpoint", "utils.tree",
+       "data.synthetic", "train.experiments")
 
 _IMPORT = re.compile(
     r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|sparse_coding_tpu)\b"
@@ -52,7 +58,9 @@ def test_port_imports_under_a_jax_blocker():
                          capture_output=True, text=True, timeout=120,
                          env=stripped_cpu_subprocess_env())
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split()[-1]) >= 20
+    names = out.stdout.split()
+    assert len(names) >= 20
+    assert {f"sparse_coding_tpu_torch.{m}" for m in ZOO} <= set(names)
 
 
 def test_source_scan_finds_no_jax_import():
