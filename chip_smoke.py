@@ -20,7 +20,8 @@ Phases — any failure raises, and the script exits non-zero with no result:
    tiled_untied_sae_grads, and K1/K3 with the masked family's coef_mask)
    is held against its plain PyTorch version on the same inputs on the
    card, at the main path's shapes and at small odd shapes up to the
-   kernels' widest d (768); each kernel and its plain version are timed at
+   kernels' widest d (40, 600, 768 and the LM widths 1000, 1024, 2048,
+   3072 and 4096, the widest); each kernel and its plain version are timed at
    the main path's shapes;
 3. tied main path: a synthetic activation store (d=512) is written with
    the port's ChunkWriter, then ``basic_l1_sweep`` trains 32 tied SAEs (an
@@ -88,9 +89,13 @@ Phases — any failure raises, and the script exits non-zero with no result:
 10. bf16 compute (``fused_compute_dtype="bfloat16"``,
    ``fused_moments_dtype="bfloat16"``): (a) each bf16 form of the four
    chunked ensemble kernels against its plain bf16 version at small odd
-   shapes (d=40, 600, 768), the main shape and ratio 16, with fp32 and
+   shapes (d=40, 600, 768, 1032, 2048, 4096), the main shape and ratio
+   16, with fp32 and
    bf16 batches and the coef_mask, within RTOL_BF16, its ReLU mask flips
-   capped (one per million codes), and two calls bit-identical; (b) the
+   capped (one per million codes; the untied dWn with each flipped code's
+   terms moved to the kernel's side, after its bf16 codes are found equal
+   to its fp32 codes rounded and those within their sums' rounding bound
+   of the plain ones), and two calls bit-identical; (b) the
    two Adam epilogues with bf16 moments against their plain versions;
    (c) bench.py's five bf16 variants through ``Ensemble``, tied and
    untied, one epoch (208 steps) each: each bf16 form launches once a
@@ -142,9 +147,11 @@ Phases — any failure raises, and the script exits non-zero with no result:
    their ``learned_dicts.pkl`` loads, every member's logged loss is
    finite, acts/s over the second chunk; and each experiment's entries
    at the full width (two grid points) three steps on the card against
-   the CPU from one init (losses within RTOL_PATH_LOSS, weights within
-   REL_FRO_PATH — LISTA's on the features whose shrinkage never flipped
-   between the two, the flips counted and capped); (c) ``topk`` (six
+   the CPU from one init (losses within RTOL_PATH_LOSS, each bucket's
+   whole weights within REL_FRO_PATH — a LISTA bucket's within
+   REL_FRO_LISTA, its first step's shrinkage flips between the two sides
+   counted and capped, its features that never flipped read, not held:
+   ``lista_side_check``); (c) ``topk`` (six
    buckets) SIGKILLed mid-swap of its second checkpoint set and resumed,
    bitwise (b)'s run; (d)
    ``export_reference_learned_dicts`` of (a)'s and (b)'s exportable dicts
@@ -152,7 +159,26 @@ Phases — any failure raises, and the script exits non-zero with no result:
    encode within RTOL_INTEROP (a TopK dict's selection may flip where two
    scores lie within a rounding: at most one code per million), the other
    classes refused;
-13. summary: one ``{"kernels": [...]}`` line, the card's name and power
+13. harvest and train at an LM's width: (a) ``harvest_activations`` on
+   the card — the ``EleutherAI/pythia-70m-deduped`` preset at full width
+   (d_model 512, 6 layers, d_mlp 2048, vocab 50,304) with seeded random
+   weights, seeded random token ids (context 256, model batch 4), taps
+   ``mlp.1`` and ``mlp.2`` into a bf16 store of 2 chunks of 32,768 rows
+   a tap (``chunk_size_gb`` cut from 2.0 to 0.125); tokens/s and the
+   harvest's wall; (b) the first 8 token rows through the forward on the
+   card and on the CPU, same weights: every tap location and the logits
+   within RTOL_LM of max|ref|, and the first rows of the card's chunk 0
+   within one bf16 ulp of the CPU's taps rounded to bf16 (plus RTOL_LM);
+   (c) ``basic_l1_sweep`` over the ``mlp.2`` store, 16 tied members over
+   an L1 grid, ratio 4 (n=8192), batch 2048, one epoch (32 steps), on
+   ``train_step_tiled``: each tied kernel once a step (counts zeroed just
+   before), finite losses, eval.json ordering the grid, artifacts that
+   load, acts/s; (d) the same untied on the untied kernels; (e) for both
+   families 3 steps on the kernels and 3 on autodiff from one init on the
+   same batches at phase 6's bounds; (f) ``scrub_store`` over (a)'s store
+   reads clean, names a chunk with one flipped byte, and with repair
+   quarantines it;
+14. summary: one ``{"kernels": [...]}`` line, the card's name and power
    limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds the four chunked ensemble kernels against their plain
@@ -162,8 +188,9 @@ the backwards; the tied pair with and without a coef_mask), and at the
 main shape (the forwards and the tied backward at ratio 16 too, the tied
 forward with and without a coef_mask) checks that two calls give the
 same bits, records one call's peak memory beside the plain version's and
-times each of their launches. At ratio 16 (and at the main shape too) the tied
-backward's ReLU mask flips are counted against the plain version's masks
+times each of their launches. At every shape the tied backward's dW and
+db (sae_tied_bwd's, and K1's and K3's, which run it) are held with its
+ReLU mask flips counted against the plain version's masks
 (``tied_bwd_flips``): at most one per million codes, each within 1e-2 of
 the sums' rounding bound of 0, and its dW and db held against the plain
 version within rtol 1e-3 on every feature with no flip and, with each
@@ -193,6 +220,7 @@ Run from the repository root: ``python3 chip_smoke.py`` (one card;
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -304,6 +332,10 @@ BIG_CHUNK_SHAPE = (36864, BIG_N, BIG_D)
 RATIO16_SHAPE = (N_MEMBERS, BATCH, 16 * D, D)  # (members, batch, n, d)
 RATIO16_FWD_CHUNKS = 2
 RATIO16_CHUNKS = 4
+# phase 2's widths beyond the kernels' former limit (768): the LM widths
+# up to the kernels' widest (MAX_D = 4096: gpt2-medium's and
+# Pythia-410M's d_mlp); 1000 is not a multiple of 32 or of 8
+WIDTHS = (1000, 1024, 2048, 3072, 4096)
 # a chunked kernel's call may allocate the buffers its allowance lists
 # (repeat_and_memory) plus this much for the caching allocator's rounding
 MEM_SLACK = 8 * 2**20
@@ -401,13 +433,13 @@ def make_inputs(gen: torch.Generator, n_members: int, batch: int,
     dev = torch.device(DEV)
     lim = math.sqrt(6.0 / (n_feats + d))
     big = (n_members, n_feats, d)
-    glorot = lambda: (torch.rand(big, generator=gen) * 2 - 1) * lim
+    on = dict(generator=gen, device=gen.device)  # draws where gen lives
+    glorot = lambda: (torch.rand(big, **on) * 2 - 1) * lim
     if x is None:
-        x = torch.randn((batch, d), generator=gen) / math.sqrt(d)
+        x = torch.randn((batch, d), **on) / math.sqrt(d)
     g_scale = 1e-4
-    grad = lambda: torch.randn(big, generator=gen) * g_scale
-    second = lambda shape: (torch.rand(shape, generator=gen) + 0.5) \
-        * g_scale ** 2
+    grad = lambda: torch.randn(big, **on) * g_scale
+    second = lambda shape: (torch.rand(shape, **on) + 0.5) * g_scale ** 2
     count = torch.full((n_members,), 100, dtype=torch.int32)
     b1, b2 = 0.9, 0.999
     c = count.float() + 1
@@ -415,11 +447,10 @@ def make_inputs(gen: torch.Generator, n_members: int, batch: int,
     sizes = n_feats // (1 + torch.arange(n_members) % 4)
     inp = {
         "e": glorot(), "x": x.float(),
-        "bias": (torch.rand((n_members, n_feats), generator=gen) - 0.5)
-        .mul(0.02),
+        "bias": (torch.rand((n_members, n_feats), **on) - 0.5).mul(0.02),
         "alphas": torch.logspace(-4, -2, n_members),
         "dw": grad(), "mu": grad(), "nu": second(big),
-        "mu_b": torch.randn((n_members, n_feats), generator=gen) * g_scale,
+        "mu_b": torch.randn((n_members, n_feats), **on) * g_scale,
         "nu_b": second((n_members, n_feats)),
         "lrs": torch.full((n_members,), 1e-3),
         "bc1": 1.0 - torch.tensor(b1) ** c,
@@ -454,7 +485,8 @@ def loss_pairs(got_l, ref_l) -> dict:
 
 
 def check_kernels(inp: dict, tag: str) -> dict:
-    """Every kernel and contract against its plain version on ``inp``."""
+    """Every kernel and contract against its plain version on ``inp``; the
+    tied dW and db (sae_tied_bwd, K1, K3) through tied_bwd_flips."""
     from sparse_coding_tpu_torch.ops import fused_sae as fs
     from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
 
@@ -463,15 +495,26 @@ def check_kernels(inp: dict, tag: str) -> dict:
     batch = x.shape[0]
     out = {}
 
-    def cmp(name, pairs):
+    def cmp(name, pairs, flips=None):
         errs = {}
         for field, (got, ref, rtol, atol) in pairs.items():
             errs[field] = compare(f"{tag}:{name}.{field}", got, ref, rtol,
                                   atol)
-        out[name] = errs
         worst = max(v["max_rel_err"] for k, v in errs.items()
                     if not is_mask_count(k))
-        log(f"  {tag} {name}: ok, worst rel err {worst:.2e}")
+        out[name] = {**errs, **(flips or {})}
+        log(f"  {tag} {name}: ok, worst rel err {worst:.2e}"
+            + (" (dW and db with their flips above)" if flips else ""))
+
+    def tied_flips(name, got_dw_db, ref_dw_db, r, mask, sfx):
+        """tied_bwd_flips' reading of one tied dW and db: its comparisons
+        (dw_no_flip<sfx>, ...) and, under flips<sfx>, its counts."""
+        read = tied_bwd_flips(e, bias, al, x, r, mask, got_dw_db, ref_dw_db,
+                              f"{tag} {name}{sfx}")
+        return {**{k + sfx: v for k, v in read.items()
+                   if isinstance(v, dict)},
+                "flips" + sfx: {k: v for k, v in read.items()
+                                if not isinstance(v, dict)}}
 
     # tied fwd/bwd, unmasked and with the masked family's coef_mask; the
     # bwd kernel and its plain version get the SAME residual
@@ -481,49 +524,39 @@ def check_kernels(inp: dict, tag: str) -> dict:
         "r": (ft.sae_tied_fwd(e, bias, x), r_ref, RTOL_EXACT, 0.0),
         "r_masked": (ft.sae_tied_fwd(e, bias, x, cm), rm_ref, RTOL_EXACT,
                      0.0)})
-    cmp("sae_tied_bwd", {
-        **bwd_pairs(ft.sae_tied_bwd(e, bias, al, x, r_ref),
-                    ft.sae_tied_bwd_plain(e, bias, al, x, r_ref), ("dw",)),
-        **bwd_pairs(ft.sae_tied_bwd(e, bias, al, x, rm_ref, cm),
-                    ft.sae_tied_bwd_plain(e, bias, al, x, rm_ref, cm),
-                    ("dw",), "_masked")})
+    pairs, flips = {}, {}
+    for r, mask, sfx in ((r_ref, None, ""), (rm_ref, cm, "_masked")):
+        got = ft.sae_tied_bwd(e, bias, al, x, r, mask)
+        ref = ft.sae_tied_bwd_plain(e, bias, al, x, r, mask)
+        pairs.update(bwd_pairs(got, ref, ("dw",), sfx))
+        del pairs["dw" + sfx], pairs["db" + sfx]
+        flips.update(tied_flips("sae_tied_bwd", got[:2], ref[:2], r, mask,
+                                sfx))
+    cmp("sae_tied_bwd", pairs, flips)
 
-    args = (e, inp["dw"], inp["mu"], inp["nu"], inp["lrs"], inp["bc1"],
-            inp["bc2"])
-    bias_grp = dict(bias=bias, db=inp["dw"][:, :, 0].contiguous(),
-                    mu_b=inp["mu_b"], nu_b=inp["nu_b"])
-    got = fs.sae_tied_adam_vjp(*args, **bias_grp)
-    ref = fs.sae_tied_adam_vjp_plain(*args, **bias_grp)
-    cmp("sae_tied_adam_vjp", {
-        **{n: (g, rf, RTOL_EXACT, 0.0) for n, g, rf in zip(
-            ("e", "mu", "nu", "un_sq"), got[:4], ref[:4])},
-        **{n: (g, rf, RTOL_EXACT, 0.0) for n, g, rf in zip(
-            ("bias", "mu_b", "nu_b"), got[4], ref[4])}})
-
-    # untied fwd/bwd/adam_vjp
+    # untied fwd/bwd, then both adam_vjp
     ru_ref = ft.sae_untied_fwd_plain(e, dec, bias, x)
     cmp("sae_untied_fwd", {
         "r": (ft.sae_untied_fwd(e, dec, bias, x), ru_ref, RTOL_EXACT, 0.0)})
     cmp("sae_untied_bwd", bwd_pairs(
         ft.sae_untied_bwd(e, dec, bias, al, x, ru_ref),
         ft.sae_untied_bwd_plain(e, dec, bias, al, x, ru_ref), ("de", "dwn")))
+    for name, pairs in adam_pairs(inp).items():
+        cmp(name, pairs)
+    args = (e, inp["dw"], inp["mu"], inp["nu"], inp["lrs"], inp["bc1"],
+            inp["bc2"])
     uargs = (e, inp["dw"], inp["mu"], inp["nu"], dec, inp["dwn"],
              inp["mu_d"], inp["nu_d"], inp["lrs"], inp["bc1"], inp["bc2"])
     unames = ("e", "mu_e", "nu_e", "d", "mu_d", "nu_d", "un_sq")
-    cmp("sae_untied_adam_vjp", {
-        n: (g, rf, RTOL_EXACT, 0.0) for n, g, rf in zip(
-            unames, fs.sae_untied_adam_vjp(*uargs),
-            fs.sae_untied_adam_vjp_plain(*uargs))})
 
     # the contracts
-    for mask, sfx in ((None, ""), (cm, " masked")):
+    for r, mask, sfx in ((r_ref, None, ""), (rm_ref, cm, " masked")):
         got = fs.fused_tied_sae_grads(e, bias, al, x, coef_mask=mask)
         ref = fs.fused_tied_sae_grads_plain(e, bias, al, x, coef_mask=mask)
         cmp("K1 fused_tied_sae_grads" + sfx, {
             **loss_pairs(got[0], ref[0]),
-            "dw": (got[1], ref[1], RTOL_GRAD, 0.0),
-            "db": (got[2], ref[2], RTOL_GRAD, 0.0),
-            "activity": (got[3], ref[3], 0.0, ACT_COUNT_TOL)})
+            "activity": (got[3], ref[3], 0.0, ACT_COUNT_TOL)},
+            tied_flips("K1" + sfx, got[1:3], ref[1:3], r, mask, ""))
 
     k2 = (e, bias, inp["mu"], inp["nu"], inp["mu_b"], inp["nu_b"], al,
           inp["lrs"], inp["bc1"], inp["bc2"], x)
@@ -538,17 +571,16 @@ def check_kernels(inp: dict, tag: str) -> dict:
 
     bt = 256 if batch % 256 == 0 else 32
     ftile = 256 if e.shape[1] % 256 == 0 else 32
-    for mask, sfx in ((None, ""), (cm, " masked")):
+    for r, mask, sfx in ((r_ref, None, ""), (rm_ref, cm, " masked")):
         got = ft.tiled_tied_sae_grads(e, bias, al, x, bt, ftile,
                                       coef_mask=mask)
         ref = ft.tiled_tied_sae_grads_plain(e, bias, al, x, bt, ftile,
                                             coef_mask=mask)
         cmp("K3 tiled_tied_sae_grads" + sfx, {
             **loss_pairs(got[0], ref[0]),
-            "dw": (got[1], ref[1], RTOL_GRAD, 0.0),
-            "db": (got[2], ref[2], RTOL_GRAD, 0.0),
             "activity": (got[3], ref[3], 0.0, ACT_COUNT_TOL),
-            "grad_sq": (got[4], ref[4], RTOL_GRAD, 0.0)})
+            "grad_sq": (got[4], ref[4], RTOL_GRAD, 0.0)},
+            tied_flips("K3" + sfx, got[1:3], ref[1:3], r, mask, ""))
 
     got = fs.fused_tied_adam_vjp_update(*args, ftile=32)
     ref = fs.fused_tied_adam_vjp_update_plain(*args, ftile=32)
@@ -579,6 +611,33 @@ def check_kernels(inp: dict, tag: str) -> dict:
         "grad_sq": (got[5], ref[5], RTOL_GRAD, 0.0)})
     sync()
     return out
+
+
+def adam_pairs(inp: dict) -> dict:
+    """The two Adam epilogues (fp32 moments; the tied one with its bias
+    rows) against their plain versions on ``inp``, as compare's
+    (got, ref, rtol, atol) pairs by kernel."""
+    from sparse_coding_tpu_torch.ops import fused_sae as fs
+
+    e, dec, bias = inp["e"], inp["dec"], inp["bias"]
+    args = (e, inp["dw"], inp["mu"], inp["nu"], inp["lrs"], inp["bc1"],
+            inp["bc2"])
+    bias_grp = dict(bias=bias, db=inp["dw"][:, :, 0].contiguous(),
+                    mu_b=inp["mu_b"], nu_b=inp["nu_b"])
+    got = fs.sae_tied_adam_vjp(*args, **bias_grp)
+    ref = fs.sae_tied_adam_vjp_plain(*args, **bias_grp)
+    tied = {
+        **{n: (g, rf, RTOL_EXACT, 0.0) for n, g, rf in zip(
+            ("e", "mu", "nu", "un_sq"), got[:4], ref[:4])},
+        **{n: (g, rf, RTOL_EXACT, 0.0) for n, g, rf in zip(
+            ("bias", "mu_b", "nu_b"), got[4], ref[4])}}
+    uargs = (e, inp["dw"], inp["mu"], inp["nu"], dec, inp["dwn"],
+             inp["mu_d"], inp["nu_d"], inp["lrs"], inp["bc1"], inp["bc2"])
+    unames = ("e", "mu_e", "nu_e", "d", "mu_d", "nu_d", "un_sq")
+    untied = {n: (g, rf, RTOL_EXACT, 0.0) for n, g, rf in zip(
+        unames, fs.sae_untied_adam_vjp(*uargs),
+        fs.sae_untied_adam_vjp_plain(*uargs))}
+    return {"sae_tied_adam_vjp": tied, "sae_untied_adam_vjp": untied}
 
 
 def active_codes(inp: dict) -> dict:
@@ -792,29 +851,30 @@ def fwd_extras(inp: dict, tied: bool) -> dict:
     return {**out, "parts": times, "parts_sum_ms": per_call}
 
 
-def check_ratio16(gen: torch.Generator, x: torch.Tensor) -> dict:
-    """The chunked ensemble kernels against their plain versions at the
-    ratio-16 width, which the real 1 GiB workspaces take in
-    RATIO16_FWD_CHUNKS (forwards) and RATIO16_CHUNKS (backwards) member
-    chunks; the launches must show them. The untied forward's residual
-    feeds both untied backwards; the tied backward and its plain version
-    get the plain tied forward's residual, with and without a coef_mask.
-    The forwards (the tied one with and without a coef_mask) and the tied
-    backward also repeat bitwise and stay within their memory
-    allowances."""
+def check_chunked(gen: torch.Generator, x: torch.Tensor, shape: tuple,
+                  want_chunks: dict, tag: str) -> dict:
+    """The chunked ensemble kernels against their plain versions at
+    ``shape`` (members, batch, n, d), which the real 1 GiB workspaces take
+    in ``want_chunks`` member chunks; the launches must show them. The
+    untied forward's residual feeds both untied backwards; the tied
+    backward and its plain version get the plain tied forward's residual,
+    with and without a coef_mask. The forwards (the tied one with and
+    without a coef_mask) and the tied backward also repeat bitwise and
+    stay within their memory allowances."""
     from sparse_coding_tpu_torch.ops import _build
     from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
 
-    n_m, b, n, d = RATIO16_SHAPE
+    n_m, b, n, d = shape
     chunks = {"fwd": len(ft.fwd_chunks(n_m, b, n)),
               "bwd": len(ft.bwd_chunks(n_m, b, n))}
-    if chunks != {"fwd": RATIO16_FWD_CHUNKS, "bwd": RATIO16_CHUNKS}:
-        raise AssertionError(f"ratio 16: chunks {chunks}")
+    if chunks != want_chunks:
+        raise AssertionError(f"{tag}: chunks {chunks}")
     lim = math.sqrt(6.0 / (n + d))
-    glorot = lambda: ((torch.rand((n_m, n, d), generator=gen) * 2 - 1)
+    on = dict(generator=gen, device=gen.device)
+    glorot = lambda: ((torch.rand((n_m, n, d), **on) * 2 - 1)
                       * lim).to(DEV)
     e, dec = glorot(), glorot()
-    bias = ((torch.rand((n_m, n), generator=gen) - 0.5) * 0.02).to(DEV)
+    bias = ((torch.rand((n_m, n), **on) - 0.5) * 0.02).to(DEV)
     al = torch.logspace(-4, -2, n_m).to(DEV)
     _build.reset_launches()
     r = ft.sae_untied_fwd(e, dec, bias, x)
@@ -823,24 +883,24 @@ def check_ratio16(gen: torch.Generator, x: torch.Tensor) -> dict:
     want = part_launches(False, 1, (n_m, b, n))
     launches = {k: _build.LAUNCHES[k] for k in want}
     if launches != want:
-        raise AssertionError(f"ratio 16: launches {launches}, expected "
+        raise AssertionError(f"{tag}: launches {launches}, expected "
                              f"{want}")
-    r_err = compare("ratio16:sae_untied_fwd.r", r,
+    r_err = compare(f"{tag}:sae_untied_fwd.r", r,
                     ft.sae_untied_fwd_plain(e, dec, bias, x), RTOL_EXACT)
-    log(f"  ratio16 sae_untied_fwd ({n_m}x{b}x{n}x{d}, {chunks['fwd']} "
+    log(f"  {tag} sae_untied_fwd ({n_m}x{b}x{n}x{d}, {chunks['fwd']} "
         f"chunks): ok, rel err {r_err['max_rel_err']:.2e}")
     ref = ft.sae_untied_bwd_plain(e, dec, bias, al, x, r)
-    errs = {field: compare(f"ratio16:sae_untied_bwd.{field}", g, rf, rtol,
+    errs = {field: compare(f"{tag}:sae_untied_bwd.{field}", g, rf, rtol,
                            atol)
             for field, (g, rf, rtol, atol) in bwd_pairs(
                 got, ref, ("de", "dwn")).items()}
     worst = max(v["max_rel_err"] for k, v in errs.items()
                 if not is_mask_count(k))
-    log(f"  ratio16 sae_untied_bwd ({n_m}x{b}x{n}x{d}, {chunks['bwd']} "
+    log(f"  {tag} sae_untied_bwd ({n_m}x{b}x{n}x{d}, {chunks['bwd']} "
         f"chunks): ok, worst rel err {worst:.2e}")
     del r, got, ref
     torch.cuda.empty_cache()
-    fwd = fwd_repeat_and_memory(e, bias, x, "ratio16", dec=dec)
+    fwd = fwd_repeat_and_memory(e, bias, x, tag, dec=dec)
     del dec
     torch.cuda.empty_cache()
 
@@ -857,36 +917,36 @@ def check_ratio16(gen: torch.Generator, x: torch.Tensor) -> dict:
         want = part_launches(True, 1, (n_m, b, n))
         launches = {k: _build.LAUNCHES[k] for k in want}
         if launches != want:
-            raise AssertionError(f"ratio 16: tied launches {launches}, "
+            raise AssertionError(f"{tag}: tied launches {launches}, "
                                  f"expected {want}")
-        tied_fwd[f"r{sfx}"] = compare(f"ratio16:sae_tied_fwd.r{sfx}", rk,
+        tied_fwd[f"r{sfx}"] = compare(f"{tag}:sae_tied_fwd.r{sfx}", rk,
                                       rt, RTOL_EXACT)
-        log(f"  ratio16 sae_tied_fwd{sfx} ({n_m}x{b}x{n}x{d}, "
+        log(f"  {tag} sae_tied_fwd{sfx} ({n_m}x{b}x{n}x{d}, "
             f"{chunks['fwd']} chunks): ok, rel err "
             f"{tied_fwd[f'r{sfx}']['max_rel_err']:.2e}")
         del rk
         tied_fwd[f"repeat_memory{sfx}"] = fwd_repeat_and_memory(
-            e, bias, x, "ratio16", cm=mask)
+            e, bias, x, tag, cm=mask)
         ref = ft.sae_tied_bwd_plain(e, bias, al, x, rt, mask)
         # dW and db row by row in tied_bwd_flips, the rest here
         pairs = bwd_pairs(got, ref, ("dw",), sfx)
         del pairs["dw" + sfx], pairs["db" + sfx]
-        errs_t = {field: compare(f"ratio16:sae_tied_bwd.{field}", g, rf,
+        errs_t = {field: compare(f"{tag}:sae_tied_bwd.{field}", g, rf,
                                  rtol, atol)
                   for field, (g, rf, rtol, atol) in pairs.items()}
         worst = max(v["max_rel_err"] for k, v in errs_t.items()
                     if not is_mask_count(k))
-        log(f"  ratio16 sae_tied_bwd{sfx} ({n_m}x{b}x{n}x{d}, "
+        log(f"  {tag} sae_tied_bwd{sfx} ({n_m}x{b}x{n}x{d}, "
             f"{chunks['bwd']} chunks): ok, worst rel err {worst:.2e} "
             "(activity, losses)")
         flips = tied_bwd_flips(e, bias, al, x, rt, mask, got, ref,
-                               f"ratio16{sfx}")
+                               f"{tag}{sfx}")
         tied.update({**errs_t, f"flips{sfx}": flips})
         del got, ref
         torch.cuda.empty_cache()
         if mask is None:
             tied_mem = tied_bwd_repeat_and_memory(e, bias, al, x, rt, None,
-                                                  "ratio16")
+                                                  tag)
         del rt
         torch.cuda.empty_cache()
     del e
@@ -2480,6 +2540,8 @@ BF16 = "bfloat16"
 # fused_moments_dtype="bfloat16"), each with the fp32 kernel it extends
 BF16_FORMS = {f"{k}_bf16": k for k in (*TIED_KERNELS, *UNTIED_KERNELS)}
 BF16_SMALL_SHAPES = ((3, 96, 96, 40), (2, 64, 64, 600), (2, 64, 64, 768))
+# the LM widths (as phase 2's WIDTHS)
+BF16_WIDE_SHAPES = ((2, 64, 64, 1032), (2, 64, 64, 2048), (2, 64, 64, 4096))
 # a bf16 form against its plain bf16 version on the card, |Δ|max against
 # RTOL_BF16·max|ref|: the two sides round the same operands at the same
 # points and add exact products in fp32 in other orders (tensor-core
@@ -2540,7 +2602,22 @@ def bf16_bwd_check(inp: dict, tied: bool, tag: str, cm=None,
     own rounded operands, against the plain version's) at most
     FLIPS_PER_CODE a code; dW (dE, dWn) and db within RTOL_BF16 on every
     (member, feature) without a flip; activity within the flips; losses and
-    grad_sq within RTOL_BF16."""
+    grad_sq within RTOL_BF16. The untied dWn takes the bf16 codes as an
+    operand: a code within its sum-order rounding of a bf16 rounding
+    boundary rounds to the neighbouring bf16 on one side (a rounding
+    flip), which moves its term by 2⁻⁸ of itself — at a small batch a
+    large share of a dWn element. So for the untied backward:
+
+    - its bf16 codes equal its fp32 codes rounded, bit for bit;
+    - its fp32 codes lie within RTOL_EXACT of the plain ones, and each
+      within the sums' rounding bound of its plain code, 3·(d+1)·2⁻²⁴·S
+      with S = Σ_j|x_j·e_j| + |b| (the bound tied_bwd_flips uses): so
+      every rounding flip is one that the sum order explains. They are
+      counted, not capped at FLIPS_PER_CODE: at 64 rows and d=4096 about
+      one code in 2,000 lies that close to a boundary;
+    - dWn within RTOL_BF16 of the plain version's with the terms of each
+      code whose bf16 value differs from the plain one's (rounding and
+      ReLU flips) moved to the kernel's side."""
     from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
 
     e, dec, x, bias, al = (inp[k] for k in ("e", "dec", "x", "bias",
@@ -2576,8 +2653,38 @@ def bf16_bwd_check(inp: dict, tied: bool, tag: str, cm=None,
         ft.tied_bwd_bf16_codes(xb, wb, bias, cm, c_k, cb)
     else:
         ft.untied_bwd_bf16_codes(xb, e.to(torch.bfloat16), bias, c_k, cb)
-    del cb
     pre = torch.matmul(rnd(xf), w_plain.transpose(1, 2)) + bias[:, None, :]
+    codes = {}
+    if not tied:
+        c_plain = torch.relu(pre)
+        codes["codes"] = compare(f"{tag}:{kernel}.codes", c_k, c_plain,
+                                 RTOL_EXACT)
+        if not torch.equal(cb, c_k.to(torch.bfloat16)):
+            raise AssertionError(f"{tag}: {kernel}'s bf16 codes are not its "
+                                 "fp32 codes rounded")
+        s_abs = (torch.matmul(rnd(xf).abs(), w_plain.abs().transpose(1, 2))
+                 + bias.abs()[:, None, :])
+        of_bound = float(((c_k - c_plain).abs()
+                          / (3 * (d + 1) * 2.0**-24 * s_abs)
+                          .clamp_min(1e-30)).max())
+        del s_abs
+        if not of_bound <= 1.0:
+            raise AssertionError(f"{tag}: {kernel}'s fp32 codes lie "
+                                 f"{of_bound:.2e} of the sums' rounding "
+                                 "bound from the plain ones (> 1)")
+        cpb = c_plain.to(torch.bfloat16)
+        fm, fb, ff = (cb != cpb).nonzero().unbind(1)
+        codes["codes_of_rounding_bound"] = of_bound
+        codes["rounding_flips"] = int(((cb != cpb) & (cb > 0)
+                                       & (cpb > 0)).sum())
+        # the flipped codes' terms moved to the kernel's side
+        coef = 2.0 / (b * d)
+        moved = ((cb[fm, fb, ff].float() - cpb[fm, fb, ff].float())[:, None]
+                 * rnd(r[fm, fb]))
+        dwn_moved = ref[1].clone().index_put_((fm, ff), coef * moved,
+                                              accumulate=True)
+        del c_plain, cpb, moved
+    del cb
     want = pre > 0
     del pre
     if cm is not None:
@@ -2593,8 +2700,14 @@ def bf16_bwd_check(inp: dict, tied: bool, tag: str, cm=None,
     flips_per_feature = flip.sum(dim=1).float()
     del flip
     k = len(grads)
-    errs = {}
+    errs = dict(codes)
     for i, g in enumerate(grads):
+        if g == "dwn":
+            errs["dwn_flips_moved"] = compare(
+                f"{tag}:{kernel}.dwn (the flipped codes' terms moved)",
+                got[i], dwn_moved, RTOL_BF16)
+            del dwn_moved
+            continue
         errs[f"{g}_no_flip"] = compare(f"{tag}:{kernel}.{g} (no flip)",
                                        got[i][clean], ref[i][clean],
                                        RTOL_BF16)
@@ -2607,10 +2720,15 @@ def bf16_bwd_check(inp: dict, tied: bool, tag: str, cm=None,
                              "its flips")
     errs["loss4"] = compare(f"{tag}:{kernel}.loss4", got[k + 2],
                             ref[k + 2], RTOL_BF16)
-    worst = max(v["max_rel_err"] for v in errs.values())
+    worst = max(v["max_rel_err"] for v in errs.values()
+                if isinstance(v, dict))
+    rounding = (f", {errs['rounding_flips']} bf16 rounding flips of the "
+                f"codes, the farthest code "
+                f"{errs['codes_of_rounding_bound']:.2e} of its rounding "
+                "bound" if not tied else "")
     log(f"  {tag} {kernel} (x {x_dtype}{', masked' if cm is not None else ''}"
         f"): ok, {count} ReLU mask flips of {n_m * b * n} (allowed "
-        f"{allowed:.0f}), worst rel err {worst:.2e}")
+        f"{allowed:.0f}), worst rel err {worst:.2e}{rounding}")
     return {**errs, "flips": count, "flips_allowed": allowed}
 
 
@@ -2934,7 +3052,7 @@ def bf16_phase(x_main: torch.Tensor, batches: list, l1_values,
     bit-identical; bench.py's bf16 variants through Ensemble; the timings
     and bounds for the kernels line."""
     report = {"checks": {}}
-    for shape in BF16_SMALL_SHAPES:
+    for shape in BF16_SMALL_SHAPES + BF16_WIDE_SHAPES:
         tag = "bf16 small " + "x".join(map(str, shape))
         inp = make_inputs(g, *shape)
         checks = {"tied_fwd": bf16_fwd_check(inp, True, tag),
@@ -3350,6 +3468,394 @@ def big_bf16_phase(big_store: Path, g: torch.Generator) -> dict:
               "bounds": big_bf16_bounds(BIG_BATCH, BIG_N, BIG_D, nnz)}
     report["steps"] = big_bf16_steps(big_store)
     report["bench"] = bench_big_variants()
+    return report
+
+
+# --- phase 13: harvest from an LM on the card and train at its width --------
+
+# the EleutherAI/pythia-70m-deduped preset at full width, seeded random
+# weights and token ids; DataArgs' context and model batch; its MLP taps
+# are d_mlp = 2048 wide. The cut is depth: 2 chunks of 32,768 rows a tap
+# (chunk_size_gb 0.125 instead of 2.0), one epoch of 32 steps.
+LM_MODEL = "EleutherAI/pythia-70m-deduped"
+LM_D_MLP, LM_VOCAB = 2048, 50304  # the preset's, as published
+LM_LAYERS = (1, 2)
+LM_CHUNK_GB, LM_CHUNKS = 0.125, 2
+LM_MEMBERS = 16
+LM_CHECK_ROWS = 8  # token rows run on the card and on the CPU
+LM_SIDE_STEPS = 3
+# the forward on the card vs the CPU, |Δ|max against RTOL_LM·max|ref| per
+# tap and for the logits: the same fp32 operations, summed in other
+# orders (cuBLAS vs the CPU's BLAS) through 6 layers
+RTOL_LM = 1e-4
+
+
+def lm_params_to(params: dict, device) -> dict:
+    return {k: ([{n: t.to(device) for n, t in layer.items()}
+                 for layer in v] if k == "layers" else v.to(device))
+            for k, v in params.items()}
+
+
+def half_ulp_close(label: str, got_bits: np.ndarray, ref: torch.Tensor,
+                   rtol: float) -> dict:
+    """Card chunk rows (bf16 bit patterns) against the CPU's fp32
+    activations: each value within one bf16 ulp of itself plus
+    rtol·max|ref| (the two forwards' fp32 gap; rounding to bf16 adds at
+    most half an ulp on each side)."""
+    from sparse_coding_tpu_torch.data.chunk_store import _from_bf16_bits
+
+    got = torch.from_numpy(_from_bf16_bits(got_bits))
+    want = ref.to(torch.bfloat16).to(torch.float32)
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    excess = float(((got - want).abs() - ulp
+                    - rtol * ref.abs().max()).max())
+    if not excess <= 0:
+        raise AssertionError(f"{label}: more than one bf16 ulp (and {rtol} "
+                             "of max|ref|) from the CPU's taps")
+    return {"max_abs_err": float((got - want).abs().max()), "rows":
+            int(got.shape[0]), "tol": f"one bf16 ulp + {rtol} of max|ref|"}
+
+
+def lm_harvest(store: Path) -> tuple[dict, dict, object, np.ndarray]:
+    """(a) harvest_activations on the card into a bf16 store; returns the
+    report, the card's params, the config and the token rows."""
+    from sparse_coding_tpu_torch.config import DataArgs
+    from sparse_coding_tpu_torch.data.harvest import harvest_activations
+    from sparse_coding_tpu_torch.lm import gptneox
+    from sparse_coding_tpu_torch.lm.model_config import get_config
+
+    args = DataArgs()
+    cfg = get_config(LM_MODEL)
+    if (args.model_name, cfg.d_mlp, cfg.vocab_size) != (LM_MODEL, LM_D_MLP,
+                                                        LM_VOCAB):
+        raise AssertionError("phase 13 runs DataArgs' default model, "
+                             "Pythia-70M's preset")
+    ctx, mb = args.context_len, args.model_batch_size
+    rows_per_chunk = int(LM_CHUNK_GB * 2**30 / (cfg.d_mlp * 2))
+    n_rows = LM_CHUNKS * rows_per_chunk // ctx
+    tokens = np.random.default_rng(SEED + 13).integers(
+        0, cfg.vocab_size, size=(n_rows, ctx))
+    params = gptneox.init_params(torch.Generator().manual_seed(SEED + 13),
+                                 cfg, device=DEV)
+    # first-call costs (cuBLAS handles) outside the timed harvest
+    gptneox.forward(params, torch.as_tensor(tokens[:mb]).to(DEV), cfg,
+                    stop_at_layer=1)
+    sync()
+    t0 = time.perf_counter()
+    written = harvest_activations(
+        params, cfg, tokens, layers=list(LM_LAYERS), layer_loc="mlp",
+        output_folder=store, model_batch_size=mb, chunk_size_gb=LM_CHUNK_GB,
+        n_chunks=LM_CHUNKS, dtype="bfloat16", device=DEV)
+    wall = time.perf_counter() - t0
+    want = {f"mlp.{layer}": LM_CHUNKS for layer in LM_LAYERS}
+    if written != want:
+        raise AssertionError(f"harvest wrote {written}, expected {want}")
+    tokens_per_s = n_rows * ctx / wall
+    for tap in want:
+        meta = json.loads((store / tap / "meta.json").read_text())
+        if (meta["activation_dim"], meta["dtype"], meta["tap"],
+                meta["layer_loc"]) != (cfg.d_mlp, "bfloat16", tap, "mlp"):
+            raise AssertionError(f"{tap}: meta.json {meta}")
+    log(f"  harvest: {n_rows} rows x {ctx} tokens, taps {list(want)}, "
+        f"{LM_CHUNKS} chunks of {rows_per_chunk} rows each: {wall:.2f} s, "
+        f"{tokens_per_s:.0f} tokens/s (chunk writes included)")
+    return ({"wall_s": wall, "tokens_per_s": tokens_per_s, "rows": n_rows,
+             "context": ctx, "model_batch": mb,
+             "rows_per_chunk": rows_per_chunk}, params, cfg, tokens)
+
+
+def lm_card_vs_cpu(params: dict, cfg, tokens: np.ndarray,
+                   store: Path) -> dict:
+    """(b) the first LM_CHECK_ROWS token rows through the forward on the
+    card and on the CPU (the same weights): every tap location at every
+    layer and the logits within RTOL_LM of max|ref|; the first rows of the
+    card's chunk 0 of each tap within one bf16 ulp of the CPU's taps."""
+    from sparse_coding_tpu_torch.lm import gptneox, hooks
+
+    toks = torch.as_tensor(tokens[:LM_CHECK_ROWS])
+    taps = [hooks.tap_name(layer, loc) for loc in hooks.LAYER_LOCS
+            for layer in range(cfg.n_layers)]
+    with torch.inference_mode():
+        card_logits, card = gptneox.forward(params, toks.to(DEV), cfg, taps)
+        cpu_params = lm_params_to(params, "cpu")
+        cpu_logits, cpu = gptneox.forward(cpu_params, toks, cfg, taps)
+    out = {"logits": compare("lm: logits", card_logits.cpu(), cpu_logits,
+                             RTOL_LM)}
+    for name in taps:
+        out[name] = compare(f"lm: {name}", card[name].cpu(), cpu[name],
+                            RTOL_LM)
+    del card, card_logits, cpu_logits
+    rows = LM_CHECK_ROWS * tokens.shape[1]
+    for layer in LM_LAYERS:
+        tap = f"mlp.{layer}"
+        chunk = np.load(store / tap / "0.npy", mmap_mode="r")[:rows]
+        out[f"chunk0 {tap}"] = half_ulp_close(
+            f"lm: chunk 0 of {tap}", np.array(chunk),
+            cpu[tap].reshape(rows, -1), RTOL_LM)
+    worst = max(v["max_rel_err"] for k, v in out.items()
+                if not k.startswith("chunk0"))
+    log(f"  card vs CPU forward ({LM_CHECK_ROWS} rows, {len(taps)} taps and "
+        f"the logits): worst rel err {worst:.2e}; chunk 0's first {rows} "
+        "rows of each tap within one bf16 ulp of the CPU's")
+    return out
+
+
+@contextlib.contextmanager
+def step_events():
+    """A CUDA event recorded after each Ensemble.step_batch (no added
+    synchronization), so a run's device-timeline time per step, data
+    waits included, can be read after it."""
+    from sparse_coding_tpu_torch.ensemble import Ensemble
+
+    events, real = [], Ensemble.step_batch
+
+    def timed(self, batch):
+        aux = real(self, batch)
+        done = torch.cuda.Event(enable_timing=True)
+        done.record()
+        events.append(done)
+        return aux
+
+    Ensemble.step_batch = timed
+    try:
+        yield events
+    finally:
+        Ensemble.step_batch = real
+
+
+def lm_train(store: Path, out_dir: Path, tied: bool, n_steps: int) -> dict:
+    """(c)/(d) basic_l1_sweep over the mlp.2 store on the default kernel
+    path: each of the family's kernels once a step (counts zeroed just
+    before), finite losses, eval.json ordering the L1 grid, artifacts that
+    load; acts/s over steps 2..n on the device timeline."""
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.train.basic_sweep import basic_l1_sweep
+    from sparse_coding_tpu_torch.utils.artifacts import load_learned_dicts
+
+    d = ChunkStore(store).activation_dim
+    l1_values = [float(v) for v in np.logspace(-4, -2, LM_MEMBERS)]
+    with step_events() as events:
+        _build.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        dicts = basic_l1_sweep(store, out_dir, l1_values, dict_ratio=RATIO,
+                               batch_size=BATCH, lr=LR, n_epochs=1,
+                               seed=SEED, tied=tied, device=DEV)
+        sync()
+        wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    ours = TIED_KERNELS if tied else UNTIED_KERNELS
+    want = {name: n_steps if name in ours else 0 for name in _build.LAUNCHES}
+    want.update(part_launches(tied, n_steps,
+                              (LM_MEMBERS, BATCH, RATIO * d)))
+    if len(events) != n_steps or launches != want:
+        raise AssertionError(f"{len(events)} steps, launches {launches}, "
+                             f"expected {n_steps} steps and {want}")
+    acts_per_s = ((n_steps - 1) * BATCH
+                  / (events[0].elapsed_time(events[-1]) / 1e3))
+    evals = json.loads((out_dir / "epoch_0" / "eval.json").read_text())
+    if len(evals) != LM_MEMBERS or not all(
+            math.isfinite(s["fvu"]) and math.isfinite(s["l0"])
+            for s in evals):
+        raise AssertionError(f"eval.json: {evals}")
+    if not (evals[0]["fvu"] < evals[-1]["fvu"]
+            and evals[0]["l0"] > evals[-1]["l0"]):
+        raise AssertionError(f"eval.json: the L1 grid does not order fvu "
+                             f"and l0: {evals[0]} vs {evals[-1]}")
+    loaded = load_learned_dicts(out_dir / "epoch_0" / "learned_dicts.pkl")
+    cls = "TiedSAE" if tied else "UntiedSAE"
+    if len(loaded) != LM_MEMBERS or len(dicts) != LM_MEMBERS or any(
+            type(ld).__name__ != cls
+            or tuple(ld.get_learned_dict().shape) != (RATIO * d, d)
+            or not torch.isfinite(ld.get_learned_dict()).all()
+            for ld, _ in loaded):
+        raise AssertionError("learned_dicts.pkl: wrong members")
+    del dicts, loaded
+    torch.cuda.empty_cache()
+    family = "tied" if tied else "untied"
+    log(f"  basic_l1_sweep {family}: {n_steps} steps, {wall:.2f} s wall, "
+        f"{acts_per_s:.0f} acts/s (steps 2-{n_steps}, device timeline, data "
+        f"included); each {family} kernel {n_steps} launches; fvu "
+        f"{evals[0]['fvu']:.4f} .. {evals[-1]['fvu']:.4f}, l0 "
+        f"{evals[0]['l0']:.1f} .. {evals[-1]['l0']:.1f}")
+    return {"wall_s": wall, "acts_per_s": acts_per_s, "launches": launches,
+            "eval": evals}
+
+
+def lm_side_by_side(batches: list) -> dict:
+    """(e) both families LM_SIDE_STEPS steps on the kernels and on
+    autodiff from one init on the same batches (phase 6's bounds), then
+    the same steps with bf16 compute and moments: each bf16 form once a
+    step, finite losses within RTOL_BF16_MSE of the fp32 kernels'."""
+    from sparse_coding_tpu_torch.ensemble import Ensemble
+    from sparse_coding_tpu_torch.models.sae import (
+        FunctionalSAE,
+        FunctionalTiedSAE,
+    )
+    from sparse_coding_tpu_torch.ops import _build
+
+    d = batches[0].shape[1]
+    l1_values = [float(v) for v in np.logspace(-4, -2, LM_MEMBERS)]
+    out = {}
+    for family, sig in (("tied", FunctionalTiedSAE),
+                        ("untied", FunctionalSAE)):
+        g = torch.Generator().manual_seed(SEED + 13)
+        members = [sig.init(g, d, RATIO * d, l1_alpha=l1)
+                   for l1 in l1_values]
+        runs = {}
+        for label, kw in (("autodiff", {"use_fused": False}),
+                          ("kernels", {}),
+                          ("bf16", {"fused_compute_dtype": BF16,
+                                    "fused_moments_dtype": BF16,
+                                    "fused_path": "train_step_tiled"})):
+            ens = Ensemble(members, sig, lr=LR, device=DEV, **kw)
+            _build.reset_launches()
+            losses = [ens.step_batch(b).losses["loss"] for b in batches]
+            sync()
+            runs[label] = (ens.state.params, losses, dict(_build.LAUNCHES))
+            del ens
+        del members
+        kernels = TIED_KERNELS if family == "tied" else UNTIED_KERNELS
+        n = len(batches)
+        if any(runs["kernels"][2][k] != n for k in kernels) or any(
+                runs["bf16"][2][f"{k}_bf16"] != n for k in kernels) or any(
+                runs["autodiff"][2].values()):
+            raise AssertionError(f"{family}: launches "
+                                 f"{ {k: v[2] for k, v in runs.items()} }")
+        errs = [compare(f"lm {family}: step {i} loss", got, want_l,
+                        RTOL_PATH_LOSS)
+                for i, (got, want_l) in enumerate(zip(runs["kernels"][1],
+                                                      runs["autodiff"][1]))]
+        rel = {}
+        for w in (("encoder",) if family == "tied"
+                  else ("encoder", "decoder")):
+            rel[w] = rel_fro(runs["kernels"][0][w], runs["autodiff"][0][w])
+            if not rel[w] <= REL_FRO_PATH:
+                raise AssertionError(f"lm {family}: {w} drifted from "
+                                     f"autodiff, {rel[w]:.2e}")
+        bf = [float(((b - k).abs() / k.abs()).max())
+              for b, k in zip(runs["bf16"][1], runs["kernels"][1])]
+        if not all(torch.isfinite(x).all() for x in runs["bf16"][1]) or \
+                not max(bf) <= RTOL_BF16_MSE:
+            raise AssertionError(f"lm {family} bf16: losses {bf}")
+        out[family] = {"loss_max_rel_err": max(e["max_rel_err"]
+                                               for e in errs),
+                       "rel_fro": rel, "bf16_loss_rel": bf,
+                       "launches": {k: v[2] for k, v in runs.items()}}
+        log(f"  {family}: kernels vs autodiff over {n} steps: loss rel err "
+            f"{out[family]['loss_max_rel_err']:.2e}, relative Frobenius "
+            + ", ".join(f"{w} {v:.2e}" for w, v in rel.items())
+            + f"; bf16 forms once a step, losses within {max(bf):.2e} of "
+            "fp32's")
+        del runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_kernels(x: torch.Tensor) -> dict:
+    """The ensemble kernels at the slice's shape (LM_MEMBERS members,
+    batch BATCH, n = RATIO·d, d = LM_D_MLP) on harvested rows: the chunked
+    kernels against their plain versions (check_chunked), the Adam
+    epilogues, the bf16 forms; each kernel and its plain version timed,
+    with its bound."""
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    d = x.shape[1]
+    shape = (LM_MEMBERS, BATCH, RATIO * d, d)
+    out = {"chunked": check_chunked(
+        torch.Generator(DEV).manual_seed(SEED + 131), x, shape,
+        {"fwd": len(ft.fwd_chunks(*shape[:3])),
+         "bwd": len(ft.bwd_chunks(*shape[:3]))}, "lm")}
+    inp = make_inputs(torch.Generator(DEV).manual_seed(SEED + 132),
+                      *shape, x=x)
+    adam = {}
+    for name, pairs in adam_pairs(inp).items():
+        adam[name] = {f: compare(f"lm:{name}.{f}", g, rf, rtol, atol)
+                      for f, (g, rf, rtol, atol) in pairs.items()}
+    out["adam"] = adam
+    worst = max(v["max_rel_err"] for a in adam.values() for v in a.values())
+    log(f"  lm adam epilogues: ok, worst rel err {worst:.2e}")
+    out["bf16"] = {"tied_fwd": bf16_fwd_check(inp, True, "lm bf16",
+                                              ("float32",)),
+                   "untied_fwd": bf16_fwd_check(inp, False, "lm bf16",
+                                                ("float32",)),
+                   "tied_bwd": bf16_bwd_check(inp, True, "lm bf16"),
+                   "untied_bwd": bf16_bwd_check(inp, False, "lm bf16"),
+                   "adam": bf16_adam_check(inp, "lm bf16")}
+    nnz = active_codes(inp)
+    out["active_codes"] = nnz
+    out["bounds"] = {**bounds(inp, nnz), **bf16_bounds(inp, nnz)}
+    out["timing"] = {**time_kernels(inp), **bf16_time_kernels(inp)}
+    del inp
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_scrub(store: Path) -> dict:
+    """(f) scrub_store over each tap folder of the harvested store reads
+    clean; one flipped byte in chunk 1 of mlp.1 is named, and with repair
+    the chunk is quarantined."""
+    from sparse_coding_tpu_torch.data.ledger import load_quarantine
+    from sparse_coding_tpu_torch.data.scrub import QUARANTINE_DIR, scrub_store
+
+    out = {}
+    for layer in LM_LAYERS:
+        rep = scrub_store(store / f"mlp.{layer}")
+        if (rep["checked"], rep["ok"], rep["quarantined"]) != (
+                LM_CHUNKS, LM_CHUNKS, 0):
+            raise AssertionError(f"scrub of mlp.{layer}: {rep}")
+        out[f"clean mlp.{layer}"] = rep
+    folder = store / "mlp.1"
+    path = folder / "1.npy"
+    raw = bytearray(path.read_bytes())
+    raw[len(raw) // 2] ^= 0x10
+    path.write_bytes(bytes(raw))
+    found = scrub_store(folder)
+    work = json.loads((folder / "scrub" / "reharvest.json").read_text())
+    if found["quarantined"] != 1 or [w["chunk"] for w in work] != [1]:
+        raise AssertionError(f"scrub after a flipped byte: {found}, {work}")
+    repaired = scrub_store(folder, repair=True)
+    if (not (folder / QUARANTINE_DIR / "1.npy").exists() or path.exists()
+            or list(load_quarantine(folder)) != [1]
+            or repaired["quarantined"] != 1):
+        raise AssertionError(f"scrub --repair: {repaired}")
+    log(f"  scrub: {LM_CHUNKS} + {LM_CHUNKS} chunks clean; a flipped byte "
+        "in mlp.1 chunk 1 named on the worklist and, with repair, moved to "
+        "quarantine/ and the ledger")
+    return {**out, "found": found, "repaired": repaired}
+
+
+def lm_phase(tmp: Path) -> dict:
+    """Phase 13: (a) harvest, (b) card vs CPU, (c)/(d) train tied and
+    untied on the mlp.2 store, (e) kernels vs autodiff, (f) scrub; and
+    the kernels at the slice's shape."""
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+
+    store = tmp / "lm_store"
+    t0 = time.perf_counter()
+    report = {}
+    report["harvest"], params, cfg, tokens = lm_harvest(store)
+    report["card_vs_cpu"] = lm_card_vs_cpu(params, cfg, tokens, store)
+    del params
+    torch.cuda.empty_cache()
+    n_steps = LM_CHUNKS * report["harvest"]["rows_per_chunk"] // BATCH
+    train = store / f"mlp.{LM_LAYERS[-1]}"
+    for tied in (True, False):
+        family = "tied" if tied else "untied"
+        report[f"train_{family}"] = lm_train(train, tmp / f"lm_{family}",
+                                             tied, n_steps)
+    chunk = torch.as_tensor(ChunkStore(train).load_chunk(0))
+    batches = [chunk[i * BATCH:(i + 1) * BATCH].to(DEV).contiguous()
+               for i in range(LM_SIDE_STEPS)]
+    report["side_by_side"] = lm_side_by_side(batches)
+    report["kernels"] = lm_kernels(batches[0])
+    del batches, chunk
+    torch.cuda.empty_cache()
+    report["scrub"] = lm_scrub(store)
+    report["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 13: {report['wall_s']:.1f} s")
     return report
 
 
@@ -3954,8 +4460,11 @@ def main() -> int:
         checks = {}
         for tag, shape in (("small", (3, 96, 96, 40)),
                            ("wide", (2, 64, 64, 600)),
-                           ("widest", (2, 64, 64, 768))):
+                           ("d768", (2, 64, 64, 768))):
             checks[tag] = check_kernels(make_inputs(g, *shape), tag)
+        for d in WIDTHS:
+            checks[f"d{d}"] = check_kernels(make_inputs(g, 2, 64, 64, d),
+                                            f"d{d}")
         main_inp = make_inputs(g, N_MEMBERS, BATCH, N_FEATS, D, x=x_main)
         checks["main"] = check_kernels(main_inp, "main")
         report["checks"] = checks
@@ -3973,9 +4482,10 @@ def main() -> int:
         report["active_codes"] = nnz
         del main_inp
         torch.cuda.empty_cache()
-        checks["ratio16"] = check_ratio16(
+        checks["ratio16"] = check_chunked(
             torch.Generator().manual_seed(16),
-            x_main.to(DEV, torch.float32).contiguous())
+            x_main.to(DEV, torch.float32).contiguous(), RATIO16_SHAPE,
+            {"fwd": RATIO16_FWD_CHUNKS, "bwd": RATIO16_CHUNKS}, "ratio16")
         big_store = Path(tmp) / "big_store"
         big_gen, big_g = write_big_store(big_store, seed=SEED)
         held_out = big_gen.batch(big_g, 8192)
@@ -4084,6 +4594,15 @@ def main() -> int:
         report["zoo"] = zoo_phase(sweep_store, Path(tmp))
         log(f"  done at {time.perf_counter() - t_start:.1f} s")
 
+        log(f"phase 13: harvest on the card from {LM_MODEL} at full width "
+            f"(random weights), taps mlp.{LM_LAYERS[0]} and "
+            f"mlp.{LM_LAYERS[1]}; basic_l1_sweep tied and untied over the "
+            f"mlp.{LM_LAYERS[1]} store at d={LM_D_MLP}, {LM_MEMBERS} "
+            f"members, ratio {RATIO}, batch {BATCH}; kernels vs autodiff; "
+            "scrub")
+        report["lm"] = lm_phase(Path(tmp))
+        log(f"  done at {time.perf_counter() - t_start:.1f} s")
+
     timing.update(big["timing"])
     bnd.update(big["bounds"])
     kernels = []
@@ -4098,7 +4617,9 @@ def main() -> int:
             checked = checks["main"][name]
             family = "tied" if name in TIED_KERNELS else "untied"
             launches = report[f"main_path_{family}"]["launches"][name]
-        errs = {k: v for k, v in checked.items() if not is_mask_count(k)}
+        # (a tied backward's flip counts carry no error)
+        errs = {k: v for k, v in checked.items()
+                if not is_mask_count(k) and "max_abs_err" in v}
         kernels.append({
             "name": name, "route": "cuda", **{
                 k: KERNEL_META[name][k] for k in ("source", "replaces")},
@@ -4188,6 +4709,22 @@ def main() -> int:
             "compute": "bf16 operands, fp32 accumulation",
             "parts": {k: {"launches": bf_run[k], "ms": v["ms"]}
                       for k, v in t["parts"].items()}})
+    # phase 13's shape (d = LM_D_MLP): each ensemble kernel's launches on
+    # its path (the fp32 sweeps; the bf16 forms' 3 steps), time and bound
+    lm = report["lm"]
+    for entry in kernels:
+        name = entry["name"]
+        base = name.removesuffix("_bf16")
+        if base not in TIED_KERNELS + UNTIED_KERNELS:
+            continue
+        family = "tied" if base in TIED_KERNELS else "untied"
+        runs = (lm["side_by_side"][family]["launches"]["bf16"]
+                if name != base else lm[f"train_{family}"]["launches"])
+        t = lm["kernels"]["timing"][name]
+        b = lm["kernels"]["bounds"][name]
+        entry[f"at_d{LM_D_MLP}"] = {
+            "launches": runs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
     report["kernels"] = kernels
     report["timing"] = timing
     report["bounds"] = bnd

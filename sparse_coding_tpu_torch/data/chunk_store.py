@@ -126,10 +126,21 @@ def _count_read(path: str) -> None:
 class ChunkWriter:
     """Accumulates [n, d] activation slabs and flushes ~chunk_size_gb
     files. ``center=True`` subtracts the first flushed chunk's mean from
-    every chunk (``center.npy`` keeps it)."""
+    every chunk (``center.npy`` keeps it).
+
+    ``start_index`` resumes a harvest past its first chunks (the JAX
+    ``skip_chunks``): numbering starts there, the kept chunks' digests come
+    from the folder's ``meta.json`` or, after a crash before finalize,
+    from the chunk files themselves, and a centered resume reuses the
+    original ``center.npy``. ``round_rows_to`` rounds a chunk's rows down
+    to a multiple of it (a producer's batch), so that chunk boundaries map
+    onto input offsets. :meth:`abort` drops the buffered rows and any
+    orphaned temporary file, so a failed harvest leaves whole chunks and
+    no ``meta.json``."""
 
     def __init__(self, folder: str | Path, activation_dim: int,
                  chunk_size_gb: float = 2.0, dtype: str = "bfloat16",
+                 start_index: int = 0, round_rows_to: int = 1,
                  center: bool = False):
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {_DTYPES}, got {dtype!r}")
@@ -140,12 +151,34 @@ class ChunkWriter:
         itemsize = 4 if dtype == "float32" else 2
         self.rows_per_chunk = int(chunk_size_gb * 2**30
                                   / (activation_dim * itemsize))
+        if round_rows_to > 1:
+            self.rows_per_chunk = max(
+                round_rows_to,
+                self.rows_per_chunk // round_rows_to * round_rows_to)
         self._buffer: list[np.ndarray] = []
         self._buffered_rows = 0
         self._digests: dict[str, str] = {}
-        self.chunk_index = 0
+        if start_index > 0:
+            prior_meta = self.folder / "meta.json"
+            if prior_meta.exists():
+                self._digests = dict(json.loads(prior_meta.read_text())
+                                     .get("chunk_digests", {}))
+            else:
+                for i in range(start_index):
+                    path = self.folder / f"{i}.npy"
+                    if path.exists():
+                        self._digests[str(i)] = array_sha256(np.load(path))
+        self.chunk_index = start_index
         self.center = center
         self._center_mean: Optional[np.ndarray] = None
+        if center and start_index > 0:
+            prior = self.folder / "center.npy"
+            if not prior.exists():
+                raise ValueError(
+                    f"resuming a centered harvest at chunk {start_index} but "
+                    f"{prior} is missing — the original centering mean is "
+                    "unrecoverable; re-harvest from chunk 0")
+            self._center_mean = np.load(prior)
 
     def add(self, acts) -> None:
         if isinstance(acts, torch.Tensor):
@@ -213,6 +246,13 @@ class ChunkWriter:
         crash_barrier("store.finalize")
         atomic_write_text(self.folder / "meta.json", json.dumps(meta, indent=2))
         return self.chunk_index
+
+    def abort(self) -> None:
+        """Drop the buffered rows and sweep up orphaned temporary files:
+        an aborted harvest leaves only whole chunks and no meta.json."""
+        self._buffer, self._buffered_rows = [], 0
+        for tmp in self.folder.glob(".*.tmp.*"):
+            tmp.unlink(missing_ok=True)
 
 
 class ChunkStore:

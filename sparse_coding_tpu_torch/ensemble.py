@@ -40,7 +40,7 @@ import torch
 
 from sparse_coding_tpu_torch import resolve_device
 from sparse_coding_tpu_torch.models.signatures import AuxData
-from sparse_coding_tpu_torch.ops import roofline
+from sparse_coding_tpu_torch.ops import _build, roofline
 from sparse_coding_tpu_torch.ops.roofline import KERNEL_PATHS
 from sparse_coding_tpu_torch.utils.tree import flatten_tree, unflatten_tree
 
@@ -359,7 +359,6 @@ def make_fullfused_untied_step(adam_hypers, compute_dtype="float32",
     stands in for the grad norm on ``train_step``, while
     ``train_step_tiled`` reports the kernel grad norm, as in the JAX
     package."""
-    from sparse_coding_tpu_torch.ops import _build
     from sparse_coding_tpu_torch.ops.fused_sae import (
         fused_adam_vjp_update,
         fused_untied_sae_grads,
@@ -413,7 +412,6 @@ def make_fullfused_tiled_step(adam_hypers, compute_dtype="float32",
     Adam/normalization-VJP epilogue kernel; the bias steps in torch. Both
     sentinel norms come out of kernel epilogues (+ the [N, n] bias
     delta)."""
-    from sparse_coding_tpu_torch.ops import _build
     from sparse_coding_tpu_torch.ops.fused_sae import (
         fused_tied_adam_vjp_update)
     from sparse_coding_tpu_torch.ops.fused_sae_tiled import (
@@ -685,7 +683,8 @@ class Ensemble:
                 or self.device.type == "cuda"):
             raise ValueError(
                 f"the kernels do not take batch={batch_size}, "
-                f"n_feats={n_feats}, d={d} ({plan.reason}); "
+                f"n_feats={n_feats}, d={d} ({plan.reason}): they take "
+                f"{_build.kernel_shapes(self._compute_dtype)}; "
                 "pass use_fused=False to train this bucket on autodiff")
         self._step_fn = (self._standard_step if plan.path is None
                          else self._step_for_path(plan.path))

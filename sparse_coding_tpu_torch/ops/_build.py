@@ -264,7 +264,7 @@ _lock = threading.Lock()
 BATCH_TILE = 32
 FEAT_TILE = 32
 ADAM_ROWS = 8
-MAX_D = 768
+MAX_D = 4096
 # the bf16 forms' tensor-core product copies 8 bf16 values at a time along
 # every operand's contiguous dimension, d among them
 BF16_D_MULTIPLE = 8
@@ -291,6 +291,16 @@ def check_cuda_tensors(name: str, bf16_ok: tuple = (), **tensors) -> None:
         raise ValueError(f"{name}: tensors on several devices {devices}")
 
 
+def kernel_shapes(compute_dtype: str = "float32") -> str:
+    """The shapes the ensemble kernels take, as an error message says
+    them."""
+    rule = (f"batch % {BATCH_TILE} == 0, n_feats % {FEAT_TILE} == 0 and "
+            f"1 <= d <= {MAX_D}")
+    if compute_dtype == "bfloat16":
+        rule += f" (bf16 compute: d % {BF16_D_MULTIPLE} == 0)"
+    return rule
+
+
 def check_kernel_shape(name: str, batch: int, n_feats: int, d: int,
                        compute_dtype: str = "float32") -> None:
     """Raise ValueError for a shape the fwd/bwd kernels' blocking does not
@@ -298,8 +308,7 @@ def check_kernel_shape(name: str, batch: int, n_feats: int, d: int,
     d % BF16_D_MULTIPLE == 0."""
     if batch % BATCH_TILE or n_feats % FEAT_TILE or not 1 <= d <= MAX_D:
         raise ValueError(
-            f"{name}: the CUDA kernel needs batch % {BATCH_TILE} == 0, "
-            f"n_feats % {FEAT_TILE} == 0 and 1 <= d <= {MAX_D}; got "
+            f"{name}: the CUDA kernel needs {kernel_shapes()}; got "
             f"batch={batch}, n_feats={n_feats}, d={d}")
     if compute_dtype == "bfloat16" and d % BF16_D_MULTIPLE:
         raise ValueError(

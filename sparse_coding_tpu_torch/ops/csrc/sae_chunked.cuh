@@ -235,7 +235,7 @@ struct ScaledDpreEpi {
 
 // The chunk shapes the chunked ensemble kernels take: Z members of `rows`
 // batch rows (a multiple of 32), n features (a multiple of 32),
-// 1 <= d <= 768.
+// 1 <= d <= kMaxD (4096).
 inline bool chunk_ok(int Z, int rows, int n, int d) {
   return Z >= 1 && Z <= 65535 && rows >= 1 && rows % kBatchTile == 0 &&
          n >= 1 && n % kFeatTile == 0 && d >= 1 && d <= kMaxD;

@@ -15,7 +15,11 @@ constexpr int kBatchTile = 32;            // the batch and a chunk's rows
                                           // divide by this
 constexpr int kFeatTile = 32;             // the feature count divides by this
 constexpr int kAdamRows = kWarps;         // dictionary rows per adam block
-constexpr int kMaxD = 3 * kThreads;       // widest d the ensemble kernels take
+// widest d the ensemble kernels take: the widest d_mlp of the LM presets
+// (gpt2-medium, Pythia-410M). Nothing in them scales with d but the
+// GEMM template's K loop and the warp-strided row loops of the norm pass
+// and the Adam epilogues; their workspace holds codes only.
+constexpr int kMaxD = 4096;
 constexpr int kBigMaxD = 4 * kThreads;    // widest d the big-SAE kernels take
 constexpr float kNormEps = 1e-8f;         // row norms are clipped, not +eps
 constexpr int kBf16DMultiple = 8;         // the bf16 forms' d divides by this

@@ -180,9 +180,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("tied", [True, False], ids=["tied", "untied"])
 def test_ensemble_refuses_a_shape_the_kernels_do_not_take(card, tied):
-    """On the card an eligible bucket at d=1024 (above the kernels' limit)
-    raises at its first step; with use_fused=False it trains on autodiff
-    and launches no kernel."""
+    """On the card an eligible bucket at d=4097 (just above the kernels'
+    limit) raises at its first step; with use_fused=False it trains on
+    autodiff and launches no kernel."""
     from sparse_coding_tpu_torch.ensemble import Ensemble
     from sparse_coding_tpu_torch.models.sae import (
         FunctionalSAE,
@@ -191,8 +191,9 @@ def test_ensemble_refuses_a_shape_the_kernels_do_not_take(card, tied):
 
     sig = FunctionalTiedSAE if tied else FunctionalSAE
     g = torch.Generator().manual_seed(0)
-    members = [sig.init(g, 1024, 64, l1_alpha=l1) for l1 in (1e-3, 1e-2)]
-    x = torch.randn((64, 1024), generator=g).to(card)
+    d = _build.MAX_D + 1
+    members = [sig.init(g, d, 64, l1_alpha=l1) for l1 in (1e-3, 1e-2)]
+    x = torch.randn((64, d), generator=g).to(card)
     with pytest.raises(ValueError, match="do not take"):
         Ensemble(members, sig, device=card).step_batch(x)
     _build.reset_launches()

@@ -38,6 +38,7 @@ from sparse_coding_tpu_torch.models.sae import (
     FunctionalSAE,
     FunctionalTiedSAE,
 )
+from sparse_coding_tpu_torch.ops import _build
 from sparse_coding_tpu_torch.utils.carry import (
     members_from_numpy,
     state_from_numpy,
@@ -353,13 +354,16 @@ def test_path_resolution_is_counted_per_batch_size():
     assert off.path_resolved == {("autodiff", "fused_disabled"): 1}
 
 
-UNFIT = [("tied", 1024, 64), ("tied", D, 100), ("untied", 1024, 64),
-         ("untied", D, 100), ("masked_tied", 1024, 64)]
+# a width just above the kernels' limit (4096), and a batch the 32-row
+# tile does not divide
+WIDE = _build.MAX_D + 1
+UNFIT = [("tied", WIDE, 64), ("tied", D, 100), ("untied", WIDE, 64),
+         ("untied", D, 100), ("masked_tied", WIDE, 64)]
 
 
 def _unfit_id(case):
     family, d, batch = case
-    label = "d1024" if d == 1024 else f"batch{batch}"
+    label = f"d{d}" if d == WIDE else f"batch{batch}"
     return label if family == "tied" else f"{family}-{label}"
 
 
@@ -388,7 +392,8 @@ def test_unfit_shape_raises_on_the_card(case):
     assert ens.path_resolved == {("autodiff", "no_admissible_tile"): 1}
     card = Ensemble(members, sig, device="cpu")
     card.device = torch.device("cuda")
-    with pytest.raises(ValueError, match="do not take"):
+    with pytest.raises(ValueError, match="they take batch % 32 == 0, "
+                       "n_feats % 32 == 0 and 1 <= d <= 4096"):
         card._resolve_step(batch)
     forced = Ensemble(members, sig, device="cpu", fused_path="two_stage")
     with pytest.raises(ValueError, match="do not take"):

@@ -1,7 +1,9 @@
 """The port imports neither JAX nor the JAX package, so a host with a GPU
 needs no JAX install: every module of sparse_coding_tpu_torch (and
 chip_smoke.py) imports in a subprocess whose meta-path blocks jax, flax,
-optax and sparse_coding_tpu, and a source scan finds no such import."""
+optax and sparse_coding_tpu — and transformers, datasets and zstandard,
+which the LM and harvest modules import only inside the functions that
+need them — and a source scan finds no such import."""
 
 import re
 import subprocess
@@ -14,7 +16,8 @@ PORT = REPO / "sparse_coding_tpu_torch"
 _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "sparse_coding_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "sparse_coding_tpu",
+           "transformers", "datasets", "zstandard")
 
 
 class Block(importlib.abc.MetaPathFinder):
@@ -42,6 +45,10 @@ ZOO = ("models.lista", "models.pca", "models.positive", "models.rica",
        "models.semilinear", "models.topk", "metrics.core",
        "utils.ref_interop", "utils.checkpoint", "utils.tree",
        "data.synthetic", "train.experiments")
+# the LM and harvest modules
+HARVEST = ("lm.model_config", "lm.hooks", "lm.gptneox", "lm.gpt2",
+           "lm.convert", "data.tokenize", "data.harvest", "data.scrub",
+           "data.generate")
 
 _IMPORT = re.compile(
     r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|sparse_coding_tpu)\b"
@@ -60,7 +67,8 @@ def test_port_imports_under_a_jax_blocker():
     assert out.returncode == 0, out.stderr[-2000:]
     names = out.stdout.split()
     assert len(names) >= 20
-    assert {f"sparse_coding_tpu_torch.{m}" for m in ZOO} <= set(names)
+    assert {f"sparse_coding_tpu_torch.{m}" for m in ZOO + HARVEST} \
+        <= set(names)
 
 
 def test_source_scan_finds_no_jax_import():
