@@ -178,7 +178,34 @@ Phases — any failure raises, and the script exits non-zero with no result:
    same batches at phase 6's bounds; (f) ``scrub_store`` over (a)'s store
    reads clean, names a chunk with one flipped byte, and with repair
    quarantines it;
-14. summary: one ``{"kernels": [...]}`` line, the card's name and power
+14. evaluate on the card, on phase 13's LM, stores and tied ``mlp.2``
+   dicts (16 members, n=8192): (a) ``run_toy_replication`` at
+   ``ToyArgs``' defaults (d=128, 256 true features, batch 256, 390
+   steps) and at the JAX gate's config (d=48, 64 features, ratio 1.5,
+   batch 512, 703 steps), each tied kernel once a step (counts zeroed
+   before each), finite metrics, the gate's best representedness above
+   0.85; (b) ``basic_l1_sweep`` over ``mlp.1``'s sound chunk (the scrub
+   quarantined chunk 1), 4 tied members at ratio 4, batch 2048, each
+   tied kernel once a step; (c) ``calculate_perplexity`` at ``mlp.2``
+   over 64 + 8 token rows of 256 (model batch 16, a tail of 8) for the
+   model, ``Identity`` (equal to the model's to 1e-6) and the 16 dicts,
+   beside their L0 and FVU, tokens/s; card vs CPU over 8 rows and two
+   dicts; (d) ``build_ablation_graph_non_positional`` from a (b) dict to
+   an ``mlp.2`` dict, 8 sources, 64 targets, 8 rows of 64 tokens, card vs
+   CPU; (e) ``run_ioi_feature_ident`` at ``mlp.2`` with a crc32 stub
+   tokenizer: 1,024 features ranked on the card (timed), card vs CPU
+   over 32 (rankings, effects, the cumulative ablation curve); (f)
+   ``probe_activations`` of prompts with a planted label token,
+   ``feature_erasure_curve`` with the LM's KL and ``leace_baseline``,
+   card vs CPU (sklearn's probe, or with no sklearn on the host
+   ``closed_form_probe``; ``run_erasure`` end to end when sklearn and
+   matplotlib are there); (g) ``activity_sweep`` and ``kurtosis_sweep``
+   over the ``mlp.2`` store (timed) and card vs CPU on 8,192 rows and 2
+   dicts; FISTA codes and a ``ConcatEnsembleDict``, card vs CPU;
+   ``resurrect_ensemble_features`` on (b)'s ensemble; PCA card vs CPU
+   and the baseline exports (``run_layer_baselines`` whole with
+   sklearn); its wall time;
+15. summary: one ``{"kernels": [...]}`` line, the card's name and power
    limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds the four chunked ensemble kernels against their plain
@@ -3827,10 +3854,12 @@ def lm_scrub(store: Path) -> dict:
     return {**out, "found": found, "repaired": repaired}
 
 
-def lm_phase(tmp: Path) -> dict:
+def lm_phase(tmp: Path) -> tuple[dict, dict]:
     """Phase 13: (a) harvest, (b) card vs CPU, (c)/(d) train tied and
     untied on the mlp.2 store, (e) kernels vs autodiff, (f) scrub; and
-    the kernels at the slice's shape."""
+    the kernels at the slice's shape. Returns the report and what phase
+    14 evaluates: the LM's params on the card, its config, the store and
+    the tied mlp.2 dicts' artifact."""
     from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
 
     store = tmp / "lm_store"
@@ -3838,7 +3867,6 @@ def lm_phase(tmp: Path) -> dict:
     report = {}
     report["harvest"], params, cfg, tokens = lm_harvest(store)
     report["card_vs_cpu"] = lm_card_vs_cpu(params, cfg, tokens, store)
-    del params
     torch.cuda.empty_cache()
     n_steps = LM_CHUNKS * report["harvest"]["rows_per_chunk"] // BATCH
     train = store / f"mlp.{LM_LAYERS[-1]}"
@@ -3856,6 +3884,673 @@ def lm_phase(tmp: Path) -> dict:
     report["scrub"] = lm_scrub(store)
     report["wall_s"] = time.perf_counter() - t0
     log(f"  phase 13: {report['wall_s']:.1f} s")
+    return report, {"params": params, "cfg": cfg, "store": store,
+                    "tied_dicts": tmp / "lm_tied" / "epoch_0"
+                    / "learned_dicts.pkl"}
+
+
+# -- phase 14: the evaluation stage on the card --------------------------------
+
+# (a) the toy gate: ToyArgs' defaults, then the JAX gate's config
+# (tests/test_plotting_toy.py test_toy_replication_gate)
+TOY_GATE = dict(activation_dim=48, n_ground_truth_features=64,
+                feature_num_nonzero=5, learned_dict_ratio=1.5, l1_alpha=1e-3,
+                lr=3e-3, batch_size=512, epochs=3, dataset_size=120_000)
+TOY_GATE_REPRESENTEDNESS = 0.85
+EVAL_MEMBERS = 4  # (b): tied members over mlp.1
+# (c) perplexity: 64 token rows and a tail of 8, model batch 16
+PPL_ROWS, PPL_TAIL, PPL_BATCH, PPL_CPU_ROWS, PPL_CPU_BATCH = 64, 8, 16, 8, 4
+RTOL_IDENTITY = 1e-6
+GRAPH_ROWS, GRAPH_SEQ, GRAPH_FEATS, GRAPH_TARGETS = 8, 64, 8, 64
+IOI_PROMPTS, IOI_CHECK_FEATS, IOI_CARD_FEATS, IOI_TOP = 8, 32, 1024, 8
+PROBE_N, PROBE_SEQ, PROBE_POS, KL_ROWS, KL_SEQ = 256, 16, 5, 4, 64
+ERASE_GRID = (1, 2, 4, 8, 16, 32, 64)
+AUROC_TOL = 1e-3
+LEACE_CHANCE = 0.15  # 4 standard deviations of chance over 128 + 128
+SWEEP_CHECK_ROWS, SWEEP_CHECK_DICTS = 8192, 2
+FISTA_ROWS, RTOL_FISTA = 64, 1e-3
+# card vs CPU of an evaluation through the LM: the forward's bound, of
+# the largest value an output is formed from (perplexities, probe
+# activations; the logits for the IOI metric, effects and curve, a
+# difference of logits; the target codes, times √positions, for an
+# ablation graph's weights, norms of code differences)
+RTOL_EVAL = RTOL_LM
+# the KL under an erasure is second order in log-probability differences
+# that each carry the forward's rounding of log-probs near −log(vocab)
+# (1.42e-5 measured at these shapes on an H100)
+RTOL_KL = 1e-3
+
+
+def have(module: str) -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(module) is not None
+
+
+class StubTokenizer:
+    """Word-level stub: each word one id from zlib.crc32 (the same in
+    every process, unlike hash), inside the vocabulary, 0 kept for
+    padding."""
+
+    pad_token_id = 0
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+
+    def _encode(self, text: str) -> list[int]:
+        import zlib
+
+        return [zlib.crc32(w.encode()) % (self.vocab - 1) + 1
+                for w in text.split()]
+
+    def __call__(self, texts):
+        if isinstance(texts, str):
+            return {"input_ids": self._encode(texts)}
+        return {"input_ids": [self._encode(t) for t in texts]}
+
+
+@contextlib.contextmanager
+def seen_ensembles():
+    """The Ensembles that step inside the block (basic_l1_sweep keeps its
+    own)."""
+    from sparse_coding_tpu_torch.ensemble import Ensemble
+
+    seen, real = [], Ensemble.step_batch
+
+    def step(self, batch):
+        if not any(e is self for e in seen):
+            seen.append(self)
+        return real(self, batch)
+
+    Ensemble.step_batch = step
+    try:
+        yield seen
+    finally:
+        Ensemble.step_batch = real
+
+
+def tied_launches(want: int, label: str) -> dict:
+    from sparse_coding_tpu_torch.ops import _build
+
+    got = {k: _build.LAUNCHES[k] for k in TIED_KERNELS}
+    if any(v != want for v in got.values()):
+        raise AssertionError(f"{label}: tied launches {got}, expected "
+                             f"{want} each")
+    return got
+
+
+def eval_toy(tmp: Path) -> dict:
+    """(a) run_toy_replication at ToyArgs' defaults and at the JAX gate's
+    config on the card: each tied kernel once a step, finite metrics, the
+    gate's best representedness above 0.85."""
+    from sparse_coding_tpu_torch.config import ToyArgs
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.train.toy_models import run_toy_replication
+
+    out = {}
+    plots = have("matplotlib")
+    for label, cfg in (("defaults", ToyArgs()), ("gate", ToyArgs(**TOY_GATE))):
+        steps = cfg.epochs * cfg.dataset_size // cfg.batch_size
+        folder = tmp / f"toy_{label}" if plots else None
+        _build.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        res = run_toy_replication(cfg, output_folder=folder, device=DEV)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = tied_launches(steps, f"(a) toy {label}")
+        if not all(math.isfinite(v) for r in res for v in r.values()):
+            raise AssertionError(f"(a) toy {label}: {res}")
+        if plots and not (folder / "toy_recovery.png").exists():
+            raise AssertionError(f"(a) toy {label}: no plot")
+        best = max(r["representedness"] for r in res)
+        if label == "gate" and not best > TOY_GATE_REPRESENTEDNESS:
+            raise AssertionError(f"(a) toy gate: representedness {best}")
+        out[label] = {"steps": steps, "wall_s": wall, "launches": launches,
+                      "results": res, "plot": plots}
+        log(f"  (a) toy {label} (d={cfg.activation_dim}, "
+            f"{cfg.n_ground_truth_features} true features, batch "
+            f"{cfg.batch_size}): {steps} steps in {wall:.2f} s, each tied "
+            f"kernel {steps} launches; representedness "
+            f"{[round(r['representedness'], 4) for r in res]}, FVU "
+            f"{[round(r['fvu'], 4) for r in res]}")
+    return out
+
+
+def eval_mlp1_sweep(mlp1: Path, tmp: Path) -> tuple[dict, object, list]:
+    """(b) basic_l1_sweep, EVAL_MEMBERS tied members at ratio RATIO, over
+    phase 13's mlp.1 store (its sound chunk: the scrub quarantined chunk
+    1): each tied kernel once a step. Returns the report, the sweep's
+    Ensemble and its dicts."""
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore, ChunkWriter
+    from sparse_coding_tpu_torch.data.shard_store import first_sound_chunk
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.train.basic_sweep import basic_l1_sweep
+
+    src = ChunkStore(mlp1)
+    chunk = src.load_chunk(first_sound_chunk(src))
+    store = tmp / "eval_mlp1"
+    w = ChunkWriter(store, chunk.shape[1],
+                    chunk_size_gb=chunk.shape[0] * chunk.shape[1] * 2 / 2**30,
+                    dtype="bfloat16")
+    w.add(chunk)
+    w.finalize({"tap": "mlp.1", "layer_loc": "mlp", "layer": 1})
+    n_steps = chunk.shape[0] // BATCH
+    l1_values = [float(v) for v in np.logspace(-4, -2, EVAL_MEMBERS)]
+    with seen_ensembles() as ens:
+        _build.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        dicts = basic_l1_sweep(store, tmp / "eval_mlp1_out", l1_values,
+                               dict_ratio=RATIO, batch_size=BATCH, lr=LR,
+                               n_epochs=1, seed=SEED, tied=True, device=DEV)
+        sync()
+        wall = time.perf_counter() - t0
+    launches = tied_launches(n_steps, "(b) mlp.1 sweep")
+    evals = json.loads((tmp / "eval_mlp1_out" / "epoch_0" / "eval.json"
+                        ).read_text())
+    if len(ens) != 1 or not all(math.isfinite(e["fvu"]) for e in evals):
+        raise AssertionError(f"(b) mlp.1 sweep: {len(ens)} ensembles, "
+                             f"{evals}")
+    log(f"  (b) basic_l1_sweep over mlp.1 ({EVAL_MEMBERS} tied members, n="
+        f"{RATIO * chunk.shape[1]}, batch {BATCH}): {n_steps} steps in "
+        f"{wall:.2f} s, each tied kernel {n_steps} launches; fvu "
+        f"{[round(e['fvu'], 4) for e in evals]}")
+    return ({"steps": n_steps, "wall_s": wall, "launches": launches,
+             "eval": evals}, ens[0], [ld for ld, _ in dicts])
+
+
+def eval_perplexity(params, cpu, cfg, dicts: list, evals: list) -> dict:
+    """(c) calculate_perplexity at (2, "mlp") over PPL_ROWS + PPL_TAIL
+    token rows, model batch PPL_BATCH (a short tail batch), for the model,
+    the Identity dict and phase 13's 16 dicts; the identity's perplexity
+    equals the model's; the card against the CPU over PPL_CPU_ROWS rows
+    for two dicts."""
+    from sparse_coding_tpu_torch.metrics.intervention import (
+        calculate_perplexity,
+    )
+    from sparse_coding_tpu_torch.models import Identity
+
+    rows = np.random.default_rng(SEED + 14).integers(
+        0, cfg.vocab_size, size=(PPL_ROWS + PPL_TAIL, 256))
+    autoencoders = [(Identity.create(cfg.d_mlp, device=DEV), {})] + [
+        (ld, {}) for ld in dicts]
+    calculate_perplexity(params, cfg, autoencoders[:1], 2, "mlp", rows[:8],
+                         model_batch_size=PPL_BATCH)  # first-call costs
+    sync()
+    t0 = time.perf_counter()
+    orig, per = calculate_perplexity(params, cfg, autoencoders, 2, "mlp",
+                                     rows, model_batch_size=PPL_BATCH)
+    wall = time.perf_counter() - t0
+    passes = len(autoencoders) + 1
+    tokens_per_s = passes * rows.size / wall
+    if not abs(per[0] - orig) <= RTOL_IDENTITY * orig:
+        raise AssertionError(f"(c) identity perplexity {per[0]} vs {orig}")
+    if not all(math.isfinite(p) and p > 0 for p in [orig] + per):
+        raise AssertionError(f"(c) perplexities {orig}, {per}")
+    pick = [dicts[0], dicts[-1]]
+    card_small = calculate_perplexity(
+        params, cfg, [(ld, {}) for ld in pick], 2, "mlp",
+        rows[:PPL_CPU_ROWS], model_batch_size=PPL_CPU_BATCH)
+    cpu_small = calculate_perplexity(
+        cpu, cfg, [(ld.to("cpu"), {}) for ld in pick], 2, "mlp",
+        rows[:PPL_CPU_ROWS], model_batch_size=PPL_CPU_BATCH)
+    err = compare("(c) perplexity card vs CPU",
+                  torch.tensor([card_small[0]] + card_small[1]),
+                  torch.tensor([cpu_small[0]] + cpu_small[1]), RTOL_EVAL)
+    table = [{"l1_alpha": e["l1_alpha"], "perplexity": p, "l0": e["l0"],
+              "fvu": e["fvu"]} for p, e in zip(per[1:], evals)]
+    log(f"  (c) calculate_perplexity at mlp.2: {passes} passes over "
+        f"{rows.shape[0]} rows x 256 tokens (model batch {PPL_BATCH}, tail "
+        f"{PPL_TAIL}) in {wall:.2f} s, {tokens_per_s:.0f} tokens/s; original "
+        f"{orig:.4f}, identity {per[0]:.4f}; card vs CPU ({PPL_CPU_ROWS} rows, "
+        f"2 dicts) rel err {err['max_rel_err']:.2e}")
+    for t in table:
+        log(f"      l1 {t['l1_alpha']:.2e}: perplexity {t['perplexity']:.4f}"
+            f", l0 {t['l0']:.1f}, fvu {t['fvu']:.4f}")
+    return {"original": orig, "identity": per[0], "dicts": table,
+            "wall_s": wall, "tokens_per_s": tokens_per_s, "passes": passes,
+            "rows": int(rows.shape[0]), "card_vs_cpu": err}
+
+
+def active_features(params, cfg, ld, layer: int, toks,
+                    k: int) -> tuple[list[int], float]:
+    """The k features of ``ld`` with the largest mean code at (layer,
+    mlp) over ``toks``, and the largest code."""
+    from sparse_coding_tpu_torch.metrics.intervention import (
+        cache_all_activations,
+    )
+
+    codes = cache_all_activations(params, cfg, {(layer, "mlp"): ld},
+                                  toks)[(layer, "mlp")]
+    return (torch.argsort(-codes.mean(dim=(0, 1)))[:k].tolist(),
+            float(codes.abs().max()))
+
+
+def graph_values(graph: dict) -> tuple[list, torch.Tensor]:
+    keys = sorted(graph, key=repr)
+    return keys, torch.tensor([graph[k] for k in keys], dtype=torch.float64)
+
+
+def eval_graph(params, cpu, cfg, d1, d2) -> dict:
+    """(d) build_ablation_graph_non_positional from an mlp.1 dict of (b)
+    to one of phase 13's mlp.2 dicts, GRAPH_FEATS source features (the
+    most active) to GRAPH_TARGETS targets, on GRAPH_ROWS rows: card vs
+    CPU."""
+    from sparse_coding_tpu_torch.metrics.intervention import (
+        build_ablation_graph_non_positional,
+    )
+
+    toks = np.random.default_rng(SEED + 141).integers(
+        0, cfg.vocab_size, size=(GRAPH_ROWS, GRAPH_SEQ))
+    l1, l2 = (1, "mlp"), (2, "mlp")
+    sources, _ = active_features(params, cfg, d1, 1, toks, GRAPH_FEATS)
+    feats = {l1: sources}
+    dests, code_max = active_features(params, cfg, d2, 2, toks,
+                                      GRAPH_TARGETS)
+    targets = {l2: dests}
+    sync()
+    t0 = time.perf_counter()
+    card = build_ablation_graph_non_positional(params, cfg, {l1: d1, l2: d2},
+                                               toks, feats, targets)
+    wall = time.perf_counter() - t0
+    on_cpu = build_ablation_graph_non_positional(
+        cpu, cfg, {l1: d1.to("cpu"), l2: d2.to("cpu")}, toks, feats, targets)
+    keys, got = graph_values(card)
+    ckeys, want = graph_values(on_cpu)
+    if keys != ckeys:
+        raise AssertionError("(d) graph edges differ card vs CPU")
+    err = compare("(d) ablation graph card vs CPU", got, want, 0.0,
+                  RTOL_EVAL * code_max * math.sqrt(GRAPH_SEQ))
+    if not float(want.max()) > 0:
+        raise AssertionError("(d) the ablations moved nothing")
+    log(f"  (d) ablation graph mlp.1 -> mlp.2: {GRAPH_FEATS} sources, "
+        f"{len(card)} edges on {GRAPH_ROWS}x{GRAPH_SEQ} tokens, {wall:.2f} s "
+        f"on the card; card vs CPU abs err {err['max_abs_err']:.2e} (largest "
+        f"weight {float(want.max()):.3e}, largest code {code_max:.3e})")
+    return {"edges": len(card), "wall_s": wall, "card_vs_cpu": err,
+            "max_weight": float(want.max()), "max_code": code_max}
+
+
+def eval_ioi(params, cpu, cfg, ld) -> dict:
+    """(e) run_ioi_feature_ident at mlp.2 with one dict: the card over
+    IOI_CARD_FEATS features (timed), and card vs CPU over
+    IOI_CHECK_FEATS: the rankings equal, the effects and the cumulative
+    ablation curve within RTOL_EVAL."""
+    from sparse_coding_tpu_torch.tasks.feature_ident import (
+        run_ioi_feature_ident,
+    )
+
+    tok = StubTokenizer(cfg.vocab_size)
+    kw = dict(n_prompts=IOI_PROMPTS, layer_loc="mlp", curve=True,
+              top_m=IOI_TOP)
+    sync()
+    t0 = time.perf_counter()
+    wide = run_ioi_feature_ident(params, cfg, ld, 2, tok,
+                                 feature_indices=range(IOI_CARD_FEATS), **kw)
+    wall = time.perf_counter() - t0
+    feats = list(range(IOI_CHECK_FEATS))
+    card = run_ioi_feature_ident(params, cfg, ld, 2, tok,
+                                 feature_indices=feats, **kw)
+    cpu_params = cpu
+    cpu = run_ioi_feature_ident(cpu_params, cfg, ld.to("cpu"), 2, tok,
+                                feature_indices=feats, **kw)
+    from sparse_coding_tpu_torch.lm import gptneox
+    from sparse_coding_tpu_torch.tasks.ioi_counterfact import (
+        gen_ioi_dataset_with_distractors,
+    )
+
+    toks = gen_ioi_dataset_with_distractors(tok, IOI_PROMPTS, "mixed", 0)[0]
+    with torch.no_grad():
+        logits, _ = gptneox.forward(cpu_params, torch.as_tensor(toks).long(),
+                                    cfg)
+    bound = RTOL_EVAL * float(logits.abs().max())
+    eff = compare("(e) IOI effects card vs CPU",
+                  torch.from_numpy(card["effects"][feats]).double(),
+                  torch.from_numpy(cpu["effects"][feats]).double(),
+                  0.0, bound)
+    curve = compare("(e) IOI ablation curve card vs CPU",
+                    torch.from_numpy(card["ablation_curve"]["metrics"]),
+                    torch.from_numpy(cpu["ablation_curve"]["metrics"]),
+                    0.0, bound)
+    # the card's ranking must rank the CPU's effects: equal, or apart
+    # only where two |effects| lie within the bound of each other
+    ce = np.abs(cpu["effects"])
+    equal = card["ranking"] == cpu["ranking"]
+    if len(card["ranking"]) != len(cpu["ranking"]) or not (equal or all(
+            abs(ce[a] - ce[b]) <= 2 * bound
+            for a, b in zip(card["ranking"], cpu["ranking"]))):
+        raise AssertionError(f"(e) IOI ranking card {card['ranking']} vs "
+                             f"CPU {cpu['ranking']}")
+    if not np.any(cpu["effects"][feats]):
+        raise AssertionError("(e) no feature moved the IOI metric")
+    log(f"  (e) IOI feature ident at mlp.2: {IOI_PROMPTS} prompts, "
+        f"{IOI_CARD_FEATS} features ranked in {wall:.2f} s on the card "
+        f"({IOI_CARD_FEATS / wall:.0f} ablated forwards/s), top "
+        f"{wide['ranking'][:4]}; card vs CPU over {IOI_CHECK_FEATS} "
+        f"features: ranking {'equal' if equal else 'within the bound'}, "
+        f"effects abs err {eff['max_abs_err']:.2e}, curve abs err "
+        f"{curve['max_abs_err']:.2e} (bound {bound:.2e}; base metric "
+        f"{cpu['base_metric']:.4e}, largest effect {ce.max():.3e})")
+    return {"wall_s": wall, "features": IOI_CARD_FEATS,
+            "ranking": wide["ranking"], "check_ranking": card["ranking"],
+            "ranking_equal": equal, "effects": eff, "curve": curve,
+            "bound": bound, "base_metric": cpu["base_metric"]}
+
+
+def closed_form_probe(acts, labels, max_iter=None) -> float:
+    """AUROC of a ridge probe solved in closed form in float64 on the
+    activations' device (the erasure functions' ``probe_fn``; for a host
+    without sklearn): w = (XᵀX + I)⁻¹ Xᵀ(z − z̄), the AUROC the
+    Mann-Whitney statistic of the scores."""
+    x = acts.double()
+    z = torch.as_tensor(labels, device=x.device).double()
+    xc = x - x.mean(dim=0)
+    w = torch.linalg.solve(xc.T @ xc + torch.eye(x.shape[1], device=x.device,
+                                                 dtype=x.dtype),
+                           xc.T @ (z - z.mean()))
+    s = (xc @ w).cpu().numpy()
+    y = z.cpu().numpy() > 0.5
+    order = np.argsort(s, kind="stable")
+    ranks = np.empty(len(s))
+    ranks[order] = np.arange(1, len(s) + 1)
+    n1, n0 = int(y.sum()), int((~y).sum())
+    return float((ranks[y].sum() - n1 * (n1 + 1) / 2) / (n1 * n0))
+
+
+def eval_erasure(params, cpu, cfg, ld, tmp: Path, dict_file: Path) -> dict:
+    """(f) probe_activations at layer 2 (mlp) of prompts whose label is a
+    planted token, then leace_baseline and feature_erasure_curve with the
+    LM's KL under each edit on the card; the same on the CPU from the
+    same prompts and probe."""
+    from sparse_coding_tpu_torch.metrics.erasure import (
+        feature_erasure_curve,
+        leace_baseline,
+    )
+    from sparse_coding_tpu_torch.metrics.erasure_driver import (
+        probe_activations,
+    )
+
+    sk = have("sklearn")
+    probe = None if sk else closed_form_probe
+    rs = np.random.default_rng(SEED + 142)
+    labels = (np.arange(PROBE_N) % 2).astype(np.int32)
+    prompts = rs.integers(1, cfg.vocab_size, size=(PROBE_N, PROBE_SEQ))
+    prompts[:, PROBE_POS] = np.where(labels == 1, cfg.vocab_size // 3,
+                                     2 * cfg.vocab_size // 3)
+    kl_toks = rs.integers(0, cfg.vocab_size, size=(KL_ROWS, KL_SEQ))
+    out = {"probe": "sklearn logistic regression" if sk
+           else "closed-form ridge (chip_smoke.closed_form_probe)"}
+    runs = {}
+    for side, p, d in (("card", params, ld),
+                       ("cpu", cpu, ld.to("cpu"))):
+        sync()
+        t0 = time.perf_counter()
+        acts = probe_activations(p, cfg, prompts, 2, "mlp")
+        lm_eval = {"params": p, "lm_cfg": cfg, "tokens": kl_toks,
+                   "location": (2, "mlp"), "forward": None}
+        curve = feature_erasure_curve(d, acts, labels, ERASE_GRID,
+                                      lm_eval=lm_eval, probe_fn=probe)
+        leace = leace_baseline(acts, labels, probe_fn=probe)
+        runs[side] = {"acts": acts.cpu(), "curve": curve, "leace": leace,
+                      "wall_s": time.perf_counter() - t0}
+    out["acts"] = compare("(f) probe activations card vs CPU",
+                          runs["card"]["acts"], runs["cpu"]["acts"],
+                          RTOL_EVAL)
+    for key, rtol in (("edit_magnitude", RTOL_EVAL), ("kl", RTOL_KL)):
+        out[key] = compare(
+            f"(f) {key} card vs CPU",
+            torch.tensor([r[key] for r in runs["card"]["curve"]]),
+            torch.tensor([r[key] for r in runs["cpu"]["curve"]]), rtol)
+    aurocs = [(g["auroc"], c["auroc"]) for g, c in
+              zip(runs["card"]["curve"], runs["cpu"]["curve"])]
+    worst = max(abs(a - b) for a, b in aurocs)
+    if not worst <= AUROC_TOL:
+        raise AssertionError(f"(f) AUROC card vs CPU {aurocs}")
+    # LEACE leaves no linear trace of the labels: a linear probe fits
+    # rounding noise, so each side's AUROC is chance, not the other's
+    chance = [runs[k]["leace"]["auroc"] for k in ("card", "cpu")]
+    if not all(abs(a - 0.5) <= LEACE_CHANCE for a in chance):
+        raise AssertionError(f"(f) AUROC after LEACE {chance}")
+    out["leace_edit"] = compare(
+        "(f) LEACE edit magnitude card vs CPU",
+        torch.tensor([runs["card"]["leace"]["edit_magnitude"]]),
+        torch.tensor([runs["cpu"]["leace"]["edit_magnitude"]]), RTOL_EVAL)
+    out.update(auroc_max_abs_err=worst,
+               curve=runs["card"]["curve"], leace=runs["card"]["leace"],
+               wall_s={k: v["wall_s"] for k, v in runs.items()})
+    c = runs["card"]["curve"]
+    log(f"  (f) erasure at mlp.2 ({out['probe']}): {PROBE_N} prompts, "
+        f"AUROC {c[0]['auroc']:.4f} -> {c[-1]['auroc']:.4f} erasing "
+        f"{c[-1]['n_erased']} features (KL {c[-1]['kl']:.3e}), LEACE "
+        f"{chance[0]:.4f} (CPU {chance[1]:.4f}, both chance); card "
+        f"{runs['card']['wall_s']:.2f} s, CPU {runs['cpu']['wall_s']:.2f} s; "
+        f"card vs CPU: AUROC within {worst:.1e}, edit rel err "
+        f"{out['edit_magnitude']['max_rel_err']:.2e}, KL rel err "
+        f"{out['kl']['max_rel_err']:.2e}")
+    if sk and have("matplotlib"):
+        from sparse_coding_tpu_torch.config import ErasureArgs
+        from sparse_coding_tpu_torch.metrics.erasure_driver import run_erasure
+        from sparse_coding_tpu_torch.utils.artifacts import save_learned_dicts
+
+        save_learned_dicts([(ld, {"member": 0})], dict_file)
+        args = ErasureArgs(layers=[2], layer_loc="mlp",
+                           dict_path=str(dict_file),
+                           output_folder=str(tmp / "erasure_out"))
+        t0 = time.perf_counter()
+        rec = run_erasure(args, params, cfg, prompts, labels,
+                          kl_tokens=kl_toks)
+        wall = time.perf_counter() - t0
+        written = json.loads((tmp / "erasure_out" /
+                              "erasure_scores_layer_2.json").read_text())
+        if written["layer"] != 2 or len(written["dicts"]) != 1:
+            raise AssertionError(f"(f) run_erasure wrote {written}")
+        out["run_erasure"] = {"wall_s": wall, "leace": rec[2]["leace"]}
+        log(f"  (f) run_erasure end to end: {wall:.2f} s, json and plot "
+            "written")
+    return out
+
+
+def eval_sweeps(store2: Path, dict_file: Path, tmp: Path) -> dict:
+    """(g) activity_sweep and kurtosis_sweep over the mlp.2 store with
+    phase 13's dict file on the card (timed); then both over the store's
+    first SWEEP_CHECK_ROWS rows with SWEEP_CHECK_DICTS of the dicts on the
+    card and on the CPU: counts equal, kurtosis within RTOL_MOMENTS."""
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore, ChunkWriter
+    from sparse_coding_tpu_torch.metrics.geometry import (
+        activity_sweep,
+        kurtosis_sweep,
+    )
+    from sparse_coding_tpu_torch.utils.artifacts import (
+        load_learned_dicts,
+        save_learned_dicts,
+    )
+
+    store = ChunkStore(store2)
+    t0 = time.perf_counter()
+    act = activity_sweep([dict_file], store, device=DEV)
+    t1 = time.perf_counter()
+    kurt = kurtosis_sweep([dict_file], store, device=DEV)
+    t2 = time.perf_counter()
+    chunk = store.load_chunk(0)
+    rows = chunk.shape[0] * store.n_chunks
+    small = tmp / "sweep_check"
+    chunk = chunk[:SWEEP_CHECK_ROWS]
+    w = ChunkWriter(small, chunk.shape[1],
+                    chunk_size_gb=chunk.nbytes / 2 / 2**30, dtype="bfloat16")
+    w.add(chunk)
+    w.finalize()
+    few = tmp / "sweep_check.pkl"
+    save_learned_dicts(load_learned_dicts(dict_file)[:SWEEP_CHECK_DICTS], few)
+    side = {}
+    for dev in (DEV, "cpu"):
+        side[dev] = (activity_sweep([few], ChunkStore(small), device=dev),
+                     kurtosis_sweep([few], ChunkStore(small), device=dev))
+    if side[DEV][0] != side["cpu"][0]:
+        raise AssertionError(f"(g) activity card {side[DEV][0]} vs CPU "
+                             f"{side['cpu'][0]}")
+    keys = ("mean_kurtosis", "median_kurtosis", "mean_skew")
+    err = compare("(g) kurtosis sweep card vs CPU",
+                  torch.tensor([[r[k] for k in keys] for r in side[DEV][1]]),
+                  torch.tensor([[r[k] for k in keys] for r in side["cpu"][1]]),
+                  RTOL_MOMENTS)
+    log(f"  (g) activity_sweep {t1 - t0:.2f} s and kurtosis_sweep "
+        f"{t2 - t1:.2f} s over the mlp.2 store ({rows} rows, {len(act)} "
+        f"dicts) on the card; n_ever_active "
+        f"{[a['n_ever_active'] for a in act][:4]}...; card vs CPU over "
+        f"{SWEEP_CHECK_ROWS} rows, {SWEEP_CHECK_DICTS} dicts: counts equal, "
+        f"kurtosis rel err {err['max_rel_err']:.2e}")
+    return {"activity_s": t1 - t0, "kurtosis_s": t2 - t1, "rows": rows,
+            "activity": act, "kurtosis": kurt, "card_vs_cpu": err}
+
+
+def eval_dicts(dicts2: list, x: torch.Tensor) -> dict:
+    """(g) FISTA codes over one mlp.2 dict and a ConcatEnsembleDict of two
+    encoding the same rows, card vs CPU."""
+    from sparse_coding_tpu_torch.models.combination import ConcatEnsembleDict
+    from sparse_coding_tpu_torch.models.direct_coef import DirectCoefOptimizer
+
+    fista = DirectCoefOptimizer(dictionary=dicts2[0].dictionary, l1_alpha=1e-2)
+    sync()
+    t0 = time.perf_counter()
+    card = fista.encode(x.to(DEV))
+    sync()
+    wall = time.perf_counter() - t0
+    cpu = fista.to("cpu").encode(x.cpu())
+    out = {"fista": compare("(g) FISTA codes card vs CPU", card.cpu(), cpu,
+                            RTOL_FISTA), "fista_s": wall,
+           "fista_l0": float((card != 0).float().sum(-1).mean())}
+    concat = ConcatEnsembleDict.create(dicts2[:2])
+    out["concat"] = compare("(g) ConcatEnsembleDict encode card vs CPU",
+                            concat.encode(x.to(DEV)).cpu(),
+                            concat.to("cpu").encode(x.cpu()), RTOL_EVAL)
+    log(f"  (g) FISTA ({FISTA_ROWS} rows, n={fista.n_feats}, 50 iterations) "
+        f"{wall:.3f} s on the card, mean l0 {out['fista_l0']:.1f}, card vs "
+        f"CPU rel err {out['fista']['max_rel_err']:.2e}; ConcatEnsembleDict "
+        f"of 2 ({concat.n_feats} features) rel err "
+        f"{out['concat']['max_rel_err']:.2e}")
+    return out
+
+
+def eval_resurrection(ens) -> dict:
+    """(g) resurrect_ensemble_features on the card over (b)'s Ensemble
+    with a marked dead set: only dead rows change, each to its member's
+    mean live-row norm; their biases and moments zero; the rest bitwise."""
+    from sparse_coding_tpu_torch.ensemble import resurrect_ensemble_features
+
+    st = ens.state
+    n_members, n, _ = st.params["encoder"].shape
+    g = torch.Generator(DEV).manual_seed(SEED + 143)
+    dead = torch.rand((n_members, n), generator=g, device=DEV) < 0.05
+    new = resurrect_ensemble_features(st, dead, g)
+    live = ~dead
+    enc, old = new.params["encoder"], st.params["encoder"]
+    norms = torch.linalg.vector_norm(old, dim=-1)
+    want = (norms * live).sum(-1) / live.sum(-1).clamp(min=1)
+    got = torch.linalg.vector_norm(enc, dim=-1)
+    err = compare("(g) resurrected row norms", got[dead],
+                  want[:, None].expand_as(got)[dead], RTOL_EXACT)
+    ok = (torch.equal(enc[live], old[live])
+          and not torch.equal(enc[dead], old[dead])
+          and bool((new.params["encoder_bias"][dead] == 0).all())
+          and torch.equal(new.params["encoder_bias"][live],
+                          st.params["encoder_bias"][live])
+          and all(bool((getattr(new, m)[k][dead] == 0).all())
+                  and torch.equal(getattr(new, m)[k][live],
+                                  getattr(st, m)[k][live])
+                  for m in ("mu", "nu") for k in ("encoder", "encoder_bias")))
+    if not ok:
+        raise AssertionError("(g) resurrection broke its contract")
+    n_dead = int(dead.sum())
+    log(f"  (g) resurrect_ensemble_features: {n_dead} dead of "
+        f"{n_members * n} across {n_members} members; fresh rows at the "
+        f"live-row mean norm (rel err {err['max_rel_err']:.2e}), bias and "
+        "moments zero, live rows bitwise")
+    return {"dead": n_dead, "norms": err}
+
+
+def eval_baselines(store512: Path, tmp: Path) -> dict:
+    """(g) the baseline runner on the card: PCA (eigh in float64) card vs
+    CPU through rot·diag(λ)·rotᵀ; with sklearn on the host,
+    run_layer_baselines whole over the 512-wide store (ICA on up to 8,192
+    rows); without it, its device part — PCA, the RandomDict and identity
+    exports."""
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+    from sparse_coding_tpu_torch.models import IdentityReLU, RandomDict
+    from sparse_coding_tpu_torch.models.pca import BatchedPCA, fit_pca
+
+    chunk = ChunkStore(store512).load_chunk(0)
+    d = chunk.shape[1]
+    recon = {}
+    for dev in (DEV, "cpu"):
+        pca = BatchedPCA(d, device=dev)
+        pca.state = fit_pca(chunk, batch_size=512, device=dev)
+        vals, vecs = pca.get_pca()
+        recon[dev] = ((vecs * vals) @ vecs.T).cpu()
+        if dev == DEV:
+            exports = {"pca": pca.to_learned_dict(sparsity=d),
+                       "pca_topk": pca.to_topk_dict(min(128, d)),
+                       "pca_rotation": pca.to_rotation_dict(),
+                       "random": RandomDict.create(
+                           torch.Generator().manual_seed(SEED), d).to(DEV),
+                       "identity_relu": IdentityReLU.create(d, device=DEV)}
+    out = {"pca": compare("(g) PCA card vs CPU", recon[DEV], recon["cpu"],
+                          RTOL_MOMENTS)}
+    x = torch.as_tensor(chunk[:256], device=DEV)
+    for name, ld in exports.items():
+        if not torch.isfinite(ld.predict(x)).all():
+            raise AssertionError(f"(g) {name} export")
+    if have("sklearn"):
+        from sparse_coding_tpu_torch.train.baselines import run_layer_baselines
+
+        t0 = time.perf_counter()
+        res = run_layer_baselines(store512, tmp / "baselines",
+                                  sparsity=min(128, d),
+                                  max_ica_samples=8192, device=DEV)
+        out["run_layer_baselines_s"] = time.perf_counter() - t0
+        if sorted(res) != sorted(["pca", "pca_topk", "pca_rotation", "ica",
+                                  "ica_topk", "random", "identity_relu"]):
+            raise AssertionError(f"(g) baselines {sorted(res)}")
+        log(f"  (g) run_layer_baselines whole (ICA on 8,192 rows): "
+            f"{out['run_layer_baselines_s']:.2f} s")
+    log(f"  (g) baselines' device part at d={d}: PCA card vs CPU rel err "
+        f"{out['pca']['max_rel_err']:.2e}; exports {list(exports)}")
+    return out
+
+
+def eval_phase(tmp: Path, lm: dict, store512: Path) -> dict:
+    """Phase 14: (a) the toy gate, (b) a second dict location, (c)
+    perplexity under reconstruction, (d) an ablation graph, (e) IOI
+    feature identification, (f) erasure, (g) geometry, FISTA, concat,
+    resurrection and the baselines — on phase 13's LM, stores and
+    dicts."""
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+    from sparse_coding_tpu_torch.utils.artifacts import load_learned_dicts
+
+    t0 = time.perf_counter()
+    params, cfg, store = lm["params"], lm["cfg"], lm["store"]
+    dict_file = lm["tied_dicts"]
+    evals = json.loads((dict_file.parent / "eval.json").read_text())
+    dicts2 = [ld for ld, _ in load_learned_dicts(dict_file, device=DEV)]
+    host = {m: have(m) for m in ("sklearn", "matplotlib")}
+    log(f"  host packages: {host}")
+    report = {"host": host, "toy": eval_toy(tmp)}
+    report["mlp1"], ens, dicts1 = eval_mlp1_sweep(store / "mlp.1", tmp)
+    cpu = lm_params_to(params, "cpu")
+    report["perplexity"] = eval_perplexity(params, cpu, cfg, dicts2, evals)
+    report["graph"] = eval_graph(params, cpu, cfg, dicts1[0], dicts2[0])
+    report["ioi"] = eval_ioi(params, cpu, cfg, dicts2[0])
+    report["erasure"] = eval_erasure(params, cpu, cfg, dicts2[0], tmp,
+                                     tmp / "erasure_dict.pkl")
+    del cpu
+    report["sweeps"] = eval_sweeps(store / "mlp.2", dict_file, tmp)
+    x = torch.as_tensor(ChunkStore(store / "mlp.2").load_chunk(1)[
+        :FISTA_ROWS])
+    report["dicts"] = eval_dicts(dicts2, x)
+    report["resurrection"] = eval_resurrection(ens)
+    report["baselines"] = eval_baselines(store512, tmp)
+    report["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 14: {report['wall_s']:.1f} s")
     return report
 
 
@@ -4600,7 +5295,17 @@ def main() -> int:
             f"mlp.{LM_LAYERS[1]} store at d={LM_D_MLP}, {LM_MEMBERS} "
             f"members, ratio {RATIO}, batch {BATCH}; kernels vs autodiff; "
             "scrub")
-        report["lm"] = lm_phase(Path(tmp))
+        report["lm"], lm = lm_phase(Path(tmp))
+        log(f"  done at {time.perf_counter() - t_start:.1f} s")
+
+        log(f"phase 14: evaluate on the card — the toy gate on the tied "
+            f"kernels, a sweep over mlp.1, perplexity under reconstruction, "
+            f"an ablation graph, IOI feature identification, erasure, the "
+            f"sweeps, FISTA, concat, resurrection and the baselines, on "
+            f"phase 13's {LM_MODEL} and its mlp.2 dicts")
+        report["eval"] = eval_phase(Path(tmp), lm, sweep_store)
+        del lm
+        torch.cuda.empty_cache()
         log(f"  done at {time.perf_counter() - t_start:.1f} s")
 
     timing.update(big["timing"])

@@ -1,9 +1,9 @@
 """Typed config/flag system: the port's copy of the JAX package's
 ``config.py`` (``BaseArgs``, ``DataArgs``, ``EnsembleArgs``,
-``SyntheticEnsembleArgs``, ``BigSAEArgs``) with the same fields and
-defaults, so a config file or command line drives either side.
-Fields the port does not run yet (meshes, trace capture through
-``profile_steps``, wandb) are kept so configs stay
+``SyntheticEnsembleArgs``, ``BigSAEArgs``, ``ToyArgs``, ``ErasureArgs``)
+with the same fields and defaults, so a config file or command line
+drives either side. Fields the port does not run yet (meshes, trace
+capture through ``profile_steps``, wandb) are kept so configs stay
 interchangeable; the entry points that would read them raise where they
 are set to something the port cannot do, naming the ROADMAP.md item."""
 
@@ -182,3 +182,34 @@ class BigSAEArgs(BaseArgs):
     # logging run at window boundaries, so the effective interval rounds
     # up to a multiple of scan_steps
     scan_steps: int = 1
+
+
+@dataclass
+class ToyArgs(BaseArgs):
+    """Toy-model replication (``train/toy_models.py``)."""
+
+    n_ground_truth_features: int = 256
+    activation_dim: int = 128
+    feature_prob_decay: float = 0.99
+    feature_num_nonzero: int = 5
+    correlated_components: bool = False
+    learned_dict_ratio: float = 1.0
+    l1_alpha: float = 1e-3
+    lr: float = 1e-3
+    batch_size: int = 256
+    epochs: int = 1
+    dataset_size: int = 100_000
+    seed: int = 0
+
+
+@dataclass
+class ErasureArgs(BaseArgs):
+    """Concept-erasure eval (``metrics/erasure_driver.py``)."""
+
+    model_name: str = "EleutherAI/pythia-410m-deduped"
+    layers: list[int] = field(default_factory=lambda: [4])
+    layer_loc: str = "residual"
+    dict_path: str = ""
+    output_folder: str = "erasure_output"
+    max_edit_feats: int = 64
+    seed: int = 0

@@ -816,3 +816,78 @@ class EnsembleGroup:
 
 # what a sweep entry trains: ``buckets()`` walks either kind
 EnsembleLike = Ensemble | EnsembleGroup
+
+
+# --- dead-feature resurrection ------------------------------------------------
+
+# Which top-level params are dictionary rows (refreshed with new
+# directions) and which are per-feature scalars (reset), by name, as the
+# JAX engine keeps them: a shape rule would mistake a learnable [N, d]
+# center for a row parameter at ratio 1.
+_RESURRECT_ROW_PARAMS = ("encoder", "decoder", "weights", "enc1_w")
+_RESURRECT_SCALAR_DEFAULTS = {
+    "encoder_bias": 0.0,
+    "enc1_b": 0.0,
+    "activation_scale": 1.0,  # the thresholding gate's init
+    "activation_gain": 0.0,
+}
+# signatures whose per-feature scalar init is a nonzero constant
+_SIG_SCALAR_OVERRIDES = {
+    "positive_tied_sae": {"encoder_bias": -1.0},
+}
+
+
+def resurrect_ensemble_features(
+        state: EnsembleState, dead_mask: Tensor,
+        generator: torch.Generator, row_params=None,
+        scalar_defaults=None) -> EnsembleState:
+    """Reinitialize dead features of every member at once: each dead
+    dictionary row becomes a fresh random unit direction scaled to its
+    member's mean norm over live rows, each per-feature scalar its
+    signature's init constant (0 where none is known), and their Adam
+    moments zero. Live rows, nested params (LISTA's layers, under
+    ``outer/inner`` keys) and params of no per-feature kind stay bitwise
+    as they were. ``dead_mask`` is [N, n_feats] bool; ``row_params`` and
+    ``scalar_defaults`` extend the built-in contract.
+
+    The fresh directions come from ``generator`` (drawn on its device, one
+    draw a row parameter in ``row_params`` order): other numbers than the
+    JAX engine's ``jax.random`` key gives, from the same distribution."""
+    rows = (tuple(row_params) if row_params is not None
+            else _RESURRECT_ROW_PARAMS)
+    defaults = dict(_RESURRECT_SCALAR_DEFAULTS)
+    defaults.update(_SIG_SCALAR_OVERRIDES.get(state.sig_name, {}))
+    if scalar_defaults is not None:
+        defaults.update(dict(scalar_defaults))
+    params = dict(state.params)
+    dead = torch.as_tensor(dead_mask, dtype=torch.bool,
+                           device=state.lrs.device)
+    live = ~dead
+    for name in rows:
+        if name not in params:
+            continue
+        w = params[name]  # [N, n, d]
+        fresh = torch.randn(w.shape, generator=generator, dtype=w.dtype,
+                            device=generator.device).to(w.device)
+        fresh = fresh / torch.linalg.vector_norm(fresh, dim=-1, keepdim=True)
+        norms = torch.linalg.vector_norm(w, dim=-1)  # [N, n]
+        live_count = torch.clamp(live.sum(dim=-1), min=1)
+        scale = (norms * live).sum(dim=-1) / live_count  # [N]
+        params[name] = torch.where(dead[..., None],
+                                   fresh * scale[:, None, None], w)
+    for name, default in defaults.items():
+        if name in params:
+            params[name] = torch.where(dead, default, params[name])
+
+    def reset(tree: dict) -> dict:
+        out = dict(tree)
+        for name in rows:
+            if name in out:
+                out[name] = torch.where(dead[..., None], 0.0, out[name])
+        for name in defaults:
+            if name in out and name not in rows:
+                out[name] = torch.where(dead, 0.0, out[name])
+        return out
+
+    return state.replace(params=params, mu=reset(state.mu),
+                         nu=reset(state.nu))

@@ -1,11 +1,14 @@
 """Trainable signatures and inference dictionaries. Importing the package
-registers every ported family under its JAX signature name (the
-``ica``, ``nmf``, ``direct_coef`` and ``combination`` families are not
-ported yet)."""
+registers every family under its JAX signature name and every
+inference dict class for the artifact files."""
 
 from sparse_coding_tpu_torch.models import learned_dict, sae, signatures  # noqa: F401
 from sparse_coding_tpu_torch.models import (  # noqa: F401
+    combination,
+    direct_coef,
+    ica,
     lista,
+    nmf,
     pca,
     positive,
     rica,

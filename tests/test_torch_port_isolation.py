@@ -3,7 +3,9 @@ needs no JAX install: every module of sparse_coding_tpu_torch (and
 chip_smoke.py) imports in a subprocess whose meta-path blocks jax, flax,
 optax and sparse_coding_tpu — and transformers, datasets and zstandard,
 which the LM and harvest modules import only inside the functions that
-need them — and a source scan finds no such import."""
+need them, and sklearn and matplotlib, which the baseline dicts, the
+probes, the clusterings and the plots import only there too — and a
+source scan finds no such import."""
 
 import re
 import subprocess
@@ -17,7 +19,7 @@ _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "sparse_coding_tpu",
-           "transformers", "datasets", "zstandard")
+           "transformers", "datasets", "zstandard", "sklearn", "matplotlib")
 
 
 class Block(importlib.abc.MetaPathFinder):
@@ -49,6 +51,12 @@ ZOO = ("models.lista", "models.pca", "models.positive", "models.rica",
 HARVEST = ("lm.model_config", "lm.hooks", "lm.gptneox", "lm.gpt2",
            "lm.convert", "data.tokenize", "data.harvest", "data.scrub",
            "data.generate")
+# the evaluation stage, the baseline dicts and their trainers
+EVALS = ("metrics.intervention", "metrics.geometry", "metrics.erasure",
+         "metrics.erasure_driver", "plotting.erasure", "tasks.ioi",
+         "tasks.ioi_counterfact", "tasks.gender", "tasks.feature_ident",
+         "models.ica", "models.nmf", "models.direct_coef",
+         "models.combination", "train.baselines", "train.toy_models")
 
 _IMPORT = re.compile(
     r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|sparse_coding_tpu)\b"
@@ -67,7 +75,7 @@ def test_port_imports_under_a_jax_blocker():
     assert out.returncode == 0, out.stderr[-2000:]
     names = out.stdout.split()
     assert len(names) >= 20
-    assert {f"sparse_coding_tpu_torch.{m}" for m in ZOO + HARVEST} \
+    assert {f"sparse_coding_tpu_torch.{m}" for m in ZOO + HARVEST + EVALS} \
         <= set(names)
 
 

@@ -112,7 +112,8 @@ def test_sweep_without_a_card_raises(tmp_path):
 
 
 @pytest.mark.parametrize("cls", ["DataArgs", "EnsembleArgs",
-                                 "SyntheticEnsembleArgs", "BigSAEArgs"])
+                                 "SyntheticEnsembleArgs", "BigSAEArgs",
+                                 "ToyArgs", "ErasureArgs"])
 def test_config_matches_jax(cls):
     """Same fields, defaults and CLI parsing as the JAX package's."""
     j, t = getattr(jconfig, cls), getattr(tconfig, cls)
@@ -130,6 +131,12 @@ def test_config_matches_jax(cls):
     if cls == "BigSAEArgs":
         argv += ["--n_feats", "4096", "--l1_alpha", "3e-4",
                  "--resurrect_every", "0", "--scan_steps", "4"]
+    if cls == "ToyArgs":
+        argv += ["--activation_dim", "48", "--learned_dict_ratio", "1.5",
+                 "--correlated_components", "true", "--lr", "3e-3"]
+    if cls == "ErasureArgs":
+        argv += ["--layers", "[1, 3]", "--layer_loc", "mlp",
+                 "--max_edit_feats", "16", "--dict_path", "d.pkl"]
     assert t.from_cli(argv).to_dict() == j.from_cli(argv).to_dict()
 
 
