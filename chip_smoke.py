@@ -205,8 +205,50 @@ Phases — any failure raises, and the script exits non-zero with no result:
    ``resurrect_ensemble_features`` on (b)'s ensemble; PCA card vs CPU
    and the baseline exports (``run_layer_baselines`` whole with
    sklearn); its wall time;
-15. summary: one ``{"kernels": [...]}`` line, the card's name and power
-   limit, and the last line ``{"ok": true, "device": {...}}``.
+15. interpret features on the card, on phase 13's LM, stores and tied
+   ``mlp.2`` dicts (member 0, the live one) and phase 14 (b)'s ``mlp.1``
+   dict; cut to: 5,000 token rows of 128 tokens, 64 fragments card vs CPU,
+   4 investigated features, a 2-chunk sweep of 3 members with 256
+   fragments and 4 features a member, 4,096 rows and 2 dicts for the
+   catalog's card vs CPU, 8,192 rows for the plotting data: (a)
+   ``interp.run.run`` at ``InterpArgs``' defaults (5,000 fragments of 64
+   tokens, batch 20, 10 features, top and random 10, offline) at
+   ``mlp.2``: tokens/s of the fragment pass, features explained per
+   second, and a second run rewrites no ``scores.json``; (b) 64 fragments
+   on the card and on the CPU with (a)'s features: the maxes within
+   RTOL_EVAL, the top fragments equal but at near-ties, the explanations
+   equal where they agree, the scores within SCORE_TOL; (c)
+   ``scan_batches`` 8 against 1 over (a)'s first 180 fragments (a window
+   and a tail batch): bit-identical maxes (the field changes nothing in
+   the port);
+   (d) ``run_interp_graph`` at ``InterpGraphArgs``' defaults (64
+   fragments of 32 tokens) from the ``mlp.1`` dict to the ``mlp.2`` dict,
+   positional and not, 8 sources and 64 targets, card vs CPU within phase
+   14 (d)'s bound, and ``investigate_features`` on 4 live features; (e)
+   the sweep CLI, ``zero_l1_baseline`` tied over 2 chunks of the ``mlp.2``
+   store with a snapshot a chunk, each tied kernel once a step (counts
+   zeroed before), ``interpret_across_chunks`` (the same features pinned
+   in both snapshots) and ``interpret_across_big_sweep``,
+   ``plot_n_active_over_time``'s series, ``read_transform_scores``, and
+   ``python -m sparse_coding_tpu_torch.interp.run`` with ``interpret``
+   and ``chunks`` on tiny-gptneox on the card and ``read_results`` of
+   (a)'s folder, three children at once (after every timed step, beside
+   the untimed checks only: (b), (c) and the card-vs-CPU sides of (d),
+   (f) and (g), so that no timed step shares the card or the host with
+   them); (f)
+   ``build_catalog`` over the 16 tied ``mlp.2`` dicts and the whole store
+   (2 × 32,768 rows), twice, byte-identical, ``CatalogIndex.load(
+   verify=True)`` and one live feature's stats; card vs CPU on 4,096 rows
+   and 2 dicts (dead flags equal, counts but one flip per million codes,
+   mag within RTOL_CATALOG_MAG, mmcs within CATALOG_MMCS_TOL, matches but
+   at near-ties); ``neighbor_topk`` (k=8, 512 rows) and ``union_vote``
+   over the 16-member stack, card vs CPU; (g) ``generate_scores`` and
+   ``n_active_features`` over phase 13's two artifacts on 8,192 ``mlp.2``
+   rows (card vs CPU over their first members within RTOL_EVAL, counts
+   equal), ``sweep_grid`` on the scores; no figure is drawn;
+16. summary: one ``{"kernels": [...]}`` line (the tied kernels also with
+   phase 15 (e)'s launches), the card's name and power limit, and the
+   last line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds the four chunked ensemble kernels against their plain
 versions at the ratio-16 width (n = 8,192, which their 1 GiB workspaces
@@ -4554,6 +4596,743 @@ def eval_phase(tmp: Path, lm: dict, store512: Path) -> dict:
     return report
 
 
+# -- phase 15: interpreting features on the card -------------------------------
+
+# (a) InterpArgs' own defaults (5,000 fragments of 64 tokens, batch 20, 10
+# features from the top 10 and 10 random fragments each, offline) at
+# layer 2 of the MLP, over INTERP_ROWS seeded random token rows of
+# INTERP_CTX tokens
+INTERP_ROWS, INTERP_CTX, INTERP_LAYER = 5000, 128, 2
+INTERP_CHECK_FRAGMENTS = 64  # (b) card vs CPU
+# (c): one window of 8 batches of 20 and a tail batch, (a)'s first 180
+# fragments (the field changes nothing in the port; this holds its contract)
+INTERP_SCAN, INTERP_SCAN_ROWS = 8, 180
+INVESTIGATE_FEATS = 4  # (d)
+GRAPH_CPU_SOURCES = 2  # (d) card vs CPU on these sources' edges
+# (e) the smallest tied experiment (zero_l1_baseline, 3 members, tied) over
+# the mlp.2 store, a snapshot a chunk; the drivers cut to 256 fragments
+# and 4 features
+SNAP_CHUNKS, SNAP_FRAGMENTS, SNAP_FEATS = 2, 256, 4
+CATALOG_CHECK_ROWS, CATALOG_CHECK_DICTS = 4096, 2  # (f) card vs CPU
+QUERY_K, QUERY_ROWS = 8, 512
+PLOT_ROWS = 8192  # (g)
+# card vs CPU: a feature's mean magnitude (float64 sums of the codes, the
+# forward of phase 13's bound away) and an MMCS (a mean of 8,192 maxes,
+# whose rounding averages out); a single cosine of two unit rows of 2,048
+# is a sum of 2,048 products in another order (≈ 1e-7–1e-6 apart)
+RTOL_CATALOG_MAG, CATALOG_MMCS_TOL, COS_TOL = 1e-5, 1e-6, 1e-5
+SCORE_TOL = 1e-4  # (b) the correlation scores, card vs CPU
+
+
+def digests(folder: Path) -> dict[str, str]:
+    import hashlib
+
+    return {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(folder.iterdir())}
+
+
+def interp_fragment_pass(params, cfg, ld, rows: np.ndarray,
+                         tmp: Path) -> tuple[dict, np.ndarray, object, list]:
+    """(a) the fragment pass and ``run`` at InterpArgs' defaults on the
+    card: tokens/s of the pass, features explained per second (the run's
+    wall less its own fragment pass, which is the timed pass's work);
+    then a second ``run`` into the same folder rewrites nothing. Returns
+    the report, the fragments, their maxes and the features explained."""
+    from sparse_coding_tpu_torch.config import InterpArgs
+    from sparse_coding_tpu_torch.interp.fragments import (
+        build_fragment_activations,
+        sample_fragments,
+    )
+    from sparse_coding_tpu_torch.interp.run import run
+
+    args = InterpArgs(layer=INTERP_LAYER, layer_loc="mlp",
+                      output_folder=str(tmp / "interp_a"))
+    if (args.n_fragments, args.fragment_len, args.batch_size,
+            args.n_feats_to_explain, args.top_k_fragments,
+            args.n_random_fragments, args.provider) != (
+            5000, 64, 20, 10, 10, 10, "offline"):
+        raise AssertionError(f"(a) runs InterpArgs' defaults, not {args}")
+    frags = sample_fragments(rows, args.fragment_len, args.n_fragments,
+                             seed=args.seed)
+    build_fragment_activations(params, cfg, ld, frags[:args.batch_size],
+                               INTERP_LAYER, "mlp",
+                               batch_size=args.batch_size)  # first calls
+    sync()
+    t0 = time.perf_counter()
+    fa, _ = build_fragment_activations(params, cfg, ld, frags, INTERP_LAYER,
+                                       "mlp", batch_size=args.batch_size)
+    sync()
+    pass_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recs = run(ld, args, params, cfg, rows, decode_token=str)
+    run_s = time.perf_counter() - t0
+    feats = [r["feature"] for r in recs]
+    if len(set(feats)) != args.n_feats_to_explain or not all(
+            math.isfinite(r[k]) for r in recs
+            for k in ("top_score", "random_score", "top_random_score",
+                      "max_activation")):
+        raise AssertionError(f"(a) records {recs}")
+    out = Path(args.output_folder)
+    for f in feats:
+        if not (out / f"feature_{f}" / "explanation.txt").exists():
+            raise AssertionError(f"(a) feature_{f}: no explanation.txt")
+    scores = {p: (p.read_bytes(), p.stat().st_mtime_ns)
+              for p in out.glob("feature_*/scores.json")}
+    again = run(ld, args, params, cfg, rows, decode_token=str)
+    if again != recs or {p: (p.read_bytes(), p.stat().st_mtime_ns)
+                         for p in scores} != scores:
+        raise AssertionError("(a) the second run rewrote scores.json")
+    explain_s = run_s - pass_s
+    report = {"fragments": int(frags.shape[0]),
+              "tokens": int(frags.size), "pass_s": pass_s,
+              "tokens_per_s": frags.size / pass_s, "run_s": run_s,
+              "features": feats, "features_per_s": len(feats) / explain_s,
+              "max_activation": [r["max_activation"] for r in recs]}
+    log(f"  (a) fragment pass at InterpArgs' defaults ({frags.shape[0]} "
+        f"fragments x {args.fragment_len} tokens, batch {args.batch_size}, "
+        f"mlp.{INTERP_LAYER}, n={ld.n_feats}): {pass_s:.2f} s, "
+        f"{report['tokens_per_s']:.0f} tokens/s; run {run_s:.2f} s, "
+        f"{report['features_per_s']:.2f} features explained/s; features "
+        f"{feats}; a second run rewrote no scores.json")
+    return report, frags, fa, feats
+
+
+def interp_card_vs_cpu(params, cpu, cfg, ld, rows: np.ndarray, feats: list,
+                       tmp: Path) -> dict:
+    """(b) INTERP_CHECK_FRAGMENTS fragments on the card and on the CPU
+    (the same weights, dict and features): the maxes within RTOL_EVAL of
+    max|ref|; each feature's top fragments equal but where two maxes lie
+    within that bound; the explanations equal wherever the top records
+    agree, the scores within SCORE_TOL."""
+    from sparse_coding_tpu_torch.config import InterpArgs
+    from sparse_coding_tpu_torch.interp.fragments import (
+        build_fragment_activations,
+        sample_fragments,
+    )
+    from sparse_coding_tpu_torch.interp.run import run
+
+    args = InterpArgs(layer=INTERP_LAYER, layer_loc="mlp",
+                      n_fragments=INTERP_CHECK_FRAGMENTS)
+    frags = sample_fragments(rows, args.fragment_len, args.n_fragments,
+                             seed=args.seed)
+    ld_cpu = ld.to("cpu")
+    sides = (("card", params, ld), ("cpu", cpu, ld_cpu))
+    fa = {side: build_fragment_activations(
+        p, cfg, d, frags, INTERP_LAYER, "mlp", batch_size=args.batch_size)[0]
+        for side, p, d in sides}
+    ref = fa["cpu"].max_per_fragment
+    err = compare("(b) fragment maxes card vs CPU",
+                  fa["card"].max_per_fragment.cpu(), ref, RTOL_EVAL)
+    recs = {side: run(d, args.replace(output_folder=str(
+        tmp / f"interp_b_{side}")), p, cfg, rows, decode_token=str,
+        feature_indices=feats) for side, p, d in sides}
+    agree, score_err = 0, 0.0
+    for f, rc, rr in zip(feats, recs["card"], recs["cpu"]):
+        gi = fa["card"].top_fragments(f, args.top_k_fragments)[0].cpu()
+        ri = fa["cpu"].top_fragments(f, args.top_k_fragments)[0]
+        # a different pick must be a near-tie on the CPU's maxes
+        gap = (ref[gi, f] - ref[ri, f]).abs().max()
+        if not float(gap) <= 2 * err["tol"]:
+            raise AssertionError(f"(b) feature {f}: top fragments {gi} vs "
+                                 f"{ri}, maxes {float(gap):.3e} apart")
+        if torch.equal(gi, ri):
+            agree += 1
+            if rc["explanation"] != rr["explanation"]:
+                raise AssertionError(f"(b) feature {f}: explanations "
+                                     f"{rc['explanation']!r} vs "
+                                     f"{rr['explanation']!r}")
+            for k in ("top_score", "random_score", "top_random_score"):
+                score_err = max(score_err, abs(rc[k] - rr[k]))
+    if not score_err <= SCORE_TOL:
+        raise AssertionError(f"(b) scores card vs CPU {score_err:.3e}")
+    log(f"  (b) {INTERP_CHECK_FRAGMENTS} fragments card vs CPU: maxes rel "
+        f"err {err['max_rel_err']:.2e}; top fragments equal for {agree} of "
+        f"{len(feats)} features (the rest near-ties), explanations equal "
+        f"there, scores within {score_err:.2e}")
+    return {"maxes": err, "top_equal": agree, "features": len(feats),
+            "score_err": score_err}
+
+
+def interp_scan(params, cfg, ld, frags: np.ndarray, fa1) -> dict:
+    """(c) scan_batches=INTERP_SCAN over (a)'s first INTERP_SCAN_ROWS
+    fragments (a window and a tail batch) against (a)'s scan_batches=1
+    maxes of the same batches: bit-identical."""
+    from sparse_coding_tpu_torch.interp.fragments import (
+        build_fragment_activations,
+    )
+
+    batch = 20
+    fa8, _ = build_fragment_activations(
+        params, cfg, ld, frags[:INTERP_SCAN_ROWS], INTERP_LAYER, "mlp",
+        batch_size=batch, scan_batches=INTERP_SCAN)
+    windows, tail = divmod(INTERP_SCAN_ROWS, batch * INTERP_SCAN)
+    if not tail or not torch.equal(
+            fa8.max_per_fragment,
+            fa1.max_per_fragment[:INTERP_SCAN_ROWS]):
+        raise AssertionError(f"(c) scan_batches={INTERP_SCAN} maxes differ "
+                             f"from scan_batches=1 (tail {tail} rows)")
+    log(f"  (c) scan_batches={INTERP_SCAN}: {windows} window + a tail of "
+        f"{tail} rows, maxes bit-identical to scan_batches=1")
+    return {"windows": windows, "tail_rows": tail}
+
+
+def active_positions(params, cfg, ld, layer: int, toks,
+                     k: int) -> tuple[list[tuple[int, int]], float]:
+    """The k (position, feature) pairs of ``ld`` with the largest mean
+    code over the rows at (layer, mlp), and the largest code."""
+    from sparse_coding_tpu_torch.metrics.intervention import (
+        cache_all_activations,
+    )
+
+    codes = cache_all_activations(params, cfg, {(layer, "mlp"): ld},
+                                  toks)[(layer, "mlp")]
+    mean = codes.mean(dim=0)  # [s, n]
+    top = torch.argsort(-mean.flatten())[:k].tolist()
+    n = mean.shape[1]
+    return [(i // n, i % n) for i in top], float(codes.abs().max())
+
+
+def interp_graphs(params, cfg, rows: np.ndarray, mlp1_file: Path,
+                  mlp2_file: Path, feats: list, tmp: Path) -> dict:
+    """(d) run_interp_graph at InterpGraphArgs' defaults (64 fragments of
+    32 tokens) from phase 14 (b)'s mlp.1 dict to phase 13's mlp.2 dict,
+    positional and not, 8 sources to 64 targets (the most active), on the
+    card (timed); then investigate_features on 4 live mlp.2 features.
+    Returns the report and what :func:`graph_checks` holds against the
+    CPU."""
+    from sparse_coding_tpu_torch.config import InterpGraphArgs, InvestigateArgs
+    from sparse_coding_tpu_torch.interp.fragments import sample_fragments
+    from sparse_coding_tpu_torch.interp.graph import (
+        investigate_features,
+        run_interp_graph,
+    )
+    from sparse_coding_tpu_torch.utils.artifacts import load_learned_dicts
+
+    g = InterpGraphArgs(layers=[1, 2], layer_loc="mlp",
+                        dict_paths=[str(mlp1_file), str(mlp2_file)])
+    d1 = load_learned_dicts(mlp1_file, device=DEV)[0][0]
+    d2 = load_learned_dicts(mlp2_file, device=DEV)[0][0]
+    toks = sample_fragments(rows, g.fragment_len, g.n_fragments, seed=g.seed)
+    l1, l2 = (1, "mlp"), (2, "mlp")
+    out, card = {}, {}
+    for positional in (False, True):
+        if positional:
+            src, _ = active_positions(params, cfg, d1, 1, toks, GRAPH_FEATS)
+            dst, code_max = active_positions(params, cfg, d2, 2, toks,
+                                             GRAPH_TARGETS)
+        else:
+            src, _ = active_features(params, cfg, d1, 1, toks, GRAPH_FEATS)
+            dst, code_max = active_features(params, cfg, d2, 2, toks,
+                                            GRAPH_TARGETS)
+        kind = "positional" if positional else "non_positional"
+        args = g.replace(positional=positional, output_folder=str(
+            tmp / f"graph_{kind}_card"))
+        sync()
+        t0 = time.perf_counter()
+        graph = run_interp_graph(args, params, cfg, rows,
+                                 features_to_ablate={l1: src},
+                                 target_features={l1: src, l2: dst})
+        sync()
+        wall = time.perf_counter() - t0
+        on_disk = json.loads((tmp / f"graph_{kind}_card" /
+                              "ablation_graph.json").read_text())
+        keys, _ = graph_values(graph)
+        if len(on_disk) != len(graph) or len(keys) != \
+                len(src) * (len(src) + len(dst) - 1):
+            raise AssertionError(f"(d) {kind}: {len(keys)} edges, "
+                                 f"{len(on_disk)} in ablation_graph.json")
+        card[kind] = (args, graph, src, dst, code_max)
+        out[kind] = {"edges": len(keys), "wall_s": wall,
+                     "max_code": code_max}
+        log(f"  (d) run_interp_graph {kind} mlp.1 -> mlp.2 ({g.n_fragments} "
+            f"fragments x {g.fragment_len} tokens): {GRAPH_FEATS} sources, "
+            f"{len(keys)} edges, {wall:.2f} s on the card")
+    pick = feats[:INVESTIGATE_FEATS]
+    inv = InvestigateArgs(layer=2, layer_loc="mlp",
+                          learned_dict_path=str(mlp2_file),
+                          feature_indices=pick,
+                          output_folder=str(tmp / "investigate"))
+    t0 = time.perf_counter()
+    recs = investigate_features(inv, params, cfg, rows, decode_token=str)
+    wall = time.perf_counter() - t0
+    written = sorted(p.name for p in (tmp / "investigate").glob("feature_*"))
+    if [r["feature"] for r in recs] != pick or written != sorted(
+            f"feature_{f}" for f in pick):
+        raise AssertionError(f"(d) investigate {pick}: records "
+                             f"{[r['feature'] for r in recs]}, {written}")
+    out["investigate"] = {"features": pick, "wall_s": wall}
+    log(f"  (d) investigate_features {pick} ({inv.n_fragments} fragments): "
+        f"records for exactly those, {wall:.2f} s")
+    return out, card
+
+
+def graph_checks(cpu, cfg, rows: np.ndarray, card: dict) -> dict:
+    """(d) card vs CPU, within phase 14 (d)'s bound, on the edges of the
+    first GRAPH_CPU_SOURCES sources of each graph ``interp_graphs`` built
+    on the card (the CPU's forwards take most of the phase's time
+    otherwise). Nothing here is timed."""
+    from sparse_coding_tpu_torch.interp.graph import run_interp_graph
+
+    l1, l2 = (1, "mlp"), (2, "mlp")
+    out = {}
+    for kind, (args, graph, src, dst, code_max) in card.items():
+        folder = Path(args.output_folder).with_name(f"graph_{kind}_cpu")
+        # the CPU ablates the first GRAPH_CPU_SOURCES sources; every source
+        # stays a target, so its edges are the card's from those sources
+        ref = run_interp_graph(
+            args.replace(output_folder=str(folder)), cpu, cfg, rows,
+            features_to_ablate={l1: src[:GRAPH_CPU_SOURCES]},
+            target_features={l1: src, l2: dst})
+        if len(json.loads((folder / "ablation_graph.json").read_text())) \
+                != len(ref):
+            raise AssertionError(f"(d) {kind} cpu: ablation_graph.json")
+        keys, _ = graph_values(graph)
+        ckeys, want = graph_values(ref)
+        if not set(ckeys) <= set(keys) or len(ckeys) != \
+                GRAPH_CPU_SOURCES * (len(src) + len(dst) - 1):
+            raise AssertionError(f"(d) {kind}: the CPU's edges are not the "
+                                 "card's from its sources")
+        got = torch.tensor([graph[k] for k in ckeys], dtype=torch.float64)
+        if not float(want.max()) > 0:
+            raise AssertionError(f"(d) {kind}: the ablations moved nothing")
+        err = compare(f"(d) {kind} graph card vs CPU", got, want, 0.0,
+                      RTOL_EVAL * code_max * math.sqrt(max(args.n_fragments,
+                                                           args.fragment_len)))
+        out[kind] = {"card_vs_cpu": err, "max_weight": float(want.max())}
+        log(f"  (d) {kind} graph card vs CPU ({len(ckeys)} edges of "
+            f"{GRAPH_CPU_SOURCES} sources) abs err {err['max_abs_err']:.2e} "
+            f"(largest weight {float(want.max()):.3e}, largest code "
+            f"{code_max:.3e})")
+    return out
+
+
+def interp_snapshots(params, cfg, rows: np.ndarray, store2: Path,
+                     tmp: Path) -> dict:
+    """(e) the sweep CLI, zero_l1_baseline tied (3 members), 2 chunks of the
+    mlp.2 store with a snapshot a chunk: each tied kernel once a step
+    (counts zeroed just before); interpret_across_chunks (the same
+    features in both snapshots) and interpret_across_big_sweep over its
+    snapshots, plot_n_active_over_time's series and read_transform_scores
+    (the interp CLI runs at the phase's end: ``interp_cli``)."""
+    from sparse_coding_tpu_torch.config import InterpArgs
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+    from sparse_coding_tpu_torch.interp.run import (
+        interpret_across_big_sweep,
+        interpret_across_chunks,
+        read_transform_scores,
+    )
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.plotting.timeseries import (
+        plot_autointerp_across_chunks,
+        plot_n_active_over_time,
+    )
+
+    out = tmp / "interp_sweep"
+    rows_per_chunk = int(LM_CHUNK_GB * 2**30 / (LM_D_MLP * 2))  # (13 a)
+    steps = SNAP_CHUNKS * rows_per_chunk // BATCH
+    args = ["--experiment", "zero_l1_baseline", "--tied_ae", "true",
+            "--dataset_folder", str(store2), "--output_folder", str(out),
+            "--batch_size", str(BATCH), "--learned_dict_ratio", str(RATIO),
+            "--lr", str(LR), "--seed", str(SEED), "--n_chunks",
+            str(SNAP_CHUNKS), "--save_every_chunks", "1",
+            "--image_metrics_every", "none", "--layer", str(INTERP_LAYER),
+            "--layer_loc", "mlp", "--log_every", str(steps // SNAP_CHUNKS),
+            "--device", DEV]
+    _build.reset_launches()
+    sweep_s = sweep_in_process(args, tmp / "interp_obs")
+    launches = tied_launches(steps, "(e) zero_l1_baseline sweep")
+    snaps = sorted(p.name for p in out.glob("_*"))
+    if snaps != [f"_{i}" for i in range(SNAP_CHUNKS)]:
+        raise AssertionError(f"(e) snapshots {snaps}")
+    icfg = InterpArgs(layer=INTERP_LAYER, layer_loc="mlp",
+                      n_fragments=SNAP_FRAGMENTS,
+                      n_feats_to_explain=SNAP_FEATS,
+                      output_folder=str(tmp / "interp_chunks"))
+    t0 = time.perf_counter()
+    chunks = interpret_across_chunks(out, icfg, params, cfg, rows, str)
+    chunks_s = time.perf_counter() - t0
+    members = list(chunks["_0"])
+    if list(chunks) != snaps or list(chunks["_1"]) != members or any(
+            [r["feature"] for r in chunks["_0"][m]]
+            != [r["feature"] for r in chunks["_1"][m]] for m in members):
+        raise AssertionError("(e) interpret_across_chunks did not pin the "
+                             "same features in both snapshots")
+    t0 = time.perf_counter()
+    big = interpret_across_big_sweep(out, icfg.replace(output_folder=str(
+        tmp / "interp_big")), params, cfg, rows, str)
+    big_s = time.perf_counter() - t0
+    if len(big) != len(members) or not all(
+            len(v) == SNAP_FEATS for v in big.values()):
+        raise AssertionError(f"(e) interpret_across_big_sweep {list(big)}")
+    series = plot_n_active_over_time(out, ChunkStore(store2), device=DEV)
+    if len(series) != len(members) or not all(
+            s["snapshots"] == list(range(SNAP_CHUNKS))
+            for s in series.values()):
+        raise AssertionError(f"(e) n_active series {series}")
+    scores = read_transform_scores(tmp / "interp_chunks" / "_1")
+    over_time = plot_autointerp_across_chunks(tmp / "interp_chunks")
+    if len(scores) != len(members) or len(over_time) != len(members):
+        raise AssertionError(f"(e) read_transform_scores {list(scores)}")
+    log(f"  (e) sweep CLI zero_l1_baseline tied ({len(members)} members, n="
+        f"{RATIO * LM_D_MLP}) over mlp.2: {steps} steps, {SNAP_CHUNKS} "
+        f"snapshots in {sweep_s:.2f} s, each tied kernel {steps} launches; "
+        f"interpret_across_chunks {chunks_s:.2f} s (same features pinned), "
+        f"interpret_across_big_sweep {big_s:.2f} s ({SNAP_FRAGMENTS} "
+        f"fragments, {SNAP_FEATS} features); n_active over time "
+        f"{[s['n_active'] for s in series.values()]}")
+    return {"steps": steps, "launches": launches, "sweep_s": sweep_s,
+            "chunks_s": chunks_s, "big_sweep_s": big_s,
+            "n_active": series}
+
+
+@contextlib.contextmanager
+def interp_cli(tmp: Path, scored: Path):
+    """(e) ``python -m sparse_coding_tpu_torch.interp.run`` on the card
+    with tiny-gptneox: ``interpret``, ``chunks`` and ``read_results`` of
+    ``scored`` (a folder ``run`` filled: (a)'s) start as three children at
+    once when the block opens (they run beside the block's work, which
+    must time nothing); the block calls the yielded ``finish``, which
+    waits for them and checks what they wrote and printed. Children still
+    running when the block exits are killed."""
+    import os
+
+    from sparse_coding_tpu_torch.data.tokenize import save_token_dataset
+    from sparse_coding_tpu_torch.interp.run import read_scores
+    from sparse_coding_tpu_torch.lm.model_config import tiny_test_config
+    from sparse_coding_tpu_torch.models import TiedSAE
+    from sparse_coding_tpu_torch.utils.artifacts import save_learned_dicts
+
+    tiny = tiny_test_config("gptneox")
+    root = tmp / "interp_cli"
+    g = torch.Generator().manual_seed(SEED + 15)
+    save_token_dataset(np.random.default_rng(SEED + 15).integers(
+        0, tiny.vocab_size, (24, 16)).astype(np.int32), root / "toks.npy")
+
+    def tied(n):
+        return TiedSAE(dictionary=torch.randn(n, tiny.d_model, generator=g),
+                       encoder_bias=torch.full((n,), -0.1))
+
+    save_learned_dicts([(tied(16), {"l1_alpha": 1e-3})], root / "dict.pkl")
+    for i in range(2):
+        save_learned_dicts([(tied(16), {"l1_alpha": 1e-3})] * 2,
+                           root / "sweep" / f"_{i}" / "e_learned_dicts.pkl")
+    common = ["--tokens", str(root / "toks.npy"), "--model_name",
+              "tiny-gptneox", "--layer", "1", "--n_fragments", "12",
+              "--fragment_len", "8", "--n_feats_to_explain", "2",
+              "--top_k_fragments", "3", "--n_random_fragments", "2",
+              "--batch_size", "4",
+              # the CLI's default device is the card
+              *([] if DEV == "cuda" else ["--device", DEV])]
+    cmd = [sys.executable, "-m", "sparse_coding_tpu_torch.interp.run"]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SPARSE_CODING_FAULT_PLAN", "SPARSE_CODING_CRASH_PLAN")}
+    here = Path(__file__).resolve().parent
+
+    def child(*args):
+        return subprocess.Popen([*cmd, *args], cwd=here, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE)
+
+    t0 = time.perf_counter()
+    procs = {"interpret": child("--learned_dict_path", str(root / "dict.pkl"),
+                                "--output_folder", str(root / "out"),
+                                *common),
+             "chunks": child("chunks", "--target", str(root / "sweep"),
+                             "--output_folder", str(root / "chunks_out"),
+                             *common),
+             "read_results": child("read_results", "--output_folder",
+                                   str(scored))}
+
+    def finish() -> dict:
+        outs = {}
+        for name in ("interpret", "chunks"):
+            proc = procs[name]
+            stdout, stderr = proc.communicate(timeout=300)
+            if proc.returncode != 0 or f"interp {name}:" not in stdout:
+                raise AssertionError(f"(e) CLI {name}: exit "
+                                     f"{proc.returncode}: {stderr[-2000:]}")
+            outs[name] = stdout.strip().splitlines()[-1]
+        if len(read_scores(root / "out" / "dict_0")) != 2:
+            raise AssertionError("(e) CLI interpret: no 2 scores.json")
+        stdout, stderr = procs["read_results"].communicate(timeout=300)
+        printed = (json.loads(stdout)
+                   if procs["read_results"].returncode == 0 else None)
+        want = read_scores(scored)
+        if printed is None or not want or \
+                {int(k): v for k, v in printed.items()} != want:
+            raise AssertionError(f"(e) CLI read_results: {stderr[-2000:]}")
+        wall = time.perf_counter() - t0
+        log(f"  (e) interp CLI on the card (tiny-gptneox): "
+            f"{outs['interpret']}; {outs['chunks']}; read_results printed "
+            f"{len(printed)} records ({wall:.1f} s from the children's "
+            "start, beside the untimed checks)")
+        return {"wall_s": wall, **outs}
+
+    try:
+        yield finish
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def catalog_close(card: Path, cpu: Path) -> dict:
+    """(f) a card-built catalog against a CPU-built one: dead flags equal,
+    counts equal but one flip per million codes, mag within
+    RTOL_CATALOG_MAG of max|ref|, mmcs within CATALOG_MMCS_TOL, match
+    cosines within COS_TOL and their indices equal but at near-ties."""
+    from sparse_coding_tpu_torch.catalog.build import CatalogIndex
+
+    got, ref = CatalogIndex.load(card, verify=True), CatalogIndex.load(
+        cpu, verify=True)
+    if {k: v for k, v in got.meta.items() if k != "files"} != \
+            {k: v for k, v in ref.meta.items() if k != "files"}:
+        raise AssertionError("(f) index metadata card vs CPU")
+    n_rows, flips, codes, ties, mag_err = ref.meta["n_rows"], 0, 0, 0, 0.0
+    rows = [torch.from_numpy(ref.rows(i)) for i in range(ref.n_dicts)]
+    for i in range(ref.n_dicts):
+        if not np.array_equal(got.dead(i), ref.dead(i)):
+            raise AssertionError(f"(f) dict {i}: dead flags card vs CPU")
+        flips += int(np.abs(np.rint(got.freq(i).astype(np.float64) * n_rows)
+                            - np.rint(ref.freq(i).astype(np.float64)
+                                      * n_rows)).sum())
+        codes += n_rows * rows[i].shape[0]
+        scale = max(float(np.abs(ref.mag(i)).max()), 1e-30)
+        mag_err = max(mag_err, float(np.abs(got.mag(i) - ref.mag(i)).max())
+                      / scale)
+        cos = np.abs(got._arr(i, "match_cos") - ref._arr(i, "match_cos"))
+        if not cos.max() <= COS_TOL:
+            raise AssertionError(f"(f) dict {i}: match cosines {cos.max()}")
+        gd, gf = got._arr(i, "match_dict"), got._arr(i, "match_feat")
+        rd, rf = ref._arr(i, "match_dict"), ref._arr(i, "match_feat")
+        for f in np.nonzero((gd != rd) | (gf != rf))[0]:
+            a = rows[i][f]
+            if not abs(float(a @ rows[gd[f]][gf[f]])
+                       - float(a @ rows[rd[f]][rf[f]])) <= COS_TOL:
+                raise AssertionError(f"(f) dict {i} feature {f}: partner "
+                                     f"({gd[f]}, {gf[f]}) vs ({rd[f]}, "
+                                     f"{rf[f]}) is no near-tie")
+            ties += 1
+    if not flips <= FLIPS_PER_CODE * codes:
+        raise AssertionError(f"(f) {flips} count flips in {codes} codes")
+    if not mag_err <= RTOL_CATALOG_MAG:
+        raise AssertionError(f"(f) mag rel err {mag_err:.3e}")
+    mmcs_err = float(np.abs(got.mmcs_matrix() - ref.mmcs_matrix()).max())
+    if not mmcs_err <= CATALOG_MMCS_TOL:
+        raise AssertionError(f"(f) mmcs card vs CPU {mmcs_err:.3e}")
+    return {"count_flips": flips, "codes": codes, "mag_rel_err": mag_err,
+            "mmcs_err": mmcs_err, "match_near_ties": ties}
+
+
+def interp_catalog(dict_file: Path, store2: Path, tmp: Path) -> dict:
+    """(f) build_catalog over the 16 tied mlp.2 dicts and the whole mlp.2
+    store on the card, twice (timed, byte-identical), the index loaded
+    with verify and one live feature's stats."""
+    from sparse_coding_tpu_torch.catalog.build import (
+        CatalogIndex,
+        build_catalog,
+    )
+
+    walls = []
+    for name in ("catalog_a", "catalog_b"):
+        sync()
+        t0 = time.perf_counter()
+        meta = build_catalog(dict_file, store2, tmp / name,
+                             experiment="phase15", device=DEV)
+        walls.append(time.perf_counter() - t0)
+    if digests(tmp / "catalog_a") != digests(tmp / "catalog_b"):
+        raise AssertionError("(f) two builds differ")
+    index = CatalogIndex.load(tmp / "catalog_a", verify=True)
+    live = int(np.argmax(index.freq(0)))
+    stats = index.feature_stats(0, live)
+    if stats["dead"] or not stats["freq"] > 0 or stats["match_dict"] < 0:
+        raise AssertionError(f"(f) feature_stats(0, {live}) {stats}")
+    n_dead = [d["n_dead"] for d in meta["dicts"]]
+    log(f"  (f) build_catalog over {len(n_dead)} tied mlp.2 dicts and "
+        f"{meta['n_rows']} rows: {walls[0]:.2f} s and {walls[1]:.2f} s, "
+        f"byte-identical; dead per dict {n_dead}; feature_stats(0, {live}) "
+        f"freq {stats['freq']:.4f}, match ({stats['match_dict']}, "
+        f"{stats['match_feat']}) cos {stats['match_cos']:.4f}")
+    return {"build_s": walls, "n_rows": meta["n_rows"], "n_dead": n_dead,
+            "stats": stats}
+
+
+def catalog_checks(dicts: list, store2: Path, tmp: Path) -> dict:
+    """(f) card vs CPU on CATALOG_CHECK_ROWS rows and CATALOG_CHECK_DICTS
+    of ``dicts`` (the 16 tied mlp.2 dicts, loaded); neighbor_topk and
+    union_vote over the 16, card vs CPU. Nothing here is timed."""
+    from sparse_coding_tpu_torch.catalog.build import build_catalog
+    from sparse_coding_tpu_torch.catalog.query import (
+        neighbor_topk,
+        union_vote,
+        unpack_neighbors,
+    )
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore, ChunkWriter
+    from sparse_coding_tpu_torch.utils.artifacts import save_learned_dicts
+    from sparse_coding_tpu_torch.utils.trees import stack_trees
+
+    store = ChunkStore(store2)
+    chunk = store.load_chunk(0)[:CATALOG_CHECK_ROWS]
+    small = tmp / "catalog_rows"
+    w = ChunkWriter(small, chunk.shape[1],
+                    chunk_size_gb=chunk.nbytes / 2 / 2**30, dtype="bfloat16")
+    w.add(chunk)
+    w.finalize()
+    few = tmp / "catalog_few.pkl"
+    save_learned_dicts(dicts[:CATALOG_CHECK_DICTS], few)
+    for side, dev in (("card", DEV), ("cpu", "cpu")):
+        build_catalog(few, small, tmp / f"catalog_{side}", device=dev)
+    side = catalog_close(tmp / "catalog_card", tmp / "catalog_cpu")
+    x = torch.as_tensor(chunk[:QUERY_ROWS], dtype=torch.float32)
+    q = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    ld0 = dicts[0][0]
+    card_v, card_i = unpack_neighbors(neighbor_topk(ld0.to(DEV), q.to(DEV),
+                                                    QUERY_K))
+    cpu_v, cpu_i = unpack_neighbors(neighbor_topk(ld0, q, QUERY_K))
+    if not np.abs(card_v - cpu_v).max() <= COS_TOL:
+        raise AssertionError("(f) neighbor_topk values card vs CPU")
+    sims = q @ ld0.get_learned_dict().T
+    moved = np.nonzero(card_i != cpu_i)
+    for r, c in zip(*moved):  # a different neighbor must be a near-tie
+        if not abs(float(sims[r, card_i[r, c]] - sims[r, cpu_i[r, c]])) \
+                <= COS_TOL:
+            raise AssertionError(f"(f) neighbor_topk row {r}: {card_i[r]} "
+                                 f"vs {cpu_i[r]}")
+    stack = stack_trees([ld for ld, _ in dicts])
+    card_votes = union_vote(stack.to(DEV), x.to(DEV)).cpu()
+    cpu_votes = union_vote(stack, x)
+    vote_flips = int((card_votes - cpu_votes).abs().sum())
+    vote_codes = len(dicts) * card_votes.numel()
+    if not vote_flips <= FLIPS_PER_CODE * vote_codes:
+        raise AssertionError(f"(f) union_vote: {vote_flips} flips")
+    log(f"  (f) catalog card vs CPU ({CATALOG_CHECK_ROWS} rows, "
+        f"{CATALOG_CHECK_DICTS} dicts): {side['count_flips']} count flips, "
+        f"mag rel err {side['mag_rel_err']:.2e}, mmcs err "
+        f"{side['mmcs_err']:.2e}, {side['match_near_ties']} match near-ties; "
+        f"neighbor_topk (k={QUERY_K}, {QUERY_ROWS} rows) {len(moved[0])} "
+        f"near-tie swaps; union_vote over {len(dicts)} members "
+        f"{vote_flips} flips")
+    return {"card_vs_cpu": side, "neighbor_swaps": int(len(moved[0])),
+            "vote_flips": vote_flips}
+
+
+def interp_plotting(tied_file: Path, untied_file: Path, store2: Path) -> dict:
+    """(g) generate_scores and n_active_features over phase 13's two
+    artifacts on PLOT_ROWS mlp.2 rows on the card (timed); sweep_grid on
+    the scores. No figure is drawn."""
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+    from sparse_coding_tpu_torch.plotting.frontiers import generate_scores
+    from sparse_coding_tpu_torch.plotting.sweeps import (
+        n_active_features,
+        sweep_grid,
+    )
+
+    x = ChunkStore(store2).load_chunk(0)[:PLOT_ROWS]
+    sync()
+    t0 = time.perf_counter()
+    scores = generate_scores([tied_file, untied_file], x, device=DEV)
+    active = n_active_features([tied_file, untied_file], x, device=DEV)
+    wall = time.perf_counter() - t0
+    xs, ys, grid = sweep_grid(scores, y_key="dict_ratio")  # basic_l1_sweep's
+    if grid.shape != (len(ys), len(xs)) or not np.isfinite(grid).any():
+        raise AssertionError(f"(g) sweep_grid {grid.shape}")
+    log(f"  (g) generate_scores + n_active_features over {len(scores)} dicts "
+        f"x {PLOT_ROWS} rows: {wall:.2f} s on the card; sweep_grid "
+        f"{grid.shape}")
+    return {"wall_s": wall, "dicts": len(scores),
+            "n_active": [a["n_active"] for a in active],
+            "grid": list(grid.shape)}
+
+
+def plotting_checks(tied: list, untied_file: Path, store2: Path,
+                    tmp: Path) -> dict:
+    """(g) card vs CPU over member 0 of phase 13's two artifacts (``tied``
+    is the tied one, loaded): FVU and L0 within RTOL_EVAL of max|ref|,
+    counts equal. Nothing here is timed."""
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+    from sparse_coding_tpu_torch.plotting.frontiers import generate_scores
+    from sparse_coding_tpu_torch.plotting.sweeps import n_active_features
+    from sparse_coding_tpu_torch.utils.artifacts import (
+        load_learned_dicts,
+        save_learned_dicts,
+    )
+
+    x = ChunkStore(store2).load_chunk(0)[:PLOT_ROWS]
+    firsts = [tmp / "plot_tied.pkl", tmp / "plot_untied.pkl"]
+    save_learned_dicts(tied[:1], firsts[0])
+    save_learned_dicts(load_learned_dicts(untied_file)[:1], firsts[1])
+    side = {name: (generate_scores(firsts, x, device=dev),
+                   n_active_features(firsts, x, device=dev))
+            for name, dev in (("card", DEV), ("cpu", "cpu"))}
+    err = compare("(g) generate_scores card vs CPU",
+                  torch.tensor([[s["fvu"], s["l0"]] for s in side["card"][0]]),
+                  torch.tensor([[s["fvu"], s["l0"]] for s in side["cpu"][0]]),
+                  RTOL_EVAL)
+    if side["card"][1] != side["cpu"][1]:
+        raise AssertionError(f"(g) n_active card {side['card'][1]} vs CPU "
+                             f"{side['cpu'][1]}")
+    log(f"  (g) card vs CPU (2 dicts) rel err {err['max_rel_err']:.2e}, "
+        f"n_active {[a['n_active'] for a in side['cpu'][1]]} equal")
+    return {"card_vs_cpu": err}
+
+
+def interp_phase(tmp: Path, lm: dict) -> dict:
+    """Phase 15: (a) the fragment pass and run at InterpArgs' defaults,
+    (b) card vs CPU, (c) scan_batches, (d) the graph and investigate
+    drivers, (e) the snapshot drivers and the CLI, (f) the catalog, (g)
+    the plotting data — on phase 13's LM, stores and dicts. The timed
+    steps run first ((a), (d), (e), (f)'s builds, (g)); then the interp
+    CLI's children start, and only untimed checks run beside them ((b),
+    (c), the card-vs-CPU sides of (d), (f) and (g), the query ops), so
+    that no timed step shares the card or the host with them."""
+    from sparse_coding_tpu_torch.data.tokenize import (
+        load_token_dataset,
+        save_token_dataset,
+    )
+    from sparse_coding_tpu_torch.utils.artifacts import load_learned_dicts
+
+    t0 = time.perf_counter()
+    params, cfg, store = lm["params"], lm["cfg"], lm["store"]
+    dict_file = lm["tied_dicts"]
+    untied_file = tmp / "lm_untied" / "epoch_0" / "learned_dicts.pkl"
+    tied = load_learned_dicts(dict_file)
+    ld = tied[0][0].to(DEV)
+    save_token_dataset(np.random.default_rng(SEED + 15).integers(
+        0, cfg.vocab_size, (INTERP_ROWS, INTERP_CTX)).astype(np.int32),
+        tmp / "interp_tokens.npy", {"rows": INTERP_ROWS, "seed": SEED + 15})
+    rows = load_token_dataset(tmp / "interp_tokens.npy")
+    report = {}
+    report["fragments"], frags, fa, feats = interp_fragment_pass(
+        params, cfg, ld, rows, tmp)
+    report["graphs"], graphs = interp_graphs(
+        params, cfg, rows,
+        tmp / "eval_mlp1_out" / "epoch_0" / "learned_dicts.pkl",
+        dict_file, feats, tmp)
+    report["snapshots"] = interp_snapshots(params, cfg, rows,
+                                           store / "mlp.2", tmp)
+    torch.cuda.empty_cache()
+    report["catalog"] = interp_catalog(dict_file, store / "mlp.2", tmp)
+    torch.cuda.empty_cache()
+    report["plotting"] = interp_plotting(dict_file, untied_file,
+                                         store / "mlp.2")
+    with interp_cli(tmp, tmp / "interp_a") as finish_cli:
+        cpu = lm_params_to(params, "cpu")
+        report["card_vs_cpu"] = interp_card_vs_cpu(params, cpu, cfg, ld,
+                                                   rows, feats, tmp)
+        report["scan"] = interp_scan(params, cfg, ld, frags, fa)
+        for kind, side in graph_checks(cpu, cfg, rows, graphs).items():
+            report["graphs"][kind].update(side)
+        del fa, cpu, graphs
+        report["plotting"].update(plotting_checks(tied, untied_file,
+                                                  store / "mlp.2", tmp))
+        report["catalog"].update(catalog_checks(tied, store / "mlp.2", tmp))
+        report["snapshots"]["cli"] = finish_cli()
+    report["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 15: {report['wall_s']:.1f} s")
+    return report
+
+
 # --- main --------------------------------------------------------------------
 
 # -- phase 12: the model zoo, the metrics and the reference interop ----------
@@ -5304,6 +6083,15 @@ def main() -> int:
             f"sweeps, FISTA, concat, resurrection and the baselines, on "
             f"phase 13's {LM_MODEL} and its mlp.2 dicts")
         report["eval"] = eval_phase(Path(tmp), lm, sweep_store)
+        torch.cuda.empty_cache()
+        log(f"  done at {time.perf_counter() - t_start:.1f} s")
+
+        log(f"phase 15: interpret features on the card — the fragment pass "
+            f"and run at InterpArgs' defaults, card vs CPU, scan_batches, "
+            f"the graph and investigate drivers, the snapshot drivers and "
+            f"the CLI, the feature catalog and its query ops, the plotting "
+            f"data, on phase 13's {LM_MODEL} and its mlp.2 dicts")
+        report["interp"] = interp_phase(Path(tmp), lm)
         del lm
         torch.cuda.empty_cache()
         log(f"  done at {time.perf_counter() - t_start:.1f} s")
@@ -5430,6 +6218,11 @@ def main() -> int:
         entry[f"at_d{LM_D_MLP}"] = {
             "launches": runs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+    # phase 15 (e)'s sweep launches each tied kernel once a step
+    for entry in kernels:
+        if entry["name"] in TIED_KERNELS:
+            entry["phase15_launches"] = \
+                report["interp"]["snapshots"]["launches"][entry["name"]]
     report["kernels"] = kernels
     report["timing"] = timing
     report["bounds"] = bnd

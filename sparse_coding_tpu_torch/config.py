@@ -1,6 +1,7 @@
 """Typed config/flag system: the port's copy of the JAX package's
 ``config.py`` (``BaseArgs``, ``DataArgs``, ``EnsembleArgs``,
-``SyntheticEnsembleArgs``, ``BigSAEArgs``, ``ToyArgs``, ``ErasureArgs``)
+``SyntheticEnsembleArgs``, ``BigSAEArgs``, ``ToyArgs``, ``ErasureArgs``,
+``InterpArgs``, ``InterpGraphArgs``, ``InvestigateArgs``)
 with the same fields and defaults, so a config file or command line
 drives either side. Fields the port does not run yet (meshes, trace
 capture through ``profile_steps``, wandb) are kept so configs stay
@@ -212,4 +213,58 @@ class ErasureArgs(BaseArgs):
     dict_path: str = ""
     output_folder: str = "erasure_output"
     max_edit_feats: int = 64
+    seed: int = 0
+
+
+@dataclass
+class InterpArgs(BaseArgs):
+    """Auto-interpretation config (``interp/run.py``)."""
+
+    model_name: str = "EleutherAI/pythia-70m-deduped"
+    layer: int = 2
+    layer_loc: str = "residual"
+    learned_dict_path: str = ""
+    output_folder: str = "interp_output"
+    n_feats_to_explain: int = 10
+    fragment_len: int = 64
+    n_fragments: int = 5000
+    top_k_fragments: int = 10
+    n_random_fragments: int = 10
+    batch_size: int = 20
+    provider: str = "offline"  # offline | openai (credentials read lazily)
+    explainer_model: str = "gpt-4"
+    simulator_model: str = "text-davinci-003"
+    seed: int = 0
+    # the JAX package's fused fragment batches per device program; kept
+    # for its CLI and has no effect here (interp/fragments.py)
+    scan_batches: int = 1
+
+
+@dataclass
+class InterpGraphArgs(BaseArgs):
+    """Ablation-graph interpretation config (``interp/graph.py``)."""
+
+    model_name: str = "EleutherAI/pythia-70m-deduped"
+    layers: list[int] = field(default_factory=lambda: [0, 2])
+    layer_loc: str = "residual"
+    dict_paths: list[str] = field(default_factory=list)
+    output_folder: str = "interp_graph_output"
+    n_fragments: int = 64
+    fragment_len: int = 32
+    positional: bool = False
+    seed: int = 0
+
+
+@dataclass
+class InvestigateArgs(BaseArgs):
+    """Single-feature investigation config (``interp/graph.py``)."""
+
+    model_name: str = "EleutherAI/pythia-70m-deduped"
+    layer: int = 2
+    layer_loc: str = "residual"
+    learned_dict_path: str = ""
+    feature_indices: list[int] = field(default_factory=list)
+    n_fragments: int = 1000
+    fragment_len: int = 64
+    output_folder: str = "investigate_output"
     seed: int = 0

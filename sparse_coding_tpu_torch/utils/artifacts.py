@@ -128,6 +128,13 @@ def save_learned_dicts(dicts: Sequence[tuple[Any, dict]],
     atomic_pickle_dump(path, records)
 
 
+def load_records(path: str | Path) -> list[dict]:
+    """The raw records of an artifact file, written by the port or the
+    JAX package, without building any dict."""
+    with Path(path).open("rb") as fh:
+        return _Unpickler(fh).load()
+
+
 def load_learned_dicts(path: str | Path,
                        select: Optional[Callable[[dict], bool]] = None,
                        skip_diverged: bool = False, device="cpu",
@@ -136,8 +143,7 @@ def load_learned_dicts(path: str | Path,
     hyperparams before any tensor is built, ``skip_diverged`` drops
     members tagged ``diverged=True``. Unpickle only files this program
     (or the JAX package) wrote."""
-    with Path(path).open("rb") as fh:
-        records = _Unpickler(fh).load()
+    records = load_records(path)
     registry = _dict_registry()
     out = []
     for rec in records:

@@ -5,15 +5,26 @@ stores or moves such a tree agrees on its keys and nesting."""
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import Any, Callable
 
 
-def _children(tree):
+def _children(tree, into_dataclasses: bool = False):
     if isinstance(tree, dict):
         return tree.items()
     if isinstance(tree, (list, tuple)):
         return enumerate(tree)
+    if (into_dataclasses and dataclasses.is_dataclass(tree)
+            and not isinstance(tree, type)):
+        return [(f.name, getattr(tree, f.name))
+                for f in dataclasses.fields(tree)]
     return None
+
+
+def _child(tree, key):
+    return tree[key] if isinstance(tree, (dict, list, tuple)) else getattr(
+        tree, key)
 
 
 def flatten_tree(tree, prefix: str = "") -> dict:
@@ -48,12 +59,24 @@ def unflatten_like(template, flat: dict):
     return map_tree(lambda _: next(leaves), template)
 
 
-def map_tree(fn: Callable[[Any], Any], tree):
-    """``fn`` applied to every leaf, the nesting kept."""
-    items = _children(tree)
+def map_tree(fn: Callable[..., Any], tree, *rest,
+             into_dataclasses: bool = False):
+    """``fn`` applied to every leaf, the nesting kept; with ``rest``
+    (trees of the same nesting), ``fn(leaf, *matching leaves)``.
+    ``into_dataclasses`` also walks the fields of dataclass instances (a
+    LearnedDict), which come back as copies with the mapped fields set
+    (their ``__init__`` is not run again); otherwise they are leaves."""
+    items = _children(tree, into_dataclasses)
     if items is None:
-        return fn(tree)
-    out = [(k, map_tree(fn, v)) for k, v in items]
+        return fn(tree, *rest)
+    out = [(k, map_tree(fn, v, *(_child(r, k) for r in rest),
+                        into_dataclasses=into_dataclasses))
+           for k, v in items]
     if isinstance(tree, dict):
         return dict(out)
-    return type(tree)(v for _, v in out)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(v for _, v in out)
+    new = copy.copy(tree)
+    for k, v in out:
+        object.__setattr__(new, k, v)
+    return new

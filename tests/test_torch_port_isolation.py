@@ -19,7 +19,8 @@ _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "sparse_coding_tpu",
-           "transformers", "datasets", "zstandard", "sklearn", "matplotlib")
+           "transformers", "datasets", "zstandard", "sklearn", "matplotlib",
+           "openai")
 
 
 class Block(importlib.abc.MetaPathFinder):
@@ -57,6 +58,11 @@ EVALS = ("metrics.intervention", "metrics.geometry", "metrics.erasure",
          "tasks.ioi_counterfact", "tasks.gender", "tasks.feature_ident",
          "models.ica", "models.nmf", "models.direct_coef",
          "models.combination", "train.baselines", "train.toy_models")
+# interpretation, the catalog and the rest of plotting
+INTERP = ("interp.client", "interp.fragments", "interp.run", "interp.graph",
+          "catalog", "catalog.build", "catalog.query", "utils.trees",
+          "plotting.helpers", "plotting.frontiers", "plotting.sweeps",
+          "plotting.autointerp", "plotting.timeseries")
 
 _IMPORT = re.compile(
     r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|sparse_coding_tpu)\b"
@@ -75,8 +81,8 @@ def test_port_imports_under_a_jax_blocker():
     assert out.returncode == 0, out.stderr[-2000:]
     names = out.stdout.split()
     assert len(names) >= 20
-    assert {f"sparse_coding_tpu_torch.{m}" for m in ZOO + HARVEST + EVALS} \
-        <= set(names)
+    assert {f"sparse_coding_tpu_torch.{m}"
+            for m in ZOO + HARVEST + EVALS + INTERP} <= set(names)
 
 
 def test_source_scan_finds_no_jax_import():

@@ -113,7 +113,8 @@ def test_sweep_without_a_card_raises(tmp_path):
 
 @pytest.mark.parametrize("cls", ["DataArgs", "EnsembleArgs",
                                  "SyntheticEnsembleArgs", "BigSAEArgs",
-                                 "ToyArgs", "ErasureArgs"])
+                                 "ToyArgs", "ErasureArgs", "InterpArgs",
+                                 "InterpGraphArgs", "InvestigateArgs"])
 def test_config_matches_jax(cls):
     """Same fields, defaults and CLI parsing as the JAX package's."""
     j, t = getattr(jconfig, cls), getattr(tconfig, cls)
@@ -137,6 +138,16 @@ def test_config_matches_jax(cls):
     if cls == "ErasureArgs":
         argv += ["--layers", "[1, 3]", "--layer_loc", "mlp",
                  "--max_edit_feats", "16", "--dict_path", "d.pkl"]
+    if cls == "InterpArgs":
+        argv += ["--layer_loc", "mlp", "--n_fragments", "64",
+                 "--scan_batches", "4", "--provider", "openai",
+                 "--learned_dict_path", "d.pkl"]
+    if cls == "InterpGraphArgs":
+        argv += ["--layers", "[1, 2]", "--dict_paths", '["a.pkl", "b.pkl"]',
+                 "--positional", "true", "--fragment_len", "16"]
+    if cls == "InvestigateArgs":
+        argv += ["--feature_indices", "[3, 7]", "--layer", "1",
+                 "--n_fragments", "100", "--output_folder", "inv"]
     assert t.from_cli(argv).to_dict() == j.from_cli(argv).to_dict()
 
 
