@@ -9,8 +9,10 @@ Phases — any failure raises, and the script exits non-zero with no result:
    source, all started together), with their ptxas register and spill
    lines — every instantiation of the fp32 GEMM template among them (in
    big_sae_fwd, big_sae_bwd, sae_tied_fwd, sae_tied_bwd, sae_untied_fwd
-   and sae_untied_bwd) and of the bf16 tensor-core one (in the same six),
-   where any spill fails the run;
+   and sae_untied_bwd), of the bf16 mma.sync one (in the two forwards and
+   the big SAE's two) and of the bf16 TMA + wgmma one (in the two
+   ensemble backwards, and nowhere else), where any spill fails the run;
+   the backwards' SASS must hold HGMMA instructions;
 2. kernels: each ensemble kernel (sae_tied_fwd, sae_tied_bwd,
    sae_tied_adam_vjp, sae_untied_fwd, sae_untied_bwd, sae_untied_adam_vjp)
    and each contract
@@ -102,8 +104,10 @@ Phases — any failure raises, and the script exits non-zero with no result:
    step and no fp32 forward or backward does, the losses are finite and
    each member's mse stays within RTOL_BF16_MSE of the fp32 kernel
    path's from the same init on the same batches; (d) each bf16 form
-   and its launches timed beside its plain version, the step's ms and
-   acts/s beside the fp32 path's; (e) the bf16 forms join the kernels
+   and its launches timed beside its plain version (the products with
+   their TFLOP/s, the backwards' beside one cuBLAS bf16 ``torch.bmm`` of
+   each product's shape, a yardstick the port never calls), the step's
+   ms and acts/s beside the fp32 path's; (e) the bf16 forms join the kernels
    line; (f) the paths bench.py's variants leave out (the tiled ones,
    bf16 moments on ``train_step_tiled``, the masked family's two), three
    steps each with bf16 batches: each bf16 form once a step, finite
@@ -445,6 +449,18 @@ def card_line() -> str:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def sass_count(lib: Path, opcode: str) -> int:
+    """How many instructions of ``opcode`` the SASS of a built library
+    holds (cuobjdump --dump-sass)."""
+    from sparse_coding_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)],
+                          check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    return len(re.findall(rf"\b{opcode}\b", sass))
 
 
 def sync() -> None:
@@ -2973,11 +2989,37 @@ def bf16_time_kernels(inp: dict) -> dict:
                         ("sae_tied_bwd_bf16", {"alphas": al, "resid": r}),
                         ("sae_untied_bwd_bf16", {"decoder": dec, "alphas": al,
                                                  "resid": ru})):
-        parts = ft.one_chunk_launches_bf16(name, e, bias, x, **extra)
+        buf = {}
+        parts = ft.one_chunk_launches_bf16(name, e, bias, x, buffers=buf,
+                                           **extra)
         out[name]["parts"] = time_parts(parts)
-        del parts
+        if "_bwd_" in name:
+            bmm_beside_products(out[name]["parts"], parts, buf)
+        del parts, buf
         torch.cuda.empty_cache()
     return out
+
+
+def bmm_beside_products(times: dict, parts: dict, buf: dict) -> None:
+    """Beside each product of a bf16 backward's chunk (``times``, from
+    time_parts), one cuBLAS bf16 ``torch.bmm`` of the same shape on the
+    chunk's own operands — [Z, rows, d]·[Z, d, n] for codes and dpre,
+    [Z, n, rows]·[Z, rows, d] for the weight grads, bf16 out — timed
+    alone (CUDA events, 5 launches): a yardstick of the mainloop's rate,
+    which the port never calls."""
+    rb, wb, cb = buf["rb"], buf["wb"], buf["cb"]
+    nt = torch.empty(cb.shape, dtype=torch.bfloat16, device=DEV)
+    tn = torch.empty(wb.shape, dtype=torch.bfloat16, device=DEV)
+    bmm = {"nt": lambda: torch.bmm(rb, wb.transpose(1, 2), out=nt),
+           "tn": lambda: torch.bmm(cb.transpose(1, 2), rb, out=tn)}
+    for name, (_, flops) in parts.items():
+        if not flops:
+            continue
+        kind = "nt" if name.endswith(("_codes", "_dpre")) else "tn"
+        ms = time_ms(bmm[kind], 5)
+        times[name].update(bmm_ms=ms, bmm_tflops=flops / ms / 1e9)
+        log(f"  {name}: cuBLAS bf16 bmm of its shape {ms:.3f} ms, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s (yardstick)")
 
 
 def bf16_ensemble_variants(batches: list, l1_values) -> dict:
@@ -5890,8 +5932,10 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     log(f"  built {list(_build.KERNELS)} in {report['build_s']:.1f} s")
     spills, entry = [], ""
-    gemms = {name: 0 for name in _build.KERNELS}
-    bgemms = {name: 0 for name in _build.KERNELS}
+    # the three GEMM templates' kernels: fp32 SIMT (sgemm_simt.cuh), bf16
+    # mma.sync (bgemm_mma.cuh), bf16 TMA + wgmma (bgemm_wgmma.cuh)
+    templates = ("sgemm_kernel", "bgemm_kernel", "wgemm_kernel")
+    inst = {t: {name: 0 for name in _build.KERNELS} for t in templates}
     for name in _build.KERNELS:
         for line in (out / f"{name}.log").read_text().splitlines():
             if ("registers" in line or "spill" in line
@@ -5899,27 +5943,39 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
             if "Compiling entry function" in line:
                 entry = line
-                gemms[name] += "sgemm_kernel" in line
-                bgemms[name] += "bgemm_kernel" in line
+                for t in templates:
+                    inst[t][name] += t in line
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
             if (m and (int(m.group(1)) or int(m.group(2)))
-                    and ("sgemm_kernel" in entry or "bgemm_kernel" in entry)):
+                    and any(t in entry for t in templates)):
                 spills.append(f"{name}: {entry.strip()}: {line.strip()}")
     if spills:
         raise AssertionError(f"ptxas spilled in a GEMM template: {spills}")
-    gemms = {k: v for k, v in gemms.items() if v}
-    bgemms = {k: v for k, v in bgemms.items() if v}
+    gemms, bgemms, wgemms = ({k: v for k, v in inst[t].items() if v}
+                             for t in templates)
     log(f"  GEMM template instantiations, no spills: fp32 {gemms}; bf16 "
-        f"tensor-core {bgemms}")
+        f"mma.sync {bgemms}; bf16 wgmma {wgemms}")
     if set(gemms) != {"big_sae_fwd", "big_sae_bwd", "sae_tied_fwd",
                       "sae_tied_bwd", "sae_untied_fwd", "sae_untied_bwd"}:
         raise AssertionError(f"GEMM template instantiations in {gemms}")
-    if set(bgemms) != {"sae_tied_fwd", "sae_tied_bwd", "sae_untied_fwd",
-                       "sae_untied_bwd", "big_sae_fwd", "big_sae_bwd"}:
-        raise AssertionError(f"bf16 GEMM template instantiations in "
-                             f"{bgemms}")
+    # the bf16 forwards and the big SAE's bf16 forms on mma.sync; the two
+    # ensemble backwards' bf16 products on wgmma, and nothing else there
+    if set(bgemms) != {"sae_tied_fwd", "sae_untied_fwd", "big_sae_fwd",
+                       "big_sae_bwd"}:
+        raise AssertionError(f"mma.sync bf16 GEMM template instantiations "
+                             f"in {bgemms}")
+    if set(wgemms) != {"sae_tied_bwd", "sae_untied_bwd"}:
+        raise AssertionError(f"wgmma bf16 GEMM template instantiations in "
+                             f"{wgemms}")
+    hgmma = {name: sass_count(out / f"lib{name}.so", "HGMMA")
+             for name in ("sae_tied_bwd", "sae_untied_bwd")}
+    log(f"  HGMMA instructions in the SASS: {hgmma}")
+    if not all(hgmma.values()):
+        raise AssertionError(f"no HGMMA in the backwards' SASS: {hgmma}")
     report["bf16_gemm_instantiations"] = bgemms
+    report["wgmma_gemm_instantiations"] = wgemms
+    report["hgmma_sass"] = hgmma
 
     log("phase 2: kernels vs plain versions")
     g = torch.Generator().manual_seed(0)

@@ -12,12 +12,23 @@ one CUDA card and print one JSON line.
   call of each at the canonical ensemble shape (32 members, batch 2048,
   n=2048, d=512), and each of their launches where the checkout lists them
   (``fused_sae_tiled.one_chunk_launches``, for the kernels whose parts
-  the checkout's ``_build.LAUNCHES`` counts; else the whole calls only).
+  the checkout's ``_build.LAUNCHES`` counts; else the whole calls only);
+- the two backwards' bf16 forms (``sae_tied_bwd_bf16``,
+  ``sae_untied_bwd_bf16``, ``compute_dtype="bfloat16"``) at the canonical
+  shape and at chip_smoke.py phase 13's (16 members, batch 2048, n=8192,
+  d=2048): one whole call of each, each of its launches on one chunk of
+  every member (``fused_sae_tiled.one_chunk_launches_bf16``) with the
+  products' TFLOP/s, and beside them one cuBLAS bf16 ``torch.bmm`` of each
+  product shape (a yardstick of the mainloop's rate; the port never calls
+  it). Each is timed in ``WINDOWS`` windows: the median, min and max and
+  every window; the card's SM clock, power draw and temperature are
+  sampled (``nvidia-smi``, every 50 ms) while the whole calls run.
 
-Times are CUDA-event means over ``--iters`` launches after one warm-up.
-The kernels of the checkout in the working directory are built and timed,
-so two checkouts compare in one session by running this script from each
-root in turns (A, B, B, A):
+``--only`` picks the groups (``big``, ``ensemble``, ``bf16_bwd``; all by
+default). A window is a CUDA-event mean over ``--iters`` launches after
+one warm-up. The kernels of the checkout in the working directory are
+built and timed, so two checkouts compare on one card by running this
+script from each root in turns (A, B, B, A), in one command:
 
     (cd parent && python3 /path/to/scripts/time_kernel_parts.py)
 """
@@ -79,10 +90,56 @@ def big(g: torch.Generator, iters: int) -> dict:
     return out
 
 
-def ensemble_inputs(g: torch.Generator):
-    """The canonical ensemble shape's inputs: encoder and decoder (glorot),
-    bias, an L1 grid and a batch."""
-    n_m, b, n, d = 32, 2048, 2048, 512
+BF16_SHAPES = {"canonical": (32, 2048, 2048, 512),
+               "lm": (16, 2048, 8192, 2048)}
+WINDOWS = 5
+
+
+def windows_ms(fn, iters: int) -> dict:
+    """``WINDOWS`` windows of ``time_ms``: their median, min, max and each
+    window's mean."""
+    w = [time_ms(fn, iters) for _ in range(WINDOWS)]
+    return {"ms": float(np.median(w)), "min": min(w), "max": max(w),
+            "windows": w}
+
+
+class CardSampler:
+    """Samples the card's SM clock (MHz), power draw (W) and temperature
+    (C) through ``nvidia-smi`` every 50 ms from the first sample on until
+    the block ends; ``stats`` maps each to its [min, median, max] over the
+    samples (``None`` where nvidia-smi gave none)."""
+
+    FIELDS = ("clocks.sm", "power.draw", "temperature.gpu")
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=" + ",".join(self.FIELDS),
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.first = self.proc.stdout.readline()
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        rest, _ = self.proc.communicate(timeout=30)
+        rows = []
+        for line in [self.first, *rest.splitlines()]:
+            try:
+                rows.append([float(v) for v in line.split(",")])
+            except ValueError:
+                continue
+        cols = [list(c) for c in zip(*rows)] if rows else [[]] * 3
+        self.stats = {f: ([min(c), float(np.median(c)), max(c)] if c
+                          else None)
+                      for f, c in zip(self.FIELDS, cols)}
+        self.stats["samples"] = len(rows)
+
+
+def ensemble_inputs(g: torch.Generator, shape=BF16_SHAPES["canonical"]):
+    """An ensemble shape's inputs (members, batch, n, d; the canonical one
+    by default): encoder and decoder (glorot), bias, an L1 grid and a
+    batch."""
+    n_m, b, n, d = shape
     kw = {"dtype": torch.float32, "device": "cuda"}
     lim = math.sqrt(6.0 / (n + d))
     e = (torch.rand((n_m, n, d), generator=g, **kw) * 2 - 1) * lim
@@ -125,10 +182,62 @@ def ensemble(g: torch.Generator, iters: int) -> dict:
     return out
 
 
+def bf16_bwd(g: torch.Generator, iters: int, shape: tuple) -> dict:
+    """One whole call of each bf16 backward at ``shape``, then each of its
+    launches on one chunk of every member with the products' TFLOP/s, and
+    one cuBLAS bf16 ``torch.bmm`` of each product shape: [Z, rows, d] ·
+    [Z, d, n] (codes, dpre) and [Z, n, rows] · [Z, rows, d] (the weight
+    grads)."""
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    e, dec, bias, al, x = ensemble_inputs(g, shape)
+    bf = "bfloat16"
+    rt = ft.sae_tied_fwd_plain(e, bias, x, None, bf).contiguous()
+    ru = ft.sae_untied_fwd_plain(e, dec, bias, x, bf).contiguous()
+    calls = {
+        "sae_tied_bwd_bf16": (
+            lambda: ft.sae_tied_bwd(e, bias, al, x, rt, None, bf),
+            {"alphas": al, "resid": rt}),
+        "sae_untied_bwd_bf16": (
+            lambda: ft.sae_untied_bwd(e, dec, bias, al, x, ru, bf),
+            {"decoder": dec, "alphas": al, "resid": ru}),
+    }
+    n_m, b, n, d = shape
+    out = {"shape": list(shape)}
+    for name, (call, inputs) in calls.items():
+        with CardSampler() as card:
+            out[name] = windows_ms(call, iters)
+        out[name]["card"] = card.stats
+        parts = ft.one_chunk_launches_bf16(name, e, bias, x, **inputs)
+        for k, (fn, flops) in parts.items():
+            out[k] = windows_ms(fn, iters)
+            if flops:
+                out[k]["tflops"] = flops / out[k]["ms"] / 1e9
+        del parts
+        torch.cuda.empty_cache()
+    h = {"dtype": torch.bfloat16, "device": "cuda"}
+    rb, wb = torch.randn((n_m, b, d), **h), torch.randn((n_m, n, d), **h)
+    cb = torch.randn((n_m, b, n), **h)
+    nt, tn = torch.empty((n_m, b, n), **h), torch.empty((n_m, n, d), **h)
+    flops = 2.0 * n_m * b * n * d
+    for key, fn in (("bmm_nt", lambda: torch.bmm(rb, wb.transpose(1, 2),
+                                                 out=nt)),
+                    ("bmm_tn", lambda: torch.bmm(cb.transpose(1, 2), rb,
+                                                 out=tn))):
+        out[key] = windows_ms(fn, iters)
+        out[key]["tflops"] = flops / out[key]["ms"] / 1e9
+    del rb, wb, cb, nt, tn
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--only", default="big,ensemble,bf16_bwd",
+                    help="comma-separated groups to time")
     args = ap.parse_args()
+    groups = args.only.split(",")
     if not torch.cuda.is_available():
         print("time_kernel_parts: no CUDA device is available", file=sys.stderr)
         return 2
@@ -141,9 +250,16 @@ def main() -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
     g = torch.Generator("cuda").manual_seed(0)
-    print(json.dumps({"tree": os.getcwd(), "card": card,
-                      "big": big(g, args.iters),
-                      "ensemble": ensemble(g, args.iters)}))
+    out = {"tree": os.getcwd(), "card": card}
+    if "big" in groups:
+        out["big"] = big(g, args.iters)
+    if "ensemble" in groups:
+        out["ensemble"] = ensemble(g, args.iters)
+    if "bf16_bwd" in groups:
+        out["bf16_bwd"] = {
+            tag: bf16_bwd(g, args.iters, shape)
+            for tag, shape in BF16_SHAPES.items()}
+    print(json.dumps(out))
     return 0
 
 

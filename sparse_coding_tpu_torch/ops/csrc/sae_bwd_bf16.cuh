@@ -1,8 +1,8 @@
 // The bf16-compute forms' products of the two ensemble backwards
 // (sae_tied_bwd.cu, sae_untied_bwd.cu; compute_dtype="bfloat16") on the
-// tensor-core template (bgemm_mma.cuh), members on the grid's z. Apart
-// from sae_chunked.cuh so that the libraries which launch none of them do
-// not compile them.
+// Hopper tensor-core template (bgemm_wgmma.cuh: TMA loads, wgmma),
+// members on the grid's z. Apart from sae_chunked.cuh so that the
+// libraries which launch none of them do not compile them.
 //
 // The JAX package's casts (fused_sae_tiled.py _bwd_kernel; fused_sae.py
 // _tied_tile_grads, _untied_kernel): x, W (the normalized tied dictionary
@@ -14,7 +14,7 @@
 // roundings Cb and Gb, which the weight-grad products read: 12 bytes a
 // (member, row, feature) against the fp32 forms' 8.
 #pragma once
-#include "bgemm_mma.cuh"
+#include "bgemm_wgmma.cuh"
 #include "sae_chunked.cuh"
 
 namespace sae {
@@ -32,9 +32,9 @@ inline cudaError_t launch_bwd_codes_bf16(const bf16* xb, const bf16* Wb,
                    (cm == nullptr || sgemm::aligned16(cm, n, n, n)) &&
                    aligned8(Cb, n, n, cz);
   const CodesEpi<false> epi{b, C, n, n, cz, vec, cm, Cb};
-  return bgemm::run<true, true>(bgemm::Operand{xb, d, 0},
-                                bgemm::Operand{Wb, d, (size_t)n * d}, rows, n,
-                                d, epi, stream, Z);
+  return wgemm::run<true, true>(wgemm::Operand{xb, d, 0},
+                                wgemm::Operand{Wb, d, (size_t)n * d}, rows, n,
+                                d, epi, false, stream, Z);
 }
 
 // G [Z, rows, n] = (coef * (rb . Wb^T) + alphas / B) * [C > 0], fp32 into
@@ -53,23 +53,24 @@ inline cudaError_t launch_bwd_dpre_bf16(const bf16* rb, const bf16* Wb,
                               sgemm::aligned16(G, n, n, cz) &&
                               aligned8(Gb, n, n, cz),
                           coef, (float)B};
-  return bgemm::run<true, true>(bgemm::Operand{rb, d, (size_t)B * d},
-                                bgemm::Operand{Wb, d, (size_t)n * d}, rows, n,
-                                d, epi, stream, Z);
+  return wgemm::run<true, true>(wgemm::Operand{rb, d, (size_t)B * d},
+                                wgemm::Operand{Wb, d, (size_t)n * d}, rows, n,
+                                d, epi, true, stream, Z);
 }
 
 // A weight-grad product: epi(Pb [Z, rows, n]^T . Qb [rows, d]) into
 // [Z, n, d], Qb's members qz elements apart (0: one shared operand) — the
-// fp32 forms' dwx / de (Gb, xb), dwr / dwn (Cb, rb) with their epilogues
+// fp32 forms' dwx / de (Gb, xb), dwr / dwn (Cb, rb) with their epilogues;
+// epi_reads: the epilogue reads the grad back (a later chunk's, dwr)
 template <class Epi>
 inline cudaError_t launch_bwd_wgrad_bf16(const bf16* Pb, const bf16* Qb,
-                                         size_t qz, const Epi& epi, int Z,
-                                         int rows, int n, int d,
-                                         cudaStream_t stream) {
+                                         size_t qz, const Epi& epi,
+                                         bool epi_reads, int Z, int rows,
+                                         int n, int d, cudaStream_t stream) {
   if (!chunk_ok_bf16(Z, rows, n, d)) return cudaErrorInvalidValue;
-  return bgemm::run<false, false>(bgemm::Operand{Pb, n, (size_t)rows * n},
-                                  bgemm::Operand{Qb, d, qz}, n, d, rows, epi,
-                                  stream, Z);
+  return wgemm::run<false, false>(wgemm::Operand{Pb, n, (size_t)rows * n},
+                                  wgemm::Operand{Qb, d, qz}, n, d, rows, epi,
+                                  epi_reads, stream, Z);
 }
 
 }  // namespace sae

@@ -57,15 +57,16 @@
 // chunk, chunks in order; fixed warp and slice orders in sums and loss),
 // with no atomics, so two calls give the same bits.
 //
-// The bf16-compute form (sae_tied_bwd_bf16_*, compute_dtype="bfloat16"):
-// the same schedule with its products on the tensor-core template
-// (sae_bwd_bf16.cuh), with the JAX package's casts (fused_sae_tiled.py
-// _bwd_kernel): x and r rounded to bf16 once a call (a bf16 batch as it
-// comes), Ŵ normalized in fp32 then rounded by the norm pass, the codes
-// and dpre stored fp32 (for the sums and masks) and rounded (for dwx and
-// dwr). Bound: 8*N*B*n*d bf16 FLOPs at 989 TFLOP/s = 0.56 ms at the
-// canonical shape against 0.39 GB = 0.12 ms; 12 bytes a code in the
-// workspace, so the canonical shape runs in chunks of 21 and 11 members.
+// The bf16-compute form (sae_tied_bwd_bf16_*, compute_dtype="bfloat16"): the
+// same schedule with its products on the Hopper tensor-core template
+// (bgemm_wgmma.cuh: TMA loads, wgmma; through sae_bwd_bf16.cuh), with the
+// JAX package's casts (fused_sae_tiled.py _bwd_kernel): x and r rounded to
+// bf16 once a call (a bf16 batch as it comes), Ŵ normalized in fp32 then
+// rounded by the norm pass, the codes and dpre stored fp32 (for the sums and
+// masks) and rounded (for dwx and dwr). Bound: 8*N*B*n*d bf16 FLOPs at 989
+// TFLOP/s = 0.56 ms at the canonical shape against 0.39 GB = 0.12 ms; 12
+// bytes a code in the workspace, so the canonical shape runs in chunks of 21
+// and 11 members.
 #include "sae_bwd_bf16.cuh"
 
 namespace {
@@ -226,8 +227,8 @@ extern "C" int sae_tied_bwd_bf16_dwx(const sae::bf16* xb,
   const size_t wz = (size_t)n * d;
   const AccumEpi epi{dW, d, wz, aligned16(dW, d, d, wz), first != 0, false,
                      1.f};
-  return (int)sae::launch_bwd_wgrad_bf16(Gb, xb, 0, epi, Z, rows, n, d,
-                                         (cudaStream_t)stream);
+  return (int)sae::launch_bwd_wgrad_bf16(Gb, xb, 0, epi, first == 0, Z, rows,
+                                         n, d, (cudaStream_t)stream);
 }
 
 // dW [Z, n, d] = dW + coef * (Cb [Z, rows, n]^T . rb [rows, d]) (members
@@ -239,8 +240,8 @@ extern "C" int sae_tied_bwd_bf16_dwr(const sae::bf16* Cb,
   if (B < rows) return (int)cudaErrorInvalidValue;
   const size_t wz = (size_t)n * d;
   const AddScaledEpi epi{dW, d, wz, aligned16(dW, d, d, wz), coef};
-  return (int)sae::launch_bwd_wgrad_bf16(Cb, rb, (size_t)B * d, epi, Z, rows,
-                                         n, d, (cudaStream_t)stream);
+  return (int)sae::launch_bwd_wgrad_bf16(Cb, rb, (size_t)B * d, epi, true, Z,
+                                         rows, n, d, (cudaStream_t)stream);
 }
 
 // db, act, csum [Z, n] (+)= the column sums of G, [C > 0] and C (fp32)

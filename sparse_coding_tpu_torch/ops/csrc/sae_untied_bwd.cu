@@ -54,14 +54,15 @@
 // with no atomics, so two calls give the same bits.
 //
 // The bf16-compute form (sae_untied_bwd_bf16_*, compute_dtype="bfloat16"):
-// the same schedule with its products on the tensor-core template
-// (sae_bwd_bf16.cuh), with the JAX package's casts (fused_sae_tiled.py
-// _bwd_kernel, tied=False): x, the raw E and r rounded to bf16 once a call
-// (a bf16 batch as it comes), the decoder normalized in fp32 and rounded
-// by the norm pass into Wnb — dpre's operand, so no norm is divided out
-// here —, the codes and dpre stored fp32 (for the sums and masks) and
-// rounded (for de and dwn). Bound: 0.56 ms of bf16 FLOPs at the canonical
-// shape against 0.2 ms of bytes; 12 bytes a code in the workspace.
+// the same schedule with its products on the Hopper tensor-core template
+// (bgemm_wgmma.cuh: TMA loads, wgmma; through sae_bwd_bf16.cuh), with the
+// JAX package's casts (fused_sae_tiled.py _bwd_kernel, tied=False): x, the
+// raw E and r rounded to bf16 once a call (a bf16 batch as it comes), the
+// decoder normalized in fp32 and rounded by the norm pass into Wnb — dpre's
+// operand, so no norm is divided out here —, the codes and dpre stored fp32
+// (for the sums and masks) and rounded (for de and dwn). Bound: 0.56 ms of
+// bf16 FLOPs at the canonical shape against 0.2 ms of bytes; 12 bytes a code
+// in the workspace.
 #include "sae_bwd_bf16.cuh"
 
 namespace {
@@ -253,8 +254,8 @@ extern "C" int sae_untied_bwd_bf16_de(const sae::bf16* xb,
   const size_t wz = (size_t)n * d;
   const AccumEpi epi{dE, d, wz, aligned16(dE, d, d, wz), first != 0, false,
                      1.f};
-  return (int)sae::launch_bwd_wgrad_bf16(Gb, xb, 0, epi, Z, rows, n, d,
-                                         (cudaStream_t)stream);
+  return (int)sae::launch_bwd_wgrad_bf16(Gb, xb, 0, epi, first == 0, Z, rows,
+                                         n, d, (cudaStream_t)stream);
 }
 
 // dWn [Z, n, d] = (first ? 0 : dWn) + Cb [Z, rows, n]^T . rb [rows, d]
@@ -268,8 +269,9 @@ extern "C" int sae_untied_bwd_bf16_dwn(const sae::bf16* Cb,
   const size_t wz = (size_t)n * d;
   const AccumEpi epi{dWn, d, wz, aligned16(dWn, d, d, wz), first != 0,
                      last != 0, coef};
-  return (int)sae::launch_bwd_wgrad_bf16(Cb, rb, (size_t)B * d, epi, Z, rows,
-                                         n, d, (cudaStream_t)stream);
+  return (int)sae::launch_bwd_wgrad_bf16(Cb, rb, (size_t)B * d, epi,
+                                         first == 0, Z, rows, n, d,
+                                         (cudaStream_t)stream);
 }
 
 // db, act, csum [Z, n] (+)= the column sums of G, [C > 0] and C (fp32)

@@ -30,8 +30,10 @@ row-normalized decoder.
 
 ``compute_dtype="bfloat16"`` (the JAX package's bf16 compute) takes each
 kernel's bf16 form (``<kernel>_bf16``): the same schedule with its products
-on bf16 tensor cores (``csrc/bgemm_mma.cuh``, fp32 accumulation) and the
-JAX package's casts — x (a bf16 batch as it comes), the normalized
+on bf16 tensor cores with fp32 accumulation (the forwards on
+``csrc/bgemm_mma.cuh``, ``mma.sync``; the backwards on
+``csrc/bgemm_wgmma.cuh``, TMA loads and ``wgmma``) and the JAX package's
+casts — x (a bf16 batch as it comes), the normalized
 dictionary or decoder (normalized in fp32 first), the raw untied encoder,
 the codes, r and dpre rounded to bf16 where they enter a product; ReLU,
 masks, the residual, the sums, db and the loss stay fp32. On the card it
@@ -1112,13 +1114,18 @@ def one_chunk_launches_bf16(kernel: str, encoder: torch.Tensor,
                             bias: torch.Tensor, batch: torch.Tensor, *,
                             decoder: Optional[torch.Tensor] = None,
                             alphas: Optional[torch.Tensor] = None,
-                            resid: Optional[torch.Tensor] = None) -> dict:
+                            resid: Optional[torch.Tensor] = None,
+                            buffers: Optional[dict] = None) -> dict:
     """:func:`one_chunk_launches` for the bf16 forms (``sae_tied_fwd_bf16``,
     ``sae_tied_bwd_bf16``, ``sae_untied_fwd_bf16``, ``sae_untied_bwd_bf16``):
     {part: (launch, FLOPs)} on one chunk of every member and row, in the
     order a call runs them. The first, ``<kernel>_round``, runs all of the
     call's roundings to bf16 (the fp32 batch; the raw untied encoder; a
-    backward's residual); the products read what it wrote."""
+    backward's residual); the products read what it wrote. ``buffers``, if
+    given, receives the tensors the launches read and write, by name: the
+    bf16 operands ``xb``, ``wb`` (Ŵ or Wn), ``eb`` (untied) and ``rb``
+    (backwards); a forward's ``ct`` and ``r``; a backward's ``c``, ``g``,
+    ``cb``, ``gb`` and its weight grads ``grads``."""
     n_m, n, d = encoder.shape
     b = batch.shape[0]
     dev = batch.device
@@ -1156,6 +1163,8 @@ def one_chunk_launches_bf16(kernel: str, encoder: torch.Tensor,
             else (lambda: untied_fwd_bf16_codes(xb, eb, bias, ct)), gemm)
         parts[f"{kernel}_decode"] = (lambda: decode(ct, wb, batch, r, b),
                                      gemm)
+        if buffers is not None:
+            buffers.update(xb=xb, wb=wb, eb=eb, ct=ct, r=r)
         return parts
     c, g, cb, gb = f32(n_m, b, n), f32(n_m, b, n), bf(n_m, b, n), bf(n_m, b, n)
     (w1, *w2), db, act, csum, loss4, part = _bwd_outputs(
@@ -1184,6 +1193,9 @@ def one_chunk_launches_bf16(kernel: str, encoder: torch.Tensor,
             f"{kernel}_dwn": (
                 lambda: untied_bwd_bf16_dwn(cb, rb, w2[0], b, True, True,
                                             coef), gemm)})
+    if buffers is not None:
+        buffers.update(xb=xb, wb=wb, eb=eb, rb=rb, c=c, g=g, cb=cb, gb=gb,
+                       grads=(w1, *w2))
     grads = (w1.data_ptr(), *(t.data_ptr() for t in w2))
     parts[f"{kernel}_sums"] = (lambda: _build.launch(
         f"{kernel}_sums", c.data_ptr(), g.data_ptr(), db.data_ptr(),

@@ -691,7 +691,8 @@ def test_bf16_fwd_and_bwd_kernels_match_plain(card, shape, family,
 # (members, batch, n, d, members a chunk, rows a chunk) under a lowered
 # workspace cap: member chunks, and row chunks of one member
 BF16_CHUNK_CASES = [(5, 64, 96, 304, 2, 64), (3, 32, 64, 768, 2, 32),
-                    (3, 160, 64, 40, 1, 64)]
+                    (3, 160, 64, 40, 1, 64), (2, 224, 96, 1032, 1, 96),
+                    (22, 64, 64, 40, 21, 64)]
 
 
 @pytest.mark.cuda
@@ -725,6 +726,67 @@ def test_bf16_bwd_chunks_match_plain(card, monkeypatch, tied, case):
     want = {p: once.get(p, len(chunks)) for p in parts}
     want[parts[0]] = rounds
     assert {p: _build.LAUNCHES[p] for p in parts} == want
+
+
+# (members = Z, rows, n, d) of one chunk off the products' tiles (128 x
+# 128, or 128 x 256 from K = 1024 where the epilogue only stores; K steps
+# of 64): d = 40, 600, 1032; rows and n multiples of 32 but not of 128;
+# rows = 1056 takes the wide tile in dwx, de and dwn, d = 1032 in codes
+BF16_PRODUCT_CASES = [(1, 160, 96, 40), (21, 96, 160, 600),
+                      (1, 224, 96, 1032), (21, 160, 96, 1032),
+                      (2, 1056, 160, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "untied"])
+@pytest.mark.parametrize("shape", BF16_PRODUCT_CASES, ids=str)
+def test_bf16_bwd_products_match_plain(card, shape, tied):
+    """Each of a bf16 backward's four products (codes, dpre and the two
+    weight grads, on the TMA + wgmma template), launched through
+    one_chunk_launches_bf16's parts on one chunk of Z members, against the
+    same product of the same bf16 operands summed in fp32 by torch: rtol
+    1e-5 of max|ref| (exact bf16 products, fp32 sums in another order);
+    the bf16 copies the fp32 outputs rounded; two runs bitwise equal; each
+    part counted once a run (the rounding pass once a rounded tensor)."""
+    n_m, b, n, d = shape
+    i = _inputs(card, n_m, b, n, d, seed=3)
+    e, bias, al, x, dec = i["e"], i["bias"], i["alphas"], i["x"], i["dec"]
+    kernel = "sae_tied_bwd_bf16" if tied else "sae_untied_bwd_bf16"
+    r = (ft.sae_tied_fwd_plain(e, bias, x, None, BF16) if tied else
+         ft.sae_untied_fwd_plain(e, dec, bias, x, BF16)).contiguous()
+    buf = {}
+    parts = ft.one_chunk_launches_bf16(kernel, e, bias, x, decoder=dec,
+                                       alphas=al, resid=r, buffers=buf)
+    names = list(parts)[:6]  # round, norms, codes, dpre, two weight grads
+    _build.reset_launches()
+    runs = []
+    for _ in range(2):
+        for name in names:
+            parts[name][0]()
+        torch.cuda.synchronize()
+        runs.append([t.clone() for t in (buf["c"], buf["cb"], buf["g"],
+                                         buf["gb"], *buf["grads"])])
+    assert all(torch.equal(u, v) for u, v in zip(*runs))
+    rounds = 2 if tied else 3  # x and r (and the raw untied encoder)
+    assert {p: _build.LAUNCHES[p] for p in names} == {
+        p: 2 * (rounds if p == names[0] else 1) for p in names}
+    f = lambda t: t.float()
+    xb, wb, rb, c, g = buf["xb"], buf["wb"], buf["rb"], buf["c"], buf["g"]
+    enc = wb if tied else buf["eb"]
+    _close(c, torch.relu(f(xb) @ f(enc).transpose(1, 2) + bias[:, None, :]),
+           1e-5)
+    assert torch.equal(buf["cb"], c.to(torch.bfloat16))
+    coef = torch.tensor(2.0 / (b * d), dtype=torch.float32).item()
+    _close(g, (coef * (f(rb) @ f(wb).transpose(1, 2)) + al[:, None, None] / b)
+           * (c > 0), 1e-5)
+    assert torch.equal(buf["gb"], g.to(torch.bfloat16))
+    dwx = f(buf["gb"]).transpose(1, 2) @ f(xb)
+    dwr = coef * (f(buf["cb"]).transpose(1, 2) @ f(rb))
+    if tied:
+        _close(buf["grads"][0], dwx + dwr, 1e-5)
+    else:
+        _close(buf["grads"][0], dwx, 1e-5)
+        _close(buf["grads"][1], dwr, 1e-5)
 
 
 @pytest.mark.cuda
