@@ -9,10 +9,10 @@ Phases — any failure raises, and the script exits non-zero with no result:
    source, all started together), with their ptxas register and spill
    lines — every instantiation of the fp32 GEMM template among them (in
    big_sae_fwd, big_sae_bwd, sae_tied_fwd, sae_tied_bwd, sae_untied_fwd
-   and sae_untied_bwd), of the bf16 mma.sync one (in the two forwards and
-   the big SAE's two) and of the bf16 TMA + wgmma one (in the two
-   ensemble backwards, and nowhere else), where any spill fails the run;
-   the backwards' SASS must hold HGMMA instructions;
+   and sae_untied_bwd), of the bf16 mma.sync one (in the two ensemble
+   forwards and big_sae_fwd) and of the bf16 TMA + wgmma one (in the two
+   ensemble backwards and big_sae_bwd, and nowhere else), where any spill
+   fails the run; the three backwards' SASS must hold HGMMA instructions;
 2. kernels: each ensemble kernel (sae_tied_fwd, sae_tied_bwd,
    sae_tied_adam_vjp, sae_untied_fwd, sae_untied_bwd, sae_untied_adam_vjp)
    and each contract
@@ -5959,17 +5959,17 @@ def main() -> int:
     if set(gemms) != {"big_sae_fwd", "big_sae_bwd", "sae_tied_fwd",
                       "sae_tied_bwd", "sae_untied_fwd", "sae_untied_bwd"}:
         raise AssertionError(f"GEMM template instantiations in {gemms}")
-    # the bf16 forwards and the big SAE's bf16 forms on mma.sync; the two
-    # ensemble backwards' bf16 products on wgmma, and nothing else there
-    if set(bgemms) != {"sae_tied_fwd", "sae_untied_fwd", "big_sae_fwd",
-                       "big_sae_bwd"}:
+    # the three bf16 forwards' products on mma.sync; the three bf16
+    # backwards' (the two ensemble ones and K9's) on wgmma, and nothing
+    # else there
+    if set(bgemms) != {"sae_tied_fwd", "sae_untied_fwd", "big_sae_fwd"}:
         raise AssertionError(f"mma.sync bf16 GEMM template instantiations "
                              f"in {bgemms}")
-    if set(wgemms) != {"sae_tied_bwd", "sae_untied_bwd"}:
+    if set(wgemms) != {"sae_tied_bwd", "sae_untied_bwd", "big_sae_bwd"}:
         raise AssertionError(f"wgmma bf16 GEMM template instantiations in "
                              f"{wgemms}")
     hgmma = {name: sass_count(out / f"lib{name}.so", "HGMMA")
-             for name in ("sae_tied_bwd", "sae_untied_bwd")}
+             for name in ("sae_tied_bwd", "sae_untied_bwd", "big_sae_bwd")}
     log(f"  HGMMA instructions in the SASS: {hgmma}")
     if not all(hgmma.values()):
         raise AssertionError(f"no HGMMA in the backwards' SASS: {hgmma}")

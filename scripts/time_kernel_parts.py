@@ -22,13 +22,21 @@ one CUDA card and print one JSON line.
   product shape (a yardstick of the mainloop's rate; the port never calls
   it). Each is timed in ``WINDOWS`` windows: the median, min and max and
   every window; the card's SM clock, power draw and temperature are
-  sampled (``nvidia-smi``, every 50 ms) while the whole calls run.
+  sampled (``nvidia-smi``, every 50 ms) while the whole calls run;
+- the big SAE's bf16 forms (``big_sae_fwd_bf16``, ``big_sae_bwd_bf16``)
+  at the big-SAE shape: whole calls in ``WINDOWS`` windows with the card
+  sampled, K9 bf16's launches on its first chunk (5,440 rows;
+  ``fused_big_sae.one_chunk_launches``) with the products' TFLOP/s, the
+  later chunks' de and dwn (which add to the grads, ``_acc``), and beside
+  each product one cuBLAS bf16 ``torch.mm`` of its shape (a yardstick;
+  the port never calls it).
 
-``--only`` picks the groups (``big``, ``ensemble``, ``bf16_bwd``; all by
-default). A window is a CUDA-event mean over ``--iters`` launches after
-one warm-up. The kernels of the checkout in the working directory are
-built and timed, so two checkouts compare on one card by running this
-script from each root in turns (A, B, B, A), in one command:
+``--only`` picks the groups (``big``, ``ensemble``, ``bf16_bwd``,
+``big_bf16``; all by default). A window is a CUDA-event mean over
+``--iters`` launches after one warm-up. The kernels of the checkout in
+the working directory are built and timed, so two checkouts compare on
+one card by running this script from each root in turns (A, B, B, A), in
+one command:
 
     (cd parent && python3 /path/to/scripts/time_kernel_parts.py)
 """
@@ -59,12 +67,12 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def big(g: torch.Generator, iters: int) -> dict:
-    """One whole call of K8 and of K9 at the big-SAE shape, then each of its
-    launches where the checkout lists them (``one_chunk_launches``)."""
-    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+BIG_SHAPE = (65536, 16384, 1024)  # (batch, n, d): BigSAEArgs' defaults
 
-    b, n, d = 65536, 16384, 1024
+
+def big_inputs(g: torch.Generator):
+    """The big-SAE shape's params, centered batch, residual and alpha."""
+    b, n, d = BIG_SHAPE
     kw = {"dtype": torch.float32, "device": "cuda"}
     p = {"dict": torch.randn((n, d), generator=g, **kw),
          "encoder": torch.randn((d, n), generator=g, **kw) / math.sqrt(d),
@@ -72,7 +80,15 @@ def big(g: torch.Generator, iters: int) -> dict:
          "centering": torch.zeros((d,), **kw)}
     xc = torch.randn((b, d), generator=g, **kw)
     r = torch.randn((b, d), generator=g, **kw) * 0.1
-    al = torch.tensor(1e-3, **kw)
+    return p, xc, r, torch.tensor(1e-3, **kw)
+
+
+def big(g: torch.Generator, iters: int) -> dict:
+    """One whole call of K8 and of K9 at the big-SAE shape, then each of its
+    launches where the checkout lists them (``one_chunk_launches``)."""
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    p, xc, r, al = big_inputs(g)
     calls = {
         "big_sae_fwd": (lambda: fb.big_sae_forward(p, xc), {}),
         "big_sae_bwd": (lambda: fb.big_sae_backward(p, al, xc, r),
@@ -231,10 +247,65 @@ def bf16_bwd(g: torch.Generator, iters: int, shape: tuple) -> dict:
     return out
 
 
+def big_bf16(g: torch.Generator, iters: int) -> dict:
+    """Whole calls of K8's and K9's bf16 forms at the big-SAE shape, K9
+    bf16's launches on its first chunk with the products' TFLOP/s, the
+    later chunks' de and dwn, and one cuBLAS bf16 ``torch.mm`` of each
+    product's shape: [rows, d] · [d, n] (codes), [rows, d] · [n, d]ᵀ
+    (dpre), [rows, d]ᵀ · [rows, n] (de), [rows, n]ᵀ · [rows, d] (dwn)."""
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    bf = "bfloat16"
+    b, n, d = BIG_SHAPE
+    p, xc, r, al = big_inputs(g)
+    calls = {
+        "big_sae_fwd_bf16": lambda: fb.big_sae_forward(p, xc,
+                                                       compute_dtype=bf),
+        "big_sae_bwd_bf16": lambda: fb.big_sae_backward(p, al, xc, r,
+                                                        compute_dtype=bf)}
+    rows = fb.bwd_chunk_rows(b, n, bf)
+    out = {"shape": [b, n, d], "rows": rows,
+           "chunks": len(fb.bwd_chunks(b, n, bf))}
+    for name, call in calls.items():
+        with CardSampler() as card:
+            out[name] = windows_ms(call, iters)
+        out[name]["card"] = card.stats
+        torch.cuda.empty_cache()
+    gemm = 2.0 * rows * n * d
+    parts = fb.one_chunk_launches("big_sae_bwd_bf16", p, xc, r, al)
+    for k, (fn, flops) in parts.items():
+        out[k] = windows_ms(fn, iters)
+        if flops:
+            out[k]["tflops"] = flops / out[k]["ms"] / 1e9
+    del parts
+    h = {"dtype": torch.bfloat16, "device": "cuda"}
+    xk, rk = xc[:rows].to(torch.bfloat16), r[:rows].to(torch.bfloat16)
+    eb, wnb = p["encoder"].to(torch.bfloat16), p["dict"].to(torch.bfloat16)
+    cb, gb = torch.randn((rows, n), **h), torch.randn((rows, n), **h) * 1e-3
+    de = torch.zeros((d, n), dtype=torch.float32, device="cuda")
+    dwn = torch.zeros((n, d), dtype=torch.float32, device="cuda")
+    c_out, de_out, dwn_out = (torch.empty(s, **h)
+                              for s in ((rows, n), (d, n), (n, d)))
+    timed = {
+        "big_sae_bwd_bf16_de_acc": lambda: fb.bwd_bf16_de(xk, gb, de, False),
+        "big_sae_bwd_bf16_dwn_acc": lambda: fb.bwd_bf16_dwn(
+            cb, rk, dwn, False, False, 1.0),
+        "mm_codes": lambda: torch.mm(xk, eb, out=c_out),
+        "mm_dpre": lambda: torch.mm(rk, wnb.T, out=c_out),
+        "mm_de": lambda: torch.mm(xk.T, gb, out=de_out),
+        "mm_dwn": lambda: torch.mm(cb.T, rk, out=dwn_out)}
+    for k, fn in timed.items():
+        out[k] = windows_ms(fn, iters)
+        out[k]["tflops"] = gemm / out[k]["ms"] / 1e9
+    del xk, rk, eb, wnb, cb, gb, de, dwn, c_out, de_out, dwn_out
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--only", default="big,ensemble,bf16_bwd",
+    ap.add_argument("--only", default="big,ensemble,bf16_bwd,big_bf16",
                     help="comma-separated groups to time")
     args = ap.parse_args()
     groups = args.only.split(",")
@@ -259,6 +330,8 @@ def main() -> int:
         out["bf16_bwd"] = {
             tag: bf16_bwd(g, args.iters, shape)
             for tag, shape in BF16_SHAPES.items()}
+    if "big_bf16" in groups:
+        out["big_bf16"] = big_bf16(g, args.iters)
     print(json.dumps(out))
     return 0
 

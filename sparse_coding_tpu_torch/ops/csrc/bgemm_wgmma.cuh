@@ -6,8 +6,11 @@
 // the two ensemble backwards' bf16 forms (sae_bwd_bf16.cuh), which replace
 // the TPU kernel sparse_coding_tpu/ops/fused_sae_tiled.py:230 _bwd_kernel
 // (pallas_call :439) under compute_dtype="bfloat16", and its whole-dict
-// forms fused_sae.py:152 _tied_tile_grads and :645 _untied_kernel: every
-// dot operand rounded to bf16, the sums in fp32.
+// forms fused_sae.py:152 _tied_tile_grads and :645 _untied_kernel; and
+// the four products of the big SAE's bf16 backward (big_sae_bwd.cu, one
+// product a launch), which replaces fused_big_sae.py:253 big_sae_backward
+// (pallas_call :298) under compute_dtype="bfloat16": every dot operand
+// rounded to bf16, the sums in fp32.
 //
 // Bound: the products at the bf16 tensor cores' 989 TFLOP/s dense where K
 // is long (the weight grads, K = a chunk's rows; all four at d=2048);
@@ -22,12 +25,13 @@
 // one producer warp (warp 8) whose lane 0 issues the TMA loads. BN = 128:
 // 3 stages, two blocks an SM, so one block's epilogue overlaps the
 // other's mainloop. BN = 256, taken where K >= kWideK and the epilogue
-// only stores: 4 stages, one block an SM, a quarter fewer bytes loaded a
-// multiply-add. K steps of 64 (128 bytes of bf16, one 128-byte swizzle
-// row); each stage's `full` mbarrier completes when its bytes have landed
-// (expect_tx), its `empty` one when the 8 consumer warps have retired the
-// wgmmas that read it. A consumer keeps one k step's wgmmas in flight
-// (wait_group 1) and releases the stage of the step before.
+// only stores, or K >= kWideKReads: 4 stages, one block an SM, a quarter
+// fewer bytes loaded a multiply-add. K steps of 64 (128 bytes of bf16,
+// one 128-byte swizzle row); each stage's `full` mbarrier completes when
+// its bytes have landed (expect_tx), its `empty` one when the 8 consumer
+// warps have retired the wgmmas that read it. A consumer keeps one k
+// step's wgmmas in flight (wait_group 1) and releases the stage of the
+// step before.
 //
 // Layouts (128-byte swizzle, stages 1024-byte aligned): a K-contiguous
 // operand is one TMA box of 128 (A) or BN (B) rows x 64 k, row r at r *
@@ -527,11 +531,18 @@ cudaError_t run_tiles(Operand a, Operand b, int M, int N, int K,
 // scripts/time_kernel_parts.py).
 constexpr int kWideK = 1024;
 
+// K from which a product whose epilogue reads takes the 128 x 256 tile as
+// well: the stall is then a small share of a long mainloop (on an H100
+// SXM, the big SAE's bf16 de and dwn adding to their grads at K = 5,440
+// rows, 0.340 -> 0.297 ms; worse at K = 2,048, above;
+// scripts/time_kernel_parts.py --only big_bf16).
+constexpr int kWideKReads = 4096;
+
 // run_tiles with the tile chosen by K and by whether the epilogue reads
 template <bool AKContig, bool BKContig, class Epi>
 cudaError_t run(Operand a, Operand b, int M, int N, int K, const Epi& epi,
                 bool epi_reads, cudaStream_t stream, int count = 1) {
-  return K >= kWideK && !epi_reads
+  return K >= (epi_reads ? kWideKReads : kWideK)
              ? run_tiles<AKContig, BKContig, 256>(a, b, M, N, K, epi, stream,
                                                   count)
              : run_tiles<AKContig, BKContig, 128>(a, b, M, N, K, epi, stream,

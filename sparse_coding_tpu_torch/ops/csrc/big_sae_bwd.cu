@@ -47,10 +47,12 @@
 // atomics, so two calls give the same bits.
 //
 // The bf16-compute form (big_sae_bwd_bf16_*, compute_dtype="bfloat16"):
-// the same schedule with the four products on the tensor-core template
-// (bgemm_mma.cuh) and the JAX package's casts (fused_big_sae.py
-// _bwd_kernel): xc, the raw E and r rounded to bf16 once a call, Wn
-// normalized in fp32 (by the wrapper) then rounded; the codes C and dpre G
+// the same schedule with the four products on the Hopper tensor-core
+// template (bgemm_wgmma.cuh: TMA loads into an mbarrier ring, wgmma, the
+// epilogue staged through shared memory; one product a launch, Z = 1) and
+// the JAX package's casts (fused_big_sae.py _bwd_kernel): xc, the raw E and
+// r rounded to bf16 once a call, Wn normalized in fp32 (by the wrapper)
+// then rounded; the codes C and dpre G
 // stored fp32 — dt, c_totals, l1, l0 and the masks are fp32 sums and tests
 // of fp32 values, as there — beside their bf16 roundings Cb and Gb, which
 // de and dwn read (12 bytes a code: 5,440 rows a chunk at the trainer's
@@ -59,8 +61,14 @@
 // forms dtb = sum_b bf16(G) and dctr = -bf16(E) dtb. Bound: 8*B*n*d bf16
 // FLOPs, three of the products only over the active codes, at 989 TFLOP/s
 // plus the sums, about 5.7 ms at the trainer's shape, against 0.8 GB of
-// bytes = 0.25 ms.
-#include "bgemm_mma.cuh"
+// bytes = 0.25 ms. Layouts on the template: codes A = xb K-contiguous, B =
+// Eb [d, n] N-contiguous (run<true, false>); dpre both K-contiguous; de and
+// dwn both M/N-contiguous (K = the chunk's rows: at 5,440 the 128 x 256
+// tile also where they add to the grads, kWideKReads). The tile a product
+// takes depends only on its K and on whether its epilogue reads (the
+// codes' K = d and store-only epilogue fix theirs), so each code has the
+// same bits whatever the chunk's row count.
+#include "bgemm_wgmma.cuh"
 #include "sae_chunked.cuh"
 
 namespace {
@@ -289,9 +297,9 @@ extern "C" int big_sae_bwd_bf16_codes(const sae::bf16* xb,
       t, C, n, n, 0,
       aligned16(t, 0, n) && aligned16(C, n, n) && sae::aligned8(Cb, n, n),
       nullptr, Cb};
-  return (int)bgemm::run<true, false>(bgemm::Operand{xb, d, 0},
-                                      bgemm::Operand{Eb, n, 0}, rows, n, d,
-                                      epi, (cudaStream_t)stream);
+  return (int)wgemm::run<true, false>(wgemm::Operand{xb, d, 0},
+                                      wgemm::Operand{Eb, n, 0}, rows, n, d,
+                                      epi, false, (cudaStream_t)stream);
 }
 
 // G [rows, n] = (coef * rb [rows, d] . Wnb [n, d]^T + alpha[0] / B)
@@ -307,9 +315,9 @@ extern "C" int big_sae_bwd_bf16_dpre(const sae::bf16* rb,
       C, alpha, G, Gb, n, 0,
       aligned16(C, n, n) && aligned16(G, n, n) && sae::aligned8(Gb, n, n),
       coef, (float)B};
-  return (int)bgemm::run<true, true>(bgemm::Operand{rb, d, 0},
-                                     bgemm::Operand{Wnb, d, 0}, rows, n, d,
-                                     epi, (cudaStream_t)stream);
+  return (int)wgemm::run<true, true>(wgemm::Operand{rb, d, 0},
+                                     wgemm::Operand{Wnb, d, 0}, rows, n, d,
+                                     epi, true, (cudaStream_t)stream);
 }
 
 // dE [d, n] = (first ? 0 : dE) + xb [rows, d]^T . Gb [rows, n]
@@ -318,9 +326,9 @@ extern "C" int big_sae_bwd_bf16_de(const sae::bf16* xb, const sae::bf16* Gb,
                                    int first, void* stream) {
   if (!sae::big_chunk_ok_bf16(rows, n, d)) return (int)cudaErrorInvalidValue;
   const AccumEpi epi{dE, n, 0, aligned16(dE, n, n), first != 0, false, 1.f};
-  return (int)bgemm::run<false, false>(bgemm::Operand{xb, d, 0},
-                                       bgemm::Operand{Gb, n, 0}, d, n, rows,
-                                       epi, (cudaStream_t)stream);
+  return (int)wgemm::run<false, false>(wgemm::Operand{xb, d, 0},
+                                       wgemm::Operand{Gb, n, 0}, d, n, rows,
+                                       epi, first == 0, (cudaStream_t)stream);
 }
 
 // dWn [n, d] = (first ? 0 : dWn) + Cb [rows, n]^T . rb [rows, d], times
@@ -332,9 +340,9 @@ extern "C" int big_sae_bwd_bf16_dwn(const sae::bf16* Cb, const sae::bf16* rb,
   if (!sae::big_chunk_ok_bf16(rows, n, d)) return (int)cudaErrorInvalidValue;
   const AccumEpi epi{dWn, d, 0, aligned16(dWn, d, d), first != 0, last != 0,
                      coef};
-  return (int)bgemm::run<false, false>(bgemm::Operand{Cb, n, 0},
-                                       bgemm::Operand{rb, d, 0}, n, d, rows,
-                                       epi, (cudaStream_t)stream);
+  return (int)wgemm::run<false, false>(wgemm::Operand{Cb, n, 0},
+                                       wgemm::Operand{rb, d, 0}, n, d, rows,
+                                       epi, first == 0, (cudaStream_t)stream);
 }
 
 // dt [n] (+)= sum_b G, dtb [n] (+)= sum_b Gb, c_totals [n] (+)= sum_b C,

@@ -5,8 +5,8 @@
 // (sgemm_simt.cuh), the ensembles' with the members on the grid's z: the
 // row-norm pass, the codes and residual epilogues, the per-feature sums of
 // a chunk's codes and dpre, and the loss terms. The bf16-compute forms of
-// the six chunked kernels (the ensemble forwards and the big SAE's two on
-// bgemm_mma.cuh, the ensemble backwards on bgemm_wgmma.cuh) take the same
+// the six chunked kernels (the ensemble forwards and the big SAE's forward
+// on bgemm_mma.cuh, the three backwards on bgemm_wgmma.cuh) take the same
 // pieces with their bf16 stores: the norm pass's bf16
 // dictionary, the codes epilogue's bf16 codes, the dpre epilogue's bf16
 // copy of dpre, the residual epilogue's bf16 batch, and a rounding pass

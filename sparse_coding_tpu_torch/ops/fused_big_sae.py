@@ -33,15 +33,16 @@ raises.
 
 ``compute_dtype="bfloat16"`` (the JAX package's bf16 compute) takes each
 kernel's bf16 form (``big_sae_fwd_bf16``, ``big_sae_bwd_bf16``): the same
-schedule with its products on bf16 tensor cores (``csrc/bgemm_mma.cuh``,
-fp32 accumulation) and the JAX package's casts — xc, the raw encoder, Wn
-(normalized in fp32 first), r, the codes and dpre rounded to bf16 where
-they enter a product; the ReLU, the masks, dt, c_totals and the l1/l0
-sums stay fp32, and dctr sums the rounded dpre against the rounded
-encoder, as the JAX kernel's fifth product does. On the card it runs
-those kernels or raises, never the fp32 ones. The plain versions round
-with ``fused_sae_tiled._rounding`` and multiply in fp32, as the ensemble
-ones do.
+schedule with its products on bf16 tensor cores with fp32 accumulation
+(the forward's on ``csrc/bgemm_mma.cuh``, ``mma.sync``; the backward's on
+``csrc/bgemm_wgmma.cuh``, TMA loads and ``wgmma``) and the JAX package's
+casts — xc, the raw encoder, Wn (normalized in fp32 first), r, the codes
+and dpre rounded to bf16 where they enter a product; the ReLU, the
+masks, dt, c_totals and the l1/l0 sums stay fp32, and dctr sums the
+rounded dpre against the rounded encoder, as the JAX kernel's fifth
+product does. On the card it runs those kernels or raises, never the
+fp32 ones. The plain versions round with ``fused_sae_tiled._rounding``
+and multiply in fp32, as the ensemble ones do.
 """
 
 from __future__ import annotations

@@ -914,6 +914,123 @@ def test_big_sae_bf16_chunks_match_plain(card, monkeypatch, case):
     assert all(torch.equal(g, a) for g, a in zip(got, again))
 
 
+# (rows of one chunk, n_feats, d) of K9 bf16's products: the trainer's
+# 5,440-row chunk (42.5 tiles of 128; K = 5,440 puts de and dwn on the
+# 128 x 256 tile also where they add), its last chunk's 256 rows and 96
+# rows; its n = 16,384 and 96 (not a multiple of 128); its d = 1,024 (the
+# codes' 128 x 256 tile) and 40 (one zero-filled K step)
+BIG_BF16_PRODUCT_CASES = [(rows, n, d) for rows in (5440, 256, 96)
+                          for n in (16384, 96) for d in (1024, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BIG_BF16_PRODUCT_CASES, ids=str)
+def test_big_sae_bf16_products_match_plain(card, shape):
+    """K9 bf16's four products (codes, dpre, de and dwn on the TMA + wgmma
+    template), each launched through its wrapper on one chunk that starts
+    32 rows into its operands, against the same product of the same bf16
+    operands summed in fp32 by torch: rtol 1e-5 of max|ref| (exact bf16
+    products, fp32 sums in another order); Cb and Gb the fp32 outputs
+    rounded; de and dwn as the first chunk's (stored) and as a later
+    one's (added to what is there; dwn times coef as the last); two runs
+    bitwise equal, each launch counted once a run."""
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    rows, n, d = shape
+    gen = torch.Generator().manual_seed(4)
+    f32 = lambda *s, scale=1.0: (torch.randn(s, generator=gen) * scale).to(card)
+    h = lambda *s, scale=1.0: f32(*s, scale=scale).to(torch.bfloat16)
+    xb = h(32 + rows, d)[32:]
+    rb = h(32 + rows, d, scale=0.1)[32:]
+    eb, wnb = h(d, n, scale=d ** -0.5), h(n, d, scale=d ** -0.5)
+    t = f32(n, scale=0.1)
+    de0, dwn0 = f32(d, n, scale=0.1), f32(n, d, scale=1e-3)
+    alpha = torch.tensor([3e-3], device=card)
+    batch = 4 * rows
+    coef = torch.tensor(2.0 / (batch * d), dtype=torch.float32).item()
+    c, g = (torch.empty((rows, n), device=card) for _ in range(2))
+    cb, gb = (torch.empty((rows, n), dtype=torch.bfloat16, device=card)
+              for _ in range(2))
+
+    def run():
+        fb.bwd_bf16_codes(xb, eb, t, c, cb)
+        fb.bwd_bf16_dpre(rb, wnb, c, alpha, g, gb, batch, coef)
+        de, de_acc = torch.empty_like(de0), de0.clone()
+        dwn, dwn_last = torch.empty_like(dwn0), dwn0.clone()
+        fb.bwd_bf16_de(xb, gb, de, True)
+        fb.bwd_bf16_de(xb, gb, de_acc, False)
+        fb.bwd_bf16_dwn(cb, rb, dwn, True, False, coef)
+        fb.bwd_bf16_dwn(cb, rb, dwn_last, False, True, coef)
+        torch.cuda.synchronize()
+        return [v.clone() for v in (c, cb, g, gb)] + [de, de_acc, dwn,
+                                                      dwn_last]
+
+    _build.reset_launches()
+    first, second = run(), run()
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+    assert {k: _build.LAUNCHES[f"big_sae_bwd_bf16_{k}"]
+            for k in ("codes", "dpre", "de", "dwn")} == {
+        "codes": 2, "dpre": 2, "de": 4, "dwn": 4}
+    c, cb, g, gb, de, de_acc, dwn, dwn_last = first
+    f = lambda v: v.float()
+    _close(c, torch.relu(f(xb) @ f(eb) + t), 1e-5)
+    assert torch.equal(cb, c.to(torch.bfloat16))
+    _close(g, (coef * (f(rb) @ f(wnb).T) + alpha / batch) * (c > 0), 1e-5)
+    assert torch.equal(gb, g.to(torch.bfloat16))
+    de_ref, dwn_ref = f(xb).T @ f(gb), f(cb).T @ f(rb)
+    _close(de, de_ref, 1e-5)
+    _close(de_acc, de0 + de_ref, 1e-5)
+    _close(dwn, dwn_ref, 1e-5)
+    _close(dwn_last, coef * (dwn0 + dwn_ref), 1e-5)
+
+
+# (batch, n_feats, d, rows per K9 chunk): the trainer's n and d in its
+# 5,440-row chunks, two whole and a short one; a small shape in 3 chunks
+BIG_BF16_CODES_CASES = [(11136, 16384, 1024, 5440), (224, 96, 40, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BIG_BF16_CODES_CASES, ids=str)
+def test_big_sae_bf16_whole_batch_codes_equal_chunked(card, monkeypatch,
+                                                      case):
+    """One codes launch over the whole batch (chip_smoke.py counts ReLU
+    flips from it) gives every code the bits that the chunked call's codes
+    launches give it: the tile a product takes depends on its K (= d) and
+    its epilogue, not on the rows. Two K9 bf16 calls over those chunks
+    give the same bits."""
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    b, n, d, rows = case
+    monkeypatch.setattr(fb, "WORKSPACE_BYTES", 12 * n * rows)
+    chunks = fb.bwd_chunks(b, n, BF16)
+    assert len(chunks) == 3 and chunks[0] == (0, rows)
+    p, x = _big_inputs(card, b, n, d, seed=5)
+    xc = (x - p["centering"]).contiguous()
+    xb, eb = xc.to(torch.bfloat16), p["encoder"].to(torch.bfloat16)
+    t = p["threshold"]
+    whole = torch.empty((b, n), device=card)
+    wholeb = torch.empty((b, n), dtype=torch.bfloat16, device=card)
+    fb.bwd_bf16_codes(xb, eb, t, whole, wholeb)
+    c = torch.empty((rows, n), device=card)
+    cb = torch.empty((rows, n), dtype=torch.bfloat16, device=card)
+    for lo, hi in chunks:
+        fb.bwd_bf16_codes(xb[lo:hi], eb, t, c, cb)
+        torch.cuda.synchronize()
+        assert torch.equal(c[:hi - lo], whole[lo:hi])
+        assert torch.equal(cb[:hi - lo], wholeb[lo:hi])
+    del whole, wholeb
+    r = (torch.randn((b, d), generator=torch.Generator().manual_seed(6))
+         * 0.1).to(card)
+    alpha = torch.tensor(3e-3, device=card)
+    _build.reset_launches()
+    got = fb.big_sae_backward(p, alpha, xc, r, compute_dtype=BF16)
+    again = fb.big_sae_backward(p, alpha, xc, r, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    assert all(bool(torch.isfinite(v).all()) for v in got)
+    assert _build.LAUNCHES["big_sae_bwd_bf16_codes"] == 2 * len(chunks)
+
+
 @pytest.mark.cuda
 def test_big_sae_bf16_forms_refuse_what_they_do_not_take(card):
     """Under bf16 compute d must divide by 8 (ValueError before any launch),
