@@ -9,10 +9,11 @@ Phases — any failure raises, and the script exits non-zero with no result:
    source, all started together), with their ptxas register and spill
    lines — every instantiation of the fp32 GEMM template among them (in
    big_sae_fwd, big_sae_bwd, sae_tied_fwd, sae_tied_bwd, sae_untied_fwd
-   and sae_untied_bwd), of the bf16 mma.sync one (in the two ensemble
-   forwards and big_sae_fwd) and of the bf16 TMA + wgmma one (in the two
+   and sae_untied_bwd), of the bf16 mma.sync one (in big_sae_fwd alone)
+   and of the bf16 TMA + wgmma one (in the two ensemble forwards, the two
    ensemble backwards and big_sae_bwd, and nowhere else), where any spill
-   fails the run; the three backwards' SASS must hold HGMMA instructions;
+   fails the run; those five libraries' SASS must hold HGMMA
+   instructions;
 2. kernels: each ensemble kernel (sae_tied_fwd, sae_tied_bwd,
    sae_tied_adam_vjp, sae_untied_fwd, sae_untied_bwd, sae_untied_adam_vjp)
    and each contract
@@ -5959,20 +5960,23 @@ def main() -> int:
     if set(gemms) != {"big_sae_fwd", "big_sae_bwd", "sae_tied_fwd",
                       "sae_tied_bwd", "sae_untied_fwd", "sae_untied_bwd"}:
         raise AssertionError(f"GEMM template instantiations in {gemms}")
-    # the three bf16 forwards' products on mma.sync; the three bf16
-    # backwards' (the two ensemble ones and K9's) on wgmma, and nothing
-    # else there
-    if set(bgemms) != {"sae_tied_fwd", "sae_untied_fwd", "big_sae_fwd"}:
+    # K8 bf16's products on mma.sync; the two ensemble bf16 forwards' and
+    # the three bf16 backwards' (the two ensemble ones and K9's) on wgmma,
+    # and nothing else there
+    wgmma_libs = {"sae_tied_fwd", "sae_untied_fwd", "sae_tied_bwd",
+                  "sae_untied_bwd", "big_sae_bwd"}
+    if set(bgemms) != {"big_sae_fwd"}:
         raise AssertionError(f"mma.sync bf16 GEMM template instantiations "
                              f"in {bgemms}")
-    if set(wgemms) != {"sae_tied_bwd", "sae_untied_bwd", "big_sae_bwd"}:
+    if set(wgemms) != wgmma_libs:
         raise AssertionError(f"wgmma bf16 GEMM template instantiations in "
                              f"{wgemms}")
     hgmma = {name: sass_count(out / f"lib{name}.so", "HGMMA")
-             for name in ("sae_tied_bwd", "sae_untied_bwd", "big_sae_bwd")}
+             for name in sorted(wgmma_libs)}
     log(f"  HGMMA instructions in the SASS: {hgmma}")
     if not all(hgmma.values()):
-        raise AssertionError(f"no HGMMA in the backwards' SASS: {hgmma}")
+        raise AssertionError(f"no HGMMA in the wgmma libraries' SASS: "
+                             f"{hgmma}")
     report["bf16_gemm_instantiations"] = bgemms
     report["wgmma_gemm_instantiations"] = wgemms
     report["hgmma_sass"] = hgmma

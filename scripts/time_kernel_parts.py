@@ -29,11 +29,17 @@ one CUDA card and print one JSON line.
   ``fused_big_sae.one_chunk_launches``) with the products' TFLOP/s, the
   later chunks' de and dwn (which add to the grads, ``_acc``), and beside
   each product one cuBLAS bf16 ``torch.mm`` of its shape (a yardstick;
-  the port never calls it).
+  the port never calls it);
+- the two forwards' bf16 forms (``sae_tied_fwd_bf16``,
+  ``sae_untied_fwd_bf16``) at the same two shapes as ``bf16_bwd``: one
+  whole call of each in ``WINDOWS`` windows with the card sampled, each
+  of its launches on one chunk of every member (round, norms, codes,
+  decode) with the products' TFLOP/s, and one cuBLAS bf16 ``torch.bmm``
+  of each product's shape.
 
 ``--only`` picks the groups (``big``, ``ensemble``, ``bf16_bwd``,
-``big_bf16``; all by default). A window is a CUDA-event mean over
-``--iters`` launches after one warm-up. The kernels of the checkout in
+``big_bf16``, ``bf16_fwd``; all by default). A window is a CUDA-event
+mean over ``--iters`` launches after one warm-up. The kernels of the checkout in
 the working directory are built and timed, so two checkouts compare on
 one card by running this script from each root in turns (A, B, B, A), in
 one command:
@@ -198,12 +204,48 @@ def ensemble(g: torch.Generator, iters: int) -> dict:
     return out
 
 
+def bf16_group(calls: dict, bmms: dict, shape: tuple, e, bias, x,
+               iters: int) -> dict:
+    """Time bf16 ensemble forms at ``shape``: each whole call (``calls``:
+    name -> (call, one_chunk_launches_bf16's keyword inputs)) with the
+    card sampled, then each of its launches on one chunk of every member
+    with the products' TFLOP/s; then one cuBLAS bf16 ``torch.bmm`` of each
+    product's shape on random operands (``bmms``: key -> the shapes of A
+    and B as stored, and whether each is read transposed)."""
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    n_m, b, n, d = shape
+    flops = 2.0 * n_m * b * n * d
+    out = {"shape": list(shape)}
+    for name, (call, inputs) in calls.items():
+        with CardSampler() as card:
+            out[name] = windows_ms(call, iters)
+        out[name]["card"] = card.stats
+        torch.cuda.empty_cache()
+        parts = ft.one_chunk_launches_bf16(name, e, bias, x, **inputs)
+        for k, (fn, part_flops) in parts.items():
+            out[k] = windows_ms(fn, iters)
+            if part_flops:
+                out[k]["tflops"] = part_flops / out[k]["ms"] / 1e9
+        del parts
+        torch.cuda.empty_cache()
+    h = {"dtype": torch.bfloat16, "device": "cuda"}
+    for key, (sa, sb, ta, tb) in bmms.items():
+        a, bm = torch.randn(sa, **h), torch.randn(sb, **h)
+        a, bm = (a.transpose(1, 2) if ta else a,
+                 bm.transpose(1, 2) if tb else bm)
+        res = torch.empty((n_m, a.shape[1], bm.shape[2]), **h)
+        out[key] = windows_ms(lambda: torch.bmm(a, bm, out=res), iters)
+        out[key]["tflops"] = flops / out[key]["ms"] / 1e9
+        del a, bm, res
+        torch.cuda.empty_cache()
+    return out
+
+
 def bf16_bwd(g: torch.Generator, iters: int, shape: tuple) -> dict:
-    """One whole call of each bf16 backward at ``shape``, then each of its
-    launches on one chunk of every member with the products' TFLOP/s, and
-    one cuBLAS bf16 ``torch.bmm`` of each product shape: [Z, rows, d] ·
-    [Z, d, n] (codes, dpre) and [Z, n, rows] · [Z, rows, d] (the weight
-    grads)."""
+    """:func:`bf16_group` of the two bf16 backwards, beside a ``bmm`` of
+    [Z, rows, d] · [Z, d, n] (codes, dpre) and [Z, n, rows] · [Z, rows, d]
+    (the weight grads)."""
     from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
 
     e, dec, bias, al, x = ensemble_inputs(g, shape)
@@ -219,32 +261,30 @@ def bf16_bwd(g: torch.Generator, iters: int, shape: tuple) -> dict:
             {"decoder": dec, "alphas": al, "resid": ru}),
     }
     n_m, b, n, d = shape
-    out = {"shape": list(shape)}
-    for name, (call, inputs) in calls.items():
-        with CardSampler() as card:
-            out[name] = windows_ms(call, iters)
-        out[name]["card"] = card.stats
-        parts = ft.one_chunk_launches_bf16(name, e, bias, x, **inputs)
-        for k, (fn, flops) in parts.items():
-            out[k] = windows_ms(fn, iters)
-            if flops:
-                out[k]["tflops"] = flops / out[k]["ms"] / 1e9
-        del parts
-        torch.cuda.empty_cache()
-    h = {"dtype": torch.bfloat16, "device": "cuda"}
-    rb, wb = torch.randn((n_m, b, d), **h), torch.randn((n_m, n, d), **h)
-    cb = torch.randn((n_m, b, n), **h)
-    nt, tn = torch.empty((n_m, b, n), **h), torch.empty((n_m, n, d), **h)
-    flops = 2.0 * n_m * b * n * d
-    for key, fn in (("bmm_nt", lambda: torch.bmm(rb, wb.transpose(1, 2),
-                                                 out=nt)),
-                    ("bmm_tn", lambda: torch.bmm(cb.transpose(1, 2), rb,
-                                                 out=tn))):
-        out[key] = windows_ms(fn, iters)
-        out[key]["tflops"] = flops / out[key]["ms"] / 1e9
-    del rb, wb, cb, nt, tn
-    torch.cuda.empty_cache()
-    return out
+    bmms = {"bmm_nt": ((n_m, b, d), (n_m, n, d), False, True),
+            "bmm_tn": ((n_m, b, n), (n_m, b, d), True, False)}
+    return bf16_group(calls, bmms, shape, e, bias, x, iters)
+
+
+def bf16_fwd(g: torch.Generator, iters: int, shape: tuple) -> dict:
+    """:func:`bf16_group` of the two bf16 forwards, beside a ``bmm`` of
+    [Z, n, d] · [Z, d, rows] (codes, feature-major) and [Z, rows, n] ·
+    [Z, n, d] (decode)."""
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    e, dec, bias, _, x = ensemble_inputs(g, shape)
+    bf = "bfloat16"
+    calls = {
+        "sae_tied_fwd_bf16": (
+            lambda: ft.sae_tied_fwd(e, bias, x, None, bf), {}),
+        "sae_untied_fwd_bf16": (
+            lambda: ft.sae_untied_fwd(e, dec, bias, x, bf),
+            {"decoder": dec}),
+    }
+    n_m, b, n, d = shape
+    bmms = {"bmm_codes": ((n_m, n, d), (n_m, d, b), False, False),
+            "bmm_decode": ((n_m, n, b), (n_m, n, d), True, False)}
+    return bf16_group(calls, bmms, shape, e, bias, x, iters)
 
 
 def big_bf16(g: torch.Generator, iters: int) -> dict:
@@ -305,7 +345,8 @@ def big_bf16(g: torch.Generator, iters: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--only", default="big,ensemble,bf16_bwd,big_bf16",
+    ap.add_argument("--only",
+                    default="big,ensemble,bf16_bwd,big_bf16,bf16_fwd",
                     help="comma-separated groups to time")
     args = ap.parse_args()
     groups = args.only.split(",")
@@ -332,6 +373,10 @@ def main() -> int:
             for tag, shape in BF16_SHAPES.items()}
     if "big_bf16" in groups:
         out["big_bf16"] = big_bf16(g, args.iters)
+    if "bf16_fwd" in groups:
+        out["bf16_fwd"] = {
+            tag: bf16_fwd(g, args.iters, shape)
+            for tag, shape in BF16_SHAPES.items()}
     print(json.dumps(out))
     return 0
 

@@ -6,7 +6,9 @@
 // the two ensemble backwards' bf16 forms (sae_bwd_bf16.cuh), which replace
 // the TPU kernel sparse_coding_tpu/ops/fused_sae_tiled.py:230 _bwd_kernel
 // (pallas_call :439) under compute_dtype="bfloat16", and its whole-dict
-// forms fused_sae.py:152 _tied_tile_grads and :645 _untied_kernel; and
+// forms fused_sae.py:152 _tied_tile_grads and :645 _untied_kernel; the
+// two products of the two ensemble forwards' bf16 forms (sae_fwd.cuh),
+// which replace fused_sae_tiled.py:191 _fwd_kernel (pallas_call :375); and
 // the four products of the big SAE's bf16 backward (big_sae_bwd.cu, one
 // product a launch), which replaces fused_big_sae.py:253 big_sae_backward
 // (pallas_call :298) under compute_dtype="bfloat16": every dot operand
@@ -535,7 +537,9 @@ constexpr int kWideK = 1024;
 // well: the stall is then a small share of a long mainloop (on an H100
 // SXM, the big SAE's bf16 de and dwn adding to their grads at K = 5,440
 // rows, 0.340 -> 0.297 ms; worse at K = 2,048, above;
-// scripts/time_kernel_parts.py --only big_bf16).
+// scripts/time_kernel_parts.py --only big_bf16). The ensemble forwards'
+// decode, whose epilogue reads the batch, agrees: 2.23 -> 1.82 ms at K =
+// n = 8,192, 0.285 -> 0.308 at 2,048 (--only bf16_fwd).
 constexpr int kWideKReads = 4096;
 
 // run_tiles with the tile chosen by K and by whether the epilogue reads

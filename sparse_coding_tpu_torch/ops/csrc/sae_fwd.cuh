@@ -3,7 +3,7 @@
 // sae_chunked.cuh so that the libraries which launch neither product do
 // not compile them.
 #pragma once
-#include "bgemm_mma.cuh"
+#include "bgemm_wgmma.cuh"
 #include "sae_chunked.cuh"
 
 namespace sae {
@@ -46,12 +46,18 @@ inline cudaError_t launch_fwd_decode(const float* Ct, const float* Wn,
 }
 
 // The bf16 forms of the two products (compute_dtype="bfloat16", on the
-// tensor-core template bgemm_mma.cuh): the same chunk, with x, W and Wn
-// bf16 (the forward's batch rounded, or a bf16 batch as it came; the
-// normalized dictionary rounded by the norm pass) and the codes rounded to
-// bf16 by the codes epilogue into Ctb — the decode's operand, as the JAX
-// package's x̂ = c.astype(bf16) · W. The decode's residual subtracts the
-// batch in fp32: x is the fp32 batch, or the bf16 one widened (exact).
+// Hopper tensor-core template bgemm_wgmma.cuh: TMA loads, wgmma, fp32
+// sums): the same chunk, with x, W and Wn bf16 (the forward's batch
+// rounded, or a bf16 batch as it came; the normalized dictionary rounded
+// by the norm pass) and the codes rounded to bf16 by the codes epilogue
+// into Ctb — the decode's operand, as the JAX package's
+// x̂ = c.astype(bf16) · W. The decode's residual subtracts the batch in
+// fp32: x is the fp32 batch, or the bf16 one widened (exact).
+// Codes: A = W (per member), B = x (shared by every member: its map has
+// z extent 1), both K-contiguous along d; the epilogue only stores 2
+// bytes a code, so K = d >= kWideK takes the 128 x 256 tile. Decode: both
+// operands MN-contiguous (Ctb along rows, Wn along d), K = n; the
+// epilogue reads x, so K >= kWideKReads takes the 128 x 256 tile.
 inline cudaError_t launch_fwd_codes_bf16(const bf16* x, const bf16* W,
                                          const float* b, const float* cm,
                                          bf16* Ctb, int Z, int rows, int n,
@@ -60,9 +66,9 @@ inline cudaError_t launch_fwd_codes_bf16(const bf16* x, const bf16* W,
   const size_t cz = (size_t)n * rows;
   const CodesEpi<true> epi{b, nullptr, n, rows, cz,
                            aligned8(Ctb, rows, rows, cz), cm, Ctb};
-  return bgemm::run<true, true>(bgemm::Operand{W, d, (size_t)n * d},
-                                bgemm::Operand{x, d, 0}, n, rows, d, epi,
-                                stream, Z);
+  return wgemm::run<true, true>(wgemm::Operand{W, d, (size_t)n * d},
+                                wgemm::Operand{x, d, 0}, n, rows, d, epi,
+                                false, stream, Z);
 }
 
 template <class TX>
@@ -77,9 +83,9 @@ inline cudaError_t launch_fwd_decode_bf16(const bf16* Ctb, const bf16* Wn,
   const ResidEpiOf<TX> epi{x, r, d, rz,
                            sgemm::aligned16(r, d, d, rz) &&
                                ((uintptr_t)x & 15) == 0};
-  return bgemm::run<false, false>(bgemm::Operand{Ctb, rows, cz},
-                                  bgemm::Operand{Wn, d, wz}, rows, d, n, epi,
-                                  stream, Z);
+  return wgemm::run<false, false>(wgemm::Operand{Ctb, rows, cz},
+                                  wgemm::Operand{Wn, d, wz}, rows, d, n, epi,
+                                  true, stream, Z);
 }
 
 // Ctb, Wn and x as the C entry points take them: x fp32 or, x_bf16, bf16

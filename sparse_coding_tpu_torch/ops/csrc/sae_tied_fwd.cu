@@ -44,10 +44,11 @@
 // (times a 0 mask too).
 //
 // The bf16-compute form (sae_tied_fwd_bf16_*, compute_dtype="bfloat16"):
-// the same schedule on the tensor-core template (bgemm_mma.cuh), with the
-// JAX package's casts (fused_sae_tiled.py _fwd_kernel): x rounded to bf16
-// (a bf16 batch as it comes), Ŵ normalized in fp32 then rounded, the codes
-// rounded before the decode; fp32 accumulation, ReLU, mask and residual.
+// the same schedule on the Hopper tensor-core template (bgemm_wgmma.cuh:
+// TMA loads, wgmma), with the JAX package's casts (fused_sae_tiled.py
+// _fwd_kernel): x rounded to bf16 (a bf16 batch as it comes), Ŵ
+// normalized in fp32 then rounded, the codes rounded before the decode;
+// fp32 accumulation, ReLU, mask and residual.
 // Bound: 4*N*B*n*d bf16 FLOPs at 989 TFLOP/s = 0.28 ms at the canonical
 // shape, against (B*d + N*n*d + N*n + N*B*d)*4 bytes = 0.04 ms; its
 // codes take 2 bytes a code in the workspace (all 32 members in one

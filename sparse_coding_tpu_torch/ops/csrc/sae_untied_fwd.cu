@@ -45,12 +45,13 @@
 // two calls give the same bits. NaN survives the ReLU and the norm clip.
 //
 // The bf16-compute form (sae_untied_fwd_bf16_*, compute_dtype="bfloat16"):
-// the same schedule on the tensor-core template (bgemm_mma.cuh), with the
-// JAX package's casts (fused_sae_tiled.py _fwd_kernel, tied=False): x and
-// the raw E rounded to bf16 (a bf16 batch as it comes), Wn normalized in
-// fp32 then rounded, the codes rounded before the decode; fp32
-// accumulation, ReLU and residual. Bound as sae_tied_fwd.cu's bf16 form
-// (0.28 ms of bf16 FLOPs at the canonical shape, against 0.12 ms of bytes).
+// the same schedule on the Hopper tensor-core template (bgemm_wgmma.cuh:
+// TMA loads, wgmma), with the JAX package's casts (fused_sae_tiled.py
+// _fwd_kernel, tied=False): x and the raw E rounded to bf16 (a bf16 batch
+// as it comes), Wn normalized in fp32 then rounded, the codes rounded
+// before the decode; fp32 accumulation, ReLU and residual. Bound as
+// sae_tied_fwd.cu's bf16 form (0.28 ms of bf16 FLOPs at the canonical
+// shape, against 0.12 ms of bytes).
 #include "sae_fwd.cuh"
 
 // Every entry point takes fp32, contiguous, row-major tensors and launches

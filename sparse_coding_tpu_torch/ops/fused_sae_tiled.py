@@ -30,8 +30,7 @@ row-normalized decoder.
 
 ``compute_dtype="bfloat16"`` (the JAX package's bf16 compute) takes each
 kernel's bf16 form (``<kernel>_bf16``): the same schedule with its products
-on bf16 tensor cores with fp32 accumulation (the forwards on
-``csrc/bgemm_mma.cuh``, ``mma.sync``; the backwards on
+on bf16 tensor cores with fp32 accumulation (all four on
 ``csrc/bgemm_wgmma.cuh``, TMA loads and ``wgmma``) and the JAX package's
 casts — x (a bf16 batch as it comes), the normalized
 dictionary or decoder (normalized in fp32 first), the raw untied encoder,

@@ -790,6 +790,73 @@ def test_bf16_bwd_products_match_plain(card, shape, tied):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["tied", "masked", "untied"])
+@pytest.mark.parametrize("shape", BF16_PRODUCT_CASES, ids=str)
+def test_bf16_fwd_products_match_plain(card, shape, form, batch_dtype):
+    """A bf16 forward's two products (codes and decode, on the TMA + wgmma
+    template), launched through one_chunk_launches_bf16's parts on one
+    chunk of Z members (the masked codes through tied_fwd_bf16_codes with
+    the coefficient mask), against torch's fp32 sums of the same bf16
+    operands. Ctb [Z, n, rows]: each code the bf16 rounding of a value
+    within rtol 1e-5 of max|ref| of the reference code (the backward's
+    bound on its fp32 codes, carried through the rounding, which is
+    monotone: a code near a rounding boundary may round to the other
+    side, a small one by several of its ulps); a ReLU flip only where the
+    reference lies within that of 0, at most one per million codes (at
+    least one allowed). r from the kernel's own Ctb: rtol 1e-5 of
+    max|ref|. Two runs bitwise equal; each part counted once a run (the
+    rounding pass once a rounded tensor)."""
+    n_m, b, n, d = shape
+    i = _inputs(card, n_m, b, n, d, seed=4)
+    e, bias, dec = i["e"], i["bias"], i["dec"]
+    x = i["x"] if batch_dtype == "float32" else i["x"].to(torch.bfloat16)
+    tied = form != "untied"
+    kernel = "sae_tied_fwd_bf16" if tied else "sae_untied_fwd_bf16"
+    cm = i["cm"] if form == "masked" else None
+    buf = {}
+    parts = ft.one_chunk_launches_bf16(kernel, e, bias, x, decoder=dec,
+                                       buffers=buf)
+    if cm is not None:
+        parts[f"{kernel}_codes"] = (lambda: ft.tied_fwd_bf16_codes(
+            buf["xb"], buf["wb"], bias, cm, buf["ct"]), 0.0)
+    names = list(parts)  # round, norms, codes, decode
+    assert names == [f"{kernel}_{p}"
+                     for p in ("round", "norms", "codes", "decode")]
+    _build.reset_launches()
+    runs = []
+    for _ in range(2):
+        for name in names:
+            parts[name][0]()
+        torch.cuda.synchronize()
+        runs.append([buf["ct"].clone(), buf["r"].clone()])
+    assert all(torch.equal(u, v) for u, v in zip(*runs))
+    rounds = (batch_dtype == "float32") + (not tied)  # x, the raw encoder
+    assert {p: _build.LAUNCHES[p] for p in names} == {
+        p: 2 * (rounds if p == names[0] else 1) for p in names}
+    f = lambda t: t.float()
+    xb, wb = buf["xb"], buf["wb"]
+    enc = wb if tied else buf["eb"]
+    ct = buf["ct"].view(n_m, n, b)
+    ref = torch.relu(f(enc) @ f(xb).t() + bias[:, :, None])
+    if cm is not None:
+        ref = ref * cm[:, :, None]
+    tol = 1e-5 * float(ref.abs().max())
+    got = f(ct)
+    flip = (got > 0) != (ref > 0)
+    assert int(flip.sum()) <= max(1, int(1e-6 * ref.numel())), int(flip.sum())
+    assert bool((ref[flip].abs() <= tol).all())
+    lo = f((ref - tol).clamp_min(0.0).to(torch.bfloat16))
+    hi = f((ref + tol).to(torch.bfloat16))
+    if cm is not None:
+        lo, hi = lo * cm[:, :, None], hi * cm[:, :, None]
+    inside = (lo <= got) & (got <= hi)
+    assert bool(inside.all()), (int((~inside).sum()),
+                                int((ct != ref.to(torch.bfloat16)).sum()))
+    _close(buf["r"], f(ct).transpose(1, 2) @ f(wb) - f(x), 1e-5)
+
+
+@pytest.mark.cuda
 def test_bf16_moment_epilogues_match_plain(card):
     """The Adam epilogues with bf16 moments against their plain versions:
     params within rtol 1e-5, each moment within one bf16 ulp (at most 2⁻⁷
