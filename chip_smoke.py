@@ -7,13 +7,11 @@ Phases — any failure raises, and the script exits non-zero with no result:
 1. card: name and power limit (nvidia-smi), then all eight CUDA kernels
    are built from ``sparse_coding_tpu_torch/ops/csrc`` (one nvcc per
    source, all started together), with their ptxas register and spill
-   lines — every instantiation of the fp32 GEMM template among them (in
-   big_sae_fwd, big_sae_bwd, sae_tied_fwd, sae_tied_bwd, sae_untied_fwd
-   and sae_untied_bwd), of the bf16 mma.sync one (in big_sae_fwd alone)
-   and of the bf16 TMA + wgmma one (in the two ensemble forwards, the two
-   ensemble backwards and big_sae_bwd, and nowhere else), where any spill
-   fails the run; those five libraries' SASS must hold HGMMA
-   instructions;
+   lines — every instantiation of the fp32 GEMM template and of the
+   bf16 TMA + wgmma one among them, each in exactly the six chunked
+   kernels (big_sae_fwd, big_sae_bwd, sae_tied_fwd, sae_tied_bwd,
+   sae_untied_fwd and sae_untied_bwd), where any spill fails the run;
+   those six libraries' SASS must hold HGMMA instructions;
 2. kernels: each ensemble kernel (sae_tied_fwd, sae_tied_bwd,
    sae_tied_adam_vjp, sae_untied_fwd, sae_untied_bwd, sae_untied_adam_vjp)
    and each contract
@@ -25,7 +23,8 @@ Phases — any failure raises, and the script exits non-zero with no result:
    card, at the main path's shapes and at small odd shapes up to the
    kernels' widest d (40, 600, 768 and the LM widths 1000, 1024, 2048,
    3072 and 4096, the widest); each kernel and its plain version are timed at
-   the main path's shapes;
+   the main path's shapes, the tied Adam epilogue's share of its byte
+   bound logged beside its ms;
 3. tied main path: a synthetic activation store (d=512) is written with
    the port's ChunkWriter, then ``basic_l1_sweep`` trains 32 tied SAEs (an
    L1 grid, ratio 4, batch 2048) for one epoch (208 steps, metrics at
@@ -105,7 +104,8 @@ Phases — any failure raises, and the script exits non-zero with no result:
    step and no fp32 forward or backward does, the losses are finite and
    each member's mse stays within RTOL_BF16_MSE of the fp32 kernel
    path's from the same init on the same batches; (d) each bf16 form
-   and its launches timed beside its plain version (the products with
+   and its launches timed beside its plain version (the tied Adam
+   epilogue with bf16 moments with its share of its bound; the products with
    their TFLOP/s, the backwards' beside one cuBLAS bf16 ``torch.bmm`` of
    each product's shape, a yardstick the port never calls), the step's
    ms and acts/s beside the fp32 path's; (e) the bf16 forms join the kernels
@@ -131,8 +131,9 @@ Phases — any failure raises, and the script exits non-zero with no result:
    d=1024, n=16,384, batch 16,384 (15 iterations) and at the capacity
    shape n=131,072 (5), activations/s from synced windows — an
    out-of-memory error on autodiff is that variant's result; (d) each
-   bf16 form and each of its launches timed beside its plain version, the
-   bf16 step's ms and acts/s beside the fp32 step's; (e) the two forms
+   bf16 form and each of its launches timed beside its plain version (K8
+   bf16's per launch: round, codes, decode), the bf16 step's ms and
+   acts/s beside the fp32 step's; (e) the two forms
    join the kernels line;
 12. the model zoo (the rest of slice 1 and the sweep's group
    experiments): (a) the JAX package's recovery gate
@@ -180,7 +181,10 @@ Phases — any failure raises, and the script exits non-zero with no result:
    before), finite losses, eval.json ordering the grid, artifacts that
    load, acts/s; (d) the same untied on the untied kernels; (e) for both
    families 3 steps on the kernels and 3 on autodiff from one init on the
-   same batches at phase 6's bounds; (f) ``scrub_store`` over (a)'s store
+   same batches at phase 6's bounds, then each ensemble kernel at that
+   shape against its plain version and timed, the tied Adam epilogue
+   (fp32 and bf16 moments) with its share of its bound; (f)
+   ``scrub_store`` over (a)'s store
    reads clean, names a chunk with one flipped byte, and with repair
    quarantines it;
 14. evaluate on the card, on phase 13's LM, stores and tied ``mlp.2``
@@ -825,6 +829,20 @@ def time_pairs(pairs: dict) -> dict:
                      "library_ms": None}
         log(f"  {name}: kernel {min(k1, k2):.3f} ms, plain "
             f"{min(p1, p2):.3f} ms")
+    return out
+
+
+def bound_shares(timing: dict, bnds: dict, names, note: str = "") -> dict:
+    """Each kernel of ``names``: its ms beside its bound ms, and the share
+    of its bound it reaches (bound / ms), logged."""
+    out = {}
+    for name in names:
+        ms, b = timing[name]["ms"], bnds[name]
+        out[name] = {"ms": ms, "bound_ms": b["bound_ms"],
+                     "bound_by": b["bound_by"], "share": b["bound_ms"] / ms}
+        log(f"  {name}{note}: {ms:.3f} ms against its bound "
+            f"{b['bound_ms']:.3f} ms ({b['bound_by']}): "
+            f"{100 * b['bound_ms'] / ms:.1f}% of it")
     return out
 
 
@@ -3192,6 +3210,8 @@ def bf16_phase(x_main: torch.Tensor, batches: list, l1_values,
     nnz = active_codes(inp)
     report["bounds"] = bf16_bounds(inp, nnz)
     report["timing"] = bf16_time_kernels(inp)
+    report["adam_bound_share"] = bound_shares(
+        report["timing"], report["bounds"], ("sae_tied_adam_vjp_bf16",))
     del inp
     torch.cuda.empty_cache()
     n_m, b, n, d = RATIO16_SHAPE
@@ -3384,6 +3404,11 @@ def big_bf16_extras(p: dict, x: torch.Tensor) -> dict:
         once = (f"{name}_round", "big_sae_bwd_bf16_dctr")
         per_call = sum(v["ms"] * (1 if k in once else len(chunks))
                        for k, v in parts.items())
+        if name == "big_sae_fwd_bf16":
+            log("  big_sae_fwd_bf16 per launch (wgmma): " + ", ".join(
+                f"{k.removeprefix(name + '_')} {v['ms']:.3f} ms"
+                + (f" ({v['tflops']:.0f} TFLOP/s)" if v["tflops"] else "")
+                for k, v in parts.items()))
         log(f"  {len(chunks)} chunks: {name}'s launches sum to "
             f"{per_call:.2f} ms a call")
         out[name].update({"parts": parts, "parts_sum_ms": per_call})
@@ -3900,6 +3925,9 @@ def lm_kernels(x: torch.Tensor) -> dict:
     out["active_codes"] = nnz
     out["bounds"] = {**bounds(inp, nnz), **bf16_bounds(inp, nnz)}
     out["timing"] = {**time_kernels(inp), **bf16_time_kernels(inp)}
+    out["adam_bound_share"] = bound_shares(
+        out["timing"], out["bounds"],
+        ("sae_tied_adam_vjp", "sae_tied_adam_vjp_bf16"), f" (d={d})")
     del inp
     torch.cuda.empty_cache()
     return out
@@ -5933,9 +5961,9 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     log(f"  built {list(_build.KERNELS)} in {report['build_s']:.1f} s")
     spills, entry = [], ""
-    # the three GEMM templates' kernels: fp32 SIMT (sgemm_simt.cuh), bf16
-    # mma.sync (bgemm_mma.cuh), bf16 TMA + wgmma (bgemm_wgmma.cuh)
-    templates = ("sgemm_kernel", "bgemm_kernel", "wgemm_kernel")
+    # the two GEMM templates' kernels: fp32 SIMT (sgemm_simt.cuh), bf16
+    # TMA + wgmma (bgemm_wgmma.cuh)
+    templates = ("sgemm_kernel", "wgemm_kernel")
     inst = {t: {name: 0 for name in _build.KERNELS} for t in templates}
     for name in _build.KERNELS:
         for line in (out / f"{name}.log").read_text().splitlines():
@@ -5953,31 +5981,25 @@ def main() -> int:
                 spills.append(f"{name}: {entry.strip()}: {line.strip()}")
     if spills:
         raise AssertionError(f"ptxas spilled in a GEMM template: {spills}")
-    gemms, bgemms, wgemms = ({k: v for k, v in inst[t].items() if v}
-                             for t in templates)
+    gemms, wgemms = ({k: v for k, v in inst[t].items() if v}
+                     for t in templates)
     log(f"  GEMM template instantiations, no spills: fp32 {gemms}; bf16 "
-        f"mma.sync {bgemms}; bf16 wgmma {wgemms}")
-    if set(gemms) != {"big_sae_fwd", "big_sae_bwd", "sae_tied_fwd",
-                      "sae_tied_bwd", "sae_untied_fwd", "sae_untied_bwd"}:
+        f"wgmma {wgemms}")
+    # every chunked kernel runs its fp32 products on the SIMT template and
+    # its bf16 form's on wgmma, and no other kernel instantiates either
+    chunked_libs = {"big_sae_fwd", "big_sae_bwd", "sae_tied_fwd",
+                    "sae_tied_bwd", "sae_untied_fwd", "sae_untied_bwd"}
+    if set(gemms) != chunked_libs:
         raise AssertionError(f"GEMM template instantiations in {gemms}")
-    # K8 bf16's products on mma.sync; the two ensemble bf16 forwards' and
-    # the three bf16 backwards' (the two ensemble ones and K9's) on wgmma,
-    # and nothing else there
-    wgmma_libs = {"sae_tied_fwd", "sae_untied_fwd", "sae_tied_bwd",
-                  "sae_untied_bwd", "big_sae_bwd"}
-    if set(bgemms) != {"big_sae_fwd"}:
-        raise AssertionError(f"mma.sync bf16 GEMM template instantiations "
-                             f"in {bgemms}")
-    if set(wgemms) != wgmma_libs:
+    if set(wgemms) != chunked_libs:
         raise AssertionError(f"wgmma bf16 GEMM template instantiations in "
                              f"{wgemms}")
     hgmma = {name: sass_count(out / f"lib{name}.so", "HGMMA")
-             for name in sorted(wgmma_libs)}
+             for name in sorted(chunked_libs)}
     log(f"  HGMMA instructions in the SASS: {hgmma}")
     if not all(hgmma.values()):
         raise AssertionError(f"no HGMMA in the wgmma libraries' SASS: "
                              f"{hgmma}")
-    report["bf16_gemm_instantiations"] = bgemms
     report["wgmma_gemm_instantiations"] = wgemms
     report["hgmma_sass"] = hgmma
 
@@ -6014,6 +6036,8 @@ def main() -> int:
         timing = time_kernels(main_inp)
         bnd = bounds(main_inp, nnz)
         report["active_codes"] = nnz
+        report["adam_bound_share"] = bound_shares(
+            timing, bnd, ("sae_tied_adam_vjp",))
         del main_inp
         torch.cuda.empty_cache()
         checks["ratio16"] = check_chunked(

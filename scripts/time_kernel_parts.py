@@ -25,8 +25,9 @@ one CUDA card and print one JSON line.
   sampled (``nvidia-smi``, every 50 ms) while the whole calls run;
 - the big SAE's bf16 forms (``big_sae_fwd_bf16``, ``big_sae_bwd_bf16``)
   at the big-SAE shape: whole calls in ``WINDOWS`` windows with the card
-  sampled, K9 bf16's launches on its first chunk (5,440 rows;
-  ``fused_big_sae.one_chunk_launches``) with the products' TFLOP/s, the
+  sampled, K8 bf16's launches on its first chunk (32,768 rows: round,
+  codes, decode) and K9 bf16's on its first (5,440 rows;
+  ``fused_big_sae.one_chunk_launches``) with the products' TFLOP/s, K9's
   later chunks' de and dwn (which add to the grads, ``_acc``), and beside
   each product one cuBLAS bf16 ``torch.mm`` of its shape (a yardstick;
   the port never calls it);
@@ -35,10 +36,18 @@ one CUDA card and print one JSON line.
   whole call of each in ``WINDOWS`` windows with the card sampled, each
   of its launches on one chunk of every member (round, norms, codes,
   decode) with the products' TFLOP/s, and one cuBLAS bf16 ``torch.bmm``
-  of each product's shape.
+  of each product's shape;
+- the tied Adam epilogue (``sae_tied_adam_vjp``, K4) with fp32 and with
+  bf16 moments, with and without the bias group, at the canonical shape
+  and at phase 13's (16 members, n=8192, d=2048), then without the bias
+  group over d = 512, 1024, 2048, 4096 at the canonical shape's element
+  count (a row's width alone changing); the untied one
+  (``sae_untied_adam_vjp``, K6) at the first two shapes as a control.
+  Each in ``WINDOWS`` windows with its byte bound (each input read once,
+  each output written once, at 3.35 TB/s) and its achieved TB/s.
 
 ``--only`` picks the groups (``big``, ``ensemble``, ``bf16_bwd``,
-``big_bf16``, ``bf16_fwd``; all by default). A window is a CUDA-event
+``big_bf16``, ``bf16_fwd``, ``adam``; all by default). A window is a CUDA-event
 mean over ``--iters`` launches after one warm-up. The kernels of the checkout in
 the working directory are built and timed, so two checkouts compare on
 one card by running this script from each root in turns (A, B, B, A), in
@@ -312,12 +321,14 @@ def big_bf16(g: torch.Generator, iters: int) -> dict:
         out[name]["card"] = card.stats
         torch.cuda.empty_cache()
     gemm = 2.0 * rows * n * d
-    parts = fb.one_chunk_launches("big_sae_bwd_bf16", p, xc, r, al)
-    for k, (fn, flops) in parts.items():
-        out[k] = windows_ms(fn, iters)
-        if flops:
-            out[k]["tflops"] = flops / out[k]["ms"] / 1e9
-    del parts
+    for kernel in ("big_sae_fwd_bf16", "big_sae_bwd_bf16"):
+        parts = fb.one_chunk_launches(kernel, p, xc, r, al)
+        for k, (fn, flops) in parts.items():
+            out[k] = windows_ms(fn, iters)
+            if flops:
+                out[k]["tflops"] = flops / out[k]["ms"] / 1e9
+        del parts
+        torch.cuda.empty_cache()
     h = {"dtype": torch.bfloat16, "device": "cuda"}
     xk, rk = xc[:rows].to(torch.bfloat16), r[:rows].to(torch.bfloat16)
     eb, wnb = p["encoder"].to(torch.bfloat16), p["dict"].to(torch.bfloat16)
@@ -337,8 +348,102 @@ def big_bf16(g: torch.Generator, iters: int) -> dict:
     for k, fn in timed.items():
         out[k] = windows_ms(fn, iters)
         out[k]["tflops"] = gemm / out[k]["ms"] / 1e9
-    del xk, rk, eb, wnb, cb, gb, de, dwn, c_out, de_out, dwn_out
+    del xk, rk, cb, gb, de, dwn, c_out, de_out, dwn_out
     torch.cuda.empty_cache()
+    # K8 bf16's products at its chunk's rows: [rows, d] · [d, n] (codes)
+    # and [rows, n] · [n, d] (decode)
+    fwd_rows = fb.fwd_chunk_rows(b, n, bf)
+    out["fwd_rows"] = fwd_rows
+    xf = xc[:fwd_rows].to(torch.bfloat16)
+    cf = torch.randn((fwd_rows, n), **h)
+    xhat = torch.empty((fwd_rows, d), **h)
+    fwd_gemm = 2.0 * fwd_rows * n * d
+    for k, fn in {"mm_fwd_codes": lambda: torch.mm(xf, eb, out=cf),
+                  "mm_decode": lambda: torch.mm(cf, wnb, out=xhat)}.items():
+        out[k] = windows_ms(fn, iters)
+        out[k]["tflops"] = fwd_gemm / out[k]["ms"] / 1e9
+    del xf, cf, xhat, eb, wnb
+    torch.cuda.empty_cache()
+    return out
+
+
+HBM_BYTES_PER_S = 3.35e12  # an H100 SXM's device memory rate
+# (members, n, d): the canonical ensemble shape, phase 13's, then d swept
+# at the canonical shape's element count
+ADAM_SHAPES = {"canonical": (32, 2048, 512), "lm": (16, 8192, 2048)}
+ADAM_SWEEP = {f"d{d}": (32, 2048 * 512 // d, d) for d in (512, 1024, 2048,
+                                                         4096)}
+
+
+def adam_inputs(g: torch.Generator, shape: tuple, moments, untied: bool):
+    """An Adam epilogue's inputs at ``shape``: the raw dictionary (glorot)
+    and its dW, a mid-training state (moments in ``moments``), per-member
+    lr and bias corrections; for the untied one the decoder's too."""
+    n_m, n, d = shape
+    kw = {"dtype": torch.float32, "device": "cuda"}
+    lim = math.sqrt(6.0 / (n + d))
+
+    def side():
+        w = (torch.rand((n_m, n, d), generator=g, **kw) * 2 - 1) * lim
+        dw = torch.randn((n_m, n, d), generator=g, **kw) * 1e-3
+        mu = (torch.randn((n_m, n, d), generator=g, **kw) * 1e-3).to(moments)
+        nu = ((torch.rand((n_m, n, d), generator=g, **kw) + 0.5)
+              * 1e-6).to(moments)
+        return [w, dw, mu, nu]
+
+    args = side() + (side() if untied else [])
+    hyp = [torch.full((n_m,), v, **kw) for v in (1e-3, 0.5, 0.01)]
+    return args + hyp
+
+
+def with_bound(rec: dict, nbytes: float) -> dict:
+    """``rec`` (a ``windows_ms`` record) with the bytes the call must move
+    (each input read once, each output written once), its byte bound, the
+    share of it reached and the achieved TB/s."""
+    bound = 1e3 * nbytes / HBM_BYTES_PER_S
+    rec.update(bytes=nbytes, bound_ms=bound, share=bound / rec["ms"],
+               tbps=nbytes / rec["ms"] / 1e9)
+    return rec
+
+
+def adam(g: torch.Generator, iters: int) -> dict:
+    """The tied Adam epilogue with fp32 and bf16 moments (with and without
+    the bias group) at ADAM_SHAPES and, without it, over ADAM_SWEEP; the
+    untied one at ADAM_SHAPES as a control. Each: ``windows_ms``, the
+    bytes it must move, its bound and achieved TB/s."""
+    from sparse_coding_tpu_torch.ops import fused_sae as fs
+
+    out = {}
+    cases = [(tag, shape, bias) for tag, shape in ADAM_SHAPES.items()
+             for bias in (False, True)]
+    cases += [(tag, shape, False) for tag, shape in ADAM_SWEEP.items()]
+    for moments in (torch.float32, torch.bfloat16):
+        mb = torch.finfo(moments).bits // 8
+        mname = "bf16" if moments == torch.bfloat16 else "f32"
+        for tag, shape, bias in cases:
+            n_m, n, d = shape
+            args = adam_inputs(g, shape, moments, untied=False)
+            kw = {}
+            if bias:
+                rows = lambda s: torch.randn((n_m, n), generator=g,
+                                             device="cuda") * s
+                kw = dict(bias=rows(0.01), db=rows(1e-3), mu_b=rows(1e-3),
+                          nu_b=rows(1e-6).abs())
+            nbytes = (3 * 4 + 4 * mb) * n_m * n * d + 12 * n_m + (
+                28 * n_m * n if bias else 0)
+            key = f"tied_{mname}_{tag}" + ("_bias" if bias else "")
+            out[key] = with_bound(windows_ms(
+                lambda: fs.sae_tied_adam_vjp(*args, **kw), iters), nbytes)
+            del args, kw
+            torch.cuda.empty_cache()
+        for tag, shape in ADAM_SHAPES.items():
+            n_m, n, d = shape
+            args = adam_inputs(g, shape, moments, untied=True)
+            nbytes = (6 * 4 + 8 * mb) * n_m * n * d + 12 * n_m
+            out[f"untied_{mname}_{tag}"] = with_bound(windows_ms(
+                lambda: fs.sae_untied_adam_vjp(*args), iters), nbytes)
+            del args
+            torch.cuda.empty_cache()
     return out
 
 
@@ -346,7 +451,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--only",
-                    default="big,ensemble,bf16_bwd,big_bf16,bf16_fwd",
+                    default="big,ensemble,bf16_bwd,big_bf16,bf16_fwd,adam",
                     help="comma-separated groups to time")
     args = ap.parse_args()
     groups = args.only.split(",")
@@ -377,6 +482,10 @@ def main() -> int:
         out["bf16_fwd"] = {
             tag: bf16_fwd(g, args.iters, shape)
             for tag, shape in BF16_SHAPES.items()}
+    if "adam" in groups:
+        with CardSampler() as sampled:
+            out["adam"] = adam(g, args.iters)
+        out["adam"]["card"] = sampled.stats
     print(json.dumps(out))
     return 0
 

@@ -1,8 +1,9 @@
 // bgemm_wgmma.cuh — a bf16 tensor-core matrix product for Hopper (sm_90a):
 // TMA tile loads into a ring of shared-memory stages, wgmma from shared
-// memory, fp32 accumulation. It has bgemm_mma.cuh's interface (Operand,
-// run<AKContig, BKContig>, which here also takes whether the epilogue
-// reads, and the Epi functors) and carries the products of
+// memory, fp32 accumulation. Its interface is the fp32 template's
+// (sgemm_simt.cuh: Operand, run<AKContig, BKContig>, which here also takes
+// whether the epilogue reads, and the same Epi functors). It carries every
+// bf16 product of the port: those of
 // the two ensemble backwards' bf16 forms (sae_bwd_bf16.cuh), which replace
 // the TPU kernel sparse_coding_tpu/ops/fused_sae_tiled.py:230 _bwd_kernel
 // (pallas_call :439) under compute_dtype="bfloat16", and its whole-dict
@@ -11,8 +12,11 @@
 // which replace fused_sae_tiled.py:191 _fwd_kernel (pallas_call :375); and
 // the four products of the big SAE's bf16 backward (big_sae_bwd.cu, one
 // product a launch), which replaces fused_big_sae.py:253 big_sae_backward
-// (pallas_call :298) under compute_dtype="bfloat16": every dot operand
-// rounded to bf16, the sums in fp32.
+// (pallas_call :298) under compute_dtype="bfloat16"; and the two products
+// of the big SAE's bf16 forward (big_sae_fwd.cu, one product a launch),
+// which replaces fused_big_sae.py:214 big_sae_forward (pallas_call :234)
+// under compute_dtype="bfloat16": every dot operand rounded to bf16, the
+// sums in fp32.
 //
 // Bound: the products at the bf16 tensor cores' 989 TFLOP/s dense where K
 // is long (the weight grads, K = a chunk's rows; all four at d=2048);
@@ -67,7 +71,10 @@
 // 0.69, 0.93 and 0.64 ms to 0.47, 0.71 and 0.31 ms at the canonical shape
 // (scripts/time_kernel_parts.py).
 //
-// Raster: M tiles fastest when M <= N, else N tiles (bgemm_mma.cuh's).
+// Raster: M tiles fastest when M <= N, else N tiles, so the blocks in
+// flight share the smaller operand's tiles and walk the larger one (the
+// big SAE's decode, M = 32,768 rows by N = d = 1,024: a row tile's four N
+// tiles run together, and all of Wn, 32 MB in bf16, fits the 50 MB L2).
 #pragma once
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and its enums only

@@ -36,17 +36,26 @@
 // two calls give the same bits. NaN survives the ReLU.
 //
 // The bf16-compute form (big_sae_fwd_bf16_*, compute_dtype="bfloat16"):
-// the same schedule with both products on the tensor-core template
-// (bgemm_mma.cuh) and the JAX package's casts (fused_big_sae.py
-// _fwd_kernel): xc and the raw E rounded to bf16 once a call, Wn
-// normalized in fp32 (by the wrapper) then rounded, the codes rounded by
-// the codes epilogue into Ctb [n, rows] — the decode's operand, as the JAX
-// package's c.astype(bf16) . Wn; fp32 accumulation and ReLU. A bf16 code
-// takes 2 bytes, so a chunk holds twice the rows (32,768 at the trainer's
-// shape: 2 chunks). Bound: 4*B*n*d bf16 FLOPs (the decode's only over the
-// active codes) at 989 TFLOP/s, about 3.4 ms at the trainer's shape with
-// half the codes active, against 0.67 GB of bytes = 0.2 ms.
-#include "bgemm_mma.cuh"
+// the same schedule with both products on the Hopper tensor-core template
+// (bgemm_wgmma.cuh: TMA loads into an mbarrier ring, wgmma, the epilogue
+// staged through shared memory; one product a launch, Z = 1) and the JAX
+// package's casts (fused_big_sae.py _fwd_kernel): xc and the raw E rounded
+// to bf16 once a call, Wn normalized in fp32 (by the wrapper) then
+// rounded, the codes rounded by the codes epilogue into Ctb [n, rows] —
+// the decode's operand, as the JAX package's c.astype(bf16) . Wn; fp32
+// accumulation and ReLU. A bf16 code takes 2 bytes, so a chunk holds twice
+// the rows (32,768 at the trainer's shape: 2 chunks). Layouts on the
+// template: codes A = Eb [d, n] M-contiguous (row stride n, shared by the
+// whole grid), B = xb K-contiguous (run<false, true>), into the
+// feature-major Ctb through the ensemble forwards' codes epilogue; decode
+// A = Ctb [n, rows] M-contiguous, B = Wnb [n, d] N-contiguous
+// (run<false, false>), the epilogue storing fp32 x-hat. Both epilogues
+// only store, and K = d = 1,024 and K = n = 16,384 are past kWideK, so
+// both take the 128 x 256 tile at the trainer's shape. Bound: 4*B*n*d bf16
+// FLOPs (the decode's only over the active codes) at 989 TFLOP/s, about
+// 3.4 ms at the trainer's shape with half the codes active, against
+// 0.67 GB of bytes = 0.2 ms.
+#include "bgemm_wgmma.cuh"
 #include "sae_chunked.cuh"
 
 using sgemm::Operand;
@@ -101,9 +110,9 @@ extern "C" int big_sae_fwd_bf16_codes(const sae::bf16* xb,
   if (!sae::big_chunk_ok_bf16(rows, n, d)) return (int)cudaErrorInvalidValue;
   const sae::CodesEpi<true> epi{t, nullptr, n, rows, 0,
                                 sae::aligned8(Ctb, rows, rows), nullptr, Ctb};
-  return (int)bgemm::run<false, true>(bgemm::Operand{Eb, n, 0},
-                                      bgemm::Operand{xb, d, 0}, n, rows, d,
-                                      epi, (cudaStream_t)stream);
+  return (int)wgemm::run<false, true>(wgemm::Operand{Eb, n, 0},
+                                      wgemm::Operand{xb, d, 0}, n, rows, d,
+                                      epi, false, (cudaStream_t)stream);
 }
 
 // xhat [rows, d] = Ctb [n, rows]^T . Wnb [n, d]
@@ -113,7 +122,7 @@ extern "C" int big_sae_fwd_bf16_decode(const sae::bf16* Ctb,
   if (!sae::big_chunk_ok_bf16(rows, n, d)) return (int)cudaErrorInvalidValue;
   const sgemm::AccumEpi epi{xhat, d, 0, aligned16(xhat, d, d), true, false,
                             1.f};
-  return (int)bgemm::run<false, false>(bgemm::Operand{Ctb, rows, 0},
-                                       bgemm::Operand{Wnb, d, 0}, rows, d, n,
-                                       epi, (cudaStream_t)stream);
+  return (int)wgemm::run<false, false>(wgemm::Operand{Ctb, rows, 0},
+                                       wgemm::Operand{Wnb, d, 0}, rows, d, n,
+                                       epi, false, (cudaStream_t)stream);
 }

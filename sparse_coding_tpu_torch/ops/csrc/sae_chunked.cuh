@@ -5,8 +5,7 @@
 // (sgemm_simt.cuh), the ensembles' with the members on the grid's z: the
 // row-norm pass, the codes and residual epilogues, the per-feature sums of
 // a chunk's codes and dpre, and the loss terms. The bf16-compute forms of
-// the six chunked kernels (the big SAE's forward on bgemm_mma.cuh, the
-// two ensemble forwards and the three backwards on bgemm_wgmma.cuh) take
+// the six chunked kernels (their products on bgemm_wgmma.cuh) take
 // the same pieces with their bf16 stores: the norm pass's bf16
 // dictionary, the codes epilogue's bf16 codes, the dpre epilogue's bf16
 // copy of dpre, the residual epilogue's bf16 batch, and a rounding pass

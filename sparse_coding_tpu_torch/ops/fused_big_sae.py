@@ -34,8 +34,8 @@ raises.
 ``compute_dtype="bfloat16"`` (the JAX package's bf16 compute) takes each
 kernel's bf16 form (``big_sae_fwd_bf16``, ``big_sae_bwd_bf16``): the same
 schedule with its products on bf16 tensor cores with fp32 accumulation
-(the forward's on ``csrc/bgemm_mma.cuh``, ``mma.sync``; the backward's on
-``csrc/bgemm_wgmma.cuh``, TMA loads and ``wgmma``) and the JAX package's
+(both kernels' on ``csrc/bgemm_wgmma.cuh``, TMA loads and ``wgmma``, one
+product a launch) and the JAX package's
 casts — xc, the raw encoder, Wn (normalized in fp32 first), r, the codes
 and dpre rounded to bf16 where they enter a product; the ReLU, the
 masks, dt, c_totals and the l1/l0 sums stay fp32, and dctr sums the

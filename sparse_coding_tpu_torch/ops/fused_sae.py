@@ -113,7 +113,7 @@ def sae_tied_adam_vjp(encoder, dw, mu, nu, lrs, bc1, bc2,
                       bias=None, db=None, mu_b=None, nu_b=None):
     """See :func:`sae_tied_adam_vjp_plain`. CUDA: launches
     ``sae_tied_adam_vjp`` (bf16 moments: ``sae_tied_adam_vjp_bf16``); the
-    per-block update partials are summed here in a fixed order."""
+    per-row update partials are summed here in a fixed order."""
     n_members, n_feats, d = encoder.shape
     bf16_moments = _moments("sae_tied_adam_vjp", mu, nu)
     group = (bias, db, mu_b, nu_b)
@@ -143,8 +143,8 @@ def sae_tied_adam_vjp(encoder, dw, mu, nu, lrs, bc1, bc2,
                          "must be 0")
     e2, mu2, nu2 = (torch.empty_like(encoder), torch.empty_like(mu),
                     torch.empty_like(nu))
-    part = torch.empty((n_members, n_feats // _build.ADAM_ROWS),
-                       dtype=torch.float32, device=encoder.device)
+    part = torch.empty((n_members, n_feats), dtype=torch.float32,
+                       device=encoder.device)
     bias_out = None
     ptrs = [0] * 7
     if bias is not None:

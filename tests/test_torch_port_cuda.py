@@ -135,6 +135,116 @@ def test_adam_vjp_kernel_matches_plain(card, with_bias):
             _close(g, r, 1e-5)
 
 
+# sae_tied_adam_vjp at widths that take each row layout: one warp a row
+# (1, 40), two (600, 1000), four (2048), eight (4096, kMaxD) and the
+# widths past it, whose threads read the rest of the row again in each
+# pass (4100: fp32 rows on 16 bytes, bf16 ones not; 5000)
+ADAM_WIDTHS = [1, 40, 600, 1000, 2048, 4096, 4100, 5000]
+MOMENTS = ["float32", "bfloat16"]
+
+
+def _adam_args(card, d, moments, with_bias, seed=0):
+    """(args, kw) of sae_tied_adam_vjp on 2 members x 16 rows x d: the
+    moments in ``moments``, the bias group when ``with_bias``."""
+    i = _inputs(card, 2, 32, 16, d, seed)
+    h = getattr(torch, moments)
+    args = (i["e"], i["dw"], i["mu"].to(h), i["nu"].to(h), i["lrs"],
+            i["bc1"], i["bc2"])
+    kw = {}
+    if with_bias:
+        kw = dict(bias=i["bias"], db=i["dw"][:, :, 0].contiguous(),
+                  mu_b=i["mu"][:, :, -1].contiguous(),
+                  nu_b=i["nu"][:, :, -1].contiguous())
+    return args, kw
+
+
+def _adam_close(got, ref):
+    """The epilogue against its plain version: E', un_sq and the bias
+    group within rtol 1e-5 of max|ref|; a moment fp32 within the same, bf16
+    within one bf16 ulp (2⁻⁷ of it) plus 1e-5 of max|ref| (its fp32 value a
+    few ulps apart may round to the neighbouring bf16)."""
+    for a, b in zip(got[:4], ref[:4]):
+        assert a.dtype == b.dtype
+        if a.dtype == torch.bfloat16:
+            bound = (b.float().abs() * 2.0**-7
+                     + 1e-5 * float(b.float().abs().max()))
+            assert bool(((a.float() - b.float()).abs() <= bound).all())
+        else:
+            _close(a, b, 1e-5)
+    assert (got[4] is None) == (ref[4] is None)
+    for a, b in zip(got[4] or (), ref[4] or ()):
+        _close(a, b, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("moments", MOMENTS)
+@pytest.mark.parametrize("d", ADAM_WIDTHS)
+def test_adam_vjp_kernel_matches_plain_at_every_width(card, d, moments,
+                                                      with_bias):
+    """The tied Adam epilogue, fp32 and bf16 moments, with and without the
+    bias group, against its plain version; one launch of the moments'
+    form."""
+    args, kw = _adam_args(card, d, moments, with_bias)
+    _build.reset_launches()
+    got = fs.sae_tied_adam_vjp(*args, **kw)
+    torch.cuda.synchronize()
+    name = ("sae_tied_adam_vjp_bf16" if moments == "bfloat16"
+            else "sae_tied_adam_vjp")
+    assert _build.LAUNCHES[name] == 1
+    _adam_close(got, fs.sae_tied_adam_vjp_plain(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moments", MOMENTS)
+@pytest.mark.parametrize("d", [40, 2048])
+def test_adam_vjp_kernel_takes_tensors_off_16_bytes(card, d, moments):
+    """E, dW, mu and nu each one element past a 16-byte boundary (the
+    kernel then loads and stores an element at a time) give the plain
+    version's values, and the aligned call's bits."""
+    args, kw = _adam_args(card, d, moments, True)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    moved = [shifted(t) if t.dim() == 3 else t for t in args]
+    assert all(t.data_ptr() % 16 for t in moved if t.dim() == 3)
+    got = fs.sae_tied_adam_vjp(*moved, **kw)
+    _adam_close(got, fs.sae_tied_adam_vjp_plain(*args, **kw))
+    want = fs.sae_tied_adam_vjp(*args, **kw)
+    for a, b in zip(got[:4], want[:4]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moments", MOMENTS)
+@pytest.mark.parametrize("d", [512, 2048, 5000])
+def test_adam_vjp_kernel_repeats_bitwise_and_keeps_nan(card, d, moments):
+    """Two calls give the same bits; a NaN in one row's dW makes that
+    row's E', moments and its member's un_sq NaN, as in the plain version,
+    and leaves every other row as the plain version has it."""
+    args, kw = _adam_args(card, d, moments, True)
+    got = fs.sae_tied_adam_vjp(*args, **kw)
+    again = fs.sae_tied_adam_vjp(*args, **kw)
+    for a, b in zip((*got[:4], *got[4]), (*again[:4], *again[4])):
+        assert torch.equal(a, b)
+    dw = args[1].clone()
+    dw[1, 5, d // 2] = float("nan")
+    args = (args[0], dw, *args[2:])
+    got = fs.sae_tied_adam_vjp(*args, **kw)
+    ref = fs.sae_tied_adam_vjp_plain(*args, **kw)
+    for a, b in zip(got[:3], ref[:3]):
+        assert torch.equal(a.isnan(), b.isnan())
+        assert bool(a[1, 5].isnan().all())
+    assert bool(got[3][1].isnan()) and bool(got[3][0].isfinite())
+    rows = torch.arange(16, device=card) != 5
+    _adam_close((*(t[:, rows] for t in got[:3]), got[3][:1], got[4]),
+                (*(t[:, rows] for t in ref[:3]), ref[3][:1], ref[4]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("family", FAMILIES)
 def test_nan_propagates_through_the_kernels(card, family):

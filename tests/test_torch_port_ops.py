@@ -299,6 +299,54 @@ def test_k4_fused_tied_adam_vjp_update(inp, family):
         _close(g, r, LOSS_TOL, name)
 
 
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_k4_plain_matches_jax_at_a_wide_row(moments):
+    """sae_tied_adam_vjp_plain with the bias group against K4
+    fused_tied_adam_vjp_update in interpret mode and the engine's
+    _bias_adam_update at a row 2,048 wide (2 members x 16 rows), the width
+    from which the CUDA kernel spreads a row over several warps. fp32 and
+    bf16 moments (rounded once, the same bits on both sides): E', un_sq,
+    fp32 moments and the bias group at LOSS_TOL; bf16 moments within one
+    bf16 ulp (2⁻⁷ of each) plus 1e-5 of max|ref|."""
+    from types import SimpleNamespace
+
+    from sparse_coding_tpu.ensemble import _bias_adam_update
+
+    b1, b2, eps = ADAM
+    inp = kernel_inputs(seed=4, n_members=2, d=2048, n_feats=16, batch=32)
+    jmom, tmom = [], []
+    for k in ("mu", "nu"):
+        j = jnp.asarray(inp[k]).astype(getattr(jnp, moments))
+        jmom.append(j)
+        tmom.append(_t(np.asarray(j.astype(jnp.float32))).to(
+            getattr(torch, moments)))
+    hyp = ("lrs", "bc1", "bc2")
+    ref = jfs.fused_tied_adam_vjp_update(
+        _j(inp["e"]), _j(inp["dw"]), *jmom, *(_j(inp[k]) for k in hyp),
+        ftile=8, interpret=True, b1=b1, b2=b2, eps=eps)
+    db = inp["dw"][:, :, 0].copy()
+    opt = SimpleNamespace(mu={"encoder_bias": _j(inp["mu_b"])},
+                          nu={"encoder_bias": _j(inp["nu_b"])})
+    ref_b = _bias_adam_update(_j(inp["bias"]), _j(db), opt,
+                              *(_j(inp[k]) for k in hyp), b1, b2, eps)
+    got = fs.sae_tied_adam_vjp_plain(
+        _t(inp["e"]), _t(inp["dw"]), *tmom, *(_t(inp[k]) for k in hyp),
+        b1, b2, eps, bias=_t(inp["bias"]), db=_t(db), mu_b=_t(inp["mu_b"]),
+        nu_b=_t(inp["nu_b"]))
+    _close(got[0], ref[0], LOSS_TOL, "E'")
+    _close(got[3], ref[3], LOSS_TOL, "un_sq")
+    for name, g, r in zip(("mu'", "nu'"), got[1:3], ref[1:3]):
+        assert g.dtype == getattr(torch, moments), name
+        g, r = g.float().numpy(), np.asarray(r.astype(jnp.float32))
+        if moments == "float32":
+            _close(g, r, LOSS_TOL, name)
+            continue
+        bound = 2.0**-7 * np.abs(r) + 1e-5 * np.abs(r).max()
+        assert (np.abs(g - r) <= bound).all(), name
+    for name, g, r in zip(("b'", "mu_b'", "nu_b'"), got[4], ref_b):
+        _close(g, r, LOSS_TOL, name)
+
+
 def test_adam_vjp_bias_rows_match_the_engine_bias_update(inp):
     """sae_tied_adam_vjp's optional bias group is the JAX engine's
     _bias_adam_update (the bias half of K2's update epilogue)."""
