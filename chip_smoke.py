@@ -255,9 +255,27 @@ Phases — any failure raises, and the script exits non-zero with no result:
    ``n_active_features`` over phase 13's two artifacts on 8,192 ``mlp.2``
    rows (card vs CPU over their first members within RTOL_EVAL, counts
    equal), ``sweep_grid`` on the scores; no figure is drawn;
-16. summary: one ``{"kernels": [...]}`` line (the tied kernels also with
-   phase 15 (e)'s launches), the card's name and power limit, and the
-   last line ``{"ok": true, "device": {...}}``.
+16. the mesh (``parallel/``): (a) the chunked backwards' data-sharded
+   form (``total_batch`` ≠ b: sae_tied_bwd, masked too, and
+   sae_untied_bwd in fp32 and bf16 at the canonical shape with total_batch
+   4096; big_sae_bwd fp32 and bf16 on 32,768 rows of BigSAEArgs' 65,536)
+   against their plain versions with phase 2's and phases 10-11's bounds
+   and ReLU flips counted; (b) a 1 × 1 mesh over NCCL (a world of one):
+   ``basic_l1_sweep`` at the canonical shape (2 chunks, 32 steps) on the
+   mesh, the tied kernels once a step, its dicts bitwise equal to the
+   same steps without a mesh; (c) a two-rank gloo world whose ranks share
+   the card (this script's ``--mesh-worker``), meshes 2 × 1 and 1 × 2:
+   the tied and untied ensembles at the canonical shape on
+   train_step_tiled and the big SAE at BigSAEArgs' shape in fp32 and
+   bf16, 3 steps each, every kernel of each path launching on each rank,
+   held against one device at phase 6's bounds (losses, weights) and
+   phase 7's side-by-side bounds (metrics; params within
+   REL_FRO_BIG_REPLAY). Two ranks on one card check correctness; their
+   times are no multi-GPU figure;
+17. summary: one ``{"kernels": [...]}`` line (the tied kernels also with
+   phase 15 (e)'s launches, every kernel with phase 16's), the card's
+   name and power limit, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds the four chunked ensemble kernels against their plain
 versions at the ratio-16 width (n = 8,192, which their 1 GiB workspaces
@@ -1060,7 +1078,8 @@ def check_chunked(gen: torch.Generator, x: torch.Tensor, shape: tuple,
             "chunks": chunks}
 
 
-def tied_bwd_flips(e, bias, al, x, r, cm, got, ref, tag: str) -> dict:
+def tied_bwd_flips(e, bias, al, x, r, cm, got, ref, tag: str,
+                   total_batch=None) -> dict:
     """sae_tied_bwd's dW and db (``got``) against the plain version's
     (``ref``), with its ReLU mask flips counted and bounded. A
     pre-activation within rounding of 0 can land on the other side of 0 in
@@ -1133,8 +1152,9 @@ def tied_bwd_flips(e, bias, al, x, r, cm, got, ref, tag: str) -> dict:
     # the kernel's side of each flip: +1 where only the kernel's mask is
     # set, −1 where only the plain version's is
     sign = (c_flip > 0).float() * 2 - 1
-    coef = 2.0 / (b * d)
-    g_flip = (coef * (r[mm, bb] * w[mm, ff]).sum(dim=1) + al[mm] / b) * sign
+    tb = total_batch or b  # a data shard's normalizer: the global batch
+    coef = 2.0 / (tb * d)
+    g_flip = (coef * (r[mm, bb] * w[mm, ff]).sum(dim=1) + al[mm] / tb) * sign
     dc = c_flip - torch.relu(p_flip)
     dw = ref[0].clone().index_put_(
         (mm, ff), g_flip[:, None] * x[bb] + (coef * dc)[:, None] * r[mm, bb],
@@ -1503,9 +1523,11 @@ def big_params(gen: torch.Generator, n: int, d: int) -> dict:
     return p
 
 
-def check_big_kernels(p: dict, x: torch.Tensor, tag: str) -> dict:
+def check_big_kernels(p: dict, x: torch.Tensor, tag: str,
+                      total_batch=None) -> dict:
     """big_sae_fwd and big_sae_bwd against their plain versions; the
-    backward with the untied residual x̂ − x and the tied one x̂ + ctr − x."""
+    backward with the untied residual x̂ − x and the tied one x̂ + ctr − x
+    (``total_batch``: its data-sharded form, x a shard of that batch)."""
     from sparse_coding_tpu_torch.ops import fused_big_sae as fb
 
     xc = (x - p["centering"]).contiguous()
@@ -1518,8 +1540,9 @@ def check_big_kernels(p: dict, x: torch.Tensor, tag: str) -> dict:
     for kind, r in (("untied", xhat_ref - x),
                     ("tied", xhat_ref + p["centering"] - x)):
         r = r.contiguous()
-        got = fb.big_sae_backward(p, alpha, xc, r)
-        ref = fb.big_sae_backward_plain(p, alpha, xc, r)
+        got = fb.big_sae_backward(p, alpha, xc, r, total_batch=total_batch)
+        ref = fb.big_sae_backward_plain(p, alpha, xc, r,
+                                        total_batch=total_batch)
         for i, field in enumerate(("de", "dwn", "dt", "dctr", "c_totals")):
             errs[f"{field}_{kind}"] = compare(
                 f"{tag}:big_sae_bwd.{field} ({kind} r)", got[i], ref[i],
@@ -1747,9 +1770,9 @@ def big_main_path(store: Path, out_dir: Path) -> dict:
             return state, m
         return timed
 
-    def resurrect(state):
+    def resurrect(state, *mesh):
         snaps.append(_big_snapshot(state))
-        return real_resurrect(state)
+        return real_resurrect(state, *mesh)
 
     cfg = BigSAEArgs(activation_dim=BIG_D, n_feats=BIG_N,
                      batch_size=BIG_BATCH, l1_alpha=BIG_L1, lr=BIG_LR,
@@ -2700,7 +2723,7 @@ def bf16_fwd_check(inp: dict, tied: bool, tag: str, x_dtypes=("float32",
 
 
 def bf16_bwd_check(inp: dict, tied: bool, tag: str, cm=None,
-                   x_dtype: str = "float32") -> dict:
+                   x_dtype: str = "float32", total_batch=None) -> dict:
     """A bf16 backward against its plain bf16 version on the same residual:
     its ReLU mask flips (the kernel's masks from its codes launch on its
     own rounded operands, against the plain version's) at most
@@ -2734,16 +2757,18 @@ def bf16_bwd_check(inp: dict, tied: bool, tag: str, cm=None,
     xf = x.to(torch.float32)
     if tied:
         r = ft.sae_tied_fwd_plain(e, bias, x, cm, BF16).contiguous()
-        got = ft.sae_tied_bwd(e, bias, al, x, r, cm, BF16)
-        ref = ft.sae_tied_bwd_plain(e, bias, al, x, r, cm, BF16)
+        got = ft.sae_tied_bwd(e, bias, al, x, r, cm, BF16, total_batch)
+        ref = ft.sae_tied_bwd_plain(e, bias, al, x, r, cm, BF16,
+                                    total_batch)
         grads = ("dw",)
         w_plain = rnd(e / torch.clamp(torch.linalg.vector_norm(
             e, dim=-1, keepdim=True), min=1e-8))
         kernel = "sae_tied_bwd_bf16"
     else:
         r = ft.sae_untied_fwd_plain(e, dec, bias, x, BF16).contiguous()
-        got = ft.sae_untied_bwd(e, dec, bias, al, x, r, BF16)
-        ref = ft.sae_untied_bwd_plain(e, dec, bias, al, x, r, BF16)
+        got = ft.sae_untied_bwd(e, dec, bias, al, x, r, BF16, total_batch)
+        ref = ft.sae_untied_bwd_plain(e, dec, bias, al, x, r, BF16,
+                                      total_batch)
         grads = ("de", "dwn")
         w_plain = rnd(e)
         kernel = "sae_untied_bwd_bf16"
@@ -2782,7 +2807,7 @@ def bf16_bwd_check(inp: dict, tied: bool, tag: str, cm=None,
         codes["rounding_flips"] = int(((cb != cpb) & (cb > 0)
                                        & (cpb > 0)).sum())
         # the flipped codes' terms moved to the kernel's side
-        coef = 2.0 / (b * d)
+        coef = 2.0 / ((total_batch or b) * d)
         moved = ((cb[fm, fb, ff].float() - cpb[fm, fb, ff].float())[:, None]
                  * rnd(r[fm, fb]))
         dwn_moved = ref[1].clone().index_put_((fm, ff), coef * moved,
@@ -3250,7 +3275,8 @@ BENCH_BIG_VARIANTS = (("autodiff", {"use_fused": False}),
 RTOL_BIG_BF16_LOSS = 2e-2
 
 
-def big_bf16_check(p: dict, x: torch.Tensor, tag: str) -> dict:
+def big_bf16_check(p: dict, x: torch.Tensor, tag: str,
+                   total_batch=None) -> dict:
     """big_sae_fwd_bf16 and big_sae_bwd_bf16 against their plain bf16
     versions, the backward with the untied and the tied residual. The
     kernel's ReLU masks (its codes launch over the whole batch: each code
@@ -3289,8 +3315,9 @@ def big_bf16_check(p: dict, x: torch.Tensor, tag: str) -> dict:
     for kind, r in (("untied", xhat_ref - x),
                     ("tied", xhat_ref + p["centering"] - x)):
         r = r.contiguous()
-        got = fb.big_sae_backward(p, alpha, xc, r, compute_dtype=BF16)
-        ref = fb.big_sae_backward_plain(p, alpha, xc, r, BF16)
+        got = fb.big_sae_backward(p, alpha, xc, r, compute_dtype=BF16,
+                                  total_batch=total_batch)
+        ref = fb.big_sae_backward_plain(p, alpha, xc, r, BF16, total_batch)
         errs[f"de_no_flip_{kind}"] = compare(
             f"{tag}:big_sae_bwd_bf16.de ({kind} r, no flip)",
             got[0][:, clean], ref[0][:, clean], RTOL_BF16)
@@ -5940,15 +5967,369 @@ def zoo_phase(sweep_store: Path, tmp: Path) -> dict:
     return rep
 
 
+# -- phase 16: the mesh (sparse_coding_tpu_torch/parallel) -------------------
+
+MESH_STEPS = 3
+# the two-rank world's meshes, model x data: members split (2 x 1) and
+# rows split (1 x 2); both ranks share cuda:0, so these are correctness
+# runs, not multi-GPU timings
+MESH_SHAPES = ((2, 1), (1, 2))
+MESH_BASIC_CHUNKS = 2  # (b): basic_l1_sweep over 2 chunks = 32 steps
+MESH_WORLD_TIMEOUT_S = 600
+
+
+def mesh_kernel_checks(g: torch.Generator, x_main: torch.Tensor,
+                       big_store: Path) -> dict:
+    """(a) Each chunked backward's data-sharded form (total_batch ≠ b: the
+    rows of one shard of a two-way data axis, normalized by the batch of
+    both) against its plain version with the same total_batch, fp32 and
+    bf16, at the canonical shape (32 × 2048 × 512, batch 2048 —
+    total_batch 4096) and at BigSAEArgs' (d=1024, n=16,384: 32,768 rows of
+    a 65,536 batch), with phase 2's and phases 10-11's bounds and ReLU
+    flip counting."""
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+    from sparse_coding_tpu_torch.ops import fused_sae_tiled as ft
+
+    inp = make_inputs(g, N_MEMBERS, BATCH, N_FEATS, D, x=x_main)
+    e, dec, x, bias, al, cm = (inp[k] for k in ("e", "dec", "x", "bias",
+                                                 "alphas", "cm"))
+    tb = 2 * BATCH
+    out = {}
+    for mask, sfx in ((None, ""), (cm, "_masked")):
+        r = ft.sae_tied_fwd_plain(e, bias, x, mask)
+        got = ft.sae_tied_bwd(e, bias, al, x, r, mask, "float32", tb)
+        ref = ft.sae_tied_bwd_plain(e, bias, al, x, r, mask, "float32", tb)
+        pairs = bwd_pairs(got, ref, ("dw",), sfx)
+        del pairs["dw" + sfx], pairs["db" + sfx]
+        errs = {k: compare(f"mesh (a):sae_tied_bwd.{k}", *v)
+                for k, v in pairs.items()}
+        errs["flips"] = tied_bwd_flips(e, bias, al, x, r, mask, got[:2],
+                                       ref[:2], f"mesh (a) total_batch{sfx}",
+                                       total_batch=tb)
+        out["sae_tied_bwd" + sfx] = errs
+        del got, ref, r
+    r = ft.sae_untied_fwd_plain(e, dec, bias, x)
+    out["sae_untied_bwd"] = {
+        k: compare(f"mesh (a):sae_untied_bwd.{k}", *v)
+        for k, v in bwd_pairs(
+            ft.sae_untied_bwd(e, dec, bias, al, x, r, "float32", tb),
+            ft.sae_untied_bwd_plain(e, dec, bias, al, x, r, "float32", tb),
+            ("de", "dwn")).items()}
+    del r
+    log("  (a) sae_tied_bwd (masked too) and sae_untied_bwd with "
+        f"total_batch {tb} at batch {BATCH}: ok")
+    out["sae_tied_bwd_bf16"] = bf16_bwd_check(inp, True, "mesh (a)",
+                                              total_batch=tb)
+    out["sae_tied_bwd_bf16_masked"] = bf16_bwd_check(
+        inp, True, "mesh (a)", cm=cm, total_batch=tb)
+    out["sae_untied_bwd_bf16"] = bf16_bwd_check(inp, False, "mesh (a)",
+                                                total_batch=tb)
+    del inp
+    torch.cuda.empty_cache()
+    rows = BIG_BATCH // 2
+    xb = torch.as_tensor(ChunkStore(big_store).load_chunk(0)[:rows]).to(DEV)
+    p = big_params(g, BIG_N, BIG_D)
+    out["big"] = check_big_kernels(p, xb, "mesh (a) big",
+                                   total_batch=BIG_BATCH)
+    torch.cuda.empty_cache()
+    out["big_bf16"] = big_bf16_check(p, xb, "mesh (a) big bf16",
+                                     total_batch=BIG_BATCH)
+    del xb, p
+    torch.cuda.empty_cache()
+    return out
+
+
+def ld_tensors(ld) -> dict:
+    """A LearnedDict's tensor fields."""
+    import dataclasses
+
+    return {f.name: getattr(ld, f.name) for f in dataclasses.fields(ld)
+            if isinstance(getattr(ld, f.name), torch.Tensor)}
+
+
+def mesh_nccl_one(store: Path, tmp: Path, l1_values) -> dict:
+    """(b) A 1 × 1 mesh over NCCL, a world of one: ``basic_l1_sweep`` at the
+    canonical shape on the mesh, then without it; the tied kernels launch
+    once a step on the mesh run and its dicts equal the other run's bit
+    for bit."""
+    import torch.distributed as dist
+
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        make_mesh,
+        shutdown_distributed,
+    )
+    from sparse_coding_tpu_torch.train.basic_sweep import basic_l1_sweep
+
+    n_steps = MESH_BASIC_CHUNKS * ROWS_PER_CHUNK // BATCH
+    initialize_distributed(store=dist.FileStore(str(tmp / "nccl_rdzv"), 1),
+                           num_processes=1, process_id=0, backend="nccl",
+                           device_type="cuda", timeout_s=300.0)
+    try:
+        mesh = make_mesh(1, 1, device_type="cuda")
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}")
+        runs = {}
+        for label, m in (("mesh", mesh), ("plain", None)):
+            _build.reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            dicts = basic_l1_sweep(store, tmp / f"nccl_{label}", l1_values,
+                                   dict_ratio=RATIO, batch_size=BATCH, lr=LR,
+                                   seed=SEED, mesh=m,
+                                   device=None if m is not None else DEV)
+            sync()
+            runs[label] = {"dicts": dicts, "launches": dict(_build.LAUNCHES),
+                           "wall_s": time.perf_counter() - t0}
+    finally:
+        shutdown_distributed()
+    launches = {k: runs["mesh"]["launches"][k] for k in TIED_KERNELS}
+    if any(v != n_steps for v in launches.values()):
+        raise AssertionError(f"(b) mesh launches {launches}, expected "
+                             f"{n_steps} each")
+    differing = []
+    for i, ((a, _), (b, _)) in enumerate(zip(runs["mesh"]["dicts"],
+                                             runs["plain"]["dicts"])):
+        ta, tb_ = ld_tensors(a), ld_tensors(b)
+        if set(ta) != set(tb_) or not all(
+                torch.equal(ta[k].cpu(), tb_[k].cpu()) for k in ta):
+            differing.append(i)
+    if differing:
+        raise AssertionError(f"(b) the 1x1 NCCL mesh's dicts {differing} "
+                             "differ from the run without a mesh")
+    log(f"  (b) 1x1 NCCL mesh: basic_l1_sweep {n_steps} steps, launches "
+        f"{launches}, dicts bitwise equal to the run without a mesh; "
+        f"{runs['mesh']['wall_s']:.1f} s vs {runs['plain']['wall_s']:.1f} s")
+    return {"steps": n_steps, "launches": launches,
+            "wall_s": {k: v["wall_s"] for k, v in runs.items()}}
+
+
+def mesh_world(tmp: Path, store: Path, big_store: Path) -> dict:
+    """(c) A two-rank gloo world whose ranks share cuda:0 (this script's
+    ``--mesh-worker``, one process a rank): on the 2 × 1 and 1 × 2 meshes
+    the tied and untied ensembles at the canonical shape on
+    train_step_tiled and the big SAE at BigSAEArgs' shape in fp32 and
+    bf16, MESH_STEPS steps each, every kernel of each path launching on
+    each rank; rank 0 holds each run against the single-device run (phase
+    6's and phase 7's side-by-side bounds). A rank that fails fails the
+    phase."""
+    out = tmp / "mesh_world"
+    out.mkdir()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
+         str(r), "2", str(out / "rdzv"), str(out), str(store),
+         str(big_store)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MESH_WORLD_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines():
+            if line.startswith("[mesh"):
+                log("  " + line)
+        if p.returncode != 0:
+            raise AssertionError(f"(c) mesh world rank {r} exited "
+                                 f"{p.returncode}:\n{text[-6000:]}")
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(2)]
+    for r, res in enumerate(ranks):
+        for run, launches in res["launches"].items():
+            if any(v != MESH_STEPS for v in launches.values()):
+                raise AssertionError(f"(c) rank {r} {run}: launches "
+                                     f"{launches}")
+    return {"ranks": ranks}
+
+
+def mesh_worker(argv) -> int:
+    """One rank of phase 16 (c)'s world: ``--mesh-worker RANK WORLD RDZV
+    OUT STORE BIG_STORE``."""
+    import torch.distributed as dist
+
+    from sparse_coding_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        shutdown_distributed,
+    )
+
+    rank, world = int(argv[0]), int(argv[1])
+    rdzv, out, store, big_store = (Path(a) for a in argv[2:6])
+    initialize_distributed(store=dist.FileStore(str(rdzv), world),
+                           num_processes=world, process_id=rank,
+                           backend="gloo", device_type=DEV,
+                           timeout_s=300.0)
+    try:
+        res = mesh_worker_runs(rank, store, big_store)
+        (out / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def mesh_worker_runs(rank: int, store: Path, big_store: Path) -> dict:
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+    from sparse_coding_tpu_torch.ensemble import Ensemble
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.parallel.mesh import make_mesh
+    from sparse_coding_tpu_torch.train import big_sae as bs
+
+    dev = torch.device("cuda", 0) if DEV == "cuda" else torch.device(DEV)
+    say = lambda msg: print(f"[mesh rank {rank}] {msg}", flush=True)
+    meshes = {f"{m}x{d}": make_mesh(m, d, device=dev) for m, d in MESH_SHAPES}
+    l1_values = [float(v) for v in np.logspace(-4, -2, N_MEMBERS)]
+    chunk = ChunkStore(store).load_chunk(1)
+    batches = [torch.as_tensor(chunk[i * BATCH:(i + 1) * BATCH]).to(dev)
+               for i in range(MESH_STEPS)]
+    res = {"launches": {}, "step_ms": {}, "checks": {}}
+
+    def timed(run, label: str, kernels):
+        _build.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        value = run()
+        sync()
+        res["step_ms"][label] = 1e3 * (time.perf_counter() - t0) / MESH_STEPS
+        res["launches"][label] = {k: _build.LAUNCHES[k] for k in kernels}
+        return value
+
+    for family in ("tied", "untied"):
+        kernels = TIED_KERNELS if family == "tied" else UNTIED_KERNELS
+        weights = ("encoder", "decoder") if family == "untied" \
+            else ("encoder",)
+        got = {}
+        for label, mesh in meshes.items():
+            sig, members = family_members(family, l1_values)
+            ens = Ensemble(members, sig, lr=LR, fused_path="train_step_tiled",
+                           mesh=mesh)
+            losses = timed(lambda: [ens.step_batch(b).losses["loss"]
+                                    for b in batches],
+                           f"{family} {label}", kernels)
+            full = ens.full_state()
+            got[label] = (losses, {w: full.params[w] for w in weights})
+            del ens, full
+        if rank == 0:
+            sig, members = family_members(family, l1_values)
+            ref = Ensemble(members, sig, lr=LR, fused_path="train_step_tiled",
+                           device=dev)
+            ref_losses = [ref.step_batch(b).losses["loss"] for b in batches]
+            for label, (losses, params) in got.items():
+                name = f"{family} {label}"
+                errs = [compare(f"(c) {name} step {i} loss", g, w,
+                                RTOL_PATH_LOSS)
+                        for i, (g, w) in enumerate(zip(losses, ref_losses))]
+                fro = {w: rel_fro(params[w], ref.state.params[w])
+                       for w in weights}
+                if not all(v <= REL_FRO_PATH for v in fro.values()):
+                    raise AssertionError(f"(c) {name}: weights drifted from "
+                                         f"the single device: {fro}")
+                res["checks"][name] = {
+                    "loss_max_rel_err": max(e["max_rel_err"] for e in errs),
+                    "rel_fro": fro}
+                say(f"{name}: vs one device: loss rel err "
+                    f"{res['checks'][name]['loss_max_rel_err']:.2e}, "
+                    f"relative Frobenius {fro}")
+            del ref
+        del got
+        torch.cuda.empty_cache()
+    del batches
+
+    cs = ChunkStore(big_store)
+    rows = [cs.load_chunk(0)[:BIG_BATCH], cs.load_chunk(0)[BIG_BATCH:],
+            cs.load_chunk(1)[:BIG_BATCH]]
+    big_batches = [torch.as_tensor(r).to(dev) for r in rows[:MESH_STEPS]]
+    for cd in ("float32", BF16):
+        sfx = "" if cd == "float32" else "_bf16"
+        kernels = tuple(k + sfx for k in BIG_KERNELS)
+        got = {}
+        for label, mesh in meshes.items():
+            state, opt, l1 = bs.init_big_sae(
+                torch.Generator().manual_seed(1), BIG_D, BIG_N, BIG_L1,
+                lr=BIG_LR, device="cpu")
+            state = bs.shard_big_sae(state, mesh)
+            step = bs.make_big_sae_step(opt, l1.to(dev), mesh=mesh,
+                                        fused_compute_dtype=cd)
+
+            def run():
+                nonlocal state
+                ms = []
+                for b in big_batches:
+                    state, m = step(state, b)
+                    ms.append(m)
+                return ms
+
+            ms = timed(run, f"big{sfx} {label}", kernels)
+            got[label] = (ms, bs.gather_big_sae(state, mesh).params)
+            del state
+        if rank == 0:
+            state, opt, l1 = bs.init_big_sae(
+                torch.Generator().manual_seed(1), BIG_D, BIG_N, BIG_L1,
+                lr=BIG_LR, device=dev)
+            step = bs.make_big_sae_step(opt, l1, use_fused=True,
+                                        fused_compute_dtype=cd)
+            ref = []
+            for b in big_batches:
+                state, m = step(state, b)
+                ref.append(m)
+            for label, (ms, params) in got.items():
+                name = f"big{sfx} {label}"
+                errs = [compare(f"(c) {name} step {i} {k}", g[k], w[k],
+                                RTOL_BIG_STEP)
+                        for i, (g, w) in enumerate(zip(ms, ref)) for k in w]
+                fro = {k: rel_fro(params[k], state.params[k])
+                       for k in bs.PARAM_NAMES}
+                if not all(v <= REL_FRO_BIG_REPLAY for v in fro.values()):
+                    raise AssertionError(f"(c) {name}: params drifted from "
+                                         f"the single device: {fro}")
+                res["checks"][name] = {
+                    "metrics_max_rel_err": max(e["max_rel_err"]
+                                               for e in errs),
+                    "rel_fro": fro}
+                say(f"{name}: vs one device: metrics rel err "
+                    f"{res['checks'][name]['metrics_max_rel_err']:.2e}, "
+                    f"relative Frobenius {fro}")
+            del state, ref
+        del got
+        torch.cuda.empty_cache()
+    say(f"launches {res['launches']}; ms a step {res['step_ms']}")
+    return res
+
+
+def mesh_phase(tmp: Path, x_main: torch.Tensor, big_store: Path,
+               l1_values) -> dict:
+    t0 = time.perf_counter()
+    out = {"a": mesh_kernel_checks(torch.Generator().manual_seed(16),
+                                   x_main, big_store)}
+    store = tmp / "mesh_store"
+    write_store(store, MESH_BASIC_CHUNKS * ROWS_PER_CHUNK, seed=SEED + 16)
+    out["b"] = mesh_nccl_one(store, tmp, l1_values)
+    out["c"] = mesh_world(tmp, store, big_store)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 16: {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=Path, default=None,
                     help="also write every measurement here as JSON")
+    ap.add_argument("--mesh-worker", nargs=6, default=None,
+                    metavar=("RANK", "WORLD", "RDZV", "OUT", "STORE",
+                             "BIG_STORE"),
+                    help="run one rank of phase 16 (c)'s world (started by "
+                    "phase 16 itself)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.mesh_worker:
+        return mesh_worker(args.mesh_worker)
     from sparse_coding_tpu_torch.ops import _build
 
     report: dict = {}
@@ -6180,6 +6561,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"  done at {time.perf_counter() - t_start:.1f} s")
 
+        log(f"phase 16: the mesh — (a) the chunked backwards' data-sharded "
+            f"form (total_batch) vs their plain versions, fp32 and bf16; (b) "
+            f"basic_l1_sweep on a 1x1 NCCL mesh vs no mesh, bitwise; (c) a "
+            f"two-rank gloo world on one card, meshes "
+            f"{', '.join(f'{m}x{d}' for m, d in MESH_SHAPES)}: the ensembles "
+            f"and the big SAE, {MESH_STEPS} steps each, vs one device")
+        report["mesh"] = mesh_phase(Path(tmp), x_main.to(
+            DEV, torch.float32).contiguous(), big_store, l1_values)
+        torch.cuda.empty_cache()
+        log(f"  done at {time.perf_counter() - t_start:.1f} s")
+
     timing.update(big["timing"])
     bnd.update(big["bounds"])
     kernels = []
@@ -6307,6 +6699,19 @@ def main() -> int:
         if entry["name"] in TIED_KERNELS:
             entry["phase15_launches"] = \
                 report["interp"]["snapshots"]["launches"][entry["name"]]
+    # phase 16's mesh paths: (b)'s 1x1 NCCL sweep and each rank's runs in
+    # (c)'s world
+    mesh = report["mesh"]
+    for entry in kernels:
+        name = entry["name"]
+        runs = ({"1x1 nccl basic_l1_sweep": mesh["b"]["launches"][name]}
+                if name in TIED_KERNELS else {})
+        for r, res in enumerate(mesh["c"]["ranks"]):
+            for run, launches in res["launches"].items():
+                if name in launches:
+                    runs[f"rank {r} {run}"] = launches[name]
+        if runs:
+            entry["phase16_launches"] = runs
     report["kernels"] = kernels
     report["timing"] = timing
     report["bounds"] = bnd

@@ -54,8 +54,10 @@ def unpack_neighbors(packed) -> tuple[np.ndarray, np.ndarray]:
 
 
 def place_catalog_rows(rows, mesh):
-    """Shard one big dictionary's normalized decoder rows over a mesh's
-    feature axis: waits for the port's multi-GPU work."""
-    raise NotImplementedError(
-        "placing catalog rows on a mesh waits for the port's multi-GPU "
-        "work, ROADMAP.md queue 1, item 11")
+    """This rank's share of one big dictionary's normalized decoder rows
+    [n, d], split over the mesh's feature axis
+    (``partition.CATALOG_FEATURE_RULES``: rows over "model", as the big
+    SAE's dict rows train), through the placement seam."""
+    from sparse_coding_tpu_torch.parallel import partition
+
+    return partition.place_tree(rows, mesh, partition.CATALOG_FEATURE_RULES)

@@ -3,8 +3,8 @@
 ``SyntheticEnsembleArgs``, ``BigSAEArgs``, ``ToyArgs``, ``ErasureArgs``,
 ``InterpArgs``, ``InterpGraphArgs``, ``InvestigateArgs``)
 with the same fields and defaults, so a config file or command line
-drives either side. Fields the port does not run yet (meshes, trace
-capture through ``profile_steps``, wandb) are kept so configs stay
+drives either side. Fields the port does not run yet (trace capture
+through ``profile_steps``, wandb) are kept so configs stay
 interchangeable; the entry points that would read them raise where they
 are set to something the port cannot do, naming the ROADMAP.md item."""
 

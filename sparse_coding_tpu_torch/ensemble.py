@@ -1,6 +1,6 @@
-"""The ensemble training engine (the JAX package's ``ensemble.py``,
-single device): ``Ensemble`` for one bucket, ``EnsembleGroup`` for members
-split into buckets by their static buffers.
+"""The ensemble training engine (the JAX package's ``ensemble.py``):
+``Ensemble`` for one bucket, ``EnsembleGroup`` for members split into
+buckets by their static buffers.
 
 One bucket of N same-shape members is stacked along a leading member axis.
 A step takes one [B, d] batch shared by every member and runs either
@@ -28,6 +28,22 @@ count [N] int32 with a saturating increment, bias corrections
 rides every path: a member whose loss, grad norm or update norm went
 non-finite — or whose ``live`` bit is cleared — keeps its params and
 optimizer state unchanged, bit for bit.
+
+On a mesh (``Ensemble(..., mesh=...)``, :mod:`parallel.mesh`) each rank
+holds N/mesh_model members and trains them on its B/mesh_data rows of the
+global batch that every rank passes in. The kernels normalize by the
+global batch (``total_batch``), one all-reduce over "data" makes the
+partial losses and grads whole, and the optimizer runs on the member
+shard: the two-stage paths put the all-reduce inside the producer (before
+the normalization VJP, and before the untied bias decay, which counts once
+a member), the whole-step paths between the grads kernels (K1/K3, K5/K7)
+and the Adam epilogues (K4, K6) — K2's single-kernel step cannot split
+there, so a mesh ``train_step`` on a tied bucket is K1 + K4, as in the
+JAX package. The autodiff path weights each rank's row-mean grads and
+losses by its share of the rows before the same all-reduce; every
+signature of the zoo is a row mean plus batch-independent terms, which
+that split keeps exact. A step's aux is gathered over "model", so every
+rank sees every member's values, as a single-device run does.
 """
 
 from __future__ import annotations
@@ -42,6 +58,8 @@ from sparse_coding_tpu_torch import resolve_device
 from sparse_coding_tpu_torch.models.signatures import AuxData
 from sparse_coding_tpu_torch.ops import _build, roofline
 from sparse_coding_tpu_torch.ops.roofline import KERNEL_PATHS
+from sparse_coding_tpu_torch.parallel import partition
+from sparse_coding_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 from sparse_coding_tpu_torch.utils.tree import flatten_tree, unflatten_tree
 
 Tensor = torch.Tensor
@@ -197,12 +215,23 @@ def _finish(state: EnsembleState, params, mu, nu, count, aux: AuxData,
 Step = Callable[[EnsembleState, Tensor], tuple[EnsembleState, AuxData]]
 
 
+def _data_psum(mesh):
+    """The all-reduce over "data" of a sequence of tensors (None: no
+    mesh, the identity)."""
+    if mesh is None:
+        return None
+    return lambda tensors: mesh.psum(tensors, DATA_AXIS)
+
+
 def make_train_step(sig: Any, adam_hypers: tuple[float, float, float],
                     statics: StaticBuffers = (),
-                    sentinel: bool = True) -> Step:
+                    sentinel: bool = True, mesh=None) -> Step:
     """The autodiff reference step: vmapped grad of ``sig.loss`` over the
     member axis, then Adam. With ``sentinel`` the grad and update norms
-    and the finite flags ride the aux."""
+    and the finite flags ride the aux. On a ``mesh`` each rank's grads,
+    losses and l0 (row means over its rows) are weighted by its share of
+    the global batch and summed over "data", the activity counts summed,
+    before Adam."""
     b1, b2, eps = adam_hypers
 
     def member_loss(p, b, x):
@@ -216,6 +245,15 @@ def make_train_step(sig: Any, adam_hypers: tuple[float, float, float],
     def step(state: EnsembleState, batch: Tensor):
         grads, (_, (losses, l0, act)) = grad_fn(state.params, state.buffers,
                                                 batch)
+        if mesh is not None:
+            share = 1.0 / mesh.shape[DATA_AXIS]
+            gk, lk = list(grads), list(losses)
+            out = mesh.psum([grads[k] * share for k in gk]
+                            + [losses[k] * share for k in lk]
+                            + [l0 * share, act], DATA_AXIS)
+            grads = dict(zip(gk, out[:len(gk)]))
+            losses = dict(zip(lk, out[len(gk):len(gk) + len(lk)]))
+            l0, act = out[-2], out[-1]
         count_inc = safe_increment(state.count)
         bc1, bc2 = bias_corrections(count_inc, b1, b2)
         params, mu, nu, upd = adam_update(grads, state.mu, state.nu,
@@ -230,16 +268,28 @@ def make_train_step(sig: Any, adam_hypers: tuple[float, float, float],
     return step
 
 
-def make_fused_step(producer: Callable, adam_hypers, sentinel: bool = True
-                    ) -> Step:
+def make_fused_step(producer: Callable, adam_hypers, sentinel: bool = True,
+                    mesh=None) -> Step:
     """Two-stage fused step: losses + exact grads from the kernels (via
     ``producer``), the optimizer update in plain torch. A producer that
-    returns a kernel grad norm (the tiled one) spares the grad-norm pass."""
+    returns a kernel grad norm (the tiled one) spares the grad-norm pass.
+    On a ``mesh`` the producer normalizes by the global batch and sums its
+    partial losses and grads over "data" itself; its kernel grad norm, a
+    per-shard partial, is dropped for the norm of the summed grads, as in
+    the JAX package."""
     b1, b2, eps = adam_hypers
+    psum = _data_psum(mesh)
 
     def step(state: EnsembleState, batch: Tensor):
-        losses, grads, activity, gnorm = producer(state.params,
-                                                  state.buffers, batch)
+        if mesh is None:
+            losses, grads, activity, gnorm = producer(
+                state.params, state.buffers, batch)
+        else:
+            losses, grads, activity, _ = producer(
+                state.params, state.buffers, batch,
+                total_batch=batch.shape[0] * mesh.shape[DATA_AXIS],
+                psum=psum)
+            gnorm = None
         count_inc = safe_increment(state.count)
         bc1, bc2 = bias_corrections(count_inc, b1, b2)
         params, mu, nu, upd = adam_update(grads, state.mu, state.nu,
@@ -262,10 +312,11 @@ def _tied_producer(compute_dtype):
     from sparse_coding_tpu_torch.ops.fused_sae import (
         fused_tied_sae_loss_and_grads)
 
-    def producer(params, buffers, batch):
+    def producer(params, buffers, batch, total_batch=None, psum=None):
         return (*fused_tied_sae_loss_and_grads(
-            params, buffers["l1_alpha"], batch, compute_dtype=compute_dtype,
-            coef_mask=buffers.get("coef_mask")), None)
+            params, buffers["l1_alpha"], batch, total_batch=total_batch,
+            compute_dtype=compute_dtype, coef_mask=buffers.get("coef_mask"),
+            psum=psum), None)
 
     return producer
 
@@ -275,10 +326,11 @@ def _tied_tiled_producer(compute_dtype):
     from sparse_coding_tpu_torch.ops.fused_sae_tiled import (
         fused_tied_sae_tiled_loss_and_grads)
 
-    def producer(params, buffers, batch):
+    def producer(params, buffers, batch, total_batch=None, psum=None):
         return fused_tied_sae_tiled_loss_and_grads(
-            params, buffers["l1_alpha"], batch, compute_dtype=compute_dtype,
-            coef_mask=buffers.get("coef_mask"))
+            params, buffers["l1_alpha"], batch, total_batch=total_batch,
+            compute_dtype=compute_dtype, coef_mask=buffers.get("coef_mask"),
+            psum=psum)
 
     return producer
 
@@ -289,10 +341,11 @@ def _untied_producer(compute_dtype):
     from sparse_coding_tpu_torch.ops.fused_sae import (
         fused_untied_sae_loss_and_grads)
 
-    def producer(params, buffers, batch):
+    def producer(params, buffers, batch, total_batch=None, psum=None):
         return (*fused_untied_sae_loss_and_grads(
             params, buffers["l1_alpha"], buffers["bias_decay"], batch,
-            compute_dtype=compute_dtype), None)
+            total_batch=total_batch, compute_dtype=compute_dtype,
+            psum=psum), None)
 
     return producer
 
@@ -303,10 +356,11 @@ def _untied_tiled_producer(compute_dtype):
     from sparse_coding_tpu_torch.ops.fused_sae_tiled import (
         fused_untied_sae_tiled_loss_and_grads)
 
-    def producer(params, buffers, batch):
+    def producer(params, buffers, batch, total_batch=None, psum=None):
         return fused_untied_sae_tiled_loss_and_grads(
             params, buffers["l1_alpha"], buffers["bias_decay"], batch,
-            compute_dtype=compute_dtype)
+            total_batch=total_batch, compute_dtype=compute_dtype,
+            psum=psum)
 
     return producer
 
@@ -446,6 +500,158 @@ def make_fullfused_tiled_step(adam_hypers, compute_dtype="float32",
     return step
 
 
+def make_fullfused_step_sharded(family: str, adam_hypers, mesh,
+                                tiled: bool = False,
+                                compute_dtype: str = "float32",
+                                sentinel: bool = True) -> Step:
+    """The mesh whole-step paths: the grads kernels on this rank's rows
+    with the global batch as their normalizer — K1 or K3 (``tiled``) for
+    a tied bucket, K5 or K7 for an untied one —, ONE all-reduce over
+    "data" of the partial losses and grads, the untied bias decay once a
+    member after it, then the Adam/normalization-VJP epilogue (K4, K6) on
+    the member shard and the bias step in torch. The update norm from the
+    epilogue (+ the [N, n] bias delta) stands in for the grad norm: the
+    kernel grad norm is a per-shard partial. The summed grads are the same
+    on every data shard, so the sentinel's verdict is too."""
+    from sparse_coding_tpu_torch.ops.fused_sae import (
+        fused_adam_vjp_update,
+        fused_tied_adam_vjp_update,
+        fused_tied_sae_grads,
+        fused_untied_sae_grads,
+        untied_bias_decay_terms,
+    )
+    from sparse_coding_tpu_torch.ops.fused_sae_tiled import (
+        prepare_tiled_batch,
+        sum_partials,
+        tiled_tied_sae_grads,
+        tiled_untied_sae_grads,
+    )
+
+    if family not in ("tied", "untied"):
+        raise ValueError(
+            f"no sharded whole-step path for family {family!r} (the masked "
+            "family's coef_mask rides the two-stage kernels only)")
+    b1, b2, eps = adam_hypers
+    tied = family == "tied"
+    psum = _data_psum(mesh)
+
+    def step(state: EnsembleState, batch: Tensor):
+        p, mu, nu = state.params, state.mu, state.nu
+        e, bias = p["encoder"], p["encoder_bias"]
+        alphas = state.buffers["l1_alpha"]
+        total = batch.shape[0] * mesh.shape[DATA_AXIS]
+        kbatch, bt, ft = prepare_tiled_batch(batch, e.shape[1], None, None,
+                                             compute_dtype)
+        kw = {"batch_tile": bt, "total_batch": total,
+              "compute_dtype": compute_dtype}
+        if tiled:
+            kw["feat_tile"] = ft
+        if tied:
+            grads_fn = tiled_tied_sae_grads if tiled else fused_tied_sae_grads
+            losses, dw, db, act = grads_fn(e, bias, alphas, kbatch, **kw)[:4]
+            losses, dw, db, act = sum_partials(psum, losses, dw, db, act)
+        else:
+            dec = p["decoder"]
+            grads_fn = (tiled_untied_sae_grads if tiled
+                        else fused_untied_sae_grads)
+            losses, de, dwn, db, act = grads_fn(e, dec, bias, alphas, kbatch,
+                                                **kw)[:5]
+            losses, de, dwn, db, act = sum_partials(psum, losses, de, dwn,
+                                                    db, act)
+            losses["bias_decay"], db = untied_bias_decay_terms(
+                bias, state.buffers["bias_decay"], db)
+        count_inc = safe_increment(state.count)
+        bc1, bc2 = bias_corrections(count_inc, b1, b2)
+        if tied:
+            e2, mu_e, nu_e, un_sq = fused_tied_adam_vjp_update(
+                e, dw, mu["encoder"], nu["encoder"], state.lrs, bc1, bc2,
+                ftile=_build.FEAT_TILE, b1=b1, b2=b2, eps=eps)
+            params, new_mu, new_nu = ({"encoder": e2}, {"encoder": mu_e},
+                                      {"encoder": nu_e})
+        else:
+            e2, mu_e, nu_e, d2, mu_d, nu_d, un_sq = fused_adam_vjp_update(
+                e, de, mu["encoder"], nu["encoder"], dec, dwn, mu["decoder"],
+                nu["decoder"], state.lrs, bc1, bc2, ftile=_build.FEAT_TILE,
+                b1=b1, b2=b2, eps=eps)
+            params = {"encoder": e2, "decoder": d2}
+            new_mu = {"encoder": mu_e, "decoder": mu_d}
+            new_nu = {"encoder": nu_e, "decoder": nu_d}
+        bias2, mu_b, nu_b = _bias_adam_update(
+            bias, db, mu["encoder_bias"], nu["encoder_bias"], state.lrs,
+            bc1, bc2, b1, b2, eps)
+        params["encoder_bias"] = bias2
+        new_mu["encoder_bias"], new_nu["encoder_bias"] = mu_b, nu_b
+        un = torch.sqrt(un_sq + torch.sum(torch.square(bias2 - bias), dim=-1))
+        order = list(p)  # the state's key order
+        return _finish(state, {k: params[k] for k in order},
+                       {k: new_mu[k] for k in order},
+                       {k: new_nu[k] for k in order}, count_inc,
+                       _fused_aux(losses, act), batch, sentinel, (un,), un)
+
+    return step
+
+
+# Signatures whose loss is a mean over the batch rows plus terms that do
+# not depend on the batch, so a data-sharded autodiff step may weight each
+# rank's loss by its share of the rows and sum: every signature of the zoo.
+ROW_SEPARABLE_SIGNATURES = frozenset({
+    "sae", "tied_sae", "masked_tied_sae", "tied_centered_sae",
+    "thresholding_sae", "masked_sae", "reverse_sae", "positive_tied_sae",
+    "semilinear_sae", "topk", "lista_denoising_sae",
+    "residual_denoising_sae", "rica",
+})
+
+
+def shard_ensemble_state(state: EnsembleState, mesh) -> EnsembleState:
+    """This rank's member shard of a full stacked state
+    (``partition.ENSEMBLE_STATE_RULES``: the member axis over "model",
+    scalars replicated), through the ``partition.place`` seam."""
+    n_model = mesh.shape[MODEL_AXIS]
+    if state.n_members % n_model != 0:
+        raise ValueError(
+            f"ensemble size {state.n_members} not divisible by mesh model "
+            f"axis {n_model}; pad the sweep grid or choose a dividing "
+            "mesh_model")
+    return partition.place_tree(state, mesh, partition.ENSEMBLE_STATE_RULES)
+
+
+def _gather_members(mesh, tensors: list) -> list:
+    """Each [N_local, ...] tensor gathered over "model" to [N, ...], the
+    tensors of one dtype in one all-gather (bools travel as int32)."""
+    out: list = [None] * len(tensors)
+    groups: dict = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(i)
+    for dtype, idx in groups.items():
+        wire = torch.int32 if dtype == torch.bool else dtype
+        flat = [tensors[i].reshape(tensors[i].shape[0], -1).to(wire)
+                for i in idx]
+        full = mesh.all_gather(torch.cat(flat, dim=1), MODEL_AXIS, dim=0)
+        col = 0
+        for i, f in zip(idx, flat):
+            part = full[:, col:col + f.shape[1]]
+            out[i] = part.reshape((full.shape[0],)
+                                  + tuple(tensors[i].shape[1:])).to(dtype)
+            col += f.shape[1]
+    return out
+
+
+def gather_aux(aux: AuxData, mesh) -> AuxData:
+    """A step's per-member aux from every model shard (and the
+    inputs-finite flag AND-ed over "data"): what a single-device step
+    returns."""
+    names = [f.name for f in dataclasses.fields(AuxData)
+             if f.name not in ("losses", "inputs_finite")
+             and getattr(aux, f.name) is not None]
+    keys = list(aux.losses)
+    full = _gather_members(mesh, [aux.losses[k] for k in keys]
+                           + [getattr(aux, n) for n in names])
+    fields = dict(zip(names, full[len(keys):]))
+    if aux.inputs_finite is not None:
+        fields["inputs_finite"] = mesh.all_true(aux.inputs_finite, DATA_AXIS)
+    return aux.replace(losses=dict(zip(keys, full[:len(keys)])), **fields)
+
+
 def can_use_fused_tied_step(sig: Any, members) -> bool:
     """Kernel-path preconditions of the tied kernels: a plain tied SAE
     with exactly the {encoder, encoder_bias} params, identity centering
@@ -527,6 +733,7 @@ class Ensemble:
         fused_moments_dtype: str = "float32",
         sentinel: bool = True,
         device=None,
+        mesh=None,
     ):
         if fused_path not in (None, *KERNEL_PATHS):
             raise ValueError(f"fused_path must be None or one of "
@@ -554,7 +761,13 @@ class Ensemble:
             raise ValueError("fused_path requires use_fused=True or 'auto'")
         if not members:
             raise ValueError("ensemble needs at least one member")
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None and (
+                torch.device(device) != mesh.device):
+            raise ValueError(f"device={device!r} differs from the mesh's "
+                             f"device {mesh.device}")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
         self.sig = sig
         self.sig_name = getattr(sig, "signature_name", sig.__name__)
         self._adam_hypers = (adam_b1, adam_b2, adam_eps)
@@ -565,7 +778,9 @@ class Ensemble:
         if any(statics != statics0 for _, statics in split[1:]):
             raise ValueError("members with differing static buffers cannot "
                              "share a bucket")
-        dev = self.device
+        # on a mesh the full state is stacked on the host and each rank
+        # keeps its member shard (shard_ensemble_state)
+        dev = self.device if mesh is None else torch.device("cpu")
         flat = [flatten_tree(p) for p, _ in members]
         params = {k: torch.stack([_as_tensor(p[k], dev) for p in flat])
                   for k in flat[0]}
@@ -594,9 +809,13 @@ class Ensemble:
             lrs=lrs, step=torch.zeros((), dtype=torch.int32, device=dev),
             live=torch.ones((n,), dtype=torch.bool, device=dev),
             static_buffers=statics0, sig_name=self.sig_name)
+        self._n_members = n
+        if mesh is not None:
+            self.state = shard_ensemble_state(self.state, mesh)
 
         self._standard_step = make_train_step(sig, self._adam_hypers,
-                                              statics0, self.sentinel)
+                                              statics0, self.sentinel,
+                                              mesh=mesh)
         family = None
         if use_fused is not False:
             if can_use_fused_tied_step(sig, members):
@@ -628,31 +847,65 @@ class Ensemble:
 
     @property
     def n_members(self) -> int:
-        return self.state.n_members
+        """The bucket's member count (every shard's, on a mesh)."""
+        return self._n_members
+
+    def local_index(self, index: int) -> Optional[int]:
+        """Member ``index``'s position in this rank's state, or None when
+        another model shard holds it (every member is local off a
+        mesh)."""
+        if self.mesh is None:
+            return int(index)
+        n_local = self.state.n_members
+        lo = self.mesh.coords[MODEL_AXIS] * n_local
+        return int(index) - lo if lo <= int(index) < lo + n_local else None
 
     def freeze_members(self, indices: Sequence[int]) -> None:
-        """Clear live-mask bits: a frozen member's params and optimizer
-        state pass through every later step unchanged."""
-        idx = [int(i) for i in indices]
+        """Clear live-mask bits (global member indices): a frozen member's
+        params and optimizer state pass through every later step
+        unchanged. On a mesh each rank clears the bits of the members it
+        holds."""
+        idx = [j for j in (self.local_index(i) for i in indices)
+               if j is not None]
         if idx:
             live = self.state.live.clone()
             live[idx] = False
             self.state = self.state.replace(live=live)
 
     def live_mask(self) -> np.ndarray:
-        return self.state.live.cpu().numpy()
+        """The [N] live mask (gathered over "model" on a mesh: every rank
+        calls it)."""
+        live = self.state.live
+        if self.mesh is not None:
+            live = _gather_members(self.mesh, [live])[0]
+        return live.cpu().numpy()
+
+    def full_state(self) -> EnsembleState:
+        """The whole bucket's state: this rank's own off a mesh, the
+        member shards gathered over "model" on one (a collective)."""
+        if self.mesh is None:
+            return self.state
+        return partition.gather_tree(self.state, self.mesh,
+                                     partition.ENSEMBLE_STATE_RULES)
 
     def _step_for_path(self, path: str) -> Step:
         fn = self._steps.get(path)
         if fn is None:
             h, cd, s = self._adam_hypers, self._compute_dtype, self.sentinel
             untied = self._fused_family == "untied"
+            mesh = self.mesh
             if path == "two_stage":
                 fn = make_fused_step((_untied_producer if untied
-                                      else _tied_producer)(cd), h, s)
+                                      else _tied_producer)(cd), h, s, mesh)
             elif path == "two_stage_tiled":
                 fn = make_fused_step((_untied_tiled_producer if untied
-                                      else _tied_tiled_producer)(cd), h, s)
+                                      else _tied_tiled_producer)(cd), h, s,
+                                     mesh)
+            elif mesh is not None:
+                fn = make_fullfused_step_sharded(
+                    self._fused_family, h, mesh,
+                    tiled=path == "train_step_tiled", compute_dtype=cd,
+                    sentinel=s)
             elif untied:
                 fn = make_fullfused_untied_step(
                     h, cd, s, tiled=path == "train_step_tiled")
@@ -686,6 +939,14 @@ class Ensemble:
                 f"n_feats={n_feats}, d={d} ({plan.reason}): they take "
                 f"{_build.kernel_shapes(self._compute_dtype)}; "
                 "pass use_fused=False to train this bucket on autodiff")
+        if (plan.path is None and self.mesh is not None
+                and self.mesh.shape[DATA_AXIS] > 1
+                and self.sig_name not in ROW_SEPARABLE_SIGNATURES):
+            raise ValueError(
+                f"signature {self.sig_name!r} is not known to be a mean over "
+                "the batch rows, so its autodiff step cannot split the batch "
+                "over a data axis of "
+                f"{self.mesh.shape[DATA_AXIS]}; use mesh_data=1")
         self._step_fn = (self._standard_step if plan.path is None
                          else self._step_for_path(plan.path))
         self.fused_path = plan.path
@@ -703,7 +964,12 @@ class Ensemble:
         drops, never the accumulation's. Under bf16 compute on a kernel
         path a bfloat16 batch stays bfloat16: the bf16 kernels take it as
         their dot operand, with no fp32 copy on the card, and its fp32
-        value (exact) in the residual."""
+        value (exact) in the residual. On a mesh every rank passes the
+        same global batch (its rows must divide over "data"); the rank
+        keeps its rows, the kernel path is resolved for them, and the aux
+        comes back whole (every member, every rank)."""
+        if self.mesh is not None:
+            batch = partition.place_batch(batch, self.mesh)
         batch = _as_tensor(batch, self.device)
         self._resolve_step(int(batch.shape[0]))
         if batch.dtype != torch.float32 and not (
@@ -711,6 +977,8 @@ class Ensemble:
                 and self._compute_dtype == "bfloat16"):
             batch = batch.to(torch.float32)
         self.state, aux = self._step_fn(self.state, batch)
+        if self.mesh is not None:
+            aux = gather_aux(aux, self.mesh)
         return aux
 
     def run_steps(self, batches) -> AuxData:
@@ -742,9 +1010,11 @@ class Ensemble:
 
     def unstack(self) -> list[tuple[dict, dict]]:
         """Per-member (params, buffers incl. statics) as CPU tensors, the
-        params in the signature's nesting."""
-        params = {k: v.cpu() for k, v in self.state.params.items()}
-        buffers = {k: v.cpu() for k, v in self.state.buffers.items()}
+        params in the signature's nesting (every member; a collective on a
+        mesh)."""
+        state = self.full_state()
+        params = {k: v.cpu() for k, v in state.params.items()}
+        buffers = {k: v.cpu() for k, v in state.buffers.items()}
         return [(unflatten_tree({k: v[i] for k, v in params.items()}),
                  merge_buffers({k: v[i] for k, v in buffers.items()},
                                self.state.static_buffers))

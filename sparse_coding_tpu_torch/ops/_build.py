@@ -100,34 +100,35 @@ ARGTYPES = {
     "sae_untied_bwd_norms": [_P] * 2 + [_I] * 2 + [_P],
     # x, E, b, C, Z, rows, n, d, stream
     "sae_untied_bwd_codes": [_P] * 4 + [_I] * 4 + [_P],
-    # r, D, nrm, C, alphas, G, Z, rows, n, d, B, coef, stream
-    "sae_untied_bwd_dpre": [_P] * 6 + [_I] * 5 + [_F, _P],
+    # r, D, nrm, C, alphas, G, Z, rows, n, d, B, TB, coef, stream
+    "sae_untied_bwd_dpre": [_P] * 6 + [_I] * 6 + [_F, _P],
     # x, G, dE, Z, rows, n, d, first, stream
     "sae_untied_bwd_de": [_P] * 3 + [_I] * 5 + [_P],
     # C, r, dWn, Z, rows, n, d, B, first, last, coef, stream
     "sae_untied_bwd_dwn": [_P] * 3 + [_I] * 7 + [_F, _P],
     # C, G, db, act, csum, Z, rows, n, first, stream
     "sae_untied_bwd_sums": [_P] * 5 + [_I] * 4 + [_P],
-    # r, dE, dWn, db, act, csum, alphas, part, loss4, N, B, n, d, P, stream
+    # r, dE, dWn, db, act, csum, alphas, part, loss4, N, B, TB, n, d, P,
+    # stream
     # (once a call)
-    "sae_untied_bwd_loss": [_P] * 9 + [_I] * 5 + [_P],
+    "sae_untied_bwd_loss": [_P] * 9 + [_I] * 6 + [_P],
     # the tied backward's launches (csrc/sae_tied_bwd.cu), a chunk of Z
     # members x rows batch rows at a time:
     # E, W, rows, d, stream (once a call)
     "sae_tied_bwd_norms": [_P] * 2 + [_I] * 2 + [_P],
     # x, W, b, coef_mask (or null), C, Z, rows, n, d, stream
     "sae_tied_bwd_codes": [_P] * 5 + [_I] * 4 + [_P],
-    # r, W, C, alphas, G, Z, rows, n, d, B, coef, stream
-    "sae_tied_bwd_dpre": [_P] * 5 + [_I] * 5 + [_F, _P],
+    # r, W, C, alphas, G, Z, rows, n, d, B, TB, coef, stream
+    "sae_tied_bwd_dpre": [_P] * 5 + [_I] * 6 + [_F, _P],
     # x, G, dW, Z, rows, n, d, first, stream
     "sae_tied_bwd_dwx": [_P] * 3 + [_I] * 5 + [_P],
     # C, r, dW, Z, rows, n, d, B, coef, stream
     "sae_tied_bwd_dwr": [_P] * 3 + [_I] * 5 + [_F, _P],
     # C, G, db, act, csum, Z, rows, n, first, stream
     "sae_tied_bwd_sums": [_P] * 5 + [_I] * 4 + [_P],
-    # r, dW, db, act, csum, alphas, part, loss4, N, B, n, d, P, stream
+    # r, dW, db, act, csum, alphas, part, loss4, N, B, TB, n, d, P, stream
     # (once a call)
-    "sae_tied_bwd_loss": [_P] * 8 + [_I] * 5 + [_P],
+    "sae_tied_bwd_loss": [_P] * 8 + [_I] * 6 + [_P],
     # the bf16 forms (compute_dtype="bfloat16"), in the same libraries:
     # the tied forward's (csrc/sae_tied_fwd.cu):
     # src, dst, count, stream (the fp32 batch, once a call)
@@ -154,16 +155,16 @@ ARGTYPES = {
     "sae_tied_bwd_bf16_norms": [_P] * 2 + [_I] * 2 + [_P],
     # xb, Wb, b, coef_mask (or null), C, Cb, Z, rows, n, d, stream
     "sae_tied_bwd_bf16_codes": [_P] * 6 + [_I] * 4 + [_P],
-    # rb, Wb, C, alphas, G, Gb, Z, rows, n, d, B, coef, stream
-    "sae_tied_bwd_bf16_dpre": [_P] * 6 + [_I] * 5 + [_F, _P],
+    # rb, Wb, C, alphas, G, Gb, Z, rows, n, d, B, TB, coef, stream
+    "sae_tied_bwd_bf16_dpre": [_P] * 6 + [_I] * 6 + [_F, _P],
     # xb, Gb, dW, Z, rows, n, d, first, stream
     "sae_tied_bwd_bf16_dwx": [_P] * 3 + [_I] * 5 + [_P],
     # Cb, rb, dW, Z, rows, n, d, B, coef, stream
     "sae_tied_bwd_bf16_dwr": [_P] * 3 + [_I] * 5 + [_F, _P],
     # C, G, db, act, csum, Z, rows, n, first, stream
     "sae_tied_bwd_bf16_sums": [_P] * 5 + [_I] * 4 + [_P],
-    # r, dW, db, act, csum, alphas, part, loss4, N, B, n, d, P, stream
-    "sae_tied_bwd_bf16_loss": [_P] * 8 + [_I] * 5 + [_P],
+    # r, dW, db, act, csum, alphas, part, loss4, N, B, TB, n, d, P, stream
+    "sae_tied_bwd_bf16_loss": [_P] * 8 + [_I] * 6 + [_P],
     # the untied backward's (csrc/sae_untied_bwd.cu): src, dst, count,
     # stream (the fp32 batch, the raw encoder and the residual)
     "sae_untied_bwd_bf16_round": [_P] * 2 + [_LL, _P],
@@ -171,16 +172,18 @@ ARGTYPES = {
     "sae_untied_bwd_bf16_norms": [_P] * 2 + [_I] * 2 + [_P],
     # xb, Eb, b, C, Cb, Z, rows, n, d, stream
     "sae_untied_bwd_bf16_codes": [_P] * 5 + [_I] * 4 + [_P],
-    # rb, Wnb, C, alphas, G, Gb, Z, rows, n, d, B, coef, stream
-    "sae_untied_bwd_bf16_dpre": [_P] * 6 + [_I] * 5 + [_F, _P],
+    # rb, Wnb, C, alphas, G, Gb, Z, rows, n, d, B, TB, coef,
+    # stream
+    "sae_untied_bwd_bf16_dpre": [_P] * 6 + [_I] * 6 + [_F, _P],
     # xb, Gb, dE, Z, rows, n, d, first, stream
     "sae_untied_bwd_bf16_de": [_P] * 3 + [_I] * 5 + [_P],
     # Cb, rb, dWn, Z, rows, n, d, B, first, last, coef, stream
     "sae_untied_bwd_bf16_dwn": [_P] * 3 + [_I] * 7 + [_F, _P],
     # C, G, db, act, csum, Z, rows, n, first, stream
     "sae_untied_bwd_bf16_sums": [_P] * 5 + [_I] * 4 + [_P],
-    # r, dE, dWn, db, act, csum, alphas, part, loss4, N, B, n, d, P, stream
-    "sae_untied_bwd_bf16_loss": [_P] * 9 + [_I] * 5 + [_P],
+    # r, dE, dWn, db, act, csum, alphas, part, loss4, N, B, TB, n, d, P,
+    # stream
+    "sae_untied_bwd_bf16_loss": [_P] * 9 + [_I] * 6 + [_P],
     # the Adam epilogues with bf16 moments (fused_moments_dtype=
     # "bfloat16"): the fp32 ones' arguments, mu/nu in and out bf16
     "sae_tied_adam_vjp_bf16": [_P] * 18 + [_I] * 3 + [_F] * 5 + [_P],

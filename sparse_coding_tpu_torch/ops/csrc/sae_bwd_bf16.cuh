@@ -37,22 +37,22 @@ inline cudaError_t launch_bwd_codes_bf16(const bf16* xb, const bf16* Wb,
                                 d, epi, false, stream, Z);
 }
 
-// G [Z, rows, n] = (coef * (rb . Wb^T) + alphas / B) * [C > 0], fp32 into
-// G and rounded into Gb, per member z: rb [rows, d] (members B*d apart),
-// Wb [n, d], alphas[z]
+// G [Z, rows, n] = (coef * (rb . Wb^T) + alphas / TB) * [C > 0], fp32
+// into G and rounded into Gb, per member z: rb [rows, d] (members B*d
+// apart), Wb [n, d], alphas[z]; TB >= B the global batch
 inline cudaError_t launch_bwd_dpre_bf16(const bf16* rb, const bf16* Wb,
                                         const float* C, const float* alphas,
                                         float* G, bf16* Gb, int Z, int rows,
-                                        int n, int d, int B, float coef,
-                                        cudaStream_t stream) {
-  if (!chunk_ok_bf16(Z, rows, n, d) || B < rows)
+                                        int n, int d, int B, int TB,
+                                        float coef, cudaStream_t stream) {
+  if (!chunk_ok_bf16(Z, rows, n, d) || B < rows || TB < B)
     return cudaErrorInvalidValue;
   const size_t cz = (size_t)rows * n;
   const ScaledDpreEpi epi{C, alphas, G, Gb, n, cz,
                           sgemm::aligned16(C, n, n, cz) &&
                               sgemm::aligned16(G, n, n, cz) &&
                               aligned8(Gb, n, n, cz),
-                          coef, (float)B};
+                          coef, (float)TB};
   return wgemm::run<true, true>(wgemm::Operand{rb, d, (size_t)B * d},
                                 wgemm::Operand{Wb, d, (size_t)n * d}, rows, n,
                                 d, epi, true, stream, Z);

@@ -204,7 +204,7 @@ struct ResidEpiOf {
 using ResidEpi = ResidEpiOf<float>;
 
 // dpre from the scaled dot products r . W^T of the tied backward and of
-// the bf16 forms of both backwards: G[z] = (coef * acc + alpha[z]/B) *
+// the bf16 forms of both backwards: G[z] = (coef * acc + alpha[z]/TB) *
 // [C[z] > 0], the plain version's operations in its order (no
 // contraction into an FMA), stored fp32 (for db) and, where gb is set,
 // rounded to bf16 (the bf16 weight-grad products' operand); C is the fp32
@@ -339,12 +339,14 @@ loss_part_kernel(const float* __restrict__ r, const float* __restrict__ dW1,
 }
 
 // Block m: the member's loss4 from its P slices (in order) and its
-// per-feature c sums and counts (double sums).
+// per-feature c sums and counts (double sums), normalized by the global
+// batch TB (the whole batch, or on a data-sharded call the batch of every
+// shard together: this call's terms are then partial sums).
 static __global__ void __launch_bounds__(kThreads)
 loss_final_kernel(const float* __restrict__ part,
                   const float* __restrict__ csum,
                   const float* __restrict__ act,
-                  const float* __restrict__ alphas, int P, int B, int n,
+                  const float* __restrict__ alphas, int P, int TB, int n,
                   int d, float* __restrict__ loss4) {
   __shared__ double red[2][kWarps];
   const int m = blockIdx.x;
@@ -361,16 +363,17 @@ loss_final_kernel(const float* __restrict__ part,
       sr += part[((size_t)m * P + p) * 2];
       sg += part[((size_t)m * P + p) * 2 + 1];
     }
-    const float batch_f = (float)B;
-    loss4[m * 4] = sr / (float)((long long)B * d);
+    const float batch_f = (float)TB;
+    loss4[m * 4] = sr / (float)((long long)TB * d);
     loss4[m * 4 + 1] = alphas[m] * (float)l1 / batch_f;
     loss4[m * 4 + 2] = (float)l0 / batch_f;
     loss4[m * 4 + 3] = sg;
   }
 }
 
-// loss4 [N, 4] = [sum r^2 / (B*d), alpha * sum c / B, sum act / B,
-// sum dW1^2 (+ sum dW2^2) + sum db^2] per member, from r [N, B, d], the
+// loss4 [N, 4] = [sum r^2 / (TB*d), alpha * sum c / TB, sum act / TB,
+// sum dW1^2 (+ sum dW2^2) + sum db^2] per member, from r [N, B, d]
+// (TB >= B the global batch), the
 // finished dW1 (and dW2, or null) [N, n, d], db, act, csum [N, n] and
 // alphas [N]; part is an [N, P, 2] scratch (P slices a member, summed in
 // order).
@@ -378,16 +381,16 @@ inline cudaError_t launch_loss(const float* r, const float* dW1,
                                const float* dW2, const float* db,
                                const float* act, const float* csum,
                                const float* alphas, float* part,
-                               float* loss4, int N, int B, int n, int d,
-                               int P, cudaStream_t stream) {
-  if (!chunk_ok(N, B, n, d) || P < 1 || P > 65535)
+                               float* loss4, int N, int B, int TB, int n,
+                               int d, int P, cudaStream_t stream) {
+  if (!chunk_ok(N, B, n, d) || TB < B || P < 1 || P > 65535)
     return cudaErrorInvalidValue;
   loss_part_kernel<<<dim3(P, N), kThreads, 0, stream>>>(r, dW1, dW2, db, B,
                                                         n, d, part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   loss_final_kernel<<<N, kThreads, 0, stream>>>(part, csum, act, alphas, P,
-                                                B, n, d, loss4);
+                                                TB, n, d, loss4);
   return cudaGetLastError();
 }
 

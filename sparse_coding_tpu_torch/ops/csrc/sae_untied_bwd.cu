@@ -132,20 +132,21 @@ extern "C" int sae_untied_bwd_codes(const float* x, const float* E,
       d, epi, (cudaStream_t)stream, Z);
 }
 
-// G [Z, rows, n] = (coef * (r . D^T) / nrm + alphas / B) * [C > 0], per
-// member z: r [rows, d] (members B*d apart), D [n, d], nrm [n], alphas[z]
+// G [Z, rows, n] = (coef * (r . D^T) / nrm + alphas / TB) * [C > 0], per
+// member z: r [rows, d] (members B*d apart), D [n, d], nrm [n], alphas[z];
+// TB >= B the global batch (B on a whole-batch call)
 extern "C" int sae_untied_bwd_dpre(const float* r, const float* D,
                                    const float* nrm, const float* C,
                                    const float* alphas, float* G, int Z,
-                                   int rows, int n, int d, int B, float coef,
-                                   void* stream) {
-  if (!chunk_ok(Z, rows, n, d) || B < rows)
+                                   int rows, int n, int d, int B, int TB,
+                                   float coef, void* stream) {
+  if (!chunk_ok(Z, rows, n, d) || B < rows || TB < B)
     return (int)cudaErrorInvalidValue;
   const size_t cz = (size_t)rows * n;
   const DpreEpi epi{C, nrm, alphas, G, n, cz,
                     aligned16(C, n, n, cz) && aligned16(G, n, n, cz) &&
                         aligned16(nrm, n, n, n),
-                    coef, (float)B};
+                    coef, (float)TB};
   return (int)sgemm::run<true, true>(
       Operand{r, d, false, (size_t)B * d},
       Operand{D, d, false, (size_t)n * d}, rows, n, d, epi,
@@ -193,16 +194,17 @@ extern "C" int sae_untied_bwd_sums(const float* C, const float* G, float* db,
 }
 
 // loss4 [N, 4] of every member from r [N, B, d], the finished dE, dWn
-// [N, n, d], db, act, csum [N, n] and alphas [N]; part is a [N, P, 2]
-// scratch (P slices a member, summed in order)
+// [N, n, d], db, act, csum [N, n] and alphas [N], normalized by the global
+// batch TB >= B; part is a [N, P, 2] scratch (P slices a member, summed
+// in order)
 extern "C" int sae_untied_bwd_loss(const float* r, const float* dE,
                                    const float* dWn, const float* db,
                                    const float* act, const float* csum,
                                    const float* alphas, float* part,
-                                   float* loss4, int N, int B, int n, int d,
-                                   int P, void* stream) {
+                                   float* loss4, int N, int B, int TB, int n,
+                                   int d, int P, void* stream) {
   return (int)sae::launch_loss(r, dE, dWn, db, act, csum, alphas, part, loss4,
-                               N, B, n, d, P, (cudaStream_t)stream);
+                               N, B, TB, n, d, P, (cudaStream_t)stream);
 }
 
 // The bf16 form's entry points: the launches above with bf16 dot operands
@@ -234,16 +236,17 @@ extern "C" int sae_untied_bwd_bf16_codes(const sae::bf16* xb,
                                          n, d, (cudaStream_t)stream);
 }
 
-// G [Z, rows, n] = (coef * (rb . Wnb^T) + alphas / B) * [C > 0] and
+// G [Z, rows, n] = (coef * (rb . Wnb^T) + alphas / TB) * [C > 0] and
 // Gb = bf16(G), per member z: rb [rows, d] (members B*d apart)
 extern "C" int sae_untied_bwd_bf16_dpre(const sae::bf16* rb,
                                         const sae::bf16* Wnb, const float* C,
                                         const float* alphas, float* G,
                                         sae::bf16* Gb, int Z, int rows, int n,
-                                        int d, int B, float coef,
+                                        int d, int B, int TB, float coef,
                                         void* stream) {
   return (int)sae::launch_bwd_dpre_bf16(rb, Wnb, C, alphas, G, Gb, Z, rows,
-                                        n, d, B, coef, (cudaStream_t)stream);
+                                        n, d, B, TB, coef,
+                                        (cudaStream_t)stream);
 }
 
 // dE [Z, n, d] = (first ? 0 : dE) + Gb [Z, rows, n]^T . xb [rows, d]
@@ -288,8 +291,8 @@ extern "C" int sae_untied_bwd_bf16_loss(const float* r, const float* dE,
                                         const float* dWn, const float* db,
                                         const float* act, const float* csum,
                                         const float* alphas, float* part,
-                                        float* loss4, int N, int B, int n,
-                                        int d, int P, void* stream) {
+                                        float* loss4, int N, int B, int TB,
+                                        int n, int d, int P, void* stream) {
   return (int)sae::launch_loss(r, dE, dWn, db, act, csum, alphas, part, loss4,
-                               N, B, n, d, P, (cudaStream_t)stream);
+                               N, B, TB, n, d, P, (cudaStream_t)stream);
 }

@@ -60,6 +60,7 @@ from sparse_coding_tpu_torch.ops.fused_sae_tiled import (
     FWD_CODE_BYTES,
     _check_tiles,
     _check_unported,
+    _global_batch,
     _on_cpu,
     _rounding,
     bf16_operand,
@@ -267,23 +268,27 @@ def big_sae_forward(params: dict, xc: torch.Tensor,
 
 def big_sae_backward_plain(params: dict, alpha: torch.Tensor,
                            xc: torch.Tensor, r: torch.Tensor,
-                           compute_dtype: str = "float32"):
+                           compute_dtype: str = "float32",
+                           total_batch: Optional[int] = None):
     """(dE [d, n] wrt the raw encoder, dWn [n, d] wrt the normalized
     dictionary, dt [n], dctr_enc [d] = −Σ_b dpre·Eᵀ, c_totals [n] = Σ_b c,
     [l1, l0] sums [2]) from the residual r = x̂ − x, materializing the
     codes. dpre = (coef·r·Wnᵀ + α/B) ⊙ [pre > 0], coef = 2/(B·d). bf16
     compute rounds xc, E, Wn, r, the codes and dpre where they enter a
     product (dctr: the rounded dpre against the rounded E); dt, c_totals
-    and the sums stay over the fp32 values."""
+    and the sums stay over the fp32 values. ``total_batch`` (default B)
+    takes B's place as the normalizer on a data-sharded call, whose
+    outputs are then partial sums over its rows."""
     rnd = _rounding(compute_dtype)
     b, d = xc.shape
+    tb = _global_batch(total_batch, b)
     xq, e = rnd(xc), rnd(params["encoder"])
     wn, rq = rnd(normalized_dict(params["dict"])), rnd(r)
     pre = xq @ e + params["threshold"]
     c = torch.relu(pre)
     mask = (pre > 0.0).to(torch.float32)
-    coef = 2.0 / (b * d)
-    dpre = (coef * (rq @ wn.T) + alpha / b) * mask
+    coef = 2.0 / (tb * d)
+    dpre = (coef * (rq @ wn.T) + alpha / tb) * mask
     dq = rnd(dpre)
     de = xq.T @ dq
     dwn = coef * (rnd(c).T @ rq)
@@ -294,20 +299,21 @@ def big_sae_backward_plain(params: dict, alpha: torch.Tensor,
 
 
 def _backward_chunked_plain(e, wn, t, alpha, xc, r,
-                            compute_dtype: str = "float32"):
+                            compute_dtype: str = "float32", tb=None):
     """K9's chunk schedule in plain torch (the CPU twin of the kernels):
     the same chunks, each chunk's products and sums added in order, dctr
     from the sum of the (rounded) dpre, as the kernels form it."""
     rnd = _rounding(compute_dtype)
     b, d = xc.shape
-    coef = 2.0 / (b * d)
+    tb = _global_batch(tb, b)
+    coef = 2.0 / (tb * d)
     xq, rq, e, wn = rnd(xc), rnd(r), rnd(e), rnd(wn)
     acc = None
     for lo, hi in bwd_chunks(b, e.shape[1], compute_dtype):
         xk, rk = xq[lo:hi], rq[lo:hi]
         c = torch.relu(xk @ e + t)
         mask = (c > 0.0).to(torch.float32)  # = [pre > 0], NaN included
-        g = (coef * (rk @ wn.T) + alpha / b) * mask
+        g = (coef * (rk @ wn.T) + alpha / tb) * mask
         gq = rnd(g)
         part = (xk.T @ gq, rnd(c).T @ rk, g.sum(dim=0), gq.sum(dim=0),
                 c.sum(dim=0), mask.sum(dim=0))
@@ -426,7 +432,7 @@ def _bwd_outputs(n: int, d: int, device) -> tuple:
             torch.empty((d,), **kw), torch.empty((2,), **kw))
 
 
-def _backward_bf16(e, wn, t, alpha, xc, r):
+def _backward_bf16(e, wn, t, alpha, xc, r, tb):
     """The bf16 form of :func:`big_sae_backward` on the card."""
     b, d = xc.shape
     n = e.shape[1]
@@ -438,13 +444,13 @@ def _backward_bf16(e, wn, t, alpha, xc, r):
     ws = torch.empty((2, rows, n), dtype=torch.float32, device=xc.device)
     wsb = torch.empty((2, rows, n), dtype=_BF16, device=xc.device)
     (c, g), (cb, gb) = ws, wsb
-    coef = float(np.float32(2.0 / (b * d)))
+    coef = float(np.float32(2.0 / (tb * d)))
     chunks = bwd_chunks(b, n, BF16)
     for i, (lo, hi) in enumerate(chunks):
         first, last = i == 0, i == len(chunks) - 1
         xk, rk = xb[lo:hi], rb[lo:hi]
         bwd_bf16_codes(xk, eb, t, c, cb)
-        bwd_bf16_dpre(rk, wnb, c, alpha, g, gb, b, coef)
+        bwd_bf16_dpre(rk, wnb, c, alpha, g, gb, tb, coef)
         bwd_bf16_de(xk, gb, de, first)
         bwd_bf16_dwn(cb, rk, dwn, first, last, coef)
         bwd_bf16_sums(c, g, gb, hi - lo, dt, dtb, c_totals, l0f, first)
@@ -468,6 +474,7 @@ def big_sae_backward(params: dict, alpha: torch.Tensor, xc: torch.Tensor,
     ``bwd_bf16_dctr``). CPU: the same chunk schedule in plain torch."""
     b, n, d = _shapes(params, xc)
     _check_unported(total_batch, b, compute_dtype)
+    tb = _global_batch(total_batch, b)
     _tiles(b, n, batch_tile, feat_tile)
     if tuple(r.shape) != (b, d):
         raise ValueError(f"r must be {(b, d)}, got {tuple(r.shape)}")
@@ -475,24 +482,24 @@ def big_sae_backward(params: dict, alpha: torch.Tensor, xc: torch.Tensor,
     e, t = params["encoder"], params["threshold"]
     if _on_cpu("big_sae_bwd", xc, r, e, t, params["dict"], alpha):
         return _backward_chunked_plain(e, normalized_dict(params["dict"]), t,
-                                       alpha, xc, r, compute_dtype)
+                                       alpha, xc, r, compute_dtype, tb)
     wn = normalized_dict(params["dict"])
     alpha = alpha.reshape(1).contiguous()
     _kernel_checks("big_sae_bwd", b, n, d, compute_dtype, xc=xc, r=r,
                    encoder=e, wn=wn, threshold=t, alpha=alpha)
     if compute_dtype == BF16:
-        return _backward_bf16(e, wn, t, alpha, xc, r)
+        return _backward_bf16(e, wn, t, alpha, xc, r, tb)
     de, dwn, dt, c_totals, l0f, dctr, scal = _bwd_outputs(n, d, xc.device)
     ws = torch.empty((2, bwd_chunk_rows(b, n), n), dtype=torch.float32,
                      device=xc.device)
     c, g = ws[0], ws[1]
-    coef = float(np.float32(2.0 / (b * d)))
+    coef = float(np.float32(2.0 / (tb * d)))
     chunks = bwd_chunks(b, n)
     for i, (lo, hi) in enumerate(chunks):
         first, last = i == 0, i == len(chunks) - 1
         xk, rk = xc[lo:hi], r[lo:hi]
         bwd_codes(xk, e, t, c)
-        bwd_dpre(rk, wn, c, alpha, g, b, coef)
+        bwd_dpre(rk, wn, c, alpha, g, tb, coef)
         bwd_de(xk, g, de, first)
         bwd_dwn(c, rk, dwn, first, last, coef)
         bwd_sums(c, g, hi - lo, dt, c_totals, l0f, first)
@@ -617,10 +624,14 @@ def fused_big_sae_loss_and_grads(params: dict, batch: torch.Tensor,
     "mse_losses", "l0_mean"}, grads wrt the RAW params {dict, encoder,
     threshold, centering}. ``compute_dtype="bfloat16"`` runs both kernels'
     bf16 forms. Raises ValueError for a shape the kernels do not take (even
-    on the CPU, as the JAX function does)."""
+    on the CPU, as the JAX function does). ``total_batch`` normalizes the
+    loss terms and grads on a data-sharded call (partial sums over this
+    call's rows); the features are all local here, so a feature-sharded
+    step composes K8 and K9 itself (``train/big_sae.py``)."""
     b, d = batch.shape
     n = params["dict"].shape[0]
     _check_unported(total_batch, b, compute_dtype)
+    tb = _global_batch(total_batch, b)
     if batch_tile is None or feat_tile is None:
         tiles = pick_big_sae_tiles(
             b, n, d, compute_itemsize=2 if compute_dtype == BF16 else 4)
@@ -643,16 +654,17 @@ def fused_big_sae_loss_and_grads(params: dict, batch: torch.Tensor,
         x_hat = x_hat + params["centering"]
     resid = (x_hat - batch).contiguous()  # r in the kernel math
     mse_losses = torch.mean(torch.square(resid), dim=-1)  # per example
-    mse = torch.sum(torch.square(resid)) / (b * d)
+    mse = torch.sum(torch.square(resid)) / (tb * d)
 
     de, dwn, dt, dctr_enc, c_totals, scal = big_sae_backward(
-        params, alpha, xc, resid, batch_tile, feat_tile,
+        params, alpha, xc, resid, batch_tile, feat_tile, total_batch=tb,
         compute_dtype=compute_dtype)
-    sparsity = alpha * scal[0] / b
+    sparsity = alpha * scal[0] / tb
     loss = mse + sparsity
-    dctr = dctr_enc + (2.0 / (b * d)) * resid.sum(dim=0) if tied else dctr_enc
+    dctr = (dctr_enc + (2.0 / (tb * d)) * resid.sum(dim=0) if tied
+            else dctr_enc)
     grads = {"dict": normalize_with_vjp(params["dict"], dwn),
              "encoder": de, "threshold": dt, "centering": dctr}
     aux = {"mse": mse, "sparsity": sparsity, "c_totals_delta": c_totals,
-           "mse_losses": mse_losses, "l0_mean": scal[1] / b}
+           "mse_losses": mse_losses, "l0_mean": scal[1] / tb}
     return loss, aux, grads

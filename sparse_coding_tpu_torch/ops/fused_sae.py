@@ -56,6 +56,7 @@ from sparse_coding_tpu_torch.ops.fused_sae_tiled import (
     sae_untied_bwd_plain,
     sae_untied_fwd,
     sae_untied_fwd_plain,
+    sum_partials,
 )
 
 _EPS = 1e-8
@@ -204,7 +205,7 @@ def _grads(fwd, bwd, encoder, bias, alphas, batch, batch_tile, total_batch,
     cm = _float_mask(coef_mask)
     dw, db, act, loss4 = bwd(encoder, bias, alphas, batch,
                              fwd(encoder, bias, batch, cm, compute_dtype), cm,
-                             compute_dtype)
+                             compute_dtype, total_batch)
     return _losses(loss4), dw, db, act
 
 
@@ -217,7 +218,9 @@ def fused_tied_sae_grads(encoder: torch.Tensor, bias: torch.Tensor,
     """All-member losses and gradients wrt (normalized W, bias): (losses
     {mse, l1, l0} [N], dW [N, n, d], db [N, n], activity [N, n]).
     ``coef_mask`` [N, n] (the masked family) zeroes the inactive
-    coefficients."""
+    coefficients. ``total_batch``: the global batch of a data-sharded
+    call, whose outputs are partial sums to all-reduce over the data axis
+    (``fused_sae_tiled._global_batch``)."""
     return _grads(sae_tied_fwd, sae_tied_bwd, encoder, bias, alphas, batch,
                   batch_tile, total_batch, compute_dtype, coef_mask)
 
@@ -234,9 +237,12 @@ def fused_tied_sae_loss_and_grads(params_stacked: dict, alphas, batch,
                                   batch_tile: Optional[int] = None,
                                   total_batch: Optional[int] = None,
                                   compute_dtype: str = "float32",
-                                  coef_mask: Optional[torch.Tensor] = None):
+                                  coef_mask: Optional[torch.Tensor] = None,
+                                  psum=None):
     """Two-stage producer for tied (and masked-tied) buckets: (losses,
-    grads wrt the raw params {encoder, encoder_bias}, activity)."""
+    grads wrt the raw params {encoder, encoder_bias}, activity).
+    ``psum`` sums a data-sharded call's partial losses and grads over the
+    data axis before the normalization VJP (``sum_partials``)."""
     e = params_stacked["encoder"]
     batch, bt, _ = prepare_tiled_batch(batch, e.shape[1], batch_tile, None,
                                        compute_dtype)
@@ -244,6 +250,7 @@ def fused_tied_sae_loss_and_grads(params_stacked: dict, alphas, batch,
         e, params_stacked["encoder_bias"], alphas, batch, batch_tile=bt,
         total_batch=total_batch, compute_dtype=compute_dtype,
         coef_mask=coef_mask)
+    losses, dw, db, activity = sum_partials(psum, losses, dw, db, activity)
     return losses, {"encoder": normalize_with_vjp(e, dw),
                     "encoder_bias": db}, activity
 
@@ -295,7 +302,8 @@ def _untied_grads(fwd, bwd, encoder, decoder, bias, alphas, batch,
     _check_batch_tile(b, batch_tile, total_batch, compute_dtype)
     de, dwn, db, act, loss4 = bwd(
         encoder, decoder, bias, alphas, batch,
-        fwd(encoder, decoder, bias, batch, compute_dtype), compute_dtype)
+        fwd(encoder, decoder, bias, batch, compute_dtype), compute_dtype,
+        total_batch)
     return _losses(loss4), de, dwn, db, act
 
 
@@ -335,11 +343,13 @@ def fused_untied_sae_loss_and_grads(params_stacked: dict, alphas,
                                     bias_decays, batch,
                                     batch_tile: Optional[int] = None,
                                     total_batch: Optional[int] = None,
-                                    compute_dtype: str = "float32"):
+                                    compute_dtype: str = "float32",
+                                    psum=None):
     """Two-stage producer for untied buckets: (losses incl. "bias_decay",
     grads wrt the raw params {encoder, encoder_bias, decoder}, activity).
-    The bias-decay terms are added after the kernels, so any bias_decay is
-    exact."""
+    The bias-decay terms are added after the kernels — and after ``psum``
+    sums a data-sharded call's partials —, so any bias_decay is exact and
+    counts once a member."""
     e, dec = params_stacked["encoder"], params_stacked["decoder"]
     bias = params_stacked["encoder_bias"]
     batch, bt, _ = prepare_tiled_batch(batch, e.shape[1], batch_tile, None,
@@ -347,6 +357,8 @@ def fused_untied_sae_loss_and_grads(params_stacked: dict, alphas,
     losses, de, dwn, db, activity = fused_untied_sae_grads(
         e, dec, bias, alphas, batch, batch_tile=bt, total_batch=total_batch,
         compute_dtype=compute_dtype)
+    losses, de, dwn, db, activity = sum_partials(psum, losses, de, dwn, db,
+                                                 activity)
     losses["bias_decay"], db = untied_bias_decay_terms(bias, bias_decays, db)
     return losses, {"encoder": de, "encoder_bias": db,
                     "decoder": normalize_with_vjp(dec, dwn)}, activity

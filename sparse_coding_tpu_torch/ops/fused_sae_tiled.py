@@ -92,6 +92,19 @@ def _on_cpu(name: str, *tensors: torch.Tensor) -> bool:
     return False
 
 
+def _global_batch(total_batch: Optional[int], rows: int) -> int:
+    """The grads' and loss terms' normalizer: ``total_batch``, the rows of
+    every data shard together on a data-sharded call (its outputs are then
+    partial sums that an all-reduce over the data axis completes, as the
+    JAX kernels' under ``shard_map``), or the call's own ``rows``."""
+    if total_batch is None:
+        return rows
+    if int(total_batch) < rows:
+        raise ValueError(f"total_batch {total_batch} is below the call's "
+                         f"{rows} rows")
+    return int(total_batch)
+
+
 def _tied_shapes(encoder, bias, batch) -> tuple[int, int, int, int]:
     if encoder.dim() != 3:
         raise ValueError(f"encoder must be [N, n, d], got {tuple(encoder.shape)}")
@@ -374,15 +387,21 @@ def sae_tied_bwd_plain(encoder: torch.Tensor, bias: torch.Tensor,
                        alphas: torch.Tensor, batch: torch.Tensor,
                        resid: torch.Tensor,
                        coef_mask: Optional[torch.Tensor] = None,
-                       compute_dtype: str = "float32"):
+                       compute_dtype: str = "float32",
+                       total_batch: Optional[int] = None):
     """Exact tied-SAE grads from the residual: (dW [N, n, d] wrt the
     normalized W, db [N, n], activity [N, n] float, loss4 [N, 4] =
     [mse, l1, l0, ΣdW² + Σdb²]). A coef_mask multiplies the codes and the
     ReLU mask, so only active coefficients count. bf16 compute rounds x, Ŵ,
     r, the codes and dpre where they enter a product; the masks, sums and
-    loss take the fp32 values."""
+    loss take the fp32 values. ``total_batch`` (default: the batch's rows)
+    normalizes the grads and the loss terms: on a data-sharded call, the
+    rows of every shard together, so the outputs are partial sums that an
+    all-reduce over the data axis completes (ΣdW² + Σdb² then stays this
+    shard's)."""
     rnd = _rounding(compute_dtype)
     b, d = batch.shape
+    tb = _global_batch(total_batch, b)
     xb = batch.to(torch.float32)
     xc = rnd(xb)
     w = rnd(_normalize_rows(encoder))
@@ -392,17 +411,17 @@ def sae_tied_bwd_plain(encoder: torch.Tensor, bias: torch.Tensor,
     if coef_mask is not None:
         c = c * coef_mask[:, None, :]
         mask = mask * coef_mask[:, None, :]
-    coef = 2.0 / (b * d)
+    coef = 2.0 / (tb * d)
     rc = rnd(resid)
     dpre = (coef * torch.matmul(rc, w.transpose(1, 2))
-            + (alphas / b)[:, None, None]) * mask
+            + (alphas / tb)[:, None, None]) * mask
     dw = (torch.matmul(rnd(dpre).transpose(1, 2), xc)
           + coef * torch.matmul(rnd(c).transpose(1, 2), rc))
     db = dpre.sum(dim=1)
     loss4 = torch.stack([
-        (resid * resid).sum(dim=(1, 2)) / (b * d),
-        alphas * c.sum(dim=(1, 2)) / b,
-        mask.sum(dim=(1, 2)) / b,
+        (resid * resid).sum(dim=(1, 2)) / (tb * d),
+        alphas * c.sum(dim=(1, 2)) / tb,
+        mask.sum(dim=(1, 2)) / tb,
         (dw * dw).sum(dim=(1, 2)) + (db * db).sum(dim=1)], dim=1)
     return dw, db, mask.sum(dim=1), loss4
 
@@ -427,13 +446,16 @@ def tied_bwd_codes(xk, w, bias, coef_mask, c) -> None:
                   xk.shape[0], n, d, _build.stream_ptr(xk))
 
 
-def tied_bwd_dpre(rk, w, c, alphas, g, batch: int, coef: float) -> None:
-    """G [Z, rows, n] = (coef·(rk·Ŵᵀ) + α/B)·[C > 0] into ``g``; rk is the
-    [Z, rows, d] slice of the [N, B, d] residual."""
+def tied_bwd_dpre(rk, w, c, alphas, g, batch: int, coef: float,
+                  total_b: Optional[int] = None) -> None:
+    """G [Z, rows, n] = (coef·(rk·Ŵᵀ) + α/TB)·[C > 0] into ``g``; rk is the
+    [Z, rows, d] slice of the [N, B, d] residual, TB the global batch
+    (``total_b``, default B)."""
     z, rows, d = rk.shape
     _build.launch("sae_tied_bwd_dpre", rk.data_ptr(), w.data_ptr(),
                   c.data_ptr(), alphas.data_ptr(), g.data_ptr(), z, rows,
-                  w.shape[1], d, batch, coef, _build.stream_ptr(rk))
+                  w.shape[1], d, batch, total_b or batch, coef,
+                  _build.stream_ptr(rk))
 
 
 def tied_bwd_dwx(xk, g, dw, first: bool) -> None:
@@ -461,14 +483,16 @@ def tied_bwd_sums(c, g, rows: int, db, act, csum, first: bool) -> None:
                   int(first), _build.stream_ptr(db))
 
 
-def tied_bwd_loss(resid, dw, db, act, csum, alphas, part, loss4) -> None:
-    """loss4 [N, 4] from the residual and the finished grads and sums;
-    ``part`` is an [N, slices, 2] scratch."""
+def tied_bwd_loss(resid, dw, db, act, csum, alphas, part, loss4,
+                  total_b: Optional[int] = None) -> None:
+    """loss4 [N, 4] from the residual and the finished grads and sums,
+    normalized by ``total_b`` (default the residual's rows); ``part`` is an
+    [N, slices, 2] scratch."""
     n_members, b, d = resid.shape
     _build.launch("sae_tied_bwd_loss", resid.data_ptr(), dw.data_ptr(),
                   db.data_ptr(), act.data_ptr(), csum.data_ptr(),
                   alphas.data_ptr(), part.data_ptr(), loss4.data_ptr(),
-                  n_members, b, dw.shape[1], d, part.shape[1],
+                  n_members, b, total_b or b, dw.shape[1], d, part.shape[1],
                   _build.stream_ptr(resid))
 
 
@@ -494,15 +518,15 @@ def tied_bwd_bf16_codes(xbk, wb, bias, coef_mask, c, cb) -> None:
 
 
 def tied_bwd_bf16_dpre(rbk, wb, c, alphas, g, gb, batch: int,
-                       coef: float) -> None:
+                       coef: float, total_b: Optional[int] = None) -> None:
     """G [Z, rows, n] = (coef·(rbk·Ŵbᵀ) + α/B)·[C > 0] into ``g`` and
     bf16(G) into ``gb``; rbk is the [Z, rows, d] slice of the bf16
     residual."""
     z, rows, d = rbk.shape
     _build.launch("sae_tied_bwd_bf16_dpre", rbk.data_ptr(), wb.data_ptr(),
                   c.data_ptr(), alphas.data_ptr(), g.data_ptr(),
-                  gb.data_ptr(), z, rows, wb.shape[1], d, batch, coef,
-                  _build.stream_ptr(rbk))
+                  gb.data_ptr(), z, rows, wb.shape[1], d, batch,
+                  total_b or batch, coef, _build.stream_ptr(rbk))
 
 
 def tied_bwd_bf16_dwx(xbk, gb, dw, first: bool) -> None:
@@ -547,8 +571,10 @@ def sae_tied_bwd(encoder: torch.Tensor, bias: torch.Tensor,
                  alphas: torch.Tensor, batch: torch.Tensor,
                  resid: torch.Tensor,
                  coef_mask: Optional[torch.Tensor] = None,
-                 compute_dtype: str = "float32"):
-    """See :func:`sae_tied_bwd_plain` for the outputs. CUDA: the normalized
+                 compute_dtype: str = "float32",
+                 total_batch: Optional[int] = None):
+    """See :func:`sae_tied_bwd_plain` for the outputs and ``total_batch``.
+    CUDA: the normalized
     dictionary, then per chunk of :func:`bwd_chunks` the launches
     ``tied_bwd_codes``, ``_dpre``, ``_dwx``, ``_dwr``, ``_sums`` in order,
     then ``tied_bwd_loss``; counts one ``sae_tied_bwd`` call. bf16 compute:
@@ -562,12 +588,14 @@ def sae_tied_bwd(encoder: torch.Tensor, bias: torch.Tensor,
     extra = () if coef_mask is None else (coef_mask,)
     if _on_cpu("sae_tied_bwd", encoder, bias, alphas, batch, resid, *extra):
         return sae_tied_bwd_plain(encoder, bias, alphas, batch, resid,
-                                  coef_mask, compute_dtype)
+                                  coef_mask, compute_dtype, total_batch)
     _kernel_tensors("sae_tied_bwd", b, n_feats, d, compute_dtype,
                     encoder=encoder, bias=bias, alphas=alphas, batch=batch,
                     resid=resid, coef_mask=coef_mask)
+    tb = _global_batch(total_batch, b)
     if compute_dtype == "bfloat16":
-        return _tied_bwd_bf16(encoder, bias, alphas, batch, resid, coef_mask)
+        return _tied_bwd_bf16(encoder, bias, alphas, batch, resid, coef_mask,
+                              tb)
     (dw, w), db, act, csum, loss4, part = _bwd_outputs(
         n_members, n_feats, d, 2, batch.device)
     chunks = bwd_chunks(n_members, b, n_feats)
@@ -575,24 +603,24 @@ def sae_tied_bwd(encoder: torch.Tensor, bias: torch.Tensor,
                              in chunks) * n_feats), dtype=torch.float32,
                      device=batch.device)
     c, g = ws[0], ws[1]
-    coef = float(np.float32(2.0 / (b * d)))
+    coef = float(np.float32(2.0 / (tb * d)))
     tied_bwd_norms(encoder, w)
     for m_lo, m_hi, b_lo, b_hi in chunks:
         ms = slice(m_lo, m_hi)
         xk, rk = batch[b_lo:b_hi], resid[ms, b_lo:b_hi]
         cm = None if coef_mask is None else coef_mask[ms]
         tied_bwd_codes(xk, w[ms], bias[ms], cm, c)
-        tied_bwd_dpre(rk, w[ms], c, alphas[ms], g, b, coef)
+        tied_bwd_dpre(rk, w[ms], c, alphas[ms], g, b, coef, tb)
         tied_bwd_dwx(xk, g, dw[ms], b_lo == 0)
         tied_bwd_dwr(c, rk, dw[ms], b, coef)
         tied_bwd_sums(c, g, b_hi - b_lo, db[ms], act[ms], csum[ms],
                       b_lo == 0)
-    tied_bwd_loss(resid, dw, db, act, csum, alphas, part, loss4)
+    tied_bwd_loss(resid, dw, db, act, csum, alphas, part, loss4, tb)
     _build.LAUNCHES["sae_tied_bwd"] += 1
     return dw, db, act, loss4
 
 
-def _tied_bwd_bf16(encoder, bias, alphas, batch, resid, coef_mask):
+def _tied_bwd_bf16(encoder, bias, alphas, batch, resid, coef_mask, tb):
     """The bf16 form of :func:`sae_tied_bwd` on the card."""
     n_members, n_feats, d = encoder.shape
     b = batch.shape[0]
@@ -603,13 +631,14 @@ def _tied_bwd_bf16(encoder, bias, alphas, batch, resid, coef_mask):
     wb = torch.empty(encoder.shape, dtype=_BF16, device=encoder.device)
     chunks = bwd_chunks(n_members, b, n_feats, "bfloat16")
     (c, g), (cb, gb) = _bf16_workspace(chunks, n_feats, batch.device)
-    coef = float(np.float32(2.0 / (b * d)))
+    coef = float(np.float32(2.0 / (tb * d)))
     tied_bwd_bf16_norms(encoder, wb)
     for m_lo, m_hi, b_lo, b_hi in chunks:
         ms, rs = slice(m_lo, m_hi), slice(b_lo, b_hi)
         cm = None if coef_mask is None else coef_mask[ms]
         tied_bwd_bf16_codes(xb[rs], wb[ms], bias[ms], cm, c, cb)
-        tied_bwd_bf16_dpre(rb[ms, rs], wb[ms], c, alphas[ms], g, gb, b, coef)
+        tied_bwd_bf16_dpre(rb[ms, rs], wb[ms], c, alphas[ms], g, gb, b, coef,
+                           tb)
         tied_bwd_bf16_dwx(xb[rs], gb, dw[ms], b_lo == 0)
         tied_bwd_bf16_dwr(cb, rb[ms, rs], dw[ms], b, coef)
         _build.launch("sae_tied_bwd_bf16_sums", c.data_ptr(), g.data_ptr(),
@@ -619,7 +648,7 @@ def _tied_bwd_bf16(encoder, bias, alphas, batch, resid, coef_mask):
     _build.launch("sae_tied_bwd_bf16_loss", resid.data_ptr(), dw.data_ptr(),
                   db.data_ptr(), act.data_ptr(), csum.data_ptr(),
                   alphas.data_ptr(), part.data_ptr(), loss4.data_ptr(),
-                  n_members, b, n_feats, d, LOSS_SLICES,
+                  n_members, b, tb, n_feats, d, LOSS_SLICES,
                   _build.stream_ptr(resid))
     _build.LAUNCHES["sae_tied_bwd_bf16"] += 1
     return dw, db, act, loss4
@@ -742,37 +771,39 @@ def sae_untied_fwd(encoder: torch.Tensor, decoder: torch.Tensor,
 def sae_untied_bwd_plain(encoder: torch.Tensor, decoder: torch.Tensor,
                          bias: torch.Tensor, alphas: torch.Tensor,
                          batch: torch.Tensor, resid: torch.Tensor,
-                         compute_dtype: str = "float32"):
+                         compute_dtype: str = "float32",
+                         total_batch: Optional[int] = None):
     """Exact untied-SAE grads from the residual: (dE [N, n, d] wrt the raw
     encoder, dWn [N, n, d] wrt the normalized decoder, db [N, n], activity
     [N, n] float, loss4 [N, 4] = [mse, l1, l0, ΣdE² + ΣdWn² + Σdb²]). bf16
     compute rounds x, E, Wn, r, the codes and dpre where they enter a
-    product."""
+    product. ``total_batch`` as :func:`sae_tied_bwd_plain`'s."""
     rnd = _rounding(compute_dtype)
     b, d = batch.shape
+    tb = _global_batch(total_batch, b)
     xc = rnd(batch.to(torch.float32))
     wn = rnd(_normalize_rows(decoder))
     pre = torch.matmul(xc, rnd(encoder).transpose(1, 2)) + bias[:, None, :]
     c = torch.relu(pre)
     mask = (pre > 0.0).to(torch.float32)
-    coef = 2.0 / (b * d)
+    coef = 2.0 / (tb * d)
     rc = rnd(resid)
     dpre = (coef * torch.matmul(rc, wn.transpose(1, 2))
-            + (alphas / b)[:, None, None]) * mask
+            + (alphas / tb)[:, None, None]) * mask
     de = torch.matmul(rnd(dpre).transpose(1, 2), xc)
     dwn = coef * torch.matmul(rnd(c).transpose(1, 2), rc)
     db = dpre.sum(dim=1)
     loss4 = torch.stack([
-        (resid * resid).sum(dim=(1, 2)) / (b * d),
-        alphas * c.sum(dim=(1, 2)) / b,
-        mask.sum(dim=(1, 2)) / b,
+        (resid * resid).sum(dim=(1, 2)) / (tb * d),
+        alphas * c.sum(dim=(1, 2)) / tb,
+        mask.sum(dim=(1, 2)) / tb,
         (de * de).sum(dim=(1, 2)) + (dwn * dwn).sum(dim=(1, 2))
         + (db * db).sum(dim=1)], dim=1)
     return de, dwn, db, mask.sum(dim=1), loss4
 
 
 def _untied_bwd_chunked_plain(encoder, decoder, bias, alphas, batch, resid,
-                              compute_dtype="float32"):
+                              compute_dtype="float32", total_batch=None):
     """The kernels' chunk schedule in plain torch (the CPU twin of
     :func:`sae_untied_bwd`): per chunk the codes, dpre — fp32: the
     decoder's clipped row norms divided out of the finished dot products,
@@ -783,7 +814,8 @@ def _untied_bwd_chunked_plain(encoder, decoder, bias, alphas, batch, resid,
     rnd = _rounding(compute_dtype)
     n_members, n_feats, d = encoder.shape
     b = batch.shape[0]
-    coef = 2.0 / (b * d)
+    tb = _global_batch(total_batch, b)
+    coef = 2.0 / (tb * d)
     xc, rc, enc = rnd(batch.to(torch.float32)), rnd(resid), rnd(encoder)
     if compute_dtype == "bfloat16":
         wn = rnd(_normalize_rows(decoder))
@@ -802,7 +834,7 @@ def _untied_bwd_chunked_plain(encoder, decoder, bias, alphas, batch, resid,
         c = torch.relu(torch.matmul(xk, enc[ms].transpose(1, 2))
                        + bias[ms, None, :])
         mask = (c > 0.0).to(torch.float32)  # = [pre > 0], NaN included
-        g = (coef * dots(ms, rk) + (alphas[ms] / b)[:, None, None]) * mask
+        g = (coef * dots(ms, rk) + (alphas[ms] / tb)[:, None, None]) * mask
         part = (torch.matmul(rnd(g).transpose(1, 2), xk),
                 torch.matmul(rnd(c).transpose(1, 2), rk),
                 torch.stack([g.sum(dim=1), mask.sum(dim=1), c.sum(dim=1)]))
@@ -815,9 +847,9 @@ def _untied_bwd_chunked_plain(encoder, decoder, bias, alphas, batch, resid,
     dwn = coef * dwn
     db, act, csum = sums
     loss4 = torch.stack([
-        (resid * resid).sum(dim=(1, 2)) / (b * d),
-        alphas * csum.double().sum(dim=1).float() / b,
-        act.double().sum(dim=1).float() / b,
+        (resid * resid).sum(dim=(1, 2)) / (tb * d),
+        alphas * csum.double().sum(dim=1).float() / tb,
+        act.double().sum(dim=1).float() / tb,
         (de * de).sum(dim=(1, 2)) + (dwn * dwn).sum(dim=(1, 2))
         + (db * db).sum(dim=1)], dim=1)
     return de, dwn, db, act, loss4
@@ -843,14 +875,15 @@ def untied_bwd_codes(xk, encoder, bias, c) -> None:
 
 
 def untied_bwd_dpre(rk, decoder, nrm, c, alphas, g, batch: int,
-                    coef: float) -> None:
-    """G [Z, rows, n] = (coef·(rk·Dᵀ)/nrm + α/B)·[C > 0] into ``g``; rk is
-    the [Z, rows, d] slice of the [N, B, d] residual."""
+                    coef: float, total_b: Optional[int] = None) -> None:
+    """G [Z, rows, n] = (coef·(rk·Dᵀ)/nrm + α/TB)·[C > 0] into ``g``; rk
+    is the [Z, rows, d] slice of the [N, B, d] residual, TB the global
+    batch (``total_b``, default B)."""
     z, rows, d = rk.shape
     _build.launch("sae_untied_bwd_dpre", rk.data_ptr(), decoder.data_ptr(),
                   nrm.data_ptr(), c.data_ptr(), alphas.data_ptr(),
-                  g.data_ptr(), z, rows, decoder.shape[1], d, batch, coef,
-                  _build.stream_ptr(rk))
+                  g.data_ptr(), z, rows, decoder.shape[1], d, batch,
+                  total_b or batch, coef, _build.stream_ptr(rk))
 
 
 def untied_bwd_de(xk, g, de, first: bool) -> None:
@@ -881,15 +914,16 @@ def untied_bwd_sums(c, g, rows: int, db, act, csum, first: bool) -> None:
 
 
 def untied_bwd_loss(resid, de, dwn, db, act, csum, alphas, part,
-                    loss4) -> None:
-    """loss4 [N, 4] from the residual and the finished grads and sums;
-    ``part`` is an [N, slices, 2] scratch."""
+                    loss4, total_b: Optional[int] = None) -> None:
+    """loss4 [N, 4] from the residual and the finished grads and sums,
+    normalized by ``total_b`` (default the residual's rows); ``part`` is an
+    [N, slices, 2] scratch."""
     n_members, b, d = resid.shape
     _build.launch("sae_untied_bwd_loss", resid.data_ptr(), de.data_ptr(),
                   dwn.data_ptr(), db.data_ptr(), act.data_ptr(),
                   csum.data_ptr(), alphas.data_ptr(), part.data_ptr(),
-                  loss4.data_ptr(), n_members, b, de.shape[1], d,
-                  part.shape[1], _build.stream_ptr(resid))
+                  loss4.data_ptr(), n_members, b, total_b or b, de.shape[1],
+                  d, part.shape[1], _build.stream_ptr(resid))
 
 
 def untied_bwd_bf16_norms(decoder, wnb) -> None:
@@ -911,14 +945,14 @@ def untied_bwd_bf16_codes(xbk, eb, bias, c, cb) -> None:
 
 
 def untied_bwd_bf16_dpre(rbk, wnb, c, alphas, g, gb, batch: int,
-                         coef: float) -> None:
+                         coef: float, total_b: Optional[int] = None) -> None:
     """G [Z, rows, n] = (coef·(rbk·Wnbᵀ) + α/B)·[C > 0] into ``g`` and
     bf16(G) into ``gb``."""
     z, rows, d = rbk.shape
     _build.launch("sae_untied_bwd_bf16_dpre", rbk.data_ptr(),
                   wnb.data_ptr(), c.data_ptr(), alphas.data_ptr(),
                   g.data_ptr(), gb.data_ptr(), z, rows, wnb.shape[1], d,
-                  batch, coef, _build.stream_ptr(rbk))
+                  batch, total_b or batch, coef, _build.stream_ptr(rbk))
 
 
 def untied_bwd_bf16_de(xbk, gb, de, first: bool) -> None:
@@ -939,7 +973,7 @@ def untied_bwd_bf16_dwn(cb, rbk, dwn, batch: int, first: bool, last: bool,
                   int(first), int(last), coef, _build.stream_ptr(rbk))
 
 
-def _untied_bwd_bf16(encoder, decoder, bias, alphas, batch, resid):
+def _untied_bwd_bf16(encoder, decoder, bias, alphas, batch, resid, tb):
     """The bf16 form of :func:`sae_untied_bwd` on the card."""
     n_members, n_feats, d = encoder.shape
     b = batch.shape[0]
@@ -951,14 +985,14 @@ def _untied_bwd_bf16(encoder, decoder, bias, alphas, batch, resid):
     wnb = torch.empty(decoder.shape, dtype=_BF16, device=decoder.device)
     chunks = bwd_chunks(n_members, b, n_feats, "bfloat16")
     (c, g), (cb, gb) = _bf16_workspace(chunks, n_feats, batch.device)
-    coef = float(np.float32(2.0 / (b * d)))
+    coef = float(np.float32(2.0 / (tb * d)))
     untied_bwd_bf16_norms(decoder, wnb)
     for m_lo, m_hi, b_lo, b_hi in chunks:
         ms, rs = slice(m_lo, m_hi), slice(b_lo, b_hi)
         first, last = b_lo == 0, b_hi == b
         untied_bwd_bf16_codes(xb[rs], eb[ms], bias[ms], c, cb)
         untied_bwd_bf16_dpre(rb[ms, rs], wnb[ms], c, alphas[ms], g, gb, b,
-                             coef)
+                             coef, tb)
         untied_bwd_bf16_de(xb[rs], gb, de[ms], first)
         untied_bwd_bf16_dwn(cb, rb[ms, rs], dwn[ms], b, first, last, coef)
         _build.launch("sae_untied_bwd_bf16_sums", c.data_ptr(), g.data_ptr(),
@@ -968,8 +1002,8 @@ def _untied_bwd_bf16(encoder, decoder, bias, alphas, batch, resid):
     _build.launch("sae_untied_bwd_bf16_loss", resid.data_ptr(),
                   de.data_ptr(), dwn.data_ptr(), db.data_ptr(),
                   act.data_ptr(), csum.data_ptr(), alphas.data_ptr(),
-                  part.data_ptr(), loss4.data_ptr(), n_members, b, n_feats,
-                  d, LOSS_SLICES, _build.stream_ptr(resid))
+                  part.data_ptr(), loss4.data_ptr(), n_members, b, tb,
+                  n_feats, d, LOSS_SLICES, _build.stream_ptr(resid))
     _build.LAUNCHES["sae_untied_bwd_bf16"] += 1
     return de, dwn, db, act, loss4
 
@@ -977,8 +1011,10 @@ def _untied_bwd_bf16(encoder, decoder, bias, alphas, batch, resid):
 def sae_untied_bwd(encoder: torch.Tensor, decoder: torch.Tensor,
                    bias: torch.Tensor, alphas: torch.Tensor,
                    batch: torch.Tensor, resid: torch.Tensor,
-                   compute_dtype: str = "float32"):
-    """See :func:`sae_untied_bwd_plain` for the outputs. CUDA: the decoder's
+                   compute_dtype: str = "float32",
+                   total_batch: Optional[int] = None):
+    """See :func:`sae_untied_bwd_plain` for the outputs and
+    ``total_batch``. CUDA: the decoder's
     row norms, then per chunk of :func:`bwd_chunks` the launches
     ``untied_bwd_codes``, ``_dpre``, ``_de``, ``_dwn``, ``_sums`` in order,
     then ``untied_bwd_loss``; counts one ``sae_untied_bwd`` call. bf16
@@ -992,12 +1028,15 @@ def sae_untied_bwd(encoder: torch.Tensor, decoder: torch.Tensor,
     if _on_cpu("sae_untied_bwd", encoder, decoder, bias, alphas, batch,
                resid):
         return _untied_bwd_chunked_plain(encoder, decoder, bias, alphas,
-                                         batch, resid, compute_dtype)
+                                         batch, resid, compute_dtype,
+                                         total_batch)
     _kernel_tensors("sae_untied_bwd", b, n_feats, d, compute_dtype,
                     encoder=encoder, decoder=decoder, bias=bias,
                     alphas=alphas, batch=batch, resid=resid)
+    tb = _global_batch(total_batch, b)
     if compute_dtype == "bfloat16":
-        return _untied_bwd_bf16(encoder, decoder, bias, alphas, batch, resid)
+        return _untied_bwd_bf16(encoder, decoder, bias, alphas, batch, resid,
+                                tb)
     (de, dwn), db, act, csum, loss4, part = _bwd_outputs(
         n_members, n_feats, d, 2, batch.device)
     nrm = torch.empty((n_members, n_feats), dtype=torch.float32,
@@ -1007,18 +1046,19 @@ def sae_untied_bwd(encoder: torch.Tensor, decoder: torch.Tensor,
                              in chunks) * n_feats), dtype=torch.float32,
                      device=batch.device)
     c, g = ws[0], ws[1]
-    coef = float(np.float32(2.0 / (b * d)))
+    coef = float(np.float32(2.0 / (tb * d)))
     untied_bwd_norms(decoder, nrm)
     for m_lo, m_hi, b_lo, b_hi in chunks:
         ms = slice(m_lo, m_hi)
         first, last = b_lo == 0, b_hi == b
         xk, rk = batch[b_lo:b_hi], resid[ms, b_lo:b_hi]
         untied_bwd_codes(xk, encoder[ms], bias[ms], c)
-        untied_bwd_dpre(rk, decoder[ms], nrm[ms], c, alphas[ms], g, b, coef)
+        untied_bwd_dpre(rk, decoder[ms], nrm[ms], c, alphas[ms], g, b, coef,
+                        tb)
         untied_bwd_de(xk, g, de[ms], first)
         untied_bwd_dwn(c, rk, dwn[ms], b, first, last, coef)
         untied_bwd_sums(c, g, b_hi - b_lo, db[ms], act[ms], csum[ms], first)
-    untied_bwd_loss(resid, de, dwn, db, act, csum, alphas, part, loss4)
+    untied_bwd_loss(resid, de, dwn, db, act, csum, alphas, part, loss4, tb)
     _build.LAUNCHES["sae_untied_bwd"] += 1
     return de, dwn, db, act, loss4
 
@@ -1203,7 +1243,7 @@ def one_chunk_launches_bf16(kernel: str, encoder: torch.Tensor,
     parts[f"{kernel}_loss"] = (lambda: _build.launch(
         f"{kernel}_loss", resid.data_ptr(), *grads, db.data_ptr(),
         act.data_ptr(), csum.data_ptr(), alphas.data_ptr(), part.data_ptr(),
-        loss4.data_ptr(), n_m, b, n, d, LOSS_SLICES,
+        loss4.data_ptr(), n_m, b, b, n, d, LOSS_SLICES,
         _build.stream_ptr(resid)), 0.0)
     return parts
 
@@ -1213,16 +1253,13 @@ def one_chunk_launches_bf16(kernel: str, encoder: torch.Tensor,
 def _check_unported(total_batch, batch_rows, compute_dtype,
                     ported=COMPUTE_DTYPES, later: str = ""):
     """Raise NotImplementedError for a compute dtype outside ``ported``
-    (``later`` names the ROADMAP item that ports it) and for data-sharded
-    calls (total_batch != batch), which wait for the multi-GPU slice."""
+    (``later`` names the ROADMAP item that ports it), and ValueError for a
+    ``total_batch`` below the call's rows (:func:`_global_batch`)."""
     if compute_dtype not in ported:
         raise NotImplementedError(
             f"compute_dtype={compute_dtype!r}: these kernels take "
             f"{' or '.join(ported)}" + (f"; {later}" if later else ""))
-    if total_batch is not None and total_batch != batch_rows:
-        raise NotImplementedError(
-            "total_batch != batch (data-sharded calls) waits for the "
-            "multi-GPU slice (ROADMAP.md queue 1, item 11)")
+    _global_batch(total_batch, batch_rows)
 
 
 def _check_tiles(b, n_feats, batch_tile, feat_tile):
@@ -1241,6 +1278,18 @@ def _losses(loss4: torch.Tensor) -> dict:
     return {"mse": loss4[:, 0], "l1": loss4[:, 1], "l0": loss4[:, 2]}
 
 
+def sum_partials(psum, losses: dict, *tensors):
+    """(losses, *tensors) summed over the data axis by ``psum`` (a
+    callable taking and returning a list of tensors; None: unchanged) —
+    the JAX producers' ``jax.lax.psum(..., psum_axis)`` of a data-sharded
+    call's partial losses, grads and activity."""
+    if psum is None:
+        return (losses, *tensors)
+    keys = list(losses)
+    out = psum([losses[k] for k in keys] + list(tensors))
+    return (dict(zip(keys, out[:len(keys)])), *out[len(keys):])
+
+
 def _tiled_grads(fwd, bwd, encoder, bias, alphas, batch, batch_tile,
                  feat_tile, total_batch, compute_dtype, coef_mask):
     _, n_feats, _, b = _tied_shapes(encoder, bias, batch)
@@ -1249,7 +1298,7 @@ def _tiled_grads(fwd, bwd, encoder, bias, alphas, batch, batch_tile,
     cm = _float_mask(coef_mask)
     resid = fwd(encoder, bias, batch, cm, compute_dtype)
     dw, db, act, loss4 = bwd(encoder, bias, alphas, batch, resid, cm,
-                             compute_dtype)
+                             compute_dtype, total_batch)
     return _losses(loss4), dw, db, act, loss4[:, 3]
 
 
@@ -1287,7 +1336,7 @@ def _tiled_untied_grads(fwd, bwd, encoder, decoder, bias, alphas, batch,
     _check_tiles(b, n_feats, batch_tile, feat_tile)
     resid = fwd(encoder, decoder, bias, batch, compute_dtype)
     de, dwn, db, act, loss4 = bwd(encoder, decoder, bias, alphas, batch,
-                                  resid, compute_dtype)
+                                  resid, compute_dtype, total_batch)
     return _losses(loss4), de, dwn, db, act, loss4[:, 3]
 
 
@@ -1344,10 +1393,12 @@ def fused_tied_sae_tiled_loss_and_grads(
         params_stacked: dict, alphas: torch.Tensor, batch: torch.Tensor,
         batch_tile: Optional[int] = None, feat_tile: Optional[int] = None,
         total_batch: Optional[int] = None, compute_dtype: str = "float32",
-        coef_mask: Optional[torch.Tensor] = None):
+        coef_mask: Optional[torch.Tensor] = None, psum=None):
     """Tiled-path producer for tied (and masked-tied) buckets: (losses,
     grads wrt the raw params {encoder, encoder_bias}, activity,
-    kernel-grad norm [N])."""
+    kernel-grad norm [N]). ``psum`` (see :func:`sum_partials`) sums a
+    data-sharded call's partial losses and grads before the normalization
+    VJP; the kernel-grad norm stays this shard's."""
     from sparse_coding_tpu_torch.ops.fused_sae import normalize_with_vjp
 
     e = params_stacked["encoder"]
@@ -1357,6 +1408,7 @@ def fused_tied_sae_tiled_loss_and_grads(
         e, params_stacked["encoder_bias"], alphas, batch, batch_tile=bt,
         feat_tile=ft, total_batch=total_batch, compute_dtype=compute_dtype,
         coef_mask=coef_mask)
+    losses, dw, db, activity = sum_partials(psum, losses, dw, db, activity)
     grads = {"encoder": normalize_with_vjp(e, dw), "encoder_bias": db}
     return losses, grads, activity, torch.sqrt(grad_sq)
 
@@ -1365,12 +1417,14 @@ def fused_untied_sae_tiled_loss_and_grads(
         params_stacked: dict, alphas: torch.Tensor,
         bias_decays: torch.Tensor, batch: torch.Tensor,
         batch_tile: Optional[int] = None, feat_tile: Optional[int] = None,
-        total_batch: Optional[int] = None, compute_dtype: str = "float32"):
+        total_batch: Optional[int] = None, compute_dtype: str = "float32",
+        psum=None):
     """Tiled-path producer for untied buckets: (losses incl. "bias_decay",
     grads wrt the raw params {encoder, encoder_bias, decoder}, activity,
     kernel-grad norm [N] — taken before the bias decay and the decoder's
     normalization VJP). The batch-independent bias-decay terms are added
-    after the kernels, once per member."""
+    after the kernels — and after ``psum`` on a data-sharded call —, once
+    per member."""
     from sparse_coding_tpu_torch.ops.fused_sae import (
         normalize_with_vjp,
         untied_bias_decay_terms,
@@ -1383,6 +1437,8 @@ def fused_untied_sae_tiled_loss_and_grads(
     losses, de, dwn, db, activity, grad_sq = tiled_untied_sae_grads(
         e, dec, bias, alphas, batch, batch_tile=bt, feat_tile=ft,
         total_batch=total_batch, compute_dtype=compute_dtype)
+    losses, de, dwn, db, activity = sum_partials(psum, losses, de, dwn, db,
+                                                 activity)
     losses["bias_decay"], db = untied_bias_decay_terms(bias, bias_decays, db)
     grads = {"encoder": de, "encoder_bias": db,
              "decoder": normalize_with_vjp(dec, dwn)}

@@ -62,13 +62,15 @@ def basic_l1_sweep(
     """Train one ensemble member per l1 value; save per-epoch artifacts.
     Returns the final [(LearnedDict, hyperparams)]. ``device=None`` runs
     on the card (and raises without one). Every 100 steps, as in the JAX
-    sweep, one metrics line holds each member's loss, mse and l0."""
-    if mesh is not None:
-        raise NotImplementedError("meshes wait for the multi-GPU slice")
+    sweep, one metrics line holds each member's loss, mse and l0. On a
+    ``mesh`` (:mod:`parallel.mesh`) every rank reads the same batches,
+    trains its member shard on its rows, and rank 0 alone writes the
+    metrics and the artifacts; every rank returns every dict."""
     if use_wandb:
         raise NotImplementedError("wandb logging is not ported; metrics go "
                                   "to metrics.jsonl")
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    writer = mesh is None or mesh.rank == 0
     store = open_store(dataset_dir)
     d = store.activation_dim
     n_dict = int(d * dict_ratio)
@@ -77,17 +79,22 @@ def basic_l1_sweep(
     gen = torch.Generator().manual_seed(seed)
     members = [sig.init(gen, d, n_dict, l1_alpha=float(l1))
                for l1 in l1_values]
-    ens = Ensemble(members, sig, lr=lr, adam_eps=adam_epsilon, device=dev)
+    ens = Ensemble(members, sig, lr=lr, adam_eps=adam_epsilon,
+                   **({"device": dev} if mesh is None else {"mesh": mesh}))
 
     rng = np.random.default_rng(seed)
     step = last_log = 0
     scan_k = max(1, int(scan_steps))
-    with MetricsLogger(output_dir, run_name="basic_l1_sweep") as logger:
+    logger = (MetricsLogger(output_dir, run_name="basic_l1_sweep")
+              if writer else None)
+    try:
         for epoch in range(n_epochs):
             batches = store.epoch(batch_size, rng)
             if scan_k > 1:
                 batches = window_stacks(batches, scan_k)
-            for batch in device_prefetch(batches, dev):
+            # on a mesh each rank moves only its own rows to its device
+            for batch in (device_prefetch(batches, dev) if mesh is None
+                          else batches):
                 if scan_k > 1:
                     aux = ens.run_steps(batch)
                     step += batch.shape[0]
@@ -96,7 +103,7 @@ def basic_l1_sweep(
                     aux = ens.step_batch(batch)
                     step += 1
                     last = lambda v: v
-                if step - last_log >= 100:
+                if step - last_log >= 100 and writer:
                     last_log = step
                     # one host sync for all members per log window
                     stats = torch.stack([
@@ -108,21 +115,29 @@ def basic_l1_sweep(
                                 for j, k in enumerate(("loss", "mse", "l0"))},
                                step=step)
             _save_epoch(ens, l1_values, dict_ratio, store, output_dir, epoch,
-                        rng)
+                        rng, writer)
+    finally:
+        if logger is not None:
+            logger.close()
     return [(ld, {"l1_alpha": float(l1), "dict_size": n_dict})
             for ld, l1 in zip(ens.to_learned_dicts(), l1_values)]
 
 
 def _save_epoch(ens: Ensemble, l1_values, dict_ratio, store: ChunkStore,
-                output_dir, epoch: int, rng) -> None:
+                output_dir, epoch: int, rng, writer: bool = True) -> None:
+    """The epoch's dicts and quick evals; every rank of a mesh gathers the
+    dicts and draws the eval rows (the batch rng stays in step), the
+    ``writer`` alone evaluates and writes."""
     out = Path(output_dir) / f"epoch_{epoch}"
     tagged = [(ld, {"l1_alpha": float(l1), "dict_ratio": dict_ratio})
               for ld, l1 in zip(ens.to_learned_dicts(), l1_values)]
-    save_learned_dicts(tagged, out / "learned_dicts.pkl")
     # quick eval on a fresh slab — the same rng draws as the JAX sweep
     chunk = store.load_chunk(int(rng.integers(store.n_chunks)))
-    eval_batch = torch.as_tensor(
-        chunk[rng.permutation(chunk.shape[0])[:4096]], device=ens.device)
+    rows = rng.permutation(chunk.shape[0])[:4096]
+    if not writer:
+        return
+    save_learned_dicts(tagged, out / "learned_dicts.pkl")
+    eval_batch = torch.as_tensor(chunk[rows], device=ens.device)
     stats = []
     for ld, hyper in tagged:
         ld = ld.to(ens.device)
@@ -134,13 +149,30 @@ def _save_epoch(ens: Ensemble, l1_values, dict_ratio, store: ChunkStore,
 
 
 def main(argv=None) -> None:
+    """CLI; ``--mesh_model M --mesh_data D`` runs under ``torchrun
+    --nproc_per_node M*D``."""
+    from sparse_coding_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        make_mesh,
+        shutdown_distributed,
+    )
+
     cfg = EnsembleArgs.from_cli(argv)
-    basic_l1_sweep(cfg.dataset_folder, cfg.output_folder,
-                   list(np.logspace(-4, -2, 16)),
-                   dict_ratio=cfg.learned_dict_ratio,
-                   batch_size=cfg.batch_size, lr=cfg.lr, tied=cfg.tied_ae,
-                   adam_epsilon=cfg.adam_epsilon, seed=cfg.seed,
-                   use_wandb=cfg.use_wandb, scan_steps=cfg.scan_steps)
+    mesh = None
+    if cfg.mesh_data > 1 or cfg.mesh_model > 1:
+        initialize_distributed()
+        mesh = make_mesh(cfg.mesh_model, cfg.mesh_data)
+    try:
+        basic_l1_sweep(cfg.dataset_folder, cfg.output_folder,
+                       list(np.logspace(-4, -2, 16)),
+                       dict_ratio=cfg.learned_dict_ratio,
+                       batch_size=cfg.batch_size, lr=cfg.lr,
+                       tied=cfg.tied_ae, adam_epsilon=cfg.adam_epsilon,
+                       seed=cfg.seed, mesh=mesh, use_wandb=cfg.use_wandb,
+                       scan_steps=cfg.scan_steps)
+    finally:
+        if mesh is not None:
+            shutdown_distributed()
 
 
 if __name__ == "__main__":

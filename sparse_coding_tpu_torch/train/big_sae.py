@@ -1,5 +1,5 @@
 """Large single-SAE trainer with dead-feature resurrection (the JAX
-package's ``train/big_sae.py``, single device).
+package's ``train/big_sae.py``).
 
 One SAE (d=1024, 16,384 features, batch 65,536 by default —
 ``config.BigSAEArgs``) trains on a chunk store with exact optax Adam
@@ -14,6 +14,16 @@ reinitializes never-fired encoder columns to those examples (scaled by
 "Tied" here is not the ensemble's weight tying: ``encoder`` and ``dict``
 are separate leaves; ``tied`` only sets ``encoder := dictᵀ`` at init and
 adds ``centering`` back to x̂ (the untied objective does not uncenter).
+
+On a mesh (:mod:`parallel.mesh`) the features split over "model" (dict
+rows, encoder columns, thresholds, activation totals and their Adam
+moments; ``partition.BIG_SAE_STATE_RULES``) and the rows over "data":
+K8 forms each rank's partial x̂ over its features, an all-reduce over
+"model" completes it, K9 runs on the rank's rows with the global batch as
+its normalizer, and the grads sum over "data" (the centering's and the
+l1/l0 sums over both axes). The mesh step always runs the kernels: the
+JAX step's GSPMD autodiff on a mesh is not ported, so a shape the kernels
+refuse raises there.
 """
 
 from __future__ import annotations
@@ -33,6 +43,8 @@ from sparse_coding_tpu_torch.models.learned_dict import (
     LearnedDict,
     normalize_rows,
 )
+from sparse_coding_tpu_torch.parallel import partition
+from sparse_coding_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 
 Tensor = torch.Tensor
 
@@ -157,6 +169,66 @@ def fused_auto_choice(use_fused, fused_possible: bool,
             or local_b * local_n * codes_itemsize >= FUSED_AUTO_CODES_BYTES)
 
 
+def _sharded_fused_loss_and_grads(params: dict, batch: Tensor, l1_alpha,
+                                  tied: bool, mesh: Mesh, total_b: int,
+                                  compute_dtype: str = "float32"):
+    """The mesh's loss and grads from this rank's feature shard of the
+    params and its rows of the batch (the JAX function of this name, one
+    rank's part): K8's partial x̂ over the local features, summed over
+    "model"; K9 with the global batch as normalizer; de, dwn, dt and the
+    activation totals summed over "data", the l1/l0 sums and the centering
+    grad over both axes. The per-row losses come back for every row of
+    the global batch (an all-gather over "data"), as the worst-example
+    tracker needs them."""
+    from sparse_coding_tpu_torch.ops.fused_big_sae import (
+        big_sae_backward,
+        big_sae_forward,
+        pick_big_sae_tiles,
+    )
+    from sparse_coding_tpu_torch.ops.fused_sae import normalize_with_vjp
+
+    n, d = params["dict"].shape
+    b = batch.shape[0]
+    tiles = pick_big_sae_tiles(
+        b, n, d, compute_itemsize=2 if compute_dtype == "bfloat16" else 4)
+    if tiles is None:
+        raise ValueError(
+            f"the big-SAE kernels do not take the per-rank batch={b}, "
+            f"n_feats={n}, d={d} of a {mesh.shape[MODEL_AXIS]}x"
+            f"{mesh.shape[DATA_AXIS]} mesh (batch and n_feats multiples "
+            "of 32, 1 <= d <= 1024, d % 8 == 0 under bf16 compute); the "
+            "JAX step's GSPMD autodiff on a mesh is not ported")
+    bt, ft = tiles
+    x = batch.to(torch.float32).contiguous()
+    alpha = torch.as_tensor(l1_alpha, dtype=torch.float32, device=x.device)
+    xc = (x - params["centering"]).contiguous()
+    x_hat = mesh.psum(big_sae_forward(params, xc, bt, ft,
+                                      compute_dtype=compute_dtype),
+                      MODEL_AXIS)
+    if tied:
+        x_hat = x_hat + params["centering"]
+    r = (x_hat - x).contiguous()  # the same on every model shard
+    mse_losses = mesh.all_gather(torch.mean(torch.square(r), dim=-1),
+                                 DATA_AXIS)
+    de, dwn, dt, dctr_enc, c_totals, scal = big_sae_backward(
+        params, alpha, xc, r, bt, ft, total_batch=total_b,
+        compute_dtype=compute_dtype)
+    coef = 2.0 / (total_b * d)
+    data_sums = [torch.sum(torch.square(r)).reshape(1), de, dwn, dt,
+                 c_totals] + ([coef * r.sum(dim=0)] if tied else [])
+    sr, de, dwn, dt, c_totals, *rsum = mesh.psum(data_sums, DATA_AXIS)
+    scal, dctr = mesh.psum([scal, dctr_enc], (MODEL_AXIS, DATA_AXIS))
+    if tied:
+        dctr = dctr + rsum[0]
+    mse = sr[0] / (total_b * d)
+    sparsity = alpha * scal[0] / total_b
+    grads = {"dict": normalize_with_vjp(params["dict"], dwn),
+             "encoder": de, "threshold": dt, "centering": dctr}
+    aux = {"mse": mse, "sparsity": sparsity, "c_totals_delta": c_totals,
+           "mse_losses": mse_losses, "l0_mean": scal[1] / total_b}
+    return mse + sparsity, aux, grads
+
+
 def make_big_sae_step(optimizer: BigSAEAdam, l1_alpha, mesh=None,
                       use_fused: str | bool = "auto",
                       fused_compute_dtype: str = "float32"):
@@ -171,16 +243,24 @@ def make_big_sae_step(optimizer: BigSAEAdam, l1_alpha, mesh=None,
 
     fused_compute_dtype: "float32", or "bfloat16" for the kernels' bf16
     forms (bf16 dot operands, fp32 accumulation; they also need d % 8 ==
-    0), as the JAX step's option; autodiff stays fp32."""
+    0), as the JAX step's option; autodiff stays fp32.
+
+    mesh: the state is this rank's shard (:func:`shard_big_sae`) and every
+    rank passes the same global batch; the step runs the kernels on the
+    rank's features and rows ("auto" or True; False raises) and returns
+    the same metrics on every rank."""
     from sparse_coding_tpu_torch.ops.fused_big_sae import (
         fused_big_sae_loss_and_grads,
         pick_big_sae_tiles,
     )
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh (the sharded big-SAE step, shard_big_sae) waits for "
-            "the port's multi-GPU work, ROADMAP.md queue 1, item 11")
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
+    if mesh is not None and use_fused is False:
+        raise ValueError(
+            "use_fused=False on a mesh: the JAX step's GSPMD autodiff on a "
+            "mesh is not ported; the mesh step runs the kernels")
     if use_fused not in (True, False, "auto"):
         raise ValueError(f"use_fused must be True, False or 'auto', got "
                          f"{use_fused!r}")
@@ -193,7 +273,13 @@ def make_big_sae_step(optimizer: BigSAEAdam, l1_alpha, mesh=None,
     compute_itemsize = 2 if fused_compute_dtype == "bfloat16" else 4
     lr = float(optimizer.lr)
 
-    def step(state: BigSAEState, batch: Tensor):
+    def mesh_loss_and_grads(state: BigSAEState, batch: Tensor):
+        local = partition.place_batch(batch, mesh)
+        return _sharded_fused_loss_and_grads(
+            state.params, local, l1_alpha, state.tied, mesh,
+            int(batch.shape[0]), compute_dtype=fused_compute_dtype)
+
+    def loss_and_grads(state: BigSAEState, batch: Tensor):
         n, d = state.params["dict"].shape
         b = batch.shape[0]
         on_card = batch.device.type == "cuda"
@@ -210,13 +296,15 @@ def make_big_sae_step(optimizer: BigSAEAdam, l1_alpha, mesh=None,
             batch.dtype, state.params["dict"].dtype).itemsize
         if fused_auto_choice(use_fused, fused_possible, b, n,
                              codes_itemsize):
-            loss, aux, grads = fused_big_sae_loss_and_grads(
+            return fused_big_sae_loss_and_grads(
                 state.params, batch, l1_alpha, state.tied,
                 compute_dtype=fused_compute_dtype)
-        else:
-            loss, aux, grads = _autodiff_loss_and_grads(
-                state.params, batch, l1_alpha, state.tied)
+        return _autodiff_loss_and_grads(state.params, batch, l1_alpha,
+                                        state.tied)
 
+    def step(state: BigSAEState, batch: Tensor):
+        loss, aux, grads = (loss_and_grads if mesh is None
+                            else mesh_loss_and_grads)(state, batch)
         count = safe_increment(state.count)
         bc1, bc2 = bias_corrections(count, optimizer.b1, optimizer.b2)
         # filled on the device: no blocking host→device copy in the step
@@ -250,24 +338,35 @@ def make_big_sae_step(optimizer: BigSAEAdam, l1_alpha, mesh=None,
     return step
 
 
-def resurrect_dead_features(state: BigSAEState) -> tuple[BigSAEState, Tensor]:
+def resurrect_dead_features(state: BigSAEState, mesh=None
+                            ) -> tuple[BigSAEState, Tensor]:
     """Reinit never-fired features to the worst-reconstructed examples and
     zero their Adam moments (reference: huge_batch_size.py:224-250). The
     i-th dead feature (in feature order) takes the i-th worst example;
     Adam's count is not reset. Returns (state, n_dead) — n_dead stays on
-    the device."""
+    the device. On a ``mesh`` (a collective) each model shard counts the
+    dead features of the shards before it, so the i-th dead feature of
+    the whole dictionary still takes the i-th worst example, and the mean
+    encoder column norm is over every feature."""
     params = state.params
-    dead = state.c_totals == 0.0  # [n]
+    dead = state.c_totals == 0.0  # [n] (this shard's on a mesh)
     n_dead = torch.sum(dead)
+    before = 0
+    col_norms = torch.linalg.vector_norm(params["encoder"], dim=0)
+    if mesh is None:
+        av_enc_norm = torch.mean(col_norms)
+    else:
+        counts = mesh.all_gather(n_dead.reshape(1), MODEL_AXIS)
+        before = torch.sum(counts[:mesh.coords[MODEL_AXIS]])
+        n_dead = torch.sum(counts)
+        av_enc_norm = (mesh.psum(torch.sum(col_norms), MODEL_AXIS)
+                       / (col_norms.shape[0] * mesh.shape[MODEL_AXIS]))
 
     order = torch.argsort(-state.worst_losses, stable=True)
     worst_sorted = state.worst_vectors[order]  # [K, d] worst first
-    rank = torch.clamp(torch.cumsum(dead, dim=0) - 1, 0,
+    rank = torch.clamp(torch.cumsum(dead, dim=0) - 1 + before, 0,
                        worst_sorted.shape[0] - 1)
     candidate = worst_sorted[rank]  # [n, d]
-
-    av_enc_norm = torch.mean(torch.linalg.vector_norm(params["encoder"],
-                                                      dim=0))
     new_cols = (candidate * ENCODER_NORM_RATIO / av_enc_norm).T  # [d, n]
     encoder = torch.where(dead[None, :], new_cols, params["encoder"])
     zero = torch.zeros((), dtype=params["encoder"].dtype,
@@ -312,6 +411,19 @@ class BigSAEDict(LearnedDict):
         return torch.relu(x @ self.encoder + self.threshold)
 
 
+def shard_big_sae(state: BigSAEState, mesh: Mesh) -> BigSAEState:
+    """This rank's shard of a full state (``BIG_SAE_STATE_RULES``: dict
+    rows, encoder columns, thresholds, activation totals and their Adam
+    moments over "model"; the rest replicated), through the
+    ``partition.place`` seam."""
+    return partition.place_tree(state, mesh, partition.BIG_SAE_STATE_RULES)
+
+
+def gather_big_sae(state: BigSAEState, mesh: Mesh) -> BigSAEState:
+    """The whole state from every rank's shard (a collective)."""
+    return partition.gather_tree(state, mesh, partition.BIG_SAE_STATE_RULES)
+
+
 def to_learned_dict(state: BigSAEState) -> BigSAEDict:
     return BigSAEDict(dictionary=state.params["dict"],
                       encoder=state.params["encoder"],
@@ -327,23 +439,24 @@ def train_big_sae(cfg, store=None, mesh=None, logger=None,
     (``np.random.default_rng(cfg.seed)``); the init comes from a
     ``torch.Generator`` seeded with ``cfg.seed``. ``scan_steps`` windows
     are a Python loop; logging (every 100 steps) and resurrection happen at
-    window boundaries, as in the JAX trainer."""
+    window boundaries, as in the JAX trainer. With a ``mesh`` every rank
+    reads the same batches and trains its shard; the returned state is the
+    rank's shard (:func:`gather_big_sae` makes it whole)."""
     from sparse_coding_tpu_torch.data.chunk_store import (
         device_prefetch,
         window_stacks,
     )
     from sparse_coding_tpu_torch.data.shard_store import open_store
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh waits for the port's multi-GPU work, ROADMAP.md queue 1, "
-            "item 11")
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     store = store or open_store(cfg.dataset_folder, quarantine_corrupt=True)
     state, optimizer, l1 = init_big_sae(
         torch.Generator().manual_seed(cfg.seed), cfg.activation_dim,
-        cfg.n_feats, cfg.l1_alpha, lr=cfg.lr, device=dev)
-    step_fn = make_big_sae_step(optimizer, l1)
+        cfg.n_feats, cfg.l1_alpha, lr=cfg.lr,
+        device=dev if mesh is None else "cpu")
+    if mesh is not None:
+        state, l1 = shard_big_sae(state, mesh), l1.to(dev)
+    step_fn = make_big_sae_step(optimizer, l1, mesh)
 
     rng = np.random.default_rng(cfg.seed)
     scan_k = max(1, int(getattr(cfg, "scan_steps", 1)))
@@ -365,7 +478,7 @@ def train_big_sae(cfg, store=None, mesh=None, logger=None,
             if (cfg.resurrect_every
                     and steps - last_resurrect >= cfg.resurrect_every):
                 last_resurrect = steps
-                state, n_dead = resurrect_dead_features(state)
+                state, n_dead = resurrect_dead_features(state, mesh)
                 if logger is not None:
                     logger.log({"n_dead_feats": int(n_dead)}, step=steps)
     return state

@@ -28,6 +28,7 @@ import torch
 
 from sparse_coding_tpu_torch.config import EnsembleArgs
 from sparse_coding_tpu_torch.ensemble import Ensemble, EnsembleGroup
+from sparse_coding_tpu_torch.parallel.mesh import Mesh
 from sparse_coding_tpu_torch.models.sae import (
     FunctionalMaskedTiedSAE,
     FunctionalSAE,
@@ -78,15 +79,25 @@ def _build(sig, name: str, cfg: EnsembleArgs, seed: int, make_member,
            specs: Sequence, inits: Optional[dict], device) -> Ensemble:
     """One single-bucket entry's Ensemble."""
     return Ensemble(_members(name, seed, make_member, specs, inits), sig,
-                    lr=cfg.lr, adam_eps=cfg.adam_epsilon, device=device,
-                    **_engine_kwargs(cfg))
+                    lr=cfg.lr, adam_eps=cfg.adam_epsilon,
+                    **_engine_place(device), **_engine_kwargs(cfg))
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "meshes wait for the multi-GPU slice (ROADMAP.md queue 1, "
-            "item 11)")
+def _placement(mesh, device):
+    """Where an entry's ensembles live: the mesh when there is one (each
+    rank keeps its member shard), else ``device``."""
+    return mesh if mesh is not None else device
+
+
+def _engine_place(place) -> dict:
+    """``Ensemble``'s placement keyword for a :func:`_placement`."""
+    return ({"mesh": place} if isinstance(place, Mesh)
+            else {"device": place})
+
+
+def _device_of(place):
+    """The device of a :func:`_placement` (a mesh's: this rank's)."""
+    return place.device if isinstance(place, Mesh) else place
 
 
 def dense_l1_range_experiment(cfg: EnsembleArgs, mesh=None,
@@ -95,7 +106,7 @@ def dense_l1_range_experiment(cfg: EnsembleArgs, mesh=None,
                               inits: Optional[dict] = None, device=None):
     """An l1 sweep at one dictionary ratio, tied or untied
     (``cfg.tied_ae``)."""
-    _check_mesh(mesh)
+    device = _placement(mesh, device)
     l1s = list(l1_range if l1_range is not None else DEFAULT_L1_RANGE)
     d = activation_dim or _activation_dim(cfg)
     n_dict = int(d * cfg.learned_dict_ratio)
@@ -113,7 +124,7 @@ def tied_vs_not_experiment(cfg: EnsembleArgs, mesh=None,
                            activation_dim: Optional[int] = None,
                            inits: Optional[dict] = None, device=None):
     """Tied and untied ensembles over the same l1 grid."""
-    _check_mesh(mesh)
+    device = _placement(mesh, device)
     l1s = list(l1_range if l1_range is not None else DEFAULT_L1_RANGE)
     d = activation_dim or _activation_dim(cfg)
     n_dict = int(d * cfg.learned_dict_ratio)
@@ -138,7 +149,7 @@ def dict_ratio_experiment(cfg: EnsembleArgs, mesh=None,
     """Mixed dictionary sizes in one masked-tied ensemble (the stack is the
     largest size; each member's coef_mask keeps its own). The l1 default
     is the reference's canonical operating point."""
-    _check_mesh(mesh)
+    device = _placement(mesh, device)
     d = activation_dim or _activation_dim(cfg)
     sizes = [int(d * r) for r in ratios]
     n_stack = max(sizes)
@@ -177,7 +188,8 @@ def _group(sig, name: str, cfg: EnsembleArgs, make_member, specs: Sequence,
     seeded with ``cfg.seed``, then bucketed by their static buffers."""
     return EnsembleGroup.build(sig, _members(name, cfg.seed, make_member,
                                              specs, inits),
-                               lr=cfg.lr, device=device, **ensemble_kwargs)
+                               lr=cfg.lr, **_engine_place(device),
+                               **ensemble_kwargs)
 
 
 def topk_experiment(cfg: EnsembleArgs, mesh=None,
@@ -187,7 +199,7 @@ def topk_experiment(cfg: EnsembleArgs, mesh=None,
     """A TopK sweep across k: one bucket per k."""
     from sparse_coding_tpu_torch.models.topk import TopKEncoder
 
-    _check_mesh(mesh)
+    device = _placement(mesh, device)
     d = activation_dim or _activation_dim(cfg)
     n_dict = int(d * cfg.learned_dict_ratio)
     group = _group(TopKEncoder, "topk", cfg,
@@ -211,7 +223,7 @@ def residual_denoising_experiment(cfg: EnsembleArgs, mesh=None,
         FunctionalLISTADenoisingSAE,
     )
 
-    _check_mesh(mesh)
+    device = _placement(mesh, device)
     l1s = list(l1_range if l1_range is not None else np.logspace(-4, -2, 8))
     d = activation_dim or _activation_dim(cfg)
     n_dict = int(d * cfg.learned_dict_ratio)
@@ -239,7 +251,7 @@ def centered_l1_range_experiment(cfg: EnsembleArgs, mesh=None,
     on autodiff, as in the JAX package."""
     from sparse_coding_tpu_torch.models.pca import BatchedPCA
 
-    _check_mesh(mesh)
+    device = _placement(mesh, device)
     l1s = list(l1_range if l1_range is not None else DEFAULT_L1_RANGE)
     if getattr(cfg, "center_activations", False):
         raise ValueError(
@@ -254,7 +266,7 @@ def centered_l1_range_experiment(cfg: EnsembleArgs, mesh=None,
 
         store = open_store(cfg.dataset_folder)
         acts = store.load_chunk(first_sound_chunk(store))
-        pca = BatchedPCA(acts.shape[-1], device=device)
+        pca = BatchedPCA(acts.shape[-1], device=_device_of(device))
         pca.train_batch(acts)
         mean, rot, inv_std = pca.get_centering_transform()
         # eigenvectors come as columns; center() applies rot as rows
@@ -296,7 +308,7 @@ def reverse_l1_range_experiment(cfg: EnsembleArgs, mesh=None,
     """A ReverseSAE (bias-subtracting decode) sweep."""
     from sparse_coding_tpu_torch.models.sae import FunctionalReverseSAE
 
-    _check_mesh(mesh)
+    device = _placement(mesh, device)
     l1s = list(l1_range if l1_range is not None else DEFAULT_L1_RANGE)
     return _simple_grid_experiment(
         FunctionalReverseSAE, "reverse_l1_range", cfg, l1s,
@@ -312,7 +324,7 @@ def positive_l1_range_experiment(cfg: EnsembleArgs, mesh=None,
         FunctionalPositiveTiedSAE,
     )
 
-    _check_mesh(mesh)
+    device = _placement(mesh, device)
     l1s = list(l1_range if l1_range is not None else DEFAULT_L1_RANGE)
     return _simple_grid_experiment(
         FunctionalPositiveTiedSAE, "positive_l1_range", cfg, l1s,
@@ -327,7 +339,7 @@ def semilinear_l1_range_experiment(cfg: EnsembleArgs, mesh=None,
     """A two-layer-encoder SemiLinearSAE sweep."""
     from sparse_coding_tpu_torch.models.semilinear import SemiLinearSAE
 
-    _check_mesh(mesh)
+    device = _placement(mesh, device)
     l1s = list(l1_range if l1_range is not None else DEFAULT_L1_RANGE)
     return _simple_grid_experiment(
         SemiLinearSAE, "semilinear_l1_range", cfg, l1s,
@@ -341,7 +353,7 @@ def rica_experiment(cfg: EnsembleArgs, mesh=None,
     """A RICA (reconstruction ICA) sweep over the sparsity coefficient."""
     from sparse_coding_tpu_torch.models.rica import RICA
 
-    _check_mesh(mesh)
+    device = _placement(mesh, device)
     coefs = list(sparsity_range if sparsity_range is not None
                  else np.logspace(-4, -2, 8))
     return _simple_grid_experiment(

@@ -1,6 +1,5 @@
 """Training health guardian: divergence quarantine and last-good rollback
-(the port's copy of the JAX package's ``train/guardian.py``, single
-process).
+(the port's copy of the JAX package's ``train/guardian.py``).
 
 The in-step sentinel (``ensemble.py``) detects and contains numerical
 failure on the device: a member whose step went non-finite keeps its
@@ -26,8 +25,11 @@ half of the ladder:
 The per-window accumulation is one small device combine (no host sync);
 the chunk boundary pulls it once. The drill site ``sweep.anomaly``
 poisons a batch (mode=nan) or member ``i``'s loss scale (mode=error,
-message ``member=<i>``). One process: every consensus the JAX package
-takes across hosts (``parallel.agree_any``) is the local flag here.
+message ``member=<i>``). On a mesh every rank runs the ladder on the
+same gathered aux; the decisions that lead into collectives (an input
+incident, a fraction breach, before and after a quarantine-free chunk)
+are agreed by every rank (``parallel.agree_any``), and rank 0 alone
+writes the ledger, as process 0 does in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from sparse_coding_tpu_torch import obs
+from sparse_coding_tpu_torch.parallel import agree_any
 from sparse_coding_tpu_torch.resilience.atomic import atomic_write_text
 from sparse_coding_tpu_torch.resilience.crash import (
     crash_barrier,
@@ -95,6 +98,14 @@ class GuardianRollback(Exception):
         self.chunk_index = int(chunk_index)
 
 
+def _writes_ledger() -> bool:
+    """Rank 0 of a world (or the one process) owns the ledger file: the
+    decisions are replicated, so one writer keeps its bytes whole."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _reduce_leading(x: torch.Tensor, op) -> torch.Tensor:
     """Reduce leading (``run_steps`` window) axes down to the member
     axis."""
@@ -140,7 +151,8 @@ class Guardian:
         if fresh:
             # a non-resume run into a reused out_dir starts over, like its
             # checkpoints; a resume keeps the ledger
-            self.path.unlink(missing_ok=True)
+            if _writes_ledger():
+                self.path.unlink(missing_ok=True)
             self._state = _empty_ledger()
         else:
             self._state = self._load()
@@ -165,6 +177,8 @@ class Guardian:
         return _empty_ledger()
 
     def _write(self) -> None:
+        if not _writes_ledger():
+            return
         atomic_write_text(
             self.path,
             json.dumps(embed_payload_digest(self._state), indent=2,
@@ -192,12 +206,16 @@ class Guardian:
 
     def _poison_member(self, index: int) -> None:
         """Member ``index`` of the first bucket of the first sweep entry;
-        out of range is a plan bug and fails loudly."""
+        out of range is a plan bug and fails loudly. On a mesh the rank
+        holding the member poisons it."""
         ens = self.ensembles[0][0].buckets()[0][1]
         if not 0 <= int(index) < ens.n_members:
             raise ValueError(
                 f"sweep.anomaly drill names member={index} but the first "
                 f"bucket has {ens.n_members} member(s)")
+        index = ens.local_index(index)
+        if index is None:
+            return
         state = ens.state
         if "l1_alpha" in state.buffers:
             alpha = state.buffers["l1_alpha"].clone()
@@ -232,8 +250,11 @@ class Guardian:
         if not self._acc:
             # nothing trained this chunk (a quarantined hole); a standing
             # fraction breach still escalates here, or a rolled-back run
-            # would sail past the state it rolled back for
-            if self._dead_fraction() >= self.member_fraction:
+            # would sail past the state it rolled back for. Agreed
+            # unconditionally: every rank makes the same sequence of
+            # consensus calls
+            if agree_any(self._dead_fraction() >= self.member_fraction,
+                         "guardian-fraction"):
                 self._escalate(chunk_pos, chunk_index, "hyperparameter",
                                store)
             return
@@ -242,7 +263,9 @@ class Guardian:
                   for k, acc in self._acc.items()}
         self._acc.clear()
 
-        if any(not bool(np.all(inputs)) for _, inputs, _ in pulled.values()):
+        if agree_any(any(not bool(np.all(inputs))
+                         for _, inputs, _ in pulled.values()),
+                     "guardian-input"):
             self._escalate(chunk_pos, chunk_index, "poisoned-data", store)
 
         newly: list[tuple[int, str, int, Optional[float]]] = []
@@ -258,7 +281,8 @@ class Guardian:
         if newly:
             self._quarantine_members(newly, chunk_pos, chunk_index)
 
-        if self._dead_fraction() >= self.member_fraction:
+        if agree_any(self._dead_fraction() >= self.member_fraction,
+                     "guardian-fraction"):
             self._escalate(chunk_pos, chunk_index, "hyperparameter", store)
         obs.record_span("guardian.check", obs.monotime() - t0,
                         chunk=chunk_index, pos=chunk_pos,
@@ -352,6 +376,8 @@ class Guardian:
             path = store._path(chunk_index)
         except ChunkCorruptionError:
             return  # already a hole
+        # every rank of a mesh records it: the store's ledger rewrite is
+        # atomic per process and byte-identical for the same entry
         store._quarantine(ChunkCorruptionError(
             chunk_index, path,
             "guardian: non-finite activations reached the training step"))

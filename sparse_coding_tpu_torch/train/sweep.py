@@ -1,5 +1,5 @@
 """The full sweep (the port's copy of the JAX package's
-``train/sweep.py``, single device).
+``train/sweep.py``).
 
 Flow, as in the JAX package (the reference's big_sweep.py:298-386):
   1. the dataset: an existing chunk store, or synthetic data written to
@@ -31,14 +31,28 @@ Flow, as in the JAX package (the reference's big_sweep.py:298-386):
 The store is flat or sharded (``data/shard_store.py::open_store``). The
 entry point runs on the card; ``device="cpu"`` (``--device cpu``) runs
 the kernels' plain versions on the CPU. What the port cannot do yet
-raises, naming its ROADMAP.md queue-1 item: meshes, and with them the
-orbax backend's per-host sharded writes (item 11), ``profile_steps > 0``
-and wandb (item 14). The executable-cache warm start of the JAX sweep
-has no counterpart yet (item 13).
+raises, naming its ROADMAP.md queue-1 item: ``profile_steps > 0`` and
+wandb (item 14). The executable-cache warm start of the JAX sweep has no
+counterpart yet (item 13).
+
+On a mesh (``mesh_model``/``mesh_data`` > 1, or a ``mesh`` argument;
+:mod:`parallel.mesh`) every rank reads the same chunks and batches, and
+each trains its member shard on its rows. Decisions with collectives
+inside — preemption, the guardian's ladder — are agreed by every rank
+(``parallel.agree_any``); rank 0 alone writes the metrics, the checkpoint
+sets (gathered from every rank, the bytes a single-device run writes for
+the same numbers) and the artifacts, and barriers keep the other ranks
+from reading a set before it is swapped in. The msgpack backend gathers
+the state to rank 0, so it needs every rank on one node
+(``LOCAL_WORLD_SIZE == WORLD_SIZE``: the JAX package's single host); the
+orbax backend writes each model shard from its own rank
+(``utils/orbax_ckpt.py``), and every rank waits for its writes before
+rank 0 swaps the set in.
 
 Run: ``python -m sparse_coding_tpu_torch.train.sweep --experiment
 tied_vs_not --dataset_folder DIR --output_folder DIR [--resume true]
-[--device cpu] [config flags]``. ``SPARSE_CODING_CRASH_PLAN`` and
+[--device cpu] [config flags]``; with ``--mesh_model M --mesh_data D``
+under ``torchrun --nproc_per_node M*D``. ``SPARSE_CODING_CRASH_PLAN`` and
 ``SPARSE_CODING_FAULT_PLAN`` drive the crash barriers and fault sites;
 ``SPARSE_CODING_OBS_DIR`` collects the spans and metrics.
 """
@@ -83,6 +97,13 @@ from sparse_coding_tpu_torch.metrics.core import (
     mmcs_from_list,
 )
 from sparse_coding_tpu_torch.obs.perf import synchronize
+from sparse_coding_tpu_torch.parallel import agree_any
+from sparse_coding_tpu_torch.parallel.mesh import (
+    initialize_distributed,
+    local_world_is_world,
+    make_mesh,
+    shutdown_distributed,
+)
 from sparse_coding_tpu_torch.resilience import lease
 from sparse_coding_tpu_torch.resilience.atomic import (
     atomic_save_npy,
@@ -102,6 +123,7 @@ from sparse_coding_tpu_torch.resilience.preempt import (
 from sparse_coding_tpu_torch.train.guardian import Guardian, GuardianRollback
 from sparse_coding_tpu_torch.utils.artifacts import save_learned_dicts
 from sparse_coding_tpu_torch.utils.checkpoint import (
+    checkpoint_exists,
     restore_ensemble,
     save_ensemble,
 )
@@ -181,14 +203,15 @@ def _member_names(hypers: Sequence[dict], n_members: int) -> list[str]:
 
 def _check_supported(cfg: EnsembleArgs, mesh) -> None:
     """Raise on what the port cannot do yet, naming its ROADMAP item."""
-    if mesh is not None or cfg.mesh_data > 1 or cfg.mesh_model > 1:
-        raise NotImplementedError(
-            "meshes (mesh_data/mesh_model > 1), and with them the orbax "
-            "backend's per-host sharded writes, wait for the multi-GPU "
-            "slice (ROADMAP.md queue 1, item 11)")
     if cfg.checkpoint_backend not in ("msgpack", "orbax"):
         raise ValueError(f"checkpoint_backend must be 'msgpack' or 'orbax', "
                          f"got {cfg.checkpoint_backend!r}")
+    if (mesh is not None and cfg.checkpoint_backend == "msgpack"
+            and not local_world_is_world()):
+        raise ValueError(
+            "checkpoint_backend='msgpack' gathers the full state to one "
+            "host and is single-host only; use checkpoint_backend='orbax' "
+            "for multi-host runs (sharded per-host writes)")
     if cfg.profile_steps > 0:
         raise NotImplementedError(
             "profile_steps > 0 needs trace capture (obs/trace.py), not "
@@ -200,6 +223,31 @@ def _check_supported(cfg: EnsembleArgs, mesh) -> None:
     if cfg.train_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"train_dtype must be 'float32' or 'bfloat16', got "
                          f"{cfg.train_dtype!r}")
+
+
+class _SilentLogger:
+    """The metrics logger of a mesh rank other than 0: rank 0 writes the
+    run's one metrics file."""
+
+    def log(self, metrics, step=None) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _is_writer(mesh) -> bool:
+    """Whether this process writes the run's files: always off a mesh,
+    rank 0 on one."""
+    return mesh is None or mesh.rank == 0
+
+
+def _sync_ranks(mesh) -> None:
+    """Every rank waits here (no-op off a mesh): rank 0 alone mutates the
+    checkpoint directories, and no rank may read a set before it is
+    swapped in."""
+    if mesh is not None:
+        mesh.barrier()
 
 
 def _swap_in_checkpoint_set(out_dir: Path, staging: Path) -> None:
@@ -244,16 +292,29 @@ def sweep(
     ``cfg.n_chunks`` limits the chunks per repetition. ``resume=True``
     restores every ensemble and the batch rng from the newest complete
     checkpoint set and skips the chunks it covers. ``device=None`` runs on
-    the card and raises without one."""
+    the card and raises without one. Without a ``mesh``, a config with
+    ``mesh_model``/``mesh_data`` > 1 joins the world torchrun set up and
+    builds one on ``device``'s type (each rank on ``cuda:LOCAL_RANK``)."""
+    if mesh is None and (cfg.mesh_data > 1 or cfg.mesh_model > 1):
+        dev_type = torch.device(device).type if device is not None else "cuda"
+        initialize_distributed(device_type=dev_type)
+        mesh = make_mesh(cfg.mesh_model, cfg.mesh_data, device_type=dev_type)
     _check_supported(cfg, mesh)
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    writer = _is_writer(mesh)
     out_dir = Path(cfg.output_folder)
     out_dir.mkdir(parents=True, exist_ok=True)
-    cfg.save(out_dir / "config.json")
+    if writer:
+        cfg.save(out_dir / "config.json")
 
     if store is None:
         if isinstance(cfg, SyntheticEnsembleArgs):
-            store = init_synthetic_dataset(cfg)
+            # rank 0 writes a missing dataset, the other ranks open it
+            if writer:
+                store = init_synthetic_dataset(cfg)
+            _sync_ranks(mesh)
+            if not writer:
+                store = init_synthetic_dataset(cfg)
         else:
             # a scrub-repaired store must train through its holes
             store = open_store(cfg.dataset_folder, quarantine_corrupt=True)
@@ -261,7 +322,8 @@ def sweep(
     ensembles = ensemble_init_fn(cfg, mesh, device=dev)
     member_names = [_member_names(hypers, len(hypers))
                     for _, hypers, _ in ensembles]
-    logger = MetricsLogger(out_dir, run_name=out_dir.name)
+    logger = (MetricsLogger(out_dir, run_name=out_dir.name) if writer
+              else _SilentLogger())
 
     guardian: Optional[Guardian] = None
     if cfg.guardian:
@@ -349,7 +411,12 @@ def sweep(
         staged, pending_staging = pending_staging, None
         with obs.span("sweep.ckpt_wait"):
             ckptr.wait()
-        _swap_in_checkpoint_set(out_dir, staged)
+        # on a mesh: every rank's shard is durable before rank 0 swaps,
+        # and the swap is done before any rank goes on
+        _sync_ranks(mesh)
+        if writer:
+            _swap_in_checkpoint_set(out_dir, staged)
+        _sync_ranks(mesh)
 
     todo, reader = _open_reader(chunks_done)
     # SIGTERM sets a flag polled at chunk boundaries: the chunk finishes,
@@ -378,7 +445,10 @@ def sweep(
                         batches = map(guardian.inject_anomaly, batches)
                     if scan_k > 1:
                         batches = window_stacks(batches, scan_k)
-                    for batch in device_prefetch(batches, dev):
+                    # on a mesh each rank moves only its own rows to its
+                    # device (Ensemble.step_batch)
+                    for batch in (device_prefetch(batches, dev)
+                                  if mesh is None else batches):
                         k_steps = batch.shape[0] if scan_k > 1 else 1
                         n_rows = batch.shape[-2] * k_steps
                         step += k_steps
@@ -439,8 +509,11 @@ def sweep(
                     last_chunk = ci == len(chunk_order) - 1
                     cadence = cfg.checkpoint_every_chunks
                     # sampled once per boundary; a signal landing later is
-                    # honored at the next one
-                    preempted = preempt.requested
+                    # honored at the next one. A signal may reach one rank
+                    # only: every rank takes the checkpoint branch, with
+                    # its collectives, together
+                    preempted = agree_any(preempt.requested,
+                                          "sweep-preempt")
                     if ((cadence > 0 and (ci + 1) % cadence == 0)
                             or last_chunk or preempted):
                         if pending_staging is not None:
@@ -448,7 +521,8 @@ def sweep(
                             # chunk's training
                             _swap_pending()
                         _save_checkpoint_set(ensembles, out_dir, ci + 1,
-                                             rng.bit_generator.state, ckptr)
+                                             rng.bit_generator.state, ckptr,
+                                             mesh)
                         if ckptr is not None:
                             # fully issued; a crash mid-issue leaves it
                             # unset, and the staged set is discarded
@@ -458,7 +532,7 @@ def sweep(
                             ensembles, out_dir / f"_{ci}", chunk, logger,
                             image_metrics=image_metrics_every is not None
                             and (ci + 1) % image_metrics_every == 0,
-                            guardian=guardian, device=dev)
+                            guardian=guardian, device=dev, writer=writer)
                     # chunk telemetry before the barrier: a kill there
                     # leaves the span as durable as the chunk's artifacts
                     snap = timer.snapshot()
@@ -552,17 +626,24 @@ def _log_window(logger: MetricsLogger, step: int, ens_idx: int, name: str,
 
 def _save_checkpoint_set(ensembles, out_dir: Path, chunks_done: int,
                          rng_state: dict,
-                         ckptr: Optional[AsyncEnsembleCheckpointer] = None
-                         ) -> None:
+                         ckptr: Optional[AsyncEnsembleCheckpointer] = None,
+                         mesh=None) -> None:
     """Write every ensemble's state to a staging directory, so a crash
     mid-save never leaves ensembles at mixed chunks_done; the rng state
     lets the data stream resume exactly. Without ``ckptr`` (msgpack) the
     complete set is swapped in here; with it (orbax) the set is only
     issued — its writes go on in the background and the caller swaps it
-    in once they are durable. The span records the write, or the issue."""
+    in once they are durable. The span records the write, or the issue.
+    On a mesh every rank takes part: under msgpack each gathers its shards
+    for rank 0, which writes and swaps the set; under orbax each model
+    shard's rank issues its own write; no rank leaves before the msgpack
+    set is in place."""
     t0 = obs.monotime()
     staging = out_dir / "ckpt_staging"
-    shutil.rmtree(staging, ignore_errors=True)
+    writer = _is_writer(mesh)
+    if writer:
+        shutil.rmtree(staging, ignore_errors=True)
+    _sync_ranks(mesh)  # no rank writes into a staging rank 0 clears
     extra = {"chunks_done": chunks_done, "rng_state": rng_state}
     for ensemble, _, name in ensembles:
         # one file a bucket: {name}_{j}, j in the group's bucket order
@@ -576,26 +657,34 @@ def _save_checkpoint_set(ensembles, out_dir: Path, chunks_done: int,
         obs.record_span("sweep.checkpoint", obs.monotime() - t0,
                         chunks_done=chunks_done, backend="orbax")
         return
-    nbytes = sum(p.stat().st_size for p in staging.iterdir())
-    _swap_in_checkpoint_set(out_dir, staging)
-    obs.record_span("sweep.checkpoint", obs.monotime() - t0,
-                    chunks_done=chunks_done, bytes=nbytes, backend="msgpack")
+    if writer:
+        nbytes = sum(p.stat().st_size for p in staging.iterdir())
+        _swap_in_checkpoint_set(out_dir, staging)
+        obs.record_span("sweep.checkpoint", obs.monotime() - t0,
+                        chunks_done=chunks_done, bytes=nbytes,
+                        backend="msgpack")
+    _sync_ranks(mesh)
 
 
 def _save_artifacts(ensembles, folder: Path, chunk, logger: MetricsLogger,
                     image_metrics: bool = False, guardian=None,
-                    device="cpu") -> None:
+                    device="cpu", writer: bool = True) -> None:
     """Learned dicts and quick evals. Quarantined members are tagged
     ``diverged=True``, skipped by the evals and left out of the image
-    panels: a NaN dictionary must never poison an eval."""
+    panels: a NaN dictionary must never poison an eval. On a mesh every
+    rank gathers the dicts and the ``writer`` (rank 0) alone evaluates
+    and writes."""
+    dicts = [_flat_dicts(ensemble) for ensemble, _, _ in ensembles]
+    if not writer:
+        return
     folder.mkdir(parents=True, exist_ok=True)
     sel = np.random.default_rng(0).permutation(chunk.shape[0])[:4096]
     # evals run in float32 even when training streams bfloat16
     rows = (chunk[torch.from_numpy(sel)] if isinstance(chunk, torch.Tensor)
             else torch.from_numpy(np.ascontiguousarray(chunk[sel])))
     eval_batch = rows.to(device=device, dtype=torch.float32)
-    for ensemble, hypers, name in ensembles:
-        tagged = list(zip(_flat_dicts(ensemble), hypers))
+    for (ensemble, hypers, name), flat in zip(ensembles, dicts):
+        tagged = list(zip(flat, hypers))
         if guardian is not None:
             tagged = guardian.tag_hypers(name, tagged)
         save_learned_dicts(tagged, folder / f"{name}_learned_dicts.pkl")
@@ -663,7 +752,7 @@ def resume_sweep_state(ensembles: Sequence[tuple[EnsembleLike, list, str]],
         targets = [(sub, checkpoint_path(ckpt_dir, f"{name}_{j}"))
                    for ens, _, name in ensembles
                    for j, (_, sub) in enumerate(ens.buckets())]
-        if not all(path.exists() for _, path in targets):
+        if not all(checkpoint_exists(path) for _, path in targets):
             continue  # incomplete set: fall through to the older one
         try:
             return _restore_checkpoint_set(targets)
@@ -717,6 +806,8 @@ def main(argv=None) -> None:
         # --resume true continues bitwise
         print(f"sweep: {e}")
         return
+    finally:
+        shutdown_distributed()  # a mesh run's world; a no-op without one
     for name, dicts in result.items():
         print(f"{name}: {len(dicts)} dicts -> {cfg.output_folder}")
 

@@ -22,6 +22,16 @@ cover both paths, and a digest mismatch or a payload that does not load
 raises :class:`CheckpointCorruptionError`, which
 ``train/sweep.py::resume_sweep_state`` falls back from.
 
+On a mesh (``Ensemble(..., mesh=...)``) a save gathers the member shards
+and rank 0 writes the file a single-device run writes for the same
+numbers; a restore reads the whole file on every rank and keeps the
+rank's shard (``ensemble.shard_ensemble_state``). Both are collectives.
+The orbax backend writes a mesh's state as shards instead, one tensor
+file per model shard (``<path>.shard-<m>-of-<M>``, each with its own
+sidecar) beside an index sidecar ``<path>.meta.json`` that names their
+count; :func:`restore_ensemble` reads either layout, onto any mesh or
+none.
+
 ``save_pytree``/``restore_pytree`` write any tree of tensors, arrays and
 scalars in the same tensor-file format, beside a ``.sha256`` sidecar;
 the template given to the restore decides the nesting.
@@ -39,7 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sparse_coding_tpu_torch.ensemble import Ensemble
+from sparse_coding_tpu_torch.ensemble import Ensemble, shard_ensemble_state
 from sparse_coding_tpu_torch.resilience.atomic import (
     atomic_write_text,
     fsync_dir,
@@ -186,20 +196,46 @@ def _write_checkpoint(path: Path, arrays: dict[str, np.ndarray],
 
 def save_ensemble(ens: Ensemble, path: str | Path,
                   extra: Optional[dict] = None) -> None:
-    """Write ``ens``'s full state to ``path`` and its sidecar."""
+    """Write ``ens``'s full state to ``path`` and its sidecar (on a mesh:
+    gathered from every rank, written by rank 0)."""
     path = Path(path)
+    state = ens.full_state()
+    if ens.mesh is not None and ens.mesh.rank != 0:
+        return
     path.parent.mkdir(parents=True, exist_ok=True)
-    state = ens.state
     _write_checkpoint(path, _host_arrays(_leaves(state)), _state_meta(state),
                       extra)
 
 
-def restore_ensemble(ens: Ensemble, path: str | Path) -> dict:
-    """Load a checkpoint into a freshly built Ensemble of the same shape,
-    in place; returns the sidecar (with the caller's extras). A state
-    saved without a live mask restores with every member live."""
+def shard_path(path: Path, shard: int, n_shards: int) -> Path:
+    """Model shard ``shard`` of ``n_shards``' tensor file of a sharded
+    checkpoint at ``path``."""
+    return path.with_name(f"{path.name}.shard-{shard}-of-{n_shards}")
+
+
+def _index(path: Path) -> Optional[dict]:
+    """A sharded checkpoint's index sidecar, or None."""
+    meta_path = _meta_path(path)
+    if path.exists() or not meta_path.exists():
+        return None
+    meta = json.loads(meta_path.read_text())
+    return meta if "shards" in meta else None
+
+
+def checkpoint_exists(path: str | Path) -> bool:
+    """Whether a complete checkpoint is at ``path``: the tensor file, or a
+    sharded checkpoint's index and every shard it names."""
     path = Path(path)
-    fault_point("ckpt.restore")
+    if path.exists():
+        return True
+    index = _index(path)
+    return index is not None and all(
+        shard_path(path, m, index["shards"]).exists()
+        for m in range(index["shards"]))
+
+
+def _read_payload(path: Path) -> tuple[dict, dict[str, np.ndarray]]:
+    """(sidecar, decoded leaves) of one tensor file, its digest checked."""
     meta_path = _meta_path(path)
     meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
     # a writable buffer: the restored tensors share it, no further copy
@@ -210,9 +246,41 @@ def restore_ensemble(ens: Ensemble, path: str | Path) -> dict:
     if want is not None and bytes_sha256(payload) != want:
         raise CheckpointCorruptionError(
             path, "payload sha256 does not match the sidecar manifest")
-    template = _leaves(ens.state)
     try:
-        arrays = _decode(payload)
+        return meta, _decode(payload)
+    except (ValueError, KeyError, TypeError, struct.error) as e:
+        raise CheckpointCorruptionError(
+            path, f"payload does not load: {e}") from e
+
+
+def _read_sharded(path: Path, index: dict) -> dict[str, np.ndarray]:
+    """The whole state's leaves from a sharded checkpoint: each member
+    leaf the shards' slices in model order, the 0-d step from the
+    first."""
+    parts = [_read_payload(shard_path(path, m, index["shards"]))[1]
+             for m in range(index["shards"])]
+    return {key: (a if a.ndim == 0 else np.concatenate(
+                [p[key] for p in parts], axis=0))
+            for key, a in parts[0].items()}
+
+
+def restore_ensemble(ens: Ensemble, path: str | Path) -> dict:
+    """Load a checkpoint into a freshly built Ensemble of the same shape,
+    in place; returns the sidecar (with the caller's extras). A state
+    saved without a live mask restores with every member live. On a mesh
+    every rank reads the file and keeps its member shard. A sharded
+    checkpoint (the orbax backend's on a mesh) restores the same way,
+    onto any mesh shape or a single device."""
+    path = Path(path)
+    fault_point("ckpt.restore")
+    index = _index(path)
+    if index is not None:
+        meta, arrays = index, _read_sharded(path, index)
+    else:
+        meta, arrays = _read_payload(path)
+    full = ens.full_state()
+    template = _leaves(full)
+    try:
         loaded = {}
         for key, t in template.items():
             if key == "live" and key not in arrays:
@@ -230,10 +298,12 @@ def restore_ensemble(ens: Ensemble, path: str | Path) -> dict:
             path, f"payload does not load: {e}") from e
     tree = lambda name: {k.split("/", 1)[1]: v for k, v in loaded.items()
                          if k.startswith(name + "/")}
-    ens.state = ens.state.replace(
+    state = full.replace(
         params=tree("params"), buffers=tree("buffers"), mu=tree("mu"),
         nu=tree("nu"), count=loaded["count"], lrs=loaded["lrs"],
         step=loaded["step"], live=loaded.get("live"))
+    ens.state = (state if ens.mesh is None
+                 else shard_ensemble_state(state, ens.mesh))
     return meta
 
 

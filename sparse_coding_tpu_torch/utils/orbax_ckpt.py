@@ -1,11 +1,10 @@
-"""Asynchronous checkpoints for one host: the backend the sweep selects
-with ``checkpoint_backend="orbax"`` (the port's counterpart of the JAX
+"""Asynchronous checkpoints: the backend the sweep selects with
+``checkpoint_backend="orbax"`` (the port's counterpart of the JAX
 package's ``utils/orbax_ckpt.py``; the module keeps that name so a reader
 finds its counterpart).
 
-It uses no orbax: orbax is not on the card's host, and one host needs
-none of its per-host sharding (ROADMAP.md queue 1, item 11). It keeps the
-contract the sweep's deferred swap rests on:
+It uses no orbax: orbax is not on the card's host. It keeps the contract
+the sweep's deferred swap rests on:
 
 - ``save`` returns once the ensemble's state is snapshotted into host
   memory (pinned buffers on the card); training goes on at once;
@@ -25,10 +24,20 @@ backends' sets, and their sets compare byte for byte. The JAX orbax path
 also stamps a directory digest manifest, because orbax writes a
 directory; a single payload file whose digest its sidecar records needs
 none.
+
+On a mesh each rank writes exactly its own member shard, as the JAX
+backend's hosts write theirs: the ranks of data index 0 (one per model
+shard; the other data ranks hold the same members) write
+``<path>.shard-<m>-of-<M>`` and its sidecar, and rank 0 also writes the
+index sidecar ``<path>.meta.json`` (the state's metadata, the caller's
+extras, the shard count) after its shard. No rank gathers. The sweep
+swaps the set in once every rank's ``wait()`` returned
+(``utils/checkpoint.py::restore_ensemble`` reads it back onto any mesh).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
@@ -39,13 +48,16 @@ import torch
 
 from sparse_coding_tpu_torch import obs
 from sparse_coding_tpu_torch.ensemble import Ensemble
+from sparse_coding_tpu_torch.resilience.atomic import atomic_write_text
 from sparse_coding_tpu_torch.utils.checkpoint import (
     SUFFIX,
     _leaves,
+    _meta_path,
     _state_meta,
     _write_checkpoint,
     host_array,
     restore_ensemble,
+    shard_path,
 )
 
 logger = logging.getLogger(__name__)
@@ -84,10 +96,15 @@ def _snapshot(leaves: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
 
 
 def _write(path: Path, arrays: dict[str, np.ndarray], state_meta: dict,
-           extra: dict) -> None:
+           extra: dict, index: Optional[tuple[Path, dict]] = None) -> None:
+    """Write one tensor file and its sidecar; then, for a sharded set's
+    rank 0, the index sidecar (``index``: its path and contents)."""
     t0 = obs.monotime()
     try:
         size = _write_checkpoint(path, arrays, state_meta, extra)
+        if index is not None:
+            atomic_write_text(index[0], json.dumps(index[1], indent=2,
+                                                   default=str))
     except BaseException as e:
         obs.record_span("ckpt.write", obs.monotime() - t0, ok=False,
                         error=type(e).__name__, file=path.name)
@@ -109,8 +126,19 @@ class AsyncEnsembleCheckpointer:
     def save(self, ens: Ensemble, path: str | Path,
              extra: Optional[dict] = None) -> None:
         """Snapshot ``ens``'s state and hand its write to the path's
-        worker; returns before the write."""
+        worker; returns before the write. On a mesh this rank's member
+        shard, if it writes one (see the module docstring)."""
         path = Path(path)
+        mesh, index = ens.mesh, None
+        if mesh is not None:
+            if mesh.coords["data"] != 0:
+                return  # a model shard's members are written once
+            n_shards = mesh.shape["model"]
+            if mesh.rank == 0:
+                index = (_meta_path(path),
+                         {**_state_meta(ens.state), **dict(extra or {}),
+                          "shards": n_shards, "members": ens.n_members})
+            path = shard_path(path, mesh.coords["model"], n_shards)
         path.parent.mkdir(parents=True, exist_ok=True)
         key = str(path)
         prev = self._pending.pop(key, None)
@@ -122,7 +150,8 @@ class AsyncEnsembleCheckpointer:
             self._workers[key] = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="ckpt")
         self._pending[key] = self._workers[key].submit(
-            _write, path, arrays, _state_meta(state), dict(extra or {}))
+            _write, path, arrays, _state_meta(state), dict(extra or {}),
+            index)
 
     def restore(self, ens: Ensemble, path: str | Path) -> dict:
         """Load a checkpoint into a freshly built Ensemble of the same

@@ -225,7 +225,8 @@ def test_resurrection_matches_jax():
 def test_gating(monkeypatch):
     """On the CPU "auto" runs autodiff and launches nothing; use_fused=True
     with a shape the kernels do not take raises ValueError (as the JAX
-    step does); a mesh raises; the auto rule and its constant are JAX's."""
+    step does); a mesh that is no Mesh raises, and so does a total_batch
+    below the batch's rows; the auto rule and its constant are JAX's."""
     state = _carry(_jax_state(False)[0])
     x = _t(batches(seed=9, n=1, batch=B, d=D)[0])
 
@@ -246,14 +247,14 @@ def test_gating(monkeypatch):
     with pytest.raises(ValueError, match="use_fused=True"):
         jbs.make_big_sae_step(jopt, jl1, use_fused=True)(
             jstate, jnp.asarray(x.numpy()))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         tbs.make_big_sae_step(tbs.BigSAEAdam(1e-3), L1, mesh=object())
     with pytest.raises(NotImplementedError):
         tfb.fused_big_sae_loss_and_grads(state.params, x, L1, False,
                                          compute_dtype="float16")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="total_batch"):
         tfb.fused_big_sae_loss_and_grads(state.params, x, L1, False,
-                                         total_batch=2 * B)
+                                         total_batch=B // 2)
     assert tbs.FUSED_AUTO_CODES_BYTES == jbs.FUSED_AUTO_CODES_BYTES
     for case in [("auto", True, 16384, 16384), ("auto", True, 65536, 16384),
                  (True, True, 64, 128), (True, False, 65536, 16384),

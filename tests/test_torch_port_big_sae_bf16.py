@@ -325,7 +325,7 @@ def test_bf16_pick_tiles_admits_what_the_bf16_kernels_take(shape):
 
 
 def test_bf16_gating():
-    """float16 compute and data-sharded calls still raise; the step takes
+    """float16 compute and a total_batch below the rows raise; the step takes
     bfloat16 and refuses, with use_fused=True, a d the bf16 forms do not
     take; on the CPU "auto" stays autodiff and launches nothing."""
     p = {k: _t(v) for k, v in _params(0).items()}
@@ -333,8 +333,8 @@ def test_bf16_gating():
     with pytest.raises(NotImplementedError, match="float16"):
         tfb.fused_big_sae_loss_and_grads(p, x, L1, False,
                                          compute_dtype="float16")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tfb.fused_big_sae_loss_and_grads(p, x, L1, False, total_batch=2 * B,
+    with pytest.raises(ValueError, match="total_batch"):
+        tfb.fused_big_sae_loss_and_grads(p, x, L1, False, total_batch=B // 2,
                                          compute_dtype=BF16)
     with pytest.raises(NotImplementedError, match="float16"):
         tbs.make_big_sae_step(tbs.BigSAEAdam(1e-3), L1,

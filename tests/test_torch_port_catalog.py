@@ -379,8 +379,16 @@ def test_trees_match_jax():
 
 
 def test_place_catalog_rows_names_the_multi_gpu_item():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        query.place_catalog_rows(torch.zeros(4, 2), mesh=object())
+    """Catalog rows split over the mesh's model axis (the multi-GPU
+    slice): each model shard keeps its block of rows, as the JAX
+    placement's CATALOG_FEATURE_RULES put them."""
+    from sparse_coding_tpu_torch.parallel.mesh import Mesh
+
+    rows = torch.arange(8.0).reshape(4, 2)
+    first = query.place_catalog_rows(rows, Mesh(2, 1, "cpu"))
+    assert torch.equal(first, rows[:2])
+    assert torch.equal(query.place_catalog_rows(rows, Mesh(1, 1, "cpu")),
+                       rows)
 
 
 def test_port_loads_the_jax_artifact_it_catalogs(corpus):

@@ -1379,3 +1379,91 @@ def test_pca_defaults_to_the_card(card, tmp_path, monkeypatch):
     (ens, _, _), = centered_l1_range_experiment(cfg, l1_range=[1e-3])
     assert seen == ["cuda"]
     assert ens.device.type == "cuda"
+
+
+# --- the data-sharded form (total_batch != batch) -----------------------------
+# A call on one data shard normalizes by the batch of every shard together
+# (total_batch); its outputs are partial sums that an all-reduce over the
+# data axis completes. Each backward at total_batch = 3·b against its plain
+# version with the same total_batch, at the bounds above (fp32 grads rtol
+# 1e-3, bf16 everything rtol 1e-3, losses rtol 1e-5), with the ReLU mask
+# flips counted: activity may differ by a flipped code (at most one per
+# million codes, at least one allowed), and the grads are held on the
+# features with no flip. Members and rows in several chunks too.
+
+TOTAL_BATCH_CASES = [(3, 96, 96, 40, None), (2, 64, 64, 600, None),
+                     (5, 64, 96, 304, (2, 64)), (3, 160, 64, 40, (1, 64))]
+
+
+def _flip_features(got_act, ref_act, codes: int):
+    """The (member, feature) pairs whose activity differs (ReLU flips),
+    after checking their count."""
+    flips = (got_act - ref_act).abs()
+    assert float(flips.sum()) <= max(1.0, 1e-6 * codes), float(flips.sum())
+    return flips == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", ["float32", BF16])
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("case", TOTAL_BATCH_CASES, ids=str)
+def test_total_batch_bwd_kernels_match_plain(card, monkeypatch, case, family,
+                                             cd):
+    n_m, b, n, d, chunk = case
+    if chunk is not None:
+        per_code = 4 * 2 if cd == "float32" else 12
+        monkeypatch.setattr(ft, "WORKSPACE_BYTES",
+                            per_code * n * chunk[0] * chunk[1])
+        assert len(ft.bwd_chunks(n_m, b, n, cd)) >= 2
+    i = _inputs(card, n_m, b, n, d, seed=5)
+    e, bias, al, x = i["e"], i["bias"], i["alphas"], i["x"]
+    tb = 3 * b
+    if family == "untied":
+        r = ft.sae_untied_fwd_plain(e, i["dec"], bias, x, cd).contiguous()
+        args = (e, i["dec"], bias, al, x, r, cd)
+        kernel, plain, n_grads = ft.sae_untied_bwd, ft.sae_untied_bwd_plain, 2
+    else:
+        cm = i["cm"] if family == "masked_tied" else None
+        r = ft.sae_tied_fwd_plain(e, bias, x, cm, cd).contiguous()
+        args = (e, bias, al, x, r, cm, cd)
+        kernel, plain, n_grads = ft.sae_tied_bwd, ft.sae_tied_bwd_plain, 1
+    _build.reset_launches()
+    got = kernel(*args, total_batch=tb)
+    whole = kernel(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args, total_batch=tb)
+    base = "sae_untied_bwd" if family == "untied" else "sae_tied_bwd"
+    assert _build.LAUNCHES[base + ("_bf16" if cd == BF16 else "")] == 2
+    clean = _flip_features(got[n_grads + 1], ref[n_grads + 1], n_m * b * n)
+    for g, w in zip(got[:n_grads + 1], ref[:n_grads + 1]):  # grads, db
+        _close(g[clean], w[clean], 1e-3)
+    loss_rtol = 1e-5 if cd == "float32" else 1e-3
+    for k in range(3):  # mse, l1, l0: a shard's share of the global terms
+        _close(got[-1][:, k], ref[-1][:, k], loss_rtol)
+        _close(got[-1][:, k] * tb, whole[-1][:, k] * b, loss_rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", ["float32", BF16])
+@pytest.mark.parametrize("shape", [(64, 32, 40), (96, 64, 1024)], ids=str)
+def test_total_batch_big_sae_backward_matches_plain(card, shape, cd):
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    p, x = _big_inputs(card, *shape)
+    xc = (x - p["centering"]).contiguous()
+    alpha = torch.tensor(3e-3, device=card)
+    r = (fb.big_sae_forward_plain(p, xc, cd) - x).contiguous()
+    tb = 4 * shape[0]
+    _build.reset_launches()
+    got = fb.big_sae_backward(p, alpha, xc, r, total_batch=tb,
+                              compute_dtype=cd)
+    torch.cuda.synchronize()
+    want = fb.big_sae_backward_plain(p, alpha, xc, r, cd, total_batch=tb)
+    assert _build.LAUNCHES["big_sae_bwd" + ("_bf16" if cd == BF16 else "")] \
+        == 1
+    codes = shape[0] * shape[1]
+    assert abs(float(got[5][1] - want[5][1])) <= max(1.0, 1e-6 * codes)
+    for g, w in zip(got[1:5], want[1:5]):  # dWn, dt, dctr, c_totals
+        _close(g, w, 1e-3)
+    _close(got[0], want[0], 1e-3)  # dE
+    _close(got[5][:1], want[5][:1], 1e-5 if cd == "float32" else 1e-3)

@@ -232,35 +232,48 @@ def test_main_without_a_card_raises(store, tmp_path):
                      "--output_folder", str(tmp_path / "x")])
 
 
-@pytest.mark.parametrize("over, match", [
-    ({"mesh_data": 2}, "item 11"),
-    ({"checkpoint_backend": "orbax", "mesh_model": 2},
-     "orbax backend's per-host sharded writes.*item 11"),
-    ({"profile_steps": 3}, "item 14"),
-    ({"use_wandb": True}, "item 14"),
+@pytest.mark.parametrize("over, on_mesh, error, match", [
+    ({"mesh_data": 2}, False, ValueError, "needs 2 ranks, have 1"),
+    ({"checkpoint_backend": "msgpack"}, True, ValueError,
+     "single-host only; use checkpoint_backend='orbax'"),
+    ({"profile_steps": 3}, False, NotImplementedError, "item 14"),
+    ({"use_wandb": True}, False, NotImplementedError, "item 14"),
 ], ids=["mesh", "orbax", "profile", "wandb"])
-def test_deferred_options_raise_naming_their_item(store, tmp_path, over,
-                                                  match):
+def test_deferred_options_raise_naming_their_item(store, tmp_path,
+                                                  monkeypatch, over,
+                                                  on_mesh, error, match):
+    """What the sweep still lacks raises naming its ROADMAP item; a mesh
+    larger than the world (no world here) raises before any training; a
+    mesh across nodes needs the orbax backend's per-rank writes (msgpack
+    gathers to one host), as the JAX sweep says."""
+    from sparse_coding_tpu_torch.parallel.mesh import Mesh
+
     cfg = EnsembleArgs(output_folder=str(tmp_path / "o"),
                        dataset_folder=str(store), **over)
-    with pytest.raises(NotImplementedError, match=match):
-        tsweep.sweep(texp.dense_l1_range_experiment, cfg, device="cpu")
+    mesh = None
+    if on_mesh:
+        mesh = Mesh(2, 1, "cpu")
+        monkeypatch.setattr(tsweep, "local_world_is_world", lambda: False)
+    with pytest.raises(error, match=match):
+        tsweep.sweep(texp.dense_l1_range_experiment, cfg, device="cpu",
+                     mesh=mesh)
 
 
 def test_unported_experiments_and_sharded_stores_raise(store, tmp_path):
     """Every JAX experiment has a port counterpart; what the sweep still
-    lacks raises naming its ROADMAP item (meshes, item 11; trace capture,
-    item 14). Sharded stores open now (tests/test_torch_port_shard_store.py
-    sweeps over one): a folder whose manifest.json lists no shards raises
-    the typed layout error."""
+    lacks raises naming its ROADMAP item (trace capture, item 14), and a
+    mesh the world cannot hold raises. Sharded stores open now
+    (tests/test_torch_port_shard_store.py sweeps over one): a folder whose
+    manifest.json lists no shards raises the typed layout error."""
     from sparse_coding_tpu_torch.data.shard_store import ShardLayoutError
 
     assert set(texp.EXPERIMENTS) == set(jexp.EXPERIMENTS)
     cfg = EnsembleArgs(output_folder=str(tmp_path / "o"),
                        dataset_folder=str(store))
-    for over, item in (({"mesh_model": 2}, "item 11"),
-                       ({"profile_steps": 2}, "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
+    for over, error, match in (
+            ({"mesh_model": 2}, ValueError, "needs 2 ranks, have 1"),
+            ({"profile_steps": 2}, NotImplementedError, "item 14")):
+        with pytest.raises(error, match=match):
             tsweep.sweep(texp.EXPERIMENTS["topk"], cfg.replace(**over),
                          device="cpu")
     sharded = tmp_path / "sharded"

@@ -582,7 +582,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch(inp):
 def test_shape_contract_raises(inp):
     """The JAX divisibility contract (batch % bt, n % ft, n % ftile)
     raises ValueError, as prepare_tiled_batch does; so do the kernels' own
-    tile limits, mismatched operands and the unported options."""
+    tile limits, mismatched operands, a total_batch below the call's rows
+    and the unported options."""
     e, dec, bias, al, x = (_t(inp[k]) for k in ("e", "dec", "bias",
                                                  "alphas", "x"))
     with pytest.raises(ValueError, match="must be 0"):
@@ -607,8 +608,9 @@ def test_shape_contract_raises(inp):
         fs.fused_adam_vjp_update(*uadam, ftile=48)
     with pytest.raises(NotImplementedError):
         fs.fused_tied_sae_grads(e, bias, al, x, compute_dtype="float16")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        fs.fused_untied_sae_grads(e, dec, bias, al, x, total_batch=256)
+    with pytest.raises(ValueError, match="total_batch"):
+        fs.fused_untied_sae_grads(e, dec, bias, al, x,
+                                  total_batch=x.shape[0] // 2)
     with pytest.raises(ValueError, match="d % 8"):
         _build.check_kernel_shape("sae_tied_fwd", 128, 64, 36, "bfloat16")
     _build.check_kernel_shape("sae_tied_fwd", 128, 64, 36)

@@ -62,3 +62,46 @@ def batches(seed: int, n: int, batch: int = BATCH, d: int = D) -> np.ndarray:
     codes = rs.uniform(size=(n, batch, 2 * d)) * (
         rs.uniform(size=(n, batch, 2 * d)) < 0.1)
     return (codes @ feats).astype(np.float32)
+
+
+def run_world(tmp_path, case: str, n_procs: int, *args, timeout: float = 240):
+    """Start ``n_procs`` ranks of tests/torch_port_world.py CASE, each
+    joining one gloo world through a FileStore under ``tmp_path`` (no TCP
+    port: concurrent test workers never collide); wait for all, kill any
+    survivor, fail on any rank's exit code, and return every rank's
+    result (rank order)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import torch
+    from conftest import stripped_cpu_subprocess_env
+
+    here = Path(__file__).resolve().parent
+    env = stripped_cpu_subprocess_env()
+    env["PYTHONPATH"] = env["PYTHONPATH"] + os.pathsep + str(here)
+    env.pop("RANK", None)
+    env.pop("WORLD_SIZE", None)
+    env["OMP_NUM_THREADS"] = "1"  # n ranks share the host's cores
+    out = Path(tmp_path) / f"world_{case}_{len(list(Path(tmp_path).glob('world_*')))}"
+    out.mkdir(parents=True)
+    store = out / "store"
+    procs = [subprocess.Popen(
+        [sys.executable, str(here / "torch_port_world.py"), case, str(r),
+         str(n_procs), str(store), str(out), *map(str, args)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(n_procs)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} of {case} failed:\n{log}"
+    return [torch.load(out / f"{case}_{r}.pt", weights_only=False)
+            for r in range(n_procs)]
