@@ -86,7 +86,7 @@ Phases — any failure raises, and the script exits non-zero with no result:
    ``ckpt/``; (e) measured beside phase 8's run: acts/s, chunk wall, the
    set's time in the sweep (issue), the wait before each swap, the
    workers' writes, the read path that served the chunks (native or
-   np.load) and the host→device stage; (f) both backends over 4 chunks of
+   np.load) and the host→device stage; (f) both backends over 2 chunks of
    262,144 rows, bitwise equal to each other, their chunk walls measured;
 10. bf16 compute (``fused_compute_dtype="bfloat16"``,
    ``fused_moments_dtype="bfloat16"``): (a) each bf16 form of the four
@@ -272,7 +272,30 @@ Phases — any failure raises, and the script exits non-zero with no result:
    phase 7's side-by-side bounds (metrics; params within
    REL_FRO_BIG_REPLAY). Two ranks on one card check correctness; their
    times are no multi-GPU figure;
-17. summary: one ``{"kernels": [...]}`` line (the tied kernels also with
+17. serving (``serve/``, ``xcache/``, ``catalog/serve.py``) on phase
+   13's 16 tied ``mlp.2`` dicts (d=2048, n=8192), its harvested rows and
+   phase 15 (f)'s catalog: (a) a registry of one dict (``load_native``)
+   and the 16-dict stack, a gateway of 2 replicas and a spare over one
+   program table, every (model, op, bucket) program captured as a CUDA
+   graph at warmup (ops encode, decode, topk, predict, neighbors, vote;
+   the default ladder 8/64/512), the graph pool's and the pinned staging
+   bytes; (b) every program at a partial bucket bitwise the eager op at
+   the same padded bucket, and at bucket 8 against the port on the CPU
+   within RTOL_EVAL (top-k indices equal but at near-ties, vote flips
+   capped), ``neighbor_topk`` equal to its stable-sort plain version and
+   both timed; (c) 48 requests an op of 1-512 rows (log-uniform, seeded)
+   through the gateway: rows/s per op, p50/p99 per bucket, 0 recompiles;
+   (d) the ``serve.dispatch`` fault plan trips one replica (failover
+   answers every request; the spare activates at 0 captures) and a swap
+   to the ladder derived from (c)'s traffic captures only its new rungs;
+   (e) ``score_offline`` over a 32,768-row chunk, and ``CatalogService``
+   stats/neighbors/search/union card vs CPU; (f) a restarted process
+   (this script's ``--serve-restart``), started after (a) beside the
+   untimed checks ((b) and (e)'s catalog service):
+   the kernel libraries load with 0 nvcc runs, ``warmup_from_manifest``
+   captures exactly (a)'s manifest, 0 captures after admission, its
+   first request's latency;
+18. summary: one ``{"kernels": [...]}`` line (the tied kernels also with
    phase 15 (e)'s launches, every kernel with phase 16's), the card's
    name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -2437,9 +2460,11 @@ def sweep_phase(store: Path, tmp: Path) -> dict:
 # --- phase 9: the full sweep's host I/O ---------------------------------------
 
 # phase 8's store re-sharded into 3 + 3 chunks; the longer chunk of the
-# overlap measurement: 262,144 rows = 128 steps, 4 chunks
+# overlap measurement: 262,144 rows = 128 steps, 2 chunks (4 until phase
+# 17 took the run past 1,000 s: the second chunk's training still
+# overlaps the first set's write)
 SHARDS = (3, 3)
-LONG_ROWS_PER_CHUNK, LONG_CHUNKS = 8 * ROWS_PER_CHUNK, 4
+LONG_ROWS_PER_CHUNK, LONG_CHUNKS = 8 * ROWS_PER_CHUNK, 2
 
 
 def reshard(flat: Path, root: Path, sizes) -> Path:
@@ -2524,7 +2549,7 @@ def host_io_phase(flat: Path, tmp: Path, ref: Path, card: str,
     issued set swapped in, then a bitwise resume; (d) a ckpt.save fault
     in a worker fails the child with the typed error and leaves the
     first set in ckpt/; (e) the measurements; (f) both backends at a
-    longer chunk (4 of 262,144 rows), bitwise equal to each other."""
+    longer chunk (2 of 262,144 rows), bitwise equal to each other."""
     import shutil
 
     from sparse_coding_tpu_torch.ops import _build
@@ -6314,6 +6339,603 @@ def mesh_phase(tmp: Path, x_main: torch.Tensor, big_store: Path,
     return out
 
 
+# -- phase 17: serving at the LM's width (sparse_coding_tpu_torch/serve) -----
+
+# the engine's ops: DEFAULT_OPS + predict + CATALOG_OPS (vote: the stack)
+SERVE_OPS = ("encode", "decode", "topk", "predict", "neighbors", "vote")
+SERVE_TOPK = 16  # the engine's k (topk, neighbors)
+SERVE_PER_OP = 48  # (c) requests a burst, one burst an op
+SERVE_WAVE = 16  # (c) requests in flight together
+SERVE_MAX_ROWS = 512
+SERVE_CPU_BUCKET = 8  # (b) card vs CPU at this bucket (5 rows)
+SERVE_CATALOG_BUCKETS = (16,)
+SERVE_CATALOG_K = 8
+SERVE_BUDGET_S = 45.0
+# (f)'s restarted process: this script with --serve-restart
+SERVE_CHILD = (sys.executable, str(Path(__file__).resolve()),
+               "--serve-restart")
+
+
+def serve_captures() -> int:
+    from sparse_coding_tpu_torch.obs import get_registry
+
+    return get_registry().counter("xcache.captures").value
+
+
+def serve_registry(dict_file: Path, device):
+    """Phase 13's tied mlp.2 dicts as a serving registry: the first one
+    through ``load_native`` (its L1 value selects it) as ``mlp2/0``, and
+    the 16 as one stack, ``mlp2/stack``. Returns the registry and the
+    dicts."""
+    from sparse_coding_tpu_torch.serve import ModelRegistry
+    from sparse_coding_tpu_torch.utils.artifacts import load_learned_dicts
+
+    pairs = load_learned_dicts(dict_file, device=device)
+    reg = ModelRegistry(device=device)
+    first = pairs[0][1]["l1_alpha"]
+    names = reg.load_native(dict_file, prefix="mlp2",
+                            select=lambda h: h["l1_alpha"] == first)
+    if names != ["mlp2/0"]:
+        raise AssertionError(f"load_native selected {names}")
+    reg.register_stack("mlp2/stack", [ld for ld, _ in pairs],
+                       [h for _, h in pairs])
+    return reg, pairs
+
+
+def serve_gateway(reg, device):
+    """The gateway of (a): 2 active replicas and a spare over one
+    program table, the default ladder, SERVE_OPS; breakers open on one
+    failure so (d)'s drill trips exactly one replica."""
+    from sparse_coding_tpu_torch.serve import ServingGateway
+
+    return ServingGateway(reg, n_replicas=2, n_spares=1, ops=SERVE_OPS,
+                          max_queue_rows=1 << 20, breaker_threshold=1,
+                          breaker_reset_s=3600.0,
+                          engine_kwargs={"topk_k": SERVE_TOPK},
+                          device=device)
+
+
+def serve_programs(reg, ops=SERVE_OPS, buckets=(8, 64, 512)) -> set:
+    return {(m, op, b) for m in reg.names() for op in ops for b in buckets
+            if op != "vote" or reg.get(m).is_stack}
+
+
+def serve_payload(rs, op: str, rows: np.ndarray, r: int,
+                  n_feats: int) -> np.ndarray:
+    """``r`` request rows for ``op``: harvested rows (unit rows for
+    neighbors), sparse nonnegative codes for decode."""
+    if op == "decode":
+        return (rs.random((r, n_feats)) * (rs.random((r, n_feats)) < 0.01)
+                ).astype(np.float32)
+    i = int(rs.integers(0, rows.shape[0] - r))
+    x = rows[i:i + r]
+    if op == "neighbors":
+        x = x / np.linalg.norm(x, axis=-1, keepdims=True)
+    return np.ascontiguousarray(x, dtype=np.float32)
+
+
+def serve_leaves(tree) -> tuple:
+    return tree if isinstance(tree, tuple) else (tree,)
+
+
+def serve_eager(entry, tree, op: str, x: np.ndarray, bucket: int,
+                device) -> tuple:
+    """The op's plain eager program on ``x`` zero-padded to ``bucket`` on
+    ``device``, cut to the request rows, as host arrays."""
+    from sparse_coding_tpu_torch.serve.engine import (
+        build_bucket_program,
+        op_rows_axis,
+    )
+
+    fn, spec = build_bucket_program(entry, op, bucket, torch.float32,
+                                    SERVE_TOPK)
+    padded = torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    padded[:x.shape[0]] = torch.from_numpy(x).to(device)
+    with torch.no_grad():
+        out = fn(tree, padded)
+    sl = (slice(None),) * op_rows_axis(entry, op) + (slice(0, x.shape[0]),)
+    return tuple(t[sl].cpu().numpy() for t in serve_leaves(out))
+
+
+def serve_near_ties(label: str, got_idx, ref_idx, score, bound: float) -> int:
+    """Top-k indices equal but where the two picks' scores (``score``:
+    the reference side's values, indexed like the result's last axis
+    over the feature axis) lie within ``bound``; returns the swaps."""
+    moved = np.nonzero(got_idx != ref_idx)
+    for pos in zip(*moved):
+        row = score[pos[:-1]]
+        a, b = float(row[got_idx[pos]]), float(row[ref_idx[pos]])
+        if not abs(a - b) <= bound:
+            raise AssertionError(f"{label} {pos}: index {got_idx[pos]} vs "
+                                 f"{ref_idx[pos]} is no near-tie "
+                                 f"({a} vs {b})")
+    return int(len(moved[0]))
+
+
+def serve_card_vs_cpu(reg, cpu_trees: dict, graph: dict) -> dict:
+    """(b) each (model, op)'s request at SERVE_CPU_BUCKET through the
+    graphs against the port's eager op on the CPU: values within
+    RTOL_EVAL of max|ref|; topk/neighbors indices equal but at near-ties
+    within that bound; vote counts equal but one flip per million
+    codes."""
+    from sparse_coding_tpu_torch.catalog.query import unpack_neighbors
+
+    out = {"near_ties": 0, "vote_flips": 0}
+    for (model, op), (x, got) in graph.items():
+        entry = reg.get(model)
+        ref = serve_eager(entry, cpu_trees[model], op, x, SERVE_CPU_BUCKET,
+                          "cpu")
+        label = f"(b) {model}/{op} card vs CPU"
+        if op in ("topk", "neighbors"):
+            if op == "topk":
+                gv, gi = got
+                rv, ri = ref
+                score = serve_eager(entry, cpu_trees[model], "encode", x,
+                                    SERVE_CPU_BUCKET, "cpu")[0]
+            else:
+                gv, gi = unpack_neighbors(got[0])
+                rv, ri = unpack_neighbors(ref[0])
+                score = serve_sims(cpu_trees[model], x, entry.is_stack)
+            bound = RTOL_EVAL * float(np.abs(rv).max())
+            compare(label, torch.from_numpy(gv), torch.from_numpy(rv),
+                    RTOL_EVAL)
+            out["near_ties"] += serve_near_ties(label, gi, ri, score, bound)
+        elif op == "vote":
+            flips = int(np.abs(got[0] - ref[0]).sum())
+            codes = entry.n_stack * got[0].size
+            if not flips <= FLIPS_PER_CODE * codes:
+                raise AssertionError(f"{label}: {flips} flips in {codes}")
+            out["vote_flips"] += flips
+        else:
+            compare(label, torch.from_numpy(got[0]), torch.from_numpy(ref[0]),
+                    RTOL_EVAL)
+    return out
+
+
+def serve_sims(tree, x: np.ndarray, stack: bool) -> np.ndarray:
+    """x · Dᵀ on the CPU (a stack's per member): neighbors' scores."""
+    from sparse_coding_tpu_torch.utils.trees import tree_index, tree_len
+
+    q = torch.from_numpy(x)
+    if not stack:
+        return (q @ tree.get_learned_dict().T).numpy()
+    return np.stack([(q @ tree_index(tree, i).get_learned_dict().T).numpy()
+                     for i in range(tree_len(tree))])
+
+
+def serve_bitwise(reg, eng, rows: np.ndarray, rs) -> tuple[dict, dict]:
+    """(b) every (model, op, bucket) program at a partial bucket through
+    its graph against the eager op on the card at the same padded bucket:
+    bitwise. Returns the count and the SERVE_CPU_BUCKET requests and
+    results for the CPU comparison."""
+    checked, for_cpu = 0, {}
+    for model in reg.names():
+        entry = reg.get(model)
+        tree = eng._entry_tree(model)
+        for op in SERVE_OPS:
+            if op == "vote" and not entry.is_stack:
+                continue
+            for bucket in eng.buckets:
+                x = serve_payload(rs, op, rows, bucket - 3, entry.n_feats)
+                _, got = eng.run_padded(model, op, x)
+                got = serve_leaves(got)
+                ref = serve_eager(entry, tree, op, x, bucket, DEV)
+                for g, r in zip(got, ref):
+                    if g.shape != r.shape or not np.array_equal(
+                            g.view(np.int32), r.view(np.int32)):
+                        raise AssertionError(
+                            f"(b) {model}/{op} bucket {bucket}: graph vs "
+                            "eager at the same padded bucket not bitwise")
+                checked += 1
+                if bucket == SERVE_CPU_BUCKET:
+                    for_cpu[(model, op)] = (x, got)
+    return {"programs": checked}, for_cpu
+
+
+def serve_traffic(gw, reg, rows: np.ndarray, rs) -> dict:
+    """(c) one burst an op: SERVE_PER_OP requests of 1-512 rows
+    (log-uniform, seeded) over the models serving the op, SERVE_WAVE in
+    flight; rows/s per op, then p50/p99 per bucket."""
+    from sparse_coding_tpu_torch.serve import INTERACTIVE
+
+    per_op = {}
+    for op in SERVE_OPS:
+        models = [m for m in reg.names()
+                  if op != "vote" or reg.get(m).is_stack]
+        sizes = np.clip(np.exp(rs.uniform(0, np.log(SERVE_MAX_ROWS),
+                                          SERVE_PER_OP)).astype(int),
+                        1, SERVE_MAX_ROWS)
+        reqs = [(models[i % len(models)],
+                 serve_payload(rs, op, rows, int(r),
+                               reg.get(models[i % len(models)]).n_feats))
+                for i, r in enumerate(sizes)]
+        t0 = time.perf_counter()
+        for w in range(0, len(reqs), SERVE_WAVE):
+            futs = [gw.submit(m, x, op=op, priority=INTERACTIVE)
+                    for m, x in reqs[w:w + SERVE_WAVE]]
+            for (m, x), f in zip(reqs[w:w + SERVE_WAVE], futs):
+                res = serve_leaves(f.result(timeout=120))
+                axis = 1 if (reg.get(m).is_stack and op != "vote") else 0
+                if (res[0].shape[axis] != x.shape[0]
+                        or not all(np.isfinite(a).all() for a in res)):
+                    raise AssertionError(f"(c) {m}/{op}: bad result")
+        wall = time.perf_counter() - t0
+        n_rows = int(sizes.sum())
+        per_op[op] = {"requests": len(reqs), "rows": n_rows, "wall_s": wall,
+                      "rows_per_s": n_rows / wall}
+    snap = gw.stats()
+    lat = {b: {"batches": v["batches"], "fill": v["fill_ratio"],
+               "p50_ms": v["p50_ms"], "p99_ms": v["p99_ms"]}
+           for b, v in snap["buckets"].items()}
+    return {"per_op": per_op, "buckets": lat}
+
+
+def serve_recompiles(gw) -> int:
+    return sum(r["recompiles"] for r in gw.stats()["replicas"].values())
+
+
+def serve_drills(gw, reg, rows: np.ndarray, rs) -> dict:
+    """(d) trip the primary replica with the serve.dispatch fault plan
+    (every request answered by failover, the breaker's transitions
+    recorded), the spare's activation at 0 captures, then a swap to the
+    ladder derived from (c)'s traffic capturing only the new rungs."""
+    from sparse_coding_tpu_torch.resilience.faults import inject
+    from sparse_coding_tpu_torch.serve import INTERACTIVE
+    from sparse_coding_tpu_torch.serve.ladder import (
+        derive_ladder,
+        parse_snapshot,
+        snapshot_bytes,
+    )
+
+    gw.configure_hedging(3600.0)  # the failover path, not a hedge, answers
+    c0 = serve_captures()
+    with inject(site="serve.dispatch", nth=1, count=1, error="OSError",
+                message="phase 17 drill") as plan:
+        for _ in range(8):
+            x = serve_payload(rs, "encode", rows, 5, 0)
+            out = gw.query("mlp2/0", x, op="encode", priority=INTERACTIVE,
+                           timeout=60)
+            if out.shape != (5, reg.get("mlp2/0").n_feats):
+                raise AssertionError("(d) drill result shape")
+    snap = gw.stats()
+    tripped = [n for n, r in snap["replicas"].items()
+               if r["breaker"]["state"] == "open"]
+    g = snap["gateway"]
+    if (plan.fired != [("serve.dispatch", 1)] or len(tripped) != 1
+            or snap["replicas"][tripped[0]]["state"] != "draining"
+            or snap["replicas"]["spare-0"]["state"] != "active"
+            or g["spare_activations"] != 1 or g["failovers"] < 1
+            or snap["request_errors"]):
+        raise AssertionError(f"(d) drill: tripped {tripped}, {g}, "
+                             f"errors {snap['request_errors']}")
+    drill_captures = serve_captures() - c0
+    if drill_captures:
+        raise AssertionError(f"(d) the spare's activation captured "
+                             f"{drill_captures} programs")
+    transitions = snap["replicas"][tripped[0]]["breaker"]["transitions"]
+    cand = derive_ladder(parse_snapshot(snapshot_bytes(gw.metrics.registry)))
+    rungs = tuple(cand["rungs"])
+    old = gw.active_buckets
+    new = sorted(set(rungs) - set(old))
+    want = len(serve_programs(reg, buckets=new))
+    c1 = serve_captures()
+    swap = gw.swap_ladder(rungs, source="derived")
+    swap_captures = serve_captures() - c1
+    if not swap_captures == swap["programs_warmed"] == want:
+        raise AssertionError(f"(d) the swap to {rungs} captured "
+                             f"{swap_captures} ({swap['programs_warmed']}) "
+                             f"programs; its new rungs {new} need {want}")
+    for r in (1, rungs[0], rungs[-1]):
+        x = serve_payload(rs, "encode", rows, r, 0)
+        gw.query("mlp2/stack", x, op="encode", priority=INTERACTIVE,
+                 timeout=60)
+    if serve_recompiles(gw) or serve_captures() != c1 + swap_captures:
+        raise AssertionError("(d) serving after the swap captured")
+    return {"tripped": tripped[0], "transitions": transitions,
+            "failovers": g["failovers"], "spare_captures": drill_captures,
+            "ladder": list(rungs), "old_ladder": list(old),
+            "new_rungs": new, "swap_captures": swap_captures,
+            "expected_pad_rows": cand["expected_pad_rows"]}
+
+
+def serve_catalog(pairs, catalog_dir: Path, rows: np.ndarray) -> dict:
+    """(e) CatalogService stats/neighbors/search/union over phase 15's
+    catalog on a catalog gateway (16 single dicts + the stack, ops
+    CATALOG_OPS) on the card and the same on the CPU: stats equal,
+    neighbor cosines within RTOL_EVAL and features equal but at near-ties
+    within it, union masks equal but one flip per million codes."""
+    from sparse_coding_tpu_torch.catalog import CatalogIndex, CatalogService
+    from sparse_coding_tpu_torch.serve import (
+        CATALOG_OPS,
+        ModelRegistry,
+        ServingGateway,
+    )
+
+    index = CatalogIndex.load(catalog_dir, verify=True)
+    if index.n_dicts != len(pairs):
+        raise AssertionError(f"(e) catalog of {index.n_dicts} dicts for "
+                             f"{len(pairs)} loaded")
+    live = np.nonzero(~index.dead(0))[0]
+    feats = [int(live[0]), int(live[len(live) // 2]), int(live[-1])]
+    q = rows[:4] / np.linalg.norm(rows[:4], axis=-1, keepdims=True)
+    answers, walls = {}, {}
+    for side, dev in (("card", DEV), ("cpu", "cpu")):
+        reg = ModelRegistry(device=dev)
+        members = [ld.to(dev) for ld, _ in pairs]
+        for i, ld in enumerate(members):
+            reg.register(f"cat/{i}", ld)
+        reg.register_stack("cat/stack", members)
+        gw = ServingGateway(reg, n_replicas=1, n_spares=0, ops=CATALOG_OPS,
+                            buckets=SERVE_CATALOG_BUCKETS, device=dev)
+        gw.warmup()
+        svc = CatalogService(index, gw, [f"cat/{i}" for i in range(len(pairs))],
+                             stack_model="cat/stack")
+        t0 = time.perf_counter()
+        answers[side] = {
+            "stats": [svc.stats(0, f) for f in feats],
+            "neighbors": [svc.neighbors(0, f, k=SERVE_CATALOG_K)
+                          for f in feats],
+            "search": svc.search(1, q, k=SERVE_CATALOG_K),
+            "union": svc.union(rows[:16], quorum=2)}
+        walls[side] = time.perf_counter() - t0
+        gw.shutdown()
+        del reg, members, gw
+    card, cpu = answers["card"], answers["cpu"]
+    if card["stats"] != cpu["stats"]:
+        raise AssertionError("(e) feature.stats card vs CPU")
+    sims0 = index.rows(0)[feats] @ index.rows(0).T
+    sims1 = q @ index.rows(1).T
+    ties = 0
+    hit_lists = [(g, r, s) for g, r, s in
+                 zip(card["neighbors"], cpu["neighbors"], sims0)]
+    hit_lists += [(g, r, s) for g, r, s in
+                  zip(card["search"], cpu["search"], sims1)]
+    for got, ref, score in hit_lists:
+        if len(got) != len(ref):
+            raise AssertionError("(e) neighbor list lengths card vs CPU")
+        for a, b in zip(got, ref):
+            if not abs(a["cos"] - b["cos"]) <= RTOL_EVAL:
+                raise AssertionError(f"(e) neighbor cos {a} vs {b}")
+            if a["feature"] != b["feature"]:
+                if not abs(score[a["feature"]] - score[b["feature"]]) \
+                        <= RTOL_EVAL:
+                    raise AssertionError(f"(e) neighbor {a} vs {b} is no "
+                                         "near-tie")
+                ties += 1
+    flips = int((card["union"] != cpu["union"]).sum())
+    codes = len(pairs) * card["union"].size
+    if not flips <= FLIPS_PER_CODE * codes:
+        raise AssertionError(f"(e) union: {flips} flips in {codes} codes")
+    return {"features": feats, "near_ties": ties, "union_flips": flips,
+            "card_s": walls["card"], "cpu_s": walls["cpu"],
+            "neighbors": card["neighbors"][0][:3]}
+
+
+def serve_restart_child(argv) -> int:
+    """(f) a restarted serving process: ``--serve-restart CACHE_DIR
+    DICT_FILE OUT``. Loads the kernel libraries (no nvcc may run), builds
+    (a)'s registry and gateway, warms from the manifest in CACHE_DIR, then
+    admits traffic; writes its counts and first-request latency to OUT."""
+    from sparse_coding_tpu_torch import xcache
+    from sparse_coding_tpu_torch.serve import INTERACTIVE
+
+    cache_dir, dict_file, out = (Path(a) for a in argv)
+    t0 = time.perf_counter()
+    cache = xcache.enable(cache_dir)
+    manifest = {(d["model"], d["op"], int(d["bucket"]))
+                for d in cache.warmup.descriptors(kind="serve")}
+    nvcc = xcache.load_kernel_libraries()
+    reg, pairs = serve_registry(dict_file, DEV)
+    del pairs
+    gw = serve_gateway(reg, DEV)
+    c0 = serve_captures()
+    warmed = sum(gw.replica(n).engine.warmup_from_manifest()
+                 for n in gw.active_replica_names())
+    captured = serve_captures() - c0
+    table = set(gw.replica("replica-0").engine.program_cache.compiled)
+    ready_s = time.perf_counter() - t0
+    rs = np.random.default_rng(SEED + 171)
+    x = rs.normal(size=(5, reg.get("mlp2/0").d_activation)).astype(
+        np.float32)
+    t1 = time.perf_counter()
+    first = gw.query("mlp2/0", x, op="encode", priority=INTERACTIVE,
+                     timeout=60)
+    first_ms = 1e3 * (time.perf_counter() - t1)
+    c1 = serve_captures()
+    for op in SERVE_OPS:
+        xx = (rs.random((7, reg.get("mlp2/0").n_feats)).astype(np.float32)
+              if op == "decode" else x)
+        gw.query("mlp2/stack", xx, op=op, priority=INTERACTIVE, timeout=60)
+    res = {"nvcc_runs": nvcc, "manifest": len(manifest),
+           "captures": captured, "warmed": warmed,
+           "table_is_manifest": table == manifest,
+           "captures_after_admission": serve_captures() - c1,
+           "recompiles": serve_recompiles(gw), "ready_s": ready_s,
+           "first_request_ms": first_ms,
+           "first_shape": list(first.shape)}
+    gw.shutdown()
+    out.write_text(json.dumps(res))
+    return 0
+
+
+def serve_phase(tmp: Path, dict_file: Path, store2: Path,
+                catalog_dir: Path) -> dict:
+    """Phase 17: (a) registry and warmup, (b) correctness, (c) online
+    traffic, (d) drills, (e) offline and catalog, (f) restart — on phase
+    13's 16 tied mlp.2 dicts, its harvested rows and phase 15 (f)'s
+    catalog."""
+    import shutil
+
+    from sparse_coding_tpu_torch import xcache
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+    from sparse_coding_tpu_torch.ops.roofline import serve_flush_plan
+    from sparse_coding_tpu_torch.serve import score_offline
+
+    t_phase = time.perf_counter()
+    rep: dict = {"walls_s": {}}
+    walls, t_mark = rep["walls_s"], [t_phase]
+
+    def mark(step: str) -> None:  # the wall of each step, for PERF.md §5
+        now = time.perf_counter()
+        walls[step] = now - t_mark[0]
+        t_mark[0] = now
+
+    rs = np.random.default_rng(SEED + 17)
+    rows = np.asarray(ChunkStore(store2).load_chunk(0), dtype=np.float32)
+    cache = xcache.enable(tmp / "serve_xcache")
+    # (a)
+    t0 = time.perf_counter()
+    reg, pairs = serve_registry(dict_file, DEV)
+    load_s = time.perf_counter() - t0
+    gw = serve_gateway(reg, DEV)
+    c0 = serve_captures()
+    t0 = time.perf_counter()
+    n = gw.warmup()
+    warm_s = time.perf_counter() - t0
+    want = serve_programs(reg)
+    table = gw.replica("replica-0").engine.program_cache
+    if not n == serve_captures() - c0 == len(want) or set(
+            table.compiled) != want:
+        raise AssertionError(f"(a) warmup captured {n} programs, want "
+                             f"{len(want)}")
+    rep["a"] = {"captures": n, "warmup_s": warm_s, "load_s": load_s,
+                "pool_bytes": table.pool_bytes(),
+                "pinned_bytes": table.pinned_bytes()}
+    pool = rep["a"]["pool_bytes"]
+    log(f"  (a) registry mlp2/0 + mlp2/stack ({len(pairs)} dicts, d="
+        f"{reg.get('mlp2/0').d_activation}, n={reg.get('mlp2/0').n_feats}) "
+        f"loaded in {load_s:.2f} s; warmup captured {n} programs (2 models "
+        f"x {len(SERVE_OPS)} ops, vote stack-only, x 3 buckets) in "
+        f"{warm_s:.2f} s; graph pool "
+        + (f"{pool / 2**20:.1f} MiB" if pool is not None else "not measured")
+        + f", pinned staging {rep['a']['pinned_bytes'] / 2**20:.1f} MiB")
+    restart = tmp / "serve_restart"
+    restart.mkdir()
+    shutil.copy(cache.warmup.path, restart / "warmup.json")
+    mark("a")
+    # (f)'s child starts now and runs beside the untimed checks, (b)'s and
+    # (e)'s catalog service
+    child_out = tmp / "serve_restart.json"
+    child_log = open(tmp / "serve_restart.log", "w")
+    child = subprocess.Popen(
+        [*SERVE_CHILD, str(restart), str(dict_file), str(child_out)],
+        stdout=child_log, stderr=subprocess.STDOUT)
+    try:
+        # (b)
+        eng = gw.replica("replica-0").engine
+        rep["b"], for_cpu = serve_bitwise(reg, eng, rows, rs)
+        cpu_trees = {m: reg.get(m).tree.to("cpu") for m in reg.names()}
+        rep["b"].update(serve_card_vs_cpu(reg, cpu_trees, for_cpu))
+        del cpu_trees
+        mark("b")
+        catalog = serve_catalog(pairs, catalog_dir, rows)
+        mark("e_catalog")
+        rc = child.wait(timeout=600)
+        mark("f_child_wait")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        child_log.close()
+    if rc != 0:
+        raise AssertionError(f"(f) restart child exit {rc}: "
+                             + (tmp / "serve_restart.log").read_text()[-3000:])
+    from sparse_coding_tpu_torch.catalog.query import (
+        neighbor_topk,
+        neighbor_topk_plain,
+    )
+
+    ld0 = eng._entry_tree("mlp2/0")
+    q = torch.from_numpy(serve_payload(rs, "neighbors", rows, 512, 0)).to(DEV)
+    fast, plain = neighbor_topk(ld0, q, SERVE_TOPK), neighbor_topk_plain(
+        ld0, q, SERVE_TOPK)
+    if not torch.equal(fast.view(torch.int32), plain.view(torch.int32)):
+        raise AssertionError("(b) neighbor_topk vs its stable-sort plain "
+                             "version")
+    topk_ms = time_ms(lambda: neighbor_topk(ld0, q, SERVE_TOPK), 20)
+    plain_ms = time_ms(lambda: neighbor_topk_plain(ld0, q, SERVE_TOPK), 20)
+    rep["b"].update({"neighbor_topk_ms": topk_ms,
+                     "neighbor_topk_plain_ms": plain_ms})
+    mark("b_neighbor_topk")
+    log(f"  (b) {rep['b']['programs']} programs bitwise the eager op at "
+        f"the same padded bucket; card vs CPU at bucket {SERVE_CPU_BUCKET} "
+        f"within RTOL_EVAL, {rep['b']['near_ties']} top-k near-tie swaps, "
+        f"{rep['b']['vote_flips']} vote flips; neighbor_topk at 512 x "
+        f"{reg.get('mlp2/0').n_feats} equals its plain version, "
+        f"{topk_ms:.3f} ms vs {plain_ms:.3f} ms (stable sort)")
+    # (c)
+    c1 = serve_captures()
+    rep["c"] = serve_traffic(gw, reg, rows, rs)
+    rep["c"]["recompiles"] = serve_recompiles(gw)
+    rep["c"]["captures"] = serve_captures() - c1
+    if rep["c"]["recompiles"] or rep["c"]["captures"]:
+        raise AssertionError(f"(c) {rep['c']['recompiles']} recompiles, "
+                             f"{rep['c']['captures']} captures after warmup")
+    log("  (c) 2 active replicas + 1 spare, "
+        f"{SERVE_PER_OP} requests an op of 1-{SERVE_MAX_ROWS} rows: rows/s "
+        + ", ".join(f"{op} {v['rows_per_s']:.0f}"
+                    for op, v in rep["c"]["per_op"].items())
+        + "; p50/p99 ms by bucket "
+        + ", ".join(f"{b}: {v['p50_ms']:.2f}/{v['p99_ms']:.2f} "
+                    f"(fill {v['fill']:.2f})"
+                    for b, v in rep["c"]["buckets"].items())
+        + "; 0 recompiles after warmup")
+    mark("c")
+    # (d)
+    rep["d"] = serve_drills(gw, reg, rows, rs)
+    mark("d")
+    d = rep["d"]
+    log(f"  (d) serve.dispatch tripped {d['tripped']} (transitions "
+        f"{d['transitions']}), {d['failovers']} failovers, every request "
+        f"answered; spare activated with {d['spare_captures']} captures; "
+        f"ladder {d['old_ladder']} -> derived {d['ladder']} captured "
+        f"{d['swap_captures']} programs (new rungs {d['new_rungs']})")
+    # (e)
+    t0 = time.perf_counter()
+    enc = score_offline(eng, "mlp2/0", rows, op="encode")
+    off_s = time.perf_counter() - t0
+    slab = eng.buckets[-1]
+    if enc.shape != (rows.shape[0], reg.get("mlp2/0").n_feats) or not \
+            np.isfinite(enc).all() or not np.array_equal(
+                enc[:slab], eng.run_padded("mlp2/0", "encode",
+                                           rows[:slab])[1]):
+        raise AssertionError("(e) score_offline")
+    plan = serve_flush_plan("encode", slab, reg.get("mlp2/0").n_feats,
+                            reg.get("mlp2/0").d_activation)
+    rep["e"] = {"offline_rows": rows.shape[0], "offline_s": off_s,
+                "offline_rows_per_s": rows.shape[0] / off_s,
+                "slab_bound_ms": 1e3 * plan.est_s}
+    del enc
+    mark("e_offline")
+    rep["e"]["catalog"] = cat = catalog
+    log(f"  (e) score_offline encode over {rows.shape[0]} rows: "
+        f"{rep['e']['offline_rows_per_s']:.0f} rows/s ({off_s:.2f} s; a "
+        f"{slab}-row slab's roofline {rep['e']['slab_bound_ms']:.3f} ms); "
+        f"CatalogService stats/neighbors/search/union card vs CPU equal "
+        f"({cat['near_ties']} near-tie swaps, {cat['union_flips']} union "
+        f"flips; card {cat['card_s']:.2f} s, CPU {cat['cpu_s']:.2f} s)")
+    # (f)
+    child_res = json.loads(child_out.read_text())
+    rep["f"] = child_res
+    if not (child_res["nvcc_runs"] == 0
+            and child_res["captures"] == child_res["manifest"]
+            == rep["a"]["captures"] and child_res["table_is_manifest"]
+            and child_res["captures_after_admission"] == 0
+            and child_res["recompiles"] == 0):
+        raise AssertionError(f"(f) restart {child_res}")
+    log(f"  (f) restart from (a)'s manifest: {child_res['captures']} "
+        f"captures = the manifest's {child_res['manifest']}, 0 nvcc runs, "
+        f"ready in {child_res['ready_s']:.2f} s, first request "
+        f"{child_res['first_request_ms']:.2f} ms, 0 captures after "
+        "admission")
+    gw.shutdown()
+    xcache.disable()
+    rep["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 17: {rep['wall_s']:.1f} s (budget {SERVE_BUDGET_S:.0f} s): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=Path, default=None,
@@ -6323,6 +6945,10 @@ def main() -> int:
                              "BIG_STORE"),
                     help="run one rank of phase 16 (c)'s world (started by "
                     "phase 16 itself)")
+    ap.add_argument("--serve-restart", nargs=3, default=None,
+                    metavar=("CACHE_DIR", "DICT_FILE", "OUT"),
+                    help="run phase 17 (f)'s restarted serving process "
+                    "(started by phase 17 itself)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -6330,6 +6956,8 @@ def main() -> int:
         return 2
     if args.mesh_worker:
         return mesh_worker(args.mesh_worker)
+    if args.serve_restart:
+        return serve_restart_child(args.serve_restart)
     from sparse_coding_tpu_torch.ops import _build
 
     report: dict = {}
@@ -6557,7 +7185,6 @@ def main() -> int:
             f"the CLI, the feature catalog and its query ops, the plotting "
             f"data, on phase 13's {LM_MODEL} and its mlp.2 dicts")
         report["interp"] = interp_phase(Path(tmp), lm)
-        del lm
         torch.cuda.empty_cache()
         log(f"  done at {time.perf_counter() - t_start:.1f} s")
 
@@ -6569,6 +7196,18 @@ def main() -> int:
             f"and the big SAE, {MESH_STEPS} steps each, vs one device")
         report["mesh"] = mesh_phase(Path(tmp), x_main.to(
             DEV, torch.float32).contiguous(), big_store, l1_values)
+        torch.cuda.empty_cache()
+        log(f"  done at {time.perf_counter() - t_start:.1f} s")
+
+        log(f"phase 17: serving on the card — the registry (one of phase "
+            f"13's tied mlp.2 dicts and the {LM_MEMBERS}-dict stack), CUDA-"
+            f"graph warmup, correctness, online traffic through the gateway, "
+            f"the drills, offline scoring, the catalog service and a "
+            f"restart from the warmup manifest")
+        report["serve"] = serve_phase(Path(tmp), lm["tied_dicts"],
+                                      lm["store"] / f"mlp.{LM_LAYERS[-1]}",
+                                      Path(tmp) / "catalog_a")
+        del lm
         torch.cuda.empty_cache()
         log(f"  done at {time.perf_counter() - t_start:.1f} s")
 

@@ -1,7 +1,16 @@
 """Catalog query ops (the JAX package's ``catalog/query.py``): batched
 top-k decoder-row similarity and the union/vote aggregation over a
 stacked multi-dict tree ("Ensembling Sparse Autoencoders",
-arXiv:2505.16077). They run where their inputs live.
+arXiv:2505.16077). They run where their inputs live, and the serving
+engine captures them in CUDA graphs (serve/engine.py), so their shapes do
+not depend on the data.
+
+:func:`top_k` is ``jax.lax.top_k`` in one fixed-shape ``torch.topk``:
+each fp32 value becomes its order-preserving int32 key, packed above the
+reversed index into one int64, so every key is unique and equal values
+come out lowest index first, as ``lax.top_k`` orders them (it ranks
++0.0 above −0.0, as the int keys do). :func:`neighbor_topk_plain` keeps
+a stable full sort as the plain version it is held against.
 
 The top-k result is packed into one array ``[rows, 2k]`` (similarity
 values, then neighbor indices cast to the value dtype);
@@ -17,16 +26,52 @@ import torch
 from sparse_coding_tpu_torch.utils.trees import tree_index, tree_len
 
 
+_LOW_BITS = 1 << 32
+
+
+def order_key(values: torch.Tensor) -> torch.Tensor:
+    """The int32 key of each fp32 value whose signed order is the values'
+    total order (−0.0 below +0.0): negative floats flip their low 31
+    bits."""
+    bits = values.contiguous().view(torch.int32)
+    return torch.bitwise_xor(bits, torch.bitwise_and(bits >> 31, 0x7FFFFFFF))
+
+
+def top_k(values: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest fp32 ``values`` over the last axis, largest
+    first, and their int64 indices; equal values lowest index first, as
+    ``jax.lax.top_k`` orders them. One ``torch.topk`` of a fixed shape on
+    unique packed keys: no sort of the whole axis and no candidate set
+    whose size depends on the data."""
+    if values.dtype != torch.float32:
+        raise TypeError(f"top_k packs fp32 keys; got {values.dtype}")
+    n = values.shape[-1]
+    rev = (n - 1) - torch.arange(n, device=values.device, dtype=torch.int64)
+    packed = order_key(values).to(torch.int64) * _LOW_BITS + rev
+    idx = (n - 1) - torch.remainder(
+        torch.topk(packed, k, dim=-1, sorted=True).values, _LOW_BITS)
+    return torch.gather(values, -1, idx), idx
+
+
 def neighbor_topk(ld, x: torch.Tensor, k: int) -> torch.Tensor:
     """Cosine of each query row ``x`` [rows, d] against every (already
-    normalized) decoder row, the top ``k`` over the feature axis, the
-    largest first; equal values keep index order, as ``jax.lax.top_k``
-    orders them (a stable descending sort; ``torch.topk`` promises no
-    order among ties). Unit-normalize ``x`` for true cosines. Returns the
-    packed [rows, 2k] (values ++ indices) array."""
+    normalized) decoder row, the top ``k`` over the feature axis
+    (:func:`top_k`: the largest first, equal values in index order, as
+    ``jax.lax.top_k`` orders them). Unit-normalize ``x`` for true
+    cosines. Returns the packed [rows, 2k] (values ++ indices) array."""
     sims = x @ ld.get_learned_dict().T
-    vals, idx = torch.sort(sims, dim=-1, descending=True, stable=True)
-    vals, idx = vals[..., :k], idx[..., :k]
+    vals, idx = top_k(sims, k)
+    return torch.cat([vals, idx.to(vals.dtype)], dim=-1)
+
+
+def neighbor_topk_plain(ld, x: torch.Tensor, k: int) -> torch.Tensor:
+    """:func:`neighbor_topk` by a stable descending sort of all n
+    similarities' :func:`order_key` of a row (the plain version it is
+    held against)."""
+    sims = x @ ld.get_learned_dict().T
+    idx = torch.sort(order_key(sims), dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    vals = torch.gather(sims, -1, idx)
     return torch.cat([vals, idx.to(vals.dtype)], dim=-1)
 
 

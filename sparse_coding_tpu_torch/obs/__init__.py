@@ -30,6 +30,7 @@ from sparse_coding_tpu_torch.obs.sink import (
 from sparse_coding_tpu_torch.obs.spans import (
     emit_event,
     flush_metrics,
+    mint_trace_id,
     monotime,
     record_span,
     span,
@@ -52,6 +53,6 @@ __all__ = [
     "Counter", "DeviceStepProbe", "ENV_OBS_DIR", "EventSink", "Gauge",
     "Histogram", "Registry", "StepCost", "combine_costs", "configure_sink",
     "counter", "emit_event", "flush_metrics", "gauge", "get_registry",
-    "histogram", "monotime", "read_events", "record_span", "scan_events",
-    "set_registry", "span",
+    "histogram", "mint_trace_id", "monotime", "read_events", "record_span",
+    "scan_events", "set_registry", "span",
 ]

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import math
 import threading
+from typing import Iterable, Optional, Sequence
 
 # default duration buckets: 100 µs .. ~100 s, geometric (x√10 per step)
 DEFAULT_BUCKETS = tuple(10.0 ** (e / 2.0) for e in range(-8, 5))
@@ -66,15 +67,20 @@ class Gauge:
 
 
 class Histogram:
-    """Fixed-bound bucket histogram with sum, count, min and max: the
-    :data:`DEFAULT_BUCKETS` are the upper edges of the first bins, one
-    overflow bin takes the rest, so two snapshots add bin for bin."""
+    """Fixed-bound bucket histogram with sum, count, min and max:
+    ``bounds`` (:data:`DEFAULT_BUCKETS` unless given) are the upper edges
+    of the first bins, one overflow bin takes the rest, so two snapshots
+    add bin for bin. Quantiles interpolate linearly inside the covering
+    bin."""
 
     __slots__ = ("_lock", "bounds", "counts", "sum", "count", "min", "max")
 
-    def __init__(self, lock: threading.Lock):
+    def __init__(self, lock: threading.Lock,
+                 bounds: Optional[Sequence[float]] = None):
         self._lock = lock
-        self.bounds = DEFAULT_BUCKETS
+        self.bounds = tuple(float(b) for b in (bounds or DEFAULT_BUCKETS))
+        if list(self.bounds) != sorted(self.bounds):
+            raise ValueError("histogram bounds must be ascending")
         self.counts = [0] * (len(self.bounds) + 1)
         self.sum = 0.0
         self.count = 0
@@ -91,6 +97,24 @@ class Histogram:
             self.count += 1
             self.min = min(self.min, v)
             self.max = max(self.max, v)
+
+    def quantile(self, q: float) -> Optional[float]:
+        with self._lock:
+            if self.count == 0:
+                return None
+            target = q * self.count
+            seen = 0
+            for i, c in enumerate(self.counts):
+                if seen + c >= target and c > 0:
+                    lo = 0.0 if i == 0 else self.bounds[i - 1]
+                    hi = (self.bounds[i] if i < len(self.bounds)
+                          else max(self.max, lo))
+                    lo = max(lo, self.min)
+                    hi = min(hi, self.max) if self.max >= lo else hi
+                    frac = (target - seen) / c
+                    return lo + (hi - lo) * min(1.0, max(0.0, frac))
+                seen += c
+            return self.max
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -125,9 +149,14 @@ class Registry:
         return self._get(self._gauges, name + _label_key(labels),
                          lambda: Gauge(threading.Lock()))
 
-    def histogram(self, name: str, **labels) -> Histogram:
+    def histogram(self, name: str, bounds: Optional[Iterable[float]] = None,
+                  **labels) -> Histogram:
+        """The histogram of ``name`` and ``labels``; ``bounds`` apply when
+        this call creates it."""
         return self._get(self._histograms, name + _label_key(labels),
-                         lambda: Histogram(threading.Lock()))
+                         lambda: Histogram(threading.Lock(),
+                                           bounds=tuple(bounds) if bounds
+                                           else None))
 
     def snapshot(self) -> dict:
         with self._lock:

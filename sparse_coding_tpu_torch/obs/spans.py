@@ -35,6 +35,13 @@ def _next_seq() -> int:
         return _seq
 
 
+def mint_trace_id(prefix: str = "req") -> str:
+    """A process-unique correlation id for one request's critical path
+    (minted at gateway admission, carried from the queue to the replica
+    dispatch)."""
+    return f"{prefix}-{os.getpid()}-{_next_seq()}"
+
+
 def emit_event(kind: str, *, sink: Optional[sink_mod.EventSink] = None,
                **fields) -> bool:
     """One correlated event to the given (or the process) sink; a no-op

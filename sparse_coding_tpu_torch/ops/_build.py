@@ -340,6 +340,10 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# nvcc processes this process started (a warm restart starts none)
+NVCC_RUNS = 0
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -370,19 +374,21 @@ def build_all() -> Path:
     source, all started together. Returns the build directory; the
     compiler's output (``-Xptxas -v``: registers, shared memory, spills)
     is kept beside each library as ``<name>.log``."""
+    global NVCC_RUNS
     out = BUILD_ROOT / build_key()
     out.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    missing = [name for name in KERNELS
+               if not (out / f"lib{name}.so").exists()]
+    nvcc = _nvcc() if missing else ""
     procs = {}
-    for name in KERNELS:
+    for name in missing:
         lib = out / f"lib{name}.so"
-        if lib.exists():
-            continue
         tmp = out / f".lib{name}.so.tmp.{os.getpid()}"
         log = open(out / f"{name}.log", "w")
         procs[name] = (subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=log, stderr=subprocess.STDOUT), tmp, lib, log)
+        NVCC_RUNS += 1
     failed = []
     for name, (proc, tmp, lib, log) in procs.items():
         try:

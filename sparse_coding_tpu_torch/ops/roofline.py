@@ -42,6 +42,43 @@ class KernelPlan:
     reason: str = ""
 
 
+# the H100 SXM's HBM3 rate and fp32 peak outside the tensor cores (NVIDIA
+# data sheet), as obs/perf.py and chip_smoke.py use them
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+
+
+@dataclasses.dataclass(frozen=True)
+class FlushPlan:
+    """Roofline of one serving bucket replay: the bytes it must move, the
+    fp32 flops it does, and the least time the card could take for
+    them."""
+
+    hbm_bytes: float
+    flops: float
+    est_s: float
+
+
+def serve_flush_plan(op: str, bucket: int, n_feats: int, d: int, *,
+                     n_stack: int = 1, itemsize: int = 4) -> FlushPlan:
+    """The JAX package's ``serve_flush_plan`` on the card's peaks: the
+    dict params stream once per stacked member, the padded input and the
+    result once; one [bucket, d] x [d, n] product per op (two for
+    predict) per member. The serving engine's probe (obs/perf.py) reads
+    it."""
+    n = max(1, int(n_stack))
+    p = float(n_feats) * d * 4  # dict params (fp32 resident)
+    x = float(bucket) * (d if op != "decode" else n_feats) * itemsize
+    out_w = {"encode": n_feats, "decode": d, "predict": d}.get(op, n_feats)
+    c = float(bucket) * out_w * itemsize
+    mad = 2.0 * bucket * n_feats * d
+    flops = {"predict": 2 * mad}.get(op, mad) * n
+    hbm = n * p + x + n * c
+    return FlushPlan(hbm_bytes=hbm, flops=flops,
+                     est_s=max(hbm / PEAK_BYTES_PER_S,
+                               flops / PEAK_FP32_FLOPS))
+
+
 def model_flops_per_activation(n_members: int, n_feats: int, d: int) -> float:
     """~12·n·d flops per activation per member: encode + decode matmuls
     forward (2·n·d each), ~2x for backward — the flops the MODEL requires,

@@ -1467,3 +1467,128 @@ def test_total_batch_big_sae_backward_matches_plain(card, shape, cd):
         _close(g, w, 1e-3)
     _close(got[0], want[0], 1e-3)  # dE
     _close(got[5][:1], want[5][:1], 1e-5 if cd == "float32" else 1e-3)
+
+
+# -- serving: CUDA-graph programs (sparse_coding_tpu_torch/serve/engine.py) ---
+
+
+def _serving_registry(card):
+    from sparse_coding_tpu_torch.models.learned_dict import TiedSAE, UntiedSAE
+    from sparse_coding_tpu_torch.serve import ModelRegistry
+
+    g = torch.Generator().manual_seed(24)
+    t = lambda *s: torch.randn(s, generator=g)
+    reg = ModelRegistry(device=card)
+    reg.register("single", UntiedSAE(encoder=t(96, 40), encoder_bias=t(96),
+                                     dictionary=t(96, 40)))
+    reg.register_stack("stack", [TiedSAE(dictionary=t(96, 40),
+                                         encoder_bias=0.1 * t(96))
+                                 for _ in range(3)])
+    return reg
+
+
+def _serving_payload(op, rows, seed):
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    if op == "decode":
+        return (r.random((rows, 96)) * (r.random((rows, 96)) < 0.1)).astype(
+            np.float32)
+    return r.normal(size=(rows, 40)).astype(np.float32)
+
+
+def _serving_eager(eng, model, op, x, bucket):
+    """The op's eager program on the card at the same padded bucket."""
+    from sparse_coding_tpu_torch.serve.engine import (
+        build_bucket_program,
+        op_rows_axis,
+    )
+
+    entry = eng._registry.get(model)
+    fn, spec = build_bucket_program(entry, op, bucket, torch.float32, 8)
+    padded = torch.zeros(spec.shape, device=eng.device)
+    padded[:x.shape[0]] = torch.from_numpy(x).to(eng.device)
+    with torch.no_grad():
+        out = fn(eng._entry_tree(model), padded)
+    sl = (slice(None),) * op_rows_axis(entry, op) + (slice(0, x.shape[0]),)
+    return tuple(o[sl].cpu() for o in (out if isinstance(out, tuple)
+                                         else (out,)))
+
+
+SERVE_OPS = ("encode", "decode", "topk", "predict", "neighbors", "vote")
+
+
+@pytest.mark.cuda
+def test_serving_programs_are_cuda_graphs_bitwise_eager(card):
+    """Every (model, op, bucket) program is a captured CUDA graph; each
+    replay at a partial bucket equals the eager op at the same padded
+    bucket bit for bit, and replays capture nothing."""
+    from sparse_coding_tpu_torch.obs import get_registry
+    from sparse_coding_tpu_torch.serve import ServingEngine
+
+    reg = _serving_registry(card)
+    captures = get_registry().counter("xcache.captures")
+    with ServingEngine(reg, buckets=(8, 32), ops=SERVE_OPS, topk_k=8,
+                       device=card) as eng:
+        n = eng.warmup()
+        assert n == (5 + 6) * 2
+        progs = eng.program_cache.compiled
+        assert all(p.captured.graph is not None for p in progs.values())
+        before = captures.value
+        for (model, op, bucket) in sorted(progs):
+            x = _serving_payload(op, bucket - 3, seed=bucket)
+            got = eng.run_padded(model, op, x)[1]
+            got = got if isinstance(got, tuple) else (got,)
+            for g, w in zip(got, _serving_eager(eng, model, op, x, bucket)):
+                assert torch.equal(torch.from_numpy(g).view(torch.int32),
+                                   w.view(torch.int32)), (model, op, bucket)
+        assert captures.value == before
+        assert eng.stats()["recompiles"] == 0
+        assert eng.program_cache.pool_bytes() != 0
+
+
+@pytest.mark.cuda
+def test_two_replicas_replay_a_shared_table_concurrently(card):
+    """Two engines over one ProgramCache replay the same graphs from two
+    threads at once (every replay under the table's lock): every result
+    bitwise the eager op's."""
+    import threading
+
+    from sparse_coding_tpu_torch.serve import ServingEngine
+    from sparse_coding_tpu_torch.serve.engine import ProgramCache
+
+    reg = _serving_registry(card)
+    table = ProgramCache()
+    engines = [ServingEngine(reg, buckets=(8, 32), ops=("encode", "topk"),
+                             topk_k=8, program_cache=table, device=card)
+               for _ in range(2)]
+    assert engines[0].warmup() == 8 and engines[1].warmup() == 0
+    jobs = [("stack" if i % 2 else "single", ("encode", "topk")[i % 3 % 2],
+             int(r)) for i, r in enumerate([5, 29, 8, 1, 32, 17] * 4)]
+    errors = []
+
+    def run(eng, part):
+        try:
+            for i, (model, op, rows) in part:
+                x = _serving_payload(op, rows, seed=i)
+                bucket = 8 if rows <= 8 else 32
+                got = eng.run_padded(model, op, x)[1]
+                got = got if isinstance(got, tuple) else (got,)
+                for g, w in zip(got, _serving_eager(eng, model, op, x,
+                                                    bucket)):
+                    if not torch.equal(torch.from_numpy(g).view(torch.int32),
+                                       w.view(torch.int32)):
+                        errors.append((i, model, op, rows))
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(
+        eng, list(enumerate(jobs))[k::2])) for k, eng in enumerate(engines)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    for eng in engines:
+        eng.shutdown()
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
