@@ -295,9 +295,32 @@ Phases — any failure raises, and the script exits non-zero with no result:
    the kernel libraries load with 0 nvcc runs, ``warmup_from_manifest``
    captures exactly (a)'s manifest, 0 captures after admission, its
    first request's latency;
-18. summary: one ``{"kernels": [...]}`` line (the tied kernels also with
-   phase 15 (e)'s launches, every kernel with phase 16's), the card's
-   name and power limit, and the last line
+18. the supervised pipeline (``pipeline/``, ``fsck/``, ``obs/``): (a)
+   ``build_pipeline`` + ``Supervisor`` run harvest → sweep → eval →
+   catalog as step children on the card — a synthetic store at d=512 (4
+   chunks of 32,768 rows, fp16), ``dense_l1_range`` (16 tied members,
+   ratio 4, batch 2048, a checkpoint set a chunk, an 8-step trace
+   window), eval on 2,048 rows, the catalog — each step's wall from the
+   run report, each tied kernel launched once a step and no untied one
+   (the report's ``kernel.launches`` counters, its path
+   ``train_step_tiled``), 0 nvcc runs in the children, eval.json's FVU and
+   L0 recomputed here within RTOL_PIPE_EVAL; (b) the children SIGKILLed
+   through the crash plan at ``sweep.chunk`` (hit 2) and at ``eval.write``
+   by two supervisors, then a fresh one — preflight fsck on — resumes
+   ((a) runs alone first): chunks, the last checkpoint set, dicts,
+   eval.json and the catalog bitwise (a)'s, the kills and the lease
+   takeovers journaled; (c) a fake step that never beats
+   (``heartbeat_stale_s`` 2 s, beside (b)'s two killed runs): the card
+   probe's report and its verdict (halt: the card answers) journaled;
+   (d) fsck of (a)'s
+   tree clean, one flipped chunk byte fatal and the preflight halting
+   with ``PreflightAuditError``, one perf-ledger row; (e) the sweep's
+   trace names the kernels in its device events, captured once, skipped
+   never. No attempt may be degraded, and every step span must say cuda
+   and have held memory on the card;
+19. summary: one ``{"kernels": [...]}`` line (the tied kernels also with
+   phase 15 (e)'s launches, every kernel with phase 16's and phase 18's),
+   the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds the four chunked ensemble kernels against their plain
@@ -342,6 +365,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -349,8 +373,19 @@ import tempfile
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# A host whose Python writes no bytecode (PYTHONDONTWRITEBYTECODE), with
+# none shipped beside torch, compiles torch's sources anew in every
+# process: `import torch` took 8.6-9.3 s a process on the H100 host. The
+# script and every process it starts (the sweep CLI's children, the mesh
+# ranks, the pipeline's step children) share one bytecode cache beside it.
+if sys.flags.dont_write_bytecode and "PYTHONPYCACHEPREFIX" not in os.environ:
+    BYTECODE_DIR = str(Path(__file__).resolve().parent / ".chip_smoke_bytecode")
+    os.environ["PYTHONPYCACHEPREFIX"] = BYTECODE_DIR
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix, sys.dont_write_bytecode = BYTECODE_DIR, False
+
+import numpy as np  # noqa: E402 — after the bytecode cache is set
+import torch  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, and HBM3 bandwidth. The kernels run true fp32 (no TF32).
@@ -6936,6 +6971,355 @@ def serve_phase(tmp: Path, dict_file: Path, store2: Path,
     return rep
 
 
+# -- phase 18: the supervised pipeline (sparse_coding_tpu_torch/pipeline) ---
+
+# harvest → sweep → eval → catalog as supervised step children on the card:
+# a synthetic store at the ensemble kernels' main width (4 chunks of 16
+# batches), dense_l1_range (16 tied members, ratio 4, the sweep's default
+# kernel path train_step_tiled), a checkpoint set every chunk and an
+# 8-step trace window, eval on 2,048 rows, the catalog. (a) runs alone;
+# (c) runs beside (b)'s two killed runs, never beside a measured wall.
+PIPE_CHUNKS, PIPE_CHUNK_ROWS = 4, 16 * BATCH
+PIPE_STEPS = PIPE_CHUNKS * PIPE_CHUNK_ROWS // BATCH
+PIPE_PROFILE_STEPS, PIPE_EVAL_ROWS = 8, 2048
+PIPE_STEP_NAMES = ("harvest", "sweep", "eval", "catalog")
+PIPE_MEMBERS = 16  # dense_l1_range's grid (DEFAULT_L1_RANGE)
+PIPE_STALE_S = 300.0  # (a), (b): a live child's heartbeat window
+PIPE_HANG_S = 2.0  # (c): the hung step's window
+PIPE_BUDGET_S = 90.0
+# the dicts' FVU and L0 recomputed in this process vs the eval step's
+RTOL_PIPE_EVAL = 1e-4
+
+
+def pipeline_config(root: Path) -> dict:
+    """Phase 18's pipeline under ``root``."""
+    chunks = str(root / "chunks")
+    return {
+        "harvest": {"mode": "synthetic", "dataset_folder": chunks,
+                    "seed": SEED + 18, "activation_dim": D,
+                    "n_ground_truth_features": N_FEATS,
+                    "dataset_size": PIPE_CHUNKS * PIPE_CHUNK_ROWS,
+                    "n_chunks": PIPE_CHUNKS, "batch_rows": 8192,
+                    "dtype": "float16"},
+        "sweep": {"experiment": "dense_l1_range", "log_every": 16,
+                  "ensemble": {"output_folder": str(root / "sweep"),
+                               "dataset_folder": chunks,
+                               "batch_size": BATCH,
+                               "learned_dict_ratio": float(RATIO),
+                               "n_chunks": PIPE_CHUNKS, "seed": SEED,
+                               "checkpoint_every_chunks": 1,
+                               "tied_ae": True,
+                               "profile_steps": PIPE_PROFILE_STEPS}},
+        "eval": {"output_folder": str(root / "eval"),
+                 "n_eval_rows": PIPE_EVAL_ROWS, "seed": SEED},
+        "catalog": {"output_folder": str(root / "catalog")},
+    }
+
+
+def pipe_artifacts(root: Path) -> dict[str, bytes]:
+    """Every durable output (b) must reproduce bitwise: the chunks and
+    their meta, the last checkpoint set, the final dicts, eval.json, the
+    catalog's files."""
+    out = {}
+    for rel in ("chunks", "sweep/ckpt", "sweep/final", "eval", "catalog"):
+        for f in sorted((root / rel).rglob("*")):
+            if f.is_file() and "fsck" not in f.relative_to(root).parts:
+                out[str(f.relative_to(root))] = f.read_bytes()
+    return out
+
+
+def pipe_events(run: Path) -> list[dict]:
+    return read_events(run / "obs")
+
+
+def pipe_checks(run: Path, sup, label: str) -> None:
+    """No attempt degraded; every step span resolved the card and held
+    memory there."""
+    degraded = [r for r in sup.journal.records()
+                if r["event"] == "step.spawn" and r["detail"]["degraded"]]
+    if degraded:
+        raise AssertionError(f"{label}: degraded attempts {degraded}")
+    devices = {ev.get("step"): (ev.get("device"), ev.get("card_peak_bytes"))
+               for ev in pipe_events(run)
+               if str(ev.get("span", "")).startswith("step.")}
+    if not devices or not all(dev == "cuda" and held and held > 0
+                              for dev, held in devices.values()):
+        raise AssertionError(f"{label}: step spans' devices and card "
+                             f"bytes {devices}")
+
+
+def pipe_trace(trace_dir: Path) -> dict:
+    """(e): the sweep's trace names the kernels in its device events."""
+    events = json.loads((trace_dir / "trace.json").read_text())
+    events = events.get("traceEvents", events)
+    kernels = sorted({ev.get("name", "") for ev in events
+                      if ev.get("cat") == "kernel"})
+    table = json.loads((trace_dir / "kernels.json").read_text())
+    # the tied family's kernels: the fp32 GEMM template, the norm and
+    # sum passes, the loss, the Adam epilogue
+    want = ("sgemm_kernel", "row_norms_kernel", "sums_kernel",
+            "loss_part_kernel", "adam_vjp_kernel")
+    missing = [w for w in want if not any(w in k for k in kernels)]
+    if missing:
+        raise AssertionError(f"(e) trace lacks {missing}: {kernels[:20]}")
+    return {"device_kernels": len(kernels), "names": [
+        k for k in kernels if any(w in k for w in want)][:12],
+        "kernels_table": len(table)}
+
+
+def pipe_eval_reference(root: Path) -> dict:
+    """The eval step's numbers recomputed here on two dicts: the same
+    rows, the port's metrics on the card."""
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+    from sparse_coding_tpu_torch.metrics.core import (
+        fraction_variance_unexplained,
+        mean_l0,
+    )
+    from sparse_coding_tpu_torch.utils.artifacts import load_learned_dicts
+
+    ev = json.loads((root / "eval" / "eval.json").read_text())
+    recs = ev["dicts"]
+    if len(recs) != PIPE_MEMBERS or not all(
+            math.isfinite(r["fvu"]) and math.isfinite(r["l0"])
+            for r in recs):
+        raise AssertionError(f"eval.json: {recs}")
+    if not recs[0]["l0"] > recs[-1]["l0"]:
+        raise AssertionError(f"eval.json: l0 does not fall over the L1 "
+                             f"grid ({recs[0]['l0']} -> {recs[-1]['l0']})")
+    chunk = ChunkStore(root / "chunks").load_chunk(0)
+    rows = np.random.default_rng(SEED).permutation(
+        chunk.shape[0])[:PIPE_EVAL_ROWS]
+    x = torch.as_tensor(np.asarray(chunk[rows], np.float32)).to(DEV)
+    pairs = load_learned_dicts(root / "sweep" / "final"
+                               / "dense_l1_range_learned_dicts.pkl",
+                               device=DEV)
+    worst = 0.0
+    for i in (0, len(pairs) - 1):
+        ld = pairs[i][0]
+        for key, fn in (("fvu", fraction_variance_unexplained),
+                        ("l0", mean_l0)):
+            got, want = float(fn(ld, x)), recs[i][key]
+            err = abs(got - want) / max(abs(want), 1e-12)
+            worst = max(worst, err)
+            if err > RTOL_PIPE_EVAL:
+                raise AssertionError(f"eval.json {key}[{i}] {want} vs "
+                                     f"{got} here")
+    return {"fvu": [recs[0]["fvu"], recs[-1]["fvu"]],
+            "l0": [recs[0]["l0"], recs[-1]["l0"]], "max_rel_err": worst}
+
+
+def pipe_hung(tmp: Path, out: dict) -> None:
+    """(c): a fake step that never beats; the watchdog probes the card
+    (from a process of its own) and halts. Runs beside (b)'s killed
+    runs; its result or error lands in ``out``."""
+    from sparse_coding_tpu_torch.pipeline import Step, StepHung, Supervisor
+    from sparse_coding_tpu_torch.resilience import watchdog
+
+    try:
+        hang = Step("hang", [sys.executable, "-c",
+                             "import time; time.sleep(300)"],
+                    done=lambda: False)
+        sup = Supervisor(tmp / "pipe_c", [hang], max_attempts=2,
+                         heartbeat_stale_s=PIPE_HANG_S, poll_s=0.1)
+        t0 = time.perf_counter()
+        try:
+            sup.run()
+        except StepHung as e:
+            diag = e.diagnosis
+        else:
+            raise AssertionError("(c) the hung step was not halted")
+        hung = [r for r in sup.journal.records()
+                if r["event"] == "step.hung"]
+        probe = diag["probe"]
+        if (len(hung) != 1 or hung[0]["detail"]["probe"] != probe
+                or not probe["configured"] or not probe["reachable"]
+                or hung[0]["detail"]["action"] != watchdog.HALT
+                or watchdog.classify_hang(probe) != watchdog.HALT):
+            raise AssertionError(f"(c) journal {hung}, diagnosis {diag}")
+        out["c"] = {"probe": probe, "action": diag["action"],
+                    "wall_s": time.perf_counter() - t0,
+                    "spawns": sum(r["event"] == "step.spawn"
+                                  for r in sup.journal.records())}
+    except BaseException as e:  # handed to the main thread, re-raised there
+        out["c_error"] = e
+
+
+def pipe_kills(run: Path, cfg: dict) -> None:
+    """(b)'s two killed runs: a supervisor whose sweep child is SIGKILLed
+    at its second ``sweep.chunk`` barrier, then a fresh one whose eval
+    child is SIGKILLed at ``eval.write`` (each ``max_attempts=1``)."""
+    from sparse_coding_tpu_torch.pipeline import (
+        StepFailed,
+        Supervisor,
+        build_pipeline,
+    )
+    from sparse_coding_tpu_torch.resilience import crash
+
+    for plan, step in (({"sweep": "sweep.chunk:nth=2"}, "sweep"),
+                       ({"eval": "eval.write:nth=1"}, "eval")):
+        steps = build_pipeline(run, cfg)
+        for s in steps:
+            if s.name in plan:
+                s.env = {crash.ENV_VAR: plan[s.name]}
+        try:
+            Supervisor(run, steps, max_attempts=1,
+                       heartbeat_stale_s=PIPE_STALE_S).run()
+        except StepFailed as e:
+            if e.step != step or "killed by signal 9" not in e.reason:
+                raise
+        else:
+            raise AssertionError(f"(b) {plan} did not kill {step}")
+
+
+def pipeline_phase(tmp: Path) -> dict:
+    """Phase 18: (a) the full supervised run, alone; (b) kill and resume,
+    with (c) a hung fake step beside (b)'s killed runs; (d) audits; (e)
+    the trace."""
+    import threading
+
+    from sparse_coding_tpu_torch.fsck.core import run_fsck
+    from sparse_coding_tpu_torch.obs import ledger
+    from sparse_coding_tpu_torch.obs.report import build_report
+    from sparse_coding_tpu_torch.pipeline import (
+        PreflightAuditError,
+        Supervisor,
+        build_pipeline,
+    )
+
+    t_phase = time.perf_counter()
+    rep: dict = {}
+    root_a, root_b = tmp / "pipe_a", tmp / "pipe_b"
+    run_a, run_b = root_a / "run", root_b / "run"
+    cfg_a, cfg_b = pipeline_config(root_a), pipeline_config(root_b)
+    # (a) the full run
+    t0 = time.perf_counter()
+    sup_a = Supervisor(run_a, build_pipeline(run_a, cfg_a),
+                       heartbeat_stale_s=PIPE_STALE_S)
+    summary = sup_a.run()
+    rep["a_wall_s"] = time.perf_counter() - t0
+    if summary != {s: "done" for s in PIPE_STEP_NAMES}:
+        raise AssertionError(f"(a) {summary}")
+    pipe_checks(run_a, sup_a, "(a)")
+    report = build_report(run_a)
+    walls = {ev["step"]: ev["dur_s"] for ev in pipe_events(run_a)
+             if ev.get("span") == "pipeline.step"}
+    child = {name: report["spans"][f"step.{name}"]["total_s"]
+             for name in PIPE_STEP_NAMES}
+    launches = {k.split("kernel=")[1].rstrip("}"): v
+                for k, v in report["counters"].items()
+                if k.startswith("kernel.launches{")}
+    paths = report["kernel_paths"]
+    if set(paths) != {"train_step_tiled"}:
+        raise AssertionError(f"(a) kernel paths {paths}")
+    for name in TIED_KERNELS:
+        if launches.get(name) != PIPE_STEPS:
+            raise AssertionError(f"(a) {name} launched {launches.get(name)} "
+                                 f"times, want {PIPE_STEPS}: {launches}")
+    if any(launches.get(name) for name in UNTIED_KERNELS):
+        raise AssertionError(f"(a) untied kernels launched: {launches}")
+    if report["preparation"]["nvcc_runs"]:
+        raise AssertionError(f"(a) children ran nvcc: {report['preparation']}")
+    rep["a"] = {"walls_s": walls, "child_s": child, "launches": launches,
+                "kernel_paths": paths, "summary": summary,
+                "spans_s": {k: v["total_s"]
+                            for k, v in report["spans"].items()}}
+    log(f"  (a) {rep['a_wall_s']:.1f} s: "
+        + ", ".join(f"{k} {walls[k]:.2f} s (child {child[k]:.2f})"
+                    for k in PIPE_STEP_NAMES)
+        + f"; each tied kernel {PIPE_STEPS} launches on {list(paths)}; "
+        "0 nvcc runs")
+    rep["eval"] = pipe_eval_reference(root_a)
+    # (e) the trace
+    if (report["perf"]["trace_captured"], report["perf"]["trace_skipped"]) \
+            != (1, 0):
+        raise AssertionError(f"(e) trace captured/skipped {report['perf']}")
+    rep["trace"] = pipe_trace(root_a / "sweep" / "trace")
+    rep["trace"]["cost_s"] = next(
+        {k: ev[k] for k in ("dur_s", "begin_s", "finalize_s")}
+        for ev in pipe_events(run_a) if ev.get("kind") == "trace.captured")
+    log(f"  (e) trace: {rep['trace']['device_kernels']} device kernel "
+        f"names, among them {rep['trace']['names'][:5]}; the capture "
+        f"{rep['trace']['cost_s']}")
+
+    # (b) the two killed runs, (c) beside them, then the resume alone
+    side: dict = {}
+    hung = threading.Thread(target=pipe_hung, args=(tmp, side))
+    hung.start()
+    try:
+        pipe_kills(run_b, cfg_b)
+    finally:
+        hung.join()
+    if "c_error" in side:
+        raise side["c_error"]
+    rep["c"] = side["c"]
+    log(f"  (c) hung step: probe {side['c']['probe']['devices']} "
+        f"reachable in {side['c']['probe']['probe_s']:.2f} s "
+        f"({side['c']['probe']['detail']}), verdict "
+        f"{side['c']['action']}, {side['c']['spawns']} spawn, halted in "
+        f"{side['c']['wall_s']:.1f} s")
+    t0 = time.perf_counter()
+    sup_b = Supervisor(run_b, build_pipeline(run_b, cfg_b),
+                       heartbeat_stale_s=PIPE_STALE_S)
+    summary_b = sup_b.run()
+    rep["resume_wall_s"] = time.perf_counter() - t0
+    if summary_b != {"harvest": "skipped", "sweep": "skipped",
+                     "eval": "done", "catalog": "done"}:
+        raise AssertionError(f"(b) {summary_b}")
+    pipe_checks(run_b, sup_b, "(b)")
+    got, want = pipe_artifacts(root_b), pipe_artifacts(root_a)
+    differ = sorted(k for k in set(got) | set(want)
+                    if got.get(k) != want.get(k))
+    if differ or not want:
+        raise AssertionError(f"(b) not bitwise (a): {differ}")
+    events = [(r["event"], r["step"]) for r in sup_b.journal.records()]
+    for need in (("step.killed", "sweep"), ("step.killed", "eval"),
+                 ("lease.takeover", "sweep"), ("lease.takeover", "eval")):
+        if need not in events:
+            raise AssertionError(f"(b) journal lacks {need}: {events}")
+    preflight = [ev["dur_s"] for ev in pipe_events(run_b)
+                 if ev.get("span") == "pipeline.preflight_fsck"]
+    if len(preflight) != 2:
+        raise AssertionError(f"(b) preflight audits {preflight}")
+    rep["b"] = {"files_bitwise": len(want), "preflight_fsck_s": preflight,
+                "journal": events}
+    log(f"  (b) killed at sweep.chunk (hit 2) and eval.write, two lease "
+        f"takeovers, resumed in {rep['resume_wall_s']:.1f} s (preflight "
+        f"fsck {', '.join(f'{v:.2f}' for v in preflight)} s): {len(want)} "
+        "files bitwise (a)'s")
+
+    # (d) audits
+    clean = run_fsck(run_a, write_report=False)
+    if not clean.clean:
+        raise AssertionError(f"(d) fsck of (a)'s tree: {clean.findings}")
+    rows = ledger.read_rows(run_a / ledger.LEDGER_NAME)
+    if [r["kind"] for r in rows] != ["run"] or not rows[0]["paths"]:
+        raise AssertionError(f"(d) perf ledger rows {rows}")
+    chunk = root_b / "chunks" / "1.npy"
+    raw = bytearray(chunk.read_bytes())
+    raw[-1] ^= 0x01
+    chunk.write_bytes(bytes(raw))
+    rot = run_fsck(run_b, write_report=False)
+    fatal = [(f.kind, f.path) for f in rot.fatal]
+    if fatal != [("INCONSISTENT", str(chunk.resolve()))]:
+        raise AssertionError(f"(d) flipped chunk byte: {rot.findings}")
+    try:
+        Supervisor(run_b, build_pipeline(run_b, cfg_b),
+                   heartbeat_stale_s=PIPE_STALE_S).run()
+    except PreflightAuditError as e:
+        if [f.path for f in e.findings] != [str(chunk.resolve())]:
+            raise
+    else:
+        raise AssertionError("(d) the preflight admitted a rotted tree")
+    rep["d"] = {"fsck_clean": True, "ledger_rows": len(rows),
+                "rot_fatal": fatal}
+    log(f"  (d) fsck of (a)'s tree clean; one flipped chunk byte: "
+        f"{fatal[0][0]} (fatal), the preflight halts typed; "
+        f"{len(rows)} perf-ledger row")
+    rep["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 18: {rep['wall_s']:.1f} s (budget {PIPE_BUDGET_S:.0f} s)")
+    return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=Path, default=None,
@@ -7211,6 +7595,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"  done at {time.perf_counter() - t_start:.1f} s")
 
+        log(f"phase 18: the supervised pipeline on the card — harvest → "
+            f"sweep → eval → catalog as step children (d={D}, "
+            f"{PIPE_CHUNKS} chunks of {PIPE_CHUNK_ROWS} rows; "
+            f"dense_l1_range, {PIPE_MEMBERS} tied members, ratio {RATIO}, "
+            f"batch {BATCH}, a checkpoint set a chunk, a "
+            f"{PIPE_PROFILE_STEPS}-step trace; eval on {PIPE_EVAL_ROWS} "
+            "rows; the catalog); (b) kills at sweep.chunk and eval.write, "
+            "then a resume; (c) a hung step; (d) fsck and the perf ledger; "
+            "(e) the trace")
+        report["pipeline"] = pipeline_phase(Path(tmp))
+        log(f"  done at {time.perf_counter() - t_start:.1f} s")
+
     timing.update(big["timing"])
     bnd.update(big["bounds"])
     kernels = []
@@ -7351,6 +7747,10 @@ def main() -> int:
                     runs[f"rank {r} {run}"] = launches[name]
         if runs:
             entry["phase16_launches"] = runs
+    # phase 18 (a)'s sweep child, read from its run report
+    for entry in kernels:
+        entry["phase18_launches"] = \
+            report["pipeline"]["a"]["launches"].get(entry["name"], 0)
     report["kernels"] = kernels
     report["timing"] = timing
     report["bounds"] = bnd

@@ -497,6 +497,31 @@ class ChunkStore:
                            err.chunk_index, write_err)
 
 
+def complete_chunk_count(folder: str | Path) -> int:
+    """Number of leading complete chunks (``0.npy .. k-1.npy``) in a
+    possibly unfinalized store. Chunk writes are sequential and atomic,
+    so after a crash the durable prefix is exactly the resumable work:
+    ``ChunkWriter(..., start_index=complete_chunk_count(folder))`` plus
+    skipping the producer rows those chunks cover continues a harvest
+    bitwise (tmp debris never matches ``<i>.npy``)."""
+    folder = Path(folder)
+    k = 0
+    while (folder / f"{k}.npy").exists():
+        k += 1
+    return k
+
+
+def clean_write_debris(folder: str | Path) -> int:
+    """Remove the atomic-write tmp files (``.<name>.tmp.<pid>``) a killed
+    writer left behind; returns how many. Safe by construction: no
+    complete chunk has a dotted tmp name."""
+    n = 0
+    for tmp in Path(folder).glob(".*.tmp.*"):
+        tmp.unlink(missing_ok=True)
+        n += 1
+    return n
+
+
 def shuffled_batches(chunk, batch_size: int, rng: np.random.Generator,
                      drop_last: bool = True) -> Iterator:
     """Shuffled fixed-size batches of an in-RAM array or host tensor."""

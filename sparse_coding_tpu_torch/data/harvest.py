@@ -32,7 +32,7 @@ def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: sequence-parallel harvesting (lm/long_context.py, ring "
-            "attention) is not ported (ROADMAP queue 1, items 11 and 14)")
+            "attention) is not ported (ROADMAP queue 1, items 11 and 23)")
 
 
 def make_harvest_fn(params, cfg: LMConfig, taps: Sequence[str], forward=None,

@@ -54,7 +54,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from sparse_coding_tpu_torch import resolve_device
+from sparse_coding_tpu_torch import obs, resolve_device
 from sparse_coding_tpu_torch.models.signatures import AuxData
 from sparse_coding_tpu_torch.ops import _build, roofline
 from sparse_coding_tpu_torch.ops.roofline import KERNEL_PATHS
@@ -954,6 +954,11 @@ class Ensemble:
                   else plan.reason)
         key = (plan.path or "autodiff", reason)
         self.path_resolved[key] = self.path_resolved.get(key, 0) + 1
+        # the same count in the obs registry, as the JAX package keeps it:
+        # a run report (obs/report.py's kernel paths) shows which path a
+        # step child's ensembles ran
+        obs.counter("ensemble.path_resolved", path=key[0],
+                    reason=reason).inc()
         self._resolved_batch = batch_size
 
     def step_batch(self, batch) -> AuxData:

@@ -98,6 +98,22 @@ class Histogram:
             self.min = min(self.min, v)
             self.max = max(self.max, v)
 
+    def merge_snapshot(self, snap: dict) -> None:
+        """Fold another histogram's ``snapshot()`` into this one, bin for
+        bin; the bounds must match."""
+        with self._lock:
+            if tuple(snap["bounds"]) != self.bounds:
+                raise ValueError(
+                    f"cannot merge histograms with different bounds: "
+                    f"{snap['bounds']} vs {list(self.bounds)}")
+            for i, c in enumerate(snap["counts"]):
+                self.counts[i] += int(c)
+            self.sum += float(snap["sum"])
+            self.count += int(snap["count"])
+            if snap["count"]:
+                self.min = min(self.min, float(snap["min"]))
+                self.max = max(self.max, float(snap["max"]))
+
     def quantile(self, q: float) -> Optional[float]:
         with self._lock:
             if self.count == 0:

@@ -136,3 +136,14 @@ def active_sink() -> Optional[EventSink]:
         if _active is not None or _env_checked:
             return _active
     return configure_from_env()
+
+
+def close() -> None:
+    """Close and clear the process sink; the next event configures it
+    from the environment again."""
+    global _env_checked
+    sink = configure(None)
+    with _lock:
+        _env_checked = False
+    if sink is not None:
+        sink.close()

@@ -58,14 +58,16 @@ def emit_event(kind: str, *, sink: Optional[sink_mod.EventSink] = None,
 
 
 def record_span(name: str, dur_s: float, ok: bool = True, error: str = "",
+                sink: Optional[sink_mod.EventSink] = None,
                 registry: Optional[Registry] = None, **attrs) -> None:
-    """Record a completed span from a duration its caller measured."""
+    """Record a completed span from a duration its caller measured (to
+    ``sink``, else the process sink)."""
     reg = registry if registry is not None else get_registry()
     reg.histogram(f"span.{name}.dur_s").observe(dur_s)
     if not ok:
         reg.counter(f"span.{name}.errors").inc()
-    emit_event("span.end", span=name, dur_s=round(dur_s, 6), ok=ok,
-               **({"error": error} if error else {}), **attrs)
+    emit_event("span.end", sink=sink, span=name, dur_s=round(dur_s, 6),
+               ok=ok, **({"error": error} if error else {}), **attrs)
 
 
 class span:
@@ -86,8 +88,9 @@ class span:
                     **self.attrs)
 
 
-def flush_metrics(registry: Optional[Registry] = None) -> bool:
+def flush_metrics(sink: Optional[sink_mod.EventSink] = None,
+                  registry: Optional[Registry] = None) -> bool:
     """Emit the registry snapshot as one ``metrics`` event, at durable
     boundaries, so a killed process still leaves its last counters."""
     reg = registry if registry is not None else get_registry()
-    return emit_event("metrics", registry=reg.snapshot())
+    return emit_event("metrics", sink=sink, registry=reg.snapshot())

@@ -2,7 +2,7 @@
 direction filter, :class:`Hysteresis`, is ported: the serving gateway's
 ladder swap holds a candidate through it (serve/gateway.py). The arbiter,
 its split journal and the scale rule belong to ROADMAP.md queue 1, item
-14, which extends this file."""
+19, which extends this file."""
 
 from __future__ import annotations
 

@@ -30,10 +30,12 @@ Flow, as in the JAX package (the reference's big_sweep.py:298-386):
 
 The store is flat or sharded (``data/shard_store.py::open_store``). The
 entry point runs on the card; ``device="cpu"`` (``--device cpu``) runs
-the kernels' plain versions on the CPU. What the port cannot do yet
-raises, naming its ROADMAP.md queue-1 item: ``profile_steps > 0`` and
-wandb (item 14). The executable-cache warm start of the JAX sweep has no
-counterpart yet (item 13).
+the kernels' plain versions on the CPU. ``profile_steps > 0`` opens one
+managed profiler window (``obs/trace.py``) into
+``<output>/trace`` once the first steps have run, and closes it
+``profile_steps`` steps later. What the port cannot do yet raises, naming
+its ROADMAP.md queue-1 item: wandb (item 22). The executable-cache warm
+start of the JAX sweep has no counterpart yet (item 13).
 
 On a mesh (``mesh_model``/``mesh_data`` > 1, or a ``mesh`` argument;
 :mod:`parallel.mesh`) every rank reads the same chunks and batches, and
@@ -212,13 +214,9 @@ def _check_supported(cfg: EnsembleArgs, mesh) -> None:
             "checkpoint_backend='msgpack' gathers the full state to one "
             "host and is single-host only; use checkpoint_backend='orbax' "
             "for multi-host runs (sharded per-host writes)")
-    if cfg.profile_steps > 0:
-        raise NotImplementedError(
-            "profile_steps > 0 needs trace capture (obs/trace.py), not "
-            "ported yet (ROADMAP.md queue 1, item 14)")
     if cfg.use_wandb:
         raise NotImplementedError(
-            "wandb logging is not ported (ROADMAP.md queue 1, item 14); "
+            "wandb logging is not ported (ROADMAP.md queue 1, item 22); "
             "metrics go to metrics.jsonl")
     if cfg.train_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"train_dtype must be 'float32' or 'bfloat16', got "
@@ -378,6 +376,16 @@ def sweep(
                   if cfg.perf_probe_every > 0 else None)
     # the JAX sweep's executable-cache warm start has no counterpart yet
     # (ROADMAP.md queue 1, item 13)
+    # profile_steps > 0: one managed trace window (obs/trace.py: tmp then
+    # atomic finalize, counted skip on error, closed in the finally),
+    # opened once the first steps have run — step 2, or the second window
+    # under scan — and closed profile_steps steps later, on a window
+    # boundary, so it covers at least profile_steps steps. Rank 0 alone
+    # traces on a mesh: the ranks would share one trace directory.
+    profile_start = 2 if scan_k == 1 else scan_k + 1
+    profiling = profile_done = False
+    tracer = (obs.TraceCapture(out_dir / "trace")
+              if cfg.profile_steps > 0 and writer else None)
 
     def _open_reader(from_chunk: int):
         """(positions, reader) from ``from_chunk`` to the end; re-opened
@@ -453,11 +461,25 @@ def sweep(
                         n_rows = batch.shape[-2] * k_steps
                         step += k_steps
                         rows += n_rows
+                        if (tracer is not None and not profiling
+                                and not profile_done
+                                and step >= profile_start):
+                            profiling = tracer.begin()
+                            # a counted begin-skip must not retry per step
+                            profile_done = not profiling
+                        elif (profiling and step
+                              >= profile_start + cfg.profile_steps):
+                            synchronize(dev)  # the window's kernels done
+                            tracer.end()
+                            profiling = False
+                            profile_done = True
                         do_log = step - last_log >= log_every
                         if do_log:
                             last_log = step
-                        # log windows sync mid-window: never sampled
+                        # log windows sync mid-window, trace windows carry
+                        # the profiler: neither is sampled
                         sample_perf = (perf_probe is not None and not do_log
+                                       and not profiling
                                        and perf_probe.should_sample())
                         if sample_perf:
                             synchronize(dev)
@@ -577,6 +599,10 @@ def sweep(
     finally:
         preempt.__exit__(None, None, None)
         reader.close()
+        if profiling:
+            # a short sweep or a crash inside the window: the capture is
+            # still finalized, so the steps it recorded stay viewable
+            tracer.end()
         try:
             if pending_staging is not None:
                 # a fully issued set reflects completed training: swapped

@@ -1,5 +1,5 @@
 """Run metrics logging: one JSON object per line in
-``<output_folder>/metrics.jsonl`` (wandb is ROADMAP.md queue 1, item 14;
+``<output_folder>/metrics.jsonl`` (wandb is ROADMAP.md queue 1, item 22;
 spans and events go to the obs sink, ``obs/sink.py``)."""
 
 from __future__ import annotations

@@ -1,13 +1,41 @@
-"""Throughput metering (the ``StepTimer`` of the JAX package's
-``utils/profiling.py``; its trace helpers wait for ``obs/trace.py``,
-ROADMAP queue 1, item 14)."""
+"""Tracing and throughput instrumentation (the port's copy of the JAX
+package's ``utils/profiling.py``):
+
+- ``trace(path)``: capture a profiler trace of any region — the managed
+  capture of ``obs/trace.py`` (tmp then atomic finalize, a counted skip
+  on error, stopped on every exit path);
+- ``annotate(name)``: a named region in that trace
+  (``torch.profiler.record_function``);
+- ``StepTimer``: wall-clock and throughput with warmup skipping.
+"""
 
 from __future__ import annotations
 
+import contextlib
 from collections import deque
-from typing import Optional
+from pathlib import Path
+from typing import Iterator, Optional
 
 from sparse_coding_tpu_torch.obs.spans import monotime
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | Path) -> Iterator[None]:
+    """Capture a trace of the body into ``log_dir`` (``trace.json`` for
+    Perfetto or ``chrome://tracing``, ``kernels.json``); the artifact
+    appears atomically on close, and a failed capture is a counted skip,
+    never an error in the profiled region."""
+    from sparse_coding_tpu_torch.obs import trace as obs_trace
+
+    with obs_trace.capture(log_dir):
+        yield
+
+
+def annotate(name: str):
+    """A named region inside a trace (torch.profiler.record_function)."""
+    import torch.profiler
+
+    return torch.profiler.record_function(name)
 
 
 class StepTimer:

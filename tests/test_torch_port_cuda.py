@@ -1592,3 +1592,27 @@ def test_two_replicas_replay_a_shared_table_concurrently(card):
         eng.shutdown()
     assert not any(t.is_alive() for t in threads)
     assert errors == []
+
+
+@pytest.mark.cuda
+def test_memory_gauges_create_no_context_on_another_card(card):
+    """``update_memory_gauges`` samples the cards this process allocated
+    on, and creates no context on any other card of the host."""
+    from sparse_coding_tpu_torch import obs
+    from sparse_coding_tpu_torch.obs.registry import Registry
+
+    torch.ones(1, device=card)
+    n = torch.cuda.device_count()
+
+    def contexts():
+        return [i for i in range(n) if torch._C._cuda_hasPrimaryContext(i)]
+
+    before = contexts()
+    used = [i for i in range(n) if torch.cuda.memory_stats(i).get(
+        "allocated_bytes.all.peak", 0)]
+    reg = Registry()
+    assert obs.update_memory_gauges(reg) == len(used) >= 1
+    assert contexts() == before
+    sampled = {k for k in reg.snapshot()["gauges"]
+               if k.startswith("cuda.mem.bytes_limit")}
+    assert sampled == {f"cuda.mem.bytes_limit{{device={i}}}" for i in used}

@@ -236,9 +236,8 @@ def test_main_without_a_card_raises(store, tmp_path):
     ({"mesh_data": 2}, False, ValueError, "needs 2 ranks, have 1"),
     ({"checkpoint_backend": "msgpack"}, True, ValueError,
      "single-host only; use checkpoint_backend='orbax'"),
-    ({"profile_steps": 3}, False, NotImplementedError, "item 14"),
-    ({"use_wandb": True}, False, NotImplementedError, "item 14"),
-], ids=["mesh", "orbax", "profile", "wandb"])
+    ({"use_wandb": True}, False, NotImplementedError, "item 22"),
+], ids=["mesh", "orbax", "wandb"])
 def test_deferred_options_raise_naming_their_item(store, tmp_path,
                                                   monkeypatch, over,
                                                   on_mesh, error, match):
@@ -259,10 +258,44 @@ def test_deferred_options_raise_naming_their_item(store, tmp_path,
                      mesh=mesh)
 
 
+def test_profile_steps_capture_one_trace_window(store, tmp_path):
+    """``profile_steps > 0`` opens one managed trace window after the
+    first steps: the capture lands whole in ``<output>/trace`` (the
+    Chrome trace and the device-kernel table, empty on the CPU), counted
+    once, and the trained dicts are bitwise a run without it."""
+    from sparse_coding_tpu_torch import obs
+    from sparse_coding_tpu_torch.obs.registry import Registry
+
+    build = lambda c, m, device=None: texp.dense_l1_range_experiment(
+        c, m, l1_range=L1S[:1], activation_dim=D, device=device)
+    base = dict(dataset_folder=str(store), batch_size=BATCH, n_chunks=1,
+                learned_dict_ratio=RATIO)
+    prev = obs.set_registry(Registry())
+    try:
+        traced = tsweep.sweep(build, EnsembleArgs(
+            output_folder=str(tmp_path / "traced"), profile_steps=1, **base),
+            device="cpu", image_metrics_every=None)
+        counters = obs.get_registry().snapshot()["counters"]
+    finally:
+        obs.set_registry(prev)
+    plain = tsweep.sweep(build, EnsembleArgs(
+        output_folder=str(tmp_path / "plain"), **base), device="cpu",
+        image_metrics_every=None)
+    trace = tmp_path / "traced" / "trace"
+    events = json.loads((trace / "trace.json").read_text())
+    assert events["traceEvents"]
+    assert json.loads((trace / "kernels.json").read_text()) == {}
+    assert counters.get("obs.trace.captured") == 1
+    assert "obs.trace.skipped" not in counters
+    assert not list((tmp_path / "traced").glob(".trace.tmp.*"))
+    torch.testing.assert_close(traced["dense_l1_range"][0][0].dictionary,
+                               plain["dense_l1_range"][0][0].dictionary,
+                               rtol=0, atol=0)
+
+
 def test_unported_experiments_and_sharded_stores_raise(store, tmp_path):
-    """Every JAX experiment has a port counterpart; what the sweep still
-    lacks raises naming its ROADMAP item (trace capture, item 14), and a
-    mesh the world cannot hold raises. Sharded stores open now
+    """Every JAX experiment has a port counterpart, and a mesh the world
+    cannot hold raises. Sharded stores open now
     (tests/test_torch_port_shard_store.py sweeps over one): a folder whose
     manifest.json lists no shards raises the typed layout error."""
     from sparse_coding_tpu_torch.data.shard_store import ShardLayoutError
@@ -270,12 +303,9 @@ def test_unported_experiments_and_sharded_stores_raise(store, tmp_path):
     assert set(texp.EXPERIMENTS) == set(jexp.EXPERIMENTS)
     cfg = EnsembleArgs(output_folder=str(tmp_path / "o"),
                        dataset_folder=str(store))
-    for over, error, match in (
-            ({"mesh_model": 2}, ValueError, "needs 2 ranks, have 1"),
-            ({"profile_steps": 2}, NotImplementedError, "item 14")):
-        with pytest.raises(error, match=match):
-            tsweep.sweep(texp.EXPERIMENTS["topk"], cfg.replace(**over),
-                         device="cpu")
+    with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
+        tsweep.sweep(texp.EXPERIMENTS["topk"], cfg.replace(mesh_model=2),
+                     device="cpu")
     sharded = tmp_path / "sharded"
     sharded.mkdir()
     (sharded / "manifest.json").write_text("{}")

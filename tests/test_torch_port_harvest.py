@@ -225,7 +225,7 @@ def test_abort_leaves_whole_chunks_and_no_meta(tmp_path, lm):
     assert not (folder / "meta.json").exists()
     assert sorted(p.name for p in folder.iterdir()) == ["0.npy"]
     assert _raw(folder, 0).shape == (ROWS_PER_CHUNK, lm[0].d_model)
-    with pytest.raises(NotImplementedError, match="items 11 and 14"):
+    with pytest.raises(NotImplementedError, match="items 11 and 23"):
         _run("port", lm, tmp_path / "m", rows, layers=[1],
              layer_loc="residual", mesh=object())
 
