@@ -53,8 +53,9 @@ Phases — any failure raises, and the script exits non-zero with no result:
    export's FVU on held-out rows;
 8. the full sweep (``train/sweep.py``) through its CLI, ``main``:
    ``tied_vs_not`` at the main paths' width (16 tied and 16 untied
-   members over ``DEFAULT_L1_RANGE``, batch 2048) over a 6-chunk store
-   (96 steps), a checkpoint set every chunk; (a) every kernel of both
+   members over ``DEFAULT_L1_RANGE``, batch 2048) over a 4-chunk store
+   (64 steps; 6 until phase 19 took the run past its time), a checkpoint
+   set every chunk; (a) every kernel of both
    families launches once per step (counts zeroed just before) and the
    logged losses are finite; (b) a child SIGKILLed by
    ``SPARSE_CODING_CRASH_PLAN`` at ``sweep.chunk`` (hit 3), then at
@@ -72,7 +73,7 @@ Phases — any failure raises, and the script exits non-zero with no result:
    sweep's
    activations/s, the checkpoint seconds per chunk, the resume time and
    the probe's ``train.mfu``;
-9. the full sweep's host I/O: phase 8's store re-sharded into 3 + 3
+9. the full sweep's host I/O: phase 8's store re-sharded into 2 + 2
    chunks (``data/shard_store.py``) and ``--checkpoint_backend orbax``
    (the deferred swap, ``utils/orbax_ckpt.py``) at phase 8's shape; (a)
    each kernel launches once per step and the learned dicts, eval.json
@@ -318,8 +319,38 @@ Phases — any failure raises, and the script exits non-zero with no result:
    trace names the kernels in its device events, captured once, skipped
    never. No attempt may be degraded, and every step span must say cuda
    and have held memory on the card;
-19. summary: one ``{"kernels": [...]}`` line (the tied kernels also with
-   phase 15 (e)'s launches, every kernel with phase 16's and phase 18's),
+19. Group-SAE and the fleet (``groups/``, ``pipeline/fleet.py``,
+   ``fleet_queue.py``, ``placement.py``, ``plane.py``): (a)
+   ``build_group_pipeline`` under a ``Supervisor`` on the card — four
+   multi-tap writers (d=512, layers 0-3, 2 chunks of 32,768 rows each,
+   the per-layer mix at phase_step 0.35), manifest, scrub, group — must
+   reach the G=2 assignment [[0, 1], [2, 3]], with ``similarity.npy``
+   bitwise a host pass over the same store, a rebuild rewriting every
+   group file byte for byte and a resumed supervisor skipping every step;
+   (b) ``enqueue_group_tenants`` (one ``kind="group"`` tenant per pool:
+   ``dense_l1_range``, 16 tied members, ratio 4, batch 2048, a checkpoint
+   set a chunk, 64 steps, eval on 2,048 rows) with group-000 poisoned
+   (``sweep.anomaly`` NaN, rollback budget 1) through
+   ``FleetScheduler.run()``, two tenants side by side: group-000 halts
+   inside its own run, group-001 finishes bitwise a standalone in-process
+   ``run_sweep`` + ``run_eval`` of its config (the sweep trains as the
+   fleet starts, while every child still imports torch: its acts/s are
+   the card's alone, and the overlap with any step child is measured),
+   its sweep child launches
+   each tied kernel once a step (its run report), no tenant runs nvcc or
+   captures a graph, every step span on cuda holding card memory; the
+   fleet report shows the halt; fsck of the fleet and the store finds
+   nothing fatal; (c) an ``ElasticPlane`` over the fleet and a
+   1-active/1-spare gateway on phase 17's registry, a scavenger copy of
+   group-001: two ticks of held load record the scale-up before the
+   reclaim, the scavenger checkpoints out through SIGTERM (not killed),
+   the spare activates with 0 captures, the scale-down drains then
+   releases the replica a tick later, the scavenger resumes to group-001's
+   bits, and a fresh arbiter's ``reconcile()`` drives both consumers to
+   recorded splits;
+20. summary: one ``{"kernels": [...]}`` line (the tied kernels also with
+   phase 15 (e)'s launches, every kernel with phase 16's, phase 18's and
+   phase 19's),
    the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2096,9 +2127,9 @@ def big_main_phase(store: Path, tmp: Path, held_out: torch.Tensor) -> dict:
 
 # the sweep's CLI on the canonical width (Pythia-70M, d=512, ratio 4,
 # batch 2048): tied_vs_not over DEFAULT_L1_RANGE (16 members each), a
-# 6-chunk store = 96 steps, a checkpoint set every chunk; depth is the only
-# cut
-SWEEP_CHUNKS, SWEEP_MEMBERS = 6, 16
+# 4-chunk store = 64 steps (6 chunks until phase 19 took the run past its
+# time), a checkpoint set every chunk; depth is the only cut
+SWEEP_CHUNKS, SWEEP_MEMBERS = 4, 16
 SWEEP_STEPS = SWEEP_CHUNKS * ROWS_PER_CHUNK // BATCH
 SWEEP_DICT_RATIO_CHUNKS = 2
 
@@ -2494,11 +2525,11 @@ def sweep_phase(store: Path, tmp: Path) -> dict:
 
 # --- phase 9: the full sweep's host I/O ---------------------------------------
 
-# phase 8's store re-sharded into 3 + 3 chunks; the longer chunk of the
+# phase 8's store re-sharded into 2 + 2 chunks; the longer chunk of the
 # overlap measurement: 262,144 rows = 128 steps, 2 chunks (4 until phase
 # 17 took the run past 1,000 s: the second chunk's training still
 # overlaps the first set's write)
-SHARDS = (3, 3)
+SHARDS = (2, 2)
 LONG_ROWS_PER_CHUNK, LONG_CHUNKS = 8 * ROWS_PER_CHUNK, 2
 
 
@@ -7032,20 +7063,31 @@ def pipe_events(run: Path) -> list[dict]:
     return read_events(run / "obs")
 
 
-def pipe_checks(run: Path, sup, label: str) -> None:
-    """No attempt degraded; every step span resolved the card and held
-    memory there."""
-    degraded = [r for r in sup.journal.records()
+def pipe_checks(run: Path, journal, label: str, held=None) -> None:
+    """No attempt degraded (``journal``: the run's RunJournal); every step
+    span resolved the card, and each step in ``held`` (default: every
+    step) held memory there."""
+    degraded = [r for r in journal.records()
                 if r["event"] == "step.spawn" and r["detail"]["degraded"]]
     if degraded:
         raise AssertionError(f"{label}: degraded attempts {degraded}")
     devices = {ev.get("step"): (ev.get("device"), ev.get("card_peak_bytes"))
                for ev in pipe_events(run)
                if str(ev.get("span", "")).startswith("step.")}
-    if not devices or not all(dev == "cuda" and held and held > 0
-                              for dev, held in devices.values()):
+    held = set(devices if held is None else held)
+    if not devices or not held <= set(devices) or not all(
+            dev == "cuda" and (step not in held or (peak and peak > 0))
+            for step, (dev, peak) in devices.items()):
         raise AssertionError(f"{label}: step spans' devices and card "
                              f"bytes {devices}")
+
+
+def report_launches(report: dict) -> dict:
+    """Each kernel's launches from a run report's ``kernel.launches``
+    counters (the step children's)."""
+    return {k.split("kernel=")[1].rstrip("}"): v
+            for k, v in report["counters"].items()
+            if k.startswith("kernel.launches{")}
 
 
 def pipe_trace(trace_dir: Path) -> dict:
@@ -7199,15 +7241,13 @@ def pipeline_phase(tmp: Path) -> dict:
     rep["a_wall_s"] = time.perf_counter() - t0
     if summary != {s: "done" for s in PIPE_STEP_NAMES}:
         raise AssertionError(f"(a) {summary}")
-    pipe_checks(run_a, sup_a, "(a)")
+    pipe_checks(run_a, sup_a.journal, "(a)")
     report = build_report(run_a)
     walls = {ev["step"]: ev["dur_s"] for ev in pipe_events(run_a)
              if ev.get("span") == "pipeline.step"}
     child = {name: report["spans"][f"step.{name}"]["total_s"]
              for name in PIPE_STEP_NAMES}
-    launches = {k.split("kernel=")[1].rstrip("}"): v
-                for k, v in report["counters"].items()
-                if k.startswith("kernel.launches{")}
+    launches = report_launches(report)
     paths = report["kernel_paths"]
     if set(paths) != {"train_step_tiled"}:
         raise AssertionError(f"(a) kernel paths {paths}")
@@ -7265,7 +7305,7 @@ def pipeline_phase(tmp: Path) -> dict:
     if summary_b != {"harvest": "skipped", "sweep": "skipped",
                      "eval": "done", "catalog": "done"}:
         raise AssertionError(f"(b) {summary_b}")
-    pipe_checks(run_b, sup_b, "(b)")
+    pipe_checks(run_b, sup_b.journal, "(b)")
     got, want = pipe_artifacts(root_b), pipe_artifacts(root_a)
     differ = sorted(k for k in set(got) | set(want)
                     if got.get(k) != want.get(k))
@@ -7319,6 +7359,596 @@ def pipeline_phase(tmp: Path) -> dict:
     log(f"  phase 18: {rep['wall_s']:.1f} s (budget {PIPE_BUDGET_S:.0f} s)")
     return rep
 
+
+# -- phase 19: Group-SAE and the fleet (groups/, pipeline/fleet.py, plane) --
+
+# a 4-layer synthetic multi-tap store at the ensemble kernels' main width
+# (the pipeline's LM mode is tiny_test_config in both packages, so this is
+# the widest real shape the path takes): 2 chunks of 16 batches a layer,
+# the JAX harvest's per-layer mix at phase_step 0.35; the group step
+# assigns G = 2 pools of 2 layers, 4 chunks each. Each group tenant trains
+# dense_l1_range (16 tied members, ratio 4, batch 2048, a checkpoint set a
+# chunk) over its pool — 64 steps — then evaluates on 2,048 rows.
+FLEET_LAYERS, FLEET_LAYER_CHUNKS, FLEET_PHASE_STEP = (0, 1, 2, 3), 2, 0.35
+FLEET_GROUPS = [[0, 1], [2, 3]]
+FLEET_STEPS = 2 * FLEET_LAYER_CHUNKS * PIPE_CHUNK_ROWS // BATCH
+FLEET_SAMPLE_ROWS = 2048
+FLEET_POISON = {"SPARSE_CODING_FAULT_PLAN":
+                "sweep.anomaly:nth=1,count=0,mode=nan"}
+FLEET_WALL_S = 300.0  # the schedulers' own bound on a drain
+FLEET_BUDGET_S = 120.0
+# (c): the plane's pod — one slice a replica, serving 1-2 replicas, the
+# fleet the rest; 12 held requests of 8 rows raise the queue past
+# up_queued_rows
+TIDE_PLANE = dict(n_slices=2, replica_slices=1, min_replicas=1,
+                  max_replicas=2, up_queued_rows=4.0, down_queued_rows=2.0,
+                  hold_ticks=2)
+TIDE_REQUESTS, TIDE_ROWS = 12, 8
+TIDE_TICK_S = 0.05
+
+
+def fleet_group_config(root: Path) -> dict:
+    """(a)'s group DAG config under ``root``."""
+    return {
+        "harvest": {"mode": "synthetic",
+                    "dataset_folder": str(root / "store"),
+                    "layers": list(FLEET_LAYERS), "seed": SEED + 19,
+                    "activation_dim": D, "n_ground_truth_features": N_FEATS,
+                    "dataset_size": FLEET_LAYER_CHUNKS * PIPE_CHUNK_ROWS,
+                    "n_chunks": FLEET_LAYER_CHUNKS, "batch_rows": 8192,
+                    "dtype": "float16", "phase_step": FLEET_PHASE_STEP},
+        "group": {"n_groups": len(FLEET_GROUPS), "n_sample_chunks": 1,
+                  "n_sample_rows": FLEET_SAMPLE_ROWS, "seed": SEED},
+    }
+
+
+def fleet_tenant_base() -> dict:
+    """The group tenants' sweep and eval (groups/tenants.py fills in the
+    pool, the chunk count and the output dirs)."""
+    return {"sweep": {"experiment": "dense_l1_range", "log_every": 16,
+                      "ensemble": {"batch_size": BATCH,
+                                   "learned_dict_ratio": float(RATIO),
+                                   "seed": SEED, "tied_ae": True,
+                                   "checkpoint_every_chunks": 1,
+                                   # the poisoned tenant rolls back once,
+                                   # then halts typed
+                                   "guardian_rollback_budget": 1}},
+            "eval": {"n_eval_rows": PIPE_EVAL_ROWS, "seed": SEED}}
+
+
+def group_files(store: Path) -> dict[str, bytes]:
+    """Every file the group step writes: the marker, the similarity
+    matrix and the pooled manifests."""
+    out = {"groups.json": (store / "groups.json").read_bytes(),
+           "similarity.npy": (store / "similarity.npy").read_bytes()}
+    for g in range(len(FLEET_GROUPS)):
+        rel = f"group-{g:03d}/manifest.json"
+        out[rel] = (store / rel).read_bytes()
+    return out
+
+
+def child_starts(run: Path) -> dict[str, float]:
+    """Each step's start and exit cost: the supervisor's ``pipeline.step``
+    wall less the child's own ``step.<name>`` span."""
+    events = read_events(run / "obs")
+    walls = {ev["step"]: ev["dur_s"] for ev in events
+             if ev.get("span") == "pipeline.step"}
+    work = {ev["span"][len("step."):]: ev["dur_s"] for ev in events
+            if str(ev.get("span", "")).startswith("step.")}
+    return {k: walls[k] - work.get(k, 0.0) for k in walls}
+
+
+def fleet_dag(tmp: Path) -> dict:
+    """(a): the group DAG under a supervisor on the card; the assignment;
+    similarity.npy bitwise a host pass over the same store; a rebuild
+    rewrites every group file byte for byte; a resumed supervisor skips
+    every step."""
+    from sparse_coding_tpu_torch.groups import (
+        build_groups,
+        layer_similarity,
+        load_groups,
+    )
+    from sparse_coding_tpu_torch.pipeline import (
+        Supervisor,
+        build_group_pipeline,
+    )
+
+    cfg = fleet_group_config(tmp / "groups")
+    store = Path(cfg["harvest"]["dataset_folder"])
+    run = tmp / "groups" / "run"
+    t0 = time.perf_counter()
+    sup = Supervisor(run, build_group_pipeline(run, cfg),
+                     heartbeat_stale_s=PIPE_STALE_S)
+    summary = sup.run()
+    wall = time.perf_counter() - t0
+    names = [f"harvest-{i}" for i in range(len(FLEET_LAYERS))] + [
+        "manifest", "scrub", "group"]
+    if summary != {n: "done" for n in names}:
+        raise AssertionError(f"(a) {summary}")
+    # the writers make their rows on the card; manifest, scrub and group
+    # are host work and hold nothing there
+    pipe_checks(run, sup.journal, "(a)", held=[
+        n for n in names if n.startswith("harvest")])
+    payload = load_groups(store)
+    got = [g["layers"] for g in payload["groups"]]
+    if got != FLEET_GROUPS:
+        raise AssertionError(f"(a) assignment {got}, want {FLEET_GROUPS}")
+    files = group_files(store)
+    gcfg = cfg["group"]
+    sim = layer_similarity(store, n_sample_chunks=gcfg["n_sample_chunks"],
+                           n_sample_rows=gcfg["n_sample_rows"],
+                           seed=gcfg["seed"])
+    if np.load(store / "similarity.npy").tobytes() != \
+            sim["matrix"].tobytes():
+        raise AssertionError("(a) similarity.npy is not the host pass's")
+    t1 = time.perf_counter()
+    build_groups(store, n_groups=gcfg["n_groups"],
+                 n_sample_chunks=gcfg["n_sample_chunks"],
+                 n_sample_rows=gcfg["n_sample_rows"], seed=gcfg["seed"])
+    rebuild_s = time.perf_counter() - t1
+    if group_files(store) != files:
+        raise AssertionError("(a) a rebuild changed the group files")
+    t1 = time.perf_counter()
+    again = Supervisor(run, build_group_pipeline(run, cfg),
+                       heartbeat_stale_s=PIPE_STALE_S).run()
+    resume_s = time.perf_counter() - t1
+    if again != {n: "skipped" for n in names}:
+        raise AssertionError(f"(a) resume {again}")
+    starts = child_starts(run)
+    rep = {"wall_s": wall, "rebuild_s": rebuild_s, "resume_s": resume_s,
+           "assignment": got, "similarity": sim["matrix"].tolist(),
+           "child_start_s": starts, "store": str(store)}
+    log(f"  (a) group DAG {wall:.1f} s ({len(names)} step children, start "
+        f"and exit {min(starts.values()):.2f}-{max(starts.values()):.2f} s "
+        f"each): G={len(got)} {got}; similarity row 0 "
+        + ", ".join(f"{v:.4f}" for v in sim["matrix"][0])
+        + f", bitwise the host pass; rebuild {rebuild_s:.2f} s byte for "
+        f"byte; resume skipped all in {resume_s:.2f} s")
+    return rep
+
+
+def fleet_run_report(run: Path, label: str) -> dict:
+    """A tenant's run: no degraded attempt, its step spans on the card,
+    no nvcc run and no CUDA-graph capture; its report."""
+    from sparse_coding_tpu_torch.obs.report import build_report
+    from sparse_coding_tpu_torch.pipeline.journal import RunJournal
+
+    pipe_checks(run, RunJournal(run / "journal.jsonl"), label)
+    report = build_report(run)
+    prep = report["preparation"]
+    if prep["nvcc_runs"] or prep["captures"]:
+        raise AssertionError(f"{label}: preparation {prep}")
+    return report
+
+
+def fleet_tenants(tmp: Path, store: Path) -> dict:
+    """(b): one tenant per group, group-000 poisoned; the halt contained,
+    group-001 bitwise a standalone run of its config; each tied kernel
+    once a step in group-001's sweep child; the fleet report; fsck. The
+    standalone sweep runs in this process as the fleet starts, so it
+    trains while every tenant's and the scavenger's children still import
+    torch: its chunks are the card's alone (``alone_overlap`` checks)."""
+    import copy
+    import threading
+
+    from sparse_coding_tpu_torch import obs
+    from sparse_coding_tpu_torch.fsck.core import run_fsck
+    from sparse_coding_tpu_torch.groups import enqueue_group_tenants
+    from sparse_coding_tpu_torch.obs.report import build_fleet_report
+    from sparse_coding_tpu_torch.pipeline import FleetScheduler
+    from sparse_coding_tpu_torch.pipeline.steps import run_eval, run_sweep
+
+    fleet_dir, out_root = tmp / "fleet", tmp / "tenants"
+    sched = FleetScheduler(fleet_dir, n_slices=2, max_concurrent=2,
+                           max_run_attempts=1, poll_s=0.1,
+                           heartbeat_stale_s=PIPE_STALE_S,
+                           max_wall_s=FLEET_WALL_S)
+    names = enqueue_group_tenants(sched, store, fleet_tenant_base(),
+                                  out_root, max_attempts=1,
+                                  env_overrides={"group-000": FLEET_POISON})
+    # the same config alone, in this process, on the card (a tenant's
+    # pipeline.json is its queue spec's config)
+    cfg = sched.queue.replay().specs["group-001"]["config"]
+    alone = copy.deepcopy(cfg)
+    alone["sweep"]["ensemble"]["output_folder"] = str(tmp / "alone" / "sweep")
+    alone["eval"]["output_folder"] = str(tmp / "alone" / "eval")
+    fleet: dict = {}
+
+    def drive():
+        try:
+            fleet["summary"] = sched.run()
+        except BaseException as e:  # handed to this thread below
+            fleet["error"] = e
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=drive, name="phase19-fleet")
+    thread.start()
+    sink = obs.EventSink(tmp / "alone" / "obs" / "events.jsonl")
+    prev_sink = obs.configure_sink(sink)
+    try:
+        t1 = time.perf_counter()
+        run_sweep(alone)
+        sync()
+        alone_sweep_s = time.perf_counter() - t1
+    finally:
+        obs.configure_sink(prev_sink)
+        sink.close()
+        thread.join()
+    wall = time.perf_counter() - t0
+    if "error" in fleet:
+        raise fleet["error"]
+    summary = fleet["summary"]
+    if summary != {"group-000": "halted", "group-001": "done"}:
+        raise AssertionError(f"(b) {summary} ({names})")
+    runs = {n: fleet_dir / "runs" / n for n in names}
+    if json.loads((runs["group-001"] / "pipeline.json").read_text()) != cfg:
+        raise AssertionError("(b) group-001's pipeline.json is not its spec")
+    reports = {n: fleet_run_report(runs[n], f"(b) {n}") for n in names}
+    halted = json.loads((out_root / "group-000" / "sweep"
+                         / "guardian.json").read_text())
+    if "halt" not in halted or (out_root / "group-000" / "sweep"
+                                / "final").exists():
+        raise AssertionError("(b) group-000's halt is not in its own run")
+    launches = report_launches(reports["group-001"])
+    for name in TIED_KERNELS:
+        if launches.get(name) != FLEET_STEPS:
+            raise AssertionError(f"(b) {name} launched {launches.get(name)} "
+                                 f"times, want {FLEET_STEPS}: {launches}")
+    if any(launches.get(name) for name in UNTIED_KERNELS):
+        raise AssertionError(f"(b) untied kernels launched: {launches}")
+    if set(reports["group-001"]["kernel_paths"]) != {"train_step_tiled"}:
+        raise AssertionError(f"(b) kernel paths "
+                             f"{reports['group-001']['kernel_paths']}")
+    t1 = time.perf_counter()
+    run_eval(alone)
+    alone_s = alone_sweep_s + time.perf_counter() - t1
+    tenant = fleet_outputs(out_root / "group-001")
+    if fleet_outputs(tmp / "alone") != tenant:
+        raise AssertionError("(b) group-001 is not bitwise its standalone "
+                             "run")
+    frep = build_fleet_report(fleet_dir)
+    sched_c = frep["scheduler"]
+    if (frep["states"] != summary or sched_c["halts"] != 1
+            or sched_c["releases"] != {"done": 1, "halted": 1}
+            or sched_c["placements"] != 2):
+        raise AssertionError(f"(b) fleet report {frep['states']} "
+                             f"{sched_c}")
+    fsck = {}
+    for label, root in (("fleet", fleet_dir), ("store", store)):
+        found = run_fsck(root, write_report=False)
+        if found.fatal:
+            raise AssertionError(f"(b) fsck of the {label}: {found.fatal}")
+        fsck[label] = len(found.findings)
+    acts = {n: sweep_numbers(read_events(runs[n] / "obs"))["acts_per_s"]
+            for n in ("group-001",)}
+    alone_events = read_events(tmp / "alone" / "obs")
+    starts = {n: child_starts(runs[n]) for n in names}
+    walls = {n: {ev["step"]: ev["dur_s"] for ev in read_events(runs[n] / "obs")
+                 if ev.get("span") == "pipeline.step"} for n in names}
+    rep = {"wall_s": wall, "summary": summary, "launches": launches,
+           "standalone_s": alone_s, "standalone_sweep_s": alone_sweep_s,
+           "standalone_acts_per_s": sweep_numbers(alone_events)["acts_per_s"],
+           "standalone_chunks": span_windows(alone_events, "sweep.chunk"),
+           "acts_per_s": acts,
+           "child_start_s": starts, "step_walls_s": walls,
+           "fsck_findings": fsck, "final": tenant,
+           "guardian_halt": halted["halt"]}
+    log(f"  (b) two tenants side by side in {wall:.1f} s: {summary}; "
+        f"group-001's sweep child launched each tied kernel {FLEET_STEPS} "
+        f"times ({acts['group-001']:,.0f} acts/s over its chunks after the "
+        f"first), 0 nvcc runs and 0 captures in every tenant, every step "
+        f"on cuda; its dicts and eval.json bitwise the standalone run "
+        f"({alone_s:.1f} s in process, its sweep "
+        f"{rep['standalone_acts_per_s']:,.0f} acts/s as the fleet started); "
+        f"fleet report: 2 placements, "
+        f"1 halt; fsck fleet {fsck['fleet']} finding(s), store "
+        f"{fsck['store']}, none fatal")
+    return rep
+
+
+def span_windows(events: list[dict], prefix: str) -> list[list[float]]:
+    """[start, end] on the wall clock of each span whose name starts with
+    ``prefix`` (a span's event is stamped at its end)."""
+    return [[ev["ts"] - ev["dur_s"], ev["ts"]] for ev in events
+            if str(ev.get("span", "")).startswith(prefix)]
+
+
+def alone_overlap(windows: list, roots: list[Path]) -> float:
+    """Seconds of ``windows`` during which a step child under one of the
+    fleet dirs ``roots`` was inside its ``step.*`` span (its device work
+    lies there)."""
+    others = [w for root in roots for run in sorted((root / "runs").iterdir())
+              for w in span_windows(read_events(run / "obs"), "step.")]
+    return sum(max(0.0, min(a[1], b[1]) - max(a[0], b[0]))
+               for a in windows for b in others)
+
+
+def fleet_outputs(root: Path) -> dict[str, bytes]:
+    """A tenant's final dicts and eval.json."""
+    final = root / "sweep" / "final" / "dense_l1_range_learned_dicts.pkl"
+    return {"final": final.read_bytes(),
+            "eval": (root / "eval" / "eval.json").read_bytes()}
+
+
+def wait_for(predicate, what: str, stop, timeout_s: float = 180.0) -> float:
+    """Seconds until ``predicate()``; raises at the timeout or once
+    ``stop`` (a threading.Event) is set."""
+    t0 = time.perf_counter()
+    while not predicate():
+        if stop.is_set():
+            raise AssertionError(f"(c) stopped while waiting for {what}")
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"(c) {what} never happened")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def fleet_tide(tmp: Path, dict_file: Path, ready, stop) -> dict:
+    """(c): the elastic plane over a fleet of its own (run beside (b)) and
+    a 1-active/1-spare gateway on phase 17's registry, warmed while (a)
+    runs. Once ``ready`` is set (groups.json is durable) a scavenger copy
+    of group-001 is preempted at a checkpoint by the scale-up, the spare
+    activates with 0 captures, the scale-down drains then releases the
+    replica, the scavenger resumes and finishes (its outputs are returned
+    under ``final`` for the bitwise check against (b)'s group-001); a
+    fresh arbiter reconciles recorded splits. ``stop`` aborts: the
+    scheduler's drain then kills its workers on the way out."""
+    import threading
+
+    from sparse_coding_tpu_torch import obs, xcache
+    from sparse_coding_tpu_torch.groups import (
+        group_tenant_config,
+        load_groups,
+    )
+    from sparse_coding_tpu_torch.obs.report import build_fleet_report
+    from sparse_coding_tpu_torch.pipeline import (
+        ElasticPlane,
+        FleetScheduler,
+        PlaneConfig,
+    )
+    from sparse_coding_tpu_torch.pipeline.journal import RunJournal
+    from sparse_coding_tpu_torch.pipeline.plane import REBALANCE_EVENT
+    from sparse_coding_tpu_torch.serve import INTERACTIVE, ServingGateway
+
+    fleet_dir, scav_root = tmp / "tide_fleet", tmp / "scav"
+    xcache.enable(tmp / "tide_xcache")
+    t_setup = time.perf_counter()
+    reg, _ = serve_registry(dict_file, DEV)
+    gw = ServingGateway(reg, n_replicas=1, n_spares=1, buckets=(TIDE_ROWS,),
+                        ops=("encode",), max_wait_ms=0.5, device=DEV)
+    sched, thread, result = None, None, {}
+    try:
+        c0 = serve_captures()
+        gw.warmup()
+        warm = serve_captures() - c0
+        setup_s = time.perf_counter() - t_setup
+        wait_for(ready.is_set, "the group assignment", stop,
+                 timeout_s=FLEET_WALL_S)
+        store = tmp / "groups" / "store"
+        group = load_groups(store)["groups"][1]
+        sched = FleetScheduler(fleet_dir, n_slices=1, max_concurrent=1,
+                               max_run_attempts=1, poll_s=0.1,
+                               heartbeat_stale_s=PIPE_STALE_S,
+                               max_wall_s=FLEET_WALL_S)
+        sched.enqueue("scav", group_tenant_config(
+            fleet_tenant_base(), group, store, scav_root), kind="group",
+            priority="scavenger", max_attempts=1)
+        cfg = PlaneConfig(**TIDE_PLANE)
+        plane = ElasticPlane(fleet_dir, cfg, gateway=gw, fleet=sched)
+        plane.reconcile()
+        if sched.n_slices != 1:
+            raise AssertionError(f"(c) base split gave the fleet "
+                                 f"{sched.n_slices} slices")
+
+        def drive():
+            try:
+                result["summary"] = sched.run()
+            except BaseException as e:  # handed to fleet_tide below
+                result["error"] = e
+
+        t0 = time.perf_counter()
+        thread = threading.Thread(target=drive, name="phase19-tide-fleet")
+        thread.start()
+        sweep_out = scav_root / group["name"] / "sweep"
+        to_ckpt = wait_for((sweep_out / "ckpt").exists,
+                           "the scavenger's first checkpoint set", stop)
+        # the tide rises: hold the dispatcher, pile up queue depth
+        rs = np.random.default_rng(SEED + 19)
+        d = reg.get("mlp2/0").d_activation
+        xs = [rs.standard_normal((TIDE_ROWS, d)).astype(np.float32)
+              for _ in range(TIDE_REQUESTS)]
+        gw.pause()
+        futs = [gw.submit("mlp2/0", x, priority=INTERACTIVE) for x in xs]
+        c1 = serve_captures()
+        t_up = time.perf_counter()
+        first, second = plane.tick(), plane.tick()
+        up_s = time.perf_counter() - t_up
+        if first["rebalanced"] or not second["rebalanced"] or \
+                second["replicas"] != 2:
+            raise AssertionError(f"(c) scale-up ticks {first} {second}")
+        if gw.active_replica_names() != ["replica-0", "spare-0"]:
+            raise AssertionError(f"(c) actives {gw.active_replica_names()}")
+        spare_captures = serve_captures() - c1
+        gw.resume()
+        answers = [f.result(timeout=60) for f in futs]
+        if spare_captures:
+            raise AssertionError(f"(c) the spare captured {spare_captures} "
+                                 "programs")
+        # the record was durable before the reclaim, and the scavenger
+        # leaves through its checkpoint path
+        seqs = [(r["seq"], r["event"])
+                for r in sched.queue.journal.records()]
+        rec_seq = next(q for q, e in seqs if e == REBALANCE_EVENT)
+        pre_seq = next(q for q, e in seqs if e == "run.preempt")
+        if not rec_seq < pre_seq:
+            raise AssertionError("(c) the reclaim came before the rebalance "
+                                 "record")
+        to_release = wait_for(
+            lambda: ("scav", "preempted") in [
+                (r["step"], r["detail"].get("outcome"))
+                for r in sched.queue.journal.records()
+                if r["event"] == "run.release"],
+            "the scavenger's preempted release", stop)
+        journal = RunJournal(fleet_dir / "runs" / "scav"
+                             / "journal.jsonl").records()
+        if not any(r["event"] == "step.preempted" and r["step"] == "sweep"
+                   for r in journal) or any(r["event"] == "step.killed"
+                                            for r in journal):
+            raise AssertionError("(c) the scavenger was not preempted at a "
+                                 "checkpoint")
+        if (sweep_out / "final").exists():
+            raise AssertionError("(c) the scavenger finished before its "
+                                 "preemption")
+        # the tide ebbs: the queue is empty, the depth decays, the plane
+        # drains a replica and hands its slice back
+        t_down, ticks = time.perf_counter(), 0
+        while plane.split().serve_slices != 1:
+            if ticks > 400 or stop.is_set():
+                raise AssertionError("(c) the plane never scaled down")
+            plane.tick()
+            ticks += 1
+            time.sleep(TIDE_TICK_S)
+        down_s = time.perf_counter() - t_down
+        states = {n: gw.replica(n).state for n in gw.replica_names()}
+        if sorted(states.values()) != ["active", "draining"] or \
+                sched.n_slices != 1:
+            raise AssertionError(f"(c) after scale-down {states}, fleet "
+                                 f"{sched.n_slices}")
+        plane.tick()  # the drain window passes
+        states = {n: gw.replica(n).state for n in gw.replica_names()}
+        if sorted(states.values()) != ["active", "spare"]:
+            raise AssertionError(f"(c) not released: {states}")
+        wait_for(lambda: not thread.is_alive(), "the scavenger's end", stop,
+                 timeout_s=FLEET_WALL_S)
+        tide_s = time.perf_counter() - t0
+        if "error" in result:
+            raise result["error"]
+        if result.get("summary") != {"scav": "done"}:
+            raise AssertionError(f"(c) {result}")
+        report = fleet_run_report(fleet_dir / "runs" / "scav", "(c) scav")
+        again = [gw.query("mlp2/0", x, priority=INTERACTIVE) for x in xs]
+        if not all(torch.equal(torch.as_tensor(a).cpu(),
+                               torch.as_tensor(b).cpu())
+                   for a, b in zip(answers, again)):
+            raise AssertionError("(c) the answers during the tide differ "
+                                 "from the same requests after it")
+        # a fresh arbiter over records an arbiter killed at its barrier
+        # left behind: up, then down
+        recon = {}
+        for serve, reason in ((2, "up"), (1, "down")):
+            sched.queue.append(REBALANCE_EVENT, serve_slices=serve,
+                               fleet_slices=cfg.n_slices - serve,
+                               reason=reason)
+            c2 = serve_captures()
+            fresh = ElasticPlane(fleet_dir, cfg, gateway=gw, fleet=sched)
+            split = fresh.reconcile()
+            got = (split.serve_slices, sched.n_slices,
+                   len(gw.active_replica_names()))
+            if got != (serve, cfg.n_slices - serve, serve) or \
+                    serve_captures() != c2:
+                raise AssertionError(f"(c) reconcile {reason}: {got}")
+            recon[reason] = got
+        # the arbiters count into the process registry, as the JAX
+        # package's do; its plane.* entries go to the fleet's obs dir
+        snap = obs.get_registry().snapshot()
+        sink = obs.EventSink(fleet_dir / "obs" / f"plane-{os.getpid()}.jsonl")
+        obs.emit_event("metrics", sink=sink, registry={
+            kind: {k: v for k, v in table.items() if k.startswith("plane.")}
+            for kind, table in snap.items()})
+        sink.close()
+        frep = build_fleet_report(fleet_dir)
+        pl = frep["plane"]
+        if ([r["reason"] for r in pl["records"]] != ["up", "down", "up",
+                                                     "down"]
+                or (pl["rebalances"], pl["scale_ups"], pl["scale_downs"])
+                != (2, 1, 1) or pl["reconciles"] != 3
+                or pl["replicas_released"] != 1
+                or frep["states"] != {"scav": "done"}
+                or frep["scheduler"]["preemptions"] != 1):
+            raise AssertionError(f"(c) fleet report plane {pl}, states "
+                                 f"{frep['states']}")
+        events = read_events(fleet_dir / "runs" / "scav" / "obs")
+        rep = {"wall_s": tide_s, "setup_s": setup_s,
+               "warmup_captures": warm, "to_first_ckpt_s": to_ckpt,
+               "scale_up_ticks_s": up_s, "to_preempted_release_s": to_release,
+               "scale_down_s": down_s, "scale_down_ticks": ticks,
+               "spare_captures": spare_captures, "reconcile": recon,
+               "child_start_s": child_starts(fleet_dir / "runs" / "scav"),
+               "acts_per_s": sweep_numbers(events)["acts_per_s"],
+               "launches": report_launches(report),
+               "plane": {k: v for k, v in pl.items() if k != "records"},
+               "final": fleet_outputs(scav_root / group["name"])}
+        log(f"  (c) tide {tide_s:.1f} s beside (b) (gateway set up in "
+            f"{setup_s:.1f} s during (a), {warm} captures): the scavenger's "
+            f"first checkpoint set after {to_ckpt:.1f} s; two ticks "
+            f"({up_s * 1e3:.1f} ms) recorded the scale-up, reclaimed the "
+            f"fleet, activated the spare with 0 captures, "
+            f"{TIDE_REQUESTS} held requests answered; the scavenger "
+            f"checkpointed out in {to_release:.1f} s; scale-down in {ticks} "
+            f"ticks ({down_s:.2f} s), drained then released; a fresh "
+            f"arbiter reconciled {recon}")
+        return rep
+    finally:
+        if thread is not None and thread.is_alive():
+            sched.max_wall_s = 0.0  # its drain ends, killing its workers
+            thread.join(timeout=FLEET_WALL_S)
+        gw.shutdown()
+        xcache.disable()
+
+
+def fleet_phase(tmp: Path, dict_file: Path) -> dict:
+    """Phase 19: (a) the group DAG; then (b) the fleet of group tenants in
+    this thread and (c) the plane's tide beside it (its gateway warmed
+    during (a)); (c)'s scavenger must end with (b)'s group-001 bits."""
+    import threading
+
+    t_phase = time.perf_counter()
+    ready, stop, side = threading.Event(), threading.Event(), {}
+
+    def tide():
+        try:
+            side["c"] = fleet_tide(tmp, dict_file, ready, stop)
+        except BaseException as e:  # handed to this thread below
+            side["error"] = e
+
+    thread = threading.Thread(target=tide, name="phase19-tide")
+    thread.start()
+    try:
+        rep = {"a": fleet_dag(tmp)}
+        ready.set()
+        rep["b"] = fleet_tenants(tmp, Path(rep["a"]["store"]))
+    except BaseException:
+        stop.set()
+        raise
+    finally:
+        ready.set()
+        thread.join()
+    if "error" in side:
+        raise side["error"]
+    rep["c"] = side["c"]
+    if rep["c"].pop("final") != rep["b"].pop("final"):
+        raise AssertionError("(c) the resumed scavenger is not bitwise (b)'s "
+                             "group-001")
+    rep["wall_s"] = time.perf_counter() - t_phase
+    overlap = alone_overlap(rep["b"].pop("standalone_chunks"),
+                            [tmp / "fleet", tmp / "tide_fleet"])
+    rep["b"]["standalone_overlap_s"] = overlap
+    log(f"  (b)'s standalone sweep: {rep['b']['standalone_acts_per_s']:,.0f} "
+        f"acts/s over its chunks after the first, "
+        + ("alone on the card (no tenant's or scavenger's step child inside "
+           "its step then)" if overlap == 0 else
+           f"NOT alone: {overlap:.2f} s of its chunks overlapped a step "
+           "child's step"))
+    log(f"  (c)'s scavenger resumed to (b)'s group-001 bits "
+        f"({rep['c']['acts_per_s']:,.0f} acts/s over its chunks after the "
+        "first)")
+    log(f"  phase 19: {rep['wall_s']:.1f} s (budget {FLEET_BUDGET_S:.0f} "
+        f"s): (a) {rep['a']['wall_s']:.1f}, then (b) {rep['b']['wall_s']:.1f} "
+        f"(the standalone sweep {rep['b']['standalone_sweep_s']:.1f} inside "
+        f"it) + standalone eval "
+        f"{rep['b']['standalone_s'] - rep['b']['standalone_sweep_s']:.1f} "
+        f"beside (c) {rep['c']['wall_s']:.1f}")
+    return rep
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -7591,6 +8221,7 @@ def main() -> int:
         report["serve"] = serve_phase(Path(tmp), lm["tied_dicts"],
                                       lm["store"] / f"mlp.{LM_LAYERS[-1]}",
                                       Path(tmp) / "catalog_a")
+        tied_dicts = lm["tied_dicts"]  # phase 19 (c)'s gateway serves them
         del lm
         torch.cuda.empty_cache()
         log(f"  done at {time.perf_counter() - t_start:.1f} s")
@@ -7605,6 +8236,17 @@ def main() -> int:
             "then a resume; (c) a hung step; (d) fsck and the perf ledger; "
             "(e) the trace")
         report["pipeline"] = pipeline_phase(Path(tmp))
+        log(f"  done at {time.perf_counter() - t_start:.1f} s")
+
+        log(f"phase 19: Group-SAE and the fleet on the card — (a) the group "
+            f"DAG ({len(FLEET_LAYERS)} layers of {FLEET_LAYER_CHUNKS} chunks "
+            f"of {PIPE_CHUNK_ROWS} rows at d={D} → G={len(FLEET_GROUPS)}) "
+            f"under a supervisor; (b) one fleet tenant per group "
+            f"(dense_l1_range, {PIPE_MEMBERS} tied members, {FLEET_STEPS} "
+            f"steps, eval), group-000 poisoned; (c) the elastic plane's "
+            f"tide over the fleet and a 1-active/1-spare gateway on phase "
+            f"17's registry")
+        report["fleet"] = fleet_phase(Path(tmp), tied_dicts)
         log(f"  done at {time.perf_counter() - t_start:.1f} s")
 
     timing.update(big["timing"])
@@ -7747,10 +8389,13 @@ def main() -> int:
                     runs[f"rank {r} {run}"] = launches[name]
         if runs:
             entry["phase16_launches"] = runs
-    # phase 18 (a)'s sweep child, read from its run report
+    # phase 18 (a)'s sweep child and phase 19 (b)'s group-001 tenant's,
+    # read from their run reports
     for entry in kernels:
         entry["phase18_launches"] = \
             report["pipeline"]["a"]["launches"].get(entry["name"], 0)
+        entry["phase19_launches"] = \
+            report["fleet"]["b"]["launches"].get(entry["name"], 0)
     report["kernels"] = kernels
     report["timing"] = timing
     report["bounds"] = bnd

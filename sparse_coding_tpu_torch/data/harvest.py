@@ -8,7 +8,7 @@ come back through pinned host buffers filled by non-blocking copies:
 batch i drains into the chunk writers while batch i+1 computes.
 
 The sequence-parallel mesh path (``mesh=``, the JAX package's
-``lm/long_context.py``) is not ported (ROADMAP queue 1, items 11 and 14).
+``lm/long_context.py``) is not ported (ROADMAP queue 1, items 11 and 23).
 """
 
 from __future__ import annotations

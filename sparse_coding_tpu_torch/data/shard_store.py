@@ -22,9 +22,11 @@ does for a flat folder. :class:`ShardedChunkStore` presents one
 positional chunk index space (shard-major) with the ``ChunkStore``
 reader contract: digest-verified loads, per-shard quarantine ledgers,
 positional ``None`` for quarantined chunks, and multi-stream reads
-through ``data/ingest.py::chunk_stream``. The writers that make shards
-(the pipeline's shard harvest) are not ported yet (ROADMAP.md queue 1,
-items 10 and 14).
+through ``data/ingest.py::chunk_stream``. The pipeline's shard and group
+harvests (``pipeline/steps.py``: ``run_shard_harvest``,
+``run_group_harvest``) write the shards; a group's pooled view
+(``groups/assign.py``) is a manifest whose shard names point into its
+parent store (``../shard-000``).
 """
 
 from __future__ import annotations

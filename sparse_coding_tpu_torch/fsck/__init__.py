@@ -16,8 +16,6 @@ _LAZY_ATTRS = {
     "Report": ("sparse_coding_tpu_torch.fsck.findings", "Report"),
     "FINDING_KINDS": ("sparse_coding_tpu_torch.fsck.findings",
                       "FINDING_KINDS"),
-    "UnportedArtifactError": ("sparse_coding_tpu_torch.fsck.checkers",
-                              "UnportedArtifactError"),
 }
 
 __all__ = sorted(_LAZY_ATTRS)

@@ -7,14 +7,16 @@ contents whether it owns an artifact class there (``meta.json`` with
 ``chunk_digests`` ⇒ chunk store, ``manifest.json`` with
 ``kind=sharded_chunk_store`` ⇒ sharded store, ``warmup.json`` ⇒ the
 capture cache's warmup manifest, ``index.json`` with ``files`` ⇒
-catalog, ``journal.jsonl`` ⇒ supervisor run dir,
-``ckpt``/``ckpt_prev`` ⇒ checkpoint retention pair). The finding kinds,
+catalog, ``journal.jsonl`` ⇒ supervisor run dir, ``groups.json`` ⇒ group
+assignment, ``fleet_queue.jsonl`` ⇒ fleet dir, ``ckpt``/``ckpt_prev`` ⇒
+checkpoint retention pair). The finding kinds,
 fatal rules and repairs are the JAX package's; verification reuses the
 write side's rules (chunk and payload digests, shard seals, the torn-tail
 reader contract) plus the cross-checks no single reader performs
 (journal "done" ⇒ artifact exists and verifies; manifest shard count ⇔
 sealed dirs; catalog index ⇔ ``.npy`` digests; checkpoint sidecars ⇔
-``ckpt_prev/`` retention).
+``ckpt_prev/`` retention; group marker ⇔ store manifest; queue replay ⇔
+``runs/<name>/``).
 
 Re-aimed at the port's formats:
 
@@ -25,11 +27,7 @@ Re-aimed at the port's formats:
   pytrees (``utils/checkpoint.py``); the live/prev retention rules are
   the JAX package's;
 - **the capture cache**: the warmup manifest (``xcache/manifest.py``),
-  where the JAX package has ``exec/`` entries and an LRU manifest;
-- **groups and the fleet**: not ported yet. A tree holding a group
-  assignment (``groups.json``) or a fleet queue (``fleet_queue.jsonl``)
-  raises :class:`UnportedArtifactError`, naming the ROADMAP item: it
-  never scans clean.
+  where the JAX package has ``exec/`` entries and an LRU manifest.
 
 Every byte read funnels through :meth:`ScanCtx.read_bytes` /
 :meth:`ScanCtx.read_quiet` and therefore the fault site ``fsck.scan``:
@@ -80,23 +78,7 @@ REPO_ROOT = Path(__file__).resolve().parents[2]
 
 _TMP_RE = re.compile(r"^\..+\.tmp\.(\d+)$")
 _SHARD_RE = re.compile(r"^shard-\d+$")
-
-# the ROADMAP item that ports fsck's groups and fleet checkers
-UNPORTED_ITEM = "ROADMAP.md queue 1, item 20"
-
-
-class UnportedArtifactError(NotImplementedError):
-    """The scanned tree holds an artifact class whose checker is not
-    ported yet (a group assignment, a fleet queue): fsck cannot vouch for
-    it, so it refuses rather than scan clean."""
-
-    def __init__(self, path: Path, artifact_class: str):
-        super().__init__(
-            f"{path}: fsck's {artifact_class} checker is not ported yet "
-            f"({UNPORTED_ITEM}); audit this tree with the JAX package's "
-            "fsck")
-        self.path = Path(path)
-        self.artifact_class = artifact_class
+_GROUP_RE = re.compile(r"^group-\d+$")
 
 
 @dataclass
@@ -540,23 +522,90 @@ def check_xcache(ctx: ScanCtx, d: Path, files: set, dirs: set) -> None:
                 "descriptor's canonical JSON", repair="xcache.reconcile")
 
 
-# -- group assignment and fleet (not ported yet) -----------------------------
+# -- group assignment ---------------------------------------------------------
 
 @checker
 def check_groups(ctx: ScanCtx, d: Path, files: set, dirs: set) -> None:
-    """A group assignment (``groups.json`` of kind ``group_assignment``,
-    or one too damaged to tell): its checker waits for the groups'
-    port."""
+    """``groups.json`` (kind ``group_assignment``) is the group build's
+    completion marker, written LAST: its self-digest must hold, every
+    file it certifies (``similarity.npy``, each pooled
+    ``group-<g>/manifest.json``) must exist and match, and every shard a
+    group references must be listed by the sibling store manifest — a
+    marker steering tenants at shards the store does not carry would
+    train the wrong pool silently. ``group-<g>/`` dirs no group names
+    are orphans (a rebuild at a smaller G leaves them behind)."""
     if "groups.json" not in files:
         return
-    data = ctx.read_quiet(d / "groups.json")[0]
+    path = d / "groups.json"
+    data = ctx.read_bytes(path, "groups")
+    if data is None:
+        return
     try:
-        payload = json.loads(data) if data is not None else None
-    except ValueError:
-        payload = None
-    if payload is None or (isinstance(payload, dict) and payload.get(
-            "kind") == "group_assignment"):
-        raise UnportedArtifactError(d / "groups.json", "groups")
+        payload = json.loads(data)
+    except ValueError as e:
+        ctx.add(path, "groups", CORRUPT,
+                f"unparseable group-assignment marker: {e}", fatal=True)
+        return
+    if not isinstance(payload, dict) \
+            or payload.get("kind") != "group_assignment":
+        return  # some other subsystem's groups.json
+    state = check_payload_digest(payload)
+    if state == "mismatch":
+        ctx.add(path, "groups", INCONSISTENT,
+                "payload digest mismatch — the group assignment cannot "
+                "be trusted (GroupBuildError on load; rebuild via the "
+                "group step)", fatal=True)
+    elif state == "absent":
+        ctx.add(path, "groups", STALE,
+                "digest-less group-assignment marker (loads unverified)")
+    fmap = payload.get("files", {})
+    if isinstance(fmap, dict):
+        for name in sorted(fmap):
+            p = d / name
+            if not p.exists():
+                ctx.add(p, "groups", MISSING,
+                        "file certified by groups.json is absent",
+                        fatal=True)
+                continue
+            raw = ctx.read_bytes(p, "groups")
+            if raw is None:
+                continue
+            if bytes_sha256(raw) != str(fmap[name]):
+                ctx.add(p, "groups", INCONSISTENT,
+                        "file bytes do not match the digest groups.json "
+                        "recorded at finalize", fatal=True)
+    # cross-check against the sibling store manifest: every shard a
+    # group pools must exist in the store the marker sits in
+    listed: Optional[set] = None
+    if "manifest.json" in files:
+        mdata = ctx.read_quiet(d / "manifest.json")[0]
+        try:
+            manifest = json.loads(mdata) if mdata is not None else None
+        except ValueError:
+            manifest = None  # shard_store checker owns that finding
+        if isinstance(manifest, dict) \
+                and manifest.get("kind") == "sharded_chunk_store":
+            listed = {str(s.get("name", ""))
+                      for s in manifest.get("shards", [])}
+    named = set()
+    for g in (payload.get("groups") or []):
+        if not isinstance(g, dict):
+            continue
+        named.add(str(g.get("name", "")))
+        if listed is None:
+            continue
+        for shard in (g.get("shards") or []):
+            if str(shard) not in listed:
+                ctx.add(path, "groups", INCONSISTENT,
+                        f"group {g.get('name')!r} references shard "
+                        f"{shard!r} absent from the store manifest — "
+                        "tenants would train the wrong pool", fatal=True)
+    for name in sorted(dirs):
+        if _GROUP_RE.match(name) and name not in named:
+            ctx.add(d / name, "groups", ORPHAN,
+                    "group dir absent from groups.json (a rebuild at a "
+                    "smaller G leaves stale pools behind)",
+                    repair="groups.drop_pool")
 
 
 # -- catalog ------------------------------------------------------------------
@@ -744,10 +793,42 @@ def check_run_dir(ctx: ScanCtx, d: Path, files: set, dirs: set) -> None:
 
 @checker
 def check_fleet(ctx: ScanCtx, d: Path, files: set, dirs: set) -> None:
-    """A fleet dir (``fleet_queue.jsonl``): its checker waits for the
-    fleet's port."""
-    if "fleet_queue.jsonl" in files:
-        raise UnportedArtifactError(d / "fleet_queue.jsonl", "fleet_queue")
+    """Fleet dir: queue replay ⇔ ``runs/<name>/`` dirs. The queue fold
+    itself is torn-tail safe (pipeline/fleet_queue.py); fsck adds the
+    tail finding + the existence cross-check."""
+    if "fleet_queue.jsonl" not in files:
+        return
+    from sparse_coding_tpu_torch.pipeline.fleet_queue import FleetQueue
+    from sparse_coding_tpu_torch.pipeline.placement import QUEUED
+
+    qpath = d / "fleet_queue.jsonl"
+    data = ctx.read_bytes(qpath, "fleet_queue")
+    if data is None:
+        return
+    _, skipped, torn = _scan_jsonl(data)
+    if torn:
+        ctx.add(qpath, "fleet_queue", TORN,
+                "unterminated final line (crash mid-append) — the "
+                "replay fold skips it by contract",
+                repair="journal.trim_tail")
+    if skipped:
+        ctx.add(qpath, "fleet_queue", STALE,
+                f"{skipped} malformed interior line(s) skipped by the "
+                "replay fold")
+    state = FleetQueue(qpath).replay()
+    runs_dir = d / "runs"
+    for name, run in sorted(state.runs.items()):
+        if run.state == QUEUED:
+            continue  # never placed — no run dir expected yet
+        if not (runs_dir / name).is_dir():
+            ctx.add(runs_dir / name, "fleet_queue", MISSING,
+                    f"queue replay says run {name!r} is {run.state} but "
+                    "its run dir is absent")
+    if runs_dir.is_dir():
+        for sub in sorted(p for p in runs_dir.iterdir() if p.is_dir()):
+            if sub.name not in state.runs:
+                ctx.add(sub, "fleet_queue", ORPHAN,
+                        "run dir with no fleet queue record")
 
 
 # -- generic event / ledger JSONL tails ---------------------------------------

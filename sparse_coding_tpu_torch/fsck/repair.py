@@ -18,6 +18,11 @@ destroy contradictory evidence). Actions:
 ``ckpt.fallback_prev`` remove a corrupt live ``ckpt/`` set whose
                        ``ckpt_prev/`` fallback verified sound — resume
                        then replays from the last-good set
+``groups.drop_pool``   remove a ``group-<g>/`` pooled-view dir absent
+                       from ``groups.json`` (a rebuild at a smaller G
+                       leaves stale pools behind); the view holds only a
+                       derivable manifest — the chunk bytes live in the
+                       shard dirs, untouched
 
 ``crash_barrier("fsck.repair")`` fires immediately before EACH action's
 durable mutation, every action is idempotent, and actions apply in
@@ -140,7 +145,8 @@ def repair_findings(root: str | Path,
             _trim_tail(target)
         elif action == "xcache.reconcile":
             _reconcile_warmup(target)
-        elif action == "ckpt.drop_staging" or action == "ckpt.fallback_prev":
+        elif action in ("ckpt.drop_staging", "ckpt.fallback_prev",
+                        "groups.drop_pool"):
             _rmtree(target)
         else:
             applied.append({"action": action, "path": f.path,

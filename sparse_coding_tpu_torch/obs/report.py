@@ -18,16 +18,18 @@ run ID the supervisor propagated:
   with their seconds). The JAX report's retrace/compile and executable
   cache sections have no meaning here and are not produced;
 - hygiene: files scanned, torn/corrupt lines skipped, run IDs seen;
-- the serving gateway and ladder, the ingest and scrub, the guardian, the
-  kernel-path mix (``ensemble.path_resolved``: which kernel path each
-  ensemble ran, the evidence that a step child went through the kernels)
-  and the device-time ``perf`` section, as in the JAX package.
+- the serving gateway and ladder, the elastic plane, the ingest and
+  scrub, the guardian, the kernel-path mix (``ensemble.path_resolved``:
+  which kernel path each ensemble ran, the evidence that a step child
+  went through the kernels) and the device-time ``perf`` section, as in
+  the JAX package.
 
 ``--diff <run_a> <run_b>`` compares two runs' perf sections and flags
 MFU and latency regressions (label-exact, backend-aware), and
 :func:`diff_ledger_suites` gates ledger suite rows round over round.
-The fleet's report (``is_fleet_dir`` / ``build_fleet_report``) waits for
-the fleet's port and raises, naming its ROADMAP item.
+On a fleet dir (its ``fleet_queue.jsonl``) the CLI routes to
+:func:`build_fleet_report`: the queue replayed, each tenant's own merged
+report, and the scheduler's and the plane's counters.
 
 Diagnostics go to the returned dict / stdout only; this module never
 initializes CUDA, so the CLI runs on a host whose card is wedged.
@@ -299,6 +301,24 @@ def build_report(run_dir: str | Path, obs_subdir: str = "obs") -> dict:
         "trace_skipped": counters.get("obs.trace.skipped", 0),
     }
 
+    # elastic-plane evidence: the arbiter's rebalance story — how often
+    # serving and the fleet traded slices, which direction, what it cost
+    # (scavenger reclaims), what failed (fault-sited errors, retried next
+    # tick) — and the current split gauges
+    plane = {
+        "rebalances": counters.get("plane.rebalances", 0),
+        "scale_ups": counters.get("plane.scale_ups", 0),
+        "scale_downs": counters.get("plane.scale_downs", 0),
+        "reclaims": counters.get("plane.reclaims", 0),
+        "reconciles": counters.get("plane.reconciles", 0),
+        "replicas_released": counters.get("plane.replicas_released", 0),
+        "rebalance_errors": counters.get("plane.rebalance_errors", 0),
+        "scale_errors": counters.get("plane.scale_errors", 0),
+        "serve_slices": gauges.get("plane.serve_slices", {}).get("value"),
+        "fleet_slices": gauges.get("plane.fleet_slices", {}).get("value"),
+        "replicas": gauges.get("plane.replicas", {}).get("value"),
+    }
+
     # guardian evidence: the sweep's divergence
     # ladder — member quarantines, chunk quarantines, rollbacks, typed
     # halts — plus the boundary-check and rollback walls, so one merged
@@ -330,6 +350,7 @@ def build_report(run_dir: str | Path, obs_subdir: str = "obs") -> dict:
         "preparation": preparation,
         "gateway": gateway,
         "ladder": ladder,
+        "plane": plane,
         "ingest": ingest,
         "guardian": guardian,
         "kernel_paths": kernel_paths,
@@ -338,20 +359,115 @@ def build_report(run_dir: str | Path, obs_subdir: str = "obs") -> dict:
     }
 
 
-FLEET_ITEM = ("the fleet's report is not ported yet (ROADMAP.md queue 1, "
-              "item 21, after the fleet itself, item 19)")
-
-
 def is_fleet_dir(path: str | Path) -> bool:
-    """Whether ``path`` is a fleet dir (its queue file is present); the
-    CLI then raises, naming the fleet's ROADMAP item."""
-    return (Path(path) / "fleet_queue.jsonl").exists()
+    """A fleet dir is recognized by its queue file — the CLI auto-routes
+    to the fleet section (one report command, whatever the layout)."""
+    from sparse_coding_tpu_torch.pipeline.fleet_queue import QUEUE_NAME
+
+    return (Path(path) / QUEUE_NAME).exists()
 
 
 def build_fleet_report(fleet_dir: str | Path) -> dict:
-    """The multi-tenant report: raises until the fleet is ported."""
-    raise NotImplementedError(f"build_fleet_report({fleet_dir}): "
-                              + FLEET_ITEM)
+    """The multi-tenant merge: replay the fleet queue (host only — runs
+    on a host whose card is wedged) and build each tenant's OWN merged
+    report over its run dir, plus the scheduler's
+    placement/preemption/containment counters from the fleet-level event
+    files. One command answers the incident questions: which tenant
+    halted, what did it cost everyone else (nothing), and did the next
+    tenant start warm (no nvcc run, no capture outside a warmup)."""
+    from sparse_coding_tpu_torch.pipeline.fleet_queue import (
+        QUEUE_NAME,
+        FleetQueue,
+    )
+
+    fleet_dir = Path(fleet_dir)
+    state = FleetQueue(fleet_dir / QUEUE_NAME).replay()
+    tenants = {}
+    for name, run in sorted(state.runs.items()):
+        report = build_report(fleet_dir / "runs" / name)
+        tenants[name] = {
+            "state": run.state, "priority": run.priority,
+            "slices": run.slices, "attempts": run.attempts,
+            "report": report,
+        }
+    # the scheduler's own evidence stream (obs/fleet-<pid>.jsonl files)
+    sched = build_report(fleet_dir)
+    counters = sched.get("counters", {})
+    releases = {}
+    for cname, v in counters.items():
+        base, labels = split_labels(cname)
+        if base == "fleet.releases" and "outcome" in labels:
+            releases[labels["outcome"]] = releases.get(
+                labels["outcome"], 0) + int(v)
+    # plane.rebalance records are plane-level journal events (step=""),
+    # invisible to the run-state fold by design — surface them here so
+    # the fleet report shows the tide cycle the tenants lived through
+    rebalances = [
+        {"seq": int(r.get("seq", 0)),
+         "serve_slices": int((r.get("detail") or {}).get(
+             "serve_slices", 0)),
+         "fleet_slices": int((r.get("detail") or {}).get(
+             "fleet_slices", 0)),
+         "reason": (r.get("detail") or {}).get("reason", "?")}
+        for r in FleetQueue(fleet_dir / QUEUE_NAME).journal.records()
+        if r.get("event") == "plane.rebalance"]
+    return {
+        "fleet_dir": str(fleet_dir),
+        "states": state.summary(),
+        "tenants": tenants,
+        "plane": {**sched.get("plane", {}), "records": rebalances},
+        "scheduler": {
+            "placements": counters.get("fleet.placements", 0),
+            "preemptions": counters.get("fleet.preemptions", 0),
+            "halts": counters.get("fleet.halts", 0),
+            "reclaims": counters.get("fleet.reclaims", 0),
+            "worker_hangs": counters.get("fleet.worker_hangs", 0),
+            "place_errors": counters.get("fleet.place_errors", 0),
+            "preempt_errors": counters.get("fleet.preempt_errors", 0),
+            "releases": releases,
+            "events": sched.get("events", 0),
+        },
+    }
+
+
+def format_fleet_report(fleet: dict) -> str:
+    sched = fleet["scheduler"]
+    lines = [f"fleet {fleet['fleet_dir']} — "
+             f"{len(fleet['tenants'])} tenant(s)",
+             f"scheduler: {sched['placements']} placement(s), "
+             f"{sched['preemptions']} preemption(s), "
+             f"{sched['halts']} halt(s), {sched['reclaims']} reclaim(s), "
+             f"{sched['worker_hangs']} hung worker(s); releases "
+             + (", ".join(f"{k}={v}"
+                          for k, v in sorted(sched["releases"].items()))
+                or "-")]
+    plane = fleet.get("plane", {})
+    if plane.get("records") or plane.get("rebalances"):
+        lines.append(
+            f"plane: {plane.get('rebalances', 0)} rebalance(s) "
+            f"({plane.get('scale_ups', 0)} up/"
+            f"{plane.get('scale_downs', 0)} down), "
+            f"{plane.get('reclaims', 0)} scavenger reclaim(s), "
+            f"{plane.get('rebalance_errors', 0)}+"
+            f"{plane.get('scale_errors', 0)} error(s); split "
+            f"serve={plane.get('serve_slices', '-')}/"
+            f"fleet={plane.get('fleet_slices', '-')} slice(s)")
+    for name, t in fleet["tenants"].items():
+        rep = t["report"]
+        gd = rep.get("guardian", {})
+        prep = rep.get("preparation", {})
+        lines.append(
+            f"tenant {name}: {t['state']} ({t['priority']}, "
+            f"{t['slices']} slice(s), {t['attempts']} attempt(s)) — "
+            f"guardian {gd.get('halts', 0)} halt(s)/"
+            f"{gd.get('rollbacks', 0)} rollback(s), "
+            f"{prep.get('nvcc_runs', 0)} nvcc run(s), "
+            f"{prep.get('captures', 0)} capture(s), "
+            f"{rep.get('events', 0)} event(s)")
+    lines.append("per-tenant detail: python -m "
+                 "sparse_coding_tpu_torch.obs.report "
+                 "<fleet_dir>/runs/<tenant>")
+    return "\n".join(lines)
 
 
 def _fmt_s(v: Optional[float]) -> str:
@@ -694,7 +810,9 @@ def main(argv=None) -> None:
             "usage: python -m sparse_coding_tpu_torch.obs.report "
             "<run_dir|fleet_dir> [--json] | --diff <run_a> <run_b>")
     if is_fleet_dir(argv[0]):
-        raise SystemExit(f"{argv[0]}: " + FLEET_ITEM)
+        _print_report(build_fleet_report(argv[0]), format_fleet_report,
+                      as_json)
+        return
     _print_report(build_report(argv[0]), format_report, as_json)
 
 

@@ -1,20 +1,26 @@
-"""Crash-only pipeline supervision (the port's counterpart of the JAX
-package's ``pipeline/``):
+"""Crash-only pipeline supervision and the fleet (the port's counterpart
+of the JAX package's ``pipeline/``):
 
 - :mod:`journal`    — the append-only run journal (the supervisor's only
   memory; atomic appends, artifacts beat the journal);
 - :mod:`supervisor` — the step DAG runner: child processes on the card,
   lease takeover, SIGKILL recovery, the hang watchdog's card probe,
   degrade-to-CPU, the resume preflight fsck and the run's perf-ledger
-  row;
+  row; the flat, sharded and group (multi-tap) DAGs;
 - :mod:`steps`      — the built-in resumable step children (harvest,
-  shard_harvest, manifest, scrub, sweep, eval, catalog);
-- :mod:`plane`      — the elastic plane's ``Hysteresis`` (the serving
-  gateway's ladder flap guard).
-
-The fleet (``fleet.py``, ``fleet_queue.py``, ``placement.py``, the
-plane's arbiter) and the groups' steps are ROADMAP.md queue 1, items 18
-and 19.
+  shard_harvest, group_harvest, manifest, scrub, group, sweep, eval,
+  catalog);
+- :mod:`fleet` / :mod:`fleet_queue` / :mod:`placement` — the fleet
+  scheduler: a durable bitwise-replay run queue bin-packed onto slices
+  with serve/slo.py's priority classes, per-run worker subprocesses (one
+  Supervisor each), chunk-boundary SIGTERM preemption and per-tenant
+  guardian-halt containment;
+- :mod:`plane`      — the elastic plane: one arbiter trading slices
+  between the serving gateway's replica pool and the fleet's scavenger
+  tenants, with durable rebalance records in the fleet queue journal,
+  zero-capture warm-spare scale-up, SIGTERM-checkpoint reclaim and
+  hysteresis against flapping load (its ``Hysteresis`` is also the
+  serving gateway's ladder flap guard).
 """
 
 import importlib
@@ -23,8 +29,28 @@ import importlib
 # sparse_coding_tpu_torch.pipeline.steps`` is a runpy entry point, and an
 # eager import here would load that module twice
 _LAZY_ATTRS = {
+    "FleetScheduler": ("sparse_coding_tpu_torch.pipeline.fleet",
+                       "FleetScheduler"),
+    "run_worker": ("sparse_coding_tpu_torch.pipeline.fleet", "run_worker"),
+    "FleetQueue": ("sparse_coding_tpu_torch.pipeline.fleet_queue",
+                   "FleetQueue"),
+    "FleetState": ("sparse_coding_tpu_torch.pipeline.fleet_queue",
+                   "FleetState"),
     "RunJournal": ("sparse_coding_tpu_torch.pipeline.journal", "RunJournal"),
+    "PlacementPlan": ("sparse_coding_tpu_torch.pipeline.placement",
+                      "PlacementPlan"),
+    "RunState": ("sparse_coding_tpu_torch.pipeline.placement", "RunState"),
+    "plan_placement": ("sparse_coding_tpu_torch.pipeline.placement",
+                       "plan_placement"),
+    "ElasticPlane": ("sparse_coding_tpu_torch.pipeline.plane",
+                     "ElasticPlane"),
     "Hysteresis": ("sparse_coding_tpu_torch.pipeline.plane", "Hysteresis"),
+    "PlaneConfig": ("sparse_coding_tpu_torch.pipeline.plane", "PlaneConfig"),
+    "PlaneSplit": ("sparse_coding_tpu_torch.pipeline.plane", "PlaneSplit"),
+    "desired_replicas": ("sparse_coding_tpu_torch.pipeline.plane",
+                         "desired_replicas"),
+    "replay_split": ("sparse_coding_tpu_torch.pipeline.plane",
+                     "replay_split"),
 }
 for _name in ("STEP_EXIT_HALTED", "STEP_EXIT_PREEMPTED",
               "ConcurrentSupervisorError", "PipelineError",

@@ -1,11 +1,12 @@
-"""Built-in pipeline step children: harvest / sweep / eval / catalog (the
-port's counterpart of the JAX package's ``pipeline/steps.py``).
+"""Built-in pipeline step children: the harvests, manifest, scrub, group,
+sweep, eval and catalog (the port's counterpart of the JAX package's
+``pipeline/steps.py``).
 
 Each step is a subprocess entry point (``python -m
 sparse_coding_tpu_torch.pipeline.steps <step> --config pipeline.json``)
 obeying the crash-only contract the supervisor depends on:
 
-- **re-runnable from scratch at any instant**: the harvest resumes from
+- **re-runnable from scratch at any instant**: the harvests resume from
   the durable chunk prefix (``complete_chunk_count`` and a producer-row
   skip, or ``skip_chunks`` on the LM path), the sweep from its checkpoint
   sets (``resume=True``), eval and catalog are idempotent behind their
@@ -35,8 +36,9 @@ its durable chunks cover without drawing them and replays the rest to
 the same bytes. The ground-truth dictionary comes from a generator
 seeded by ``seed``.
 
-Config file: one JSON object with ``harvest`` / ``sweep`` / ``eval`` /
-``catalog`` sections, the JAX package's keys (see each step function).
+Config file: one JSON object with ``harvest`` / ``scrub`` / ``group`` /
+``sweep`` / ``eval`` / ``catalog`` sections, the JAX package's keys (see
+each step function).
 All seeds are explicit.
 """
 
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import json
 import os
+import signal
 import sys
 from pathlib import Path
 from typing import Optional
@@ -64,10 +67,6 @@ register_crash_site("eval.write",
 
 # the device every entry point of a step child runs on; unset = the card
 ENV_DEVICE = "SPARSE_CODING_DEVICE"
-
-# what the groups' steps wait for
-GROUPS_ITEM = "ROADMAP.md queue 1, item 18"
-
 
 class HarvestConfigError(ValueError):
     """Typed harvest-config contradiction: ``layer`` and ``layers`` given
@@ -107,13 +106,17 @@ def batch_seed(seed: int, b: int) -> int:
 
 def _synthetic_harvest(cfg: dict, folder: Optional[Path] = None,
                        row_range: Optional[tuple] = None,
+                       transform=None, extra_meta: Optional[dict] = None,
                        device=None) -> None:
     """Deterministic synthetic activation store with crash-resume: the
     batches already covered by durable chunks are skipped (each batch has
     its own seeded generator), the rest replayed, so the finished store —
     chunks, digests, meta — is byte-identical however many times the
     process died along the way. ``row_range=(lo, hi)`` writes only that
-    slice of the stream into ``folder`` (a shard writer's rows)."""
+    slice of the stream into ``folder`` (a shard writer's rows);
+    ``transform`` maps each kept float32 row block before it is written
+    (the group harvest's per-layer mix) and ``extra_meta`` joins
+    ``meta.json`` (its tap stamps)."""
     import torch
 
     from sparse_coding_tpu_torch import resolve_device
@@ -155,13 +158,16 @@ def _synthetic_harvest(cfg: dict, folder: Optional[Path] = None,
             b_lo = max(0, skip_rows - produced)
             b_hi = min(n, hi_row - produced)
             if b_hi > b_lo:
-                writer.add(batch[b_lo:b_hi])
+                kept = batch[b_lo:b_hi]
+                writer.add(transform(kept) if transform is not None
+                           else kept)
         produced += n
         b += 1
         lease.beat()
     writer.finalize({"synthetic": True, "seed": seed,
                      **({"row_range": [lo_row, hi_row]}
-                        if row_range is not None else {})})
+                        if row_range is not None else {}),
+                     **(extra_meta or {})})
 
 
 def _resolve_layers(cfg: dict) -> list[int]:
@@ -180,13 +186,15 @@ def _resolve_layers(cfg: dict) -> list[int]:
     return layers
 
 
-def _lm_harvest(cfg: dict, device=None) -> None:
+def _lm_harvest(cfg: dict, tap_dirs: Optional[dict] = None,
+                device=None) -> None:
     """Tiny-LM harvest through the real ``harvest_activations`` path
     (``tiny_test_config``'s shapes, random weights from a torch generator
     seeded by ``seed``, seeded numpy token rows — no network), resuming
     via ``skip_chunks`` from the shortest durable tap prefix. Multi-tap
     when ``layers`` lists several: ``dataset_folder`` must be the PRIMARY
-    (first) tap subfolder, the step's completion marker."""
+    (first) tap subfolder, the step's completion marker; ``tap_dirs``
+    remaps tap → folder (the group harvest's shards)."""
     import torch
 
     from sparse_coding_tpu_torch.data.chunk_store import complete_chunk_count
@@ -198,7 +206,8 @@ def _lm_harvest(cfg: dict, device=None) -> None:
     layers = _resolve_layers(cfg)
     layer_loc = cfg.get("layer_loc", "residual")
     taps = taps_for(layers, layer_loc)
-    if folder.name != tap_name(layers[0], layer_loc):
+    tap_dirs = dict(tap_dirs or {})
+    if not tap_dirs and folder.name != tap_name(layers[0], layer_loc):
         raise HarvestConfigError(
             f"harvest.dataset_folder must be the primary tap subfolder "
             f"{tap_name(layers[0], layer_loc)!r} the harvester writes "
@@ -218,12 +227,14 @@ def _lm_harvest(cfg: dict, device=None) -> None:
         (int(cfg["n_rows"]), int(cfg.get("context_len", 16))))
     # one forward feeds every tap's writer, so resume from the shortest
     # durable prefix; a tap ahead of the others re-seals idempotently
-    skip = min(complete_chunk_count(folder.parent / t) for t in taps)
+    skip = min(complete_chunk_count(Path(tap_dirs.get(t, folder.parent / t)))
+               for t in taps)
     harvest_activations(
         params, lm_cfg, token_rows, layers, layer_loc, folder.parent,
         model_batch_size=int(cfg.get("model_batch_size", 2)),
         chunk_size_gb=float(cfg["chunk_size_gb"]), skip_chunks=skip,
-        dtype=cfg.get("dtype", "float16"), device=device)
+        dtype=cfg.get("dtype", "float16"), tap_dirs=tap_dirs or None,
+        device=device)
 
 
 def run_shard_harvest(config: dict, shard: int, device=None) -> None:
@@ -267,22 +278,113 @@ def run_shard_harvest(config: dict, shard: int, device=None) -> None:
     write_shard_digest(folder)
 
 
+def _layer_mixer(dim: int, layer: int, seed: int, phase_step: float):
+    """Deterministic per-layer mix for the synthetic multi-tap harvest:
+    ``x ↦ cos(φ)·x + sin(φ)·(x·Q)`` with one orthogonal Q shared by all
+    layers and φ = phase_step·layer, so two layers' rows subtend angle
+    ≈ |φ_i − φ_j| and adjacent layers are measurably more similar — the
+    Group-SAE premise (arXiv 2410.21508 §3), reproduced synthetically.
+    Pure rowwise numpy on the host (bitwise the JAX package's), a function
+    of (dim, layer, seed) only — resume replays bitwise."""
+    q, _ = np.linalg.qr(
+        np.random.default_rng(int(seed) + 7919).normal(size=(dim, dim)))
+    q = q.astype(np.float32)
+    c, s = np.float32(np.cos(phase_step * layer)), \
+        np.float32(np.sin(phase_step * layer))
+
+    def mix(rows: np.ndarray) -> np.ndarray:
+        x = rows.astype(np.float32, copy=False)
+        return c * x + s * (x @ q)
+
+    return mix
+
+
 def run_group_harvest(config: dict, shard: int, device=None) -> None:
-    """The group (multi-tap) harvest: not ported yet."""
-    raise NotImplementedError(
-        f"group_harvest is not ported yet ({GROUPS_ITEM}, groups/)")
+    """One multi-tap writer owning one layer (= one shard of the
+    multi-tap store): ``config["harvest"]`` plus ``layers`` — child ``i``
+    harvests layer ``layers[i]`` into ``<dataset_folder>/shard-<i>/`` and
+    nothing else. Taps are shards: the sealed-shard layout, the manifest
+    step, scrub and fsck's shard checkers carry the multi-tap store
+    unchanged, and the DAG has no edges between the writers.
+
+    Every writer replays the SAME producer stream over all rows, so row
+    ``r`` of shard ``i`` and row ``r`` of shard ``j`` are the same input
+    observed at two depths — the row alignment ``groups/similarity.py``
+    depends on. Synthetic mode applies the deterministic per-layer mix
+    (``_layer_mixer``); LM mode runs the real ``harvest_activations`` with
+    this child's tap remapped to its shard dir. ``meta.json`` carries the
+    shard's ``tap``/``layer``/``layer_loc``. Resume and seal follow
+    ``run_shard_harvest``: durable chunk prefix + row skip, an idempotent
+    re-seal behind the ``shard.finalize`` crash barrier."""
+    from sparse_coding_tpu_torch.data.chunk_store import clean_write_debris
+    from sparse_coding_tpu_torch.data.shard_store import (
+        shard_name,
+        write_shard_digest,
+    )
+    from sparse_coding_tpu_torch.lm.hooks import tap_name
+
+    cfg = config["harvest"]
+    layers = _resolve_layers(cfg)
+    shard = int(shard)
+    if not 0 <= shard < len(layers):
+        raise ValueError(f"shard {shard} out of range [0, {len(layers)})")
+    layer = layers[shard]
+    layer_loc = cfg.get("layer_loc", "residual")
+    tap = tap_name(layer, layer_loc)
+    folder = Path(cfg["dataset_folder"]) / shard_name(shard)
+    if not (folder / "meta.json").exists():
+        folder.mkdir(parents=True, exist_ok=True)
+        clean_write_debris(folder)  # tmp debris from a killed writer
+        if cfg.get("mode", "synthetic") == "synthetic":
+            mixer = _layer_mixer(int(cfg["activation_dim"]), layer,
+                                 int(cfg.get("seed", 0)),
+                                 float(cfg.get("phase_step", 0.35)))
+            _synthetic_harvest(cfg, folder=folder, transform=mixer,
+                               extra_meta={"tap": tap, "layer": layer,
+                                           "layer_loc": layer_loc},
+                               device=device)
+        else:
+            _lm_harvest({**cfg, "layers": [layer], "layer": layer,
+                         "dataset_folder": str(folder)},
+                        tap_dirs={tap: folder}, device=device)
+    # seal (idempotent): meta durable -> crash barrier -> shard.digest
+    write_shard_digest(folder)
 
 
 def run_group(config: dict, device=None) -> None:
-    """The group assignment step: not ported yet."""
-    raise NotImplementedError(
-        f"the group step is not ported yet ({GROUPS_ITEM}, groups/)")
+    """``config["group"]`` keys: ``n_groups``, optional
+    ``n_sample_chunks`` / ``n_sample_rows`` / ``seed``. Similarity pass
+    + greedy adjacent assignment over the multi-tap store, finalizing
+    ``groups.json``. Host numpy only, like scrub: the step runs on a host
+    whose card is wedged. Idempotent behind a digest-sound
+    ``groups.json`` (a rotted marker is rebuilt, byte-deterministic); a
+    killed build rebuilds identically (crash barrier
+    ``groups.finalize``)."""
+    from sparse_coding_tpu_torch.groups.assign import (
+        GroupBuildError,
+        build_groups,
+        load_groups,
+    )
+
+    cfg = config.get("group", {})
+    store = Path(config["harvest"]["dataset_folder"])
+    try:
+        load_groups(store)
+        return  # digest-sound completion marker: idempotent skip
+    except (FileNotFoundError, GroupBuildError):
+        pass  # absent or rotted: (re)build overwrites atomically
+    build_groups(store, n_groups=int(cfg.get("n_groups", 2)),
+                 n_sample_chunks=int(cfg.get("n_sample_chunks", 1)),
+                 n_sample_rows=int(cfg.get("n_sample_rows", 2048)),
+                 seed=int(cfg.get("seed", 0)))
 
 
 def run_store_manifest(config: dict, device=None) -> None:
-    """Aggregate the sealed shards into the store-level manifest. A
-    manifest already at this run's shard count is an idempotent skip; one
-    from a different shard count is rebuilt (byte-deterministic)."""
+    """Aggregate the sealed shards into the store-level manifest: the
+    sharded harvest's ``n_shards``, or one shard per layer for the group
+    (multi-tap) harvest. A manifest already at this run's shard count is
+    an idempotent skip; one from a different shard count is rebuilt
+    (byte-deterministic)."""
     from sparse_coding_tpu_torch.data.shard_store import (
         build_store_manifest,
         read_store_manifest,
@@ -290,7 +392,8 @@ def run_store_manifest(config: dict, device=None) -> None:
 
     cfg = config["harvest"]
     folder = Path(cfg["dataset_folder"])
-    n_shards = int(cfg["n_shards"])
+    n_shards = (int(cfg["n_shards"]) if "n_shards" in cfg
+                else len(_resolve_layers(cfg)))
     existing = read_store_manifest(folder)
     if existing is not None and int(existing.get("n_shards", -1)) == n_shards:
         return
@@ -473,6 +576,18 @@ def main(argv=None) -> None:
     xcache.enable_from_env()
     config = json.loads(Path(config_path).read_text())
     device = os.environ.get(ENV_DEVICE, "").strip() or None
+    if step == "sweep":
+        # the sweep's graceful SIGTERM path ends in a checkpoint and a typed
+        # exit. This outer guard holds a signal as a flag for the child's
+        # whole life: one that lands before the sweep opens its own guard
+        # is taken over by it (a checkpoint after the first chunk, then
+        # exit 75), and a fleet scheduler's repeat that lands after that
+        # guard has closed is absorbed. The exit path below ignores
+        # SIGTERM outright, since the interpreter's finalization resets
+        # Python-level handlers to the default, which kills.
+        from sparse_coding_tpu_torch.resilience.preempt import PreemptionGuard
+
+        PreemptionGuard().__enter__()
     try:
         from sparse_coding_tpu_torch import resolve_device
 
@@ -508,6 +623,8 @@ def main(argv=None) -> None:
             raise SystemExit(STEP_EXIT_HALTED) from e
         raise
     finally:
+        if step == "sweep":
+            signal.signal(signal.SIGTERM, signal.SIG_IGN)  # outcome decided
         obs.update_memory_gauges()
         obs.flush_metrics()
         obs.close_sink()

@@ -253,13 +253,19 @@ class Supervisor:
     def __init__(self, run_dir: str | Path, steps: Sequence[Step], *,
                  max_attempts: int = 2, heartbeat_stale_s: float = 120.0,
                  poll_s: float = 0.25, cpu_only: bool = False,
-                 prober=None, clock=time.time):
+                 prober=None, clock=time.time,
+                 preempt_flag: Optional[Callable[[], bool]] = None):
         self.run_dir = Path(run_dir)
         self.steps = _toposort(steps)
         self.max_attempts = int(max_attempts)
         self.heartbeat_stale_s = float(heartbeat_stale_s)
         self.poll_s = float(poll_s)
         self.cpu_only = bool(cpu_only)
+        # a fleet worker's cooperative preemption hook (pipeline/fleet.py,
+        # resilience/preempt.py): checked between steps and between
+        # attempts, so a SIGTERM that lands while NO child is running
+        # still stops the run typed instead of spawning fresh work
+        self._preempt_flag = preempt_flag
         # prober(env) -> probe report: the card as the hung child saw it
         self._prober = prober or watchdog_mod.probe_card
         self._clock = clock
@@ -322,6 +328,7 @@ class Supervisor:
                                             note="artifact present at startup")
                     summary[step.name] = "skipped"
                     continue
+                self._check_preempted(step.name)
                 self._takeover_lease(step)
                 self._run_step(step)
                 summary[step.name] = "done"
@@ -445,10 +452,18 @@ class Supervisor:
             env = stripped_cpu_env(env)
         return env
 
+    def _check_preempted(self, step_name: str) -> None:
+        if self._preempt_flag is not None and self._preempt_flag():
+            self.journal.append("step.preempted", step_name,
+                                note="flag checked before spawn")
+            raise StepPreempted(step_name)
+
     def _run_step(self, step: Step) -> None:
         degraded = False
         last_reason = "never spawned"
         for attempt in range(1, self.max_attempts + 1):
+            if attempt > 1:
+                self._check_preempted(step.name)
             log_path = self._log_path(step, attempt)
             env = self._child_env(step, degraded)
             spawn_argv = list(step.argv)
@@ -539,6 +554,11 @@ class Supervisor:
         while True:
             if proc.poll() is not None:
                 return None
+            # the supervisor's OWN heartbeat: when this supervisor is a
+            # fleet per-run worker (pipeline/fleet.py), the scheduler
+            # watches a worker lease exported through the env — babysitting
+            # a live child IS progress; a no-op outside a fleet
+            lease_mod.beat()
             state = lease_state(path, self.heartbeat_stale_s,
                                 clock=self._clock)
             if state == "stale" or state == "missing":
@@ -566,8 +586,7 @@ def _kill_pid(pid: int) -> None:
 
 # -- canonical pipelines -----------------------------------------------------
 
-# what the builders not ported yet wait for
-GROUPS_ITEM = "ROADMAP.md queue 1, item 18"
+# what the builder not ported yet waits for
 BENCH_ITEM = "ROADMAP.md queue 1, item 1 (the port has no bench entry yet)"
 
 
@@ -622,7 +641,9 @@ def _sweep_eval_steps(cfg_path: Path, config: dict, anchor,
                       sweep_dep: Optional[str]) -> list[Step]:
     """The sweep → eval (→ catalog) DAG tail, shared by the builders so
     the step argv, dependency shape and done() markers cannot drift
-    between the flat and sharded data planes."""
+    between the flat, sharded and group data planes. ``sweep_dep=None``
+    drops the harvest edge entirely — the group-tenant case: the pooled
+    store the tenant trains on is durable before enqueue."""
     sweep_out = anchor(config["sweep"]["ensemble"]["output_folder"])
     eval_out = anchor(config["eval"]["output_folder"])
     name = config["sweep"].get("experiment", "dense_l1_range")
@@ -717,17 +738,77 @@ def build_sharded_pipeline(run_dir: str | Path, config: dict,
 
 def build_group_pipeline(run_dir: str | Path, config: dict,
                          only: Optional[Sequence[str]] = None) -> list[Step]:
-    """The Group-SAE data-plane DAG: not ported yet."""
-    raise NotImplementedError(
-        f"build_group_pipeline is not ported yet ({GROUPS_ITEM})")
+    """The Group-SAE data-plane DAG:
+
+        harvest-<i> (one multi-tap writer child per layer — taps are
+                     shards, no edges between the writers)
+          → manifest (aggregate sealed shards)
+          → scrub (digest re-verify + quarantine/repair)
+          → group (similarity + greedy assignment → ``groups.json``, host
+                   numpy only; done() = the digest-sound marker)
+          [→ sweep → eval (→ catalog) — opt-in: a config with a "sweep"
+             section trains one pooled-store sweep inline; the usual
+             shape instead enqueues one fleet tenant per group after the
+             ``group`` step finalizes (groups/tenants.py)]
+
+    ``config["harvest"]["layers"]`` sets the writer count: writer ``i``
+    harvests layer ``layers[i]`` into ``shard-<i>/``, replaying the same
+    producer stream as every other writer so rows stay aligned across
+    layers (the similarity pass's contract). Everything below the
+    writers reuses the sharded plane: the same manifest and scrub steps,
+    the same done() markers."""
+    from sparse_coding_tpu_torch.data.shard_store import (
+        SHARD_DIGEST_NAME,
+        shard_name,
+    )
+    from sparse_coding_tpu_torch.groups.assign import GROUPS_NAME
+    from sparse_coding_tpu_torch.pipeline.steps import (
+        SCRUB_MARKER_NAME,
+        _resolve_layers,
+    )
+
+    cfg_path, anchor = _persist_pipeline_config(run_dir, config)
+    dataset = anchor(config["harvest"]["dataset_folder"])
+    scrub_done = Path(run_dir) / SCRUB_MARKER_NAME
+    n_layers = len(_resolve_layers(config["harvest"]))
+
+    def sealed(i: int) -> Callable[[], bool]:
+        d = dataset / shard_name(i)
+        return lambda: ((d / "meta.json").exists()
+                        and (d / SHARD_DIGEST_NAME).exists())
+
+    writers = [Step(f"harvest-{i}",
+                    step_argv("group_harvest", cfg_path)
+                    + ["--shard", str(i)],
+                    done=sealed(i))
+               for i in range(n_layers)]
+    steps = writers + [
+        Step("manifest", step_argv("manifest", cfg_path),
+             deps=tuple(w.name for w in writers),
+             done=lambda: _manifest_matches(dataset, n_layers)),
+        Step("scrub", step_argv("scrub", cfg_path), deps=("manifest",),
+             done=scrub_done.exists),
+        Step("group", step_argv("group", cfg_path), deps=("scrub",),
+             done=lambda: (dataset / GROUPS_NAME).exists()),
+    ]
+    if "sweep" in config:
+        steps += _sweep_eval_steps(cfg_path, config, anchor,
+                                   sweep_dep="group")
+    return _prune(steps, only)
 
 
 def build_group_tenant_pipeline(run_dir: str | Path, config: dict,
                                 only: Optional[Sequence[str]] = None,
                                 ) -> list[Step]:
-    """One group tenant's DAG: not ported yet."""
-    raise NotImplementedError(
-        f"build_group_tenant_pipeline is not ported yet ({GROUPS_ITEM})")
+    """One group tenant's DAG (fleet ``kind="group"``): just the sweep →
+    eval (→ catalog) tail over the group's pooled store view — no harvest
+    edge, because ``groups.json`` (and every pooled manifest under it)
+    was durable before the tenant could be enqueued (groups/tenants.py
+    reads the finalized assignment). Guardian halts stay contained to
+    this tenant's run dir exactly as for flat tenants."""
+    cfg_path, anchor = _persist_pipeline_config(run_dir, config)
+    return _prune(_sweep_eval_steps(cfg_path, config, anchor,
+                                    sweep_dep=None), only)
 
 
 def supervise_bench(run_dir: str | Path, *, max_attempts: int = 2,

@@ -76,6 +76,10 @@ class Lease:
             "run": os.environ.get(ENV_RUN_ID, "")}))
         self._last_write = now
 
+    def release(self) -> None:
+        """Drop the claim (a clean exit: the next owner finds none)."""
+        self.path.unlink(missing_ok=True)
+
 
 def read_lease(path: str | Path) -> Optional[LeaseInfo]:
     """A lease file parsed, or None when it is missing or unreadable

@@ -41,7 +41,13 @@ class PreemptionGuard:
     def __enter__(self) -> "PreemptionGuard":
         if threading.current_thread() is threading.main_thread():
             for sig in self._signals:
-                self._previous[sig] = signal.signal(sig, self._handle)
+                prev = signal.signal(sig, self._handle)
+                self._previous[sig] = prev
+                # nested in another guard: a signal that guard already
+                # caught is this guard's too, not lost in the hand-over
+                outer = getattr(prev, "__self__", None)
+                if isinstance(outer, PreemptionGuard) and outer.requested:
+                    self._event.set()
             self._installed = True
         return self
 

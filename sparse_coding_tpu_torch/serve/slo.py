@@ -50,8 +50,8 @@ PRIORITIES = (INTERACTIVE, BATCH, SCAVENGER)
 
 def priority_rank(priority: str) -> int:
     """Scheduling rank (0 = most urgent): the one ordering of the
-    gateway's admission ladder (and of the JAX package's fleet scheduler,
-    whose port is ROADMAP item 19). Unknown priorities raise."""
+    gateway's admission ladder and of the fleet's placement
+    (pipeline/placement.py). Unknown priorities raise."""
     if priority not in PRIORITIES:
         raise ValueError(f"unknown priority {priority!r} "
                          f"(supported: {PRIORITIES})")

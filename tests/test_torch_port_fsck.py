@@ -12,8 +12,10 @@ findings are a deterministic function of the tree's bytes.
 The port's own formats get the same cases with no JAX oracle: its
 checkpoint sets (``.tensors`` payloads, ``.meta.json`` sidecars, orbax
 shard files, ``.sha256`` pytrees) under the JAX package's live/prev
-retention rules, and its capture cache's warmup manifest. A tree holding
-a group assignment or a fleet queue raises the typed unported error.
+retention rules, and its capture cache's warmup manifest. Group
+assignments (built by the JAX package's ``build_groups``, whose bytes the
+port's equal) and fleet dirs (a queue written by the JAX package's
+``FleetQueue``) are trees of the parity table too.
 """
 
 import hashlib
@@ -35,12 +37,7 @@ from sparse_coding_tpu.resilience.manifest import (
     bytes_sha256,
     embed_payload_digest,
 )
-from sparse_coding_tpu_torch.fsck import (
-    Finding,
-    UnportedArtifactError,
-    run_fsck,
-    scan_tree,
-)
+from sparse_coding_tpu_torch.fsck import Finding, run_fsck, scan_tree
 from sparse_coding_tpu_torch.fsck.findings import (
     CORRUPT,
     INCONSISTENT,
@@ -220,6 +217,98 @@ def _event_tails(r: Path):
     (r / "perf_ledger.jsonl").write_bytes(b'{"kind": "run"}\n')
 
 
+def _group_store(d: Path) -> dict:
+    """A sound grouped multi-tap store: 3 layer shards built through the
+    hand primitives, then the JAX package's ``build_groups`` over them —
+    similarity, pooled views and the digest-sealed ``groups.json``."""
+    from sparse_coding_tpu.groups.assign import build_groups
+
+    d.mkdir(parents=True, exist_ok=True)
+    shards, total = [], 0
+    for i in range(3):
+        name = f"shard-{i:03d}"
+        meta = _chunk_store(d / name, n=2)
+        meta.update({"tap": f"residual.{i}", "layer": i,
+                     "layer_loc": "residual"})
+        (d / name / "meta.json").write_text(
+            json.dumps(meta, indent=2, sort_keys=True))
+        total += meta["n_chunks"]
+        meta_digest = bytes_sha256((d / name / "meta.json").read_bytes())
+        (d / name / "shard.digest").write_text(
+            json.dumps({"meta_sha256": meta_digest}, sort_keys=True) + "\n")
+        shards.append({"name": name, "n_chunks": meta["n_chunks"],
+                       "meta_sha256": meta_digest})
+    (d / "manifest.json").write_text(json.dumps(
+        {"version": 1, "kind": "sharded_chunk_store", "n_shards": 3,
+         "n_chunks": total, "activation_dim": 4, "dtype": "float32",
+         "shards": shards}, indent=2, sort_keys=True))
+    return build_groups(d, n_groups=2, n_sample_chunks=1, n_sample_rows=8)
+
+
+def _groups_sound(r: Path):
+    _group_store(r / "gstore")
+
+
+def _groups_digest(r: Path):
+    """The payload rotted in place, still parseable: only the embedded
+    digest tells (fatal)."""
+    _group_store(r / "gstore")
+    marker = r / "gstore" / "groups.json"
+    marker.write_bytes(marker.read_bytes().replace(b'"n_layers": 3',
+                                                   b'"n_layers": 4'))
+
+
+def _groups_files(r: Path):
+    """A certified file deleted (MISSING) and one bit-flipped
+    (INCONSISTENT), both fatal."""
+    _group_store(r / "gstore")
+    (r / "gstore" / "similarity.npy").unlink()
+    pooled = r / "gstore" / "group-000" / "manifest.json"
+    raw = bytearray(pooled.read_bytes())
+    raw[-2] ^= 0x01
+    pooled.write_bytes(bytes(raw))
+
+
+def _groups_shard_ref(r: Path):
+    """A digest-valid marker naming a shard the store does not list."""
+    payload = _group_store(r / "gstore")
+    del payload["payload_sha256"]
+    payload["groups"][0]["shards"] = ["shard-999"]
+    (r / "gstore" / "groups.json").write_text(json.dumps(
+        embed_payload_digest(payload), indent=2, sort_keys=True))
+
+
+def _groups_orphan(r: Path):
+    """A pool dir no group names (repair: groups.drop_pool), a
+    digest-less marker beside another subsystem's groups.json."""
+    _group_store(r / "gstore")
+    (r / "gstore" / "group-007").mkdir()
+    (r / "gstore" / "group-007" / "manifest.json").write_text("{}")
+    (r / "other").mkdir()
+    (r / "other" / "groups.json").write_text(json.dumps({"kind": "x"}))
+    (r / "legacy").mkdir()
+    (r / "legacy" / "groups.json").write_text(json.dumps(
+        {"kind": "group_assignment", "groups": []}))
+
+
+def _fleet(r: Path):
+    """A fleet dir: a placed run with no run dir, a run dir with no queue
+    record, a done run with its dir, and a torn queue tail."""
+    from sparse_coding_tpu.pipeline.fleet_queue import FleetQueue
+
+    fleet = r / "fleet"
+    q = FleetQueue(fleet / "fleet_queue.jsonl", clock=lambda: 0.0)
+    for name in ("runa", "runb", "runc"):
+        q.enqueue(name, {"kind": "command", "argv": ["true"],
+                         "done_path": "d"}, 1)
+    q.append("run.place", "runa")
+    q.append("run.place", "runb")
+    q.append("run.release", "runb", outcome="done")
+    (fleet / "runs" / "runb").mkdir(parents=True)
+    (fleet / "runs" / "ghost").mkdir()
+    q.path.write_bytes(q.path.read_bytes() + b'{"seq": 9, "event": "run.p')
+
+
 def _inconsistent_only(r: Path):
     _chunk_store(r / "chunks", n=2)
     _flip_last_byte(r / "chunks" / "0.npy")
@@ -235,7 +324,11 @@ TREES = {"sound": _sound, "chunk_rot": _chunk_rot,
          "journal_unverifiable": _journal_unverifiable,
          "journal_torn": _journal_torn, "leases": _leases,
          "debris": _debris, "event_tails": _event_tails,
-         "inconsistent_only": _inconsistent_only}
+         "inconsistent_only": _inconsistent_only,
+         "groups_sound": _groups_sound, "groups_digest": _groups_digest,
+         "groups_files": _groups_files,
+         "groups_shard_ref": _groups_shard_ref,
+         "groups_orphan": _groups_orphan, "fleet": _fleet}
 # the scan root of the run-dir trees is the run dir: run_fsck expands it
 # to the artifact roots its pipeline.json names
 RUN_ROOTED = {"journal_vanished", "journal_unverifiable", "journal_torn",
@@ -274,7 +367,7 @@ def test_findings_and_repairs_match_jax(tmp_path, tree):
     t = run_fsck(scan["port"], write_report=False)
     assert _key(t, roots["port"]) == _key(j, roots["jax"])
     assert [f.detail for f in t.findings] == [f.detail for f in j.findings]
-    assert t.clean == (tree in ("sound", "quarantine_hole"))
+    assert t.clean == (tree in ("sound", "quarantine_hole", "groups_sound"))
     jr = jrun_fsck(scan["jax"], repair=True, write_report=False)
     tr = run_fsck(scan["port"], repair=True, write_report=False)
     assert tr.repaired == jr.repaired
@@ -413,21 +506,25 @@ def test_warmup_manifest_checks_and_repair(tmp_path):
     assert [f.kind for f in scan_tree(tmp_path).findings] == [CORRUPT]
 
 
-# -- classes whose checkers wait for their port ---------------------------------
+# -- the fleet's own audit ----------------------------------------------------
 
 
-def test_groups_and_fleet_trees_raise_typed(tmp_path):
-    (tmp_path / "g").mkdir()
-    (tmp_path / "g" / "groups.json").write_text(json.dumps(
-        {"kind": "group_assignment", "groups": []}))
-    with pytest.raises(UnportedArtifactError, match="item 20"):
-        scan_tree(tmp_path)
-    (tmp_path / "g" / "groups.json").write_text(json.dumps({"kind": "x"}))
-    assert scan_tree(tmp_path).clean  # another subsystem's groups.json
-    (tmp_path / "f").mkdir()
-    (tmp_path / "f" / "fleet_queue.jsonl").write_text("")
-    with pytest.raises(UnportedArtifactError, match="fleet_queue"):
-        run_fsck(tmp_path, write_report=False)
+def test_fleet_sweep_audits_the_tree_and_leaves_a_breadcrumb(tmp_path):
+    from sparse_coding_tpu_torch.fsck.findings import MISSING
+    from sparse_coding_tpu_torch.pipeline.fleet import FleetScheduler
+
+    fleet = tmp_path / "fleet"
+    sched = FleetScheduler(fleet, n_slices=1)
+    sched.enqueue("runa", argv=["true"], done_path=str(fleet / "d.json"),
+                  kind="command")
+    sched.queue.append("run.place", "runa")  # placed, but no run dir
+    (fleet / "runs" / "ghost").mkdir(parents=True)
+    report = sched.fsck_sweep()
+    kinds = {(f.kind, f.artifact_class) for f in report.findings}
+    assert {(MISSING, "fleet_queue"), (ORPHAN, "fleet_queue")} <= kinds
+    last = sched.queue.journal.records()[-1]
+    assert last["event"] == "scheduler.fsck"
+    assert last["detail"]["findings"] == len(report.findings)
 
 
 # -- the supervisor's preflight and the CLI ----------------------------------

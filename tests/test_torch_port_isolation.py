@@ -69,6 +69,11 @@ PIPELINE = ("pipeline.journal", "pipeline.steps", "pipeline.supervisor",
             "obs.cudaprobes", "obs.report", "obs.ledger", "fsck",
             "fsck.findings", "fsck.checkers", "fsck.repair", "fsck.core",
             "fsck.__main__", "utils.profiling")
+# Group-SAE and the fleet: the groups, the scheduler, its queue and
+# placement, the elastic plane
+FLEET = ("groups", "groups.similarity", "groups.assign", "groups.tenants",
+         "pipeline.fleet", "pipeline.fleet_queue", "pipeline.placement",
+         "pipeline.plane")
 
 _IMPORT = re.compile(
     r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|sparse_coding_tpu)\b"
@@ -88,7 +93,8 @@ def test_port_imports_under_a_jax_blocker():
     names = out.stdout.split()
     assert len(names) >= 20
     assert {f"sparse_coding_tpu_torch.{m}"
-            for m in ZOO + HARVEST + EVALS + INTERP + PIPELINE} <= set(names)
+            for m in ZOO + HARVEST + EVALS + INTERP + PIPELINE + FLEET
+            } <= set(names)
 
 
 def test_source_scan_finds_no_jax_import():

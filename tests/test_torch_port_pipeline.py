@@ -429,16 +429,11 @@ def test_cpu_only_children_get_the_cpu_and_no_card(tmp_path):
 
 
 def test_unported_builders_raise_naming_their_items(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tsup.build_group_pipeline(tmp_path, {})
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tsup.build_group_tenant_pipeline(tmp_path, {})
+    """Only the bench's supervised mode waits for its item; the group
+    builders and steps are ported (tests/test_torch_port_groups.py)."""
     with pytest.raises(NotImplementedError, match="item 1 "):
         tsup.supervise_bench(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tsteps.run_group({})
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tsteps.run_group_harvest({}, 0)
+    assert not (tmp_path / "bench.json").exists()
 
 
 # -- the builders -------------------------------------------------------------
@@ -460,6 +455,9 @@ def _shape(steps):
     ("build_pipeline", {}, ["sweep", "eval"]),
     ("build_sharded_pipeline", {"n_shards": 2}, None),
     ("build_sharded_pipeline", {"n_shards": 2}, ["scrub", "sweep"]),
+    ("build_group_pipeline", {"layers": [0, 1]}, None),
+    ("build_group_pipeline", {"layers": [0, 1]}, ["group", "sweep"]),
+    ("build_group_tenant_pipeline", {}, None),
 ])
 def test_builders_match_jax(tmp_path, builder, harvest, only):
     """The same names, deps, argv shape and done() answers, before and
@@ -478,6 +476,7 @@ def test_builders_match_jax(tmp_path, builder, harvest, only):
         (chunks / f"shard-{i:03d}" / "shard.digest").write_text("{}")
     (chunks / "meta.json").write_text("{}")
     (chunks / "manifest.json").write_text(json.dumps({"n_shards": 2}))
+    (chunks / "groups.json").write_text("{}")
     for d, name in (("sweep/final", "dense_l1_range_learned_dicts.pkl"),
                     ("eval", "eval.json"), ("catalog", "index.json")):
         (tmp_path / d).mkdir(parents=True, exist_ok=True)
@@ -682,6 +681,39 @@ def test_step_main_maps_typed_shutdowns(tmp_path, monkeypatch, exc, code):
                                     if code == 75 else tsup.STEP_EXIT_HALTED)
     with pytest.raises(SystemExit, match="usage"):
         tsteps.main(["nope", "--config", "x"])
+
+
+def test_sweep_child_keeps_a_sigterm_that_lands_before_the_sweep(tmp_path):
+    """A SIGTERM that reaches the sweep step child after main opened its
+    guard but before the sweep opened its own is not lost: the sweep
+    checkpoints after its first chunk and the child exits preempted."""
+    _jax_store(tmp_path / "chunks", d=8, rows=64, n_chunks=3)
+    out = tmp_path / "sweep"
+    (tmp_path / "p.json").write_text(json.dumps({"sweep": {
+        "experiment": "dense_l1_range", "log_every": 4,
+        "ensemble": {"output_folder": str(out),
+                     "dataset_folder": str(tmp_path / "chunks"),
+                     "batch_size": 32, "learned_dict_ratio": 2.0,
+                     "n_chunks": 3, "seed": 0,
+                     "checkpoint_every_chunks": 1}}}))
+    code = ("import os, signal, sys\n"
+            "from sparse_coding_tpu_torch.pipeline import steps\n"
+            "sweep = steps.STEPS['sweep']\n"
+            "def early(config, device=None):\n"
+            "    os.kill(os.getpid(), signal.SIGTERM)\n"
+            "    return sweep(config, device=device)\n"
+            "steps.STEPS['sweep'] = early\n"
+            "steps.main(sys.argv[1:])\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("SPARSE_CODING_")}
+    env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+               **{tsteps.ENV_DEVICE: "cpu"})
+    run = subprocess.run([sys.executable, "-c", code, "sweep", "--config",
+                          str(tmp_path / "p.json")], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == tsup.STEP_EXIT_PREEMPTED, run.stderr[-3000:]
+    assert "checkpointed after chunk 1" in run.stderr
+    assert (out / "ckpt").exists() and not (out / "final").exists()
 
 
 # -- the whole slice, supervised, killed and resumed -----------------------------

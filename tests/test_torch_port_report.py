@@ -14,6 +14,7 @@ inputs, and the ledger's rows read the same from either side's file.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -34,12 +35,12 @@ from sparse_coding_tpu_torch.resilience import faults
 
 REPO = Path(__file__).resolve().parents[1]
 
-# the sections both reports define (the JAX one adds retraces, compiles,
-# compile_cache and the fleet's plane; the port adds preparation)
+# the sections both reports define (the JAX one adds retraces, compiles
+# and compile_cache; the port adds preparation)
 SHARED = ("run_dir", "run_ids", "steps", "files", "events", "skipped_lines",
           "spans", "counters", "gauges", "histograms", "span_errors",
-          "gateway", "ladder", "ingest", "guardian", "kernel_paths", "perf",
-          "dropped_events")
+          "gateway", "ladder", "plane", "ingest", "guardian", "kernel_paths",
+          "perf", "dropped_events")
 
 
 def _write_run(run_dir: Path, scale: float = 1.0, backend: str = "cpu",
@@ -69,6 +70,9 @@ def _write_run(run_dir: Path, scale: float = 1.0, backend: str = "cpu",
         reg.counter("xcache.captures").inc(3)
         reg.histogram("xcache.capture_s").observe(0.25)
         reg.gauge("gateway.ladder.rung", idx="0").set(8)
+        reg.counter("plane.rebalances").inc(proc)
+        reg.counter("plane.scale_ups").inc()
+        reg.gauge("plane.serve_slices").set(proc)
         reg.gauge("train.mfu", backend=backend, path="x").set(0.3 / scale)
         reg.gauge("sweep.items_per_sec").set(1000.0 * proc / scale)
         for v in (0.01, 0.02, 0.04):
@@ -174,13 +178,68 @@ def test_ledger_append_fault_is_counted_not_raised(tmp_path):
     assert not (tmp_path / "l.jsonl").exists()
 
 
-def test_fleet_reports_raise_naming_their_item(tmp_path, capsys):
-    (tmp_path / "fleet_queue.jsonl").write_text("")
-    assert report.is_fleet_dir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        report.build_fleet_report(tmp_path)
-    with pytest.raises(SystemExit, match="item 21"):
-        report.main([str(tmp_path)])
+def _write_fleet(root: Path, runs: dict) -> Path:
+    """A fleet dir through the JAX writers: a queue (one tenant done, one
+    halted, one queued, plane records), the scheduler's event file with
+    its counters, and two tenants' run dirs (``_write_run``'s)."""
+    from sparse_coding_tpu.pipeline.fleet_queue import FleetQueue
+
+    fleet = root / "fleet"
+    q = FleetQueue(fleet / "fleet_queue.jsonl", clock=lambda: 0.0)
+    for name, prio in (("g0", "batch"), ("g1", "batch"),
+                       ("scav", "scavenger")):
+        q.enqueue(name, {"kind": "group", "config": {}, "priority": prio},
+                  2)
+    for name, outcome in (("g0", "halted"), ("g1", "done")):
+        q.append("run.place", name, attempt=1)
+        q.append("run.release", name, outcome=outcome)
+    q.append("plane.rebalance", serve_slices=2, fleet_slices=0,
+             reason="up")
+    q.append("plane.rebalance", serve_slices=1, fleet_slices=1,
+             reason="down")
+    for name, src in (("g0", "a"), ("g1", "b")):
+        shutil.copytree(runs[src], fleet / "runs" / name)
+    reg = JRegistry()
+    sink = JSink(fleet / "obs" / "fleet-7.jsonl")
+    reg.counter("fleet.placements").inc(2)
+    reg.counter("fleet.halts").inc()
+    reg.counter("fleet.releases", outcome="halted").inc()
+    reg.counter("fleet.releases", outcome="done").inc()
+    reg.counter("plane.rebalances").inc(2)
+    reg.counter("plane.scale_downs").inc()
+    reg.gauge("plane.fleet_slices").set(1)
+    jspan("fleet.run", 3.0, sink=sink, registry=reg)
+    jflush(sink=sink, registry=reg)
+    sink.close()
+    return fleet
+
+
+def test_fleet_report_matches_jax(runs, tmp_path, capsys):
+    fleet = _write_fleet(tmp_path, runs)
+    assert report.is_fleet_dir(fleet) and not report.is_fleet_dir(tmp_path)
+    j = jreport.build_fleet_report(fleet)
+    t = report.build_fleet_report(fleet)
+    for key in ("fleet_dir", "states", "plane", "scheduler"):
+        assert t[key] == j[key], key
+    assert t["states"] == {"g0": "halted", "g1": "done", "scav": "queued"}
+    assert t["scheduler"]["releases"] == {"done": 1, "halted": 1}
+    assert [r["reason"] for r in t["plane"]["records"]] == ["up", "down"]
+    assert list(t["tenants"]) == list(j["tenants"])
+    for name, tt in t["tenants"].items():
+        jt = j["tenants"][name]
+        assert {k: v for k, v in tt.items() if k != "report"} == \
+            {k: v for k, v in jt.items() if k != "report"}
+        for section in SHARED:
+            assert tt["report"][section] == jt["report"][section], section
+    text = report.format_fleet_report(t)
+    assert "3 tenant(s)" in text and "1 halt(s)" in text
+    assert "plane: 2 rebalance(s) (0 up/1 down)" in text
+    assert "tenant g0: halted (batch, 1 slice(s), 1 attempt(s))" in text
+    assert "1 nvcc run(s), 6 capture(s)" in text
+    report.main([str(fleet)])
+    assert capsys.readouterr().out.strip() == text
+    report.main([str(fleet), "--json"])
+    assert json.loads(capsys.readouterr().out)["states"] == t["states"]
 
 
 def test_cli_json_and_diff(runs, capsys):
