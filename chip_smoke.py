@@ -69,8 +69,10 @@ Phases — any failure raises, and the script exits non-zero with no result:
    masked shape on its kernels; (g) the sweep on autodiff: each member's
    final logged loss within 1e-2 of (a)'s; (h) the same sweep with
    ``--train_dtype bfloat16`` (half-width batches to the card) ends
-   bitwise equal to (a) — the store is bfloat16 on disk. Measured: the
-   sweep's
+   bitwise equal to (a) — the store is bfloat16 on disk. (b)'s and (c)'s
+   children run as three chains at once beside (d), (e), (f) and (h) in
+   this process, (g) after them alone.
+   Measured: the sweep's
    activations/s, the checkpoint seconds per chunk, the resume time and
    the probe's ``train.mfu``;
 9. the full sweep's host I/O: phase 8's store re-sharded into 2 + 2
@@ -84,11 +86,12 @@ Phases — any failure raises, and the script exits non-zero with no result:
    with its issued set swapped in and resumes bitwise; (d) a
    ``SPARSE_CODING_FAULT_PLAN`` error at ``ckpt.save`` on the second set
    fails the child with the typed error and leaves the first set in
-   ``ckpt/``; (e) measured beside phase 8's run: acts/s, chunk wall, the
+   ``ckpt/`` ((b), (c) and (d) as three chains of children at once); (e)
+   measured beside phase 8's run: acts/s, chunk wall, the
    set's time in the sweep (issue), the wait before each swap, the
    workers' writes, the read path that served the chunks (native or
    np.load) and the host→device stage; (f) both backends over 2 chunks of
-   262,144 rows, bitwise equal to each other, their chunk walls measured;
+   131,072 rows, bitwise equal to each other, their chunk walls measured;
 10. bf16 compute (``fused_compute_dtype="bfloat16"``,
    ``fused_moments_dtype="bfloat16"``): (a) each bf16 form of the four
    chunked ensemble kernels against its plain bf16 version at small odd
@@ -348,9 +351,36 @@ Phases — any failure raises, and the script exits non-zero with no result:
    releases the replica a tick later, the scavenger resumes to group-001's
    bits, and a fresh arbiter's ``reconcile()`` drives both consumers to
    recorded splits;
-20. summary: one ``{"kernels": [...]}`` line (the tied kernels also with
-   phase 15 (e)'s launches, every kernel with phase 16's, phase 18's and
-   phase 19's),
+20. long-context harvest and the giant SAE at an LM's MLP width: (a)
+   ``big_sae_fwd``/``big_sae_bwd`` and their bf16 forms against their
+   plain versions at BigSAEArgs' n (16,384) and d = 1,032, 1,500 (fp32
+   only), 2,048, 3,072 and 4,096 (the kernels' widest, BIG_MAX_D) on
+   8,192 rows, and on 36,864 rows at d = 2,048 (several workspace chunks
+   each, the fp32 launch counts checked), with phase 2's and phase 11's
+   bounds; (b) ``harvest_activations(mesh=...)`` over 16 contexts of
+   8,192 tokens (4x the preset's n_ctx) of phase 13's model (Pythia-70M at
+   full width, its own seeded random weights), taps ``mlp.2`` and
+   ``residual.2``, bf16 chunks of 65,536 rows: on the card alone, on a
+   1 × 1 NCCL mesh and on a 1 × 2 gloo world of two ranks sharing the card
+   (this script's ``--ring-worker``, beside the untimed checks: (c)'s side
+   by side and (a); ring attention's key/value blocks through pinned host
+   memory); the sequence-parallel forward of the
+   first context (every layer, the logits) against the single-device
+   forward within RTOL_LM of max|ref| on every rank, both mesh stores'
+   chunks within one bf16 ulp (and RTOL_LC of max|ref|) of the
+   single-device store's, tokens/s of each harvest; (c) K8 and K9 (fp32
+   and bf16) timed at d = 2,048, BigSAEArgs' batch and n, on the
+   harvested rows beside their bounds; ``train_big_sae`` over the 1 × 1
+   NCCL mesh's ``mlp.2`` store at d = 2,048 with BigSAEArgs' n and batch
+   (``use_fused`` "auto"), 4 steps in fp32 and 4 with its step built for
+   bf16 compute: each kernel once a step, each bf16 loss within
+   RTOL_BIG_BF16_LOSS of the fp32 one, acts/s; then 3 kernel steps beside
+   3 autodiff steps from one init (metrics within RTOL_BIG_STEP, params
+   within REL_FRO_BIG_REPLAY);
+21. summary: one ``{"kernels": [...]}`` line (the tied kernels also with
+   phase 15 (e)'s launches, every kernel with phase 16's, phase 18's,
+   phase 19's and phase 20's, the big-SAE kernels with their time and
+   bound at d = 2,048),
    the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -369,8 +399,9 @@ the sums' rounding bound of 0, and its dW and db held against the plain
 version within rtol 1e-3 on every feature with no flip and, with each
 flip's terms moved to the kernel's side, on every feature. It holds
 ``big_sae_fwd``/``big_sae_bwd`` against their plain versions at the
-big-SAE shape, at small odd shapes up to their widest d (1024) and at a
-batch that both take in several chunks (the last one short: 3 for K8, 5
+big-SAE shape, at small odd shapes up to d = 1,024 (phase 20 (a) takes
+them on to their widest, 4,096) and at a batch that both take in several
+chunks (the last one short: 3 for K8, 5
 for K9); at the big-SAE shape it checks K8's and K9's repeat and memory
 the same way and times each of their launches on one chunk.
 
@@ -393,6 +424,7 @@ Run from the repository root: ``python3 chip_smoke.py`` (one card;
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -1832,6 +1864,25 @@ def _big_snapshot(state) -> dict:
             "n_dead": int((state.c_totals == 0).sum())}
 
 
+def timed_big_steps(real_make, events: list, metrics: list, **step_kwargs):
+    """A ``make_big_sae_step`` whose steps record a CUDA event after each
+    step into ``events`` and keep its metrics in ``metrics`` (on the card:
+    it adds no synchronization), built with ``step_kwargs`` besides the
+    caller's."""
+    def make(*args, **kwargs):
+        step = real_make(*args, **kwargs, **step_kwargs)
+
+        def timed(state, batch):
+            state, m = step(state, batch)
+            done = torch.cuda.Event(enable_timing=True)
+            done.record()
+            events.append(done)
+            metrics.append(m)
+            return state, m
+        return timed
+    return make
+
+
 def big_main_path(store: Path, out_dir: Path) -> dict:
     """train_big_sae through its entry point on the card. Its step function
     is wrapped to record a CUDA event after each step and keep the step's
@@ -1846,18 +1897,7 @@ def big_main_path(store: Path, out_dir: Path) -> dict:
 
     events, metrics, snaps = [], [], []
     real_make, real_resurrect = bs.make_big_sae_step, bs.resurrect_dead_features
-
-    def make(*args, **kwargs):
-        step = real_make(*args, **kwargs)
-
-        def timed(state, batch):
-            state, m = step(state, batch)
-            done = torch.cuda.Event(enable_timing=True)
-            done.record()
-            events.append(done)
-            metrics.append(m)
-            return state, m
-        return timed
+    make = timed_big_steps(real_make, events, metrics)
 
     def resurrect(state, *mesh):
         snaps.append(_big_snapshot(state))
@@ -1982,22 +2022,19 @@ def big_reference(store: Path, main: dict) -> dict:
             "step_ms": step_ms, "acts_per_s": 1e3 * BIG_BATCH / step_ms}
 
 
-def big_side_by_side(store: Path) -> dict:
-    """From one fresh init, the kernel step and the autodiff step on the
-    store's first 3 batches; per-step metrics within RTOL_BIG_STEP."""
-    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+def big_side_by_side(batches: list, tag: str) -> dict:
+    """From one fresh init, the kernel step and the autodiff step on
+    ``batches`` (rows of the big SAE's width on the card): per-step
+    metrics within RTOL_BIG_STEP, each param's ‖Δ‖/‖·‖ within
+    REL_FRO_BIG_REPLAY."""
     from sparse_coding_tpu_torch.ops import _build
     from sparse_coding_tpu_torch.train import big_sae as bs
 
-    cs = ChunkStore(store)
-    rows = [cs.load_chunk(0)[:BIG_BATCH], cs.load_chunk(0)[BIG_BATCH:],
-            cs.load_chunk(1)[:BIG_BATCH]]
-    batches = [torch.as_tensor(r).to(DEV) for r in rows]
-    out = {}
-    states = {}
+    d = batches[0].shape[1]
+    out, states = {}, {}
     for fused in (True, False):
         state, opt, l1 = bs.init_big_sae(torch.Generator().manual_seed(1),
-                                         BIG_D, BIG_N, BIG_L1, lr=BIG_LR,
+                                         d, BIG_N, BIG_L1, lr=BIG_LR,
                                          device=DEV)
         step = bs.make_big_sae_step(opt, l1, use_fused=fused)
         _build.reset_launches()
@@ -2006,22 +2043,24 @@ def big_side_by_side(store: Path) -> dict:
             state, m = step(state, b)
             ms.append(m)
         sync()
-        n_k = 3 if fused else 0
+        n_k = len(batches) if fused else 0
         if (_build.LAUNCHES["big_sae_fwd"], _build.LAUNCHES["big_sae_bwd"]) \
                 != (n_k, n_k):
-            raise AssertionError(f"side by side (use_fused={fused}): "
+            raise AssertionError(f"{tag} side by side (use_fused={fused}): "
                                  f"launches {_build.LAUNCHES}")
-        out[fused] = ms
-        states[fused] = state
-    errs = {f"step {i} {k}": compare(f"big side by side step {i} {k}",
+        out[fused], states[fused] = ms, state
+    errs = {f"step {i} {k}": compare(f"{tag} side by side step {i} {k}",
                                      out[True][i][k], out[False][i][k],
                                      RTOL_BIG_STEP)
             for i in range(len(batches)) for k in out[True][i]}
     fro = {k: rel_fro(states[True].params[k], states[False].params[k])
            for k in bs.PARAM_NAMES}
+    if not all(v <= REL_FRO_BIG_REPLAY for v in fro.values()):
+        raise AssertionError(f"{tag} side by side: params ‖Δ‖/‖·‖ {fro} > "
+                             f"{REL_FRO_BIG_REPLAY}")
     worst = max(e["max_rel_err"] for e in errs.values())
-    log(f"  3 steps, kernels vs autodiff from one init: metrics max rel err "
-        f"{worst:.2e}; relative Frobenius "
+    log(f"  {tag} {len(batches)} steps, kernels vs autodiff from one init "
+        f"at d={d}: metrics max rel err {worst:.2e}; params ‖Δ‖/‖·‖ "
         + ", ".join(f"{k} {v:.2e}" for k, v in fro.items()))
     del states, out
     torch.cuda.empty_cache()
@@ -2107,16 +2146,19 @@ def big_export(state, held_out: torch.Tensor) -> dict:
 
 
 def big_main_phase(store: Path, tmp: Path, held_out: torch.Tensor) -> dict:
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+
     main = big_main_path(store, tmp / "big_out")
     out = {k: v for k, v in main.items() if k not in ("state", "snaps")}
     out["reference"] = big_reference(store, main)
-    out["side_by_side"] = big_side_by_side(store)
+    cs = ChunkStore(store)
+    rows = [cs.load_chunk(0)[:BIG_BATCH], cs.load_chunk(0)[BIG_BATCH:],
+            cs.load_chunk(1)[:BIG_BATCH]]
+    out["side_by_side"] = big_side_by_side(
+        [torch.as_tensor(r).to(DEV) for r in rows], "")
     state = main.pop("state")
     out["export"] = big_export(state, held_out)
-    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
-
-    batch = torch.as_tensor(ChunkStore(store).load_chunk(2)[:BIG_BATCH]).to(
-        DEV)
+    batch = torch.as_tensor(cs.load_chunk(2)[:BIG_BATCH]).to(DEV)
     out["resurrection"] = big_resurrection(state, batch)
     del state, batch
     torch.cuda.empty_cache()
@@ -2310,12 +2352,7 @@ def sweep_phase(store: Path, tmp: Path) -> dict:
     ``rep["a"]["out"]``."""
     import shutil
 
-    from sparse_coding_tpu_torch.data.ledger import (
-        load_quarantine,
-        record_quarantine,
-    )
     from sparse_coding_tpu_torch.ops import _build
-    from sparse_coding_tpu_torch.resilience.faults import FaultSpec
 
     rep: dict = {}
     steps_per_chunk = ROWS_PER_CHUNK // BATCH
@@ -2350,9 +2387,13 @@ def sweep_phase(store: Path, tmp: Path) -> dict:
         f"train.mfu {nums['train_mfu']} over {len(nums['probe_samples'])} "
         "probe samples")
 
-    # (b) SIGKILL at a crash barrier, then --resume true
-    rep["b"] = {}
-    for site in ("sweep.chunk", "ckpt.swap"):
+    # (b) and (c) run in child processes, three chains at once beside the
+    # in-process drills (d), (e), (f) and (h): none of them is timed but
+    # (b)'s restore, which is read beside them; (g), timed, runs after
+    # them alone. An in-process sweep captures this process's stdout, so
+    # the chains return their log lines
+    def kill_and_resume(site: str) -> tuple[dict, str]:
+        """(b) SIGKILL at a crash barrier, then --resume true."""
         out = tmp / f"sweep_b_{site}"
         killed = sweep_subprocess(sweep_args(store, out), tmp / f"obs_b_{site}",
                                   crash_plan=f"{site}:nth=3")
@@ -2373,32 +2414,90 @@ def sweep_phase(store: Path, tmp: Path) -> dict:
         ev = read_events(obs_r)
         resume_s = [e["dur_s"] for e in ev if e.get("span") == "sweep.resume"]
         done = [e["chunks_done"] for e in ev if e.get("span") == "sweep.resume"]
-        rep["b"][site] = {"resume_s": resume_s[0], "chunks_done": done[0],
-                          "resumed_wall_s": wall}
-        log(f"  (b) SIGKILL at {site} hit 3, resumed from chunk {done[0]} "
-            f"(restore {resume_s[0]:.2f} s; the resumed process "
-            f"{wall:.1f} s wall): bitwise equal to (a)")
         shutil.rmtree(out)
+        return ({"resume_s": resume_s[0], "chunks_done": done[0],
+                 "resumed_wall_s": wall},
+                f"  (b) SIGKILL at {site} hit 3, resumed from chunk "
+                f"{done[0]} (restore {resume_s[0]:.2f} s; the resumed "
+                f"process {wall:.1f} s wall, beside the other drills): "
+                "bitwise equal to (a)")
 
-    # (c) SIGTERM once the first checkpoint set exists
-    out = tmp / "sweep_c"
-    pre = sweep_subprocess(sweep_args(store, out), tmp / "obs_c",
-                           sigterm_when=out / "ckpt" / "untied_0.tensors.meta.json")
-    m = re.search(r"checkpointed after chunk (\d+)", pre.stdout)
-    if pre.returncode != 0 or m is None or not 0 < int(m.group(1)) < \
-            SWEEP_CHUNKS:
-        raise AssertionError(f"(c) SIGTERM: rc {pre.returncode}, stdout "
-                             f"{pre.stdout[-500:]}\n{pre.stderr[-3000:]}")
-    resumed = sweep_subprocess(sweep_args(store, out, "--resume", "true"),
-                               tmp / "obs_c_resume")
-    if resumed.returncode != 0:
-        raise AssertionError(f"(c) resume: {resumed.stderr[-3000:]}")
-    assert_bitwise_run(out, out_a, "(c) SIGTERM")
-    rep["c"] = {"preempted_after": int(m.group(1))}
-    log(f"  (c) SIGTERM: SweepPreempted after chunk {m.group(1)}, exit 0; "
-        "resumed bitwise equal to (a)")
+    def sigterm_and_resume() -> tuple[dict, str]:
+        """(c) SIGTERM once the first checkpoint set exists, then resume."""
+        out = tmp / "sweep_c"
+        pre = sweep_subprocess(
+            sweep_args(store, out), tmp / "obs_c",
+            sigterm_when=out / "ckpt" / "untied_0.tensors.meta.json")
+        m = re.search(r"checkpointed after chunk (\d+)", pre.stdout)
+        if pre.returncode != 0 or m is None or not 0 < int(m.group(1)) < \
+                SWEEP_CHUNKS:
+            raise AssertionError(f"(c) SIGTERM: rc {pre.returncode}, stdout "
+                                 f"{pre.stdout[-500:]}\n{pre.stderr[-3000:]}")
+        resumed = sweep_subprocess(sweep_args(store, out, "--resume", "true"),
+                                   tmp / "obs_c_resume")
+        if resumed.returncode != 0:
+            raise AssertionError(f"(c) resume: {resumed.stderr[-3000:]}")
+        assert_bitwise_run(out, out_a, "(c) SIGTERM")
+        shutil.rmtree(out)
+        return ({"preempted_after": int(m.group(1))},
+                f"  (c) SIGTERM: SweepPreempted after chunk {m.group(1)}, "
+                "exit 0; resumed bitwise equal to (a)")
+
+    pool = concurrent.futures.ThreadPoolExecutor(3)
+    chains = {site: pool.submit(kill_and_resume, site)
+              for site in ("sweep.chunk", "ckpt.swap")}
+    chains["c"] = pool.submit(sigterm_and_resume)
+    try:
+        rep.update(in_process_drills(store, tmp, out_a, steps_per_chunk))
+    finally:
+        pool.shutdown(wait=True)
+    rep["b"] = {}
+    for key, chain in chains.items():
+        result, line = chain.result()
+        log(line)
+        if key == "c":
+            rep["c"] = result
+        else:
+            rep["b"][key] = result
+    # (g) the same sweep on autodiff
+    out = tmp / "sweep_auto"
+    _build.reset_launches()
+    wall = sweep_in_process(sweep_args(store, out, "--use_fused", "off"),
+                            tmp / "obs_auto")
+    if any(_build.LAUNCHES.values()):
+        raise AssertionError(f"(g) autodiff launched {_build.LAUNCHES}")
+    ka, ra = logged_steps(out_a)[SWEEP_STEPS], logged_steps(out)[SWEEP_STEPS]
+    keys = [k for k in ka if k.endswith("/loss")]
+    rel = max(abs(ka[k] - ra[k]) / abs(ra[k]) for k in keys)
+    auto = sweep_numbers(read_events(tmp / "obs_auto"))
+    rep["g"] = {"wall_s": wall, "max_rel_loss_diff": rel,
+                "acts_per_s": auto["acts_per_s"], "members": len(keys)}
+    log(f"  (g) autodiff: final logged loss of each of {len(keys)} members "
+        f"within {rel:.2e} of the kernel run's (bound "
+        f"{RTOL_REFERENCE_MSE}); {auto['acts_per_s']:.0f} acts/s")
+    if not (len(keys) == 2 * SWEEP_MEMBERS and rel <= RTOL_REFERENCE_MSE):
+        raise AssertionError(f"(g) autodiff vs kernels: {rel:.2e} over "
+                             f"{len(keys)} members")
     shutil.rmtree(out)
 
+    return rep
+
+
+def in_process_drills(store: Path, tmp: Path, out_a: Path,
+                      steps_per_chunk: int) -> dict:
+    """Phase 8's drills in this process, beside (b)'s and (c)'s children:
+    (d) the member drill, (e) the NaN drill, (f) dict_ratio and (h)
+    bfloat16 training."""
+    import shutil
+
+    from sparse_coding_tpu_torch.data.ledger import (
+        load_quarantine,
+        record_quarantine,
+    )
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.resilience.faults import FaultSpec
+
+    rep: dict = {}
     # (d) the member drill: tied member 3's loss scale poisoned at batch 3
     out = tmp / "sweep_d"
     sweep_in_process(sweep_args(store, out), tmp / "obs_d", fault=[FaultSpec(
@@ -2485,27 +2584,6 @@ def sweep_phase(store: Path, tmp: Path) -> dict:
         f"{evals[-1]['fvu']:.3f} (ratio {MASKED_RATIOS[-1]})")
     shutil.rmtree(out)
 
-    # (g) the same sweep on autodiff
-    out = tmp / "sweep_auto"
-    _build.reset_launches()
-    wall = sweep_in_process(sweep_args(store, out, "--use_fused", "off"),
-                            tmp / "obs_auto")
-    if any(_build.LAUNCHES.values()):
-        raise AssertionError(f"(g) autodiff launched {_build.LAUNCHES}")
-    ka, ra = logged_steps(out_a)[SWEEP_STEPS], logged_steps(out)[SWEEP_STEPS]
-    keys = [k for k in ka if k.endswith("/loss")]
-    rel = max(abs(ka[k] - ra[k]) / abs(ra[k]) for k in keys)
-    auto = sweep_numbers(read_events(tmp / "obs_auto"))
-    rep["g"] = {"wall_s": wall, "max_rel_loss_diff": rel,
-                "acts_per_s": auto["acts_per_s"], "members": len(keys)}
-    log(f"  (g) autodiff: final logged loss of each of {len(keys)} members "
-        f"within {rel:.2e} of the kernel run's (bound "
-        f"{RTOL_REFERENCE_MSE}); {auto['acts_per_s']:.0f} acts/s")
-    if not (len(keys) == 2 * SWEEP_MEMBERS and rel <= RTOL_REFERENCE_MSE):
-        raise AssertionError(f"(g) autodiff vs kernels: {rel:.2e} over "
-                             f"{len(keys)} members")
-    shutil.rmtree(out)
-
     # (h) bfloat16 batches from disk to the card, promoted there: the
     # store is bfloat16 on disk, so the promoted batches are (a)'s exactly
     out = tmp / "sweep_bf16"
@@ -2526,11 +2604,12 @@ def sweep_phase(store: Path, tmp: Path) -> dict:
 # --- phase 9: the full sweep's host I/O ---------------------------------------
 
 # phase 8's store re-sharded into 2 + 2 chunks; the longer chunk of the
-# overlap measurement: 262,144 rows = 128 steps, 2 chunks (4 until phase
-# 17 took the run past 1,000 s: the second chunk's training still
-# overlaps the first set's write)
+# overlap measurement: 131,072 rows = 64 steps, 2 chunks (262,144 rows
+# until phase 20 needed the time, 4 chunks until phase 17: the second
+# chunk's training, about 1.5 s, still overlaps the first set's write,
+# 0.6-0.9 s under orbax)
 SHARDS = (2, 2)
-LONG_ROWS_PER_CHUNK, LONG_CHUNKS = 8 * ROWS_PER_CHUNK, 2
+LONG_ROWS_PER_CHUNK, LONG_CHUNKS = 4 * ROWS_PER_CHUNK, 2
 
 
 def reshard(flat: Path, root: Path, sizes) -> Path:
@@ -2615,7 +2694,7 @@ def host_io_phase(flat: Path, tmp: Path, ref: Path, card: str,
     issued set swapped in, then a bitwise resume; (d) a ckpt.save fault
     in a worker fails the child with the typed error and leaves the
     first set in ckpt/; (e) the measurements; (f) both backends at a
-    longer chunk (2 of 262,144 rows), bitwise equal to each other."""
+    longer chunk (2 of 131,072 rows), bitwise equal to each other."""
     import shutil
 
     from sparse_coding_tpu_torch.ops import _build
@@ -2647,71 +2726,90 @@ def host_io_phase(flat: Path, tmp: Path, ref: Path, card: str,
         f"bitwise equal to phase 8 (a)'s msgpack run over the flat store")
     shutil.rmtree(out_a)
 
-    # (b) SIGKILL while the chunk-3 set is issued and not yet swapped in
-    out = tmp / "io_b"
-    killed = sweep_subprocess(sweep_args(store, out, *orbax), tmp / "obs9_b",
-                              crash_plan="sweep.chunk:nth=3")
-    if (killed.returncode != -9
-            or "SIGKILL at site 'sweep.chunk'" not in killed.stderr):
-        raise AssertionError(f"(b) rc {killed.returncode}\n"
-                             f"{killed.stderr[-3000:]}")
-    on_disk, staged = chunks_done(out / "ckpt"), (out / "ckpt_staging").exists()
-    if on_disk != 2 or not staged:
-        raise AssertionError(f"(b) ckpt/ at chunk {on_disk}, staging "
-                             f"{staged}")
-    resumed = sweep_subprocess(sweep_args(store, out, *orbax, "--resume",
-                                          "true"), tmp / "obs9_b_resume")
-    if resumed.returncode != 0:
-        raise AssertionError(f"(b) resume: {resumed.stderr[-3000:]}")
-    done = [e["chunks_done"] for e in read_events(tmp / "obs9_b_resume")
-            if e.get("span") == "sweep.resume"]
-    if done != [2]:
-        raise AssertionError(f"(b) resumed from {done}")
-    assert_bitwise_run(out, ref, "(b) kill while a set is written")
-    rep["b"] = {"ckpt_chunks_done": on_disk, "resumed_from": done[0]}
-    log("  (b) SIGKILL at sweep.chunk hit 3 with the chunk-3 set issued, "
-        "not swapped in: ckpt/ held chunk 2's set, resumed from chunk 2, "
-        "bitwise equal to phase 8 (a)")
-    shutil.rmtree(out)
+    # (b), (c) and (d) run in child processes, three chains at once:
+    # none of them is timed
+    def kill_while_written() -> tuple[dict, str]:
+        """(b) SIGKILL while the chunk-3 set is issued and not yet swapped
+        in."""
+        out = tmp / "io_b"
+        killed = sweep_subprocess(sweep_args(store, out, *orbax),
+                                  tmp / "obs9_b",
+                                  crash_plan="sweep.chunk:nth=3")
+        if (killed.returncode != -9
+                or "SIGKILL at site 'sweep.chunk'" not in killed.stderr):
+            raise AssertionError(f"(b) rc {killed.returncode}\n"
+                                 f"{killed.stderr[-3000:]}")
+        on_disk = chunks_done(out / "ckpt")
+        staged = (out / "ckpt_staging").exists()
+        if on_disk != 2 or not staged:
+            raise AssertionError(f"(b) ckpt/ at chunk {on_disk}, staging "
+                                 f"{staged}")
+        resumed = sweep_subprocess(sweep_args(store, out, *orbax, "--resume",
+                                              "true"), tmp / "obs9_b_resume")
+        if resumed.returncode != 0:
+            raise AssertionError(f"(b) resume: {resumed.stderr[-3000:]}")
+        done = [e["chunks_done"] for e in read_events(tmp / "obs9_b_resume")
+                if e.get("span") == "sweep.resume"]
+        if done != [2]:
+            raise AssertionError(f"(b) resumed from {done}")
+        assert_bitwise_run(out, ref, "(b) kill while a set is written")
+        shutil.rmtree(out)
+        return ({"ckpt_chunks_done": on_disk, "resumed_from": done[0]},
+                "  (b) SIGKILL at sweep.chunk hit 3 with the chunk-3 set "
+                "issued, not swapped in: ckpt/ held chunk 2's set, resumed "
+                "from chunk 2, bitwise equal to phase 8 (a)")
 
-    # (c) SIGTERM once the first set is swapped in
-    out = tmp / "io_c"
-    pre = sweep_subprocess(sweep_args(store, out, *orbax), tmp / "obs9_c",
-                           sigterm_when=out / "ckpt" / "untied_0.tensors.meta.json")
-    m = re.search(r"checkpointed after chunk (\d+)", pre.stdout)
-    if pre.returncode != 0 or m is None:
-        raise AssertionError(f"(c) SIGTERM: rc {pre.returncode}, stdout "
-                             f"{pre.stdout[-500:]}\n{pre.stderr[-3000:]}")
-    after = int(m.group(1))
-    if (chunks_done(out / "ckpt") != after
-            or (out / "ckpt_staging").exists()):
-        raise AssertionError(f"(c) preempted after chunk {after}, ckpt/ at "
-                             f"{chunks_done(out / 'ckpt')}")
-    resumed = sweep_subprocess(sweep_args(store, out, *orbax, "--resume",
-                                          "true"), tmp / "obs9_c_resume")
-    if resumed.returncode != 0:
-        raise AssertionError(f"(c) resume: {resumed.stderr[-3000:]}")
-    assert_bitwise_run(out, ref, "(c) SIGTERM")
-    rep["c"] = {"preempted_after": after}
-    log(f"  (c) SIGTERM: SweepPreempted after chunk {after} with that set "
-        "swapped in on the way out, exit 0; resumed bitwise equal to "
-        "phase 8 (a)")
-    shutil.rmtree(out)
+    def sigterm_after_set() -> tuple[dict, str]:
+        """(c) SIGTERM once the first set is swapped in."""
+        out = tmp / "io_c"
+        pre = sweep_subprocess(
+            sweep_args(store, out, *orbax), tmp / "obs9_c",
+            sigterm_when=out / "ckpt" / "untied_0.tensors.meta.json")
+        m = re.search(r"checkpointed after chunk (\d+)", pre.stdout)
+        if pre.returncode != 0 or m is None:
+            raise AssertionError(f"(c) SIGTERM: rc {pre.returncode}, stdout "
+                                 f"{pre.stdout[-500:]}\n{pre.stderr[-3000:]}")
+        after = int(m.group(1))
+        if (chunks_done(out / "ckpt") != after
+                or (out / "ckpt_staging").exists()):
+            raise AssertionError(f"(c) preempted after chunk {after}, ckpt/ "
+                                 f"at {chunks_done(out / 'ckpt')}")
+        resumed = sweep_subprocess(sweep_args(store, out, *orbax, "--resume",
+                                              "true"), tmp / "obs9_c_resume")
+        if resumed.returncode != 0:
+            raise AssertionError(f"(c) resume: {resumed.stderr[-3000:]}")
+        assert_bitwise_run(out, ref, "(c) SIGTERM")
+        shutil.rmtree(out)
+        return ({"preempted_after": after},
+                f"  (c) SIGTERM: SweepPreempted after chunk {after} with "
+                "that set swapped in on the way out, exit 0; resumed "
+                "bitwise equal to phase 8 (a)")
 
-    # (d) the second set's first write fails in its worker
-    out = tmp / "io_d"
-    failed = sweep_subprocess(sweep_args(store, out, *orbax), tmp / "obs9_d",
-                              fault_plan="ckpt.save:nth=3")
-    if (failed.returncode in (0, -9) or "site=ckpt.save" not in failed.stderr
-            or chunks_done(out / "ckpt") != 1):
-        raise AssertionError(f"(d) rc {failed.returncode}, ckpt/ at "
-                             f"{chunks_done(out / 'ckpt')}\n"
-                             f"{failed.stderr[-3000:]}")
-    error = failed.stderr.strip().splitlines()[-1]
-    rep["d"] = {"returncode": failed.returncode, "error": error}
-    log(f"  (d) ckpt.save fault in a worker (set 2): exit "
-        f"{failed.returncode}, {error!r}; ckpt/ kept the chunk-1 set")
-    shutil.rmtree(out)
+    def failed_write() -> tuple[dict, str]:
+        """(d) the second set's first write fails in its worker."""
+        out = tmp / "io_d"
+        failed = sweep_subprocess(sweep_args(store, out, *orbax),
+                                  tmp / "obs9_d",
+                                  fault_plan="ckpt.save:nth=3")
+        if (failed.returncode in (0, -9)
+                or "site=ckpt.save" not in failed.stderr
+                or chunks_done(out / "ckpt") != 1):
+            raise AssertionError(f"(d) rc {failed.returncode}, ckpt/ at "
+                                 f"{chunks_done(out / 'ckpt')}\n"
+                                 f"{failed.stderr[-3000:]}")
+        error = failed.stderr.strip().splitlines()[-1]
+        shutil.rmtree(out)
+        return ({"returncode": failed.returncode, "error": error},
+                f"  (d) ckpt.save fault in a worker (set 2): exit "
+                f"{failed.returncode}, {error!r}; ckpt/ kept the chunk-1 set")
+
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        chains = {key: pool.submit(fn) for key, fn in (
+            ("b", kill_while_written), ("c", sigterm_after_set),
+            ("d", failed_write))}
+    for key, chain in chains.items():
+        rep[key], line = chain.result()
+        log(line)
 
     # (e) the measurements, beside phase 8's msgpack run over the flat store
     log(f"  (e) {card}")
@@ -7950,6 +8048,487 @@ def fleet_phase(tmp: Path, dict_file: Path) -> dict:
         f"beside (c) {rep['c']['wall_s']:.1f}")
     return rep
 
+# --- phase 20: long-context harvest on a sequence-parallel ring, then the ----
+# --- giant SAE at the LM's MLP width -----------------------------------------
+
+# Pythia-70M's preset at full width (phase 13's model, seeded random
+# weights), contexts of 8,192 tokens: 4x its published n_ctx of 2,048.
+# The cut is depth: 16 contexts (131,072 rows a tap) in chunks of 65,536
+# rows, DataArgs' model batch of 4, taps mlp.2 (d_mlp 2,048, the giant
+# SAE's input) and residual.2 (d_model 512).
+LC_CONTEXT, LC_CONTEXTS, LC_LAYER = 8192, 16, 2
+LC_MODEL_BATCH = 4  # DataArgs' model_batch_size
+LC_CHUNK_ROWS = 65536
+LC_LOCS = {"mlp": LM_D_MLP, "residual": 512}  # layer_loc -> width
+LC_WORLD = 2  # (b)'s gloo ranks sharing cuda:0
+LC_TIMEOUT_S = 300
+# harvested chunks against the single-device harvest's: one bf16 ulp of
+# each value, plus RTOL_LC of max|ref| for the forwards' fp32 gap (ring
+# attention's online softmax against the plain softmax)
+RTOL_LC = 1e-5
+# (a) the widened big-SAE kernels at BigSAEArgs' n: d past the old limit
+# of 1,024 up to the kernels' widest (BIG_MAX_D = 4,096: gpt2-medium's and
+# Pythia-410M's d_mlp); 1,500 is not a multiple of 8 (fp32 only)
+WIDE_DS = (1032, 1500, 2048, 3072, 4096)
+WIDE_BATCH = 8192
+# a batch several workspace chunks long at d = 2,048: K8 fp32 16,384 +
+# 16,384 + 4,096 rows, K9 fp32 4 x 8,192 + 4,096, K8 bf16 32,768 + 4,096,
+# K9 bf16 6 x 5,440 + 4,224
+WIDE_CHUNK_SHAPE = (36864, BIG_N, LM_D_MLP)
+# (c) the giant SAE over (b)'s mlp.2 store: BigSAEArgs' n and batch at d =
+# 2,048; 2 epochs of its 2 chunks = 4 steps a run, no resurrection
+LC_BIG_EPOCHS = 2
+LC_BIG_STEPS = LC_BIG_EPOCHS * LC_CONTEXTS * LC_CONTEXT // BIG_BATCH
+LC_SIDE_CHUNKS = (0, 1, 0)  # (c)'s side by side: a step a chunk
+
+
+def lc_model():
+    """(cfg, params on the card, token rows [LC_CONTEXTS, LC_CONTEXT]):
+    the same in every process that calls it."""
+    from sparse_coding_tpu_torch.lm import gptneox
+    from sparse_coding_tpu_torch.lm.model_config import get_config
+
+    from sparse_coding_tpu_torch.config import DataArgs
+
+    cfg = get_config(LM_MODEL)
+    if (cfg.d_mlp, cfg.d_model, DataArgs().model_batch_size) != (
+            LM_D_MLP, LC_LOCS["residual"], LC_MODEL_BATCH):
+        raise AssertionError(f"phase 20 runs Pythia-70M's preset at "
+                             f"DataArgs' model batch: {cfg}")
+    params = gptneox.init_params(torch.Generator().manual_seed(SEED + 20),
+                                 cfg, device=DEV)
+    tokens = np.random.default_rng(SEED + 20).integers(
+        0, cfg.vocab_size, size=(LC_CONTEXTS, LC_CONTEXT))
+    return cfg, params, tokens
+
+
+def lc_forward_check(params: dict, cfg, tokens: np.ndarray, mesh) -> dict:
+    """The first context through ``sequence_parallel_forward`` on ``mesh``
+    (this rank's block) and through the single-device forward on the
+    card, every layer: the taps mlp.2 and residual.2 and the logits of
+    this rank's positions within RTOL_LM of max|ref|."""
+    from sparse_coding_tpu_torch.lm import gptneox
+    from sparse_coding_tpu_torch.lm.long_context import (
+        SEQ_AXIS,
+        sequence_parallel_forward,
+    )
+
+    taps = (f"mlp.{LC_LAYER}", f"residual.{LC_LAYER}")
+    toks = torch.as_tensor(tokens[:1]).to(DEV)
+    s = LC_CONTEXT // mesh.shape[SEQ_AXIS]
+    lo = mesh.coords[SEQ_AXIS] * s
+    out = {}
+    with torch.inference_mode():
+        ref_logits, ref_taps = gptneox.forward(params, toks, cfg, taps=taps)
+        ref = {t: ref_taps[t][:, lo:lo + s] for t in taps}
+        ref["logits"] = ref_logits[:, lo:lo + s]
+        del ref_logits, ref_taps
+        logits, got = sequence_parallel_forward(params, toks, cfg, mesh,
+                                                taps=taps)
+        got["logits"] = logits
+        for name, want in ref.items():
+            err = float((got[name] - want).abs().max())
+            scale = float(want.abs().max())
+            if not err <= RTOL_LM * scale:
+                raise AssertionError(
+                    f"sequence-parallel {name} (positions {lo}-{lo + s}): "
+                    f"|Δ|max {err:.3e} > {RTOL_LM} x max|ref| {scale:.3e}")
+            out[name] = {"max_abs_err": err, "max_abs_ref": scale}
+    del got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def lc_harvest(params: dict, cfg, tokens: np.ndarray, store: Path,
+               mesh=None) -> dict:
+    """harvest_activations over the token rows, one call a layer_loc (tap
+    mlp.2, then residual.2), on ``mesh`` or on the card alone; each call's
+    wall and tokens/s (host clock, chunk writes included)."""
+    from sparse_coding_tpu_torch.data.harvest import harvest_activations
+
+    out = {"wall_s": {}, "tokens_per_s": {}, "written": {}}
+    for loc, width in LC_LOCS.items():
+        sync()
+        t0 = time.perf_counter()
+        written = harvest_activations(
+            params, cfg, tokens, layers=[LC_LAYER], layer_loc=loc,
+            output_folder=store, model_batch_size=LC_MODEL_BATCH,
+            chunk_size_gb=LC_CHUNK_ROWS * width * 2 / 2**30,
+            dtype="bfloat16", mesh=mesh, device=DEV)
+        sync()
+        wall = time.perf_counter() - t0
+        tap = f"{loc}.{LC_LAYER}"
+        want = LC_CONTEXTS * LC_CONTEXT // LC_CHUNK_ROWS
+        if written != {tap: want}:
+            raise AssertionError(f"harvest wrote {written}, expected "
+                                 f"{{{tap!r}: {want}}}")
+        out["wall_s"][tap] = wall
+        out["tokens_per_s"][tap] = LC_CONTEXTS * LC_CONTEXT / wall
+        out["written"][tap] = written[tap]
+    return out
+
+
+def bf16_chunk(path: Path) -> torch.Tensor:
+    """A bf16 chunk file's values, fp32 on the card."""
+    raw = np.ascontiguousarray(np.load(path)).view(np.int16)
+    return torch.from_numpy(raw).to(DEV).view(torch.bfloat16).float()
+
+
+def lc_stores_close(label: str, got: Path, ref: Path) -> dict:
+    """Each tap's chunks of ``got`` against the single-device harvest's
+    ``ref``: meta.json equal but for digests, each value within one bf16
+    ulp plus RTOL_LC of max|ref|; the values beyond one ulp alone and the
+    chunks bitwise equal are counted."""
+    out = {}
+    for loc in LC_LOCS:
+        tap = f"{loc}.{LC_LAYER}"
+        gm = json.loads((got / tap / "meta.json").read_text())
+        rm = json.loads((ref / tap / "meta.json").read_text())
+        gd, rd = gm.pop("chunk_digests"), rm.pop("chunk_digests")
+        if gm != rm:
+            raise AssertionError(f"{label} {tap}: meta.json {gm} != {rm}")
+        worst, over_ulp, values = 0.0, 0, 0
+        for i in range(rm["n_chunks"]):
+            a = bf16_chunk(got / tap / f"{i}.npy")
+            b = bf16_chunk(ref / tap / f"{i}.npy")
+            diff = (a - b).abs()
+            mag = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+            ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+            excess = float((diff - ulp - RTOL_LC * b.abs().max()).max())
+            if not excess <= 0:
+                raise AssertionError(
+                    f"{label} {tap} chunk {i}: beyond one bf16 ulp and "
+                    f"{RTOL_LC} of max|ref| of the single-device harvest")
+            worst = max(worst, float(diff.max()))
+            over_ulp += int((diff > ulp).sum())
+            values += diff.numel()
+            del a, b, diff, mag, ulp
+        out[tap] = {"chunks": rm["n_chunks"], "max_abs_err": worst,
+                    "beyond_one_ulp": over_ulp, "values": values,
+                    "bitwise_chunks": sum(gd[k] == rd[k] for k in rd)}
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_worker(argv) -> int:
+    """One rank of phase 20 (b)'s world: ``--ring-worker RANK WORLD RDZV
+    OUT GO``. It joins the gloo world, builds the model, waits for the
+    file GO (the parent's timed work done), then checks the sequence-
+    parallel forward against the single-device one and harvests into
+    OUT/store (rank 0 writes); its result goes to OUT/rank<RANK>.json."""
+    import torch.distributed as dist
+
+    from sparse_coding_tpu_torch.lm import gptneox
+    from sparse_coding_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        make_mesh,
+        shutdown_distributed,
+    )
+
+    rank, world = int(argv[0]), int(argv[1])
+    rdzv, out, go = (Path(a) for a in argv[2:5])
+    initialize_distributed(store=dist.FileStore(str(rdzv), world),
+                           num_processes=world, process_id=rank,
+                           backend="gloo", device_type=DEV,
+                           timeout_s=LC_TIMEOUT_S)
+    try:
+        mesh = make_mesh(1, world, device_type=DEV)
+        cfg, params, tokens = lc_model()
+        # first-call costs (cuBLAS handles) before the wait
+        with torch.inference_mode():
+            gptneox.forward(params, torch.as_tensor(tokens[:1, :64]).to(DEV),
+                            cfg, stop_at_layer=1)
+        sync()
+        t0 = time.perf_counter()
+        while not go.exists():
+            if time.perf_counter() - t0 > LC_TIMEOUT_S:
+                raise TimeoutError(f"rank {rank}: no go file {go}")
+            time.sleep(0.05)
+        mesh.barrier()
+        res = {"forward": lc_forward_check(params, cfg, tokens, mesh)}
+        mesh.barrier()
+        res["harvest"] = lc_harvest(params, cfg, tokens, out / "store", mesh)
+        (out / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def lc_world_start(tmp: Path) -> tuple[list, Path, Path]:
+    """Start (b)'s two ranks (this script's ``--ring-worker``); they build
+    the model and wait for the go file."""
+    out = tmp / "ring_world"
+    out.mkdir()
+    go = out / "go"
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--ring-worker",
+         str(r), str(LC_WORLD), str(out / "rdzv"), str(out), str(go)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(LC_WORLD)]
+    return procs, out, go
+
+
+def lc_world_finish(procs: list, out: Path) -> list[dict]:
+    """Wait for (b)'s ranks (killing any survivor); a rank that failed
+    fails the phase. Returns each rank's result."""
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=LC_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"(b) ring world rank {r} exited "
+                                 f"{p.returncode}:\n{text[-6000:]}")
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(LC_WORLD)]
+
+
+def wide_kernels(g: torch.Generator) -> dict:
+    """(a) K8 and K9, fp32 and bf16, against their plain versions at
+    BigSAEArgs' n and d past 1,024 (phase 2's and phase 11's bounds, ReLU
+    flips counted), then at a batch several workspace chunks long (fp32:
+    its launch counts)."""
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    checks = {}
+    for d in WIDE_DS:
+        p = big_params(g, BIG_N, d)
+        x = torch.randn((WIDE_BATCH, d), generator=g).to(DEV)
+        checks[f"fp32 d={d}"] = check_big_kernels(p, x, f"wide d={d}")
+        if d % 8 == 0:
+            checks[f"bf16 d={d}"] = big_bf16_check(p, x, f"wide bf16 d={d}")
+        del p, x
+        torch.cuda.empty_cache()
+    b, n, d = WIDE_CHUNK_SHAPE
+    p = big_params(g, n, d)
+    x = torch.randn((b, d), generator=g).to(DEV)
+    _build.reset_launches()
+    checks["fp32 chunks"] = check_big_kernels(p, x, "wide chunks")
+    want = big_launches(1, b, (1, 2))
+    if dict(_build.LAUNCHES) != want:
+        raise AssertionError(f"wide chunks: launches {dict(_build.LAUNCHES)}"
+                             f", expected {want}")
+    checks["bf16 chunks"] = big_bf16_check(p, x, "wide bf16 chunks")
+    log(f"  (a) {b} rows at d={d}: fp32 {len(fb.fwd_chunks(b, n))} + "
+        f"{len(fb.bwd_chunks(b, n))} chunks, bf16 "
+        f"{len(fb.fwd_chunks(b, n, BF16))} + "
+        f"{len(fb.bwd_chunks(b, n, BF16))}")
+    del p, x
+    torch.cuda.empty_cache()
+    return checks
+
+
+def wide_timing(g: torch.Generator, x: torch.Tensor) -> dict:
+    """K8 and K9, fp32 and bf16, at BigSAEArgs' batch and n on the
+    harvested mlp.2 rows ``x`` (d = 2,048): the kernel timed over 2
+    launches after one (CUDA events), its plain version over one; the
+    active codes and each kernel's bound."""
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    b, d = x.shape
+    p = big_params(g, BIG_N, d)
+    xc = (x - p["centering"]).contiguous()
+    nnz = int(((xc @ p["encoder"] + p["threshold"]) > 0).sum())
+    alpha = torch.tensor(BIG_L1, device=DEV)
+    bounds = {**big_bounds(b, BIG_N, d, nnz),
+              **big_bf16_bounds(b, BIG_N, d, nnz)}
+    out = {"active_codes": nnz, "bounds": bounds, "timing": {}}
+    for name, cd in (("big_sae_fwd", "float32"), ("big_sae_bwd", "float32"),
+                     ("big_sae_fwd_bf16", BF16), ("big_sae_bwd_bf16", BF16)):
+        if name.startswith("big_sae_fwd"):
+            kern = lambda: fb.big_sae_forward(p, xc, compute_dtype=cd)
+            plain = lambda: fb.big_sae_forward_plain(p, xc, cd)
+        else:
+            r = (fb.big_sae_forward_plain(p, xc, cd) - x).contiguous()
+            kern = lambda: fb.big_sae_backward(p, alpha, xc, r,
+                                               compute_dtype=cd)
+            plain = lambda: fb.big_sae_backward_plain(p, alpha, xc, r, cd)
+        ms, plain_ms = time_ms(kern, 2), time_ms(plain, 1, warmup=0)
+        out["timing"][name] = {"ms": ms, "plain_ms": plain_ms,
+                               "library_ms": None}
+        bnd = bounds[name]
+        log(f"  (c) {name} at d={d}, batch {b}, n={BIG_N}: kernel "
+            f"{ms:.2f} ms, plain {plain_ms:.2f} ms, bound "
+            f"{bnd['bound_ms']:.2f} ms ({bnd['bound_by']}; "
+            f"{100 * bnd['bound_ms'] / ms:.0f}% of it)")
+        torch.cuda.empty_cache()
+    log(f"  (c) {nnz} of {b * BIG_N} codes active "
+        f"({100 * nnz / (b * BIG_N):.1f}%)")
+    del p, xc
+    torch.cuda.empty_cache()
+    return out
+
+
+def lc_big_train(store: Path, out_dir: Path, compute: str) -> dict:
+    """train_big_sae over the mlp.2 store at d = 2,048 (use_fused "auto",
+    as a user runs it; ``compute`` bf16: its step built with
+    fused_compute_dtype bfloat16): LC_BIG_STEPS steps, each kernel once a
+    step (counts zeroed just before), finite metrics; acts/s over steps
+    2-LC_BIG_STEPS on the device timeline (CUDA events after each step,
+    data loading included)."""
+    from sparse_coding_tpu_torch.config import BigSAEArgs
+    from sparse_coding_tpu_torch.ops import _build
+    from sparse_coding_tpu_torch.train import big_sae as bs
+
+    events, metrics = [], []
+    real_make = bs.make_big_sae_step
+    make = timed_big_steps(real_make, events, metrics,
+                           fused_compute_dtype=compute)
+    cfg = BigSAEArgs(activation_dim=LM_D_MLP, dataset_folder=str(store),
+                     output_folder=str(out_dir), n_epochs=LC_BIG_EPOCHS,
+                     seed=SEED)
+    if (cfg.n_feats, cfg.batch_size) != (BIG_N, BIG_BATCH):
+        raise AssertionError("phase 20 runs BigSAEArgs' n and batch")
+    bs.make_big_sae_step = make
+    try:
+        _build.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        bs.train_big_sae(cfg, device=DEV)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    finally:
+        bs.make_big_sae_step = real_make
+    want = (big_bf16_launches(LC_BIG_STEPS) if compute == BF16
+            else big_launches(LC_BIG_STEPS))
+    if launches != want or len(events) != LC_BIG_STEPS:
+        raise AssertionError(f"train_big_sae {compute}: {len(events)} steps, "
+                             f"launches {launches}, expected {want}")
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"train_big_sae {compute}: non-finite metrics")
+    window_s = events[0].elapsed_time(events[-1]) / 1e3
+    acts_per_s = (LC_BIG_STEPS - 1) * BIG_BATCH / window_s
+    log(f"  (c) train_big_sae {compute}: {LC_BIG_STEPS} steps, {wall:.2f} s "
+        f"wall, {acts_per_s:.0f} acts/s over steps 2-{LC_BIG_STEPS} "
+        f"({1e3 * BIG_BATCH / acts_per_s:.1f} ms a step); loss "
+        f"{metrics[0]['loss']:.4g} -> {metrics[-1]['loss']:.4g}")
+    return {"wall_s": wall, "acts_per_s": acts_per_s, "launches": launches,
+            "metrics": metrics, "step_ms": 1e3 * BIG_BATCH / acts_per_s}
+
+
+def long_context_phase(tmp: Path) -> dict:
+    """Phase 20 (the module docstring's (a)-(c)), its timed steps alone on
+    the card: the single-device and the 1 × 1 NCCL harvests, then (c)'s
+    kernel times and training runs over the NCCL mesh's mlp.2 store; then
+    the two-rank world harvests beside the untimed checks ((c)'s side by
+    side, (a)), and its store is held against the single-device one. Its
+    wall and each part's in the report."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from sparse_coding_tpu_torch.data.chunk_store import ChunkStore
+    from sparse_coding_tpu_torch.lm import gptneox
+    from sparse_coding_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        make_mesh,
+        shutdown_distributed,
+    )
+
+    t_phase = time.perf_counter()
+    rep: dict = {"part_s": {}}
+    procs, world_dir, go = lc_world_start(tmp)
+    ref_store, nccl_store = tmp / "lc_store_one", tmp / "lc_store_nccl"
+    mlp = nccl_store / f"mlp.{LC_LAYER}"
+    try:
+        t0 = time.perf_counter()
+        cfg, params, tokens = lc_model()
+        with torch.inference_mode():  # first-call costs
+            gptneox.forward(params, torch.as_tensor(tokens[:1, :64]).to(DEV),
+                            cfg, stop_at_layer=1)
+        rep["one"] = lc_harvest(params, cfg, tokens, ref_store)
+        initialize_distributed(store=dist.FileStore(str(tmp / "lc_rdzv"), 1),
+                               num_processes=1, process_id=0,
+                               backend="nccl", device_type="cuda",
+                               timeout_s=LC_TIMEOUT_S)
+        try:
+            mesh = make_mesh(1, 1, device_type="cuda")
+            rep["nccl_forward"] = lc_forward_check(params, cfg, tokens, mesh)
+            rep["nccl"] = lc_harvest(params, cfg, tokens, nccl_store, mesh)
+        finally:
+            shutdown_distributed()
+        rep["nccl_vs_one"] = lc_stores_close("1x1 nccl", nccl_store,
+                                             ref_store)
+        del params
+        torch.cuda.empty_cache()
+        rep["part_s"]["b_one_device"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        x = torch.as_tensor(ChunkStore(mlp).load_chunk(0)).to(DEV)
+        rep["timing"] = wide_timing(torch.Generator().manual_seed(21), x)
+        del x
+        torch.cuda.empty_cache()
+        runs = {c: lc_big_train(mlp, tmp / f"lc_big_{c}", c)
+                for c in ("float32", BF16)}
+        for i, (a, b) in enumerate(zip(runs["float32"]["metrics"],
+                                       runs[BF16]["metrics"])):
+            rel = abs(b["loss"] - a["loss"]) / abs(a["loss"])
+            if not rel <= RTOL_BIG_BF16_LOSS:
+                raise AssertionError(
+                    f"(c) bf16 step {i} loss {b['loss']} vs fp32 "
+                    f"{a['loss']}: {rel:.2e} > {RTOL_BIG_BF16_LOSS}")
+        rep["train"] = runs
+        rep["part_s"]["c_timed"] = time.perf_counter() - t0
+
+        # the world runs beside the untimed checks: two ranks sharing the
+        # card give no throughput figure of a mesh anyway
+        t0 = time.perf_counter()
+        go.write_text("go")
+        cs = ChunkStore(mlp)
+        rep["side_by_side"] = big_side_by_side(
+            [torch.as_tensor(cs.load_chunk(i)).to(DEV)
+             for i in LC_SIDE_CHUNKS],
+            "(c)")
+        rep["a"] = wide_kernels(torch.Generator().manual_seed(20))
+        rep["part_s"]["c_side_by_side_and_a"] = time.perf_counter() - t0
+        ranks = lc_world_finish(procs, world_dir)
+        rep["part_s"]["b_world_beside_them"] = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    rep["world"] = ranks
+    rep["world_vs_one"] = lc_stores_close("1x2 gloo", world_dir / "store",
+                                          ref_store)
+    fwd_errs = {f"rank {r} {k}": v["max_abs_err"] / v["max_abs_ref"]
+                for r, res in enumerate(ranks)
+                for k, v in res["forward"].items()}
+    fwd_errs.update({f"1x1 {k}": v["max_abs_err"] / v["max_abs_ref"]
+                     for k, v in rep["nccl_forward"].items()})
+    log(f"  (b) sequence-parallel forward vs one device, context "
+        f"{LC_CONTEXT}: worst |Δ|/max|ref| {max(fwd_errs.values()):.2e} "
+        f"(bound {RTOL_LM}) over " + ", ".join(sorted(fwd_errs)))
+    for label, h in (("one device", rep["one"]), ("1x1 nccl", rep["nccl"]),
+                     ("1x2 gloo (beside the checks)",
+                      ranks[0]["harvest"])):
+        log(f"  (b) harvest {label}: {LC_CONTEXTS} contexts of "
+            f"{LC_CONTEXT} tokens, " + ", ".join(
+                f"{tap} {h['tokens_per_s'][tap]:.0f} tokens/s "
+                f"({h['wall_s'][tap]:.2f} s)" for tap in h["wall_s"]))
+    for label, key in (("1x1 nccl", "nccl_vs_one"),
+                       ("1x2 gloo", "world_vs_one")):
+        log(f"  (b) {label} store vs one device: " + "; ".join(
+            f"{tap} {v['chunks']} chunks, |Δ|max {v['max_abs_err']:.3e}, "
+            f"{v['beyond_one_ulp']} of {v['values']} values beyond one "
+            f"ulp, {v['bitwise_chunks']} chunks bitwise"
+            for tap, v in rep[key].items()))
+    for path in (ref_store, nccl_store, world_dir):
+        shutil.rmtree(path)
+    rep["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 20: {rep['wall_s']:.1f} s (budget 60 s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rep["part_s"].items()))
+    return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=Path, default=None,
@@ -7963,6 +8542,10 @@ def main() -> int:
                     metavar=("CACHE_DIR", "DICT_FILE", "OUT"),
                     help="run phase 17 (f)'s restarted serving process "
                     "(started by phase 17 itself)")
+    ap.add_argument("--ring-worker", nargs=5, default=None,
+                    metavar=("RANK", "WORLD", "RDZV", "OUT", "GO"),
+                    help="run one rank of phase 20 (b)'s world (started by "
+                    "phase 20 itself)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -7972,6 +8555,8 @@ def main() -> int:
         return mesh_worker(args.mesh_worker)
     if args.serve_restart:
         return serve_restart_child(args.serve_restart)
+    if args.ring_worker:
+        return ring_worker(args.ring_worker)
     from sparse_coding_tpu_torch.ops import _build
 
     report: dict = {}
@@ -8249,6 +8834,20 @@ def main() -> int:
         report["fleet"] = fleet_phase(Path(tmp), tied_dicts)
         log(f"  done at {time.perf_counter() - t_start:.1f} s")
 
+        log(f"phase 20: long-context harvest and the giant SAE at the LM's "
+            f"width — (a) big_sae_fwd/bwd and their bf16 forms vs their "
+            f"plain versions at n={BIG_N}, d={', '.join(map(str, WIDE_DS))} "
+            f"and {WIDE_CHUNK_SHAPE[0]} rows at d={WIDE_CHUNK_SHAPE[2]}; (b) "
+            f"harvest_activations on a sequence-parallel ring, {LM_MODEL} "
+            f"at full width, {LC_CONTEXTS} contexts of {LC_CONTEXT} tokens, "
+            f"taps mlp.{LC_LAYER} and residual.{LC_LAYER}: one device, a 1x1 "
+            f"NCCL mesh and a {LC_WORLD}-rank gloo world on the card; (c) "
+            f"train_big_sae over the mlp.{LC_LAYER} store (d={LM_D_MLP}, "
+            f"n={BIG_N}, batch {BIG_BATCH}), {LC_BIG_STEPS} steps fp32 and "
+            f"bf16, {len(LC_SIDE_CHUNKS)} side by side with autodiff")
+        report["long_context"] = long_context_phase(Path(tmp))
+        log(f"  done at {time.perf_counter() - t_start:.1f} s")
+
     timing.update(big["timing"])
     bnd.update(big["bounds"])
     kernels = []
@@ -8396,6 +8995,21 @@ def main() -> int:
             report["pipeline"]["a"]["launches"].get(entry["name"], 0)
         entry["phase19_launches"] = \
             report["fleet"]["b"]["launches"].get(entry["name"], 0)
+    # phase 20 (c)'s train_big_sae runs at d = LM_D_MLP (fp32 and bf16
+    # compute), and the big-SAE kernels' time and bound at that width
+    lc = report["long_context"]
+    for entry in kernels:
+        name = entry["name"]
+        entry["phase20_launches"] = {
+            f"train_big_sae {c}": run["launches"].get(name, 0)
+            for c, run in lc["train"].items()}
+        if name in lc["timing"]["timing"]:
+            t = lc["timing"]["timing"][name]
+            b = lc["timing"]["bounds"][name]
+            entry[f"at_d{LM_D_MLP}"] = {
+                "launches": sum(entry["phase20_launches"].values()),
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
     report["kernels"] = kernels
     report["timing"] = timing
     report["bounds"] = bnd

@@ -123,6 +123,18 @@ def _count_read(path: str) -> None:
     obs.counter("data.chunk_reads", path=path).inc()
 
 
+def chunk_rows(activation_dim: int, chunk_size_gb: float, dtype: str,
+               round_rows_to: int = 1) -> int:
+    """Rows a :class:`ChunkWriter` puts in each chunk: ``chunk_size_gb`` of
+    ``dtype`` rows, rounded down to a multiple of ``round_rows_to`` (at
+    least one multiple)."""
+    itemsize = 4 if dtype == "float32" else 2
+    rows = int(chunk_size_gb * 2**30 / (activation_dim * itemsize))
+    if round_rows_to > 1:
+        rows = max(round_rows_to, rows // round_rows_to * round_rows_to)
+    return rows
+
+
 class ChunkWriter:
     """Accumulates [n, d] activation slabs and flushes ~chunk_size_gb
     files. ``center=True`` subtracts the first flushed chunk's mean from
@@ -148,13 +160,8 @@ class ChunkWriter:
         self.folder.mkdir(parents=True, exist_ok=True)
         self.activation_dim = activation_dim
         self.dtype = dtype
-        itemsize = 4 if dtype == "float32" else 2
-        self.rows_per_chunk = int(chunk_size_gb * 2**30
-                                  / (activation_dim * itemsize))
-        if round_rows_to > 1:
-            self.rows_per_chunk = max(
-                round_rows_to,
-                self.rows_per_chunk // round_rows_to * round_rows_to)
+        self.rows_per_chunk = chunk_rows(activation_dim, chunk_size_gb,
+                                         dtype, round_rows_to)
         self._buffer: list[np.ndarray] = []
         self._buffered_rows = 0
         self._digests: dict[str, str] = {}

@@ -7,8 +7,12 @@ each tap streamed to its own chunk folder. On the card the activations
 come back through pinned host buffers filled by non-blocking copies:
 batch i drains into the chunk writers while batch i+1 computes.
 
-The sequence-parallel mesh path (``mesh=``, the JAX package's
-``lm/long_context.py``) is not ported (ROADMAP queue 1, items 11 and 23).
+With ``mesh=`` the contexts run sequence-parallel (``lm/long_context.py``,
+ring attention over the mesh's data axis), so a context can be longer
+than one forward holds: every rank of the mesh runs the harvest over the
+same token rows, each tap is gathered back along the sequence before its
+rows are flattened (the single-device row order), and the mesh's rank 0
+alone writes the chunks.
 """
 
 from __future__ import annotations
@@ -22,17 +26,11 @@ import torch
 
 from sparse_coding_tpu_torch import obs, resolve_device
 from sparse_coding_tpu_torch.config import DataArgs
-from sparse_coding_tpu_torch.data.chunk_store import ChunkWriter
+from sparse_coding_tpu_torch.data.chunk_store import ChunkWriter, chunk_rows
 from sparse_coding_tpu_torch.lm import hooks
 from sparse_coding_tpu_torch.lm.model_config import LMConfig
+from sparse_coding_tpu_torch.parallel.mesh import AXES
 from sparse_coding_tpu_torch.resilience import lease
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: sequence-parallel harvesting (lm/long_context.py, ring "
-            "attention) is not ported (ROADMAP queue 1, items 11 and 23)")
 
 
 def make_harvest_fn(params, cfg: LMConfig, taps: Sequence[str], forward=None,
@@ -43,13 +41,45 @@ def make_harvest_fn(params, cfg: LMConfig, taps: Sequence[str], forward=None,
     ``scan_batches=K > 1`` returns a function of a [K, b, s] token stack
     that runs the K forwards one after another and returns their rows
     joined in batch order — the same values as K single calls, in one
-    buffer a tap, so the host pulls once per K batches."""
-    _refuse_mesh(mesh)
+    buffer a tap, so the host pulls once per K batches.
+
+    With a ``mesh``, contexts run sequence-parallel
+    (:func:`lm.long_context.sequence_parallel_forward`, GPT-NeoX): every
+    rank calls the function with the same tokens [b, s] (s divisible by
+    the data axis), and gets every tap gathered back along the sequence
+    before the "(b s)" flattening, so its rows are in the single-device
+    order."""
+    taps = tuple(taps)
+    stop = hooks.max_tap_layer(taps) + 1
+    if mesh is not None:
+        if forward is not None:
+            raise ValueError(
+                "forward= and mesh= are mutually exclusive: the mesh path "
+                "always uses the sequence-parallel GPT-NeoX forward "
+                "(lm/long_context.py)")
+        if scan_batches > 1:
+            raise ValueError(
+                "scan_batches > 1 is a single-device lever; the mesh "
+                "(sequence-parallel) path runs one sharded forward per "
+                "model batch instead")
+        from sparse_coding_tpu_torch.lm.long_context import (
+            SEQ_AXIS,
+            sequence_parallel_forward,
+        )
+
+        @torch.inference_mode()
+        def harvest_sp(tokens):
+            _, tapped = sequence_parallel_forward(params, tokens, cfg, mesh,
+                                                  taps=taps,
+                                                  stop_at_layer=stop)
+            return {name: mesh.all_gather(acts, SEQ_AXIS, dim=1)
+                    .reshape(-1, acts.shape[-1])
+                    for name, acts in tapped.items()}
+
+        return harvest_sp
     if forward is None:
         from sparse_coding_tpu_torch.lm.convert import forward_fn
         forward = forward_fn(cfg)
-    taps = tuple(taps)
-    stop = hooks.max_tap_layer(taps) + 1
 
     @torch.inference_mode()
     def harvest(tokens):
@@ -141,17 +171,28 @@ def harvest_activations(
     bit-identical to K=1; the tail runs as single batches). Any exception
     aborts every writer: whole chunks stay, no ``meta.json`` is written.
     Each finalized folder's meta.json carries ``model``, ``layer_loc``,
-    ``tap`` and ``layer``."""
-    _refuse_mesh(mesh)
-    dev = resolve_device(device)
+    ``tap`` and ``layer``.
+
+    ``mesh``: every rank of the mesh calls this with the same arguments
+    and the params on its device (``mesh.device``); the contexts run
+    sequence-parallel (:func:`make_harvest_fn`, GPT-NeoX, the context
+    length divisible by the data axis). The mesh's rank 0 (model 0, data
+    0) holds the writers, pulls the gathered rows to the host and writes
+    every chunk and meta.json; the other ranks run the forwards and the
+    collectives and write nothing. Every rank returns rank 0's counts."""
+    if scan_batches > 1 and mesh is not None:
+        raise ValueError("scan_batches > 1 is not supported on the mesh "
+                         "(sequence-parallel) harvesting path")
+    dev = mesh.device if mesh is not None else resolve_device(device)
     taps = hooks.taps_for(layers, layer_loc)
-    harvest = make_harvest_fn(params, cfg, taps, forward=forward)
+    harvest = make_harvest_fn(params, cfg, taps, forward=forward, mesh=mesh)
     harvest_window = (make_harvest_fn(params, cfg, taps, forward=forward,
                                       scan_batches=scan_batches)
                       if scan_batches > 1 else None)
     width = hooks.get_activation_size(layer_loc, cfg)
     seq_len = token_rows.shape[1]
     tap_dirs = dict(tap_dirs or {})
+    writes = mesh is None or mesh.rank == 0
     writers = {
         t: ChunkWriter(Path(tap_dirs.get(t, Path(output_folder) / t)), width,
                        chunk_size_gb=chunk_size_gb, dtype=dtype,
@@ -159,9 +200,10 @@ def harvest_activations(
                        round_rows_to=model_batch_size * seq_len,
                        center=center)
         for t in taps
-    }
+    } if writes else {}
     n_rows = token_rows.shape[0]
-    rows_per_chunk = next(iter(writers.values())).rows_per_chunk
+    rows_per_chunk = chunk_rows(width, chunk_size_gb, dtype,
+                                model_batch_size * seq_len)
     skip_rows = skip_chunks * (rows_per_chunk // seq_len)
     if n_chunks is not None:
         # never feed rows past the cap: a window crossing the last chunk
@@ -206,8 +248,11 @@ def harvest_activations(
             else:
                 step_rows = model_batch_size
                 tapped = harvest(tokens_of(lo, lo + step_rows))
-            pending.append(pull.issue(tapped))
             lo += step_rows
+            if not writes:
+                lease.beat()  # the forward and its collectives advanced
+                continue
+            pending.append(pull.issue(tapped))
             if len(pending) > 1:
                 done = drain_one()
         while pending and not done:
@@ -223,6 +268,11 @@ def harvest_activations(
                                 "tap": name,
                                 "layer": hooks.parse_tap_name(name)[1]})
               for name, w in writers.items()}
+    if mesh is not None:
+        # rank 0's counts on every rank (the others contribute zeros)
+        counts = mesh.psum(torch.tensor([float(result.get(t, 0))
+                                         for t in taps], device=dev), AXES)
+        result = {t: int(c) for t, c in zip(taps, counts.tolist())}
     obs.record_span("harvest.run", obs.monotime() - t_harvest,
                     taps=list(taps), rows=int(n_rows - skip_rows),
                     chunks={k: int(v) for k, v in result.items()})

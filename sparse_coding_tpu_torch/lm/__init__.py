@@ -1,5 +1,5 @@
 """Language models for harvesting activations (the JAX package's ``lm/``):
 GPT-NeoX (Pythia) and GPT-2 forwards with activation taps and in-flight
-edits, their presets, and conversion from Hugging Face state dicts. The
-sequence-parallel ``long_context.py`` and ``ring_attention.py`` are not
-ported (ROADMAP queue 1, items 11 and 23)."""
+edits, their presets, conversion from Hugging Face state dicts, and the
+sequence-parallel GPT-NeoX forward over a mesh (``long_context.py``, with
+``ring_attention.py``) for contexts longer than one forward holds."""

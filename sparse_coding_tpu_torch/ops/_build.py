@@ -273,7 +273,7 @@ MAX_D = 4096
 BF16_D_MULTIPLE = 8
 BIG_BATCH_TILE = 32
 BIG_FEAT_TILE = 32
-BIG_MAX_D = 1024
+BIG_MAX_D = MAX_D  # csrc/sae_common.cuh kBigMaxD = kMaxD
 
 
 def check_cuda_tensors(name: str, bf16_ok: tuple = (), **tensors) -> None:

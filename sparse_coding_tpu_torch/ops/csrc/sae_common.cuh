@@ -20,12 +20,16 @@ constexpr int kAdamRows = kWarps;         // dictionary rows per adam block
 // GEMM template's K loop and the warp-strided row loops of the norm pass
 // and the Adam epilogues; their workspace holds codes only.
 constexpr int kMaxD = 4096;
-constexpr int kBigMaxD = 4 * kThreads;    // widest d the big-SAE kernels take
+// widest d the big-SAE kernels take, the ensemble kernels' for the same
+// reason: d is a GEMM extent (K of the codes and dpre products, M or N of
+// the decode, de and dwn products) and the grid of dctr (d + 1 blocks);
+// their workspace holds codes only, so its chunk rows do not move with d.
+constexpr int kBigMaxD = kMaxD;
 constexpr float kNormEps = 1e-8f;         // row norms are clipped, not +eps
 constexpr int kBf16DMultiple = 8;         // the bf16 forms' d divides by this
 
 // The big-SAE kernels' chunk shapes: `rows` batch rows (a multiple of 32),
-// n features (a multiple of 32), 1 <= d <= 1024.
+// n features (a multiple of 32), 1 <= d <= kBigMaxD (4096).
 inline bool big_chunk_ok(int rows, int n, int d) {
   return rows >= 1 && rows % kBatchTile == 0 && n >= 1 &&
          n % kFeatTile == 0 && d >= 1 && d <= kBigMaxD;

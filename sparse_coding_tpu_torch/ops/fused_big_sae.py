@@ -74,7 +74,8 @@ def pick_big_sae_tiles(batch: int, n_feats: int, d: int,
                        ) -> Optional[tuple[int, int]]:
     """The (batch_tile, feat_tile) the CUDA kernels block at when they take
     the shape, else None (the caller uses autodiff). The kernels take any
-    1 <= d <= 1024 with batch and n_feats multiples of 32; their bf16 forms
+    1 <= d <= 4096 (``_build.BIG_MAX_D``: gpt2-medium's and Pythia-410M's
+    MLP width) with batch and n_feats multiples of 32; their bf16 forms
     (``compute_itemsize`` 2) need d % 8 == 0 too."""
     if compute_itemsize not in (2, 4):
         return None

@@ -11,8 +11,9 @@ Axes, as there:
 One process per device. Where the JAX package runs one program over every
 device (``shard_map``), each rank here holds its local shards as plain
 tensors, runs the kernels on them, and calls an explicit collective —
-:meth:`Mesh.psum` or :meth:`Mesh.all_gather` on the axis's process group —
-at each point where the JAX code calls ``jax.lax.psum`` or ``all_gather``.
+:meth:`Mesh.psum`, :meth:`Mesh.all_gather` or :meth:`Mesh.ppermute` on the
+axis's process group — at each point where the JAX code calls
+``jax.lax.psum``, ``all_gather`` or ``ppermute``.
 So ``compat_shard_map`` and ``compat_axis_size`` have no counterpart: the
 local code is already written per shard, and an axis's size is
 ``mesh.shape[axis]``.
@@ -131,6 +132,39 @@ class Mesh:
         parts = [torch.empty_like(t) for _ in range(self.shape[axis])]
         dist.all_gather(parts, t.contiguous(), group=self.group(axis))
         return torch.cat(parts, dim=dim)
+
+    def ppermute(self, t: torch.Tensor, axis: str = DATA_AXIS,
+                 shift: int = 1) -> torch.Tensor:
+        """The ring shift along ``axis``: this rank sends ``t`` to the rank
+        ``shift`` places on and returns what the rank ``shift`` places back
+        sent (the JAX ``ppermute`` with the perm ``[(i, (i + shift) %
+        P)]``), one paired ``batch_isend_irecv`` on the axis's group. A
+        new tensor, the input untouched; identity in a world of one or on
+        an axis of one. gloo's point-to-point ops read host memory only, so
+        under gloo a CUDA tensor travels through pinned host buffers;
+        NCCL sends it from the device."""
+        (axis,) = _axes(axis)
+        size = self.shape[axis]
+        if not self.is_distributed or shift % size == 0:
+            return t.clone()
+        group = self.group(axis)
+        me = self.coords[axis]
+        dst = dist.get_global_rank(group, (me + shift) % size)
+        src = dist.get_global_rank(group, (me - shift) % size)
+        send = t.contiguous()
+        staged = (t.device.type == "cuda"
+                  and dist.get_backend(group) == "gloo")
+        if staged:
+            send = torch.empty(t.shape, dtype=t.dtype,
+                               pin_memory=True).copy_(send)  # blocking
+            recv = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        else:
+            recv = torch.empty_like(send)
+        for work in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, send, dst, group),
+                dist.P2POp(dist.irecv, recv, src, group)]):
+            work.wait()
+        return recv.to(t.device) if staged else recv
 
     def barrier(self) -> None:
         if self.is_distributed:

@@ -66,9 +66,6 @@ def basic_l1_sweep(
     ``mesh`` (:mod:`parallel.mesh`) every rank reads the same batches,
     trains its member shard on its rows, and rank 0 alone writes the
     metrics and the artifacts; every rank returns every dict."""
-    if use_wandb:
-        raise NotImplementedError("wandb logging is not ported; metrics go "
-                                  "to metrics.jsonl")
     dev = mesh.device if mesh is not None else resolve_device(device)
     writer = mesh is None or mesh.rank == 0
     store = open_store(dataset_dir)
@@ -85,7 +82,8 @@ def basic_l1_sweep(
     rng = np.random.default_rng(seed)
     step = last_log = 0
     scan_k = max(1, int(scan_steps))
-    logger = (MetricsLogger(output_dir, run_name="basic_l1_sweep")
+    logger = (MetricsLogger(output_dir, use_wandb=use_wandb,
+                            run_name="basic_l1_sweep")
               if writer else None)
     try:
         for epoch in range(n_epochs):

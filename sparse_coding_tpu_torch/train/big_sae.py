@@ -43,6 +43,7 @@ from sparse_coding_tpu_torch.models.learned_dict import (
     LearnedDict,
     normalize_rows,
 )
+from sparse_coding_tpu_torch.ops._build import BIG_MAX_D
 from sparse_coding_tpu_torch.parallel import partition
 from sparse_coding_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 
@@ -196,7 +197,8 @@ def _sharded_fused_loss_and_grads(params: dict, batch: Tensor, l1_alpha,
             f"the big-SAE kernels do not take the per-rank batch={b}, "
             f"n_feats={n}, d={d} of a {mesh.shape[MODEL_AXIS]}x"
             f"{mesh.shape[DATA_AXIS]} mesh (batch and n_feats multiples "
-            "of 32, 1 <= d <= 1024, d % 8 == 0 under bf16 compute); the "
+            f"of 32, 1 <= d <= {BIG_MAX_D}, d % 8 == 0 under bf16 "
+            "compute); the "
             "JAX step's GSPMD autodiff on a mesh is not ported")
     bt, ft = tiles
     x = batch.to(torch.float32).contiguous()
@@ -291,7 +293,8 @@ def make_big_sae_step(optimizer: BigSAEAdam, l1_alpha, mesh=None,
             raise ValueError(
                 f"use_fused=True but the big-SAE kernels do not take batch="
                 f"{b}, n={n}, d={d} (batch and n must be multiples of 32, "
-                "1 <= d <= 1024, and d % 8 == 0 under bf16 compute)")
+                f"1 <= d <= {BIG_MAX_D}, and d % 8 == 0 under bf16 "
+                "compute)")
         codes_itemsize = torch.promote_types(
             batch.dtype, state.params["dict"].dtype).itemsize
         if fused_auto_choice(use_fused, fused_possible, b, n,

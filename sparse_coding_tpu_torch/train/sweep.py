@@ -33,9 +33,11 @@ entry point runs on the card; ``device="cpu"`` (``--device cpu``) runs
 the kernels' plain versions on the CPU. ``profile_steps > 0`` opens one
 managed profiler window (``obs/trace.py``) into
 ``<output>/trace`` once the first steps have run, and closes it
-``profile_steps`` steps later. What the port cannot do yet raises, naming
-its ROADMAP.md queue-1 item: wandb (item 22). The executable-cache warm
-start of the JAX sweep has no counterpart yet (item 13).
+``profile_steps`` steps later. ``use_wandb`` sends the metrics lines to
+a wandb run as well, where ``wandb`` imports (``utils/logging.py``). The
+executable-cache warm start of the JAX sweep has no counterpart: the
+port runs no compiled executables a cache could keep (ROADMAP.md, known
+gaps: ``xcache/store.py``).
 
 On a mesh (``mesh_model``/``mesh_data`` > 1, or a ``mesh`` argument;
 :mod:`parallel.mesh`) every rank reads the same chunks and batches, and
@@ -214,10 +216,6 @@ def _check_supported(cfg: EnsembleArgs, mesh) -> None:
             "checkpoint_backend='msgpack' gathers the full state to one "
             "host and is single-host only; use checkpoint_backend='orbax' "
             "for multi-host runs (sharded per-host writes)")
-    if cfg.use_wandb:
-        raise NotImplementedError(
-            "wandb logging is not ported (ROADMAP.md queue 1, item 22); "
-            "metrics go to metrics.jsonl")
     if cfg.train_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"train_dtype must be 'float32' or 'bfloat16', got "
                          f"{cfg.train_dtype!r}")
@@ -320,8 +318,9 @@ def sweep(
     ensembles = ensemble_init_fn(cfg, mesh, device=dev)
     member_names = [_member_names(hypers, len(hypers))
                     for _, hypers, _ in ensembles]
-    logger = (MetricsLogger(out_dir, run_name=out_dir.name) if writer
-              else _SilentLogger())
+    logger = (MetricsLogger(out_dir, use_wandb=cfg.use_wandb,
+                            run_name=out_dir.name, config=cfg.to_dict())
+              if writer else _SilentLogger())
 
     guardian: Optional[Guardian] = None
     if cfg.guardian:
@@ -374,8 +373,9 @@ def sweep(
     perf_probe = (obs.DeviceStepProbe("train", every=cfg.perf_probe_every,
                                       device=dev)
                   if cfg.perf_probe_every > 0 else None)
-    # the JAX sweep's executable-cache warm start has no counterpart yet
-    # (ROADMAP.md queue 1, item 13)
+    # the JAX sweep's executable-cache warm start has no counterpart: the
+    # port compiles no executables a cache could keep (ROADMAP.md, known
+    # gaps: xcache/store.py)
     # profile_steps > 0: one managed trace window (obs/trace.py: tmp then
     # atomic finalize, counted skip on error, closed in the finally),
     # opened once the first steps have run — step 2, or the second window

@@ -320,7 +320,7 @@ def test_bf16_pick_tiles_admits_what_the_bf16_kernels_take(shape):
     except ValueError:
         takes = False
     assert (tiles is not None) == takes
-    assert takes == (shape[2] % 8 == 0 and shape[2] <= 1024
+    assert takes == (shape[2] % 8 == 0 and shape[2] <= 4096
                      and shape[0] % 32 == 0)
 
 

@@ -586,7 +586,7 @@ def test_tied_bwd_nan_propagates_through_row_chunks(card, monkeypatch,
 # --- the giant single SAE's kernels (big_sae_fwd, big_sae_bwd) ----------------
 
 BIG_SHAPES = [(32, 32, 40), (64, 64, 128), (32, 96, 300), (64, 32, 640),
-              (32, 64, 1024)]
+              (32, 64, 1024), (32, 64, 2048), (32, 64, 4096)]
 
 
 def _big_inputs(card, b, n, d, seed=0):
@@ -624,6 +624,20 @@ def test_big_sae_kernels_match_plain(card, shape):
     # one chunk at these shapes: each of K8's and K9's launches once
     assert all(_build.LAUNCHES[k] == 1
                for k in (*_build.BIG_FWD_PARTS, *_build.BWD_PARTS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_big_sae_kernels_refuse_past_the_widest_d(card, bf16):
+    """d = BIG_MAX_D + 8 (4104) raises on the card naming the sizes the
+    kernels take, and launches nothing."""
+    from sparse_coding_tpu_torch.ops import fused_big_sae as fb
+
+    p, x = _big_inputs(card, 32, 32, _build.BIG_MAX_D + 8)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match=f"d <= {_build.BIG_MAX_D}"):
+        fb.big_sae_forward(p, x, compute_dtype=BF16 if bf16 else "float32")
+    assert all(v == 0 for v in _build.LAUNCHES.values())
 
 
 # (batch, n_feats, d, rows per chunk): 1, 2 and 3 chunks, the last one
@@ -725,7 +739,7 @@ def test_big_sae_wrappers_refuse_what_the_kernels_do_not_take(card):
     alpha = torch.tensor(1e-3, device=card)
     with pytest.raises(ValueError, match="CUDA kernel needs"):
         fb.big_sae_forward(p, x[:48])
-    wide, xw = _big_inputs(card, 32, 32, 1032)
+    wide, xw = _big_inputs(card, 32, 32, _build.BIG_MAX_D + 8)
     with pytest.raises(ValueError, match="CUDA kernel needs"):
         fb.big_sae_forward(wide, xw)
     with pytest.raises(ValueError, match="CUDA kernel needs"):

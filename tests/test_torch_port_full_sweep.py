@@ -22,6 +22,7 @@ differ by a share of lr at once — at lr 3e-3 one element of 2048 moved
 """
 
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -236,7 +237,8 @@ def test_main_without_a_card_raises(store, tmp_path):
     ({"mesh_data": 2}, False, ValueError, "needs 2 ranks, have 1"),
     ({"checkpoint_backend": "msgpack"}, True, ValueError,
      "single-host only; use checkpoint_backend='orbax'"),
-    ({"use_wandb": True}, False, NotImplementedError, "item 22"),
+    ({"use_wandb": True, "batch_size": BATCH, "n_chunks": 1,
+      "learned_dict_ratio": RATIO}, False, None, None),
 ], ids=["mesh", "orbax", "wandb"])
 def test_deferred_options_raise_naming_their_item(store, tmp_path,
                                                   monkeypatch, over,
@@ -244,7 +246,9 @@ def test_deferred_options_raise_naming_their_item(store, tmp_path,
     """What the sweep still lacks raises naming its ROADMAP item; a mesh
     larger than the world (no world here) raises before any training; a
     mesh across nodes needs the orbax backend's per-rank writes (msgpack
-    gathers to one host), as the JAX sweep says."""
+    gathers to one host), as the JAX sweep says. ``use_wandb`` is ported
+    (``error`` None): where wandb does not import the sweep runs with
+    metrics.jsonl alone, as the JAX sweep does."""
     from sparse_coding_tpu_torch.parallel.mesh import Mesh
 
     cfg = EnsembleArgs(output_folder=str(tmp_path / "o"),
@@ -253,6 +257,12 @@ def test_deferred_options_raise_naming_their_item(store, tmp_path,
     if on_mesh:
         mesh = Mesh(2, 1, "cpu")
         monkeypatch.setattr(tsweep, "local_world_is_world", lambda: False)
+    if error is None:
+        monkeypatch.setitem(sys.modules, "wandb", None)  # not importable
+        tsweep.sweep(texp.dense_l1_range_experiment, cfg, device="cpu",
+                     log_every=1, image_metrics_every=None)
+        assert (tmp_path / "o" / "metrics.jsonl").read_text()
+        return
     with pytest.raises(error, match=match):
         tsweep.sweep(texp.dense_l1_range_experiment, cfg, device="cpu",
                      mesh=mesh)

@@ -203,31 +203,38 @@ def test_scan_batches_bit_identical(tmp_path, lm):
             assert np.array_equal(_raw(a, i), _raw(b, i))
 
 
-def test_abort_leaves_whole_chunks_and_no_meta(tmp_path, lm):
+def test_abort_leaves_whole_chunks_and_no_meta(tmp_path, lm, monkeypatch):
     """A forward that fails at its 5th batch: the exception propagates,
     each tap's folder keeps its whole chunks and no meta.json or
-    temporary file; then the mesh path raises, naming its ROADMAP
-    items."""
+    temporary file — on one device and on the mesh path (a 1 × 1 CPU
+    mesh, its sequence-parallel forward failing the same way)."""
+    from sparse_coding_tpu_torch.lm import long_context
+    from sparse_coding_tpu_torch.parallel.mesh import make_mesh
+
     rows = _rows(lm[0], n=28, seed=4)
-    calls = []
 
-    def failing(*args, **kw):
-        calls.append(1)
-        if len(calls) == 5:
-            raise RuntimeError("forward failed")
-        return gptneox.forward(*args, **kw)
+    def failing_at_5(real):
+        calls = []
 
-    with pytest.raises(RuntimeError, match="forward failed"):
-        _run("port", lm, tmp_path, rows, layers=[1], layer_loc="residual",
-             dtype="float16", forward=failing,
-             chunk_size_gb=_gb(lm[0].d_model, 2))
-    folder = tmp_path / "residual.1"
-    assert not (folder / "meta.json").exists()
-    assert sorted(p.name for p in folder.iterdir()) == ["0.npy"]
-    assert _raw(folder, 0).shape == (ROWS_PER_CHUNK, lm[0].d_model)
-    with pytest.raises(NotImplementedError, match="items 11 and 23"):
-        _run("port", lm, tmp_path / "m", rows, layers=[1],
-             layer_loc="residual", mesh=object())
+        def failing(*args, **kw):
+            calls.append(1)
+            if len(calls) == 5:
+                raise RuntimeError("forward failed")
+            return real(*args, **kw)
+        return failing
+
+    monkeypatch.setattr(long_context, "sequence_parallel_forward",
+                        failing_at_5(long_context.sequence_parallel_forward))
+    for out, kw in ((tmp_path, {"forward": failing_at_5(gptneox.forward)}),
+                    (tmp_path / "m", {"mesh": make_mesh(1, 1,
+                                                        device="cpu")})):
+        with pytest.raises(RuntimeError, match="forward failed"):
+            _run("port", lm, out, rows, layers=[1], layer_loc="residual",
+                 dtype="float16", chunk_size_gb=_gb(lm[0].d_model, 2), **kw)
+        folder = out / "residual.1"
+        assert not (folder / "meta.json").exists()
+        assert sorted(p.name for p in folder.iterdir()) == ["0.npy"]
+        assert _raw(folder, 0).shape == (ROWS_PER_CHUNK, lm[0].d_model)
 
 
 def test_chunk_writer_resume_and_abort_as_jax(tmp_path):

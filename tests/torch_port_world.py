@@ -162,7 +162,52 @@ def case_sweep(rank: int, world: int, args) -> dict:
     return out
 
 
-CASES = {"agree": case_agree, "train": case_train, "sweep": case_sweep}
+def case_long_context(rank: int, world: int, args) -> dict:
+    """Ring attention, the sequence-parallel forward and the mesh harvest
+    from a pickled input, on a 1 × world mesh; ring attention also on a
+    2 × (world / 2) mesh when the world is even and above 2 (the ring runs
+    inside each model row). Each rank returns its sequence blocks; rank 0
+    writes the harvest under ``args[1]``."""
+    import dataclasses
+
+    from sparse_coding_tpu_torch.data.harvest import harvest_activations
+    from sparse_coding_tpu_torch.lm.convert import params_from_numpy
+    from sparse_coding_tpu_torch.lm.long_context import (
+        sequence_parallel_forward,
+    )
+    from sparse_coding_tpu_torch.lm.model_config import tiny_test_config
+    from sparse_coding_tpu_torch.lm.ring_attention import ring_attention
+
+    with open(args[0], "rb") as f:
+        inp = pickle.load(f)
+    mesh = _mesh((1, world))
+    q, k, v = (torch.from_numpy(inp["qkv"][i]) for i in range(3))
+
+    def block(t, m):
+        s = t.shape[1] // m.shape["data"]
+        return t[:, m.coords["data"] * s:(m.coords["data"] + 1) * s]
+
+    out = {"ring": ring_attention(block(q, mesh), block(k, mesh),
+                                  block(v, mesh), mesh)}
+    if world > 2 and world % 2 == 0:
+        rows = _mesh((2, world // 2))
+        out["ring_2x"] = ring_attention(block(q, rows), block(k, rows),
+                                        block(v, rows), rows)
+    params = params_from_numpy(inp["params"], device="cpu")
+    tokens = torch.from_numpy(inp["tokens"])
+    for key, (parallel, taps, stop) in inp["forwards"].items():
+        cfg = dataclasses.replace(tiny_test_config("gptneox"),
+                                  parallel_residual=parallel)
+        out[key] = sequence_parallel_forward(params, tokens, cfg, mesh,
+                                             taps=taps, stop_at_layer=stop)
+    out["harvest"] = harvest_activations(
+        params, tiny_test_config("gptneox"), inp["rows"],
+        output_folder=args[1], mesh=mesh, **inp["harvest"])
+    return out
+
+
+CASES = {"agree": case_agree, "train": case_train, "sweep": case_sweep,
+         "long_context": case_long_context}
 
 
 def main(argv) -> None:
